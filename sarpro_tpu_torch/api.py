@@ -1,0 +1,88 @@
+"""File-output API of the port (port of sarpro_tpu/api.py:345-357 and
+:409-487): a dual-pol SAFE to a synthetic-RGB JPEG on the GPU.
+
+Ported so far: fast mode, multiband JPEG, no reprojection (`target_crs`
+unset or "none"), with the Tamed strategy. Everything else raises
+NotImplementedError naming its ROADMAP item.
+"""
+from __future__ import annotations
+
+import logging
+
+import torch
+
+from sarpro_tpu.io.safe import TargetCrsArg
+from sarpro_tpu.params import ProcessingParams
+from sarpro_tpu.types import OutputFormat, ProcessingOperation
+
+from .core import fast_path, fused
+from .io.safe import open_dual_pol
+
+logger = logging.getLogger("sarpro")
+
+
+def _resolve_target_args(params: ProcessingParams):
+    """Map target CRS strings none/auto/custom and resample names
+    (reference: api/mod.rs:544-557, lanczos default)."""
+    t = params.target_crs
+    if t is None:
+        target_arg = None
+    elif t.lower() == "none":
+        target_arg = TargetCrsArg.NONE
+    elif t.lower() == "auto":
+        target_arg = TargetCrsArg.AUTO
+    else:
+        target_arg = t
+    alg = params.resample_alg
+    if alg in ("nearest", "bilinear", "cubic", "lanczos"):
+        resample = alg
+    elif alg is None:
+        # unspecified -> reader heuristic (Average for >=4x reductions), the
+        # reference CLI semantics (runner.rs:61-67)
+        resample = None
+    else:  # unknown name -> lanczos (api/mod.rs:556)
+        resample = "lanczos"
+    return target_arg, resample
+
+
+def process_safe_to_path(input, output, params: ProcessingParams,
+                         fast: bool = False, shard_devices: int = 0,
+                         device="cuda") -> None:
+    """SAFE -> file, driven by ProcessingParams, computing on `device`."""
+    if not fast:
+        raise NotImplementedError("exact mode is not ported yet; pass "
+                                  "fast=True (ROADMAP queue 1, exact mode)")
+    if shard_devices:
+        raise NotImplementedError("multi-GPU sharding is not ported yet "
+                                  "(ROADMAP queue 1, multi-GPU)")
+    target_arg, resample = _resolve_target_args(params)
+    if target_arg not in (None, TargetCrsArg.NONE):
+        raise NotImplementedError("reprojection (--target-crs) is not ported "
+                                  "yet (ROADMAP queue 1, warp)")
+    if params.polarization.kind != "multiband":
+        raise NotImplementedError("single-band and operation polarizations "
+                                  "are not ported yet (ROADMAP queue 1, "
+                                  "gray/TIFF routes)")
+    if params.format is not OutputFormat.JPEG:
+        raise NotImplementedError("TIFF output is not ported yet (ROADMAP "
+                                  "queue 1, gray/TIFF routes)")
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("device 'cuda' requested but CUDA is not available")
+    size = params.size
+
+    def band_stage(dn1):
+        if fast_path._is_big_scene(*dn1.shape, size):
+            return None  # save_multiband_fast rejects the scene
+        return fused.synrgb_band_stage(
+            dn1, strategy=params.autoscale, copol=True, target_size=size,
+            pad=params.pad, resample_alg=resample)
+
+    scene = open_dual_pol(input, device, size, band_stage=band_stage)
+    fast_path.save_multiband_fast(
+        scene.band1, scene.band2, output, params.format, size,
+        scene.metadata, params.pad, params.autoscale,
+        ProcessingOperation.MULTIBAND_VV_VH if scene.is_vvvh
+        else ProcessingOperation.MULTIBAND_HH_HV,
+        params.synrgb_mode, resample_alg=resample,
+        staged_b1=scene.staged_band1)

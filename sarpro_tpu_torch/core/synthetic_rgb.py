@@ -1,0 +1,65 @@
+"""Suppressed-mode synthetic-RGB tables (port of the table builders of
+sarpro_tpu/core/synthetic_rgb.py).
+
+`suppressed_luts` is a copy of the JAX package's host f32 numpy builder (the
+reference's f32 LUT precomputation, synthetic_rgb.rs:115-154); a test holds
+the copy bit-equal to the original for every floor. The port stacks the
+tables of every reachable floor (3..40) on the device, and the composition
+picks one set by the floor it computes in-graph.
+"""
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+GAMMA_B = np.float32(0.1)
+GAMMA_R_SUPP = np.float32(1.15)
+GAMMA_G_SUPP = np.float32(1.10)
+BLUE_SCALE_SUPP = np.float32(0.18)
+EPS_SUPP = np.float32(8.0)
+
+# reachable suppressed floors: the p05 floor + 3 cushion, capped at 40
+FLOOR_MIN, FLOOR_MAX = 3, 40
+
+
+def _round_half_away_f32(x: np.ndarray) -> np.ndarray:
+    return np.trunc(x + np.copysign(np.float32(0.5), x).astype(np.float32))
+
+
+def suppressed_luts(floor_with_cushion: int):
+    """LUTs for the maritime-suppressed mapping: (lut_r (256,), lut_g
+    (256,), lut_b (65536,) flat index b1 * 256 + b2), u8."""
+    floor = np.float32(floor_with_cushion)
+    denom = np.float32(max(255.0 - float(floor_with_cushion), 1.0))
+    v = np.arange(256, dtype=np.float32)
+    shifted = (v - floor) / denom
+    r_f = _round_half_away_f32(np.power(shifted, GAMMA_R_SUPP, where=shifted > 0, out=np.zeros_like(shifted)) * np.float32(255.0))
+    g_f = _round_half_away_f32(np.power(shifted, GAMMA_G_SUPP, where=shifted > 0, out=np.zeros_like(shifted)) * np.float32(255.0))
+    lut_r = np.clip(r_f, 0, 255).astype(np.uint8)
+    lut_g = np.clip(g_f, 0, 255).astype(np.uint8)
+    below = v <= floor  # `(v as u8) <= floor_with_cushion` (reference: :125)
+    lut_r[below] = 0
+    lut_g[below] = 0
+
+    r = lut_r.astype(np.float32)[:, None]
+    g = lut_g.astype(np.float32)[None, :]
+    ratio = (r + EPS_SUPP) / (g + EPS_SUPP)
+    blue_f = np.power(ratio, GAMMA_B) * np.float32(255.0) * BLUE_SCALE_SUPP
+    blue = _round_half_away_f32(np.clip(blue_f, 0.0, 255.0)).astype(np.uint8)
+    return lut_r, lut_g, blue.reshape(-1)
+
+
+@functools.lru_cache(maxsize=1)
+def _suppressed_table_sets_np() -> np.ndarray:
+    return np.stack([np.concatenate(suppressed_luts(f))
+                     for f in range(FLOOR_MIN, FLOOR_MAX + 1)])
+
+
+@functools.lru_cache(maxsize=4)
+def suppressed_table_sets(device: torch.device) -> torch.Tensor:
+    """(38, 66048) u8 on `device`: for floor f, row f - 3 holds
+    [lut_r | lut_g | lut_b] of `suppressed_luts(f)` (about 2.5 MB)."""
+    return torch.from_numpy(_suppressed_table_sets_np()).to(
+        device, non_blocking=True)

@@ -1,0 +1,56 @@
+"""The port runs without jax, Pillow or cv2: the machine with the GPU has
+none of them."""
+import re
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+import pytest
+
+pytest.importorskip("torch")
+
+REPO = Path(__file__).resolve().parents[1]
+PORT = REPO / "sarpro_tpu_torch"
+
+
+def test_port_sources_import_no_jax_pillow_or_cv2():
+    pattern = re.compile(
+        r"^\s*(import|from)\s+(jax|jaxlib|PIL|cv2|ml_dtypes)\b", re.M)
+    offenders = [str(p.relative_to(REPO)) for p in PORT.rglob("*.py")
+                 if pattern.search(p.read_text())]
+    offenders += [m for m in ("chip_smoke.py",)
+                  if pattern.search((REPO / m).read_text())]
+    assert offenders == []
+
+
+def test_cpu_slice_runs_with_jax_and_pillow_blocked(tmp_path):
+    script = textwrap.dedent("""
+        import pkgutil, sys
+        for name in ("jax", "jaxlib", "PIL", "cv2", "ml_dtypes"):
+            sys.modules[name] = None  # any import of them now fails
+        sys.path[:0] = [sys.argv[1], sys.argv[1] + "/tests"]
+        from pathlib import Path
+        import sarpro_tpu_torch
+        for m in pkgutil.walk_packages(sarpro_tpu_torch.__path__,
+                                       "sarpro_tpu_torch."):
+            __import__(m.name)
+        import fixtures
+        from sarpro_tpu_torch import cli
+        from sarpro_tpu_torch.io.writers import jpeg
+
+        got = []
+        jpeg.write_synrgb_jpeg_dct = lambda o, c, r, co: got.append(co.shape)
+        safe = fixtures.make_safe(Path(sys.argv[2]), shape=(200, 300))
+        rc = cli.run(["-i", str(safe), "-o", sys.argv[2] + "/o.jpg", "-f",
+                      "jpeg", "--polarization", "multiband", "--autoscale",
+                      "tamed", "--size", "64", "--pad", "--fast"],
+                     device="cpu")
+        assert rc == 0 and got == [(3, 8, 8, 8, 8)], (rc, got)
+        print("ok")
+    """)
+    res = subprocess.run([sys.executable, "-c", script, str(REPO),
+                          str(tmp_path)], capture_output=True, text=True,
+                         timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().endswith("ok")

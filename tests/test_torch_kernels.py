@@ -1,0 +1,162 @@
+"""The port's kernel wrappers on the CPU (their plain PyTorch versions)
+against the JAX package: its XLA fallbacks, and its Pallas kernel bodies run
+in interpret mode. The Hopper kernels themselves are checked against these
+plain versions on the card by chip_smoke.py."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from sarpro_tpu.core import resize as jresize  # noqa: E402
+from sarpro_tpu.core import synthetic_rgb as jsyn  # noqa: E402
+from sarpro_tpu.ops import kernels as JK  # noqa: E402
+from sarpro_tpu.ops import resample_kernel as JRK  # noqa: E402
+from sarpro_tpu_torch import ops  # noqa: E402
+from sarpro_tpu_torch.core import synthetic_rgb as tsyn  # noqa: E402
+from sarpro_tpu_torch.ops import _cuda  # noqa: E402
+
+# f32 sum order differs (the JAX package's own bound,
+# tests/test_pallas_interpret.py:204)
+RESAMPLE_TOL = dict(rtol=2e-6, atol=2e-2)
+
+
+@pytest.mark.parametrize("num_bins", [4096, 256])
+def test_histogram_matches_xla_and_pallas(rng, num_bins):
+    n = 70_000
+    bins = rng.integers(0, num_bins, n).astype(np.int32)
+    idx = np.where(rng.random(n) < 0.9, bins, num_bins).astype(np.int32)
+    idx[:5] = num_bins + 7  # past the overflow index: dropped as well
+    got = ops.histogram(torch.from_numpy(idx), num_bins).numpy()
+    assert got.dtype == np.int32
+    np.testing.assert_array_equal(
+        got, np.asarray(JK._histogram_xla(jnp.asarray(idx), num_bins)))
+    with JK.pallas_interpret():
+        want = np.asarray(JK.histogram(jnp.asarray(idx), num_bins))
+    np.testing.assert_array_equal(got, want)
+
+
+def test_histogram_two_u8_bands_equal_concatenated(rng):
+    b1 = rng.integers(0, 256, (37, 41)).astype(np.uint8)
+    b2 = rng.integers(0, 256, (37, 41)).astype(np.uint8)
+    got = ops.histogram((torch.from_numpy(b1).reshape(-1),
+                         torch.from_numpy(b2).reshape(-1)), 256).numpy()
+    both = np.concatenate([b1.ravel(), b2.ravel()]).astype(np.int32)
+    np.testing.assert_array_equal(
+        got, np.asarray(JK._histogram_xla(jnp.asarray(both), 256)))
+
+
+def test_histogram_rejects_bad_input():
+    with pytest.raises(TypeError):
+        ops.histogram(torch.zeros(4, dtype=torch.float32), 16)
+    with pytest.raises(TypeError):
+        ops.histogram((torch.zeros(4, dtype=torch.int32),
+                       torch.zeros(4, dtype=torch.uint8)), 16)
+    with pytest.raises(ValueError):
+        ops.histogram(torch.zeros(4, dtype=torch.int32), 1 << 20)
+
+
+def _all_pairs():
+    a = np.arange(256, dtype=np.uint8)
+    return np.repeat(a, 256), np.tile(a, 256)
+
+
+def test_synrgb_lookup_every_pair_every_floor():
+    p1, p2 = _all_pairs()
+    t1, t2 = torch.from_numpy(p1), torch.from_numpy(p2)
+    sets = tsyn.suppressed_table_sets(torch.device("cpu"))
+    for f in range(3, 41):
+        si = torch.tensor(f - 3, dtype=torch.int32)
+        got = ops.synrgb_lookup(t1, t2, sets, set_index=si).numpy()
+        lr, lg, lb = jsyn.suppressed_luts(f)
+        want = np.asarray(JK._synrgb_lookup_xla(
+            jnp.asarray(p1), jnp.asarray(p2), jnp.asarray(lr),
+            jnp.asarray(lg), jnp.asarray(lb)))
+        np.testing.assert_array_equal(got, want, err_msg=f"floor {f}")
+
+
+@pytest.mark.parametrize("floor", [3, 11, 40])
+def test_synrgb_lookup_matches_formula_kernel_interpret(floor):
+    """The TPU route (formula + correction list, Pallas interpret mode) and
+    the port's table lookup give the same bytes, water mask included."""
+    p1, p2 = _all_pairs()
+    with JK.pallas_interpret():
+        rgb = np.asarray(JK.synrgb_lookup_formula(
+            jnp.asarray(p1), jnp.asarray(p2),
+            *jsyn.suppressed_formula_tables(floor), guard_b2=False))
+    want = np.asarray(jsyn._water_mask(
+        jnp.asarray(p1), jnp.asarray(p2), jnp.asarray(rgb), floor))
+    fl = torch.tensor(floor, dtype=torch.int32)
+    got = ops.synrgb_lookup(
+        torch.from_numpy(p1), torch.from_numpy(p2),
+        tsyn.suppressed_table_sets(torch.device("cpu")),
+        set_index=fl - 3, water_floor=fl).numpy()
+    np.testing.assert_array_equal(got, want)
+
+
+def test_synrgb_lookup_rejects_bad_input():
+    b = torch.zeros(8, dtype=torch.uint8)
+    sets = tsyn.suppressed_table_sets(torch.device("cpu"))
+    with pytest.raises(TypeError):
+        ops.synrgb_lookup(b.to(torch.int32), b, sets)
+    with pytest.raises(ValueError):
+        ops.synrgb_lookup(b, b, sets[:, :256])
+    with pytest.raises(TypeError):
+        ops.synrgb_lookup(b, b, sets, set_index=torch.tensor(0))
+
+
+def _resample_input(rng, dtype, shape):
+    if dtype == "u16":
+        return rng.integers(0, 65535, shape).astype(np.uint16)
+    return (rng.lognormal(5.0, 1.1, shape)).astype(np.float32)
+
+
+@pytest.mark.parametrize("dtype", ["u16", "f32"])
+@pytest.mark.parametrize("filt", ["cubic", "average", "lanczos", "bilinear"])
+def test_resample_matches_tap_loop_and_banded_kernel(rng, dtype, filt):
+    in_size, out_size, cols = 512, 120, 256
+    x = _resample_input(rng, dtype, (in_size, cols))
+    got = ops.band_resample_axis0(torch.from_numpy(x), in_size, out_size,
+                                  filt).numpy()
+    s, w = jresize._build_coeffs(in_size, out_size, filt)
+    want = np.asarray(jresize._resample_axis0(jnp.asarray(x), jnp.asarray(s),
+                                              jnp.asarray(w)))
+    assert got.shape == want.shape == (out_size, cols)
+    np.testing.assert_allclose(got, want, **RESAMPLE_TOL)
+    with JK.pallas_interpret():
+        kern = JRK.band_resample_axis0(jnp.asarray(x), in_size, out_size,
+                                       filt)
+    assert kern is not None
+    np.testing.assert_allclose(got, np.asarray(kern), **RESAMPLE_TOL)
+
+
+def test_resample_any_shape_and_upsample(rng):
+    """Shapes the TPU kernel declines (ragged columns, few rows, upsampling)
+    go through the same wrapper."""
+    x = _resample_input(rng, "f32", (37, 5))
+    for out_size in (9, 80):
+        got = ops.band_resample_axis0(torch.from_numpy(x), 37, out_size,
+                                      "lanczos").numpy()
+        s, w = jresize._build_coeffs(37, out_size, "lanczos")
+        want = np.asarray(jresize._resample_axis0(
+            jnp.asarray(x), jnp.asarray(s), jnp.asarray(w)))
+        np.testing.assert_allclose(got, want, **RESAMPLE_TOL)
+
+
+def test_cpu_tensors_take_plain_path_without_launches(rng):
+    ops.reset_launch_counts()
+    idx = torch.from_numpy(rng.integers(0, 300, 1000).astype(np.int32))
+    ops.histogram(idx, 256)
+    x = torch.from_numpy(rng.integers(0, 999, (40, 8)).astype(np.uint16))
+    ops.band_resample_axis0(x, 40, 10, "cubic")
+    assert ops.launch_counts() == {"histogram": 0, "resample_axis0": 0,
+                                   "synrgb_lookup": 0}
+
+
+def test_force_plain_nests_and_restores():
+    assert not _cuda._FORCE_PLAIN
+    with ops.force_plain():
+        with ops.force_plain():
+            assert _cuda._FORCE_PLAIN
+        assert _cuda._FORCE_PLAIN
+    assert not _cuda._FORCE_PLAIN

@@ -1,0 +1,168 @@
+"""The port's whole slice on the CPU: the CLI on a synthetic dual-pol SAFE
+against the JAX package's fused program on the same DN, and the sidecar
+files against the JAX package's own file route.
+
+The native entropy coder is not built in every test environment, so the
+coefficient blocks handed to the port's JPEG writer are captured and
+compared; the encoder itself is covered by tests/test_native.py.
+"""
+import json
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import fixtures  # noqa: E402
+from sarpro_tpu import api as japi  # noqa: E402
+from sarpro_tpu.cli import _params_from_args, build_parser  # noqa: E402
+from sarpro_tpu.core import fused as jf  # noqa: E402
+from sarpro_tpu.io.tiffio import TiffReader  # noqa: E402
+from sarpro_tpu.types import AutoscaleStrategy  # noqa: E402
+from sarpro_tpu_torch import api as tapi  # noqa: E402
+from sarpro_tpu_torch import cli as tcli  # noqa: E402
+from sarpro_tpu_torch.core import fused as tf  # noqa: E402
+from sarpro_tpu_torch.io.writers import jpeg as tjpeg  # noqa: E402
+
+TAMED = AutoscaleStrategy.TAMED
+
+
+@pytest.fixture(scope="module")
+def scene(tmp_path_factory):
+    safe = fixtures.make_safe(tmp_path_factory.mktemp("slice"),
+                              shape=(1200, 1600))
+    dn = {p: TiffReader(next((safe / "measurement").glob(f"*-{p}-*"))).read(1)
+          for p in ("vv", "vh")}
+    return safe, dn["vv"].astype(np.uint16), dn["vh"].astype(np.uint16)
+
+
+def _argv(safe, out, size, alg):
+    argv = ["-i", str(safe), "-o", str(out), "-f", "jpeg", "--polarization",
+            "multiband", "--autoscale", "tamed", "--size", str(size), "--pad",
+            "--fast"]
+    return argv + (["--resample-alg", alg] if alg else [])
+
+
+@pytest.fixture
+def captured(monkeypatch):
+    calls = []
+
+    def capture(output, cols, rows, coeffs):
+        calls.append((output, cols, rows, coeffs))
+        open(output, "wb").close()
+
+    monkeypatch.setattr(tjpeg, "write_synrgb_jpeg_dct", capture)
+    return calls
+
+
+def _block_agree(rgb_a, rgb_b):
+    """(bh, bw) mask of the 8x8 blocks whose pixels agree in every channel
+    (edge-replicated like the encoder's partial blocks)."""
+    same = np.all(rgb_a == rgb_b, axis=-1)
+    h, w = same.shape
+    same = np.pad(same, ((0, -h % 8), (0, -w % 8)), mode="edge")
+    return same.reshape(same.shape[0] // 8, 8, -1, 8).all(axis=(1, 3))
+
+
+@pytest.mark.parametrize("size,alg", [(512, "cubic"), (400, None)])
+def test_cli_slice_matches_jax_program(scene, captured, tmp_path, size, alg):
+    safe, vv, vh = scene
+    assert tcli.run(_argv(safe, tmp_path / "out.jpg", size, alg),
+                    device="cpu") == 0
+    (_, cols, rows, coeffs), = captured
+    assert (cols, rows) == (size, size)
+    assert coeffs.shape == (3, size // 8, size // 8, 8, 8)
+
+    kw = dict(strategy=TAMED, target_size=size, pad=True, resample_alg=alg)
+    jb = [np.asarray(jf.synrgb_band_stage(d, copol=c, **kw))
+          for d, c in ((vv, True), (vh, False))]
+    tb = [tf.synrgb_band_stage(torch.from_numpy(d), copol=c, **kw)
+          for d, c in ((vv, True), (vh, False))]
+    for j, t in zip(jb, tb):
+        d = np.abs(j.astype(int) - t.numpy().astype(int))
+        print(f"size {size} {alg}: band share differing {(d > 0).mean():.2e}")
+        assert d.max() <= 1
+    jhist = np.bincount(np.concatenate([b.ravel() for b in jb]),
+                        minlength=256).astype(np.int32)
+    thist = tf.histogram((tb[0].reshape(-1), tb[1].reshape(-1)), 256)
+    total = 2 * size * size
+    assert int(tf._suppressed_floor(thist, total)) == float(
+        jf._suppressed_floor(jnp.asarray(jhist), total))
+
+    j_rgb = np.asarray(jf.synrgb_pipeline(vv, vh, channel_order="rgb", **kw))
+    j_dct = np.asarray(jf.synrgb_pipeline(vv, vh, channel_order="dct", **kw))
+    t_rgb = tf.synrgb_pipeline(torch.from_numpy(vv), torch.from_numpy(vh),
+                               channel_order="rgb", **kw).numpy()
+    both = (jb[0] == tb[0].numpy()) & (jb[1] == tb[1].numpy())
+    np.testing.assert_array_equal(t_rgb[both], j_rgb[both])
+    agree = _block_agree(t_rgb, j_rgb)
+    assert agree.mean() > 0.9
+    d = np.abs(coeffs.astype(int) - j_dct.astype(int))
+    assert d[:, agree].max() <= 1
+    # the CLI handed the writer exactly what the stage API computes
+    np.testing.assert_array_equal(
+        coeffs, tf.synrgb_combine_stage(tb[0], tb[1], TAMED, None,
+                                        "dct").numpy())
+
+
+def test_sidecars_match_jax_route(scene, captured, tmp_path):
+    safe = scene[0]
+    t_out, j_out = tmp_path / "t" / "out.jpg", tmp_path / "j" / "out.jpg"
+    t_out.parent.mkdir()
+    j_out.parent.mkdir()
+    argv = _argv(safe, j_out, 512, "cubic")
+    japi.process_safe_to_path(safe, j_out,
+                              _params_from_args(build_parser().parse_args(argv)),
+                              fast=True)
+    assert tcli.run(_argv(safe, t_out, 512, "cubic"), device="cpu") == 0
+    for ext in (".jgw", ".prj"):
+        assert t_out.with_suffix(ext).read_bytes() == \
+            j_out.with_suffix(ext).read_bytes()
+    t_meta = json.loads(t_out.with_suffix(".json").read_text())
+    j_meta = json.loads(j_out.with_suffix(".json").read_text())
+    assert t_meta["geotransform"] == j_meta["geotransform"]
+    assert t_meta == j_meta
+
+
+def _params(argv):
+    return _params_from_args(build_parser().parse_args(argv))
+
+
+@pytest.mark.parametrize("extra,kwargs", [
+    (["-f", "tiff", "--polarization", "multiband"], {"fast": True}),
+    (["-f", "jpeg", "--polarization", "vv"], {"fast": True}),
+    (["-f", "jpeg", "--polarization", "multiband", "--target-crs", "auto"],
+     {"fast": True}),
+    (["-f", "jpeg", "--polarization", "multiband"], {"fast": False}),
+    (["-f", "jpeg", "--polarization", "multiband"],
+     {"fast": True, "shard_devices": 2}),
+])
+def test_unported_routes_raise(scene, tmp_path, extra, kwargs):
+    params = _params(["--autoscale", "tamed", "--size", "64"] + extra)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tapi.process_safe_to_path(scene[0], tmp_path / "o.jpg", params,
+                                  device="cpu", **kwargs)
+
+
+def test_batch_mode_raises(tmp_path):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tcli.run(["--input-dir", str(tmp_path), "--output-dir",
+                  str(tmp_path), "--fast"], device="cpu")
+
+
+def test_cuda_device_needs_cuda(scene, tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    params = _params(["-f", "jpeg", "--polarization", "multiband",
+                      "--autoscale", "tamed", "--size", "64"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tapi.process_safe_to_path(scene[0], tmp_path / "o.jpg", params,
+                                  fast=True)
+
+
+def test_writer_needs_native_codec(monkeypatch, tmp_path):
+    monkeypatch.setattr(tjpeg._native, "available", lambda: False)
+    with pytest.raises(RuntimeError, match="native/build.py"):
+        tjpeg.write_synrgb_jpeg_dct(tmp_path / "o.jpg", 8, 8,
+                                    np.zeros((3, 1, 1, 8, 8), np.int16))
