@@ -7,17 +7,26 @@ Phases, each of which raises on failure (the script then exits non-zero and
 prints no result):
   1. environment: a CUDA device is required; prints the card's name and
      power limit, the torch and CUDA versions; TF32 off;
-  2. build: the native JPEG entropy coder (native/build.py) if absent, and
-     the Hopper kernels (sarpro_tpu_torch/csrc) from source;
+  2. build: the native codec and box reducer (native/build.py) if absent,
+     and the Hopper kernels (sarpro_tpu_torch/csrc) from source;
   3. kernels: each kernel against its plain PyTorch version on the card, at
      the shapes the slice gives it, with CUDA-event timings of both;
   4. slice: a 20000 x 20000 dual-pol SAFE (tests/fixtures.make_safe, random
-     DN from a seed) through the port's CLI to a 2048 Tamed synRGB JPEG,
-     twice with cubic resampling and once with the default filter; the warm
-     run's kernel launch counts must all be positive; the JPEG's first MCUs
-     are entropy-decoded and must equal the device's coefficient blocks;
-  5. the device stages once more on the resident DN, with host syncs made
-     errors, and under force_plain(); the bands must agree within 1.
+     DN from a seed) through the port's CLI to 2048 synRGB JPEGs: CLAHE with
+     auto-UTM warp, pad and cubic (cold, then warm), Tamed with the same
+     warp (warm), and Tamed without warp (warm cubic, warm default filter).
+     Each warm path is driven with the launch counts set to 0 just before it
+     and read just after: the CLAHE warp path must launch histogram,
+     tile_histogram, clahe_lookup, warp_sample and synrgb_lookup and take
+     the host box reduce; the Tamed warp path histogram, warp_sample and
+     synrgb_lookup; the no-warp path histogram, resample_axis0 and
+     synrgb_lookup. The warp paths' .prj must name a UTM CRS;
+  5. resident: the band and combine stages once more on the device-resident
+     bands (the warped ones for CLAHE, the DN for Tamed), with host syncs
+     made errors, and under force_plain(); the bands must agree within 1 and
+     the rgb where they agree; the JPEG's first MCUs are entropy-decoded
+     and must equal the device's coefficient blocks. A breakdown of the warp
+     path's time is printed.
 Then one JSON line of the kernels, the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}.
 """
@@ -34,15 +43,35 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SIDE = 20000  # 400 MP per band, the reference's published scene size
 SIZE = 2048
+MID = 2380  # the host-reduced source of the 20000^2 -> 2048 auto-UTM warp
+DEVICE = "cuda"
 RESAMPLE_TOL = dict(rtol=2e-6, atol=2e-2)
+# kernel -> (source, the TPU kernel body it replaces[, a second body])
 KERNELS = {
     "histogram": ("sarpro_tpu_torch/csrc/histogram.cu",
                   "sarpro_tpu/ops/kernels.py:107"),
+    "tile_histogram": ("sarpro_tpu_torch/csrc/tile_histogram.cu",
+                       "sarpro_tpu/ops/kernels.py:202"),
+    "clahe_lookup": ("sarpro_tpu_torch/csrc/clahe_lookup.cu",
+                     "sarpro_tpu/ops/kernels.py:352"),
     "resample_axis0": ("sarpro_tpu_torch/csrc/resample.cu",
                        "sarpro_tpu/ops/resample_kernel.py:87"),
     "synrgb_lookup": ("sarpro_tpu_torch/csrc/synrgb.cu",
-                      "sarpro_tpu/ops/kernels.py:635"),
+                      "sarpro_tpu/ops/kernels.py:635",
+                      "sarpro_tpu/ops/kernels.py:581"),
+    "warp_sample": ("sarpro_tpu_torch/csrc/warp.cu",
+                    "sarpro_tpu/ops/warp_kernel.py:67"),
 }
+# the kernels each warm path of the slice phase must launch
+PATHS = {
+    "warm clahe auto": ("histogram", "tile_histogram", "clahe_lookup",
+                        "warp_sample", "synrgb_lookup"),
+    "warm tamed auto": ("histogram", "warp_sample", "synrgb_lookup"),
+    "warm tamed cubic": ("histogram", "resample_axis0", "synrgb_lookup"),
+}
+# the path whose launch count each kernel reports in the kernels line
+REPORTED_PATH = {k: ("warm tamed cubic" if k == "resample_axis0"
+                     else "warm clahe auto") for k in KERNELS}
 
 
 def log(msg: str) -> None:
@@ -113,7 +142,7 @@ def phase_kernels(results):
     from sarpro_tpu_torch.core import resize, synthetic_rgb
     from sarpro_tpu_torch.ops import kernels, resample_kernel
 
-    dev = torch.device("cuda")
+    dev = torch.device(DEVICE)
     g = torch.Generator(device=dev).manual_seed(0)
 
     def record(name, err, ms, plain_ms):
@@ -207,7 +236,118 @@ def phase_kernels(results):
     log(f"resample f32 ({SIDE}, {SIZE}) -> {SIZE} rows, cubic: max|err| "
         f"{err:.3g}, kernel {ms:.4f} ms, plain {pms:.4f} ms")
     record("resample_axis0", err, None, None)
+    del xt, got, want
     torch.cuda.synchronize()
+    _kernels_clahe(dev, g, record)
+    _kernels_warp(dev, g, record)
+
+
+def _check_equal(got, want, what):
+    """Bit-equality of a kernel with its plain version (NaN never occurs in
+    these outputs)."""
+    import torch
+
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError(f"{what}: {got.dtype} {tuple(got.shape)} vs "
+                             f"{want.dtype} {tuple(want.shape)}")
+    if not torch.equal(got, want):
+        d = (got.double() - want.double()).abs()
+        raise AssertionError(f"{what}: kernel differs from plain, max|err| "
+                             f"{d.max().item():.3g} on "
+                             f"{(d > 0).sum().item()} elements")
+
+
+def _kernels_clahe(dev, g, record):
+    """tile_histogram and clahe_lookup at the slice's 2048^2 band: SAR-like
+    bins crowding the middle of the 256, 2 % masked."""
+    import torch
+
+    from sarpro_tpu_torch.core import clahe, fused
+    from sarpro_tpu_torch.ops import kernels
+
+    n, tile = SIZE * SIZE, -(-SIZE // clahe.TILES_Y)
+    bins = (torch.randn(n, device=dev, generator=g) * 40 + 128).clamp(
+        0, 255).to(torch.int32)
+    bins[torch.rand(n, device=dev, generator=g) < 0.02] = clahe.CLAHE_BINS
+    grid = (SIZE, 8, 8, tile, tile)
+    got = kernels.tile_histogram(bins, *grid)
+    want = kernels._tile_histogram_plain(bins, *grid, 0, 256)
+    _check_equal(got, want, "tile_histogram")
+    # a row chunk placed by row_offset counts into its global tile rows
+    half = SIZE // 2 * SIZE
+    got = (kernels.tile_histogram(bins[:half], *grid)
+           + kernels.tile_histogram(bins[half:], *grid, row_offset=SIZE // 2))
+    _check_equal(got, want, "tile_histogram with row_offset")
+    for off in (SIZE // 2, 3):
+        _check_equal(
+            kernels.tile_histogram(bins[half:], *grid, row_offset=off),
+            kernels._tile_histogram_plain(bins[half:], *grid, off, 256),
+            f"tile_histogram row_offset={off}")
+    ms = median_ms(lambda: kernels.tile_histogram(bins, *grid))
+    pms = median_ms(lambda: kernels._tile_histogram_plain(bins, *grid, 0,
+                                                          256))
+    log(f"tile_histogram 8x8 tiles x 256 bins over {n}: exact, kernel "
+        f"{ms:.4f} ms, plain {pms:.4f} ms")
+    record("tile_histogram", 0, ms, pms)
+
+    cdfs = fused._clahe_cdfs(want, SIZE, SIZE, tile, tile)
+    got = kernels.clahe_lookup(bins, cdfs, *grid)
+    want = kernels._clahe_lookup_plain(bins, cdfs, *grid, 0)
+    _check_equal(got, want, "clahe_lookup")
+    _check_equal(kernels.clahe_lookup(bins[half:], cdfs, *grid,
+                                      row_offset=SIZE // 2),
+                 want[half:], "clahe_lookup with row_offset")
+    ms = median_ms(lambda: kernels.clahe_lookup(bins, cdfs, *grid))
+    pms = median_ms(lambda: kernels._clahe_lookup_plain(bins, cdfs, *grid, 0))
+    log(f"clahe_lookup over {n}: bit-equal, kernel {ms:.4f} ms, plain "
+        f"{pms:.4f} ms")
+    record("clahe_lookup", 0, ms, pms)
+
+
+def warp_grid(side_src: int, side_out: int, angle_deg: float = 12.0,
+              margin: float = 0.08, nodes: int = 66):
+    """A rotated, scaled inverse mapping over `nodes`^2 grid nodes that
+    reaches `margin` of the source outside it on every side (numpy f64)."""
+    import numpy as np
+
+    t = np.linspace(-0.5, 0.5, nodes)
+    u, v = np.meshgrid(t, t)
+    a = np.deg2rad(angle_deg)
+    span = side_src * (1 + 2 * margin)
+    x = (np.cos(a) * u - np.sin(a) * v) * span + side_src / 2 - 0.5
+    y = (np.sin(a) * u + np.cos(a) * v) * span + side_src / 2 - 0.5
+    return x, y
+
+
+def _kernels_warp(dev, g, record):
+    """warp_sample on a ~2560^2 f32 source -> 2048^2, rotated grid with an
+    out-of-bounds margin and NaN nodes, for each method."""
+    import torch
+
+    from sarpro_tpu_torch.io import warp
+    from sarpro_tpu_torch.ops import warp_kernel
+
+    src = torch.exp(torch.randn((MID, MID), device=dev, generator=g) * 1.1
+                    + 5.0)
+    mx, my = warp_grid(MID, SIZE)
+    mx[3, 5] = mx[40, 60] = float("nan")  # out-of-domain grid nodes
+    my[10, 10] = float("nan")
+    gx, gy = warp.plan_grids_to_device(mx, my, dev)
+    for method in ("near", "bilinear", "cubic"):
+        args = (src, gx, gy, SIZE, SIZE, method)
+        got = warp_kernel.warp_sample(*args)
+        want = warp_kernel._warp_sample_plain(*args)
+        _check_equal(got, want, f"warp_sample {method}")
+        if not torch.isfinite(got).all():
+            raise AssertionError(f"warp_sample {method}: non-finite output")
+        zero = (got == 0).float().mean().item()
+        ms = median_ms(lambda: warp_kernel.warp_sample(*args))
+        pms = median_ms(lambda: warp_kernel._warp_sample_plain(*args), reps=5)
+        log(f"warp_sample {method} {MID}^2 -> {SIZE}^2, 66^2 grid, NaN "
+            f"nodes: bit-equal, share 0 (outside) {zero:.3f}, kernel "
+            f"{ms:.4f} ms, plain {pms:.4f} ms")
+        record("warp_sample", 0, *((ms, pms) if method == "cubic"
+                                   else (None, None)))
 
 
 def _check_close(got, want, what):
@@ -231,6 +371,7 @@ def phase_slice(work: Path):
     import torch
 
     from sarpro_tpu_torch import cli, ops
+    from sarpro_tpu_torch.io import raster
 
     t0 = time.perf_counter()
     # the scene is written by a child process, whose ~7 GB of numpy
@@ -245,35 +386,52 @@ def phase_slice(work: Path):
     safe = next(work.glob("*.SAFE"))
     log(f"slice: wrote {safe.name} ({SIDE}x{SIDE} u16 VV+VH) in "
         f"{time.perf_counter() - t0:.1f} s")
-    out = work / "out.jpg"
-    argv = ["-i", str(safe), "-o", str(out), "-f", "jpeg", "--polarization",
-            "multiband", "--autoscale", "tamed", "--size", str(SIZE),
-            "--pad", "--fast"]
-    walls = {}
-    for label, extra in (("cold cubic", ["--resample-alg", "cubic"]),
-                         ("warm cubic", ["--resample-alg", "cubic"]),
-                         ("warm average", [])):
-        if label == "warm cubic":
-            ops.reset_launch_counts()
+    base = ["-i", str(safe), "-f", "jpeg", "--polarization", "multiband",
+            "--size", str(SIZE), "--pad", "--fast"]
+    auto = ["--target-crs", "auto", "--resample-alg", "cubic"]
+    runs = (("cold clahe auto", "clahe", auto),
+            ("warm clahe auto", "clahe", auto),
+            ("warm tamed auto", "tamed", auto),
+            ("warm tamed cubic", "tamed", ["--resample-alg", "cubic"]),
+            ("warm average", "tamed", []))
+    walls, counts, blobs = {}, {}, {}
+    for label, strategy, extra in runs:
+        out = work / f"{label.replace(' ', '_')}.jpg"
+        ops.reset_launch_counts()
+        for k in raster.ROUTES:
+            raster.ROUTES[k] = 0
         t0 = time.perf_counter()
-        if cli.run(argv + extra) != 0:
+        if cli.run(base + ["-o", str(out), "--autoscale", strategy]
+                   + extra, device=DEVICE) != 0:
             raise RuntimeError(f"cli.run failed ({label})")
         torch.cuda.synchronize()
         walls[label] = time.perf_counter() - t0
-        if label == "warm cubic":
-            counts = ops.launch_counts()
-            blob = out.read_bytes()
+        counts[label] = ops.launch_counts()
+        routes = dict(raster.ROUTES)
+        blobs[label] = out.read_bytes()
         log(f"slice: {label} wall {walls[label] * 1e3:.1f} ms")
-    log(f"slice: launches in the warm cubic run {counts}")
-    for k, v in counts.items():
-        if v <= 0:
-            raise AssertionError(f"kernel {k} was not launched by the slice")
-    if blob[:2] != b"\xff\xd8" or blob[-2:] != b"\xff\xd9":
-        raise AssertionError("output is not a JPEG (SOI/EOI)")
-    for ext in (".jgw", ".json", ".prj"):
-        if not out.with_suffix(ext).exists():
-            raise AssertionError(f"missing sidecar {ext}")
-    return safe, blob, counts, walls
+        if blobs[label][:2] != b"\xff\xd8" or blobs[label][-2:] != b"\xff\xd9":
+            raise AssertionError(f"{label}: output is not a JPEG (SOI/EOI)")
+        for ext in (".jgw", ".json", ".prj"):
+            if not out.with_suffix(ext).exists():
+                raise AssertionError(f"{label}: missing sidecar {ext}")
+        if "auto" in label:
+            prj = out.with_suffix(".prj").read_text()
+            if "UTM" not in prj:
+                raise AssertionError(f"{label}: .prj names no UTM CRS: "
+                                     f"{prj[:80]}")
+            log(f"slice: {label} .prj {prj.split(',')[0]}")
+        if label in PATHS:
+            log(f"slice: launches in the {label} run {counts[label]}, "
+                f"decimated-read routes {routes}")
+            for k in PATHS[label]:
+                if counts[label][k] <= 0:
+                    raise AssertionError(f"kernel {k} was not launched by "
+                                         f"the {label} run")
+        if label == "warm clahe auto" and routes["host_reduce"] != 2:
+            raise AssertionError(f"{label}: the bands did not take the host "
+                                 f"box reduce ({routes})")
+    return safe, blobs, counts, walls
 
 
 def _breakdown(scene, kw):
@@ -299,38 +457,92 @@ def _breakdown(scene, kw):
     n = SIZE + (-SIZE) % 8
     blob = jpeg._native.jpeg_encode_coeffs444(co[0], co[1], co[2], n, n)
     t2 = time.perf_counter()
-    log(f"breakdown: device band1 {ev[0].elapsed_time(ev[1]):.3f} ms, band2 "
+    log(f"breakdown ({kw['strategy'].value}): device band1 "
+        f"{ev[0].elapsed_time(ev[1]):.3f} ms, band2 "
         f"{ev[1].elapsed_time(ev[2]):.3f} ms, combine+dct "
         f"{ev[2].elapsed_time(ev[3]):.3f} ms; host copy-back "
         f"{(t1 - t0) * 1e3:.2f} ms, entropy coding {(t2 - t1) * 1e3:.2f} ms "
         f"({len(blob)} bytes)")
 
 
-def phase_resident(safe: Path, blob: bytes):
+def _breakdown_warp(safe: Path):
+    """The CLAHE auto-UTM path step by step, each step finished before the
+    next (the CLI overlaps the chunked uploads with the host reduce): host
+    read + box reduce, auto-CRS and plan, upload (host clock), device warp
+    (CUDA events); then the band stages, combine, copy-back and entropy
+    coding (_breakdown)."""
+    import numpy as np
+    import torch
+
+    from sarpro_tpu_torch.core import fused
+    from sarpro_tpu_torch.io import raster, safe as tsafe, warp
+    from sarpro_tpu_torch.ops import warp_sample
+
+    dev = torch.device(DEVICE)
+    t0 = time.perf_counter()
+    meta = tsafe.parse_comprehensive_metadata(safe)
+    crs = tsafe.geodesy.resolve_auto_target_crs(safe)
+    t_plan = time.perf_counter() - t0
+    vv, vh, _, _ = tsafe.identify_polarization_files(safe / "measurement",
+                                                     meta.polarizations)
+    t_reduce, t_up, ms_warp, bands = [], 0.0, 0.0, []
+    for path in (vv, vh):
+        t0 = time.perf_counter()
+        reader = tsafe.RasterReader(path)
+        plan = warp.plan_warp(reader, crs, "cubic", SIZE,
+                              meta.geolocation_grid)
+        mid_rows, mid_cols, mx, my = warp.two_stage_plan(
+            plan, reader.metadata.size_x, reader.metadata.size_y)
+        (ys, yc), (xs, xc) = raster._box_windows(reader, 1, mid_cols,
+                                                 mid_rows, "average")
+        t1 = time.perf_counter()
+        t_plan += t1 - t0
+        tif = reader._tiff
+        part = torch.empty((mid_rows, mid_cols), dtype=torch.float32,
+                           pin_memory=dev.type == "cuda")
+        host = part.numpy()
+        for o0 in range(0, mid_rows, 512):
+            o1 = min(o0 + 512, mid_rows)
+            r0, r1 = int(ys[o0]), int(ys[o1 - 1] + yc[o1 - 1])
+            src = np.ascontiguousarray(tif.read_strip_range(r0, r1, 1),
+                                       np.uint16)
+            raster._native.box_reduce_u16(src, host[o0:o1], o0, o1, ys, yc, xs, xc,
+                                   src_row0=r0)
+        reader.close()
+        t2 = time.perf_counter()
+        t_reduce.append(t2 - t1)
+        src_dev = part.to(dev)
+        gx, gy = warp.plan_grids_to_device(mx, my, dev)
+        torch.cuda.synchronize()
+        t_up += time.perf_counter() - t2
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        bands.append(warp_sample(src_dev, gx, gy, plan.out_rows,
+                                 plan.out_cols, plan.method))
+        ev[1].record()
+        ev[1].synchronize()
+        ms_warp += ev[0].elapsed_time(ev[1])
+    log(f"breakdown (warp path, {mid_rows}x{mid_cols} reduced source): host "
+        f"read + box reduce {sum(t_reduce) * 1e3:.1f} ms (band1 "
+        f"{t_reduce[0] * 1e3:.1f}, band2 {t_reduce[1] * 1e3:.1f}), auto-CRS "
+        f"+ plan {t_plan * 1e3:.1f} ms, upload {t_up * 1e3:.2f} ms (host "
+        f"clock); device warp {ms_warp:.3f} ms for both bands (CUDA events)")
+    scene = tsafe.DualPolScene(meta, bands[0], bands[1], True)
+    _breakdown(scene, dict(strategy=fused.AutoscaleStrategy.CLAHE,
+                           target_size=SIZE, pad=True, resample_alg=None))
+
+
+def _resident(label: str, scene, kw, blob: bytes):
+    """The band and combine stages on resident bands: no host sync with the
+    kernels, the plain versions within 1, and the JPEG of the CLI run holds
+    the device's coefficient blocks."""
     import torch
 
     sys.path.insert(0, str(ROOT / "tests"))
     from oracle import decode_baseline_jpeg_coeffs
 
     from sarpro_tpu_torch.core import fused
-    from sarpro_tpu_torch.io.safe import open_dual_pol
     from sarpro_tpu_torch.ops import force_plain
-
-    t0 = time.perf_counter()
-    scene = open_dual_pol(safe, "cuda", SIZE)
-    torch.cuda.synchronize()
-    t1 = time.perf_counter()
-    host = scene.band1.cpu().numpy()
-    t2 = time.perf_counter()
-    torch.from_numpy(host).to(scene.band1.device)
-    torch.cuda.synchronize()
-    t3 = time.perf_counter()
-    log(f"breakdown: read + upload of both bands {(t1 - t0) * 1e3:.1f} ms, "
-        f"of which one band's upload from pageable memory "
-        f"{(t3 - t2) * 1e3:.1f} ms (host clock)")
-    del host
-    kw = dict(strategy=fused.AutoscaleStrategy.TAMED, target_size=SIZE, pad=True,
-              resample_alg="cubic")
 
     def stages():
         b1 = fused.synrgb_band_stage(scene.band1, copol=True, **kw)
@@ -341,7 +553,6 @@ def phase_resident(safe: Path, blob: bytes):
 
     stages()
     torch.cuda.synchronize()
-    _breakdown(scene, kw)
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     torch.cuda.set_sync_debug_mode("error")  # any host sync raises
     try:
@@ -351,23 +562,23 @@ def phase_resident(safe: Path, blob: bytes):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     end.synchronize()
-    log(f"resident: band x2 + combine x2 on the device {start.elapsed_time(end):.3f} ms "
-        "(no host sync)")
+    log(f"resident ({label}): band x2 + combine x2 on the device "
+        f"{start.elapsed_time(end):.3f} ms (no host sync)")
     with force_plain():
         p = stages()
     torch.cuda.synchronize()
     for name, a, b in (("band1", k[0], p[0]), ("band2", k[1], p[1])):
         if a.shape != (SIZE, SIZE) or a.dtype != torch.uint8:
-            raise AssertionError(f"{name}: {a.dtype} {tuple(a.shape)}")
+            raise AssertionError(f"{label} {name}: {a.dtype} {tuple(a.shape)}")
         d = (a.int() - b.int()).abs()
         share = (d > 0).float().mean().item()
-        log(f"resident: {name} kernels vs plain max|diff| {d.max().item()}, "
-            f"share differing {share:.3g}")
+        log(f"resident ({label}): {name} kernels vs plain max|diff| "
+            f"{d.max().item()}, share differing {share:.3g}")
         if d.max().item() > 1:
-            raise AssertionError(f"{name} differs from plain by > 1")
+            raise AssertionError(f"{label} {name} differs from plain by > 1")
     same = (k[0] == p[0]) & (k[1] == p[1])
     if not torch.equal(k[2][same], p[2][same]):
-        raise AssertionError("rgb differs where both bands agree")
+        raise AssertionError(f"{label}: rgb differs where both bands agree")
     # the file holds the device's coefficients: decode the first MCUs
     n_mcus = 256
     blocks, ncomp = decode_baseline_jpeg_coeffs(blob, n_mcus)
@@ -377,9 +588,44 @@ def phase_resident(safe: Path, blob: bytes):
         for c in range(3):
             want = [int(dct[c, m][col, row]) for row, col in zz]
             if blocks[m * 3 + c] != want:
-                raise AssertionError(f"JPEG block {m}/{c} != device block")
-    log(f"resident: first {n_mcus} MCUs of the JPEG decode to the device's "
-        "coefficient blocks")
+                raise AssertionError(f"{label}: JPEG block {m}/{c} != "
+                                     "device block")
+    log(f"resident ({label}): first {n_mcus} MCUs of the JPEG decode to the "
+        "device's coefficient blocks")
+
+
+def phase_resident(safe: Path, blobs):
+    import torch
+
+    from sarpro_tpu_torch.core import fused
+    from sarpro_tpu_torch.io.safe import TargetCrsArg, open_dual_pol
+
+    clahe = fused.AutoscaleStrategy.CLAHE
+    scene = open_dual_pol(safe, DEVICE, SIZE, target_crs=TargetCrsArg.AUTO,
+                          resample_alg="cubic")
+    _resident("clahe auto", scene, dict(strategy=clahe, target_size=SIZE,
+                                        pad=True, resample_alg=None),
+              blobs["warm clahe auto"])
+    del scene
+    _breakdown_warp(safe)
+
+    t0 = time.perf_counter()
+    scene = open_dual_pol(safe, DEVICE, SIZE)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    host = scene.band1.cpu().numpy()
+    t2 = time.perf_counter()
+    torch.from_numpy(host).to(scene.band1.device)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    log(f"breakdown (no-warp path): read + upload of both bands "
+        f"{(t1 - t0) * 1e3:.1f} ms, of which one band's upload from pageable "
+        f"memory {(t3 - t2) * 1e3:.1f} ms (host clock)")
+    del host
+    kw = dict(strategy=fused.AutoscaleStrategy.TAMED, target_size=SIZE,
+              pad=True, resample_alg="cubic")
+    _breakdown(scene, kw)
+    _resident("tamed cubic", scene, kw, blobs["warm tamed cubic"])
 
 
 def main() -> int:
@@ -391,22 +637,28 @@ def main() -> int:
     shutil.rmtree(work, ignore_errors=True)
     work.mkdir(parents=True)
     try:
-        safe, blob, counts, walls = phase_slice(work)
-        phase_resident(safe, blob)
+        safe, blobs, counts, walls = phase_slice(work)
+        phase_resident(safe, blobs)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
     import torch
 
-    log(f"slice: warm wall {walls['warm cubic'] * 1e3:.1f} ms (cubic), "
-        f"{walls['warm average'] * 1e3:.1f} ms (average) on {smi}")
-    kernels = [{"name": name, "route": "cuda", "source": src,
-                "replaces": rep, "launches": counts[name],
-                "max_abs_err": results[name]["max_abs_err"],
-                "ms": results[name]["ms"],
-                "plain_ms": results[name]["plain_ms"]}
-               for name, (src, rep) in KERNELS.items()]
+    log("slice: warm walls " + ", ".join(
+        f"{label} {wall * 1e3:.1f} ms" for label, wall in walls.items()
+        if label.startswith("warm")) + f" on {smi}")
+    kernels = []
+    for name, (src, rep, *also) in KERNELS.items():
+        entry = {"name": name, "route": "cuda", "source": src,
+                 "replaces": rep,
+                 "launches": counts[REPORTED_PATH[name]][name],
+                 "max_abs_err": results[name]["max_abs_err"],
+                 "ms": results[name]["ms"],
+                 "plain_ms": results[name]["plain_ms"]}
+        if also:
+            entry["also_replaces"] = also[0]
+        kernels.append(entry)
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

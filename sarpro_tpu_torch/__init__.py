@@ -6,7 +6,8 @@ PyTorch tensor code plus hand-written CUDA kernels for Hopper (`ops/`,
 TIFF codec, writers, native JPEG entropy coder), which import neither jax
 nor Pillow.
 
-Ported so far: the dual-pol SAFE -> Tamed suppressed synthetic-RGB JPEG
-product without reprojection (`python -m sarpro_tpu_torch.cli ... -f jpeg
---polarization multiband --autoscale tamed --fast`).
+Ported so far: the dual-pol SAFE -> Tamed or CLAHE suppressed
+synthetic-RGB JPEG product, with or without reprojection
+(`python -m sarpro_tpu_torch.cli ... -f jpeg --polarization multiband
+--autoscale clahe --target-crs auto --fast`).
 """

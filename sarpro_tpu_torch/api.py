@@ -1,9 +1,10 @@
 """File-output API of the port (port of sarpro_tpu/api.py:345-357 and
 :409-487): a dual-pol SAFE to a synthetic-RGB JPEG on the GPU.
 
-Ported so far: fast mode, multiband JPEG, no reprojection (`target_crs`
-unset or "none"), with the Tamed strategy. Everything else raises
-NotImplementedError naming its ROADMAP item.
+Ported so far: fast mode, multiband JPEG, with or without reprojection
+(`target_crs` none, auto or an EPSG code), with the Tamed and CLAHE
+strategies. Everything else raises NotImplementedError naming its ROADMAP
+item.
 """
 from __future__ import annotations
 
@@ -56,9 +57,8 @@ def process_safe_to_path(input, output, params: ProcessingParams,
         raise NotImplementedError("multi-GPU sharding is not ported yet "
                                   "(ROADMAP queue 1, multi-GPU)")
     target_arg, resample = _resolve_target_args(params)
-    if target_arg not in (None, TargetCrsArg.NONE):
-        raise NotImplementedError("reprojection (--target-crs) is not ported "
-                                  "yet (ROADMAP queue 1, warp)")
+    warping = target_arg not in (None, TargetCrsArg.NONE)
+    alg0 = None if warping else resample  # the warp consumed the filter
     if params.polarization.kind != "multiband":
         raise NotImplementedError("single-band and operation polarizations "
                                   "are not ported yet (ROADMAP queue 1, "
@@ -76,13 +76,14 @@ def process_safe_to_path(input, output, params: ProcessingParams,
             return None  # save_multiband_fast rejects the scene
         return fused.synrgb_band_stage(
             dn1, strategy=params.autoscale, copol=True, target_size=size,
-            pad=params.pad, resample_alg=resample)
+            pad=params.pad, resample_alg=alg0)
 
-    scene = open_dual_pol(input, device, size, band_stage=band_stage)
+    scene = open_dual_pol(input, device, size, band_stage=band_stage,
+                          target_crs=target_arg, resample_alg=resample)
     fast_path.save_multiband_fast(
         scene.band1, scene.band2, output, params.format, size,
         scene.metadata, params.pad, params.autoscale,
         ProcessingOperation.MULTIBAND_VV_VH if scene.is_vvvh
         else ProcessingOperation.MULTIBAND_HH_HV,
-        params.synrgb_mode, resample_alg=resample,
+        params.synrgb_mode, resample_alg=alg0,
         staged_b1=scene.staged_band1)

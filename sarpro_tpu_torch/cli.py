@@ -2,7 +2,8 @@
 of sarpro_tpu/cli.py:127-189).
 
     python -m sarpro_tpu_torch.cli -i X.SAFE -o out.jpg -f jpeg \\
-        --polarization multiband --autoscale tamed --size 2048 --pad --fast
+        --polarization multiband --autoscale clahe --size 2048 --pad \\
+        --target-crs auto --resample-alg cubic --fast
 """
 from __future__ import annotations
 

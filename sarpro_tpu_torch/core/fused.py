@@ -1,20 +1,24 @@
-"""The fused synthetic-RGB program on the GPU: DN rasters -> Tamed u8 bands
--> suppressed synRGB -> YCbCr -> quantized JPEG DCT blocks (port of the
-slice of sarpro_tpu/core/fused.py that the Tamed synRGB JPEG runs).
+"""The fused synthetic-RGB program on the GPU: DN rasters -> Tamed or CLAHE
+u8 bands -> suppressed synRGB -> YCbCr -> quantized JPEG DCT blocks (port of
+the slice of sarpro_tpu/core/fused.py that the synRGB JPEG runs).
 
 Like the JAX program, the band and combine stages never wait for the host:
 no `.item()`, no boolean-mask indexing, no `nonzero`. Data-dependent scalars
-(percentiles, windows, the water floor) stay 0-dim device tensors, and the
-water floor picks its table set on the device. The only device-to-host copy
-of the slice is the final coefficient blocks.
+(percentiles, windows, the water floor, the u16-to-u8 range) stay 0-dim
+device tensors, and the water floor picks its table set on the device. The
+CLAHE tile geometry comes from the static shape. The only device-to-host
+copy of the slice is the final coefficient blocks.
 
 Numerics: f32 throughout, the same op sequence as the JAX program. f32 log
 and pow differ by an ulp between XLA and PyTorch on a few percent of
-values, so a band may differ by 1 on rare pixels where a bin or a trunc
-flips.
+values, and XLA on the CPU contracts the CLAHE blend into FMAs, so a Tamed
+band may differ by 1 on rare pixels where a bin or a trunc flips, and a
+CLAHE band by up to 4 where a percentile, and so the CLAHE window, moves
+by one histogram bin (ROADMAP queue 3).
 
 Not ported yet (each raises NotImplementedError): strategies other than
-Tamed, default-mode (non-suppressed) synRGB, the bgr layout, row sharding.
+Tamed and CLAHE (`_quantize`), default-mode (non-suppressed) synRGB, the
+bgr layout, row sharding.
 """
 from __future__ import annotations
 
@@ -26,7 +30,15 @@ import torch.nn.functional as F
 
 from sarpro_tpu.types import AutoscaleStrategy
 
-from ..ops import band_resample_axis0, histogram, synrgb_lookup
+from ..ops import (
+    band_resample_axis0,
+    clahe_lookup,
+    histogram,
+    synrgb_lookup,
+    tile_histogram,
+)
+from .clahe import CLAHE_BINS, CLIP_LIMIT, TILES_X, TILES_Y
+from .numerics import round_half_up_nonneg
 from .synthetic_rgb import FLOOR_MAX, FLOOR_MIN, suppressed_table_sets
 
 # sarpro_tpu/core/pipeline.py:32-35 and core/stats.py:24
@@ -80,6 +92,12 @@ def _db_bin_index(db, mask, mn, mx):
     return torch.where(mask, idx, NUM_BINS).to(torch.int32)
 
 
+def _clahe_norm(db, mask, low, high):
+    """Masked [0,1] normalization ahead of CLAHE binning."""
+    rng = torch.clamp_min(high - low, 1.0)
+    return torch.where(mask, (torch.clamp(db, low, high) - low) / rng, 0.0)
+
+
 def _tamed_quantize_u8(db, mask, low, high):
     """Band-specific tamed window straight to u8 (autoscale.rs:710-742)."""
     rng = torch.clamp_min(high - low, 1.0)
@@ -125,6 +143,132 @@ def _stats_finalize(hist, count, mn, mx):
     return d
 
 
+def _window(s, strategy: AutoscaleStrategy):
+    """Strategy windows as scalar arithmetic on 0-dim device tensors
+    (reference: autoscale.rs:404-424 standard, :491-562 advanced); returns
+    (low, high, gamma)."""
+    iqr = s["p75"] - s["p25"]
+    one = torch.ones_like(iqr)
+    if strategy is AutoscaleStrategy.STANDARD:
+        dr = s["max"] - s["min"]
+        rng_med = torch.clamp_min(dr * 0.8, 20.0)
+        low1, high1, g1 = (s["median"] - rng_med / 2,
+                           s["median"] + rng_med / 2, 1.1)
+        low2, high2, g2 = s["p25"] - 2.5 * iqr, s["p75"] + 2.5 * iqr, 1.0
+        low3 = torch.maximum(s["p02"], s["min"] + 0.02 * dr)
+        high3 = torch.minimum(s["p98"], s["max"] - 0.02 * dr)
+        g3 = 0.9
+        low4, high4, g4 = s["p02"], s["p98"], 1.0
+        c1 = dr < 15.0
+        c2 = iqr < 5.0
+        c3 = dr > 40.0
+        low = torch.where(c1, low1, torch.where(c2, low2,
+                                                torch.where(c3, low3, low4)))
+        high = torch.where(c1, high1, torch.where(c2, high2,
+                                                  torch.where(c3, high3, high4)))
+        gamma = torch.where(c1, g1 * one, torch.where(
+            c2, g2 * one, torch.where(c3, g3 * one, g4 * one)))
+        low = torch.maximum(low, s["min"])
+        high = torch.minimum(high, s["max"])
+        return low, high, gamma
+    if strategy is AutoscaleStrategy.ROBUST:
+        thr = 2.5 * iqr
+        low = torch.maximum(torch.maximum(s["p25"] - thr, s["p01"]), s["min"])
+        high = torch.minimum(torch.minimum(s["p75"] + thr, s["p99"]), s["max"])
+        return low, high, one
+    if strategy is AutoscaleStrategy.ADAPTIVE:
+        skew = (s["mean"] - s["median"]) / torch.clamp_min(torch.abs(s["std"]),
+                                                           1.0)
+        tail = (s["p99"] - s["p95"]) / torch.clamp_min(s["p95"] - s["p75"], 1.0)
+        c_skew = torch.abs(skew) > 0.5
+        c_pos = skew > 0.0
+        c_tail = tail > 2.0
+        low = torch.where(
+            c_skew, torch.where(c_pos, s["p02"], s["p05"]),
+            torch.where(c_tail, s["p10"], s["p05"]))
+        high = torch.where(
+            c_skew, torch.where(c_pos, s["p98"], s["p95"]),
+            torch.where(c_tail, s["p90"], s["p95"]))
+        gamma = torch.where(
+            c_skew, torch.where(c_pos, 0.9 * one, 1.1 * one),
+            torch.where(c_tail, 0.8 * one, one))
+        return low, high, gamma
+    if strategy in (AutoscaleStrategy.EQUALIZED, AutoscaleStrategy.CLAHE):
+        return s["p01"], s["p99"], one
+    if strategy is AutoscaleStrategy.TAMED:
+        return s["p25"], s["p99"], one
+    return s["p05"], s["p95"], one  # default
+
+
+def _scale_u16_to_u8(q):
+    """Min-max stretch of the u16 band values to u8 (the range stays on the
+    device)."""
+    mn = q.amin().to(torch.float32)
+    mx = q.amax().to(torch.float32)
+    scale = torch.where(mx > mn, 255.0 / (mx - mn), 1.0)
+    val = round_half_up_nonneg((q.to(torch.float32) - mn) * scale)
+    return torch.clamp(val, 0.0, 255.0).to(torch.uint8)
+
+
+def _clahe_bins(norm, mask):
+    """Per-pixel CLAHE bin; masked pixels carry CLAHE_BINS (the kernels'
+    masked convention)."""
+    bin_ = round_half_up_nonneg(torch.clamp(norm, 0, 1)
+                                * float(np.float32(CLAHE_BINS - 1)))
+    bin_ = torch.clamp(bin_, 0, CLAHE_BINS - 1).to(torch.int32)
+    return torch.where(mask, bin_, CLAHE_BINS).to(torch.int32)
+
+
+def _clahe_thresholds(rows: int, cols: int, tile_h: int, tile_w: int,
+                      device) -> torch.Tensor:
+    """(tiles, 1) f32 clip thresholds, CLIP_LIMIT x each tile's mean bin
+    count (at least 1), built on the device from the static tile extents."""
+    ty = torch.arange(TILES_Y, device=device)
+    tx = torch.arange(TILES_X, device=device)
+    th = torch.clamp_min(torch.clamp_max((ty + 1) * tile_h, rows)
+                         - ty * tile_h, 0)
+    tw = torch.clamp_min(torch.clamp_max((tx + 1) * tile_w, cols)
+                         - tx * tile_w, 0)
+    tile_pixels = (th[:, None] * tw[None, :]).reshape(-1).to(torch.float32)
+    return torch.clamp_min(CLIP_LIMIT * tile_pixels / CLAHE_BINS, 1.0)[:, None]
+
+
+def _clahe_cdfs(hists, rows_global: int, cols: int, tile_h: int, tile_w: int):
+    """Tile histograms (flat int counts) -> clipped, redistributed,
+    normalised CDFs (reference: autoscale.rs:268-305), (tiles, bins) f32."""
+    h = hists.reshape(TILES_Y * TILES_X, CLAHE_BINS).to(torch.float32)
+    thr = _clahe_thresholds(rows_global, cols, tile_h, tile_w, h.device)
+    over = h > thr
+    excess = torch.sum(torch.where(over, h - thr, 0.0), dim=-1, keepdim=True)
+    h = torch.where(over, torch.trunc(thr), h)
+    add = torch.floor(excess / CLAHE_BINS)
+    h = torch.trunc(h + add)
+    rem = torch.floor(excess - add * CLAHE_BINS + 0.5)
+    bin_idx = torch.arange(CLAHE_BINS, dtype=torch.float32,
+                           device=h.device)[None, :]
+    h = h + (bin_idx < rem).to(torch.float32)
+    total = torch.clamp_min(torch.sum(h, dim=-1, keepdim=True), 1.0)
+    return torch.clamp(torch.cumsum(h, dim=-1) / total, 0.0, 1.0)
+
+
+def _clahe(db, mask, low, high, max_val: float, rows: int, cols: int):
+    """CLAHE on the device: window-normalise, bin, count per tile
+    (tile_histogram), clip and redistribute into CDFs, blend the 4
+    neighbouring tile CDFs per pixel (clahe_lookup), quantize. Returns the
+    u16 band values, held as f32 (PyTorch's uint16 has few kernels)."""
+    tile_h = -(-rows // TILES_Y)
+    tile_w = -(-cols // TILES_X)
+    norm = _clahe_norm(db, mask, low, high)
+    bin_flat = _clahe_bins(norm, mask).reshape(-1)
+    hists = tile_histogram(bin_flat, cols, TILES_X, TILES_Y, tile_h, tile_w,
+                           n_bins=CLAHE_BINS)
+    cdfs = _clahe_cdfs(hists, rows, cols, tile_h, tile_w)
+    eq = clahe_lookup(bin_flat, cdfs, cols, TILES_X, TILES_Y, tile_h,
+                      tile_w).reshape(rows, cols)
+    q = torch.trunc(torch.clamp(eq, 0.0, 1.0) * max_val)
+    return torch.where(mask, q, 0.0)
+
+
 def _resample_dn(x: torch.Tensor, out_rows: int, out_cols: int,
                  filter_name: str) -> torch.Tensor:
     """Downsample-on-read, on the device. The row pass reads the u16 DN
@@ -140,17 +284,24 @@ def _resample_dn(x: torch.Tensor, out_rows: int, out_cols: int,
 
 def _band_u8(dn: torch.Tensor, strategy: AutoscaleStrategy,
              tamed_copol: bool | None) -> torch.Tensor:
-    """One band DN -> final u8: the Tamed synRGB band path (save.rs:324-328)."""
-    if tamed_copol is None or strategy is not AutoscaleStrategy.TAMED:
+    """One band DN -> final u8: the strategy dispatch of pipeline.rs:42-67
+    plus the Tamed synRGB band path of save.rs:324-328."""
+    tamed_band = (tamed_copol is not None
+                  and strategy is AutoscaleStrategy.TAMED)
+    if not tamed_band and strategy is not AutoscaleStrategy.CLAHE:
         raise NotImplementedError(
-            f"autoscale {strategy.value!r} is not ported yet; the port runs "
-            "tamed only (ROADMAP queue 1, CLAHE and other strategies)")
+            f"autoscale {strategy.value!r} needs _quantize, which is not "
+            "ported yet; the port runs tamed and clahe (ROADMAP queue 1, #3 "
+            "other strategies and default synRGB)")
     db, mask = _db_mask(dn)
     s = _stats(db, mask)
-    # band-specific tamed window (autoscale.rs:710-742)
-    low = torch.minimum(s["p02"], s["p05"]) if tamed_copol else s["p05"]
-    high = s["p99"]
-    return _tamed_quantize_u8(db, mask, low, high).to(torch.uint8)
+    if tamed_band:
+        # band-specific tamed window (autoscale.rs:710-742) straight to u8
+        low = torch.minimum(s["p02"], s["p05"]) if tamed_copol else s["p05"]
+        high = s["p99"]
+        return _tamed_quantize_u8(db, mask, low, high).to(torch.uint8)
+    low, high, _gamma = _window(s, strategy)
+    return _scale_u16_to_u8(_clahe(db, mask, low, high, 255.0, *dn.shape))
 
 
 def _suppressed_floor(hist: torch.Tensor, total_pixels: int) -> torch.Tensor:
@@ -284,7 +435,7 @@ def _synrgb_combine(b1, b2, strategy, suppressed, channel_order: str):
                                   AutoscaleStrategy.CLAHE)
     if not suppressed:
         raise NotImplementedError(
-            "default-mode synRGB is not ported yet (ROADMAP queue 1, "
+            "default-mode synRGB is not ported yet (ROADMAP queue 1, #3 "
             "other strategies and default synRGB)")
     out = _synrgb_suppressed(b1, b2)
     if channel_order == "rgb":

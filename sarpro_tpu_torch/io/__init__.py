@@ -1,1 +1,2 @@
-"""Host I/O glue of the port: SAFE loading onto the device and the JPEG writer."""
+"""Host I/O glue of the port: SAFE loading onto the device, the warp's host
+plan and decimated read, and the JPEG writer."""

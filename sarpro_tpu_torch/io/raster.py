@@ -1,0 +1,111 @@
+"""Decimated band reads onto the device (port of
+sarpro_tpu/io/raster.RasterReader.read_band_resampled_to_device, whose
+module path imports jax).
+
+Two routes, chosen from the raster's layout before the read:
+  * host box reduce: an uncompressed-or-striped single-band u16 TIFF, the
+    'average' filter, a true reduction and the native library built. Each
+    chunk of output rows is read with `read_strip_range`, box-averaged on
+    the host by `_native.box_reduce_u16`, and copied into its rows of a
+    preallocated device tensor, so only the reduced f32 plane crosses to the
+    card;
+  * device resample: otherwise the band is read whole, uploaded as stored
+    (u16 DN, else f32), and resampled on the device by the ported resample
+    kernel with the same filter and the same windows.
+`ROUTES` counts which route ran.
+"""
+from __future__ import annotations
+
+import logging
+
+import numpy as np
+import torch
+
+from sarpro_tpu import _native
+from sarpro_tpu.io.tiffio import TiffReader
+
+from ..core.fused import _resample_dn
+from ..core.resize import _build_coeffs
+
+logger = logging.getLogger("sarpro")
+
+ROUTES = {"host_reduce": 0, "device_resample": 0}
+
+
+def _average_windows(in_size: int, out_size: int):
+    """Contiguous uniform-weight source windows of the 'average' filter,
+    from the device resampler's own coefficient builder, so host and device
+    boxes match exactly: (starts, counts) int32, or None if the windows are
+    not plain boxes (a copy of sarpro_tpu/io/raster._average_windows, which
+    imports the jax coefficient module; a test holds the copy equal)."""
+    starts, weights = _build_coeffs(in_size, out_size, "average")
+    nz = weights > 0
+    first = nz.argmax(axis=1).astype(np.int64)
+    count = nz.sum(axis=1).astype(np.int64)
+    if np.any(count <= 0):
+        return None
+    idx = np.arange(weights.shape[1])
+    contiguous = (idx >= first[:, None]) & (idx < (first + count)[:, None])
+    if not np.array_equal(contiguous, nz):
+        return None
+    ys = (starts.astype(np.int64) + first).astype(np.int32)
+    return ys, count.astype(np.int32)
+
+
+def _box_windows(reader, band: int, out_cols: int, out_rows: int, filt: str):
+    """The host reducer's (ywin, xwin), or None where it does not apply (the
+    conditions of sarpro_tpu/io/raster.py:211-220)."""
+    t = reader._tiff
+    if not (isinstance(t, TiffReader)
+            and filt in ("average", "box") and t.samples == 1 and band == 1
+            and t.dtype == np.dtype(np.uint16)
+            and out_rows < t.height and out_cols < t.width
+            and _native.available()):
+        return None
+    ywin = _average_windows(t.height, out_rows)
+    xwin = _average_windows(t.width, out_cols)
+    if ywin is None or xwin is None:
+        return None
+    return ywin, xwin
+
+
+def read_band_resampled_to_device(reader, band: int, out_cols: int,
+                                  out_rows: int, device,
+                                  alg: str | None = None,
+                                  chunk_out_rows: int = 512) -> torch.Tensor:
+    """Decimated read of `band` of a `sarpro_tpu.io.raster.RasterReader` to
+    an (out_rows, out_cols) f32 tensor on `device`."""
+    device = torch.device(device)
+    filt = alg or "average"
+    wins = _box_windows(reader, band, out_cols, out_rows, filt)
+    t = reader._tiff
+    if wins is None:
+        logger.info("decimated read: %dx%d -> %dx%d by device resample (%s)",
+                    t.width, t.height, out_cols, out_rows, filt)
+        arr = t.read(band)
+        arr = (arr.astype(np.uint16, copy=False) if arr.dtype == np.uint16
+               else arr.astype(np.float32))
+        ROUTES["device_resample"] += 1
+        return _resample_dn(torch.from_numpy(arr).to(device), out_rows,
+                            out_cols, filt)
+    logger.info("decimated read: %dx%d -> %dx%d by host box reduce",
+                t.width, t.height, out_cols, out_rows)
+    (ys, yc), (xs, xc) = wins
+    out = torch.empty((out_rows, out_cols), dtype=torch.float32,
+                      device=device)
+    pinned = device.type == "cuda"
+    for o0 in range(0, out_rows, chunk_out_rows):
+        o1 = min(o0 + chunk_out_rows, out_rows)
+        r0, r1 = int(ys[o0]), int(ys[o1 - 1] + yc[o1 - 1])
+        src = np.ascontiguousarray(t.read_strip_range(r0, r1, band),
+                                   np.uint16)
+        # a pinned chunk uploads asynchronously: the next chunk is read and
+        # reduced while this one crosses (the caching host allocator keeps
+        # the buffer alive until its copy has run)
+        part = torch.empty((o1 - o0, out_cols), dtype=torch.float32,
+                           pin_memory=pinned)
+        _native.box_reduce_u16(src, part.numpy(), o0, o1, ys, yc, xs, xc,
+                               src_row0=r0)
+        out[o0:o1].copy_(part, non_blocking=pinned)
+    ROUTES["host_reduce"] += 1
+    return out

@@ -2,15 +2,27 @@
 version (port of sarpro_tpu/ops).
 
   * histogram: shared-memory atomics (csrc/histogram.cu);
+  * tile_histogram: the CLAHE per-tile counts, shared-memory atomics over
+    the tile rows a block's pixels touch (csrc/tile_histogram.cu);
+  * clahe_lookup: the CLAHE bilinear CDF blend, one thread per pixel
+    (csrc/clahe_lookup.cu);
   * band_resample_axis0: coalesced tap loop over u16/f32 rows
     (csrc/resample.cu);
   * synrgb_lookup: tables staged in shared memory, set chosen on the device
-    (csrc/synrgb.cu).
+    (csrc/synrgb.cu);
+  * warp_sample: the inverse-map warp sampler, one thread per output pixel
+    (csrc/warp.cu).
 
 A wrapper launches its kernel for CUDA tensors and runs the plain version
 for CPU tensors; `force_plain()` routes CUDA tensors to the plain versions
 too, for comparisons.
 """
 from ._cuda import force_plain, launch_counts, reset_launch_counts  # noqa: F401
-from .kernels import histogram, synrgb_lookup  # noqa: F401
+from .kernels import (  # noqa: F401
+    clahe_lookup,
+    histogram,
+    synrgb_lookup,
+    tile_histogram,
+)
 from .resample_kernel import band_resample_axis0  # noqa: F401
+from .warp_kernel import warp_sample  # noqa: F401

@@ -1,10 +1,11 @@
 """Build, load and launch the port's CUDA kernels (csrc/*.cu).
 
 The kernels are CUDA C++ for Hopper (sm_90a) with a plain C interface.
-They compile with nvcc into one shared library that ctypes loads, at first
-use, into `build/sarpro_tpu_torch/` under the checkout root. The library's
-file name carries a hash of the sources and flags, so an edited source
-rebuilds and an unchanged one loads at once.
+At first use each source compiles with its own nvcc, all at once, and the
+objects link into one shared library under `build/sarpro_tpu_torch/` (below
+the checkout root) that ctypes loads. The library's file name carries a
+hash of the sources and flags, so an edited source rebuilds and an
+unchanged one loads at once.
 
 Launch counts live here: each wrapper adds one to its count where it
 launches its kernel, and nowhere else, so a run can show which kernels its
@@ -25,18 +26,25 @@ import torch
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "sarpro_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+NVCC_LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
+_F = ctypes.c_float
 _SIGNATURES = {
     "sarpro_histogram": [_P, _L, _P, _L, _I, _I, _P, _P],
     "sarpro_resample_axis0": [_P, _I, _L, _L, _P, _P, _I, _P, _L, _P],
     "sarpro_synrgb_lookup": [_P, _P, _L, _P, _L, _P, _P, _P, _P],
+    "sarpro_tile_histogram": [_P, _L, _I, _I, _I, _I, _I, _L, _I, _P, _P],
+    "sarpro_clahe_lookup": [_P, _L, _P, _I, _I, _I, _I, _I, _I, _L, _P, _P],
+    "sarpro_warp_sample": [_P, _I, _I, _P, _P, _I, _I, _F, _F, _I, _P, _I,
+                           _I, _P],
 }
 
-LAUNCHES = {"histogram": 0, "resample_axis0": 0, "synrgb_lookup": 0}
+LAUNCHES = {"histogram": 0, "resample_axis0": 0, "synrgb_lookup": 0,
+            "tile_histogram": 0, "clahe_lookup": 0, "warp_sample": 0}
 
 _LIB: ctypes.CDLL | None = None
 # (seconds, nvcc's stderr) of the build this process ran; None when the
@@ -89,30 +97,58 @@ def _nvcc() -> str:
     return found
 
 
+def _build(sources: list[Path], so: Path) -> str:
+    """One nvcc per source, all started together, then one link into `so`;
+    returns nvcc's stderr (ptxas's register and shared-memory report)."""
+    nvcc = _nvcc()
+    tag = f"{os.getpid()}.tmp"
+    # nvcc tells an object from a source by its suffix: keep ".o" last
+    objs = [so.with_name(f"{so.stem}.{src.stem}.{tag}.o") for src in sources]
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj),
+                               str(src)], stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for src, obj in zip(sources, objs)]
+    tmp = so.with_name(f"{so.name}.{tag}")
+    try:
+        logs = []
+        for src, p in zip(sources, procs):
+            _, err = p.communicate()
+            if p.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {src.name} "
+                                   f"({p.returncode}):\n{err}")
+            logs.append(err)
+        res = subprocess.run([nvcc, *NVCC_LINK_FLAGS, "-o", str(tmp),
+                              *map(str, objs)], capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({res.returncode}):\n"
+                               f"{res.stderr}")
+        os.replace(tmp, so)  # atomic: a concurrent build never loads a part
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in [*objs, tmp]:
+            f.unlink(missing_ok=True)
+    return "".join(logs)
+
+
 def library() -> ctypes.CDLL:
     """The kernels' shared library, built on first call if needed."""
     global _LIB, BUILD_INFO
     if _LIB is not None:
         return _LIB
     sources = sorted(CSRC.glob("*.cu"))
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS + NVCC_LINK_FLAGS).encode())
     for src in sources:
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     so = BUILD_DIR / f"libsarpro_kernels_{digest.hexdigest()[:16]}.so"
     if not so.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
         t0 = time.perf_counter()
-        res = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)],
-            capture_output=True, text=True)
-        if res.returncode != 0:
-            tmp.unlink(missing_ok=True)
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
-                               f"{res.stderr}")
-        os.replace(tmp, so)  # atomic: a concurrent build never loads a part
-        BUILD_INFO = (time.perf_counter() - t0, res.stderr)
+        log = _build(sources, so)
+        BUILD_INFO = (time.perf_counter() - t0, log)
     lib = ctypes.CDLL(str(so))
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)

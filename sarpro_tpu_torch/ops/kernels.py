@@ -1,12 +1,13 @@
-"""Histogram and synthetic-RGB lookup: Hopper kernels and their plain
-PyTorch versions.
+"""Histogram, CLAHE tile histogram, CLAHE lookup and synthetic-RGB lookup:
+Hopper kernels and their plain PyTorch versions.
 
 Each public wrapper checks its inputs, allocates the output, and then
-launches its CUDA kernel (csrc/histogram.cu, csrc/synrgb.cu) for tensors on
-a CUDA device, or runs the plain version beside it for tensors on the CPU
-(and under `force_plain()`). A CUDA launch that fails raises; nothing falls
-back. The plain versions are the reference the kernels are checked against
-on the card, and what the CPU tests compare with the JAX package.
+launches its CUDA kernel (csrc/histogram.cu, csrc/tile_histogram.cu,
+csrc/clahe_lookup.cu, csrc/synrgb.cu) for tensors on a CUDA device, or runs
+the plain version beside it for tensors on the CPU (and under
+`force_plain()`). A CUDA launch that fails raises; nothing falls back. The
+plain versions are the reference the kernels are checked against on the
+card, and what the CPU tests compare with the JAX package.
 """
 from __future__ import annotations
 
@@ -64,6 +65,132 @@ def histogram(idx, num_bins: int) -> torch.Tensor:
            a.data_ptr(), a.numel(),
            None if b is None else b.data_ptr(), 0 if b is None else b.numel(),
            a.element_size(), num_bins, out.data_ptr())
+    return out
+
+
+# ---------------------------------------------------------------------------
+# CLAHE tile histograms
+# ---------------------------------------------------------------------------
+def _pixel_rows_cols(n: int, cols: int, row_offset: int, device):
+    """Global (row, col) of each flat row-major pixel index, int64."""
+    i = torch.arange(n, dtype=torch.int64, device=device)
+    return i // cols + row_offset, i % cols
+
+
+def _tile_histogram_plain(bin_flat, cols, tiles_x, tiles_y, tile_h, tile_w,
+                          row_offset, n_bins):
+    r, c = _pixel_rows_cols(bin_flat.numel(), cols, row_offset,
+                            bin_flat.device)
+    ty = torch.clamp_max(r // tile_h, tiles_y - 1)
+    tx = torch.clamp_max(c // tile_w, tiles_x - 1)
+    b = bin_flat.to(torch.int64)
+    n_hist = tiles_y * tiles_x * n_bins
+    valid = (b >= 0) & (b < n_bins)
+    flat = torch.where(valid, (ty * tiles_x + tx) * n_bins + b, n_hist)
+    return torch.bincount(flat, minlength=n_hist + 1)[:n_hist].to(torch.int32)
+
+
+def _check_tiles(bin_flat, cols, tiles_x, tiles_y, tile_h, tile_w,
+                 row_offset, name):
+    if bin_flat.dtype != torch.int32 or bin_flat.dim() != 1:
+        raise TypeError(f"{name}: bins must be a flat int32 tensor")
+    if cols <= 0 or bin_flat.numel() % cols:
+        raise ValueError(f"{name}: {bin_flat.numel()} pixels are not whole "
+                         f"rows of {cols}")
+    if min(tiles_x, tiles_y, tile_h, tile_w) <= 0 or row_offset < 0:
+        raise ValueError(f"{name}: tile grid and row_offset must be positive")
+
+
+def tile_histogram(bin_flat, cols: int, tiles_x: int, tiles_y: int,
+                   tile_h: int, tile_w: int, row_offset: int = 0,
+                   n_bins: int = 256) -> torch.Tensor:
+    """Per-tile histograms for CLAHE (reference: autoscale.rs:258-269).
+
+    `bin_flat` is the flat row-major int32 bin array of a (N/cols, cols)
+    image; bins outside [0, n_bins) (the masked convention: n_bins) are not
+    counted. A pixel's tile is (min((r + row_offset) // tile_h, tiles_y-1),
+    min(c // tile_w, tiles_x-1)): `row_offset` places a row chunk or shard in
+    the global raster. Returns the flat tile-major (tiles_y*tiles_x*n_bins,)
+    int32 counts."""
+    _check_tiles(bin_flat, cols, tiles_x, tiles_y, tile_h, tile_w,
+                 row_offset, "tile_histogram")
+    n_hist = tiles_y * tiles_x * n_bins
+    if not 0 < n_hist <= MAX_HIST_BINS:
+        raise ValueError(f"{n_hist} tile bins outside 1..{MAX_HIST_BINS}")
+    if not use_kernel(bin_flat):
+        return _tile_histogram_plain(bin_flat, cols, tiles_x, tiles_y, tile_h,
+                                     tile_w, row_offset, n_bins)
+    if not bin_flat.is_contiguous():
+        raise ValueError("tile_histogram needs a contiguous bin tensor")
+    out = torch.zeros(n_hist, dtype=torch.int32, device=bin_flat.device)
+    launch("sarpro_tile_histogram", "tile_histogram", bin_flat.device,
+           bin_flat.data_ptr(), bin_flat.numel(), cols, tiles_x, tiles_y,
+           tile_h, tile_w, row_offset, n_bins, out.data_ptr())
+    return out
+
+
+# ---------------------------------------------------------------------------
+# CLAHE bilinear CDF lookup
+# ---------------------------------------------------------------------------
+def _clahe_lookup_plain(bin_idx, cdfs, cols, tiles_x, tiles_y, tile_h,
+                        tile_w, row_offset):
+    """`_clahe_lookup_xla`'s operations in its order, each rounded to f32
+    (XLA on the CPU contracts the blends into FMAs; see the tests)."""
+    r, c = _pixel_rows_cols(bin_idx.numel(), cols, row_offset, bin_idx.device)
+    rf = r.to(torch.float32) / float(tile_h) - 0.5
+    cf = c.to(torch.float32) / float(tile_w) - 0.5
+    tyf = torch.clamp_min(torch.floor(rf), 0.0)
+    txf = torch.clamp_min(torch.floor(cf), 0.0)
+    dy = rf - tyf
+    dx = cf - txf
+    tyi = tyf.to(torch.int64)
+    txi = txf.to(torch.int64)
+    ty0 = torch.clamp(tyi, 0, tiles_y - 1)
+    tx0 = torch.clamp(txi, 0, tiles_x - 1)
+    ty1 = torch.clamp(tyi + 1, 0, tiles_y - 1)
+    tx1 = torch.clamp(txi + 1, 0, tiles_x - 1)
+    n_bins = cdfs.shape[1]
+    flat = cdfs.reshape(-1)
+    b = bin_idx.to(torch.int64)
+    safe_bin = torch.clamp(b, 0, n_bins - 1)
+    valid = b < n_bins
+
+    def at(a, t):
+        return flat[(a * tiles_x + t) * n_bins + safe_bin]
+
+    top = at(ty0, tx0) * (1 - dx) + at(ty0, tx1) * dx
+    bot = at(ty1, tx0) * (1 - dx) + at(ty1, tx1) * dx
+    return torch.where(valid, top * (1 - dy) + bot * dy, 0.0)
+
+
+def clahe_lookup(bin_idx, cdfs, cols: int, tiles_x: int, tiles_y: int,
+                 tile_h: int, tile_w: int, row_offset: int = 0) -> torch.Tensor:
+    """Bilinear interpolation between the 4 neighbour-tile CDFs at each
+    pixel's bin (reference: autoscale.rs:307-343), (N,) f32.
+
+    `bin_idx` is the flat row-major int32 bin array of a (N/cols, cols)
+    image; `bin_idx == n_bins` marks a masked pixel, which gives 0 (bins
+    are expected in [0, n_bins]). `cdfs` is (tiles_y*tiles_x, n_bins) f32,
+    tile-major. `row_offset` places a row chunk or shard in the global
+    raster."""
+    _check_tiles(bin_idx, cols, tiles_x, tiles_y, tile_h, tile_w,
+                 row_offset, "clahe_lookup")
+    if (cdfs.dtype != torch.float32 or cdfs.dim() != 2
+            or cdfs.shape[0] != tiles_x * tiles_y or cdfs.shape[1] < 1):
+        raise ValueError(f"cdfs must be ({tiles_x * tiles_y}, n_bins) f32")
+    if cdfs.device != bin_idx.device:
+        raise ValueError("clahe_lookup inputs must share one device")
+    if not use_kernel(bin_idx):
+        return _clahe_lookup_plain(bin_idx, cdfs, cols, tiles_x, tiles_y,
+                                   tile_h, tile_w, row_offset)
+    if not (bin_idx.is_contiguous() and cdfs.is_contiguous()):
+        raise ValueError("clahe_lookup inputs must be contiguous")
+    out = torch.empty(bin_idx.numel(), dtype=torch.float32,
+                      device=bin_idx.device)
+    launch("sarpro_clahe_lookup", "clahe_lookup", bin_idx.device,
+           bin_idx.data_ptr(), bin_idx.numel(), cdfs.data_ptr(),
+           cdfs.shape[1], cols, tiles_x, tiles_y, tile_h, tile_w,
+           row_offset, out.data_ptr())
     return out
 
 

@@ -186,7 +186,7 @@ def test_combine_stage_on_identical_bands(rng):
 def test_unported_routes_raise():
     dn = torch.zeros((64, 64), dtype=torch.uint16)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tf.synrgb_band_stage(dn, strategy=AutoscaleStrategy.CLAHE,
+        tf.synrgb_band_stage(dn, strategy=AutoscaleStrategy.STANDARD,
                              copol=True, target_size=None, pad=False)
     b = torch.zeros((8, 8), dtype=torch.uint8)
     with pytest.raises(NotImplementedError, match="ROADMAP"):

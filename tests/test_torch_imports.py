@@ -47,6 +47,14 @@ def test_cpu_slice_runs_with_jax_and_pillow_blocked(tmp_path):
                       "tamed", "--size", "64", "--pad", "--fast"],
                      device="cpu")
         assert rc == 0 and got == [(3, 8, 8, 8, 8)], (rc, got)
+        rc = cli.run(["-i", str(safe), "-o", sys.argv[2] + "/w.jpg", "-f",
+                      "jpeg", "--polarization", "multiband", "--autoscale",
+                      "clahe", "--size", "64", "--pad", "--target-crs",
+                      "auto", "--resample-alg", "cubic", "--fast"],
+                     device="cpu")
+        assert rc == 0 and got[1:] == [(3, 8, 8, 8, 8)], (rc, got)
+        prj = Path(sys.argv[2] + "/w.prj").read_text()
+        assert "UTM zone 32N" in prj, prj
         print("ok")
     """)
     res = subprocess.run([sys.executable, "-c", script, str(REPO),

@@ -149,8 +149,13 @@ def test_cpu_tensors_take_plain_path_without_launches(rng):
     ops.histogram(idx, 256)
     x = torch.from_numpy(rng.integers(0, 999, (40, 8)).astype(np.uint16))
     ops.band_resample_axis0(x, 40, 10, "cubic")
-    assert ops.launch_counts() == {"histogram": 0, "resample_axis0": 0,
-                                   "synrgb_lookup": 0}
+    ops.tile_histogram(idx, 40, 8, 8, 4, 5)
+    ops.clahe_lookup(idx, torch.zeros((64, 256)), 40, 8, 8, 4, 5)
+    g = torch.zeros((2, 2))
+    ops.warp_sample(x.to(torch.float32), g, g, 5, 5, "cubic")
+    assert ops.launch_counts() == {
+        "histogram": 0, "resample_axis0": 0, "synrgb_lookup": 0,
+        "tile_histogram": 0, "clahe_lookup": 0, "warp_sample": 0}
 
 
 def test_force_plain_nests_and_restores():

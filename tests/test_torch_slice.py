@@ -125,6 +125,104 @@ def test_sidecars_match_jax_route(scene, captured, tmp_path):
     assert t_meta == j_meta
 
 
+CLAHE = AutoscaleStrategy.CLAHE
+# the CLAHE band's bound against the JAX package from the DN: one CLAHE bin
+# of window shift plus rounding (tests/test_torch_clahe.py); Tamed's is 1
+BAND_BOUND = {CLAHE: 4, TAMED: 1}
+
+
+def _compare_bands_and_combine(jb, tb, strategy, size, coeffs):
+    """Bands within the strategy's bound, the water floor exact, rgb equal
+    wherever both bands agree, the CLI's DCT blocks within 1 of the JAX
+    program's in agreeing blocks and equal to the stage API's."""
+    for j, t in zip(jb, tb):
+        d = np.abs(j.astype(int) - t.numpy().astype(int))
+        print(f"{strategy.value} {size}: band max|diff| {d.max()}, share "
+              f"differing {(d > 0).mean():.2e}")
+        assert d.max() <= BAND_BOUND[strategy]
+    jhist = np.bincount(np.concatenate([b.ravel() for b in jb]),
+                        minlength=256).astype(np.int32)
+    thist = tf.histogram((tb[0].reshape(-1), tb[1].reshape(-1)), 256)
+    total = 2 * size * size
+    assert int(tf._suppressed_floor(thist, total)) == float(
+        jf._suppressed_floor(jnp.asarray(jhist), total))
+    j_rgb = np.asarray(jf.synrgb_combine_stage(jb[0], jb[1], strategy, None,
+                                               "rgb"))
+    j_dct = np.asarray(jf.synrgb_combine_stage(jb[0], jb[1], strategy, None,
+                                               "dct"))
+    t_rgb = tf.synrgb_combine_stage(tb[0], tb[1], strategy, None,
+                                    "rgb").numpy()
+    both = (jb[0] == tb[0].numpy()) & (jb[1] == tb[1].numpy())
+    np.testing.assert_array_equal(t_rgb[both], j_rgb[both])
+    agree = _block_agree(t_rgb, j_rgb)
+    print(f"{strategy.value} {size}: blocks agreeing {agree.mean():.3f}")
+    assert agree.mean() > 0.2  # enough blocks to compare
+    d = np.abs(coeffs.astype(int) - j_dct.astype(int))
+    assert d[:, agree].max() <= 1
+    np.testing.assert_array_equal(
+        coeffs, tf.synrgb_combine_stage(tb[0], tb[1], strategy, None,
+                                        "dct").numpy())
+
+
+def _warp_argv(safe, out, strategy, alg):
+    argv = ["-i", str(safe), "-o", str(out), "-f", "jpeg", "--polarization",
+            "multiband", "--autoscale", strategy, "--size", "512", "--pad",
+            "--target-crs", "auto", "--fast"]
+    return argv + (["--resample-alg", alg] if alg else [])
+
+
+@pytest.mark.parametrize("strategy,alg", [
+    ("clahe", "cubic"), ("clahe", None), ("tamed", "cubic")])
+def test_cli_warp_path_matches_jax_route(scene, captured, tmp_path,
+                                         strategy, alg):
+    """The CLI with auto-UTM warp and pad, against the JAX package's file
+    route and its band programs on the JAX reader's warped bands."""
+    from sarpro_tpu.io.safe import SafeReader, TargetCrsArg
+    from sarpro_tpu_torch.io.safe import open_dual_pol
+
+    safe = scene[0]
+    t_out, j_out = tmp_path / "t" / "out.jpg", tmp_path / "j" / "out.jpg"
+    t_out.parent.mkdir()
+    j_out.parent.mkdir()
+    assert tcli.run(_warp_argv(safe, t_out, strategy, alg), device="cpu") == 0
+    (_, cols, rows, coeffs), = captured
+    assert (cols, rows) == (512, 512)
+    japi.process_safe_to_path(
+        safe, j_out, _params(_warp_argv(safe, j_out, strategy, alg)),
+        fast=True)
+    for ext in (".jgw", ".prj", ".json"):
+        assert t_out.with_suffix(ext).read_bytes() == \
+            j_out.with_suffix(ext).read_bytes(), ext
+    assert "UTM zone 32N" in t_out.with_suffix(".prj").read_text()
+
+    ref = SafeReader.open_with_options(safe, "all_pairs", TargetCrsArg.AUTO,
+                                       alg, 512)
+    port = open_dual_pol(safe, "cpu", 512, target_crs=TargetCrsArg.AUTO,
+                         resample_alg=alg)
+    s = AutoscaleStrategy(strategy)
+    kw = dict(strategy=s, target_size=512, pad=True, resample_alg=None)
+    jb = [np.asarray(jf.synrgb_band_stage(d, copol=c, **kw))
+          for d, c in ((ref._vv, True), (ref._vh, False))]
+    tb = [tf.synrgb_band_stage(d, copol=c, **kw)
+          for d, c in ((port.band1, True), (port.band2, False))]
+    _compare_bands_and_combine(jb, tb, s, 512, coeffs)
+
+
+def test_cli_clahe_no_warp_matches_jax_program(scene, captured, tmp_path):
+    safe, vv, vh = scene
+    argv = _argv(safe, tmp_path / "out.jpg", 512, "cubic")
+    argv[argv.index("tamed")] = "clahe"
+    assert tcli.run(argv, device="cpu") == 0
+    (_, cols, rows, coeffs), = captured
+    assert (cols, rows) == (512, 512)
+    kw = dict(strategy=CLAHE, target_size=512, pad=True, resample_alg="cubic")
+    jb = [np.asarray(jf.synrgb_band_stage(d, copol=c, **kw))
+          for d, c in ((vv, True), (vh, False))]
+    tb = [tf.synrgb_band_stage(torch.from_numpy(d), copol=c, **kw)
+          for d, c in ((vv, True), (vh, False))]
+    _compare_bands_and_combine(jb, tb, CLAHE, 512, coeffs)
+
+
 def _params(argv):
     return _params_from_args(build_parser().parse_args(argv))
 
@@ -132,8 +230,8 @@ def _params(argv):
 @pytest.mark.parametrize("extra,kwargs", [
     (["-f", "tiff", "--polarization", "multiband"], {"fast": True}),
     (["-f", "jpeg", "--polarization", "vv"], {"fast": True}),
-    (["-f", "jpeg", "--polarization", "multiband", "--target-crs", "auto"],
-     {"fast": True}),
+    (["-f", "jpeg", "--polarization", "multiband", "--autoscale",
+      "standard"], {"fast": True}),
     (["-f", "jpeg", "--polarization", "multiband"], {"fast": False}),
     (["-f", "jpeg", "--polarization", "multiband"],
      {"fast": True, "shard_devices": 2}),
