@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (sarpro_tpu_torch) on one GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--walls N]
 
 Phases, each of which raises on failure (the script then exits non-zero and
 prints no result):
@@ -10,7 +10,8 @@ prints no result):
   2. build: the native codec and box reducer (native/build.py) if absent,
      and the Hopper kernels (sarpro_tpu_torch/csrc) from source;
   3. kernels: each kernel against its plain PyTorch version on the card, at
-     the shapes the slice gives it, with CUDA-event timings of both;
+     the shapes the slice gives it (the CLAHE kernels also at the 100 MP
+     full-resolution route's), with CUDA-event timings of both;
   4. slice: a 20000 x 20000 dual-pol SAFE (tests/fixtures.make_safe, random
      DN from a seed) through the port's CLI to 2048 synRGB JPEGs: CLAHE with
      auto-UTM warp, pad and cubic (cold, then warm), Tamed with the same
@@ -26,13 +27,36 @@ prints no result):
      made errors, and under force_plain(); the bands must agree within 1 and
      the rgb where they agree; the JPEG's first MCUs are entropy-decoded
      and must equal the device's coefficient blocks. A breakdown of the warp
-     path's time is printed.
+     path's time is printed;
+  6. gray: the single-band, operation and TIFF routes on the same SAFE
+     (GRAY_RUNS: u8 CLAHE and u16 adaptive TIFF, multiband robust JPEG in
+     the default synRGB mode, ratio JPEG, u16 multiband TIFF, CLAHE JPEG
+     with auto-UTM warp), each run twice, the second with its launch counts
+     checked against PATHS. The TIFFs are read back (dtype, shape, bands,
+     georeferencing as the reference writes it) and must hold the device's
+     band; the gray JPEGs' first MCUs must be the device's blocks. The
+     grayscale program runs again on the resident bands of the two TIFF
+     routes with host syncs made errors, then under force_plain(). A
+     breakdown of the single-band route is printed;
+  7. full resolution: a 10000 x 10000 HH+HV SAFE (the size of a Sentinel-1
+     EW medium-resolution GRD, under the unported streamed path's
+     BIG_SCENE_PIXELS) through the CLI's defaults at original size (u8 CLAHE
+     TIFF, run twice) and to a 2048 padded CLAHE synRGB JPEG; the CLAHE
+     kernels at 100 MP against their plain versions through the grayscale
+     program;
+  8. with --walls N only: every warm path N times more, interleaved, with
+     medians and quartiles of its wall; the no-warp synRGB read through
+     each of the two loaders (full DN + device resample, decimated read) in
+     the same rounds; a torch.profiler trace of the single-band TIFF and
+     the full-resolution TIFF runs with the device's busy share.
 Then one JSON line of the kernels, the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
+import argparse
 import json
+import math
 import shutil
 import statistics
 import subprocess
@@ -44,6 +68,8 @@ ROOT = Path(__file__).resolve().parent
 SIDE = 20000  # 400 MP per band, the reference's published scene size
 SIZE = 2048
 MID = 2380  # the host-reduced source of the 20000^2 -> 2048 auto-UTM warp
+EW_SIDE = 10000  # 100 MP per band: a Sentinel-1 EW medium-resolution GRD
+EW_NAME = "S1A_EW_GRDM_1SDH_20250706T204346.SAFE"
 DEVICE = "cuda"
 RESAMPLE_TOL = dict(rtol=2e-6, atol=2e-2)
 # kernel -> (source, the TPU kernel body it replaces[, a second body])
@@ -68,7 +94,41 @@ PATHS = {
                         "warp_sample", "synrgb_lookup"),
     "warm tamed auto": ("histogram", "warp_sample", "synrgb_lookup"),
     "warm tamed cubic": ("histogram", "resample_axis0", "synrgb_lookup"),
+    "gray clahe tiff": ("histogram", "tile_histogram", "clahe_lookup"),
+    "gray adaptive u16 cubic": ("histogram", "resample_axis0"),
+    "multiband robust jpeg": ("histogram", "resample_axis0", "synrgb_lookup"),
+    "ratio jpeg": ("histogram",),
+    "multiband tiff": ("histogram",),
+    "gray auto": ("histogram", "tile_histogram", "clahe_lookup",
+                  "warp_sample"),
+    "full clahe tiff": ("histogram", "tile_histogram", "clahe_lookup"),
+    "full multiband jpeg": ("histogram", "resample_axis0", "tile_histogram",
+                            "clahe_lookup", "synrgb_lookup"),
 }
+# the single-band, operation and TIFF routes on the 20000^2 SAFE: (label,
+# output suffix, CLI arguments; the rest are the CLI's defaults)
+GRAY_RUNS = (
+    ("gray clahe tiff", "tiff", ["--polarization", "vv", "-f", "tiff",
+                                 "--autoscale", "clahe"]),
+    ("gray adaptive u16 cubic", "tiff", [
+        "--polarization", "vh", "-f", "tiff", "--bit-depth", "u16",
+        "--autoscale", "adaptive", "--resample-alg", "cubic"]),
+    ("multiband robust jpeg", "jpg", ["--polarization", "multiband", "-f",
+                                      "jpeg", "--autoscale", "robust",
+                                      "--pad"]),
+    ("ratio jpeg", "jpg", ["--polarization", "ratio", "-f", "jpeg",
+                           "--autoscale", "standard"]),
+    ("multiband tiff", "tiff", ["--polarization", "multiband", "-f", "tiff",
+                                "--bit-depth", "u16", "--autoscale",
+                                "standard"]),
+    ("gray auto", "jpg", ["--polarization", "vv", "-f", "jpeg",
+                          "--autoscale", "clahe", "--target-crs", "auto",
+                          "--resample-alg", "cubic"]),
+)
+# the warm runs that --walls traces under torch.profiler
+TRACED = ("gray clahe tiff", "full clahe tiff")
+# label -> (CLI arguments, output) of each run driven, for --walls
+DRIVEN: dict = {}
 # the path whose launch count each kernel reports in the kernels line
 REPORTED_PATH = {k: ("warm tamed cubic" if k == "resample_axis0"
                      else "warm clahe auto") for k in KERNELS}
@@ -140,6 +200,7 @@ def phase_kernels(results):
     import torch
 
     from sarpro_tpu_torch.core import resize, synthetic_rgb
+    from sarpro_tpu_torch.core.numerics import as_u16
     from sarpro_tpu_torch.ops import kernels, resample_kernel
 
     dev = torch.device(DEVICE)
@@ -202,11 +263,22 @@ def phase_kernels(results):
     log(f"synrgb_lookup 65536 pairs x 38 floors x water on/off + {n} px: "
         f"max|err| {worst}, kernel {ms:.4f} ms, plain {pms:.4f} ms")
     record("synrgb_lookup", worst, ms, pms)
+    # the default mode: its one table set, no set index, no water floor
+    tables = synthetic_rgb.default_table_set(dev)
+    for a1, a2, what in ((p1, p2, "65536 pairs"), (u1, u2, f"{n} px")):
+        _check_equal(kernels.synrgb_lookup(a1, a2, tables),
+                     kernels._synrgb_lookup_plain(a1, a2, tables),
+                     f"synrgb_lookup default set, {what}")
+    ms = median_ms(lambda: kernels.synrgb_lookup(u1, u2, tables))
+    pms = median_ms(lambda: kernels._synrgb_lookup_plain(u1, u2, tables))
+    log(f"synrgb_lookup default set (no set index, no water floor), 65536 "
+        f"pairs + {n} px: bit-equal, kernel {ms:.4f} ms, plain {pms:.4f} ms")
+    record("synrgb_lookup", 0, None, None)
 
     # resample: the u16 20000^2 row pass for each filter, then the f32
     # transposed column pass
-    x16 = torch.randint(0, 65536, (SIDE, SIDE), device=dev, generator=g,
-                        dtype=torch.int32).to(torch.int16).view(torch.uint16)
+    x16 = as_u16(torch.randint(0, 65536, (SIDE, SIDE), device=dev,
+                               generator=g, dtype=torch.int32))
     for filt in ("cubic", "average", "lanczos"):
         got = resample_kernel.band_resample_axis0(x16, SIDE, SIZE, filt)
         s, w = resize.device_coeffs(SIDE, SIZE, filt, dev)
@@ -303,6 +375,33 @@ def _kernels_clahe(dev, g, record):
         f"{pms:.4f} ms")
     record("clahe_lookup", 0, ms, pms)
 
+    # the full-resolution route's geometry: a 10000^2 band, 1250-row tiles
+    n, tile = EW_SIDE * EW_SIDE, -(-EW_SIDE // clahe.TILES_Y)
+    bins = (torch.randn(n, device=dev, generator=g) * 40 + 128).clamp(
+        0, 255).to(torch.int32)
+    bins[torch.rand(n, device=dev, generator=g) < 0.02] = clahe.CLAHE_BINS
+    grid = (EW_SIDE, 8, 8, tile, tile)
+    hist = kernels.tile_histogram(bins, *grid)
+    _check_equal(hist, kernels._tile_histogram_plain(bins, *grid, 0, 256),
+                 f"tile_histogram {EW_SIDE}^2")
+    cdfs = fused._clahe_cdfs(hist, EW_SIDE, EW_SIDE, tile, tile)
+    _check_equal(kernels.clahe_lookup(bins, cdfs, *grid),
+                 kernels._clahe_lookup_plain(bins, cdfs, *grid, 0),
+                 f"clahe_lookup {EW_SIDE}^2")
+    times = [median_ms(fn, reps=3) for fn in (
+        lambda: kernels.tile_histogram(bins, *grid),
+        lambda: kernels._tile_histogram_plain(bins, *grid, 0, 256),
+        lambda: kernels.clahe_lookup(bins, cdfs, *grid),
+        lambda: kernels._clahe_lookup_plain(bins, cdfs, *grid, 0))]
+    log(f"tile_histogram and clahe_lookup over {n} ({tile}-pixel tiles): "
+        f"bit-equal; tile_histogram kernel {times[0]:.4f} ms, plain "
+        f"{times[1]:.4f} ms; clahe_lookup kernel {times[2]:.4f} ms, plain "
+        f"{times[3]:.4f} ms")
+    record("tile_histogram", 0, None, None)
+    record("clahe_lookup", 0, None, None)
+    del bins, hist
+    torch.cuda.empty_cache()
+
 
 def warp_grid(side_src: int, side_out: int, angle_deg: float = 12.0,
               margin: float = 0.08, nodes: int = 66):
@@ -367,23 +466,77 @@ def _zigzag():
     return order
 
 
-def phase_slice(work: Path):
-    import torch
-
-    from sarpro_tpu_torch import cli, ops
-    from sarpro_tpu_torch.io import raster
-
-    t0 = time.perf_counter()
-    # the scene is written by a child process, whose ~7 GB of numpy
-    # temporaries are returned when it exits
+def _write_safe(work: Path, **kw) -> Path:
+    """tests/fixtures.make_safe in a child process, whose numpy temporaries
+    (~7 GB at 20000^2) are returned when it exits."""
+    args = ", ".join(f"{k}={v!r}" for k, v in kw.items())
     subprocess.run(
         [sys.executable, "-c",
          "import pathlib, sys; sys.path[:0] = [sys.argv[1], "
          "sys.argv[1] + '/tests']; import fixtures; "
-         "fixtures.make_safe(pathlib.Path(sys.argv[2]), "
-         f"shape=({SIDE}, {SIDE}))", str(ROOT), str(work)],
-        check=True)
-    safe = next(work.glob("*.SAFE"))
+         f"fixtures.make_safe(pathlib.Path(sys.argv[2]), {args})",
+         str(ROOT), str(work)], check=True)
+    return next(work.glob("*.SAFE"))
+
+
+def _cli_wall(label: str, argv: list, out: Path) -> float:
+    """Wall time (s, host clock) of one CLI run to `out`, the device's work
+    included."""
+    import torch
+
+    from sarpro_tpu_torch import cli
+
+    t0 = time.perf_counter()
+    if cli.run(argv + ["-o", str(out)], device=DEVICE) != 0:
+        raise RuntimeError(f"cli.run failed ({label})")
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def _drive(label: str, argv: list, out: Path):
+    """One CLI run with the launch counts and the decimated-read routes set
+    to 0 just before it and read just after; a run listed in PATHS must
+    have launched each of its kernels. Returns (wall s, counts, routes)."""
+    from sarpro_tpu_torch import ops
+    from sarpro_tpu_torch.io import raster
+
+    ops.reset_launch_counts()
+    for k in raster.ROUTES:
+        raster.ROUTES[k] = 0
+    wall = _cli_wall(label, argv, out)
+    counts, routes = ops.launch_counts(), dict(raster.ROUTES)
+    DRIVEN[label] = (argv, out)
+    log(f"slice: {label} wall {wall * 1e3:.1f} ms")
+    if label in PATHS:
+        log(f"slice: launches in the {label} run {counts}, decimated-read "
+            f"routes {routes}")
+        for k in PATHS[label]:
+            if counts[k] <= 0:
+                raise AssertionError(f"kernel {k} was not launched by the "
+                                     f"{label} run")
+    return wall, counts, routes
+
+
+def _check_jpeg(label: str, out: Path) -> bytes:
+    blob = out.read_bytes()
+    if blob[:2] != b"\xff\xd8" or blob[-2:] != b"\xff\xd9":
+        raise AssertionError(f"{label}: output is not a JPEG (SOI/EOI)")
+    for ext in (".jgw", ".json", ".prj"):
+        if not out.with_suffix(ext).exists():
+            raise AssertionError(f"{label}: missing sidecar {ext}")
+    return blob
+
+
+def _check_utm(label: str, out: Path) -> None:
+    prj = out.with_suffix(".prj").read_text()
+    if "UTM" not in prj:
+        raise AssertionError(f"{label}: .prj names no UTM CRS: {prj[:80]}")
+    log(f"slice: {label} .prj {prj.split(',')[0]}")
+
+
+def phase_slice(work: Path):
+    t0 = time.perf_counter()
+    safe = _write_safe(work, shape=(SIDE, SIDE))
     log(f"slice: wrote {safe.name} ({SIDE}x{SIDE} u16 VV+VH) in "
         f"{time.perf_counter() - t0:.1f} s")
     base = ["-i", str(safe), "-f", "jpeg", "--polarization", "multiband",
@@ -397,37 +550,11 @@ def phase_slice(work: Path):
     walls, counts, blobs = {}, {}, {}
     for label, strategy, extra in runs:
         out = work / f"{label.replace(' ', '_')}.jpg"
-        ops.reset_launch_counts()
-        for k in raster.ROUTES:
-            raster.ROUTES[k] = 0
-        t0 = time.perf_counter()
-        if cli.run(base + ["-o", str(out), "--autoscale", strategy]
-                   + extra, device=DEVICE) != 0:
-            raise RuntimeError(f"cli.run failed ({label})")
-        torch.cuda.synchronize()
-        walls[label] = time.perf_counter() - t0
-        counts[label] = ops.launch_counts()
-        routes = dict(raster.ROUTES)
-        blobs[label] = out.read_bytes()
-        log(f"slice: {label} wall {walls[label] * 1e3:.1f} ms")
-        if blobs[label][:2] != b"\xff\xd8" or blobs[label][-2:] != b"\xff\xd9":
-            raise AssertionError(f"{label}: output is not a JPEG (SOI/EOI)")
-        for ext in (".jgw", ".json", ".prj"):
-            if not out.with_suffix(ext).exists():
-                raise AssertionError(f"{label}: missing sidecar {ext}")
+        walls[label], counts[label], routes = _drive(
+            label, base + ["--autoscale", strategy] + extra, out)
+        blobs[label] = _check_jpeg(label, out)
         if "auto" in label:
-            prj = out.with_suffix(".prj").read_text()
-            if "UTM" not in prj:
-                raise AssertionError(f"{label}: .prj names no UTM CRS: "
-                                     f"{prj[:80]}")
-            log(f"slice: {label} .prj {prj.split(',')[0]}")
-        if label in PATHS:
-            log(f"slice: launches in the {label} run {counts[label]}, "
-                f"decimated-read routes {routes}")
-            for k in PATHS[label]:
-                if counts[label][k] <= 0:
-                    raise AssertionError(f"kernel {k} was not launched by "
-                                         f"the {label} run")
+            _check_utm(label, out)
         if label == "warm clahe auto" and routes["host_reduce"] != 2:
             raise AssertionError(f"{label}: the bands did not take the host "
                                  f"box reduce ({routes})")
@@ -628,7 +755,370 @@ def phase_resident(safe: Path, blobs):
     _resident("tamed cubic", scene, kw, blobs["warm tamed cubic"])
 
 
+def _check_tiff(label: str, out: Path, dtype: str, side: int, bands: int,
+                georeferenced: bool, pol: str):
+    """Read a TIFF back: dtype, shape, band count, the GDAL metadata's
+    polarization label, and a geotransform exactly where the reference
+    writes one (a non-identity pixel grid: an affine product, not a
+    GCP-georeferenced one left unwarped). Returns its bands."""
+    from sarpro_tpu_torch.io import raster
+
+    t = raster.TiffReader(out)
+    try:
+        arrs = [t.read(i) for i in range(1, t.samples + 1)]
+        geo, meta = t.geo_info(), t.gdal_metadata()
+    finally:
+        t.close()
+    got = (str(arrs[0].dtype), arrs[0].shape, len(arrs))
+    if got != (dtype, (side, side), bands):
+        raise AssertionError(f"{label}: TIFF {got}, expected "
+                             f"{(dtype, (side, side), bands)}")
+    if (geo.geotransform is not None) != georeferenced:
+        raise AssertionError(f"{label}: geotransform {geo.geotransform}, "
+                             f"expected {'one' if georeferenced else 'none'}")
+    if meta.get("POLARIZATIONS") != pol:
+        raise AssertionError(f"{label}: POLARIZATIONS "
+                             f"{meta.get('POLARIZATIONS')!r}, expected {pol}")
+    log(f"slice: {label} TIFF {got[0]} {side}x{side} x{bands}, geotransform "
+        f"{geo.geotransform}, POLARIZATIONS {pol}")
+    return arrs
+
+
+def _check_gray_mcus(label: str, blob: bytes, dct, n_mcus: int = 256):
+    """The gray JPEG's first MCUs entropy-decode to the device's blocks."""
+    from oracle import decode_baseline_jpeg_coeffs
+
+    blocks, ncomp = decode_baseline_jpeg_coeffs(blob, n_mcus)
+    dct = dct.cpu().numpy().reshape(-1, 8, 8)
+    zz = _zigzag()
+    if ncomp != 1:
+        raise AssertionError(f"{label}: {ncomp} JPEG components, expected 1")
+    for m in range(n_mcus):
+        if blocks[m] != [int(dct[m][col, row]) for row, col in zz]:
+            raise AssertionError(f"{label}: JPEG block {m} != device block")
+    log(f"resident ({label}): first {n_mcus} MCUs of the JPEG decode to the "
+        "device's coefficient blocks")
+
+
+def _one_bin_bound(band, strategy, max_val: float) -> int:
+    """Levels by which a band may move when one percentile of the 4096-bin
+    histogram moves by a bin at each end of the window (through the
+    strategy's gamma), plus 1 for the trunc."""
+    from sarpro_tpu_torch.core import fused
+
+    db, mask = fused._db_mask(band)
+    s = fused._stats(db, mask)
+    low, high, gamma = (float(v) for v in fused._window(s, strategy))
+    step = (float(s["max"]) - float(s["min"])) / fused.NUM_BINS
+    d = min(2 * step / max(high - low, 1.0), 1.0)
+    return 1 + math.ceil(max_val * (d ** gamma if gamma < 1 else gamma * d))
+
+
+def _resident_gray(label: str, band, kw, tiff_band, replot=None):
+    """The grayscale program on a resident band: once to warm, once with
+    host syncs made errors (it must equal the TIFF the CLI wrote), then
+    under force_plain() on the same band, which must give the same values
+    (the kernels equal their plain versions bit for bit). `replot`, when
+    given, re-reads the band under force_plain() (the device resample in
+    its plain version too): the u16 output then moves within
+    `_one_bin_bound`, measured and printed."""
+    import numpy as np
+    import torch
+
+    from sarpro_tpu_torch.core import fused
+    from sarpro_tpu_torch.core.numerics import as_f32
+    from sarpro_tpu_torch.ops import force_plain
+
+    fused.grayscale_pipeline(band, **kw)
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.set_sync_debug_mode("error")  # any host sync raises
+    try:
+        start.record()
+        k = fused.grayscale_pipeline(band, **kw)
+        end.record()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    end.synchronize()
+    log(f"resident ({label}): grayscale program on the device "
+        f"{start.elapsed_time(end):.3f} ms (no host sync)")
+    if not np.array_equal(k.cpu().numpy(), tiff_band):
+        raise AssertionError(f"{label}: the TIFF does not hold the device's "
+                             "band")
+    with force_plain():
+        p = fused.grayscale_pipeline(band, **kw)
+    _check_equal(k, p, f"{label}: grayscale program on the same band")
+    log(f"resident ({label}): {k.dtype} kernels vs plain on the same band: "
+        "bit-equal")
+    if replot is not None:
+        with force_plain():
+            p2 = fused.grayscale_pipeline(replot(), **kw)
+        d = (as_f32(k) - as_f32(p2)).abs()
+        bound = _one_bin_bound(band, kw["strategy"], kw["bit_depth"].max_val)
+        log(f"resident ({label}): vs the plain route from the read on "
+            f"(plain resample) max|diff| {d.max().item()} (bound {bound}), "
+            f"share differing {(d > 0).float().mean().item():.3g}")
+        if d.max().item() > bound:
+            raise AssertionError(f"{label}: plain route differs by more than "
+                                 f"{bound}")
+
+
+def _breakdown_gray(safe: Path):
+    """The single-band route step by step (VV, CLAHE, 2048), each step
+    finished before the next: decimated read (host read + box reduce +
+    upload, host clock), the grayscale program (CUDA events), copy back,
+    and the TIFF write or, for the JPEG, the DCT tail's program and the
+    entropy coding."""
+    import torch
+
+    from sarpro_tpu_torch.core import fast_path, fused
+    from sarpro_tpu_torch.io import safe as tsafe
+    from sarpro_tpu_torch.io.writers import jpeg
+
+    t0 = time.perf_counter()
+    meta, band = tsafe.open_band(safe, "vv", DEVICE, SIZE)
+    torch.cuda.synchronize()
+    t_read = time.perf_counter() - t0
+    kw = dict(strategy=fused.AutoscaleStrategy.CLAHE, target_size=SIZE)
+    ms = {}
+    outs = {}
+    for tail in (False, True):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        outs[tail] = fused.grayscale_pipeline(band, jpeg_dct=tail, **kw)
+        ev[1].record()
+        ev[1].synchronize()
+        ms[tail] = ev[0].elapsed_time(ev[1])
+    t0 = time.perf_counter()
+    arr = outs[False].cpu().numpy()
+    t1 = time.perf_counter()
+    out = safe.parent / "breakdown.tiff"
+    fast_path._write_tiff(fast_path.write_tiff_u8(out, SIZE, SIZE, arr), meta,
+                          None, None, None)
+    t2 = time.perf_counter()
+    co = outs[True].cpu().numpy()
+    t3 = time.perf_counter()
+    blob = jpeg._native.jpeg_encode_coeffs_gray(co, SIZE, SIZE)
+    t4 = time.perf_counter()
+    log(f"breakdown (single band, vv clahe {SIZE}): decimated read "
+        f"{t_read * 1e3:.1f} ms (host clock); device {ms[False]:.3f} ms "
+        f"(with the DCT tail {ms[True]:.3f} ms, CUDA events); copy-back "
+        f"{(t1 - t0) * 1e3:.2f} ms (blocks {(t3 - t2) * 1e3:.2f} ms); TIFF "
+        f"write {(t2 - t1) * 1e3:.1f} ms ({out.stat().st_size} bytes); "
+        f"entropy coding {(t4 - t3) * 1e3:.2f} ms ({len(blob)} bytes)")
+
+
+def phase_gray(safe: Path, work: Path):
+    """GRAY_RUNS on the 20000^2 SAFE, then the resident checks."""
+    from sarpro_tpu_torch.core import fused, ops as pol_ops
+    from sarpro_tpu_torch.io import safe as tsafe
+
+    AutoscaleStrategy, BitDepth = fused.AutoscaleStrategy, fused.BitDepth
+
+    walls, counts, outs = {}, {}, {}
+    for label, suffix, args in GRAY_RUNS:
+        out = work / f"{label.replace(' ', '_')}.{suffix}"
+        argv = ["-i", str(safe), "--size", str(SIZE), "--fast"] + args
+        _drive(f"first {label}", argv, out)
+        walls[label], counts[label], routes = _drive(label, argv, out)
+        outs[label] = out
+        if suffix == "jpg":
+            _check_jpeg(label, out)
+        if label == "ratio jpeg" and routes["host_reduce"] != 2:
+            raise AssertionError(f"{label}: the bands did not take the host "
+                                 f"box reduce ({routes})")
+    _check_utm("gray auto", outs["gray auto"])
+    synrgb = json.loads(outs["multiband robust jpeg"].with_suffix(
+        ".json").read_text())
+    log(f"slice: multiband robust jpeg sidecar synthetic_rgb_mode "
+        f"{synrgb.get('synthetic_rgb_mode')!r}")
+    clahe_tiff, = _check_tiff("gray clahe tiff", outs["gray clahe tiff"],
+                              "uint8", SIZE, 1, False, "VV")
+    u16_tiff, = _check_tiff("gray adaptive u16 cubic",
+                            outs["gray adaptive u16 cubic"], "uint16", SIZE,
+                            1, False, "VH")
+    _check_tiff("multiband tiff", outs["multiband tiff"], "uint16", SIZE, 2,
+                False, "MULTIBAND(VV, VH)")
+
+    # resident: the grayscale program on the decimated bands the CLI read
+    _, band = tsafe.open_band(safe, "vv", DEVICE, SIZE)
+    _resident_gray("gray clahe tiff", band,
+                   dict(strategy=AutoscaleStrategy.CLAHE,
+                        bit_depth=BitDepth.U8, target_size=SIZE), clahe_tiff)
+    args = (safe, "vh", DEVICE, SIZE)
+    _, band = tsafe.open_band(*args, resample_alg="cubic")
+    _resident_gray("gray adaptive u16 cubic", band,
+                   dict(strategy=AutoscaleStrategy.ADAPTIVE,
+                        bit_depth=BitDepth.U16, target_size=SIZE,
+                        resample_alg="cubic"), u16_tiff,
+                   replot=lambda: tsafe.open_band(*args,
+                                                  resample_alg="cubic")[1])
+    del band
+    pair = tsafe.open_pair(safe, DEVICE, "Operation ratio", SIZE)
+    ratio = pol_ops.ratio_arrays(pair.band1, pair.band2)
+    _check_gray_mcus("ratio jpeg", outs["ratio jpeg"].read_bytes(),
+                     fused.grayscale_pipeline(
+                         ratio, strategy=AutoscaleStrategy.STANDARD,
+                         target_size=SIZE, jpeg_dct=True))
+    del pair, ratio
+    _, band = tsafe.open_band(safe, "vv", DEVICE, SIZE,
+                              target_crs=tsafe.TargetCrsArg.AUTO,
+                              resample_alg="cubic")
+    _check_gray_mcus("gray auto", outs["gray auto"].read_bytes(),
+                     fused.grayscale_pipeline(
+                         band, strategy=AutoscaleStrategy.CLAHE,
+                         target_size=SIZE, jpeg_dct=True))
+    del band
+    scene = tsafe.open_dual_pol(safe, DEVICE, SIZE)
+    _resident("robust default synRGB", scene,
+              dict(strategy=AutoscaleStrategy.ROBUST, target_size=SIZE,
+                   pad=True, resample_alg=None),
+              outs["multiband robust jpeg"].read_bytes())
+    del scene
+    _breakdown_gray(safe)
+    return walls, counts
+
+
+def phase_full(work: Path):
+    """The CLI's defaults at original size on a 10000^2 HH+HV product, and
+    its synRGB JPEG; the CLAHE kernels at 100 MP."""
+    import torch
+
+    from sarpro_tpu_torch.core import fused
+    from sarpro_tpu_torch.io import safe as tsafe
+
+    t0 = time.perf_counter()
+    # an affine geotransform, so the TIFF carries one
+    ew = _write_safe(work / "ew", name=EW_NAME, pols=("hh", "hv"),
+                     shape=(EW_SIDE, EW_SIDE), with_affine_geotransform=True)
+    log(f"full: wrote {ew.name} ({EW_SIDE}x{EW_SIDE} u16 HH+HV) in "
+        f"{time.perf_counter() - t0:.1f} s")
+    walls, counts = {}, {}
+    tiff_argv = ["-i", str(ew), "--polarization", "hh", "--fast"]
+    out = work / "full_clahe.tiff"
+    _drive("first full clahe tiff", tiff_argv, out)
+    walls["full clahe tiff"], counts["full clahe tiff"], _ = _drive(
+        "full clahe tiff", tiff_argv, out)
+    tiff_band, = _check_tiff("full clahe tiff", out, "uint8", EW_SIDE, 1,
+                             True, "HH")
+    jpg = work / "full_multiband.jpg"
+    walls["full multiband jpeg"], counts["full multiband jpeg"], _ = _drive(
+        "full multiband jpeg",
+        ["-i", str(ew), "--polarization", "multiband", "-f", "jpeg",
+         "--autoscale", "clahe", "--size", str(SIZE), "--pad", "--fast"], jpg)
+    _check_jpeg("full multiband jpeg", jpg)
+    label = json.loads(jpg.with_suffix(".json").read_text())
+    log(f"full: multiband jpeg sidecar polarizations "
+        f"{label.get('polarizations')!r}")
+    _, band = tsafe.open_band(ew, "hh", DEVICE)
+    _resident_gray("full clahe tiff", band,
+                   dict(strategy=fused.AutoscaleStrategy.CLAHE,
+                        bit_depth=fused.BitDepth.U8), tiff_band)
+    del band
+    torch.cuda.empty_cache()
+    return walls, counts
+
+
+def _quartiles(xs):
+    q1, q2, q3 = statistics.quantiles(xs, n=4, method="inclusive")
+    return q1, q2, q3
+
+
+def _loader_wall(opener) -> float:
+    """Wall (s) of one no-warp synRGB read: `opener(band_stage)` loads both
+    bands (a loader that queues band 1's stage during the read, as the CLI's
+    does, is handed it), then the Tamed band stages not yet run (the default
+    filter), the device included."""
+    import torch
+
+    from sarpro_tpu_torch.core import fused
+
+    kw = dict(strategy=fused.AutoscaleStrategy.TAMED, target_size=SIZE,
+              pad=True, resample_alg=None)
+    t0 = time.perf_counter()
+    scene = opener(lambda b: fused.synrgb_band_stage(b, copol=True, **kw))
+    if scene.staged_band1 is None:
+        fused.synrgb_band_stage(scene.band1, copol=True, **kw)
+    fused.synrgb_band_stage(scene.band2, copol=False, **kw)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def _busy_us(intervals) -> float:
+    """Length of the union of (start, end) intervals."""
+    busy, reach = 0.0, -math.inf
+    for a, b in sorted(intervals):
+        if b > reach:
+            busy += b - max(a, reach)
+            reach = b
+    return busy
+
+
+def _trace(label: str, work: Path) -> None:
+    """One warm run of `label` under torch.profiler: its wall (profiler
+    included), and the device's busy time, the union of its kernel, copy
+    and memset intervals in the trace, over that wall."""
+    from torch.profiler import ProfilerActivity, profile
+
+    argv, out = DRIVEN[label]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        wall = _cli_wall(label, argv, out)
+    path = work / "trace.json"
+    prof.export_chrome_trace(str(path))
+    events = json.loads(path.read_text())["traceEvents"]
+    path.unlink()
+    spans = {"kernel": [], "gpu_memcpy": [], "gpu_memset": []}
+    for e in events:
+        if e.get("cat") in spans and "dur" in e:
+            spans[e["cat"]].append((e["ts"], e["ts"] + e["dur"]))
+    if not spans["kernel"]:
+        raise AssertionError(f"trace of {label}: no kernel on the device")
+    busy = _busy_us([iv for v in spans.values() for iv in v]) / 1e3
+    ms = {k: sum(b - a for a, b in v) / 1e3 for k, v in spans.items()}
+    log(f"trace: {label} wall {wall * 1e3:.1f} ms, device busy {busy:.2f} ms "
+        f"({100 * busy / (wall * 1e3):.2f} %): {len(spans['kernel'])} kernels"
+        f" {ms['kernel']:.2f} ms, {len(spans['gpu_memcpy'])} copies "
+        f"{ms['gpu_memcpy']:.2f} ms, memsets {ms['gpu_memset']:.2f} ms")
+
+
+def phase_walls(reps: int, safe: Path, work: Path, smi: str) -> None:
+    """--walls N: every warm path of PATHS run N times more, interleaved
+    (one run of each path per round), and the two no-warp synRGB loaders in
+    the same rounds: open_dual_pol's full-DN upload with the device resample
+    against open_pair's decimated read. Medians and quartiles, then TRACED
+    under torch.profiler."""
+    from sarpro_tpu_torch.io import safe as tsafe
+
+    loaders = {
+        "loader full DN (open_dual_pol)":
+            lambda stage: tsafe.open_dual_pol(safe, DEVICE, SIZE,
+                                              band_stage=stage),
+        "loader decimated (open_pair)":
+            lambda stage: tsafe.open_pair(safe, DEVICE, "Multiband", SIZE)}
+    walls = {label: [] for label in [*PATHS, *loaders]}
+    for _ in range(reps):
+        for label in PATHS:
+            walls[label].append(_cli_wall(label, *DRIVEN[label]))
+        for label, opener in loaders.items():
+            walls[label].append(_loader_wall(opener))
+    for label, xs in walls.items():
+        q1, med, q3 = (v * 1e3 for v in _quartiles(xs))
+        log(f"walls: {label} median {med:.1f} ms (quartiles {q1:.1f} / "
+            f"{q3:.1f}) over {reps} interleaved runs on {smi}")
+    for label in TRACED:
+        _trace(label, work)
+
+
 def main() -> int:
+    ap = argparse.ArgumentParser(description="Smoke run of the port on one "
+                                 "GPU (see the module's docstring).")
+    ap.add_argument("--walls", type=int, default=0, metavar="N",
+                    help="after the checks, run every warm path N (>= 3) "
+                    "times more, interleaved, and trace two of them")
+    args = ap.parse_args()
+    if args.walls and args.walls < 3:
+        ap.error("--walls needs 3 runs or more")
     smi = phase_environment()
     phase_build()
     results = {}
@@ -639,6 +1129,10 @@ def main() -> int:
     try:
         safe, blobs, counts, walls = phase_slice(work)
         phase_resident(safe, blobs)
+        gray_walls, _ = phase_gray(safe, work)
+        full_walls, _ = phase_full(work)
+        if args.walls:
+            phase_walls(args.walls, safe, work, smi)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     if "jax" in sys.modules:
@@ -648,6 +1142,9 @@ def main() -> int:
     log("slice: warm walls " + ", ".join(
         f"{label} {wall * 1e3:.1f} ms" for label, wall in walls.items()
         if label.startswith("warm")) + f" on {smi}")
+    log("slice: warm walls of the gray, operation and TIFF routes " + ", ".join(
+        f"{label} {wall * 1e3:.1f} ms" for label, wall in
+        {**gray_walls, **full_walls}.items()) + f" on {smi}")
     kernels = []
     for name, (src, rep, *also) in KERNELS.items():
         entry = {"name": name, "route": "cuda", "source": src,

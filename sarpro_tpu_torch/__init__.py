@@ -6,8 +6,10 @@ PyTorch tensor code plus hand-written CUDA kernels for Hopper (`ops/`,
 TIFF codec, writers, native JPEG entropy coder), which import neither jax
 nor Pillow.
 
-Ported so far: the dual-pol SAFE -> Tamed or CLAHE suppressed
-synthetic-RGB JPEG product, with or without reprojection
-(`python -m sarpro_tpu_torch.cli ... -f jpeg --polarization multiband
---autoscale clahe --target-crs auto --fast`).
+Ported so far: fast mode (`python -m sarpro_tpu_torch.cli ... --fast`) on
+one device, every route of it: single bands, the five polarization
+operations, multiband GeoTIFF and synthetic-RGB JPEG, grayscale JPEG, every
+autoscale strategy, u8 or u16, with or without reprojection. Exact mode,
+streamed full-resolution scenes above 192 MP, sharding and batch raise
+NotImplementedError naming their ROADMAP item.
 """

@@ -4,6 +4,7 @@ of sarpro_tpu/cli.py:127-189).
     python -m sarpro_tpu_torch.cli -i X.SAFE -o out.jpg -f jpeg \\
         --polarization multiband --autoscale clahe --size 2048 --pad \\
         --target-crs auto --resample-alg cubic --fast
+    python -m sarpro_tpu_torch.cli -i X.SAFE -o out.tiff --fast  # u8 VV CLAHE
 """
 from __future__ import annotations
 
@@ -30,7 +31,7 @@ def run(argv=None, device="cuda") -> int:
         params = _params_from_args(args)
         if args.batch or args.input_dir is not None:
             raise NotImplementedError("batch mode is not ported yet "
-                                      "(ROADMAP queue 1, batch)")
+                                      "(ROADMAP queue 1 #8, batch)")
         if args.input is None:
             raise MissingArgument("--input")
         if args.output is None:

@@ -1,9 +1,15 @@
-"""Fast-mode file output of the synRGB JPEG (port of the JPEG branch of
-sarpro_tpu/core/fast_path.save_multiband_fast).
+"""Fast-mode file output (port of the unsharded, non-streamed branches of
+sarpro_tpu/core/fast_path.save_single_band_fast and save_multiband_fast).
 
-The device runs the whole chain down to quantized DCT blocks; the host
-copies the blocks back, entropy-codes them and writes the world file, .prj
-and JSON sidecar through the JAX package's host-only writers.
+The device runs the whole chain down to the band values, or for a JPEG down
+to quantized DCT blocks; the host copies the result back and writes the
+GeoTIFF (with its embedded metadata), or entropy-codes the JPEG and writes
+the world file, .prj and JSON sidecar, through the JAX package's host-only
+writers.
+
+Not ported: full-resolution scenes above BIG_SCENE_PIXELS, which take the
+JAX package's streamed path (ROADMAP queue 1 #6), and row sharding over
+several devices (#7).
 """
 from __future__ import annotations
 
@@ -12,9 +18,17 @@ from pathlib import Path
 
 from sarpro_tpu.io.writers.metadata import (
     create_jpeg_metadata_sidecar_with_overrides_and_extras,
+    embed_tiff_metadata,
+)
+from sarpro_tpu.io.writers.tiff import (
+    write_tiff_multiband_u8,
+    write_tiff_multiband_u16,
+    write_tiff_u8,
+    write_tiff_u16,
 )
 from sarpro_tpu.io.writers.worldfile import write_prj_file, write_world_file
 from sarpro_tpu.types import (
+    BitDepth,
     OutputFormat,
     ProcessingOperation,
     SyntheticRgbMode,
@@ -32,6 +46,14 @@ BIG_SCENE_PIXELS = 192 << 20
 
 def _is_big_scene(in_rows: int, in_cols: int, target_size) -> bool:
     return target_size is None and in_rows * in_cols > BIG_SCENE_PIXELS
+
+
+def _refuse_big_scene(in_rows: int, in_cols: int, target_size) -> None:
+    if _is_big_scene(in_rows, in_cols, target_size):
+        raise NotImplementedError(
+            f"a full-resolution {in_cols}x{in_rows} scene is above "
+            f"{BIG_SCENE_PIXELS} pixels and needs the streamed path, not "
+            "ported yet (ROADMAP queue 1 #6, streamed big scenes)")
 
 
 def _final_dims(in_rows: int, in_cols: int, target_size, pad: bool,
@@ -68,30 +90,94 @@ def _rescale_geotransform(meta, cols, rows, final_cols, final_rows,
     return gt_override, proj_override
 
 
+def _geo(metadata, in_rows, in_cols, target_size, pad, resample_alg):
+    """(final_cols, final_rows, geotransform override, projection
+    override) of the output."""
+    rows, cols, final_cols, final_rows, pad_left, pad_top = _final_dims(
+        in_rows, in_cols, target_size, pad, resample_alg)
+    gt, proj = _rescale_geotransform(metadata, cols, rows, final_cols,
+                                     final_rows, pad_left, pad_top, 1.0, 1.0)
+    return final_cols, final_rows, gt, proj
+
+
+def _write_tiff(ds, metadata, label, gt, proj) -> None:
+    if metadata is not None:
+        embed_tiff_metadata(ds, metadata, label, gt, proj)
+    ds.flush()
+
+
+def _write_jpeg_sidecars(output: Path, metadata, label, gt, proj,
+                         extras=None) -> None:
+    """World file, .prj and JSON sidecar of a JPEG."""
+    if metadata is None:
+        return
+    if gt is not None:
+        write_world_file(output, gt)
+    if proj is not None:
+        write_prj_file(output, proj)
+    create_jpeg_metadata_sidecar_with_overrides_and_extras(
+        output, metadata, label, gt, proj, extras)
+
+
+def save_single_band_fast(
+    dn, output, format: OutputFormat, bit_depth: BitDepth, target_size,
+    metadata=None, pad: bool = False, strategy=None,
+    operation: ProcessingOperation = ProcessingOperation.SINGLE_BAND,
+    resample_alg=None,
+) -> None:
+    """One band (device tensor) -> GeoTIFF (u8 or u16) or grayscale JPEG
+    (always u8, from the device's DCT blocks) + world file, .prj and
+    sidecar, through the grayscale program."""
+    output = Path(output)
+    in_rows, in_cols = dn.shape
+    _refuse_big_scene(in_rows, in_cols, target_size)
+    tiff = format is OutputFormat.TIFF
+    depth = bit_depth if tiff else BitDepth.U8
+    out = fused.grayscale_pipeline(
+        dn, strategy=strategy, bit_depth=depth, target_size=target_size,
+        pad=pad, resample_alg=resample_alg, jpeg_dct=not tiff)
+    arr = out.cpu().numpy()
+    final_cols, final_rows, gt, proj = _geo(metadata, in_rows, in_cols,
+                                            target_size, pad, resample_alg)
+    label = operation.metadata_label
+    if tiff:
+        writer = write_tiff_u8 if depth is BitDepth.U8 else write_tiff_u16
+        _write_tiff(writer(output, final_cols, final_rows, arr), metadata,
+                    label, gt, proj)
+    else:
+        jpeg.write_gray_jpeg_dct(output, final_cols, final_rows, arr)
+        _write_jpeg_sidecars(output, metadata, label, gt, proj)
+    logger.info("fast: saved %s", output)
+
+
 def save_multiband_fast(
-    dn1, dn2, output, format: OutputFormat, target_size, metadata=None,
-    pad: bool = False, strategy=None,
+    dn1, dn2, output, format: OutputFormat, bit_depth: BitDepth, target_size,
+    metadata=None, pad: bool = False, strategy=None,
     operation: ProcessingOperation = ProcessingOperation.MULTIBAND_VV_VH,
     syn_mode: SyntheticRgbMode = SyntheticRgbMode.DEFAULT,
     resample_alg=None, staged_b1=None,
 ) -> None:
-    """Dual-band DN (device tensors) -> synRGB JPEG + world file, .prj and
-    sidecar. `staged_b1` is band 1's already-queued band stage (the reader's
-    overlapped load); without it band 1's stage runs here."""
-    if format is not OutputFormat.JPEG:
-        raise NotImplementedError("multiband TIFF is not ported yet "
-                                  "(ROADMAP queue 1, gray/TIFF routes)")
+    """Dual-band DN (device tensors) -> two-band GeoTIFF (u8 or u16, one
+    grayscale program per band) or synRGB JPEG + world file, .prj and
+    sidecar. `staged_b1` is band 1's already-queued synRGB band stage (the
+    reader's overlapped load); without it band 1's stage runs here."""
     output = Path(output)
     in_rows, in_cols = dn1.shape
-    if _is_big_scene(in_rows, in_cols, target_size):
-        raise NotImplementedError("full-resolution big scenes need the "
-                                  "streamed path, not ported yet (ROADMAP "
-                                  "queue 1, streamed big scenes)")
-    rows, cols, final_cols, final_rows, pad_left, pad_top = _final_dims(
-        in_rows, in_cols, target_size, pad, resample_alg)
-    gt_override, proj_override = _rescale_geotransform(
-        metadata, cols, rows, final_cols, final_rows, pad_left, pad_top,
-        1.0, 1.0)
+    _refuse_big_scene(in_rows, in_cols, target_size)
+    final_cols, final_rows, gt, proj = _geo(metadata, in_rows, in_cols,
+                                            target_size, pad, resample_alg)
+    label = operation.metadata_label
+    if format is OutputFormat.TIFF:
+        b1, b2 = (fused.grayscale_pipeline(
+            dn, strategy=strategy, bit_depth=bit_depth,
+            target_size=target_size, pad=pad,
+            resample_alg=resample_alg).cpu().numpy() for dn in (dn1, dn2))
+        writer = (write_tiff_multiband_u8 if bit_depth is BitDepth.U8
+                  else write_tiff_multiband_u16)
+        _write_tiff(writer(output, final_cols, final_rows, b1, b2), metadata,
+                    label, gt, proj)
+        logger.info("fast: saved %s", output)
+        return
     stage = dict(strategy=strategy, target_size=target_size, pad=pad,
                  resample_alg=resample_alg)
     b1 = (staged_b1 if staged_b1 is not None
@@ -101,12 +187,6 @@ def save_multiband_fast(
                                         suppressed=None, channel_order="dct")
     jpeg.write_synrgb_jpeg_dct(output, final_cols, final_rows,
                                coeffs.cpu().numpy())
-    if metadata is not None:
-        if gt_override is not None:
-            write_world_file(output, gt_override)
-        if proj_override is not None:
-            write_prj_file(output, proj_override)
-        create_jpeg_metadata_sidecar_with_overrides_and_extras(
-            output, metadata, operation.metadata_label, gt_override,
-            proj_override, [("synthetic_rgb_mode", syn_mode.display)])
+    _write_jpeg_sidecars(output, metadata, label, gt, proj,
+                         [("synthetic_rgb_mode", syn_mode.display)])
     logger.info("fast: saved %s", output)

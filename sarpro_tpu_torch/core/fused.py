@@ -1,6 +1,7 @@
-"""The fused synthetic-RGB program on the GPU: DN rasters -> Tamed or CLAHE
-u8 bands -> suppressed synRGB -> YCbCr -> quantized JPEG DCT blocks (port of
-the slice of sarpro_tpu/core/fused.py that the synRGB JPEG runs).
+"""The fused programs on the GPU (port of sarpro_tpu/core/fused.py): the
+synthetic-RGB program, DN rasters -> u8 bands of any strategy -> suppressed
+or default synRGB -> YCbCr -> quantized JPEG DCT blocks, and the grayscale
+program, one DN raster -> u8 or u16 band (or its JPEG DCT blocks).
 
 Like the JAX program, the band and combine stages never wait for the host:
 no `.item()`, no boolean-mask indexing, no `nonzero`. Data-dependent scalars
@@ -14,11 +15,10 @@ and pow differ by an ulp between XLA and PyTorch on a few percent of
 values, and XLA on the CPU contracts the CLAHE blend into FMAs, so a Tamed
 band may differ by 1 on rare pixels where a bin or a trunc flips, and a
 CLAHE band by up to 4 where a percentile, and so the CLAHE window, moves
-by one histogram bin (ROADMAP queue 3).
+by one histogram bin (ROADMAP queue 3). `_quantize`'s f32 `pow` (gamma 0.8,
+0.9, 1.1) moves a level by 1 on a few pixels in 1e5; gamma 1 is exact.
 
-Not ported yet (each raises NotImplementedError): strategies other than
-Tamed and CLAHE (`_quantize`), default-mode (non-suppressed) synRGB, the
-bgr layout, row sharding.
+Not ported: row sharding (`row_axis`, ROADMAP queue 1 #7).
 """
 from __future__ import annotations
 
@@ -28,7 +28,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from sarpro_tpu.types import AutoscaleStrategy
+from sarpro_tpu.types import AutoscaleStrategy, BitDepth
 
 from ..ops import (
     band_resample_axis0,
@@ -38,8 +38,13 @@ from ..ops import (
     tile_histogram,
 )
 from .clahe import CLAHE_BINS, CLIP_LIMIT, TILES_X, TILES_Y
-from .numerics import round_half_up_nonneg
-from .synthetic_rgb import FLOOR_MAX, FLOOR_MIN, suppressed_table_sets
+from .numerics import as_f32, as_u16, round_half_up_nonneg
+from .synthetic_rgb import (
+    FLOOR_MAX,
+    FLOOR_MIN,
+    default_table_set,
+    suppressed_table_sets,
+)
 
 # sarpro_tpu/core/pipeline.py:32-35 and core/stats.py:24
 NUM_BINS = 4096
@@ -66,7 +71,7 @@ def _const(name: str, device: torch.device) -> torch.Tensor:
 
 
 def _db_mask(x: torch.Tensor):
-    v = torch.clamp_min(x.to(torch.float32), DB_FLOOR)
+    v = torch.clamp_min(as_f32(x), DB_FLOOR)
     db = 10.0 * (torch.log(v) * _INV_LN10)
     return db, db > DB_VALID_THRESHOLD
 
@@ -200,12 +205,24 @@ def _window(s, strategy: AutoscaleStrategy):
     return s["p05"], s["p95"], one  # default
 
 
+def _quantize(db, mask, low, high, gamma, max_val: float):
+    """Window, gamma and quantize to [0, max_val]; the u16 values are held
+    as f32. Gamma 1 skips the `pow`, so that case stays exact."""
+    rng = torch.clamp_min(high - low, 1.0)
+    norm = (torch.clamp(db, low, high) - low) / rng
+    powed = torch.where(gamma == 1.0, norm, torch.pow(norm, gamma))
+    q = torch.clamp(torch.trunc(torch.clamp(powed * max_val, 0.0, max_val)),
+                    0, 65535)
+    return torch.where(mask, q, 0.0)
+
+
 def _scale_u16_to_u8(q):
     """Min-max stretch of the u16 band values to u8 (the range stays on the
-    device)."""
+    device). The scale is a true division: PyTorch's `255.0 / t` multiplies
+    by the rounded reciprocal, off by an ulp for a quarter of ranges."""
     mn = q.amin().to(torch.float32)
     mx = q.amax().to(torch.float32)
-    scale = torch.where(mx > mn, 255.0 / (mx - mn), 1.0)
+    scale = torch.where(mx > mn, torch.full_like(mx, 255.0) / (mx - mn), 1.0)
     val = round_half_up_nonneg((q.to(torch.float32) - mn) * scale)
     return torch.clamp(val, 0.0, 255.0).to(torch.uint8)
 
@@ -279,29 +296,40 @@ def _resample_dn(x: torch.Tensor, out_rows: int, out_cols: int,
     if in_cols != out_cols:
         x = band_resample_axis0(x.T.contiguous(), in_cols, out_cols,
                                 filter_name).T
-    return x.to(torch.float32).contiguous()
+    return as_f32(x).contiguous()
+
+
+def _autoscale(db, mask, s, strategy: AutoscaleStrategy, max_val: float,
+               rows: int, cols: int):
+    """The strategy's window, then CLAHE or `_quantize` to [0, max_val]
+    (the u16 values, held as f32)."""
+    low, high, gamma = _window(s, strategy)
+    if strategy is AutoscaleStrategy.CLAHE:
+        return _clahe(db, mask, low, high, max_val, rows, cols)
+    return _quantize(db, mask, low, high, gamma, max_val)
 
 
 def _band_u8(dn: torch.Tensor, strategy: AutoscaleStrategy,
              tamed_copol: bool | None) -> torch.Tensor:
     """One band DN -> final u8: the strategy dispatch of pipeline.rs:42-67
     plus the Tamed synRGB band path of save.rs:324-328."""
-    tamed_band = (tamed_copol is not None
-                  and strategy is AutoscaleStrategy.TAMED)
-    if not tamed_band and strategy is not AutoscaleStrategy.CLAHE:
-        raise NotImplementedError(
-            f"autoscale {strategy.value!r} needs _quantize, which is not "
-            "ported yet; the port runs tamed and clahe (ROADMAP queue 1, #3 "
-            "other strategies and default synRGB)")
     db, mask = _db_mask(dn)
     s = _stats(db, mask)
-    if tamed_band:
+    if tamed_copol is not None and strategy is AutoscaleStrategy.TAMED:
         # band-specific tamed window (autoscale.rs:710-742) straight to u8
         low = torch.minimum(s["p02"], s["p05"]) if tamed_copol else s["p05"]
         high = s["p99"]
         return _tamed_quantize_u8(db, mask, low, high).to(torch.uint8)
-    low, high, _gamma = _window(s, strategy)
-    return _scale_u16_to_u8(_clahe(db, mask, low, high, 255.0, *dn.shape))
+    return _scale_u16_to_u8(_autoscale(db, mask, s, strategy, 255.0,
+                                       *dn.shape))
+
+
+def _synrgb_default(b1: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
+    """Default-mode composition: the one default table set, no set index
+    and no water mask (reference: synthetic_rgb.rs:10-67)."""
+    rgb = synrgb_lookup(b1.reshape(-1), b2.reshape(-1),
+                        default_table_set(b1.device))
+    return rgb.reshape(b1.shape + (3,))
 
 
 def _suppressed_floor(hist: torch.Tensor, total_pixels: int) -> torch.Tensor:
@@ -372,7 +400,7 @@ def _synrgb_band(dn, strategy, copol: bool, target_size, pad: bool,
     rows, cols, filt = _plan_read_dims(in_rows, in_cols, target_size,
                                        resample_alg)
     x = (_resample_dn(dn, rows, cols, filt) if filt is not None
-         else dn.to(torch.float32))
+         else as_f32(dn))
     tamed = strategy is AutoscaleStrategy.TAMED
     b = _band_u8(x, strategy, copol if tamed else None)
     if pad:
@@ -433,21 +461,47 @@ def _synrgb_combine(b1, b2, strategy, suppressed, channel_order: str):
     if suppressed is None:
         suppressed = strategy in (AutoscaleStrategy.TAMED,
                                   AutoscaleStrategy.CLAHE)
-    if not suppressed:
-        raise NotImplementedError(
-            "default-mode synRGB is not ported yet (ROADMAP queue 1, #3 "
-            "other strategies and default synRGB)")
-    out = _synrgb_suppressed(b1, b2)
-    if channel_order == "rgb":
-        return out
+    if channel_order not in ("rgb", "bgr", "ycbcr", "dct"):
+        raise ValueError(f"unknown channel order {channel_order!r} (rgb, "
+                         "bgr, ycbcr, dct)")
+    out = (_synrgb_suppressed(b1, b2) if suppressed
+           else _synrgb_default(b1, b2))
+    if channel_order == "bgr":
+        return torch.flip(out, (-1,))
     if channel_order in ("ycbcr", "dct"):
         planes = ycbcr_planes(out)
         return jpeg_dct_planes(planes) if channel_order == "dct" else planes
-    raise NotImplementedError(f"channel order {channel_order!r} is not "
-                              "ported (rgb, ycbcr, dct)")
+    return out
 
 
 # per-stage entry points of the overlapped file path: band 1's stage is
 # queued on the device while band 2 is still being read from disk
 synrgb_band_stage = _synrgb_band
 synrgb_combine_stage = _synrgb_combine
+
+
+def grayscale_pipeline(dn, strategy: AutoscaleStrategy = AutoscaleStrategy.STANDARD,
+                       bit_depth: BitDepth = BitDepth.U8,
+                       target_size: int | None = None, pad: bool = False,
+                       resample_alg: str | None = None,
+                       jpeg_dct: bool = False) -> torch.Tensor:
+    """One DN raster -> u8 or u16 grayscale band: resample (unless already
+    at size), dB, stats, the strategy's window, CLAHE or `_quantize` at the
+    bit depth's range, the u16-to-u8 stretch for u8, pad. With `jpeg_dct`
+    (u8 only) the band's quantized q100 JPEG DCT blocks (bh, bw, 8, 8)
+    int16 come out instead, for the entropy-only host encoder."""
+    if jpeg_dct and bit_depth is not BitDepth.U8:
+        raise ValueError("the JPEG front end takes u8 bands only")
+    rows, cols, filt = _plan_read_dims(*dn.shape, target_size, resample_alg)
+    x = (_resample_dn(dn, rows, cols, filt) if filt is not None
+         else as_f32(dn))
+    db, mask = _db_mask(x)
+    s = _stats(db, mask)
+    q16 = _autoscale(db, mask, s, strategy, float(bit_depth.max_val), rows,
+                     cols)
+    out = _scale_u16_to_u8(q16) if bit_depth is BitDepth.U8 else q16
+    if pad:
+        out = _pad_square(out, rows, cols)
+    if jpeg_dct:
+        return jpeg_dct_planes(out[None])[0]
+    return out if bit_depth is BitDepth.U8 else as_u16(out)

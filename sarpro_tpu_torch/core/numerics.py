@@ -1,5 +1,5 @@
 """Rounding helpers matching the reference's Rust numerics (port of
-sarpro_tpu/core/numerics.py)."""
+sarpro_tpu/core/numerics.py), and the port's one place for uint16 casts."""
 from __future__ import annotations
 
 import torch
@@ -8,3 +8,23 @@ import torch
 def round_half_up_nonneg(x: torch.Tensor) -> torch.Tensor:
     """floor(x + 0.5): equals Rust .round() for x >= 0 (the common case)."""
     return torch.floor(x + 0.5)
+
+
+def as_f32(x: torch.Tensor) -> torch.Tensor:
+    """`x` as f32; u16 DN converts through its int16 bit pattern (PyTorch
+    builds differ in which casts they dispatch for uint16)."""
+    if x.dtype == torch.uint16:
+        x = x.view(torch.int16).to(torch.int32) & 0xFFFF
+    return x.to(torch.float32)
+
+
+def u16_bits(x: torch.Tensor) -> torch.Tensor:
+    """The int16 view (same bits) of a uint16 tensor, for gathers; other
+    dtypes as they are."""
+    return x.view(torch.int16) if x.dtype == torch.uint16 else x
+
+
+def as_u16(q: torch.Tensor) -> torch.Tensor:
+    """f32-held u16 values -> uint16 through the int16 bit pattern (casts to
+    uint16 itself are missing from some PyTorch builds)."""
+    return q.to(torch.int32).to(torch.int16).view(torch.uint16)

@@ -13,6 +13,8 @@ import functools
 import numpy as np
 import torch
 
+from .numerics import as_f32, u16_bits
+
 
 def _lanczos3(x: np.ndarray) -> np.ndarray:
     ax = np.abs(x)
@@ -109,16 +111,12 @@ def _resample_axis0(x: torch.Tensor, starts: torch.Tensor,
     taps added in order. The source may be u16 (DN) or f32; whole rows are
     gathered in the source dtype and cast after."""
     rows = x.shape[0]
-    # u16 gathers run on the int16 view (same bits): PyTorch builds differ
-    # in which operators they dispatch for uint16
-    src = x.view(torch.int16) if x.dtype == torch.uint16 else x
+    src = u16_bits(x)
     out = None
     for j in range(weights.shape[1]):
         idx = torch.clamp(starts.to(torch.int64) + j, 0, rows - 1)
-        r = src.index_select(0, idx)
-        if x.dtype == torch.uint16:
-            r = r.to(torch.int32) & 0xFFFF
-        term = weights[:, j:j + 1] * r.to(torch.float32)
+        r = as_f32(src.index_select(0, idx).view(x.dtype))
+        term = weights[:, j:j + 1] * r
         out = term if out is None else out + term
     return out
 

@@ -1,11 +1,14 @@
-"""Suppressed-mode synthetic-RGB tables (port of the table builders of
-sarpro_tpu/core/synthetic_rgb.py).
+"""Synthetic-RGB tables (port of the table builders of
+sarpro_tpu/core/synthetic_rgb.py, whose module imports jax).
 
-`suppressed_luts` is a copy of the JAX package's host f32 numpy builder (the
-reference's f32 LUT precomputation, synthetic_rgb.rs:115-154); a test holds
-the copy bit-equal to the original for every floor. The port stacks the
-tables of every reachable floor (3..40) on the device, and the composition
-picks one set by the floor it computes in-graph.
+`default_luts` and `suppressed_luts` are copies of the JAX package's host
+f32 numpy builders (the reference's f32 LUT precomputation,
+synthetic_rgb.rs:20-51 and :115-154); a test holds each copy bit-equal to
+the original. On the device a table set is one u8 row laid out as
+`ops.synrgb_lookup` expects, [lut_r (256) | lut_g (256) | lut_b (65536)]:
+the default mode has one set, and the suppressed mode stacks the sets of
+every reachable floor (3..40) and picks one by the floor it computes
+in-graph.
 """
 from __future__ import annotations
 
@@ -14,7 +17,11 @@ import functools
 import numpy as np
 import torch
 
+GAMMA_R = np.float32(0.7)
+GAMMA_G = np.float32(0.9)
 GAMMA_B = np.float32(0.1)
+BLUE_SCALE = np.float32(0.24)
+
 GAMMA_R_SUPP = np.float32(1.15)
 GAMMA_G_SUPP = np.float32(1.10)
 BLUE_SCALE_SUPP = np.float32(0.18)
@@ -26,6 +33,36 @@ FLOOR_MIN, FLOOR_MAX = 3, 40
 
 def _round_half_away_f32(x: np.ndarray) -> np.ndarray:
     return np.trunc(x + np.copysign(np.float32(0.5), x).astype(np.float32))
+
+
+@functools.lru_cache(maxsize=1)
+def default_luts() -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Default-mode LUTs (lut_r (256,), lut_g (256,), lut_b (65536,) flat
+    index b1 * 256 + b2), u8: f32 arithmetic, round half away from zero,
+    and the band2 == 0 -> blue 0 guard baked into lut_b."""
+    v = np.arange(256, dtype=np.float32) / np.float32(255.0)
+    # (vf^g * 255).round().clamp(0,255) as u8: round, then clamp
+    lut_r = np.clip(_round_half_away_f32(np.power(v, GAMMA_R) * np.float32(255.0)), 0, 255).astype(np.uint8)
+    lut_g = np.clip(_round_half_away_f32(np.power(v, GAMMA_G) * np.float32(255.0)), 0, 255).astype(np.uint8)
+
+    r = lut_r.astype(np.float32)[:, None]  # indexed by b1
+    g = lut_g.astype(np.float32)[None, :]  # indexed by b2
+    with np.errstate(divide="ignore", invalid="ignore"):
+        ratio = r / g  # g == 0 -> inf; 0/0 -> nan
+        blue_f = np.power(ratio, GAMMA_B) * np.float32(255.0) * BLUE_SCALE
+    # (ratio^g * 255 * 0.24).clamp(0,255).round() as u8: clamp, then round
+    blue_f = np.nan_to_num(blue_f, nan=0.0, posinf=np.inf)
+    blue = _round_half_away_f32(np.clip(blue_f, 0.0, 255.0)).astype(np.uint8)
+    blue[:, 0] = 0  # band2 == 0 -> blue = 0 (reference: :38-39)
+    return lut_r, lut_g, blue.reshape(-1)
+
+
+@functools.lru_cache(maxsize=4)
+def default_table_set(device: torch.device) -> torch.Tensor:
+    """(1, 66048) u8 on `device`: [lut_r | lut_g | lut_b] of
+    `default_luts()`."""
+    return torch.from_numpy(np.concatenate(default_luts())[None]).to(
+        device, non_blocking=True)
 
 
 def suppressed_luts(floor_with_cushion: int):

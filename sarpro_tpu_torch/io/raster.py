@@ -11,7 +11,9 @@ Two routes, chosen from the raster's layout before the read:
     card;
   * device resample: otherwise the band is read whole, uploaded as stored
     (u16 DN, else f32), and resampled on the device by the ported resample
-    kernel with the same filter and the same windows.
+    kernel with the same filter and the same windows ('nearest' picks the
+    nearest source row and column, as sarpro_tpu/core/resize.resample_plane
+    does).
 `ROUTES` counts which route ran.
 """
 from __future__ import annotations
@@ -25,6 +27,7 @@ from sarpro_tpu import _native
 from sarpro_tpu.io.tiffio import TiffReader
 
 from ..core.fused import _resample_dn
+from ..core.numerics import as_f32, u16_bits
 from ..core.resize import _build_coeffs
 
 logger = logging.getLogger("sarpro")
@@ -69,6 +72,19 @@ def _box_windows(reader, band: int, out_cols: int, out_rows: int, filt: str):
     return ywin, xwin
 
 
+def _nearest_index(in_size: int, out_size: int) -> np.ndarray:
+    return np.minimum(((np.arange(out_size) + 0.5) * (in_size / out_size))
+                      .astype(np.int64), in_size - 1)
+
+
+def _nearest(x: torch.Tensor, out_rows: int, out_cols: int) -> torch.Tensor:
+    """Nearest-neighbour decimation of a (rows, cols) band to f32."""
+    ri = torch.from_numpy(_nearest_index(x.shape[0], out_rows)).to(x.device)
+    ci = torch.from_numpy(_nearest_index(x.shape[1], out_cols)).to(x.device)
+    y = u16_bits(x).index_select(0, ri).index_select(1, ci)
+    return as_f32(y.view(x.dtype))
+
+
 def read_band_resampled_to_device(reader, band: int, out_cols: int,
                                   out_rows: int, device,
                                   alg: str | None = None,
@@ -86,8 +102,10 @@ def read_band_resampled_to_device(reader, band: int, out_cols: int,
         arr = (arr.astype(np.uint16, copy=False) if arr.dtype == np.uint16
                else arr.astype(np.float32))
         ROUTES["device_resample"] += 1
-        return _resample_dn(torch.from_numpy(arr).to(device), out_rows,
-                            out_cols, filt)
+        x = torch.from_numpy(arr).to(device)
+        if filt in ("nearest", "near"):
+            return _nearest(x, out_rows, out_cols)
+        return _resample_dn(x, out_rows, out_cols, filt)
     logger.info("decimated read: %dx%d -> %dx%d by host box reduce",
                 t.width, t.height, out_cols, out_rows)
     (ys, yc), (xs, xc) = wins

@@ -135,10 +135,15 @@ def tile_histogram(bin_flat, cols: int, tiles_x: int, tiles_y: int,
 def _clahe_lookup_plain(bin_idx, cdfs, cols, tiles_x, tiles_y, tile_h,
                         tile_w, row_offset):
     """`_clahe_lookup_xla`'s operations in its order, each rounded to f32
-    (XLA on the CPU contracts the blends into FMAs; see the tests)."""
-    r, c = _pixel_rows_cols(bin_idx.numel(), cols, row_offset, bin_idx.device)
-    rf = r.to(torch.float32) / float(tile_h) - 0.5
-    cf = c.to(torch.float32) / float(tile_w) - 0.5
+    (XLA on the CPU contracts the blends into FMAs; see the tests). The
+    tile sizes divide as device tensors: PyTorch's CUDA division by a
+    Python scalar multiplies by its rounded reciprocal instead."""
+    dev = bin_idx.device
+    r, c = _pixel_rows_cols(bin_idx.numel(), cols, row_offset, dev)
+    th = torch.full((), float(tile_h), dtype=torch.float32, device=dev)
+    tw = torch.full((), float(tile_w), dtype=torch.float32, device=dev)
+    rf = r.to(torch.float32) / th - 0.5
+    cf = c.to(torch.float32) / tw - 0.5
     tyf = torch.clamp_min(torch.floor(rf), 0.0)
     txf = torch.clamp_min(torch.floor(cf), 0.0)
     dy = rf - tyf

@@ -223,9 +223,13 @@ def test_window_exact_every_strategy(rng, strategy):
                 np.testing.assert_array_equal(g.numpy(), np.asarray(w))
 
 
-@pytest.mark.parametrize("lo,hi", [(0, 255), (17, 200), (40, 40)])
+@pytest.mark.parametrize("lo,hi", [(0, 255), (17, 200), (40, 40),
+                                   (0, 142), (5, 651), (0, 65535)])
 def test_scale_u16_to_u8_exact(rng, lo, hi):
+    """Ranges 142 and 646 are ones where a rounded-reciprocal scale would
+    move a level."""
     q = rng.integers(lo, hi + 1, (50, 60)).astype(np.uint16)
+    q.flat[:hi - lo + 1] = np.arange(lo, hi + 1)[:q.size]  # every value
     want = np.asarray(jax.jit(jf._scale_u16_to_u8)(q))
     got = tf._scale_u16_to_u8(_t(q.astype(np.float32))).numpy()
     assert got.dtype == np.uint8
@@ -292,8 +296,13 @@ def test_band_stage_clahe(rng, shape, size, alg, pad):
 
 
 def test_strategies_needing_quantize_raise():
-    dn = torch.zeros((64, 64), dtype=torch.uint16)
+    """The strategies that go through `_quantize` in the synRGB band stage
+    run (the parity bounds are in tests/test_torch_gray.py); on a band
+    whose pixels are all masked each gives the JAX program's all-zero u8."""
+    dn = np.zeros((64, 64), dtype=np.uint16)
     for s in set(AutoscaleStrategy) - {CLAHE, AutoscaleStrategy.TAMED}:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tf.synrgb_band_stage(dn, strategy=s, copol=True, target_size=None,
-                                 pad=False)
+        kw = dict(strategy=s, copol=True, target_size=None, pad=False)
+        got = tf.synrgb_band_stage(_t(dn), **kw).numpy()
+        np.testing.assert_array_equal(got, np.asarray(
+            jf.synrgb_band_stage(dn, **kw)))
+        assert got.dtype == np.uint8 and not got.any()

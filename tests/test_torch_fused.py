@@ -184,13 +184,13 @@ def test_combine_stage_on_identical_bands(rng):
 
 
 def test_unported_routes_raise():
-    dn = torch.zeros((64, 64), dtype=torch.uint16)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tf.synrgb_band_stage(dn, strategy=AutoscaleStrategy.STANDARD,
-                             copol=True, target_size=None, pad=False)
+    """What the fused programs refuse: a channel order other than rgb, bgr,
+    ycbcr and dct, and the JPEG front end on a u16 band."""
+    from sarpro_tpu.types import BitDepth
+
     b = torch.zeros((8, 8), dtype=torch.uint8)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tf.synrgb_combine_stage(b, b, TAMED, suppressed=False,
-                                channel_order="rgb")
-    with pytest.raises(NotImplementedError):
-        tf.synrgb_combine_stage(b, b, TAMED, None, channel_order="bgr")
+    with pytest.raises(ValueError, match="channel order"):
+        tf.synrgb_combine_stage(b, b, TAMED, None, channel_order="rgba")
+    dn = torch.zeros((64, 64), dtype=torch.uint16)
+    with pytest.raises(ValueError, match="u8"):
+        tf.grayscale_pipeline(dn, bit_depth=BitDepth.U16, jpeg_dct=True)

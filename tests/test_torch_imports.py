@@ -55,6 +55,22 @@ def test_cpu_slice_runs_with_jax_and_pillow_blocked(tmp_path):
         assert rc == 0 and got[1:] == [(3, 8, 8, 8, 8)], (rc, got)
         prj = Path(sys.argv[2] + "/w.prj").read_text()
         assert "UTM zone 32N" in prj, prj
+        # the TIFF writers and the metadata embedding are shared, jax-free
+        import sarpro_tpu.io.writers.metadata
+        import sarpro_tpu.io.writers.tiff
+        from sarpro_tpu.io.tiffio import TiffReader
+        jpeg.write_gray_jpeg_dct = lambda o, c, r, co: got.append(co.shape)
+        for pol, fmt, extra in (("vv", "tiff", ["--bit-depth", "u16"]),
+                                ("multiband", "tiff", []),
+                                ("ratio", "jpeg", [])):
+            out = sys.argv[2] + f"/{pol}.{fmt}"
+            rc = cli.run(["-i", str(safe), "-o", out, "-f", fmt,
+                          "--polarization", pol, "--autoscale", "robust",
+                          "--size", "64", "--fast"] + extra, device="cpu")
+            assert rc == 0, (pol, rc)
+        assert TiffReader(sys.argv[2] + "/vv.tiff").read(1).dtype == "uint16"
+        assert TiffReader(sys.argv[2] + "/multiband.tiff").samples == 2
+        assert got[2:] == [(6, 8, 8, 8)], got
         print("ok")
     """)
     res = subprocess.run([sys.executable, "-c", script, str(REPO),

@@ -228,15 +228,22 @@ def _params(argv):
 
 
 @pytest.mark.parametrize("extra,kwargs", [
-    (["-f", "tiff", "--polarization", "multiband"], {"fast": True}),
-    (["-f", "jpeg", "--polarization", "vv"], {"fast": True}),
-    (["-f", "jpeg", "--polarization", "multiband", "--autoscale",
-      "standard"], {"fast": True}),
+    (["-f", "tiff", "--polarization", "vv"], {"fast": False}),
+    (["-f", "tiff", "--polarization", "vv"],
+     {"fast": True, "shard_devices": 2}),
+    (["-f", "tiff", "--polarization", "vv", "--size", "original"],
+     {"fast": True}),
     (["-f", "jpeg", "--polarization", "multiband"], {"fast": False}),
     (["-f", "jpeg", "--polarization", "multiband"],
      {"fast": True, "shard_devices": 2}),
 ])
-def test_unported_routes_raise(scene, tmp_path, extra, kwargs):
+def test_unported_routes_raise(scene, tmp_path, monkeypatch, extra, kwargs):
+    """Exact mode (#5), sharding (#7) and, on the gray route, a
+    full-resolution scene above BIG_SCENE_PIXELS (#6; the limit is lowered
+    below the fixture's 1200 x 1600)."""
+    from sarpro_tpu_torch.core import fast_path
+
+    monkeypatch.setattr(fast_path, "BIG_SCENE_PIXELS", 1200 * 1600 - 1)
     params = _params(["--autoscale", "tamed", "--size", "64"] + extra)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tapi.process_safe_to_path(scene[0], tmp_path / "o.jpg", params,

@@ -1,6 +1,6 @@
 """The port's copies of the JAX package's host table builders, held
-bit-equal to the originals: resampling coefficients, suppressed synRGB LUTs
-and the geotransform rescale."""
+bit-equal to the originals: resampling coefficients, default and suppressed
+synRGB LUTs and the geotransform rescale."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -35,6 +35,20 @@ def test_suppressed_luts_bit_equal_every_floor():
         for got, want in zip(tsyn.suppressed_luts(f), jsyn.suppressed_luts(f)):
             assert got.dtype == want.dtype == np.uint8
             np.testing.assert_array_equal(got, want)
+
+
+def test_default_luts_bit_equal():
+    for got, want in zip(tsyn.default_luts(), jsyn.default_luts()):
+        assert got.dtype == want.dtype == np.uint8
+        np.testing.assert_array_equal(got, want)
+    blue = tsyn.default_luts()[2].reshape(256, 256)
+    assert not blue[:, 0].any()  # band2 == 0 -> blue 0, baked in
+
+
+def test_default_table_set_layout():
+    t = tsyn.default_table_set(torch.device("cpu")).numpy()
+    assert t.shape == (1, 256 + 256 + 65536) and t.dtype == np.uint8
+    np.testing.assert_array_equal(t[0], np.concatenate(jsyn.default_luts()))
 
 
 def test_stacked_table_sets_layout():
