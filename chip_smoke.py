@@ -7,13 +7,18 @@ Phases, each of which raises on failure (the script then exits non-zero and
 prints no result):
   1. environment: a CUDA device is required; prints the card's name and
      power limit, the torch and CUDA versions; TF32 off;
-  2. build: the native codec and box reducer (native/build.py) if absent,
-     and the Hopper kernels (sarpro_tpu_torch/csrc) from source;
+  2. build: the native codec and box reducer (g++, sarpro_tpu_torch._native)
+     and the Hopper kernels (nvcc, sarpro_tpu_torch/csrc) from source, at
+     the same time;
   3. kernels: each kernel against its plain PyTorch version on the card, at
      the shapes the slice gives it (the CLAHE kernels also at the 100 MP
-     full-resolution route's), with CUDA-event timings of both;
-  4. slice: a 20000 x 20000 dual-pol SAFE (tests/fixtures.make_safe, random
-     DN from a seed) through the port's CLI to 2048 synRGB JPEGs: CLAHE with
+     full-resolution route's; resample and warp also at edge shapes, with
+     the warp's share of tiles on each branch), with the device times of
+     both (device_ms, cross-checked by torch.profiler), the bound (bytes
+     over the memory rate or operations over the f32 rate) and, where one
+     PyTorch call computes the same function, that call's time;
+  4. slice: a 20000 x 20000 dual-pol SAFE (make_safe below, random DN from
+     a seed) through the port's CLI to 2048 synRGB JPEGs: CLAHE with
      auto-UTM warp, pad and cubic (cold, then warm), Tamed with the same
      warp (warm), and Tamed without warp (warm cubic, warm default filter).
      Each warm path is driven with the launch counts set to 0 just before it
@@ -50,7 +55,8 @@ prints no result):
      the same rounds; a torch.profiler trace of the single-band TIFF and
      the full-resolution TIFF runs with the device's busy share.
 Then one JSON line of the kernels, the nvidia-smi line, and as the last line
-{"ok": true, "device": {...}}.
+{"ok": true, "device": {...}}. Nothing of jax or of the JAX package
+(sarpro_tpu) may be imported: the script raises at the end if one was.
 """
 from __future__ import annotations
 
@@ -138,21 +144,107 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def median_ms(fn, reps: int = 10) -> float:
+_SPIN_CYCLES_PER_MS: list = []
+
+
+def device_ms(fn, reps: int = 20) -> float:
+    """Device time of one call of `fn` (ms): one warm call, then one CUDA
+    event before `reps` back-to-back calls and one after, over `reps`. A
+    spin kernel queued ahead of the first event holds the card until all
+    the calls are queued, so the host's cost per call (argument checks,
+    allocation, ctypes) does not sit between the kernels."""
     import torch
+
+    if not _SPIN_CYCLES_PER_MS:
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        torch.cuda._sleep(10_000_000)
+        end.record()
+        end.synchronize()
+        _SPIN_CYCLES_PER_MS.append(10_000_000 / start.elapsed_time(end))
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()  # the host's time to queue one call
+    queue_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda._sleep(int(_SPIN_CYCLES_PER_MS[0] * (2 * reps * queue_ms + 1)))
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+# peak rates of the card (on-chip-measurement and hopper-kernels guides:
+# NVIDIA's data sheets, SXM parts): device memory bytes/s, and f32
+# operations/s outside the tensor cores
+RATES = {"H200": (4.8e12, 67e12), "H100": (3.35e12, 67e12)}
+
+
+def bound(nbytes: float, ops: float) -> tuple:
+    """(least ms, "bytes" or "operations"): each input byte read once and
+    each output byte written once at the memory rate, against the
+    operations at the f32 rate; the larger bounds."""
+    import torch
+
+    name = torch.cuda.get_device_name(0)
+    mem, f32 = next((r for k, r in RATES.items() if k in name),
+                    RATES["H100"])
+    tb, to = nbytes / mem * 1e3, ops / f32 * 1e3
+    return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def profiled_ms(fn, reps: int = 5) -> float:
+    """Device time of one call of `fn` (ms) from a torch.profiler trace:
+    the kernels, copies and memsets of `reps` calls, summed, over `reps`
+    (the cross-check of device_ms, blind to the host's time)."""
+    import tempfile
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
+        path = Path(d) / "trace.json"
+        prof.export_chrome_trace(str(path))
+        events = json.loads(path.read_text())["traceEvents"]
+    us = sum(e["dur"] for e in events
+             if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
+             and "dur" in e)
+    return us / 1e3 / reps
+
+
+def time_kernel(results, name: str, what: str, kernel, plain, moved: int,
+                ops: float, library=None, main: bool = False) -> None:
+    """Device times of a kernel, its plain version and, where one PyTorch
+    call computes the same function, that call; printed beside the bound.
+    `main` marks the shape the kernels line reports."""
+    ms = device_ms(kernel)
+    pms = device_ms(plain)
+    lms = device_ms(library) if library is not None else None
+    b, by = bound(moved, ops)
+    lib = (f"{lms:.4f} ms (profiler {profiled_ms(library):.4f})"
+           if lms is not None else "none")
+    log(f"time: {name}, {what}: kernel {ms:.4f} ms (profiler "
+        f"{profiled_ms(kernel):.4f}), plain {pms:.4f} ms, bound {b:.4f} ms "
+        f"by {by} ({moved / 1e6:.1f} MB, {ops / 1e9:.3f} Gop) = "
+        f"{100 * b / ms:.1f} % of it, library {lib}")
+    if main:
+        results[name].update(ms=ms, plain_ms=pms, bound_ms=b, bound_by=by,
+                             library_ms=lms)
 
 
 def phase_environment():
@@ -176,41 +268,45 @@ def phase_environment():
 
 
 def phase_build():
-    if not (ROOT / "sarpro_tpu" / "_native" / "tiffcodec.so").exists():
-        t0 = time.perf_counter()
-        subprocess.run([sys.executable, str(ROOT / "native" / "build.py")],
-                       check=True, capture_output=True, timeout=600)
-        log(f"build: native codec {time.perf_counter() - t0:.1f} s")
+    """The native codec (g++, by sarpro_tpu_torch._native) and the CUDA
+    kernels (one nvcc per source, by ops._cuda), built at the same time."""
+    import threading
+
     sys.path.insert(0, str(ROOT))
-    from sarpro_tpu_torch.io.writers import jpeg
+    from sarpro_tpu_torch import _native
     from sarpro_tpu_torch.ops import _cuda
 
-    if not jpeg._native.available():
-        raise RuntimeError("native codec failed to load after its build")
     t0 = time.perf_counter()
+    codec = threading.Thread(target=_native.available)
+    codec.start()
     _cuda.library()
     log(f"build: kernels {time.perf_counter() - t0:.1f} s")
+    codec.join()
+    if not _native.available():
+        raise RuntimeError("the native codec did not build (g++ and "
+                           "native/*.cpp)")
+    log(f"build: native codec and kernels {time.perf_counter() - t0:.1f} s")
     if _cuda.BUILD_INFO is not None:
         for line in _cuda.BUILD_INFO[1].splitlines():
-            if "registers" in line or "Compiling entry" in line:
+            if ("registers" in line or "Compiling entry" in line
+                    or "spill" in line):
                 log(f"  ptxas: {line.strip()}")
 
 
 def phase_kernels(results):
     import torch
 
-    from sarpro_tpu_torch.core import resize, synthetic_rgb
-    from sarpro_tpu_torch.core.numerics import as_u16
-    from sarpro_tpu_torch.ops import kernels, resample_kernel
+    from sarpro_tpu_torch.core import synthetic_rgb
+    from sarpro_tpu_torch.ops import kernels
 
     dev = torch.device(DEVICE)
     g = torch.Generator(device=dev).manual_seed(0)
+    for name in KERNELS:
+        results[name] = {"max_abs_err": 0.0}
 
-    def record(name, err, ms, plain_ms):
-        r = results.setdefault(name, {"max_abs_err": 0.0})
-        r["max_abs_err"] = max(r["max_abs_err"], float(err))
-        if ms is not None:
-            r["ms"], r["plain_ms"] = ms, plain_ms
+    def record(name, err):
+        results[name]["max_abs_err"] = max(results[name]["max_abs_err"],
+                                           float(err))
 
     # histogram: the 4096-bin dB stats of a 2048^2 band (crowded bins, 2%
     # masked) and the 256-bin water floor over both u8 bands
@@ -221,11 +317,15 @@ def phase_kernels(results):
     got = kernels.histogram(idx, 4096)
     want = kernels._histogram_plain([idx], 4096)
     err = (got - want).abs().max().item()
-    ms = median_ms(lambda: kernels.histogram(idx, 4096))
-    pms = median_ms(lambda: kernels._histogram_plain([idx], 4096))
-    log(f"histogram 4096 bins over {n}: max|err| {err}, kernel {ms:.4f} ms,"
-        f" plain {pms:.4f} ms")
-    record("histogram", err, ms, pms)
+    log(f"histogram 4096 bins over {n}: max|err| {err}")
+    record("histogram", err)
+    # one PyTorch call of the same function: bincount with the masked bin
+    time_kernel(results, "histogram", f"4096 bins over {n} int32",
+                lambda: kernels.histogram(idx, 4096),
+                lambda: kernels._histogram_plain([idx], 4096),
+                nbytes(idx, got), n,
+                library=lambda: torch.bincount(idx, minlength=4097),
+                main=True)
     u1 = torch.randint(0, 256, (n,), device=dev, generator=g,
                        dtype=torch.int32).to(torch.uint8)
     u2 = torch.randint(0, 256, (n,), device=dev, generator=g,
@@ -233,11 +333,12 @@ def phase_kernels(results):
     got = kernels.histogram((u1, u2), 256)
     want = kernels._histogram_plain([u1, u2], 256)
     err = (got - want).abs().max().item()
-    ms2 = median_ms(lambda: kernels.histogram((u1, u2), 256))
-    pms2 = median_ms(lambda: kernels._histogram_plain([u1, u2], 256))
-    log(f"histogram 256 bins over 2x{n}: max|err| {err}, kernel {ms2:.4f} "
-        f"ms, plain {pms2:.4f} ms")
-    record("histogram", err, None, None)
+    log(f"histogram 256 bins over 2x{n}: max|err| {err}")
+    record("histogram", err)
+    time_kernel(results, "histogram", f"256 bins over 2 x {n} u8",
+                lambda: kernels.histogram((u1, u2), 256),
+                lambda: kernels._histogram_plain([u1, u2], 256),
+                nbytes(u1, u2, got), 2 * n)
 
     # synrgb: every (b1, b2) pair for every floor 3..40, then a 2048^2 pair
     tables = synthetic_rgb.suppressed_table_sets(dev)
@@ -257,61 +358,31 @@ def phase_kernels(results):
     got = kernels.synrgb_lookup(u1, u2, tables, si, fl)
     want = kernels._synrgb_lookup_plain(u1, u2, tables, si, fl)
     worst = max(worst, (got.int() - want.int()).abs().max().item())
-    ms = median_ms(lambda: kernels.synrgb_lookup(u1, u2, tables, si, fl))
-    pms = median_ms(
-        lambda: kernels._synrgb_lookup_plain(u1, u2, tables, si, fl))
     log(f"synrgb_lookup 65536 pairs x 38 floors x water on/off + {n} px: "
-        f"max|err| {worst}, kernel {ms:.4f} ms, plain {pms:.4f} ms")
-    record("synrgb_lookup", worst, ms, pms)
+        f"max|err| {worst}")
+    record("synrgb_lookup", worst)
+    # the bytes: both bands, the one table set used, the rgb
+    time_kernel(results, "synrgb_lookup",
+                f"{n} px, suppressed set + water mask",
+                lambda: kernels.synrgb_lookup(u1, u2, tables, si, fl),
+                lambda: kernels._synrgb_lookup_plain(u1, u2, tables, si, fl),
+                nbytes(u1, u2, tables[0], got), 3 * n, main=True)
     # the default mode: its one table set, no set index, no water floor
     tables = synthetic_rgb.default_table_set(dev)
     for a1, a2, what in ((p1, p2, "65536 pairs"), (u1, u2, f"{n} px")):
         _check_equal(kernels.synrgb_lookup(a1, a2, tables),
                      kernels._synrgb_lookup_plain(a1, a2, tables),
                      f"synrgb_lookup default set, {what}")
-    ms = median_ms(lambda: kernels.synrgb_lookup(u1, u2, tables))
-    pms = median_ms(lambda: kernels._synrgb_lookup_plain(u1, u2, tables))
     log(f"synrgb_lookup default set (no set index, no water floor), 65536 "
-        f"pairs + {n} px: bit-equal, kernel {ms:.4f} ms, plain {pms:.4f} ms")
-    record("synrgb_lookup", 0, None, None)
-
-    # resample: the u16 20000^2 row pass for each filter, then the f32
-    # transposed column pass
-    x16 = as_u16(torch.randint(0, 65536, (SIDE, SIDE), device=dev,
-                               generator=g, dtype=torch.int32))
-    for filt in ("cubic", "average", "lanczos"):
-        got = resample_kernel.band_resample_axis0(x16, SIDE, SIZE, filt)
-        s, w = resize.device_coeffs(SIDE, SIZE, filt, dev)
-        want = resize._resample_axis0(x16, s, w)
-        _check_close(got, want, f"resample {filt}")
-        err = (got - want).abs().max().item()
-        ms = median_ms(lambda: resample_kernel.band_resample_axis0(
-            x16, SIDE, SIZE, filt), reps=5)
-        pms = median_ms(lambda: resize._resample_axis0(x16, s, w), reps=3)
-        log(f"resample u16 {SIDE}^2 -> {SIZE} rows, {filt} ({w.shape[1]} "
-            f"taps): max|err| {err:.3g}, kernel {ms:.4f} ms, plain "
-            f"{pms:.4f} ms")
-        if filt == "cubic":  # the slice's filter: the reported time
-            record("resample_axis0", err, ms, pms)
-        else:
-            record("resample_axis0", err, None, None)
-    del x16
-    xt = got.T.contiguous()  # the cubic row pass, transposed: (20000, 2048)
-    got = resample_kernel.band_resample_axis0(xt, SIDE, SIZE, "cubic")
-    s, w = resize.device_coeffs(SIDE, SIZE, "cubic", dev)
-    want = resize._resample_axis0(xt, s, w)
-    _check_close(got, want, "resample f32 column pass")
-    err = (got - want).abs().max().item()
-    ms = median_ms(lambda: resample_kernel.band_resample_axis0(
-        xt, SIDE, SIZE, "cubic"))
-    pms = median_ms(lambda: resize._resample_axis0(xt, s, w), reps=5)
-    log(f"resample f32 ({SIDE}, {SIZE}) -> {SIZE} rows, cubic: max|err| "
-        f"{err:.3g}, kernel {ms:.4f} ms, plain {pms:.4f} ms")
-    record("resample_axis0", err, None, None)
-    del xt, got, want
-    torch.cuda.synchronize()
-    _kernels_clahe(dev, g, record)
-    _kernels_warp(dev, g, record)
+        f"pairs + {n} px: bit-equal")
+    time_kernel(results, "synrgb_lookup", f"{n} px, default set",
+                lambda: kernels.synrgb_lookup(u1, u2, tables),
+                lambda: kernels._synrgb_lookup_plain(u1, u2, tables),
+                nbytes(u1, u2, tables[0], got), 3 * n)
+    del idx, u1, u2, p1, p2, got, want
+    _kernels_resample(dev, g, record, results)
+    _kernels_clahe(dev, g, record, results)
+    _kernels_warp(dev, g, record, results)
 
 
 def _check_equal(got, want, what):
@@ -329,9 +400,110 @@ def _check_equal(got, want, what):
                              f"{(d > 0).sum().item()} elements")
 
 
-def _kernels_clahe(dev, g, record):
+def _check_close(got, want, what) -> float:
+    """The resample kernel against its plain version within RESAMPLE_TOL;
+    returns the max abs error (0: bit-equal)."""
+    import torch
+
+    if got.shape != want.shape or not torch.isfinite(got).all():
+        raise AssertionError(f"{what}: shape {tuple(got.shape)} vs "
+                             f"{tuple(want.shape)} or non-finite output")
+    torch.testing.assert_close(got, want, **RESAMPLE_TOL)
+    return (got - want).abs().max().item()
+
+
+# edge shapes of the resample kernel: (what, dtype, in_rows, cols, out_rows,
+# filter); the slice's own shapes follow in _kernels_resample
+RESAMPLE_EDGES = (
+    ("1001 columns (not a multiple of 8, rows not 16-byte aligned), 300 "
+     "rows (not a multiple of 32)", "u16", 1000, 1001, 300, "cubic"),
+    ("1000 columns (a ragged last 32-column strip), lanczos", "u16", 1000,
+     1000, 300, "lanczos"),
+    ("in_rows 5 < 11 taps", "u16", 5, 64, 2, "cubic"),
+    ("upsample 300 -> 1024 rows", "u16", 300, 256, 1024, "cubic"),
+    ("f32, 333 columns", "f32", 999, 333, 128, "cubic"),
+    ("f32, 16-byte rows, bilinear", "f32", 4096, 512, 1000, "bilinear"),
+    ("u16 at an address 2 bytes past 16-byte alignment", "u16+2", 2000, 512,
+     200, "average"),
+    ("20000 -> 16 rows, 5001 taps: taps from device memory", "u16", 20000,
+     64, 16, "cubic"),
+)
+
+
+def _kernels_resample(dev, g, record, results):
+    """resample_axis0 at the edge shapes, then the slice's: the u16 20000^2
+    row pass for each filter and the f32 transposed column pass."""
+    import torch
+
+    from sarpro_tpu_torch.core import resize
+    from sarpro_tpu_torch.core.numerics import as_u16
+    from sarpro_tpu_torch.ops import resample_kernel
+
+    def source(dtype, rows, cols):
+        if dtype == "f32":
+            return torch.randn((rows, cols), device=dev, generator=g) * 100
+        v = torch.randint(0, 65536, (rows * cols + 1,), device=dev,
+                          generator=g, dtype=torch.int32)
+        flat = as_u16(v)
+        return (flat[1:] if dtype == "u16+2" else flat[:-1]).view(rows, cols)
+
+    for what, dtype, rows, cols, out_rows, filt in RESAMPLE_EDGES:
+        x = source(dtype, rows, cols)
+        s, w = resize.device_coeffs(rows, out_rows, filt, dev)
+        err = _check_close(resample_kernel.band_resample_axis0(
+            x, rows, out_rows, filt), resize._resample_axis0(x, s, w),
+            f"resample edge: {what}")
+        log(f"resample edge: {what} ({w.shape[1]} taps): max|err| {err:.3g}")
+        record("resample_axis0", err)
+
+    x16 = source("u16", SIDE, SIDE)
+    for filt in ("cubic", "average", "lanczos"):
+        got = resample_kernel.band_resample_axis0(x16, SIDE, SIZE, filt)
+        s, w = resize.device_coeffs(SIDE, SIZE, filt, dev)
+        err = _check_close(got, resize._resample_axis0(x16, s, w),
+                           f"resample {filt}")
+        log(f"resample u16 {SIDE}^2 -> {SIZE} rows, {filt} ({w.shape[1]} "
+            f"taps): max|err| {err:.3g}")
+        record("resample_axis0", err)
+        # u16 has no matmul: no one PyTorch call computes this function
+        time_kernel(results, "resample_axis0",
+                    f"u16 {SIDE}^2 -> {SIZE} rows, {filt}, {w.shape[1]} taps",
+                    lambda: resample_kernel.band_resample_axis0(
+                        x16, SIDE, SIZE, filt),
+                    lambda: resize._resample_axis0(x16, s, w),
+                    nbytes(x16, got, s, w), 2.0 * got.numel() * w.shape[1],
+                    main=filt == "cubic")
+    del x16
+    xt = got.T.contiguous()  # a row pass, transposed: (20000, 2048)
+    got = resample_kernel.band_resample_axis0(xt, SIDE, SIZE, "cubic")
+    s, w = resize.device_coeffs(SIDE, SIZE, "cubic", dev)
+    err = _check_close(got, resize._resample_axis0(xt, s, w),
+                       "resample f32 column pass")
+    log(f"resample f32 ({SIDE}, {SIZE}) -> {SIZE} rows, cubic: max|err| "
+        f"{err:.3g}")
+    record("resample_axis0", err)
+    # the same function as one call: the dense (2048, 20000) coefficient
+    # matrix times the source (clamped taps land on the edge rows)
+    dense = torch.zeros((SIZE, SIDE), device=dev)
+    taps = (s[:, None].long() + torch.arange(w.shape[1], device=dev)).clamp(
+        0, SIDE - 1)
+    dense.scatter_add_(1, taps, w)
+    time_kernel(results, "resample_axis0",
+                f"f32 ({SIDE}, {SIZE}) -> {SIZE} rows, cubic",
+                lambda: resample_kernel.band_resample_axis0(
+                    xt, SIDE, SIZE, "cubic"),
+                lambda: resize._resample_axis0(xt, s, w),
+                nbytes(xt, got, s, w), 2.0 * got.numel() * w.shape[1],
+                library=lambda: torch.mm(dense, xt))
+    del xt, got, dense
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def _kernels_clahe(dev, g, record, results):
     """tile_histogram and clahe_lookup at the slice's 2048^2 band: SAR-like
-    bins crowding the middle of the 256, 2 % masked."""
+    bins crowding the middle of the 256, 2 % masked; then at the 100 MP
+    full-resolution route's 10000^2."""
     import torch
 
     from sarpro_tpu_torch.core import clahe, fused
@@ -347,33 +519,36 @@ def _kernels_clahe(dev, g, record):
     _check_equal(got, want, "tile_histogram")
     # a row chunk placed by row_offset counts into its global tile rows
     half = SIZE // 2 * SIZE
-    got = (kernels.tile_histogram(bins[:half], *grid)
-           + kernels.tile_histogram(bins[half:], *grid, row_offset=SIZE // 2))
-    _check_equal(got, want, "tile_histogram with row_offset")
+    _check_equal(kernels.tile_histogram(bins[:half], *grid)
+                 + kernels.tile_histogram(bins[half:], *grid,
+                                          row_offset=SIZE // 2),
+                 want, "tile_histogram with row_offset")
     for off in (SIZE // 2, 3):
         _check_equal(
             kernels.tile_histogram(bins[half:], *grid, row_offset=off),
             kernels._tile_histogram_plain(bins[half:], *grid, off, 256),
             f"tile_histogram row_offset={off}")
-    ms = median_ms(lambda: kernels.tile_histogram(bins, *grid))
-    pms = median_ms(lambda: kernels._tile_histogram_plain(bins, *grid, 0,
-                                                          256))
-    log(f"tile_histogram 8x8 tiles x 256 bins over {n}: exact, kernel "
-        f"{ms:.4f} ms, plain {pms:.4f} ms")
-    record("tile_histogram", 0, ms, pms)
+    log(f"tile_histogram 8x8 tiles x 256 bins over {n}: exact")
+    record("tile_histogram", 0)
+    time_kernel(results, "tile_histogram", f"8 x 8 x 256 over {n}, 2 % masked",
+                lambda: kernels.tile_histogram(bins, *grid),
+                lambda: kernels._tile_histogram_plain(bins, *grid, 0, 256),
+                nbytes(bins, got), n, main=True)
 
     cdfs = fused._clahe_cdfs(want, SIZE, SIZE, tile, tile)
     got = kernels.clahe_lookup(bins, cdfs, *grid)
-    want = kernels._clahe_lookup_plain(bins, cdfs, *grid, 0)
-    _check_equal(got, want, "clahe_lookup")
+    _check_equal(got, kernels._clahe_lookup_plain(bins, cdfs, *grid, 0),
+                 "clahe_lookup")
     _check_equal(kernels.clahe_lookup(bins[half:], cdfs, *grid,
                                       row_offset=SIZE // 2),
-                 want[half:], "clahe_lookup with row_offset")
-    ms = median_ms(lambda: kernels.clahe_lookup(bins, cdfs, *grid))
-    pms = median_ms(lambda: kernels._clahe_lookup_plain(bins, cdfs, *grid, 0))
-    log(f"clahe_lookup over {n}: bit-equal, kernel {ms:.4f} ms, plain "
-        f"{pms:.4f} ms")
-    record("clahe_lookup", 0, ms, pms)
+                 got[half:], "clahe_lookup with row_offset")
+    log(f"clahe_lookup over {n}: bit-equal")
+    record("clahe_lookup", 0)
+    # a pixel's work: 4 CDF reads, 3 blends of 3 operations, the mask
+    time_kernel(results, "clahe_lookup", f"{n} px, (64, 256) f32 CDFs",
+                lambda: kernels.clahe_lookup(bins, cdfs, *grid),
+                lambda: kernels._clahe_lookup_plain(bins, cdfs, *grid, 0),
+                nbytes(bins, cdfs, got), 10 * n, main=True)
 
     # the full-resolution route's geometry: a 10000^2 band, 1250-row tiles
     n, tile = EW_SIDE * EW_SIDE, -(-EW_SIDE // clahe.TILES_Y)
@@ -385,21 +560,20 @@ def _kernels_clahe(dev, g, record):
     _check_equal(hist, kernels._tile_histogram_plain(bins, *grid, 0, 256),
                  f"tile_histogram {EW_SIDE}^2")
     cdfs = fused._clahe_cdfs(hist, EW_SIDE, EW_SIDE, tile, tile)
-    _check_equal(kernels.clahe_lookup(bins, cdfs, *grid),
-                 kernels._clahe_lookup_plain(bins, cdfs, *grid, 0),
+    got = kernels.clahe_lookup(bins, cdfs, *grid)
+    _check_equal(got, kernels._clahe_lookup_plain(bins, cdfs, *grid, 0),
                  f"clahe_lookup {EW_SIDE}^2")
-    times = [median_ms(fn, reps=3) for fn in (
-        lambda: kernels.tile_histogram(bins, *grid),
-        lambda: kernels._tile_histogram_plain(bins, *grid, 0, 256),
-        lambda: kernels.clahe_lookup(bins, cdfs, *grid),
-        lambda: kernels._clahe_lookup_plain(bins, cdfs, *grid, 0))]
     log(f"tile_histogram and clahe_lookup over {n} ({tile}-pixel tiles): "
-        f"bit-equal; tile_histogram kernel {times[0]:.4f} ms, plain "
-        f"{times[1]:.4f} ms; clahe_lookup kernel {times[2]:.4f} ms, plain "
-        f"{times[3]:.4f} ms")
-    record("tile_histogram", 0, None, None)
-    record("clahe_lookup", 0, None, None)
-    del bins, hist
+        "bit-equal")
+    time_kernel(results, "tile_histogram", f"8 x 8 x 256 over {n}",
+                lambda: kernels.tile_histogram(bins, *grid),
+                lambda: kernels._tile_histogram_plain(bins, *grid, 0, 256),
+                nbytes(bins, hist), n)
+    time_kernel(results, "clahe_lookup", f"{n} px",
+                lambda: kernels.clahe_lookup(bins, cdfs, *grid),
+                lambda: kernels._clahe_lookup_plain(bins, cdfs, *grid, 0),
+                nbytes(bins, cdfs, got), 10 * n)
+    del bins, hist, got
     torch.cuda.empty_cache()
 
 
@@ -418,13 +592,80 @@ def warp_grid(side_src: int, side_out: int, angle_deg: float = 12.0,
     return x, y
 
 
-def _kernels_warp(dev, g, record):
-    """warp_sample on a ~2560^2 f32 source -> 2048^2, rotated grid with an
-    out-of-bounds margin and NaN nodes, for each method."""
+def _affine_grid(out_rows, out_cols, gh, gw, scale, x_off=0.0, y_off=0.0):
+    """Grid nodes evenly over the output that map output pixel p to source
+    pixel (p + 0.5) * scale - 0.5 + offset (numpy f64)."""
+    import numpy as np
+
+    gx = (np.linspace(0, out_cols - 1, gw) + 0.5) * scale - 0.5 + x_off
+    gy = (np.linspace(0, out_rows - 1, gh) + 0.5) * scale - 0.5 + y_off
+    return np.meshgrid(gx, gy)
+
+
+# edge cases of the warp kernel: (what, source side, output (rows, cols),
+# grid maker -> (map_x, map_y))
+def _warp_edges():
+    import numpy as np
+
+    def nan_grid():
+        mx, my = warp_grid(600, 512, nodes=18)
+        mx[2, 3] = my[9, 9] = np.nan
+        mx[5, 5] = np.inf
+        return mx, my
+
+    return (
+        ("identity", 400, (300, 400),
+         lambda: _affine_grid(300, 400, 11, 14, 1.0)),
+        ("4x shrink (footprints over the shared-memory budget)", 1024,
+         (256, 256), lambda: _affine_grid(256, 256, 10, 10, 4.0)),
+        ("NaN and inf nodes", 600, (512, 512), nan_grid),
+        ("tiles wholly outside the source", 256, (512, 512),
+         lambda: _affine_grid(512, 512, 18, 18, 1.0, x_off=-300.0,
+                              y_off=-40.0)),
+        ("1 x 1 output", 64, (1, 1),
+         lambda: (np.array([[10.3, 11.0], [10.5, 11.2]]),
+                  np.array([[20.7, 20.9], [21.4, 21.6]]))),
+        ("33 x 97 output, 66^2 grid", 500, (33, 97),
+         lambda: warp_grid(500, 97)),
+    )
+
+
+def _tile_shares(src, gx, gy, rows, cols, method) -> str:
+    from sarpro_tpu_torch.ops import warp_kernel
+
+    kinds = warp_kernel.tile_kinds(src, gx, gy, rows, cols, method)
+    n = kinds.numel()
+    return ", ".join(
+        f"{name} {(kinds == i).sum().item() / n:.3f}"
+        for i, name in enumerate(warp_kernel.TILE_KINDS)) + f" of {n} tiles"
+
+
+def _kernels_warp(dev, g, record, results):
+    """warp_sample at the edge cases, then on a 2380^2 f32 source -> 2048^2,
+    rotated grid with an out-of-bounds margin and NaN nodes, for each
+    method; with the share of tiles that took each branch."""
     import torch
 
     from sarpro_tpu_torch.io import warp
     from sarpro_tpu_torch.ops import warp_kernel
+
+    def check(what, src, gx, gy, rows, cols, method):
+        args = (src, gx, gy, rows, cols, method)
+        got = warp_kernel.warp_sample(*args)
+        _check_equal(got, warp_kernel._warp_sample_plain(*args),
+                     f"warp_sample {method}, {what}")
+        if not torch.isfinite(got).all():
+            raise AssertionError(f"warp_sample {method}, {what}: non-finite")
+        log(f"warp edge: {method}, {what}: bit-equal; tiles "
+            f"{_tile_shares(*args)}")
+        return got
+
+    for what, side, (rows, cols), make in _warp_edges():
+        src = torch.exp(torch.randn((side, side), device=dev, generator=g)
+                        * 1.1 + 5.0)
+        gx, gy = warp.plan_grids_to_device(*make(), dev)
+        for method in warp_kernel.METHODS:
+            check(what, src, gx, gy, rows, cols, method)
 
     src = torch.exp(torch.randn((MID, MID), device=dev, generator=g) * 1.1
                     + 5.0)
@@ -432,30 +673,24 @@ def _kernels_warp(dev, g, record):
     mx[3, 5] = mx[40, 60] = float("nan")  # out-of-domain grid nodes
     my[10, 10] = float("nan")
     gx, gy = warp.plan_grids_to_device(mx, my, dev)
+    # a pixel's work: two grid blends (18), then near 2, bilinear 4 taps
+    # and their weights (about 22), cubic 8 Keys weights (72) and 16 taps
+    # (64); a division for the two that renormalise
+    ops = {"near": 20, "bilinear": 40, "cubic": 155}
     for method in ("near", "bilinear", "cubic"):
         args = (src, gx, gy, SIZE, SIZE, method)
-        got = warp_kernel.warp_sample(*args)
-        want = warp_kernel._warp_sample_plain(*args)
-        _check_equal(got, want, f"warp_sample {method}")
-        if not torch.isfinite(got).all():
-            raise AssertionError(f"warp_sample {method}: non-finite output")
-        zero = (got == 0).float().mean().item()
-        ms = median_ms(lambda: warp_kernel.warp_sample(*args))
-        pms = median_ms(lambda: warp_kernel._warp_sample_plain(*args), reps=5)
-        log(f"warp_sample {method} {MID}^2 -> {SIZE}^2, 66^2 grid, NaN "
-            f"nodes: bit-equal, share 0 (outside) {zero:.3f}, kernel "
-            f"{ms:.4f} ms, plain {pms:.4f} ms")
-        record("warp_sample", 0, *((ms, pms) if method == "cubic"
-                                   else (None, None)))
-
-
-def _check_close(got, want, what):
-    import torch
-
-    if got.shape != want.shape or not torch.isfinite(got).all():
-        raise AssertionError(f"{what}: shape {tuple(got.shape)} vs "
-                             f"{tuple(want.shape)} or non-finite output")
-    torch.testing.assert_close(got, want, **RESAMPLE_TOL)
+        got = check(f"{MID}^2 -> {SIZE}^2, 66^2 grid, NaN nodes", *args)
+        log(f"warp_sample {method}: share 0 (outside) "
+            f"{(got == 0).float().mean().item():.3f}")
+        # F.grid_sample samples a per-pixel grid with a = -0.75 and no
+        # renormalisation: no one PyTorch call computes this function
+        time_kernel(results, "warp_sample",
+                    f"f32 {MID}^2 -> {SIZE}^2, {method}",
+                    lambda: warp_kernel.warp_sample(*args),
+                    lambda: warp_kernel._warp_sample_plain(*args),
+                    nbytes(src, gx, gy, got), ops[method] * got.numel(),
+                    main=method == "cubic")
+    record("warp_sample", 0)
 
 
 def _zigzag():
@@ -466,15 +701,203 @@ def _zigzag():
     return order
 
 
+# ---------------------------------------------------------------------------
+# Synthetic SAFE products: a copy of tests/fixtures.make_safe's GCP and affine
+# products, written through the port's own TIFF writer, so that this script
+# needs nothing of the JAX package (tests/test_torch_host_copies.py holds the
+# two byte-identical)
+# ---------------------------------------------------------------------------
+MANIFEST_TEMPLATE = """<?xml version="1.0" encoding="UTF-8"?>
+<xfdu:XFDU xmlns:xfdu="urn:ccsds:schema:xfdu:1">
+  <metadataSection>
+    <metadataObject ID="platform">
+      <metadataWrap><xmlData>
+        <safe:platform xmlns:safe="http://www.esa.int/safe/sentinel-1.0">
+          <safe:familyName>SENTINEL-1</safe:familyName>
+          <safe:number>A</safe:number>
+          <safe:instrument>
+            <safe:familyName abbreviation="SAR">Synthetic Aperture Radar</safe:familyName>
+            <safe:extension>
+              <s1sarl1:instrumentMode xmlns:s1sarl1="http://www.esa.int/safe/sentinel-1.0/sentinel-1/sar/level-1">
+                <s1sarl1:mode>IW</s1sarl1:mode>
+              </s1sarl1:instrumentMode>
+            </safe:extension>
+          </safe:instrument>
+        </safe:platform>
+      </xmlData></metadataWrap>
+    </metadataObject>
+    <metadataObject ID="acquisitionPeriod">
+      <metadataWrap><xmlData>
+        <safe:acquisitionPeriod xmlns:safe="http://www.esa.int/safe/sentinel-1.0">
+          <safe:startTime>2025-07-06T20:43:46.579983</safe:startTime>
+          <safe:stopTime>2025-07-06T20:44:11.578154</safe:stopTime>
+        </safe:acquisitionPeriod>
+      </xmlData></metadataWrap>
+    </metadataObject>
+    <metadataObject ID="measurementOrbitReference">
+      <metadataWrap><xmlData>
+        <safe:orbitReference xmlns:safe="http://www.esa.int/safe/sentinel-1.0">
+          <safe:orbitNumber type="start">59968</safe:orbitNumber>
+          <safe:extension>
+            <s1:orbitProperties xmlns:s1="http://www.esa.int/safe/sentinel-1.0/sentinel-1">
+              <s1:pass>{pass_direction}</s1:pass>
+            </s1:orbitProperties>
+          </safe:extension>
+        </safe:orbitReference>
+      </xmlData></metadataWrap>
+    </metadataObject>
+    <metadataObject ID="generalProductInformation">
+      <metadataWrap><xmlData>
+        <s1sarl1:standAloneProductInformation xmlns:s1sarl1="http://www.esa.int/safe/sentinel-1.0/sentinel-1/sar/level-1">
+          <s1sarl1:instrumentConfigurationID>8</s1sarl1:instrumentConfigurationID>
+          <s1sarl1:missionDataTakeID>487183</s1sarl1:missionDataTakeID>
+          {polarisation_entries}
+          <s1sarl1:productClass>S</s1sarl1:productClass>
+          <s1sarl1:productType>{product_type}</s1sarl1:productType>
+        </s1sarl1:standAloneProductInformation>
+      </xmlData></metadataWrap>
+    </metadataObject>
+    <metadataObject ID="processing">
+      <metadataWrap><xmlData>
+        <safe:processing xmlns:safe="http://www.esa.int/safe/sentinel-1.0" name="SLC Post Processing">
+          <safe:facility country="Germany" name="DLR-Oberpfaffenhofen" organisation="ESA" site="DLR-Oberpfaffenhofen">
+            <safe:name>DLR-Oberpfaffenhofen</safe:name>
+            <safe:software>
+              <safe:name>Sentinel-1 IPF</safe:name>
+              <safe:version>003.91</safe:version>
+            </safe:software>
+          </safe:facility>
+        </safe:processing>
+      </xmlData></metadataWrap>
+    </metadataObject>
+  </metadataSection>
+</xfdu:XFDU>
+"""
+
+ANNOTATION_TEMPLATE = """<?xml version="1.0" encoding="UTF-8"?>
+<product>
+  <adsHeader>
+    <missionId>S1A</missionId>
+    <productType>{product_type}</productType>
+    <polarisation>{pol}</polarisation>
+    <mode>IW</mode>
+    <startTime>2025-07-06T20:43:46.579983</startTime>
+    <stopTime>2025-07-06T20:44:11.578154</stopTime>
+    <absoluteOrbitNumber>59968</absoluteOrbitNumber>
+    <missionDataTakeId>487183</missionDataTakeId>
+  </adsHeader>
+  <generalAnnotation>
+    <productInformation>
+      <pass>{pass_direction}</pass>
+      <rangeSamplingRate>64345238.12571428</rangeSamplingRate>
+      <radarFrequency>5405000454.33435</radarFrequency>
+    </productInformation>
+    <downlinkInformation>
+      <prf>1717.128973878037</prf>
+      <downlinkValues>
+        <txPulseLength>5.240703971123505e-05</txPulseLength>
+        <txPulseRampRate>1078230321255.894</txPulseRampRate>
+      </downlinkValues>
+    </downlinkInformation>
+    <orbitList>
+      <orbitStateVector>
+        <vx>-1000.0</vx><vy>2000.0</vy><vz>7000.0</vz>
+      </orbitStateVector>
+      <orbitStateVector>
+        <vx>-1100.0</vx><vy>2100.0</vy><vz>6900.0</vz>
+      </orbitStateVector>
+      <orbitStateVector>
+        <vx>-1200.0</vx><vy>2200.0</vy><vz>6800.0</vz>
+      </orbitStateVector>
+    </orbitList>
+  </generalAnnotation>
+  <imageAnnotation>
+    <imageInformation>
+      <slantRangeTime>0.005331704801236436</slantRangeTime>
+      <rangePixelSpacing>10.0</rangePixelSpacing>
+      <azimuthPixelSpacing>10.0</azimuthPixelSpacing>
+      <numberOfSamples>{samples}</numberOfSamples>
+      <numberOfLines>{lines}</numberOfLines>
+      <lines>{lines}</lines>
+    </imageInformation>
+  </imageAnnotation>{geolocation_block}
+</product>
+"""
+
+
+def _write_measurement_tiff(path: Path, data, gcp_lon0=11.0, gcp_lat0=46.0,
+                            span_deg=0.25):
+    """u16 measurement GeoTIFF with a 5x5 WGS84 GCP lattice (like real S1
+    GRD: no affine geotransform, only tiepoints)."""
+    import numpy as np
+
+    from sarpro_tpu_torch.io.tiffio import TiffWriter
+
+    rows, cols = data.shape
+    w = TiffWriter(path)
+    n = 5
+    ties = []
+    for iy in range(n):
+        for ix in range(n):
+            px = ix * (cols - 1) / (n - 1)
+            py = iy * (rows - 1) / (n - 1)
+            lon = gcp_lon0 + span_deg * ix / (n - 1)
+            lat = gcp_lat0 - span_deg * iy / (n - 1)
+            ties.extend([px, py, 0.0, lon, lat, 0.0])
+    w.set_projection("EPSG:4326")  # GCP SRS
+    w.set_tiepoints(ties)
+    w.write([data.astype(np.uint16)])
+
+
+def make_safe(root: Path, name: str = "S1A_IW_GRDH_1SDV_20250706T204346.SAFE",
+              pols=("vv", "vh"), shape=(96, 128), seed: int = 7,
+              with_affine_geotransform: bool = False) -> Path:
+    """A synthetic dual-pol GRD SAFE tree (lognormal DN from `seed`, 2 %
+    zeros): GCP-georeferenced measurements, or an affine UTM 32N one."""
+    import numpy as np
+
+    from sarpro_tpu_torch.io.tiffio import TiffWriter
+
+    rng = np.random.default_rng(seed)
+    base = root / name
+    (base / "annotation").mkdir(parents=True, exist_ok=True)
+    (base / "measurement").mkdir(parents=True, exist_ok=True)
+    pol_entries = "\n      ".join(
+        f"<s1sarl1:transmitterReceiverPolarisation>{p.upper()}"
+        f"</s1sarl1:transmitterReceiverPolarisation>" for p in pols)
+    (base / "manifest.safe").write_text(MANIFEST_TEMPLATE.format(
+        product_type="GRD", pass_direction="ASCENDING",
+        polarisation_entries=pol_entries))
+    rows, cols = shape
+    for pol in pols:
+        (base / "annotation" / f"s1a-iw-grd-{pol}-001.xml").write_text(
+            ANNOTATION_TEMPLATE.format(
+                product_type="GRD", pol=pol.upper(),
+                pass_direction="ASCENDING", samples=cols, lines=rows,
+                geolocation_block=""))
+        dn = rng.lognormal(5.0 if pol in ("vv", "hh") else 4.2, 1.1, shape)
+        dn = np.clip(dn, 0, 65535).astype(np.uint16)
+        dn[rng.random(shape) < 0.02] = 0
+        tif = base / "measurement" / f"s1a-iw-grd-{pol}-001.tiff"
+        if with_affine_geotransform:
+            w = TiffWriter(tif)
+            w.set_geotransform([500000.0, 10.0, 0.0, 5100000.0, 0.0, -10.0])
+            w.set_projection("EPSG:32632")
+            w.write([dn])
+        else:
+            _write_measurement_tiff(tif, dn)
+    return base
+
+
 def _write_safe(work: Path, **kw) -> Path:
-    """tests/fixtures.make_safe in a child process, whose numpy temporaries
-    (~7 GB at 20000^2) are returned when it exits."""
+    """make_safe in a child process, whose numpy temporaries (~7 GB at
+    20000^2) are returned when it exits."""
     args = ", ".join(f"{k}={v!r}" for k, v in kw.items())
     subprocess.run(
         [sys.executable, "-c",
-         "import pathlib, sys; sys.path[:0] = [sys.argv[1], "
-         "sys.argv[1] + '/tests']; import fixtures; "
-         f"fixtures.make_safe(pathlib.Path(sys.argv[2]), {args})",
+         "import pathlib, sys; sys.path.insert(0, sys.argv[1]); "
+         "import chip_smoke; "
+         f"chip_smoke.make_safe(pathlib.Path(sys.argv[2]), {args})",
          str(ROOT), str(work)], check=True)
     return next(work.glob("*.SAFE"))
 
@@ -1137,6 +1560,10 @@ def main() -> int:
         shutil.rmtree(work, ignore_errors=True)
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
+    jax_package = [m for m in sys.modules
+                   if m == "sarpro_tpu" or m.startswith("sarpro_tpu.")]
+    if jax_package:
+        raise AssertionError(f"the JAX package was imported: {jax_package}")
     import torch
 
     log("slice: warm walls " + ", ".join(
@@ -1150,9 +1577,9 @@ def main() -> int:
         entry = {"name": name, "route": "cuda", "source": src,
                  "replaces": rep,
                  "launches": counts[REPORTED_PATH[name]][name],
-                 "max_abs_err": results[name]["max_abs_err"],
-                 "ms": results[name]["ms"],
-                 "plain_ms": results[name]["plain_ms"]}
+                 **{k: results[name][k] for k in (
+                     "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                     "library_ms")}}
         if also:
             entry["also_replaces"] = also[0]
         kernels.append(entry)

@@ -2,9 +2,10 @@
 
 The JAX package stays the reference; this package runs its device work as
 PyTorch tensor code plus hand-written CUDA kernels for Hopper (`ops/`,
-`csrc/`), and reuses the JAX package's host-only modules (SAFE metadata,
-TIFF codec, writers, native JPEG entropy coder), which import neither jax
-nor Pillow.
+`csrc/`). It imports nothing of the JAX package: the host modules it needs
+(errors, types, params, the SAFE parser, TIFF codec, geodesy, writers, the
+native codec's bindings) are its own copies, held equal to the originals by
+tests/test_torch_host_copies.py.
 
 Ported so far: fast mode (`python -m sarpro_tpu_torch.cli ... --fast`) on
 one device, every route of it: single bands, the five polarization
@@ -13,3 +14,6 @@ autoscale strategy, u8 or u16, with or without reprojection. Exact mode,
 streamed full-resolution scenes above 192 MP, sharding and batch raise
 NotImplementedError naming their ROADMAP item.
 """
+
+# the JAX package's version, which `--version` and the sidecars carry
+__version__ = "0.5.0"

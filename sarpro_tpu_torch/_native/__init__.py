@@ -1,0 +1,236 @@
+"""ctypes bindings for the native TIFF codec, box reducer and JPEG entropy
+coder (a copy of the entries of sarpro_tpu/_native that the port calls;
+only where the library comes from differs).
+
+The port builds the library itself at first use, from the repository's
+`native/tiffcodec.cpp` and `native/jpegenc.cpp` with `native/build.py`'s g++
+command and flags, into `build/sarpro_tpu_torch/` below the checkout root.
+The file name carries a hash of the sources and flags, so an edited source
+rebuilds and an unchanged one loads at once. Where g++ or the sources are
+missing, or the build fails, the module behaves as the JAX package's does
+without its library: `available()` is False and the TIFF codec takes its
+pure-Python paths.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import logging
+import os
+import pathlib
+import shutil
+import subprocess
+from typing import Optional
+
+import numpy as np
+
+_ROOT = pathlib.Path(__file__).resolve().parents[2]
+NATIVE_DIR = _ROOT / "native"
+BUILD_DIR = _ROOT / "build" / "sarpro_tpu_torch"
+SOURCES = ("tiffcodec.cpp", "jpegenc.cpp")
+# native/build.py's g++ command
+CXX_FLAGS = ("-O3", "-march=native", "-shared", "-fPIC", "-std=c++17",
+             "-pthread")
+
+_LIB: Optional[ctypes.CDLL] = None
+_TRIED = False
+
+
+def _build() -> Optional[pathlib.Path]:
+    """The library's path, built first if needed; None where it cannot be
+    built."""
+    sources = [NATIVE_DIR / name for name in SOURCES]
+    if not all(p.exists() for p in sources):
+        return None
+    digest = hashlib.sha256(" ".join(CXX_FLAGS).encode())
+    for src in sources:
+        digest.update(src.name.encode())
+        digest.update(src.read_bytes())
+    so = BUILD_DIR / f"libsarpro_codec_{digest.hexdigest()[:16]}.so"
+    if so.exists():
+        return so
+    cxx = shutil.which("g++")
+    if cxx is None:
+        return None
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+    try:
+        res = subprocess.run([cxx, *CXX_FLAGS, *map(str, sources), "-o",
+                              str(tmp)], capture_output=True, text=True)
+        if res.returncode != 0:
+            logging.getLogger("sarpro").warning(
+                "native codec build failed (%d): %s", res.returncode,
+                res.stderr[-2000:])
+            return None
+        os.replace(tmp, so)  # atomic: a concurrent build never loads a part
+    finally:
+        tmp.unlink(missing_ok=True)
+    return so
+
+
+def _load() -> Optional[ctypes.CDLL]:
+    global _LIB, _TRIED
+    if _TRIED:
+        return _LIB
+    _TRIED = True
+    so = _build()
+    if so is None:
+        return None
+    try:
+        lib = ctypes.CDLL(str(so))
+    except OSError:
+        return None
+    i64 = ctypes.c_int64
+    u8p = ctypes.POINTER(ctypes.c_uint8)
+    i64p = ctypes.POINTER(ctypes.c_int64)
+    lib.packbits_decode.restype = i64
+    lib.packbits_decode.argtypes = [u8p, i64, u8p, i64]
+    lib.lzw_decode.restype = i64
+    lib.lzw_decode.argtypes = [u8p, i64, u8p, i64]
+    lib.decode_strips.restype = i64
+    lib.decode_strips.argtypes = [u8p, i64p, i64p, u8p, i64p, i64p, i64,
+                                  ctypes.c_int32, ctypes.c_int32]
+    u16p = ctypes.POINTER(ctypes.c_uint16)
+    f32p = ctypes.POINTER(ctypes.c_float)
+    i32p = ctypes.POINTER(ctypes.c_int32)
+    lib.box_reduce_u16_f32.restype = None
+    lib.box_reduce_u16_f32.argtypes = [u16p, i64, i64, f32p, i64, i64, i64,
+                                       i32p, i32p, i32p, i32p]
+    i16p = ctypes.POINTER(ctypes.c_int16)
+    lib.jpeg_encode_coeffs444.restype = i64
+    lib.jpeg_encode_coeffs444.argtypes = [i16p, i16p, i16p, i64, i64, u8p,
+                                          i64, ctypes.c_int32]
+    lib.jpeg_encode_coeffs_gray.restype = i64
+    lib.jpeg_encode_coeffs_gray.argtypes = [i16p, i64, i64, u8p, i64,
+                                            ctypes.c_int32]
+    _LIB = lib
+    return _LIB
+
+
+def available() -> bool:
+    return _load() is not None
+
+
+def _u8p(arr: np.ndarray):
+    return arr.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8))
+
+
+def _i64p(arr: np.ndarray):
+    return arr.ctypes.data_as(ctypes.POINTER(ctypes.c_int64))
+
+
+def lzw_decode(blob: bytes, out_cap: int) -> bytes:
+    lib = _load()
+    src = np.frombuffer(blob, np.uint8)
+    dst = np.empty(out_cap, np.uint8)
+    n = lib.lzw_decode(_u8p(src), len(blob), _u8p(dst), out_cap)
+    if n < 0:
+        raise ValueError("corrupt LZW stream")
+    return dst[:n].tobytes()
+
+
+def packbits_decode(blob: bytes, out_cap: int) -> bytes:
+    lib = _load()
+    src = np.frombuffer(blob, np.uint8)
+    dst = np.empty(out_cap, np.uint8)
+    n = lib.packbits_decode(_u8p(src), len(blob), _u8p(dst), out_cap)
+    if n < 0:
+        raise ValueError("corrupt PackBits stream")
+    return dst[:n].tobytes()
+
+
+def decode_strips(
+    blobs: list[bytes], dst: np.ndarray, dst_offsets: np.ndarray,
+    dst_lengths: np.ndarray, compression: int, n_threads: int = 0,
+) -> None:
+    """Decode many strips in parallel into a preallocated byte buffer."""
+    lib = _load()
+    srcs = np.frombuffer(b"".join(blobs), np.uint8)
+    offsets = np.zeros(len(blobs), np.int64)
+    lengths = np.array([len(b) for b in blobs], np.int64)
+    np.cumsum(lengths[:-1], out=offsets[1:])
+    if n_threads <= 0:
+        n_threads = min(os.cpu_count() or 1, 16)
+    rc = lib.decode_strips(
+        _u8p(srcs), _i64p(offsets), _i64p(lengths),
+        _u8p(dst), _i64p(np.ascontiguousarray(dst_offsets, np.int64)),
+        _i64p(np.ascontiguousarray(dst_lengths, np.int64)),
+        len(blobs), compression, n_threads,
+    )
+    if rc != 0:
+        raise ValueError(f"strip {rc - 1} failed to decode")
+
+
+def box_reduce_u16(
+    src: np.ndarray, out: np.ndarray, oy0: int, oy1: int,
+    ys: np.ndarray, yc: np.ndarray, xs: np.ndarray, xc: np.ndarray,
+    src_row0: int = 0,
+) -> None:
+    """Box-average output rows [oy0, oy1) from a u16 source chunk whose first
+    row is global row `src_row0`. `out` holds (oy1-oy0, out_cols) float32."""
+    lib = _load()
+    assert src.dtype == np.uint16 and src.flags.c_contiguous
+    assert out.dtype == np.float32 and out.flags.c_contiguous
+    i32 = ctypes.POINTER(ctypes.c_int32)
+    lib.box_reduce_u16_f32(
+        src.ctypes.data_as(ctypes.POINTER(ctypes.c_uint16)),
+        src_row0, src.shape[1],
+        out.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+        oy0, oy1, out.shape[1],
+        ys.ctypes.data_as(i32), yc.ctypes.data_as(i32),
+        xs.ctypes.data_as(i32), xc.ctypes.data_as(i32),
+    )
+
+
+def jpeg_encode_coeffs444(cy: np.ndarray, ccb: np.ndarray, ccr: np.ndarray,
+                          w: int, h: int, n_threads: int = 0) -> bytes:
+    """Pre-quantized device DCT coefficients → baseline JPEG q100 4:4:4.
+
+    Each component is an int16 array of ceil(h/8)*ceil(w/8) consecutive
+    64-coeff blocks in block raster order (transposed 8x8 per block — the
+    layout the fused program's in-graph FDCT emits). The host pays entropy
+    coding only."""
+    lib = _load()
+    nblocks = ((h + 7) // 8) * ((w + 7) // 8)
+    i16p = ctypes.POINTER(ctypes.c_int16)
+    comps = []
+    for p in (cy, ccb, ccr):
+        p = np.ascontiguousarray(p, np.int16).reshape(-1)
+        if p.size != nblocks * 64:
+            raise ValueError(
+                f"coefficient plane has {p.size} values, expected "
+                f"{nblocks * 64} for {w}x{h}")
+        comps.append(p)
+    if n_threads <= 0:
+        n_threads = min(os.cpu_count() or 1, 16)
+    cap = w * h * 3 * 5 + (1 << 16)
+    out = np.empty(cap, np.uint8)
+    n = lib.jpeg_encode_coeffs444(
+        comps[0].ctypes.data_as(i16p), comps[1].ctypes.data_as(i16p),
+        comps[2].ctypes.data_as(i16p), w, h, _u8p(out), cap, n_threads)
+    if n < 0:
+        raise ValueError("jpeg encode overflow")
+    return out[:n].tobytes()
+
+
+def jpeg_encode_coeffs_gray(cy: np.ndarray, w: int, h: int,
+                            n_threads: int = 0) -> bytes:
+    """Pre-quantized device DCT coefficients → baseline grayscale JPEG q100."""
+    lib = _load()
+    nblocks = ((h + 7) // 8) * ((w + 7) // 8)
+    cy = np.ascontiguousarray(cy, np.int16).reshape(-1)
+    if cy.size != nblocks * 64:
+        raise ValueError(f"coefficient plane has {cy.size} values, expected "
+                         f"{nblocks * 64} for {w}x{h}")
+    if n_threads <= 0:
+        n_threads = min(os.cpu_count() or 1, 16)
+    cap = w * h * 5 + (1 << 16)
+    out = np.empty(cap, np.uint8)
+    n = lib.jpeg_encode_coeffs_gray(
+        cy.ctypes.data_as(ctypes.POINTER(ctypes.c_int16)), w, h,
+        _u8p(out), cap, n_threads)
+    if n < 0:
+        raise ValueError("jpeg encode overflow")
+    return out[:n].tobytes()
+
+

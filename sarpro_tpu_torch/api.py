@@ -15,12 +15,10 @@ import logging
 
 import torch
 
-from sarpro_tpu.io.safe import TargetCrsArg
-from sarpro_tpu.params import ProcessingParams
-from sarpro_tpu.types import OutputFormat, ProcessingOperation
-
 from .core import fast_path, fused, ops
-from .io.safe import open_band, open_dual_pol, open_pair
+from .io.safe import TargetCrsArg, open_band, open_dual_pol, open_pair
+from .params import ProcessingParams
+from .types import OutputFormat, ProcessingOperation
 
 logger = logging.getLogger("sarpro")
 

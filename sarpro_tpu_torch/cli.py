@@ -5,17 +5,130 @@ of sarpro_tpu/cli.py:127-189).
         --polarization multiband --autoscale clahe --size 2048 --pad \\
         --target-crs auto --resample-alg cubic --fast
     python -m sarpro_tpu_torch.cli -i X.SAFE -o out.tiff --fast  # u8 VV CLAHE
+
+`build_parser`, `_parse_size` and `_params_from_args` are copies of the JAX
+package's (tests/test_torch_host_copies.py holds the parsed params equal),
+`--version` included.
 """
 from __future__ import annotations
 
+import argparse
 import logging
 import sys
 import time
+from pathlib import Path
 
-from sarpro_tpu.cli import _params_from_args, build_parser
-from sarpro_tpu.errors import MissingArgument, SarproError
+from . import __version__
+from .errors import MissingArgument, SarproError, ZeroSize
+from .params import ProcessingParams
+from .types import (
+    AutoscaleStrategy,
+    BitDepthArg,
+    InputFormat,
+    OutputFormat,
+    Polarization,
+    SyntheticRgbMode,
+)
 
 logger = logging.getLogger("sarpro")
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="sarpro", description="SARPRO CLI (TPU-native)", add_help=True
+    )
+    p.add_argument("--version", action="version", version=f"sarpro {__version__}")
+    p.add_argument("-i", "--input", type=Path,
+                   help="Input SAFE directory (single file mode)")
+    p.add_argument("--input-dir", type=Path,
+                   help="Input directory containing SAFE subdirectories (batch mode)")
+    p.add_argument("-o", "--output", type=Path,
+                   help="Output filename (single file mode)")
+    p.add_argument("--output-dir", type=Path,
+                   help="Output directory for batch processing (batch mode)")
+    p.add_argument("-f", "--format", choices=["tiff", "jpeg"], default="tiff",
+                   help="Output format (tiff or jpeg)")
+    p.add_argument("--input-format", choices=["safe"], default="safe",
+                   help="Input format (only SAFE supported currently)")
+    p.add_argument("--bit-depth", choices=["u8", "u16"], default="u8",
+                   help="Output bit depth (8 or 16)")
+    p.add_argument("--polarization", choices=Polarization.cli_choices(),
+                   default="vv", help="Polarization mode")
+    p.add_argument("--autoscale",
+                   choices=[s.value for s in AutoscaleStrategy], default="clahe",
+                   help="Autoscaling strategy")
+    p.add_argument("--size", default="original",
+                   help='Image size: 512/1024/2048, any positive integer, or "original"')
+    p.add_argument("--log", action="store_true", help="Enable logging")
+    p.add_argument("--batch", action="store_true",
+                   help="Batch mode: continue past unsupported products")
+    p.add_argument("--pad", action="store_true",
+                   help="Zero-pad to square (centered)")
+    p.add_argument("--target-crs",
+                   help="Target CRS: any EPSG code (e.g. EPSG:4326, "
+                        "EPSG:32633), a raw '+proj=...' string, 'auto', "
+                        "or 'none'")
+    p.add_argument("--resample-alg",
+                   help="Resampling algorithm (nearest, bilinear, cubic, lanczos)")
+    p.add_argument("--synrgb-mode", choices=[m.value for m in SyntheticRgbMode],
+                   default="default",
+                   help="Synthetic RGB mode (jpeg+multiband only)")
+    p.add_argument("--prefetch", type=int, default=0, metavar="N",
+                   help="Batch mode: load N scenes ahead while the device "
+                        "processes (0 = serial, reference-parity)")
+    p.add_argument("--device-batch", type=int, default=4, metavar="K",
+                   help="Batch+fast mode: stack K same-shape multiband-JPEG "
+                        "scenes into one vmapped device dispatch (1 = "
+                        "per-scene). On TPU, bucketed scenes may differ "
+                        "from per-scene output by <=1 u8 step (both within "
+                        "the fast-mode contract)")
+    p.add_argument("--fast", action="store_true",
+                   help="Fused single-program pipeline (benchmark path): one "
+                        "device dispatch per band; autoscale windows within "
+                        "1 histogram bin of exact mode")
+    p.add_argument("--shard-devices", type=int, default=0, metavar="N",
+                   help="Shard one scene's compute across N local devices "
+                        "(rows split over a mesh, stats via ICI "
+                        "collectives); -1 = all devices; implies --fast")
+    p.add_argument("--resume", action="store_true",
+                   help="Batch mode: skip products whose output already exists")
+    p.add_argument("--no-direct-io", action="store_true",
+                   help="Pipelined batch mode: use buffered (page-cache) "
+                        "reads in the loader threads instead of the default "
+                        "O_DIRECT chunked DMA (use when scenes are re-read "
+                        "and should stay cached)")
+    return p
+
+
+def _parse_size(size: str):
+    """reference: src/cli/runner.rs:43-55."""
+    if size == "original":
+        return None
+    try:
+        parsed = int(size)
+    except ValueError:
+        raise SarproError(f"Invalid size: {size}")
+    if parsed == 0:
+        raise ZeroSize(parsed)
+    if parsed < 0:
+        raise SarproError(f"Invalid size: {size}")
+    return parsed
+
+
+def _params_from_args(args) -> ProcessingParams:
+    return ProcessingParams(
+        format=OutputFormat.TIFF if args.format == "tiff" else OutputFormat.JPEG,
+        input_format=InputFormat.SAFE,
+        bit_depth=BitDepthArg.U8 if args.bit_depth == "u8" else BitDepthArg.U16,
+        polarization=Polarization.from_cli(args.polarization),
+        autoscale=AutoscaleStrategy(args.autoscale),
+        synrgb_mode=SyntheticRgbMode(args.synrgb_mode),
+        size=_parse_size(args.size),
+        pad=args.pad,
+        target_crs=args.target_crs,
+        resample_alg=args.resample_alg,
+    )
+
 
 
 def run(argv=None, device="cuda") -> int:

@@ -4,8 +4,8 @@ sarpro_tpu/core/fast_path.save_single_band_fast and save_multiband_fast).
 The device runs the whole chain down to the band values, or for a JPEG down
 to quantized DCT blocks; the host copies the result back and writes the
 GeoTIFF (with its embedded metadata), or entropy-codes the JPEG and writes
-the world file, .prj and JSON sidecar, through the JAX package's host-only
-writers.
+the world file, .prj and JSON sidecar, through the writers of io/writers
+(copies of the JAX package's).
 
 Not ported: full-resolution scenes above BIG_SCENE_PIXELS, which take the
 JAX package's streamed path (ROADMAP queue 1 #6), and row sharding over
@@ -16,25 +16,24 @@ from __future__ import annotations
 import logging
 from pathlib import Path
 
-from sarpro_tpu.io.writers.metadata import (
+from ..io.writers import jpeg
+from ..io.writers.metadata import (
     create_jpeg_metadata_sidecar_with_overrides_and_extras,
     embed_tiff_metadata,
 )
-from sarpro_tpu.io.writers.tiff import (
+from ..io.writers.tiff import (
     write_tiff_multiband_u8,
     write_tiff_multiband_u16,
     write_tiff_u8,
     write_tiff_u16,
 )
-from sarpro_tpu.io.writers.worldfile import write_prj_file, write_world_file
-from sarpro_tpu.types import (
+from ..io.writers.worldfile import write_prj_file, write_world_file
+from ..types import (
     BitDepth,
     OutputFormat,
     ProcessingOperation,
     SyntheticRgbMode,
 )
-
-from ..io.writers import jpeg
 from . import fused
 
 logger = logging.getLogger("sarpro")

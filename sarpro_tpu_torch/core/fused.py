@@ -28,8 +28,6 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from sarpro_tpu.types import AutoscaleStrategy, BitDepth
-
 from ..ops import (
     band_resample_axis0,
     clahe_lookup,
@@ -37,6 +35,7 @@ from ..ops import (
     synrgb_lookup,
     tile_histogram,
 )
+from ..types import AutoscaleStrategy, BitDepth
 from .clahe import CLAHE_BINS, CLIP_LIMIT, TILES_X, TILES_Y
 from .numerics import as_f32, as_u16, round_half_up_nonneg
 from .synthetic_rgb import (

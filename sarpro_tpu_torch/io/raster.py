@@ -1,8 +1,14 @@
-"""Decimated band reads onto the device (port of
-sarpro_tpu/io/raster.RasterReader.read_band_resampled_to_device, whose
-module path imports jax).
+"""The raster reader and decimated band reads onto the device (port of
+sarpro_tpu/io/raster.py).
 
-Two routes, chosen from the raster's layout before the read:
+`RasterReader` is the JAX package's reader of a (Geo)TIFF through the
+self-contained codec (io/tiffio), copied without its jax paths and without
+its read_band_resampled: the port's decimated read is
+`read_band_resampled_to_device` below. Non-TIFF rasters (the JAX package's
+Pillow and netCDF backends) are refused; SAFE measurements are TIFFs.
+
+Two routes of the decimated read, chosen from the raster's layout before
+the read:
   * host box reduce: an uncompressed-or-striped single-band u16 TIFF, the
     'average' filter, a true reduction and the native library built. Each
     chunk of output rows is read with `read_strip_range`, box-averaged on
@@ -18,17 +24,21 @@ Two routes, chosen from the raster's layout before the read:
 """
 from __future__ import annotations
 
+import dataclasses
 import logging
+from pathlib import Path
+from typing import Optional
 
 import numpy as np
 import torch
 
-from sarpro_tpu import _native
-from sarpro_tpu.io.tiffio import TiffReader
-
+from .. import _native
 from ..core.fused import _resample_dn
 from ..core.numerics import as_f32, u16_bits
 from ..core.resize import _build_coeffs
+from ..errors import RasterError
+from . import geodesy
+from .tiffio import GeoInfo, TiffReader
 
 logger = logging.getLogger("sarpro")
 
@@ -39,8 +49,8 @@ def _average_windows(in_size: int, out_size: int):
     """Contiguous uniform-weight source windows of the 'average' filter,
     from the device resampler's own coefficient builder, so host and device
     boxes match exactly: (starts, counts) int32, or None if the windows are
-    not plain boxes (a copy of sarpro_tpu/io/raster._average_windows, which
-    imports the jax coefficient module; a test holds the copy equal)."""
+    not plain boxes (a copy of sarpro_tpu/io/raster._average_windows; a test
+    holds the copy equal)."""
     starts, weights = _build_coeffs(in_size, out_size, "average")
     nz = weights > 0
     first = nz.argmax(axis=1).astype(np.int64)
@@ -53,6 +63,95 @@ def _average_windows(in_size: int, out_size: int):
         return None
     ys = (starts.astype(np.int64) + first).astype(np.int32)
     return ys, count.astype(np.int32)
+
+
+@dataclasses.dataclass
+class RasterMetadata:
+    """Mirror of the reference's GdalMetadata (gdal.rs:16-35)."""
+
+    size_x: int
+    size_y: int
+    bands: int
+    geotransform: list[float]
+    projection: str
+    epsg: Optional[int]
+    metadata: dict[str, str]
+
+
+def parse_epsg(wkt: str) -> Optional[int]:
+    """EPSG code from a WKT AUTHORITY tag (reference: gdal.rs:43-53)."""
+    key = 'AUTHORITY["EPSG","'
+    idx = wkt.rfind(key)
+    if idx < 0:
+        return None
+    start = idx + len(key)
+    end = wkt.find('"', start)
+    if end <= start:
+        return None
+    try:
+        return int(wkt[start:end])
+    except ValueError:
+        return None
+
+
+class RasterReader:
+    """Opens a (Geo)TIFF raster via the self-contained codec (reference:
+    GdalSarReader::open, gdal.rs:57-104)."""
+
+    def __init__(self, path: str | Path):
+        self.path = Path(path)
+        # content-probe first, like GDAL: a TIFF named scene.img must still
+        # open through the native codec regardless of extension
+        try:
+            with open(self.path, "rb") as fh:
+                magic = fh.read(4)
+        except OSError as e:
+            raise RasterError(f"failed to open raster {self.path}: {e}") from e
+        if magic[:2] not in (b"II", b"MM"):
+            raise RasterError(f"unsupported raster format: {self.path} is "
+                              "not a TIFF")
+        try:
+            self._tiff = TiffReader(self.path)
+        except RasterError:
+            raise
+        except Exception as e:  # pragma: no cover
+            raise RasterError(f"failed to open raster {self.path}: {e}") from e
+        gi: GeoInfo = self._tiff.geo_info()
+        self.geo = gi
+        # identity fallback (reference: gdal.rs:64-67)
+        gt = gi.geotransform or [0.0, 1.0, 0.0, 0.0, 0.0, 1.0]
+        # projection: dataset CRS, falling back to GCP projection (gdal.rs:68-83).
+        # A GCP'd raster (multiple tiepoints) is itself UNprojected — its
+        # geokeys describe the GCP SRS, so the dataset EPSG must stay None
+        # (otherwise the skip-warp guard would wrongly fire).
+        projection = ""
+        epsg = gi.epsg
+        if gi.gcps is not None:
+            epsg = None
+            gcp_epsg = gi.gcp_epsg or 4326
+            projection = geodesy.epsg_to_wkt(gcp_epsg) or f"EPSG:{gcp_epsg}"
+        elif epsg is not None:
+            projection = geodesy.epsg_to_wkt(epsg) or f"EPSG:{epsg}"
+        self.metadata = RasterMetadata(
+            size_x=self._tiff.width,
+            size_y=self._tiff.height,
+            bands=self._tiff.samples,
+            geotransform=gt,
+            projection=projection,
+            epsg=epsg,
+            metadata=self._tiff.gdal_metadata(),
+        )
+
+    @property
+    def gcps(self) -> Optional[np.ndarray]:
+        return self.geo.gcps
+
+    def read_band(self, band: int = 1) -> np.ndarray:
+        """Full-window f32 read (reference: gdal.rs:107-141)."""
+        return self._tiff.read(band).astype(np.float32)
+
+    def close(self):
+        self._tiff.close()
 
 
 def _box_windows(reader, band: int, out_cols: int, out_rows: int, filt: str):
@@ -89,8 +188,8 @@ def read_band_resampled_to_device(reader, band: int, out_cols: int,
                                   out_rows: int, device,
                                   alg: str | None = None,
                                   chunk_out_rows: int = 512) -> torch.Tensor:
-    """Decimated read of `band` of a `sarpro_tpu.io.raster.RasterReader` to
-    an (out_rows, out_cols) f32 tensor on `device`."""
+    """Decimated read of `band` of a `RasterReader` to an (out_rows,
+    out_cols) f32 tensor on `device`."""
     device = torch.device(device)
     filt = alg or "average"
     wins = _box_windows(reader, band, out_cols, out_rows, filt)

@@ -1,8 +1,11 @@
-"""SAFE loading onto the GPU (port of the reader glue of
-sarpro_tpu/io/safe.py:459-611 and :637-710).
+"""SAFE reading onto the GPU (port of sarpro_tpu/io/safe.py).
 
-Metadata and file discovery come from the JAX package's host-only parser.
-With a target CRS, each band is warped on the device (`io/warp.warp_to_crs`):
+The metadata parser and the measurement-file discovery (`SafeMetadata`,
+`TargetCrsArg`, `parse_comprehensive_metadata`,
+`identify_polarization_files`) are copies of the JAX package's, held equal
+by tests/test_torch_host_copies.py. The loaders are the port's own (the
+reader glue of sarpro_tpu/io/safe.py:459-611 and :637-710). With a target
+CRS, each band is warped on the device (`io/warp.warp_to_crs`):
 a strong reduction is box-averaged on the host first, so only the reduced
 f32 plane is uploaded. Without one, two openers differ in where the
 downsample-on-read runs:
@@ -21,32 +24,386 @@ downsample-on-read runs:
 from __future__ import annotations
 
 import dataclasses
+import datetime
+import functools
 import logging
+import xml.etree.ElementTree as ET
+from enum import Enum
 from pathlib import Path
 from typing import Callable, Optional
 
 import numpy as np
 import torch
 
-from sarpro_tpu.errors import (
+from .. import __version__ as _VERSION
+from ..core.fused import _plan_read_dims
+from ..errors import (
     ProcessingError,
     SafeMissingField,
+    SafeParseError,
     UnsupportedProduct,
 )
-from sarpro_tpu.io import geodesy
-from sarpro_tpu.io.raster import RasterReader
-from sarpro_tpu.io.safe import (
-    SafeMetadata,
-    TargetCrsArg,
-    identify_polarization_files,
-    parse_comprehensive_metadata,
-)
-from sarpro_tpu.io.tiffio import TiffReader
-
-from ..core.fused import _plan_read_dims
-from . import raster, warp
+from . import geodesy, raster, warp
+from .raster import RasterReader
+from .tiffio import TiffReader
 
 logger = logging.getLogger("sarpro")
+
+SPEED_OF_LIGHT = 299_792_458.0
+
+
+class TargetCrsArg(Enum):
+    """Deferred 'auto' resolution (reference: sentinel1.rs:44-49)."""
+
+    NONE = "none"
+    AUTO = "auto"
+
+    @staticmethod
+    def custom(value: str) -> str:
+        return value
+
+
+@dataclasses.dataclass
+class SafeMetadata:
+    """~40 fields of product metadata (reference: sentinel1.rs:53-111)."""
+
+    # Basic product information
+    instrument: str = ""
+    platform: str = ""
+    acquisition_start: str = ""
+    acquisition_stop: str = ""
+    orbit_number: int = 0
+    polarizations: list[str] = dataclasses.field(default_factory=list)
+    lines: int = 0
+    samples: int = 0
+    product_type: str = ""
+    # SAR parameters
+    range_sampling_rate: Optional[float] = None
+    radar_frequency: Optional[float] = None
+    prf: Optional[float] = None
+    tx_pulse_length: Optional[float] = None
+    tx_pulse_ramp_rate: Optional[float] = None
+    velocity: Optional[float] = None
+    slant_range_near: Optional[float] = None
+    # Georeferencing
+    geotransform: Optional[list[float]] = None
+    projection: Optional[str] = None
+    crs: Optional[str] = None
+    pixel_spacing_range: Optional[float] = None
+    pixel_spacing_azimuth: Optional[float] = None
+    # annotation geolocationGridPointList as (N,4) [pixel, line, lon, lat];
+    # TPS control-point source when the measurement TIFF carries no GCPs
+    geolocation_grid: Optional[np.ndarray] = None
+    # Acquisition details
+    instrument_mode: Optional[str] = None
+    pass_direction: Optional[str] = None
+    data_take_id: Optional[str] = None
+    product_id: Optional[str] = None
+    # Processing parameters
+    processing_level: Optional[str] = None
+    multilook_factor: Optional[int] = None
+    calibration_type: Optional[str] = None
+    noise_estimate: Optional[float] = None
+    processing_center: Optional[str] = None
+    software_version: Optional[str] = None
+    # Image characteristics
+    pixel_data_type: Optional[str] = None
+    bits_per_sample: Optional[int] = None
+    sample_format: Optional[str] = None
+    # Additional SAR-specific
+    incidence_angle: Optional[float] = None
+    look_angle: Optional[float] = None
+    doppler_centroid: Optional[float] = None
+    radiometric_calibration: Optional[str] = None
+    geometric_calibration: Optional[str] = None
+    # Conversion provenance
+    conversion_tool: str = "SARPRO"
+    conversion_version: str = _VERSION
+    conversion_timestamp: str = ""
+
+    def copy(self) -> "SafeMetadata":
+        return dataclasses.replace(
+            self, polarizations=list(self.polarizations),
+            geotransform=list(self.geotransform) if self.geotransform else None,
+        )
+
+
+def _localname(tag: str) -> str:
+    """Strip XML namespace; the reference's quick-xml matcher keys on the
+    written tag names (sentinel1.rs:1195-1273)."""
+    if "}" in tag:
+        tag = tag.split("}", 1)[1]
+    if ":" in tag:
+        tag = tag.split(":", 1)[1]
+    return tag
+
+
+def parse_manifest_safe(path: Path, meta: SafeMetadata) -> SafeMetadata:
+    """Streaming state machine over manifest.safe sections
+    (reference: sentinel1.rs:1176-1281)."""
+    sections = {
+        "platform": False, "acquisitionPeriod": False, "orbitReference": False,
+        "facility": False, "software": False,
+        "standAloneProductInformation": False, "orbitProperties": False,
+    }
+    curr = ""
+    try:
+        for event, elem in ET.iterparse(str(path), events=("start", "end")):
+            tag = _localname(elem.tag)
+            if event == "start":
+                curr = tag
+                if tag in sections:
+                    sections[tag] = True
+                continue
+            # end event: elem.text is complete
+            txt = (elem.text or "").strip()
+            if txt:
+                if tag == "familyName" and sections["platform"]:
+                    meta.platform = txt
+                elif tag == "instrument" and sections["platform"]:
+                    meta.instrument = txt
+                elif tag == "mode" and sections["platform"]:
+                    meta.instrument_mode = txt
+                elif tag == "startTime" and sections["acquisitionPeriod"]:
+                    meta.acquisition_start = txt
+                elif tag == "stopTime" and sections["acquisitionPeriod"]:
+                    meta.acquisition_stop = txt
+                elif tag == "orbitNumber" and sections["orbitReference"]:
+                    try:
+                        meta.orbit_number = int(txt)
+                    except ValueError:
+                        meta.orbit_number = 0
+                elif tag == "pass" and sections["orbitProperties"]:
+                    meta.pass_direction = txt
+                elif tag == "productType" and sections["standAloneProductInformation"]:
+                    meta.product_type = txt
+                elif tag == "missionDataTakeID" and sections["standAloneProductInformation"]:
+                    meta.data_take_id = txt
+                elif tag == "productClass" and sections["standAloneProductInformation"]:
+                    meta.processing_level = txt
+                elif tag == "transmitterReceiverPolarisation" and sections["standAloneProductInformation"]:
+                    meta.polarizations.append(txt)
+                elif tag == "name" and sections["facility"]:
+                    meta.processing_center = txt
+                elif tag == "name" and sections["software"]:
+                    meta.software_version = txt
+                elif tag == "version" and sections["software"]:
+                    meta.software_version = txt
+            if tag in sections:
+                sections[tag] = False
+            elem.clear()
+    except ET.ParseError as e:
+        raise SafeParseError(f"manifest.safe parse error: {e}") from e
+    return meta
+
+
+def parse_annotation_xml(path: Path, meta: SafeMetadata) -> SafeMetadata:
+    """Annotation XML state machine (reference: sentinel1.rs:1297-1442)."""
+    in_ = {
+        "adsHeader": False, "productInformation": False,
+        "downlinkInformation": False, "downlinkValues": False,
+        "orbitStateVector": False, "imageAnnotation": False,
+        "geolocationGridPoint": False,
+    }
+    downlink_done = 0
+    state_vectors: list[tuple[float, float, float]] = []
+    current = [0.0, 0.0, 0.0]
+    gg_points: list[tuple[float, float, float, float]] = []
+    gg_current: dict[str, float] = {}
+    try:
+        for event, elem in ET.iterparse(str(path), events=("start", "end")):
+            tag = _localname(elem.tag)
+            if event == "start":
+                if tag == "downlinkInformation":
+                    if downlink_done == 0:
+                        in_["downlinkInformation"] = True
+                elif tag in in_:
+                    in_[tag] = True
+                continue
+            txt = (elem.text or "").strip()
+
+            def fget(t=txt):
+                try:
+                    return float(t)
+                except ValueError:
+                    return None
+
+            if txt:
+                if in_["adsHeader"]:
+                    if tag == "missionId":
+                        meta.platform = txt
+                    elif tag == "productType":
+                        meta.product_type = txt
+                    elif tag == "polarisation":
+                        meta.polarizations.append(txt)
+                    elif tag == "mode":
+                        meta.instrument_mode = txt
+                    elif tag == "startTime":
+                        meta.acquisition_start = txt
+                    elif tag == "stopTime":
+                        meta.acquisition_stop = txt
+                    elif tag == "absoluteOrbitNumber":
+                        try:
+                            meta.orbit_number = int(txt)
+                        except ValueError:
+                            meta.orbit_number = 0
+                    elif tag == "missionDataTakeId":
+                        meta.data_take_id = txt
+                if in_["productInformation"]:
+                    if tag == "pass":
+                        meta.pass_direction = txt
+                    elif tag == "rangeSamplingRate":
+                        meta.range_sampling_rate = fget()
+                    elif tag == "radarFrequency":
+                        meta.radar_frequency = fget()
+                if in_["downlinkInformation"] and tag == "prf" and meta.prf is None:
+                    meta.prf = fget()
+                if in_["downlinkValues"]:
+                    if tag == "txPulseLength" and meta.tx_pulse_length is None:
+                        meta.tx_pulse_length = fget()
+                    elif tag == "txPulseRampRate" and meta.tx_pulse_ramp_rate is None:
+                        meta.tx_pulse_ramp_rate = fget()
+                if in_["imageAnnotation"]:
+                    if tag == "slantRangeTime" and meta.slant_range_near is None:
+                        srt = fget() or 0.0
+                        meta.slant_range_near = srt * SPEED_OF_LIGHT / 2.0
+                    elif tag == "rangePixelSpacing":
+                        meta.pixel_spacing_range = fget()
+                    elif tag == "azimuthPixelSpacing":
+                        meta.pixel_spacing_azimuth = fget()
+                if in_["orbitStateVector"]:
+                    if tag == "vx":
+                        current[0] = fget() or 0.0
+                    elif tag == "vy":
+                        current[1] = fget() or 0.0
+                    elif tag == "vz":
+                        current[2] = fget() or 0.0
+                if in_["geolocationGridPoint"] and tag in (
+                        "pixel", "line", "longitude", "latitude"):
+                    v = fget()
+                    if v is not None:
+                        gg_current[tag] = v
+                # image dimensions — matched anywhere (reference: :1421-1424)
+                if tag == "lines":
+                    try:
+                        meta.lines = int(txt)
+                    except ValueError:
+                        pass
+                elif tag in ("samplesPerLine", "numberOfSamples"):
+                    try:
+                        meta.samples = int(txt)
+                    except ValueError:
+                        pass
+            # end-of-section bookkeeping
+            if tag == "downlinkInformation" and in_["downlinkInformation"]:
+                in_["downlinkInformation"] = False
+                downlink_done += 1
+            elif tag == "orbitStateVector":
+                in_["orbitStateVector"] = False
+                state_vectors.append(tuple(current))
+                current = [0.0, 0.0, 0.0]
+            elif tag == "geolocationGridPoint":
+                in_["geolocationGridPoint"] = False
+                if all(k in gg_current
+                       for k in ("pixel", "line", "longitude", "latitude")):
+                    gg_points.append((gg_current["pixel"], gg_current["line"],
+                                      gg_current["longitude"],
+                                      gg_current["latitude"]))
+                gg_current = {}
+            elif tag in in_:
+                in_[tag] = False
+            elem.clear()
+    except ET.ParseError as e:
+        raise SafeParseError(f"annotation parse error: {e}") from e
+    if state_vectors:
+        vx, vy, vz = state_vectors[len(state_vectors) // 2]
+        meta.velocity = float(np.sqrt(vx * vx + vy * vy + vz * vz))
+    if gg_points and meta.geolocation_grid is None:
+        meta.geolocation_grid = np.asarray(gg_points, np.float64)
+    return meta
+
+
+def _parse_comprehensive(base: Path) -> SafeMetadata:
+    meta = SafeMetadata(
+        conversion_timestamp=datetime.datetime.now(datetime.timezone.utc).isoformat()
+    )
+    manifest = base / "manifest.safe"
+    if manifest.exists():
+        meta = parse_manifest_safe(manifest, meta)
+    annotation = base / "annotation"
+    if annotation.is_dir():
+        for p in sorted(annotation.iterdir()):
+            if p.suffix == ".xml":
+                meta = parse_annotation_xml(p, meta)
+    return meta
+
+
+@functools.lru_cache(maxsize=32)
+def _parse_comprehensive_cached(base_str: str, _stamp) -> SafeMetadata:
+    return _parse_comprehensive(Path(base_str))
+
+
+def parse_comprehensive_metadata(base: Path) -> SafeMetadata:
+    """manifest.safe + annotation files (reference: sentinel1.rs:1114-1174).
+
+    Memoized on (path, manifest/annotation mtimes): the batch paths run the
+    metadata-only viability check (api.scene_skip_reason) and then open the
+    product, which would otherwise parse every annotation XML twice per
+    scene. Callers get a defensive copy — downstream loaders mutate the
+    geotransform/dims fields."""
+    base = Path(base)
+    try:
+        stamp = (
+            (base / "manifest.safe").stat().st_mtime_ns,
+            (base / "annotation").stat().st_mtime_ns,
+        )
+    except OSError:
+        return _parse_comprehensive(base)
+    return _parse_comprehensive_cached(str(base), stamp).copy()
+
+
+def identify_polarization_files(measurement: Path, available: list[str]):
+    """Find per-pol measurement TIFFs by filename substring, with `_warped`
+    skip and single-file inference fallback (reference: sentinel1.rs:799-882)."""
+    vv = vh = hh = hv = None
+    for path in sorted(measurement.iterdir()):
+        name = path.name.lower()
+        if not (name.endswith(".tiff") or name.endswith(".tif")):
+            continue
+        if "_warped.tif" in name or "_warped.tiff" in name:
+            continue
+        if "vv" in name:
+            vv = path
+            logger.info("Found VV file: %s", path)
+        elif "vh" in name:
+            vh = path
+            logger.info("Found VH file: %s", path)
+        elif "hh" in name:
+            hh = path
+            logger.info("Found HH file: %s", path)
+        elif "hv" in name:
+            hv = path
+            logger.info("Found HV file: %s", path)
+    if vv is None and vh is None and hh is None and hv is None:
+        logger.info("No polarization-specific files found; inferring from "
+                    "available polarizations: %s", available)
+        for path in sorted(measurement.iterdir()):
+            if path.suffix.lower() not in (".tiff", ".tif"):
+                continue
+            for pol in available:
+                p = pol.lower()
+                if p == "vv":
+                    vv = path
+                    break
+                if p == "vh":
+                    vh = path
+                    break
+                if p == "hh":
+                    hh = path
+                    break
+            if vv or vh or hh:
+                break
+    return vv, vh, hh, hv
 
 
 @dataclasses.dataclass

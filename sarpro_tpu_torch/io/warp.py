@@ -27,10 +27,9 @@ from typing import Optional
 import numpy as np
 import torch
 
-from sarpro_tpu.errors import ProcessingError
-from sarpro_tpu.io import geodesy
-
+from ..errors import ProcessingError
 from ..ops import warp_sample
+from . import geodesy
 from .raster import read_band_resampled_to_device
 
 logger = logging.getLogger("sarpro")
@@ -321,7 +320,7 @@ def warp_to_crs(reader, target_crs: str, device,
                 resample_alg: Optional[str] = None,
                 target_size: Optional[int] = None,
                 geolocation_grid: Optional[np.ndarray] = None) -> WarpResult:
-    """Reproject band 1 of a `sarpro_tpu.io.raster.RasterReader` to
+    """Reproject band 1 of an `io.raster.RasterReader` to
     `target_crs` (EPSG:XXXX) on `device`, the equivalent of the reference's
     gdalwarp invocation (sentinel1.rs:988-1071)."""
     plan = plan_warp(reader, target_crs, resample_alg, target_size,

@@ -3,8 +3,8 @@ layouts of sarpro_tpu/io/writers/jpeg.py:53-57 and :108-117): 4:4:4 synRGB
 and grayscale.
 
 The host pays entropy coding only, in the repository's native encoder
-(native/jpegenc.cpp, built by `python native/build.py`). There is no
-cv2 or PIL route.
+(native/jpegenc.cpp, which `sarpro_tpu_torch._native` builds at first use
+with g++). There is no cv2 or PIL route.
 """
 from __future__ import annotations
 
@@ -12,13 +12,14 @@ from pathlib import Path
 
 import numpy as np
 
-from sarpro_tpu import _native
+from ... import _native
 
 
 def _require_native() -> None:
     if not _native.available():
-        raise RuntimeError("the native JPEG encoder is not built; run "
-                           "`python native/build.py`")
+        raise RuntimeError("the native JPEG encoder could not be built: "
+                           "sarpro_tpu_torch._native needs g++ and "
+                           "native/jpegenc.cpp")
 
 
 def write_synrgb_jpeg_dct(output, cols: int, rows: int,

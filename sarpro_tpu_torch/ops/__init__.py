@@ -6,12 +6,13 @@ version (port of sarpro_tpu/ops).
     the tile rows a block's pixels touch (csrc/tile_histogram.cu);
   * clahe_lookup: the CLAHE bilinear CDF blend, one thread per pixel
     (csrc/clahe_lookup.cu);
-  * band_resample_axis0: coalesced tap loop over u16/f32 rows
+  * band_resample_axis0: a group of output rows' source rows staged once
+    in shared memory as f32, the tap loop read from there
     (csrc/resample.cu);
   * synrgb_lookup: tables staged in shared memory, set chosen on the device
     (csrc/synrgb.cu);
-  * warp_sample: the inverse-map warp sampler, one thread per output pixel
-    (csrc/warp.cu).
+  * warp_sample: the inverse-map warp sampler; cubic stages each output
+    tile's source footprint in shared memory (csrc/warp.cu).
 
 A wrapper launches its kernel for CUDA tensors and runs the plain version
 for CPU tensors; `force_plain()` routes CUDA tensors to the plain versions

@@ -41,6 +41,7 @@ _SIGNATURES = {
     "sarpro_clahe_lookup": [_P, _L, _P, _I, _I, _I, _I, _I, _I, _L, _P, _P],
     "sarpro_warp_sample": [_P, _I, _I, _P, _P, _I, _I, _F, _F, _I, _P, _I,
                            _I, _P],
+    "sarpro_warp_tiles": [_I, _I, _P, _P, _I, _I, _F, _F, _I, _P, _I, _I, _P],
 }
 
 LAUNCHES = {"histogram": 0, "resample_axis0": 0, "synrgb_lookup": 0,
@@ -158,13 +159,16 @@ def library() -> ctypes.CDLL:
     return lib
 
 
-def launch(name: str, counter: str, device: torch.device, *args) -> None:
+def launch(name: str, counter: str | None, device: torch.device,
+           *args) -> None:
     """Call kernel entry `name` on `device`'s current stream (appended as the
-    last argument), raise on a refused launch, and count it."""
+    last argument), raise on a refused launch, and count it under `counter`
+    (None: an inspection entry, not counted)."""
     lib = library()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = getattr(lib, name)(*args, stream)
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {rc}")
-    LAUNCHES[counter] += 1
+    if counter is not None:
+        LAUNCHES[counter] += 1

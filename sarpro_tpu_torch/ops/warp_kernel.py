@@ -161,3 +161,32 @@ def warp_sample(src: torch.Tensor, map_x: torch.Tensor, map_y: torch.Tensor,
            map_y.data_ptr(), gh, gw, sr, sc, METHODS[method],
            out.data_ptr(), out_rows, out_cols)
     return out
+
+
+# the branches of the kernel's output tiles, as tile_kinds reports them
+TILE_KINDS = ("staged", "outside", "global", "interior")
+
+
+def tile_kinds(src: torch.Tensor, map_x: torch.Tensor, map_y: torch.Tensor,
+               out_rows: int, out_cols: int, method: str) -> torch.Tensor:
+    """Which branch the kernel takes for each output tile of the same call
+    (CUDA tensors only; inspection, not counted as a launch), as int32
+    indices into TILE_KINDS: the tile's source footprint staged in shared
+    memory with each tap tested against the source, no tap in the source,
+    every tap from device memory, or staged with every tap inside the
+    source (untested). Cubic takes 32 x 32 tiles; near and bilinear gather
+    from device memory in 8 x 32 tiles, all "global"."""
+    if not (src.is_cuda and map_x.is_cuda and map_y.is_cuda):
+        raise ValueError("tile_kinds inspects the CUDA kernel: CUDA tensors "
+                         "only")
+    if not (map_x.is_contiguous() and map_y.is_contiguous()):
+        raise ValueError("mapping grids must be contiguous")
+    gh, gw = map_x.shape
+    sr, sc = grid_scales(gh, gw, out_rows, out_cols)
+    tile_rows = 32 if method == "cubic" else 8
+    kinds = torch.empty((-(-out_rows // tile_rows), -(-out_cols // 32)),
+                        dtype=torch.int32, device=src.device)
+    launch("sarpro_warp_tiles", None, src.device, src.shape[0], src.shape[1],
+           map_x.data_ptr(), map_y.data_ptr(), gh, gw, sr, sc,
+           METHODS[method], kinds.data_ptr(), out_rows, out_cols)
+    return kinds

@@ -24,12 +24,19 @@ torch = pytest.importorskip("torch")
 from sarpro_tpu.core import clahe as jclahe  # noqa: E402
 from sarpro_tpu.core import fused as jf  # noqa: E402
 from sarpro_tpu.ops import kernels as JK  # noqa: E402
-from sarpro_tpu.types import AutoscaleStrategy  # noqa: E402
+from sarpro_tpu.types import AutoscaleStrategy as JStrategy  # noqa: E402
 from sarpro_tpu_torch import ops  # noqa: E402
 from sarpro_tpu_torch.core import clahe as tclahe  # noqa: E402
 from sarpro_tpu_torch.core import fused as tf  # noqa: E402
+from sarpro_tpu_torch.types import AutoscaleStrategy  # noqa: E402
 
+# each package takes its own enums
 CLAHE = AutoscaleStrategy.CLAHE
+
+
+def _j(strategy):
+    return JStrategy(strategy.value)
+
 LOOKUP_BOUND = 1e-6
 # one CLAHE bin of window shift (CDF step < 3/256 -> 3 u8 levels) + rounding
 BAND_BOUND = 1 + int(np.ceil(255 * (tclahe.CLIP_LIMIT + 1)
@@ -210,7 +217,7 @@ def test_window_exact_every_strategy(rng, strategy):
                               AutoscaleStrategy.ROBUST)
     for d in _stats_dicts(rng):
         want = jax.jit(jf._window, static_argnums=1)(
-            {k: jnp.asarray(v) for k, v in d.items()}, strategy)
+            {k: jnp.asarray(v) for k, v in d.items()}, _j(strategy))
         got = tf._window({k: _t(v) for k, v in d.items()}, strategy)
         ulp = max(np.spacing(np.abs(np.float32(v)))
                   for k, v in d.items() if k != "count")
@@ -283,10 +290,9 @@ def test_clahe_chain_on_identical_db_within_one(rng, shape):
 def test_band_stage_clahe(rng, shape, size, alg, pad):
     for copol, mean in ((True, 5.0), (False, 4.2)):
         dn = _dn(rng, shape, mean)
-        kw = dict(strategy=CLAHE, copol=copol, target_size=size, pad=pad,
-                  resample_alg=alg)
-        want = np.asarray(jf.synrgb_band_stage(dn, **kw))
-        got = tf.synrgb_band_stage(_t(dn), **kw).numpy()
+        kw = dict(copol=copol, target_size=size, pad=pad, resample_alg=alg)
+        want = np.asarray(jf.synrgb_band_stage(dn, strategy=_j(CLAHE), **kw))
+        got = tf.synrgb_band_stage(_t(dn), strategy=CLAHE, **kw).numpy()
         assert got.shape == want.shape and got.dtype == np.uint8
         d = np.abs(got.astype(int) - want.astype(int))
         print(f"{shape} -> {size} {alg} pad={pad} copol={copol}: max|diff| "
@@ -301,8 +307,8 @@ def test_strategies_needing_quantize_raise():
     whose pixels are all masked each gives the JAX program's all-zero u8."""
     dn = np.zeros((64, 64), dtype=np.uint16)
     for s in set(AutoscaleStrategy) - {CLAHE, AutoscaleStrategy.TAMED}:
-        kw = dict(strategy=s, copol=True, target_size=None, pad=False)
-        got = tf.synrgb_band_stage(_t(dn), **kw).numpy()
+        kw = dict(copol=True, target_size=None, pad=False)
+        got = tf.synrgb_band_stage(_t(dn), strategy=s, **kw).numpy()
         np.testing.assert_array_equal(got, np.asarray(
-            jf.synrgb_band_stage(dn, **kw)))
+            jf.synrgb_band_stage(dn, strategy=_j(s), **kw)))
         assert got.dtype == np.uint8 and not got.any()

@@ -13,11 +13,13 @@ torch = pytest.importorskip("torch")
 
 from sarpro_tpu.core import fused as jf  # noqa: E402
 from sarpro_tpu.core import numerics as jnum  # noqa: E402
-from sarpro_tpu.types import AutoscaleStrategy  # noqa: E402
+from sarpro_tpu.types import AutoscaleStrategy as JStrategy  # noqa: E402
 from sarpro_tpu_torch.core import fused as tf  # noqa: E402
 from sarpro_tpu_torch.core import numerics as tnum  # noqa: E402
+from sarpro_tpu_torch.types import AutoscaleStrategy  # noqa: E402
 
-TAMED = AutoscaleStrategy.TAMED
+# each package takes its own enums
+TAMED, J_TAMED = AutoscaleStrategy.TAMED, JStrategy.TAMED
 
 
 def _t(a):
@@ -153,7 +155,7 @@ def test_band_stage_within_one(rng, alg, size, pad):
     for copol, mean in ((True, 5.0), (False, 4.2)):
         dn = _dn(rng, (1100, 1300), mean)
         want = np.asarray(jf.synrgb_band_stage(
-            dn, strategy=TAMED, copol=copol, target_size=size, pad=pad,
+            dn, strategy=J_TAMED, copol=copol, target_size=size, pad=pad,
             resample_alg=alg))
         got = tf.synrgb_band_stage(
             _t(dn), strategy=TAMED, copol=copol, target_size=size, pad=pad,
@@ -167,12 +169,13 @@ def test_band_stage_within_one(rng, alg, size, pad):
 
 def test_combine_stage_on_identical_bands(rng):
     dn1, dn2 = _dn(rng, (600, 700)), _dn(rng, (600, 700), 4.2)
-    kw = dict(strategy=TAMED, target_size=160, pad=True, resample_alg="cubic")
+    kw = dict(strategy=J_TAMED, target_size=160, pad=True,
+              resample_alg="cubic")
     b1 = np.asarray(jf.synrgb_band_stage(dn1, copol=True, **kw))
     b2 = np.asarray(jf.synrgb_band_stage(dn2, copol=False, **kw))
     for order in ("rgb", "ycbcr", "dct"):
         want = np.asarray(jf.synrgb_combine_stage(
-            b1, b2, strategy=TAMED, suppressed=None, channel_order=order))
+            b1, b2, strategy=J_TAMED, suppressed=None, channel_order=order))
         got = tf.synrgb_combine_stage(
             _t(b1), _t(b2), strategy=TAMED, suppressed=None,
             channel_order=order).numpy()
@@ -186,7 +189,7 @@ def test_combine_stage_on_identical_bands(rng):
 def test_unported_routes_raise():
     """What the fused programs refuse: a channel order other than rgb, bgr,
     ycbcr and dct, and the JPEG front end on a u16 band."""
-    from sarpro_tpu.types import BitDepth
+    from sarpro_tpu_torch.types import BitDepth
 
     b = torch.zeros((8, 8), dtype=torch.uint8)
     with pytest.raises(ValueError, match="channel order"):

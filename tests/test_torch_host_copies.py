@@ -1,0 +1,359 @@
+"""The port's copies of the JAX package's host modules against the
+originals, on the CPU: the SAFE parser and file discovery, the raster
+reader, geodesy, the TIFF codec and writers, the world file, .prj and JSON
+sidecar, the CLI parser, chip_smoke.py's copy of the fixture SAFE writer,
+and the port's own build of the native codec.
+
+Everything is held exactly: equal fields, bit-equal arrays, byte-identical
+files. The one field that differs by nature is a parse's
+conversion_timestamp (the time of the parse); the files are written from
+metadata that carries one timestamp."""
+import dataclasses
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+pytest.importorskip("torch")
+
+import fixtures  # noqa: E402
+from oracle import decode_baseline_jpeg_coeffs  # noqa: E402
+from sarpro_tpu import cli as jcli  # noqa: E402
+from sarpro_tpu.io import geodesy as jgeo  # noqa: E402
+from sarpro_tpu.io import raster as jraster  # noqa: E402
+from sarpro_tpu.io import safe as jsafe  # noqa: E402
+from sarpro_tpu.io import tiffio as jtiff  # noqa: E402
+from sarpro_tpu.io.writers import metadata as jmeta  # noqa: E402
+from sarpro_tpu.io.writers import tiff as jwtiff  # noqa: E402
+from sarpro_tpu.io.writers import worldfile as jworld  # noqa: E402
+from sarpro_tpu_torch import _native as t_native  # noqa: E402
+from sarpro_tpu_torch import cli as tcli  # noqa: E402
+from sarpro_tpu_torch.io import geodesy as tgeo  # noqa: E402
+from sarpro_tpu_torch.io import raster as traster  # noqa: E402
+from sarpro_tpu_torch.io import safe as tsafe  # noqa: E402
+from sarpro_tpu_torch.io import tiffio as ttiff  # noqa: E402
+from sarpro_tpu_torch.io.writers import metadata as tmeta  # noqa: E402
+from sarpro_tpu_torch.io.writers import tiff as twtiff  # noqa: E402
+from sarpro_tpu_torch.io.writers import worldfile as tworld  # noqa: E402
+
+REPO = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(REPO))
+import chip_smoke  # noqa: E402
+
+SOURCES = {
+    "gcp": {},
+    "affine": {"with_affine_geotransform": True},
+    "geolocation_grid": {"tiff_gcps": False, "with_geolocation_grid": True},
+}
+
+
+@pytest.fixture(scope="module")
+def safes(tmp_path_factory):
+    return {name: fixtures.make_safe(tmp_path_factory.mktemp(name),
+                                     shape=(60, 80), **kw)
+            for name, kw in SOURCES.items()}
+
+
+def _same_value(a, b):
+    if isinstance(a, np.ndarray) or isinstance(b, np.ndarray):
+        return (isinstance(a, np.ndarray) and isinstance(b, np.ndarray)
+                and a.dtype == b.dtype and np.array_equal(a, b))
+    return type(a) is type(b) and a == b
+
+
+def _fields_equal(t, j, skip=()):
+    """Every dataclass field of the port's object equals the original's."""
+    names = [f.name for f in dataclasses.fields(j)]
+    assert [f.name for f in dataclasses.fields(t)] == names
+    for name in names:
+        if name not in skip:
+            assert _same_value(getattr(t, name), getattr(j, name)), name
+
+
+def _port_metadata(j):
+    """The port's SafeMetadata holding the original's values."""
+    return tsafe.SafeMetadata(**{f.name: getattr(j, f.name)
+                                 for f in dataclasses.fields(j)})
+
+
+# ---------------------------------------------------------------------------
+# the SAFE parser, file discovery and the raster reader
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("source", list(SOURCES))
+def test_parse_comprehensive_metadata_equal(safes, source):
+    t = tsafe.parse_comprehensive_metadata(safes[source])
+    j = jsafe.parse_comprehensive_metadata(safes[source])
+    _fields_equal(t, j, skip=("conversion_timestamp",))
+    assert t.conversion_version == j.conversion_version == "0.5.0"
+    assert t.conversion_timestamp.endswith("+00:00")
+
+
+@pytest.mark.parametrize("source", list(SOURCES))
+def test_identify_polarization_files_equal(safes, source):
+    meas = safes[source] / "measurement"
+    for available in (["VV", "VH"], ["HH"], []):
+        assert tsafe.identify_polarization_files(meas, available) == \
+            jsafe.identify_polarization_files(meas, available)
+
+
+def test_identify_polarization_files_infers_from_available(tmp_path):
+    """No polarization in the file name: both infer it the same way."""
+    (tmp_path / "scene.tiff").write_bytes(b"")
+    (tmp_path / "other.txt").write_bytes(b"")
+    for available in (["VV"], ["VH", "VV"], ["HH"], ["HV"]):
+        assert tsafe.identify_polarization_files(tmp_path, available) == \
+            jsafe.identify_polarization_files(tmp_path, available)
+
+
+@pytest.mark.parametrize("source", list(SOURCES))
+def test_raster_reader_equal(safes, source):
+    path = next((safes[source] / "measurement").glob("*-vv-*"))
+    t, j = traster.RasterReader(path), jraster.RasterReader(path)
+    try:
+        _fields_equal(t.metadata, j.metadata)
+        _fields_equal(t.geo, j.geo)
+        np.testing.assert_array_equal(t.read_band(1), j.read_band(1))
+        assert t.read_band(1).dtype == np.float32
+    finally:
+        t.close()
+        j.close()
+
+
+def test_parse_epsg_equal():
+    for wkt in ('PROJCS["x",AUTHORITY["EPSG","32632"]]', 'AUTHORITY["EPSG","',
+                'AUTHORITY["EPSG","x4"]', "", jgeo.epsg_to_wkt(4326)):
+        assert traster.parse_epsg(wkt) == jraster.parse_epsg(wkt)
+
+
+def test_raster_reader_refuses_a_non_tiff(tmp_path):
+    path = tmp_path / "scene.png"
+    path.write_bytes(b"\x89PNG\r\n\x1a\n")
+    with pytest.raises(tsafe.raster.RasterError, match="not a TIFF"):
+        traster.RasterReader(path)
+
+
+# ---------------------------------------------------------------------------
+# geodesy
+# ---------------------------------------------------------------------------
+def _crs(safe, target):
+    if target != "auto":
+        return target
+    crs = jgeo.resolve_auto_target_crs(safe)
+    assert tgeo.resolve_auto_target_crs(safe) == crs
+    return crs or "EPSG:32633"  # an affine product resolves to nothing
+
+
+@pytest.mark.parametrize("source", list(SOURCES))
+@pytest.mark.parametrize("target", ["auto", "EPSG:4326", "EPSG:3857"])
+def test_geodesy_bit_equal(safes, source, target):
+    crs = _crs(safes[source], target)
+    code = tgeo.parse_epsg_code(crs)
+    assert code == jgeo.parse_epsg_code(crs)
+    assert tgeo.epsg_kind(code) == jgeo.epsg_kind(code)
+    assert tgeo.epsg_to_wkt(code) == jgeo.epsg_to_wkt(code)
+    assert tgeo.unsupported_reason(code) == jgeo.unsupported_reason(code)
+    lon, lat = np.meshgrid(np.linspace(10.2, 11.9, 23),
+                           np.linspace(45.1, 46.8, 19))
+    fwd_t = tgeo.project_forward(lon, lat, code)
+    fwd_j = jgeo.project_forward(lon, lat, code)
+    for a, b in zip(fwd_t, fwd_j):
+        np.testing.assert_array_equal(a, b)
+    for a, b in zip(tgeo.project_inverse(*fwd_t, code),
+                    jgeo.project_inverse(*fwd_j, code)):
+        np.testing.assert_array_equal(a, b)
+    tgeo.refine_dynamic_crs_area(code, 11.0, 46.0)
+    jgeo.refine_dynamic_crs_area(code, 11.0, 46.0)
+    assert tgeo.epsg_kind(code) == jgeo.epsg_kind(code)
+
+
+def test_geodesy_tables_and_auto_zones_equal():
+    assert tgeo.SUPPORTED_CRS_FAMILIES == jgeo.SUPPORTED_CRS_FAMILIES
+    for lon, lat in ((11.0, 46.0), (-70.5, -33.4), (5.0, 60.5),
+                     (20.0, 78.0), (0.0, 89.0), (0.0, -89.0)):
+        assert tgeo.lonlat_to_epsg(lon, lat) == jgeo.lonlat_to_epsg(lon, lat)
+    for code in (999999, 32632, 4326):
+        assert tgeo.unsupported_reason(code) == jgeo.unsupported_reason(code)
+
+
+def test_thin_plate_spline_bit_equal(rng):
+    src = rng.random((25, 2)) * [400, 300]
+    dst = np.stack([11 + src[:, 0] / 1600, 46 - src[:, 1] / 1200], -1)
+    pts = rng.random((500, 2)) * [400, 300]
+    np.testing.assert_array_equal(tgeo.ThinPlateSpline2D(src, dst)(pts),
+                                  jgeo.ThinPlateSpline2D(src, dst)(pts))
+
+
+# ---------------------------------------------------------------------------
+# the TIFF codec and the writers
+# ---------------------------------------------------------------------------
+def _both(tmp_path, name):
+    (tmp_path / "t").mkdir(exist_ok=True)
+    (tmp_path / "j").mkdir(exist_ok=True)
+    return tmp_path / "t" / name, tmp_path / "j" / name
+
+
+WRITERS = {
+    "u8": ("write_tiff_u8", np.uint8, 1),
+    "u16": ("write_tiff_u16", np.uint16, 1),
+    "multiband u8": ("write_tiff_multiband_u8", np.uint8, 2),
+    "multiband u16": ("write_tiff_multiband_u16", np.uint16, 2),
+}
+
+
+@pytest.mark.parametrize("kind", list(WRITERS))
+@pytest.mark.parametrize("source", ["gcp", "affine"])
+def test_tiff_writers_byte_identical(safes, tmp_path, rng, kind, source):
+    name, dtype, n = WRITERS[kind]
+    meta_j = jsafe.parse_comprehensive_metadata(safes[source])
+    meta_t = _port_metadata(meta_j)
+    rows, cols = 37, 53
+    bands = [rng.integers(0, np.iinfo(dtype).max, (rows, cols)).astype(dtype)
+             for _ in range(n)]
+    gt = ([500000.0, 20.0, 0.0, 5100000.0, 0.0, -20.0]
+          if source == "affine" else None)
+    proj = jgeo.epsg_to_wkt(32632) if gt else None
+    t_out, j_out = _both(tmp_path, "out.tiff")
+    for mod, meta, out, md in ((twtiff, meta_t, t_out, tmeta),
+                               (jwtiff, meta_j, j_out, jmeta)):
+        ds = getattr(mod, name)(out, cols, rows, *bands)
+        md.embed_tiff_metadata(ds, meta, "VV", gt, proj)
+        ds.flush()
+    assert t_out.read_bytes() == j_out.read_bytes()
+    t, j = ttiff.TiffReader(t_out), jtiff.TiffReader(j_out)
+    try:
+        for i in range(1, n + 1):
+            np.testing.assert_array_equal(t.read(i), j.read(i))
+            np.testing.assert_array_equal(t.read(i), bands[i - 1])
+        _fields_equal(t.geo_info(), j.geo_info())
+        assert t.gdal_metadata() == j.gdal_metadata()
+    finally:
+        t.close()
+        j.close()
+
+
+@pytest.mark.parametrize("source", ["gcp", "affine", "geolocation_grid"])
+def test_jpeg_sidecars_byte_identical(safes, tmp_path, source):
+    meta_j = jsafe.parse_comprehensive_metadata(safes[source])
+    meta_t = _port_metadata(meta_j)
+    gt = [600000.0, 10.0, 0.0, 5200000.0, 0.0, -10.0]
+    proj = jgeo.epsg_to_wkt(32632)
+    t_out, j_out = _both(tmp_path, "out.jpg")
+    extras = [("synthetic_rgb_mode", "Default")]
+    for world, md, meta, out in ((tworld, tmeta, meta_t, t_out),
+                                 (jworld, jmeta, meta_j, j_out)):
+        world.write_world_file(out, gt)
+        world.write_prj_file(out, proj)
+        md.create_jpeg_metadata_sidecar_with_overrides_and_extras(
+            out, meta, "Multiband (VV+VH)", gt, proj, extras)
+    for ext in (".jgw", ".prj", ".json"):
+        assert t_out.with_suffix(ext).read_bytes() == \
+            j_out.with_suffix(ext).read_bytes(), ext
+
+
+# ---------------------------------------------------------------------------
+# the CLI parser
+# ---------------------------------------------------------------------------
+ARGVS = [args for _, _, args in chip_smoke.GRAY_RUNS] + [
+    ["-f", "jpeg", "--polarization", "multiband", "--autoscale", "tamed",
+     "--size", "2048", "--pad", "--target-crs", "auto", "--resample-alg",
+     "cubic"],
+    [],
+    ["--polarization", "log-ratio", "--synrgb-mode", "sar-urban", "--size",
+     "original", "--target-crs", "EPSG:4326"],
+]
+
+
+@pytest.mark.parametrize("argv", ARGVS, ids=[" ".join(a) or "defaults"
+                                             for a in ARGVS])
+def test_cli_params_equal(argv):
+    argv = ["-i", "X.SAFE", "-o", "out", "--fast"] + argv
+    t = tcli._params_from_args(tcli.build_parser().parse_args(argv))
+    j = jcli._params_from_args(jcli.build_parser().parse_args(argv))
+    assert t.to_dict() == j.to_dict()
+    assert t.to_json() == j.to_json()
+    assert type(t).__module__ == "sarpro_tpu_torch.params"
+
+
+def test_cli_version_and_errors_equal(capsys):
+    for mod in (tcli, jcli):
+        with pytest.raises(SystemExit):
+            mod.build_parser().parse_args(["--version"])
+    t, j = capsys.readouterr().out.splitlines()
+    assert t == j == "sarpro 0.5.0"
+    for size in ("0", "-3", "abc"):
+        args = ["-i", "x", "-o", "y", "--size", size]
+        with pytest.raises(Exception) as t_err:
+            tcli._params_from_args(tcli.build_parser().parse_args(args))
+        with pytest.raises(Exception) as j_err:
+            jcli._params_from_args(jcli.build_parser().parse_args(args))
+        assert type(t_err.value).__name__ == type(j_err.value).__name__
+        assert str(t_err.value) == str(j_err.value)
+
+
+# ---------------------------------------------------------------------------
+# chip_smoke.py's copy of the fixture SAFE writer
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("kw", [
+    {},
+    dict(name="S1A_EW_GRDM_1SDH_20250706T204346.SAFE", pols=("hh", "hv"),
+         seed=11, with_affine_geotransform=True),
+], ids=["gcp", "affine hh+hv"])
+def test_make_safe_copy_byte_identical(tmp_path, kw):
+    t = chip_smoke.make_safe(tmp_path / "t", shape=(41, 67), **kw)
+    j = fixtures.make_safe(tmp_path / "j", shape=(41, 67), **kw)
+    files = sorted(p.relative_to(j) for p in j.rglob("*") if p.is_file())
+    assert files == sorted(p.relative_to(t) for p in t.rglob("*")
+                           if p.is_file())
+    for rel in files:
+        assert (t / rel).read_bytes() == (j / rel).read_bytes(), rel
+
+
+# ---------------------------------------------------------------------------
+# the port's own build of the native codec
+# ---------------------------------------------------------------------------
+@pytest.fixture(scope="module")
+def codec():
+    if not t_native.available():
+        pytest.skip("g++ is not available to build the native codec")
+    return t_native
+
+
+def test_native_codec_builds_into_the_checkout(codec):
+    built = list(t_native.BUILD_DIR.glob("libsarpro_codec_*.so"))
+    assert built and all(p.parent == t_native.BUILD_DIR for p in built)
+    assert t_native.BUILD_DIR.is_relative_to(REPO)
+
+
+def test_native_box_reduce_matches_numpy(codec, rng):
+    src = rng.integers(0, 65536, (97, 130)).astype(np.uint16)
+    (ys, yc) = traster._average_windows(97, 20)
+    (xs, xc) = traster._average_windows(130, 31)
+    out = np.empty((20, 31), np.float32)
+    codec.box_reduce_u16(src, out, 0, 20, ys, yc, xs, xc)
+    want = np.array([[src[y:y + h, x:x + w].astype(np.float64).mean()
+                      for x, w in zip(xs, xc)] for y, h in zip(ys, yc)])
+    np.testing.assert_allclose(out, want, rtol=1e-6)
+
+
+@pytest.mark.parametrize("shape", [(24, 40), (72, 56)])
+def test_native_jpeg_holds_the_coefficients(codec, rng, shape):
+    """The entropy coder's output decodes to the blocks it was given (the
+    block layout of io/writers/jpeg: transposed 8x8 blocks, zigzag in the
+    file)."""
+    rows, cols = shape
+    n = (rows // 8) * (cols // 8)
+    blocks = rng.integers(-40, 41, (3, n, 8, 8)).astype(np.int16)
+    blob = codec.jpeg_encode_coeffs444(blocks[0], blocks[1], blocks[2], cols,
+                                       rows)
+    got, ncomp = decode_baseline_jpeg_coeffs(blob, n)
+    assert ncomp == 3
+    zz = chip_smoke._zigzag()
+    for m in range(n):
+        for c in range(3):
+            assert got[m * 3 + c] == [int(blocks[c, m][col, row])
+                                      for row, col in zz]
+    gray = codec.jpeg_encode_coeffs_gray(blocks[0], cols, rows)
+    got, ncomp = decode_baseline_jpeg_coeffs(gray, n)
+    assert ncomp == 1
+    assert got[0] == [int(blocks[0, 0][col, row]) for row, col in zz]

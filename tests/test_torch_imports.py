@@ -1,5 +1,6 @@
-"""The port runs without jax, Pillow or cv2: the machine with the GPU has
-none of them."""
+"""The port runs without jax, Pillow or cv2 (the machine with the GPU has
+none of them) and without the JAX package: it imports nothing of
+sarpro_tpu, whose host modules it keeps its own copies of."""
 import re
 import subprocess
 import sys
@@ -15,33 +16,43 @@ PORT = REPO / "sarpro_tpu_torch"
 
 
 def test_port_sources_import_no_jax_pillow_or_cv2():
+    """No jax, Pillow, cv2 or ml_dtypes, and nothing of the JAX package
+    (`sarpro_tpu` and `sarpro_tpu.*`; `sarpro_tpu_torch` is the port)."""
     pattern = re.compile(
-        r"^\s*(import|from)\s+(jax|jaxlib|PIL|cv2|ml_dtypes)\b", re.M)
+        r"^\s*(import|from)\s+((jax|jaxlib|PIL|cv2|ml_dtypes)\b"
+        r"|sarpro_tpu(\.|\s|$))", re.M)
     offenders = [str(p.relative_to(REPO)) for p in PORT.rglob("*.py")
                  if pattern.search(p.read_text())]
-    offenders += [m for m in ("chip_smoke.py",)
+    offenders += [m for m in ("chip_smoke.py", "kernel_ab.py")
                   if pattern.search((REPO / m).read_text())]
     assert offenders == []
+    for line in ("import sarpro_tpu", "from sarpro_tpu.io import safe",
+                 "  from sarpro_tpu import _native", "import jax.numpy"):
+        assert pattern.search(line), line
+    assert not pattern.search("from sarpro_tpu_torch.io import safe")
 
 
 def test_cpu_slice_runs_with_jax_and_pillow_blocked(tmp_path):
     script = textwrap.dedent("""
         import pkgutil, sys
-        for name in ("jax", "jaxlib", "PIL", "cv2", "ml_dtypes"):
+        for name in ("jax", "jaxlib", "PIL", "cv2", "ml_dtypes",
+                     "sarpro_tpu"):
             sys.modules[name] = None  # any import of them now fails
-        sys.path[:0] = [sys.argv[1], sys.argv[1] + "/tests"]
+        sys.path[:0] = [sys.argv[1]]
         from pathlib import Path
         import sarpro_tpu_torch
         for m in pkgutil.walk_packages(sarpro_tpu_torch.__path__,
                                        "sarpro_tpu_torch."):
             __import__(m.name)
-        import fixtures
+        import chip_smoke
         from sarpro_tpu_torch import cli
+        from sarpro_tpu_torch.io.tiffio import TiffReader
         from sarpro_tpu_torch.io.writers import jpeg
 
         got = []
         jpeg.write_synrgb_jpeg_dct = lambda o, c, r, co: got.append(co.shape)
-        safe = fixtures.make_safe(Path(sys.argv[2]), shape=(200, 300))
+        # the port's own copy of tests/fixtures.make_safe
+        safe = chip_smoke.make_safe(Path(sys.argv[2]), shape=(200, 300))
         rc = cli.run(["-i", str(safe), "-o", sys.argv[2] + "/o.jpg", "-f",
                       "jpeg", "--polarization", "multiband", "--autoscale",
                       "tamed", "--size", "64", "--pad", "--fast"],
@@ -55,10 +66,6 @@ def test_cpu_slice_runs_with_jax_and_pillow_blocked(tmp_path):
         assert rc == 0 and got[1:] == [(3, 8, 8, 8, 8)], (rc, got)
         prj = Path(sys.argv[2] + "/w.prj").read_text()
         assert "UTM zone 32N" in prj, prj
-        # the TIFF writers and the metadata embedding are shared, jax-free
-        import sarpro_tpu.io.writers.metadata
-        import sarpro_tpu.io.writers.tiff
-        from sarpro_tpu.io.tiffio import TiffReader
         jpeg.write_gray_jpeg_dct = lambda o, c, r, co: got.append(co.shape)
         for pol, fmt, extra in (("vv", "tiff", ["--bit-depth", "u16"]),
                                 ("multiband", "tiff", []),
@@ -71,6 +78,7 @@ def test_cpu_slice_runs_with_jax_and_pillow_blocked(tmp_path):
         assert TiffReader(sys.argv[2] + "/vv.tiff").read(1).dtype == "uint16"
         assert TiffReader(sys.argv[2] + "/multiband.tiff").samples == 2
         assert got[2:] == [(6, 8, 8, 8)], got
+        assert not [m for m in sys.modules if m.startswith("sarpro_tpu.")]
         print("ok")
     """)
     res = subprocess.run([sys.executable, "-c", script, str(REPO),

@@ -2,11 +2,13 @@
 against the JAX package's fused program on the same DN, and the sidecar
 files against the JAX package's own file route.
 
-The native entropy coder is not built in every test environment, so the
-coefficient blocks handed to the port's JPEG writer are captured and
-compared; the encoder itself is covered by tests/test_native.py.
+The native entropy coder is not built in every test environment (the port
+builds its own where g++ is present), so the coefficient blocks handed to
+the port's JPEG writer are captured and compared; the encoder itself is
+covered by tests/test_native.py and tests/test_torch_host_copies.py.
 """
 import json
+import re
 
 import jax.numpy as jnp
 import numpy as np
@@ -18,14 +20,20 @@ import fixtures  # noqa: E402
 from sarpro_tpu import api as japi  # noqa: E402
 from sarpro_tpu.cli import _params_from_args, build_parser  # noqa: E402
 from sarpro_tpu.core import fused as jf  # noqa: E402
-from sarpro_tpu.io.tiffio import TiffReader  # noqa: E402
-from sarpro_tpu.types import AutoscaleStrategy  # noqa: E402
+from sarpro_tpu.types import AutoscaleStrategy as JStrategy  # noqa: E402
 from sarpro_tpu_torch import api as tapi  # noqa: E402
 from sarpro_tpu_torch import cli as tcli  # noqa: E402
 from sarpro_tpu_torch.core import fused as tf  # noqa: E402
+from sarpro_tpu_torch.io.tiffio import TiffReader  # noqa: E402
 from sarpro_tpu_torch.io.writers import jpeg as tjpeg  # noqa: E402
+from sarpro_tpu_torch.types import AutoscaleStrategy  # noqa: E402
 
 TAMED = AutoscaleStrategy.TAMED
+
+
+def _j(strategy):
+    """The JAX package's strategy (each package takes its own enums)."""
+    return JStrategy(strategy.value)
 
 
 @pytest.fixture(scope="module")
@@ -56,6 +64,13 @@ def captured(monkeypatch):
     return calls
 
 
+def _unstamped(out):
+    """The JSON sidecar's bytes with the value of conversion_timestamp, the
+    time each package's write stamps, blanked."""
+    return re.sub(rb'"conversion_timestamp": "[^"]*"', b'""',
+                  out.with_suffix(".json").read_bytes())
+
+
 def _block_agree(rgb_a, rgb_b):
     """(bh, bw) mask of the 8x8 blocks whose pixels agree in every channel
     (edge-replicated like the encoder's partial blocks)."""
@@ -74,8 +89,10 @@ def test_cli_slice_matches_jax_program(scene, captured, tmp_path, size, alg):
     assert (cols, rows) == (size, size)
     assert coeffs.shape == (3, size // 8, size // 8, 8, 8)
 
-    kw = dict(strategy=TAMED, target_size=size, pad=True, resample_alg=alg)
-    jb = [np.asarray(jf.synrgb_band_stage(d, copol=c, **kw))
+    kw = dict(target_size=size, pad=True, resample_alg=alg)
+    jkw = dict(strategy=_j(TAMED), **kw)
+    kw["strategy"] = TAMED
+    jb = [np.asarray(jf.synrgb_band_stage(d, copol=c, **jkw))
           for d, c in ((vv, True), (vh, False))]
     tb = [tf.synrgb_band_stage(torch.from_numpy(d), copol=c, **kw)
           for d, c in ((vv, True), (vh, False))]
@@ -90,8 +107,8 @@ def test_cli_slice_matches_jax_program(scene, captured, tmp_path, size, alg):
     assert int(tf._suppressed_floor(thist, total)) == float(
         jf._suppressed_floor(jnp.asarray(jhist), total))
 
-    j_rgb = np.asarray(jf.synrgb_pipeline(vv, vh, channel_order="rgb", **kw))
-    j_dct = np.asarray(jf.synrgb_pipeline(vv, vh, channel_order="dct", **kw))
+    j_rgb = np.asarray(jf.synrgb_pipeline(vv, vh, channel_order="rgb", **jkw))
+    j_dct = np.asarray(jf.synrgb_pipeline(vv, vh, channel_order="dct", **jkw))
     t_rgb = tf.synrgb_pipeline(torch.from_numpy(vv), torch.from_numpy(vh),
                                channel_order="rgb", **kw).numpy()
     both = (jb[0] == tb[0].numpy()) & (jb[1] == tb[1].numpy())
@@ -122,7 +139,11 @@ def test_sidecars_match_jax_route(scene, captured, tmp_path):
     t_meta = json.loads(t_out.with_suffix(".json").read_text())
     j_meta = json.loads(j_out.with_suffix(".json").read_text())
     assert t_meta["geotransform"] == j_meta["geotransform"]
+    # every item but the time of the write, which each package stamps
+    assert t_meta.pop("conversion_timestamp") and j_meta.pop(
+        "conversion_timestamp")
     assert t_meta == j_meta
+    assert _unstamped(t_out) == _unstamped(j_out)
 
 
 CLAHE = AutoscaleStrategy.CLAHE
@@ -146,10 +167,10 @@ def _compare_bands_and_combine(jb, tb, strategy, size, coeffs):
     total = 2 * size * size
     assert int(tf._suppressed_floor(thist, total)) == float(
         jf._suppressed_floor(jnp.asarray(jhist), total))
-    j_rgb = np.asarray(jf.synrgb_combine_stage(jb[0], jb[1], strategy, None,
-                                               "rgb"))
-    j_dct = np.asarray(jf.synrgb_combine_stage(jb[0], jb[1], strategy, None,
-                                               "dct"))
+    j_rgb = np.asarray(jf.synrgb_combine_stage(jb[0], jb[1], _j(strategy),
+                                               None, "rgb"))
+    j_dct = np.asarray(jf.synrgb_combine_stage(jb[0], jb[1], _j(strategy),
+                                               None, "dct"))
     t_rgb = tf.synrgb_combine_stage(tb[0], tb[1], strategy, None,
                                     "rgb").numpy()
     both = (jb[0] == tb[0].numpy()) & (jb[1] == tb[1].numpy())
@@ -177,8 +198,9 @@ def test_cli_warp_path_matches_jax_route(scene, captured, tmp_path,
                                          strategy, alg):
     """The CLI with auto-UTM warp and pad, against the JAX package's file
     route and its band programs on the JAX reader's warped bands."""
-    from sarpro_tpu.io.safe import SafeReader, TargetCrsArg
-    from sarpro_tpu_torch.io.safe import open_dual_pol
+    from sarpro_tpu.io.safe import SafeReader
+    from sarpro_tpu.io.safe import TargetCrsArg as JTargetCrsArg
+    from sarpro_tpu_torch.io.safe import TargetCrsArg, open_dual_pol
 
     safe = scene[0]
     t_out, j_out = tmp_path / "t" / "out.jpg", tmp_path / "j" / "out.jpg"
@@ -190,18 +212,20 @@ def test_cli_warp_path_matches_jax_route(scene, captured, tmp_path,
     japi.process_safe_to_path(
         safe, j_out, _params(_warp_argv(safe, j_out, strategy, alg)),
         fast=True)
-    for ext in (".jgw", ".prj", ".json"):
+    for ext in (".jgw", ".prj"):
         assert t_out.with_suffix(ext).read_bytes() == \
             j_out.with_suffix(ext).read_bytes(), ext
+    assert _unstamped(t_out) == _unstamped(j_out)
     assert "UTM zone 32N" in t_out.with_suffix(".prj").read_text()
 
-    ref = SafeReader.open_with_options(safe, "all_pairs", TargetCrsArg.AUTO,
+    ref = SafeReader.open_with_options(safe, "all_pairs", JTargetCrsArg.AUTO,
                                        alg, 512)
     port = open_dual_pol(safe, "cpu", 512, target_crs=TargetCrsArg.AUTO,
                          resample_alg=alg)
     s = AutoscaleStrategy(strategy)
     kw = dict(strategy=s, target_size=512, pad=True, resample_alg=None)
-    jb = [np.asarray(jf.synrgb_band_stage(d, copol=c, **kw))
+    jb = [np.asarray(jf.synrgb_band_stage(d, copol=c, **{**kw,
+                                                          "strategy": _j(s)}))
           for d, c in ((ref._vv, True), (ref._vh, False))]
     tb = [tf.synrgb_band_stage(d, copol=c, **kw)
           for d, c in ((port.band1, True), (port.band2, False))]
@@ -216,7 +240,8 @@ def test_cli_clahe_no_warp_matches_jax_program(scene, captured, tmp_path):
     (_, cols, rows, coeffs), = captured
     assert (cols, rows) == (512, 512)
     kw = dict(strategy=CLAHE, target_size=512, pad=True, resample_alg="cubic")
-    jb = [np.asarray(jf.synrgb_band_stage(d, copol=c, **kw))
+    jb = [np.asarray(jf.synrgb_band_stage(d, copol=c,
+                                          **{**kw, "strategy": _j(CLAHE)}))
           for d, c in ((vv, True), (vh, False))]
     tb = [tf.synrgb_band_stage(torch.from_numpy(d), copol=c, **kw)
           for d, c in ((vv, True), (vh, False))]
@@ -225,6 +250,11 @@ def test_cli_clahe_no_warp_matches_jax_program(scene, captured, tmp_path):
 
 def _params(argv):
     return _params_from_args(build_parser().parse_args(argv))
+
+
+def _tparams(argv):
+    """The port's own params from the port's parser."""
+    return tcli._params_from_args(tcli.build_parser().parse_args(argv))
 
 
 @pytest.mark.parametrize("extra,kwargs", [
@@ -244,7 +274,7 @@ def test_unported_routes_raise(scene, tmp_path, monkeypatch, extra, kwargs):
     from sarpro_tpu_torch.core import fast_path
 
     monkeypatch.setattr(fast_path, "BIG_SCENE_PIXELS", 1200 * 1600 - 1)
-    params = _params(["--autoscale", "tamed", "--size", "64"] + extra)
+    params = _tparams(["--autoscale", "tamed", "--size", "64"] + extra)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tapi.process_safe_to_path(scene[0], tmp_path / "o.jpg", params,
                                   device="cpu", **kwargs)
@@ -259,8 +289,8 @@ def test_batch_mode_raises(tmp_path):
 def test_cuda_device_needs_cuda(scene, tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
-    params = _params(["-f", "jpeg", "--polarization", "multiband",
-                      "--autoscale", "tamed", "--size", "64"])
+    params = _tparams(["-f", "jpeg", "--polarization", "multiband",
+                       "--autoscale", "tamed", "--size", "64"])
     with pytest.raises(RuntimeError, match="CUDA"):
         tapi.process_safe_to_path(scene[0], tmp_path / "o.jpg", params,
                                   fast=True)
@@ -268,6 +298,6 @@ def test_cuda_device_needs_cuda(scene, tmp_path):
 
 def test_writer_needs_native_codec(monkeypatch, tmp_path):
     monkeypatch.setattr(tjpeg._native, "available", lambda: False)
-    with pytest.raises(RuntimeError, match="native/build.py"):
+    with pytest.raises(RuntimeError, match="native JPEG encoder"):
         tjpeg.write_synrgb_jpeg_dct(tmp_path / "o.jpg", 8, 8,
                                     np.zeros((3, 1, 1, 8, 8), np.int16))

@@ -11,10 +11,11 @@ from sarpro_tpu.core import fused as jfused  # noqa: E402
 from sarpro_tpu.core import resize as jresize  # noqa: E402
 from sarpro_tpu.core import save as jsave  # noqa: E402
 from sarpro_tpu.core import synthetic_rgb as jsyn  # noqa: E402
-from sarpro_tpu.io.safe import SafeMetadata  # noqa: E402
+from sarpro_tpu.io.safe import SafeMetadata as JSafeMetadata  # noqa: E402
 from sarpro_tpu_torch.core import fast_path as tfast  # noqa: E402
 from sarpro_tpu_torch.core import resize as tresize  # noqa: E402
 from sarpro_tpu_torch.core import synthetic_rgb as tsyn  # noqa: E402
+from sarpro_tpu_torch.io.safe import SafeMetadata  # noqa: E402
 
 _SIZES = (8, 13, 64, 100, 511, 1024, 4096)
 
@@ -83,14 +84,14 @@ def test_suppressed_tables_vs_in_graph_luts():
 @pytest.mark.parametrize("meta_kind", ["affine", "identity_no_proj", None])
 def test_rescale_geotransform_equal(case, meta_kind):
     if meta_kind == "affine":
-        meta = SafeMetadata(geotransform=[500000.0, 10.0, 0.0, 5100000.0, 0.0,
-                                          -10.0], projection="EPSG:32632")
+        kw = dict(geotransform=[500000.0, 10.0, 0.0, 5100000.0, 0.0, -10.0],
+                  projection="EPSG:32632")
     elif meta_kind == "identity_no_proj":
-        meta = SafeMetadata(geotransform=[0.0, 1.0, 0.0, 0.0, 0.0, 1.0],
-                            projection="")
-    else:
-        meta = None
-    args = (meta, case["cols"], case["rows"], case["final_cols"],
+        kw = dict(geotransform=[0.0, 1.0, 0.0, 0.0, 0.0, 1.0], projection="")
+    # each package takes its own metadata class
+    metas = ((SafeMetadata(**kw), JSafeMetadata(**kw)) if meta_kind
+             else (None, None))
+    args = (case["cols"], case["rows"], case["final_cols"],
             case["final_rows"], case["pad_left"], case["pad_top"], 1.0, 1.0)
-    assert tfast._rescale_geotransform(*args) == \
-        jsave._rescale_geotransform(*args)
+    assert tfast._rescale_geotransform(metas[0], *args) == \
+        jsave._rescale_geotransform(metas[1], *args)

@@ -18,25 +18,37 @@ import pytest
 torch = pytest.importorskip("torch")
 
 import fixtures  # noqa: E402
-from sarpro_tpu import _native  # noqa: E402
+from sarpro_tpu import _native as j_native  # noqa: E402
 from sarpro_tpu.io import geodesy  # noqa: E402
 from sarpro_tpu.io import raster as jraster  # noqa: E402
 from sarpro_tpu.io import warp as jw  # noqa: E402
-from sarpro_tpu.io.raster import RasterReader  # noqa: E402
 from sarpro_tpu.io.safe import (  # noqa: E402
     SafeReader,
-    TargetCrsArg,
+    TargetCrsArg as JTargetCrsArg,
     parse_comprehensive_metadata,
 )
 from sarpro_tpu.ops import kernels as JK  # noqa: E402
 from sarpro_tpu.ops import warp_kernel as JWK  # noqa: E402
+from sarpro_tpu_torch import _native as t_native  # noqa: E402
 from sarpro_tpu_torch import ops  # noqa: E402
 from sarpro_tpu_torch.io import raster as traster  # noqa: E402
 from sarpro_tpu_torch.io import warp as tw  # noqa: E402
-from sarpro_tpu_torch.io.safe import open_dual_pol  # noqa: E402
+from sarpro_tpu_torch.io.safe import TargetCrsArg, open_dual_pol  # noqa: E402
 
 METHODS = ("near", "bilinear", "cubic")
 RESAMPLE_TOL = dict(rtol=2e-6, atol=2e-2)  # tests/test_torch_kernels.py
+
+
+def _readers(path):
+    """The port's reader and the JAX package's of one raster (each package
+    reads with its own)."""
+    return traster.RasterReader(path), jraster.RasterReader(path)
+
+
+def _no_native(monkeypatch):
+    """Both packages without their native codec: the device route."""
+    for mod in (j_native, t_native):
+        monkeypatch.setattr(mod, "available", lambda: False)
 
 
 def _xla(src, mx, my, rows, cols, method):
@@ -218,12 +230,13 @@ def test_plan_copies_equal_jax_package(safes, source, target, size, alg):
     safe = safes[source]
     crs = _resolve(safe, target)
     grid = parse_comprehensive_metadata(safe).geolocation_grid
-    reader = RasterReader(_measurement(safe))
+    treader, jreader = _readers(_measurement(safe))
     try:
-        tp = tw.plan_warp(reader, crs, alg, size, grid)
-        jp = jw.plan_warp(reader, crs, alg, size, grid)
+        tp = tw.plan_warp(treader, crs, alg, size, grid)
+        jp = jw.plan_warp(jreader, crs, alg, size, grid)
     finally:
-        reader.close()
+        treader.close()
+        jreader.close()
     _plans_equal(tp, jp)
     cols, rows = np.meshgrid(np.arange(0, tp.out_cols, 7.0),
                              np.arange(0, tp.out_rows, 5.0))
@@ -250,17 +263,19 @@ def test_plan_copies_equal_jax_package(safes, source, target, size, alg):
 def test_resample_name_and_unsupported_crs_equal(safes):
     for alg in (None, "nearest", "near", "bilinear", "cubic", "lanczos", "x"):
         assert tw._resample_name(alg) == jw._resample_name(alg)
-    reader = RasterReader(_measurement(safes["gcp"]))
+    treader, jreader = _readers(_measurement(safes["gcp"]))
     try:
         for crs in ("EPSG:999999", "not-a-crs"):
             with pytest.raises(Exception) as t_err:
-                tw.plan_warp(reader, crs)
+                tw.plan_warp(treader, crs)
             with pytest.raises(Exception) as j_err:
-                jw.plan_warp(reader, crs)
-            assert type(t_err.value) is type(j_err.value)
+                jw.plan_warp(jreader, crs)
+            # each package raises its own copy of the error class
+            assert type(t_err.value).__name__ == type(j_err.value).__name__
             assert str(t_err.value) == str(j_err.value)
     finally:
-        reader.close()
+        treader.close()
+        jreader.close()
 
 
 def test_two_stage_plan_nan_nodes_equal():
@@ -303,34 +318,37 @@ def test_decimated_read_device_route_equals_jax(safes, monkeypatch, out_cols,
     """Without the native reducer (or, at 400 x 300, without a reduction)
     the band is read whole and resampled on the device with the same
     'average' windows as the JAX package's resample_plane."""
-    monkeypatch.setattr(_native, "available", lambda: False)
-    reader = RasterReader(_measurement(safes["gcp"]))
+    _no_native(monkeypatch)
+    treader, jreader = _readers(_measurement(safes["gcp"]))
     try:
         before = dict(traster.ROUTES)
         got = traster.read_band_resampled_to_device(
-            reader, 1, out_cols, out_rows, "cpu", "average")
-        want = reader.read_band_resampled(1, out_cols, out_rows, "average")
+            treader, 1, out_cols, out_rows, "cpu", "average")
+        want = jreader.read_band_resampled(1, out_cols, out_rows, "average")
     finally:
-        reader.close()
+        treader.close()
+        jreader.close()
     assert traster.ROUTES["device_resample"] == before["device_resample"] + 1
     assert got.dtype == torch.float32 and got.shape == (out_rows, out_cols)
     np.testing.assert_allclose(got.numpy(), want, **RESAMPLE_TOL)
 
 
 def test_decimated_read_host_route_equals_jax(safes):
-    """The native route (built where `python native/build.py` has run; the
-    card's run exercises it in chip_smoke.py): the same box reducer over
-    the same windows, chunk by chunk, gives the JAX package's plane."""
-    if not _native.available():
+    """The native route (the JAX package's where `python native/build.py`
+    has run, the port's own where g++ builds it; the card's run exercises
+    it in chip_smoke.py): the same box reducer over the same windows, chunk
+    by chunk, gives the JAX package's plane."""
+    if not (j_native.available() and t_native.available()):
         pytest.skip("the native box reducer is not built here")
-    reader = RasterReader(_measurement(safes["gcp"]))
+    treader, jreader = _readers(_measurement(safes["gcp"]))
     try:
         before = dict(traster.ROUTES)
         got = traster.read_band_resampled_to_device(
-            reader, 1, 101, 77, "cpu", "average", chunk_out_rows=20)
-        want = reader.read_band_resampled(1, 101, 77, "average")
+            treader, 1, 101, 77, "cpu", "average", chunk_out_rows=20)
+        want = jreader.read_band_resampled(1, 101, 77, "average")
     finally:
-        reader.close()
+        treader.close()
+        jreader.close()
     assert traster.ROUTES["host_reduce"] == before["host_reduce"] + 1
     np.testing.assert_array_equal(got.numpy(), want)
 
@@ -343,16 +361,17 @@ def test_warp_to_crs_matches_jax(safes, monkeypatch, size):
     """A two-stage warp (128) and a warp at about the source scale without
     the pre-reduce (None): same grid, geotransform and CRS; the samples
     agree to the coordinate rounding times the speckle's gradient."""
-    monkeypatch.setattr(_native, "available", lambda: False)
+    _no_native(monkeypatch)
     safe = safes["gcp"]
     grid = parse_comprehensive_metadata(safe).geolocation_grid
-    reader = RasterReader(_measurement(safe))
+    treader, jreader = _readers(_measurement(safe))
     try:
-        got = tw.warp_to_crs(reader, "EPSG:32632", "cpu", "bilinear", size,
+        got = tw.warp_to_crs(treader, "EPSG:32632", "cpu", "bilinear", size,
                              grid)
-        want = jw.warp_to_crs(reader, "EPSG:32632", "bilinear", size, grid)
+        want = jw.warp_to_crs(jreader, "EPSG:32632", "bilinear", size, grid)
     finally:
-        reader.close()
+        treader.close()
+        jreader.close()
     assert got.geotransform == want.geotransform
     assert (got.projection, got.epsg) == (want.projection, want.epsg)
     g, w = got.data.numpy(), np.asarray(want.data)
@@ -379,11 +398,11 @@ def test_skip_warp_guard_loads_full_resolution(safes):
 
 
 def test_reader_warp_branch_metadata_equals_jax(safes, monkeypatch):
-    monkeypatch.setattr(_native, "available", lambda: False)
+    _no_native(monkeypatch)
     safe = safes["geolocation_grid"]
     scene = open_dual_pol(safe, "cpu", 128, target_crs=TargetCrsArg.AUTO,
                           resample_alg="cubic")
-    ref = SafeReader.open_with_options(safe, "all_pairs", TargetCrsArg.AUTO,
+    ref = SafeReader.open_with_options(safe, "all_pairs", JTargetCrsArg.AUTO,
                                        "cubic", 128)
     assert scene.band1.dtype == torch.float32
     assert scene.band1.shape == np.asarray(ref._vv).shape
