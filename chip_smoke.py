@@ -178,9 +178,8 @@ def device_ms(fn, reps: int = 20) -> float:
     return start.elapsed_time(end) / reps
 
 
-# peak rates of the card (on-chip-measurement and hopper-kernels guides:
-# NVIDIA's data sheets, SXM parts): device memory bytes/s, and f32
-# operations/s outside the tensor cores
+# peak rates of the card (NVIDIA's data sheets, SXM parts): device
+# memory bytes/s, and f32 operations/s outside the tensor cores
 RATES = {"H200": (4.8e12, 67e12), "H100": (3.35e12, 67e12)}
 
 
