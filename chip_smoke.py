@@ -12,11 +12,15 @@ prints no result):
      the same time;
   3. kernels: each kernel against its plain PyTorch version on the card, at
      the shapes the slice gives it (the CLAHE kernels also at the 100 MP
-     full-resolution route's; resample and warp also at edge shapes, with
-     the warp's share of tiles on each branch), with the device times of
-     both (device_ms, cross-checked by torch.profiler), the bound (bytes
-     over the memory rate or operations over the f32 rate) and, where one
-     PyTorch call computes the same function, that call's time;
+     full-resolution route's, on a 100 MP band of one bin and a ragged
+     9999 x 10001, and at CLAHE_EDGES: widths of every residue mod 4, base
+     pointers off 16 bytes, bands under 8 pixels a side, row offsets, one
+     bin, all masked, bins out of range; resample and warp also at edge
+     shapes, with the warp's share of tiles on each branch), with the
+     device times of both (device_ms, cross-checked by torch.profiler), the
+     bound (bytes over the memory rate or operations over the f32 rate)
+     and, where one PyTorch call computes the same function, that call's
+     time (the 100 MP lookup also beside a device copy of its bytes);
   4. slice: a 20000 x 20000 dual-pol SAFE (make_safe below, random DN from
      a seed) through the port's CLI to 2048 synRGB JPEGs: CLAHE with
      auto-UTM warp, pad and cubic (cold, then warm), Tamed with the same
@@ -499,19 +503,96 @@ def _kernels_resample(dev, g, record, results):
     torch.cuda.empty_cache()
 
 
+def _clahe_bins(dev, g, n, kind="sar"):
+    """(n,) int32 CLAHE bins: SAR-like (crowding the middle of the 256, 2 %
+    masked), one bin throughout (a flat or all-water band), all masked, or
+    wild (negative and above n_bins among them)."""
+    import torch
+
+    if kind == "sar":
+        bins = (torch.randn(n, device=dev, generator=g) * 40 + 128).clamp(
+            0, 255).to(torch.int32)
+        bins[torch.rand(n, device=dev, generator=g) < 0.02] = 256
+        return bins
+    if kind == "wild":
+        return torch.randint(-300, 600, (n,), device=dev, generator=g,
+                             dtype=torch.int32)
+    return torch.full((n,), 128 if kind == "one" else 256, device=dev,
+                      dtype=torch.int32)
+
+
+# edge shapes of the CLAHE kernels: (what, rows, cols, bins, row_offset);
+# with a row_offset the band is a chunk that starts `row_offset` rows into a
+# larger one, so its base pointer lies cols * row_offset elements past the
+# allocation's (not 16-byte aligned where that is not a multiple of 4)
+CLAHE_EDGES = (
+    ("cols % 4 == 3", 2048, 2047, "sar", 0),
+    ("cols % 4 == 1", 600, 10001, "sar", 0),
+    ("cols % 4 == 2", 700, 10002, "sar", 0),
+    ("base 12 bytes past 16-byte alignment", 1001, 2047, "sar", 1),
+    ("base 8 bytes past 16-byte alignment", 999, 2046, "sar", 1),
+    ("rows < 8", 5, 1000, "sar", 0),
+    ("cols < 8", 1000, 7, "sar", 0),
+    ("3 x 3: tile_h = tile_w = 1, clamps", 3, 3, "sar", 0),
+    ("1 x 1", 1, 1, "sar", 0),
+    ("strips crossing tile rows (row_offset 37)", 2000, 2000, "sar", 37),
+    ("one bin throughout", 2048, 2048, "one", 0),
+    ("all masked", 2048, 2048, "masked", 0),
+    ("bins negative and above n_bins", 1024, 1023, "wild", 0),
+    ("row_offset 3, odd cols", 1200, 1001, "sar", 3),
+    ("row_offset half the rows", 1024, 2048, "sar", 1024),
+)
+
+
+def _clahe_edge(dev, g, what, rows, cols, kind, off):
+    """Both CLAHE kernels bit-equal to their plain versions on one edge
+    shape, tiled as the grayscale program tiles a band of rows + off rows."""
+    from sarpro_tpu_torch.core import clahe, fused
+    from sarpro_tpu_torch.ops import kernels
+
+    full = _clahe_bins(dev, g, (rows + off) * cols, kind)
+    bins = full[off * cols:]
+    th, tw = -(-(rows + off) // clahe.TILES_Y), -(-cols // clahe.TILES_X)
+    grid = (cols, clahe.TILES_X, clahe.TILES_Y, th, tw)
+    hist = kernels._tile_histogram_plain(bins, *grid, off, 256)
+    _check_equal(kernels.tile_histogram(bins, *grid, row_offset=off), hist,
+                 f"tile_histogram edge: {what}")
+    cdfs = fused._clahe_cdfs(hist, rows + off, cols, th, tw)
+    _check_equal(kernels.clahe_lookup(bins, cdfs, *grid, row_offset=off),
+                 kernels._clahe_lookup_plain(bins, cdfs, *grid, off),
+                 f"clahe_lookup edge: {what}")
+    log(f"clahe edge: {what} ({rows} x {cols}, {th} x {tw} tiles, base "
+        f"{bins.data_ptr() % 16} bytes past 16): both bit-equal")
+
+
 def _kernels_clahe(dev, g, record, results):
-    """tile_histogram and clahe_lookup at the slice's 2048^2 band: SAR-like
-    bins crowding the middle of the 256, 2 % masked; then at the 100 MP
-    full-resolution route's 10000^2."""
+    """tile_histogram and clahe_lookup at the edge shapes, at the slice's
+    2048^2 band (SAR-like bins), then at the 100 MP full-resolution route's
+    10000^2, a band of one bin there, and a ragged 9999 x 10001."""
     import torch
 
     from sarpro_tpu_torch.core import clahe, fused
     from sarpro_tpu_torch.ops import kernels
 
+    for edge in CLAHE_EDGES:
+        _clahe_edge(dev, g, *edge)
+    # 4096 bins on a 2 x 2 grid: the tile histogram's 64 KB table (above
+    # the 48 KB default) and the lookup's CDFs read from device memory
+    nb, rows, cols = 4096, 1000, 999
+    bins = torch.randint(-5, nb + 5, (rows * cols,), device=dev, generator=g,
+                         dtype=torch.int32)
+    grid = (cols, 2, 2, 500, 500)
+    _check_equal(kernels.tile_histogram(bins, *grid, n_bins=nb),
+                 kernels._tile_histogram_plain(bins, *grid, 0, nb),
+                 "tile_histogram edge: 4096 bins")
+    cdfs = torch.rand((4, nb), device=dev, generator=g)
+    _check_equal(kernels.clahe_lookup(bins, cdfs, *grid),
+                 kernels._clahe_lookup_plain(bins, cdfs, *grid, 0),
+                 "clahe_lookup edge: 4096 bins")
+    log(f"clahe edge: {nb} bins, 2 x 2 tiles of {rows} x {cols}: both "
+        "bit-equal")
     n, tile = SIZE * SIZE, -(-SIZE // clahe.TILES_Y)
-    bins = (torch.randn(n, device=dev, generator=g) * 40 + 128).clamp(
-        0, 255).to(torch.int32)
-    bins[torch.rand(n, device=dev, generator=g) < 0.02] = clahe.CLAHE_BINS
+    bins = _clahe_bins(dev, g, n)
     grid = (SIZE, 8, 8, tile, tile)
     got = kernels.tile_histogram(bins, *grid)
     want = kernels._tile_histogram_plain(bins, *grid, 0, 256)
@@ -541,6 +622,9 @@ def _kernels_clahe(dev, g, record, results):
     _check_equal(kernels.clahe_lookup(bins[half:], cdfs, *grid,
                                       row_offset=SIZE // 2),
                  got[half:], "clahe_lookup with row_offset")
+    _check_equal(kernels.clahe_lookup(bins[half:], cdfs, *grid, row_offset=3),
+                 kernels._clahe_lookup_plain(bins[half:], cdfs, *grid, 3),
+                 "clahe_lookup row_offset=3")
     log(f"clahe_lookup over {n}: bit-equal")
     record("clahe_lookup", 0)
     # a pixel's work: 4 CDF reads, 3 blends of 3 operations, the mask
@@ -549,31 +633,45 @@ def _kernels_clahe(dev, g, record, results):
                 lambda: kernels._clahe_lookup_plain(bins, cdfs, *grid, 0),
                 nbytes(bins, cdfs, got), 10 * n, main=True)
 
-    # the full-resolution route's geometry: a 10000^2 band, 1250-row tiles
-    n, tile = EW_SIDE * EW_SIDE, -(-EW_SIDE // clahe.TILES_Y)
-    bins = (torch.randn(n, device=dev, generator=g) * 40 + 128).clamp(
-        0, 255).to(torch.int32)
-    bins[torch.rand(n, device=dev, generator=g) < 0.02] = clahe.CLAHE_BINS
-    grid = (EW_SIDE, 8, 8, tile, tile)
-    hist = kernels.tile_histogram(bins, *grid)
-    _check_equal(hist, kernels._tile_histogram_plain(bins, *grid, 0, 256),
-                 f"tile_histogram {EW_SIDE}^2")
-    cdfs = fused._clahe_cdfs(hist, EW_SIDE, EW_SIDE, tile, tile)
-    got = kernels.clahe_lookup(bins, cdfs, *grid)
-    _check_equal(got, kernels._clahe_lookup_plain(bins, cdfs, *grid, 0),
-                 f"clahe_lookup {EW_SIDE}^2")
-    log(f"tile_histogram and clahe_lookup over {n} ({tile}-pixel tiles): "
-        "bit-equal")
-    time_kernel(results, "tile_histogram", f"8 x 8 x 256 over {n}",
-                lambda: kernels.tile_histogram(bins, *grid),
-                lambda: kernels._tile_histogram_plain(bins, *grid, 0, 256),
-                nbytes(bins, hist), n)
-    time_kernel(results, "clahe_lookup", f"{n} px",
-                lambda: kernels.clahe_lookup(bins, cdfs, *grid),
-                lambda: kernels._clahe_lookup_plain(bins, cdfs, *grid, 0),
-                nbytes(bins, cdfs, got), 10 * n)
-    del bins, hist, got
-    torch.cuda.empty_cache()
+    # the full-resolution route's geometry: a 10000^2 band, 1250-row tiles;
+    # then one bin throughout, and a ragged shape (rows not 16-byte aligned)
+    del bins, got, want
+    for rows, cols, kind in ((EW_SIDE, EW_SIDE, "sar"),
+                             (EW_SIDE, EW_SIDE, "one"),
+                             (EW_SIDE - 1, EW_SIDE + 1, "sar")):
+        n = rows * cols
+        th, tw = -(-rows // clahe.TILES_Y), -(-cols // clahe.TILES_X)
+        bins = _clahe_bins(dev, g, n, kind)
+        grid = (cols, 8, 8, th, tw)
+        hist = kernels.tile_histogram(bins, *grid)
+        _check_equal(hist, kernels._tile_histogram_plain(bins, *grid, 0, 256),
+                     f"tile_histogram {rows} x {cols} {kind}")
+        cdfs = fused._clahe_cdfs(hist, rows, cols, th, tw)
+        got = kernels.clahe_lookup(bins, cdfs, *grid)
+        _check_equal(got, kernels._clahe_lookup_plain(bins, cdfs, *grid, 0),
+                     f"clahe_lookup {rows} x {cols} {kind}")
+        what = f"{rows} x {cols}" + (", one bin" if kind == "one" else "")
+        log(f"tile_histogram and clahe_lookup over {what} ({th} x {tw} "
+            "tiles): bit-equal")
+        time_kernel(results, "tile_histogram", f"8 x 8 x 256 over {what}",
+                    lambda: kernels.tile_histogram(bins, *grid),
+                    lambda: kernels._tile_histogram_plain(bins, *grid, 0,
+                                                          256),
+                    nbytes(bins, hist), n)
+        if kind == "sar":  # the lookup's work does not depend on the bins
+            time_kernel(results, "clahe_lookup", f"{what} px",
+                        lambda: kernels.clahe_lookup(bins, cdfs, *grid),
+                        lambda: kernels._clahe_lookup_plain(bins, cdfs, *grid,
+                                                            0),
+                        nbytes(bins, cdfs, got), 10 * n)
+        if (rows, kind) == (EW_SIDE, "sar"):
+            dst = torch.empty_like(got)
+            log(f"time: yardstick, a device copy of the lookup's "
+                f"{nbytes(bins, got) / 1e6:.1f} MB (its input read, its output "
+                f"written): {device_ms(lambda: dst.copy_(got)):.4f} ms")
+            del dst
+        del bins, hist, got
+        torch.cuda.empty_cache()
 
 
 def warp_grid(side_src: int, side_out: int, angle_deg: float = 12.0,

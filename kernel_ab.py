@@ -16,10 +16,14 @@ same inputs made on the device from seed 0:
   * the device stages of two routes: no warp (Tamed band stages of two
     u16 20000^2 bands with the cubic filter, then the combine) and auto-UTM
     (two cubic warps of 2380^2 bands to 2048^2, the CLAHE band stages, the
-    combine), each stage and the whole route.
+    combine), each stage and the whole route;
+  * the CLAHE kernels (tile_histogram, clahe_lookup) on SAR-like bins at
+    2048^2 and 10000^2, and the grayscale CLAHE program of the 100 MP route
+    (fused.grayscale_pipeline, u8) on a resident 10000^2 u16 band.
 Every time is chip_smoke.device_ms's: one CUDA event pair around 20 calls
-queued behind a spin kernel, over 20, so the host's launch gaps between
-the stages' many small kernels are not counted.
+(5 for the grayscale program) queued behind a spin kernel, over their
+count, so the host's launch gaps between the stages' many small kernels are
+not counted.
 Prints each child's numbers, then one JSON line of all runs.
 """
 from __future__ import annotations
@@ -51,7 +55,7 @@ def measure(tree: Path) -> dict:
     from sarpro_tpu_torch.core import fused
     from sarpro_tpu_torch.core.numerics import as_u16
     from sarpro_tpu_torch.io import warp
-    from sarpro_tpu_torch.ops import _cuda, resample_kernel, warp_kernel
+    from sarpro_tpu_torch.ops import _cuda, kernels, resample_kernel, warp_kernel
 
     if not torch.cuda.is_available():
         raise SystemExit("kernel_ab: CUDA is not available")
@@ -109,6 +113,26 @@ def measure(tree: Path) -> dict:
     route("auto-UTM clahe", lambda: [
         warp_kernel.warp_sample(s, gx, gy, size, size, "cubic")
         for s in srcs], fused.AutoscaleStrategy.CLAHE, None)
+    del dn, srcs
+
+    for side in (size, cs.EW_SIDE):
+        tile = -(-side // 8)
+        bins = cs._clahe_bins(dev, g, side * side)
+        grid = (side, 8, 8, tile, tile)
+        cdfs = fused._clahe_cdfs(kernels.tile_histogram(bins, *grid), side,
+                                 side, tile, tile)
+        res[f"tile_histogram {side}^2"] = cs.device_ms(
+            lambda: kernels.tile_histogram(bins, *grid))
+        res[f"clahe_lookup {side}^2"] = cs.device_ms(
+            lambda: kernels.clahe_lookup(bins, cdfs, *grid))
+        del bins
+    ew = cs.EW_SIDE
+    band = as_u16(torch.exp(torch.randn((ew, ew), device=dev, generator=g)
+                            * 1.1 + 5.0).clamp(0, 65535))
+    res[f"grayscale CLAHE program {ew}^2"] = cs.device_ms(
+        lambda: fused.grayscale_pipeline(
+            band, strategy=fused.AutoscaleStrategy.CLAHE,
+            bit_depth=fused.BitDepth.U8), reps=5)
     return res
 
 

@@ -2,10 +2,12 @@
 version (port of sarpro_tpu/ops).
 
   * histogram: shared-memory atomics (csrc/histogram.cu);
-  * tile_histogram: the CLAHE per-tile counts, shared-memory atomics over
-    the tile rows a block's pixels touch (csrc/tile_histogram.cu);
-  * clahe_lookup: the CLAHE bilinear CDF blend, one thread per pixel
-    (csrc/clahe_lookup.cu);
+  * tile_histogram: the CLAHE per-tile counts, a block's strip of rows and
+    segment of columns (at most 2 x 2 tiles) counted with shared-memory
+    atomics (csrc/tile_histogram.cu);
+  * clahe_lookup: the CLAHE bilinear CDF blend, a block's row and column
+    terms computed once and the four CDF values of each bin packed into one
+    shared-memory entry (csrc/clahe_lookup.cu);
   * band_resample_axis0: a group of output rows' source rows staged once
     in shared memory as f32, the tap loop read from there
     (csrc/resample.cu);

@@ -4,8 +4,8 @@ The kernels are CUDA C++ for Hopper (sm_90a) with a plain C interface.
 At first use each source compiles with its own nvcc, all at once, and the
 objects link into one shared library under `build/sarpro_tpu_torch/` (below
 the checkout root) that ctypes loads. The library's file name carries a
-hash of the sources and flags, so an edited source rebuilds and an
-unchanged one loads at once.
+hash of the sources, their headers (*.cuh) and the flags, so an edited
+source rebuilds and an unchanged one loads at once.
 
 Launch counts live here: each wrapper adds one to its count where it
 launches its kernel, and nowhere else, so a run can show which kernels its
@@ -141,7 +141,7 @@ def library() -> ctypes.CDLL:
         return _LIB
     sources = sorted(CSRC.glob("*.cu"))
     digest = hashlib.sha256(" ".join(NVCC_FLAGS + NVCC_LINK_FLAGS).encode())
-    for src in sources:
+    for src in sorted(CSRC.glob("*.cu*")):  # the headers too
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     so = BUILD_DIR / f"libsarpro_kernels_{digest.hexdigest()[:16]}.so"

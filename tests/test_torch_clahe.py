@@ -161,6 +161,58 @@ def test_clahe_lookup_matches_pallas_interpret(rng, rows, cols, tile_h,
     np.testing.assert_allclose(got, want, atol=2e-5)
 
 
+# geometries the CUDA kernels branch on (rows, cols, row_offset, bins): row
+# widths of each residue mod 4 (rows that do not start on 16 bytes), bands
+# under 8 pixels a side (1-pixel tiles, where the clamps act), odd row
+# offsets, a band of one bin (a warp's single-atomic path) and an all-masked
+# band; the kernels themselves are held to these on the card (chip_smoke.py)
+EDGE_CASES = [
+    (40, 45, 0, "sar"),
+    (40, 46, 3, "sar"),
+    (40, 47, 0, "sar"),
+    (5, 64, 0, "sar"),
+    (64, 7, 1, "sar"),
+    (3, 3, 0, "sar"),
+    (48, 52, 0, "one"),
+    (48, 52, 5, "masked"),
+]
+
+
+def _edge_bins(rng, n, kind):
+    if kind == "one":
+        return np.full(n, 128, np.int32)
+    if kind == "masked":
+        return np.full(n, 256, np.int32)
+    return _bins(rng, n)
+
+
+def _edge_grid(rows, cols, off):
+    """The grayscale program's tiling of a band of rows + off rows."""
+    return (cols, 8, 8, -(-(rows + off) // 8), -(-cols // 8))
+
+
+@pytest.mark.parametrize("rows,cols,off,kind", EDGE_CASES)
+def test_tile_histogram_edge_geometries(rng, rows, cols, off, kind):
+    b = _edge_bins(rng, rows * cols, kind)
+    grid = _edge_grid(rows, cols, off)
+    got = ops.tile_histogram(_t(b), *grid, row_offset=off).numpy()
+    np.testing.assert_array_equal(got, np.asarray(JK._tile_histogram_xla(
+        jnp.asarray(b), *grid, 256, row_offset=off)))
+    assert got.sum() == int((b < 256).sum())
+
+
+@pytest.mark.parametrize("rows,cols,off,kind", EDGE_CASES)
+def test_clahe_lookup_edge_geometries(rng, rows, cols, off, kind):
+    b = _edge_bins(rng, rows * cols, kind)
+    cd = rng.random((64, 256)).astype(np.float32)
+    grid = _edge_grid(rows, cols, off)
+    got = ops.clahe_lookup(_t(b), _t(cd), *grid, row_offset=off).numpy()
+    want = np.asarray(JK._clahe_lookup_xla(jnp.asarray(b), jnp.asarray(cd),
+                                           *grid, row_offset=off))
+    assert np.abs(got - want).max() <= LOOKUP_BOUND
+    assert np.all(got[b == 256] == 0.0)
+
+
 def test_clahe_lookup_rejects_bad_input():
     b = torch.zeros(16, dtype=torch.int32)
     with pytest.raises(ValueError):
