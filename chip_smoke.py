@@ -11,12 +11,18 @@ prints no result):
      and the Hopper kernels (nvcc, sarpro_tpu_torch/csrc) from source, at
      the same time;
   3. kernels: each kernel against its plain PyTorch version on the card, at
-     the shapes the slice gives it (the CLAHE kernels also at the 100 MP
-     full-resolution route's, on a 100 MP band of one bin and a ragged
-     9999 x 10001, and at CLAHE_EDGES: widths of every residue mod 4, base
-     pointers off 16 bytes, bands under 8 pixels a side, row offsets, one
-     bin, all masked, bins out of range; resample and warp also at edge
-     shapes, with the warp's share of tiles on each branch), with the
+     the shapes the slice gives it (the histogram and the CLAHE kernels also
+     at the 100 MP full-resolution route's, on a 100 MP band of one bin and
+     a ragged 9999 x 10001; the histogram and synRGB lookup at every length
+     0..67 and of every residue mod 16 from every base offset past 16 bytes,
+     HIST_EDGES (one bin, all masked, negative and past-the-end values,
+     MAX_HIST_BINS, two u8 streams of unequal length and alignment) and on
+     uniform and SAR-like u8 pairs, synRGB also at every floor 3..40 with
+     and without the water mask; the CLAHE kernels at CLAHE_EDGES: widths
+     of every residue mod 4, base pointers off 16 bytes, bands under 8
+     pixels a side, row offsets, one bin, all masked, bins out of range;
+     resample and warp also at edge shapes, with the warp's share of tiles
+     on each branch), with the
      device times of both (device_ms, cross-checked by torch.profiler), the
      bound (bytes over the memory rate or operations over the f32 rate)
      and, where one PyTorch call computes the same function, that call's
@@ -46,7 +52,11 @@ prints no result):
      band; the gray JPEGs' first MCUs must be the device's blocks. The
      grayscale program runs again on the resident bands of the two TIFF
      routes with host syncs made errors, then under force_plain(). A
-     breakdown of the single-band route is printed;
+     breakdown of the single-band route is printed. Then JPEG_800, the
+     multiband robust and ratio JPEGs at --size 800 (the 4:4:4 and gray
+     entropy coder entries at 100 MCU rows), each driven once with its
+     launch counts checked: every MCU of each file, and of the device's
+     blocks coded again on 16 threads, decodes to the device's blocks;
   7. full resolution: a 10000 x 10000 HH+HV SAFE (the size of a Sentinel-1
      EW medium-resolution GRD, under the unported streamed path's
      BIG_SCENE_PIXELS) through the CLI's defaults at original size (u8 CLAHE
@@ -114,6 +124,9 @@ PATHS = {
     "full clahe tiff": ("histogram", "tile_histogram", "clahe_lookup"),
     "full multiband jpeg": ("histogram", "resample_axis0", "tile_histogram",
                             "clahe_lookup", "synrgb_lookup"),
+    "multiband robust jpeg 800": ("histogram", "resample_axis0",
+                                  "synrgb_lookup"),
+    "ratio jpeg 800": ("histogram",),
 }
 # the single-band, operation and TIFF routes on the 20000^2 SAFE: (label,
 # output suffix, CLI arguments; the rest are the CLI's defaults)
@@ -134,6 +147,17 @@ GRAY_RUNS = (
     ("gray auto", "jpg", ["--polarization", "vv", "-f", "jpeg",
                           "--autoscale", "clahe", "--target-crs", "auto",
                           "--resample-alg", "cubic"]),
+)
+# the 4:4:4 and gray JPEG routes at an output of 100 MCU rows, where the
+# entropy coder's band split put bands past the image on 16 threads before
+# the bindings chose its thread count (sarpro_tpu_torch._native.
+# coder_threads): (label, CLI arguments)
+SIZE_800 = 800
+JPEG_800 = (
+    ("multiband robust jpeg 800", ["--polarization", "multiband", "-f", "jpeg",
+                                   "--autoscale", "robust", "--pad"]),
+    ("ratio jpeg 800", ["--polarization", "ratio", "-f", "jpeg",
+                        "--autoscale", "standard"]),
 )
 # the warm runs that --walls traces under torch.profiler
 TRACED = ("gray clahe tiff", "full clahe tiff")
@@ -299,9 +323,6 @@ def phase_build():
 def phase_kernels(results):
     import torch
 
-    from sarpro_tpu_torch.core import synthetic_rgb
-    from sarpro_tpu_torch.ops import kernels
-
     dev = torch.device(DEVICE)
     g = torch.Generator(device=dev).manual_seed(0)
     for name in KERNELS:
@@ -311,17 +332,119 @@ def phase_kernels(results):
         results[name]["max_abs_err"] = max(results[name]["max_abs_err"],
                                            float(err))
 
-    # histogram: the 4096-bin dB stats of a 2048^2 band (crowded bins, 2%
-    # masked) and the 256-bin water floor over both u8 bands
-    n = SIZE * SIZE
+    _kernels_histogram(dev, g, record, results)
+    _kernels_synrgb(dev, g, record, results)
+    _kernels_resample(dev, g, record, results)
+    _kernels_clahe(dev, g, record, results)
+    _kernels_warp(dev, g, record, results)
+
+
+def _sar_u8(dev, g, n, mu):
+    """(n,) u8 SAR-like band: lognormal values crowding a few bins near the
+    water floor (median e^mu)."""
+    import torch
+
+    return torch.exp(torch.randn(n, device=dev, generator=g) * 0.8 + mu).clamp(
+        0, 255).to(torch.uint8)
+
+
+def _db_bins(dev, g, n, kind="sar"):
+    """(n,) int32 4096-bin dB indices: crowded (2 % masked) or one bin."""
+    import torch
+
+    if kind == "one":
+        return torch.full((n,), 1234, dtype=torch.int32, device=dev)
     idx = (torch.randn(n, device=dev, generator=g) * 300 + 2048).clamp(
         0, 4095).to(torch.int32)
     idx[torch.rand(n, device=dev, generator=g) < 0.02] = 4096
+    return idx
+
+
+# edge lengths of the histogram and synRGB kernels: every length 0..67, then
+# one of every residue mod 16 past many vectors
+EDGE_LENGTHS = tuple(range(68)) + tuple(100_000 + r for r in range(16))
+# edge value sets of the histogram kernel: (what, dtype, num_bins, values);
+# each is counted at every EDGE_LENGTHS from every base offset past 16 bytes
+# (int32: 0..3 elements, u8: 0..15 bytes)
+HIST_EDGES = (
+    ("int32 negative, masked and past num_bins", "int32", 4096, "wild"),
+    ("int32 one bin", "int32", 4096, "one"),
+    ("int32 all masked", "int32", 4096, "masked"),
+    ("u8, 256 bins", "u8", 256, "uniform"),
+    ("u8 past num_bins (100 bins)", "u8", 100, "uniform"),
+    ("u8 one bin", "u8", 256, "one"),
+)
+# two u8 streams of unequal length and alignment: lengths and base offsets
+HIST_PAIRS = ((0, 1, 15, 16, 17, 67, 100_003), (0, 5, 33, 100_019),
+              (0, 3, 15), (0, 1, 9))
+# base offsets (b1, b2) of the synRGB edge views, in bytes past 16
+SYNRGB_OFFSETS = ((0, 0), (1, 1), (5, 12), (15, 0), (0, 15), (7, 7))
+
+
+def _edge_values(dev, g, dtype, num_bins, kind, n):
+    import torch
+
+    if kind == "wild":
+        v = torch.randint(-300, num_bins + 300, (n,), device=dev, generator=g,
+                          dtype=torch.int32)
+    elif kind == "uniform":
+        v = torch.randint(0, 256, (n,), device=dev, generator=g,
+                          dtype=torch.int32)
+    else:
+        v = torch.full((n,), 77 if kind == "one" else num_bins,
+                       dtype=torch.int32, device=dev)
+    return v.to(torch.uint8) if dtype == "u8" else v
+
+
+def _kernels_histogram(dev, g, record, results):
+    """histogram at HIST_EDGES and HIST_PAIRS, at MAX_HIST_BINS and one bin,
+    then timed at the routes' shapes: the 4096-bin dB stats of a 2048^2
+    band, the 256-bin water floor over two 2048^2 u8 bands (uniform and
+    SAR-like), and the full-resolution route's 10000^2 band (crowded, one
+    bin, a ragged 9999 x 10001)."""
+    import torch
+
+    from sarpro_tpu_torch.ops import kernels
+
+    def check(parts, num_bins, what):
+        _check_equal(kernels.histogram(parts, num_bins),
+                     kernels._histogram_plain(parts, num_bins),
+                     f"histogram edge: {what}")
+
+    longest = max(EDGE_LENGTHS) + 16
+    for what, dtype, num_bins, kind in HIST_EDGES:
+        src = _edge_values(dev, g, dtype, num_bins, kind, longest)
+        offsets = range(4) if dtype == "int32" else range(16)
+        for off in offsets:
+            for n in EDGE_LENGTHS:
+                v = src[off:off + n]
+                check([v], num_bins, f"{what}, {n} from {v.data_ptr() % 16} "
+                      "bytes past 16")
+        log(f"histogram edge: {what}: bit-equal at {len(EDGE_LENGTHS)} "
+            f"lengths x {len(offsets)} base offsets")
+    src = _edge_values(dev, g, "u8", 256, "uniform", 2 * longest)
+    lens1, lens2, offs1, offs2 = HIST_PAIRS
+    for n1 in lens1:
+        for n2 in lens2:
+            for o1 in offs1:
+                for o2 in offs2:
+                    b = longest + o2
+                    check([src[o1:o1 + n1], src[b:b + n2]], 256,
+                          f"u8 pair {n1} + {o1}, {n2} + {o2}")
+    log(f"histogram edge: two u8 streams of unequal length and alignment: "
+        f"bit-equal at {math.prod(map(len, HIST_PAIRS))} pairs")
+    src = torch.randint(-5, kernels.MAX_HIST_BINS + 5, (100_003,), device=dev,
+                        generator=g, dtype=torch.int32)
+    for num_bins in (kernels.MAX_HIST_BINS, 1):
+        check([src[1:]], num_bins, f"{num_bins} bins")
+    log(f"histogram edge: {kernels.MAX_HIST_BINS} bins (one 227 KB table) "
+        "and 1 bin: bit-equal")
+    record("histogram", 0)
+
+    n = SIZE * SIZE
+    idx = _db_bins(dev, g, n)
     got = kernels.histogram(idx, 4096)
-    want = kernels._histogram_plain([idx], 4096)
-    err = (got - want).abs().max().item()
-    log(f"histogram 4096 bins over {n}: max|err| {err}")
-    record("histogram", err)
+    _check_equal(got, kernels._histogram_plain([idx], 4096), "histogram")
     # one PyTorch call of the same function: bincount with the masked bin
     time_kernel(results, "histogram", f"4096 bins over {n} int32",
                 lambda: kernels.histogram(idx, 4096),
@@ -329,63 +452,121 @@ def phase_kernels(results):
                 nbytes(idx, got), n,
                 library=lambda: torch.bincount(idx, minlength=4097),
                 main=True)
-    u1 = torch.randint(0, 256, (n,), device=dev, generator=g,
-                       dtype=torch.int32).to(torch.uint8)
-    u2 = torch.randint(0, 256, (n,), device=dev, generator=g,
-                       dtype=torch.int32).to(torch.uint8)
-    got = kernels.histogram((u1, u2), 256)
-    want = kernels._histogram_plain([u1, u2], 256)
-    err = (got - want).abs().max().item()
-    log(f"histogram 256 bins over 2x{n}: max|err| {err}")
-    record("histogram", err)
-    time_kernel(results, "histogram", f"256 bins over 2 x {n} u8",
-                lambda: kernels.histogram((u1, u2), 256),
-                lambda: kernels._histogram_plain([u1, u2], 256),
-                nbytes(u1, u2, got), 2 * n)
+    pairs = (("uniform", *(torch.randint(0, 256, (n,), device=dev, generator=g,
+                                         dtype=torch.int32).to(torch.uint8)
+                           for _ in range(2))),
+             ("SAR-like", _sar_u8(dev, g, n, 2.8), _sar_u8(dev, g, n, 2.3)))
+    for what, u1, u2 in pairs:
+        got = kernels.histogram((u1, u2), 256)
+        _check_equal(got, kernels._histogram_plain([u1, u2], 256),
+                     f"histogram 256 bins, {what} pair")
+        time_kernel(results, "histogram", f"256 bins over 2 x {n} u8, {what}",
+                    lambda: kernels.histogram((u1, u2), 256),
+                    lambda: kernels._histogram_plain([u1, u2], 256),
+                    nbytes(u1, u2, got), 2 * n)
+    log(f"histogram over {n} int32 and 2 x {n} u8 (uniform, SAR-like): "
+        "bit-equal")
+    zeros_ms = device_ms(lambda: torch.zeros(4096, dtype=torch.int32,
+                                             device=dev))
+    log("time: yardstick, the wrapper's torch.zeros of the 4096 counts alone "
+        f"(part of every histogram time): {zeros_ms:.4f} ms")
+    del idx, pairs, u1, u2
+    for rows, cols, kind in ((EW_SIDE, EW_SIDE, "sar"),
+                             (EW_SIDE, EW_SIDE, "one"),
+                             (EW_SIDE - 1, EW_SIDE + 1, "sar"),
+                             (EW_SIDE - 1, EW_SIDE + 1, "one")):
+        n = rows * cols
+        idx = _db_bins(dev, g, n, kind)
+        got = kernels.histogram(idx, 4096)
+        what = f"{rows} x {cols}" + (", one bin" if kind == "one" else "")
+        _check_equal(got, kernels._histogram_plain([idx], 4096),
+                     f"histogram {what}")
+        log(f"histogram 4096 bins over {what} int32: bit-equal")
+        time_kernel(results, "histogram", f"4096 bins over {what} int32",
+                    lambda: kernels.histogram(idx, 4096),
+                    lambda: kernels._histogram_plain([idx], 4096),
+                    nbytes(idx, got), n,
+                    library=lambda: torch.bincount(idx, minlength=4097))
+        del idx
+        torch.cuda.empty_cache()
 
-    # synrgb: every (b1, b2) pair for every floor 3..40, then a 2048^2 pair
-    tables = synthetic_rgb.suppressed_table_sets(dev)
+
+def _kernels_synrgb(dev, g, record, results):
+    """synrgb_lookup on every (b1, b2) pair for every floor 3..40 with and
+    without the water mask, at EDGE_LENGTHS from SYNRGB_OFFSETS with each
+    table set, then timed at 2048^2 on a uniform and a SAR-like pair."""
+    import torch
+
+    from sarpro_tpu_torch.core import fused, synthetic_rgb
+    from sarpro_tpu_torch.ops import kernels
+
+    sup = synthetic_rgb.suppressed_table_sets(dev)
+    dflt = synthetic_rgb.default_table_set(dev)
     a = torch.arange(256, device=dev, dtype=torch.int32)
     p1 = a.repeat_interleave(256).to(torch.uint8)
     p2 = a.repeat(256).to(torch.uint8)
-    worst = 0
     for f in range(synthetic_rgb.FLOOR_MIN, synthetic_rgb.FLOOR_MAX + 1):
         fl = torch.tensor(f, dtype=torch.int32, device=dev)
         si = fl - synthetic_rgb.FLOOR_MIN
         for water in (None, fl):
-            got = kernels.synrgb_lookup(p1, p2, tables, si, water)
-            want = kernels._synrgb_lookup_plain(p1, p2, tables, si, water)
-            worst = max(worst, (got.int() - want.int()).abs().max().item())
-    fl = torch.tensor(7, dtype=torch.int32, device=dev)
+            _check_equal(kernels.synrgb_lookup(p1, p2, sup, si, water),
+                         kernels._synrgb_lookup_plain(p1, p2, sup, si, water),
+                         f"synrgb_lookup floor {f}, water {water is not None}")
+    for f in (-1, 255, 300):  # floors outside the ones the stages make
+        fl = torch.tensor(f, dtype=torch.int32, device=dev)
+        _check_equal(kernels.synrgb_lookup(p1, p2, sup, fl, fl),
+                     kernels._synrgb_lookup_plain(p1, p2, sup, fl, fl),
+                     f"synrgb_lookup floor {f}")
+    log("synrgb_lookup 65536 pairs x 38 floors x water on/off, and water "
+        "floors -1, 255, 300: bit-equal")
+    fl = torch.tensor(20, dtype=torch.int32, device=dev)
     si = fl - synthetic_rgb.FLOOR_MIN
-    got = kernels.synrgb_lookup(u1, u2, tables, si, fl)
-    want = kernels._synrgb_lookup_plain(u1, u2, tables, si, fl)
-    worst = max(worst, (got.int() - want.int()).abs().max().item())
-    log(f"synrgb_lookup 65536 pairs x 38 floors x water on/off + {n} px: "
-        f"max|err| {worst}")
-    record("synrgb_lookup", worst)
-    # the bytes: both bands, the one table set used, the rgb
-    time_kernel(results, "synrgb_lookup",
-                f"{n} px, suppressed set + water mask",
-                lambda: kernels.synrgb_lookup(u1, u2, tables, si, fl),
-                lambda: kernels._synrgb_lookup_plain(u1, u2, tables, si, fl),
-                nbytes(u1, u2, tables[0], got), 3 * n, main=True)
-    # the default mode: its one table set, no set index, no water floor
-    tables = synthetic_rgb.default_table_set(dev)
-    for a1, a2, what in ((p1, p2, "65536 pairs"), (u1, u2, f"{n} px")):
-        _check_equal(kernels.synrgb_lookup(a1, a2, tables),
-                     kernels._synrgb_lookup_plain(a1, a2, tables),
-                     f"synrgb_lookup default set, {what}")
-    log(f"synrgb_lookup default set (no set index, no water floor), 65536 "
-        f"pairs + {n} px: bit-equal")
-    time_kernel(results, "synrgb_lookup", f"{n} px, default set",
-                lambda: kernels.synrgb_lookup(u1, u2, tables),
-                lambda: kernels._synrgb_lookup_plain(u1, u2, tables),
-                nbytes(u1, u2, tables[0], got), 3 * n)
-    del idx, u1, u2, p1, p2, got, want
-    _kernels_resample(dev, g, record, results)
-    _kernels_clahe(dev, g, record, results)
-    _kernels_warp(dev, g, record, results)
+    sets = (("suppressed set + water mask", sup, si, fl),
+            ("suppressed set", sup, si, None),
+            ("default set", dflt, None, None))
+    longest = max(EDGE_LENGTHS) + 32
+    # values 0..63: a ninth of the pixels at or below the floor on both bands
+    src = torch.randint(0, 64, (2, longest), device=dev, generator=g,
+                        dtype=torch.int32).to(torch.uint8)
+    for n in EDGE_LENGTHS:
+        for o1, o2 in SYNRGB_OFFSETS:
+            x1, x2 = src[0, o1:o1 + n], src[1, o2:o2 + n]
+            for what, tb, s_, w_ in sets:
+                _check_equal(kernels.synrgb_lookup(x1, x2, tb, s_, w_),
+                             kernels._synrgb_lookup_plain(x1, x2, tb, s_, w_),
+                             f"synrgb_lookup edge: {what}, {n} px from "
+                             f"{x1.data_ptr() % 16}, {x2.data_ptr() % 16}")
+    log(f"synrgb_lookup edges: {len(EDGE_LENGTHS)} lengths x "
+        f"{len(SYNRGB_OFFSETS)} base offsets x (suppressed set with and "
+        "without the water mask, default set): bit-equal")
+    n = SIZE * SIZE
+    u = [torch.randint(0, 256, (n,), device=dev, generator=g,
+                       dtype=torch.int32).to(torch.uint8) for _ in range(2)]
+    s = [_sar_u8(dev, g, n, 2.8), _sar_u8(dev, g, n, 2.3)]
+    # the SAR-like pair's own water floor, as the combine stage finds it
+    fs = fused._suppressed_floor(kernels.histogram(s, 256), 2 * n)
+    fu = torch.tensor(7, dtype=torch.int32, device=dev)
+    for what, (b1, b2), tb, s_, w_, main in (
+            ("uniform pair, suppressed set + water mask", u, sup,
+             fu - synthetic_rgb.FLOOR_MIN, fu, True),
+            ("uniform pair, default set", u, dflt, None, None, False),
+            (f"SAR-like pair, suppressed set + water mask (floor "
+             f"{int(fs)})", s, sup, fs - synthetic_rgb.FLOOR_MIN, fs, False),
+            ("SAR-like pair, default set", s, dflt, None, None, False)):
+        got = kernels.synrgb_lookup(b1, b2, tb, s_, w_)
+        _check_equal(got, kernels._synrgb_lookup_plain(b1, b2, tb, s_, w_),
+                     f"synrgb_lookup {n} px, {what}")
+        # the bytes: both bands, the one table set used, the rgb
+        time_kernel(results, "synrgb_lookup", f"{n} px, {what}",
+                    lambda: kernels.synrgb_lookup(b1, b2, tb, s_, w_),
+                    lambda: kernels._synrgb_lookup_plain(b1, b2, tb, s_, w_),
+                    nbytes(b1, b2, tb[0], got), 3 * n, main=main)
+    log(f"synrgb_lookup over {n} px (uniform and SAR-like pairs, both sets): "
+        "bit-equal")
+    dst = torch.empty_like(got)
+    log(f"time: yardstick, a device copy of the {nbytes(got) / 1e6:.1f} MB "
+        f"rgb (read and written): {device_ms(lambda: dst.copy_(got)):.4f} ms")
+    record("synrgb_lookup", 0)
 
 
 def _check_equal(got, want, what):
@@ -1179,14 +1360,11 @@ def _breakdown_warp(safe: Path):
                            target_size=SIZE, pad=True, resample_alg=None))
 
 
-def _resident(label: str, scene, kw, blob: bytes):
+def _resident(label: str, scene, kw, blob: bytes, n_mcus: int = 256):
     """The band and combine stages on resident bands: no host sync with the
-    kernels, the plain versions within 1, and the JPEG of the CLI run holds
-    the device's coefficient blocks."""
+    kernels, the plain versions within 1, and the first `n_mcus` MCUs of the
+    CLI run's JPEG hold the device's coefficient blocks, which it returns."""
     import torch
-
-    sys.path.insert(0, str(ROOT / "tests"))
-    from oracle import decode_baseline_jpeg_coeffs
 
     from sarpro_tpu_torch.core import fused
     from sarpro_tpu_torch.ops import force_plain
@@ -1215,7 +1393,8 @@ def _resident(label: str, scene, kw, blob: bytes):
         p = stages()
     torch.cuda.synchronize()
     for name, a, b in (("band1", k[0], p[0]), ("band2", k[1], p[1])):
-        if a.shape != (SIZE, SIZE) or a.dtype != torch.uint8:
+        side = kw["target_size"]
+        if a.shape != (side, side) or a.dtype != torch.uint8:
             raise AssertionError(f"{label} {name}: {a.dtype} {tuple(a.shape)}")
         d = (a.int() - b.int()).abs()
         share = (d > 0).float().mean().item()
@@ -1226,19 +1405,8 @@ def _resident(label: str, scene, kw, blob: bytes):
     same = (k[0] == p[0]) & (k[1] == p[1])
     if not torch.equal(k[2][same], p[2][same]):
         raise AssertionError(f"{label}: rgb differs where both bands agree")
-    # the file holds the device's coefficients: decode the first MCUs
-    n_mcus = 256
-    blocks, ncomp = decode_baseline_jpeg_coeffs(blob, n_mcus)
-    dct = k[3].cpu().numpy().reshape(3, -1, 8, 8)
-    zz = _zigzag()
-    for m in range(n_mcus):
-        for c in range(3):
-            want = [int(dct[c, m][col, row]) for row, col in zz]
-            if blocks[m * 3 + c] != want:
-                raise AssertionError(f"{label}: JPEG block {m}/{c} != "
-                                     "device block")
-    log(f"resident ({label}): first {n_mcus} MCUs of the JPEG decode to the "
-        "device's coefficient blocks")
+    _check_mcus(label, blob, k[3], 3, n_mcus)
+    return k[3]
 
 
 def phase_resident(safe: Path, blobs):
@@ -1304,18 +1472,25 @@ def _check_tiff(label: str, out: Path, dtype: str, side: int, bands: int,
     return arrs
 
 
-def _check_gray_mcus(label: str, blob: bytes, dct, n_mcus: int = 256):
-    """The gray JPEG's first MCUs entropy-decode to the device's blocks."""
+def _check_mcus(label: str, blob: bytes, dct, ncomp: int,
+                n_mcus: int = 256):
+    """The JPEG's first MCUs entropy-decode to the device's coefficient
+    blocks (`ncomp` planes of transposed 8 x 8 blocks)."""
+    sys.path.insert(0, str(ROOT / "tests"))
     from oracle import decode_baseline_jpeg_coeffs
 
-    blocks, ncomp = decode_baseline_jpeg_coeffs(blob, n_mcus)
-    dct = dct.cpu().numpy().reshape(-1, 8, 8)
+    blocks, got = decode_baseline_jpeg_coeffs(blob, n_mcus)
+    if got != ncomp:
+        raise AssertionError(f"{label}: {got} JPEG components, expected "
+                             f"{ncomp}")
+    dct = dct.cpu().numpy().reshape(ncomp, -1, 8, 8)
     zz = _zigzag()
-    if ncomp != 1:
-        raise AssertionError(f"{label}: {ncomp} JPEG components, expected 1")
     for m in range(n_mcus):
-        if blocks[m] != [int(dct[m][col, row]) for row, col in zz]:
-            raise AssertionError(f"{label}: JPEG block {m} != device block")
+        for c in range(ncomp):
+            want = [int(dct[c, m][col, row]) for row, col in zz]
+            if blocks[m * ncomp + c] != want:
+                raise AssertionError(f"{label}: JPEG block {m}/{c} != "
+                                     "device block")
     log(f"resident ({label}): first {n_mcus} MCUs of the JPEG decode to the "
         "device's coefficient blocks")
 
@@ -1476,18 +1651,18 @@ def phase_gray(safe: Path, work: Path):
     del band
     pair = tsafe.open_pair(safe, DEVICE, "Operation ratio", SIZE)
     ratio = pol_ops.ratio_arrays(pair.band1, pair.band2)
-    _check_gray_mcus("ratio jpeg", outs["ratio jpeg"].read_bytes(),
-                     fused.grayscale_pipeline(
-                         ratio, strategy=AutoscaleStrategy.STANDARD,
-                         target_size=SIZE, jpeg_dct=True))
+    _check_mcus("ratio jpeg", outs["ratio jpeg"].read_bytes(),
+                fused.grayscale_pipeline(
+                    ratio, strategy=AutoscaleStrategy.STANDARD,
+                    target_size=SIZE, jpeg_dct=True), 1)
     del pair, ratio
     _, band = tsafe.open_band(safe, "vv", DEVICE, SIZE,
                               target_crs=tsafe.TargetCrsArg.AUTO,
                               resample_alg="cubic")
-    _check_gray_mcus("gray auto", outs["gray auto"].read_bytes(),
-                     fused.grayscale_pipeline(
-                         band, strategy=AutoscaleStrategy.CLAHE,
-                         target_size=SIZE, jpeg_dct=True))
+    _check_mcus("gray auto", outs["gray auto"].read_bytes(),
+                fused.grayscale_pipeline(
+                    band, strategy=AutoscaleStrategy.CLAHE,
+                    target_size=SIZE, jpeg_dct=True), 1)
     del band
     scene = tsafe.open_dual_pol(safe, DEVICE, SIZE)
     _resident("robust default synRGB", scene,
@@ -1497,6 +1672,46 @@ def phase_gray(safe: Path, work: Path):
     del scene
     _breakdown_gray(safe)
     return walls, counts
+
+
+def phase_jpeg_800(safe: Path, work: Path):
+    """JPEG_800 on the 20000^2 SAFE, each driven once. Every MCU of each
+    file decodes to the device's coefficient blocks, and so does every MCU
+    of those blocks coded again on 16 threads (this host has fewer cores
+    than the split that aborted needs)."""
+    from sarpro_tpu_torch import _native
+    from sarpro_tpu_torch.core import fused, ops as pol_ops
+    from sarpro_tpu_torch.io import safe as tsafe
+
+    blobs = {}
+    for label, args in JPEG_800:
+        out = work / f"{label.replace(' ', '_')}.jpg"
+        _drive(label, ["-i", str(safe), "--size", str(SIZE_800), "--fast"]
+               + args, out)
+        blobs[label] = _check_jpeg(label, out)
+    n_mcus = (SIZE_800 // 8) ** 2
+    threads = _native.coder_threads(SIZE_800, 16)
+    scene = tsafe.open_dual_pol(safe, DEVICE, SIZE_800)
+    dct = _resident("multiband robust jpeg 800", scene,
+                    dict(strategy=fused.AutoscaleStrategy.ROBUST,
+                         target_size=SIZE_800, pad=True, resample_alg=None),
+                    blobs["multiband robust jpeg 800"], n_mcus)
+    co = dct.cpu().numpy()
+    _check_mcus(f"multiband robust jpeg 800 coded on 16 threads ({threads} "
+                "bands)", _native.jpeg_encode_coeffs444(
+                    co[0], co[1], co[2], SIZE_800, SIZE_800, n_threads=16),
+                dct, 3, n_mcus)
+    del scene
+    pair = tsafe.open_pair(safe, DEVICE, "Operation ratio", SIZE_800)
+    dct = fused.grayscale_pipeline(
+        pol_ops.ratio_arrays(pair.band1, pair.band2),
+        strategy=fused.AutoscaleStrategy.STANDARD, target_size=SIZE_800,
+        jpeg_dct=True)
+    _check_mcus("ratio jpeg 800", blobs["ratio jpeg 800"], dct, 1, n_mcus)
+    _check_mcus(f"ratio jpeg 800 coded on 16 threads ({threads} bands)",
+                _native.jpeg_encode_coeffs_gray(dct.cpu().numpy(), SIZE_800,
+                                                SIZE_800, n_threads=16),
+                dct, 1, n_mcus)
 
 
 def phase_full(work: Path):
@@ -1650,6 +1865,7 @@ def main() -> int:
         safe, blobs, counts, walls = phase_slice(work)
         phase_resident(safe, blobs)
         gray_walls, _ = phase_gray(safe, work)
+        phase_jpeg_800(safe, work)
         full_walls, _ = phase_full(work)
         if args.walls:
             phase_walls(args.walls, safe, work, smi)

@@ -19,7 +19,11 @@ same inputs made on the device from seed 0:
     combine), each stage and the whole route;
   * the CLAHE kernels (tile_histogram, clahe_lookup) on SAR-like bins at
     2048^2 and 10000^2, and the grayscale CLAHE program of the 100 MP route
-    (fused.grayscale_pipeline, u8) on a resident 10000^2 u16 band.
+    (fused.grayscale_pipeline, u8) on a resident 10000^2 u16 band;
+  * the histogram (4096 bins over 2048^2 and 10000^2 int32 dB indices, 256
+    bins over a uniform and a SAR-like pair of 2048^2 u8 bands) and the
+    synRGB lookup (2048^2, the suppressed set with the water mask and the
+    default set), beside the combine stages above.
 Every time is chip_smoke.device_ms's: one CUDA event pair around 20 calls
 (5 for the grayscale program) queued behind a spin kernel, over their
 count, so the host's launch gaps between the stages' many small kernels are
@@ -52,7 +56,7 @@ def measure(tree: Path) -> dict:
     import torch
 
     cs = _chip_smoke()
-    from sarpro_tpu_torch.core import fused
+    from sarpro_tpu_torch.core import fused, synthetic_rgb
     from sarpro_tpu_torch.core.numerics import as_u16
     from sarpro_tpu_torch.io import warp
     from sarpro_tpu_torch.ops import _cuda, kernels, resample_kernel, warp_kernel
@@ -133,6 +137,29 @@ def measure(tree: Path) -> dict:
         lambda: fused.grayscale_pipeline(
             band, strategy=fused.AutoscaleStrategy.CLAHE,
             bit_depth=fused.BitDepth.U8), reps=5)
+    del band
+
+    for side in (size, ew):
+        idx = cs._db_bins(dev, g, side * side)
+        res[f"histogram 4096 bins {side}^2"] = cs.device_ms(
+            lambda: kernels.histogram(idx, 4096))
+        del idx
+    n = size * size
+    u = [torch.randint(0, 256, (n,), device=dev, generator=g,
+                       dtype=torch.int32).to(torch.uint8) for _ in range(2)]
+    s = [cs._sar_u8(dev, g, n, 2.8), cs._sar_u8(dev, g, n, 2.3)]
+    res[f"histogram 256 bins 2 x {size}^2 u8"] = cs.device_ms(
+        lambda: kernels.histogram(u, 256))
+    res[f"histogram 256 bins 2 x {size}^2 u8 SAR-like"] = cs.device_ms(
+        lambda: kernels.histogram(s, 256))
+    fl = torch.tensor(7, dtype=torch.int32, device=dev)
+    si = fl - synthetic_rgb.FLOOR_MIN
+    sup = synthetic_rgb.suppressed_table_sets(dev)
+    dflt = synthetic_rgb.default_table_set(dev)
+    res[f"synrgb_lookup {size}^2 suppressed"] = cs.device_ms(
+        lambda: kernels.synrgb_lookup(u[0], u[1], sup, si, fl))
+    res[f"synrgb_lookup {size}^2 default"] = cs.device_ms(
+        lambda: kernels.synrgb_lookup(u[0], u[1], dflt))
     return res
 
 

@@ -182,6 +182,23 @@ def box_reduce_u16(
     )
 
 
+def coder_threads(h: int, n_threads: int = 0) -> int:
+    """The thread count to hand the JPEG entropy coder for an image `h`
+    pixels tall, given a requested count (0: the host's cores, at most 16).
+
+    The coder cuts the ceil(h / 8) MCU rows into bands = min(threads, rows)
+    bands of ceil(rows / bands) rows and never drops a band that starts at or
+    past the last row: one past it asks for a negative buffer and aborts the
+    process, one at it ends the stream in stray restart markers. With
+    ceil(rows / ceil(rows / n)) threads every band starts inside the image;
+    where n's own split has no such band this is n itself, so the stream is
+    the one n gives."""
+    if n_threads <= 0:
+        n_threads = min(os.cpu_count() or 1, 16)
+    rows = max(-(-h // 8), 1)
+    return -(-rows // -(-rows // n_threads))
+
+
 def jpeg_encode_coeffs444(cy: np.ndarray, ccb: np.ndarray, ccr: np.ndarray,
                           w: int, h: int, n_threads: int = 0) -> bytes:
     """Pre-quantized device DCT coefficients → baseline JPEG q100 4:4:4.
@@ -201,13 +218,12 @@ def jpeg_encode_coeffs444(cy: np.ndarray, ccb: np.ndarray, ccr: np.ndarray,
                 f"coefficient plane has {p.size} values, expected "
                 f"{nblocks * 64} for {w}x{h}")
         comps.append(p)
-    if n_threads <= 0:
-        n_threads = min(os.cpu_count() or 1, 16)
     cap = w * h * 3 * 5 + (1 << 16)
     out = np.empty(cap, np.uint8)
     n = lib.jpeg_encode_coeffs444(
         comps[0].ctypes.data_as(i16p), comps[1].ctypes.data_as(i16p),
-        comps[2].ctypes.data_as(i16p), w, h, _u8p(out), cap, n_threads)
+        comps[2].ctypes.data_as(i16p), w, h, _u8p(out), cap,
+        coder_threads(h, n_threads))
     if n < 0:
         raise ValueError("jpeg encode overflow")
     return out[:n].tobytes()
@@ -222,13 +238,11 @@ def jpeg_encode_coeffs_gray(cy: np.ndarray, w: int, h: int,
     if cy.size != nblocks * 64:
         raise ValueError(f"coefficient plane has {cy.size} values, expected "
                          f"{nblocks * 64} for {w}x{h}")
-    if n_threads <= 0:
-        n_threads = min(os.cpu_count() or 1, 16)
     cap = w * h * 5 + (1 << 16)
     out = np.empty(cap, np.uint8)
     n = lib.jpeg_encode_coeffs_gray(
         cy.ctypes.data_as(ctypes.POINTER(ctypes.c_int16)), w, h,
-        _u8p(out), cap, n_threads)
+        _u8p(out), cap, coder_threads(h, n_threads))
     if n < 0:
         raise ValueError("jpeg encode overflow")
     return out[:n].tobytes()

@@ -15,6 +15,7 @@ from sarpro_tpu.ops import resample_kernel as JRK  # noqa: E402
 from sarpro_tpu_torch import ops  # noqa: E402
 from sarpro_tpu_torch.core import synthetic_rgb as tsyn  # noqa: E402
 from sarpro_tpu_torch.ops import _cuda  # noqa: E402
+from sarpro_tpu_torch.ops.kernels import MAX_HIST_BINS  # noqa: E402
 
 # f32 sum order differs (the JAX package's own bound,
 # tests/test_pallas_interpret.py:204)
@@ -44,6 +45,74 @@ def test_histogram_two_u8_bands_equal_concatenated(rng):
     both = np.concatenate([b1.ravel(), b2.ravel()]).astype(np.int32)
     np.testing.assert_array_equal(
         got, np.asarray(JK._histogram_xla(jnp.asarray(both), 256)))
+
+
+# lengths of every residue mod 16, short and past many 16-byte vectors: the
+# head, body and tail split of the card's kernel (chip_smoke.EDGE_LENGTHS)
+EDGE_LENGTHS = [0, 1, 2, 3, 15, 16, 17, 31, 33, 67] + [
+    1000 + r for r in range(16)]
+
+
+def _xla_counts(values, num_bins):
+    """The JAX fallback's counts. It wraps a negative index Python-style
+    (the JAX package never passes one); the port drops it, as it does
+    every value outside [0, num_bins)."""
+    v = np.asarray(values).astype(np.int64)
+    v = np.where(v < 0, num_bins, v)
+    return np.asarray(JK._histogram_xla(jnp.asarray(v.astype(np.int32)),
+                                        num_bins))
+
+
+@pytest.mark.parametrize("off", [0, 1, 3])
+@pytest.mark.parametrize("n", EDGE_LENGTHS)
+def test_histogram_int32_views_match_xla(rng, n, off):
+    """int32 views from 0..3 elements past the buffer's start, with negative,
+    masked and past-the-end values among the bins."""
+    buf = rng.integers(-300, 4400, n + 3).astype(np.int32)
+    buf[::7] = 4096
+    view = torch.from_numpy(buf)[off:off + n]
+    got = ops.histogram(view, 4096).numpy()
+    np.testing.assert_array_equal(got, _xla_counts(buf[off:off + n], 4096))
+
+
+@pytest.mark.parametrize("off", [0, 1, 7, 15])
+@pytest.mark.parametrize("n", EDGE_LENGTHS)
+def test_histogram_u8_views_match_xla(rng, n, off):
+    """u8 views 0..15 bytes past the buffer's start, counted into 100 bins
+    (so values past num_bins occur)."""
+    buf = rng.integers(0, 256, n + 15).astype(np.uint8)
+    view = torch.from_numpy(buf)[off:off + n]
+    got = ops.histogram(view, 100).numpy()
+    np.testing.assert_array_equal(got, _xla_counts(buf[off:off + n], 100))
+
+
+@pytest.mark.parametrize("kind", ["one bin", "all masked", "max bins",
+                                  "1 bin"])
+def test_histogram_special_streams_match_xla(rng, kind):
+    n = 70_001
+    if kind == "one bin":
+        idx, num_bins = np.full(n, 1234, np.int32), 4096
+    elif kind == "all masked":
+        idx, num_bins = np.full(n, 4096, np.int32), 4096
+    else:
+        num_bins = MAX_HIST_BINS if kind == "max bins" else 1
+        idx = rng.integers(-5, num_bins + 5, n).astype(np.int32)
+    got = ops.histogram(torch.from_numpy(idx)[1:], num_bins).numpy()
+    np.testing.assert_array_equal(got, _xla_counts(idx[1:], num_bins))
+
+
+@pytest.mark.parametrize("n1, o1, n2, o2", [
+    (0, 0, 33, 1), (1, 3, 0, 0), (17, 15, 1000, 9), (1003, 1, 67, 0),
+    (100_003, 5, 100_019, 12)])
+def test_histogram_two_u8_streams_equal_concatenated(rng, n1, o1, n2, o2):
+    """Two u8 streams of unequal length and alignment count as their
+    concatenation does."""
+    buf = rng.integers(0, 256, n1 + n2 + 40).astype(np.uint8)
+    t = torch.from_numpy(buf)
+    a, b = t[o1:o1 + n1], t[n1 + 20 + o2:n1 + 20 + o2 + n2]
+    got = ops.histogram((a, b), 256).numpy()
+    both = np.concatenate([a.numpy(), b.numpy()])
+    np.testing.assert_array_equal(got, _xla_counts(both, 256))
 
 
 def test_histogram_rejects_bad_input():
@@ -92,6 +161,37 @@ def test_synrgb_lookup_matches_formula_kernel_interpret(floor):
         tsyn.suppressed_table_sets(torch.device("cpu")),
         set_index=fl - 3, water_floor=fl).numpy()
     np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("mode", ["suppressed + water", "suppressed",
+                                  "default"])
+@pytest.mark.parametrize("o1, o2", [(0, 0), (1, 1), (5, 12), (15, 0)])
+@pytest.mark.parametrize("n", EDGE_LENGTHS)
+def test_synrgb_lookup_views_match_xla(rng, n, o1, o2, mode):
+    """Ragged lengths and band views 0..15 bytes past the buffer's start,
+    with values 0..63 (a ninth of the pixels at or below the floor 20 on
+    both bands) against the JAX lookup and water mask."""
+    floor = 20
+    buf = rng.integers(0, 64, (2, n + 15)).astype(np.uint8)
+    b1, b2 = buf[0, o1:o1 + n], buf[1, o2:o2 + n]
+    if mode == "default":
+        sets = tsyn.default_table_set(torch.device("cpu"))
+        luts, kw = jsyn.default_luts(), {}
+    else:
+        sets = tsyn.suppressed_table_sets(torch.device("cpu"))
+        luts = jsyn.suppressed_luts(floor)
+        fl = torch.tensor(floor, dtype=torch.int32)
+        kw = dict(set_index=fl - 3,
+                  water_floor=fl if mode == "suppressed + water" else None)
+    got = ops.synrgb_lookup(torch.from_numpy(buf[0])[o1:o1 + n],
+                            torch.from_numpy(buf[1])[o2:o2 + n], sets,
+                            **kw).numpy()
+    want = JK._synrgb_lookup_xla(jnp.asarray(b1), jnp.asarray(b2),
+                                 *map(jnp.asarray, luts))
+    if mode == "suppressed + water":
+        want = jsyn._water_mask(jnp.asarray(b1), jnp.asarray(b2), want, floor)
+    assert got.shape == (n, 3)
+    np.testing.assert_array_equal(got, np.asarray(want))
 
 
 def test_synrgb_lookup_rejects_bad_input():
