@@ -57,17 +57,32 @@ prints no result):
      entropy coder entries at 100 MCU rows), each driven once with its
      launch counts checked: every MCU of each file, and of the device's
      blocks coded again on 16 threads, decodes to the device's blocks;
-  7. full resolution: a 10000 x 10000 HH+HV SAFE (the size of a Sentinel-1
-     EW medium-resolution GRD, under the unported streamed path's
-     BIG_SCENE_PIXELS) through the CLI's defaults at original size (u8 CLAHE
-     TIFF, run twice) and to a 2048 padded CLAHE synRGB JPEG; the CLAHE
-     kernels at 100 MP against their plain versions through the grayscale
-     program;
-  8. with --walls N only: every warm path N times more, interleaved, with
+  7. exact: a 10000 x 10000 HH+HV SAFE (the size of a Sentinel-1 EW
+     medium-resolution GRD, under the unported streamed path's
+     BIG_SCENE_PIXELS), then EXACT_RUNS, exact mode through the CLI without
+     --fast: the CLAHE auto-UTM synRGB JPEG and the u16 adaptive cubic TIFF
+     at 2048, the ratio and multiband robust JPEGs at 800 (the gray and
+     4:4:4 pixel coder entries), and the CLI's defaults at original size on
+     the 10000^2 product. Each runs twice, the second with its launch counts
+     checked against PATHS (all six kernels between them) and its device
+     peak memory read, then once with --fast for the wall beside it. Every
+     MCU of the 800 JPEGs, and of their planes coded again on 16 threads,
+     decodes to within +-1 of an f64 DCT of the planes the coder was handed
+     (the 2048 JPEG's first MCUs too); the TIFFs are read back.
+     process_safe_to_buffer runs with the kernels and under force_plain()
+     on the 2048 CLAHE synRGB and the 100 MP CLAHE routes: bit-equal, and
+     the 100 MP band equals the CLI's TIFF. The band pipeline's time between
+     CUDA events, its kernels' time and its host syncs are printed;
+  8. full resolution: the 10000 x 10000 product through the CLI's defaults
+     at original size with --fast (u8 CLAHE TIFF, run twice) and to a 2048
+     padded CLAHE synRGB JPEG; the CLAHE kernels at 100 MP against their
+     plain versions through the grayscale program;
+  9. with --walls N only: every warm path N times more, interleaved, with
      medians and quartiles of its wall; the no-warp synRGB read through
      each of the two loaders (full DN + device resample, decimated read) in
      the same rounds; a torch.profiler trace of the single-band TIFF and
-     the full-resolution TIFF runs with the device's busy share.
+     the full-resolution TIFF runs (fast, then exact) with the device's
+     busy share.
 Then one JSON line of the kernels, the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}. Nothing of jax or of the JAX package
 (sarpro_tpu) may be imported: the script raises at the end if one was.
@@ -127,6 +142,12 @@ PATHS = {
     "multiband robust jpeg 800": ("histogram", "resample_axis0",
                                   "synrgb_lookup"),
     "ratio jpeg 800": ("histogram",),
+    "exact clahe auto jpeg": ("histogram", "tile_histogram", "clahe_lookup",
+                              "warp_sample", "synrgb_lookup"),
+    "exact adaptive u16 cubic tiff": ("histogram", "resample_axis0"),
+    "exact ratio jpeg 800": ("histogram",),
+    "exact multiband robust jpeg 800": ("histogram", "synrgb_lookup"),
+    "exact full clahe tiff": ("histogram", "tile_histogram", "clahe_lookup"),
 }
 # the single-band, operation and TIFF routes on the 20000^2 SAFE: (label,
 # output suffix, CLI arguments; the rest are the CLI's defaults)
@@ -159,8 +180,27 @@ JPEG_800 = (
     ("ratio jpeg 800", ["--polarization", "ratio", "-f", "jpeg",
                         "--autoscale", "standard"]),
 )
+# exact mode's routes, the CLI without --fast: (label, SAFE ("main", the
+# 20000^2 IW product, or "ew", the 10000^2 EW one), output suffix, --size
+# ("SIZE", "SIZE_800" or None: original), the other CLI arguments). Each
+# also runs once with --fast, for the wall beside it. The two 800 JPEGs take
+# the gray and the 4:4:4 pixel coder entries.
+EXACT_RUNS = (
+    ("exact clahe auto jpeg", "main", "jpg", "SIZE", [
+        "--polarization", "multiband", "-f", "jpeg", "--autoscale", "clahe",
+        "--pad", "--target-crs", "auto", "--resample-alg", "cubic"]),
+    ("exact adaptive u16 cubic tiff", "main", "tiff", "SIZE", [
+        "--polarization", "vh", "-f", "tiff", "--bit-depth", "u16",
+        "--autoscale", "adaptive", "--resample-alg", "cubic"]),
+    ("exact ratio jpeg 800", "main", "jpg", "SIZE_800", [
+        "--polarization", "ratio", "-f", "jpeg", "--autoscale", "standard"]),
+    ("exact multiband robust jpeg 800", "main", "jpg", "SIZE_800", [
+        "--polarization", "multiband", "-f", "jpeg", "--autoscale", "robust",
+        "--pad"]),
+    ("exact full clahe tiff", "ew", "tiff", None, ["--polarization", "hh"]),
+)
 # the warm runs that --walls traces under torch.profiler
-TRACED = ("gray clahe tiff", "full clahe tiff")
+TRACED = ("gray clahe tiff", "full clahe tiff", "exact full clahe tiff")
 # label -> (CLI arguments, output) of each run driven, for --walls
 DRIVEN: dict = {}
 # the path whose launch count each kernel reports in the kernels line
@@ -1714,20 +1754,232 @@ def phase_jpeg_800(safe: Path, work: Path):
                 dct, 1, n_mcus)
 
 
-def phase_full(work: Path):
-    """The CLI's defaults at original size on a 10000^2 HH+HV product, and
-    its synRGB JPEG; the CLAHE kernels at 100 MP."""
+class _CoderInput:
+    """While active, records the planes each call of the native pixel JPEG
+    entries is handed ((1, h, w) gray or (3, h, w) YCbCr u8), in order."""
+
+    def __enter__(self):
+        import numpy as np
+
+        from sarpro_tpu_torch import _native
+
+        self.planes = []
+        self._orig = (_native.jpeg_encode_gray, _native.jpeg_encode_ycbcr444)
+        gray, ycc = self._orig
+
+        def rec_gray(y, n_threads=0):
+            self.planes.append(np.array(y)[None])
+            return gray(y, n_threads)
+
+        def rec_ycc(y, cb, cr, n_threads=0):
+            self.planes.append(np.stack([y, cb, cr]))
+            return ycc(y, cb, cr, n_threads)
+
+        _native.jpeg_encode_gray, _native.jpeg_encode_ycbcr444 = (rec_gray,
+                                                                  rec_ycc)
+        return self
+
+    def __exit__(self, *exc):
+        from sarpro_tpu_torch import _native
+
+        _native.jpeg_encode_gray, _native.jpeg_encode_ycbcr444 = self._orig
+
+
+def _check_mcus_f64(label: str, blob: bytes, planes, n_mcus: int):
+    """The JPEG's first `n_mcus` MCUs entropy-decode to within +-1 of an f64
+    DCT of the planes the pixel coder was handed (tests/oracle.py's
+    jpeg_dct_oracle; the native FDCT's contract, tests/test_native.py:276).
+    Returns the decoded blocks."""
+    import numpy as np
+
+    sys.path.insert(0, str(ROOT / "tests"))
+    from oracle import decode_baseline_jpeg_coeffs, jpeg_dct_oracle
+
+    ncomp, h, w = planes.shape
+    blocks, got = decode_baseline_jpeg_coeffs(blob, n_mcus)
+    if got != ncomp:
+        raise AssertionError(f"{label}: {got} JPEG components, expected "
+                             f"{ncomp}")
+    pad = np.pad(planes, ((0, 0), (0, -h % 8), (0, -w % 8)), mode="edge")
+    want = jpeg_dct_oracle(pad).reshape(ncomp, -1, 8, 8)[:, :n_mcus]
+    zz = np.array(_zigzag())
+    # the oracle's transposed blocks in zigzag order, MCU-interleaved
+    want = want[:, :, zz[:, 1], zz[:, 0]].transpose(1, 0, 2).reshape(-1, 64)
+    dec = np.array(blocks, np.int64)
+    err = np.abs(dec - want).max()
+    if err > 1:
+        raise AssertionError(f"{label}: a JPEG coefficient is {err} from the "
+                             "f64 DCT of the coder's input")
+    log(f"exact ({label}): {n_mcus} MCUs of the JPEG within +-1 of the f64 "
+        f"DCT of the coder's input (max |diff| {err})")
+    return dec
+
+
+def _exact_band_ms(label: str, band, strategy, bit_depth) -> None:
+    """Exact mode's band pipeline on a resident band: its elapsed time on
+    the device between two CUDA events (the host's round trips included),
+    its kernels' time in a torch.profiler trace, and its host syncs
+    (torch.cuda's sync debug mode, counted)."""
+    import warnings
+
     import torch
 
-    from sarpro_tpu_torch.core import fused
+    from sarpro_tpu_torch.core import pipeline
+
+    def run():
+        return pipeline.process_scalar_data_pipeline(band, bit_depth,
+                                                     strategy)
+
+    run()
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    t0 = time.perf_counter()
+    start.record()
+    run()
+    end.record()
+    end.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            run()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = sum("synchroniz" in str(w.message) for w in caught)
+    log(f"exact ({label}): band pipeline {start.elapsed_time(end):.3f} ms "
+        f"between CUDA events (host {wall:.2f} ms), kernels "
+        f"{profiled_ms(run, reps=3):.3f} ms (profiler), {syncs} host syncs "
+        f"a band")
+
+
+def _buffer_kernels_vs_plain(label: str, what: str, **kw):
+    """process_safe_to_buffer on the card with the kernels (launch counts
+    read), then under force_plain(): bit-equal arrays. Returns the first."""
+    import numpy as np
+
+    from sarpro_tpu_torch import api, ops
+
+    ops.reset_launch_counts()
+    a = api.process_safe_to_buffer(device=DEVICE, **kw)
+    launched = {k: v for k, v in ops.launch_counts().items() if v}
+    with ops.force_plain():
+        b = api.process_safe_to_buffer(device=DEVICE, **kw)
+    x, y = getattr(a, what), getattr(b, what)
+    if x is None or x.shape != y.shape or not np.array_equal(x, y):
+        raise AssertionError(f"{label}: process_safe_to_buffer differs under "
+                             "force_plain()")
+    log(f"exact ({label}): process_safe_to_buffer {what} {x.dtype} "
+        f"{x.shape} bit-equal with the kernels ({launched}) and under "
+        "force_plain()")
+    return x
+
+
+def phase_exact(safe: Path, work: Path) -> Path:
+    """EXACT_RUNS through the CLI without --fast (each run twice, the second
+    with its launch counts checked against PATHS, then once with --fast),
+    the files checked; process_safe_to_buffer with the kernels and under
+    force_plain(); the band pipeline's device time and host syncs. Writes
+    and returns the 10000^2 HH+HV product the full-resolution phase reuses."""
+    import numpy as np
+    import torch
+
+    from sarpro_tpu_torch import _native
     from sarpro_tpu_torch.io import safe as tsafe
+    from sarpro_tpu_torch.types import (
+        AutoscaleStrategy,
+        BitDepth,
+        OutputFormat,
+        Polarization,
+    )
 
     t0 = time.perf_counter()
     # an affine geotransform, so the TIFF carries one
     ew = _write_safe(work / "ew", name=EW_NAME, pols=("hh", "hv"),
                      shape=(EW_SIDE, EW_SIDE), with_affine_geotransform=True)
-    log(f"full: wrote {ew.name} ({EW_SIDE}x{EW_SIDE} u16 HH+HV) in "
+    log(f"exact: wrote {ew.name} ({EW_SIDE}x{EW_SIDE} u16 HH+HV) in "
         f"{time.perf_counter() - t0:.1f} s")
+    safes = {"main": safe, "ew": ew}
+    outs, coded = {}, {}
+    sizes = {"SIZE": SIZE, "SIZE_800": SIZE_800}
+    for label, which, suffix, size, args in EXACT_RUNS:
+        out = work / f"{label.replace(' ', '_')}.{suffix}"
+        argv = ["-i", str(safes[which])] + args + (
+            ["--size", str(sizes[size])] if size else [])
+        with _CoderInput() as rec:
+            _drive(f"first {label}", argv, out)
+        first = out.read_bytes()
+        torch.cuda.reset_peak_memory_stats()
+        wall, _, _ = _drive(label, argv, out)
+        peak = torch.cuda.max_memory_allocated()
+        if out.read_bytes() != first:
+            raise AssertionError(f"{label}: the second run wrote other bytes")
+        fast = _cli_wall(f"fast {label}", argv + ["--fast"],
+                         work / f"fast_{out.name}")
+        log(f"exact: {label} warm wall {wall * 1e3:.1f} ms, the same "
+            f"arguments with --fast {fast * 1e3:.1f} ms, device peak "
+            f"{peak / 2**20:.0f} MiB (max_memory_allocated)")
+        outs[label], coded[label] = out, rec.planes
+        if suffix == "jpg":
+            _check_jpeg(label, out)
+
+    _check_utm("exact clahe auto jpeg", outs["exact clahe auto jpeg"])
+    planes, = coded["exact clahe auto jpeg"]
+    _check_mcus_f64("exact clahe auto jpeg",
+                    outs["exact clahe auto jpeg"].read_bytes(), planes, 256)
+    n_mcus = (SIZE_800 // 8) ** 2
+    threads = _native.coder_threads(SIZE_800, 16)
+    for label in ("exact ratio jpeg 800", "exact multiband robust jpeg 800"):
+        planes, = coded[label]
+        dec = _check_mcus_f64(label, outs[label].read_bytes(), planes, n_mcus)
+        p = [np.ascontiguousarray(x) for x in planes]
+        blob16 = (_native.jpeg_encode_gray(p[0], n_threads=16) if len(p) == 1
+                  else _native.jpeg_encode_ycbcr444(*p, n_threads=16))
+        dec16 = _check_mcus_f64(f"{label} coded on 16 threads ({threads} "
+                                "bands)", blob16, planes, n_mcus)
+        if not np.array_equal(dec, dec16):
+            raise AssertionError(f"{label}: the 16-thread stream holds other "
+                                 "coefficients")
+    _check_tiff("exact adaptive u16 cubic tiff",
+                outs["exact adaptive u16 cubic tiff"], "uint16", SIZE, 1,
+                False, "VH")
+    full_tiff, = _check_tiff("exact full clahe tiff",
+                             outs["exact full clahe tiff"], "uint8", EW_SIDE,
+                             1, True, "HH")
+
+    clahe, u8 = AutoscaleStrategy.CLAHE, BitDepth.U8
+    _buffer_kernels_vs_plain(
+        "multiband clahe 2048 pad", "rgb", input=safe,
+        polarization=Polarization.from_cli("multiband"), autoscale=clahe,
+        bit_depth=u8, target_size=SIZE, pad=True,
+        output_format=OutputFormat.JPEG)
+    gray = _buffer_kernels_vs_plain(
+        "hh clahe 100 MP", "gray", input=ew,
+        polarization=Polarization.from_cli("hh"), autoscale=clahe,
+        bit_depth=u8)
+    if not np.array_equal(gray, full_tiff):
+        raise AssertionError("exact full clahe tiff: the TIFF does not hold "
+                             "process_safe_to_buffer's band")
+
+    _, band = tsafe.open_band(safe, "vv", DEVICE, SIZE)
+    _exact_band_ms(f"vv clahe u8 {SIZE}", band, clahe, u8)
+    _exact_band_ms(f"vv adaptive u16 {SIZE}", band,
+                   AutoscaleStrategy.ADAPTIVE, BitDepth.U16)
+    _, band = tsafe.open_band(ew, "hh", DEVICE)
+    _exact_band_ms(f"hh clahe u8 {EW_SIDE}", band, clahe, u8)
+    del band
+    torch.cuda.empty_cache()
+    return ew
+
+
+def phase_full(work: Path, ew: Path):
+    """The CLI's defaults at original size on the 10000^2 HH+HV product,
+    and its synRGB JPEG, in fast mode; the CLAHE kernels at 100 MP."""
+    import torch
+
+    from sarpro_tpu_torch.core import fused
+    from sarpro_tpu_torch.io import safe as tsafe
+
     walls, counts = {}, {}
     tiff_argv = ["-i", str(ew), "--polarization", "hh", "--fast"]
     out = work / "full_clahe.tiff"
@@ -1850,7 +2102,7 @@ def main() -> int:
                                  "GPU (see the module's docstring).")
     ap.add_argument("--walls", type=int, default=0, metavar="N",
                     help="after the checks, run every warm path N (>= 3) "
-                    "times more, interleaved, and trace two of them")
+                    "times more, interleaved, and trace three of them")
     args = ap.parse_args()
     if args.walls and args.walls < 3:
         ap.error("--walls needs 3 runs or more")
@@ -1866,7 +2118,8 @@ def main() -> int:
         phase_resident(safe, blobs)
         gray_walls, _ = phase_gray(safe, work)
         phase_jpeg_800(safe, work)
-        full_walls, _ = phase_full(work)
+        ew = phase_exact(safe, work)
+        full_walls, _ = phase_full(work, ew)
         if args.walls:
             phase_walls(args.walls, safe, work, smi)
     finally:

@@ -7,11 +7,12 @@ PyTorch tensor code plus hand-written CUDA kernels for Hopper (`ops/`,
 native codec's bindings) are its own copies, held equal to the originals by
 tests/test_torch_host_copies.py.
 
-Ported so far: fast mode (`python -m sarpro_tpu_torch.cli ... --fast`) on
-one device, every route of it: single bands, the five polarization
+Ported so far, on one device: exact mode (the default of
+`python -m sarpro_tpu_torch.cli`, and the in-memory API) and fast mode
+(`--fast`), every route of each: single bands, the five polarization
 operations, multiband GeoTIFF and synthetic-RGB JPEG, grayscale JPEG, every
-autoscale strategy, u8 or u16, with or without reprojection. Exact mode,
-streamed full-resolution scenes above 192 MP, sharding and batch raise
+autoscale strategy, u8 or u16, with or without reprojection. Streamed
+full-resolution scenes above 192 MP, sharding and batch raise
 NotImplementedError naming their ROADMAP item.
 """
 

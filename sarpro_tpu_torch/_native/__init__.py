@@ -96,6 +96,11 @@ def _load() -> Optional[ctypes.CDLL]:
     lib.box_reduce_u16_f32.restype = None
     lib.box_reduce_u16_f32.argtypes = [u16p, i64, i64, f32p, i64, i64, i64,
                                        i32p, i32p, i32p, i32p]
+    lib.jpeg_encode_ycbcr444.restype = i64
+    lib.jpeg_encode_ycbcr444.argtypes = [u8p, u8p, u8p, i64, i64, u8p, i64,
+                                         ctypes.c_int32]
+    lib.jpeg_encode_gray.restype = i64
+    lib.jpeg_encode_gray.argtypes = [u8p, i64, i64, u8p, i64, ctypes.c_int32]
     i16p = ctypes.POINTER(ctypes.c_int16)
     lib.jpeg_encode_coeffs444.restype = i64
     lib.jpeg_encode_coeffs444.argtypes = [i16p, i16p, i16p, i64, i64, u8p,
@@ -248,3 +253,36 @@ def jpeg_encode_coeffs_gray(cy: np.ndarray, w: int, h: int,
     return out[:n].tobytes()
 
 
+def jpeg_encode_ycbcr444(y: np.ndarray, cb: np.ndarray, cr: np.ndarray,
+                         n_threads: int = 0) -> bytes:
+    """Planar full-range YCbCr u8 -> baseline JPEG q100 4:4:4 bytes (the
+    coder's own level shift, FDCT and quantization on the host)."""
+    lib = _load()
+    h, w = y.shape
+    for p in (y, cb, cr):
+        if p.dtype != np.uint8 or not p.flags.c_contiguous or p.shape != (h, w):
+            raise ValueError("YCbCr planes must be C-contiguous uint8 of one "
+                             "shape")
+    # worst case ~27 bits/coeff + stuffing per component: 5 bytes/px/comp
+    cap = w * h * 3 * 5 + (1 << 16)
+    out = np.empty(cap, np.uint8)
+    n = lib.jpeg_encode_ycbcr444(_u8p(y), _u8p(cb), _u8p(cr), w, h,
+                                 _u8p(out), cap, coder_threads(h, n_threads))
+    if n < 0:
+        raise ValueError("jpeg encode overflow")
+    return out[:n].tobytes()
+
+
+def jpeg_encode_gray(y: np.ndarray, n_threads: int = 0) -> bytes:
+    """u8 plane -> baseline grayscale JPEG q100 bytes."""
+    lib = _load()
+    h, w = y.shape
+    if y.dtype != np.uint8 or not y.flags.c_contiguous:
+        raise ValueError("the gray plane must be C-contiguous uint8")
+    cap = w * h * 5 + (1 << 16)
+    out = np.empty(cap, np.uint8)
+    n = lib.jpeg_encode_gray(_u8p(y), w, h, _u8p(out), cap,
+                             coder_threads(h, n_threads))
+    if n < 0:
+        raise ValueError("jpeg encode overflow")
+    return out[:n].tobytes()

@@ -1,24 +1,66 @@
-"""File-output API of the port (port of sarpro_tpu/api.py:345-357 and
-:409-487): a GRD SAFE to a GeoTIFF or JPEG on the GPU.
+"""High-level API of the port (port of sarpro_tpu/api.py): a GRD SAFE to a
+GeoTIFF or JPEG, or to in-memory arrays, on the GPU.
 
-Fast mode runs every route of the JAX package's fast mode on one device:
-single bands (vv, vh, hh, hv), the five polarization operations, multiband
-TIFF and the multiband synRGB JPEG, every strategy, u8 or u16 TIFF, with or
-without reprojection (`target_crs` none, auto or an EPSG code). Exact mode
-(ROADMAP queue 1 #5), full-resolution scenes above
-`fast_path.BIG_SCENE_PIXELS` (#6) and sharding over several devices (#7)
-raise NotImplementedError naming their ROADMAP item.
+Exact mode, the default of `process_safe_to_path` and of the CLI without
+`--fast`, is the reference's semantics (api.py:345-407): the reader loads
+each band (warped to a target CRS when one is set, else decimated on read
+at the target size, else as stored), then `core/save` runs the band
+pipeline with host-f64 statistics and CLAHE CDFs around the device
+kernels. Fast mode (`fast=True`, :409-487) runs the fused device programs
+of `core/fused` instead. Both run every route: single bands (vv, vh, hh,
+hv), the five polarization operations, multiband TIFF and the multiband
+synRGB JPEG, every strategy, u8 or u16 TIFF, with or without reprojection.
+
+The in-memory and typed API (`ProcessedImage`, `process_safe_to_buffer`,
+`process_safe_to_buffer_with_mode`, `process_safe_with_options`,
+`save_image`, `save_multiband_image`, `load_polarization`,
+`load_operation`, :126-243 and :490-554) runs exact mode; arrays come back
+as numpy.
+
+Every entry point computes on `device` ("cuda" unless the caller asks for
+the CPU) and raises RuntimeError when CUDA is asked for and absent. Still
+raising NotImplementedError with their ROADMAP item: full-resolution scenes
+above `fast_path.BIG_SCENE_PIXELS`, which both modes send to the streamed
+path (queue 1 #6), and sharding over several devices (#7).
 """
 from __future__ import annotations
 
+import dataclasses
 import logging
+from pathlib import Path
+from typing import Optional
 
+import numpy as np
 import torch
 
 from .core import fast_path, fused, ops
-from .io.safe import TargetCrsArg, open_band, open_dual_pol, open_pair
+from .core.pipeline import process_scalar_data_pipeline
+from .core.resize import resize_image_data
+from .core.save import (
+    save_processed_image,
+    save_processed_multiband_image_sequential,
+)
+from .core.synthetic_rgb import create_synthetic_rgb_by_mode_and_strategy
+from .errors import ProcessingError, SafeParseError
+from .io.safe import (
+    SafeMetadata,
+    TargetCrsArg,
+    open_band,
+    open_dual_pol,
+    open_pair,
+    parse_comprehensive_metadata,
+)
 from .params import ProcessingParams
-from .types import OutputFormat, ProcessingOperation
+from .types import (
+    AutoscaleStrategy,
+    BitDepth,
+    BitDepthArg,
+    OutputFormat,
+    Polarization,
+    PolarizationOperation,
+    ProcessingOperation,
+    SyntheticRgbMode,
+)
 
 logger = logging.getLogger("sarpro")
 
@@ -47,20 +89,84 @@ def _resolve_target_args(params: ProcessingParams):
     return target_arg, resample
 
 
-def process_safe_to_path(input, output, params: ProcessingParams,
-                         fast: bool = False, shard_devices: int = 0,
-                         device="cuda") -> None:
-    """SAFE -> file, driven by ProcessingParams, computing on `device`."""
-    if not fast:
-        raise NotImplementedError("exact mode is not ported yet; pass "
-                                  "fast=True (ROADMAP queue 1 #5, exact "
-                                  "mode)")
-    if shard_devices:
-        raise NotImplementedError("multi-GPU sharding is not ported yet "
-                                  "(ROADMAP queue 1 #7, multi-GPU)")
+def _device(device) -> torch.device:
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("device 'cuda' requested but CUDA is not available")
+    return device
+
+
+def _op_what(op: PolarizationOperation) -> str:
+    """The caller's name in the missing-pair error (api.py:113-116)."""
+    return f"Operation {op.metadata_label}"
+
+
+def _multiband_operation(is_vvvh: bool) -> ProcessingOperation:
+    return (ProcessingOperation.MULTIBAND_VV_VH if is_vvvh
+            else ProcessingOperation.MULTIBAND_HH_HV)
+
+
+def _is_big_original(input) -> bool:
+    """A scene whose annotated size is above BIG_SCENE_PIXELS (api.py:
+    363-370); an unreadable annotation is not big."""
+    try:
+        meta = parse_comprehensive_metadata(Path(input))
+    except (OSError, SafeParseError):  # the exact path reports it
+        return False
+    return 0 < meta.lines * meta.samples > fast_path.BIG_SCENE_PIXELS
+
+
+def process_safe_to_path(input, output, params: ProcessingParams,
+                         fast: bool = False, shard_devices: int = 0,
+                         device="cuda") -> None:
+    """SAFE -> file, driven by ProcessingParams, computing on `device`
+    (reference: api/mod.rs:539-674): exact mode, or fast mode with
+    `fast=True`."""
+    if shard_devices:
+        raise NotImplementedError("multi-GPU sharding is not ported yet "
+                                  "(ROADMAP queue 1 #7, multi-GPU)")
+    device = _device(device)
+    if fast:
+        return _process_safe_to_path_fast(input, output, params, device)
+    if params.size is None and _is_big_original(input):
+        # past the exact mode's device budget the JAX package takes the
+        # streamed fast-mode path, which raises here (queue 1 #6)
+        logger.warning("scene exceeds the exact-mode device budget; using "
+                       "the streamed fast-mode pipeline")
+        return _process_safe_to_path_fast(input, output, params, device)
+    bit_depth = params.bit_depth.to_bit_depth()
+    target_arg, resample = _resolve_target_args(params)
+    load = dict(target_size=params.size, target_crs=target_arg,
+                resample_alg=resample)
+    pol = params.polarization
+    common = dict(format=params.format, bit_depth=bit_depth,
+                  target_size=params.size, pad=params.pad,
+                  strategy=params.autoscale)
+    if pol.kind in ("vv", "vh", "hh", "hv"):
+        metadata, band = open_band(input, pol.kind, device, **load)
+        save_processed_image(band, output, metadata=metadata,
+                             operation=ProcessingOperation.SINGLE_BAND,
+                             **common)
+    elif pol.kind == "multiband":
+        scene = open_pair(input, device, "Multiband", **load)
+        save_processed_multiband_image_sequential(
+            scene.band1, scene.band2, output, metadata=scene.metadata,
+            operation=_multiband_operation(scene.is_vvvh),
+            syn_mode=params.synrgb_mode, **common)
+    else:
+        scene = open_pair(input, device, _op_what(pol.op), **load)
+        band = ops.OPERATIONS[pol.op.value](scene.band1, scene.band2)
+        metadata = scene.metadata
+        del scene  # the pair is not needed past the operation
+        save_processed_image(band, output, metadata=metadata,
+                             operation=ProcessingOperation.PolarOp(pol.op),
+                             **common)
+
+
+def _process_safe_to_path_fast(input, output, params: ProcessingParams,
+                               device: torch.device) -> None:
+    """Fast mode: the reader's downsample-on-read or warp, then the fused
+    device programs of core/fused (reference: api.py:409-487)."""
     bit_depth = params.bit_depth.to_bit_depth()
     target_arg, resample = _resolve_target_args(params)
     warping = target_arg not in (None, TargetCrsArg.NONE)
@@ -79,8 +185,8 @@ def process_safe_to_path(input, output, params: ProcessingParams,
         return
     if pol.kind == "op":
         op = pol.op
-        scene = open_pair(input, device, f"Operation {op.metadata_label}",
-                          size, target_crs=target_arg, resample_alg=resample)
+        scene = open_pair(input, device, _op_what(op), size,
+                          target_crs=target_arg, resample_alg=resample)
         # the operation combines the bands as loaded: already reduced
         band = ops.OPERATIONS[op.value](scene.band1, scene.band2)
         fast_path.save_single_band_fast(
@@ -102,7 +208,196 @@ def process_safe_to_path(input, output, params: ProcessingParams,
                               target_crs=target_arg, resample_alg=resample)
     fast_path.save_multiband_fast(
         scene.band1, scene.band2, output, params.format, bit_depth, size,
-        scene.metadata,
-        operation=(ProcessingOperation.MULTIBAND_VV_VH if scene.is_vvvh
-                   else ProcessingOperation.MULTIBAND_HH_HV),
+        scene.metadata, operation=_multiband_operation(scene.is_vvvh),
         syn_mode=params.synrgb_mode, staged_b1=scene.staged_band1, **common)
+
+
+# --------------------------------------------------------------------------
+# The in-memory and typed API (reference: api/mod.rs:51-449, :677-916)
+# --------------------------------------------------------------------------
+@dataclasses.dataclass
+class ProcessedImage:
+    """Result of in-memory processing (reference: api/mod.rs:51-62)."""
+
+    width: int
+    height: int
+    bit_depth: BitDepth
+    format: OutputFormat
+    gray: Optional[np.ndarray] = None          # single-band U8
+    gray16: Optional[np.ndarray] = None        # single-band U16
+    rgb: Optional[np.ndarray] = None           # interleaved RGB
+    gray_band2: Optional[np.ndarray] = None    # multiband second band U8
+    gray16_band2: Optional[np.ndarray] = None  # multiband second band U16
+    metadata: Optional[SafeMetadata] = None
+
+
+def _host(t: Optional[torch.Tensor]) -> Optional[np.ndarray]:
+    return None if t is None else t.cpu().numpy()
+
+
+def process_safe_to_buffer(
+    input,
+    polarization: Polarization,
+    autoscale: AutoscaleStrategy,
+    bit_depth: BitDepth,
+    target_size: Optional[int] = None,
+    pad: bool = False,
+    output_format: OutputFormat = OutputFormat.TIFF,
+    device="cuda",
+) -> ProcessedImage:
+    """In-memory processing, no disk output (reference: api/mod.rs:65-371).
+    The buffer path never warps (no target CRS)."""
+    return process_safe_to_buffer_with_mode(
+        input, polarization, autoscale, bit_depth, target_size, pad,
+        output_format, SyntheticRgbMode.DEFAULT, device=device,
+    )
+
+
+def process_safe_to_buffer_with_mode(
+    input,
+    polarization: Polarization,
+    autoscale: AutoscaleStrategy,
+    bit_depth: BitDepth,
+    target_size: Optional[int] = None,
+    pad: bool = False,
+    output_format: OutputFormat = OutputFormat.TIFF,
+    synrgb_mode: SyntheticRgbMode = SyntheticRgbMode.DEFAULT,
+    device="cuda",
+) -> ProcessedImage:
+    """reference: api/mod.rs:374-449. The bands load as the JAX reader
+    loads them without a target CRS: decimated on read at `target_size`,
+    else as stored."""
+    device = _device(device)
+    tiff = output_format is OutputFormat.TIFF
+
+    def run_single(band, metadata) -> ProcessedImage:
+        depth = bit_depth if tiff else BitDepth.U8
+        res = process_scalar_data_pipeline(band, depth, autoscale)
+        rows, cols = res.shape
+        fc, fr, f8, f16 = resize_image_data(
+            res.scaled_u8, res.scaled_u16, cols, rows, target_size, depth, pad
+        )
+        return ProcessedImage(
+            width=fc, height=fr, bit_depth=depth,
+            format=OutputFormat.TIFF if tiff else OutputFormat.JPEG,
+            gray=_host(f8), gray16=_host(f16), metadata=metadata.copy(),
+        )
+
+    if polarization.kind in ("vv", "vh", "hh", "hv"):
+        metadata, band = open_band(input, polarization.kind, device,
+                                   target_size)
+        return run_single(band, metadata)
+
+    if polarization.kind == "op":
+        scene = open_pair(input, device, _op_what(polarization.op),
+                          target_size)
+        band = ops.OPERATIONS[polarization.op.value](scene.band1, scene.band2)
+        return run_single(band, scene.metadata)
+
+    scene = open_pair(input, device, "Multiband", target_size)
+    depth = bit_depth if tiff else BitDepth.U8
+    res1 = process_scalar_data_pipeline(scene.band1, depth, autoscale)
+    rows, cols = res1.shape
+    fc, fr, f1_8, f1_16 = resize_image_data(
+        res1.scaled_u8, res1.scaled_u16, cols, rows, target_size, depth, pad
+    )
+    del res1
+    res2 = process_scalar_data_pipeline(scene.band2, depth, autoscale)
+    _c, _r, f2_8, f2_16 = resize_image_data(
+        res2.scaled_u8, res2.scaled_u16, cols, rows, target_size, depth, pad
+    )
+    del res2
+    if tiff:
+        return ProcessedImage(
+            width=fc, height=fr, bit_depth=bit_depth,
+            format=OutputFormat.TIFF, gray=_host(f1_8), gray16=_host(f1_16),
+            gray_band2=_host(f2_8), gray16_band2=_host(f2_16),
+            metadata=scene.metadata.copy(),
+        )
+    # JPEG multiband -> synthetic RGB (api/mod.rs:203-247, :394-438)
+    rgb = create_synthetic_rgb_by_mode_and_strategy(synrgb_mode, autoscale,
+                                                    f1_8, f2_8)
+    return ProcessedImage(
+        width=fc, height=fr, bit_depth=BitDepth.U8, format=OutputFormat.JPEG,
+        rgb=_host(rgb), metadata=scene.metadata.copy(),
+    )
+
+
+def process_safe_with_options(
+    input, output,
+    format: OutputFormat, bit_depth: BitDepth, polarization: Polarization,
+    autoscale: AutoscaleStrategy, size: Optional[int] = None, pad: bool = False,
+    device="cuda",
+) -> None:
+    """Typed convenience variant (reference: api/mod.rs:677-800)."""
+    params = ProcessingParams(
+        format=format,
+        bit_depth=BitDepthArg.U8 if bit_depth is BitDepth.U8 else BitDepthArg.U16,
+        polarization=polarization,
+        autoscale=autoscale,
+        size=size,
+        pad=pad,
+        target_crs=None,
+        resample_alg=None,
+        synrgb_mode=SyntheticRgbMode.DEFAULT,
+    )
+    process_safe_to_path(input, output, params, device=device)
+
+
+def _on_device(x, device) -> torch.Tensor:
+    """A numpy array or tensor of linear values on `device`."""
+    if not isinstance(x, torch.Tensor):
+        x = torch.from_numpy(np.array(x))  # a copy: the caller's may be read-only
+    return x.to(device)
+
+
+def save_image(
+    processed, output, format: OutputFormat, bit_depth: BitDepth,
+    target_size: Optional[int] = None, metadata: Optional[SafeMetadata] = None,
+    pad: bool = False,
+    autoscale: AutoscaleStrategy = AutoscaleStrategy.STANDARD,
+    operation: ProcessingOperation = ProcessingOperation.SINGLE_BAND,
+    device="cuda",
+) -> None:
+    """Typed save helper for single-band arrays (reference: api/mod.rs:803-826)."""
+    device = _device(device)
+    save_processed_image(
+        _on_device(processed, device), output, format, bit_depth, target_size,
+        metadata, pad, autoscale, operation,
+    )
+
+
+def save_multiband_image(
+    processed1, processed2, output, format: OutputFormat, bit_depth: BitDepth,
+    target_size: Optional[int] = None, metadata: Optional[SafeMetadata] = None,
+    pad: bool = False,
+    autoscale: AutoscaleStrategy = AutoscaleStrategy.STANDARD,
+    operation: ProcessingOperation = ProcessingOperation.MULTIBAND_VV_VH,
+    device="cuda",
+) -> None:
+    """Typed save helper for multiband arrays (reference: api/mod.rs:829-856)."""
+    device = _device(device)
+    save_processed_multiband_image_sequential(
+        _on_device(processed1, device), _on_device(processed2, device),
+        output, format, bit_depth, target_size, metadata, pad, autoscale,
+        operation, SyntheticRgbMode.DEFAULT,
+    )
+
+
+def load_polarization(input, pol: Polarization, device="cuda"):
+    """Load one polarization's band as stored (a device tensor) and its
+    metadata (reference: api/mod.rs:859-881)."""
+    if pol.kind in ("multiband", "op"):
+        raise ProcessingError(
+            "load_polarization expects a single polarization (vv/vh/hh/hv)"
+        )
+    metadata, band = open_band(input, pol.kind, _device(device))
+    return band, metadata.copy()
+
+
+def load_operation(input, op: PolarizationOperation, device="cuda"):
+    """An operation over the available pair, as stored (a device tensor),
+    and the metadata (reference: api/mod.rs:884-916)."""
+    scene = open_pair(input, _device(device), _op_what(op))
+    return (ops.OPERATIONS[op.value](scene.band1, scene.band2),
+            scene.metadata.copy())

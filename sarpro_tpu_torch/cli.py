@@ -1,10 +1,12 @@
 """Command line of the port: the JAX package's flags, run on the GPU (port
-of sarpro_tpu/cli.py:127-189).
+of sarpro_tpu/cli.py:127-189). Without `--fast` it runs exact mode, the
+reference's semantics with host-f64 statistics; `--fast` runs the fused
+device programs.
 
+    python -m sarpro_tpu_torch.cli -i X.SAFE -o out.tiff  # u8 VV CLAHE
     python -m sarpro_tpu_torch.cli -i X.SAFE -o out.jpg -f jpeg \\
         --polarization multiband --autoscale clahe --size 2048 --pad \\
-        --target-crs auto --resample-alg cubic --fast
-    python -m sarpro_tpu_torch.cli -i X.SAFE -o out.tiff --fast  # u8 VV CLAHE
+        --target-crs auto --resample-alg cubic [--fast]
 
 `build_parser`, `_parse_size` and `_params_from_args` are copies of the JAX
 package's (tests/test_torch_host_copies.py holds the parsed params equal),

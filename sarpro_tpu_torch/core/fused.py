@@ -36,14 +36,14 @@ from ..ops import (
     tile_histogram,
 )
 from ..types import AutoscaleStrategy, BitDepth
-from .clahe import CLAHE_BINS, CLIP_LIMIT, TILES_X, TILES_Y
+from .clahe import CLAHE_BINS, CLIP_LIMIT, TILES_X, TILES_Y, _clahe_bins
 from .numerics import as_f32, as_u16, round_half_up_nonneg
 from .synthetic_rgb import (
     FLOOR_MAX,
     FLOOR_MIN,
-    default_table_set,
     suppressed_table_sets,
 )
+from .synthetic_rgb import create_synthetic_rgb as _synrgb_default
 
 # sarpro_tpu/core/pipeline.py:32-35 and core/stats.py:24
 NUM_BINS = 4096
@@ -226,15 +226,6 @@ def _scale_u16_to_u8(q):
     return torch.clamp(val, 0.0, 255.0).to(torch.uint8)
 
 
-def _clahe_bins(norm, mask):
-    """Per-pixel CLAHE bin; masked pixels carry CLAHE_BINS (the kernels'
-    masked convention)."""
-    bin_ = round_half_up_nonneg(torch.clamp(norm, 0, 1)
-                                * float(np.float32(CLAHE_BINS - 1)))
-    bin_ = torch.clamp(bin_, 0, CLAHE_BINS - 1).to(torch.int32)
-    return torch.where(mask, bin_, CLAHE_BINS).to(torch.int32)
-
-
 def _clahe_thresholds(rows: int, cols: int, tile_h: int, tile_w: int,
                       device) -> torch.Tensor:
     """(tiles, 1) f32 clip thresholds, CLIP_LIMIT x each tile's mean bin
@@ -321,14 +312,6 @@ def _band_u8(dn: torch.Tensor, strategy: AutoscaleStrategy,
         return _tamed_quantize_u8(db, mask, low, high).to(torch.uint8)
     return _scale_u16_to_u8(_autoscale(db, mask, s, strategy, 255.0,
                                        *dn.shape))
-
-
-def _synrgb_default(b1: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
-    """Default-mode composition: the one default table set, no set index
-    and no water mask (reference: synthetic_rgb.rs:10-67)."""
-    rgb = synrgb_lookup(b1.reshape(-1), b2.reshape(-1),
-                        default_table_set(b1.device))
-    return rgb.reshape(b1.shape + (3,))
 
 
 def _suppressed_floor(hist: torch.Tensor, total_pixels: int) -> torch.Tensor:

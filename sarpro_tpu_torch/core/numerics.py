@@ -1,5 +1,6 @@
-"""Rounding helpers matching the reference's Rust numerics (port of
-sarpro_tpu/core/numerics.py), and the port's one place for uint16 casts."""
+"""Rounding and cast helpers matching the reference's Rust numerics (port
+of sarpro_tpu/core/numerics.py), and the port's one place for uint16
+casts."""
 from __future__ import annotations
 
 import torch
@@ -28,3 +29,16 @@ def as_u16(q: torch.Tensor) -> torch.Tensor:
     """f32-held u16 values -> uint16 through the int16 bit pattern (casts to
     uint16 itself are missing from some PyTorch builds)."""
     return q.to(torch.int32).to(torch.int16).view(torch.uint16)
+
+
+def trunc_sat_u16(x: torch.Tensor) -> torch.Tensor:
+    """Rust `as u16` from float: NaN -> 0, truncate toward zero, saturate to
+    [0, 65535]; uint16 out (through `as_u16`)."""
+    return as_u16(torch.clamp(torch.trunc(torch.nan_to_num(x, nan=0.0)),
+                              0.0, 65535.0))
+
+
+def trunc_sat_u8(x: torch.Tensor) -> torch.Tensor:
+    """Rust `as u8` from float: NaN -> 0, truncate, saturate to [0, 255]."""
+    return torch.clamp(torch.trunc(torch.nan_to_num(x, nan=0.0)),
+                       0.0, 255.0).to(torch.uint8)

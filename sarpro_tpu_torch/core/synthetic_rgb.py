@@ -1,5 +1,9 @@
-"""Synthetic-RGB tables (port of the table builders of
-sarpro_tpu/core/synthetic_rgb.py, whose module imports jax).
+"""Synthetic RGB composition from two u8 SAR bands (port of
+sarpro_tpu/core/synthetic_rgb.py).
+
+Reference semantics (synthetic_rgb.rs): the default mode (:10-67), the
+maritime-suppressed mode of Tamed and CLAHE (:88-178) and the mode
+dispatchers (:72-79, :182-197; every SyntheticRgbMode aliases Default).
 
 `default_luts` and `suppressed_luts` are copies of the JAX package's host
 f32 numpy builders (the reference's f32 LUT precomputation,
@@ -7,8 +11,10 @@ synthetic_rgb.rs:20-51 and :115-154); a test holds each copy bit-equal to
 the original. On the device a table set is one u8 row laid out as
 `ops.synrgb_lookup` expects, [lut_r (256) | lut_g (256) | lut_b (65536)]:
 the default mode has one set, and the suppressed mode stacks the sets of
-every reachable floor (3..40) and picks one by the floor it computes
-in-graph.
+every reachable floor (3..40), picked by `set_index`. Fast mode
+(core/fused) computes the floor on the device; exact mode
+(`create_synthetic_rgb_suppressed` here) computes it on the host from the
+combined 256-bin histogram, as the JAX package does, with one host sync.
 """
 from __future__ import annotations
 
@@ -16,6 +22,9 @@ import functools
 
 import numpy as np
 import torch
+
+from ..ops import histogram, synrgb_lookup
+from ..types import AutoscaleStrategy, SyntheticRgbMode
 
 GAMMA_R = np.float32(0.7)
 GAMMA_G = np.float32(0.9)
@@ -100,3 +109,60 @@ def suppressed_table_sets(device: torch.device) -> torch.Tensor:
     [lut_r | lut_g | lut_b] of `suppressed_luts(f)` (about 2.5 MB)."""
     return torch.from_numpy(_suppressed_table_sets_np()).to(
         device, non_blocking=True)
+
+
+def create_synthetic_rgb(band1: torch.Tensor,
+                         band2: torch.Tensor) -> torch.Tensor:
+    """Default synRGB (reference: synthetic_rgb.rs:10-67): the one default
+    table set, no set index and no water mask. u8 bands of one shape in,
+    (..., 3) u8 out."""
+    rgb = synrgb_lookup(band1.reshape(-1), band2.reshape(-1),
+                        default_table_set(band1.device))
+    return rgb.reshape(band1.shape + (3,))
+
+
+def _suppressed_floor(band1: torch.Tensor, band2: torch.Tensor) -> int:
+    """Combined-histogram p05 floor with cushion, on the host (reference:
+    synthetic_rgb.rs:92-113): the two bands' 256-bin histogram (one count
+    over both, no concatenated copy), copied back."""
+    hist = histogram((band1.reshape(-1), band2.reshape(-1)), 256)
+    hist = hist.cpu().numpy().astype(np.uint64)
+    total = int(band1.numel() + band2.numel())
+    target = int(np.floor(total * 0.05 + 0.5))  # .round() as u32, non-negative
+    cum = np.cumsum(hist)
+    floor_value = 0
+    idx = np.nonzero(cum >= target)[0]
+    if idx.size:
+        floor_value = int(idx[0])
+    return min(floor_value + FLOOR_MIN, FLOOR_MAX)
+
+
+def create_synthetic_rgb_suppressed(band1: torch.Tensor,
+                                    band2: torch.Tensor) -> torch.Tensor:
+    """Maritime-suppressed synRGB (reference: synthetic_rgb.rs:88-178): the
+    host floor picks the `suppressed_luts(floor)` set, and pixels whose
+    bands are both at or below the floor become black."""
+    floor_c = _suppressed_floor(band1, band2)
+    dev = band1.device
+    rgb = synrgb_lookup(
+        band1.reshape(-1), band2.reshape(-1), suppressed_table_sets(dev),
+        set_index=torch.full((), floor_c - FLOOR_MIN, dtype=torch.int32,
+                             device=dev),
+        water_floor=torch.full((), floor_c, dtype=torch.int32, device=dev))
+    return rgb.reshape(band1.shape + (3,))
+
+
+def create_synthetic_rgb_by_mode(mode: SyntheticRgbMode, band1,
+                                 band2) -> torch.Tensor:
+    """All modes currently alias Default (reference: synthetic_rgb.rs:72-79)."""
+    return create_synthetic_rgb(band1, band2)
+
+
+def create_synthetic_rgb_by_mode_and_strategy(
+    mode: SyntheticRgbMode, strategy: AutoscaleStrategy, band1, band2
+) -> torch.Tensor:
+    """Tamed/CLAHE -> suppressed mapping, otherwise default
+    (reference: synthetic_rgb.rs:182-197)."""
+    if strategy in (AutoscaleStrategy.TAMED, AutoscaleStrategy.CLAHE):
+        return create_synthetic_rgb_suppressed(band1, band2)
+    return create_synthetic_rgb_by_mode(mode, band1, band2)

@@ -2,7 +2,9 @@
 originals, on the CPU: the SAFE parser and file discovery, the raster
 reader, geodesy, the TIFF codec and writers, the world file, .prj and JSON
 sidecar, the CLI parser, chip_smoke.py's copy of the fixture SAFE writer,
-and the port's own build of the native codec.
+the port's own build of the native codec and its pixel JPEG entries, and
+exact mode's host pieces: the stats module, the CLAHE CDFs, the quantized
+Lanczos3 resize and the padding.
 
 Everything is held exactly: equal fields, bit-equal arrays, byte-identical
 files. The one field that differs by nature is a parse's
@@ -357,3 +359,192 @@ def test_native_jpeg_holds_the_coefficients(codec, rng, shape):
     got, ncomp = decode_baseline_jpeg_coeffs(gray, n)
     assert ncomp == 1
     assert got[0] == [int(blocks[0, 0][col, row]) for row, col in zz]
+
+
+# ---------------------------------------------------------------------------
+# exact mode's host pieces: stats, the CLAHE CDFs, the quantized resize
+# ---------------------------------------------------------------------------
+def _code_of(module):
+    """A module's source below its docstring."""
+    import inspect
+
+    src = inspect.getsource(module)
+    return src[src.index("from __future__"):]
+
+
+def test_stats_copy_is_the_original():
+    from sarpro_tpu.core import stats as jstats
+    from sarpro_tpu_torch.core import stats as tstats
+
+    assert _code_of(tstats) == _code_of(jstats)
+
+
+def _random_hist(rng, count):
+    hist = np.zeros(4096, np.uint64)
+    np.add.at(hist, rng.integers(0, 4096, count), 1)
+    return hist
+
+
+@pytest.mark.parametrize("count", [1, 2, 37, 5000])
+def test_stats_copy_bit_equal(rng, count):
+    from sarpro_tpu.core import stats as jstats
+    from sarpro_tpu.types import AutoscaleStrategy as JStrategy
+    from sarpro_tpu_torch.core import stats as tstats
+    from sarpro_tpu_torch.types import AutoscaleStrategy
+
+    hist = _random_hist(rng, count)
+    args = (hist, count, -23.5, 17.25, -3.1, 6.7)
+    t, j = tstats.stats_from_histogram(*args), jstats.stats_from_histogram(
+        *args)
+    _fields_equal(t, j)
+    for p in (0.0, 0.01, 0.5, 0.99, 1.0):
+        assert tstats.estimate_percentile(hist, count, -23.5, 17.25, p) == \
+            jstats.estimate_percentile(hist, count, -23.5, 17.25, p)
+    db = rng.normal(-10, 6, (31, 47)).astype(np.float32)
+    valid = rng.random(db.shape) < 0.9
+    _fields_equal(tstats.compute_histogram_stats_host(db, valid),
+                  jstats.compute_histogram_stats_host(db, valid))
+    for s in AutoscaleStrategy:
+        _fields_equal(tstats.advanced_window(t, s),
+                      jstats.advanced_window(j, JStrategy(s.value)))
+    _fields_equal(tstats.standard_window(t), jstats.standard_window(j))
+    for copol in (True, False):
+        w = tstats.tamed_synrgb_window(t, copol)
+        _fields_equal(w, jstats.tamed_synrgb_window(j, copol))
+        assert w.range == jstats.tamed_synrgb_window(j, copol).range
+    for kind in ("empty", "degenerate"):
+        a = (tstats.HistogramStats.empty() if kind == "empty"
+             else tstats.HistogramStats.degenerate(5, -2.0, -2.0, 0.0))
+        b = (jstats.HistogramStats.empty() if kind == "empty"
+             else jstats.HistogramStats.degenerate(5, -2.0, -2.0, 0.0))
+        _fields_equal(a, b)
+
+
+@pytest.mark.parametrize("rows,cols", [(48, 64), (37, 53), (8, 9), (300, 7)])
+@pytest.mark.parametrize("skew", [0.0, 0.9])
+def test_clip_redistribute_cdf_bit_equal(rng, rows, cols, skew):
+    """The host's f64 CLAHE CDFs, on tile histograms from clipped-heavy
+    (skewed into few bins) to flat."""
+    from sarpro_tpu.core import clahe as jclahe
+    from sarpro_tpu_torch.core import clahe as tclahe
+
+    tile_h, tile_w = -(-rows // 8), -(-cols // 8)
+    bins = rng.integers(0, 256, rows * cols)
+    bins[rng.random(bins.size) < skew] = 17
+    r, c = np.divmod(np.arange(rows * cols), cols)
+    tile = np.minimum(r // tile_h, 7) * 8 + np.minimum(c // tile_w, 7)
+    hists = np.bincount(tile * 256 + bins, minlength=64 * 256).astype(np.int32)
+    got = tclahe._clip_redistribute_cdf(hists, rows, cols, tile_h, tile_w)
+    want = jclahe._clip_redistribute_cdf(hists, rows, cols, tile_h, tile_w)
+    assert got.dtype == np.float64 and got.shape == (64, 256)
+    np.testing.assert_array_equal(got, want)
+
+
+# (rows, cols, target_size): the columns pass and the rows pass up to 24 taps
+# (the JAX package's unrolled loop) and past it (its dot), one pass only, the
+# skip at the target size and the upscale no-op
+RESIZES = [(48, 64, 40), (37, 53, 29), (300, 200, 64), (480, 640, 128),
+           (64, 30, 48), (40, 64, 64), (37, 53, 80)]
+
+
+@pytest.mark.parametrize("rows,cols,size", RESIZES)
+@pytest.mark.parametrize("depth", ["u8", "u16"])
+def test_quantized_resize_bit_equal(rng, rows, cols, size, depth):
+    import torch
+
+    from sarpro_tpu.core import resize as jresize
+    from sarpro_tpu.types import BitDepth as JBitDepth
+    from sarpro_tpu_torch.core import resize as tresize
+    from sarpro_tpu_torch.types import BitDepth
+
+    dtype = np.uint8 if depth == "u8" else np.uint16
+    data = rng.integers(0, np.iinfo(dtype).max + 1, (rows, cols)).astype(dtype)
+    tc, tr = jresize.calculate_resize_dimensions(cols, rows, size)
+    assert tresize.calculate_resize_dimensions(cols, rows, size) == (tc, tr)
+    fj, ft = ((jresize.resize_u8_image, tresize.resize_u8_image) if depth ==
+              "u8" else (jresize.resize_u16_image, tresize.resize_u16_image))
+    got = ft(torch.from_numpy(data), cols, rows, tc, tr)
+    want = np.asarray(fj(data, cols, rows, tc, tr))
+    assert got.numpy().dtype == want.dtype
+    np.testing.assert_array_equal(got.numpy(), want)
+    for pad in (False, True):
+        u8, u16 = ((data, None) if depth == "u8" else (None, data))
+        t_out = tresize.resize_image_data_with_meta(
+            None if u8 is None else torch.from_numpy(u8),
+            None if u16 is None else torch.from_numpy(u16), cols, rows, size,
+            BitDepth(depth), pad)
+        j_out = jresize.resize_image_data_with_meta(u8, u16, cols, rows, size,
+                                                    JBitDepth(depth), pad)
+        assert t_out[:2] + t_out[4:] == j_out[:2] + j_out[4:]
+        for a, b in zip(t_out[2:4], j_out[2:4]):
+            assert (a is None) == (b is None)
+            if a is not None:
+                np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+        assert tresize.resize_image_data(
+            *(None if v is None else torch.from_numpy(v) for v in (u8, u16)),
+            cols, rows, size, BitDepth(depth), pad)[:2] == j_out[:2]
+
+
+@pytest.mark.parametrize("rows,cols", [(30, 50), (50, 30), (40, 40)])
+def test_add_padding_to_square_bit_equal(rng, rows, cols):
+    import torch
+
+    from sarpro_tpu.core import resize as jresize
+    from sarpro_tpu.types import BitDepth as JBitDepth
+    from sarpro_tpu_torch.core import resize as tresize
+    from sarpro_tpu_torch.types import BitDepth
+
+    u8 = rng.integers(0, 256, (rows, cols)).astype(np.uint8)
+    u16 = rng.integers(0, 65536, (rows, cols)).astype(np.uint16)
+    t8, _ = tresize.add_padding_to_square(torch.from_numpy(u8), None, cols,
+                                          rows, BitDepth.U8)
+    j8, _ = jresize.add_padding_to_square(u8, None, cols, rows, JBitDepth.U8)
+    np.testing.assert_array_equal(t8.numpy(), np.asarray(j8))
+    _, t16 = tresize.add_padding_to_square(None, torch.from_numpy(u16), cols,
+                                           rows, BitDepth.U16)
+    _, j16 = jresize.add_padding_to_square(None, u16, cols, rows,
+                                           JBitDepth.U16)
+    assert t16.dtype == torch.uint16
+    np.testing.assert_array_equal(t16.numpy(), np.asarray(j16))
+    with pytest.raises(ValueError, match="U16 data required"):
+        tresize.add_padding_to_square(None, None, cols, rows, BitDepth.U16)
+
+
+@pytest.mark.parametrize("shape", [(48, 64), (37, 53)])
+def test_native_pixel_entries_match_the_jax_bindings(codec, rng, monkeypatch,
+                                                     tmp_path, shape):
+    """The port's pixel entries give the JAX package's bindings' streams
+    (same library sources; the JAX package's own build is stood in for by
+    the port's), at every thread count whose band split is sound; every
+    MCU within +-1 of an f64 DCT of the planes."""
+    from oracle import jpeg_dct_oracle
+    from sarpro_tpu import _native as jnative
+
+    lib_dir = tmp_path / "jax_native"
+    lib_dir.mkdir()
+    (lib_dir / "tiffcodec.so").symlink_to(t_native._build())
+    monkeypatch.setattr(jnative, "__file__", str(lib_dir / "__init__.py"))
+    monkeypatch.setattr(jnative, "_TRIED", False)
+    monkeypatch.setattr(jnative, "_LIB", None)
+    planes = rng.integers(0, 256, (3,) + shape).astype(np.uint8)
+    rows = -(-shape[0] // 8)
+    for n in (1, 2, 3, 5):
+        if (min(n, rows) - 1) * -(-rows // min(n, rows)) >= rows:
+            continue  # a split the JAX bindings would abort on
+        assert codec.jpeg_encode_gray(planes[0], n) == \
+            jnative.jpeg_encode_gray(planes[0], n)
+        assert codec.jpeg_encode_ycbcr444(*planes, n) == \
+            jnative.jpeg_encode_ycbcr444(*planes, n)
+    blob = codec.jpeg_encode_ycbcr444(*planes)
+    h, w = shape
+    padded = np.pad(planes, ((0, 0), (0, -h % 8), (0, -w % 8)), mode="edge")
+    want = jpeg_dct_oracle(padded).reshape(3, -1, 8, 8)
+    got, ncomp = decode_baseline_jpeg_coeffs(blob, want.shape[1])
+    assert ncomp == 3
+    zz = chip_smoke._zigzag()
+    for m in range(want.shape[1]):
+        for c in range(3):
+            exp = [int(want[c, m][col, row]) for row, col in zz]
+            assert max(abs(a - b) for a, b in zip(got[m * 3 + c], exp)) <= 1
+    with pytest.raises(ValueError, match="C-contiguous uint8"):
+        codec.jpeg_encode_gray(planes[0].astype(np.uint16))

@@ -78,6 +78,25 @@ def test_cpu_slice_runs_with_jax_and_pillow_blocked(tmp_path):
         assert TiffReader(sys.argv[2] + "/vv.tiff").read(1).dtype == "uint16"
         assert TiffReader(sys.argv[2] + "/multiband.tiff").samples == 2
         assert got[2:] == [(6, 8, 8, 8)], got
+        # exact mode (no --fast): the gray and the synRGB pixel JPEGs, coded
+        # by the native library the port builds, through no other encoder
+        from sarpro_tpu_torch import _native
+        for pol, strategy in (("vh", "standard"), ("multiband", "clahe")):
+            out = sys.argv[2] + f"/exact_{pol}.jpg"
+            argv = ["-i", str(safe), "-o", out, "-f", "jpeg",
+                    "--polarization", pol, "--autoscale", strategy,
+                    "--size", "64", "--pad"]
+            if _native.available():
+                assert cli.run(argv, device="cpu") == 0, pol
+                blob = Path(out).read_bytes()
+                assert blob[:2] == b"\\xff\\xd8" and blob[-2:] == b"\\xff\\xd9"
+            else:
+                try:
+                    cli.run(argv, device="cpu")
+                    raise AssertionError("a JPEG without the native coder")
+                except RuntimeError as e:
+                    assert "native JPEG encoder" in str(e), e
+        assert len(got) == 3, got  # the exact routes coded no DCT blocks
         assert not [m for m in sys.modules if m.startswith("sarpro_tpu.")]
         print("ok")
     """)

@@ -1,4 +1,5 @@
-"""The port's JPEG entropy coder bindings at every thread count, on the CPU.
+"""The port's JPEG coder bindings (the coefficient entries and the pixel
+entries) at every thread count, on the CPU.
 
 The native coder splits the MCU rows into restart-marker bands, one a
 thread. `sarpro_tpu_torch._native.coder_threads` picks the thread count so
@@ -23,41 +24,50 @@ REPO = Path(__file__).resolve().parents[1]
 SIDES = (200, 800, 1300, 2048)
 THREADS = range(1, 17)
 
-# encodes the blocks of argv[2] (3 planes) as a side x side image through one
-# entry at 1..16 threads; at 2048 also through the library's entry with the
-# requested count unchanged (what the bindings passed before coder_threads)
+# encodes argv[2] as a side x side image through one entry at 1..16 threads:
+# 3 planes of coefficient blocks for the coefficient entries ("444", "gray"),
+# 3 u8 planes for the pixel entries ("ycbcr444", "gray pixels"); at 2048 also
+# through the library's entry with the requested count unchanged (what the
+# bindings passed before coder_threads)
 _CHILD = r"""
 import sys
 import numpy as np
 sys.path.insert(0, sys.argv[1])
 from sarpro_tpu_torch import _native
-blocks = np.load(sys.argv[2])
+data = np.load(sys.argv[2])
 side, entry, out = int(sys.argv[3]), sys.argv[4], sys.argv[5]
-blobs = {}
-for n in range(1, 17):
-    if entry == "444":
-        blobs[f"t{n}"] = _native.jpeg_encode_coeffs444(
-            blocks[0], blocks[1], blocks[2], side, side, n_threads=n)
-    else:
-        blobs[f"t{n}"] = _native.jpeg_encode_coeffs_gray(
-            blocks[0], side, side, n_threads=n)
+planes = [np.ascontiguousarray(p) for p in data]
+encode = {
+    "444": lambda n: _native.jpeg_encode_coeffs444(
+        *planes, side, side, n_threads=n),
+    "gray": lambda n: _native.jpeg_encode_coeffs_gray(
+        planes[0], side, side, n_threads=n),
+    "ycbcr444": lambda n: _native.jpeg_encode_ycbcr444(*planes, n_threads=n),
+    "gray pixels": lambda n: _native.jpeg_encode_gray(planes[0], n_threads=n),
+}[entry]
+blobs = {f"t{n}": encode(n) for n in range(1, 17)}
 if side == 2048:
     lib = _native._load()
     i16p = _native.ctypes.POINTER(_native.ctypes.c_int16)
+    ptrs = [p.ctypes.data_as(i16p) if p.dtype == np.int16
+            else _native._u8p(p) for p in planes]
     cap = side * side * 3 * 5 + (1 << 16)
+    raw = {
+        "444": lambda buf, n: lib.jpeg_encode_coeffs444(
+            *ptrs, side, side, _native._u8p(buf), cap, n),
+        "gray": lambda buf, n: lib.jpeg_encode_coeffs_gray(
+            ptrs[0], side, side, _native._u8p(buf), cap, n),
+        "ycbcr444": lambda buf, n: lib.jpeg_encode_ycbcr444(
+            *ptrs, side, side, _native._u8p(buf), cap, n),
+        "gray pixels": lambda buf, n: lib.jpeg_encode_gray(
+            ptrs[0], side, side, _native._u8p(buf), cap, n),
+    }[entry]
     for n in range(1, 17):
         buf = np.empty(cap, np.uint8)
-        if entry == "444":
-            k = lib.jpeg_encode_coeffs444(
-                *(np.ascontiguousarray(b).ctypes.data_as(i16p)
-                  for b in blocks), side, side, _native._u8p(buf), cap, n)
-        else:
-            k = lib.jpeg_encode_coeffs_gray(
-                np.ascontiguousarray(blocks[0]).ctypes.data_as(i16p), side,
-                side, _native._u8p(buf), cap, n)
-        blobs[f"raw{n}"] = buf[:k].tobytes()
+        blobs[f"raw{n}"] = buf[:raw(buf, n)].tobytes()
 np.savez(out, **{k: np.frombuffer(v, np.uint8) for k, v in blobs.items()})
 """
+PIXEL_ENTRIES = ("ycbcr444", "gray pixels")
 
 
 @pytest.fixture(scope="module")
@@ -106,12 +116,21 @@ def _blocks(side: int) -> np.ndarray:
     return blocks
 
 
-@pytest.mark.parametrize("entry", ["444", "gray"])
+def _pixels(side: int) -> np.ndarray:
+    """3 u8 planes, each 8 x 8 block one value (a DC coefficient only, so
+    the oracle is quick)."""
+    nb = (side + 7) // 8
+    vals = np.random.default_rng(side).integers(0, 256, (3, nb, nb))
+    return np.repeat(np.repeat(vals, 8, 1), 8, 2)[:, :side, :side].astype(
+        np.uint8)
+
+
+@pytest.mark.parametrize("entry", ["444", "gray", *PIXEL_ENTRIES])
 @pytest.mark.parametrize("side", SIDES)
 def test_every_thread_count_holds_the_one_thread_coefficients(
         codec, tmp_path, side, entry):
-    blocks = _blocks(side)
-    np.save(tmp_path / "blocks.npy", blocks)
+    np.save(tmp_path / "blocks.npy",
+            _pixels(side) if entry in PIXEL_ENTRIES else _blocks(side))
     out = tmp_path / "blobs.npz"
     res = subprocess.run(
         [sys.executable, "-c", _CHILD, str(REPO), str(tmp_path / "blocks.npy"),
@@ -121,7 +140,7 @@ def test_every_thread_count_holds_the_one_thread_coefficients(
     blobs = {k: v.tobytes() for k, v in np.load(out).items()}
     nb = ((side + 7) // 8) ** 2
     want, ncomp = decode_baseline_jpeg_coeffs(blobs["t1"], nb)
-    assert ncomp == (3 if entry == "444" else 1)
+    assert ncomp == (3 if entry in ("444", "ycbcr444") else 1)
     decoded = {blobs["t1"]: want}
     for n in THREADS:
         blob = blobs[f"t{n}"]

@@ -258,24 +258,28 @@ def _tparams(argv):
 
 
 @pytest.mark.parametrize("extra,kwargs", [
-    (["-f", "tiff", "--polarization", "vv"], {"fast": False}),
+    (["-f", "tiff", "--polarization", "vv", "--size", "original"],
+     {"fast": False}),
     (["-f", "tiff", "--polarization", "vv"],
      {"fast": True, "shard_devices": 2}),
     (["-f", "tiff", "--polarization", "vv", "--size", "original"],
      {"fast": True}),
-    (["-f", "jpeg", "--polarization", "multiband"], {"fast": False}),
+    (["-f", "jpeg", "--polarization", "multiband"],
+     {"fast": False, "shard_devices": 2}),
     (["-f", "jpeg", "--polarization", "multiband"],
      {"fast": True, "shard_devices": 2}),
 ])
 def test_unported_routes_raise(scene, tmp_path, monkeypatch, extra, kwargs):
-    """Exact mode (#5), sharding (#7) and, on the gray route, a
-    full-resolution scene above BIG_SCENE_PIXELS (#6; the limit is lowered
-    below the fixture's 1200 x 1600)."""
+    """Sharding (#7), in either mode, and a full-resolution scene above
+    BIG_SCENE_PIXELS (#6; the limit is lowered below the fixture's 1200 x
+    1600), which exact mode hands to the fast path as the JAX package does
+    (sarpro_tpu/api.py:358-376)."""
     from sarpro_tpu_torch.core import fast_path
 
     monkeypatch.setattr(fast_path, "BIG_SCENE_PIXELS", 1200 * 1600 - 1)
     params = _tparams(["--autoscale", "tamed", "--size", "64"] + extra)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    item = "#7" if kwargs.get("shard_devices") else "#6"
+    with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1 {item}"):
         tapi.process_safe_to_path(scene[0], tmp_path / "o.jpg", params,
                                   device="cpu", **kwargs)
 
@@ -287,13 +291,48 @@ def test_batch_mode_raises(tmp_path):
 
 
 def test_cuda_device_needs_cuda(scene, tmp_path):
+    """Fast mode, exact mode and the in-memory and typed API: no CPU route
+    runs when CUDA is asked for and absent."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
+    from sarpro_tpu_torch.types import (
+        BitDepth,
+        OutputFormat,
+        Polarization,
+        PolarizationOperation,
+    )
+
     params = _tparams(["-f", "jpeg", "--polarization", "multiband",
                        "--autoscale", "tamed", "--size", "64"])
-    with pytest.raises(RuntimeError, match="CUDA"):
-        tapi.process_safe_to_path(scene[0], tmp_path / "o.jpg", params,
-                                  fast=True)
+    vv = Polarization.from_cli("vv")
+    for call in (
+            lambda: tapi.process_safe_to_path(scene[0], tmp_path / "o.jpg",
+                                              params, fast=True),
+            lambda: tapi.process_safe_to_path(scene[0], tmp_path / "o.jpg",
+                                              params),
+            lambda: tcli.run(["-i", str(scene[0]), "-o",
+                              str(tmp_path / "o.tiff")]),
+            lambda: tapi.process_safe_to_buffer(scene[0], vv, TAMED,
+                                                BitDepth.U8, 64),
+            lambda: tapi.process_safe_to_buffer_with_mode(
+                scene[0], vv, TAMED, BitDepth.U8, 64, False,
+                OutputFormat.JPEG),
+            lambda: tapi.process_safe_with_options(
+                scene[0], tmp_path / "o.tiff", OutputFormat.TIFF,
+                BitDepth.U8, vv, TAMED, 64),
+            lambda: tapi.save_image(np.ones((8, 8), np.float32),
+                                    tmp_path / "o.tiff", OutputFormat.TIFF,
+                                    BitDepth.U8),
+            lambda: tapi.save_multiband_image(
+                np.ones((8, 8), np.float32), np.ones((8, 8), np.float32),
+                tmp_path / "o.jpg", OutputFormat.JPEG, BitDepth.U8),
+            lambda: tapi.load_polarization(scene[0], vv),
+            lambda: tapi.load_operation(scene[0],
+                                        PolarizationOperation.RATIO)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+    assert not (tmp_path / "o.jpg").exists()
+    assert not (tmp_path / "o.tiff").exists()
 
 
 def test_writer_needs_native_codec(monkeypatch, tmp_path):
@@ -301,3 +340,9 @@ def test_writer_needs_native_codec(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="native JPEG encoder"):
         tjpeg.write_synrgb_jpeg_dct(tmp_path / "o.jpg", 8, 8,
                                     np.zeros((3, 1, 1, 8, 8), np.int16))
+    # exact mode's pixel writers fall back to no other encoder either
+    for write, arr in ((tjpeg.write_gray_jpeg, np.zeros((8, 8), np.uint8)),
+                       (tjpeg.write_rgb_jpeg, np.zeros((8, 8, 3), np.uint8))):
+        with pytest.raises(RuntimeError, match="native JPEG encoder"):
+            write(tmp_path / "o.jpg", 8, 8, arr)
+    assert not (tmp_path / "o.jpg").exists()
