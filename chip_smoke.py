@@ -58,8 +58,8 @@ prints no result):
      launch counts checked: every MCU of each file, and of the device's
      blocks coded again on 16 threads, decodes to the device's blocks;
   7. exact: a 10000 x 10000 HH+HV SAFE (the size of a Sentinel-1 EW
-     medium-resolution GRD, under the unported streamed path's
-     BIG_SCENE_PIXELS), then EXACT_RUNS, exact mode through the CLI without
+     medium-resolution GRD, under BIG_SCENE_PIXELS, so the fused programs
+     take it at original size), then EXACT_RUNS, exact mode through the CLI without
      --fast: the CLAHE auto-UTM synRGB JPEG and the u16 adaptive cubic TIFF
      at 2048, the ratio and multiband robust JPEGs at 800 (the gray and
      4:4:4 pixel coder entries), and the CLI's defaults at original size on
@@ -77,12 +77,25 @@ prints no result):
      at original size with --fast (u8 CLAHE TIFF, run twice) and to a 2048
      padded CLAHE synRGB JPEG; the CLAHE kernels at 100 MP against their
      plain versions through the grayscale program;
-  9. with --walls N only: every warm path N times more, interleaved, with
+  9. streamed: STREAMED_RUNS, the 20000^2 SAFE at original size (above
+     BIG_SCENE_PIXELS, so core/streamed runs it): the CLI's defaults
+     without --fast (u8 VV CLAHE TIFF), the --fast CLAHE synRGB JPEG (q16
+     compose, chunked DCT) and the --fast u16 adaptive VH TIFF, each driven
+     once with its launches equal to the chunk plan's (_streamed_launches);
+     the TIFFs read back and equal to the device's band, the JPEG's first
+     MCUs equal to the device's blocks. On the resident DN the streamed
+     grayscale and synRGB (dct) passes are bit-equal to the fused program
+     (the synRGB floors compared first) and under force_plain(), with each
+     side's device time, wall and peak memory and the streamed side's host
+     syncs at two chunk heights; exact mode's band pipeline on the same
+     bands with its peak. The kernel phase also times tile_histogram,
+     clahe_lookup and the 4096-bin histogram at the chunk shapes;
+ 10. with --walls N only: every warm path N times more, interleaved, with
      medians and quartiles of its wall; the no-warp synRGB read through
      each of the two loaders (full DN + device resample, decimated read) in
-     the same rounds; a torch.profiler trace of the single-band TIFF and
-     the full-resolution TIFF runs (fast, then exact) with the device's
-     busy share.
+     the same rounds; a torch.profiler trace of the single-band TIFF, the
+     full-resolution TIFF runs (fast, then exact) and the streamed CLAHE
+     TIFF with the device's busy share.
 Then one JSON line of the kernels, the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}. Nothing of jax or of the JAX package
 (sarpro_tpu) may be imported: the script raises at the end if one was.
@@ -148,6 +161,11 @@ PATHS = {
     "exact ratio jpeg 800": ("histogram",),
     "exact multiband robust jpeg 800": ("histogram", "synrgb_lookup"),
     "exact full clahe tiff": ("histogram", "tile_histogram", "clahe_lookup"),
+    "streamed exact clahe tiff": ("histogram", "tile_histogram",
+                                  "clahe_lookup"),
+    "streamed synrgb jpeg": ("histogram", "tile_histogram", "clahe_lookup",
+                             "synrgb_lookup"),
+    "streamed adaptive u16 tiff": ("histogram",),
 }
 # the single-band, operation and TIFF routes on the 20000^2 SAFE: (label,
 # output suffix, CLI arguments; the rest are the CLI's defaults)
@@ -199,8 +217,21 @@ EXACT_RUNS = (
         "--pad"]),
     ("exact full clahe tiff", "ew", "tiff", None, ["--polarization", "hh"]),
 )
+# the streamed routes: the SIDE^2 SAFE at its original size, above
+# BIG_SCENE_PIXELS, so both modes take core/streamed: (label, output
+# suffix, CLI arguments; the size is the CLI's default, the original)
+STREAMED_RUNS = (
+    ("streamed exact clahe tiff", "tiff", ["--polarization", "vv"]),
+    ("streamed synrgb jpeg", "jpg", [
+        "--fast", "--polarization", "multiband", "-f", "jpeg", "--autoscale",
+        "clahe"]),
+    ("streamed adaptive u16 tiff", "tiff", [
+        "--fast", "--polarization", "vh", "-f", "tiff", "--bit-depth", "u16",
+        "--autoscale", "adaptive"]),
+)
 # the warm runs that --walls traces under torch.profiler
-TRACED = ("gray clahe tiff", "full clahe tiff", "exact full clahe tiff")
+TRACED = ("gray clahe tiff", "full clahe tiff", "exact full clahe tiff",
+          "streamed exact clahe tiff")
 # label -> (CLI arguments, output) of each run driven, for --walls
 DRIVEN: dict = {}
 # the path whose launch count each kernel reports in the kernels line
@@ -376,6 +407,7 @@ def phase_kernels(results):
     _kernels_synrgb(dev, g, record, results)
     _kernels_resample(dev, g, record, results)
     _kernels_clahe(dev, g, record, results)
+    _kernels_chunk(dev, g, results)
     _kernels_warp(dev, g, record, results)
 
 
@@ -892,6 +924,56 @@ def _kernels_clahe(dev, g, record, results):
                 f"written): {device_ms(lambda: dst.copy_(got)):.4f} ms")
             del dst
         del bins, hist, got
+        torch.cuda.empty_cache()
+
+
+def _kernels_chunk(dev, g, results):
+    """tile_histogram, clahe_lookup and the 4096-bin histogram at the
+    streamed path's chunk shapes on the SIDE^2 scene: a full chunk at its
+    row_offset (the second chunk) and the ragged tail, tiled as the whole
+    band is."""
+    import torch
+
+    from sarpro_tpu_torch.core import clahe, fused, streamed
+    from sarpro_tpu_torch.ops import kernels
+
+    plan = streamed._chunk_starts(SIDE, streamed.CHUNK_ROWS)
+    th, tw = -(-SIDE // clahe.TILES_Y), -(-SIDE // clahe.TILES_X)
+    grid = (SIDE, clahe.TILES_X, clahe.TILES_Y, th, tw)
+    for what, (off, rows) in (("chunk", plan[1]), ("tail", plan[-1])):
+        n = rows * SIDE
+        shape = f"a {rows} x {SIDE} {what} at row_offset {off}"
+        bins = _clahe_bins(dev, g, n)
+        hist = kernels.tile_histogram(bins, *grid, row_offset=off)
+        _check_equal(hist, kernels._tile_histogram_plain(bins, *grid, off, 256),
+                     f"tile_histogram, {shape}")
+        time_kernel(results, "tile_histogram", f"8 x 8 x 256 over {shape}",
+                    lambda: kernels.tile_histogram(bins, *grid, row_offset=off),
+                    lambda: kernels._tile_histogram_plain(bins, *grid, off,
+                                                          256),
+                    nbytes(bins, hist), n)
+        cdfs = fused._clahe_cdfs(hist, SIDE, SIDE, th, tw)
+        got = kernels.clahe_lookup(bins, cdfs, *grid, row_offset=off)
+        _check_equal(got, kernels._clahe_lookup_plain(bins, cdfs, *grid, off),
+                     f"clahe_lookup, {shape}")
+        time_kernel(results, "clahe_lookup", f"{shape}, (64, 256) f32 CDFs",
+                    lambda: kernels.clahe_lookup(bins, cdfs, *grid,
+                                                 row_offset=off),
+                    lambda: kernels._clahe_lookup_plain(bins, cdfs, *grid,
+                                                        off),
+                    nbytes(bins, cdfs, got), 10 * n)
+        del bins, hist, got
+        idx = _db_bins(dev, g, n)
+        got = kernels.histogram(idx, 4096)
+        _check_equal(got, kernels._histogram_plain([idx], 4096),
+                     f"histogram, {shape}")
+        time_kernel(results, "histogram", f"4096 bins over {shape} int32",
+                    lambda: kernels.histogram(idx, 4096),
+                    lambda: kernels._histogram_plain([idx], 4096),
+                    nbytes(idx, got), n,
+                    library=lambda: torch.bincount(idx, minlength=4097))
+        log(f"streamed kernels at {shape}: bit-equal")
+        del idx, got
         torch.cuda.empty_cache()
 
 
@@ -1815,13 +1897,35 @@ def _check_mcus_f64(label: str, blob: bytes, planes, n_mcus: int):
     return dec
 
 
+def _count_syncs(fn, label: str = "") -> int:
+    """Host syncs of one call of `fn`, as torch.cuda's sync debug mode
+    reports them; with a `label`, each distinct report is printed."""
+    import warnings
+
+    import torch
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    # the mode's own one-time notice (a prototype that "does not yet detect
+    # all synchronizing operations") is not a sync
+    syncs = [str(w.message) for w in caught
+             if "called a synchronizing CUDA operation" in str(w.message)]
+    if label:
+        for msg in sorted(set(syncs)):
+            log(f"sync ({label}): {syncs.count(msg)} x {msg.splitlines()[0]}")
+    return len(syncs)
+
+
 def _exact_band_ms(label: str, band, strategy, bit_depth) -> None:
     """Exact mode's band pipeline on a resident band: its elapsed time on
     the device between two CUDA events (the host's round trips included),
     its kernels' time in a torch.profiler trace, and its host syncs
     (torch.cuda's sync debug mode, counted)."""
-    import warnings
-
     import torch
 
     from sarpro_tpu_torch.core import pipeline
@@ -1839,14 +1943,7 @@ def _exact_band_ms(label: str, band, strategy, bit_depth) -> None:
     end.record()
     end.synchronize()
     wall = (time.perf_counter() - t0) * 1e3
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            run()
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-    syncs = sum("synchroniz" in str(w.message) for w in caught)
+    syncs = _count_syncs(run)
     log(f"exact ({label}): band pipeline {start.elapsed_time(end):.3f} ms "
         f"between CUDA events (host {wall:.2f} ms), kernels "
         f"{profiled_ms(run, reps=3):.3f} ms (profiler), {syncs} host syncs "
@@ -2006,6 +2103,201 @@ def phase_full(work: Path, ew: Path):
     return walls, counts
 
 
+def _streamed_launches(label: str) -> dict:
+    """The launches a streamed route makes, from the chunk plan of its
+    SIDE-row bands: per band and chunk one 4096-bin histogram, with CLAHE
+    one tile_histogram and one clahe_lookup, and for the suppressed synRGB
+    one 256-bin histogram of its u8 codes; per chunk of the compose one
+    synrgb_lookup."""
+    from sarpro_tpu_torch.core import streamed
+
+    k = len(streamed._chunk_starts(SIDE, streamed.CHUNK_ROWS))
+    return {
+        "streamed exact clahe tiff": {"histogram": k, "tile_histogram": k,
+                                      "clahe_lookup": k},
+        "streamed synrgb jpeg": {"histogram": 4 * k, "tile_histogram": 2 * k,
+                                 "clahe_lookup": 2 * k, "synrgb_lookup": k},
+        "streamed adaptive u16 tiff": {"histogram": k},
+    }[label]
+
+
+def _peak_run(fn):
+    """(result, device ms between CUDA events, host wall ms, device peak
+    MiB) of one call of `fn` that ends with its result on the host or
+    synchronized; the peak is `max_memory_allocated` over the call, the
+    resident inputs included."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    t0 = time.perf_counter()
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    return (out, start.elapsed_time(end), wall,
+            torch.cuda.max_memory_allocated() / 2**20)
+
+
+def _streamed_vs_fused(label: str, streamed_fn, fused_fn, chunked_fn):
+    """The streamed and the fused program on the same resident input: each
+    side's device ms, wall and peak, bit-equality, the streamed side again
+    under force_plain() (its peak: the plain versions' int64 temporaries at
+    the chunk shape), and its host syncs at CHUNK_ROWS and at half of it
+    (`chunked_fn(rows)`), which must be the same. Returns the streamed
+    result."""
+    from sarpro_tpu_torch.core import streamed
+    from sarpro_tpu_torch.ops import force_plain
+
+    got, ms, wall, peak = _peak_run(streamed_fn)
+    want, f_ms, f_wall, f_peak = _peak_run(fused_fn)
+    log(f"streamed ({label}): streamed {ms:.3f} ms on the device (host "
+        f"{wall:.1f} ms), peak {peak:.0f} MiB; fused {f_ms:.3f} ms (host "
+        f"{f_wall:.1f} ms), peak {f_peak:.0f} MiB")
+    _check_equal(got, want, f"{label}: streamed vs fused")
+    del want
+    with force_plain():
+        plain, p_ms, _, p_peak = _peak_run(streamed_fn)
+    _check_equal(got, plain, f"{label}: streamed under force_plain()")
+    del plain
+    rows = streamed.CHUNK_ROWS
+    for r in (rows, rows // 2):  # the first calls (allocator growth) uncounted
+        chunked_fn(r)
+    syncs = [_count_syncs(lambda: chunked_fn(r), f"{label}, {r} rows")
+             for r in (rows, rows // 2)]
+    if syncs[0] != syncs[1]:
+        raise AssertionError(f"{label}: host syncs grow with the chunks "
+                             f"({syncs})")
+    log(f"streamed ({label}): bit-equal to the fused program and under "
+        f"force_plain() ({p_ms:.1f} ms, peak {p_peak:.0f} MiB); {syncs[0]} "
+        f"host syncs at {rows} and at {rows // 2} rows a chunk")
+    return got
+
+
+def phase_streamed(safe: Path, work: Path):
+    """STREAMED_RUNS on the SIDE^2 SAFE at its original size, each driven
+    once with its launch counts checked against the chunk plan, the files
+    checked; then on the resident DN the streamed passes against the fused
+    program (bit-equal; the synRGB floors compared first), under
+    force_plain(), with each side's device peak, time and host syncs; and
+    exact mode's band pipeline on the same band, for the budget that
+    BIG_SCENE_PIXELS stands for."""
+    import numpy as np
+    import torch
+
+    from sarpro_tpu_torch import _native
+    from sarpro_tpu_torch.core import fused, pipeline, streamed
+    from sarpro_tpu_torch.io import safe as tsafe
+    from sarpro_tpu_torch.ops import histogram
+
+    AutoscaleStrategy, BitDepth = fused.AutoscaleStrategy, fused.BitDepth
+    if SIDE * SIDE <= streamed.BIG_SCENE_PIXELS:
+        raise AssertionError(f"{SIDE}^2 is not above BIG_SCENE_PIXELS")
+    walls, counts, outs = {}, {}, {}
+    for label, suffix, args in STREAMED_RUNS:
+        out = work / f"{label.replace(' ', '_')}.{suffix}"
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        walls[label], counts[label], _ = _drive(label, ["-i", str(safe)]
+                                                + args, out)
+        peak = torch.cuda.max_memory_allocated() / 2**20
+        launched = {k: v for k, v in counts[label].items() if v}
+        if launched != _streamed_launches(label):
+            raise AssertionError(f"{label}: launches {launched}, the chunk "
+                                 f"plan gives {_streamed_launches(label)}")
+        log(f"streamed: {label} launches as the chunk plan gives, device "
+            f"peak {peak:.0f} MiB (max_memory_allocated)")
+        outs[label] = out
+    blob = _check_jpeg("streamed synrgb jpeg", outs["streamed synrgb jpeg"])
+    clahe_tiff, = _check_tiff("streamed exact clahe tiff",
+                              outs["streamed exact clahe tiff"], "uint8",
+                              SIDE, 1, False, "VV")
+    u16_tiff, = _check_tiff("streamed adaptive u16 tiff",
+                            outs["streamed adaptive u16 tiff"], "uint16",
+                            SIDE, 1, False, "VH")
+
+    t0 = time.perf_counter()
+    scene = tsafe.open_dual_pol(safe, DEVICE)
+    torch.cuda.synchronize()
+    log(f"streamed: read + upload of both {SIDE}^2 bands "
+        f"{(time.perf_counter() - t0) * 1e3:.1f} ms (host clock)")
+    vv, vh = scene.band1, scene.band2
+    clahe, adaptive = AutoscaleStrategy.CLAHE, AutoscaleStrategy.ADAPTIVE
+    u8, u16 = BitDepth.U8, BitDepth.U16
+    got = _streamed_vs_fused(
+        "vv clahe u8",
+        lambda: streamed.grayscale_streamed(vv, clahe),
+        lambda: fused.grayscale_pipeline(vv, clahe, target_size=None),
+        lambda r: streamed.grayscale_streamed(vv, clahe, chunk_rows=r))
+    if not np.array_equal(got.cpu().numpy(), clahe_tiff):
+        raise AssertionError("streamed exact clahe tiff: the TIFF does not "
+                             "hold the device's band")
+    got = _streamed_vs_fused(
+        "vh adaptive u16",
+        lambda: streamed.grayscale_streamed(vh, adaptive, u16),
+        lambda: fused.grayscale_pipeline(vh, adaptive, u16, target_size=None),
+        lambda r: streamed.grayscale_streamed(vh, adaptive, u16,
+                                              chunk_rows=r))
+    if not np.array_equal(got.cpu().numpy(), u16_tiff):
+        raise AssertionError("streamed adaptive u16 tiff: the TIFF does not "
+                             "hold the device's band")
+    del got, clahe_tiff, u16_tiff
+
+    # synRGB: the two floors first (fused: f32 cumsum and target; streamed:
+    # int64 on the host, f64 target), on the fused program's bands, which
+    # the streamed q16 codes must equal
+    n = 2 * SIDE * SIDE
+    bands = []
+    for dn, copol in ((vv, True), (vh, False)):
+        b = fused.synrgb_band_stage(dn, clahe, copol, None, False)
+        q16, h, mn, mx = streamed.band_u8_streamed(
+            dn, clahe, collect_hist=True, emit_q16=True)
+        _check_equal(streamed._q16_u8_vals(q16, mn, mx, 0, SIDE), b,
+                     "streamed q16 codes vs the fused band")
+        _check_equal(h, histogram(b.reshape(-1), 256),
+                     "streamed u8 histogram vs the fused band's")
+        bands.append(b)
+        del q16
+    hist = histogram([b.reshape(-1) for b in bands], 256)
+    floors = (int(fused._suppressed_floor(hist, n)),
+              streamed._suppressed_floor_host(hist.cpu().numpy(), n))
+    del bands, hist
+    log(f"streamed (synrgb clahe): water floor fused {floors[0]}, streamed "
+        f"{floors[1]}; bands and their histograms bit-equal")
+    dct_fn = (lambda r=None: streamed.synrgb_streamed(
+        vv, vh, clahe, layout="dct", chunk_rows=r))
+    if floors[0] == floors[1]:
+        dct = _streamed_vs_fused(
+            "synrgb clahe dct", dct_fn,
+            lambda: fused.synrgb_pipeline(vv, vh, clahe, target_size=None,
+                                          channel_order="dct").cpu(), dct_fn)
+    else:
+        log("streamed (synrgb clahe dct): the floors differ, so the blocks "
+            "are not compared with the fused program's")
+        dct = dct_fn()
+    _check_mcus("streamed synrgb jpeg", blob, dct, 3)
+    co = dct.numpy()
+    t0 = time.perf_counter()
+    coded = _native.jpeg_encode_coeffs444(co[0], co[1], co[2], SIDE, SIDE)
+    log(f"streamed: entropy coding of the {SIDE}^2 synRGB blocks "
+        f"{(time.perf_counter() - t0) * 1e3:.1f} ms ({len(coded)} bytes, "
+        f"{_native.coder_threads(SIDE)} threads; host clock)")
+    del dct, co, coded
+
+    for label, dn in (("vv", vv), ("vh", vh)):
+        _, ms, wall, peak = _peak_run(
+            lambda: pipeline.process_scalar_data_pipeline(dn, u8, clahe))
+        log(f"streamed: exact mode's band pipeline on the {label} {SIDE}^2 "
+            f"band (CLAHE u8) {ms:.3f} ms on the device (host {wall:.1f} ms), "
+            f"peak {peak:.0f} MiB")
+    del scene, vv, vh
+    torch.cuda.empty_cache()
+    return walls, counts
+
+
 def _quartiles(xs):
     q1, q2, q3 = statistics.quantiles(xs, n=4, method="inclusive")
     return q1, q2, q3
@@ -2102,7 +2394,7 @@ def main() -> int:
                                  "GPU (see the module's docstring).")
     ap.add_argument("--walls", type=int, default=0, metavar="N",
                     help="after the checks, run every warm path N (>= 3) "
-                    "times more, interleaved, and trace three of them")
+                    "times more, interleaved, and trace four of them")
     args = ap.parse_args()
     if args.walls and args.walls < 3:
         ap.error("--walls needs 3 runs or more")
@@ -2120,6 +2412,7 @@ def main() -> int:
         phase_jpeg_800(safe, work)
         ew = phase_exact(safe, work)
         full_walls, _ = phase_full(work, ew)
+        streamed_walls, _ = phase_streamed(safe, work)
         if args.walls:
             phase_walls(args.walls, safe, work, smi)
     finally:
@@ -2137,7 +2430,8 @@ def main() -> int:
         if label.startswith("warm")) + f" on {smi}")
     log("slice: warm walls of the gray, operation and TIFF routes " + ", ".join(
         f"{label} {wall * 1e3:.1f} ms" for label, wall in
-        {**gray_walls, **full_walls}.items()) + f" on {smi}")
+        {**gray_walls, **full_walls, **streamed_walls}.items())
+        + f" on {smi}")
     kernels = []
     for name, (src, rep, *also) in KERNELS.items():
         entry = {"name": name, "route": "cuda", "source": src,

@@ -11,9 +11,10 @@ Ported so far, on one device: exact mode (the default of
 `python -m sarpro_tpu_torch.cli`, and the in-memory API) and fast mode
 (`--fast`), every route of each: single bands, the five polarization
 operations, multiband GeoTIFF and synthetic-RGB JPEG, grayscale JPEG, every
-autoscale strategy, u8 or u16, with or without reprojection. Streamed
-full-resolution scenes above 192 MP, sharding and batch raise
-NotImplementedError naming their ROADMAP item.
+autoscale strategy, u8 or u16, with or without reprojection. A
+full-resolution scene above 192 MP a band runs in both modes as chunked
+passes over row chunks (`core/streamed`), equal to the fused programs' output.
+Sharding and batch raise NotImplementedError naming their ROADMAP item.
 """
 
 # the JAX package's version, which `--version` and the sidecars carry

@@ -17,11 +17,14 @@ The in-memory and typed API (`ProcessedImage`, `process_safe_to_buffer`,
 `load_operation`, :126-243 and :490-554) runs exact mode; arrays come back
 as numpy.
 
+A full-resolution scene above `streamed.BIG_SCENE_PIXELS` takes the streamed
+passes of `core/streamed` in both modes: exact mode hands it to fast mode,
+as the JAX package does (:358-376).
+
 Every entry point computes on `device` ("cuda" unless the caller asks for
-the CPU) and raises RuntimeError when CUDA is asked for and absent. Still
-raising NotImplementedError with their ROADMAP item: full-resolution scenes
-above `fast_path.BIG_SCENE_PIXELS`, which both modes send to the streamed
-path (queue 1 #6), and sharding over several devices (#7).
+the CPU) and raises RuntimeError when CUDA is asked for and absent.
+Sharding over several devices raises NotImplementedError with its ROADMAP
+item (queue 1 #7).
 """
 from __future__ import annotations
 
@@ -33,7 +36,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .core import fast_path, fused, ops
+from .core import fast_path, fused, ops, streamed
 from .core.pipeline import process_scalar_data_pipeline
 from .core.resize import resize_image_data
 from .core.save import (
@@ -107,13 +110,13 @@ def _multiband_operation(is_vvvh: bool) -> ProcessingOperation:
 
 
 def _is_big_original(input) -> bool:
-    """A scene whose annotated size is above BIG_SCENE_PIXELS (api.py:
-    363-370); an unreadable annotation is not big."""
+    """A scene whose annotated size is above `streamed.BIG_SCENE_PIXELS`
+    (api.py:363-370); an unreadable annotation is not big."""
     try:
         meta = parse_comprehensive_metadata(Path(input))
     except (OSError, SafeParseError):  # the exact path reports it
         return False
-    return 0 < meta.lines * meta.samples > fast_path.BIG_SCENE_PIXELS
+    return 0 < meta.lines * meta.samples > streamed.BIG_SCENE_PIXELS
 
 
 def process_safe_to_path(input, output, params: ProcessingParams,
@@ -129,8 +132,8 @@ def process_safe_to_path(input, output, params: ProcessingParams,
     if fast:
         return _process_safe_to_path_fast(input, output, params, device)
     if params.size is None and _is_big_original(input):
-        # past the exact mode's device budget the JAX package takes the
-        # streamed fast-mode path, which raises here (queue 1 #6)
+        # past the exact mode's device budget the scene takes the streamed
+        # fast-mode passes, as in the JAX package
         logger.warning("scene exceeds the exact-mode device budget; using "
                        "the streamed fast-mode pipeline")
         return _process_safe_to_path_fast(input, output, params, device)
@@ -199,7 +202,7 @@ def _process_safe_to_path_fast(input, output, params: ProcessingParams,
     else:
         def band_stage(dn1):
             if fast_path._is_big_scene(*dn1.shape, size):
-                return None  # save_multiband_fast rejects the scene
+                return None  # the streamed passes take both bands
             return fused.synrgb_band_stage(
                 dn1, strategy=params.autoscale, copol=True, target_size=size,
                 pad=params.pad, resample_alg=alg0)

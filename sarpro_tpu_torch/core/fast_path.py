@@ -1,18 +1,19 @@
-"""Fast-mode file output (port of the unsharded, non-streamed branches of
+"""Fast-mode file output (port of the unsharded branches of
 sarpro_tpu/core/fast_path.save_single_band_fast and save_multiband_fast).
 
 The device runs the whole chain down to the band values, or for a JPEG down
 to quantized DCT blocks; the host copies the result back and writes the
 GeoTIFF (with its embedded metadata), or entropy-codes the JPEG and writes
 the world file, .prj and JSON sidecar, through the writers of io/writers
-(copies of the JAX package's).
+(copies of the JAX package's). A full-resolution scene above
+`streamed.BIG_SCENE_PIXELS` runs the chunked passes of core/streamed instead
+of the fused programs, with the same output.
 
-Not ported: full-resolution scenes above BIG_SCENE_PIXELS, which take the
-JAX package's streamed path (ROADMAP queue 1 #6), and row sharding over
-several devices (#7).
+Not ported: row sharding over several devices (ROADMAP queue 1 #7).
 """
 from __future__ import annotations
 
+import functools
 import logging
 from pathlib import Path
 
@@ -34,25 +35,15 @@ from ..types import (
     ProcessingOperation,
     SyntheticRgbMode,
 )
-from . import fused
+from . import fused, streamed
 
 logger = logging.getLogger("sarpro")
 
-# full-resolution scenes above this size take the JAX package's streamed
-# path (sarpro_tpu/core/streamed.py:57), which is not ported yet
-BIG_SCENE_PIXELS = 192 << 20
-
-
 def _is_big_scene(in_rows: int, in_cols: int, target_size) -> bool:
-    return target_size is None and in_rows * in_cols > BIG_SCENE_PIXELS
-
-
-def _refuse_big_scene(in_rows: int, in_cols: int, target_size) -> None:
-    if _is_big_scene(in_rows, in_cols, target_size):
-        raise NotImplementedError(
-            f"a full-resolution {in_cols}x{in_rows} scene is above "
-            f"{BIG_SCENE_PIXELS} pixels and needs the streamed path, not "
-            "ported yet (ROADMAP queue 1 #6, streamed big scenes)")
+    """Full-resolution outputs above `streamed.BIG_SCENE_PIXELS` (read at
+    call time) take the streamed passes (core/streamed.py)."""
+    return (target_size is None
+            and in_rows * in_cols > streamed.BIG_SCENE_PIXELS)
 
 
 def _final_dims(in_rows: int, in_cols: int, target_size, pad: bool,
@@ -126,15 +117,19 @@ def save_single_band_fast(
 ) -> None:
     """One band (device tensor) -> GeoTIFF (u8 or u16) or grayscale JPEG
     (always u8, from the device's DCT blocks) + world file, .prj and
-    sidecar, through the grayscale program."""
+    sidecar, through the grayscale program (streamed for a big scene)."""
     output = Path(output)
     in_rows, in_cols = dn.shape
-    _refuse_big_scene(in_rows, in_cols, target_size)
     tiff = format is OutputFormat.TIFF
     depth = bit_depth if tiff else BitDepth.U8
-    out = fused.grayscale_pipeline(
-        dn, strategy=strategy, bit_depth=depth, target_size=target_size,
-        pad=pad, resample_alg=resample_alg, jpeg_dct=not tiff)
+    if _is_big_scene(in_rows, in_cols, target_size):
+        out = streamed.grayscale_streamed(dn, strategy=strategy,
+                                          bit_depth=depth, pad=pad,
+                                          jpeg_dct=not tiff)
+    else:
+        out = fused.grayscale_pipeline(
+            dn, strategy=strategy, bit_depth=depth, target_size=target_size,
+            pad=pad, resample_alg=resample_alg, jpeg_dct=not tiff)
     arr = out.cpu().numpy()
     final_cols, final_rows, gt, proj = _geo(metadata, in_rows, in_cols,
                                             target_size, pad, resample_alg)
@@ -158,32 +153,44 @@ def save_multiband_fast(
 ) -> None:
     """Dual-band DN (device tensors) -> two-band GeoTIFF (u8 or u16, one
     grayscale program per band) or synRGB JPEG + world file, .prj and
-    sidecar. `staged_b1` is band 1's already-queued synRGB band stage (the
-    reader's overlapped load); without it band 1's stage runs here."""
+    sidecar; a big scene takes the streamed passes. `staged_b1` is band 1's
+    already-queued synRGB band stage (the reader's overlapped load; never
+    made for a big scene); without it band 1's stage runs here."""
     output = Path(output)
     in_rows, in_cols = dn1.shape
-    _refuse_big_scene(in_rows, in_cols, target_size)
+    big = _is_big_scene(in_rows, in_cols, target_size)
     final_cols, final_rows, gt, proj = _geo(metadata, in_rows, in_cols,
                                             target_size, pad, resample_alg)
     label = operation.metadata_label
     if format is OutputFormat.TIFF:
-        b1, b2 = (fused.grayscale_pipeline(
-            dn, strategy=strategy, bit_depth=bit_depth,
-            target_size=target_size, pad=pad,
-            resample_alg=resample_alg).cpu().numpy() for dn in (dn1, dn2))
+        if big:
+            gray = functools.partial(streamed.grayscale_streamed,
+                                     strategy=strategy, bit_depth=bit_depth,
+                                     pad=pad)
+        else:
+            gray = functools.partial(
+                fused.grayscale_pipeline, strategy=strategy,
+                bit_depth=bit_depth, target_size=target_size, pad=pad,
+                resample_alg=resample_alg)
+        b1, b2 = (gray(dn).cpu().numpy() for dn in (dn1, dn2))
         writer = (write_tiff_multiband_u8 if bit_depth is BitDepth.U8
                   else write_tiff_multiband_u16)
         _write_tiff(writer(output, final_cols, final_rows, b1, b2), metadata,
                     label, gt, proj)
         logger.info("fast: saved %s", output)
         return
-    stage = dict(strategy=strategy, target_size=target_size, pad=pad,
-                 resample_alg=resample_alg)
-    b1 = (staged_b1 if staged_b1 is not None
-          else fused.synrgb_band_stage(dn1, copol=True, **stage))
-    b2 = fused.synrgb_band_stage(dn2, copol=False, **stage)
-    coeffs = fused.synrgb_combine_stage(b1, b2, strategy=strategy,
-                                        suppressed=None, channel_order="dct")
+    if big:
+        coeffs = streamed.synrgb_streamed(dn1, dn2, strategy=strategy,
+                                          pad=pad, layout="dct")
+    else:
+        stage = dict(strategy=strategy, target_size=target_size, pad=pad,
+                     resample_alg=resample_alg)
+        b1 = (staged_b1 if staged_b1 is not None
+              else fused.synrgb_band_stage(dn1, copol=True, **stage))
+        b2 = fused.synrgb_band_stage(dn2, copol=False, **stage)
+        coeffs = fused.synrgb_combine_stage(b1, b2, strategy=strategy,
+                                            suppressed=None,
+                                            channel_order="dct")
     jpeg.write_synrgb_jpeg_dct(output, final_cols, final_rows,
                                coeffs.cpu().numpy())
     _write_jpeg_sidecars(output, metadata, label, gt, proj,

@@ -217,10 +217,17 @@ def _quantize(db, mask, low, high, gamma, max_val: float):
 
 def _scale_u16_to_u8(q):
     """Min-max stretch of the u16 band values to u8 (the range stays on the
-    device). The scale is a true division: PyTorch's `255.0 / t` multiplies
-    by the rounded reciprocal, off by an ulp for a quarter of ranges."""
-    mn = q.amin().to(torch.float32)
-    mx = q.amax().to(torch.float32)
+    device)."""
+    return _u8_stretch(q, q.amin().to(torch.float32),
+                       q.amax().to(torch.float32))
+
+
+def _u8_stretch(q, mn, mx):
+    """u8 codes of u16 values `q` stretched over the band's range [mn, mx]
+    (0-dim f32 tensors): the one arithmetic of this program's u16-to-u8
+    stretch and of every streamed pass that takes one (core/streamed). The
+    scale is a true division: PyTorch's `255.0 / t` multiplies by the
+    rounded reciprocal, off by an ulp for a quarter of ranges."""
     scale = torch.where(mx > mn, torch.full_like(mx, 255.0) / (mx - mn), 1.0)
     val = round_half_up_nonneg((q.to(torch.float32) - mn) * scale)
     return torch.clamp(val, 0.0, 255.0).to(torch.uint8)
@@ -272,8 +279,14 @@ def _clahe(db, mask, low, high, max_val: float, rows: int, cols: int):
     cdfs = _clahe_cdfs(hists, rows, cols, tile_h, tile_w)
     eq = clahe_lookup(bin_flat, cdfs, cols, TILES_X, TILES_Y, tile_h,
                       tile_w).reshape(rows, cols)
-    q = torch.trunc(torch.clamp(eq, 0.0, 1.0) * max_val)
-    return torch.where(mask, q, 0.0)
+    return _clahe_quantize(eq, mask, max_val)
+
+
+def _clahe_quantize(eq, mask, max_val: float):
+    """Blended CDF values -> the u16 band values (as f32), masked pixels 0
+    (shared with the streamed passes, core/streamed)."""
+    return torch.where(mask, torch.trunc(torch.clamp(eq, 0.0, 1.0) * max_val),
+                       0.0)
 
 
 def _resample_dn(x: torch.Tensor, out_rows: int, out_cols: int,

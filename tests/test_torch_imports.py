@@ -97,6 +97,18 @@ def test_cpu_slice_runs_with_jax_and_pillow_blocked(tmp_path):
                 except RuntimeError as e:
                     assert "native JPEG encoder" in str(e), e
         assert len(got) == 3, got  # the exact routes coded no DCT blocks
+        # the streamed path (core/streamed), with the big-scene limit below
+        # this product: exact mode's defaults at original size, a synRGB JPEG
+        from sarpro_tpu_torch.core import streamed
+        streamed.BIG_SCENE_PIXELS = 1000
+        rc = cli.run(["-i", str(safe), "-o", sys.argv[2] + "/big.tiff"],
+                     device="cpu")
+        assert rc == 0, rc
+        assert TiffReader(sys.argv[2] + "/big.tiff").read(1).shape == (200, 300)
+        rc = cli.run(["-i", str(safe), "-o", sys.argv[2] + "/big.jpg", "-f",
+                      "jpeg", "--polarization", "multiband", "--fast"],
+                     device="cpu")
+        assert rc == 0 and got[3:] == [(3, 25, 38, 8, 8)], (rc, got)
         assert not [m for m in sys.modules if m.startswith("sarpro_tpu.")]
         print("ok")
     """)

@@ -258,30 +258,147 @@ def _tparams(argv):
 
 
 @pytest.mark.parametrize("extra,kwargs", [
-    (["-f", "tiff", "--polarization", "vv", "--size", "original"],
-     {"fast": False}),
     (["-f", "tiff", "--polarization", "vv"],
      {"fast": True, "shard_devices": 2}),
-    (["-f", "tiff", "--polarization", "vv", "--size", "original"],
-     {"fast": True}),
     (["-f", "jpeg", "--polarization", "multiband"],
      {"fast": False, "shard_devices": 2}),
     (["-f", "jpeg", "--polarization", "multiband"],
      {"fast": True, "shard_devices": 2}),
 ])
-def test_unported_routes_raise(scene, tmp_path, monkeypatch, extra, kwargs):
-    """Sharding (#7), in either mode, and a full-resolution scene above
-    BIG_SCENE_PIXELS (#6; the limit is lowered below the fixture's 1200 x
-    1600), which exact mode hands to the fast path as the JAX package does
-    (sarpro_tpu/api.py:358-376)."""
-    from sarpro_tpu_torch.core import fast_path
-
-    monkeypatch.setattr(fast_path, "BIG_SCENE_PIXELS", 1200 * 1600 - 1)
+def test_unported_routes_raise(scene, tmp_path, extra, kwargs):
+    """Sharding (#7), in either mode."""
     params = _tparams(["--autoscale", "tamed", "--size", "64"] + extra)
-    item = "#7" if kwargs.get("shard_devices") else "#6"
-    with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1 {item}"):
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 #7"):
         tapi.process_safe_to_path(scene[0], tmp_path / "o.jpg", params,
                                   device="cpu", **kwargs)
+
+
+# full-resolution routes above BIG_SCENE_PIXELS: (CLI arguments, --fast);
+# the size is the CLI's default, the original
+BIG_ROUTES = {
+    "exact vv tamed tiff": (["-f", "tiff", "--polarization", "vv",
+                             "--autoscale", "tamed"], False),
+    "fast vv tamed tiff": (["-f", "tiff", "--polarization", "vv",
+                            "--autoscale", "tamed"], True),
+    "fast vh u16 adaptive tiff": (["-f", "tiff", "--polarization", "vh",
+                                   "--bit-depth", "u16", "--autoscale",
+                                   "adaptive"], True),
+    "fast vv auto-UTM robust tiff": (["-f", "tiff", "--polarization", "vv",
+                                      "--autoscale", "robust",
+                                      "--target-crs", "auto"], True),
+    "exact multiband clahe jpeg": (["-f", "jpeg", "--polarization",
+                                    "multiband", "--autoscale", "clahe"],
+                                   False),
+}
+
+
+@pytest.fixture
+def big_scene(monkeypatch):
+    """BIG_SCENE_PIXELS lowered in both packages below the fixture's
+    1200 x 1600 and its 1604 x 1142 auto-UTM band, the port's chunks cut to
+    256 rows (five chunks, a ragged tail); returns the port's streamed
+    calls."""
+    from sarpro_tpu.core import streamed as jstreamed
+    from sarpro_tpu_torch.core import streamed as tstreamed
+
+    for mod in (jstreamed, tstreamed):
+        monkeypatch.setattr(mod, "BIG_SCENE_PIXELS", 10**6)
+    monkeypatch.setattr(tstreamed, "CHUNK_ROWS", 256)
+    calls = []
+    for name in ("grayscale_streamed", "synrgb_streamed"):
+        def spy(*a, _f=getattr(tstreamed, name), _n=name, **kw):
+            calls.append(_n)
+            return _f(*a, **kw)
+        monkeypatch.setattr(tstreamed, name, spy)
+    return calls
+
+
+@pytest.mark.parametrize("route", list(BIG_ROUTES))
+def test_big_scene_routes_match_jax(scene, captured, big_scene, tmp_path,
+                                    route):
+    """A full-resolution scene above BIG_SCENE_PIXELS runs the streamed
+    passes in both modes (exact mode hands it to the fast path, as the JAX
+    package does, sarpro_tpu/api.py:358-376): the output equals the port's
+    fused program on the port's band bit for bit, and the JAX package's
+    route within the bounds of the fused path."""
+    from test_torch_gray import _compare_tiffs
+
+    from sarpro_tpu_torch.io import safe as tsafe
+
+    safe, vv, vh = scene
+    args, fast = BIG_ROUTES[route]
+    t_out = tmp_path / "t" / ("out.jpg" if "jpeg" in route else "out.tiff")
+    t_out.parent.mkdir()
+    argv = ["-i", str(safe), "-o", str(t_out)] + args
+    tapi.process_safe_to_path(safe, t_out, _tparams(argv), fast=fast,
+                              device="cpu")
+    assert big_scene == (["synrgb_streamed"] if "jpeg" in route
+                         else ["grayscale_streamed"])
+    params = _tparams(argv)
+    if "jpeg" in route:
+        (_, cols, rows, coeffs), = captured
+        assert (cols, rows) == (1600, 1200)
+        assert t_out.with_suffix(".json").exists()
+        _compare_big_synrgb(vv, vh, params.autoscale, coeffs)
+        return
+    j_out = tmp_path / "j" / "out.tiff"
+    j_out.parent.mkdir()
+    japi.process_safe_to_path(safe, j_out, _params(argv[:3] + [str(j_out)]
+                                                   + args), fast=fast)
+    _compare_tiffs(safe, args, t_out, j_out)
+    _, band = tsafe.open_band(
+        safe, params.polarization.kind, "cpu",
+        target_crs=tsafe.TargetCrsArg.AUTO if params.target_crs else None)
+    want = tf.grayscale_pipeline(band, params.autoscale,
+                                 params.bit_depth.to_bit_depth(),
+                                 target_size=None)
+    got = TiffReader(t_out).read(1)
+    assert got.shape == tuple(want.shape) == tuple(band.shape)
+    np.testing.assert_array_equal(got, want.numpy())
+
+
+def _compare_big_synrgb(vv, vh, strategy, coeffs):
+    """The coefficient blocks the CLI handed the writer: the port's fused
+    program's at original size bit for bit; against the JAX package's
+    streamed path, the bands within their bound, the floor exact, the rgb
+    equal where both bands agree and the blocks within 1 where it agrees
+    on the whole block."""
+    from sarpro_tpu.core import streamed as js
+
+    t = [torch.from_numpy(d) for d in (vv, vh)]
+    np.testing.assert_array_equal(
+        coeffs, tf.synrgb_pipeline(*t, strategy=strategy, target_size=None,
+                                   channel_order="dct").numpy())
+    jb = [np.asarray(jf.synrgb_band_stage(d, copol=c, strategy=_j(strategy),
+                                          target_size=None, pad=False))
+          for d, c in ((vv, True), (vh, False))]
+    tb = [tf.synrgb_band_stage(d, copol=c, strategy=strategy,
+                               target_size=None, pad=False).numpy()
+          for d, c in zip(t, (True, False))]
+    for j, b in zip(jb, tb):
+        assert np.abs(j.astype(int) - b.astype(int)).max() <= \
+            BAND_BOUND[strategy]
+    floors = [tstreamed_floor(b) for b in (jb, tb)]
+    assert floors[0] == floors[1] < 40  # the JAX in-graph tables differ at 40
+    j_rgb, j_dct = (np.asarray(js.synrgb_streamed(vv, vh, _j(strategy),
+                                                  layout=lay))
+                    for lay in ("rgb", "dct"))
+    t_rgb = tf.synrgb_pipeline(*t, strategy=strategy, target_size=None,
+                               channel_order="rgb").numpy()
+    both = (jb[0] == tb[0]) & (jb[1] == tb[1])
+    np.testing.assert_array_equal(t_rgb[both], j_rgb[both])
+    agree = _block_agree(t_rgb, j_rgb)
+    assert agree.mean() > 0.2
+    assert np.abs(coeffs.astype(int) - j_dct.astype(int))[:, agree].max() <= 1
+
+
+def tstreamed_floor(bands):
+    """The streamed path's host water floor of two u8 bands."""
+    from sarpro_tpu_torch.core import streamed
+
+    hist = np.bincount(np.concatenate([b.ravel() for b in bands]),
+                       minlength=256)
+    return streamed._suppressed_floor_host(hist, 2 * bands[0].size)
 
 
 def test_batch_mode_raises(tmp_path):
