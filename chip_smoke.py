@@ -229,6 +229,28 @@ STREAMED_RUNS = (
         "--fast", "--polarization", "vh", "-f", "tiff", "--bit-depth", "u16",
         "--autoscale", "adaptive"]),
 )
+# the batch routes over the batch directory (_batch_dir): (label, CLI
+# arguments besides --input-dir and --output-dir, with "SIZE" for SIZE, the
+# kernels its runs must launch, whether it buckets). Each runs through the
+# single-scene CLI per product, then serial, pipelined and (bucketing
+# routes) bucketed
+BATCH_RUNS = (
+    ("batch clahe auto jpeg", [
+        "--fast", "-f", "jpeg", "--polarization", "multiband", "--autoscale",
+        "clahe", "--size", "SIZE", "--pad", "--target-crs", "auto",
+        "--resample-alg", "cubic"],
+     ("histogram", "tile_histogram", "clahe_lookup", "warp_sample",
+      "synrgb_lookup"), True),
+    ("batch tamed cubic jpeg", [
+        "--fast", "-f", "jpeg", "--polarization", "multiband", "--autoscale",
+        "tamed", "--size", "SIZE", "--pad", "--resample-alg", "cubic"],
+     ("histogram", "resample_axis0", "synrgb_lookup"), True),
+    ("batch exact clahe tiff", ["--polarization", "vv", "--size", "SIZE"],
+     ("histogram", "tile_histogram", "clahe_lookup"), False),
+)
+BATCH_MODES = {"serial": ["--prefetch", "0"],
+               "pipelined": ["--prefetch", "2", "--device-batch", "1"],
+               "bucketed": ["--prefetch", "2", "--device-batch", "2"]}
 # the warm runs that --walls traces under torch.profiler
 TRACED = ("gray clahe tiff", "full clahe tiff", "exact full clahe tiff",
           "streamed exact clahe tiff")
@@ -2298,6 +2320,263 @@ def phase_streamed(safe: Path, work: Path):
     return walls, counts
 
 
+class _FixedClock:
+    """Stands in for the `datetime` module of the SAFE parser during the
+    batch phase: one conversion time for every parse, so the files of two
+    runs compare by bytes."""
+
+    import datetime as _dt
+
+    timezone = _dt.timezone
+
+    class datetime:
+        @staticmethod
+        def now(tz=None):
+            import datetime
+
+            return datetime.datetime(2025, 7, 6, 20, 43, 46, tzinfo=tz)
+
+
+def _batch_dir(work: Path, safe: Path, ew: Path) -> Path:
+    """The batch directory, from the products already written (hard links,
+    no new raster of full size): the SIDE^2 IW product, a second one whose
+    VV and VH rasters are exchanged (so a file written under the wrong
+    scene's name shows), the EW product (another shape and pair), a small
+    product whose VV raster is cut short (an error), an SLC product and a
+    directory that is no SAFE (both skipped)."""
+    import os
+
+    d = work / "batch_in"
+    d.mkdir()
+    swap = {"-vv-": "-vh-", "-vh-": "-vv-"}
+    for src, name, rename in ((safe, "a_iw.SAFE", {}),
+                              (safe, "b_iw_swapped.SAFE", swap),
+                              (ew, "c_ew.SAFE", {})):
+        for f in src.rglob("*"):
+            if f.is_dir():
+                continue
+            rel = f.relative_to(src)
+            if rel.parts[0] == "measurement":
+                rel = rel.with_name(next(
+                    (rel.name.replace(a, b) for a, b in rename.items()
+                     if a in rel.name), rel.name))
+            (d / name / rel).parent.mkdir(parents=True, exist_ok=True)
+            os.link(f, d / name / rel)
+    cut = make_safe(d, name="d_cut.SAFE", shape=(1000, 1000), seed=3)
+    vv = next((cut / "measurement").glob("*-vv-*"))
+    os.truncate(vv, vv.stat().st_size // 2)
+    slc = make_safe(d, name="e_slc.SAFE", shape=(64, 64), seed=4)
+    for f in [slc / "manifest.safe", *(slc / "annotation").glob("*.xml")]:
+        f.write_text(f.read_text().replace(">GRD<", ">SLC<"))
+    (d / "f_notes").mkdir()
+    (d / "f_notes" / "readme.txt").write_text("not a product")
+    return d
+
+
+def _batch_cli(argv: list) -> tuple:
+    """One batch CLI run: (wall s with the device's work, (processed,
+    skipped, errors) as the CLI prints them, launches, read routes)."""
+    import contextlib
+    import io
+
+    import torch
+
+    from sarpro_tpu_torch import cli, ops
+    from sarpro_tpu_torch.io import raster
+
+    ops.reset_launch_counts()
+    for k in raster.ROUTES:
+        raster.ROUTES[k] = 0
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.run(argv, device=DEVICE)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if rc != 0:
+        raise RuntimeError(f"batch cli.run failed ({rc}): {argv}")
+    lines = dict(line.split(": ") for line in buf.getvalue().splitlines()
+                 if line.split(": ")[0] in ("Processed", "Skipped", "Errors"))
+    counters = tuple(int(lines[k]) for k in ("Processed", "Skipped",
+                                             "Errors"))
+    return wall, counters, ops.launch_counts(), dict(raster.ROUTES)
+
+
+def _files(d: Path) -> dict:
+    return {p.name: p.read_bytes() for p in sorted(d.iterdir())}
+
+
+def _batch_trace(label: str, argv: list, work: Path, smi: str) -> None:
+    """A pipelined run under torch.profiler: every kernel launch and every
+    copy the CUDA runtime saw came from one thread, the calling one (the
+    wrappers' and Tensor.to's threads are recorded too), and the device's
+    busy share of the run's wall."""
+    import threading
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from sarpro_tpu_torch.ops import kernels, resample_kernel, warp_kernel
+
+    threads, saved = [], []
+    for mod in (kernels, resample_kernel, warp_kernel):
+        real = mod.use_kernel
+        saved.append((mod, real))
+        mod.use_kernel = (lambda t, _real=real: threads.append(
+            threading.get_ident()) or _real(t))
+    real_to = torch.Tensor.to
+
+    def to(self, *a, **k):
+        threads.append(threading.get_ident())
+        return real_to(self, *a, **k)
+
+    torch.Tensor.to = to
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            wall, counters, _, _ = _batch_cli(argv)
+    finally:
+        torch.Tensor.to = real_to
+        for mod, real in saved:
+            mod.use_kernel = real
+    if set(threads) != {threading.get_ident()}:
+        raise AssertionError(f"{label}: kernel wrappers or Tensor.to ran on "
+                             f"{len(set(threads))} threads")
+    path = work / "batch_trace.json"
+    prof.export_chrome_trace(str(path))
+    events = json.loads(path.read_text())["traceEvents"]
+    path.unlink()
+    calls = {}
+    for e in events:
+        name = e.get("name", "")
+        if (e.get("cat") in ("cuda_runtime", "cuda_driver")
+                and ("LaunchKernel" in name or "Memcpy" in name)):
+            calls.setdefault(e.get("tid"), []).append(name)
+    cpu_tids = {e.get("tid") for e in events if e.get("cat") == "cpu_op"}
+    if not calls:
+        raise AssertionError(f"{label}: the trace holds no launch or copy")
+    if set(calls) != {threading.get_native_id()}:
+        raise AssertionError(
+            f"{label}: launches and copies on threads "
+            f"{ {t: len(v) for t, v in calls.items()} }, the consumer is "
+            f"{threading.get_native_id()}")
+    (tid, names), = calls.items()
+    spans = {"kernel": [], "gpu_memcpy": [], "gpu_memset": []}
+    for e in events:
+        if e.get("cat") in spans and "dur" in e:
+            spans[e["cat"]].append((e["ts"], e["ts"] + e["dur"]))
+    busy = _busy_us([iv for v in spans.values() for iv in v]) / 1e3
+    ms = {k: sum(b - a for a, b in v) / 1e3 for k, v in spans.items()}
+    log(f"batch: {label} traced pipelined run {counters}: "
+        f"{sum('LaunchKernel' in n for n in names)} launches and "
+        f"{sum('Memcpy' in n for n in names)} copies in the CUDA runtime, "
+        f"all on thread {tid}, the consumer's (trace threads of CPU ops "
+        f"{sorted(map(str, cpu_tids))}); {len(threads)} wrapper and "
+        f"Tensor.to calls on the consumer; wall {wall * 1e3:.1f} ms "
+        f"(profiler on), device busy {busy:.1f} ms = "
+        f"{100 * busy / (wall * 1e3):.2f} % ({len(spans['kernel'])} kernels "
+        f"{ms['kernel']:.2f} ms, {len(spans['gpu_memcpy'])} copies "
+        f"{ms['gpu_memcpy']:.2f} ms) on {smi}")
+
+
+def phase_batch(safe: Path, ew: Path, work: Path, smi: str) -> dict:
+    """BATCH_RUNS over the batch directory: each product through the
+    single-scene CLI, then the batch CLI serial, pipelined and (bucketing
+    routes) bucketed. Every batch run prints the expected counters,
+    launches what the single-scene runs launched in all, and writes files
+    byte-identical to the single-scene ones. One route runs again under
+    force_plain() (the same files), and each synRGB route's pipelined run
+    once more under torch.profiler (_batch_trace). Returns ({label: {mode:
+    wall s}}, {label: the pipelined run's launches})."""
+    import torch
+
+    from sarpro_tpu_torch import cli, ops
+    from sarpro_tpu_torch.io import safe as tsafe
+    from sarpro_tpu_torch.ops import force_plain
+
+    t0 = time.perf_counter()
+    d = _batch_dir(work, safe, ew)
+    log(f"batch: directory {sorted(p.name for p in d.iterdir())} in "
+        f"{time.perf_counter() - t0:.1f} s")
+    real_clock = tsafe.datetime
+    tsafe.datetime = _FixedClock
+    tsafe._parse_comprehensive_cached.cache_clear()
+    walls, totals = {}, {}
+    try:
+        for label, args, kernels, buckets in BATCH_RUNS:
+            args = [str(SIZE) if a == "SIZE" else a for a in args]
+            multiband = "multiband" in args
+            ext = "jpg" if "jpeg" in args else "tiff"
+            names = (["a_iw.SAFE", "b_iw_swapped.SAFE", "c_ew.SAFE"]
+                     if multiband else ["a_iw.SAFE", "b_iw_swapped.SAFE"])
+            expect = (len(names), 5 - len(names), 1)
+            tag = label.replace(" ", "_")
+            single = work / f"{tag}_single"
+            single.mkdir()
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            for name in names:
+                if cli.run(["-i", str(d / name), "-o",
+                            str(single / f"{name}.{ext}")] + args,
+                           device=DEVICE) != 0:
+                    raise RuntimeError(f"{label}: single-scene run of {name}")
+            torch.cuda.synchronize()
+            walls[label] = {"single-scene": time.perf_counter() - t0}
+            want, per_scene = _files(single), ops.launch_counts()
+            for k in kernels:
+                if per_scene[k] <= 0:
+                    raise AssertionError(f"{label}: kernel {k} was not "
+                                         f"launched")
+            modes = [m for m in BATCH_MODES if buckets or m != "bucketed"]
+            for mode in modes:
+                out = work / f"{tag}_{mode}"
+                argv = (["--input-dir", str(d), "--output-dir", str(out)]
+                        + args + BATCH_MODES[mode])
+                wall, counters, counts, routes = _batch_cli(argv)
+                walls[label][mode] = wall
+                if counters != expect:
+                    raise AssertionError(f"{label} {mode}: counters "
+                                         f"{counters}, expected {expect}")
+                if counts != per_scene:
+                    raise AssertionError(f"{label} {mode}: launches {counts}"
+                                         f", the single-scene runs {per_scene}")
+                got = _files(out)
+                if got.keys() != want.keys() or any(
+                        got[k] != want[k] for k in want):
+                    raise AssertionError(f"{label} {mode}: files differ from "
+                                         f"the single-scene CLI's")
+                if mode == "pipelined":
+                    totals[label] = counts
+                log(f"batch: {label} {mode} {counters}, wall "
+                    f"{wall * 1e3:.1f} ms, {len(names) / wall:.3f} scenes/s, "
+                    f"launches {counts} equal to the single-scene runs', "
+                    f"files byte-identical to the single-scene CLI's; read "
+                    f"routes {routes} on {smi}")
+            log(f"batch: {label} walls " + ", ".join(
+                f"{m} {w * 1e3:.1f} ms" for m, w in walls[label].items())
+                + f" for {len(names)} scenes on {smi}")
+        label, args, _, _ = BATCH_RUNS[2]
+        args = [str(SIZE) if a == "SIZE" else a for a in args]
+        plain = work / "batch_plain"
+        with force_plain():
+            _, counters, counts, _ = _batch_cli(
+                ["--input-dir", str(d), "--output-dir", str(plain)] + args)
+        if any(counts.values()) or _files(plain) != _files(
+                work / f"{label.replace(' ', '_')}_serial"):
+            raise AssertionError(f"{label}: force_plain() files differ")
+        log(f"batch: {label} under force_plain() {counters}: the same files")
+        for label, args, _, _ in BATCH_RUNS[:2]:
+            args = [str(SIZE) if a == "SIZE" else a for a in args]
+            _batch_trace(label, ["--input-dir", str(d), "--output-dir",
+                                 str(work / f"{label.replace(' ', '_')}"
+                                     "_traced")]
+                         + args + BATCH_MODES["pipelined"], work, smi)
+    finally:
+        tsafe.datetime = real_clock
+        tsafe._parse_comprehensive_cached.cache_clear()
+    return walls, totals
+
+
 def _quartiles(xs):
     q1, q2, q3 = statistics.quantiles(xs, n=4, method="inclusive")
     return q1, q2, q3
@@ -2398,23 +2677,35 @@ def main() -> int:
     args = ap.parse_args()
     if args.walls and args.walls < 3:
         ap.error("--walls needs 3 runs or more")
-    smi = phase_environment()
-    phase_build()
+    t_start = time.perf_counter()
+
+    def timed(phase, *a):
+        """Run `phase`, logging its seconds and the script's so far."""
+        t0 = time.perf_counter()
+        out = phase(*a)
+        t1 = time.perf_counter()
+        log(f"time: {phase.__name__} {t1 - t0:.1f} s ({t1 - t_start:.1f} s "
+            f"since the start)")
+        return out
+
+    smi = timed(phase_environment)
+    timed(phase_build)
     results = {}
-    phase_kernels(results)
+    timed(phase_kernels, results)
     work = ROOT / "build" / "chip_smoke"
     shutil.rmtree(work, ignore_errors=True)
     work.mkdir(parents=True)
     try:
-        safe, blobs, counts, walls = phase_slice(work)
-        phase_resident(safe, blobs)
-        gray_walls, _ = phase_gray(safe, work)
-        phase_jpeg_800(safe, work)
-        ew = phase_exact(safe, work)
-        full_walls, _ = phase_full(work, ew)
-        streamed_walls, _ = phase_streamed(safe, work)
+        safe, blobs, counts, walls = timed(phase_slice, work)
+        timed(phase_resident, safe, blobs)
+        gray_walls, _ = timed(phase_gray, safe, work)
+        timed(phase_jpeg_800, safe, work)
+        ew = timed(phase_exact, safe, work)
+        full_walls, _ = timed(phase_full, work, ew)
+        streamed_walls, _ = timed(phase_streamed, safe, work)
+        _, batch_launches = timed(phase_batch, safe, ew, work, smi)
         if args.walls:
-            phase_walls(args.walls, safe, work, smi)
+            timed(phase_walls, args.walls, safe, work, smi)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     if "jax" in sys.modules:
@@ -2440,6 +2731,8 @@ def main() -> int:
                  **{k: results[name][k] for k in (
                      "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                      "library_ms")}}
+        entry["batch_launches"] = sum(c[name]
+                                      for c in batch_launches.values())
         if also:
             entry["also_replaces"] = also[0]
         kernels.append(entry)

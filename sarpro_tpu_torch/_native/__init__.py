@@ -20,6 +20,7 @@ import os
 import pathlib
 import shutil
 import subprocess
+import threading
 from typing import Optional
 
 import numpy as np
@@ -34,6 +35,7 @@ CXX_FLAGS = ("-O3", "-march=native", "-shared", "-fPIC", "-std=c++17",
 
 _LIB: Optional[ctypes.CDLL] = None
 _TRIED = False
+_LOAD_LOCK = threading.Lock()
 
 
 def _build() -> Optional[pathlib.Path]:
@@ -69,6 +71,13 @@ def _build() -> Optional[pathlib.Path]:
 
 
 def _load() -> Optional[ctypes.CDLL]:
+    # the batch driver's loader threads reach this concurrently: one builds
+    # and loads, the others wait for its result
+    with _LOAD_LOCK:
+        return _load_locked()
+
+
+def _load_locked() -> Optional[ctypes.CDLL]:
     global _LIB, _TRIED
     if _TRIED:
         return _LIB

@@ -21,6 +21,14 @@ A full-resolution scene above `streamed.BIG_SCENE_PIXELS` takes the streamed
 passes of `core/streamed` in both modes: exact mode hands it to fast mode,
 as the JAX package does (:358-376).
 
+Batch mode (:143-148, :246-342) runs every product of a directory through
+the same routes (`_Route`): `process_directory_to_path` one after the
+other, and `parallel/batch.process_directory_pipelined` with the host half
+of each read on loader threads and everything on the device on the calling
+thread. Products that cannot be processed are skipped
+(`scene_skip_reason`, XML only), failures are counted, and `BatchReport`
+holds the counters.
+
 Every entry point computes on `device` ("cuda" unless the caller asks for
 the CPU) and raises RuntimeError when CUDA is asked for and absent.
 Sharding over several devices raises NotImplementedError with its ROADMAP
@@ -46,12 +54,16 @@ from .core.save import (
 from .core.synthetic_rgb import create_synthetic_rgb_by_mode_and_strategy
 from .errors import ProcessingError, SafeParseError
 from .io.safe import (
+    DualPolScene,
     SafeMetadata,
     TargetCrsArg,
+    identify_polarization_files,
     open_band,
-    open_dual_pol,
     open_pair,
+    open_scene,
     parse_comprehensive_metadata,
+    read_scene,
+    upload_scene,
 )
 from .params import ProcessingParams
 from .types import (
@@ -119,100 +131,240 @@ def _is_big_original(input) -> bool:
     return 0 < meta.lines * meta.samples > streamed.BIG_SCENE_PIXELS
 
 
+class _Route:
+    """How `params` take one product to a file on `device` (the routes of
+    the reference's api/mod.rs:539-674; fast mode: api.py:409-487): the
+    host half of the read (`read`), its device half (`upload`), both in
+    turn band by band (`open`), and the device programs and the write
+    (`save`). The single-scene entry and the batch drivers run the same
+    halves, so a batch writes what the single-scene CLI writes."""
+
+    def __init__(self, params: ProcessingParams, fast: bool,
+                 device: torch.device):
+        self.params, self.fast, self.device = params, fast, device
+        target_arg, resample = _resolve_target_args(params)
+        warping = target_arg not in (None, TargetCrsArg.NONE)
+        self.alg0 = None if warping else resample  # the warp took the filter
+        pol = params.polarization
+        self.pol = pol.kind if pol.kind in ("vv", "vh", "hh", "hv") else None
+        self.what = _op_what(pol.op) if pol.kind == "op" else "Multiband"
+        # fast synRGB JPEG reads full DN (or warps) and resamples in its
+        # band stage; every other route takes the decimated read
+        self.synrgb = (fast and pol.kind == "multiband"
+                       and params.format is OutputFormat.JPEG)
+        self.load = dict(target_size=params.size, target_crs=target_arg,
+                         resample_alg=resample, decimate=not self.synrgb)
+
+    def read(self, input, staging=None):
+        """The host half: an `io.safe.HostScene` (no device touched)."""
+        return read_scene(input, self.pol, self.what, staging=staging,
+                          **self.load)
+
+    def upload(self, scene) -> DualPolScene:
+        """The device half of `read`'s scene."""
+        return upload_scene(scene, self.device, self._band_stage())
+
+    def open(self, input) -> DualPolScene:
+        """Both halves in turn, band by band (the single-scene overlaps)."""
+        return open_scene(input, self.device, self.pol, self.what,
+                          band_stage=self._band_stage(), **self.load)
+
+    def _band_stage(self):
+        """Band 1's synRGB stage, queued while band 2 is read (fast synRGB
+        JPEG below the streamed size only)."""
+        if not self.synrgb:
+            return None
+        p = self.params
+
+        def band_stage(dn1):
+            if fast_path._is_big_scene(*dn1.shape, p.size):
+                return None  # the streamed passes take both bands
+            return fused.synrgb_band_stage(
+                dn1, strategy=p.autoscale, copol=True, target_size=p.size,
+                pad=p.pad, resample_alg=self.alg0)
+
+        return band_stage
+
+    def save(self, scene: DualPolScene, output, write_pool=None):
+        """The device programs and the write of `scene` to `output`. Fast
+        mode with `write_pool` returns the Future of the deferred write;
+        exact mode writes before it returns (None)."""
+        p = self.params
+        bit_depth = p.bit_depth.to_bit_depth()
+        pol = p.polarization
+        if pol.kind == "op":
+            band = ops.OPERATIONS[pol.op.value](scene.band1, scene.band2)
+            # the pair is not needed past the operation
+            scene.band1 = scene.band2 = None
+            operation = ProcessingOperation.PolarOp(pol.op)
+        elif pol.kind == "multiband":
+            band, operation = None, _multiband_operation(scene.is_vvvh)
+        else:
+            band, operation = scene.band1, ProcessingOperation.SINGLE_BAND
+        if self.fast:
+            common = dict(pad=p.pad, strategy=p.autoscale,
+                          resample_alg=self.alg0, write_pool=write_pool)
+            if band is not None:
+                return fast_path.save_single_band_fast(
+                    band, output, p.format, bit_depth, p.size,
+                    scene.metadata, operation=operation, **common)
+            return fast_path.save_multiband_fast(
+                scene.band1, scene.band2, output, p.format, bit_depth,
+                p.size, scene.metadata, operation=operation,
+                syn_mode=p.synrgb_mode, staged_b1=scene.staged_band1,
+                **common)
+        common = dict(format=p.format, bit_depth=bit_depth,
+                      target_size=p.size, pad=p.pad, strategy=p.autoscale)
+        if band is not None:
+            save_processed_image(band, output, metadata=scene.metadata,
+                                 operation=operation, **common)
+        else:
+            save_processed_multiband_image_sequential(
+                scene.band1, scene.band2, output, metadata=scene.metadata,
+                operation=operation, syn_mode=p.synrgb_mode, **common)
+        return None
+
+
+def _route(input, params: ProcessingParams, fast: bool,
+           device: torch.device) -> _Route:
+    """The route of one product: exact mode at original size above the
+    exact mode's device budget takes the streamed fast-mode passes, as in
+    the JAX package."""
+    if not fast and params.size is None and _is_big_original(input):
+        logger.warning("scene exceeds the exact-mode device budget; using "
+                       "the streamed fast-mode pipeline")
+        fast = True
+    return _Route(params, fast, device)
+
+
+def _refuse_sharding(shard_devices: int) -> None:
+    if shard_devices:
+        raise NotImplementedError("multi-GPU sharding is not ported yet "
+                                  "(ROADMAP queue 1 #7, multi-GPU)")
+
+
 def process_safe_to_path(input, output, params: ProcessingParams,
                          fast: bool = False, shard_devices: int = 0,
                          device="cuda") -> None:
     """SAFE -> file, driven by ProcessingParams, computing on `device`
     (reference: api/mod.rs:539-674): exact mode, or fast mode with
     `fast=True`."""
-    if shard_devices:
-        raise NotImplementedError("multi-GPU sharding is not ported yet "
-                                  "(ROADMAP queue 1 #7, multi-GPU)")
+    _refuse_sharding(shard_devices)
+    route = _route(input, params, fast, _device(device))
+    route.save(route.open(input), output)
+
+
+# --------------------------------------------------------------------------
+# Batch mode (reference: api/mod.rs:452-536)
+# --------------------------------------------------------------------------
+@dataclasses.dataclass
+class BatchReport:
+    """reference: api/mod.rs:452-457."""
+
+    processed: int = 0
+    skipped: int = 0
+    errors: int = 0
+
+
+def iterate_safe_products(input_dir):
+    """Immediate subdirectories of input_dir (reference: api/mod.rs:460-470)."""
+    return iter(sorted(p for p in Path(input_dir).iterdir() if p.is_dir()))
+
+
+def scene_skip_reason(path, params: ProcessingParams) -> Optional[str]:
+    """Cheap (metadata-only) viability check for batch mode (a copy of
+    sarpro_tpu/api.py:251-282).
+
+    Mirrors the reference's warnings-mode reader skip semantics
+    (sentinel1.rs:592-796 via api/mod.rs:502-533): unsupported product type,
+    missing requested polarization files, and unsatisfiable band pairs all
+    return a skip reason instead of becoming errors. Unlike the reference we
+    do NOT load the raster data twice (known inefficiency, api/mod.rs:502-518)
+    — the check reads XML only.
+
+    Returns None when the product is viable, else a human-readable reason.
+    """
+    path = Path(path)
+    if not (path / "annotation").is_dir() or not (path / "measurement").is_dir():
+        return "missing annotation/measurement directory"
+    meta = parse_comprehensive_metadata(path)
+    if meta.product_type.upper() != "GRD":
+        return f"unsupported product type: {meta.product_type}"
+    vv, vh, hh, hv = identify_polarization_files(
+        path / "measurement", meta.polarizations
+    )
+    kind = params.polarization.kind
+    if kind in ("vv", "vh", "hh", "hv"):
+        if {"vv": vv, "vh": vh, "hh": hh, "hv": hv}[kind] is None:
+            return f"{kind.upper()} measurement file not found"
+        return None
+    # multiband and polarization ops need a co/cross pair (api.py:_band_pair)
+    if (vv is not None and vh is not None) or (hh is not None and hv is not None):
+        return None
+    return "no usable polarization pair (need VV+VH or HH+HV)"
+
+
+def process_directory_to_path(
+    input_dir, output_dir, params: ProcessingParams,
+    continue_on_error: bool = True, fast: bool = False, resume: bool = False,
+    progress=None, shard_devices: int = 0, device="cuda",
+) -> BatchReport:
+    """Batch all SAFE subdirectories, one after the other, each through
+    `process_safe_to_path` on `device` (reference: api/mod.rs:474-536).
+
+    `progress(done, total, current_name)` (optional) is called as scenes
+    finish — the GUI's live batch progress hook; its exceptions are
+    ignored.
+
+    Note: the reference opens each product twice (viability check + process,
+    api/mod.rs:502-518) — a known inefficiency deliberately NOT replicated;
+    we run the viability check cheaply on metadata only."""
+    _refuse_sharding(shard_devices)
     device = _device(device)
-    if fast:
-        return _process_safe_to_path_fast(input, output, params, device)
-    if params.size is None and _is_big_original(input):
-        # past the exact mode's device budget the scene takes the streamed
-        # fast-mode passes, as in the JAX package
-        logger.warning("scene exceeds the exact-mode device budget; using "
-                       "the streamed fast-mode pipeline")
-        return _process_safe_to_path_fast(input, output, params, device)
-    bit_depth = params.bit_depth.to_bit_depth()
-    target_arg, resample = _resolve_target_args(params)
-    load = dict(target_size=params.size, target_crs=target_arg,
-                resample_alg=resample)
-    pol = params.polarization
-    common = dict(format=params.format, bit_depth=bit_depth,
-                  target_size=params.size, pad=params.pad,
-                  strategy=params.autoscale)
-    if pol.kind in ("vv", "vh", "hh", "hv"):
-        metadata, band = open_band(input, pol.kind, device, **load)
-        save_processed_image(band, output, metadata=metadata,
-                             operation=ProcessingOperation.SINGLE_BAND,
-                             **common)
-    elif pol.kind == "multiband":
-        scene = open_pair(input, device, "Multiband", **load)
-        save_processed_multiband_image_sequential(
-            scene.band1, scene.band2, output, metadata=scene.metadata,
-            operation=_multiband_operation(scene.is_vvvh),
-            syn_mode=params.synrgb_mode, **common)
-    else:
-        scene = open_pair(input, device, _op_what(pol.op), **load)
-        band = ops.OPERATIONS[pol.op.value](scene.band1, scene.band2)
-        metadata = scene.metadata
-        del scene  # the pair is not needed past the operation
-        save_processed_image(band, output, metadata=metadata,
-                             operation=ProcessingOperation.PolarOp(pol.op),
-                             **common)
+    output_dir = Path(output_dir)
+    output_dir.mkdir(parents=True, exist_ok=True)
+    report = BatchReport()
+    products = list(iterate_safe_products(input_dir))
 
+    def tick(current=None):
+        if progress is not None:
+            try:
+                progress(report.processed + report.skipped + report.errors,
+                         len(products), current)
+            except Exception:  # noqa: BLE001 — observer must not break batch
+                pass
 
-def _process_safe_to_path_fast(input, output, params: ProcessingParams,
-                               device: torch.device) -> None:
-    """Fast mode: the reader's downsample-on-read or warp, then the fused
-    device programs of core/fused (reference: api.py:409-487)."""
-    bit_depth = params.bit_depth.to_bit_depth()
-    target_arg, resample = _resolve_target_args(params)
-    warping = target_arg not in (None, TargetCrsArg.NONE)
-    alg0 = None if warping else resample  # the warp consumed the filter
-    size = params.size
-    pol = params.polarization
-    common = dict(pad=params.pad, strategy=params.autoscale,
-                  resample_alg=alg0)
-    if pol.kind in ("vv", "vh", "hh", "hv"):
-        metadata, band = open_band(input, pol.kind, device, size,
-                                   target_crs=target_arg,
-                                   resample_alg=resample)
-        fast_path.save_single_band_fast(
-            band, output, params.format, bit_depth, size, metadata,
-            operation=ProcessingOperation.SINGLE_BAND, **common)
-        return
-    if pol.kind == "op":
-        op = pol.op
-        scene = open_pair(input, device, _op_what(op), size,
-                          target_crs=target_arg, resample_alg=resample)
-        # the operation combines the bands as loaded: already reduced
-        band = ops.OPERATIONS[op.value](scene.band1, scene.band2)
-        fast_path.save_single_band_fast(
-            band, output, params.format, bit_depth, size, scene.metadata,
-            operation=ProcessingOperation.PolarOp(op), **common)
-        return
-    if params.format is OutputFormat.TIFF:
-        scene = open_pair(input, device, "Multiband", size,
-                          target_crs=target_arg, resample_alg=resample)
-    else:
-        def band_stage(dn1):
-            if fast_path._is_big_scene(*dn1.shape, size):
-                return None  # the streamed passes take both bands
-            return fused.synrgb_band_stage(
-                dn1, strategy=params.autoscale, copol=True, target_size=size,
-                pad=params.pad, resample_alg=alg0)
-
-        scene = open_dual_pol(input, device, size, band_stage=band_stage,
-                              target_crs=target_arg, resample_alg=resample)
-    fast_path.save_multiband_fast(
-        scene.band1, scene.band2, output, params.format, bit_depth, size,
-        scene.metadata, operation=_multiband_operation(scene.is_vvvh),
-        syn_mode=params.synrgb_mode, staged_b1=scene.staged_band1, **common)
+    for path in products:
+        tick(path.name)
+        # viability: parse metadata + check product type / pol availability
+        # (reference: api/mod.rs:502-533 — skip, don't error)
+        try:
+            reason = scene_skip_reason(path, params)
+        except Exception:
+            reason = "unreadable product metadata"
+        if reason is not None:
+            logger.warning("Skipping %s: %s", path, reason)
+            report.skipped += 1
+            tick()
+            continue
+        ext = params.format.extension
+        output_path = output_dir / f"{path.name}.{ext}"
+        if resume and output_path.exists():
+            logger.info("Resume: output exists, skipping %s", path)
+            report.skipped += 1
+            tick()
+            continue
+        try:
+            process_safe_to_path(path, output_path, params, fast=fast,
+                                 device=device)
+            report.processed += 1
+        except Exception as e:
+            logger.warning("Error processing %s: %s", path, e)
+            report.errors += 1
+            if not continue_on_error:
+                raise
+        tick()
+    return report
 
 
 # --------------------------------------------------------------------------

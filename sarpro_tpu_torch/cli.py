@@ -7,6 +7,12 @@ device programs.
     python -m sarpro_tpu_torch.cli -i X.SAFE -o out.jpg -f jpeg \\
         --polarization multiband --autoscale clahe --size 2048 --pad \\
         --target-crs auto --resample-alg cubic [--fast]
+    python -m sarpro_tpu_torch.cli --input-dir D --output-dir O [--prefetch N]
+
+Batch mode (`--input-dir`, or `--batch`) processes every product of a
+directory: one after the other (`--prefetch 0`, the default), or pipelined
+with N scenes loading ahead (`parallel/batch.py`), and prints the
+processed, skipped and error counts.
 
 `build_parser`, `_parse_size` and `_params_from_args` are copies of the JAX
 package's (tests/test_torch_host_copies.py holds the parsed params equal),
@@ -142,11 +148,42 @@ def run(argv=None, device="cuda") -> int:
         )
     from . import api
 
+    batch_mode = args.batch or args.input_dir is not None
     try:
         params = _params_from_args(args)
-        if args.batch or args.input_dir is not None:
-            raise NotImplementedError("batch mode is not ported yet "
-                                      "(ROADMAP queue 1 #8, batch)")
+        if batch_mode:
+            if args.input_dir is None:
+                raise MissingArgument("--input-dir")
+            if args.output_dir is None:
+                raise MissingArgument("--output-dir")
+            args.output_dir.mkdir(parents=True, exist_ok=True)
+            logger.info("Starting batch processing from directory: %s",
+                        args.input_dir)
+            if args.prefetch > 0:
+                from .parallel.batch import process_directory_pipelined
+
+                report = process_directory_pipelined(
+                    args.input_dir, args.output_dir, params,
+                    continue_on_error=True, prefetch=args.prefetch,
+                    resume=args.resume, fast=args.fast,
+                    device_batch=args.device_batch,
+                    shard_devices=args.shard_devices,
+                    direct_io=not args.no_direct_io, device=device,
+                )
+            else:
+                report = api.process_directory_to_path(
+                    args.input_dir, args.output_dir, params,
+                    continue_on_error=True, fast=args.fast,
+                    resume=args.resume, shard_devices=args.shard_devices,
+                    device=device,
+                )
+            logger.info("Batch processing complete!")
+            logger.info("Processed: %d", report.processed)
+            logger.info("Skipped: %d", report.skipped)
+            logger.info("Errors: %d", report.errors)
+            print(f"Processed: {report.processed}\n"
+                  f"Skipped: {report.skipped}\nErrors: {report.errors}")
+            return 0
         if args.input is None:
             raise MissingArgument("--input")
         if args.output is None:

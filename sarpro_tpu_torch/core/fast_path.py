@@ -9,6 +9,11 @@ the world file, .prj and JSON sidecar, through the writers of io/writers
 `streamed.BIG_SCENE_PIXELS` runs the chunked passes of core/streamed instead
 of the fused programs, with the same output.
 
+For the batch driver, each save takes a `write_pool`: the device work and
+the copy back run on the calling thread, and the write (pageable host
+arrays and a metadata snapshot only) goes to the pool. `save_multiband_batch_fast` runs
+a bucket of same-shape synRGB JPEG scenes with one host sync.
+
 Not ported: row sharding over several devices (ROADMAP queue 1 #7).
 """
 from __future__ import annotations
@@ -16,6 +21,8 @@ from __future__ import annotations
 import functools
 import logging
 from pathlib import Path
+
+import torch
 
 from ..io.writers import jpeg
 from ..io.writers.metadata import (
@@ -109,15 +116,41 @@ def _write_jpeg_sidecars(output: Path, metadata, label, gt, proj,
         output, metadata, label, gt, proj, extras)
 
 
+def _to_host(t: torch.Tensor, deferred: bool):
+    """`t` in host memory, as numpy. For a deferred write the memory is
+    pageable: a pinned result (the streamed JPEG front end's) is copied
+    out here, so the writer thread never holds the last reference to a
+    block of the caching host allocator, whose release records CUDA
+    events."""
+    t = t.cpu()
+    if deferred and t.is_pinned():
+        t = torch.empty(t.shape, dtype=t.dtype).copy_(t)
+    return t.numpy()
+
+
+def _submit(write, write_pool):
+    """Run `write` now (None), or defer it to `write_pool` (its Future)."""
+    if write_pool is not None:
+        return write_pool.submit(write)
+    write()
+    return None
+
+
 def save_single_band_fast(
     dn, output, format: OutputFormat, bit_depth: BitDepth, target_size,
     metadata=None, pad: bool = False, strategy=None,
     operation: ProcessingOperation = ProcessingOperation.SINGLE_BAND,
-    resample_alg=None,
-) -> None:
+    resample_alg=None, write_pool=None,
+):
     """One band (device tensor) -> GeoTIFF (u8 or u16) or grayscale JPEG
     (always u8, from the device's DCT blocks) + world file, .prj and
-    sidecar, through the grayscale program (streamed for a big scene)."""
+    sidecar, through the grayscale program (streamed for a big scene).
+
+    With `write_pool` (an Executor), the write (the TIFF, or the entropy
+    coding, world file, .prj and sidecar) is submitted to it and its Future
+    returned: the band is copied back and the metadata snapshotted here,
+    so the writer gets host arrays only and never touches the device.
+    Without it the write runs here and None is returned."""
     output = Path(output)
     in_rows, in_cols = dn.shape
     tiff = format is OutputFormat.TIFF
@@ -130,17 +163,45 @@ def save_single_band_fast(
         out = fused.grayscale_pipeline(
             dn, strategy=strategy, bit_depth=depth, target_size=target_size,
             pad=pad, resample_alg=resample_alg, jpeg_dct=not tiff)
-    arr = out.cpu().numpy()
+    arr = _to_host(out, write_pool is not None)
     final_cols, final_rows, gt, proj = _geo(metadata, in_rows, in_cols,
                                             target_size, pad, resample_alg)
     label = operation.metadata_label
-    if tiff:
-        writer = write_tiff_u8 if depth is BitDepth.U8 else write_tiff_u16
-        _write_tiff(writer(output, final_cols, final_rows, arr), metadata,
-                    label, gt, proj)
-    else:
-        jpeg.write_gray_jpeg_dct(output, final_cols, final_rows, arr)
-        _write_jpeg_sidecars(output, metadata, label, gt, proj)
+    meta = metadata.copy() if metadata is not None else None
+
+    def write():
+        if tiff:
+            writer = write_tiff_u8 if depth is BitDepth.U8 else write_tiff_u16
+            _write_tiff(writer(output, final_cols, final_rows, arr), meta,
+                        label, gt, proj)
+        else:
+            jpeg.write_gray_jpeg_dct(output, final_cols, final_rows, arr)
+            _write_jpeg_sidecars(output, meta, label, gt, proj)
+        logger.info("fast: saved %s", output)
+
+    return _submit(write, write_pool)
+
+
+def _synrgb_coeffs(dn1, dn2, target_size, pad, strategy, resample_alg,
+                   staged_b1=None) -> torch.Tensor:
+    """The synRGB JPEG's quantized DCT blocks (3, bh, bw, 8, 8) int16 of a
+    band pair below the streamed size, on the bands' device: band 1's stage
+    (unless `staged_b1` is already queued), band 2's, the combine."""
+    stage = dict(strategy=strategy, target_size=target_size, pad=pad,
+                 resample_alg=resample_alg)
+    b1 = (staged_b1 if staged_b1 is not None
+          else fused.synrgb_band_stage(dn1, copol=True, **stage))
+    b2 = fused.synrgb_band_stage(dn2, copol=False, **stage)
+    return fused.synrgb_combine_stage(b1, b2, strategy=strategy,
+                                      suppressed=None, channel_order="dct")
+
+
+def _write_synrgb(output: Path, final_cols, final_rows, coeffs, metadata,
+                  label, gt, proj, syn_mode) -> None:
+    """Entropy-code the host blocks `coeffs` and write the sidecars."""
+    jpeg.write_synrgb_jpeg_dct(output, final_cols, final_rows, coeffs)
+    _write_jpeg_sidecars(output, metadata, label, gt, proj,
+                         [("synthetic_rgb_mode", syn_mode.display)])
     logger.info("fast: saved %s", output)
 
 
@@ -149,19 +210,21 @@ def save_multiband_fast(
     metadata=None, pad: bool = False, strategy=None,
     operation: ProcessingOperation = ProcessingOperation.MULTIBAND_VV_VH,
     syn_mode: SyntheticRgbMode = SyntheticRgbMode.DEFAULT,
-    resample_alg=None, staged_b1=None,
-) -> None:
+    resample_alg=None, staged_b1=None, write_pool=None,
+):
     """Dual-band DN (device tensors) -> two-band GeoTIFF (u8 or u16, one
     grayscale program per band) or synRGB JPEG + world file, .prj and
     sidecar; a big scene takes the streamed passes. `staged_b1` is band 1's
     already-queued synRGB band stage (the reader's overlapped load; never
-    made for a big scene); without it band 1's stage runs here."""
+    made for a big scene); without it band 1's stage runs here.
+    `write_pool` defers the write as in `save_single_band_fast`."""
     output = Path(output)
     in_rows, in_cols = dn1.shape
     big = _is_big_scene(in_rows, in_cols, target_size)
     final_cols, final_rows, gt, proj = _geo(metadata, in_rows, in_cols,
                                             target_size, pad, resample_alg)
     label = operation.metadata_label
+    meta = metadata.copy() if metadata is not None else None
     if format is OutputFormat.TIFF:
         if big:
             gray = functools.partial(streamed.grayscale_streamed,
@@ -172,27 +235,73 @@ def save_multiband_fast(
                 fused.grayscale_pipeline, strategy=strategy,
                 bit_depth=bit_depth, target_size=target_size, pad=pad,
                 resample_alg=resample_alg)
-        b1, b2 = (gray(dn).cpu().numpy() for dn in (dn1, dn2))
-        writer = (write_tiff_multiband_u8 if bit_depth is BitDepth.U8
-                  else write_tiff_multiband_u16)
-        _write_tiff(writer(output, final_cols, final_rows, b1, b2), metadata,
-                    label, gt, proj)
-        logger.info("fast: saved %s", output)
-        return
+        b1, b2 = (_to_host(gray(dn), write_pool is not None)
+                  for dn in (dn1, dn2))
+
+        def write():
+            writer = (write_tiff_multiband_u8 if bit_depth is BitDepth.U8
+                      else write_tiff_multiband_u16)
+            _write_tiff(writer(output, final_cols, final_rows, b1, b2), meta,
+                        label, gt, proj)
+            logger.info("fast: saved %s", output)
+
+        return _submit(write, write_pool)
     if big:
+        # host blocks (pinned on a GPU), after the streamed front end's
+        # end-of-copies sync
         coeffs = streamed.synrgb_streamed(dn1, dn2, strategy=strategy,
                                           pad=pad, layout="dct")
     else:
-        stage = dict(strategy=strategy, target_size=target_size, pad=pad,
-                     resample_alg=resample_alg)
-        b1 = (staged_b1 if staged_b1 is not None
-              else fused.synrgb_band_stage(dn1, copol=True, **stage))
-        b2 = fused.synrgb_band_stage(dn2, copol=False, **stage)
-        coeffs = fused.synrgb_combine_stage(b1, b2, strategy=strategy,
-                                            suppressed=None,
-                                            channel_order="dct")
-    jpeg.write_synrgb_jpeg_dct(output, final_cols, final_rows,
-                               coeffs.cpu().numpy())
-    _write_jpeg_sidecars(output, metadata, label, gt, proj,
-                         [("synthetic_rgb_mode", syn_mode.display)])
-    logger.info("fast: saved %s", output)
+        coeffs = _synrgb_coeffs(dn1, dn2, target_size, pad, strategy,
+                                resample_alg, staged_b1)
+    coeffs = _to_host(coeffs, write_pool is not None)
+    return _submit(functools.partial(
+        _write_synrgb, output, final_cols, final_rows, coeffs, meta, label,
+        gt, proj, syn_mode), write_pool)
+
+
+def save_multiband_batch_fast(
+    items, target_size, pad: bool = False, strategy=None,
+    operation: ProcessingOperation = ProcessingOperation.MULTIBAND_VV_VH,
+    syn_mode: SyntheticRgbMode = SyntheticRgbMode.DEFAULT,
+    resample_alg=None, write_pool=None,
+):
+    """Synthetic-RGB JPEGs of a bucket of same-shape scenes below the
+    streamed size (port of sarpro_tpu/core/fast_path.py:351-422 for one
+    card). `items` yields (dn1, dn2, output, metadata) with the bands on
+    the device; a generator may upload each scene as it is asked for. Each
+    scene's band stages and combine stage are queued back to back with no
+    host sync between scenes, and its blocks copied back to pinned host
+    memory without waiting; one sync for the bucket, then one write a
+    scene (deferred to `write_pool` when given, with the blocks in pageable
+    memory, `_to_host`). The kernels are the
+    per-scene route's, so each file equals `save_multiband_fast`'s. Returns
+    the write Futures (None entries where written here)."""
+    label = operation.metadata_label
+    done, pinned = [], []
+    device = None
+    for dn1, dn2, output, metadata in items:
+        in_rows, in_cols = dn1.shape
+        if _is_big_scene(in_rows, in_cols, target_size):
+            raise ValueError("a device-batch bucket takes scenes below the "
+                             "streamed size")
+        device = dn1.device
+        coeffs = _synrgb_coeffs(dn1, dn2, target_size, pad, strategy,
+                                resample_alg)
+        host = torch.empty(coeffs.shape, dtype=coeffs.dtype,
+                           pin_memory=device.type == "cuda")
+        host.copy_(coeffs, non_blocking=True)
+        pinned.append(host)
+        final_cols, final_rows, gt, proj = _geo(
+            metadata, in_rows, in_cols, target_size, pad, resample_alg)
+        meta = metadata.copy() if metadata is not None else None
+        done.append(functools.partial(
+            _write_synrgb, Path(output), final_cols, final_rows,
+            metadata=meta, label=label, gt=gt, proj=proj,
+            syn_mode=syn_mode))
+        del dn1, dn2, coeffs
+    if device is not None and device.type == "cuda":
+        torch.cuda.current_stream(device).synchronize()
+    return [_submit(functools.partial(write, coeffs=_to_host(
+        host, write_pool is not None)), write_pool)
+        for write, host in zip(done, pinned)]

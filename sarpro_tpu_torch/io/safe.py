@@ -4,11 +4,16 @@ The metadata parser and the measurement-file discovery (`SafeMetadata`,
 `TargetCrsArg`, `parse_comprehensive_metadata`,
 `identify_polarization_files`) are copies of the JAX package's, held equal
 by tests/test_torch_host_copies.py. The loaders are the port's own (the
-reader glue of sarpro_tpu/io/safe.py:459-611 and :637-710). With a target
-CRS, each band is warped on the device (`io/warp.warp_to_crs`):
-a strong reduction is box-averaged on the host first, so only the reduced
-f32 plane is uploaded. Without one, two openers differ in where the
-downsample-on-read runs:
+reader glue of sarpro_tpu/io/safe.py:459-611 and :637-710), each in two
+halves: `read_scene`, the host half, parses, plans the warp, reads and
+box-reduces into host memory and touches no device (the batch driver's
+loader threads run it); `upload_scene`, the device half, uploads and
+finishes each band on the device. The openers (`open_band`, `open_pair`,
+`open_dual_pol`, all through `open_scene`) run the two halves in turn, band
+by band. With a target CRS, each band is warped on the device
+(`io/warp`): a strong reduction is box-averaged on the host first, so only
+the reduced f32 plane is uploaded. Without one, two openers differ in where
+the downsample-on-read runs:
   * `open_dual_pol` (the synRGB JPEG): the rasters are read as raw u16 DN
     (never cast to f32 on the host, which would double their 800 MB per
     band at 20000 x 20000) and copied to the device, where the band stage
@@ -417,9 +422,21 @@ class DualPolScene:
     staged_band1: object = None  # band_stage(band1), queued during the read
 
 
-def _load_dn(path: Path, metadata: SafeMetadata, device: torch.device,
-             target_size: Optional[int]) -> torch.Tensor:
-    """Full-resolution DN on the device, u16 as stored (f32 for other
+@dataclasses.dataclass
+class HostScene:
+    """A product read on the host, the host half of an opener: its
+    metadata (complete once every band is read) and one band (a single
+    polarization) or two (co-pol, cross-pol), each with the device work
+    that finishes it (`upload_scene`)."""
+
+    metadata: SafeMetadata
+    bands: list  # raster.HostBand
+    is_vvvh: Optional[bool] = None  # pairs: VV+VH rather than HH+HV
+
+
+def _read_dn(path: Path, metadata: SafeMetadata,
+             target_size: Optional[int]) -> raster.HostBand:
+    """Full-resolution DN in host memory, u16 as stored (f32 for other
     sample types). Records the raster's geotransform and projection in
     `metadata`, and as its size the read size that `target_size` plans
     (reference: sentinel1.rs:1084-1102)."""
@@ -440,15 +457,16 @@ def _load_dn(path: Path, metadata: SafeMetadata, device: torch.device,
            and arr.dtype.itemsize == 2 else arr.astype(np.float32))
     metadata.lines, metadata.samples, _ = _plan_read_dims(*arr.shape,
                                                           target_size)
-    return torch.from_numpy(arr).to(device)
+    return raster.HostBand(torch.from_numpy(arr))
 
 
-def _load_decimated(path: Path, metadata: SafeMetadata, device: torch.device,
-                    target_size: int, resample_alg: Optional[str]
-                    ) -> torch.Tensor:
-    """The decimated read at `target_size` (long side) to an f32 band on the
-    device, with the reader's filter: the user's, else average for a 4x or
-    stronger reduction and lanczos below (reference: sentinel1.rs:1084-1112)."""
+def _read_decimated(path: Path, metadata: SafeMetadata, target_size: int,
+                    resample_alg: Optional[str],
+                    staging: Optional[raster.HostStaging]
+                    ) -> raster.HostBand:
+    """The decimated read at `target_size` (long side), with the reader's
+    filter: the user's, else average for a 4x or stronger reduction and
+    lanczos below (reference: sentinel1.rs:1084-1112)."""
     logger.info("Reading at target size (long side): %d", target_size)
     reader = RasterReader(path)
     try:
@@ -458,26 +476,25 @@ def _load_decimated(path: Path, metadata: SafeMetadata, device: torch.device,
         rows, cols, filt = _plan_read_dims(
             reader.metadata.size_y, reader.metadata.size_x, target_size,
             resample_alg)
-        out = raster.read_band_resampled_to_device(reader, 1, cols, rows,
-                                                   device, filt)
+        band = raster.reduce_band(reader, 1, cols, rows, filt, staging)
     finally:
         reader.close()
     metadata.lines, metadata.samples = rows, cols
-    return out
+    return band
 
 
-def _load_band(path: Path, metadata: SafeMetadata, device: torch.device,
+def _read_band(path: Path, metadata: SafeMetadata,
                target_size: Optional[int], target_crs: Optional[str],
-               resample_alg: Optional[str], decimate: bool = False
-               ) -> torch.Tensor:
-    """One band onto the device: warped to `target_crs` when it is set
-    (reference: sentinel1.rs:914-1071), else decimated on read when
-    `decimate` and a target size are set, else the DN as stored."""
+               resample_alg: Optional[str], decimate: bool,
+               staging: Optional[raster.HostStaging]) -> raster.HostBand:
+    """The host half of one band: planned for a warp to `target_crs` when
+    it is set (reference: sentinel1.rs:914-1071), else decimated on read
+    when `decimate` and a target size are set, else the DN as stored."""
     if not target_crs:
         if decimate and target_size is not None:
-            return _load_decimated(path, metadata, device, target_size,
-                                   resample_alg)
-        return _load_dn(path, metadata, device, target_size)
+            return _read_decimated(path, metadata, target_size,
+                                   resample_alg, staging)
+        return _read_dn(path, metadata, target_size)
     logger.info("Warping to target CRS: %s", target_crs)
     reader = RasterReader(path)
     try:
@@ -488,19 +505,18 @@ def _load_band(path: Path, metadata: SafeMetadata, device: torch.device,
         if ds_epsg is not None and ds_epsg == dst_epsg:
             logger.info("Input already in target CRS (%s); skipping warp",
                         target_crs)
-            return _load_dn(path, metadata, device, None)
-        result = warp.warp_to_crs(
-            reader, target_crs, device,
-            resample_alg=resample_alg or "bilinear",
+            return _read_dn(path, metadata, None)
+        result = warp.plan_to_host(
+            reader, target_crs, resample_alg=resample_alg or "bilinear",
             target_size=target_size,
-            geolocation_grid=metadata.geolocation_grid)
+            geolocation_grid=metadata.geolocation_grid, staging=staging)
     finally:
         reader.close()
     metadata.geotransform = list(result.geotransform)
     metadata.projection = result.projection
     metadata.crs = result.projection
-    metadata.lines, metadata.samples = result.data.shape
-    return result.data
+    metadata.lines, metadata.samples = result.band.shape
+    return result.band
 
 
 @dataclasses.dataclass
@@ -548,18 +564,94 @@ def _pair(product: _Product, what: str):
                           f"{avail or 'none'}")
 
 
+def _scene_bands(safe_dir, pol: Optional[str], what: str,
+                 target_size: Optional[int], target_crs,
+                 resample_alg: Optional[str], decimate: bool, staging):
+    """(metadata, is_vvvh, bands): the product parsed, and a generator that
+    reads each band's host half only when it is asked for the next one.
+    `pol` is one polarization ("vv", "vh", "hh" or "hv"; metadata lists
+    it), or None for the preferred co-/cross-pol pair (the JAX reader's
+    "all_pairs" hint: metadata lists all four); `what` names the caller in
+    the missing-pair error. `staging` (a `raster.HostStaging`) takes the
+    reduced planes, one band after the other."""
+    product = _open_product(safe_dir, target_crs)
+    if pol is not None:
+        path = product.paths[pol]
+        if path is None:
+            raise SafeMissingField(f"{pol.upper()} measurement file")
+        paths, is_vvvh = [path], None
+        product.metadata.polarizations = [pol.upper()]
+    else:
+        *paths, is_vvvh = _pair(product, what)
+        product.metadata.polarizations = ["VV", "VH", "HH", "HV"]
+    bands = (_read_band(p, product.metadata, target_size, product.crs,
+                        resample_alg, decimate, staging) for p in paths)
+    return product.metadata, is_vvvh, bands
+
+
+def read_scene(safe_dir, pol: Optional[str] = None, what: str = "Multiband",
+               target_size: Optional[int] = None, target_crs=None,
+               resample_alg: Optional[str] = None, decimate: bool = True,
+               staging: Optional[raster.HostStaging] = None) -> HostScene:
+    """The host half of `open_band` (`pol` given), `open_pair` (`pol`
+    None) and `open_dual_pol` (`pol` None, `decimate` False): parse, plan,
+    read and reduce every band into host memory (`staging` for the reduced
+    planes). Touches no device: the batch driver's loader threads run it."""
+    metadata, is_vvvh, bands = _scene_bands(
+        safe_dir, pol, what, target_size, target_crs, resample_alg, decimate,
+        staging)
+    return HostScene(metadata, list(bands), is_vvvh)
+
+
+def _device_scene(metadata: SafeMetadata, bands, is_vvvh, device,
+                  band_stage) -> DualPolScene:
+    """The device half of each host band in turn; `band_stage(band1)` is
+    queued before band 2 is asked for (a generator then reads it)."""
+    out, staged = [], None
+    for hb in bands:
+        out.append(raster.band_to_device(hb, device))
+        if band_stage is not None and len(out) == 1:
+            staged = band_stage(out[0])
+    return DualPolScene(metadata, out[0], out[1] if len(out) > 1 else None,
+                        is_vvvh, staged)
+
+
+def upload_scene(scene: HostScene, device,
+                 band_stage: Optional[Callable[[torch.Tensor], object]] = None
+                 ) -> DualPolScene:
+    """The device half of a `HostScene`: each band uploaded and finished
+    on `device` (warped, resampled), band 1's `band_stage` queued before
+    band 2's upload. Queues copies and kernels and waits for none; runs on
+    the thread that owns the device work. A single band comes back as
+    `band1` (band2 None)."""
+    return _device_scene(scene.metadata, scene.bands, scene.is_vvvh,
+                         torch.device(device), band_stage)
+
+
+def open_scene(safe_dir, device, pol: Optional[str] = None,
+               what: str = "Multiband", target_size: Optional[int] = None,
+               target_crs=None, resample_alg: Optional[str] = None,
+               decimate: bool = True,
+               band_stage: Optional[Callable[[torch.Tensor], object]] = None
+               ) -> DualPolScene:
+    """`read_scene` and `upload_scene` in turn, band by band: each band's
+    host half, then its device half (on a GPU, each reduced chunk uploads
+    while the next one reduces), band 1's `band_stage` queued while band 2
+    is read."""
+    device = torch.device(device)
+    metadata, is_vvvh, bands = _scene_bands(
+        safe_dir, pol, what, target_size, target_crs, resample_alg, decimate,
+        raster.upload_staging(device))
+    return _device_scene(metadata, bands, is_vvvh, device, band_stage)
+
+
 def open_band(safe_dir, pol: str, device, target_size: Optional[int] = None,
               target_crs=None, resample_alg: Optional[str] = None):
     """One polarization ("vv", "vh", "hh" or "hv") onto `device`, as the
     JAX reader's single-band hints load it: (metadata, band)."""
-    product = _open_product(safe_dir, target_crs)
-    product.metadata.polarizations = [pol.upper()]
-    path = product.paths[pol]
-    if path is None:
-        raise SafeMissingField(f"{pol.upper()} measurement file")
-    band = _load_band(path, product.metadata, torch.device(device),
-                      target_size, product.crs, resample_alg, decimate=True)
-    return product.metadata, band
+    scene = open_scene(safe_dir, device, pol, "", target_size, target_crs,
+                       resample_alg)
+    return scene.metadata, scene.band1
 
 
 def open_pair(safe_dir, device, what: str, target_size: Optional[int] = None,
@@ -569,14 +661,8 @@ def open_pair(safe_dir, device, what: str, target_size: Optional[int] = None,
     "all_pairs" hint loads it (metadata lists all four polarizations). Both
     bands are reduced on read, before any operation combines them.
     `what` names the caller in the missing-pair error."""
-    product = _open_product(safe_dir, target_crs)
-    p1, p2, is_vvvh = _pair(product, what)
-    product.metadata.polarizations = ["VV", "VH", "HH", "HV"]
-    device = torch.device(device)
-    b1, b2 = (_load_band(p, product.metadata, device, target_size,
-                         product.crs, resample_alg, decimate=True)
-              for p in (p1, p2))
-    return DualPolScene(product.metadata, b1, b2, is_vvvh)
+    return open_scene(safe_dir, device, None, what, target_size, target_crs,
+                      resample_alg)
 
 
 def open_dual_pol(safe_dir, device, target_size: Optional[int] = None,
@@ -584,19 +670,10 @@ def open_dual_pol(safe_dir, device, target_size: Optional[int] = None,
                   target_crs=None, resample_alg: Optional[str] = None
                   ) -> DualPolScene:
     """Open a GRD SAFE and load its VV+VH pair (else HH+HV) onto `device`
-    (reference: api/mod.rs:133-143 pair preference). `target_crs` is None,
-    a `TargetCrsArg` or an EPSG string; `resample_alg` is the warp's filter
+    (reference: api/mod.rs:133-143 pair preference) as full-resolution DN
+    (or warped), which the band stage resamples. `target_crs` is None, a
+    `TargetCrsArg` or an EPSG string; `resample_alg` is the warp's filter
     (bilinear when unset)."""
-    product = _open_product(safe_dir, target_crs)
-    p1, p2, is_vvvh = _pair(product, "Multiband")
-    # the file API opens multiband products with the "all_pairs" hint,
-    # which lists every pair in the metadata (io/safe.py:582-583)
-    metadata = product.metadata
-    metadata.polarizations = ["VV", "VH", "HH", "HV"]
-    device = torch.device(device)
-    dn1 = _load_band(p1, metadata, device, target_size, product.crs,
-                     resample_alg)
-    staged = band_stage(dn1) if band_stage is not None else None
-    dn2 = _load_band(p2, metadata, device, target_size, product.crs,
-                     resample_alg)
-    return DualPolScene(metadata, dn1, dn2, is_vvvh, staged)
+    return open_scene(safe_dir, device, None, "Multiband", target_size,
+                      target_crs, resample_alg, decimate=False,
+                      band_stage=band_stage)

@@ -11,9 +11,11 @@ the originals by tests/test_torch_warp.py:
   3. the inverse mapping (target pixel -> source pixel) in f64 on a coarse
      grid, and the two-stage decision: a strong reduction is first
      box-averaged on the host to ~1.25x the output resolution.
-The device half is one kernel, `ops.warp_sample`: the grid is upsampled to
-every output pixel and the source sampled there. There is no sharded
-branch and no fallback sampler.
+`plan_to_host` runs these steps and reads the source, touching no device
+(the batch driver's loader threads run it). The device half
+(`raster.band_to_device`) uploads the source and grids and runs one kernel,
+`ops.warp_sample`: the grid is upsampled to every output pixel and the
+source sampled there. There is no sharded branch and no fallback sampler.
 
 The reference's `-r` mapping quirk is preserved: lanczos (and anything else
 unrecognized) falls back to bilinear (sentinel1.rs:937-942).
@@ -28,9 +30,16 @@ import numpy as np
 import torch
 
 from ..errors import ProcessingError
-from ..ops import warp_sample
 from . import geodesy
-from .raster import read_band_resampled_to_device
+from .raster import (
+    DeviceWarp,
+    HostBand,
+    HostStaging,
+    band_to_device,
+    plan_grids_to_device,  # noqa: F401 (the warp's grids, for callers)
+    reduce_band,
+    upload_staging,
+)
 
 logger = logging.getLogger("sarpro")
 
@@ -309,20 +318,26 @@ def two_stage_plan(plan: WarpPlan, src_cols: int, src_rows: int):
     return mid_rows, mid_cols, map_x, map_y
 
 
-def plan_grids_to_device(map_x: np.ndarray, map_y: np.ndarray, device):
-    """The plan's f64 grids as f32 tensors on `device`: the cast of
-    `jnp.asarray(g, jnp.float32)` (round to nearest)."""
-    return tuple(torch.from_numpy(np.asarray(g, np.float32)).to(device)
-                 for g in (map_x, map_y))
+@dataclasses.dataclass
+class HostWarp:
+    """The host half of a warp: the source band, read (and pre-reduced) on
+    the host, with the sampling its device half runs, and the output's
+    georeferencing."""
+
+    band: HostBand
+    geotransform: list[float]
+    projection: str
+    epsg: int
 
 
-def warp_to_crs(reader, target_crs: str, device,
-                resample_alg: Optional[str] = None,
-                target_size: Optional[int] = None,
-                geolocation_grid: Optional[np.ndarray] = None) -> WarpResult:
-    """Reproject band 1 of an `io.raster.RasterReader` to
-    `target_crs` (EPSG:XXXX) on `device`, the equivalent of the reference's
-    gdalwarp invocation (sentinel1.rs:988-1071)."""
+def plan_to_host(reader, target_crs: str, resample_alg: Optional[str] = None,
+                 target_size: Optional[int] = None,
+                 geolocation_grid: Optional[np.ndarray] = None,
+                 staging: Optional[HostStaging] = None) -> HostWarp:
+    """Plan the warp of band 1 of an `io.raster.RasterReader` to
+    `target_crs` and read its source on the host: the whole band, or for a
+    strong reduction the host box reduce to ~1.25x the output resolution
+    (`raster.reduce_band`, into `staging`). Touches no device."""
     plan = plan_warp(reader, target_crs, resample_alg, target_size,
                      geolocation_grid)
     map_x, map_y = plan.map_x, plan.map_y
@@ -333,14 +348,29 @@ def warp_to_crs(reader, target_crs: str, device,
         # the pre-reduce runs on the host where the native box reducer
         # applies, so only the ~1.25x-output intermediate crosses to the card
         mid_rows, mid_cols, map_x, map_y = two
-        src = read_band_resampled_to_device(reader, 1, mid_cols, mid_rows,
-                                            device, "average")
+        band = reduce_band(reader, 1, mid_cols, mid_rows, "average", staging)
         logger.info("Warp two-stage: source %dx%d -> %dx%d before sampling",
                     src_cols, src_rows, mid_cols, mid_rows)
     else:
-        src = torch.from_numpy(reader.read_band(1)).to(device)
-    gx, gy = plan_grids_to_device(map_x, map_y, src.device)
-    data = warp_sample(src, gx, gy, plan.out_rows, plan.out_cols, plan.method)
+        band = HostBand(torch.from_numpy(reader.read_band(1)))
+    band.warp = DeviceWarp(map_x, map_y, plan.out_rows, plan.out_cols,
+                           plan.method)
     projection = geodesy.epsg_to_wkt(plan.dst_epsg) or f"EPSG:{plan.dst_epsg}"
-    return WarpResult(data=data, geotransform=plan.geotransform,
-                      projection=projection, epsg=plan.dst_epsg)
+    return HostWarp(band=band, geotransform=plan.geotransform,
+                    projection=projection, epsg=plan.dst_epsg)
+
+
+def warp_to_crs(reader, target_crs: str, device,
+                resample_alg: Optional[str] = None,
+                target_size: Optional[int] = None,
+                geolocation_grid: Optional[np.ndarray] = None) -> WarpResult:
+    """Reproject band 1 of an `io.raster.RasterReader` to
+    `target_crs` (EPSG:XXXX) on `device`, the equivalent of the reference's
+    gdalwarp invocation (sentinel1.rs:988-1071): the host half
+    (`plan_to_host`), then the device half (`raster.band_to_device`)."""
+    device = torch.device(device)
+    host = plan_to_host(reader, target_crs, resample_alg, target_size,
+                        geolocation_grid, upload_staging(device))
+    return WarpResult(data=band_to_device(host.band, device),
+                      geotransform=host.geotransform,
+                      projection=host.projection, epsg=host.epsg)

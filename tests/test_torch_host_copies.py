@@ -108,6 +108,58 @@ def test_identify_polarization_files_infers_from_available(tmp_path):
             jsafe.identify_polarization_files(tmp_path, available)
 
 
+# the products of a batch directory: make_safe's keywords, None for a
+# directory that is no SAFE, "xml" for a product whose annotation is broken
+SKIP_PRODUCTS = {
+    "grd vv+vh": {},
+    "grd hh+hv": dict(name="S1A_EW_GRDM_1SDH_20250706T204346.SAFE",
+                      pols=("hh", "hv")),
+    "slc": dict(product_type="SLC"),
+    "grd vv only": dict(pols=("vv",)),
+    "not a safe": None,
+    "unreadable xml": "xml",
+}
+
+
+def _skip_outcome(fn, path, params):
+    try:
+        return "reason", fn(path, params)
+    except Exception as e:  # noqa: BLE001 — the outcome is compared
+        return "raises", type(e).__name__
+
+
+@pytest.mark.parametrize("product", list(SKIP_PRODUCTS))
+def test_scene_skip_reason_equal(tmp_path, product):
+    """The batch drivers' XML-only viability check, for every polarization
+    the CLI takes."""
+    from sarpro_tpu import api as japi
+    from sarpro_tpu_torch import api as tapi
+
+    kw = SKIP_PRODUCTS[product]
+    if kw is None:
+        path = tmp_path / "junk"
+        path.mkdir()
+        (path / "notes.txt").write_text("no product here")
+    else:
+        path = fixtures.make_safe(tmp_path, **({} if kw == "xml" else kw))
+        if kw == "xml":
+            for xml in (path / "annotation").glob("*.xml"):
+                xml.write_text("<product><adsHeader>")
+    outcomes = set()
+    for pol in jcli.build_parser()._option_string_actions[
+            "--polarization"].choices:
+        argv = ["--polarization", pol]
+        t = _skip_outcome(tapi.scene_skip_reason, path,
+                          tcli._params_from_args(tcli.build_parser()
+                                                 .parse_args(argv)))
+        j = _skip_outcome(japi.scene_skip_reason, path,
+                          jcli._params_from_args(jcli.build_parser()
+                                                 .parse_args(argv)))
+        assert t == j, pol
+        outcomes.add(t)
+    print(f"{product}: {sorted(outcomes, key=str)}")
+
+
 @pytest.mark.parametrize("source", list(SOURCES))
 def test_raster_reader_equal(safes, source):
     path = next((safes[source] / "measurement").glob("*-vv-*"))

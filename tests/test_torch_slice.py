@@ -401,10 +401,23 @@ def tstreamed_floor(bands):
     return streamed._suppressed_floor_host(hist, 2 * bands[0].size)
 
 
-def test_batch_mode_raises(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tcli.run(["--input-dir", str(tmp_path), "--output-dir",
-                  str(tmp_path), "--fast"], device="cpu")
+def test_batch_mode_raises(scene, tmp_path, capsys):
+    """Batch mode, once refused, now runs: the CLI prints the three
+    counters for a directory of one product and one that is no SAFE, and
+    names a missing --output-dir."""
+    indir = tmp_path / "in"
+    indir.mkdir()
+    (indir / scene[0].name).symlink_to(scene[0], target_is_directory=True)
+    (indir / "junk").mkdir()
+    out = tmp_path / "out"
+    assert tcli.run(["--input-dir", str(indir), "--output-dir", str(out),
+                     "--fast", "--polarization", "vv", "--size", "64"],
+                    device="cpu") == 0
+    assert capsys.readouterr().out.splitlines()[-3:] == [
+        "Processed: 1", "Skipped: 1", "Errors: 0"]
+    assert (out / f"{scene[0].name}.tiff").exists()
+    assert tcli.run(["--input-dir", str(indir)], device="cpu") == 1
+    assert "--output-dir" in capsys.readouterr().err
 
 
 def test_cuda_device_needs_cuda(scene, tmp_path):
