@@ -90,7 +90,25 @@ prints no result):
      syncs at two chunk heights; exact mode's band pipeline on the same
      bands with its peak. The kernel phase also times tile_histogram,
      clahe_lookup and the 4096-bin histogram at the chunk shapes;
- 10. with --walls N only: every warm path N times more, interleaved, with
+ 10. batch: BATCH_RUNS over a directory of hard links to both products, a
+     copy with VV and VH exchanged, a cut raster (an error), an SLC and a
+     directory that is no SAFE (both skipped): each route through the
+     single-scene CLI, then the batch CLI serial, pipelined and (synRGB
+     routes) bucketed, with the counters, the launches and the files of the
+     single-scene runs; one route again under force_plain(), and each
+     synRGB route's pipelined run under torch.profiler with every launch
+     and copy on the consumer thread;
+ 11. GUI: the port's GUI server (make_server on the card, in a thread),
+     driven over HTTP: the page, stats and CRS check; the warm CLAHE
+     auto-UTM JPEG job (the second time under utils.profiling.trace, whose
+     trace must name its five kernels), the exact 100 MP CLAHE TIFF job
+     with its PNG preview against the script's own render, the Tamed cubic
+     batch job (prefetch 2) and a sharded job, which must fail naming
+     queue 1 #7. Launches equal the CLI's on each route, files equal the
+     CLI's and the batch phase's (one conversion time), and every kernel
+     wrapper call and device copy of a job lies on that job's worker
+     thread. Then the root's SafeReader on the card against open_pair;
+ 12. with --walls N only: every warm path N times more, interleaved, with
      medians and quartiles of its wall; the no-warp synRGB read through
      each of the two loaders (full DN + device resample, decimated read) in
      the same rounds; a torch.profiler trace of the single-band TIFF, the
@@ -256,6 +274,8 @@ TRACED = ("gray clahe tiff", "full clahe tiff", "exact full clahe tiff",
           "streamed exact clahe tiff")
 # label -> (CLI arguments, output) of each run driven, for --walls
 DRIVEN: dict = {}
+# label -> (wall s, launches) of each run driven, for the GUI phase
+DRIVE_LOG: dict = {}
 # the path whose launch count each kernel reports in the kernels line
 REPORTED_PATH = {k: ("warm tamed cubic" if k == "resample_axis0"
                      else "warm clahe auto") for k in KERNELS}
@@ -1351,6 +1371,7 @@ def _drive(label: str, argv: list, out: Path):
     wall = _cli_wall(label, argv, out)
     counts, routes = ops.launch_counts(), dict(raster.ROUTES)
     DRIVEN[label] = (argv, out)
+    DRIVE_LOG[label] = (wall, counts)
     log(f"slice: {label} wall {wall * 1e3:.1f} ms")
     if label in PATHS:
         log(f"slice: launches in the {label} run {counts}, decimated-read "
@@ -2576,6 +2597,359 @@ def phase_batch(safe: Path, ew: Path, work: Path, smi: str) -> dict:
         tsafe._parse_comprehensive_cached.cache_clear()
     return walls, totals
 
+# the CUDA function of each kernel, as torch.profiler names it
+KERNEL_SYMBOLS = {"histogram": r"\bhist_kernel\b",
+                  "tile_histogram": r"\btile_hist_kernel\b",
+                  "clahe_lookup": r"\bclahe_lookup_kernel\b",
+                  "resample_axis0": r"\bresample_axis0_kernel\b",
+                  "synrgb_lookup": r"\bsynrgb_kernel\b",
+                  "warp_sample": r"\bwarp_kernel\b"}
+
+
+class _GuiClient:
+    """HTTP calls to the GUI server on this host."""
+
+    def __init__(self, base: str):
+        self.base = base
+        self.polls = 0
+
+    def call(self, path: str, body=None) -> tuple:
+        """(content type, body bytes) of a GET, or of a POST of `body`."""
+        import urllib.request
+
+        req = urllib.request.Request(
+            self.base + path, method="GET" if body is None else "POST",
+            data=None if body is None else json.dumps(body).encode())
+        with urllib.request.urlopen(req, timeout=60) as r:
+            return r.headers["Content-Type"], r.read()
+
+    def get(self, path: str):
+        return json.loads(self.call(path)[1])
+
+    def post(self, path: str, body: dict):
+        return json.loads(self.call(path, body)[1])
+
+    def job(self, state: dict, timeout: float = 600.0) -> tuple:
+        """Set the state, start the job and poll as the page does while a
+        job runs (static/index.html: /api/state, then /api/logs past its
+        cursor, every 500 ms) until it has finished: (last_result, every
+        batch progress the polls saw)."""
+        self.post("/api/state", state)
+        if not self.post("/api/process", {})["started"]:
+            raise AssertionError("the GUI did not start the job")
+        seen, deadline = [], time.monotonic() + timeout
+        cursor = self.get("/api/logs?since=0")["next"]
+        while time.monotonic() < deadline:
+            time.sleep(0.5)
+            s = self.get("/api/state")
+            cursor = self.get(f"/api/logs?since={cursor}")["next"]
+            self.polls += 1
+            if s["progress"] is not None:
+                seen.append(s["progress"])
+            if not s["running"] and s["last_result"]:
+                return s["last_result"], seen
+        raise AssertionError(f"the GUI job did not finish in {timeout} s")
+
+
+def _gui_state(argv: list, out: Path) -> dict:
+    """The GUI state of a single-file CLI run's arguments."""
+    from sarpro_tpu_torch import cli
+
+    args = cli.build_parser().parse_args(argv + ["-o", str(out)])
+    return {"mode": "single", "input_path": str(args.input),
+            "output_path": str(out), "fast": args.fast, "shard_devices": 0,
+            "params": cli._params_from_args(args).to_dict()}
+
+
+def _same_files(label: str, got: dict, want: dict) -> None:
+    if got.keys() != want.keys() or any(got[k] != want[k] for k in want):
+        raise AssertionError(f"{label}: files {sorted(got)} differ from "
+                             f"{sorted(want)}")
+
+
+def _outputs(out: Path) -> dict:
+    """An output and its sidecars, by suffix."""
+    return {p.suffix: p.read_bytes() for p in out.parent.iterdir()
+            if p.stem == out.stem}
+
+
+def _check_gui_launches(label: str, counts: dict, want: dict,
+                        kernels) -> None:
+    if counts != want:
+        raise AssertionError(f"{label}: GUI launches {counts}, the CLI's "
+                             f"{want}")
+    for k in kernels:
+        if counts[k] <= 0:
+            raise AssertionError(f"{label}: kernel {k} was not launched")
+
+
+def _trace_kernels(trace_dir: Path) -> dict:
+    """Kernel launches by name in the Chrome trace utils.profiling.trace
+    wrote into `trace_dir`."""
+    import re
+
+    files = list(trace_dir.glob("*.pt.trace.json"))
+    if len(files) != 1:
+        raise AssertionError(f"utils.profiling.trace wrote {files}")
+    events = json.loads(files[0].read_text())["traceEvents"]
+    names = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+    return {k: sum(bool(re.search(sym, n)) for n in names)
+            for k, sym in KERNEL_SYMBOLS.items()}
+
+
+def phase_gui(safe: Path, ew: Path, work: Path, smi: str, blob: bytes):
+    """The port's GUI server on the card (make_server("127.0.0.1", 0) in a
+    thread of this process), driven over HTTP: the page, stats and CRS
+    check; the warm CLAHE auto-UTM 2048 JPEG (twice, the second under
+    utils.profiling.trace), the 100 MP exact CLAHE TIFF, the Tamed cubic
+    batch over the batch directory and a sharded job. Launches equal the
+    CLI's for each route, files equal the CLI's (one conversion time),
+    previews equal the files, and every kernel wrapper call and device copy
+    of a job runs on that job's worker thread. Then the root's SafeReader
+    against open_pair on the EW product. Returns the launches of the three
+    jobs, summed, and the walls."""
+    import logging
+    import threading
+
+    import numpy as np
+    import torch
+
+    from sarpro_tpu_torch import ops
+    from sarpro_tpu_torch.gui.server import make_server
+    from sarpro_tpu_torch.io import png
+    from sarpro_tpu_torch.io import safe as tsafe
+    from sarpro_tpu_torch.io.tiffio import TiffReader
+    from sarpro_tpu_torch.ops import kernels, resample_kernel, warp_kernel
+    from sarpro_tpu_torch.utils import profiling
+
+    srv = make_server("127.0.0.1", 0, device=DEVICE)
+    if srv.worker.device != torch.device(DEVICE):
+        raise AssertionError(f"the GUI runs on {srv.worker.device}")
+    serving = threading.Thread(target=srv.serve_forever, args=(0.05,),
+                               daemon=True)
+    serving.start()
+    gui = _GuiClient(f"http://127.0.0.1:{srv.server_address[1]}")
+    calls, saved = [], []
+    for mod in (kernels, resample_kernel, warp_kernel):
+        real = mod.use_kernel
+        saved.append((mod, real))
+        mod.use_kernel = (lambda t, _real=real: calls.append(
+            threading.current_thread()) or _real(t))
+    real_to = torch.Tensor.to
+
+    def to(self, *a, **k):
+        calls.append(threading.current_thread())
+        return real_to(self, *a, **k)
+
+    sarpro_log = logging.getLogger("sarpro")
+    level = sarpro_log.level
+    sarpro_log.setLevel(logging.INFO)  # as the GUI's main() logs
+    real_clock = tsafe.datetime
+    tsafe.datetime = _FixedClock
+    tsafe._parse_comprehensive_cached.cache_clear()
+    torch.Tensor.to = to
+    launched, walls, job_threads = {}, {}, []
+
+    def run_job(label: str, state: dict) -> tuple:
+        """One job with the launch counts and the thread record set to 0
+        just before it: (result, launches, progress seen). Every call of
+        the job lies on one worker thread, not seen before."""
+        ops.reset_launch_counts()
+        del calls[:]
+        result, seen = gui.job(state)
+        counts = ops.launch_counts()
+        threads = set(calls)
+        if len(threads) != 1:
+            raise AssertionError(f"{label}: wrappers and copies on "
+                                 f"{[t.name for t in threads]}")
+        thread, = threads
+        if (not thread.name.startswith("sarpro-gui-job-")
+                or thread is threading.current_thread()
+                or thread in job_threads):
+            raise AssertionError(f"{label}: device work on {thread.name}")
+        job_threads.append(thread)
+        log(f"gui: {label}: {result}, launches {counts}, {len(calls)} "
+            f"wrapper and Tensor.to calls, all on {thread.name}")
+        return result, counts, seen
+
+    try:
+        # 1. the page and the host endpoints
+        ctype, page = gui.call("/")
+        stats = gui.get("/api/stats")
+        crs = gui.get("/api/crs?value=auto")
+        if (b"sarproUI" not in page or "GPU" not in page.decode()
+                or "mem_total_mb" not in stats or crs.get("ok") is not True):
+            raise AssertionError(f"gui: page {ctype}, stats {stats}, crs "
+                                 f"{crs}")
+        log(f"gui: / {len(page)} bytes {ctype}; stats {stats}; crs auto "
+            f"{crs}")
+
+        # 2. the warm CLAHE auto-UTM 2048 JPEG, beside the CLI's run
+        label = "warm clahe auto"
+        argv, _ = DRIVEN[label]
+        cli_out = work / "gui_cli" / "clahe_auto.jpg"
+        cli_out.parent.mkdir()
+        wall, cli_counts, _ = _drive(f"gui cli {label}", argv, cli_out)
+        walls["cli clahe auto"] = wall
+        if cli_out.read_bytes() != blob:
+            raise AssertionError(f"{label}: the CLI's JPEG differs from the "
+                                 "slice phase's")
+        cursor = gui.get("/api/logs?since=0")["next"]
+        outs = {}
+        for run in ("first", "traced"):
+            out = work / f"gui_{run}" / "clahe_auto.jpg"
+            out.parent.mkdir()
+            trace_dir = work / "gui_trace"
+            state = _gui_state(argv, out)
+            torch.cuda.reset_peak_memory_stats()
+            if run == "traced":
+                with profiling.trace(str(trace_dir), device=DEVICE):
+                    result, counts, _ = run_job(f"{label} ({run})", state)
+            else:
+                result, counts, _ = run_job(f"{label} ({run})", state)
+            if not result["ok"] or result["output"] != str(out):
+                raise AssertionError(f"{label}: {result}")
+            _check_gui_launches(label, counts, cli_counts, PATHS[label])
+            outs[run] = _outputs(out)
+            _same_files(label, outs[run], _outputs(cli_out))
+            walls[f"gui clahe auto ({run})"] = result["elapsed_s"]
+            if run == "first":
+                launched["single"] = counts
+                ctype, preview = gui.call("/api/preview")
+                if ctype != "image/jpeg" or preview != blob:
+                    raise AssertionError(f"{label}: preview {ctype} is not "
+                                         "the JPEG")
+                events = gui.get(f"/api/logs?since={cursor}")["events"]
+                messages = [e["message"] for e in events]
+                if not any(m.startswith("Warping to target CRS")
+                           for m in messages):
+                    raise AssertionError(f"{label}: the log holds "
+                                         f"{messages[:8]}")
+                log(f"gui: {label} log: {len(events)} events since cursor "
+                    f"{cursor}, e.g. {messages[:3]}")
+        mem = profiling.device_memory_stats(DEVICE)
+        log(f"gui: {label} device_memory_stats {mem}, "
+            f"max_memory_allocated {torch.cuda.max_memory_allocated()} "
+            f"(traced job)")
+        if mem["peak_bytes_in_use"] != torch.cuda.max_memory_allocated():
+            raise AssertionError(f"{label}: memory stats {mem}")
+        named = _trace_kernels(trace_dir)
+        log(f"gui: {label} traced job: kernels named in the trace {named}")
+        for k in PATHS[label]:
+            if named[k] <= 0:
+                raise AssertionError(f"{label}: the trace names no {k} "
+                                     f"kernel ({named})")
+
+        # 3. the exact 100 MP CLAHE TIFF (the CLI's defaults), its preview
+        label = "exact full clahe tiff"
+        argv, exact_out = DRIVEN[label]
+        cli_wall, cli_counts = DRIVE_LOG[label]
+        walls["cli exact full clahe tiff"] = cli_wall
+        out = work / "gui_exact" / "full_clahe.tiff"
+        out.parent.mkdir()
+        result, counts, _ = run_job(label, _gui_state(argv, out))
+        if not result["ok"]:
+            raise AssertionError(f"{label}: {result}")
+        _check_gui_launches(label, counts, cli_counts, PATHS[label])
+        launched["exact"] = counts
+        walls["gui exact full clahe tiff"] = result["elapsed_s"]
+        band = TiffReader(out).read(1)
+        if not np.array_equal(band, TiffReader(exact_out).read(1)):
+            raise AssertionError(f"{label}: the band differs from the CLI's")
+        t0 = time.perf_counter()
+        ctype, preview = gui.call("/api/preview")
+        walls["preview 100 MP tiff"] = time.perf_counter() - t0
+        step = -(-max(band.shape) // 1024)
+        sub = band[::step, ::step].astype(np.float32)
+        lo, hi = float(sub.min()), float(sub.max())
+        want = np.clip((sub - lo) / (hi - lo) * 255.0 + 0.5, 0,
+                       255).astype(np.uint8)
+        got, _ = png.decode(preview)
+        if ctype != "image/png" or not np.array_equal(got[..., 0], want):
+            raise AssertionError(f"{label}: the preview ({ctype}) is not "
+                                 f"the [::{step}, ::{step}] render")
+        log(f"gui: {label} preview {got.shape[1]}x{got.shape[0]} PNG "
+            f"({len(preview)} bytes) equal to the [::{step}, ::{step}] "
+            f"min-max render, {walls['preview 100 MP tiff'] * 1e3:.1f} ms "
+            f"over HTTP")
+
+        # 4. the Tamed cubic batch, pipelined (prefetch 2), beside the CLI
+        label, args, _, _ = BATCH_RUNS[1]
+        args = [str(SIZE) if a == "SIZE" else a for a in args]
+        d = work / "batch_in"
+        cli_dir = work / "gui_cli_batch"
+        cli_wall, counters, cli_counts, _ = _batch_cli(
+            ["--input-dir", str(d), "--output-dir", str(cli_dir)] + args
+            + ["--prefetch", "2"])
+        walls["cli batch tamed cubic"] = cli_wall
+        want_files = _files(work / f"{label.replace(' ', '_')}_pipelined")
+        _same_files(f"{label} CLI", _files(cli_dir), want_files)
+        out_dir = work / "gui_batch"
+        params = _gui_state(["-i", "unused"] + args, out_dir)
+        result, counts, seen = run_job(label, {
+            "mode": "batch", "input_dir": str(d), "output_dir": str(out_dir),
+            "prefetch": 2, "fast": True, "params": params["params"]})
+        report = {"processed": 3, "skipped": 2, "errors": 1}
+        if not result["ok"] or result.get("report") != report:
+            raise AssertionError(f"{label}: {result}, expected {report}")
+        if counters != (3, 2, 1):
+            raise AssertionError(f"{label}: the CLI counted {counters}")
+        _check_gui_launches(label, counts, cli_counts,
+                            ("histogram", "resample_axis0", "synrgb_lookup"))
+        launched["batch"] = counts
+        _same_files(label, _files(out_dir), want_files)
+        last = srv.worker.progress
+        if last is None or last["total"] != 6 or last["done"] != 6:
+            raise AssertionError(f"{label}: progress {last}")
+        walls["gui batch tamed cubic"] = result["elapsed_s"]
+        log(f"gui: {label} report {result['report']}, progress seen by "
+            f"{len(seen)} polls {seen[:2]}..., last {last}; files equal "
+            "to the batch phase's pipelined run and the CLI's")
+
+        # 5. a sharded job fails with the multi-GPU item, and runs nothing
+        ops.reset_launch_counts()
+        result, _ = gui.job(dict(_gui_state(DRIVEN["warm clahe auto"][0],
+                                            work / "shard.jpg"),
+                                 shard_devices=1))
+        if (result["ok"] or "ROADMAP queue 1 #7" not in result["error"]
+                or any(ops.launch_counts().values())):
+            raise AssertionError(f"shard job: {result}")
+        log(f"gui: shard_devices=1: {result}")
+
+        # 6. the root's SafeReader on the card: the EW pair decimated on
+        # read, as open_pair reads it
+        import sarpro_tpu_torch
+
+        reader = sarpro_tpu_torch.SafeReader.open_with_options(
+            ew, "all_pairs", target_size=SIZE, device=DEVICE)
+        pair = tsafe.open_pair(ew, DEVICE, "Multiband", SIZE)
+        for got, want in ((reader.hh_data(), pair.band1),
+                          (reader.hv_data(), pair.band2)):
+            if got.device.type != torch.device(DEVICE).type or not \
+                    torch.equal(got, want.to(torch.float32)):
+                raise AssertionError("SafeReader: the bands differ from "
+                                     "open_pair's")
+        log(f"gui: SafeReader all_pairs at {SIZE}: "
+            f"{reader.get_available_polarizations()} on {got.device}, equal "
+            "to open_pair's bands")
+        del reader, pair
+    finally:
+        torch.Tensor.to = real_to
+        for mod, real in saved:
+            mod.use_kernel = real
+        tsafe.datetime = real_clock
+        tsafe._parse_comprehensive_cached.cache_clear()
+        sarpro_log.setLevel(level)
+        srv.shutdown()
+        srv.server_close()
+        serving.join(10)
+    log(f"gui: {gui.polls} polls of /api/state; jobs on threads "
+        f"{[t.name for t in job_threads]}")
+    log("gui: walls " + ", ".join(f"{k} {v * 1e3:.1f} ms"
+                                  for k, v in walls.items()) + f" on {smi}")
+    totals = {k: sum(c[k] for c in launched.values()) for k in KERNELS}
+    return totals, walls
+
 
 def _quartiles(xs):
     q1, q2, q3 = statistics.quantiles(xs, n=4, method="inclusive")
@@ -2704,6 +3078,8 @@ def main() -> int:
         full_walls, _ = timed(phase_full, work, ew)
         streamed_walls, _ = timed(phase_streamed, safe, work)
         _, batch_launches = timed(phase_batch, safe, ew, work, smi)
+        gui_launches, _ = timed(phase_gui, safe, ew, work, smi,
+                                blobs["warm clahe auto"])
         if args.walls:
             timed(phase_walls, args.walls, safe, work, smi)
     finally:
@@ -2733,6 +3109,7 @@ def main() -> int:
                      "library_ms")}}
         entry["batch_launches"] = sum(c[name]
                                       for c in batch_launches.values())
+        entry["gui_launches"] = gui_launches[name]
         if also:
             entry["also_replaces"] = also[0]
         kernels.append(entry)

@@ -1,0 +1,246 @@
+"""A small PNG codec (stdlib zlib and struct, with numpy): the port's
+stand-in for Pillow, which the machine with the GPU does not have.
+
+Writer: `encode_gray8`, one 8-bit grayscale image in one IDAT, every row
+filter type 0 (the GUI's preview).
+
+Reader: `decode`, to the array the JAX package's PilRaster gets from
+Pillow (sarpro_tpu/io/pilraster.py:89-128), with Pillow's PNG modes
+(PIL/PngImagePlugin.py `_MODES`):
+  * grayscale at 8 bits ("L") and 16 bits ("I;16", the full value);
+  * RGB, gray + alpha and RGBA at 8 bits; at 16 bits Pillow keeps the high
+    byte of each sample, and reads 16-bit gray + alpha as RGBA (L, L, L, A);
+  * palettes at 1, 2, 4 and 8 bits, expanded to RGB as `convert("RGB")`
+    does: an index past the palette reads black;
+  * all five row filters;
+  * tEXt, zTXt and iTXt chunks as the text strings of Pillow's `info`
+    (latin-1 keys and tEXt / zTXt values, UTF-8 iTXt values; the tEXt key
+    "exif" holds bytes there, not a string).
+Adam7 interlacing and grayscale below 8 bits raise `RasterError`, as does
+anything that is not a PNG or whose chunks are cut or fail their CRC.
+"""
+from __future__ import annotations
+
+import struct
+import zlib
+
+import numpy as np
+
+from ..errors import RasterError
+
+SIGNATURE = b"\x89PNG\r\n\x1a\n"
+# (colour type, bit depth) -> samples a pixel of the result; palettes
+# expand to RGB, 16-bit gray + alpha to RGBA
+_SAMPLES = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
+_DEPTHS = {0: (8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16), 6: (8, 16)}
+
+
+def _chunk(kind: bytes, data: bytes) -> bytes:
+    return (struct.pack(">I", len(data)) + kind + data
+            + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
+
+
+def encode_gray8(u8: np.ndarray) -> bytes:
+    """An 8-bit grayscale PNG of a (rows, cols) u8 array: one IDAT, filter
+    type 0 on every row."""
+    u8 = np.ascontiguousarray(u8, np.uint8)
+    if u8.ndim != 2 or 0 in u8.shape:
+        raise ValueError(f"a non-empty 2-D u8 array is needed, got shape "
+                         f"{u8.shape}")
+    rows, cols = u8.shape
+    raw = np.zeros((rows, cols + 1), np.uint8)  # a filter byte a row
+    raw[:, 1:] = u8
+    ihdr = struct.pack(">IIBBBBB", cols, rows, 8, 0, 0, 0, 0)
+    return (SIGNATURE + _chunk(b"IHDR", ihdr)
+            + _chunk(b"IDAT", zlib.compress(raw.tobytes()))
+            + _chunk(b"IEND", b""))
+
+
+def _chunks(blob: bytes):
+    """(kind, data) of each chunk up to IEND. CRCs are checked up to the
+    first IDAT, as Pillow checks them (it skips the CRCs of the image data
+    and of the chunks after it)."""
+    pos = len(SIGNATURE)
+    checked = True
+    while True:
+        if pos + 8 > len(blob):
+            raise RasterError("truncated PNG: no IEND chunk")
+        length, kind = struct.unpack(">I4s", blob[pos:pos + 8])
+        end = pos + 8 + length
+        if end + 4 > len(blob):
+            raise RasterError(f"truncated PNG: chunk {kind!r} is cut short")
+        data = blob[pos + 8:end]
+        checked = checked and kind != b"IDAT"
+        if checked and zlib.crc32(kind + data) & 0xFFFFFFFF != \
+                struct.unpack(">I", blob[end:end + 4])[0]:
+            raise RasterError(f"broken PNG: bad CRC in chunk {kind!r}")
+        yield kind, data
+        if kind == b"IEND":
+            return
+        pos = end + 4
+
+
+def _text(kind: bytes, data: bytes, info: dict) -> None:
+    """A text chunk into `info` as Pillow's chunk_tEXt / zTXt / iTXt put
+    its strings there."""
+    key, sep, value = data.partition(b"\0")
+    if kind == b"iTXt":
+        if not sep or len(value) < 2:
+            return
+        flag, method, rest = value[0], value[1], value[2:]
+        parts = rest.split(b"\0", 2)
+        if len(parts) < 3:
+            return
+        value = parts[2]
+        if flag:
+            if method != 0:
+                return
+            try:
+                value = zlib.decompress(value)
+            except zlib.error:
+                return
+        if key == b"XML:com.adobe.xmp":
+            info.pop("xmp", None)  # bytes in Pillow's info
+        try:  # a language tag or keyword that is not UTF-8 drops it too
+            k = key.decode("latin-1")
+            v = value.decode("utf-8")
+            parts[0].decode("utf-8")
+            parts[1].decode("utf-8")
+        except UnicodeError:
+            return
+        info[k] = v
+        return
+    if kind == b"zTXt":
+        if value and value[0] != 0:
+            raise RasterError(f"unknown compression method {value[0]} in "
+                              "zTXt chunk")
+        try:
+            value = zlib.decompress(value[1:])
+        except zlib.error:
+            value = b""
+    if key:
+        k = key.decode("latin-1")
+        if kind == b"tEXt" and key == b"exif":
+            info.pop(k, None)  # bytes in Pillow's info, not a string
+        else:
+            info[k] = value.decode("latin-1", "replace")
+
+
+def _paeth_row(f: bytearray, prior: bytes, bpp: int) -> bytearray:
+    out = bytearray(len(f))
+    for i in range(len(f)):
+        a = out[i - bpp] if i >= bpp else 0
+        b = prior[i]
+        c = prior[i - bpp] if i >= bpp else 0
+        pa, pb, pc = abs(b - c), abs(a - c), abs(a + b - 2 * c)
+        pred = a if pa <= pb and pa <= pc else (b if pb <= pc else c)
+        out[i] = (f[i] + pred) & 0xFF
+    return out
+
+
+def _average_row(f: bytearray, prior: bytes, bpp: int) -> bytearray:
+    out = bytearray(len(f))
+    for i in range(len(f)):
+        a = out[i - bpp] if i >= bpp else 0
+        out[i] = (f[i] + ((a + prior[i]) >> 1)) & 0xFF
+    return out
+
+
+def _unfilter(raw: bytes, rows: int, stride: int, bpp: int) -> np.ndarray:
+    """The (rows, stride) u8 scanlines of the inflated image data. Sub is a
+    cumulative sum in each byte lane, Up an add; Average and Paeth depend
+    on the byte to their left and run along the row."""
+    if len(raw) < rows * (stride + 1):
+        raise RasterError(f"truncated PNG: {len(raw)} bytes of image data, "
+                          f"{rows * (stride + 1)} expected")
+    lines = np.frombuffer(raw, np.uint8, rows * (stride + 1)).reshape(
+        rows, stride + 1)
+    out = np.empty((rows, stride), np.uint8)
+    prior = np.zeros(stride, np.uint8)
+    for r in range(rows):
+        kind, f = int(lines[r, 0]), lines[r, 1:]
+        if kind == 0:
+            cur = f
+        elif kind == 1:
+            # stride is a multiple of bpp: bpp is 1 below 8 bits a pixel
+            cur = (np.cumsum(f.reshape(-1, bpp), axis=0, dtype=np.uint64)
+                   .astype(np.uint8).reshape(-1))
+        elif kind == 2:
+            cur = f + prior
+        elif kind == 3:
+            cur = np.frombuffer(_average_row(bytearray(f), prior.tobytes(),
+                                             bpp), np.uint8)
+        elif kind == 4:
+            cur = np.frombuffer(_paeth_row(bytearray(f), prior.tobytes(),
+                                           bpp), np.uint8)
+        else:
+            raise RasterError(f"broken PNG: row filter type {kind}")
+        out[r] = cur
+        prior = out[r]
+    return out
+
+
+def decode(blob: bytes) -> tuple[np.ndarray, dict]:
+    """(data, text) of a PNG: data (rows, cols, samples), u8, or u16 for
+    16-bit grayscale, as PilRaster normalizes Pillow's decode; text the
+    string values of Pillow's `info`."""
+    if not blob.startswith(SIGNATURE):
+        raise RasterError("not a PNG: the port decodes PNG only")
+    header = None
+    palette = b""
+    idat = []
+    info: dict = {}
+    for kind, data in _chunks(blob):
+        if kind == b"IHDR":
+            if len(data) < 13:
+                raise RasterError("truncated IHDR chunk")
+            header = struct.unpack(">IIBBBBB", data[:13])
+        elif kind == b"PLTE":
+            palette = data
+        elif kind == b"IDAT":
+            idat.append(data)
+        elif kind in (b"tEXt", b"zTXt", b"iTXt"):
+            _text(kind, data, info)
+        elif kind == b"eXIf":
+            info.pop("exif", None)  # bytes in Pillow's info
+    if header is None or not idat:
+        raise RasterError("broken PNG: no IHDR or no IDAT chunk")
+    cols, rows, depth, ctype, _, filt, interlace = header
+    if ctype not in _SAMPLES or depth not in _DEPTHS[ctype]:
+        raise RasterError(f"unsupported PNG: colour type {ctype} at "
+                          f"{depth} bits (grayscale below 8 bits is not "
+                          "decoded)")
+    if filt:
+        raise RasterError("unknown filter category")
+    if interlace:
+        raise RasterError("unsupported PNG: Adam7 interlacing")
+    if rows == 0 or cols == 0:
+        raise RasterError("broken PNG: empty image")
+    channels = _SAMPLES[ctype]
+    bits = channels * depth
+    stride = (cols * bits + 7) // 8
+    try:
+        raw = zlib.decompress(b"".join(idat))
+    except zlib.error as e:
+        raise RasterError(f"broken PNG: {e}") from e
+    lines = _unfilter(raw, rows, stride, max(1, bits // 8))
+    if ctype == 3:
+        if depth < 8:
+            idx = np.unpackbits(lines, axis=1).reshape(
+                rows, -1, depth) @ (1 << np.arange(depth - 1, -1, -1))
+            idx = idx[:, :cols]
+        else:
+            idx = lines
+        table = np.zeros((256, 3), np.uint8)  # past the palette: black
+        n = min(len(palette) // 3, 256)
+        table[:n] = np.frombuffer(palette, np.uint8, 3 * n).reshape(n, 3)
+        return table[idx], info
+    if depth == 16:
+        samples = lines.reshape(rows, cols, channels, 2)
+        if ctype == 0:
+            return samples.view(">u2")[..., 0].astype(np.uint16), info
+        high = samples[..., 0]  # Pillow's RGB;16B / RGBA;16B / LA;16B
+        if ctype == 4:
+            high = high[..., [0, 0, 0, 1]]
+        return np.ascontiguousarray(high), info
+    return lines.reshape(rows, cols, channels), info

@@ -1,11 +1,14 @@
 """The raster reader and decimated band reads onto the device (port of
 sarpro_tpu/io/raster.py).
 
-`RasterReader` is the JAX package's reader of a (Geo)TIFF through the
-self-contained codec (io/tiffio), copied without its jax paths and without
-its read_band_resampled: the port's decimated read is
-`read_band_resampled_to_device` below. Non-TIFF rasters (the JAX package's
-Pillow and netCDF backends) are refused; SAFE measurements are TIFFs.
+`RasterReader` is the JAX package's reader, copied without its jax paths
+and without its read_band_resampled (the port's decimated read is
+`read_band_resampled_to_device` below). It probes the content as the JAX
+one does: a (Geo)TIFF opens through the self-contained codec (io/tiffio),
+netCDF classic through `io/ncraster` (scipy), anything else through
+`io/pilraster`, which decodes PNG with the port's own codec (io/png) and
+refuses the other formats Pillow would open. Both backends are imported
+only when a raster needs them. SAFE measurements are TIFFs.
 
 Every load is two halves. The host half (`reduce_band`) reads and reduces
 into host memory and touches no device: the batch driver's loader threads
@@ -121,8 +124,11 @@ def parse_epsg(wkt: str) -> Optional[int]:
 
 
 class RasterReader:
-    """Opens a (Geo)TIFF raster via the self-contained codec (reference:
-    GdalSarReader::open, gdal.rs:57-104)."""
+    """Opens any (Geo)TIFF raster via the self-contained codec, PNG (world
+    file georeferencing) via the port's PNG backend, and CF-convention
+    netCDF classic grids via the scipy backend (reference:
+    GdalSarReader::open, gdal.rs:57-104; the probe of
+    sarpro_tpu/io/raster.py:97-122)."""
 
     def __init__(self, path: str | Path):
         self.path = Path(path)
@@ -133,15 +139,27 @@ class RasterReader:
                 magic = fh.read(4)
         except OSError as e:
             raise RasterError(f"failed to open raster {self.path}: {e}") from e
-        if magic[:2] not in (b"II", b"MM"):
-            raise RasterError(f"unsupported raster format: {self.path} is "
-                              "not a TIFF")
-        try:
-            self._tiff = TiffReader(self.path)
-        except RasterError:
-            raise
-        except Exception as e:  # pragma: no cover
-            raise RasterError(f"failed to open raster {self.path}: {e}") from e
+        if magic[:2] in (b"II", b"MM"):
+            try:
+                self._tiff = TiffReader(self.path)
+            except RasterError:
+                raise
+            except Exception as e:  # pragma: no cover
+                raise RasterError(f"failed to open raster {self.path}: {e}") from e
+        elif magic[:3] == b"CDF" or magic.startswith(b"\x89HDF"):
+            from .ncraster import NetcdfRaster
+
+            self._tiff = NetcdfRaster(self.path)
+        else:
+            from .pilraster import PIL_EXTENSIONS, PilRaster
+
+            try:
+                self._tiff = PilRaster(self.path)
+            except RasterError as e:
+                raise RasterError(
+                    f"unsupported raster format: {self.path} is neither a "
+                    f"TIFF nor PIL-decodable ({PIL_EXTENSIONS}): {e}"
+                ) from e
         gi: GeoInfo = self._tiff.geo_info()
         self.geo = gi
         # identity fallback (reference: gdal.rs:64-67)

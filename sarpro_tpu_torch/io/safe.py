@@ -677,3 +677,248 @@ def open_dual_pol(safe_dir, device, target_size: Optional[int] = None,
     return open_scene(safe_dir, device, None, "Multiband", target_size,
                       target_crs, resample_alg, decimate=False,
                       band_stage=band_stage)
+
+
+class SafeReader:
+    """The JAX package's reader object (sarpro_tpu/io/safe.py:402-801, the
+    reference's sentinel1.rs:114-122) over the port's loaders: each band is
+    read by `_read_band` (the warp to a target CRS, else the decimated read
+    at a target size, else the raster as stored) and finished on `device`
+    by the calling thread, one band after the other (the JAX reader loads a
+    pair on two threads; here every upload and kernel of a product stays on
+    the thread that opens it). Bands are f32 tensors on `device`, the JAX
+    reader's arrays; the polarization hints, the metadata they leave, the
+    warnings-mode skips and the operation accessors are the JAX reader's."""
+
+    def __init__(self, base_path: Path, metadata: SafeMetadata,
+                 product_type: str, vv=None, vh=None, hh=None, hv=None):
+        self.base_path = base_path
+        self.metadata = metadata
+        self.product_type = product_type
+        self._vv = vv
+        self._vh = vh
+        self._hh = hh
+        self._hv = hv
+        # band_stage(first band of a pair), when one was given
+        self.staged_band1 = None
+
+    # -- opening --------------------------------------------------------------
+    @classmethod
+    def open(cls, safe_dir, polarization: Optional[str] = None,
+             device="cuda") -> "SafeReader":
+        return cls.open_with_options(safe_dir, polarization, device=device)
+
+    @classmethod
+    def open_with_options(cls, safe_dir, polarization: Optional[str] = None,
+                          target_crs=None, resample_alg: Optional[str] = None,
+                          target_size: Optional[int] = None, band_stage=None,
+                          device="cuda") -> "SafeReader":
+        return cls._open(safe_dir, polarization, target_crs, resample_alg,
+                         target_size, False, band_stage, device)
+
+    @classmethod
+    def open_with_warnings(cls, safe_dir, polarization: Optional[str] = None,
+                           device="cuda"):
+        """Batch-tolerant open: returns None to skip unsupported products
+        (reference: sentinel1.rs:404-589)."""
+        return cls._open(safe_dir, polarization, None, None, None, True,
+                         None, device)
+
+    @classmethod
+    def open_with_warnings_with_options(
+        cls, safe_dir, polarization=None, target_crs=None,
+        resample_alg: Optional[str] = None, target_size: Optional[int] = None,
+        device="cuda",
+    ):
+        """reference: sentinel1.rs:592-796."""
+        return cls._open(safe_dir, polarization, target_crs, resample_alg,
+                         target_size, True, None, device)
+
+    @classmethod
+    def _open(cls, safe_dir, polarization, target_crs, resample_alg,
+              target_size, warnings_mode: bool, band_stage, device):
+        from ..core.numerics import as_f32
+
+        device = torch.device(device)
+        if device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("device 'cuda' requested but CUDA is not "
+                               "available")
+        base = Path(safe_dir)
+        if not (base / "annotation").is_dir():
+            raise SafeMissingField("annotation directory")
+        if not (base / "measurement").is_dir():
+            raise SafeMissingField("measurement directory")
+        metadata = parse_comprehensive_metadata(base)
+        if metadata.product_type.upper() != "GRD":
+            if warnings_mode:
+                logger.warning("Skipping unsupported product type: %s "
+                               "(file: %s)", metadata.product_type, base)
+                return None
+            raise UnsupportedProduct(metadata.product_type)
+        vv_path, vh_path, hh_path, hv_path = identify_polarization_files(
+            base / "measurement", metadata.polarizations)
+        if isinstance(target_crs, str):
+            crs: Optional[str] = target_crs
+        elif target_crs is TargetCrsArg.AUTO:
+            crs = geodesy.resolve_auto_target_crs(base)
+        else:  # None or TargetCrsArg.NONE
+            crs = None
+
+        def load(path):
+            hb = _read_band(path, metadata, target_size, crs, resample_alg,
+                            True, raster.upload_staging(device))
+            return as_f32(raster.band_to_device(hb, device))
+
+        staged = [None]
+
+        def load_pair(p1, p2, stage: bool = True):
+            a1 = load(p1)
+            if stage and band_stage is not None:
+                staged[0] = band_stage(a1)  # queued before band 2 is read
+            return a1, load(p2)
+
+        def missing(what):
+            if warnings_mode:
+                logger.warning("%s measurement file not found, skipping "
+                               "product", what)
+                return None
+            raise SafeMissingField(f"{what} measurement file")
+
+        vv = vh = hh = hv = None
+        pol = polarization
+        if pol in ("vv", "vh", "hh", "hv", None):
+            pol = pol or "vv"
+            metadata.polarizations = [pol.upper()]
+            path = {"vv": vv_path, "vh": vh_path, "hh": hh_path,
+                    "hv": hv_path}[pol]
+            if path is None:
+                return missing(pol.upper())
+            band = load(path)
+            vv, vh, hh, hv = (band if pol == p else None
+                              for p in ("vv", "vh", "hh", "hv"))
+        elif pol in ("multiband", "vv_vh_pair"):
+            if pol == "vv_vh_pair":
+                metadata.polarizations = ["VV", "VH"]
+            # multiband leaves the polarizations as parsed (reference:
+            # :248-275)
+            if vv_path is None:
+                return missing("VV")
+            if vh_path is None:
+                return missing("VH")
+            vv, vh = load_pair(vv_path, vh_path)
+        elif pol == "hh_hv_pair":
+            metadata.polarizations = ["HH", "HV"]
+            if hh_path is None:
+                return missing("HH")
+            if hv_path is None:
+                return missing("HV")
+            hh, hv = load_pair(hh_path, hv_path)
+        elif pol == "all_pairs":
+            metadata.polarizations = ["VV", "VH", "HH", "HV"]
+            # band_stage applies to the pair multiband prefers (VV+VH when
+            # present, else HH+HV)
+            if vv_path is not None and vh_path is not None:
+                vv, vh = load_pair(vv_path, vh_path)
+            else:
+                vv = load(vv_path) if vv_path is not None else None
+                vh = load(vh_path) if vh_path is not None else None
+            if hh_path is not None and hv_path is not None:
+                hh, hv = load_pair(hh_path, hv_path,
+                                   stage=vv is None or vh is None)
+            else:
+                hh = load(hh_path) if hh_path is not None else None
+                hv = load(hv_path) if hv_path is not None else None
+        else:
+            if warnings_mode:
+                logger.warning("Unsupported polarization: %s, skipping "
+                               "product", pol)
+                return None
+            raise SafeParseError(f"Unsupported polarization: {pol}")
+        reader = cls(base, metadata, "GRD", vv, vh, hh, hv)
+        reader.staged_band1 = staged[0]
+        return reader
+
+    # -- accessors ------------------------------------------------------------
+    def data(self):
+        """VV if available, else VH (reference: sentinel1.rs:1450-1458)."""
+        if self._vv is not None:
+            return self._vv
+        if self._vh is not None:
+            return self._vh
+        raise SafeMissingField("no polarization data available")
+
+    def vv_data(self):
+        if self._vv is None:
+            raise SafeMissingField("vv_data")
+        return self._vv
+
+    def vh_data(self):
+        if self._vh is None:
+            raise SafeMissingField("vh_data")
+        return self._vh
+
+    def hh_data(self):
+        if self._hh is None:
+            raise SafeMissingField("hh_data")
+        return self._hh
+
+    def hv_data(self):
+        if self._hv is None:
+            raise SafeMissingField("hv_data")
+        return self._hv
+
+    def has_vv(self):
+        return self._vv is not None
+
+    def has_vh(self):
+        return self._vh is not None
+
+    def has_hh(self):
+        return self._hh is not None
+
+    def has_hv(self):
+        return self._hv is not None
+
+    # dual-pol operation accessors (reference: sentinel1.rs:1497-1579)
+    def _op(self, a, b, name):
+        from ..core import ops
+
+        logger.info("Computing %s", name)
+        return ops.OPERATIONS[name](a, b)
+
+    def sum_data(self):
+        return self._op(self.vv_data(), self.vh_data(), "sum")
+
+    def difference_data(self):
+        return self._op(self.vv_data(), self.vh_data(), "diff")
+
+    def ratio_data(self):
+        return self._op(self.vv_data(), self.vh_data(), "ratio")
+
+    def normalized_diff_data(self):
+        return self._op(self.vv_data(), self.vh_data(), "n-diff")
+
+    def log_ratio_data(self):
+        return self._op(self.vv_data(), self.vh_data(), "log-ratio")
+
+    def sum_hh_hv_data(self):
+        return self._op(self.hh_data(), self.hv_data(), "sum")
+
+    def difference_hh_hv_data(self):
+        return self._op(self.hh_data(), self.hv_data(), "diff")
+
+    def ratio_hh_hv_data(self):
+        return self._op(self.hh_data(), self.hv_data(), "ratio")
+
+    def normalized_diff_hh_hv_data(self):
+        return self._op(self.hh_data(), self.hv_data(), "n-diff")
+
+    def log_ratio_hh_hv_data(self):
+        return self._op(self.hh_data(), self.hv_data(), "log-ratio")
+
+    def get_available_polarizations(self) -> str:
+        """reference: sentinel1.rs:1582-1603."""
+        avail = [name for name, band in (("VV", self._vv), ("VH", self._vh),
+                                         ("HH", self._hh), ("HV", self._hv))
+                 if band is not None]
+        return ", ".join(avail) if avail else "none"

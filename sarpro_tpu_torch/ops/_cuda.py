@@ -18,6 +18,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -51,29 +52,37 @@ _LIB: ctypes.CDLL | None = None
 # (seconds, nvcc's stderr) of the build this process ran; None when the
 # library was already built
 BUILD_INFO: tuple[float, str] | None = None
-_FORCE_PLAIN = False
+# force_plain() holds for the thread that entered it: a comparison run on
+# one thread never sends the launches of a job on another thread (the GUI's
+# worker) to the plain versions
+_PLAIN = threading.local()
 
 
 class force_plain:
-    """Context manager (test and comparison use): route every wrapper to its
-    plain PyTorch version, CUDA tensors included."""
+    """Context manager (test and comparison use): route every wrapper
+    called on this thread to its plain PyTorch version, CUDA tensors
+    included."""
 
     def __enter__(self):
-        global _FORCE_PLAIN
-        self._prev = _FORCE_PLAIN
-        _FORCE_PLAIN = True
+        self._prev = plain_forced()
+        _PLAIN.on = True
         return self
 
     def __exit__(self, *exc):
-        global _FORCE_PLAIN
-        _FORCE_PLAIN = self._prev
+        _PLAIN.on = self._prev
         return False
+
+
+def plain_forced() -> bool:
+    """True inside force_plain() on the calling thread."""
+    return getattr(_PLAIN, "on", False)
 
 
 def use_kernel(t: torch.Tensor) -> bool:
     """True when `t` lies on a CUDA device and the plain versions are not
-    forced: the wrapper then launches its kernel (or raises)."""
-    return t.is_cuda and not _FORCE_PLAIN
+    forced on this thread: the wrapper then launches its kernel (or
+    raises)."""
+    return t.is_cuda and not plain_forced()
 
 
 def reset_launch_counts() -> None:

@@ -181,10 +181,18 @@ def test_parse_epsg_equal():
 
 
 def test_raster_reader_refuses_a_non_tiff(tmp_path):
+    """A file that is neither a TIFF, netCDF nor a decodable PNG (here a
+    PNG cut after its signature) raises the JAX reader's error in both."""
     path = tmp_path / "scene.png"
     path.write_bytes(b"\x89PNG\r\n\x1a\n")
-    with pytest.raises(tsafe.raster.RasterError, match="not a TIFF"):
+    with pytest.raises(tsafe.raster.RasterError) as t_err:
         traster.RasterReader(path)
+    with pytest.raises(jraster.RasterError) as j_err:
+        jraster.RasterReader(path)
+    for err in (t_err, j_err):
+        assert str(err.value).startswith(
+            f"unsupported raster format: {path} is neither a TIFF nor "
+            "PIL-decodable")
 
 
 # ---------------------------------------------------------------------------
@@ -600,3 +608,76 @@ def test_native_pixel_entries_match_the_jax_bindings(codec, rng, monkeypatch,
             assert max(abs(a - b) for a, b in zip(got[m * 3 + c], exp)) <= 1
     with pytest.raises(ValueError, match="C-contiguous uint8"):
         codec.jpeg_encode_gray(planes[0].astype(np.uint16))
+
+
+# ---------------------------------------------------------------------------
+# the GUI slice's copies: the logging ring, the netCDF reader, the non-TIFF
+# reader's sidecar georeferencing, the GUI's host helpers and its page
+# ---------------------------------------------------------------------------
+def _source(obj):
+    import inspect
+
+    return inspect.getsource(obj)
+
+
+def test_logging_and_netcdf_copies_are_the_originals():
+    from sarpro_tpu.io import ncraster as jnc
+    from sarpro_tpu.utils import logging as jlog
+    from sarpro_tpu_torch.io import ncraster as tnc
+    from sarpro_tpu_torch.utils import logging as tlog
+
+    assert _code_of(tlog) == _code_of(jlog)
+    assert _code_of(tnc) == _code_of(jnc)
+    assert tlog.RING_CAPACITY == jlog.RING_CAPACITY
+
+
+@pytest.mark.parametrize("name", ["world_file_candidates", "read_world_file",
+                                  "read_prj_epsg"])
+def test_pilraster_sidecar_functions_are_the_originals(name):
+    from sarpro_tpu.io import pilraster as jpil
+    from sarpro_tpu_torch.io import pilraster as tpil
+
+    assert _source(getattr(tpil, name)) == _source(getattr(jpil, name))
+    assert tpil.PIL_EXTENSIONS == jpil.PIL_EXTENSIONS
+
+
+@pytest.mark.parametrize("name", ["list_directory"])
+def test_gui_server_helpers_are_the_originals(name):
+    from sarpro_tpu.gui import server as jsrv
+    from sarpro_tpu_torch.gui import server as tsrv
+
+    assert _source(getattr(tsrv, name)) == _source(getattr(jsrv, name))
+
+
+@pytest.mark.parametrize("name", ["save_preset", "load_preset",
+                                  "system_stats"])
+def test_gui_state_helpers_are_the_originals(name):
+    from sarpro_tpu.gui import state as jst
+    from sarpro_tpu_torch.gui import state as tst
+
+    assert _source(getattr(tst, name)) == _source(getattr(jst, name))
+
+
+def test_gui_page_is_the_original_but_its_device_labels():
+    j = (REPO / "sarpro_tpu/gui/static/index.html").read_text().split("\n")
+    t = (REPO / "sarpro_tpu_torch/gui/static/index.html").read_text().split(
+        "\n")
+    assert len(t) == len(j)
+    differ = [i + 1 for i, (a, b) in enumerate(zip(t, j)) if a != b]
+    assert differ == [5, 73]
+    for i in (4, 72):
+        assert "TPU" in j[i] and t[i] == j[i].replace("TPU", "GPU")
+
+
+def test_list_directory_and_system_stats_equal(tmp_path):
+    from sarpro_tpu.gui import server as jsrv
+    from sarpro_tpu.gui import state as jst
+    from sarpro_tpu_torch.gui import server as tsrv
+    from sarpro_tpu_torch.gui import state as tst
+
+    fixtures.make_safe(tmp_path, name="S1A_X.SAFE", pols=("vv",))
+    (tmp_path / "b.tiff").write_bytes(b"x")
+    (tmp_path / ".h").mkdir()
+    assert tsrv.list_directory(str(tmp_path)) == jsrv.list_directory(
+        str(tmp_path))
+    assert set(tst.system_stats()) == set(jst.system_stats())

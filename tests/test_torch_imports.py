@@ -100,6 +100,7 @@ def test_cpu_slice_runs_with_jax_and_pillow_blocked(tmp_path):
         # the streamed path (core/streamed), with the big-scene limit below
         # this product: exact mode's defaults at original size, a synRGB JPEG
         from sarpro_tpu_torch.core import streamed
+        big_scene = streamed.BIG_SCENE_PIXELS
         streamed.BIG_SCENE_PIXELS = 1000
         rc = cli.run(["-i", str(safe), "-o", sys.argv[2] + "/big.tiff"],
                      device="cpu")
@@ -109,6 +110,41 @@ def test_cpu_slice_runs_with_jax_and_pillow_blocked(tmp_path):
                       "jpeg", "--polarization", "multiband", "--fast"],
                      device="cpu")
         assert rc == 0 and got[3:] == [(3, 25, 38, 8, 8)], (rc, got)
+        streamed.BIG_SCENE_PIXELS = big_scene
+        # the GUI: a single-file TIFF job on a worker thread, and the preview
+        # PNG the port's own writer encodes
+        import json, threading, time, urllib.request
+        from sarpro_tpu_torch.gui.server import make_server
+        from sarpro_tpu_torch.io import png
+        srv = make_server("127.0.0.1", 0, device="cpu")
+        threading.Thread(target=srv.serve_forever, args=(0.05,),
+                         daemon=True).start()
+        base = f"http://127.0.0.1:{srv.server_address[1]}"
+
+        def call(path, body=None):
+            req = urllib.request.Request(
+                base + path, method="GET" if body is None else "POST",
+                data=None if body is None else json.dumps(body).encode())
+            with urllib.request.urlopen(req, timeout=30) as r:
+                return r.headers["Content-Type"], r.read()
+
+        call("/api/state", {"mode": "single", "input_path": str(safe),
+                            "output_path": sys.argv[2] + "/gui.tiff",
+                            "params": {"autoscale": "standard",
+                                       "size": 64, "bit_depth": "U16"}})
+        assert json.loads(call("/api/process", {})[1])["started"]
+        for _ in range(600):
+            state = json.loads(call("/api/state")[1])
+            if not state["running"] and state["last_result"]:
+                break
+            time.sleep(0.05)
+        assert state["last_result"]["ok"], state
+        ctype, blob = call("/api/preview")
+        assert ctype == "image/png", ctype
+        img, _ = png.decode(blob)
+        assert img.shape == (43, 64, 1), img.shape
+        srv.shutdown()
+        srv.server_close()
         assert not [m for m in sys.modules if m.startswith("sarpro_tpu.")]
         print("ok")
     """)

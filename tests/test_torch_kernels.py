@@ -259,9 +259,25 @@ def test_cpu_tensors_take_plain_path_without_launches(rng):
 
 
 def test_force_plain_nests_and_restores():
-    assert not _cuda._FORCE_PLAIN
+    assert not _cuda.plain_forced()
     with ops.force_plain():
         with ops.force_plain():
-            assert _cuda._FORCE_PLAIN
-        assert _cuda._FORCE_PLAIN
-    assert not _cuda._FORCE_PLAIN
+            assert _cuda.plain_forced()
+        assert _cuda.plain_forced()
+    assert not _cuda.plain_forced()
+
+
+def test_force_plain_holds_for_its_own_thread_only():
+    """force_plain() on one thread leaves another thread's wrappers (a GUI
+    job's) on their kernels."""
+    import threading
+
+    seen = {}
+    with ops.force_plain():
+        t = threading.Thread(
+            target=lambda: seen.update(other=_cuda.plain_forced()))
+        t.start()
+        t.join(10)
+        seen["own"] = _cuda.plain_forced()
+    assert not t.is_alive()
+    assert seen == {"other": False, "own": True}
