@@ -103,12 +103,27 @@ prints no result):
      auto-UTM JPEG job (the second time under utils.profiling.trace, whose
      trace must name its five kernels), the exact 100 MP CLAHE TIFF job
      with its PNG preview against the script's own render, the Tamed cubic
-     batch job (prefetch 2) and a sharded job, which must fail naming
-     queue 1 #7. Launches equal the CLI's on each route, files equal the
+     batch job (prefetch 2) and a sharded job asking for exact mode, which
+     must write the --fast CLI's files (on one card with the one-device
+     warning). Launches equal the CLI's on each route, files equal the
      CLI's and the batch phase's (one conversion time), and every kernel
      wrapper call and device copy of a job lies on that job's worker
      thread. Then the root's SafeReader on the card against open_pair;
- 12. with --walls N only: every warm path N times more, interleaved, with
+ 12. shard: on the card(s) there are, the headline CLAHE auto-UTM 2048
+     JPEG and the 100 MP CLAHE TIFF through the CLI with --shard-devices 2
+     and -1 (and 2 without --fast): files byte-equal to --fast, on one card
+     with the JAX package's one-device warning and the --fast launches.
+     Then on a virtual mesh of the card repeated 4 times (and 2 or 3 where
+     noted): grayscale_batch (100 MP CLAHE u8, Adaptive u16), synrgb_batch
+     (100 MP CLAHE with tiles across row blocks, 2- and 4-way; the 400 MP
+     pair at 2048 padded), the streamed mesh mode on one 400 MP band and
+     warp_sample_sharded on the headline warp (4-way, and 3-way with a
+     ragged last block), each bit-equal to its unsharded run with its
+     launches the per-shard kernels x n, the 100 MP and 400 MP device
+     times and peaks beside the unsharded ones; on 2 or more cards the same
+     on the cards (else a line says the copies between cards went
+     unchecked);
+ 13. with --walls N only: every warm path N times more, interleaved, with
      medians and quartiles of its wall; the no-warp synRGB read through
      each of the two loaders (full DN + device resample, decimated read) in
      the same rounds; a torch.profiler trace of the single-band TIFF, the
@@ -276,6 +291,10 @@ TRACED = ("gray clahe tiff", "full clahe tiff", "exact full clahe tiff",
 DRIVEN: dict = {}
 # label -> (wall s, launches) of each run driven, for the GUI phase
 DRIVE_LOG: dict = {}
+# the log line of a shard request on a host with one device (the JAX
+# package's, sarpro_tpu/core/fast_path.py:82-90), % the request
+ONE_DEVICE_WARNING = ("shard: %s device(s) requested but only 1 available; "
+                      "running unsharded")
 # the path whose launch count each kernel reports in the kernels line
 REPORTED_PATH = {k: ("warm tamed cubic" if k == "resample_axis0"
                      else "warm clahe auto") for k in KERNELS}
@@ -288,12 +307,43 @@ def log(msg: str) -> None:
 _SPIN_CYCLES_PER_MS: list = []
 
 
-def device_ms(fn, reps: int = 20) -> float:
+SPIN_TRIES = 4
+
+
+def _syncs_host(fn) -> bool:
+    """True when a call of `fn` waits for the card (a `.item()`, a copy to
+    the host, `torch.bincount`'s size): no spin can then hold the card
+    while its calls are queued."""
+    import torch
+
+    mode = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fn()
+    except RuntimeError as e:
+        if "synchroniz" not in str(e):
+            raise
+        return True
+    finally:
+        torch.cuda.set_sync_debug_mode(mode)
+    return False
+
+
+def device_ms(fn, reps: int = 20, strict: bool = False) -> float:
     """Device time of one call of `fn` (ms): one warm call, then one CUDA
     event before `reps` back-to-back calls and one after, over `reps`. A
     spin kernel queued ahead of the first event holds the card until all
     the calls are queued, so the host's cost per call (argument checks,
-    allocation, ctypes) does not sit between the kernels."""
+    allocation, ctypes) does not sit between the kernels. An event recorded
+    right after the spin is queried once the calls are queued: if the spin
+    had already ended, the host's queueing sat between the kernels, and the
+    measurement is taken again with twice the spin: a `strict` call (a
+    kernel's own time) up to SPIN_TRIES times, and then it fails; any other
+    call twice, and then it is taken to wait for the card while it is
+    queued (an allocation that frees cached blocks, say) and is timed by
+    the profiler instead, with a line that says so. A function that waits for the card visibly (`_syncs_host`) is
+    timed by the profiler at once (`profiled_ms`: its kernels, copies and
+    memsets summed)."""
     import torch
 
     if not _SPIN_CYCLES_PER_MS:
@@ -305,18 +355,34 @@ def device_ms(fn, reps: int = 20) -> float:
         _SPIN_CYCLES_PER_MS.append(10_000_000 / start.elapsed_time(end))
     fn()
     torch.cuda.synchronize()
+    if _syncs_host(fn):
+        return profiled_ms(fn)
     t0 = time.perf_counter()
     fn()  # the host's time to queue one call
     queue_ms = (time.perf_counter() - t0) * 1e3
-    torch.cuda.synchronize()
-    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    torch.cuda._sleep(int(_SPIN_CYCLES_PER_MS[0] * (2 * reps * queue_ms + 1)))
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
+    spin_ms = 2 * reps * queue_ms + 1
+    for _ in range(SPIN_TRIES if strict else 2):
+        torch.cuda.synchronize()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        spun = torch.cuda.Event()
+        torch.cuda._sleep(int(_SPIN_CYCLES_PER_MS[0] * spin_ms))
+        spun.record()
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        ended_early = spun.query()  # the spin ran out before the last call
+        end.synchronize()
+        if not ended_early:
+            return start.elapsed_time(end) / reps
+        spin_ms *= 2
+    what = (f"device_ms: the spin ended before the {reps} calls were "
+            f"queued, {SPIN_TRIES if strict else 2} times (last spin "
+            f"{spin_ms / 2:.1f} ms)")
+    if strict:
+        raise RuntimeError(what)
+    log(f"{what}: the calls wait for the card; timed by the profiler")
+    return profiled_ms(fn)
 
 
 # peak rates of the card (NVIDIA's data sheets, SXM parts): device
@@ -372,7 +438,7 @@ def time_kernel(results, name: str, what: str, kernel, plain, moved: int,
     """Device times of a kernel, its plain version and, where one PyTorch
     call computes the same function, that call; printed beside the bound.
     `main` marks the shape the kernels line reports."""
-    ms = device_ms(kernel)
+    ms = device_ms(kernel, strict=True)
     pms = device_ms(plain)
     lms = device_ms(library) if library is not None else None
     b, by = bound(moved, ops)
@@ -1132,6 +1198,24 @@ def _kernels_warp(dev, g, record, results):
                     lambda: warp_kernel._warp_sample_plain(*args),
                     nbytes(src, gx, gy, got), ops[method] * got.numel(),
                     main=method == "cubic")
+    # row shards of the same warp: three blocks of ceil(2048 / 3) rows (the
+    # last one ragged) and blocks that start and end inside a tile, each
+    # bit-equal to its plain version and to its rows of the whole output
+    block = -(-SIZE // 3)
+    shards = [(k * block, min(block, SIZE - k * block)) for k in range(3)]
+    for method in warp_kernel.METHODS:
+        args = (src, gx, gy, SIZE, SIZE, method)
+        whole = warp_kernel.warp_sample(*args)
+        for row0, rows in shards + [(13, 77), (SIZE - 5, 5)]:
+            what = f"warp_sample {method}, rows [{row0}, {row0 + rows})"
+            got = warp_kernel.warp_sample(*args, row0=row0, rows=rows)
+            _check_equal(got, warp_kernel._warp_sample_plain(*args, row0,
+                                                             rows), what)
+            _check_equal(got, whole[row0:row0 + rows],
+                         f"{what} vs the whole output")
+        log(f"warp row shards: {method}, {shards} + [(13, 77), "
+            f"({SIZE - 5}, 5)]: bit-equal to the plain version and to the "
+            "whole output's rows")
     record("warp_sample", 0)
 
 
@@ -2906,15 +2990,29 @@ def phase_gui(safe: Path, ew: Path, work: Path, smi: str, blob: bytes):
             f"{len(seen)} polls {seen[:2]}..., last {last}; files equal "
             "to the batch phase's pipelined run and the CLI's")
 
-        # 5. a sharded job fails with the multi-GPU item, and runs nothing
-        ops.reset_launch_counts()
-        result, _ = gui.job(dict(_gui_state(DRIVEN["warm clahe auto"][0],
-                                            work / "shard.jpg"),
-                                 shard_devices=1))
-        if (result["ok"] or "ROADMAP queue 1 #7" not in result["error"]
-                or any(ops.launch_counts().values())):
-            raise AssertionError(f"shard job: {result}")
-        log(f"gui: shard_devices=1: {result}")
+        # 5. a sharded job, exact mode asked: fast mode over the card's
+        # devices; on one card the unsharded route with the JAX package's
+        # warning, the CLI's launches, and on any count the CLI's files
+        label = "gui shard clahe auto"
+        out = work / "gui_shard" / "clahe_auto.jpg"
+        out.parent.mkdir()
+        cursor = gui.get("/api/logs?since=0")["next"]
+        result, counts, _ = run_job(label, dict(
+            _gui_state(DRIVEN["warm clahe auto"][0], out), shard_devices=2,
+            fast=False))
+        if not result["ok"] or result["output"] != str(out):
+            raise AssertionError(f"{label}: {result}")
+        _same_files(label, _outputs(out), _outputs(cli_out))
+        messages = [e["message"] for e in
+                    gui.get(f"/api/logs?since={cursor}")["events"]]
+        if torch.cuda.device_count() == 1:  # the CLI's, as step 2's job
+            _check_gui_launches(label, counts, launched["single"],
+                                PATHS["warm clahe auto"])
+            if ONE_DEVICE_WARNING % 2 not in messages:
+                raise AssertionError(f"{label}: no one-device warning in "
+                                     f"{messages[:8]}")
+        launched["shard"] = counts
+        log(f"gui: {label}: {result}, files equal to the CLI's --fast run")
 
         # 6. the root's SafeReader on the card: the EW pair decimated on
         # read, as open_pair reads it
@@ -2949,6 +3047,244 @@ def phase_gui(safe: Path, ew: Path, work: Path, smi: str, blob: bytes):
                                   for k, v in walls.items()) + f" on {smi}")
     totals = {k: sum(c[k] for c in launched.values()) for k in KERNELS}
     return totals, walls
+
+
+def _shard_cli(work: Path, n_cards: int, messages: list) -> None:
+    """Part 1 of the shard phase: the headline CLAHE auto-UTM 2048 JPEG and
+    the 100 MP CLAHE TIFF through the CLI with a shard request (2 and -1
+    with --fast, 2 without: exact mode asked), each file byte-equal to the
+    --fast run's; on one card with the JAX package's one-device warning and
+    the --fast run's launches."""
+    d = work / "shard"
+    d.mkdir()
+    for name, driven in (("headline", "warm clahe auto"),
+                         ("100 MP", "full clahe tiff")):
+        argv, first = DRIVEN[driven]
+        argv = [a for a in argv if a != "--fast"]
+        stem = name.replace(" ", "_")
+        ref = d / f"{stem}_fast{first.suffix}"
+        _, want, _ = _drive(f"shard {name} --fast", argv + ["--fast"], ref)
+        for i, extra in enumerate((["--fast", "--shard-devices", "2"],
+                                   ["--fast", "--shard-devices", "-1"],
+                                   ["--shard-devices", "2"])):
+            label = f"shard {name} {' '.join(extra)}"
+            out = d / f"{stem}_{i}{first.suffix}"
+            del messages[:]
+            wall, counts, _ = _drive(label, argv + extra, out)
+            _same_files(label, _outputs(out), _outputs(ref))
+            if n_cards == 1:
+                req = "all" if extra[-1] == "-1" else extra[-1]
+                if ONE_DEVICE_WARNING % req not in messages:
+                    raise AssertionError(f"{label}: no one-device warning in "
+                                         f"{messages[:6]}")
+                if counts != want:
+                    raise AssertionError(f"{label}: launches {counts}, the "
+                                         f"--fast run's {want}")
+            log(f"shard: {label}: files byte-equal to --fast, launches "
+                f"{ {k: v for k, v in counts.items() if v} }")
+
+
+def _warm_ms(fn) -> float:
+    """Device ms between CUDA events of one more call of `fn`, with the
+    caching allocator holding the blocks of the call before (`_peak_run`
+    empties it first)."""
+    import torch
+
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end)
+
+
+def _shard_run(label: str, fn, want, expected: dict, totals: dict) -> tuple:
+    """One sharded call with the launch counts set to 0 just before it and
+    read just after: bit-equal to `want` (the unsharded result), launching
+    exactly `expected`; then one warm call. (device ms cold, warm, device
+    peak MiB)."""
+    import torch
+
+    from sarpro_tpu_torch import ops
+
+    ops.reset_launch_counts()
+    got, ms, wall, peak = _peak_run(fn)
+    counts = ops.launch_counts()
+    for k, v in counts.items():
+        totals[k] += v
+    if got.dtype == torch.uint16:
+        got, want = got.view(torch.int16), want.view(torch.int16)
+    _check_equal(got, want, f"shard: {label} vs unsharded")
+    launched = {k: v for k, v in counts.items() if v}
+    if launched != expected:
+        raise AssertionError(f"shard: {label}: launches {launched}, expected "
+                             f"{expected}")
+    del got
+    warm = _warm_ms(fn)
+    log(f"shard: {label}: bit-equal to the unsharded run, launches "
+        f"{launched}, {ms:.3f} ms on the device (host {wall:.1f} ms; warm "
+        f"{warm:.3f}), peak {peak:.0f} MiB")
+    return ms, warm, peak
+
+
+def _unsharded_run(label: str, fn):
+    """(result, device ms cold, warm, peak MiB) of the unsharded side."""
+    got, ms, wall, peak = _peak_run(fn)
+    warm = _warm_ms(fn)
+    log(f"shard: {label} unsharded: {ms:.3f} ms on the device (host "
+        f"{wall:.1f} ms; warm {warm:.3f}), peak {peak:.0f} MiB")
+    return got, ms, warm, peak
+
+
+def _shard_mesh_runs(safe: Path, ew: Path, devices: list, what: str,
+                     totals: dict) -> None:
+    """Part 2 of the shard phase on a mesh of `devices` (the card repeated,
+    or the cards there are): the sharded programs, the streamed mesh mode
+    and the sharded warp, each bit-equal to its unsharded run on the card,
+    with its launches: the per-shard kernels x n."""
+    import torch
+
+    from sarpro_tpu_torch.core import fused, streamed
+    from sarpro_tpu_torch.io import safe as tsafe
+    from sarpro_tpu_torch.io import warp as twarp
+    from sarpro_tpu_torch.ops import warp_kernel
+    from sarpro_tpu_torch.parallel import mesh as pmesh
+    from sarpro_tpu_torch.parallel import sharded
+    from sarpro_tpu_torch.parallel import warp as pwarp
+
+    S, B = fused.AutoscaleStrategy, fused.BitDepth
+    n = len(devices)
+    mesh = pmesh.make_mesh(devices=devices, shape=(1, n))
+    half = pmesh.make_mesh(devices=devices[:2], shape=(1, 2))
+    tag = f"{what}, {n}-way"
+
+    # the 100 MP EW pair at original size
+    pair = tsafe.open_pair(ew, DEVICE, "Multiband")
+    band = pair.band1
+    want, ms0, warm0, peak0 = _unsharded_run(
+        "100 MP gray clahe u8", lambda: fused.grayscale_pipeline(band,
+                                                                 S.CLAHE))
+    ms, warm, peak = _shard_run(
+        f"100 MP gray clahe u8 ({tag})",
+        lambda: sharded.grayscale_batch(band[None], mesh, S.CLAHE)[0], want,
+        {"histogram": n, "tile_histogram": n, "clahe_lookup": n}, totals)
+    log(f"shard: 100 MP gray clahe u8 device ms {ms:.3f} (warm {warm:.3f}) "
+        f"sharded {n}-way ({what}) against {ms0:.3f} (warm {warm0:.3f}) "
+        f"unsharded, peak {peak:.0f} against {peak0:.0f} MiB")
+    want, *_ = _unsharded_run("100 MP gray adaptive u16", lambda:
+                                fused.grayscale_pipeline(band, S.ADAPTIVE,
+                                                         B.U16))
+    _shard_run(f"100 MP gray adaptive u16 ({tag})",
+               lambda: sharded.grayscale_batch(band[None], mesh, S.ADAPTIVE,
+                                               B.U16)[0], want,
+               {"histogram": n}, totals)
+    # 9996 rows: tiles of 1250 rows, row blocks of 2499 (4-way) and 4998
+    # (2-way), so a CLAHE tile straddles every block boundary
+    b1, b2 = pair.band1[:EW_SIDE - 4], pair.band2[:EW_SIDE - 4]
+    want, *_ = _unsharded_run("100 MP synrgb clahe", lambda:
+                                fused.synrgb_pipeline(b1, b2, S.CLAHE, None))
+    for m in (mesh, half):
+        k = m.shape["row"]
+        _shard_run(f"100 MP synrgb clahe, tiles across blocks ({what}, "
+                   f"{k}-way)",
+                   lambda: sharded.synrgb_batch(b1[None], b2[None], m,
+                                                S.CLAHE, None)[0], want,
+                   {"histogram": 3 * k, "tile_histogram": 2 * k,
+                    "clahe_lookup": 2 * k, "synrgb_lookup": k}, totals)
+    del pair, band, b1, b2, want
+    torch.cuda.empty_cache()
+
+    # the 400 MP pair: the resample + pad 2048 config, and one band through
+    # the streamed mesh mode
+    scene = tsafe.open_dual_pol(safe, DEVICE)
+    vv, vh = scene.band1, scene.band2
+    kw = dict(strategy=S.CLAHE, target_size=SIZE, pad=True,
+              channel_order="dct")
+    want, *_ = _unsharded_run("400 MP synrgb clahe 2048 pad", lambda:
+                                fused.synrgb_pipeline(vv, vh, **kw))
+    _shard_run(f"400 MP synrgb clahe 2048 pad ({tag})",
+               lambda: sharded.synrgb_batch(vv[None], vh[None], mesh,
+                                            **kw)[0], want,
+               {"resample_axis0": 2 * (n + 1), "histogram": 3,
+                "tile_histogram": 2, "clahe_lookup": 2, "synrgb_lookup": 1},
+               totals)
+    want, ms0, warm0, peak0 = _unsharded_run(
+        "400 MP streamed clahe u8", lambda: streamed.grayscale_streamed(
+            vv, S.CLAHE))
+    local = SIDE // n
+    k = len(streamed._chunk_starts(local, min(streamed.CHUNK_ROWS, local)))
+    ms, warm, peak = _shard_run(
+        f"400 MP streamed clahe u8 ({tag})",
+        lambda: streamed.grayscale_streamed(vv, S.CLAHE, mesh=mesh), want,
+        {"histogram": k * n, "tile_histogram": k * n,
+         "clahe_lookup": k * n}, totals)
+    log(f"shard: 400 MP streamed band device ms {ms:.3f} (warm {warm:.3f}) "
+        f"in the {n}-way mesh mode ({what}) against {ms0:.3f} (warm "
+        f"{warm0:.3f}) unsharded, peak {peak:.0f} against {peak0:.0f} MiB")
+    del scene, vv, vh, want
+    torch.cuda.empty_cache()
+
+    # the headline warp, 2380^2 -> 2048^2 with NaN nodes, over the mesh and
+    # over 3 blocks (683, 683 and a ragged 682 rows)
+    dev = torch.device(DEVICE)
+    g = torch.Generator(device=dev).manual_seed(1)
+    src = torch.exp(torch.randn((MID, MID), device=dev, generator=g) * 1.1
+                    + 5.0)
+    mx, my = warp_grid(MID, SIZE)
+    mx[3, 5] = my[10, 10] = float("nan")
+    gx, gy = twarp.plan_grids_to_device(mx, my, dev)
+    third = pmesh.make_mesh(devices=(devices * 3)[:3], shape=(1, 3))
+    for method in warp_kernel.METHODS:
+        want = warp_kernel.warp_sample(src, gx, gy, SIZE, SIZE, method)
+        for m in (mesh, third):
+            k = m.shape["row"]
+            _shard_run(f"warp {method} {MID}^2 -> {SIZE}^2 ({what}, "
+                       f"{k}-way)",
+                       lambda: pwarp.warp_sample_sharded(
+                           src, mx, my, SIZE, SIZE, method, m), want,
+                       {"warp_sample": k}, totals)
+
+
+def phase_shard(safe: Path, ew: Path, work: Path) -> dict:
+    """The shard phase: the CLI's shard requests on the card(s) there are
+    (`_shard_cli`), then every sharded program on a virtual mesh of the card
+    repeated 4 times (`_shard_mesh_runs`), and on the real cards where
+    there are 2 or more. Returns each kernel's launches in the mesh runs."""
+    import logging
+
+    import torch
+
+    from sarpro_tpu_torch.io import safe as tsafe
+
+    n_cards = torch.cuda.device_count()
+    messages: list = []
+    handler = logging.Handler()
+    handler.emit = lambda r: messages.append(r.getMessage())
+    sarpro_log = logging.getLogger("sarpro")
+    level = sarpro_log.level
+    sarpro_log.addHandler(handler)
+    sarpro_log.setLevel(logging.INFO)
+    real_clock = tsafe.datetime
+    tsafe.datetime = _FixedClock
+    tsafe._parse_comprehensive_cached.cache_clear()
+    totals = {k: 0 for k in KERNELS}
+    try:
+        _shard_cli(work, n_cards, messages)
+    finally:
+        tsafe.datetime = real_clock
+        tsafe._parse_comprehensive_cached.cache_clear()
+        sarpro_log.removeHandler(handler)
+        sarpro_log.setLevel(level)
+    _shard_mesh_runs(safe, ew, [torch.device(DEVICE)] * 4, "one card",
+                     totals)
+    if n_cards >= 2:
+        cards = [torch.device("cuda", i) for i in range(min(n_cards, 4))]
+        _shard_mesh_runs(safe, ew, cards, f"{len(cards)} cards", totals)
+    else:
+        log("shard: one card: the copies between cards went unchecked")
+    log(f"shard: launches in the mesh runs {totals}")
+    return totals
 
 
 def _quartiles(xs):
@@ -3080,6 +3416,7 @@ def main() -> int:
         _, batch_launches = timed(phase_batch, safe, ew, work, smi)
         gui_launches, _ = timed(phase_gui, safe, ew, work, smi,
                                 blobs["warm clahe auto"])
+        shard_launches = timed(phase_shard, safe, ew, work)
         if args.walls:
             timed(phase_walls, args.walls, safe, work, smi)
     finally:
@@ -3110,6 +3447,7 @@ def main() -> int:
         entry["batch_launches"] = sum(c[name]
                                       for c in batch_launches.values())
         entry["gui_launches"] = gui_launches[name]
+        entry["shard_launches"] = shard_launches[name]
         if also:
             entry["also_replaces"] = also[0]
         kernels.append(entry)

@@ -18,8 +18,9 @@ output. Batch mode (`--input-dir`, `api.process_directory_to_path`,
 `parallel/batch`) runs the same routes over a directory. The GUI server
 (`sarpro-gui-torch`, `gui/`) runs every single-file and batch route on the
 card; `utils/` holds the logging ring and the profiler. `RasterReader`
-opens TIFF, netCDF classic and PNG. Sharding raises NotImplementedError
-naming its ROADMAP item (queue 1 #7).
+opens TIFF, netCDF classic and PNG. `--shard-devices N` (or
+`shard_devices=`) splits a scene's rows over a mesh of devices
+(`parallel/`), byte-equal to the unsharded fast route.
 
 Public API mirrors the JAX package's root (and the reference's crate root
 re-exports, src/lib.rs:217-240): the types, errors and ProcessingParams at

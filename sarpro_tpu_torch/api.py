@@ -31,8 +31,15 @@ holds the counters.
 
 Every entry point computes on `device` ("cuda" unless the caller asks for
 the CPU) and raises RuntimeError when CUDA is asked for and absent.
-Sharding over several devices raises NotImplementedError with its ROADMAP
-item (queue 1 #7).
+
+`shard_devices` (N >= 2, or -1 for every device the caller has) shards a
+scene's rows over a mesh of devices and implies fast mode, as in the JAX
+package (:346-357, :431-454): the warp's output rows (`parallel.warp`) and
+the device programs (`core/fast_path._build_shard_mesh`,
+`parallel.sharded`, the streamed passes' mesh mode) split over the mesh,
+band 1's overlapped stage is off, and the file equals the unsharded fast
+route's. With one device the unsharded fast route runs, with the JAX
+package's warning.
 """
 from __future__ import annotations
 
@@ -140,8 +147,11 @@ class _Route:
     halves, so a batch writes what the single-scene CLI writes."""
 
     def __init__(self, params: ProcessingParams, fast: bool,
-                 device: torch.device):
-        self.params, self.fast, self.device = params, fast, device
+                 device: torch.device, shard_devices: int = 0):
+        self.params, self.device = params, device
+        # a shard request implies fast mode (api.py:355)
+        self.fast = fast = fast or bool(shard_devices)
+        self.shard_devices = shard_devices
         target_arg, resample = _resolve_target_args(params)
         warping = target_arg not in (None, TargetCrsArg.NONE)
         self.alg0 = None if warping else resample  # the warp took the filter
@@ -162,17 +172,19 @@ class _Route:
 
     def upload(self, scene) -> DualPolScene:
         """The device half of `read`'s scene."""
-        return upload_scene(scene, self.device, self._band_stage())
+        return upload_scene(scene, self.device, self._band_stage(),
+                            self.shard_devices)
 
     def open(self, input) -> DualPolScene:
         """Both halves in turn, band by band (the single-scene overlaps)."""
         return open_scene(input, self.device, self.pol, self.what,
-                          band_stage=self._band_stage(), **self.load)
+                          band_stage=self._band_stage(),
+                          shard_devices=self.shard_devices, **self.load)
 
     def _band_stage(self):
         """Band 1's synRGB stage, queued while band 2 is read (fast synRGB
-        JPEG below the streamed size only)."""
-        if not self.synrgb:
+        JPEG below the streamed size only, and not under sharding)."""
+        if not self.synrgb or self.shard_devices:
             return None
         p = self.params
 
@@ -203,7 +215,8 @@ class _Route:
             band, operation = scene.band1, ProcessingOperation.SINGLE_BAND
         if self.fast:
             common = dict(pad=p.pad, strategy=p.autoscale,
-                          resample_alg=self.alg0, write_pool=write_pool)
+                          resample_alg=self.alg0, write_pool=write_pool,
+                          shard_devices=self.shard_devices)
             if band is not None:
                 return fast_path.save_single_band_fast(
                     band, output, p.format, bit_depth, p.size,
@@ -226,21 +239,16 @@ class _Route:
 
 
 def _route(input, params: ProcessingParams, fast: bool,
-           device: torch.device) -> _Route:
+           device: torch.device, shard_devices: int = 0) -> _Route:
     """The route of one product: exact mode at original size above the
     exact mode's device budget takes the streamed fast-mode passes, as in
-    the JAX package."""
-    if not fast and params.size is None and _is_big_original(input):
+    the JAX package; a shard request takes fast mode."""
+    if (not fast and not shard_devices and params.size is None
+            and _is_big_original(input)):
         logger.warning("scene exceeds the exact-mode device budget; using "
                        "the streamed fast-mode pipeline")
         fast = True
-    return _Route(params, fast, device)
-
-
-def _refuse_sharding(shard_devices: int) -> None:
-    if shard_devices:
-        raise NotImplementedError("multi-GPU sharding is not ported yet "
-                                  "(ROADMAP queue 1 #7, multi-GPU)")
+    return _Route(params, fast, device, shard_devices)
 
 
 def process_safe_to_path(input, output, params: ProcessingParams,
@@ -248,9 +256,10 @@ def process_safe_to_path(input, output, params: ProcessingParams,
                          device="cuda") -> None:
     """SAFE -> file, driven by ProcessingParams, computing on `device`
     (reference: api/mod.rs:539-674): exact mode, or fast mode with
-    `fast=True`."""
-    _refuse_sharding(shard_devices)
-    route = _route(input, params, fast, _device(device))
+    `fast=True`. `shard_devices` (N >= 2, or -1 for all) shards the
+    scene's rows over that many of the caller's devices and implies fast
+    mode."""
+    route = _route(input, params, fast, _device(device), shard_devices)
     route.save(route.open(input), output)
 
 
@@ -319,7 +328,6 @@ def process_directory_to_path(
     Note: the reference opens each product twice (viability check + process,
     api/mod.rs:502-518) — a known inefficiency deliberately NOT replicated;
     we run the viability check cheaply on metadata only."""
-    _refuse_sharding(shard_devices)
     device = _device(device)
     output_dir = Path(output_dir)
     output_dir.mkdir(parents=True, exist_ok=True)
@@ -356,7 +364,7 @@ def process_directory_to_path(
             continue
         try:
             process_safe_to_path(path, output_path, params, fast=fast,
-                                 device=device)
+                                 shard_devices=shard_devices, device=device)
             report.processed += 1
         except Exception as e:
             logger.warning("Error processing %s: %s", path, e)

@@ -1,5 +1,4 @@
-"""Fast-mode file output (port of the unsharded branches of
-sarpro_tpu/core/fast_path.save_single_band_fast and save_multiband_fast).
+"""Fast-mode file output (port of sarpro_tpu/core/fast_path.py).
 
 The device runs the whole chain down to the band values, or for a JPEG down
 to quantized DCT blocks; the host copies the result back and writes the
@@ -14,7 +13,13 @@ the copy back run on the calling thread, and the write (pageable host
 arrays and a metadata snapshot only) goes to the pool. `save_multiband_batch_fast` runs
 a bucket of same-shape synRGB JPEG scenes with one host sync.
 
-Not ported: row sharding over several devices (ROADMAP queue 1 #7).
+A shard request (`shard_devices`: N >= 2, or -1 for every device the
+caller has) splits the scene's rows over a mesh (`_build_shard_mesh`, the
+JAX package's rules and messages): parallel/sharded for a scene below the
+streamed size, the streamed passes' mesh mode above it. On one device it
+runs the unsharded route, with a warning. The sharded programs end in the
+same u8 / u16 bands as the unsharded ones, and the JPEG front end runs on
+the gathered output, so each file equals the unsharded one byte for byte.
 """
 from __future__ import annotations
 
@@ -42,9 +47,52 @@ from ..types import (
     ProcessingOperation,
     SyntheticRgbMode,
 )
+from ..parallel.mesh import available_devices, make_mesh
 from . import fused, streamed
 
 logger = logging.getLogger("sarpro")
+
+
+def _build_shard_mesh(shard_devices: int, rows: int, full_res: bool,
+                      device="cuda"):
+    """Mesh for single-scene row sharding over the devices a caller on
+    `device` has (`parallel.mesh.available_devices`), or None with the
+    reason logged (sarpro_tpu/core/fast_path.py:70-103).
+
+    Full-res configs split the rows evenly: the largest power-of-two
+    divisor of the scene height that fits the device count. Resample/pad
+    configs split the resample's output rows, which need no divisibility,
+    over every device asked for."""
+    avail = len(available_devices(device))
+    n = avail if shard_devices < 0 else min(shard_devices, avail)
+    if n < 2:
+        if shard_devices >= 2 or shard_devices < 0:
+            logger.warning(
+                "shard: %s device(s) requested but only %d available; "
+                "running unsharded",
+                "all" if shard_devices < 0 else shard_devices, avail)
+        return None
+    if full_res:
+        r = 1
+        while r * 2 <= n and rows % (r * 2) == 0:
+            r *= 2
+        if r < 2:
+            logger.warning("shard: %d rows have no even power-of-two split "
+                           "across %d devices; running unsharded", rows, n)
+            return None
+        if r < n:
+            logger.info("shard: using %d of %d devices (largest even row "
+                        "split of %d rows)", r, n, rows)
+        return make_mesh(r, shape=(1, r), device=device)
+    return make_mesh(n, shape=(1, n), device=device)
+
+
+def _shard_mesh(shard_devices: int, dn, target_size, pad: bool):
+    """The scene's mesh for a shard request, or None (unsharded)."""
+    if not shard_devices:
+        return None
+    return _build_shard_mesh(shard_devices, dn.shape[0],
+                             target_size is None and not pad, dn.device)
 
 def _is_big_scene(in_rows: int, in_cols: int, target_size) -> bool:
     """Full-resolution outputs above `streamed.BIG_SCENE_PIXELS` (read at
@@ -140,11 +188,12 @@ def save_single_band_fast(
     dn, output, format: OutputFormat, bit_depth: BitDepth, target_size,
     metadata=None, pad: bool = False, strategy=None,
     operation: ProcessingOperation = ProcessingOperation.SINGLE_BAND,
-    resample_alg=None, write_pool=None,
+    resample_alg=None, write_pool=None, shard_devices: int = 0,
 ):
     """One band (device tensor) -> GeoTIFF (u8 or u16) or grayscale JPEG
     (always u8, from the device's DCT blocks) + world file, .prj and
-    sidecar, through the grayscale program (streamed for a big scene).
+    sidecar, through the grayscale program (streamed for a big scene;
+    sharded over a mesh for a shard request, `_build_shard_mesh`).
 
     With `write_pool` (an Executor), the write (the TIFF, or the entropy
     coding, world file, .prj and sidecar) is submitted to it and its Future
@@ -155,10 +204,19 @@ def save_single_band_fast(
     in_rows, in_cols = dn.shape
     tiff = format is OutputFormat.TIFF
     depth = bit_depth if tiff else BitDepth.U8
+    mesh = _shard_mesh(shard_devices, dn, target_size, pad)
     if _is_big_scene(in_rows, in_cols, target_size):
         out = streamed.grayscale_streamed(dn, strategy=strategy,
                                           bit_depth=depth, pad=pad,
-                                          jpeg_dct=not tiff)
+                                          jpeg_dct=not tiff, mesh=mesh)
+    elif mesh is not None:
+        from ..parallel import sharded
+
+        out = sharded.grayscale_batch(
+            dn[None], mesh, strategy=strategy, bit_depth=depth,
+            target_size=target_size, pad=pad, resample_alg=resample_alg)[0]
+        if not tiff:
+            out = fused.jpeg_dct_planes(out[None])[0]
     else:
         out = fused.grayscale_pipeline(
             dn, strategy=strategy, bit_depth=depth, target_size=target_size,
@@ -211,13 +269,15 @@ def save_multiband_fast(
     operation: ProcessingOperation = ProcessingOperation.MULTIBAND_VV_VH,
     syn_mode: SyntheticRgbMode = SyntheticRgbMode.DEFAULT,
     resample_alg=None, staged_b1=None, write_pool=None,
+    shard_devices: int = 0,
 ):
     """Dual-band DN (device tensors) -> two-band GeoTIFF (u8 or u16, one
     grayscale program per band) or synRGB JPEG + world file, .prj and
     sidecar; a big scene takes the streamed passes. `staged_b1` is band 1's
     already-queued synRGB band stage (the reader's overlapped load; never
     made for a big scene); without it band 1's stage runs here.
-    `write_pool` defers the write as in `save_single_band_fast`."""
+    `write_pool` defers the write and `shard_devices` shards the scene as
+    in `save_single_band_fast`."""
     output = Path(output)
     in_rows, in_cols = dn1.shape
     big = _is_big_scene(in_rows, in_cols, target_size)
@@ -225,11 +285,20 @@ def save_multiband_fast(
                                             target_size, pad, resample_alg)
     label = operation.metadata_label
     meta = metadata.copy() if metadata is not None else None
+    mesh = _shard_mesh(shard_devices, dn1, target_size, pad)
     if format is OutputFormat.TIFF:
         if big:
             gray = functools.partial(streamed.grayscale_streamed,
                                      strategy=strategy, bit_depth=bit_depth,
-                                     pad=pad)
+                                     pad=pad, mesh=mesh)
+        elif mesh is not None:
+            from ..parallel import sharded
+
+            def gray(dn):
+                return sharded.grayscale_batch(
+                    dn[None], mesh, strategy=strategy, bit_depth=bit_depth,
+                    target_size=target_size, pad=pad,
+                    resample_alg=resample_alg)[0]
         else:
             gray = functools.partial(
                 fused.grayscale_pipeline, strategy=strategy,
@@ -250,7 +319,14 @@ def save_multiband_fast(
         # host blocks (pinned on a GPU), after the streamed front end's
         # end-of-copies sync
         coeffs = streamed.synrgb_streamed(dn1, dn2, strategy=strategy,
-                                          pad=pad, layout="dct")
+                                          pad=pad, layout="dct", mesh=mesh)
+    elif mesh is not None:
+        from ..parallel import sharded
+
+        coeffs = sharded.synrgb_batch(
+            dn1[None], dn2[None], mesh, strategy=strategy,
+            target_size=target_size, pad=pad, channel_order="dct",
+            resample_alg=resample_alg)[0]
     else:
         coeffs = _synrgb_coeffs(dn1, dn2, target_size, pad, strategy,
                                 resample_alg, staged_b1)
@@ -267,9 +343,11 @@ def save_multiband_batch_fast(
     resample_alg=None, write_pool=None,
 ):
     """Synthetic-RGB JPEGs of a bucket of same-shape scenes below the
-    streamed size (port of sarpro_tpu/core/fast_path.py:351-422 for one
-    card). `items` yields (dn1, dn2, output, metadata) with the bands on
-    the device; a generator may upload each scene as it is asked for. Each
+    streamed size (port of sarpro_tpu/core/fast_path.py:351-422). `items`
+    yields (dn1, dn2, output, metadata) with the bands on a device, each
+    scene's stages running on its bands' device (`bucket_devices` spreads
+    a bucket over the caller's devices); a generator may upload each scene
+    as it is asked for. Each
     scene's band stages and combine stage are queued back to back with no
     host sync between scenes, and its blocks copied back to pinned host
     memory without waiting; one sync for the bucket, then one write a
@@ -279,13 +357,15 @@ def save_multiband_batch_fast(
     the write Futures (None entries where written here)."""
     label = operation.metadata_label
     done, pinned = [], []
-    device = None
+    devices = []
     for dn1, dn2, output, metadata in items:
         in_rows, in_cols = dn1.shape
         if _is_big_scene(in_rows, in_cols, target_size):
             raise ValueError("a device-batch bucket takes scenes below the "
                              "streamed size")
         device = dn1.device
+        if device not in devices:
+            devices.append(device)
         coeffs = _synrgb_coeffs(dn1, dn2, target_size, pad, strategy,
                                 resample_alg)
         host = torch.empty(coeffs.shape, dtype=coeffs.dtype,
@@ -300,8 +380,21 @@ def save_multiband_batch_fast(
             metadata=meta, label=label, gt=gt, proj=proj,
             syn_mode=syn_mode))
         del dn1, dn2, coeffs
-    if device is not None and device.type == "cuda":
-        torch.cuda.current_stream(device).synchronize()
+    for device in devices:
+        if device.type == "cuda":
+            torch.cuda.current_stream(device).synchronize()
     return [_submit(functools.partial(write, coeffs=_to_host(
         host, write_pool is not None)), write_pool)
         for write, host in zip(done, pinned)]
+
+
+def bucket_devices(n_scenes: int, device) -> list:
+    """The device of each scene of a bucket of `n_scenes`: a pure scene
+    mesh over the largest divisor of the bucket that is at most the number
+    of devices a caller on `device` has (sarpro_tpu/core/fast_path.py:
+    374-383), scenes in contiguous groups. One device on one card."""
+    avail = available_devices(device)
+    n = max(d for d in range(1, min(len(avail), n_scenes) + 1)
+            if n_scenes % d == 0)
+    mesh = make_mesh(n, shape=(n, 1), devices=avail)
+    return [mesh.row_devices(i * n // n_scenes)[0] for i in range(n_scenes)]

@@ -18,7 +18,8 @@ CLAHE band by up to 4 where a percentile, and so the CLAHE window, moves
 by one histogram bin (ROADMAP queue 3). `_quantize`'s f32 `pow` (gamma 0.8,
 0.9, 1.1) moves a level by 1 on a few pixels in 1e5; gamma 1 is exact.
 
-Not ported: row sharding (`row_axis`, ROADMAP queue 1 #7).
+Row sharding (the JAX program's `row_axis`) is parallel/sharded.py: it runs
+these helpers on each row block and reduces between them.
 """
 from __future__ import annotations
 
@@ -461,12 +462,18 @@ def _synrgb_combine(b1, b2, strategy, suppressed, channel_order: str):
                          "bgr, ycbcr, dct)")
     out = (_synrgb_suppressed(b1, b2) if suppressed
            else _synrgb_default(b1, b2))
+    return _in_channel_order(out, channel_order)
+
+
+def _in_channel_order(rgb: torch.Tensor, channel_order: str) -> torch.Tensor:
+    """Interleaved RGB u8 -> the writer's channel order: rgb, bgr, planar
+    YCbCr, or its quantized JPEG DCT blocks."""
     if channel_order == "bgr":
-        return torch.flip(out, (-1,))
+        return torch.flip(rgb, (-1,))
     if channel_order in ("ycbcr", "dct"):
-        planes = ycbcr_planes(out)
+        planes = ycbcr_planes(rgb)
         return jpeg_dct_planes(planes) if channel_order == "dct" else planes
-    return out
+    return rgb
 
 
 # per-stage entry points of the overlapped file path: band 1's stage is

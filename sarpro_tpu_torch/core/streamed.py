@@ -33,21 +33,36 @@ bytes a pixel; PyTorch's uint16 has few CUDA kernels), written through
 take the host-f64 percentile inversion when the valid count passes int32.
 
 `BIG_SCENE_PIXELS` and `CHUNK_ROWS` are read at call time, so one change
-here governs `core/fast_path` and `api`. Not ported: row sharding (`mesh`,
-ROADMAP queue 1 #7).
+here governs `core/fast_path` and `api`.
+
+Mesh mode (`mesh`, a parallel.mesh.Mesh; sarpro_tpu/core/streamed.py:
+729-1035): a band whose rows split evenly over the mesh's row axis runs
+the same passes on each row block, on its device, with the block's global
+row offset in the CLAHE tile geometry. The raw accumulators are combined on
+the lead device before the shared finalize: the counts and histograms
+summed, the min / max folded with the +-inf of a block with no valid pixel
+kept until the global count is known. The blocks are gathered in order on
+the lead, where the compose and the JPEG front end run, so every strategy
+equals the unsharded passes bit for bit. Otherwise (uneven rows, a band
+past the int32 ceiling) the band runs unsharded with a warning.
 """
 from __future__ import annotations
+
+import logging
 
 import numpy as np
 import torch
 
 from ..ops import clahe_lookup, histogram, synrgb_lookup, tile_histogram
+from ..parallel.mesh import combine as _combine
 from ..types import AutoscaleStrategy, BitDepth
 from . import fused
 from .clahe import CLAHE_BINS, TILES_X, TILES_Y, _clahe_bins
 from .numerics import as_f32, as_u16, u16_bits
 from .synthetic_rgb import FLOOR_MAX, FLOOR_MIN, suppressed_table_sets
 from .synthetic_rgb import create_synthetic_rgb as _synrgb_default
+
+logger = logging.getLogger("sarpro")
 
 CHUNK_ROWS = 4096
 # above this many pixels per band a full-resolution scene takes this module
@@ -79,13 +94,6 @@ def _chunk_rows(rows: int, cols: int, chunk_rows: int | None) -> int:
     return max(min(chunk, rows, _INT32_MAX // max(cols, 1)), 1)
 
 
-def _refuse_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "row sharding of the streamed path is not ported yet (ROADMAP "
-            "queue 1 #7, multi-GPU)")
-
-
 def _stage(q: torch.Tensor) -> torch.Tensor:
     """f32-held u16 values -> the q16 buffer's int16 bit pattern."""
     return u16_bits(as_u16(q))
@@ -114,33 +122,36 @@ def _hist_chunk(dn, mn, mx, r0: int, n: int):
 
 
 def _tile_hist_chunk(dn, low, high, r0: int, n: int, cols: int,
-                     tile_h: int, tile_w: int):
-    """(flat int32 CLAHE bins, tile histograms) of rows [r0, r0 + n): the
-    tiles are the global raster's (`row_offset=r0`)."""
+                     tile_h: int, tile_w: int, base: int = 0):
+    """(flat int32 CLAHE bins, tile histograms) of rows [r0, r0 + n) of
+    `dn`, a band or the row block of a band that starts at global row
+    `base`: the tiles are the global raster's (`row_offset=base + r0`)."""
     db, mask = fused._db_mask(dn[r0:r0 + n])
     bins = _clahe_bins(fused._clahe_norm(db, mask, low, high),
                        mask).reshape(-1)
     return bins, tile_histogram(bins, cols, TILES_X, TILES_Y, tile_h, tile_w,
-                                row_offset=r0, n_bins=CLAHE_BINS)
+                                row_offset=base + r0, n_bins=CLAHE_BINS)
 
 
 def _tile_hist_stage_chunk(buf, dn, low, high, r0: int, n: int, cols: int,
-                           tile_h: int, tile_w: int):
+                           tile_h: int, tile_w: int, base: int = 0):
     """The tile-histogram pass that also stages the chunk's CLAHE bins
     (CLAHE_BINS marks a masked pixel) in the q16 buffer, so the apply pass
     reads them back instead of recomputing dB, window and bins."""
-    bins, hist = _tile_hist_chunk(dn, low, high, r0, n, cols, tile_h, tile_w)
+    bins, hist = _tile_hist_chunk(dn, low, high, r0, n, cols, tile_h, tile_w,
+                                  base)
     buf[r0:r0 + n] = bins.view(n, cols)
     return hist
 
 
 def _apply_clahe_bins_chunk(buf, max_val: float, cdfs, r0: int, n: int,
-                            cols: int, tile_h: int, tile_w: int):
+                            cols: int, tile_h: int, tile_w: int,
+                            base: int = 0):
     """CLAHE apply from the staged bins: reads the chunk's bins from the
     buffer it then overwrites with the q16 values; (min, max) of them."""
     bins = buf[r0:r0 + n].to(torch.int32)
     eq = clahe_lookup(bins.reshape(-1), cdfs, cols, TILES_X, TILES_Y, tile_h,
-                      tile_w, row_offset=r0).view(n, cols)
+                      tile_w, row_offset=base + r0).view(n, cols)
     q = fused._clahe_quantize(eq, bins < CLAHE_BINS, max_val)
     buf[r0:r0 + n] = _stage(q)
     return q.amin(), q.amax()
@@ -256,18 +267,29 @@ def dct_blocks_streamed(img: torch.Tensor,
 # ---------------------------------------------------------------------------
 # Statistics
 # ---------------------------------------------------------------------------
-def _fold_minmax(dn, chunks, acc_dtype):
-    """(count, min, max) of the band's valid dB, empty bands normalized to
-    a 0 range as the fused program does."""
+def _fold_minmax_raw(dn, chunks, acc_dtype):
+    """(count, min, max) of the valid dB of `dn`'s chunks, +-inf where none
+    is valid (a row block's, combined across blocks before the empty-band
+    rule)."""
     count = torch.zeros((), dtype=acc_dtype, device=dn.device)
     mn = torch.full((), float("inf"), device=dn.device)
     mx = torch.full((), float("-inf"), device=dn.device)
     for r0, n in chunks:
         c, a, b = _minmax_chunk(dn, r0, n)
         count, mn, mx = count + c, torch.minimum(mn, a), torch.maximum(mx, b)
-    mn = torch.where(count > 0, mn, 0.0)
-    mx = torch.where(count > 0, mx, 0.0)
     return count, mn, mx
+
+
+def _empty_band_rule(count, mn, mx):
+    """An empty band's range is 0, as the fused program has it."""
+    return (count, torch.where(count > 0, mn, 0.0),
+            torch.where(count > 0, mx, 0.0))
+
+
+def _fold_minmax(dn, chunks, acc_dtype):
+    """(count, min, max) of the band's valid dB, empty bands normalized to
+    a 0 range as the fused program does."""
+    return _empty_band_rule(*_fold_minmax_raw(dn, chunks, acc_dtype))
 
 
 def _fold_hist(dn, mn, mx, chunks, acc_dtype):
@@ -335,6 +357,56 @@ def _stats_finalize_host(hist, count: int, mn: float, mx: float,
 # ---------------------------------------------------------------------------
 # Band, synRGB and grayscale entry points
 # ---------------------------------------------------------------------------
+class _Block:
+    """A band's row block: its DN on its device, its chunks (local rows),
+    its first global row, and its views of the band's output buffers."""
+
+    def __init__(self, dn, device, base: int, rows: int, chunks):
+        self.device, self.base, self.rows, self.chunks = (device, base, rows,
+                                                          chunks)
+        self.dn = dn[base:base + rows].to(device)
+
+    def buffer(self, full: torch.Tensor) -> torch.Tensor:
+        """The block's rows of `full`: a view where the block shares its
+        device, else a buffer of its own (`gather` copies it back)."""
+        if self.device == full.device:
+            return full[self.base:self.base + self.rows]
+        return torch.empty((self.rows,) + tuple(full.shape[1:]),
+                           dtype=full.dtype, device=self.device)
+
+    def gather(self, full: torch.Tensor, part: torch.Tensor) -> None:
+        if part.data_ptr() != full[self.base:].data_ptr():
+            full[self.base:self.base + self.rows].copy_(part)
+
+
+def _blocks(dn, mesh, chunk_rows, device_acc: bool):
+    """The band's row blocks: one per device of the mesh's row axis where
+    the rows split evenly and the band is within the int32 ceiling, else
+    the whole band (with the JAX package's warnings)."""
+    rows, cols = dn.shape
+    if mesh is not None:
+        devices = mesh.row_devices()
+        n = len(devices)
+        if device_acc and n >= 2 and rows % n == 0:
+            local = rows // n
+            chunks = _chunk_starts(local, _chunk_rows(local, cols,
+                                                      chunk_rows))
+            return [_Block(dn, d, j * local, local, chunks)
+                    for j, d in enumerate(devices)]
+        # a 1-device mesh is unsharded execution, not worth a warning
+        if not device_acc:
+            logger.warning(
+                "streamed: band (%dx%d) exceeds the int32 device-"
+                "accumulation ceiling (%d px); running unsharded",
+                rows, cols, _DEVICE_ACC_MAX_PIXELS)
+        elif n >= 2:
+            logger.warning(
+                "streamed: %d rows don't split evenly over %d 'row' "
+                "devices; running unsharded", rows, n)
+    chunks = _chunk_starts(rows, _chunk_rows(rows, cols, chunk_rows))
+    return [_Block(dn, dn.device, 0, rows, chunks)]
+
+
 def band_u8_streamed(dn: torch.Tensor, strategy: AutoscaleStrategy,
                      tamed_copol: bool | None = None,
                      bit_depth: BitDepth = BitDepth.U8,
@@ -355,88 +427,130 @@ def band_u8_streamed(dn: torch.Tensor, strategy: AutoscaleStrategy,
     Bands within `_DEVICE_ACC_MAX_PIXELS` fold their counts in int32 on the
     device and never wait for the host; larger ones fold in int64, also on
     the device, and copy their statistics back once (`_band_stats_hostacc`),
-    their histograms int64."""
-    _refuse_mesh(mesh)
+    their histograms int64.
+
+    With `mesh`, the passes run on each row block of the mesh's row axis
+    (the module's mesh mode); the outputs land on the mesh's lead device."""
     rows, cols = dn.shape
-    chunks = _chunk_starts(rows, _chunk_rows(rows, cols, chunk_rows))
     device_acc = dn.numel() <= _DEVICE_ACC_MAX_PIXELS
     if emit_q16 and not device_acc:
         raise ValueError("emit_q16 needs a band within the int32 "
                          "accumulation ceiling (_DEVICE_ACC_MAX_PIXELS)")
     acc = torch.int32 if device_acc else torch.int64
-    dev = dn.device
+    blocks = _blocks(dn, mesh, chunk_rows, device_acc)
+    dev = blocks[0].device  # the lead: reductions and outputs
 
-    def fold_u8_hist(body, *args):
-        h = torch.zeros(256, dtype=acc, device=dev)
-        for r0, n in chunks:
-            h += body(*args, r0, n)
-        return h
+    def each(t):
+        """A lead-device scalar or table copied to each block's device."""
+        return [t.to(b.device) for b in blocks]
+
+    def fold_u8_hist(body, bufs, *scalars):
+        """The u8 histogram summed over every block's chunks; `scalars`
+        are lead-device scalars handed to `body` on each block's device."""
+        per = [each(x) for x in scalars]
+        parts = []
+        for k, (b, buf) in enumerate(zip(blocks, bufs)):
+            h = torch.zeros(256, dtype=acc, device=b.device)
+            for r0, n in b.chunks:
+                h += body(buf, *(x[k] for x in per), r0, n)
+            parts.append(h)
+        return _combine(parts, torch.add, dev)
 
     if device_acc:
-        count, mn, mx = _fold_minmax(dn, chunks, acc)
-        s = fused._stats_finalize(_fold_hist(dn, mn, mx, chunks, acc), count,
-                                  mn, mx)
+        raw = [_fold_minmax_raw(b.dn, b.chunks, acc) for b in blocks]
+        count, mn, mx = _empty_band_rule(
+            _combine([r[0] for r in raw], torch.add, dev),
+            _combine([r[1] for r in raw], torch.minimum, dev),
+            _combine([r[2] for r in raw], torch.maximum, dev))
+        hist = _combine([_fold_hist(b.dn, a, c, b.chunks, acc) for b, a, c
+                         in zip(blocks, each(mn), each(mx))], torch.add, dev)
+        s = fused._stats_finalize(hist, count, mn, mx)
     else:
-        s = _band_stats_hostacc(dn, chunks)
+        s = _band_stats_hostacc(dn, blocks[0].chunks)
     buf = torch.empty((rows, cols), dtype=torch.int16, device=dev)
+    bufs = [b.buffer(buf) for b in blocks]
+
+    def gather(full, parts):
+        for b, part in zip(blocks, parts):
+            b.gather(full, part)
+        return full
 
     if tamed_copol is not None and strategy is AutoscaleStrategy.TAMED:
         # band-specific Tamed window straight to u8 values (fused._band_u8)
         low = torch.minimum(s["p02"], s["p05"]) if tamed_copol else s["p05"]
-        for r0, n in chunks:
-            _apply_tamed_chunk(buf, dn, low, s["p99"], r0, n)
+        for b, bb, lo, hi in zip(blocks, bufs, each(low), each(s["p99"])):
+            for r0, n in b.chunks:
+                _apply_tamed_chunk(bb, b.dn, lo, hi, r0, n)
         if emit_q16:
             q_mn = torch.zeros((), device=dev)
             q_mx = torch.full((), 255.0, device=dev)
-            h = (fold_u8_hist(_u8hist_q16_chunk, buf, q_mn, q_mx)
+            h = (fold_u8_hist(_u8hist_q16_chunk, bufs, q_mn, q_mx)
                  if collect_hist else None)
-            return buf, h, q_mn, q_mx
-        u8 = buf.to(torch.uint8)
-        return (u8, fold_u8_hist(_u8_hist_chunk, u8)) if collect_hist else u8
+            return gather(buf, bufs), h, q_mn, q_mx
+        u8s = [bb.to(torch.uint8) for bb in bufs]
+        h = fold_u8_hist(_u8_hist_chunk, u8s) if collect_hist else None
+        u8 = torch.cat([x.to(dev) for x in u8s]) if len(u8s) > 1 else u8s[0]
+        return (u8, h) if collect_hist else u8
 
     low, high, gamma = fused._window(s, strategy)
     max_val = float(bit_depth.max_val)
     extrema = []
     if strategy is AutoscaleStrategy.CLAHE:
         tile_h, tile_w = -(-rows // TILES_Y), -(-cols // TILES_X)
-        hists = torch.zeros(TILES_Y * TILES_X * CLAHE_BINS, dtype=acc,
-                            device=dev)
-        for r0, n in chunks:
-            if device_acc:
-                hists += _tile_hist_stage_chunk(buf, dn, low, high, r0, n,
-                                                cols, tile_h, tile_w)
-            else:
-                hists += _tile_hist_chunk(dn, low, high, r0, n, cols, tile_h,
-                                          tile_w)[1]
-        cdfs = fused._clahe_cdfs(hists, rows, cols, tile_h, tile_w)
-        for r0, n in chunks:
-            extrema.append(
-                _apply_clahe_bins_chunk(buf, max_val, cdfs, r0, n, cols,
-                                        tile_h, tile_w) if device_acc
-                else _apply_clahe_chunk(buf, dn, low, high, max_val, cdfs, r0,
-                                        n, cols, tile_h, tile_w))
+        parts = []
+        for b, bb, lo, hi in zip(blocks, bufs, each(low), each(high)):
+            hists = torch.zeros(TILES_Y * TILES_X * CLAHE_BINS, dtype=acc,
+                                device=b.device)
+            for r0, n in b.chunks:
+                if device_acc:
+                    hists += _tile_hist_stage_chunk(bb, b.dn, lo, hi, r0, n,
+                                                    cols, tile_h, tile_w,
+                                                    b.base)
+                else:
+                    hists += _tile_hist_chunk(b.dn, lo, hi, r0, n, cols,
+                                              tile_h, tile_w)[1]
+            parts.append(hists)
+        cdfs = fused._clahe_cdfs(_combine(parts, torch.add, dev), rows, cols,
+                                 tile_h, tile_w)
+        for b, bb, c, lo, hi in zip(blocks, bufs, each(cdfs), each(low),
+                                    each(high)):
+            for r0, n in b.chunks:
+                extrema.append(
+                    _apply_clahe_bins_chunk(bb, max_val, c, r0, n, cols,
+                                            tile_h, tile_w, b.base)
+                    if device_acc
+                    else _apply_clahe_chunk(bb, b.dn, lo, hi, max_val, c, r0,
+                                            n, cols, tile_h, tile_w))
     else:
-        for r0, n in chunks:
-            extrema.append(_apply_window_chunk(buf, dn, low, high, gamma,
-                                               max_val, r0, n))
-    q_mn, q_mx = extrema[0]
-    for a, b in extrema[1:]:
-        q_mn, q_mx = torch.minimum(q_mn, a), torch.maximum(q_mx, b)
+        for b, bb, lo, hi, g in zip(blocks, bufs, each(low), each(high),
+                                    each(gamma)):
+            for r0, n in b.chunks:
+                extrema.append(_apply_window_chunk(bb, b.dn, lo, hi, g,
+                                                   max_val, r0, n))
+    q_mn = _combine([a for a, _ in extrema], torch.minimum, dev)
+    q_mx = _combine([b for _, b in extrema], torch.maximum, dev)
 
     if emit_q16:
-        h = (fold_u8_hist(_u8hist_q16_chunk, buf, q_mn, q_mx)
+        h = (fold_u8_hist(_u8hist_q16_chunk, bufs, q_mn, q_mx)
              if collect_hist else None)
-        return buf, h, q_mn, q_mx
+        return gather(buf, bufs), h, q_mn, q_mx
     if bit_depth is BitDepth.U16:
-        out = buf.view(torch.uint16)
+        out = gather(buf, bufs).view(torch.uint16)
         return (out, None) if collect_hist else out
     u8 = torch.empty((rows, cols), dtype=torch.uint8, device=dev)
-    if not collect_hist:
-        for r0, n in chunks:
-            _scale_u8_chunk(u8, buf, q_mn, q_mx, r0, n, False)
-        return u8
-    return u8, fold_u8_hist(
-        lambda r0, n: _scale_u8_chunk(u8, buf, q_mn, q_mx, r0, n, True))
+    pairs = [(b.buffer(u8), bb) for b, bb in zip(blocks, bufs)]
+
+    def scale(pair, mn_b, mx_b, r0, n):
+        return _scale_u8_chunk(*pair, mn_b, mx_b, r0, n, collect_hist)
+
+    if collect_hist:
+        h = fold_u8_hist(scale, pairs, q_mn, q_mx)
+    else:
+        for b, pair, mn_b, mx_b in zip(blocks, pairs, each(q_mn), each(q_mx)):
+            for r0, n in b.chunks:
+                scale(pair, mn_b, mx_b, r0, n)
+    gather(u8, [ub for ub, _ in pairs])
+    return (u8, h) if collect_hist else u8
 
 
 def _suppressed_floor_host(hist: np.ndarray, total_pixels: int) -> int:
@@ -465,8 +579,8 @@ def synrgb_streamed(vv_dn: torch.Tensor, vh_dn: torch.Tensor,
     compose stretches them a chunk at a time; larger ones are stretched to
     u8 planes first. The suppressed mode copies the combined 256-bin
     histogram back once for its floor, which goes back to the card as two
-    int32 scalars (set index and water floor)."""
-    _refuse_mesh(mesh)
+    int32 scalars (set index and water floor). With `mesh`, each band runs
+    the mesh mode (`band_u8_streamed`) and the compose runs on the lead."""
     if layout not in ("rgb", "dct"):
         raise ValueError(f"unknown layout {layout!r} (rgb, dct)")
     rows, cols = vv_dn.shape
@@ -477,7 +591,7 @@ def synrgb_streamed(vv_dn: torch.Tensor, vh_dn: torch.Tensor,
     q16_mode = max(vv_dn.numel(), vh_dn.numel()) <= _DEVICE_ACC_MAX_PIXELS
     bands = [band_u8_streamed(dn, strategy, copol if tamed else None,
                               chunk_rows=chunk_rows, collect_hist=suppressed,
-                              emit_q16=q16_mode)
+                              mesh=mesh, emit_q16=q16_mode)
              for dn, copol in ((vv_dn, True), (vh_dn, False))]
     if q16_mode:
         (b1, h1, mn1, mx1), (b2, h2, mn2, mx2) = bands

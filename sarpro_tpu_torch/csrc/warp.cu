@@ -6,8 +6,9 @@
 // (16, 128) output tile, refits the mapping per tile, and samples separably
 // with one-hot weight matmuls; it matches the XLA sampler only to a mean
 // abs error below 1e-3. This kernel computes the function of
-// `sarpro_tpu/io/warp._warp_sample_block` (whole output, row0 = 0) for each
-// output pixel (r, c):
+// `sarpro_tpu/io/warp._warp_sample_block` for each output pixel (r, c) of
+// the rows [row0, row0 + rows) of the (out_rows, out_cols) output (the whole
+// output, or one row shard of it):
 //   gr = r * scale_r, gc = c * scale_c (scales rounded to f32 on the host),
 //   cell = clamp(floor(g), 0, g_n - 2), f = g - cell,
 //   (sx, sy) = bilinear blend of the 4 grid nodes around the pixel,
@@ -52,6 +53,13 @@
 // Every f32 operation is an explicitly rounded intrinsic in the plain
 // PyTorch version's order, so nvcc contracts nothing into an FMA and the
 // kernel equals the plain version bit for bit.
+//
+// A row shard (row0, rows) keeps the whole output's grid scales and its
+// tiles: they stay placed by global row (tile t covers global rows
+// [t * tile rows, (t + 1) * tile rows)), and only the rows outside the shard
+// are left out of a tile at its edges. A pixel's arithmetic is the same in
+// every branch, so each shard equals its rows of the whole output bit for
+// bit.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -281,11 +289,11 @@ struct Stage {
   int x0, y0, fw, fh;  // the staged source rectangle
 };
 
-// Each thread maps its pixels of the tile at (r0, c0) into (sx, sy); the
-// union of their in-bounds taps is the footprint, and `st` gets the tile's
-// kind (all threads take part).
+// Each thread maps its pixels of the tile at (r0, c0), those of global rows
+// [rlo, rhi), into (sx, sy); the union of their in-bounds taps is the
+// footprint, and `st` gets the tile's kind (all threads take part).
 template <int kMethod>
-__device__ void tile_plan(const Grid& g, int h, int w, int out_rows,
+__device__ void tile_plan(const Grid& g, int h, int w, int rlo, int rhi,
                           int out_cols, int r0, int c0,
                           float (&sx)[Plan<kMethod>::kPixels],
                           float (&sy)[Plan<kMethod>::kPixels], Stage& st,
@@ -305,7 +313,7 @@ __device__ void tile_plan(const Grid& g, int h, int w, int out_rows,
 #pragma unroll
   for (int k = 0; k < Plan<kMethod>::kPixels; ++k) {
     const int r = r0 + threadIdx.y + k * kThreadsY;
-    if (r >= out_rows || c >= out_cols) continue;
+    if (r < rlo || r >= rhi || c >= out_cols) continue;
     const float gr = __fmul_rn((float)r, g.scale_r);
     const int gr0 = (int)fminf(fmaxf(floorf(gr), 0.0f), (float)(g.gh - 2));
     if (gr0 != cell_row) {
@@ -372,25 +380,28 @@ __device__ void tile_plan(const Grid& g, int h, int w, int out_rows,
 template <int kMethod>
 __global__ void __launch_bounds__(kThreads)
 warp_kernel(const float* __restrict__ src, int h, int w, Grid g,
-            float* __restrict__ out, int out_rows, int out_cols) {
+            float* __restrict__ out, int row0, int rows, int out_cols) {
   using P = Plan<kMethod>;
-  const int r0 = blockIdx.y * P::kTileRows;
+  // tiles at global rows; the shard's rows are [row0, row0 + rows)
+  const int r0 = (row0 / P::kTileRows + (int)blockIdx.y) * P::kTileRows;
+  const int rhi = row0 + rows;
   const int c = blockIdx.x * kThreadsX + threadIdx.x;
   const GlobalFetch gf{src, w};
   if (!P::kStages) {  // one pixel a thread, taps from device memory
     const int r = r0 + threadIdx.y;
-    if (r >= out_rows || c >= out_cols) return;
+    if (r < row0 || r >= rhi || c >= out_cols) return;
     float sx, sy;
     map_pixel(g, r, c, sx, sy);
-    out[(long long)r * out_cols + c] = sample<kMethod>(gf, h, w, sx, sy);
+    out[(long long)(r - row0) * out_cols + c] =
+        sample<kMethod>(gf, h, w, sx, sy);
     return;
   }
   __shared__ __align__(16) float stage[P::kStages ? kStage : 1];
   __shared__ Stage st;
   __shared__ int red[kWarps * 5];
   float sx[P::kPixels], sy[P::kPixels];
-  tile_plan<kMethod>(g, h, w, out_rows, out_cols, r0, blockIdx.x * kThreadsX,
-                     sx, sy, st, red);
+  tile_plan<kMethod>(g, h, w, row0, rhi, out_cols, r0,
+                     blockIdx.x * kThreadsX, sx, sy, st, red);
   const Stage t = st;
   if (t.kind == kStaged || t.kind == kInterior) {
     // rows of the footprint a warp at a time, 4 loads in flight a thread
@@ -417,7 +428,8 @@ warp_kernel(const float* __restrict__ src, int h, int w, Grid g,
 #pragma unroll
   for (int k = 0; k < P::kPixels; ++k) {
     const int r = r0 + threadIdx.y + k * kThreadsY;
-    if (r >= out_rows) break;
+    if (r < row0) continue;
+    if (r >= rhi) break;
     float v;
     if (t.kind == kGlobal)
       v = sample<kMethod>(gf, h, w, sx[k], sy[k]);
@@ -425,13 +437,13 @@ warp_kernel(const float* __restrict__ src, int h, int w, Grid g,
       v = cubic_interior(stage, t.x0, t.y0, t.fw, sx[k], sy[k]);
     else  // every in-bounds tap of the pixel lies in the footprint
       v = sample<kMethod>(sf, h, w, sx[k], sy[k]);
-    out[(long long)r * out_cols + c] = v;
+    out[(long long)(r - row0) * out_cols + c] = v;
   }
 }
 
 template <int kMethod>
 __global__ void __launch_bounds__(kThreads)
-warp_tiles_kernel(int h, int w, Grid g, int out_rows, int out_cols,
+warp_tiles_kernel(int h, int w, Grid g, int row0, int rows, int out_cols,
                   int* __restrict__ kinds) {
   using P = Plan<kMethod>;
   __shared__ Stage st;
@@ -442,42 +454,46 @@ warp_tiles_kernel(int h, int w, Grid g, int out_rows, int out_cols,
     return;
   }
   float sx[P::kPixels], sy[P::kPixels];
-  tile_plan<kMethod>(g, h, w, out_rows, out_cols, blockIdx.y * P::kTileRows,
+  tile_plan<kMethod>(g, h, w, row0, row0 + rows, out_cols,
+                     (row0 / P::kTileRows + (int)blockIdx.y) * P::kTileRows,
                      blockIdx.x * kThreadsX, sx, sy, st, red);
   if (threadIdx.x == 0 && threadIdx.y == 0) kinds[tile] = st.kind;
 }
 
 template <int kMethod>
 int launch(const float* src, int h, int w, const Grid& g, float* out,
-           int* kinds, int out_rows, int out_cols, cudaStream_t stream) {
-  constexpr int rows = Plan<kMethod>::kTileRows;
-  if ((out_rows + rows - 1) / rows > 65535) return (int)cudaErrorInvalidValue;
+           int* kinds, int row0, int rows, int out_cols,
+           cudaStream_t stream) {
+  constexpr int tr = Plan<kMethod>::kTileRows;
+  // the global tile rows that hold [row0, row0 + rows)
+  const int tiles = (row0 + rows - 1) / tr - row0 / tr + 1;
+  if (tiles > 65535) return (int)cudaErrorInvalidValue;
   const dim3 block(kThreadsX, kThreadsY);
-  const dim3 grid((out_cols + kThreadsX - 1) / kThreadsX,
-                  (out_rows + rows - 1) / rows);
+  const dim3 grid((out_cols + kThreadsX - 1) / kThreadsX, tiles);
   if (kinds != nullptr)
     warp_tiles_kernel<kMethod><<<grid, block, 0, stream>>>(
-        h, w, g, out_rows, out_cols, kinds);
+        h, w, g, row0, rows, out_cols, kinds);
   else
-    warp_kernel<kMethod><<<grid, block, 0, stream>>>(src, h, w, g, out,
-                                                     out_rows, out_cols);
+    warp_kernel<kMethod><<<grid, block, 0, stream>>>(src, h, w, g, out, row0,
+                                                     rows, out_cols);
   return (int)cudaGetLastError();
 }
 
 int dispatch(const float* src, int h, int w, const float* map_x,
              const float* map_y, int gh, int gw, float scale_r, float scale_c,
-             int method, float* out, int* kinds, int out_rows, int out_cols,
-             void* stream) {
-  if (out_rows <= 0 || out_cols <= 0) return 0;
+             int method, float* out, int* kinds, int row0, int rows,
+             int out_cols, void* stream) {
+  if (row0 < 0) return (int)cudaErrorInvalidValue;
+  if (rows <= 0 || out_cols <= 0) return 0;
   const Grid g{map_x, map_y, gh, gw, scale_r, scale_c};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (method) {
     case 0:
-      return launch<0>(src, h, w, g, out, kinds, out_rows, out_cols, s);
+      return launch<0>(src, h, w, g, out, kinds, row0, rows, out_cols, s);
     case 1:
-      return launch<1>(src, h, w, g, out, kinds, out_rows, out_cols, s);
+      return launch<1>(src, h, w, g, out, kinds, row0, rows, out_cols, s);
     case 2:
-      return launch<2>(src, h, w, g, out, kinds, out_rows, out_cols, s);
+      return launch<2>(src, h, w, g, out, kinds, row0, rows, out_cols, s);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -487,27 +503,31 @@ int dispatch(const float* src, int h, int w, const float* map_x,
 
 // src: (h, w) f32; map_x, map_y: (gh, gw) f32 source column and row of the
 // grid nodes; scale_r = (gh - 1) / max(out_rows - 1, 1) and scale_c likewise,
-// rounded to f32; method 0 = near, 1 = bilinear, 2 = cubic; out: (out_rows,
-// out_cols) f32. Returns the CUDA error code of the launch (0 on success).
+// rounded to f32, of the whole (out_rows, out_cols) output; method 0 = near,
+// 1 = bilinear, 2 = cubic; out: (rows, out_cols) f32, the output's rows
+// [row0, row0 + rows). Returns the CUDA error code of the launch (0 on
+// success).
 extern "C" int sarpro_warp_sample(const float* src, int h, int w,
                                   const float* map_x, const float* map_y,
                                   int gh, int gw, float scale_r,
                                   float scale_c, int method, float* out,
-                                  int out_rows, int out_cols, void* stream) {
+                                  int row0, int rows, int out_cols,
+                                  void* stream) {
   return dispatch(src, h, w, map_x, map_y, gh, gw, scale_r, scale_c, method,
-                  out, nullptr, out_rows, out_cols, stream);
+                  out, nullptr, row0, rows, out_cols, stream);
 }
 
 // The branch sarpro_warp_sample takes for each output tile of the same
 // arguments (0 staged with tested taps, 1 outside the source, 2 device
-// memory, 3 staged interior), into kinds: (ceil(out_rows / tile rows),
-// ceil(out_cols / 32)) int32, tile rows 32 for cubic and 8 for near and
-// bilinear (whose tiles are all 2). Inspection only: it samples nothing.
+// memory, 3 staged interior), into kinds: (the global tile rows that hold
+// [row0, row0 + rows), ceil(out_cols / 32)) int32, tile rows 32 for cubic
+// and 8 for near and bilinear (whose tiles are all 2). Inspection only: it
+// samples nothing.
 extern "C" int sarpro_warp_tiles(int h, int w, const float* map_x,
                                  const float* map_y, int gh, int gw,
                                  float scale_r, float scale_c, int method,
-                                 int* kinds, int out_rows, int out_cols,
-                                 void* stream) {
+                                 int* kinds, int row0, int rows,
+                                 int out_cols, void* stream) {
   return dispatch(nullptr, h, w, map_x, map_y, gh, gw, scale_r, scale_c,
-                  method, nullptr, kinds, out_rows, out_cols, stream);
+                  method, nullptr, kinds, row0, rows, out_cols, stream);
 }

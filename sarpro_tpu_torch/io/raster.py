@@ -452,12 +452,15 @@ def reduce_band(reader, band: int, out_cols: int, out_rows: int,
     return HostBand(host, uploaded=staging.uploaded())
 
 
-def band_to_device(hb: HostBand, device) -> torch.Tensor:
+def band_to_device(hb: HostBand, device,
+                   shard_devices: int = 0) -> torch.Tensor:
     """The device half of a band: upload (unless its chunks already
     crossed), then the device resample and/or the warp. Runs on the thread
     that owns the device work; queues copies and kernels, waits for none.
     A pageable source is staged by the driver before the copy returns, a
-    pinned one is read by DMA in stream order."""
+    pinned one is read by DMA in stream order. `shard_devices` (0 none, -1
+    all) splits the warp's output rows over that many of the caller's
+    devices (`parallel.warp`), where there are 2 or more."""
     device = torch.device(device)
     x = (hb.uploaded if hb.uploaded is not None
          else hb.data.to(device, non_blocking=True))
@@ -467,6 +470,13 @@ def band_to_device(hb: HostBand, device) -> torch.Tensor:
              else _resample_dn(x, rows, cols, filt))
     if hb.warp is not None:
         w = hb.warp
+        from ..parallel import warp as pwarp
+
+        mesh = pwarp.shard_mesh(shard_devices, device)
+        if mesh is not None:
+            return pwarp.warp_sample_sharded(
+                x, w.map_x, w.map_y, w.out_rows, w.out_cols, w.method,
+                mesh).to(device)
         gx, gy = plan_grids_to_device(w.map_x, w.map_y, device)
         x = warp_sample(x, gx, gy, w.out_rows, w.out_cols, w.method)
     return x

@@ -604,12 +604,13 @@ def read_scene(safe_dir, pol: Optional[str] = None, what: str = "Multiband",
 
 
 def _device_scene(metadata: SafeMetadata, bands, is_vvvh, device,
-                  band_stage) -> DualPolScene:
+                  band_stage, shard_devices: int = 0) -> DualPolScene:
     """The device half of each host band in turn; `band_stage(band1)` is
-    queued before band 2 is asked for (a generator then reads it)."""
+    queued before band 2 is asked for (a generator then reads it).
+    `shard_devices` splits a warp's output rows (`raster.band_to_device`)."""
     out, staged = [], None
     for hb in bands:
-        out.append(raster.band_to_device(hb, device))
+        out.append(raster.band_to_device(hb, device, shard_devices))
         if band_stage is not None and len(out) == 1:
             staged = band_stage(out[0])
     return DualPolScene(metadata, out[0], out[1] if len(out) > 1 else None,
@@ -617,23 +618,24 @@ def _device_scene(metadata: SafeMetadata, bands, is_vvvh, device,
 
 
 def upload_scene(scene: HostScene, device,
-                 band_stage: Optional[Callable[[torch.Tensor], object]] = None
-                 ) -> DualPolScene:
+                 band_stage: Optional[Callable[[torch.Tensor], object]] = None,
+                 shard_devices: int = 0) -> DualPolScene:
     """The device half of a `HostScene`: each band uploaded and finished
     on `device` (warped, resampled), band 1's `band_stage` queued before
     band 2's upload. Queues copies and kernels and waits for none; runs on
     the thread that owns the device work. A single band comes back as
-    `band1` (band2 None)."""
+    `band1` (band2 None). `shard_devices` (0 none, -1 all) splits a warp's
+    output rows over the caller's devices."""
     return _device_scene(scene.metadata, scene.bands, scene.is_vvvh,
-                         torch.device(device), band_stage)
+                         torch.device(device), band_stage, shard_devices)
 
 
 def open_scene(safe_dir, device, pol: Optional[str] = None,
                what: str = "Multiband", target_size: Optional[int] = None,
                target_crs=None, resample_alg: Optional[str] = None,
                decimate: bool = True,
-               band_stage: Optional[Callable[[torch.Tensor], object]] = None
-               ) -> DualPolScene:
+               band_stage: Optional[Callable[[torch.Tensor], object]] = None,
+               shard_devices: int = 0) -> DualPolScene:
     """`read_scene` and `upload_scene` in turn, band by band: each band's
     host half, then its device half (on a GPU, each reduced chunk uploads
     while the next one reduces), band 1's `band_stage` queued while band 2
@@ -642,7 +644,8 @@ def open_scene(safe_dir, device, pol: Optional[str] = None,
     metadata, is_vvvh, bands = _scene_bands(
         safe_dir, pol, what, target_size, target_crs, resample_alg, decimate,
         raster.upload_staging(device))
-    return _device_scene(metadata, bands, is_vvvh, device, band_stage)
+    return _device_scene(metadata, bands, is_vvvh, device, band_stage,
+                         shard_devices)
 
 
 def open_band(safe_dir, pol: str, device, target_size: Optional[int] = None,

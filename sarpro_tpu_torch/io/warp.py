@@ -15,7 +15,9 @@ the originals by tests/test_torch_warp.py:
 (the batch driver's loader threads run it). The device half
 (`raster.band_to_device`) uploads the source and grids and runs one kernel,
 `ops.warp_sample`: the grid is upsampled to every output pixel and the
-source sampled there. There is no sharded branch and no fallback sampler.
+source sampled there. With `shard_devices` the output rows split over the
+caller's devices (`parallel.warp`), each block one launch with its row
+offset. There is no fallback sampler.
 
 The reference's `-r` mapping quirk is preserved: lanczos (and anything else
 unrecognized) falls back to bilinear (sentinel1.rs:937-942).
@@ -363,14 +365,17 @@ def plan_to_host(reader, target_crs: str, resample_alg: Optional[str] = None,
 def warp_to_crs(reader, target_crs: str, device,
                 resample_alg: Optional[str] = None,
                 target_size: Optional[int] = None,
-                geolocation_grid: Optional[np.ndarray] = None) -> WarpResult:
+                geolocation_grid: Optional[np.ndarray] = None,
+                shard_devices: int = 0) -> WarpResult:
     """Reproject band 1 of an `io.raster.RasterReader` to
     `target_crs` (EPSG:XXXX) on `device`, the equivalent of the reference's
     gdalwarp invocation (sentinel1.rs:988-1071): the host half
-    (`plan_to_host`), then the device half (`raster.band_to_device`)."""
+    (`plan_to_host`), then the device half (`raster.band_to_device`), its
+    output rows split over `shard_devices` of the caller's devices (0 none,
+    -1 all; `parallel.warp`)."""
     device = torch.device(device)
     host = plan_to_host(reader, target_crs, resample_alg, target_size,
                         geolocation_grid, upload_staging(device))
-    return WarpResult(data=band_to_device(host.band, device),
+    return WarpResult(data=band_to_device(host.band, device, shard_devices),
                       geotransform=host.geotransform,
                       projection=host.projection, epsg=host.epsg)

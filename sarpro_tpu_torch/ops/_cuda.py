@@ -41,8 +41,9 @@ _SIGNATURES = {
     "sarpro_tile_histogram": [_P, _L, _I, _I, _I, _I, _I, _L, _I, _P, _P],
     "sarpro_clahe_lookup": [_P, _L, _P, _I, _I, _I, _I, _I, _I, _L, _P, _P],
     "sarpro_warp_sample": [_P, _I, _I, _P, _P, _I, _I, _F, _F, _I, _P, _I,
-                           _I, _P],
-    "sarpro_warp_tiles": [_I, _I, _P, _P, _I, _I, _F, _F, _I, _P, _I, _I, _P],
+                           _I, _I, _P],
+    "sarpro_warp_tiles": [_I, _I, _P, _P, _I, _I, _F, _F, _I, _P, _I, _I, _I,
+                          _P],
 }
 
 LAUNCHES = {"histogram": 0, "resample_axis0": 0, "synrgb_lookup": 0,

@@ -23,14 +23,25 @@ def band_resample_axis0(x: torch.Tensor, in_size: int, out_size: int,
     if x.shape[0] != in_size:
         raise ValueError(f"x has {x.shape[0]} rows, expected {in_size}")
     starts, weights = device_coeffs(in_size, out_size, filter_name, x.device)
+    return resample_rows(x, starts, weights)
+
+
+def resample_rows(x: torch.Tensor, starts: torch.Tensor,
+                  weights: torch.Tensor) -> torch.Tensor:
+    """Output rows i of the axis-0 resample of a 2-D u16 or f32 tensor,
+    sum_k weights[i, k] * x[clamp(starts[i] + k, 0, rows - 1)]: `starts`
+    (n,) int32 and `weights` (n, taps) f32 on x's device, for any n rows of
+    a coefficient table (a row shard's slice, its starts rebased to the
+    band of source rows it is given). (n, cols) f32."""
     if not use_kernel(x):
         return _resample_axis0(x, starts, weights)
-    if not x.is_contiguous():
-        raise ValueError("band_resample_axis0 needs a contiguous source")
+    if not all(t.is_contiguous() for t in (x, starts, weights)):
+        raise ValueError("resample_rows needs contiguous inputs")
     rows, cols = x.shape
-    out = torch.empty((out_size, cols), dtype=torch.float32, device=x.device)
+    out = torch.empty((starts.shape[0], cols), dtype=torch.float32,
+                      device=x.device)
     launch("sarpro_resample_axis0", "resample_axis0", x.device,
            x.data_ptr(), int(x.dtype == torch.uint16), rows, cols,
            starts.data_ptr(), weights.data_ptr(), weights.shape[1],
-           out.data_ptr(), out_size)
+           out.data_ptr(), starts.shape[0])
     return out

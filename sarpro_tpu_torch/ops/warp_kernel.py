@@ -1,9 +1,9 @@
 """Inverse-map warp sampler: the Hopper kernel (csrc/warp.cu) and its plain
 PyTorch version.
 
-The plain version is `sarpro_tpu/io/warp._warp_sample_block` at row0=0 over
-the whole output: the coarse inverse-mapping grid is bilinearly upsampled to
-every output pixel, the source is sampled there (near, bilinear, or Keys
+The plain version is `sarpro_tpu/io/warp._warp_sample_block`: the output
+rows [row0, row0 + rows) (by default the whole output) of the coarse
+inverse-mapping grid bilinearly upsampled to every output pixel, the source is sampled there (near, bilinear, or Keys
 cubic with a = -0.5 over 4x4 taps), the taps are renormalised by the weight
 sum of the in-bounds ones, and pixels that map outside the source are 0.
 Each operation is rounded to f32 in the reference's order; XLA on the CPU
@@ -52,12 +52,17 @@ def _keys(t: torch.Tensor) -> torch.Tensor:
 
 
 def _warp_sample_plain(src, map_x, map_y, out_rows: int, out_cols: int,
-                       method: str) -> torch.Tensor:
+                       method: str, row0: int = 0,
+                       rows: int | None = None) -> torch.Tensor:
     h, w = src.shape
     gh, gw = map_x.shape
     dev = src.device
+    rows = out_rows - row0 if rows is None else rows
     sr, sc = grid_scales(gh, gw, out_rows, out_cols)
-    gr = torch.arange(out_rows, dtype=torch.float32, device=dev)[:, None] * sr
+    # global row coordinates: integers, exact in f32
+    r = (torch.arange(rows, dtype=torch.int64, device=dev) + row0).to(
+        torch.float32)
+    gr = r[:, None] * sr
     gc = torch.arange(out_cols, dtype=torch.float32, device=dev)[None, :] * sc
     gr0 = torch.clamp(torch.floor(gr), 0, gh - 2).to(torch.int64)
     gc0 = torch.clamp(torch.floor(gc), 0, gw - 2).to(torch.int64)
@@ -126,11 +131,14 @@ def _warp_sample_plain(src, map_x, map_y, out_rows: int, out_cols: int,
 
 
 def warp_sample(src: torch.Tensor, map_x: torch.Tensor, map_y: torch.Tensor,
-                out_rows: int, out_cols: int, method: str) -> torch.Tensor:
+                out_rows: int, out_cols: int, method: str, row0: int = 0,
+                rows: int | None = None) -> torch.Tensor:
     """Sample the f32 source (H, W) at the inverse mapping: `map_x` and
     `map_y` are the (gh, gw) f32 source column and row of evenly spaced
     output grid nodes spanning (out_rows, out_cols). `method` is near,
-    bilinear or cubic. Returns (out_rows, out_cols) f32, 0 out of bounds."""
+    bilinear or cubic. Returns the output's rows [row0, row0 + rows) (by
+    default all of them), (rows, out_cols) f32, 0 out of bounds: a row
+    shard equals its rows of the whole output bit for bit."""
     if method not in METHODS:
         raise ValueError(f"unknown warp method {method!r}")
     if src.dtype != torch.float32 or src.dim() != 2 or min(src.shape) < 1:
@@ -145,21 +153,25 @@ def warp_sample(src: torch.Tensor, map_x: torch.Tensor, map_y: torch.Tensor,
         raise ValueError("warp_sample inputs must share one device")
     if out_rows < 1 or out_cols < 1:
         raise ValueError("output must be at least 1 x 1")
+    rows = out_rows - row0 if rows is None else rows
+    if row0 < 0 or rows < 1 or row0 + rows > out_rows:
+        raise ValueError(f"rows [{row0}, {row0 + rows}) are not within the "
+                         f"{out_rows} output rows")
     if src.numel() >= 1 << 31:
         raise ValueError("warp source above 2^31 pixels")
     if not use_kernel(src):
         return _warp_sample_plain(src, map_x, map_y, out_rows, out_cols,
-                                  method)
+                                  method, row0, rows)
     if not all(t.is_contiguous() for t in (src, map_x, map_y)):
         raise ValueError("warp_sample inputs must be contiguous")
     gh, gw = map_x.shape
     sr, sc = grid_scales(gh, gw, out_rows, out_cols)
-    out = torch.empty((out_rows, out_cols), dtype=torch.float32,
+    out = torch.empty((rows, out_cols), dtype=torch.float32,
                       device=src.device)
     launch("sarpro_warp_sample", "warp_sample", src.device,
            src.data_ptr(), src.shape[0], src.shape[1], map_x.data_ptr(),
            map_y.data_ptr(), gh, gw, sr, sc, METHODS[method],
-           out.data_ptr(), out_rows, out_cols)
+           out.data_ptr(), row0, rows, out_cols)
     return out
 
 
@@ -168,14 +180,16 @@ TILE_KINDS = ("staged", "outside", "global", "interior")
 
 
 def tile_kinds(src: torch.Tensor, map_x: torch.Tensor, map_y: torch.Tensor,
-               out_rows: int, out_cols: int, method: str) -> torch.Tensor:
+               out_rows: int, out_cols: int, method: str, row0: int = 0,
+               rows: int | None = None) -> torch.Tensor:
     """Which branch the kernel takes for each output tile of the same call
     (CUDA tensors only; inspection, not counted as a launch), as int32
     indices into TILE_KINDS: the tile's source footprint staged in shared
     memory with each tap tested against the source, no tap in the source,
     every tap from device memory, or staged with every tap inside the
     source (untested). Cubic takes 32 x 32 tiles; near and bilinear gather
-    from device memory in 8 x 32 tiles, all "global"."""
+    from device memory in 8 x 32 tiles, all "global". Tiles lie at global
+    rows: a row shard's are the tile rows that hold its rows."""
     if not (src.is_cuda and map_x.is_cuda and map_y.is_cuda):
         raise ValueError("tile_kinds inspects the CUDA kernel: CUDA tensors "
                          "only")
@@ -183,10 +197,12 @@ def tile_kinds(src: torch.Tensor, map_x: torch.Tensor, map_y: torch.Tensor,
         raise ValueError("mapping grids must be contiguous")
     gh, gw = map_x.shape
     sr, sc = grid_scales(gh, gw, out_rows, out_cols)
+    rows = out_rows - row0 if rows is None else rows
     tile_rows = 32 if method == "cubic" else 8
-    kinds = torch.empty((-(-out_rows // tile_rows), -(-out_cols // 32)),
-                        dtype=torch.int32, device=src.device)
+    tiles = (row0 + rows - 1) // tile_rows - row0 // tile_rows + 1
+    kinds = torch.empty((tiles, -(-out_cols // 32)), dtype=torch.int32,
+                        device=src.device)
     launch("sarpro_warp_tiles", None, src.device, src.shape[0], src.shape[1],
            map_x.data_ptr(), map_y.data_ptr(), gh, gw, sr, sc,
-           METHODS[method], kinds.data_ptr(), out_rows, out_cols)
+           METHODS[method], kinds.data_ptr(), row0, rows, out_cols)
     return kinds

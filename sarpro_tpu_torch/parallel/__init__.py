@@ -1,5 +1,9 @@
-"""Scaling past one scene at a time (port of sarpro_tpu/parallel).
+"""Scaling past one scene on one device (port of sarpro_tpu/parallel).
 
-`batch`: the pipelined batch driver on one GPU. Meshes, row sharding and
-the multi-GPU paths are not ported yet (ROADMAP queue 1 #7).
+`mesh`: (scene, row) meshes of torch devices. `sharded`: the fused
+programs over a mesh, scenes over its scene axis and each scene's rows over
+its row axis. `warp`: the warp sampler's output rows over a mesh. `batch`:
+the pipelined batch driver. One process drives every device; the
+reductions between row blocks are small tensors copied to the lead device.
 """
+from .mesh import make_mesh  # noqa: F401

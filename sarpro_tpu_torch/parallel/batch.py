@@ -29,7 +29,6 @@ import torch
 from ..api import (
     BatchReport,
     _device,
-    _refuse_sharding,
     _route,
     iterate_safe_products,
     scene_skip_reason,
@@ -145,9 +144,11 @@ class _SceneLoad:
 
 def _load_scene(path: Path, params: ProcessingParams, fast: bool,
                 device: torch.device, direct_io: bool = True,
-                staging: Optional[_PinnedStaging] = None) -> _SceneLoad:
+                staging: Optional[_PinnedStaging] = None,
+                shard_devices: int = 0) -> _SceneLoad:
     """A loader thread's work: the viability check, then the host half of
-    the scene's read. Touches no device."""
+    the scene's read. Touches no device: a sharded warp runs in the
+    route's device half, on the consumer."""
     # batch scans touch each scene once: O_DIRECT keeps the read out of the
     # page cache; set for this loader thread only
     raster.DIRECT_IO.set(bool(direct_io))
@@ -161,7 +162,7 @@ def _load_scene(path: Path, params: ProcessingParams, fast: bool,
         if reason is not None:
             logger.warning("Skipping %s: %s", path, reason)
             return _SceneLoad(path, skipped=True)
-        route = _route(path, params, fast, device)
+        route = _route(path, params, fast, device, shard_devices)
         return _SceneLoad(path, route=route, scene=route.read(path, staging))
     except Exception as e:  # noqa: BLE001 — batch isolation boundary
         if staging is not None:
@@ -209,12 +210,15 @@ def process_directory_pipelined(
     chunks (io/raster.py); a file system that refuses O_DIRECT gets the
     buffered read.
 
+    `shard_devices` (N >= 2, or -1) shards each scene over the caller's
+    devices as `api.process_safe_to_path` does: it implies fast mode and
+    turns bucketing off (each scene already spans the mesh).
+
     A failed band-1 stage or bucket dispatch counts as the error of its
     scene (or scenes), as any other failure does; nothing is retried.
     `progress(done, total, current_name)` is called as scenes finish; its
     exceptions are ignored. Returns a BatchReport.
     """
-    _refuse_sharding(shard_devices)
     device = _device(device)
     output_dir = Path(output_dir)
     output_dir.mkdir(parents=True, exist_ok=True)
@@ -249,6 +253,14 @@ def process_directory_pipelined(
     if not paths:
         return report
 
+    if shard_devices:
+        # sharding implies fast mode and spans the mesh with each scene, so
+        # the bucketing that spreads scenes over the devices is off
+        fast = True
+        if device_batch > 1:
+            logger.info("shard-devices set: device-batch bucketing disabled "
+                        "(each scene already spans the mesh)")
+            device_batch = 1
     bucketing = (fast and device_batch > 1
                  and params.polarization.kind == "multiband"
                  and params.format is OutputFormat.JPEG
@@ -330,9 +342,12 @@ def process_directory_pipelined(
         op = (ProcessingOperation.MULTIBAND_VV_VH if key[1]
               else ProcessingOperation.MULTIBAND_HH_HV)
 
+        # the bucket's scenes spread over the caller's devices
+        devices = fast_path.bucket_devices(len(items), device)
+
         def scenes():  # each scene uploaded as its stages are queued
-            for load in items:
-                s = upload_scene(load.scene, device)
+            for load, dev in zip(items, devices):
+                s = upload_scene(load.scene, dev)
                 yield (s.band1, s.band2,
                        output_dir / f"{load.path.name}.{ext}",
                        s.metadata)
@@ -386,7 +401,8 @@ def process_directory_pipelined(
                 except StopIteration:
                     return
                 pending.append(pool.submit(_load_scene, p, params, fast,
-                                           device, direct_io, staging))
+                                           device, direct_io, staging,
+                                           shard_devices))
 
         refill()
         while pending:

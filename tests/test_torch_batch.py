@@ -18,6 +18,7 @@ and against the port's own single-scene CLI.
   * the O_DIRECT read bit-equal to the buffered one; the pinned staging
     recycled under concurrent loaders.
 """
+import logging
 import os
 import sys
 import threading
@@ -232,10 +233,25 @@ def test_progress_exceptions_are_ignored(tmp_path, driver):
 
 
 @pytest.mark.parametrize("driver", DRIVERS)
-def test_sharding_raises(tmp_path, driver):
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 #7"):
-        _port(driver, tmp_path, tmp_path / "o", _tparams([]),
-              shard_devices=2)
+def test_sharding_raises(tmp_path, driver, fixed_clock, caplog):
+    """A shard request (the name is the test's from before sharding was
+    ported, when it raised): on the one CPU device each driver logs the
+    JAX package's one-device warning and writes, in exact mode too, the
+    single-scene --fast files byte for byte."""
+    indir = tmp_path / "in"
+    indir.mkdir()
+    fixtures.make_safe(indir, name="a.SAFE", seed=1)
+    params = _tparams(["--autoscale", "robust", "--size", "48"])
+    with caplog.at_level(logging.WARNING, logger="sarpro"):
+        report = _port(driver, indir, tmp_path / "o", params,
+                       shard_devices=2)
+    assert _counts(report) == (1, 0, 0)
+    assert "shard: 2 device(s) requested but only 1 available; running " \
+        "unsharded" in caplog.text
+    ref = tmp_path / "ref.tiff"
+    tapi.process_safe_to_path(indir / "a.SAFE", ref, params, fast=True,
+                              device="cpu")
+    assert (tmp_path / "o" / "a.SAFE.tiff").read_bytes() == ref.read_bytes()
 
 
 def test_mixed_shapes_evict_partial_buckets(tmp_path, codec, monkeypatch):

@@ -629,17 +629,31 @@ def test_batch_job_report_equals_jax_gui(server, jax_server, batch_dir,
 
 @pytest.mark.parametrize("mode", ["single", "batch"])
 def test_sharded_job_fails_with_the_multi_gpu_item(server, product,
-                                                   tmp_path, mode):
-    result = _job(server, {
-        "mode": mode, "input_path": str(product),
-        "output_path": str(tmp_path / "s.tiff"),
-        "input_dir": str(product.parent), "output_dir": str(tmp_path / "o"),
-        "shard_devices": 1, "fast": True,
-        "params": {"autoscale": "standard", "size": 32}})
-    assert result["ok"] is False
-    assert "ROADMAP queue 1 #7" in result["error"]
-    assert "multi-GPU" in result["error"]
-    assert not (tmp_path / "s.tiff").exists()
+                                                   tmp_path, fixed_clock,
+                                                   caplog, mode):
+    """A sharded job (the name is the test's from before sharding was
+    ported, when the job failed) runs: on the server's one device it logs
+    the JAX package's one-device warning and writes the file of the CLI's
+    --fast run, byte for byte."""
+    argv = ["--autoscale", "standard", "--size", "32", "--fast"]
+    cli_out = tmp_path / "cli.tiff"
+    assert tcli.run(["-i", str(product), "-o", str(cli_out)] + argv,
+                    device="cpu") == 0
+    with caplog.at_level(logging.WARNING, logger="sarpro"):
+        result = _job(server, {
+            "mode": mode, "input_path": str(product),
+            "output_path": str(tmp_path / "s.tiff"),
+            "input_dir": str(product.parent),
+            "output_dir": str(tmp_path / "o"), "shard_devices": 2,
+            "fast": False, "params": _params(argv).to_dict()})
+    assert result["ok"] is True, result
+    assert "shard: 2 device(s) requested but only 1 available; running " \
+        "unsharded" in caplog.text
+    out = (tmp_path / "s.tiff" if mode == "single"
+           else tmp_path / "o" / f"{product.name}.tiff")
+    if mode == "batch":
+        assert result["report"]["processed"] == 1
+    assert out.read_bytes() == cli_out.read_bytes()
 
 
 def test_cuda_server_is_refused_without_cuda():

@@ -26,6 +26,9 @@ def test_port_sources_import_no_jax_pillow_or_cv2():
     offenders += [m for m in ("chip_smoke.py", "kernel_ab.py")
                   if pattern.search((REPO / m).read_text())]
     assert offenders == []
+    # the multi-device modules are among the files scanned
+    assert {"mesh.py", "sharded.py", "warp.py", "batch.py"} <= {
+        p.name for p in (PORT / "parallel").glob("*.py")}
     for line in ("import sarpro_tpu", "from sarpro_tpu.io import safe",
                  "  from sarpro_tpu import _native", "import jax.numpy"):
         assert pattern.search(line), line
@@ -111,6 +114,17 @@ def test_cpu_slice_runs_with_jax_and_pillow_blocked(tmp_path):
                      device="cpu")
         assert rc == 0 and got[3:] == [(3, 25, 38, 8, 8)], (rc, got)
         streamed.BIG_SCENE_PIXELS = big_scene
+        # the sharded routes on an 8-entry CPU mesh: the rows of the device
+        # programs and of the warp's output split over the mesh
+        from sarpro_tpu_torch.parallel import mesh
+        mesh.HOST_DEVICE_COUNT = 8
+        for name, extra in (("shd.tiff", []),
+                            ("shdw.tiff", ["--target-crs", "auto"])):
+            rc = cli.run(["-i", str(safe), "-o", sys.argv[2] + "/" + name,
+                          "--shard-devices", "8", "--size", "64"] + extra,
+                         device="cpu")
+            assert rc == 0, (name, rc)
+        mesh.HOST_DEVICE_COUNT = 1
         # the GUI: a single-file TIFF job on a worker thread, and the preview
         # PNG the port's own writer encodes
         import json, threading, time, urllib.request

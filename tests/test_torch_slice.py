@@ -8,6 +8,7 @@ the port's JPEG writer are captured and compared; the encoder itself is
 covered by tests/test_native.py and tests/test_torch_host_copies.py.
 """
 import json
+import logging
 import re
 
 import jax.numpy as jnp
@@ -265,12 +266,33 @@ def _tparams(argv):
     (["-f", "jpeg", "--polarization", "multiband"],
      {"fast": True, "shard_devices": 2}),
 ])
-def test_unported_routes_raise(scene, tmp_path, extra, kwargs):
-    """Sharding (#7), in either mode."""
+def test_unported_routes_raise(scene, tmp_path, monkeypatch, caplog, extra,
+                               kwargs):
+    """A shard request, in either mode (the name is the test's from before
+    sharding was ported, when these routes raised): on the one CPU device
+    it logs the JAX package's one-device warning and writes the --fast
+    route's file byte for byte, exact mode included (a shard request
+    implies fast mode)."""
+    from sarpro_tpu_torch.io import safe as tsafe
+    from test_torch_exact import _FixedClock
+
+    monkeypatch.setattr(tsafe, "datetime", _FixedClock)
+    tsafe._parse_comprehensive_cached.cache_clear()
     params = _tparams(["--autoscale", "tamed", "--size", "64"] + extra)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 #7"):
-        tapi.process_safe_to_path(scene[0], tmp_path / "o.jpg", params,
-                                  device="cpu", **kwargs)
+    ext = params.format.extension
+    got, want = tmp_path / f"shd.{ext}", tmp_path / f"ref.{ext}"
+    with caplog.at_level(logging.WARNING, logger="sarpro"):
+        tapi.process_safe_to_path(scene[0], got, params, device="cpu",
+                                  **kwargs)
+    assert "shard: 2 device(s) requested but only 1 available; running " \
+        "unsharded" in caplog.text
+    tapi.process_safe_to_path(scene[0], want, params, fast=True,
+                              device="cpu")
+    tsafe._parse_comprehensive_cached.cache_clear()
+    for suffix in ((".jgw", ".prj", ".json") if ext == "jpg" else ()):
+        assert got.with_suffix(suffix).read_bytes() == \
+            want.with_suffix(suffix).read_bytes()
+    assert got.read_bytes() == want.read_bytes()
 
 
 # full-resolution routes above BIG_SCENE_PIXELS: (CLI arguments, --fast);

@@ -194,12 +194,20 @@ def test_band_q16_route_and_histogram():
                                                        minlength=256))
 
 
-def test_mesh_raises():
-    x = _t(_pair(10, (16, 16))[0])
-    for call in (lambda: ts.grayscale_streamed(x, mesh=object()),
-                 lambda: ts.synrgb_streamed(x, x, mesh=object())):
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1 #7"):
-            call()
+def test_mesh_raises(monkeypatch):
+    """A mesh (the name is the test's from before the mesh mode was ported,
+    when it raised): a 2-way split of 16 rows and a 1-device mesh give the
+    unsharded passes' bytes, both entry points."""
+    from sarpro_tpu_torch.parallel import mesh as tmesh
+
+    monkeypatch.setattr(tmesh, "HOST_DEVICE_COUNT", 2)
+    x, y = map(_t, _pair(10, (16, 16)))
+    for mesh in (tmesh.make_mesh(2, shape=(1, 2), device="cpu"),
+                 tmesh.make_mesh(1, shape=(1, 1), device="cpu")):
+        _equal(ts.grayscale_streamed(x, chunk_rows=4, mesh=mesh),
+               ts.grayscale_streamed(x, chunk_rows=4))
+        _equal(ts.synrgb_streamed(x, y, chunk_rows=4, mesh=mesh),
+               ts.synrgb_streamed(x, y, chunk_rows=4))
 
 
 def test_chunk_plan():
