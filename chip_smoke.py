@@ -7,9 +7,9 @@ Phases, each of which raises on failure (the script then exits non-zero and
 prints no result):
   1. environment: a CUDA device is required; prints the card's name and
      power limit, the torch and CUDA versions; TF32 off;
-  2. build: the native codec and box reducer (g++, sarpro_tpu_torch._native)
-     and the Hopper kernels (nvcc, sarpro_tpu_torch/csrc) from source, at
-     the same time;
+  2. build: the native codec and box reducer and the raster decoders (g++,
+     sarpro_tpu_torch._native) and the Hopper kernels (nvcc,
+     sarpro_tpu_torch/csrc) from source, at the same time;
   3. kernels: each kernel against its plain PyTorch version on the card, at
      the shapes the slice gives it (the histogram and the CLAHE kernels also
      at the 100 MP full-resolution route's, on a 100 MP band of one bin and
@@ -123,7 +123,19 @@ prints no result):
      times and peaks beside the unsharded ones; on 2 or more cards the same
      on the cards (else a line says the copies between cards went
      unchecked);
- 13. with --walls N only: every warm path N times more, interleaved, with
+ 13. rasters: the non-TIFF readers (io/jpeg, io/bmp, io/netpbm) on inputs
+     written without Pillow: an 80 MP (8000 x 10000) SAR-like u8 band as a
+     q100 gray JPEG with .jgw and .prj (the native coder), the same band as
+     a 24-bit BMP, a P5 PGM of maxval 4095, and the headline route's 2048
+     synRGB JPEG. Each opens through RasterReader (decode ms on the host
+     clock, median of 3), holds its size and georeferencing, equals what
+     was written (BMP and PGM bit for bit, the PGM through Pillow's
+     rescale; the JPEGs within the round trip of tests/
+     test_torch_decoders.py), and reads decimated to 2048^2 on the card
+     (cubic) with the launch counts set to 0 just before and read just
+     after, bit-equal to the plain resample; the 80 MP band's read is then
+     written as a CLAHE gray JPEG by api.save_image and read back;
+ 14. with --walls N only: every warm path N times more, interleaved, with
      medians and quartiles of its wall; the no-warp synRGB read through
      each of the two loaders (full DN + device resample, decimated read) in
      the same rounds; a torch.profiler trace of the single-band TIFF, the
@@ -140,6 +152,7 @@ import json
 import math
 import shutil
 import statistics
+import struct
 import subprocess
 import sys
 import time
@@ -291,10 +304,23 @@ TRACED = ("gray clahe tiff", "full clahe tiff", "exact full clahe tiff",
 DRIVEN: dict = {}
 # label -> (wall s, launches) of each run driven, for the GUI phase
 DRIVE_LOG: dict = {}
+# label -> the composed RGB (host copy) of a resident run, whose JPEG the
+# rasters phase reads back
+RESIDENT_RGB: dict = {}
 # the log line of a shard request on a host with one device (the JAX
 # package's, sarpro_tpu/core/fast_path.py:82-90), % the request
 ONE_DEVICE_WARNING = ("shard: %s device(s) requested but only 1 available; "
                       "running unsharded")
+# the rasters phase: an 80 MP (8000 x 10000) SAR-like u8 band, under
+# Pillow's 89.5 MP warning; the JPEGs read back within the round trip the
+# CPU suite measures for the port's q100 coders, decoded there by the port
+# and by Pillow alike (tests/test_torch_decoders.py); the synRGB JPEG's
+# coefficients come from the card's DCT, within +-1 of the f64 one, so its
+# bound here is one level wider
+RASTER_ROWS, RASTER_COLS = 10000, 8000
+PGM_ROWS, PGM_COLS, PGM_MAXVAL = 4000, 5000, 4095
+GRAY_Q100_ROUNDTRIP = 2
+SYNRGB_Q100_ROUNDTRIP = 4
 # the path whose launch count each kernel reports in the kernels line
 REPORTED_PATH = {k: ("warm tamed cubic" if k == "resample_axis0"
                      else "warm clahe auto") for k in KERNELS}
@@ -473,6 +499,15 @@ def phase_environment():
     return smi.splitlines()[0]
 
 
+def _raster_build() -> None:
+    from sarpro_tpu_torch import _native
+
+    try:
+        _native.raster_decoder()
+    except RuntimeError:
+        pass  # phase_build raises it again on its own thread
+
+
 def phase_build():
     """The native codec (g++, by sarpro_tpu_torch._native) and the CUDA
     kernels (one nvcc per source, by ops._cuda), built at the same time."""
@@ -485,13 +520,18 @@ def phase_build():
     t0 = time.perf_counter()
     codec = threading.Thread(target=_native.available)
     codec.start()
+    decoders = threading.Thread(target=_raster_build)
+    decoders.start()
     _cuda.library()
     log(f"build: kernels {time.perf_counter() - t0:.1f} s")
     codec.join()
+    decoders.join()
     if not _native.available():
         raise RuntimeError("the native codec did not build (g++ and "
                            "native/*.cpp)")
-    log(f"build: native codec and kernels {time.perf_counter() - t0:.1f} s")
+    _native.raster_decoder()  # raises with g++'s message if it failed
+    log(f"build: native codec, raster decoders and kernels "
+        f"{time.perf_counter() - t0:.1f} s")
     if _cuda.BUILD_INFO is not None:
         for line in _cuda.BUILD_INFO[1].splitlines():
             if ("registers" in line or "Compiling entry" in line
@@ -1655,6 +1695,7 @@ def _resident(label: str, scene, kw, blob: bytes, n_mcus: int = 256):
     if not torch.equal(k[2][same], p[2][same]):
         raise AssertionError(f"{label}: rgb differs where both bands agree")
     _check_mcus(label, blob, k[3], 3, n_mcus)
+    RESIDENT_RGB[label] = k[2].cpu().numpy().reshape(*k[0].shape, 3)
     return k[3]
 
 
@@ -3287,6 +3328,200 @@ def phase_shard(safe: Path, ew: Path, work: Path) -> dict:
     return totals
 
 
+def _host_cpu() -> str:
+    """The host CPU as /proc/cpuinfo names it: its model name, or where a
+    virtual machine reports none, its vendor, family, model and stepping;
+    with the count of CPUs this process sees."""
+    import os
+    import platform
+
+    fields: dict = {}
+    try:
+        for line in Path("/proc/cpuinfo").read_text().splitlines():
+            key, sep, value = line.partition(":")
+            if sep and key.strip() not in fields:
+                fields[key.strip()] = value.strip()
+    except OSError:
+        pass
+    name = fields.get("model name", "")
+    if not name or name.lower() == "unknown":
+        name = " ".join(f"{k} {fields[k]}" for k in (
+            "vendor_id", "cpu family", "model", "stepping") if k in fields)
+    return f"{name or platform.machine()} ({os.cpu_count()} CPUs)"
+
+
+def _raster_inputs(work: Path, band, synrgb: Path) -> dict:
+    """The rasters phase's files, written without Pillow: the 80 MP band as
+    a q100 gray JPEG (the port's native coder) with .jgw and .prj, as a
+    24-bit BMP, a P5 PGM of maxval 4095 from its top-left corner, and the
+    headline route's 2048 synRGB JPEG. name -> (path, the array the decode
+    must hold (None: the composed RGB), the largest |difference| allowed,
+    geotransform and EPSG where sidecars were written)."""
+    import numpy as np
+
+    from sarpro_tpu_torch.io.writers import jpeg as wjpeg
+    from sarpro_tpu_torch.io.writers.worldfile import (
+        write_prj_file,
+        write_world_file,
+    )
+
+    d = work / "rasters"
+    d.mkdir()
+    rows, cols = band.shape
+    gt = [500000.0, 10.0, 0.0, 5100000.0, 0.0, -10.0]
+    files = {}
+    t0 = time.perf_counter()
+    jpg = d / "band.jpg"
+    wjpeg.write_gray_jpeg(jpg, cols, rows, band)
+    write_world_file(jpg, gt)
+    write_prj_file(jpg, "EPSG:32632")
+    files["gray jpeg 80 MP"] = (jpg, band, GRAY_Q100_ROUNDTRIP, gt, 32632)
+    bmp = d / "band.bmp"
+    stride = (cols * 3 + 3) & ~3
+    head = (b"BM" + struct.pack("<IHHI", 54 + stride * rows, 0, 0, 54)
+            + struct.pack("<IiiHHIIiiII", 40, cols, rows, 1, 24, 0,
+                          stride * rows, 2835, 2835, 0, 0))
+    px = np.zeros((rows, stride), np.uint8)
+    px[:, :3 * cols] = np.repeat(band[::-1], 3, axis=1)
+    with open(bmp, "wb") as fh:
+        fh.write(head)
+        fh.write(px.data)
+    del px
+    files["bmp 80 MP"] = (bmp, band, 0, None, None)
+    dn = band[:PGM_ROWS, :PGM_COLS].astype(np.uint16) * 16 + 15
+    pgm = d / "corner.pgm"
+    pgm.write_bytes(f"P5\n{PGM_COLS} {PGM_ROWS}\n{PGM_MAXVAL}\n".encode()
+                    + dn.astype(">u2").tobytes())
+    # Pillow's PpmDecoder: min(65535, round(v / maxval * 65535)), as u16
+    want = np.minimum(65535, np.rint(dn / PGM_MAXVAL * 65535)).astype(
+        np.uint16)
+    files["pgm maxval 4095"] = (pgm, want, 0, None, None)
+    files["synrgb jpeg 2048"] = (synrgb, None, SYNRGB_Q100_ROUNDTRIP + 1,
+                                 None, None)
+    log(f"rasters: wrote the inputs in {time.perf_counter() - t0:.1f} s")
+    return files
+
+
+def phase_rasters(work: Path, synrgb: Path, rgb, smi: str) -> dict:
+    """The non-TIFF raster readers on the card's machine: each input opened
+    through RasterReader (its decode timed on the host clock, median of 3),
+    held to what was written, read decimated to 2048^2 on the card by the
+    resample kernel (bit-equal to its plain version), and the 80 MP band's
+    CLAHE gray JPEG written through api.save_image and read back. `rgb` is
+    the headline route's composed RGB (the device's, host copy) that its
+    JPEG coded. Returns the launches of the driven reads and save."""
+    import numpy as np
+    import torch
+
+    from sarpro_tpu_torch import _native, api, ops
+    from sarpro_tpu_torch.io import raster
+    from sarpro_tpu_torch.ops import force_plain
+    from sarpro_tpu_torch.types import (
+        AutoscaleStrategy,
+        BitDepth,
+        OutputFormat,
+    )
+
+    _native.raster_decoder()  # built in phase_build; raises if it did not
+    g = torch.Generator(device=DEVICE).manual_seed(12)
+    band = (torch.empty(RASTER_ROWS, RASTER_COLS, device=DEVICE)
+            .exponential_(generator=g).mul_(60.0).clamp_(0, 255)
+            .to(torch.uint8).cpu().numpy())
+    files = _raster_inputs(work, band, synrgb)
+    totals = {k: 0 for k in ops.launch_counts()}
+    cpu = _host_cpu()
+    out_band = None
+    for name, (path, want, tol, gt, epsg) in files.items():
+        walls = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            reader = raster.RasterReader(path)
+            walls.append(time.perf_counter() - t0)
+        data = reader._tiff._data
+        md = reader.metadata
+        if want is None:  # the synRGB JPEG: the composed RGB it coded
+            want = rgb
+        shape = want.shape[:2]
+        if (md.size_y, md.size_x) != shape or md.bands != data.shape[2]:
+            raise AssertionError(f"rasters: {name}: {md.size_x} x "
+                                 f"{md.size_y} x {md.bands}, wrote {shape}")
+        if gt is not None and (md.geotransform != gt or md.epsg != epsg):
+            raise AssertionError(f"rasters: {name}: geotransform "
+                                 f"{md.geotransform}, EPSG {md.epsg}")
+        ref = want if want.ndim == 3 else want[..., None]
+        got = data if ref.shape[2] == data.shape[2] else data[..., :1]
+        if got.dtype != ref.dtype:
+            raise AssertionError(f"rasters: {name}: dtype {got.dtype}, "
+                                 f"wrote {ref.dtype}")
+        err = int(np.abs(got.astype(np.int32) - ref.astype(np.int32)).max())
+        if err > tol:
+            raise AssertionError(f"rasters: {name}: decode differs by {err} "
+                                 f"from what was written (bound {tol})")
+        if name == "bmp 80 MP" and not (
+                np.array_equal(data[..., 1], data[..., 0])
+                and np.array_equal(data[..., 2], data[..., 0])):
+            raise AssertionError(f"rasters: {name}: its bands differ")
+        # the synRGB JPEG is SIZE^2 already: read it to half its side
+        side = SIZE // 2 if name == "synrgb jpeg 2048" else SIZE
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        t0 = time.perf_counter()
+        start.record()
+        dev = raster.read_band_resampled_to_device(reader, 1, side, side,
+                                                   DEVICE, "cubic")
+        end.record()
+        end.synchronize()
+        read_ms = (time.perf_counter() - t0) * 1e3
+        counts = ops.launch_counts()
+        if counts["resample_axis0"] <= 0:
+            raise AssertionError(f"rasters: {name}: the decimated read "
+                                 f"launched no resample ({counts})")
+        for k, v in counts.items():
+            totals[k] += v
+        with force_plain():
+            plain = raster.read_band_resampled_to_device(
+                reader, 1, side, side, DEVICE, "cubic")
+        _check_equal(dev, plain, f"rasters: {name} resample vs plain")
+        log(f"rasters: {name} ({path.stat().st_size / 1e6:.1f} MB, "
+            f"{data.dtype} {tuple(data.shape)}): decode "
+            f"{statistics.median(walls) * 1e3:.1f} ms (host clock, median "
+            f"of 3; {', '.join(f'{w * 1e3:.1f}' for w in walls)}), max "
+            f"|decode - written| {err} (bound {tol}); cubic read to {side}^2 "
+            f"{start.elapsed_time(end):.3f} ms between CUDA events "
+            f"({read_ms:.1f} ms host), launches "
+            f"{ {k: v for k, v in counts.items() if v} }, bit-equal to the "
+            f"plain resample; on {smi}, host CPU {cpu}")
+        if name == "gray jpeg 80 MP":
+            out_band = dev
+        reader.close()
+        del reader, data, dev, plain
+    out = work / "rasters" / "clahe_gray.jpg"
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    api.save_image(out_band + 1.0, out, OutputFormat.JPEG, BitDepth.U8,
+                   autoscale=AutoscaleStrategy.CLAHE, device=DEVICE)
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    for k in ("histogram", "tile_histogram", "clahe_lookup"):
+        if counts[k] <= 0:
+            raise AssertionError(f"rasters: the CLAHE gray save launched no "
+                                 f"{k} ({counts})")
+    for k, v in counts.items():
+        totals[k] += v
+    back = raster.RasterReader(out)
+    if (back.metadata.size_x, back.metadata.size_y,
+            back.metadata.bands) != (SIZE, SIZE, 1):
+        raise AssertionError(f"rasters: the CLAHE gray JPEG reads back as "
+                             f"{back.metadata}")
+    log(f"rasters: api.save_image CLAHE gray JPEG of the 80 MP band's "
+        f"{SIZE}^2 read: {wall * 1e3:.1f} ms (host clock), launches "
+        f"{ {k: v for k, v in counts.items() if v} }, read back "
+        f"{SIZE} x {SIZE} x 1")
+    shutil.rmtree(work / "rasters", ignore_errors=True)
+    return totals
+
+
 def _quartiles(xs):
     q1, q2, q3 = statistics.quantiles(xs, n=4, method="inclusive")
     return q1, q2, q3
@@ -3417,6 +3652,9 @@ def main() -> int:
         gui_launches, _ = timed(phase_gui, safe, ew, work, smi,
                                 blobs["warm clahe auto"])
         shard_launches = timed(phase_shard, safe, ew, work)
+        raster_launches = timed(phase_rasters, work,
+                                DRIVEN["warm clahe auto"][1],
+                                RESIDENT_RGB["clahe auto"], smi)
         if args.walls:
             timed(phase_walls, args.walls, safe, work, smi)
     finally:
@@ -3448,6 +3686,7 @@ def main() -> int:
                                       for c in batch_launches.values())
         entry["gui_launches"] = gui_launches[name]
         entry["shard_launches"] = shard_launches[name]
+        entry["raster_launches"] = raster_launches[name]
         if also:
             entry["also_replaces"] = also[0]
         kernels.append(entry)

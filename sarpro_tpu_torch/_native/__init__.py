@@ -10,6 +10,12 @@ rebuilds and an unchanged one loads at once. Where g++ or the sources are
 missing, or the build fails, the module behaves as the JAX package's does
 without its library: `available()` is False and the TIFF codec takes its
 pure-Python paths.
+
+The raster decoders (`rasterdec.cpp` beside this file: JPEG, the GIF LZW
+stream and BMP RLE, for io/jpeg.py, io/gif.py and io/bmp.py) build the same
+way into a library of their own, at their first use. They have no fallback:
+where that library cannot be built, `raster_decoder()` raises with the
+compiler's message.
 """
 from __future__ import annotations
 
@@ -38,35 +44,44 @@ _TRIED = False
 _LOAD_LOCK = threading.Lock()
 
 
-def _build() -> Optional[pathlib.Path]:
-    """The library's path, built first if needed; None where it cannot be
-    built."""
-    sources = [NATIVE_DIR / name for name in SOURCES]
+def _compile(sources: list, stem: str) -> tuple:
+    """(path, None) of the library built from `sources`, built first if
+    needed; (None, why) where it cannot be built."""
     if not all(p.exists() for p in sources):
-        return None
+        return None, "missing sources: " + ", ".join(
+            str(p) for p in sources if not p.exists())
     digest = hashlib.sha256(" ".join(CXX_FLAGS).encode())
     for src in sources:
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
-    so = BUILD_DIR / f"libsarpro_codec_{digest.hexdigest()[:16]}.so"
+    so = BUILD_DIR / f"{stem}_{digest.hexdigest()[:16]}.so"
     if so.exists():
-        return so
+        return so, None
     cxx = shutil.which("g++")
     if cxx is None:
-        return None
+        return None, "g++ is not on the PATH"
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
     try:
         res = subprocess.run([cxx, *CXX_FLAGS, *map(str, sources), "-o",
                               str(tmp)], capture_output=True, text=True)
         if res.returncode != 0:
-            logging.getLogger("sarpro").warning(
-                "native codec build failed (%d): %s", res.returncode,
-                res.stderr[-2000:])
-            return None
+            return None, (f"g++ failed ({res.returncode}): "
+                          f"{res.stderr[-2000:]}")
         os.replace(tmp, so)  # atomic: a concurrent build never loads a part
     finally:
         tmp.unlink(missing_ok=True)
+    return so, None
+
+
+def _build() -> Optional[pathlib.Path]:
+    """The codec library's path, built first if needed; None where it
+    cannot be built."""
+    so, why = _compile([NATIVE_DIR / name for name in SOURCES],
+                       "libsarpro_codec")
+    if so is None and why.startswith("g++ failed"):
+        logging.getLogger("sarpro").warning("native codec build failed: %s",
+                                            why)
     return so
 
 
@@ -123,6 +138,109 @@ def _load_locked() -> Optional[ctypes.CDLL]:
 
 def available() -> bool:
     return _load() is not None
+
+
+RASTER_SOURCE = pathlib.Path(__file__).resolve().with_name("rasterdec.cpp")
+_RASTER: Optional[ctypes.CDLL] = None
+_RASTER_WHY: Optional[str] = None
+_RASTER_LOCK = threading.Lock()
+
+
+def raster_decoder() -> ctypes.CDLL:
+    """The raster decoder library, built at first use; RuntimeError with
+    the compiler's message where it cannot be built (tried once a
+    process)."""
+    global _RASTER, _RASTER_WHY
+    with _RASTER_LOCK:
+        if _RASTER is None and _RASTER_WHY is None:
+            so, why = _compile([RASTER_SOURCE], "libsarpro_rasterdec")
+            if so is None:
+                _RASTER_WHY = why
+            else:
+                lib = ctypes.CDLL(str(so))
+                i32, i64 = ctypes.c_int32, ctypes.c_int64
+                u8p = ctypes.POINTER(ctypes.c_uint8)
+                lib.jpeg_info.restype = i64
+                lib.jpeg_info.argtypes = [u8p, i64, ctypes.POINTER(i64),
+                                          ctypes.c_char_p, i64]
+                lib.jpeg_decode.restype = i64
+                lib.jpeg_decode.argtypes = [u8p, i64, u8p, i64, i32,
+                                            ctypes.c_char_p, i64]
+                lib.gif_lzw_decode.restype = i64
+                lib.gif_lzw_decode.argtypes = [u8p, i64, i32, i32, u8p, i64,
+                                               i32, i32]
+                lib.bmp_rle_decode.restype = i64
+                lib.bmp_rle_decode.argtypes = [u8p, i64, i64, i32, i64, i32,
+                                               u8p]
+                _RASTER = lib
+        if _RASTER is None:
+            raise RuntimeError(f"the raster decoder library "
+                               f"({RASTER_SOURCE.name}) could not be built: "
+                               f"{_RASTER_WHY}")
+        return _RASTER
+
+
+def _threads() -> int:
+    return min(os.cpu_count() or 1, 16)
+
+
+def jpeg_info(blob: bytes) -> tuple:
+    """(width, height, components) of a JPEG's frame header; ValueError
+    with the decoder's reason where it has none."""
+    lib = raster_decoder()
+    src = np.frombuffer(blob, np.uint8)
+    info = (ctypes.c_int64 * 3)()
+    err = ctypes.create_string_buffer(512)
+    if lib.jpeg_info(_u8p(src), len(blob), info, err, len(err)) != 0:
+        raise ValueError(err.value.decode("latin-1"))
+    return info[0], info[1], info[2]
+
+
+def jpeg_decode(blob: bytes, width: int, height: int,
+                components: int) -> np.ndarray:
+    """The (height, width, components) u8 decode of a JPEG whose frame
+    header `jpeg_info` read; ValueError with the decoder's reason."""
+    lib = raster_decoder()
+    src = np.frombuffer(blob, np.uint8)
+    out = np.empty((height, width, components), np.uint8)
+    err = ctypes.create_string_buffer(512)
+    if lib.jpeg_decode(_u8p(src), len(blob), _u8p(out), out.size,
+                       _threads(), err, len(err)) != 0:
+        raise ValueError(err.value.decode("latin-1"))
+    return out
+
+
+def gif_lzw_decode(blob: bytes, offset: int, bits: int, interlace: bool,
+                   image: np.ndarray, x0: int, y0: int, w: int,
+                   h: int) -> None:
+    """The LZW data of a GIF frame (sub-blocks from `offset`) into the
+    (w, h) window at (x0, y0) of `image`, a C-contiguous 2-D u8 array;
+    ValueError where the data runs out or holds a bad code."""
+    lib = raster_decoder()
+    assert image.dtype == np.uint8 and image.flags.c_contiguous
+    src = np.frombuffer(blob, np.uint8)[offset:]
+    window = image[y0:, x0:]
+    rc = lib.gif_lzw_decode(_u8p(src), len(src), bits, int(interlace),
+                            _u8p(window), image.shape[1], w, h)
+    if rc == -1:
+        raise ValueError("image file is truncated")
+    if rc < 0:
+        raise ValueError("broken LZW data in GIF frame")
+
+
+def bmp_rle_decode(blob: bytes, offset: int, xsize: int, dest_length: int,
+                   rle4: bool) -> tuple:
+    """(bytes, length): the first `dest_length` bytes Pillow's BMP RLE
+    decoder expands from `offset`, and the length its data reaches;
+    ValueError where it fails to read a delta record."""
+    lib = raster_decoder()
+    src = np.frombuffer(blob, np.uint8)
+    out = np.zeros(dest_length, np.uint8)
+    n = lib.bmp_rle_decode(_u8p(src), len(blob), offset, xsize, dest_length,
+                           int(rle4), _u8p(out))
+    if n < 0:
+        raise ValueError("not enough values to unpack (expected 2)")
+    return out, n
 
 
 def _u8p(arr: np.ndarray):

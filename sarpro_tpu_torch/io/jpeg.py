@@ -1,0 +1,34 @@
+"""JPEG reader: the image Pillow 12.1 opens from a JPEG file (its SOF
+handler's modes, libjpeg-turbo's decode with Pillow's defaults), decoded by
+the port's C++ library (`_native/rasterdec.cpp`, built at first use).
+
+Modes as Pillow's: one component "L", three "RGB", four "CMYK" (Pillow's
+"CMYK;I" rawmode: the samples inverted, after libjpeg's YCCK -> CMYK where
+an Adobe marker asks for it). Baseline, extended and progressive Huffman
+files with restart intervals and sampling factors up to 4 decode bit-equal
+to Pillow. Refused as RasterError: samples other than 8 bits and layer
+counts other than 1, 3 or 4 (as Pillow refuses them), arithmetic coding,
+lossless and hierarchical frames, a progressive file whose coefficients
+are not all refined (libjpeg's block smoothing), and a file cut short
+(Pillow's "image file is truncated"). EXIF orientation is not applied, as
+Pillow does not apply it on open; Pillow's `info` holds no strings for a
+JPEG, so the text is empty."""
+from __future__ import annotations
+
+from .. import _native
+from ..errors import RasterError
+from . import pixels
+
+SIGNATURE = b"\xff\xd8\xff"
+MODES = {1: "L", 3: "RGB", 4: "CMYK"}
+
+
+def read(blob: bytes) -> pixels.Decoded:
+    try:
+        width, height, components = _native.jpeg_info(blob)
+        pixels.check_size(width, height)
+        out = _native.jpeg_decode(blob, width, height, components)
+    except (ValueError, RuntimeError) as e:
+        raise RasterError(f"JPEG: {e}") from e
+    return pixels.Decoded(MODES[components],
+                          out[..., 0] if components == 1 else out)

@@ -1,11 +1,19 @@
 """Non-TIFF raster backend (port of sarpro_tpu/io/pilraster.py): the JAX
 package's PilRaster decodes PNG / JPEG / BMP / GIF / PPM / WebP / JPEG 2000
 through Pillow, which the machine with the GPU does not have. The port
-decodes PNG through its own codec (io/png.py), to the array Pillow gives,
-and refuses the other formats with a RasterError (ROADMAP queue 3). The
-sidecar georeferencing is the JAX module's, copied as it is
-(PIL_EXTENSIONS, world_file_candidates, read_world_file, read_prj_epsg;
-tests/test_torch_host_copies.py holds them equal):
+decodes them with its own readers, to the image Pillow opens, dispatching on
+the first bytes as Pillow's `Image.open` does:
+
+  * PNG (io/png.py), JPEG (io/jpeg.py), BMP (io/bmp.py), GIF (io/gif.py)
+    and netpbm P1-P6 (io/netpbm.py);
+  * WebP and JPEG 2000 raise RasterError (ROADMAP queue 1), as does any
+    other content.
+
+Each reader's image then takes the JAX module's normalisation
+(io/pixels.normalise) and Pillow's decompression-bomb limit
+(io/pixels.check_size). The sidecar georeferencing is the JAX module's,
+copied as it is (PIL_EXTENSIONS, world_file_candidates, read_world_file,
+read_prj_epsg; tests/test_torch_host_copies.py holds them equal):
 
   * world file (pixel-center convention; same extension family GDAL probes:
     pgw/jgw/bpw/gfw/…, <ext>w, and .wld)
@@ -18,7 +26,7 @@ from pathlib import Path
 import numpy as np
 
 from ..errors import RasterError
-from . import png
+from . import bmp, gif, jpeg, netpbm, pixels, png
 from .tiffio import GeoInfo
 
 # extensions PIL handles that we advertise (TIFF stays on the native codec)
@@ -81,9 +89,33 @@ def read_prj_epsg(path: Path):
     return parse_epsg(text)
 
 
+def _reader(head: bytes):
+    """The port's reader for content starting with `head`, as Pillow's
+    plugins accept it; RasterError for WebP, JPEG 2000 and anything
+    else."""
+    if head.startswith(png.SIGNATURE):
+        return png.read
+    if head.startswith(jpeg.SIGNATURE):
+        return jpeg.read
+    if head.startswith(bmp.SIGNATURE):
+        return bmp.read
+    if head[:6] in gif.SIGNATURES:
+        return gif.read
+    if netpbm.accept(head):
+        return netpbm.read
+    if head[:4] == b"RIFF" and head[8:12] == b"WEBP":
+        raise RasterError("WebP is not decoded by the port yet")
+    if head.startswith((b"\x00\x00\x00\x0cjP  \r\n\x87\n",
+                        b"\xff\x4f\xff\x51")):
+        raise RasterError("JPEG 2000 is not decoded by the port yet")
+    raise RasterError("cannot identify image file (the port reads PNG, "
+                      "JPEG, BMP, GIF and netpbm)")
+
+
 class PilRaster:
-    """TiffReader-shaped adapter over a decoded PNG (the JAX PilRaster's
-    interface and normalisation, sarpro_tpu/io/pilraster.py:82-146).
+    """TiffReader-shaped adapter over a decoded PNG, JPEG, BMP, GIF or
+    netpbm file (the JAX PilRaster's interface and normalisation,
+    sarpro_tpu/io/pilraster.py:82-146).
 
     Implements the subset RasterReader drives: width/height/samples/dtype,
     read(band), geo_info(), gdal_metadata(), close(). The strip-streaming
@@ -96,14 +128,14 @@ class PilRaster:
         except OSError as e:
             raise RasterError(f"failed to open raster {self.path}: {e}") from e
         try:
-            # palettes come back expanded to RGB, as GDAL's RGB expansion
-            # and the JAX backend's convert("RGB") give them
-            self._data, self._info = png.decode(blob)
+            img = _reader(blob[:16])(blob)
+            self._data = pixels.normalise(img, self.path)
         except RasterError as e:
             raise RasterError(f"failed to open raster {self.path}: {e}") from e
         self.height, self.width = self._data.shape[:2]
         self.samples = self._data.shape[2]
         self.dtype = self._data.dtype
+        self._info = {k: v for k, v in img.info.items() if isinstance(v, str)}
 
     def read(self, band: int = 1) -> np.ndarray:
         if not 1 <= band <= self.samples:

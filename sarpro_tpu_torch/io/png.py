@@ -4,20 +4,25 @@ stand-in for Pillow, which the machine with the GPU does not have.
 Writer: `encode_gray8`, one 8-bit grayscale image in one IDAT, every row
 filter type 0 (the GUI's preview).
 
-Reader: `decode`, to the array the JAX package's PilRaster gets from
-Pillow (sarpro_tpu/io/pilraster.py:89-128), with Pillow's PNG modes
+Reader: `read`, to the image Pillow opens (`pixels.Decoded`), and
+`decode`, to the array the JAX package's PilRaster keeps of it
+(sarpro_tpu/io/pilraster.py:89-128), with Pillow's PNG modes
 (PIL/PngImagePlugin.py `_MODES`):
-  * grayscale at 8 bits ("L") and 16 bits ("I;16", the full value);
+  * grayscale at 1 bit ("1", bool), 2 and 4 bits ("L", the value times 85
+    or 17, as Pillow's "L;2" / "L;4" unpackers scale it), 8 bits ("L") and
+    16 bits ("I;16", the full value);
   * RGB, gray + alpha and RGBA at 8 bits; at 16 bits Pillow keeps the high
     byte of each sample, and reads 16-bit gray + alpha as RGBA (L, L, L, A);
   * palettes at 1, 2, 4 and 8 bits, expanded to RGB as `convert("RGB")`
     does: an index past the palette reads black;
-  * all five row filters;
+  * all five row filters, and Adam7 interlacing (each pass filtered on its
+    own, its pixels put in their places);
   * tEXt, zTXt and iTXt chunks as the text strings of Pillow's `info`
     (latin-1 keys and tEXt / zTXt values, UTF-8 iTXt values; the tEXt key
     "exif" holds bytes there, not a string).
-Adam7 interlacing and grayscale below 8 bits raise `RasterError`, as does
-anything that is not a PNG or whose chunks are cut or fail their CRC.
+Anything that is not a PNG, or whose chunks are cut or fail their CRC,
+raises `RasterError`, as does an image over Pillow's decompression-bomb
+limit.
 """
 from __future__ import annotations
 
@@ -27,12 +32,16 @@ import zlib
 import numpy as np
 
 from ..errors import RasterError
+from . import pixels
 
 SIGNATURE = b"\x89PNG\r\n\x1a\n"
-# (colour type, bit depth) -> samples a pixel of the result; palettes
-# expand to RGB, 16-bit gray + alpha to RGBA
+# colour type -> samples a pixel, and the bit depths Pillow reads
 _SAMPLES = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
-_DEPTHS = {0: (8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16), 6: (8, 16)}
+_DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16),
+           6: (8, 16)}
+# Adam7 passes: (first row, first column, row step, column step)
+ADAM7 = ((0, 0, 8, 8), (0, 4, 8, 8), (4, 0, 8, 4), (0, 2, 4, 4),
+         (2, 0, 4, 2), (0, 1, 2, 2), (1, 0, 2, 1))
 
 
 def _chunk(kind: bytes, data: bytes) -> bytes:
@@ -180,12 +189,49 @@ def _unfilter(raw: bytes, rows: int, stride: int, bpp: int) -> np.ndarray:
     return out
 
 
-def decode(blob: bytes) -> tuple[np.ndarray, dict]:
-    """(data, text) of a PNG: data (rows, cols, samples), u8, or u16 for
-    16-bit grayscale, as PilRaster normalizes Pillow's decode; text the
-    string values of Pillow's `info`."""
+def _samples(lines: np.ndarray, cols: int, depth: int,
+             channels: int) -> np.ndarray:
+    """(rows, cols, channels) sample values of unfiltered scanlines: u8,
+    or u16 at 16 bits."""
+    rows = len(lines)
+    if depth == 16:
+        return (lines[:, :2 * cols * channels].reshape(rows, -1).view(">u2")
+                .astype(np.uint16).reshape(rows, cols, channels))
+    if depth == 8:
+        return lines[:, :cols * channels].reshape(rows, cols, channels)
+    idx = np.unpackbits(lines, axis=1).reshape(rows, -1, depth) @ (
+        1 << np.arange(depth - 1, -1, -1))
+    return idx[:, :cols, None].astype(np.uint8)
+
+
+def _image(raw: bytes, rows: int, cols: int, depth: int, channels: int,
+           interlace: bool) -> np.ndarray:
+    """(rows, cols, channels) samples of the inflated image data."""
+    bits = channels * depth
+    bpp = max(1, bits // 8)
+    if not interlace:
+        stride = (cols * bits + 7) // 8
+        return _samples(_unfilter(raw, rows, stride, bpp), cols, depth,
+                        channels)
+    out = np.zeros((rows, cols, channels),
+                   np.uint16 if depth == 16 else np.uint8)
+    pos = 0
+    for y0, x0, dy, dx in ADAM7:
+        ph, pw = -(-(rows - y0) // dy), -(-(cols - x0) // dx)
+        if ph <= 0 or pw <= 0:
+            continue
+        stride = (pw * bits + 7) // 8
+        lines = _unfilter(raw[pos:], ph, stride, bpp)
+        pos += ph * (stride + 1)
+        out[y0::dy, x0::dx] = _samples(lines, pw, depth, channels)
+    return out
+
+
+def read(blob: bytes) -> pixels.Decoded:
+    """The image Pillow opens from a PNG: its mode, `np.asarray` of it, the
+    palette of a "P" image and the string values of its `info`."""
     if not blob.startswith(SIGNATURE):
-        raise RasterError("not a PNG: the port decodes PNG only")
+        raise RasterError("not a PNG file")
     header = None
     palette = b""
     idat = []
@@ -208,39 +254,39 @@ def decode(blob: bytes) -> tuple[np.ndarray, dict]:
     cols, rows, depth, ctype, _, filt, interlace = header
     if ctype not in _SAMPLES or depth not in _DEPTHS[ctype]:
         raise RasterError(f"unsupported PNG: colour type {ctype} at "
-                          f"{depth} bits (grayscale below 8 bits is not "
-                          "decoded)")
+                          f"{depth} bits")
     if filt:
         raise RasterError("unknown filter category")
-    if interlace:
-        raise RasterError("unsupported PNG: Adam7 interlacing")
     if rows == 0 or cols == 0:
         raise RasterError("broken PNG: empty image")
-    channels = _SAMPLES[ctype]
-    bits = channels * depth
-    stride = (cols * bits + 7) // 8
+    pixels.check_size(cols, rows)
     try:
         raw = zlib.decompress(b"".join(idat))
     except zlib.error as e:
         raise RasterError(f"broken PNG: {e}") from e
-    lines = _unfilter(raw, rows, stride, max(1, bits // 8))
+    img = _image(raw, rows, cols, depth, _SAMPLES[ctype], bool(interlace))
     if ctype == 3:
-        if depth < 8:
-            idx = np.unpackbits(lines, axis=1).reshape(
-                rows, -1, depth) @ (1 << np.arange(depth - 1, -1, -1))
-            idx = idx[:, :cols]
-        else:
-            idx = lines
-        table = np.zeros((256, 3), np.uint8)  # past the palette: black
-        n = min(len(palette) // 3, 256)
-        table[:n] = np.frombuffer(palette, np.uint8, 3 * n).reshape(n, 3)
-        return table[idx], info
+        return pixels.Decoded("P", img[..., 0], palette, info)
+    if ctype == 0:
+        gray = img[..., 0]
+        if depth == 1:
+            return pixels.Decoded("1", gray != 0, info=info)
+        if depth == 16:
+            return pixels.Decoded("I;16", gray, info=info)
+        scale = {2: 85, 4: 17, 8: 1}[depth]  # Pillow's L;2 / L;4 unpackers
+        return pixels.Decoded("L", gray * np.uint8(scale), info=info)
     if depth == 16:
-        samples = lines.reshape(rows, cols, channels, 2)
-        if ctype == 0:
-            return samples.view(">u2")[..., 0].astype(np.uint16), info
-        high = samples[..., 0]  # Pillow's RGB;16B / RGBA;16B / LA;16B
+        img = (img >> 8).astype(np.uint8)  # Pillow's RGB;16B / RGBA;16B / LA;16B
         if ctype == 4:
-            high = high[..., [0, 0, 0, 1]]
-        return np.ascontiguousarray(high), info
-    return lines.reshape(rows, cols, channels), info
+            return pixels.Decoded("RGBA", np.ascontiguousarray(
+                img[..., [0, 0, 0, 1]]), info=info)
+    return pixels.Decoded({2: "RGB", 4: "LA", 6: "RGBA"}[ctype], img,
+                          info=info)
+
+
+def decode(blob: bytes) -> tuple[np.ndarray, dict]:
+    """(data, text) of a PNG: data (rows, cols, samples), u8, bool for 1-bit
+    grayscale or u16 for 16-bit grayscale, as PilRaster normalizes Pillow's
+    decode; text the string values of Pillow's `info`."""
+    img = read(blob)
+    return pixels.normalise(img, "PNG"), img.info

@@ -124,9 +124,10 @@ def parse_epsg(wkt: str) -> Optional[int]:
 
 
 class RasterReader:
-    """Opens any (Geo)TIFF raster via the self-contained codec, PNG (world
-    file georeferencing) via the port's PNG backend, and CF-convention
-    netCDF classic grids via the scipy backend (reference:
+    """Opens any (Geo)TIFF raster via the self-contained codec, PNG, JPEG,
+    BMP, GIF and netpbm (world file georeferencing) via the port's decoders
+    (io/pilraster.py), and CF-convention netCDF classic grids via the scipy
+    backend (reference:
     GdalSarReader::open, gdal.rs:57-104; the probe of
     sarpro_tpu/io/raster.py:97-122)."""
 
@@ -426,6 +427,8 @@ def reduce_band(reader, band: int, out_cols: int, out_rows: int,
         logger.info("decimated read: %dx%d -> %dx%d by device resample (%s)",
                     t.width, t.height, out_cols, out_rows, filt)
         arr = t.read(band)
+        # u16 DN crosses as stored; u8, bool (a mode "1" raster: 0 / 1) and
+        # the rest as f32, the JAX read_band_resampled's astype(np.float32)
         arr = (arr.astype(np.uint16, copy=False) if arr.dtype == np.uint16
                else arr.astype(np.float32))
         _count("device_resample")

@@ -1,0 +1,1094 @@
+"""The port's raster decoders (io/jpeg, io/bmp, io/gif, io/netpbm; io/png in
+tests/test_torch_readers.py) against the JAX package's RasterReader, which
+opens the same files through Pillow 12.1, on the CPU: every band bit-equal
+(the dtype included: bool for mode "1"), equal size, bands, geotransform,
+EPSG and gdal_metadata(), and RasterError where the JAX reader raises it.
+
+Inputs are written by Pillow from seeded numpy arrays, and, for what Pillow
+does not write, byte by byte here: a baseline JPEG coder with any sampling
+factors, scan split, restart interval, colour transform and component IDs;
+BMPs with RLE8 / RLE4 streams, bit fields and top-down rows; GIFs with
+local palettes, offsets and frames past the screen; netpbm files with
+comments and every maxval."""
+import dataclasses
+import io
+import logging
+import struct
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from PIL import Image  # noqa: E402
+from sarpro_tpu.io import raster as jraster  # noqa: E402
+from sarpro_tpu_torch.errors import RasterError  # noqa: E402
+from sarpro_tpu_torch.io import pixels  # noqa: E402
+from sarpro_tpu_torch.io import raster as traster  # noqa: E402
+from test_torch_readers import WKT_32632, _readers_equal  # noqa: E402
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+import chip_smoke  # noqa: E402
+
+RESAMPLE_TOL = dict(rtol=2e-6, atol=2e-2)  # tests/test_torch_kernels.py
+
+
+def _equal_to_jax(path):
+    """Bands, metadata and georeferencing equal to the JAX reader's, and
+    the decoded arrays equal in dtype and value. Returns the port's
+    array."""
+    _readers_equal(path)
+    t, j = traster.RasterReader(path), jraster.RasterReader(path)
+    try:
+        got, want = t._tiff._data, j._tiff._data
+        assert got.dtype == want.dtype and got.shape == want.shape
+        assert np.array_equal(got, want)
+        assert t._tiff.gdal_metadata() == j._tiff.gdal_metadata()
+        return got
+    finally:
+        t.close()
+        j.close()
+
+
+def _both_refuse(path, match=None):
+    with pytest.raises(jraster.RasterError, match="unsupported raster"):
+        jraster.RasterReader(path)
+    with pytest.raises(RasterError, match=match) as ei:
+        traster.RasterReader(path)
+    assert str(ei.value).startswith("unsupported raster format")
+
+
+def _scene(rng, shape):
+    """SAR-like content: speckled gradients, so every DCT band is busy."""
+    y, x = np.mgrid[0:shape[0], 0:shape[1]]
+    g = (x * 5 + y * 3) % 256
+    if len(shape) == 3:
+        g = g[..., None] + 40 * np.arange(shape[2])
+    noise = rng.gamma(4.0, 8.0, shape)
+    return np.clip(0.6 * g + noise, 0, 255).astype(np.uint8)
+
+
+# ---------------------------------------------------------------------------
+# JPEGs Pillow writes
+# ---------------------------------------------------------------------------
+SUBSAMPLING = ("4:4:4", "4:2:2", "4:2:0", "4:1:1")
+CODINGS = {"baseline": {}, "optimized": {"optimize": True},
+           "progressive": {"progressive": True, "optimize": True}}
+JPEG_SIZES = ((13, 21), (37, 50))
+JPEG_CASES = [("L", "4:4:4")] + [(m, s) for m in ("RGB", "CMYK")
+                                 for s in SUBSAMPLING]
+
+
+@pytest.mark.parametrize("quality", [60, 95])
+@pytest.mark.parametrize("size", JPEG_SIZES, ids=["13x21", "37x50"])
+@pytest.mark.parametrize("coding", list(CODINGS))
+@pytest.mark.parametrize("mode,subsampling", JPEG_CASES)
+def test_pillow_jpeg_equals_jax(tmp_path, rng, mode, subsampling, coding,
+                                size, quality):
+    bands = {"L": (), "RGB": (3,), "CMYK": (4,)}[mode]
+    a = _scene(rng, size + bands)
+    path = tmp_path / "scene.jpg"
+    Image.fromarray(a, mode).save(path, quality=quality,
+                                  subsampling=subsampling, **CODINGS[coding])
+    path.with_suffix(".jgw").write_text(
+        "10.0\n0.0\n0.0\n-10.0\n500005.0\n3999995.0\n")
+    path.with_suffix(".prj").write_text(WKT_32632)
+    got = _equal_to_jax(path)
+    assert got.shape == size + ((bands or (1,))[0],)
+    t = traster.RasterReader(path)
+    assert t.metadata.epsg == 32632 and t.metadata.metadata == {}
+    assert t.metadata.geotransform == [500000.0, 10.0, 0.0, 4000000.0, 0.0,
+                                       -10.0]
+
+
+@pytest.mark.parametrize("restart", [{"restart_marker_blocks": 1},
+                                     {"restart_marker_blocks": 5},
+                                     {"restart_marker_rows": 1}],
+                         ids=["every block", "5 blocks", "every row"])
+@pytest.mark.parametrize("coding", list(CODINGS))
+def test_pillow_jpeg_with_restarts_equals_jax(tmp_path, rng, restart,
+                                              coding):
+    path = tmp_path / "r.jpg"
+    Image.fromarray(_scene(rng, (45, 61, 3))).save(
+        path, quality=85, subsampling="4:2:0", **restart, **CODINGS[coding])
+    assert b"\xff\xdd" in path.read_bytes()
+    _equal_to_jax(path)
+
+
+def test_progressive_jpeg_is_not_smoothed(tmp_path, rng):
+    """A complete progressive file decodes to the pixels of the baseline
+    file of the same coefficients: libjpeg smooths blocks only while bits
+    are missing. Pillow writes both from one quantization, so their
+    decodes (Pillow's and the port's) agree pixel for pixel."""
+    a = _scene(rng, (64, 80))
+    base, prog = tmp_path / "b.jpg", tmp_path / "p.jpg"
+    Image.fromarray(a).save(base, quality=75)
+    Image.fromarray(a).save(prog, quality=75, progressive=True)
+    got_b, got_p = _equal_to_jax(base), _equal_to_jax(prog)
+    assert np.array_equal(got_b, got_p)
+
+
+def test_incomplete_progressive_jpeg_is_refused(tmp_path, rng):
+    """A progressive file cut after its first scans (an EOI put after the
+    DC scan) leaves AC bits missing, where libjpeg smooths the blocks: the
+    port refuses it rather than differ."""
+    buf = io.BytesIO()
+    Image.fromarray(_scene(rng, (32, 40))).save(buf, format="JPEG",
+                                                quality=80, progressive=True)
+    blob = buf.getvalue()
+    sos = [i for i in range(len(blob) - 1) if blob[i:i + 2] == b"\xff\xda"]
+    path = tmp_path / "dc_only.jpg"
+    path.write_bytes(blob[:sos[1]] + b"\xff\xd9")
+    assert jraster.RasterReader(path).metadata.bands == 1
+    with pytest.raises(RasterError, match="block smoothing"):
+        traster.RasterReader(path)
+
+
+@pytest.mark.parametrize("cut", [0.5, 0.9, -2])
+@pytest.mark.parametrize("coding", ["baseline", "progressive"])
+def test_cut_jpeg_is_refused_as_by_jax(tmp_path, rng, cut, coding):
+    buf = io.BytesIO()
+    Image.fromarray(_scene(rng, (40, 48, 3))).save(buf, format="JPEG",
+                                                   quality=90,
+                                                   **CODINGS[coding])
+    blob = buf.getvalue()
+    path = tmp_path / "cut.jpg"
+    path.write_bytes(blob[:int(len(blob) * cut) if cut > 0 else cut])
+    _both_refuse(path, "truncated")
+
+
+# ---------------------------------------------------------------------------
+# JPEGs coded here: sampling factors, scans, transforms Pillow does not
+# write
+# ---------------------------------------------------------------------------
+ZIGZAG = np.array([
+    0, 1, 8, 16, 9, 2, 3, 10, 17, 24, 32, 25, 18, 11, 4, 5, 12, 19, 26, 33,
+    40, 48, 41, 34, 27, 20, 13, 6, 7, 14, 21, 28, 35, 42, 49, 56, 57, 50, 43,
+    36, 29, 22, 15, 23, 30, 37, 44, 51, 58, 59, 52, 45, 38, 31, 39, 46, 53,
+    60, 61, 54, 47, 55, 62, 63])
+_DCT = np.array([[np.sqrt((1 if u == 0 else 2) / 8)
+                  * np.cos((2 * x + 1) * u * np.pi / 16) for x in range(8)]
+                 for u in range(8)])
+# one code length for every symbol: DC sizes 0..11 at 4 bits, the 162 AC
+# symbols at 8 bits
+DC_SYMS = list(range(12))
+AC_SYMS = [0x00, 0xF0] + [(r << 4) | s for r in range(16)
+                          for s in range(1, 11)]
+
+
+class _Bits:
+    def __init__(self):
+        self.out, self.acc, self.n = bytearray(), 0, 0
+
+    def put(self, value: int, n: int):
+        for i in range(n - 1, -1, -1):
+            self.acc = (self.acc << 1) | ((value >> i) & 1)
+            self.n += 1
+            if self.n == 8:
+                self.out.append(self.acc)
+                if self.acc == 0xFF:
+                    self.out.append(0)
+                self.acc = self.n = 0
+
+    def flush(self):
+        if self.n:
+            self.put((1 << (8 - self.n)) - 1, 8 - self.n)
+
+
+def _category(v: int) -> tuple:
+    s = abs(int(v)).bit_length()
+    return s, (v if v >= 0 else v + (1 << s) - 1)
+
+
+def _segment(marker: int, body: bytes) -> bytes:
+    return struct.pack(">HH", 0xFF00 | marker, len(body) + 2) + body
+
+
+def _coded_jpeg(planes, factors, *, quant=6, restart=0, scans=None,
+                ids=None, app=b"", precision=8, sof=0xC0):
+    """A baseline JPEG of `planes` (one u8 array a component, each at its
+    own sampled size) with sampling `factors` [(h, v), ...]: one quant
+    table of `quant`, Huffman tables of one code length, the scans
+    `scans` (lists of component indices; default all in one), a restart
+    interval, component `ids` and extra marker segments `app`."""
+    n = len(planes)
+    ids = ids or list(range(1, n + 1))
+    hmax = max(h for h, _ in factors)
+    vmax = max(v for _, v in factors)
+    height = max(-(-p.shape[0] * vmax // v)
+                 for p, (_, v) in zip(planes, factors))
+    width = max(-(-p.shape[1] * hmax // h)
+                for p, (h, _) in zip(planes, factors))
+    mcux, mcuy = -(-width // (8 * hmax)), -(-height // (8 * vmax))
+    blocks = []
+    for p, (h, v) in zip(planes, factors):
+        bh, bw = mcuy * v, mcux * h
+        pad = np.pad(p.astype(np.float64), ((0, bh * 8 - p.shape[0]),
+                                            (0, bw * 8 - p.shape[1])),
+                     mode="edge") - 128
+        tiles = pad.reshape(bh, 8, bw, 8).transpose(0, 2, 1, 3)
+        c = _DCT @ tiles @ _DCT.T
+        blocks.append(np.rint(c / quant).astype(int).reshape(bh, bw, 64)
+                      [..., ZIGZAG])
+    comps = b"".join(struct.pack(">BBB", ids[i], (h << 4) | v, 0)
+                     for i, (h, v) in enumerate(factors))
+    out = b"\xff\xd8" + app
+    out += _segment(0xDB, b"\x00" + bytes([quant] * 64))
+    out += _segment(sof, struct.pack(">BHHB", precision, height, width, n)
+                    + comps)
+    dc_bits = bytes(16)[:3] + bytes([12]) + bytes(12)
+    ac_bits = bytes(7) + bytes([162]) + bytes(8)
+    out += _segment(0xC4, b"\x00" + dc_bits + bytes(DC_SYMS) + b"\x10"
+                    + ac_bits + bytes(AC_SYMS))
+    if restart:
+        out += _segment(0xDD, struct.pack(">H", restart))
+    for scan in scans or [list(range(n))]:
+        out += _segment(0xDA, bytes([len(scan)]) + b"".join(
+            bytes([ids[i], 0]) for i in scan) + b"\x00\x3f\x00")
+        if len(scan) == 1:
+            (h, v), ci = factors[scan[0]], scan[0]
+            p = planes[ci]
+            units = [[(ci, r, c)] for r in range(-(-p.shape[0] // 8))
+                     for c in range(-(-p.shape[1] // 8))]
+        else:
+            units = [[(ci, my * factors[ci][1] + y, mx * factors[ci][0] + x)
+                      for ci in scan for y in range(factors[ci][1])
+                      for x in range(factors[ci][0])]
+                     for my in range(mcuy) for mx in range(mcux)]
+        bits, pred, rst = _Bits(), [0] * n, 0
+        for k, unit in enumerate(units):
+            if restart and k and k % restart == 0:
+                bits.flush()
+                bits.out += bytes([0xFF, 0xD0 + rst])
+                rst, pred = (rst + 1) & 7, [0] * n
+            for ci, r, c in unit:
+                zz = blocks[ci][r, c]
+                s, v = _category(zz[0] - pred[ci])
+                pred[ci] = zz[0]
+                bits.put(DC_SYMS.index(s), 4)
+                bits.put(v, s)
+                run = 0
+                last = max([i for i in range(1, 64) if zz[i]] or [0])
+                for i in range(1, last + 1):
+                    if zz[i] == 0:
+                        run += 1
+                        continue
+                    while run > 15:
+                        bits.put(AC_SYMS.index(0xF0), 8)
+                        run -= 16
+                    s, v = _category(zz[i])
+                    bits.put(AC_SYMS.index((run << 4) | s), 8)
+                    bits.put(v, s)
+                    run = 0
+                if last < 63:
+                    bits.put(AC_SYMS.index(0x00), 8)
+        bits.flush()
+        out += bytes(bits.out)
+    return out + b"\xff\xd9"
+
+
+def _planes(rng, width, height, factors):
+    hmax = max(h for h, _ in factors)
+    vmax = max(v for _, v in factors)
+    return [_scene(rng, (-(-height * v // vmax), -(-width * h // hmax)))
+            for h, v in factors]
+
+
+ADOBE = {t: _segment(0xEE, b"Adobe" + struct.pack(">HHHB", 100, 0, 0, t))
+         for t in (0, 1, 2)}
+JFIF = _segment(0xE0, b"JFIF\x00\x01\x01\x00\x00\x01\x00\x01\x00\x00")
+# (sampling factors, scans): sampling that Pillow does not write, with
+# each upsampler of jdsample.c
+SAMPLINGS = {
+    "4:4:0 h1v2": ([(1, 2), (1, 1), (1, 1)], None),
+    "4:2:2 vertical mix": ([(2, 2), (1, 2), (2, 1)], None),
+    "h2v1 under h4": ([(4, 1), (2, 1), (1, 1)], None),
+    "h3 integral": ([(3, 1), (1, 1), (1, 1)], None),
+    "v3 h2 integral": ([(2, 3), (1, 1), (1, 1)], None),
+    "chroma larger": ([(1, 1), (2, 2), (1, 1)], None),
+    "4x4 non-interleaved": ([(4, 4), (2, 2), (1, 1)], [[0], [1], [2]]),
+    "4x2 interleaved": ([(4, 2), (1, 1), (1, 1)], None),
+    "gray 2x2 declared": ([(2, 2)], None),
+    "one scan a component": ([(2, 2), (1, 1), (1, 1)], [[0], [1], [2]]),
+    "two scans": ([(2, 1), (1, 1), (1, 1)], [[0], [1, 2]]),
+}
+CODED_SIZES = ((1, 1), (2, 3), (19, 9), (35, 29))
+
+
+@pytest.mark.parametrize("restart", [0, 3])
+@pytest.mark.parametrize("size", CODED_SIZES, ids=lambda s: f"{s[0]}x{s[1]}")
+@pytest.mark.parametrize("name", list(SAMPLINGS))
+def test_coded_jpeg_sampling_equals_jax(tmp_path, rng, name, size, restart):
+    factors, scans = SAMPLINGS[name]
+    planes = _planes(rng, *size, factors)
+    path = tmp_path / "s.jpg"
+    path.write_bytes(_coded_jpeg(planes, factors, scans=scans,
+                                 restart=restart, app=JFIF))
+    _equal_to_jax(path)
+
+
+# (components, marker segments, component IDs): the colour transforms
+TRANSFORMS = {
+    "ycc by ids": (3, b"", None),
+    "rgb by ids": (3, b"", [82, 71, 66]),
+    "jfif over rgb ids": (3, JFIF, [82, 71, 66]),
+    "adobe rgb": (3, ADOBE[0], None),
+    "adobe ycc": (3, ADOBE[1], None),
+    "other ids": (3, b"", [5, 6, 7]),
+    "cmyk": (4, b"", None),
+    "adobe cmyk": (4, ADOBE[0], None),
+    "adobe ycck": (4, ADOBE[2], None),
+}
+
+
+@pytest.mark.parametrize("subsampled", [False, True])
+@pytest.mark.parametrize("name", list(TRANSFORMS))
+def test_coded_jpeg_colour_transform_equals_jax(tmp_path, rng, name,
+                                                subsampled):
+    n, app, ids = TRANSFORMS[name]
+    factors = [(2, 2) if subsampled else (1, 1)] + [(1, 1)] * (n - 1)
+    path = tmp_path / "c.jpg"
+    path.write_bytes(_coded_jpeg(_planes(rng, 27, 22, factors), factors,
+                                 ids=ids, app=app))
+    _equal_to_jax(path)
+
+
+@pytest.mark.parametrize("what", ["fractional sampling", "12-bit",
+                                  "two components", "mcu over 10 blocks"])
+def test_coded_jpeg_refused_as_by_jax(tmp_path, rng, what):
+    factors = {"fractional sampling": [(3, 1), (2, 1), (1, 1)],
+               "two components": [(1, 1), (1, 1)],
+               "mcu over 10 blocks": [(4, 4), (1, 1), (1, 1)]}.get(
+        what, [(1, 1)])
+    path = tmp_path / "x.jpg"
+    path.write_bytes(_coded_jpeg(_planes(rng, 20, 12, factors), factors,
+                                 precision=12 if what == "12-bit" else 8))
+    _both_refuse(path)
+
+
+@pytest.mark.parametrize("sof,match", [(0xC9, "arithmetic"),
+                                       (0xC3, "lossless")])
+def test_arithmetic_and_lossless_jpeg_are_refused(tmp_path, rng, sof, match):
+    """libjpeg-turbo decodes these (so the JAX reader opens them); the port
+    refuses them (ROADMAP queue 3)."""
+    path = tmp_path / "a.jpg"
+    path.write_bytes(_coded_jpeg([_scene(rng, (8, 8))], [(1, 1)], sof=sof))
+    with pytest.raises(RasterError, match=match):
+        traster.RasterReader(path)
+
+
+def test_jpeg_without_sidecars_and_exif_equals_jax(tmp_path, rng):
+    """The content decides, not the name; EXIF orientation is not
+    applied."""
+    path = tmp_path / "plain.img"
+    exif = Image.Exif()
+    exif[0x0112] = 6  # rotate 90
+    Image.fromarray(_scene(rng, (16, 30, 3))).save(
+        path, format="JPEG", exif=exif, comment=b"a comment")
+    got = _equal_to_jax(path)
+    assert got.shape == (16, 30, 3)
+    t = traster.RasterReader(path)
+    assert t.metadata.geotransform == [0.0, 1.0, 0.0, 0.0, 0.0, 1.0]
+    assert t.metadata.epsg is None and t.metadata.metadata == {}
+
+
+# ---------------------------------------------------------------------------
+# BMP
+# ---------------------------------------------------------------------------
+def _palette_image(rng, shape, colors):
+    im = Image.fromarray(rng.integers(0, colors, shape).astype(np.uint8), "P")
+    im.putpalette(list(rng.integers(0, 256, 3 * colors)))
+    return im
+
+
+@pytest.mark.parametrize("kind", ["1", "L", "P", "P16", "RGB", "RGBA"])
+@pytest.mark.parametrize("shape", [(1, 1), (13, 21), (40, 37)])
+def test_pillow_bmp_equals_jax(tmp_path, rng, kind, shape):
+    if kind == "1":
+        im = Image.fromarray(rng.random(shape) > 0.5)
+    elif kind in ("L", "RGB", "RGBA"):
+        bands = {"L": (), "RGB": (3,), "RGBA": (4,)}[kind]
+        im = Image.fromarray(_scene(rng, shape + bands), kind)
+    else:
+        im = _palette_image(rng, shape, 16 if kind == "P16" else 200)
+    path = tmp_path / "b.bmp"
+    im.save(path)
+    path.with_suffix(".bpw").write_text("2.0\n0.0\n0.0\n-2.0\n11.0\n49.0\n")
+    path.with_suffix(".prj").write_text("EPSG:4326")
+    _equal_to_jax(path)
+    t = traster.RasterReader(path)
+    assert t.metadata.epsg == 4326 and t.geo.is_geographic
+    assert t.metadata.geotransform == [10.0, 2.0, 0.0, 50.0, 0.0, -2.0]
+
+
+def _bmp(width, height, bits, data, *, palette=b"", compression=0,
+         header=40, masks=(), colors=0, offset=None, top_down=False):
+    """A BMP file: its header (12, 40, 108 or 124 bytes, `masks` after a
+    40-byte header or in a larger one), the palette, the pixel data."""
+    if header == 12:
+        info = struct.pack("<IHHHH", 12, width, height, 1, bits)
+    else:
+        h = (2 ** 32 - height) if top_down else height
+        info = struct.pack("<IIIHHIIiiII", header, width, h, 1, bits,
+                           compression, len(data), 2835, 2835, colors, 0)
+        if header > 40:
+            m = list(masks) + [0] * (4 - len(masks))
+            info += struct.pack("<4I", *m) + bytes(header - 56)
+        elif masks:
+            info += struct.pack(f"<{len(masks)}I", *masks)
+    head_len = 14 + len(info) + len(palette)
+    off = head_len if offset is None else offset
+    return (b"BM" + struct.pack("<IHHI", head_len + len(data), 0, 0, off)
+            + info + palette + data)
+
+
+def _rows(rows, stride):
+    return b"".join(bytes(r) + bytes(stride - len(r)) for r in rows)
+
+
+def _rle8(a):
+    """RLE8 of a (rows, cols) index array, bottom-up: runs, absolute runs
+    (odd lengths padded), end of line, a delta record and end of bitmap."""
+    out = bytearray()
+    for r in a[::-1]:
+        r = list(r)
+        i = 0
+        while i < len(r):
+            j = i
+            while j < len(r) and r[j] == r[i] and j - i < 255:
+                j += 1
+            if j - i >= 3 or len(r) - i < 3:
+                out += bytes([j - i, r[i]])
+                i = j
+            else:
+                n = min(len(r) - i, 7)
+                out += bytes([0, n]) + bytes(r[i:i + n])
+                if n % 2:
+                    out += b"\x00"
+                i += n
+        out += b"\x00\x00"
+    return bytes(out + b"\x00\x01")
+
+
+def _rle4(a):
+    out = bytearray()
+    for r in a[::-1]:
+        r = list(r)
+        i = 0
+        while i < len(r):
+            if i + 4 <= len(r) and i % 3 == 0:
+                n = 4
+                out += bytes([0, n, (r[i] << 4) | r[i + 1],
+                              (r[i + 2] << 4) | r[i + 3]])
+            else:
+                n = min(len(r) - i, 2)
+                hi, lo = r[i], r[i + 1] if n == 2 else 0
+                out += bytes([n, (hi << 4) | lo])
+            i += n
+        out += b"\x00\x00"
+    return bytes(out + b"\x00\x01")
+
+
+def _bgrx(rng, colors, gray=False):
+    if gray:
+        return b"".join(bytes([i, i, i, 0]) for i in range(colors))
+    return rng.integers(0, 256, (colors, 4)).astype(np.uint8).tobytes()
+
+
+def _hand_bmp(rng, name):
+    w, h = 11, 7
+    if name == "rle8":
+        a = rng.integers(0, 3, (h, w)).astype(np.uint8)
+        a[2, :] = 1
+        return _bmp(w, h, 8, _rle8(a), palette=_bgrx(rng, 256),
+                    compression=1)
+    if name == "rle8 gray":
+        a = rng.integers(0, 256, (h, w)).astype(np.uint8)
+        return _bmp(w, h, 8, _rle8(a), palette=_bgrx(rng, 256, True),
+                    compression=1)
+    if name == "rle8 delta":
+        body = (b"\x03\x05\x00\x02\x09\x09\x01\x02\x02\x07\x00\x00"
+                + b"\x0b\x01\x00\x00" * 6 + b"\x00\x01")
+        return _bmp(w, h, 8, body, palette=_bgrx(rng, 16), colors=16,
+                    compression=1)
+    if name == "rle4":
+        a = rng.integers(0, 16, (h, w)).astype(np.uint8)
+        return _bmp(w, h, 4, _rle4(a), palette=_bgrx(rng, 16),
+                    compression=2)
+    if name == "rle4 odd absolute":
+        body = b"".join(b"\x00\x05\x12\x34\x50\x00\x04\x67\x02\x89\x00\x00"
+                        for _ in range(h)) + b"\x00\x01"
+        return _bmp(w, h, 4, body, palette=_bgrx(rng, 16), compression=2)
+    if name == "rle cut short":
+        return _bmp(w, h, 8, b"\x05\x01\x00\x00\x00\x01",
+                    palette=_bgrx(rng, 256), compression=1)
+    if name == "16 bit 555":
+        a = rng.integers(0, 1 << 15, (h, w)).astype("<u2")
+        return _bmp(w, h, 16, _rows(a.view(np.uint8), 24))
+    if name in ("bitfields 565", "bitfields 555"):
+        m = ((0xF800, 0x7E0, 0x1F) if name.endswith("565")
+             else (0x7C00, 0x3E0, 0x1F))
+        a = rng.integers(0, 1 << 16, (h, w)).astype("<u2")
+        return _bmp(w, h, 16, _rows(a.view(np.uint8), 24), compression=3,
+                    masks=m)
+    if name.startswith("bitfields 32"):
+        m = {"bitfields 32 xbgr": (0xFF000000, 0xFF0000, 0xFF00, 0),
+             "bitfields 32 rgba": (0xFF, 0xFF00, 0xFF0000, 0xFF000000),
+             "bitfields 32 bgar": (0xFF000000, 0xFF00, 0xFF, 0xFF0000)}[name]
+        a = rng.integers(0, 256, (h, w * 4)).astype(np.uint8)
+        return _bmp(w, h, 32, _rows(a, w * 4), compression=3, masks=m,
+                    header=124)
+    if name == "bitfields unsupported":
+        a = rng.integers(0, 256, (h, w * 4)).astype(np.uint8)
+        return _bmp(w, h, 32, _rows(a, w * 4), compression=3, header=108,
+                    masks=(0xF00, 0xF0, 0xF, 0))
+    if name == "24 bit top-down":
+        a = rng.integers(0, 256, (h, w * 3)).astype(np.uint8)
+        return _bmp(w, h, 24, _rows(a, 36), top_down=True)
+    if name == "32 bit":
+        a = rng.integers(0, 256, (h, w * 4)).astype(np.uint8)
+        return _bmp(w, h, 32, _rows(a, w * 4))
+    if name == "os2 8 bit":
+        a = rng.integers(0, 256, (h, w)).astype(np.uint8)
+        pal = rng.integers(0, 256, 256 * 3).astype(np.uint8).tobytes()
+        return _bmp(w, h, 8, _rows(a, 12), palette=pal, header=12)
+    if name == "1 bit colour":
+        a = np.packbits(rng.integers(0, 2, (h, w)).astype(np.uint8), axis=1)
+        return _bmp(w, h, 1, _rows(a, 4), palette=_bgrx(rng, 2))
+    if name == "4 bit short palette":
+        a = rng.integers(0, 256, (h, 6)).astype(np.uint8)
+        return _bmp(w, h, 4, _rows(a, 8), palette=_bgrx(rng, 5), colors=5)
+    if name == "4 bit gray palette":
+        a = rng.integers(0, 256, (h, 6)).astype(np.uint8)
+        return _bmp(w, h, 4, _rows(a, 8), palette=_bgrx(rng, 16, True))
+    if name == "offset past the palette":
+        a = rng.integers(0, 256, (h, w)).astype(np.uint8)
+        # the header's offset points right after the header: Pillow adds
+        # the palette's size
+        return _bmp(w, h, 8, _rows(a, 12), palette=_bgrx(rng, 256),
+                    offset=54)
+    if name == "cut pixel data":
+        a = rng.integers(0, 256, (h, w * 3)).astype(np.uint8)
+        return _bmp(w, h, 24, _rows(a, 36))[:-40]
+    if name == "2 bit":
+        return _bmp(w, h, 2, bytes(28), palette=_bgrx(rng, 4))
+    raise AssertionError(name)
+
+
+HAND_BMP = ["rle8", "rle8 gray", "rle8 delta", "rle4", "rle4 odd absolute",
+            "rle cut short", "16 bit 555", "bitfields 565", "bitfields 555",
+            "bitfields 32 xbgr", "bitfields 32 rgba", "bitfields 32 bgar",
+            "bitfields unsupported", "24 bit top-down", "32 bit",
+            "os2 8 bit", "1 bit colour", "4 bit short palette",
+            "4 bit gray palette", "offset past the palette",
+            "cut pixel data", "2 bit"]
+
+
+@pytest.mark.parametrize("name", HAND_BMP)
+def test_hand_built_bmp_equals_jax(tmp_path, rng, name):
+    path = tmp_path / "h.bmp"
+    path.write_bytes(_hand_bmp(rng, name))
+    try:
+        jraster.RasterReader(path)
+    except jraster.RasterError:
+        _both_refuse(path)
+        return
+    _equal_to_jax(path)
+
+
+def test_bmp_modes_are_pillows(tmp_path, rng):
+    """The modes that decide the arrays: a black / white palette gives
+    bool, a gray one u8 gray, a 4-bit gray ramp read as 8-bit rows."""
+    path = tmp_path / "m.bmp"
+    Image.fromarray(rng.random((9, 10)) > 0.5).save(path)
+    assert _equal_to_jax(path).dtype == bool
+    path.write_bytes(_hand_bmp(rng, "rle8 gray"))
+    assert _equal_to_jax(path).shape == (7, 11, 1)
+
+
+# ---------------------------------------------------------------------------
+# GIF
+# ---------------------------------------------------------------------------
+def _lzw(indices, min_bits: int) -> bytes:
+    """GIF LZW of a flat index sequence, in sub-blocks, with a clear code
+    first and whenever the table fills."""
+    clear, end = 1 << min_bits, (1 << min_bits) + 1
+    size = min_bits + 1
+    table = {bytes([i]): i for i in range(clear)}
+    nxt = end + 1
+    out_bits = []
+
+    def emit(c):
+        out_bits.append((c, size))
+
+    emit(clear)
+    w = b""
+    for k in bytes(indices):
+        wk = w + bytes([k])
+        if wk in table:
+            w = wk
+            continue
+        emit(table[w])
+        if nxt < 4096:
+            table[wk] = nxt
+            nxt += 1
+            if nxt - 1 == (1 << size) and size < 12:
+                size += 1
+        else:
+            emit(clear)
+            table = {bytes([i]): i for i in range(clear)}
+            nxt, size = end + 1, min_bits + 1
+        w = bytes([k])
+    if w:
+        emit(table[w])
+    emit(end)
+    acc = nbits = 0
+    data = bytearray()
+    for c, s in out_bits:
+        acc |= c << nbits
+        nbits += s
+        while nbits >= 8:
+            data.append(acc & 0xFF)
+            acc >>= 8
+            nbits -= 8
+    if nbits:
+        data.append(acc)
+    blocks = b"".join(bytes([len(data[i:i + 255])]) + data[i:i + 255]
+                      for i in range(0, len(data), 255))
+    return bytes([min_bits]) + blocks + b"\x00"
+
+
+def _gif(screen, frames, global_palette=None, background=0):
+    """A GIF: `frames` of (x0, y0, index array, local palette or None,
+    transparency or None, interlaced)."""
+    sw, sh = screen
+    flags = 0
+    pal = b""
+    if global_palette is not None:
+        bits = max(1, (len(global_palette) // 3 - 1).bit_length())
+        flags = 0x80 | (bits - 1)
+        pal = global_palette + bytes(3 * (1 << bits) - len(global_palette))
+    out = b"GIF89a" + struct.pack("<HHBBB", sw, sh, flags, background, 0)
+    out += pal
+    for x0, y0, a, local, transparency, interlace in frames:
+        if transparency is not None:
+            out += b"\x21\xf9\x04" + struct.pack("<BHB", 1, 10,
+                                                 transparency) + b"\x00"
+        fl = 0x40 if interlace else 0
+        lp = b""
+        if local is not None:
+            bits = max(1, (len(local) // 3 - 1).bit_length())
+            fl |= 0x80 | (bits - 1)
+            lp = local + bytes(3 * (1 << bits) - len(local))
+        h, w = a.shape
+        rows = a
+        if interlace:
+            order = (list(range(0, h, 8)) + list(range(4, h, 8))
+                     + list(range(2, h, 4)) + list(range(1, h, 2)))
+            rows = a[order]
+        out += b"\x2c" + struct.pack("<HHHHB", x0, y0, w, h, fl) + lp
+        out += _lzw(rows.reshape(-1), max(2, int(a.max()).bit_length()))
+    return out + b"\x3b"
+
+
+def _hand_gif(rng, name):
+    a = rng.integers(0, 8, (13, 17)).astype(np.uint8)
+    pal = rng.integers(0, 256, 24).astype(np.uint8).tobytes()
+    gray = bytes(i for i in range(8) for _ in range(3))
+    if name == "global palette":
+        return _gif((17, 13), [(0, 0, a, None, None, False)], pal)
+    if name == "local palette":
+        return _gif((17, 13), [(0, 0, a, pal, None, False)], gray)
+    if name == "no palette":
+        return _gif((17, 13), [(0, 0, a, None, None, False)])
+    if name == "identity gray palette":
+        return _gif((17, 13), [(0, 0, a, None, None, False)], gray)
+    if name == "offset inside the screen":
+        return _gif((30, 20), [(5, 3, a, None, None, False)], pal)
+    if name == "offset transparency":
+        return _gif((30, 20), [(5, 3, a, None, 6, False)], pal)
+    if name == "frame past the screen":
+        return _gif((10, 8), [(4, 2, a, None, None, True)], pal)
+    if name == "index past the palette":
+        return _gif((17, 13), [(0, 0, a, pal[:9], None, False)])
+    if name == "two frames":
+        b = rng.integers(0, 8, (5, 6)).astype(np.uint8)
+        return _gif((17, 13), [(0, 0, a, None, None, False),
+                               (2, 2, b, None, 1, False)], pal)
+    if name == "wide codes":
+        big = rng.integers(0, 256, (70, 90)).astype(np.uint8)
+        big[:20] = np.arange(90) % 4
+        pal256 = rng.integers(0, 256, 768).astype(np.uint8).tobytes()
+        return _gif((90, 70), [(0, 0, big, None, None, False)], pal256)
+    if name == "cut data":
+        return _gif((17, 13), [(0, 0, a, None, None, False)], pal)[:-30]
+    if name == "no image":
+        return b"GIF89a" + struct.pack("<HHBBB", 4, 4, 0, 0, 0) + b"\x3b"
+    raise AssertionError(name)
+
+
+HAND_GIF = ["global palette", "local palette", "no palette",
+            "identity gray palette", "offset inside the screen",
+            "offset transparency", "frame past the screen",
+            "index past the palette", "two frames", "wide codes",
+            "cut data", "no image"]
+
+
+@pytest.mark.parametrize("name", HAND_GIF)
+def test_hand_built_gif_equals_jax(tmp_path, rng, name):
+    path = tmp_path / "h.gif"
+    path.write_bytes(_hand_gif(rng, name))
+    try:
+        jraster.RasterReader(path)
+    except jraster.RasterError:
+        _both_refuse(path)
+        return
+    _equal_to_jax(path)
+
+
+@pytest.mark.parametrize("kind", ["gray", "colour", "interlaced",
+                                  "transparency", "two frames"])
+def test_pillow_gif_equals_jax(tmp_path, rng, kind):
+    path = tmp_path / "p.gif"
+    if kind == "gray":
+        Image.fromarray(_scene(rng, (33, 47))).save(path)
+    elif kind == "colour":
+        Image.fromarray(_scene(rng, (33, 47, 3))).save(path)
+    elif kind == "interlaced":
+        Image.fromarray(_scene(rng, (40, 31))).save(path, interlace=True)
+    elif kind == "transparency":
+        _palette_image(rng, (21, 18), 64).save(path, transparency=5)
+    else:
+        a, b = (_palette_image(rng, (21, 18), 32) for _ in range(2))
+        a.save(path, save_all=True, append_images=[b], duration=100,
+               loop=0)
+    path.with_suffix(".gfw").write_text("1.0\n0.0\n0.0\n-1.0\n0.5\n-0.5\n")
+    _equal_to_jax(path)
+    t = traster.RasterReader(path)
+    assert t.metadata.geotransform == [0.0, 1.0, 0.0, 0.0, 0.0, -1.0]
+
+
+# ---------------------------------------------------------------------------
+# netpbm
+# ---------------------------------------------------------------------------
+def _netpbm(rng, magic: str, maxval: int, shape=(7, 9), comments=False):
+    """A netpbm file of random values up to `maxval` (plain or raw by
+    `magic`), with comments in its header (and plain data) if asked."""
+    h, w = shape
+    bands = 3 if magic in ("P3", "P6") else 1
+    c = b"# made by the test\n" if comments else b""
+    head = magic.encode() + b"\n" + c + f"{w} {h}".encode() + b"\n" + c
+    if magic in ("P1", "P4"):
+        a = rng.integers(0, 2, (h, w)).astype(np.uint8)
+        if magic == "P4":
+            return head + np.packbits(a, axis=1).tobytes()
+        body = b"".join(bytes(str(v), "ascii") for v in a.reshape(-1))
+        body = b"\n".join(body[i:i + 7] for i in range(0, len(body), 7))
+        return head + (body[:5] + b"#x\n" + body[5:] if comments else body)
+    head += str(maxval).encode() + b"\n"
+    a = rng.integers(0, maxval + 1, (h, w, bands))
+    a.reshape(-1)[:2] = (0, maxval)
+    if magic in ("P2", "P3"):
+        vals = [str(v).encode() for v in a.reshape(-1)]
+        lines = [b" ".join(vals[i:i + 5]) for i in range(0, len(vals), 5)]
+        if comments:
+            lines.insert(1, b"# a comment in the data")
+        return head + b"\n".join(lines) + b"\n"
+    return head + a.astype(">u2" if maxval > 255 else np.uint8).tobytes()
+
+
+NETPBM = ([("P1", 1), ("P4", 1)]
+          + [(m, v) for m in ("P2", "P3", "P5", "P6")
+             for v in (1, 15, 255, 4095, 65535)])
+
+
+@pytest.mark.parametrize("comments", [False, True])
+@pytest.mark.parametrize("magic,maxval", NETPBM)
+def test_netpbm_equals_jax(tmp_path, rng, magic, maxval, comments):
+    path = tmp_path / "n.pgm"
+    path.write_bytes(_netpbm(rng, magic, maxval, comments=comments))
+    got = _equal_to_jax(path)
+    want = {"P1": bool, "P4": bool}.get(
+        magic, np.uint16 if maxval > 255 and magic in ("P2", "P5")
+        else np.uint8)
+    assert got.dtype == want
+
+
+@pytest.mark.parametrize("kind", ["ppm", "pgm", "pbm", "pgm 16"])
+def test_pillow_netpbm_equals_jax(tmp_path, rng, kind):
+    a = {"ppm": lambda: _scene(rng, (19, 23, 3)),
+         "pgm": lambda: _scene(rng, (19, 23)),
+         "pbm": lambda: rng.random((19, 23)) > 0.3,
+         "pgm 16": lambda: rng.integers(0, 65536, (19, 23)).astype(
+             np.uint16)}[kind]()
+    path = tmp_path / "p.pnm"
+    Image.fromarray(a).save(path, format="PPM")
+    _equal_to_jax(path)
+
+
+NETPBM_BROKEN = {
+    "cut raw": lambda b: b[:-3],
+    "cut rescaled": lambda b: b.replace(b"255", b"200", 1)[:-3],
+    "value past maxval": lambda b: b.replace(b"P5", b"P2", 1)[:14]
+                                   + b" 300 1 2",
+    "plain bitonal junk": lambda b: b"P1\n2 2\n0 1 2 0\n",
+    "maxval zero": lambda b: b"P5\n2 2\n0\n" + bytes(4),
+    "token too long": lambda b: b"P5\n12345678901 2\n255\n" + bytes(4),
+    "pfm": lambda b: b"Pf\n2 2\n-1.0\n" + bytes(16),
+}
+
+
+@pytest.mark.parametrize("name", list(NETPBM_BROKEN))
+def test_broken_netpbm_is_refused_as_by_jax(tmp_path, rng, name):
+    path = tmp_path / "b.pgm"
+    path.write_bytes(NETPBM_BROKEN[name](_netpbm(rng, "P5", 255)))
+    try:
+        jraster.RasterReader(path)
+    except jraster.RasterError:
+        _both_refuse(path)
+        return
+    # Pillow opens the float format; the port does not decode it yet
+    assert name == "pfm"
+    with pytest.raises(RasterError, match="is not decoded"):
+        traster.RasterReader(path)
+
+
+# ---------------------------------------------------------------------------
+# the decompression-bomb limit, WebP and JPEG 2000
+# ---------------------------------------------------------------------------
+def _bomb(fmt: str, width: int, height: int) -> bytes:
+    """A file whose header claims width x height pixels and holds no
+    pixel data."""
+    if fmt == "bmp":
+        return _bmp(width, height, 24, b"")
+    if fmt == "png":
+        from sarpro_tpu_torch.io import png
+
+        def chunk(kind, data):
+            import zlib
+            return (struct.pack(">I", len(data)) + kind + data
+                    + struct.pack(">I", zlib.crc32(kind + data)))
+        return (png.SIGNATURE + chunk(b"IHDR", struct.pack(
+            ">IIBBBBB", width, height, 8, 0, 0, 0, 0))
+            + chunk(b"IDAT", b"") + chunk(b"IEND", b""))
+    if fmt == "jpeg":
+        return (b"\xff\xd8" + _segment(0xDB, b"\x00" + bytes([1] * 64))
+                + _segment(0xC0, struct.pack(">BHHBBBB", 8, height, width, 1,
+                                             1, 0x11, 0))
+                + _segment(0xDA, b"\x01\x01\x00\x00\x3f\x00") + b"\xff\xd9")
+    if fmt == "gif":
+        return (b"GIF89a" + struct.pack("<HHBBB", width, height, 0, 0, 0)
+                + b"\x2c" + struct.pack("<HHHHB", 0, 0, 1, 1, 0)
+                + b"\x02\x00\x3b")
+    if fmt == "pgm":
+        return f"P5\n{width} {height}\n255\n".encode()
+    raise AssertionError(fmt)
+
+
+@pytest.mark.parametrize("fmt", ["bmp", "png", "jpeg", "gif", "pgm"])
+def test_decompression_bomb_is_refused_as_by_jax(tmp_path, fmt):
+    """179 MP claimed (over twice Pillow's MAX_IMAGE_PIXELS): both readers
+    raise with Pillow's message, before reading any pixel."""
+    w, h = (65535, 2731) if fmt == "gif" else (13380, 13380)
+    assert w * h > 2 * pixels.MAX_IMAGE_PIXELS
+    path = tmp_path / f"bomb.{fmt}"
+    path.write_bytes(_bomb(fmt, w, h))
+    with pytest.raises(jraster.RasterError) as je:
+        jraster.RasterReader(path)
+    with pytest.raises(RasterError) as te:
+        traster.RasterReader(path)
+    want = (f"Image size ({w * h} pixels) exceeds limit of 178956970 pixels, "
+            "could be decompression bomb DOS attack.")
+    assert want in str(je.value) and want in str(te.value)
+    assert str(te.value) == str(je.value)
+
+
+def test_decompression_bomb_warning_band(tmp_path, caplog):
+    """Between the limit and twice it Pillow warns: the port logs the same
+    words (both then fail on the missing pixel data)."""
+    path = tmp_path / "big.bmp"
+    path.write_bytes(_bomb("bmp", 10000, 10000))
+    with caplog.at_level(logging.WARNING, logger="sarpro"):
+        _both_refuse(path, "truncated")
+    assert any("Image size (100000000 pixels) exceeds limit of 89478485 "
+               "pixels" in r.getMessage() for r in caplog.records)
+
+
+def test_pillow_limit_constant():
+    assert pixels.MAX_IMAGE_PIXELS == Image.MAX_IMAGE_PIXELS
+
+
+@pytest.mark.parametrize("fmt", ["WEBP", "JPEG2000", "J2K"])
+def test_webp_and_jpeg2000_are_refused(tmp_path, rng, fmt):
+    """Pillow opens them (the JAX reader gives the image); the port names
+    the format and refuses it (ROADMAP queue 1)."""
+    path = tmp_path / "x.img"
+    buf = io.BytesIO()
+    Image.fromarray(_scene(rng, (16, 16, 3))).save(
+        buf, format="JPEG2000" if fmt == "J2K" else fmt,
+        **({"no_jp2": True} if fmt == "J2K" else {}))
+    path.write_bytes(buf.getvalue())
+    assert jraster.RasterReader(path).metadata.bands == 3
+    name = "WebP" if fmt == "WEBP" else "JPEG 2000"
+    with pytest.raises(RasterError, match=f"{name} is not decoded") as ei:
+        traster.RasterReader(path)
+    assert str(ei.value).startswith("unsupported raster format")
+
+
+def test_unknown_content_is_refused(tmp_path):
+    path = tmp_path / "x.png"
+    path.write_bytes(b"not an image at all")
+    _both_refuse(path, "cannot identify")
+
+
+# ---------------------------------------------------------------------------
+# the decoded band onto the device (the CPU here): the decimated read and
+# the gray product
+# ---------------------------------------------------------------------------
+def _decoded_files(tmp_path, rng):
+    files = {}
+    files["jpeg u8"] = tmp_path / "g.jpg"
+    Image.fromarray(_scene(rng, (60, 90))).save(files["jpeg u8"], quality=92)
+    files["pbm bool"] = tmp_path / "b.pbm"
+    files["pbm bool"].write_bytes(_netpbm(rng, "P4", 1, (60, 90)))
+    files["pgm u16"] = tmp_path / "w.pgm"
+    files["pgm u16"].write_bytes(_netpbm(rng, "P5", 4095, (60, 90)))
+    files["bmp rgb"] = tmp_path / "c.bmp"
+    Image.fromarray(_scene(rng, (60, 90, 3))).save(files["bmp rgb"])
+    return files
+
+
+@pytest.mark.parametrize("alg", ["average", "cubic", "nearest"])
+@pytest.mark.parametrize("kind", ["jpeg u8", "pbm bool", "pgm u16",
+                                  "bmp rgb"])
+def test_decimated_read_of_decoded_band_equals_jax(tmp_path, rng, kind, alg):
+    """tests/test_io.py's read_band_resampled(1, 30, 20, ...) on a decoded
+    band: the port's device route (the band uploaded as f32 or u16, the
+    resample kernel's plain version here) against the JAX package's."""
+    path = _decoded_files(tmp_path, rng)[kind]
+    t, j = traster.RasterReader(path), jraster.RasterReader(path)
+    try:
+        before = dict(traster.ROUTES)
+        got = traster.read_band_resampled_to_device(t, 1, 30, 20, "cpu", alg)
+        want = j.read_band_resampled(1, 30, 20, alg)
+    finally:
+        t.close()
+        j.close()
+    assert traster.ROUTES["device_resample"] == before["device_resample"] + 1
+    assert got.dtype == torch.float32 and tuple(got.shape) == (20, 30)
+    np.testing.assert_allclose(got.numpy(), want, **RESAMPLE_TOL)
+
+
+def test_decoded_band_to_gray_product(tmp_path, rng):
+    """A decoded JPEG's band, read decimated to the device and written as a
+    CLAHE gray JPEG by api.save_image, reads back through the port's own
+    decoder at the size asked."""
+    from sarpro_tpu_torch import _native, api
+    from sarpro_tpu_torch.types import (
+        AutoscaleStrategy,
+        BitDepth,
+        OutputFormat,
+    )
+
+    if not _native.available():
+        pytest.skip("the native JPEG coder is not built here")
+    path = _decoded_files(tmp_path, rng)["jpeg u8"]
+    t = traster.RasterReader(path)
+    band = traster.read_band_resampled_to_device(t, 1, 64, 48, "cpu",
+                                                 "cubic")
+    out = tmp_path / "gray.jpg"
+    api.save_image(band + 1.0, out, OutputFormat.JPEG, BitDepth.U8,
+                   autoscale=AutoscaleStrategy.CLAHE, device="cpu")
+    back = traster.RasterReader(out)
+    assert (back.metadata.size_x, back.metadata.size_y,
+            back.metadata.bands) == (64, 48, 1)
+    assert back._tiff._data.dtype == np.uint8
+    ref = Image.open(out)
+    assert np.array_equal(back._tiff._data[..., 0], np.asarray(ref))
+
+
+def test_reader_fields_match_dataclass():
+    """The comparisons above walk every field of the JAX metadata."""
+    assert {f.name for f in dataclasses.fields(traster.RasterMetadata)} == {
+        f.name for f in dataclasses.fields(jraster.RasterMetadata)}
+
+
+# ---------------------------------------------------------------------------
+# the port's own q100 coders, read back: the bounds chip_smoke.py's rasters
+# phase holds the card's JPEGs to
+# ---------------------------------------------------------------------------
+# the largest |decode - coded| seen: 2 on the gray coder over 9 MP of the
+# rasters phase's band (exponential x 60, clamped; 1 pixel in 9 M at 2), 4
+# on the synRGB route over 2048^2 uniform bands (1838 pixels at 4)
+GRAY_Q100_ROUNDTRIP = 2
+SYNRGB_Q100_ROUNDTRIP = 4
+
+
+@pytest.mark.parametrize("content", ["uniform", "sar"])
+@pytest.mark.parametrize("route", ["gray pixels", "synrgb dct"])
+def test_own_jpeg_round_trip(tmp_path, content, route):
+    """The gray pixel coder and the synRGB DCT route (the fused program's
+    coefficients, the entropy-only coder), on the rasters phase's kind of
+    band: the port's decode equals Pillow's, and lies within the pinned
+    bound of what was coded."""
+    from sarpro_tpu_torch import _native
+    from sarpro_tpu_torch.core import fused
+    from sarpro_tpu_torch.io.writers import jpeg as wjpeg
+
+    if not _native.available():
+        pytest.skip("the native JPEG coder is not built here")
+    g = torch.Generator().manual_seed(13)
+    side = 600
+
+    def band():
+        if content == "uniform":
+            return torch.randint(0, 256, (side, side), generator=g,
+                                 dtype=torch.uint8)
+        return (torch.empty(side, side).exponential_(generator=g).mul_(60.0)
+                .clamp_(0, 255).to(torch.uint8))
+
+    path = tmp_path / "own.jpg"
+    if route == "gray pixels":
+        want = band()
+        wjpeg.write_gray_jpeg(path, side, side, want)
+        want, bound = want.numpy()[..., None], GRAY_Q100_ROUNDTRIP
+    else:
+        b1, b2 = band(), band()
+        clahe = fused.AutoscaleStrategy.CLAHE
+        want = fused.synrgb_combine_stage(b1, b2, clahe, None, "rgb")
+        dct = fused.synrgb_combine_stage(b1, b2, clahe, None, "dct")
+        wjpeg.write_synrgb_jpeg_dct(path, side, side, dct)
+        want = want.numpy().reshape(side, side, 3)
+        bound = SYNRGB_Q100_ROUNDTRIP
+    got = _equal_to_jax(path)
+    err = np.abs(got.astype(np.int32) - want).max()
+    assert err <= bound
+    assert (chip_smoke.GRAY_Q100_ROUNDTRIP,
+            chip_smoke.SYNRGB_Q100_ROUNDTRIP) == (GRAY_Q100_ROUNDTRIP,
+                                                  SYNRGB_Q100_ROUNDTRIP)
+
+
+def test_decoder_build_failure_raises_with_the_compilers_message(
+        tmp_path, monkeypatch, rng):
+    """No silent fallback: where the decoder library cannot be built, a JPEG
+    or GIF raises RasterError carrying g++'s message (PNG, BMP without RLE
+    and netpbm need no library)."""
+    from sarpro_tpu_torch import _native
+
+    bad = tmp_path / "rasterdec.cpp"
+    bad.write_text("this is not C++\n")
+    monkeypatch.setattr(_native, "RASTER_SOURCE", bad)
+    monkeypatch.setattr(_native, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_native, "_RASTER", None)
+    monkeypatch.setattr(_native, "_RASTER_WHY", None)
+    for fmt in ("JPEG", "GIF"):
+        path = tmp_path / f"x.{fmt.lower()}"
+        Image.fromarray(_scene(rng, (8, 8))).save(path, format=fmt)
+        with pytest.raises(RasterError, match="could not be built") as ei:
+            traster.RasterReader(path)
+        assert "rasterdec.cpp" in str(ei.value)
+    path = tmp_path / "x.pgm"
+    path.write_bytes(_netpbm(rng, "P5", 255))
+    _equal_to_jax(path)

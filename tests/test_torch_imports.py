@@ -26,9 +26,13 @@ def test_port_sources_import_no_jax_pillow_or_cv2():
     offenders += [m for m in ("chip_smoke.py", "kernel_ab.py")
                   if pattern.search((REPO / m).read_text())]
     assert offenders == []
-    # the multi-device modules are among the files scanned
+    # the multi-device modules and the raster decoders are among the files
+    # scanned
     assert {"mesh.py", "sharded.py", "warp.py", "batch.py"} <= {
         p.name for p in (PORT / "parallel").glob("*.py")}
+    assert {"pilraster.py", "pixels.py", "png.py", "jpeg.py", "bmp.py",
+            "gif.py", "netpbm.py"} <= {p.name for p in
+                                        (PORT / "io").glob("*.py")}
     for line in ("import sarpro_tpu", "from sarpro_tpu.io import safe",
                  "  from sarpro_tpu import _native", "import jax.numpy"):
         assert pattern.search(line), line
@@ -159,6 +163,46 @@ def test_cpu_slice_runs_with_jax_and_pillow_blocked(tmp_path):
         assert img.shape == (43, 64, 1), img.shape
         srv.shutdown()
         srv.server_close()
+        # the raster decoders: a JPEG from the port's own coder, and a BMP,
+        # a GIF and a PGM written here, opened through RasterReader
+        import struct
+        import numpy as np
+        from sarpro_tpu_torch.io.raster import RasterReader
+        d = Path(sys.argv[2])
+        g = (np.arange(40 * 56).reshape(40, 56) * 7 % 251).astype(np.uint8)
+        want = {}
+        if _native.available():
+            (d / "r.jpg").write_bytes(_native.jpeg_encode_gray(g))
+            want["r.jpg"] = (g, 1)
+        head = struct.pack("<IiiHHIIiiII", 40, 56, -40, 1, 24, 0, 0, 0, 0,
+                           0, 0)
+        (d / "r.bmp").write_bytes(b"BM" + struct.pack("<IHHI", 0, 0, 0, 54)
+                                  + head + np.repeat(g, 3, axis=1).tobytes())
+        want["r.bmp"] = (g, 0)
+        # GIF: 8-bit literal codes, 9 bits each, a clear code every 200
+        codes = []
+        for i, v in enumerate(g.reshape(-1)):
+            if i % 200 == 0:
+                codes.append(256)
+            codes.append(int(v))
+        codes.append(257)
+        acc = sum(c << (9 * i) for i, c in enumerate(codes))
+        lzw = acc.to_bytes((9 * len(codes) + 7) // 8, "little")
+        blocks = b"".join(bytes([len(lzw[i:i + 255])]) + lzw[i:i + 255]
+                          for i in range(0, len(lzw), 255))
+        pal = bytes(v for i in range(256) for v in (i, 255 - i, i // 2))
+        (d / "r.gif").write_bytes(
+            b"GIF89a" + struct.pack("<HHBBB", 56, 40, 0xF7, 0, 0) + pal
+            + b"\\x2c" + struct.pack("<HHHHB", 0, 0, 56, 40, 0) + b"\\x08"
+            + blocks + b"\\x00\\x3b")
+        want["r.gif"] = (np.frombuffer(pal, np.uint8).reshape(256, 3)[g], 0)
+        (d / "r.pgm").write_bytes(b"P5\\n56 40\\n255\\n" + g.tobytes())
+        want["r.pgm"] = (g, 0)
+        for name, (ref, tol) in want.items():
+            data = RasterReader(d / name)._tiff._data
+            ref = ref if ref.ndim == 3 else ref[..., None]
+            err = np.abs(data[..., :ref.shape[2]].astype(int) - ref).max()
+            assert data.shape[:2] == (40, 56) and err <= tol, (name, err)
         assert not [m for m in sys.modules if m.startswith("sarpro_tpu.")]
         print("ok")
     """)

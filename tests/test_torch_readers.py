@@ -8,10 +8,11 @@ package's (metadata, georeferencing, every band), on the CPU:
     chunks, which the port decodes with its own codec (io/png.py) and the
     JAX package with Pillow;
   * PNGs written here chunk by chunk for what Pillow does not write: 16-bit
-    colour, each of the five row filters on every accepted colour type and
-    depth, split image data, text chunks after the image data;
-  * what the port refuses, as RasterError: Adam7 interlacing, grayscale
-    below 8 bits, JPEG (and so Pillow's other formats), broken files.
+    colour, grayscale at 1, 2 and 4 bits, each of the five row filters on
+    every colour type and depth, Adam7 interlacing of each of them, split
+    image data, text chunks after the image data;
+  * what both refuse, as RasterError: broken files.
+The other formats Pillow opens are held in tests/test_torch_decoders.py.
 """
 import dataclasses
 import io
@@ -270,7 +271,8 @@ def _png(arr, depth, ctype, filters=(0,), palette=None, interlace=False,
 
 
 # (colour type, depth, samples of the array)
-FORMS = {"gray 8": (0, 8, 1), "gray 16": (0, 16, 1), "rgb 8": (2, 8, 3),
+FORMS = {"gray 1": (0, 1, 1), "gray 2": (0, 2, 1), "gray 4": (0, 4, 1),
+         "gray 8": (0, 8, 1), "gray 16": (0, 16, 1), "rgb 8": (2, 8, 3),
          "rgb 16": (2, 16, 3), "palette 1": (3, 1, 1),
          "palette 2": (3, 2, 1), "palette 4": (3, 4, 1),
          "palette 8": (3, 8, 1), "gray alpha 8": (4, 8, 2),
@@ -299,9 +301,10 @@ def test_filtered_png_equals_jax(tmp_path, rng, name, filters):
     path.write_bytes(_png(arr, depth, ctype, filters, palette))
     _readers_equal(path)
     data, _ = png.decode(path.read_bytes())
-    if ctype == 0:
-        assert data.dtype == (np.uint16 if depth == 16 else np.uint8)
-        assert np.array_equal(data[..., 0], arr)
+    if ctype == 0:  # Pillow's "1", "L;2" / "L;4" (x85, x17), "L", "I;16"
+        want = {1: arr != 0, 2: arr * 85, 4: arr * 17}.get(depth, arr)
+        assert data.dtype == {1: bool, 16: np.uint16}.get(depth, np.uint8)
+        assert np.array_equal(data[..., 0], want)
     if ctype == 2 and depth == 16:  # Pillow's high byte of each sample
         assert np.array_equal(data, arr >> 8)
     if ctype == 4 and depth == 16:  # read as RGBA (L, L, L, A)
@@ -340,7 +343,7 @@ def test_large_paeth_png_equals_jax(tmp_path, rng):
 
 
 # ---------------------------------------------------------------------------
-# what the port refuses
+# what both refuse
 # ---------------------------------------------------------------------------
 def _refused(path, match):
     with pytest.raises(RasterError, match=match) as ei:
@@ -348,38 +351,44 @@ def _refused(path, match):
     assert str(ei.value).startswith("unsupported raster format")
 
 
-@pytest.mark.parametrize("name", ["gray 8", "rgb 16", "palette 2"])
-def test_interlaced_png_is_refused(tmp_path, rng, name):
-    """Adam7 PNGs that Pillow reads (the JAX reader opens them) raise
-    RasterError in the port."""
-    arr, depth, ctype, palette = _form(rng, name, (11, 14))
+@pytest.mark.parametrize("shape", [(1, 1), (3, 2), (11, 14), (21, 30)],
+                         ids=lambda s: f"{s[0]}x{s[1]}")
+@pytest.mark.parametrize("name", list(FORMS))
+def test_interlaced_png_equals_jax(tmp_path, rng, name, shape):
+    """Adam7 at every colour type and depth (passes empty at the smallest
+    sizes), each pass filtered on its own: equal to the JAX reader, and to
+    the same image without interlacing."""
+    arr, depth, ctype, palette = _form(rng, name, shape)
     path = tmp_path / "i.png"
-    path.write_bytes(_png(arr, depth, ctype, (0, 1), palette,
+    path.write_bytes(_png(arr, depth, ctype, (0, 1, 4, 3), palette,
                           interlace=True))
-    j = jraster.RasterReader(path)
-    want = _png(arr, depth, ctype, (0,), palette)
-    path.with_name("flat.png").write_bytes(want)
-    flat = jraster.RasterReader(path.with_name("flat.png"))
-    for b in range(1, j.metadata.bands + 1):
-        assert np.array_equal(j.read_band(b), flat.read_band(b))
-    _refused(path, "Adam7")
+    _readers_equal(path)
+    flat = _png(arr, depth, ctype, (0,), palette)
+    got, want = png.decode(path.read_bytes())[0], png.decode(flat)[0]
+    assert got.dtype == want.dtype and np.array_equal(got, want)
 
 
+@pytest.mark.parametrize("interlace", [False, True])
 @pytest.mark.parametrize("depth", [1, 2, 4])
-def test_low_depth_grayscale_png_is_refused(tmp_path, rng, depth):
-    arr = rng.integers(0, 1 << depth, (9, 23)).astype(np.uint16)
+def test_low_depth_grayscale_png_equals_jax(tmp_path, rng, depth, interlace):
+    """Grayscale below 8 bits: mode "1" (bool) at 1 bit, "L" scaled by
+    Pillow's unpackers at 2 and 4, in the bands and through the decimated
+    read."""
+    arr = rng.integers(0, 1 << depth, (19, 23)).astype(np.uint16)
     path = tmp_path / "g.png"
-    path.write_bytes(_png(arr, depth, 0))
-    assert jraster.RasterReader(path).metadata.bands == 1
-    _refused(path, f"colour type 0 at {depth} bits")
+    path.write_bytes(_png(arr, depth, 0, (2, 0), interlace=interlace))
+    (band,) = _readers_equal(path)
+    assert np.array_equal(band, (arr * (255 // ((1 << depth) - 1)))
+                          .astype(np.float32) / (255 if depth == 1 else 1))
+    t = traster.RasterReader(path)
+    assert t._tiff._data.dtype == (bool if depth == 1 else np.uint8)
 
 
-def test_jpeg_is_refused(tmp_path, rng):
-    path = tmp_path / "x.jpg"
-    Image.fromarray(rng.integers(0, 255, (16, 24, 3)).astype(np.uint8)).save(
-        path, quality=95)
-    assert jraster.RasterReader(path).metadata.bands == 3
-    _refused(path, "not a PNG")
+def test_pillow_bilevel_png_equals_jax(tmp_path, rng):
+    path = tmp_path / "b.png"
+    Image.fromarray(rng.random((17, 29)) > 0.5).save(path)
+    _readers_equal(path)
+    assert traster.RasterReader(path)._tiff._data.dtype == bool
 
 
 BROKEN = {
