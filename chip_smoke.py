@@ -135,7 +135,21 @@ prints no result):
      (cubic) with the launch counts set to 0 just before and read just
      after, bit-equal to the plain resample; the 80 MP band's read is then
      written as a CLAHE gray JPEG by api.save_image and read back;
- 14. with --walls N only: every warm path N times more, interleaved, with
+ 14. jpeg2000: io/jpeg2000 on the two codestreams of tests/data/jpeg2000
+     (written by Pillow from seeds; no Pillow here), spliced tile-part by
+     tile-part into an 84.9 MP (9216^2, 18 x 18 tiles of 512^2) lossless
+     SAR-like u16 band in a JP2 with .j2w and .prj, and a 4096^2 RGB band
+     (16 x 16 tiles of a 9/7, ICT, two-layer RPCL tile). Each opens through
+     RasterReader (decode ms on the host clock, median of 3, MB and MP/s
+     beside the host CPU); the u16 band is bit-equal to np.tile of its
+     seeded tile with its geotransform and EPSG, every RGB tile equals the
+     port's decode of the tile alone, whose SHA-256 is Pillow's
+     (J2K_RGB_SHA256, pinned in tests/test_torch_jpeg2000.py); the u16
+     band reads decimated to 2048^2 on the card (cubic) with the launch
+     counts set to 0 just before and read just after, bit-equal to the
+     plain resample, and that read is written as a CLAHE gray JPEG by
+     api.save_image and read back;
+ 15. with --walls N only: every warm path N times more, interleaved, with
      medians and quartiles of its wall; the no-warp synRGB read through
      each of the two loaders (full DN + device resample, decimated read) in
      the same rounds; a torch.profiler trace of the single-band TIFF, the
@@ -321,6 +335,15 @@ RASTER_ROWS, RASTER_COLS = 10000, 8000
 PGM_ROWS, PGM_COLS, PGM_MAXVAL = 4000, 5000, 4095
 GRAY_Q100_ROUNDTRIP = 2
 SYNRGB_Q100_ROUNDTRIP = 4
+# the jpeg2000 phase: Pillow-written tiles (tests/data/jpeg2000, made by
+# tests/test_torch_jpeg2000.py from these seeds) spliced into 84.9 MP of
+# u16 (under Pillow's 89.5 MP warning) and 4096^2 of RGB; the SHA-256 of
+# Pillow's decode of the RGB tile, which the port's must match
+J2K_DIR = ROOT / "tests" / "data" / "jpeg2000"
+J2K_BAND, J2K_BAND_SEED, J2K_BAND_TILES = "sar_u16_512.j2k", 13, 18
+J2K_RGB, J2K_RGB_SEED, J2K_RGB_TILES = "rgb_97_256.j2k", 14, 16
+J2K_RGB_SHA256 = ("4c7da7321af50225bed0e90a4909a7d1"
+                  "de1fcc26f06e867d74b9dfc2e5bafb21")
 # the path whose launch count each kernel reports in the kernels line
 REPORTED_PATH = {k: ("warm tamed cubic" if k == "resample_axis0"
                      else "warm clahe auto") for k in KERNELS}
@@ -3402,6 +3425,210 @@ def _raster_inputs(work: Path, band, synrgb: Path) -> dict:
     return files
 
 
+def j2k_band_tile(seed: int = J2K_BAND_SEED, side: int = 512):
+    """The u16 tile of the JPEG 2000 band: make_safe's VV DN (lognormal,
+    2 % zeros) from `seed`."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    dn = np.clip(rng.lognormal(5.0, 1.1, (side, side)), 0, 65535).astype(
+        np.uint16)
+    dn[rng.random((side, side)) < 0.02] = 0
+    return dn
+
+
+def j2k_rgb_tile(seed: int = J2K_RGB_SEED, side: int = 256):
+    """The u8 RGB tile of the JPEG 2000 colour band: gradients and gamma
+    speckle from `seed`."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    y, x = np.mgrid[0:side, 0:side]
+    base = np.stack([(x + y) % 256, (2 * x) % 256, 255 - y % 256], -1)
+    return np.clip(0.6 * base + rng.gamma(4.0, 8.0, (side, side, 3)), 0,
+                   255).astype(np.uint8)
+
+
+def j2k_splice(code: bytes, nx: int, ny: int) -> bytes:
+    """A codestream of nx x ny tiles from one whose image is one tile at
+    the origin: SIZ's image size made nx x ny tiles, the tile-part repeated
+    with its tile index renumbered, then EOC."""
+    xt, yt = struct.unpack_from(">II", code, 24)
+    if struct.unpack_from(">IIII", code, 8) != (xt, yt, 0, 0) or \
+            struct.unpack_from(">II", code, 32) != (0, 0):
+        raise ValueError("the codestream is not one tile at the origin")
+    sot = code.index(b"\xff\x90\x00\x0a")
+    if not code.endswith(b"\xff\xd9") or struct.unpack_from(
+            ">I", code, sot + 6)[0] != len(code) - 2 - sot:
+        raise ValueError("the codestream is not one tile-part and EOC")
+    head = bytearray(code[:sot])
+    struct.pack_into(">II", head, 8, xt * nx, yt * ny)
+    part = bytearray(code[sot:-2])
+    parts = []
+    for i in range(nx * ny):
+        struct.pack_into(">H", part, 4, i)
+        parts.append(bytes(part))
+    return bytes(head) + b"".join(parts) + b"\xff\xd9"
+
+
+def jp2_wrap(code: bytes, width: int, height: int, bands: int, bits: int,
+             enumcs: int) -> bytes:
+    """A JP2 file around `code`: signature, ftyp, jp2h (ihdr, enumerated
+    colr) and jp2c boxes."""
+    def box(kind: bytes, data: bytes) -> bytes:
+        return struct.pack(">I4s", 8 + len(data), kind) + data
+
+    ihdr = struct.pack(">IIHBBBB", height, width, bands, bits - 1, 7, 0, 0)
+    colr = struct.pack(">BBBI", 1, 0, 0, enumcs)
+    return (box(b"jP  ", b"\r\n\x87\n")
+            + box(b"ftyp", b"jp2 \0\0\0\0jp2 ")
+            + box(b"jp2h", box(b"ihdr", ihdr) + box(b"colr", colr))
+            + box(b"jp2c", code))
+
+
+def phase_jpeg2000(work: Path, smi: str) -> dict:
+    """io/jpeg2000 on the card's machine: the spliced 84.9 MP u16 JP2 and
+    4096^2 RGB codestream opened through RasterReader (decode timed on the
+    host clock, median of 3), held to their tiles, the u16 band read
+    decimated to 2048^2 on the card (bit-equal to the plain resample) and
+    saved as a CLAHE gray JPEG that reads back. Returns the launches of the
+    driven read and save."""
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    from sarpro_tpu_torch import _native, api, ops
+    from sarpro_tpu_torch.io import jpeg2000, raster
+    from sarpro_tpu_torch.io.writers.worldfile import write_prj_file
+    from sarpro_tpu_torch.ops import force_plain
+    from sarpro_tpu_torch.types import (
+        AutoscaleStrategy,
+        BitDepth,
+        OutputFormat,
+    )
+
+    _native.raster_decoder()  # built in phase_build; raises if it did not
+    d = work / "jpeg2000"
+    d.mkdir()
+    tile = j2k_band_tile()
+    band_code = (J2K_DIR / J2K_BAND).read_bytes()
+    if not np.array_equal(jpeg2000.read(band_code).array, tile):
+        raise AssertionError("jpeg2000: the u16 tile does not decode to its "
+                             "seeded DN")
+    side = tile.shape[0] * J2K_BAND_TILES
+    band_path = d / "band.jp2"
+    band_path.write_bytes(jp2_wrap(
+        j2k_splice(band_code, J2K_BAND_TILES, J2K_BAND_TILES), side, side, 1,
+        16, 17))
+    gt = [500000.0, 10.0, 0.0, 5100000.0, 0.0, -10.0]
+    band_path.with_suffix(".j2w").write_text(
+        "10.0\n0.0\n0.0\n-10.0\n500005.0\n5099995.0\n")
+    write_prj_file(band_path, "EPSG:32632")
+    rgb_code = (J2K_DIR / J2K_RGB).read_bytes()
+    rgb_tile = jpeg2000.read(rgb_code).array
+    digest = hashlib.sha256(rgb_tile.tobytes()).hexdigest()
+    if digest != J2K_RGB_SHA256:
+        raise AssertionError(f"jpeg2000: the RGB tile decodes to SHA-256 "
+                             f"{digest}, Pillow's is {J2K_RGB_SHA256}")
+    rgb_path = d / "rgb.j2k"
+    rgb_path.write_bytes(j2k_splice(rgb_code, J2K_RGB_TILES, J2K_RGB_TILES))
+    cpu = _host_cpu()
+    totals = {k: 0 for k in ops.launch_counts()}
+    for name, path in (("u16 band 84.9 MP", band_path),
+                       ("rgb 9/7 16.8 MP", rgb_path)):
+        walls = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            reader = raster.RasterReader(path)
+            walls.append(time.perf_counter() - t0)
+        data = reader._tiff._data
+        md = reader.metadata
+        if name.startswith("u16"):
+            want = np.tile(tile, (J2K_BAND_TILES, J2K_BAND_TILES))[..., None]
+            if md.geotransform != gt or md.epsg != 32632:
+                raise AssertionError(f"jpeg2000: {name}: geotransform "
+                                     f"{md.geotransform}, EPSG {md.epsg}")
+            if data.dtype != want.dtype or not np.array_equal(data, want):
+                raise AssertionError(f"jpeg2000: {name}: the decode is not "
+                                     f"np.tile of its seeded tile")
+        else:
+            n = rgb_tile.shape[0]
+            want = np.tile(rgb_tile, (J2K_RGB_TILES, J2K_RGB_TILES, 1))
+            if data.shape != want.shape or not np.array_equal(data, want):
+                bad = [(i, j) for i in range(J2K_RGB_TILES)
+                       for j in range(J2K_RGB_TILES)
+                       if not np.array_equal(
+                           data[i * n:(i + 1) * n, j * n:(j + 1) * n],
+                           rgb_tile)]
+                raise AssertionError(f"jpeg2000: {name}: tiles {bad[:8]} "
+                                     f"differ from the tile's decode")
+        wall = statistics.median(walls)
+        mb = path.stat().st_size / 1e6
+        mp = md.size_x * md.size_y / 1e6
+        log(f"jpeg2000: {name} ({mb:.1f} MB, {data.dtype} "
+            f"{tuple(data.shape)}): decode {wall * 1e3:.1f} ms (host clock, "
+            f"median of 3; {', '.join(f'{w * 1e3:.1f}' for w in walls)}), "
+            f"{mp / wall:.1f} MP/s, {mb / wall:.1f} MB/s, equal to its "
+            f"tiles; {_native._threads()} decoder threads on host CPU {cpu}")
+        if not name.startswith("u16"):
+            reader.close()
+            del reader, data
+            continue
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        t0 = time.perf_counter()
+        start.record()
+        dev = raster.read_band_resampled_to_device(reader, 1, SIZE, SIZE,
+                                                   DEVICE, "cubic")
+        end.record()
+        end.synchronize()
+        read_ms = (time.perf_counter() - t0) * 1e3
+        counts = ops.launch_counts()
+        if counts["resample_axis0"] <= 0:
+            raise AssertionError(f"jpeg2000: {name}: the decimated read "
+                                 f"launched no resample ({counts})")
+        for k, v in counts.items():
+            totals[k] += v
+        with force_plain():
+            plain = raster.read_band_resampled_to_device(
+                reader, 1, SIZE, SIZE, DEVICE, "cubic")
+        _check_equal(dev, plain, f"jpeg2000: {name} resample vs plain")
+        log(f"jpeg2000: {name}: cubic read to {SIZE}^2 "
+            f"{start.elapsed_time(end):.3f} ms between CUDA events "
+            f"({read_ms:.1f} ms host), launches "
+            f"{ {k: v for k, v in counts.items() if v} }, bit-equal to the "
+            f"plain resample; on {smi}")
+        reader.close()
+        del reader, data, plain
+        out = d / "clahe_gray.jpg"
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        api.save_image(dev + 1.0, out, OutputFormat.JPEG, BitDepth.U8,
+                       autoscale=AutoscaleStrategy.CLAHE, device=DEVICE)
+        wall = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        for k in ("histogram", "tile_histogram", "clahe_lookup"):
+            if counts[k] <= 0:
+                raise AssertionError(f"jpeg2000: the CLAHE gray save "
+                                     f"launched no {k} ({counts})")
+        for k, v in counts.items():
+            totals[k] += v
+        back = raster.RasterReader(out)
+        if (back.metadata.size_x, back.metadata.size_y,
+                back.metadata.bands) != (SIZE, SIZE, 1):
+            raise AssertionError(f"jpeg2000: the CLAHE gray JPEG reads back "
+                                 f"as {back.metadata}")
+        log(f"jpeg2000: api.save_image CLAHE gray JPEG of the {name}'s "
+            f"{SIZE}^2 read: {wall * 1e3:.1f} ms (host clock), launches "
+            f"{ {k: v for k, v in counts.items() if v} }, read back "
+            f"{SIZE} x {SIZE} x 1")
+        del dev
+    shutil.rmtree(d, ignore_errors=True)
+    return totals
+
+
 def phase_rasters(work: Path, synrgb: Path, rgb, smi: str) -> dict:
     """The non-TIFF raster readers on the card's machine: each input opened
     through RasterReader (its decode timed on the host clock, median of 3),
@@ -3655,6 +3882,7 @@ def main() -> int:
         raster_launches = timed(phase_rasters, work,
                                 DRIVEN["warm clahe auto"][1],
                                 RESIDENT_RGB["clahe auto"], smi)
+        j2k_launches = timed(phase_jpeg2000, work, smi)
         if args.walls:
             timed(phase_walls, args.walls, safe, work, smi)
     finally:
@@ -3687,6 +3915,7 @@ def main() -> int:
         entry["gui_launches"] = gui_launches[name]
         entry["shard_launches"] = shard_launches[name]
         entry["raster_launches"] = raster_launches[name]
+        entry["jpeg2000_launches"] = j2k_launches[name]
         if also:
             entry["also_replaces"] = also[0]
         kernels.append(entry)

@@ -12,10 +12,11 @@ without its library: `available()` is False and the TIFF codec takes its
 pure-Python paths.
 
 The raster decoders (`rasterdec.cpp` beside this file: JPEG, the GIF LZW
-stream and BMP RLE, for io/jpeg.py, io/gif.py and io/bmp.py) build the same
-way into a library of their own, at their first use. They have no fallback:
-where that library cannot be built, `raster_decoder()` raises with the
-compiler's message.
+stream and BMP RLE, for io/jpeg.py, io/gif.py and io/bmp.py; `j2kdec.cpp`:
+the JPEG 2000 codestream, for io/jpeg2000.py) build the same way into one
+library of their own, at their first use, with FMA contraction off so the
+9/7 wavelet rounds as written. They have no fallback: where that library
+cannot be built, `raster_decoder()` raises with the compiler's message.
 """
 from __future__ import annotations
 
@@ -44,13 +45,15 @@ _TRIED = False
 _LOAD_LOCK = threading.Lock()
 
 
-def _compile(sources: list, stem: str) -> tuple:
-    """(path, None) of the library built from `sources`, built first if
-    needed; (None, why) where it cannot be built."""
+def _compile(sources: list, stem: str, extra: tuple = ()) -> tuple:
+    """(path, None) of the library built from `sources` with CXX_FLAGS and
+    `extra`, built first if needed; (None, why) where it cannot be
+    built."""
     if not all(p.exists() for p in sources):
         return None, "missing sources: " + ", ".join(
             str(p) for p in sources if not p.exists())
-    digest = hashlib.sha256(" ".join(CXX_FLAGS).encode())
+    flags = (*CXX_FLAGS, *extra)
+    digest = hashlib.sha256(" ".join(flags).encode())
     for src in sources:
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
@@ -63,7 +66,7 @@ def _compile(sources: list, stem: str) -> tuple:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
     try:
-        res = subprocess.run([cxx, *CXX_FLAGS, *map(str, sources), "-o",
+        res = subprocess.run([cxx, *flags, *map(str, sources), "-o",
                               str(tmp)], capture_output=True, text=True)
         if res.returncode != 0:
             return None, (f"g++ failed ({res.returncode}): "
@@ -141,6 +144,9 @@ def available() -> bool:
 
 
 RASTER_SOURCE = pathlib.Path(__file__).resolve().with_name("rasterdec.cpp")
+J2K_SOURCE = RASTER_SOURCE.with_name("j2kdec.cpp")
+# the 9/7 wavelet and the ICT are float code: no FMA contraction
+RASTER_FLAGS = ("-ffp-contract=off",)
 _RASTER: Optional[ctypes.CDLL] = None
 _RASTER_WHY: Optional[str] = None
 _RASTER_LOCK = threading.Lock()
@@ -153,7 +159,8 @@ def raster_decoder() -> ctypes.CDLL:
     global _RASTER, _RASTER_WHY
     with _RASTER_LOCK:
         if _RASTER is None and _RASTER_WHY is None:
-            so, why = _compile([RASTER_SOURCE], "libsarpro_rasterdec")
+            so, why = _compile([RASTER_SOURCE, J2K_SOURCE],
+                               "libsarpro_rasterdec", RASTER_FLAGS)
             if so is None:
                 _RASTER_WHY = why
             else:
@@ -172,10 +179,16 @@ def raster_decoder() -> ctypes.CDLL:
                 lib.bmp_rle_decode.restype = i64
                 lib.bmp_rle_decode.argtypes = [u8p, i64, i64, i32, i64, i32,
                                                u8p]
+                lib.j2k_decode.restype = i64
+                lib.j2k_decode.argtypes = [u8p, i64, i64, i64, i32,
+                                           ctypes.POINTER(i32), i32,
+                                           ctypes.c_void_p, i32,
+                                           ctypes.c_char_p, i64]
                 _RASTER = lib
         if _RASTER is None:
             raise RuntimeError(f"the raster decoder library "
-                               f"({RASTER_SOURCE.name}) could not be built: "
+                               f"({RASTER_SOURCE.name}, {J2K_SOURCE.name}) "
+                               f"could not be built: "
                                f"{_RASTER_WHY}")
         return _RASTER
 
@@ -206,6 +219,25 @@ def jpeg_decode(blob: bytes, width: int, height: int,
     err = ctypes.create_string_buffer(512)
     if lib.jpeg_decode(_u8p(src), len(blob), _u8p(out), out.size,
                        _threads(), err, len(err)) != 0:
+        raise ValueError(err.value.decode("latin-1"))
+    return out
+
+
+def j2k_decode(code: bytes, width: int, height: int, chan_comp: tuple,
+               bits: int) -> np.ndarray:
+    """The (height, width, len(chan_comp)) image (u8 for `bits` 8, u16 for
+    16) Pillow unpacks from a JPEG 2000 codestream: channel k from
+    component chan_comp[k] (-1: 0xFF); ValueError with the decoder's
+    reason."""
+    lib = raster_decoder()
+    src = np.frombuffer(code, np.uint8)
+    out = np.zeros((height, width, len(chan_comp)),
+                   np.uint8 if bits == 8 else np.uint16)
+    comps = (ctypes.c_int32 * len(chan_comp))(*chan_comp)
+    err = ctypes.create_string_buffer(512)
+    if lib.j2k_decode(_u8p(src), len(code), width, height, len(chan_comp),
+                      comps, bits, out.ctypes.data, _threads(), err,
+                      len(err)) != 0:
         raise ValueError(err.value.decode("latin-1"))
     return out
 

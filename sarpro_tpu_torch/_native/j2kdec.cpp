@@ -1,0 +1,1386 @@
+// JPEG 2000 (ISO/IEC 15444-1) codestream decoder: the samples OpenJPEG 2.5.4
+// gives Pillow 12.1 when Pillow opens a .jp2 / .j2k file, then Pillow's
+// unpacking of them into the image's mode. Built at first use with
+// rasterdec.cpp into one library (sarpro_tpu_torch._native) and bound with
+// ctypes (a plain C interface, no Python or PyTorch headers). Compiled with
+// -ffp-contract=off: the 9/7 wavelet and the ICT are float code whose
+// rounding must not hang on the compiler.
+//
+//   * main and tile-part headers: SIZ, COD / COC, QCD / QCC, COM, TLM, PLM,
+//     PLT, CRG, tile-parts in any order and in several parts;
+//   * tier-2: tag trees, pass counts, Lblock, SOP / EPH, the five
+//     progression orders over the precinct geometry of t2.c / pi.c;
+//   * tier-1 (EBCOT): the MQ decoder, the significance, refinement and
+//     cleanup passes, OpenJPEG's reconstruction (a decoded magnitude sits
+//     at the middle of its last bit-plane: t1.c's "oneplushalf");
+//   * dequantisation and the inverse 5/3 (integer) and 9/7 (float, dwt.c's
+//     lifting constants, the 2/K high-band scale and order of operations);
+//   * the RCT / ICT, the DC level shift, lrintf and the clamp of tcd.c;
+//   * Pillow's Jpeg2KDecode.c unpackers: the shift to 8 (or 16) bits with
+//     its rounding offset, the signed offset, the stores to u8 / u16.
+//
+// Refused with a message that names the feature: code-block styles other
+// than 0 (bypass, reset, termall, causal, pterm, segsym), HTJ2K, region of
+// interest (RGN), progression order changes (POC), packed packet headers
+// (PPM / PPT), Part-2 capabilities, component sub-sampling, precisions
+// above 16 bits, and any codestream cut short (OpenJPEG in Pillow's strict
+// mode refuses those too).
+#include <algorithm>
+#include <atomic>
+#include <cmath>
+#include <cstdint>
+#include <cstdio>
+#include <cstring>
+#include <string>
+#include <thread>
+#include <vector>
+
+namespace {
+
+struct J2kError {
+  std::string what;
+};
+
+[[noreturn]] void fail(const std::string& what) { throw J2kError{what}; }
+
+std::string hex4(int v) {
+  char b[16];
+  std::snprintf(b, sizeof b, "0x%04X", v & 0xFFFF);
+  return b;
+}
+
+inline int64_t ceildivpow2(int64_t a, int e) { return (a + (int64_t{1} << e) - 1) >> e; }
+inline int64_t floordivpow2(int64_t a, int e) { return a >> e; }
+inline int64_t ceildiv(int64_t a, int64_t b) { return (a + b - 1) / b; }
+
+// ---------------------------------------------------------------------------
+// header structures
+// ---------------------------------------------------------------------------
+struct CompSiz {
+  int prec = 8;
+  bool sgnd = false;
+  int dx = 1, dy = 1;
+};
+
+struct Coding {  // SPcod / SPcoc
+  int levels = 5, cbw = 6, cbh = 6, style = 0, transform = 0;
+  uint8_t prc[33];
+  Coding() { std::memset(prc, 0xFF, sizeof prc); }
+};
+
+struct Quant {  // SPqcd / SPqcc
+  int style = 0, guard = 2;
+  uint16_t expn[97] = {}, mant[97] = {};
+};
+
+struct Params {
+  int prog = 0, layers = 1, mct = 0;
+  bool sop = false, eph = false;
+  std::vector<Coding> coding;
+  std::vector<Quant> quant;
+};
+
+struct Siz {
+  int64_t X = 0, Y = 0, XO = 0, YO = 0, XT = 0, YT = 0, XTO = 0, YTO = 0;
+  int nc = 0;
+  std::vector<CompSiz> comps;
+  int64_t ntx = 0, nty = 0;
+};
+
+struct Reader {
+  const uint8_t* p;
+  size_t n, pos = 0;
+  Reader(const uint8_t* p_, size_t n_) : p(p_), n(n_) {}
+  void need(size_t k) const {
+    if (pos + k > n) fail("codestream cut short");
+  }
+  int u8() {
+    need(1);
+    return p[pos++];
+  }
+  int u16() {
+    need(2);
+    int v = (p[pos] << 8) | p[pos + 1];
+    pos += 2;
+    return v;
+  }
+  uint32_t u32() {
+    need(4);
+    uint32_t v = (uint32_t{p[pos]} << 24) | (uint32_t{p[pos + 1]} << 16) |
+                 (uint32_t{p[pos + 2]} << 8) | p[pos + 3];
+    pos += 4;
+    return v;
+  }
+};
+
+const char* style_name(int bit) {
+  switch (bit) {
+    case 0x01: return "selective arithmetic coding bypass";
+    case 0x02: return "context reset on each coding pass (RESET)";
+    case 0x04: return "termination on each coding pass (TERMALL)";
+    case 0x08: return "vertically causal context (VSC)";
+    case 0x10: return "predictable termination (PTERM)";
+    case 0x20: return "segmentation symbols (SEGSYM)";
+    default: return "HTJ2K (Part 15) code-blocks";
+  }
+}
+
+// SPcod / SPcoc: levels, code-block size and style, wavelet, precincts
+void read_spcod(Reader& r, size_t end, bool custom_prec, Coding& c) {
+  c.levels = r.u8();
+  if (c.levels > 32) fail("more than 32 decomposition levels");
+  c.cbw = r.u8() + 2;
+  c.cbh = r.u8() + 2;
+  if (c.cbw > 10 || c.cbh > 10 || c.cbw + c.cbh > 12)
+    fail("invalid code-block size");
+  c.style = r.u8();
+  for (int bit = 1; bit < 0x100; bit <<= 1)
+    if (c.style & bit)
+      fail(std::string("code-block style not decoded by the port: ") + style_name(bit));
+  c.transform = r.u8();
+  if (c.transform > 1) fail("Part-2 wavelet transform (" + std::to_string(c.transform) + ")");
+  if (custom_prec) {
+    for (int i = 0; i <= c.levels; ++i) {
+      c.prc[i] = static_cast<uint8_t>(r.u8());
+      if (i > 0 && ((c.prc[i] & 0xF) == 0 || (c.prc[i] >> 4) == 0))
+        fail("invalid precinct size");
+    }
+  } else {
+    std::memset(c.prc, 0xFF, sizeof c.prc);
+  }
+  if (r.pos != end) fail("COD/COC segment of the wrong length");
+}
+
+void read_sqcd(Reader& r, size_t end, Quant& q) {
+  int s = r.u8();
+  q.style = s & 0x1F;
+  q.guard = s >> 5;
+  if (q.style > 2) fail("Part-2 quantization style (" + std::to_string(q.style) + ")");
+  std::fill(std::begin(q.expn), std::end(q.expn), 0);
+  std::fill(std::begin(q.mant), std::end(q.mant), 0);
+  // j2k.c reads every band the segment holds (keeping the first 97) and
+  // refuses a segment with bytes left over
+  const size_t left = end > r.pos ? end - r.pos : 0;
+  if (q.style == 0) {
+    for (size_t b = 0; b < left; ++b) {
+      const int v = r.u8();
+      if (b < 97) q.expn[b] = static_cast<uint16_t>(v >> 3);
+    }
+  } else {
+    const size_t nb = q.style == 1 ? 1 : left / 2;
+    if (nb < 1 || 2 * nb != left) fail("QCD/QCC segment of the wrong length");
+    for (size_t b = 0; b < nb; ++b) {
+      const int v = r.u16();
+      if (b >= 97) continue;
+      q.expn[b] = static_cast<uint16_t>(v >> 11);
+      q.mant[b] = static_cast<uint16_t>(v & 0x7FF);
+    }
+    if (q.style == 1)  // scalar derived (j2k.c, opj_j2k_read_SQcd_SQcc)
+      for (int b = 1; b < 97; ++b) {
+        int e = q.expn[0] - (b - 1) / 3;
+        q.expn[b] = static_cast<uint16_t>(e > 0 ? e : 0);
+        q.mant[b] = q.mant[0];
+      }
+  }
+  r.pos = end;
+}
+
+// a COD, COC, QCD or QCC segment [r.pos, end) into `p`; `coc_set` /
+// `qcc_set` mark the components a COC / QCC of this header has set, so a
+// COD / QCD read after it leaves them as they are
+void read_coding_marker(int m, Reader& r, size_t end, const Siz& siz, Params& p,
+                        std::vector<char>& coc_set, std::vector<char>& qcc_set) {
+  if (m == 0xFF52) {  // COD
+    int scod = r.u8();
+    if (scod & ~0x07) fail("Part-2 coding style (Scod " + std::to_string(scod) + ")");
+    p.prog = r.u8();
+    if (p.prog > 4) fail("unknown progression order " + std::to_string(p.prog));
+    p.layers = r.u16();
+    if (p.layers == 0) fail("no quality layers");
+    p.mct = r.u8();
+    if (p.mct > 1) fail("Part-2 multiple component transform (" + std::to_string(p.mct) + ")");
+    p.sop = scod & 2;
+    p.eph = scod & 4;
+    Coding c;
+    read_spcod(r, end, scod & 1, c);
+    for (int i = 0; i < siz.nc; ++i)
+      if (!coc_set[i]) p.coding[i] = c;
+  } else if (m == 0xFF53) {  // COC
+    int comp = siz.nc < 257 ? r.u8() : r.u16();
+    if (comp >= siz.nc) fail("COC for a component past Csiz");
+    int scoc = r.u8();
+    read_spcod(r, end, scoc & 1, p.coding[comp]);
+    coc_set[comp] = 1;
+  } else if (m == 0xFF5C) {  // QCD
+    Quant q;
+    read_sqcd(r, end, q);
+    for (int i = 0; i < siz.nc; ++i)
+      if (!qcc_set[i]) p.quant[i] = q;
+  } else {  // QCC
+    int comp = siz.nc < 257 ? r.u8() : r.u16();
+    if (comp >= siz.nc) fail("QCC for a component past Csiz");
+    read_sqcd(r, end, p.quant[comp]);
+    qcc_set[comp] = 1;
+  }
+}
+
+[[noreturn]] void refuse_marker(int m) {
+  switch (m) {
+    case 0xFF5E: fail("region of interest (RGN) is not decoded by the port");
+    case 0xFF5F: fail("progression order change (POC) is not decoded by the port");
+    case 0xFF60: fail("packed packet headers (PPM) are not decoded by the port");
+    case 0xFF61: fail("packed packet headers (PPT) are not decoded by the port");
+    default: fail("HTJ2K capabilities (CAP) are not decoded by the port");
+  }
+}
+
+bool refused_marker(int m) {
+  return m == 0xFF5E || m == 0xFF5F || m == 0xFF60 || m == 0xFF61 || m == 0xFF50;
+}
+
+enum : int { IN_MAIN = 1, IN_TILE = 2, UNKNOWN = -1 };
+
+// j2k.c's marker table: where each marker it knows may stand (SOT opens a
+// tile-part from the main header or after one; SOP stands in no header)
+int marker_places(int m) {
+  switch (m) {
+    case 0xFF90: return IN_MAIN;
+    case 0xFF52: case 0xFF53: case 0xFF5E: case 0xFF5C: case 0xFF5D: case 0xFF5F:
+    case 0xFF64: case 0xFF74: case 0xFF75: case 0xFF77: return IN_MAIN | IN_TILE;
+    case 0xFF51: case 0xFF55: case 0xFF57: case 0xFF60: case 0xFF63: case 0xFF78:
+    case 0xFF50: case 0xFF59: return IN_MAIN;
+    case 0xFF58: case 0xFF61: return IN_TILE;
+    case 0xFF91: return 0;
+    default: return UNKNOWN;
+  }
+}
+
+// the next marker a header reads at r.pos, as j2k.c reads it: past an
+// unknown marker (opj_j2k_read_unk) the 2-byte words that follow it, with
+// no regard to its length, up to a marker it knows; a known marker must
+// stand where its table entry says
+int next_marker(Reader& r, int place) {
+  int m = r.u16();
+  if (m < 0xFF00) fail("expected a marker in a header, found " + hex4(m));
+  if (place == IN_TILE && m == 0xFF93) return m;  // SOD
+  while (marker_places(m) == UNKNOWN) {
+    do m = r.u16();
+    while (m < 0xFF00 || marker_places(m) == UNKNOWN);
+  }
+  if (!(marker_places(m) & place)) fail("marker " + hex4(m) + " is not compliant with its position");
+  return m;
+}
+
+[[noreturn]] void refuse_part2(int m) {
+  fail("Part-2 multiple component transform markers (" + hex4(m) + ") are not decoded by the port");
+}
+
+bool part2_marker(int m) { return m == 0xFF74 || m == 0xFF75 || m == 0xFF77 || m == 0xFF78; }
+
+struct TilePart {
+  size_t begin, end;  // packet data
+};
+
+struct Tile {
+  Params params;
+  bool seen = false;
+  int nparts = 0;  // TNsot, where a tile-part gave it
+  std::vector<char> coc_set, qcc_set;
+  std::vector<TilePart> parts;
+};
+
+struct Codestream {
+  Siz siz;
+  Params main;
+  std::vector<Tile> tiles;
+  const uint8_t* data = nullptr;
+};
+
+Codestream parse(const uint8_t* src, size_t n) {
+  Codestream cs;
+  cs.data = src;
+  Reader r(src, n);
+  if (r.u16() != 0xFF4F) fail("no SOC marker");
+  if (r.u16() != 0xFF51) fail("no SIZ marker after SOC");
+  size_t lsiz = static_cast<size_t>(r.u16());
+  size_t siz_end = r.pos - 2 + lsiz;
+  Siz& s = cs.siz;
+  int rsiz = r.u16();
+  if (rsiz & 0x8000) fail("Part-2 capabilities (Rsiz " + hex4(rsiz) + ") are not decoded by the port");
+  if (rsiz & 0x4000) fail("HTJ2K capabilities (Rsiz " + hex4(rsiz) + ") are not decoded by the port");
+  s.X = r.u32();
+  s.Y = r.u32();
+  s.XO = r.u32();
+  s.YO = r.u32();
+  s.XT = r.u32();
+  s.YT = r.u32();
+  s.XTO = r.u32();
+  s.YTO = r.u32();
+  s.nc = r.u16();
+  if (s.nc < 1 || s.nc > 16384) fail("invalid component count");
+  if (lsiz != 38 + 3 * static_cast<size_t>(s.nc)) fail("invalid SIZ length");
+  if (s.X <= s.XO || s.Y <= s.YO || s.XT == 0 || s.YT == 0 || s.XTO > s.XO ||
+      s.YTO > s.YO || s.XTO + s.XT <= s.XO || s.YTO + s.YT <= s.YO)
+    fail("invalid image or tile geometry in SIZ");
+  s.comps.resize(s.nc);
+  for (auto& c : s.comps) {
+    int ssiz = r.u8();
+    c.prec = (ssiz & 0x7F) + 1;
+    c.sgnd = ssiz & 0x80;
+    c.dx = r.u8();
+    c.dy = r.u8();
+    if (c.dx == 0 || c.dy == 0) fail("invalid component sub-sampling");
+    if (c.prec > 38) fail("invalid component precision");
+  }
+  r.pos = siz_end;
+  s.ntx = ceildiv(s.X - s.XTO, s.XT);
+  s.nty = ceildiv(s.Y - s.YTO, s.YT);
+  if (s.ntx * s.nty > 65535) fail("more than 65535 tiles");
+  cs.main.coding.resize(s.nc);
+  cs.main.quant.resize(s.nc);
+  std::vector<char> coc(s.nc, 0), qcc(s.nc, 0);
+  bool cod = false, qcd = false;
+  // main header, up to the first SOT
+  for (;;) {
+    const int m = next_marker(r, IN_MAIN);
+    if (m == 0xFF90) break;
+    if (m == 0xFF51) fail("a second SIZ marker");
+    size_t len = static_cast<size_t>(r.u16());
+    if (len < 2) fail("invalid marker segment length");
+    size_t end = r.pos - 2 + len;
+    if (end > n) fail("codestream cut short");
+    if (refused_marker(m)) refuse_marker(m);
+    if (part2_marker(m)) refuse_part2(m);
+    if (m == 0xFF52 || m == 0xFF53 || m == 0xFF5C || m == 0xFF5D) {
+      read_coding_marker(m, r, end, s, cs.main, coc, qcc);
+      cod |= m == 0xFF52;
+      qcd |= m == 0xFF5C;
+    }
+    r.pos = end;  // TLM, PLM, CRG, COM and CPF segments are skipped
+  }
+  if (!cod) fail("no COD marker in the main header");
+  if (!qcd) fail("no QCD marker in the main header");
+  cs.tiles.resize(static_cast<size_t>(s.ntx * s.nty));
+  // tile-parts; r.pos is just past an SOT marker
+  for (;;) {
+    size_t sot = r.pos - 2;
+    if (r.u16() != 10) fail("invalid SOT length");
+    int isot = r.u16();
+    uint32_t psot = r.u32();
+    const int tpsot = r.u8(), tnsot = r.u8();
+    if (isot >= static_cast<int>(cs.tiles.size())) fail("tile index past the tile count");
+    size_t end = psot ? sot + psot : n - 2;
+    if (psot && psot < 14) fail("invalid Psot");
+    if (end > n) fail("codestream cut short (a tile-part runs past the end)");
+    Tile& t = cs.tiles[isot];
+    // j2k.c's opj_j2k_read_sot: the parts of a tile come in order, and
+    // below the count a TNsot gives
+    if (tnsot != 0) {
+      if ((t.nparts && tpsot >= t.nparts) || tpsot >= tnsot)
+        fail("tile-part index past the tile's part count (TPsot / TNsot)");
+      t.nparts = tnsot;
+    }
+    if (tpsot != static_cast<int>(t.parts.size()))
+      fail("tile-part out of order (TPsot " + std::to_string(tpsot) + ")");
+    if (!t.seen) {
+      t.seen = true;
+      t.params = cs.main;
+      t.coc_set.assign(s.nc, 0);
+      t.qcc_set.assign(s.nc, 0);
+    }
+    for (;;) {
+      const int m = next_marker(r, IN_TILE);
+      if (m == 0xFF93) break;
+      size_t len = static_cast<size_t>(r.u16());
+      if (len < 2) fail("invalid marker segment length");
+      size_t mend = r.pos - 2 + len;
+      if (mend > end) fail("tile-part header runs past its tile-part");
+      if (refused_marker(m)) refuse_marker(m);
+      if (part2_marker(m)) refuse_part2(m);
+      if (m == 0xFF52 || m == 0xFF53 || m == 0xFF5C || m == 0xFF5D)
+        read_coding_marker(m, r, mend, s, t.params, t.coc_set, t.qcc_set);
+      r.pos = mend;  // PLT and COM segments are skipped
+    }
+    if (r.pos > end) fail("tile-part header runs past its tile-part");
+    t.parts.push_back({r.pos, end});
+    r.pos = end;
+    if (r.pos + 2 > n) fail("codestream cut short (no EOC marker)");
+    int m = r.u16();
+    if (m == 0xFFD9) break;
+    if (m != 0xFF90) fail("expected SOT or EOC after a tile-part, found " + hex4(m));
+  }
+  return cs;
+}
+
+// ---------------------------------------------------------------------------
+// tier-2
+// ---------------------------------------------------------------------------
+struct Bio {  // bio.c: packet header bits, a 0 bit stuffed after each 0xFF
+  const uint8_t *start, *bp, *end;
+  uint32_t buf = 0;
+  int ct = 0;
+  Bio(const uint8_t* p, size_t n) : start(p), bp(p), end(p + n) {}
+  void bytein() {
+    buf = (buf << 8) & 0xFFFF;
+    ct = buf == 0xFF00 ? 7 : 8;
+    if (bp < end) buf |= *bp++;
+  }
+  uint32_t bit() {
+    if (ct == 0) bytein();
+    --ct;
+    return (buf >> ct) & 1;
+  }
+  uint32_t read(int n) {
+    uint32_t v = 0;
+    for (int i = n - 1; i >= 0; --i) v |= bit() << i;
+    return v;
+  }
+  void inalign() {
+    if ((buf & 0xFF) == 0xFF) bytein();
+    ct = 0;
+  }
+  size_t numbytes() const { return static_cast<size_t>(bp - start); }
+};
+
+struct TagTree {  // tgt.c
+  std::vector<int> value, low, parent;
+  void init(int w, int h) {
+    value.clear();
+    low.clear();
+    parent.clear();
+    if (w <= 0 || h <= 0) return;
+    std::vector<int> lw{w}, lh{h}, base{0};
+    int total = w * h;
+    while (lw.back() * lh.back() > 1) {
+      base.push_back(total);
+      lw.push_back((lw.back() + 1) / 2);
+      lh.push_back((lh.back() + 1) / 2);
+      total += lw.back() * lh.back();
+    }
+    parent.assign(total, -1);
+    for (size_t l = 0; l + 1 < lw.size(); ++l)
+      for (int y = 0; y < lh[l]; ++y)
+        for (int x = 0; x < lw[l]; ++x)
+          parent[base[l] + y * lw[l] + x] = base[l + 1] + (y / 2) * lw[l + 1] + x / 2;
+    value.assign(total, 999);
+    low.assign(total, 0);
+  }
+  bool decode(Bio& bio, int leaf, int threshold) {
+    int stk[40];
+    int sp = 0;
+    int node = leaf;
+    while (parent[node] >= 0) {
+      stk[sp++] = node;
+      node = parent[node];
+    }
+    int lo = 0;
+    for (;;) {
+      if (lo > low[node])
+        low[node] = lo;
+      else
+        lo = low[node];
+      while (lo < threshold && lo < value[node]) {
+        if (bio.bit())
+          value[node] = lo;
+        else
+          ++lo;
+      }
+      low[node] = lo;
+      if (sp == 0) break;
+      node = stk[--sp];
+    }
+    return value[node] < threshold;
+  }
+};
+
+struct Cblk {
+  int64_t x0, y0, x1, y1;
+  int numbps = 0, lenbits = 3, passes = 0, newpasses = 0;
+  uint32_t newlen = 0;
+  bool included = false;
+  std::vector<std::pair<size_t, uint32_t>> chunks;  // in the tile's data
+};
+
+struct Precinct {
+  int cw = 0, ch = 0;
+  std::vector<Cblk> cblks;
+  TagTree incl, imsb;
+};
+
+struct Band {
+  int orient = 0;  // 0 LL, 1 HL, 2 LH, 3 HH (tcd.c's bandno)
+  int64_t x0, y0, x1, y1;
+  int Mb = 0;
+  float step = 1.0f;
+  int64_t xoff = 0, yoff = 0;  // its place in the tile-component's buffer
+  std::vector<Precinct> precs;
+};
+
+struct Resolution {
+  int64_t x0, y0, x1, y1;
+  int pdx = 15, pdy = 15;
+  int64_t pw = 0, ph = 0;
+  std::vector<Band> bands;
+};
+
+struct TileComp {
+  int64_t x0, y0, x1, y1;
+  int levels = 0, transform = 0;
+  std::vector<Resolution> res;
+  std::vector<int32_t> idata;
+  std::vector<float> fdata;
+  int64_t w() const { return x1 - x0; }
+  int64_t h() const { return y1 - y0; }
+};
+
+void init_tilecomp(TileComp& tc, const CompSiz& cs, const Coding& cod, const Quant& q,
+                   int64_t tx0, int64_t ty0, int64_t tx1, int64_t ty1) {
+  tc.x0 = ceildiv(tx0, cs.dx);
+  tc.y0 = ceildiv(ty0, cs.dy);
+  tc.x1 = ceildiv(tx1, cs.dx);
+  tc.y1 = ceildiv(ty1, cs.dy);
+  tc.levels = cod.levels;
+  tc.transform = cod.transform;
+  tc.res.resize(cod.levels + 1);
+  for (int r = 0; r <= cod.levels; ++r) {
+    Resolution& res = tc.res[r];
+    const int lev = cod.levels - r;
+    res.x0 = ceildivpow2(tc.x0, lev);
+    res.y0 = ceildivpow2(tc.y0, lev);
+    res.x1 = ceildivpow2(tc.x1, lev);
+    res.y1 = ceildivpow2(tc.y1, lev);
+    res.pdx = cod.prc[r] & 0xF;
+    res.pdy = cod.prc[r] >> 4;
+    const int64_t prx0 = floordivpow2(res.x0, res.pdx) << res.pdx;
+    const int64_t pry0 = floordivpow2(res.y0, res.pdy) << res.pdy;
+    const int64_t prx1 = ceildivpow2(res.x1, res.pdx) << res.pdx;
+    const int64_t pry1 = ceildivpow2(res.y1, res.pdy) << res.pdy;
+    res.pw = res.x0 == res.x1 ? 0 : (prx1 - prx0) >> res.pdx;
+    res.ph = res.y0 == res.y1 ? 0 : (pry1 - pry0) >> res.pdy;
+    int64_t cbgx0, cbgy0;
+    int cbgw, cbgh;
+    if (r == 0) {
+      cbgx0 = prx0;
+      cbgy0 = pry0;
+      cbgw = res.pdx;
+      cbgh = res.pdy;
+    } else {
+      cbgx0 = ceildivpow2(prx0, 1);
+      cbgy0 = ceildivpow2(pry0, 1);
+      cbgw = res.pdx - 1;
+      cbgh = res.pdy - 1;
+    }
+    const int cbw = std::min(cod.cbw, cbgw), cbh = std::min(cod.cbh, cbgh);
+    const int nbands = r == 0 ? 1 : 3;
+    res.bands.resize(nbands);
+    for (int b = 0; b < nbands; ++b) {
+      Band& band = res.bands[b];
+      band.orient = r == 0 ? 0 : b + 1;
+      if (r == 0) {
+        band.x0 = res.x0;
+        band.y0 = res.y0;
+        band.x1 = res.x1;
+        band.y1 = res.y1;
+      } else {
+        const int64_t xob = band.orient & 1, yob = band.orient >> 1;
+        band.x0 = ceildivpow2(tc.x0 - (xob << lev), lev + 1);
+        band.y0 = ceildivpow2(tc.y0 - (yob << lev), lev + 1);
+        band.x1 = ceildivpow2(tc.x1 - (xob << lev), lev + 1);
+        band.y1 = ceildivpow2(tc.y1 - (yob << lev), lev + 1);
+        const Resolution& prev = tc.res[r - 1];
+        if (band.orient & 1) band.xoff = prev.x1 - prev.x0;
+        if (band.orient & 2) band.yoff = prev.y1 - prev.y0;
+      }
+      const int idx = r == 0 ? 0 : 3 * (r - 1) + b + 1;
+      const int expn = idx < 97 ? q.expn[idx] : 0;
+      const int mant = idx < 97 ? q.mant[idx] : 0;
+      // tcd.c: the 5/3 gains 0, 1, 1, 2 (opj_dwt_getgain); the 9/7 gain is 0
+      // (opj_dwt_getgain_real), its high bands take 2/K in the lifting
+      const int gain = cod.transform == 1 ? (band.orient == 0 ? 0 : band.orient == 3 ? 2 : 1) : 0;
+      band.step = static_cast<float>((1.0 + mant / 2048.0) * std::pow(2.0, cs.prec + gain - expn));
+      band.Mb = expn + q.guard - 1;
+      band.precs.resize(static_cast<size_t>(res.pw * res.ph));
+      for (int64_t p = 0; p < res.pw * res.ph; ++p) {
+        Precinct& pr = band.precs[p];
+        const int64_t gx0 = cbgx0 + (p % res.pw) * (int64_t{1} << cbgw);
+        const int64_t gy0 = cbgy0 + (p / res.pw) * (int64_t{1} << cbgh);
+        const int64_t px0 = std::max(gx0, band.x0), py0 = std::max(gy0, band.y0);
+        const int64_t px1 = std::min(gx0 + (int64_t{1} << cbgw), band.x1);
+        const int64_t py1 = std::min(gy0 + (int64_t{1} << cbgh), band.y1);
+        if (px0 >= px1 || py0 >= py1) continue;
+        const int64_t cbx0 = floordivpow2(px0, cbw) << cbw, cby0 = floordivpow2(py0, cbh) << cbh;
+        pr.cw = static_cast<int>(((ceildivpow2(px1, cbw) << cbw) - cbx0) >> cbw);
+        pr.ch = static_cast<int>(((ceildivpow2(py1, cbh) << cbh) - cby0) >> cbh);
+        pr.cblks.resize(static_cast<size_t>(pr.cw) * pr.ch);
+        for (int k = 0; k < pr.cw * pr.ch; ++k) {
+          Cblk& cb = pr.cblks[k];
+          const int64_t x = cbx0 + int64_t{k % pr.cw} * (int64_t{1} << cbw);
+          const int64_t y = cby0 + int64_t{k / pr.cw} * (int64_t{1} << cbh);
+          cb.x0 = std::max(x, px0);
+          cb.y0 = std::max(y, py0);
+          cb.x1 = std::min(x + (int64_t{1} << cbw), px1);
+          cb.y1 = std::min(y + (int64_t{1} << cbh), py1);
+        }
+        pr.incl.init(pr.cw, pr.ch);
+        pr.imsb.init(pr.cw, pr.ch);
+      }
+    }
+  }
+}
+
+struct Packet {
+  int layer, res, comp;
+  int64_t prec;
+};
+
+// pi.c's order of the packets of a tile (no POC)
+std::vector<Packet> packet_order(const Params& p, const std::vector<TileComp>& tcs,
+                                 const Siz& siz, int64_t tx0, int64_t ty0, int64_t tx1,
+                                 int64_t ty1) {
+  const int nc = static_cast<int>(tcs.size());
+  int maxres = 0;
+  int64_t maxprec = 0;
+  for (const auto& tc : tcs) {
+    maxres = std::max(maxres, tc.levels + 1);
+    for (const auto& r : tc.res) maxprec = std::max(maxprec, r.pw * r.ph);
+  }
+  std::vector<Packet> out;
+  const int L = p.layers;
+  if (p.prog == 0 || p.prog == 1) {  // LRCP, RLCP
+    const int outer = p.prog == 0 ? L : maxres, inner = p.prog == 0 ? maxres : L;
+    for (int a = 0; a < outer; ++a)
+      for (int b = 0; b < inner; ++b) {
+        const int l = p.prog == 0 ? a : b, r = p.prog == 0 ? b : a;
+        for (int c = 0; c < nc; ++c) {
+          if (r > tcs[c].levels) continue;
+          const Resolution& res = tcs[c].res[r];
+          for (int64_t k = 0; k < res.pw * res.ph; ++k) out.push_back({l, r, c, k});
+        }
+      }
+    return out;
+  }
+  std::vector<char> seen(static_cast<size_t>(L) * maxres * nc * std::max<int64_t>(maxprec, 1), 0);
+  auto emit = [&](int c, int r, int64_t x, int64_t y) {
+    const TileComp& tc = tcs[c];
+    if (r > tc.levels) return;
+    const Resolution& res = tc.res[r];
+    const int lev = tc.levels - r;
+    const int64_t dx = siz.comps[c].dx, dy = siz.comps[c].dy;
+    const int64_t trx0 = ceildiv(tx0, dx << lev), try0 = ceildiv(ty0, dy << lev);
+    const int64_t trx1 = ceildiv(tx1, dx << lev), try1 = ceildiv(ty1, dy << lev);
+    const int rpx = res.pdx + lev, rpy = res.pdy + lev;
+    if (rpx >= 62 || rpy >= 62) return;
+    if (!((y % (dy << rpy)) == 0 || (y == ty0 && ((try0 << lev) % (int64_t{1} << rpy)))))
+      return;
+    if (!((x % (dx << rpx)) == 0 || (x == tx0 && ((trx0 << lev) % (int64_t{1} << rpx)))))
+      return;
+    if (res.pw == 0 || res.ph == 0) return;
+    if (trx0 == trx1 || try0 == try1) return;
+    const int64_t prci = floordivpow2(ceildiv(x, dx << lev), res.pdx) - floordivpow2(trx0, res.pdx);
+    const int64_t prcj = floordivpow2(ceildiv(y, dy << lev), res.pdy) - floordivpow2(try0, res.pdy);
+    const int64_t k = prci + prcj * res.pw;
+    if (k < 0 || k >= res.pw * res.ph) return;
+    for (int l = 0; l < L; ++l) {
+      size_t idx = ((static_cast<size_t>(l) * maxres + r) * nc + c) * maxprec + k;
+      if (seen[idx]) continue;
+      seen[idx] = 1;
+      out.push_back({l, r, c, k});
+    }
+  };
+  auto steps = [&](int c0, int c1, int64_t& sx, int64_t& sy) {
+    sx = 0;
+    sy = 0;
+    for (int c = c0; c < c1; ++c)
+      for (int r = 0; r <= tcs[c].levels; ++r) {
+        const int lev = tcs[c].levels - r;
+        const int ex = tcs[c].res[r].pdx + lev, ey = tcs[c].res[r].pdy + lev;
+        if (ex < 31) {
+          const int64_t d = int64_t{siz.comps[c].dx} << ex;
+          sx = sx ? std::min(sx, d) : d;
+        }
+        if (ey < 31) {
+          const int64_t d = int64_t{siz.comps[c].dy} << ey;
+          sy = sy ? std::min(sy, d) : d;
+        }
+      }
+  };
+  int64_t sx, sy;
+  if (p.prog == 2) {  // RPCL
+    steps(0, nc, sx, sy);
+    if (!sx || !sy) return out;
+    for (int r = 0; r < maxres; ++r)
+      for (int64_t y = ty0; y < ty1; y += sy - (y % sy))
+        for (int64_t x = tx0; x < tx1; x += sx - (x % sx))
+          for (int c = 0; c < nc; ++c) emit(c, r, x, y);
+  } else if (p.prog == 3) {  // PCRL
+    steps(0, nc, sx, sy);
+    if (!sx || !sy) return out;
+    for (int64_t y = ty0; y < ty1; y += sy - (y % sy))
+      for (int64_t x = tx0; x < tx1; x += sx - (x % sx))
+        for (int c = 0; c < nc; ++c)
+          for (int r = 0; r <= tcs[c].levels; ++r) emit(c, r, x, y);
+  } else {  // CPRL
+    for (int c = 0; c < nc; ++c) {
+      steps(c, c + 1, sx, sy);
+      if (!sx || !sy) return out;
+      for (int64_t y = ty0; y < ty1; y += sy - (y % sy))
+        for (int64_t x = tx0; x < tx1; x += sx - (x % sx))
+          for (int r = 0; r <= tcs[c].levels; ++r) emit(c, r, x, y);
+    }
+  }
+  return out;
+}
+
+uint32_t numpasses(Bio& bio) {  // t2.c, opj_t2_getnumpasses
+  if (!bio.bit()) return 1;
+  if (!bio.bit()) return 2;
+  uint32_t n = bio.read(2);
+  if (n != 3) return 3 + n;
+  n = bio.read(5);
+  if (n != 31) return 6 + n;
+  return 37 + bio.read(7);
+}
+
+int floorlog2(uint32_t v) {
+  int l = 0;
+  while (v >>= 1) ++l;
+  return l;
+}
+
+// t2.c: one packet's header and body from data[pos, end); returns the new pos
+size_t read_packet(const uint8_t* data, size_t pos, size_t end, const Params& p,
+                   TileComp& tc, const Packet& pk) {
+  Resolution& res = tc.res[pk.res];
+  if (p.sop && end - pos >= 6 && data[pos] == 0xFF && data[pos + 1] == 0x91) pos += 6;
+  Bio bio(data + pos, end - pos);
+  const bool present = bio.bit();
+  if (present) {
+    for (Band& band : res.bands) {
+      if (band.x0 == band.x1 || band.y0 == band.y1) continue;
+      Precinct& pr = band.precs[pk.prec];
+      for (int k = 0; k < pr.cw * pr.ch; ++k) {
+        Cblk& cb = pr.cblks[k];
+        bool inc = cb.included ? bio.bit() : pr.incl.decode(bio, k, pk.layer + 1);
+        if (!inc) {
+          cb.newpasses = 0;
+          continue;
+        }
+        if (!cb.included) {
+          int i = 0;
+          while (!pr.imsb.decode(bio, k, i)) {
+            if (++i > 74) fail("corrupt zero bit-plane tag tree");
+          }
+          cb.numbps = band.Mb + 1 - i;
+          cb.lenbits = 3;
+          cb.included = true;
+        }
+        cb.newpasses = static_cast<int>(numpasses(bio));
+        while (bio.bit()) ++cb.lenbits;
+        if (cb.passes + cb.newpasses > 109) fail("more coding passes than one segment holds");
+        const int bits = cb.lenbits + floorlog2(static_cast<uint32_t>(cb.newpasses));
+        if (bits > 32) fail("corrupt code-block length");
+        cb.newlen = bio.read(bits);
+      }
+    }
+  }
+  bio.inalign();
+  pos += bio.numbytes();
+  if (p.eph && end - pos >= 2 && data[pos] == 0xFF && data[pos + 1] == 0x92) pos += 2;
+  if (!present) return pos;
+  for (Band& band : res.bands) {
+    if (band.x0 == band.x1 || band.y0 == band.y1) continue;
+    Precinct& pr = band.precs[pk.prec];
+    for (Cblk& cb : pr.cblks) {
+      if (!cb.included || cb.newpasses == 0) continue;
+      if (cb.newlen > end - pos) fail("packet data runs past its tile-part (codestream cut short)");
+      if (cb.newlen) cb.chunks.push_back({pos, cb.newlen});
+      pos += cb.newlen;
+      cb.passes += cb.newpasses;
+      cb.newpasses = 0;
+    }
+  }
+  return pos;
+}
+
+// ---------------------------------------------------------------------------
+// tier-1
+// ---------------------------------------------------------------------------
+const uint16_t kQe[47] = {
+    0x5601, 0x3401, 0x1801, 0x0AC1, 0x0521, 0x0221, 0x5601, 0x5401, 0x4801, 0x3801,
+    0x3001, 0x2401, 0x1C01, 0x1601, 0x5601, 0x5401, 0x5101, 0x4801, 0x3801, 0x3401,
+    0x3001, 0x2801, 0x2401, 0x2201, 0x1C01, 0x1801, 0x1601, 0x1401, 0x1201, 0x1101,
+    0x0AC1, 0x09C1, 0x08A1, 0x0521, 0x0441, 0x02A1, 0x0221, 0x0141, 0x0111, 0x0085,
+    0x0049, 0x0025, 0x0015, 0x0009, 0x0005, 0x0001, 0x5601};
+const uint8_t kNmps[47] = {1,  2,  3,  4,  5,  38, 7,  8,  9,  10, 11, 12, 13, 29, 15, 16,
+                           17, 18, 19, 20, 21, 22, 23, 24, 25, 26, 27, 28, 29, 30, 31, 32,
+                           33, 34, 35, 36, 37, 38, 39, 40, 41, 42, 43, 44, 45, 45, 46};
+const uint8_t kNlps[47] = {1,  6,  9,  12, 29, 33, 6,  14, 14, 14, 17, 18, 20, 21, 14, 14,
+                           15, 16, 17, 18, 19, 19, 20, 21, 22, 23, 24, 25, 26, 27, 28, 29,
+                           30, 31, 32, 33, 34, 35, 36, 37, 38, 39, 40, 41, 42, 43, 46};
+const uint8_t kSwitch[47] = {1, 0, 0, 0, 0, 0, 1, 0, 0, 0, 0, 0, 0, 0, 1, 0,
+                             0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
+                             0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0};
+
+enum : int { CTX_SC = 9, CTX_MAG = 14, CTX_AGG = 17, CTX_UNI = 18 };
+
+// per-sample state: the significance of the 8 neighbours, the sign of the
+// 4 direct ones, and the sample's own significance / visit / refinement
+enum : uint16_t {
+  NB_N = 1, NB_S = 2, NB_W = 4, NB_E = 8, NB_NW = 16, NB_NE = 32, NB_SW = 64, NB_SE = 128,
+  NEG_N = 256, NEG_S = 512, NEG_W = 1024, NEG_E = 2048,
+  F_SIG = 4096, F_PI = 8192, F_MU = 16384,
+};
+
+struct Luts {
+  uint8_t zc[4][256];
+  uint8_t sc[256], spb[256];
+  Luts() {
+    for (int o = 0; o < 4; ++o)
+      for (int f = 0; f < 256; ++f) {
+        int h = !!(f & NB_W) + !!(f & NB_E), v = !!(f & NB_N) + !!(f & NB_S);
+        const int d = !!(f & NB_NW) + !!(f & NB_NE) + !!(f & NB_SW) + !!(f & NB_SE);
+        int n;
+        if (o == 3) {
+          const int hv = h + v;
+          if (d == 0) n = hv == 0 ? 0 : hv == 1 ? 1 : 2;
+          else if (d == 1) n = hv == 0 ? 3 : hv == 1 ? 4 : 5;
+          else if (d == 2) n = hv == 0 ? 6 : 7;
+          else n = 8;
+        } else {
+          if (o == 1) std::swap(h, v);  // HL: Table D.1's vertical-first column
+          if (h == 0) n = v == 0 ? (d == 0 ? 0 : d == 1 ? 1 : 2) : v == 1 ? 3 : 4;
+          else if (h == 1) n = v == 0 ? (d == 0 ? 5 : 6) : 7;
+          else n = 8;
+        }
+        zc[o][f] = static_cast<uint8_t>(n);
+      }
+    for (int i = 0; i < 256; ++i) {  // i: N S W E significance, then their signs
+      auto contrib = [&](int sig, int neg) { return (i & sig) ? ((i & neg) ? -1 : 1) : 0; };
+      int h = contrib(4, 64) + contrib(8, 128), v = contrib(1, 16) + contrib(2, 32);
+      h = std::max(-1, std::min(1, h));
+      v = std::max(-1, std::min(1, v));
+      int ctx, x = 0;
+      if (h == 0 && v == 0) ctx = 0;
+      else if (h == 0) { ctx = 1; x = v < 0; }
+      else if (h > 0) ctx = v > 0 ? 4 : v == 0 ? 3 : 2;
+      else { ctx = v < 0 ? 4 : v == 0 ? 3 : 2; x = 1; }
+      sc[i] = static_cast<uint8_t>(CTX_SC + ctx);
+      spb[i] = static_cast<uint8_t>(x);
+    }
+  }
+};
+const Luts kLuts;
+
+struct T1 {
+  std::vector<uint16_t> flags;
+  std::vector<int32_t> data;
+  std::vector<uint8_t> buf;
+  // MQ decoder (mqc.c)
+  const uint8_t* bp = nullptr;
+  uint32_t c = 0, a = 0;
+  int ct = 0;
+  uint8_t st[19], mps[19];
+
+  void bytein() {
+    if (*bp == 0xFF) {
+      if (bp[1] > 0x8F) {
+        c += 0xFF00;
+        ct = 8;
+      } else {
+        ++bp;
+        c += uint32_t{*bp} << 9;
+        ct = 7;
+      }
+    } else {
+      ++bp;
+      c += uint32_t{*bp} << 8;
+      ct = 8;
+    }
+  }
+  void init(const uint8_t* p) {
+    bp = p;
+    c = uint32_t{*bp} << 16;
+    bytein();
+    c <<= 7;
+    ct -= 7;
+    a = 0x8000;
+    std::memset(st, 0, sizeof st);
+    std::memset(mps, 0, sizeof mps);
+    st[CTX_UNI] = 46;
+    st[CTX_AGG] = 3;
+    st[0] = 4;
+  }
+  inline int decode(int cx) {
+    const int s = st[cx];
+    const uint32_t q = kQe[s];
+    int d;
+    a -= q;
+    if ((c >> 16) < q) {
+      if (a < q) {
+        d = mps[cx];
+        st[cx] = kNmps[s];
+      } else {
+        d = 1 - mps[cx];
+        if (kSwitch[s]) mps[cx] ^= 1;
+        st[cx] = kNlps[s];
+      }
+      a = q;
+    } else {
+      c -= q << 16;
+      if (a & 0x8000) return mps[cx];
+      if (a < q) {
+        d = 1 - mps[cx];
+        if (kSwitch[s]) mps[cx] ^= 1;
+        st[cx] = kNlps[s];
+      } else {
+        d = mps[cx];
+        st[cx] = kNmps[s];
+      }
+    }
+    do {
+      if (ct == 0) bytein();
+      a <<= 1;
+      c <<= 1;
+      --ct;
+    } while (!(a & 0x8000));
+    return d;
+  }
+
+  int w = 0, h = 0, stride = 0;
+
+  inline void make_significant(size_t i, int neg) {
+    uint16_t* f = flags.data();
+    const size_t s = static_cast<size_t>(stride);
+    f[i] |= F_SIG;
+    f[i - s] |= neg ? (NB_S | NEG_S) : NB_S;
+    f[i + s] |= neg ? (NB_N | NEG_N) : NB_N;
+    f[i - 1] |= neg ? (NB_E | NEG_E) : NB_E;
+    f[i + 1] |= neg ? (NB_W | NEG_W) : NB_W;
+    f[i - s - 1] |= NB_SE;
+    f[i - s + 1] |= NB_SW;
+    f[i + s - 1] |= NB_NE;
+    f[i + s + 1] |= NB_NW;
+  }
+  inline void decode_sign(size_t i, int32_t oneplushalf) {
+    const uint16_t f = flags[i];
+    const int idx = (f & 0xF) | ((f >> 4) & 0xF0);
+    const int neg = decode(kLuts.sc[idx]) ^ kLuts.spb[idx];
+    data[i] = neg ? -oneplushalf : oneplushalf;
+    make_significant(i, neg);
+  }
+
+  void sigpass(int bp1, int orient) {
+    const int32_t one = int32_t{1} << bp1, oneplushalf = one | (one >> 1);
+    const uint8_t* zc = kLuts.zc[orient];
+    for (int y0 = 0; y0 < h; y0 += 4)
+      for (int x = 0; x < w; ++x)
+        for (int y = y0; y < std::min(y0 + 4, h); ++y) {
+          const size_t i = static_cast<size_t>(y + 1) * stride + x + 1;
+          const uint16_t f = flags[i];
+          if ((f & F_SIG) || !(f & 0xFF)) continue;
+          if (decode(zc[f & 0xFF])) decode_sign(i, oneplushalf);
+          flags[i] |= F_PI;
+        }
+  }
+  void refpass(int bp1) {
+    const int32_t half = (int32_t{1} << bp1) >> 1;
+    for (int y0 = 0; y0 < h; y0 += 4)
+      for (int x = 0; x < w; ++x)
+        for (int y = y0; y < std::min(y0 + 4, h); ++y) {
+          const size_t i = static_cast<size_t>(y + 1) * stride + x + 1;
+          const uint16_t f = flags[i];
+          if ((f & (F_SIG | F_PI)) != F_SIG) continue;
+          const int ctx = (f & F_MU) ? CTX_MAG + 2 : (f & 0xFF) ? CTX_MAG + 1 : CTX_MAG;
+          const int v = decode(ctx);
+          data[i] += (v ^ (data[i] < 0)) ? half : -half;
+          flags[i] |= F_MU;
+        }
+  }
+  void clnpass(int bp1, int orient) {
+    const int32_t one = int32_t{1} << bp1, oneplushalf = one | (one >> 1);
+    const uint8_t* zc = kLuts.zc[orient];
+    const size_t s = static_cast<size_t>(stride);
+    for (int y0 = 0; y0 < h; y0 += 4)
+      for (int x = 0; x < w; ++x) {
+        int y = y0;
+        const int y1 = std::min(y0 + 4, h);
+        size_t i = static_cast<size_t>(y0 + 1) * s + x + 1;
+        if (y0 + 4 <= h) {
+          const uint16_t m = F_SIG | F_PI | 0xFF;
+          if (!((flags[i] | flags[i + s] | flags[i + 2 * s] | flags[i + 3 * s]) & m)) {
+            if (!decode(CTX_AGG)) continue;
+            int r = decode(CTX_UNI) << 1;
+            r |= decode(CTX_UNI);
+            y = y0 + r;
+            i += r * s;
+            decode_sign(i, oneplushalf);
+            ++y;
+            i += s;
+          }
+        }
+        for (; y < y1; ++y, i += s) {
+          const uint16_t f = flags[i];
+          if (!(f & (F_SIG | F_PI))) {
+            if (decode(zc[f & 0xFF])) decode_sign(i, oneplushalf);
+          }
+          flags[i] &= static_cast<uint16_t>(~F_PI);
+        }
+      }
+  }
+
+  // the code-block's samples (t1.c's 2x scale) into data[(y+1)*stride+x+1]
+  void decode_cblk(const uint8_t* src, const Cblk& cb, int orient) {
+    w = static_cast<int>(cb.x1 - cb.x0);
+    h = static_cast<int>(cb.y1 - cb.y0);
+    stride = w + 2;
+    const size_t n = static_cast<size_t>(stride) * (h + 2);
+    flags.assign(n, 0);
+    data.assign(n, 0);
+    if (cb.passes == 0 || cb.numbps <= 0) return;
+    if (cb.numbps >= 31) fail("code-block with more than 30 bit-planes");
+    size_t len = 0;
+    for (const auto& ch : cb.chunks) len += ch.second;
+    buf.resize(len + 2);
+    size_t off = 0;
+    for (const auto& ch : cb.chunks) {
+      std::memcpy(buf.data() + off, src + ch.first, ch.second);
+      off += ch.second;
+    }
+    buf[len] = 0xFF;  // mqc.c's artificial 0xFF 0xFF marker past the data
+    buf[len + 1] = 0xFF;
+    init(buf.data());
+    int bp1 = cb.numbps, type = 2;
+    for (int pass = 0; pass < cb.passes && bp1 >= 1; ++pass) {
+      if (type == 0) sigpass(bp1, orient);
+      else if (type == 1) refpass(bp1);
+      else clnpass(bp1, orient);
+      if (++type == 3) {
+        type = 0;
+        --bp1;
+      }
+    }
+  }
+};
+
+// ---------------------------------------------------------------------------
+// inverse wavelets (dwt.c)
+// ---------------------------------------------------------------------------
+// the inverse 5/3 on one interleaved line of sn low and dn high samples,
+// the low ones at parity `cas` (the line's first coordinate's)
+void idwt53_line(int32_t* x, int sn, int dn, int cas) {
+  const int n = sn + dn;
+  if (n == 1) {
+    if (cas) x[0] /= 2;
+    return;
+  }
+  auto at = [&](int i) { return x[i < 0 ? -i : (i >= n ? 2 * (n - 1) - i : i)]; };
+  for (int i = cas; i < n; i += 2) x[i] -= (at(i - 1) + at(i + 1) + 2) >> 2;
+  for (int i = 1 - cas; i < n; i += 2) x[i] += (at(i - 1) + at(i + 1)) >> 1;
+}
+
+const float kAlpha = -1.586134342f, kBeta = -0.052980118f, kGamma = 0.882911075f,
+            kDelta = 0.443506852f, kK = 1.230174105f, kTwoInvK = 1.625732422f;
+
+// dwt.c's opj_v8dwt_decode on one interleaved line
+void idwt97_line(float* x, int sn, int dn, int cas) {
+  const int n = sn + dn;
+  if (cas == 0 ? !(dn > 0 || sn > 1) : !(sn > 0 || dn > 1)) return;
+  for (int i = cas; i < n; i += 2) x[i] = x[i] * kK;
+  for (int i = 1 - cas; i < n; i += 2) x[i] = x[i] * kTwoInvK;
+  auto lift = [&](int first, float c) {
+    const float c2 = c + c;
+    for (int i = first; i < n; i += 2) {
+      const bool hl = i - 1 >= 0, hr = i + 1 < n;
+      if (hl && hr) x[i] = x[i] + ((x[i - 1] + x[i + 1]) * c);
+      else if (hl) x[i] = x[i] + x[i - 1] * c2;
+      else x[i] = x[i] + ((x[i + 1] + x[i + 1]) * c);
+    }
+  };
+  lift(cas, -kDelta);
+  lift(1 - cas, -kGamma);
+  lift(cas, -kBeta);
+  lift(1 - cas, -kAlpha);
+}
+
+template <class F>
+void parallel_for(int64_t n, int threads, F&& f) {
+  if (threads <= 1 || n <= 1) {
+    for (int64_t i = 0; i < n; ++i) f(i);
+    return;
+  }
+  std::atomic<int64_t> next{0};
+  std::atomic<bool> failed{false};
+  std::string why;
+  std::vector<std::thread> pool;
+  const int nt = static_cast<int>(std::min<int64_t>(threads, n));
+  for (int t = 0; t < nt; ++t)
+    pool.emplace_back([&, t] {
+      for (;;) {
+        const int64_t i = next.fetch_add(1);
+        if (i >= n || failed.load()) return;
+        try {
+          f(i);
+        } catch (const J2kError& e) {
+          if (!failed.exchange(true)) why = e.what;
+          return;
+        }
+      }
+    });
+  for (auto& th : pool) th.join();
+  if (failed.load()) fail(why);
+}
+
+template <class T, class Line>
+void idwt_2d(TileComp& tc, T* buf, int threads, Line line) {
+  const int64_t W = tc.w();
+  for (int r = 1; r <= tc.levels; ++r) {
+    const Resolution& res = tc.res[r];
+    const Resolution& prev = tc.res[r - 1];
+    const int rw = static_cast<int>(res.x1 - res.x0), rh = static_cast<int>(res.y1 - res.y0);
+    if (rw == 0 || rh == 0) continue;
+    const int snh = static_cast<int>(prev.x1 - prev.x0), cash = static_cast<int>(res.x0 & 1);
+    const int snv = static_cast<int>(prev.y1 - prev.y0), casv = static_cast<int>(res.y0 & 1);
+    const int64_t rows_per = 16;
+    parallel_for((rh + rows_per - 1) / rows_per, threads, [&](int64_t job) {
+      std::vector<T> tmp(rw);
+      for (int64_t y = job * rows_per; y < std::min<int64_t>(rh, (job + 1) * rows_per); ++y) {
+        T* row = buf + y * W;
+        for (int i = 0; i < snh; ++i) tmp[cash + 2 * i] = row[i];
+        for (int i = 0; i < rw - snh; ++i) tmp[1 - cash + 2 * i] = row[snh + i];
+        line(tmp.data(), snh, rw - snh, cash);
+        std::memcpy(row, tmp.data(), sizeof(T) * rw);
+      }
+    });
+    const int64_t cols_per = 16;
+    parallel_for((rw + cols_per - 1) / cols_per, threads, [&](int64_t job) {
+      std::vector<T> tmp(rh);
+      for (int64_t x = job * cols_per; x < std::min<int64_t>(rw, (job + 1) * cols_per); ++x) {
+        for (int i = 0; i < snv; ++i) tmp[casv + 2 * i] = buf[i * W + x];
+        for (int i = 0; i < rh - snv; ++i) tmp[1 - casv + 2 * i] = buf[(snv + i) * W + x];
+        line(tmp.data(), snv, rh - snv, casv);
+        for (int i = 0; i < rh; ++i) buf[i * W + x] = tmp[i];
+      }
+    });
+  }
+}
+
+// ---------------------------------------------------------------------------
+// a tile, from its packets to Pillow's image
+// ---------------------------------------------------------------------------
+struct Output {
+  int64_t width, height;
+  int channels;
+  const int32_t* chan_comp;  // source component of each channel; -1: 0xFF
+  int bits;                  // 8 or 16: the samples Pillow's mode holds
+  void* out;
+};
+
+void decode_tile(const Codestream& cs, int tile, int threads, const Output& o) {
+  const Siz& s = cs.siz;
+  const Tile& t = cs.tiles[tile];
+  const int64_t p = tile % s.ntx, q = tile / s.ntx;
+  const int64_t tx0 = std::max(s.XTO + p * s.XT, s.XO), ty0 = std::max(s.YTO + q * s.YT, s.YO);
+  const int64_t tx1 = std::min(s.XTO + (p + 1) * s.XT, s.X);
+  const int64_t ty1 = std::min(s.YTO + (q + 1) * s.YT, s.Y);
+  // Pillow's bounds check on the tile's place in its image
+  if (tx1 - s.XO > o.width || ty1 - s.YO > o.height)
+    fail("a tile lies outside the image of the JP2 header");
+  const Params& prm = t.params;
+  std::vector<TileComp> tcs(s.nc);
+  for (int c = 0; c < s.nc; ++c)
+    init_tilecomp(tcs[c], s.comps[c], prm.coding[c], prm.quant[c], tx0, ty0, tx1, ty1);
+  // tier-2 over the tile's data (its tile-parts joined)
+  std::vector<uint8_t> joined;
+  const uint8_t* data;
+  size_t len;
+  if (t.parts.size() == 1) {
+    data = cs.data + t.parts[0].begin;
+    len = t.parts[0].end - t.parts[0].begin;
+  } else {
+    for (const auto& tp : t.parts)
+      joined.insert(joined.end(), cs.data + tp.begin, cs.data + tp.end);
+    data = joined.data();
+    len = joined.size();
+  }
+  size_t pos = 0;
+  for (const Packet& pk : packet_order(prm, tcs, s, tx0, ty0, tx1, ty1))
+    pos = read_packet(data, pos, len, prm, tcs[pk.comp], pk);
+  // tier-1 and dequantisation, the code-blocks on `threads` threads
+  struct Job {
+    int comp;
+    const Band* band;
+    const Cblk* cb;
+  };
+  std::vector<Job> jobs;
+  for (int c = 0; c < s.nc; ++c) {
+    TileComp& tc = tcs[c];
+    const size_t n = static_cast<size_t>(tc.w()) * tc.h();
+    if (tc.transform == 1) tc.idata.assign(n, 0);
+    else tc.fdata.assign(n, 0.0f);
+    for (const Resolution& res : tc.res)
+      for (const Band& band : res.bands)
+        for (const Precinct& pr : band.precs)
+          for (const Cblk& cb : pr.cblks)
+            if (cb.passes) jobs.push_back({c, &band, &cb});
+  }
+  parallel_for(static_cast<int64_t>(jobs.size()), threads, [&](int64_t j) {
+    thread_local T1 t1;
+    const Job& job = jobs[j];
+    TileComp& tc = tcs[job.comp];
+    const Band& band = *job.band;
+    const Cblk& cb = *job.cb;
+    t1.decode_cblk(data, cb, band.orient);
+    const int64_t W = tc.w();
+    const int64_t x = cb.x0 - band.x0 + band.xoff, y = cb.y0 - band.y0 + band.yoff;
+    for (int yy = 0; yy < t1.h; ++yy) {
+      const int32_t* src = t1.data.data() + static_cast<size_t>(yy + 1) * t1.stride + 1;
+      if (tc.transform == 1) {
+        int32_t* dst = tc.idata.data() + (y + yy) * W + x;
+        for (int xx = 0; xx < t1.w; ++xx) dst[xx] = src[xx] / 2;
+      } else {
+        const float step = 0.5f * band.step;
+        float* dst = tc.fdata.data() + (y + yy) * W + x;
+        for (int xx = 0; xx < t1.w; ++xx) dst[xx] = static_cast<float>(src[xx]) * step;
+      }
+    }
+  });
+  // inverse wavelets
+  for (TileComp& tc : tcs) {
+    if (tc.w() == 0 || tc.h() == 0) continue;
+    if (tc.transform == 1) idwt_2d(tc, tc.idata.data(), threads, idwt53_line);
+    else idwt_2d(tc, tc.fdata.data(), threads, idwt97_line);
+  }
+  const int64_t W = tx1 - tx0, H = ty1 - ty0;
+  const int64_t npx = W * H;
+  // multiple component transform (mct.c)
+  if (prm.mct && s.nc >= 3) {
+    if (tcs[0].transform != tcs[1].transform || tcs[0].transform != tcs[2].transform)
+      fail("a component transform over components of different wavelets");
+    if (tcs[0].transform == 1) {
+      int32_t *c0 = tcs[0].idata.data(), *c1 = tcs[1].idata.data(), *c2 = tcs[2].idata.data();
+      for (int64_t i = 0; i < npx; ++i) {
+        const int32_t y = c0[i], u = c1[i], v = c2[i];
+        const int32_t g = y - ((u + v) >> 2);
+        c0[i] = v + g;
+        c1[i] = g;
+        c2[i] = u + g;
+      }
+    } else {
+      float *c0 = tcs[0].fdata.data(), *c1 = tcs[1].fdata.data(), *c2 = tcs[2].fdata.data();
+      for (int64_t i = 0; i < npx; ++i) {
+        const float y = c0[i], u = c1[i], v = c2[i];
+        const float r = y + (v * 1.402f);
+        float g = y - (u * 0.34413f);
+        g = g - (v * 0.71414f);
+        const float b = y + (u * 1.772f);
+        c0[i] = r;
+        c1[i] = g;
+        c2[i] = b;
+      }
+    }
+  }
+  // DC level shift and clamp (tcd.c), into int32 samples
+  for (int c = 0; c < s.nc; ++c) {
+    TileComp& tc = tcs[c];
+    const CompSiz& cz = s.comps[c];
+    const int64_t lo = cz.sgnd ? -(int64_t{1} << (cz.prec - 1)) : 0;
+    const int64_t hi = cz.sgnd ? (int64_t{1} << (cz.prec - 1)) - 1 : (int64_t{1} << cz.prec) - 1;
+    const int64_t shift = cz.sgnd ? 0 : int64_t{1} << (cz.prec - 1);
+    if (tc.transform == 1) {
+      for (int32_t& v : tc.idata) v = static_cast<int32_t>(std::max(lo, std::min(hi, v + shift)));
+    } else {
+      tc.idata.resize(tc.fdata.size());
+      for (size_t i = 0; i < tc.fdata.size(); ++i) {
+        const float f = tc.fdata[i];
+        int64_t v;
+        if (f > static_cast<float>(INT32_MAX)) v = hi;
+        else if (f < static_cast<float>(INT32_MIN)) v = lo;
+        else v = std::max(lo, std::min(hi, static_cast<int64_t>(std::lrintf(f)) + shift));
+        tc.idata[i] = static_cast<int32_t>(v);
+      }
+      std::vector<float>().swap(tc.fdata);
+    }
+  }
+  // Pillow's unpackers (Jpeg2KDecode.c): each channel from its component,
+  // read as the unsigned bytes OpenJPEG stores it in, offset and shifted
+  const int64_t ox = tx0 - s.XO, oy = ty0 - s.YO;
+  for (int ch = 0; ch < o.channels; ++ch) {
+    const int c = o.chan_comp[ch];
+    uint32_t mask = 0, offset = 0;
+    int shift = 0;
+    if (c >= 0) {
+      const CompSiz& cz = s.comps[c];
+      const int csiz = (cz.prec + 7) >> 3;
+      mask = csiz == 1 ? 0xFFu : csiz == 2 ? 0xFFFFu : 0xFFFFFFFFu;
+      shift = o.bits - cz.prec;
+      offset = cz.sgnd ? 1u << (cz.prec - 1) : 0u;
+      if (shift < 0) offset += 1u << (-shift - 1);
+    }
+    for (int64_t y = 0; y < H; ++y) {
+      const int32_t* src = c >= 0 ? tcs[c].idata.data() + y * W : nullptr;
+      const int64_t base = ((oy + y) * o.width + ox) * o.channels + ch;
+      for (int64_t x = 0; x < W; ++x) {
+        uint32_t v = 0xFF;
+        if (c >= 0) {
+          const uint32_t word = offset + (static_cast<uint32_t>(src[x]) & mask);
+          v = shift < 0 ? word >> -shift : word << shift;
+        }
+        if (o.bits == 8) static_cast<uint8_t*>(o.out)[base + x * o.channels] = static_cast<uint8_t>(v);
+        else static_cast<uint16_t*>(o.out)[base + x * o.channels] = static_cast<uint16_t>(v);
+      }
+    }
+  }
+}
+
+void decode(const uint8_t* src, size_t n, const Output& o, int threads) {
+  Codestream cs = parse(src, n);
+  const Siz& s = cs.siz;
+  for (const CompSiz& c : s.comps) {
+    if (c.dx != 1 || c.dy != 1) fail("component sub-sampling is not decoded by the port");
+    if (c.prec > 16) fail("component precision above 16 bits is not decoded by the port");
+  }
+  for (int ch = 0; ch < o.channels; ++ch)
+    if (o.chan_comp[ch] >= s.nc) fail("a channel past the component count");
+  std::vector<int> tiles;
+  for (size_t t = 0; t < cs.tiles.size(); ++t)
+    if (cs.tiles[t].seen) tiles.push_back(static_cast<int>(t));
+  // many tiles: one thread a tile; few: the threads inside each tile
+  if (static_cast<int>(tiles.size()) >= 2 * threads) {
+    parallel_for(static_cast<int64_t>(tiles.size()), threads,
+                 [&](int64_t i) { decode_tile(cs, tiles[i], 1, o); });
+  } else {
+    for (int t : tiles) decode_tile(cs, t, threads, o);
+  }
+}
+
+void set_error(char* err, int64_t errcap, const std::string& what) {
+  if (err == nullptr || errcap <= 0) return;
+  const size_t k = std::min<size_t>(what.size(), static_cast<size_t>(errcap - 1));
+  std::memcpy(err, what.data(), k);
+  err[k] = 0;
+}
+
+}  // namespace
+
+extern "C" {
+
+// Decode the codestream src[0, n) into `out`, a zeroed (height, width,
+// channels) array of u8 (bits 8) or u16 (bits 16): Pillow's image of that
+// size, channel k taken from component chan_comp[k] (-1: 0xFF). 0, or -1
+// with the reason in err.
+int64_t j2k_decode(const uint8_t* src, int64_t n, int64_t width, int64_t height, int32_t channels,
+                   const int32_t* chan_comp, int32_t bits, void* out, int32_t threads, char* err,
+                   int64_t errcap) {
+  try {
+    Output o{width, height, channels, chan_comp, bits, out};
+    decode(src, static_cast<size_t>(n), o, std::max(1, static_cast<int>(threads)));
+    return 0;
+  } catch (const J2kError& e) {
+    set_error(err, errcap, e.what);
+  } catch (const std::bad_alloc&) {
+    set_error(err, errcap, "out of memory");
+  }
+  return -1;
+}
+
+}  // extern "C"

@@ -1,0 +1,245 @@
+"""JPEG 2000 reader: the image Pillow 12.1 opens from a .jp2 / .j2k / .jpx
+file (Jpeg2KImagePlugin's mode and size, OpenJPEG 2.5.4's decode, the
+unpacking of Pillow's Jpeg2KDecode.c), decoded by the port's C++ library
+(`_native/j2kdec.cpp`, built at first use).
+
+Accepted as Pillow accepts them: a raw codestream (SOC + SIZ) and a JP2
+file (its signature box). Modes as Pillow gives them:
+
+  * codestream: the component count (1: "L", or "I;16" above 8 bits; 2
+    "LA", 3 "RGB", 4 "RGBA");
+  * JP2: the ihdr box's, "CMYK" for an enumerated CMYK `colr` on 4
+    components, "P" / "PA" for a `pclr` box on "L" / "LA" (its palette
+    with Pillow's rules: entries above 8 bits leave the mode as it is).
+
+The samples reach the mode as Pillow's unpackers put them: shifted to 8
+bits (16 for "I;16": a 12-bit band reads as its values << 4), rounded
+where the shift is down, signed samples offset by half their range. Which
+unpacker a file takes follows its colour space (the JP2 `colr` box;
+unspecified for a codestream) and component count, as measured against
+Pillow 12.1 (UNPACKERS); a pairing Pillow has no unpacker for is refused,
+as Pillow refuses it. Refused as RasterError naming the feature: sYCC /
+e-YCC colour spaces, `pclr` boxes other than three columns, and what the
+C++ decoder refuses (code-block styles other than 0, HTJ2K, RGN, POC,
+PPM / PPT, Part-2 capabilities, component sub-sampling, precisions above
+16 bits, a codestream cut short). Pillow's `info` holds no strings for a
+JPEG 2000 file (the comment is bytes), so the text is empty."""
+from __future__ import annotations
+
+import struct
+
+from .. import _native
+from ..errors import RasterError
+from . import pixels
+
+SIGNATURES = (b"\xff\x4f\xff\x51", b"\x00\x00\x00\x0cjP  \r\n\x87\n")
+
+# OpenJPEG's colour space of an enumerated `colr` (jp2.c); any other
+# (none, ICC, unknown values) is left for the unpacker to guess
+ENUMCS = {16: "srgb", 17: "gray", 18: "sycc", 24: "eycc", 12: "cmyk"}
+# Pillow's guess for an unspecified colour space, by component count
+GUESS = {1: "gray", 2: "gray", 3: "srgb", 4: "srgb"}
+# (mode, colour space, components) -> the component of each channel of
+# Pillow's image (-1: 0xFF), as Pillow 12.1 unpacks them
+UNPACKERS = {
+    ("L", "gray", 1): (0,),
+    ("P", "srgb", 1): (0,),
+    ("PA", "srgb", 2): (0, 1),
+    ("I;16", "gray", 1): (0,),
+    ("LA", "gray", 2): (0, 1),
+    ("RGB", "gray", 1): (0, 0, 0),
+    ("RGB", "gray", 2): (0, 0, 0),
+    ("RGB", "srgb", 3): (0, 1, 2),
+    ("RGB", "srgb", 4): (0, 1, 2),
+    ("RGBA", "gray", 1): (0, 0, 0, -1),
+    ("RGBA", "gray", 2): (0, 0, 0, 1),
+    ("RGBA", "gray", 4): (0, 1, 2, 3),
+    ("RGBA", "srgb", 3): (0, 1, 2, -1),
+    ("RGBA", "srgb", 4): (0, 1, 2, 3),
+    ("CMYK", "cmyk", 4): (0, 1, 2, 3),
+}
+
+
+def _boxes(blob: bytes, start: int, end: int):
+    """(type, content start, content end) of each box in blob[start:end];
+    a box of length 0 runs to `end`. RasterError where a box header is
+    cut or its length is impossible (Pillow's "Invalid header length")."""
+    pos = start
+    while pos < end:
+        if end - pos < 8:
+            raise RasterError("JPEG 2000: Invalid header length")
+        lbox, tbox = struct.unpack_from(">I4s", blob, pos)
+        hlen = 8
+        if lbox == 1:
+            if end - pos < 16:
+                raise RasterError("JPEG 2000: Invalid header length")
+            lbox = struct.unpack_from(">Q", blob, pos + 8)[0]
+            hlen = 16
+        elif lbox == 0:
+            lbox = end - pos
+        if lbox < hlen:
+            raise RasterError("JPEG 2000: Invalid header length")
+        yield tbox, pos + hlen, pos + lbox
+        pos += lbox
+
+
+def _jp2_header(blob: bytes, start: int, end: int):
+    """Pillow's _parse_jp2_header on the jp2h box's content: (size, mode,
+    palette) and OpenJPEG's colour space (its first `colr` box)."""
+    size = mode = None
+    nc = None
+    palette = None
+    colour = None
+    has_pclr = False
+    depths = ()
+    for tbox, a, b in _boxes(blob, start, end):
+        if b > end:
+            raise RasterError("JPEG 2000: Invalid header length")
+        body = blob[a:b]
+        if tbox == b"ihdr":
+            if len(body) < 11:
+                raise RasterError("JPEG 2000: Not enough data in header")
+            height, width, nc, bpc = struct.unpack_from(">IIHB", body)
+            size = (width, height)
+            mode = ("I;16" if nc == 1 and (bpc & 0x7F) > 8 else
+                    {1: "L", 2: "LA", 3: "RGB", 4: "RGBA"}.get(nc, mode))
+        elif tbox == b"colr":
+            if len(body) >= 7:
+                meth, _, _, enumcs = struct.unpack_from(">BBBI", body)
+            else:
+                meth, enumcs = (body[0] if body else 0), 0
+            if colour is None and meth in (1, 2):
+                colour = ENUMCS.get(enumcs, "") if meth == 1 else ""
+            if nc == 4 and meth == 1 and enumcs == 12:
+                mode = "CMYK"
+        elif tbox == b"pclr" and not has_pclr:
+            has_pclr = True
+            depths = _pclr_depths(body)
+            if mode in ("L", "LA") and max(depths) <= 8:
+                if len(depths) != 3:
+                    raise RasterError(f"JPEG 2000: a pclr palette of "
+                                      f"{len(depths)} columns is not "
+                                      "decoded by the port")
+                ne = struct.unpack_from(">H", body)[0]
+                palette = _palette(body[6:6 + 3 * ne])
+                mode = "P" if mode == "L" else "PA"
+        elif tbox == b"cmap":
+            if not has_pclr:
+                raise RasterError("JPEG 2000: a cmap box before its pclr "
+                                  "box")
+            if len(body) < 4 * len(depths):
+                raise RasterError("JPEG 2000: a cmap box too short for its "
+                                  "palette")
+    if size is None or mode is None:
+        raise RasterError("JPEG 2000: Malformed JP2 header")
+    return size, mode, palette, colour or ""
+
+
+def _pclr_depths(body: bytes) -> tuple:
+    """The bit depth of each column of a pclr box, as OpenJPEG reads it:
+    RasterError where it reports no entries, more than 1024, no columns,
+    or holds fewer bytes than its entries take."""
+    if len(body) < 3:
+        raise RasterError("JPEG 2000: Not enough data in header")
+    ne, npc = struct.unpack_from(">HB", body)
+    if not 1 <= ne <= 1024 or npc == 0 or len(body) < 3 + npc:
+        raise RasterError(f"JPEG 2000: invalid pclr box ({ne} entries, "
+                          f"{npc} columns)")
+    depths = tuple((b & 0x7F) + 1 for b in body[3:3 + npc])
+    need = 3 + npc + ne * sum(min((d + 7) >> 3, 4) for d in depths)
+    if len(body) < need:
+        raise RasterError("JPEG 2000: invalid pclr box (cut short)")
+    return depths
+
+
+def _palette(table: bytes) -> bytes:
+    """Pillow's ImagePalette.getcolor over the pclr entries in order: each
+    colour once, at its first place; more than 256 colours refused."""
+    seen: dict = {}
+    for i in range(0, len(table), 3):
+        c = table[i:i + 3]
+        if c not in seen:
+            if len(seen) >= 256:
+                raise RasterError(
+                    "JPEG 2000: cannot allocate more than 256 colors")
+            seen[c] = len(seen)
+    return b"".join(seen)
+
+
+def _siz(code: bytes):
+    """(size, component count, first component's Ssiz) from the SIZ
+    segment that must open a codestream (Pillow's _parse_codestream reads
+    the same fields)."""
+    if not code.startswith(SIGNATURES[0]):
+        raise RasterError("JPEG 2000: the codestream does not start with "
+                          "SOC and SIZ")
+    if len(code) < 46:
+        raise RasterError("JPEG 2000: codestream cut short")
+    (lsiz, _, xsiz, ysiz, xosiz, yosiz, _, _, _, _,
+     csiz) = struct.unpack_from(">HHIIIIIIIIH", code, 4)
+    if lsiz < 41:
+        raise RasterError("JPEG 2000: invalid SIZ length")
+    return (xsiz - xosiz, ysiz - yosiz), csiz, code[42]
+
+
+def _jp2(blob: bytes):
+    """(codestream, size, mode, palette, colour space) of a JP2 file: Pillow's
+    header parse, and the box walk OpenJPEG makes to its codestream."""
+    header = None
+    code = None
+    for i, (tbox, a, b) in enumerate(_boxes(blob, 0, len(blob))):
+        if i == 1 and tbox != b"ftyp":
+            raise RasterError("JPEG 2000: the ftyp box must be the second "
+                              "box of a JP2 file")
+        if tbox == b"jp2h" and header is None:
+            if b > len(blob):
+                raise RasterError("JPEG 2000: Not enough data in header")
+            header = _jp2_header(blob, a, b)
+        elif tbox == b"jp2c":
+            if header is None:
+                raise RasterError("JPEG 2000: no jp2h box before the "
+                                  "codestream")
+            code = blob[a:b]
+            break
+    if header is None:
+        raise RasterError("JPEG 2000: Malformed JP2 header")
+    if code is None:
+        raise RasterError("JPEG 2000: no codestream (jp2c box)")
+    return (code,) + header
+
+
+def read(blob: bytes) -> pixels.Decoded:
+    if blob.startswith(SIGNATURES[0]):
+        code = blob
+        size, nc, ssiz = _siz(code)
+        if nc == 1:
+            mode = "I;16" if (ssiz & 0x7F) + 1 > 8 else "L"
+        elif nc in (2, 3, 4):
+            mode = {2: "LA", 3: "RGB", 4: "RGBA"}[nc]
+        else:
+            raise RasterError("JPEG 2000: unable to determine J2K image mode")
+        palette, colour = None, ""
+    else:
+        code, size, mode, palette, colour = _jp2(blob)
+        siz_size, nc, _ = _siz(code)
+        if size != siz_size:
+            raise RasterError(f"JPEG 2000: the ihdr box's size {size} is "
+                              f"not the codestream's {siz_size}")
+    width, height = size
+    pixels.check_size(width, height)
+    space = colour or GUESS.get(nc, "")
+    if space in ("sycc", "eycc") and mode in ("RGB", "RGBA"):
+        raise RasterError(f"JPEG 2000: the {space} colour space is not "
+                          "decoded by the port")
+    chans = UNPACKERS.get((mode, space, nc))
+    if chans is None:
+        raise RasterError(f"JPEG 2000: no unpacker for mode {mode} from "
+                          f"{nc} components in colour space "
+                          f"{space or 'unspecified'} (broken data stream)")
+    try:
+        out = _native.j2k_decode(code, width, height, chans,
+                                 16 if mode == "I;16" else 8)
+    except ValueError as e:
+        raise RasterError(f"JPEG 2000: {e}") from e
+    return pixels.Decoded(mode, out[..., 0] if len(chans) == 1 else out,
+                          palette or b"")

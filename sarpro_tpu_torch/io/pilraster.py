@@ -4,10 +4,11 @@ through Pillow, which the machine with the GPU does not have. The port
 decodes them with its own readers, to the image Pillow opens, dispatching on
 the first bytes as Pillow's `Image.open` does:
 
-  * PNG (io/png.py), JPEG (io/jpeg.py), BMP (io/bmp.py), GIF (io/gif.py)
-    and netpbm P1-P6 (io/netpbm.py);
-  * WebP and JPEG 2000 raise RasterError (ROADMAP queue 1), as does any
-    other content.
+  * PNG (io/png.py), JPEG (io/jpeg.py), BMP (io/bmp.py), GIF (io/gif.py),
+    netpbm P1-P6 (io/netpbm.py) and JPEG 2000 (io/jpeg2000.py: JP2 files
+    and raw codestreams);
+  * WebP raises RasterError (ROADMAP queue 1), as does any other
+    content.
 
 Each reader's image then takes the JAX module's normalisation
 (io/pixels.normalise) and Pillow's decompression-bomb limit
@@ -26,7 +27,7 @@ from pathlib import Path
 import numpy as np
 
 from ..errors import RasterError
-from . import bmp, gif, jpeg, netpbm, pixels, png
+from . import bmp, gif, jpeg, jpeg2000, netpbm, pixels, png
 from .tiffio import GeoInfo
 
 # extensions PIL handles that we advertise (TIFF stays on the native codec)
@@ -91,8 +92,7 @@ def read_prj_epsg(path: Path):
 
 def _reader(head: bytes):
     """The port's reader for content starting with `head`, as Pillow's
-    plugins accept it; RasterError for WebP, JPEG 2000 and anything
-    else."""
+    plugins accept it; RasterError for WebP and anything else."""
     if head.startswith(png.SIGNATURE):
         return png.read
     if head.startswith(jpeg.SIGNATURE):
@@ -105,16 +105,15 @@ def _reader(head: bytes):
         return netpbm.read
     if head[:4] == b"RIFF" and head[8:12] == b"WEBP":
         raise RasterError("WebP is not decoded by the port yet")
-    if head.startswith((b"\x00\x00\x00\x0cjP  \r\n\x87\n",
-                        b"\xff\x4f\xff\x51")):
-        raise RasterError("JPEG 2000 is not decoded by the port yet")
+    if head.startswith(jpeg2000.SIGNATURES):
+        return jpeg2000.read
     raise RasterError("cannot identify image file (the port reads PNG, "
-                      "JPEG, BMP, GIF and netpbm)")
+                      "JPEG, BMP, GIF, netpbm and JPEG 2000)")
 
 
 class PilRaster:
-    """TiffReader-shaped adapter over a decoded PNG, JPEG, BMP, GIF or
-    netpbm file (the JAX PilRaster's interface and normalisation,
+    """TiffReader-shaped adapter over a decoded PNG, JPEG, BMP, GIF,
+    netpbm or JPEG 2000 file (the JAX PilRaster's interface and normalisation,
     sarpro_tpu/io/pilraster.py:82-146).
 
     Implements the subset RasterReader drives: width/height/samples/dtype,

@@ -1,5 +1,5 @@
 """What the port's raster decoders (io/png, io/jpeg, io/bmp, io/gif,
-io/netpbm) share: the image each one gives, as Pillow's `Image.open` and
+io/netpbm, io/jpeg2000) share: the image each one gives, as Pillow's `Image.open` and
 `load()` would give it (its mode and `np.asarray` of it), Pillow's
 decompression-bomb rule, and the normalisation the JAX package's PilRaster
 applies to an opened image (sarpro_tpu/io/pilraster.py:99-128)."""

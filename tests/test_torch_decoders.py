@@ -856,7 +856,7 @@ def test_broken_netpbm_is_refused_as_by_jax(tmp_path, rng, name):
 
 
 # ---------------------------------------------------------------------------
-# the decompression-bomb limit, WebP and JPEG 2000
+# the decompression-bomb limit, WebP, and JPEG 2000 opened
 # ---------------------------------------------------------------------------
 def _bomb(fmt: str, width: int, height: int) -> bytes:
     """A file whose header claims width x height pixels and holds no
@@ -922,8 +922,10 @@ def test_pillow_limit_constant():
 
 @pytest.mark.parametrize("fmt", ["WEBP", "JPEG2000", "J2K"])
 def test_webp_and_jpeg2000_are_refused(tmp_path, rng, fmt):
-    """Pillow opens them (the JAX reader gives the image); the port names
-    the format and refuses it (ROADMAP queue 1)."""
+    """Pillow opens them (the JAX reader gives the image); the port refuses
+    WebP, naming it (ROADMAP queue 1), and opens JPEG 2000 (JP2 and raw
+    codestream) to the JAX reader's image (io/jpeg2000.py;
+    tests/test_torch_jpeg2000.py holds it in full)."""
     path = tmp_path / "x.img"
     buf = io.BytesIO()
     Image.fromarray(_scene(rng, (16, 16, 3))).save(
@@ -931,8 +933,10 @@ def test_webp_and_jpeg2000_are_refused(tmp_path, rng, fmt):
         **({"no_jp2": True} if fmt == "J2K" else {}))
     path.write_bytes(buf.getvalue())
     assert jraster.RasterReader(path).metadata.bands == 3
-    name = "WebP" if fmt == "WEBP" else "JPEG 2000"
-    with pytest.raises(RasterError, match=f"{name} is not decoded") as ei:
+    if fmt != "WEBP":
+        assert _equal_to_jax(path).shape == (16, 16, 3)
+        return
+    with pytest.raises(RasterError, match="WebP is not decoded") as ei:
         traster.RasterReader(path)
     assert str(ei.value).startswith("unsupported raster format")
 

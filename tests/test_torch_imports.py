@@ -31,8 +31,8 @@ def test_port_sources_import_no_jax_pillow_or_cv2():
     assert {"mesh.py", "sharded.py", "warp.py", "batch.py"} <= {
         p.name for p in (PORT / "parallel").glob("*.py")}
     assert {"pilraster.py", "pixels.py", "png.py", "jpeg.py", "bmp.py",
-            "gif.py", "netpbm.py"} <= {p.name for p in
-                                        (PORT / "io").glob("*.py")}
+            "gif.py", "netpbm.py", "jpeg2000.py"} <= {
+                p.name for p in (PORT / "io").glob("*.py")}
     for line in ("import sarpro_tpu", "from sarpro_tpu.io import safe",
                  "  from sarpro_tpu import _native", "import jax.numpy"):
         assert pattern.search(line), line
@@ -163,8 +163,8 @@ def test_cpu_slice_runs_with_jax_and_pillow_blocked(tmp_path):
         assert img.shape == (43, 64, 1), img.shape
         srv.shutdown()
         srv.server_close()
-        # the raster decoders: a JPEG from the port's own coder, and a BMP,
-        # a GIF and a PGM written here, opened through RasterReader
+        # the raster decoders: a JPEG from the port's own coder, a BMP, a
+        # GIF and a PGM written here and a JP2, opened through RasterReader
         import struct
         import numpy as np
         from sarpro_tpu_torch.io.raster import RasterReader
@@ -198,6 +198,15 @@ def test_cpu_slice_runs_with_jax_and_pillow_blocked(tmp_path):
         want["r.gif"] = (np.frombuffer(pal, np.uint8).reshape(256, 3)[g], 0)
         (d / "r.pgm").write_bytes(b"P5\\n56 40\\n255\\n" + g.tobytes())
         want["r.pgm"] = (g, 0)
+        # JPEG 2000: the committed u16 codestream, in a JP2 box, decodes to
+        # the DN chip_smoke seeds it from
+        code = (chip_smoke.J2K_DIR / chip_smoke.J2K_BAND).read_bytes()
+        (d / "r.jp2").write_bytes(chip_smoke.jp2_wrap(code, 512, 512, 1, 16,
+                                                      17))
+        tile = chip_smoke.j2k_band_tile()
+        data = RasterReader(d / "r.jp2")._tiff._data
+        assert data.dtype == np.uint16 and np.array_equal(data[..., 0],
+                                                          tile)
         for name, (ref, tol) in want.items():
             data = RasterReader(d / name)._tiff._data
             ref = ref if ref.ndim == 3 else ref[..., None]

@@ -100,6 +100,41 @@ def test_grayscale_streamed_equals_fused(strategy, bit_depth, pad):
            tf.grayscale_pipeline(x, target_size=None, **kw))
 
 
+def test_pow_does_not_hang_on_how_the_band_is_cut():
+    """The gamma's pow on the CPU gives an element one value wherever it
+    lies: at any offset, length, 2-D view or thread count (PyTorch's own
+    pow runs each loop's last length-mod-32 elements through the scalar
+    std::pow, an ulp off the vector pow on some inputs)."""
+    g = torch.Generator().manual_seed(5)
+    x = torch.rand(70000, generator=g)
+    threads = torch.get_num_threads()
+    try:
+        for gamma in (torch.tensor(0.9), torch.tensor(1.1)):
+            ref = tf._pow(x, gamma)
+            for k in (1, 7, 16, 31, 33):
+                assert torch.equal(tf._pow(x[k:].clone(), gamma), ref[k:])
+            for t in (1, 3, 8):
+                torch.set_num_threads(t)
+                for n in (35200, 8448, 65537):
+                    assert torch.equal(tf._pow(x[:n], gamma), ref[:n])
+                assert torch.equal(tf._pow(x.view(175, 400)[:, 3:], gamma),
+                                   ref.view(175, 400)[:, 3:])
+    finally:
+        torch.set_num_threads(threads)
+
+
+@pytest.mark.parametrize("shape", [(200, 175), (201, 173)])
+@pytest.mark.parametrize("strategy", [S.STANDARD, S.ADAPTIVE])
+def test_gamma_strategies_streamed_equal_fused_at_odd_widths(strategy, shape):
+    """Chunks whose lengths are not multiples of 32 (48 rows of 175 or
+    173 pixels): the gamma windows still stream bit-equal to the fused
+    program."""
+    x = _t(_pair(6, shape)[0])
+    kw = dict(strategy=strategy, bit_depth=BitDepth.U16)
+    _equal(ts.grayscale_streamed(x, chunk_rows=CHUNK, **kw),
+           tf.grayscale_pipeline(x, target_size=None, **kw))
+
+
 def test_u16_dn_and_one_chunk_equal_fused():
     """u16 DN as the reader loads it, and a chunk taller than the band."""
     vv, vh = (np.clip(a, 0, 65535).astype(np.uint16) for a in _pair(4))
