@@ -149,7 +149,20 @@ prints no result):
      counts set to 0 just before and read just after, bit-equal to the
      plain resample, and that read is written as a CLAHE gray JPEG by
      api.save_image and read back;
- 15. with --walls N only: every warm path N times more, interleaved, with
+ 15. webp: io/webp on the four files of tests/data/webp (written by
+     Pillow from seeds; no Pillow here: a SAR-like band as lossy RGB, a lossy
+     RGBA with a filtered, VP8L-coded ALPH plane, a lossless RGBA, a
+     two-frame animation), each decoding to the SHA-256 of Pillow's decode
+     (WEBP_FIXTURES, pinned in tests/test_torch_webp.py), and an 84.9 MP
+     (9216^2) SAR-like u8 band written here as VP8L by vp8l_write (no
+     transforms, 8-bit literal codes: the decoder's literal path only) with
+     .wpw and .prj. The band opens through RasterReader (decode ms on the
+     host clock, median of 3, MB and MP/s beside the host CPU), equals the
+     band written with its geotransform and EPSG, reads decimated to 2048^2
+     on the card (cubic) with the launch counts set to 0 just before and
+     read just after, bit-equal to the plain resample, and that read is
+     written as a CLAHE gray JPEG by api.save_image and read back;
+ 16. with --walls N only: every warm path N times more, interleaved, with
      medians and quartiles of its wall; the no-warp synRGB read through
      each of the two loaders (full DN + device resample, decimated read) in
      the same rounds; a torch.profiler trace of the single-band TIFF, the
@@ -344,6 +357,23 @@ J2K_BAND, J2K_BAND_SEED, J2K_BAND_TILES = "sar_u16_512.j2k", 13, 18
 J2K_RGB, J2K_RGB_SEED, J2K_RGB_TILES = "rgb_97_256.j2k", 14, 16
 J2K_RGB_SHA256 = ("4c7da7321af50225bed0e90a4909a7d1"
                   "de1fcc26f06e867d74b9dfc2e5bafb21")
+# the webp phase: Pillow-written files (tests/data/webp, made by
+# tests/test_torch_webp.py from WEBP_SEED on) and the SHA-256 of Pillow's
+# decode of each (np.asarray of the image), which the port's must match; an
+# 84.9 MP band (under Pillow's 89.5 MP warning) written here as VP8L
+WEBP_DIR = ROOT / "tests" / "data" / "webp"
+WEBP_SEED = 15
+WEBP_BAND_SIDE = 9216
+WEBP_FIXTURES = {
+    "sar_lossy_rgb.webp": ("1742d8197358e65ee9296cbfafffeb57"
+                           "41c4b585a6efeed8a4d9aeb601ee0e15"),
+    "rgba_lossy_alph.webp": ("b22e302cb177063e609c4a1d0033d6cf"
+                             "9704be3b2ce08ce67c5222a846c15176"),
+    "rgba_lossless.webp": ("8a3858983c73a3142f807a84f2495592"
+                           "525298b73550fe0935017aa17e825e92"),
+    "anim_two_frames.webp": ("deae7540ce10f6c3dc893aac73217345"
+                             "188f155937c2066b7e4fa79ef2d60201"),
+}
 # the path whose launch count each kernel reports in the kernels line
 REPORTED_PATH = {k: ("warm tamed cubic" if k == "resample_axis0"
                      else "warm clahe auto") for k in KERNELS}
@@ -3629,6 +3659,237 @@ def phase_jpeg2000(work: Path, smi: str) -> dict:
     return totals
 
 
+def webp_band(seed: int, rows: int, cols: int):
+    """A SAR-like u8 band: single-look speckle (exponential intensity) over
+    a smooth backscatter field, in dB scaled to u8, from `seed`."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    y = np.linspace(0.0, 6.0, rows, dtype=np.float32)[:, None]
+    x = np.linspace(0.0, 9.0, cols, dtype=np.float32)[None, :]
+    field = np.float32(0.05) + np.float32(0.04) * (np.sin(y) * np.cos(x) + 1)
+    intensity = rng.standard_exponential((rows, cols), np.float32)
+    intensity *= field
+    np.maximum(intensity, np.float32(1e-6), out=intensity)
+    db = np.log10(intensity)
+    db *= np.float32(80.0)
+    db += np.float32(200.0)
+    return np.clip(db, 0, 255).astype(np.uint8)
+
+
+def webp_rgba_tile(seed: int, rows: int, cols: int):
+    """A u8 RGBA tile: gradients and gamma speckle, with alpha a smooth ramp
+    that is 0 over a corner block, from `seed`."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    y, x = np.mgrid[0:rows, 0:cols]
+    base = np.stack([(x + y) % 256, (2 * x) % 256, 255 - y % 256], -1)
+    rgb = np.clip(0.6 * base + rng.gamma(4.0, 8.0, (rows, cols, 3)), 0, 255)
+    alpha = np.clip(64 + (x * 160) // cols + (y * 31) // rows, 0, 255)
+    alpha[:rows // 4, :cols // 4] = 0
+    return np.dstack([rgb, alpha]).astype(np.uint8)
+
+
+def vp8l_write(planes, width: int, height: int) -> bytes:
+    """A WebP file of one VP8L image, written without Pillow: `planes` the
+    red, green, blue and alpha channels, each a (height, width) u8 array or
+    an int where the channel is constant. No transforms, no colour cache and
+    one prefix-code group: a varying channel takes a code of 256 symbols of
+    8 bits (each pixel's value bit-reversed, as canonical codes are read), a
+    constant one a simple code of one symbol (no bits a pixel); the distance
+    code is a simple one of one symbol. The alpha hint is set unless alpha
+    is the constant 255."""
+    import numpy as np
+
+    head: list = []  # (value, bits), least significant bit first
+
+    def put(value: int, bits: int) -> None:
+        head.append((value, bits))
+
+    r, g, b, a = planes
+    put(0x2F, 8)
+    put(width - 1, 14)
+    put(height - 1, 14)
+    put(0 if isinstance(a, int) and a == 255 else 1, 1)
+    put(0, 3)  # version
+    put(0, 1)  # no transform
+    put(0, 1)  # no colour cache
+    put(0, 1)  # no meta prefix codes
+    varying = []
+    for plane, alphabet in ((g, 280), (r, 256), (b, 256), (a, 256)):
+        if isinstance(plane, int):  # simple code: one symbol of 8 bits
+            put(1, 1)
+            put(0, 1)
+            put(1, 1)
+            put(plane, 8)
+            continue
+        # normal code: a code-length code of one symbol, the length 8 (12th
+        # in the code-length-code order), so each length costs no bits
+        put(0, 1)
+        put(12 - 4, 4)
+        for i in range(12):
+            put(1 if i == 11 else 0, 3)
+        if alphabet == 280:  # lengths for the 256 literals only
+            put(1, 1)
+            put(3, 3)
+            put(256 - 2, 8)
+        else:
+            put(0, 1)
+        varying.append(plane)
+    for value, bits in ((1, 1), (0, 1), (0, 1), (0, 1)):  # distance code
+        put(value, bits)
+    nbits = sum(bits for _, bits in head)
+    acc = 0
+    shift = 0
+    for value, bits in head:
+        acc |= value << shift
+        shift += bits
+    rev = np.array([int(f"{i:08b}"[::-1], 2) for i in range(256)], np.uint8)
+    payload = np.empty((height, width, len(varying)), np.uint8)
+    for k, plane in enumerate(varying):
+        payload[..., k] = rev[plane]
+    payload = payload.reshape(-1)
+    k = nbits % 8
+    head_bytes = acc.to_bytes((nbits + 7) // 8, "little")
+    if k == 0:
+        body = head_bytes + payload.tobytes()
+    else:  # the pixels start k bits into the header's last byte
+        out = np.empty(payload.size + 1, np.uint8)
+        np.left_shift(payload, k, out=out[:-1])
+        out[-1] = 0
+        out[1:] |= payload >> (8 - k)
+        out[0] |= head_bytes[-1]
+        body = head_bytes[:-1] + out.tobytes()
+    pad = b"\0" * (len(body) & 1)
+    return (b"RIFF" + struct.pack("<I", 4 + 8 + len(body) + len(pad))
+            + b"WEBPVP8L" + struct.pack("<I", len(body)) + body + pad)
+
+
+def phase_webp(work: Path, smi: str) -> dict:
+    """io/webp on the card's machine: the committed files decode to the
+    SHA-256 of Pillow's decode; the 84.9 MP VP8L band with .wpw and .prj
+    opens through RasterReader (decode timed on the host clock, median of
+    3), equals the band written with its geotransform and EPSG, reads
+    decimated to 2048^2 on the card (bit-equal to the plain resample) and is
+    saved as a CLAHE gray JPEG that reads back. Returns the launches of the
+    driven read and save."""
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    from sarpro_tpu_torch import _native, api, ops
+    from sarpro_tpu_torch.io import raster, webp
+    from sarpro_tpu_torch.io.writers.worldfile import write_prj_file
+    from sarpro_tpu_torch.ops import force_plain
+    from sarpro_tpu_torch.types import (
+        AutoscaleStrategy,
+        BitDepth,
+        OutputFormat,
+    )
+
+    _native.raster_decoder()  # built in phase_build; raises if it did not
+    d = work / "webp"
+    d.mkdir()
+    for name, want in WEBP_FIXTURES.items():
+        img = webp.read((WEBP_DIR / name).read_bytes())
+        digest = hashlib.sha256(img.array.tobytes()).hexdigest()
+        if digest != want:
+            raise AssertionError(f"webp: {name} decodes to SHA-256 {digest}, "
+                                 f"Pillow's is {want}")
+        log(f"webp: {name}: {img.mode} {tuple(img.array.shape)}, the "
+            f"SHA-256 of Pillow's decode")
+    side = WEBP_BAND_SIDE
+    t0 = time.perf_counter()
+    band = webp_band(WEBP_SEED, side, side)
+    path = d / "band.webp"
+    path.write_bytes(vp8l_write((band, band, band, 255), side, side))
+    gt = [500000.0, 10.0, 0.0, 5100000.0, 0.0, -10.0]
+    path.with_suffix(".wpw").write_text(
+        "10.0\n0.0\n0.0\n-10.0\n500005.0\n5099995.0\n")
+    write_prj_file(path, "EPSG:32632")
+    mb = path.stat().st_size / 1e6
+    log(f"webp: wrote the {side}^2 VP8L band ({mb:.1f} MB) in "
+        f"{time.perf_counter() - t0:.1f} s")
+    walls = []
+    for _ in range(3):
+        reader = None  # the last decode's arrays go before the next one's
+        t0 = time.perf_counter()
+        reader = raster.RasterReader(path)
+        walls.append(time.perf_counter() - t0)
+    data = reader._tiff._data
+    md = reader.metadata
+    if md.geotransform != gt or md.epsg != 32632:
+        raise AssertionError(f"webp: geotransform {md.geotransform}, EPSG "
+                             f"{md.epsg}")
+    if data.shape != (side, side, 3) or data.dtype != np.uint8 or not all(
+            np.array_equal(data[..., k], band) for k in range(3)):
+        raise AssertionError(f"webp: the band decodes to {data.dtype} "
+                             f"{data.shape}, not the band written")
+    wall = statistics.median(walls)
+    mp = side * side / 1e6
+    log(f"webp: VP8L band {mp:.1f} MP ({mb:.1f} MB, u8 {tuple(data.shape)}): "
+        f"decode {wall * 1e3:.1f} ms (host clock, median of 3; "
+        f"{', '.join(f'{w * 1e3:.1f}' for w in walls)}), {mp / wall:.1f} "
+        f"MP/s, {mb / wall:.1f} MB/s, equal to the band written; host CPU "
+        f"{_host_cpu()}")
+    del data
+    totals = {k: 0 for k in ops.launch_counts()}
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    t0 = time.perf_counter()
+    start.record()
+    dev = raster.read_band_resampled_to_device(reader, 1, SIZE, SIZE, DEVICE,
+                                               "cubic")
+    end.record()
+    end.synchronize()
+    read_ms = (time.perf_counter() - t0) * 1e3
+    counts = ops.launch_counts()
+    if counts["resample_axis0"] <= 0:
+        raise AssertionError(f"webp: the decimated read launched no "
+                             f"resample ({counts})")
+    for k, v in counts.items():
+        totals[k] += v
+    with force_plain():
+        plain = raster.read_band_resampled_to_device(reader, 1, SIZE, SIZE,
+                                                     DEVICE, "cubic")
+    _check_equal(dev, plain, "webp: VP8L band resample vs plain")
+    log(f"webp: VP8L band: cubic read to {SIZE}^2 "
+        f"{start.elapsed_time(end):.3f} ms between CUDA events "
+        f"({read_ms:.1f} ms host), launches "
+        f"{ {k: v for k, v in counts.items() if v} }, bit-equal to the "
+        f"plain resample; on {smi}")
+    reader.close()
+    del reader, plain
+    out = d / "clahe_gray.jpg"
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    api.save_image(dev + 1.0, out, OutputFormat.JPEG, BitDepth.U8,
+                   autoscale=AutoscaleStrategy.CLAHE, device=DEVICE)
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    for k in ("histogram", "tile_histogram", "clahe_lookup"):
+        if counts[k] <= 0:
+            raise AssertionError(f"webp: the CLAHE gray save launched no "
+                                 f"{k} ({counts})")
+    for k, v in counts.items():
+        totals[k] += v
+    back = raster.RasterReader(out)
+    if (back.metadata.size_x, back.metadata.size_y,
+            back.metadata.bands) != (SIZE, SIZE, 1):
+        raise AssertionError(f"webp: the CLAHE gray JPEG reads back as "
+                             f"{back.metadata}")
+    log(f"webp: api.save_image CLAHE gray JPEG of the VP8L band's {SIZE}^2 "
+        f"read: {wall * 1e3:.1f} ms (host clock), launches "
+        f"{ {k: v for k, v in counts.items() if v} }, read back {SIZE} x "
+        f"{SIZE} x 1")
+    del dev
+    shutil.rmtree(d, ignore_errors=True)
+    return totals
+
+
 def phase_rasters(work: Path, synrgb: Path, rgb, smi: str) -> dict:
     """The non-TIFF raster readers on the card's machine: each input opened
     through RasterReader (its decode timed on the host clock, median of 3),
@@ -3883,6 +4144,7 @@ def main() -> int:
                                 DRIVEN["warm clahe auto"][1],
                                 RESIDENT_RGB["clahe auto"], smi)
         j2k_launches = timed(phase_jpeg2000, work, smi)
+        webp_launches = timed(phase_webp, work, smi)
         if args.walls:
             timed(phase_walls, args.walls, safe, work, smi)
     finally:
@@ -3916,6 +4178,7 @@ def main() -> int:
         entry["shard_launches"] = shard_launches[name]
         entry["raster_launches"] = raster_launches[name]
         entry["jpeg2000_launches"] = j2k_launches[name]
+        entry["webp_launches"] = webp_launches[name]
         if also:
             entry["also_replaces"] = also[0]
         kernels.append(entry)

@@ -13,7 +13,8 @@ pure-Python paths.
 
 The raster decoders (`rasterdec.cpp` beside this file: JPEG, the GIF LZW
 stream and BMP RLE, for io/jpeg.py, io/gif.py and io/bmp.py; `j2kdec.cpp`:
-the JPEG 2000 codestream, for io/jpeg2000.py) build the same way into one
+the JPEG 2000 codestream, for io/jpeg2000.py; `webpdec.cpp`: a WebP frame's
+VP8 / VP8L and ALPH chunks, for io/webp.py) build the same way into one
 library of their own, at their first use, with FMA contraction off so the
 9/7 wavelet rounds as written. They have no fallback: where that library
 cannot be built, `raster_decoder()` raises with the compiler's message.
@@ -145,6 +146,7 @@ def available() -> bool:
 
 RASTER_SOURCE = pathlib.Path(__file__).resolve().with_name("rasterdec.cpp")
 J2K_SOURCE = RASTER_SOURCE.with_name("j2kdec.cpp")
+WEBP_SOURCE = RASTER_SOURCE.with_name("webpdec.cpp")
 # the 9/7 wavelet and the ICT are float code: no FMA contraction
 RASTER_FLAGS = ("-ffp-contract=off",)
 _RASTER: Optional[ctypes.CDLL] = None
@@ -159,7 +161,7 @@ def raster_decoder() -> ctypes.CDLL:
     global _RASTER, _RASTER_WHY
     with _RASTER_LOCK:
         if _RASTER is None and _RASTER_WHY is None:
-            so, why = _compile([RASTER_SOURCE, J2K_SOURCE],
+            so, why = _compile([RASTER_SOURCE, J2K_SOURCE, WEBP_SOURCE],
                                "libsarpro_rasterdec", RASTER_FLAGS)
             if so is None:
                 _RASTER_WHY = why
@@ -184,11 +186,15 @@ def raster_decoder() -> ctypes.CDLL:
                                            ctypes.POINTER(i32), i32,
                                            ctypes.c_void_p, i32,
                                            ctypes.c_char_p, i64]
+                lib.webp_decode.restype = i64
+                lib.webp_decode.argtypes = [u8p, i64, i32, u8p, i64, i64, i64,
+                                            u8p, i64, i32, ctypes.c_char_p,
+                                            i64]
                 _RASTER = lib
         if _RASTER is None:
             raise RuntimeError(f"the raster decoder library "
-                               f"({RASTER_SOURCE.name}, {J2K_SOURCE.name}) "
-                               f"could not be built: "
+                               f"({RASTER_SOURCE.name}, {J2K_SOURCE.name}, "
+                               f"{WEBP_SOURCE.name}) could not be built: "
                                f"{_RASTER_WHY}")
         return _RASTER
 
@@ -240,6 +246,25 @@ def j2k_decode(code: bytes, width: int, height: int, chan_comp: tuple,
                       len(err)) != 0:
         raise ValueError(err.value.decode("latin-1"))
     return out
+
+
+def webp_decode(image: memoryview, lossless: bool, alpha, window: np.ndarray
+                ) -> None:
+    """One WebP frame into `window`, a (height, width, 3 or 4) u8 view of
+    the canvas with C-contiguous pixels (RGB or RGBA): `image` the VP8 /
+    VP8L chunk's payload to the frame's end, `alpha` the ALPH chunk's
+    payload or None; ValueError with the decoder's reason."""
+    lib = raster_decoder()
+    h, w, channels = window.shape
+    assert window.dtype == np.uint8 and window.strides[1:] == (channels, 1)
+    src = np.frombuffer(image, np.uint8)
+    alp = np.frombuffer(alpha if alpha is not None else b"\0", np.uint8)
+    err = ctypes.create_string_buffer(512)
+    if lib.webp_decode(_u8p(src), len(src), int(lossless), _u8p(alp),
+                       -1 if alpha is None else len(alpha), w, h,
+                       window.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+                       window.strides[0], channels, err, len(err)) != 0:
+        raise ValueError(err.value.decode("latin-1"))
 
 
 def gif_lzw_decode(blob: bytes, offset: int, bits: int, interlace: bool,

@@ -239,7 +239,7 @@ def read(blob: bytes) -> pixels.Decoded:
     try:
         out = _native.j2k_decode(code, width, height, chans,
                                  16 if mode == "I;16" else 8)
-    except ValueError as e:
+    except (ValueError, RuntimeError) as e:
         raise RasterError(f"JPEG 2000: {e}") from e
     return pixels.Decoded(mode, out[..., 0] if len(chans) == 1 else out,
                           palette or b"")

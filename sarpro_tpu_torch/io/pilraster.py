@@ -5,10 +5,10 @@ decodes them with its own readers, to the image Pillow opens, dispatching on
 the first bytes as Pillow's `Image.open` does:
 
   * PNG (io/png.py), JPEG (io/jpeg.py), BMP (io/bmp.py), GIF (io/gif.py),
-    netpbm P1-P6 (io/netpbm.py) and JPEG 2000 (io/jpeg2000.py: JP2 files
-    and raw codestreams);
-  * WebP raises RasterError (ROADMAP queue 1), as does any other
-    content.
+    netpbm P1-P6 (io/netpbm.py), WebP (io/webp.py: lossy, lossless, alpha,
+    the first frame of an animation) and JPEG 2000 (io/jpeg2000.py: JP2
+    files and raw codestreams);
+  * any other content raises RasterError.
 
 Each reader's image then takes the JAX module's normalisation
 (io/pixels.normalise) and Pillow's decompression-bomb limit
@@ -27,7 +27,7 @@ from pathlib import Path
 import numpy as np
 
 from ..errors import RasterError
-from . import bmp, gif, jpeg, jpeg2000, netpbm, pixels, png
+from . import bmp, gif, jpeg, jpeg2000, netpbm, pixels, png, webp
 from .tiffio import GeoInfo
 
 # extensions PIL handles that we advertise (TIFF stays on the native codec)
@@ -92,7 +92,7 @@ def read_prj_epsg(path: Path):
 
 def _reader(head: bytes):
     """The port's reader for content starting with `head`, as Pillow's
-    plugins accept it; RasterError for WebP and anything else."""
+    plugins accept it; RasterError for anything else."""
     if head.startswith(png.SIGNATURE):
         return png.read
     if head.startswith(jpeg.SIGNATURE):
@@ -103,18 +103,18 @@ def _reader(head: bytes):
         return gif.read
     if netpbm.accept(head):
         return netpbm.read
-    if head[:4] == b"RIFF" and head[8:12] == b"WEBP":
-        raise RasterError("WebP is not decoded by the port yet")
+    if webp.accept(head):
+        return webp.read
     if head.startswith(jpeg2000.SIGNATURES):
         return jpeg2000.read
     raise RasterError("cannot identify image file (the port reads PNG, "
-                      "JPEG, BMP, GIF, netpbm and JPEG 2000)")
+                      "JPEG, BMP, GIF, netpbm, WebP and JPEG 2000)")
 
 
 class PilRaster:
     """TiffReader-shaped adapter over a decoded PNG, JPEG, BMP, GIF,
-    netpbm or JPEG 2000 file (the JAX PilRaster's interface and normalisation,
-    sarpro_tpu/io/pilraster.py:82-146).
+    netpbm, WebP or JPEG 2000 file (the JAX PilRaster's interface and
+    normalisation, sarpro_tpu/io/pilraster.py:82-146).
 
     Implements the subset RasterReader drives: width/height/samples/dtype,
     read(band), geo_info(), gdal_metadata(), close(). The strip-streaming

@@ -921,11 +921,11 @@ def test_pillow_limit_constant():
 
 
 @pytest.mark.parametrize("fmt", ["WEBP", "JPEG2000", "J2K"])
-def test_webp_and_jpeg2000_are_refused(tmp_path, rng, fmt):
-    """Pillow opens them (the JAX reader gives the image); the port refuses
-    WebP, naming it (ROADMAP queue 1), and opens JPEG 2000 (JP2 and raw
-    codestream) to the JAX reader's image (io/jpeg2000.py;
-    tests/test_torch_jpeg2000.py holds it in full)."""
+def test_webp_and_jpeg2000_open_as_jax(tmp_path, rng, fmt):
+    """Pillow opens them (the JAX reader gives the image); so does the port,
+    to the JAX reader's image: WebP (io/webp.py;
+    tests/test_torch_webp.py holds it in full) and JPEG 2000, JP2 and raw
+    codestream (io/jpeg2000.py; tests/test_torch_jpeg2000.py)."""
     path = tmp_path / "x.img"
     buf = io.BytesIO()
     Image.fromarray(_scene(rng, (16, 16, 3))).save(
@@ -933,12 +933,7 @@ def test_webp_and_jpeg2000_are_refused(tmp_path, rng, fmt):
         **({"no_jp2": True} if fmt == "J2K" else {}))
     path.write_bytes(buf.getvalue())
     assert jraster.RasterReader(path).metadata.bands == 3
-    if fmt != "WEBP":
-        assert _equal_to_jax(path).shape == (16, 16, 3)
-        return
-    with pytest.raises(RasterError, match="WebP is not decoded") as ei:
-        traster.RasterReader(path)
-    assert str(ei.value).startswith("unsupported raster format")
+    assert _equal_to_jax(path).shape == (16, 16, 3)
 
 
 def test_unknown_content_is_refused(tmp_path):
@@ -1076,9 +1071,9 @@ def test_own_jpeg_round_trip(tmp_path, content, route):
 
 def test_decoder_build_failure_raises_with_the_compilers_message(
         tmp_path, monkeypatch, rng):
-    """No silent fallback: where the decoder library cannot be built, a JPEG
-    or GIF raises RasterError carrying g++'s message (PNG, BMP without RLE
-    and netpbm need no library)."""
+    """No silent fallback: where the decoder library cannot be built, a JPEG,
+    GIF, JPEG 2000 or WebP raises RasterError carrying g++'s message (PNG,
+    BMP without RLE and netpbm need no library)."""
     from sarpro_tpu_torch import _native
 
     bad = tmp_path / "rasterdec.cpp"
@@ -1087,7 +1082,7 @@ def test_decoder_build_failure_raises_with_the_compilers_message(
     monkeypatch.setattr(_native, "BUILD_DIR", tmp_path / "build")
     monkeypatch.setattr(_native, "_RASTER", None)
     monkeypatch.setattr(_native, "_RASTER_WHY", None)
-    for fmt in ("JPEG", "GIF"):
+    for fmt in ("JPEG", "GIF", "JPEG2000", "WEBP"):
         path = tmp_path / f"x.{fmt.lower()}"
         Image.fromarray(_scene(rng, (8, 8))).save(path, format=fmt)
         with pytest.raises(RasterError, match="could not be built") as ei:

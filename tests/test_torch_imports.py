@@ -31,7 +31,7 @@ def test_port_sources_import_no_jax_pillow_or_cv2():
     assert {"mesh.py", "sharded.py", "warp.py", "batch.py"} <= {
         p.name for p in (PORT / "parallel").glob("*.py")}
     assert {"pilraster.py", "pixels.py", "png.py", "jpeg.py", "bmp.py",
-            "gif.py", "netpbm.py", "jpeg2000.py"} <= {
+            "gif.py", "netpbm.py", "jpeg2000.py", "webp.py"} <= {
                 p.name for p in (PORT / "io").glob("*.py")}
     for line in ("import sarpro_tpu", "from sarpro_tpu.io import safe",
                  "  from sarpro_tpu import _native", "import jax.numpy"):
@@ -164,7 +164,8 @@ def test_cpu_slice_runs_with_jax_and_pillow_blocked(tmp_path):
         srv.shutdown()
         srv.server_close()
         # the raster decoders: a JPEG from the port's own coder, a BMP, a
-        # GIF and a PGM written here and a JP2, opened through RasterReader
+        # GIF and a PGM written here, a JP2 and a WebP, opened through
+        # RasterReader
         import struct
         import numpy as np
         from sarpro_tpu_torch.io.raster import RasterReader
@@ -207,6 +208,14 @@ def test_cpu_slice_runs_with_jax_and_pillow_blocked(tmp_path):
         data = RasterReader(d / "r.jp2")._tiff._data
         assert data.dtype == np.uint16 and np.array_equal(data[..., 0],
                                                           tile)
+        # WebP: a committed lossy RGBA with its VP8L-coded ALPH plane
+        # decodes to the SHA-256 of Pillow's decode
+        import hashlib
+        name = "rgba_lossy_alph.webp"
+        data = RasterReader(chip_smoke.WEBP_DIR / name)._tiff._data
+        assert data.shape == (160, 176, 4), data.shape
+        assert hashlib.sha256(data.tobytes()).hexdigest() == \
+            chip_smoke.WEBP_FIXTURES[name]
         for name, (ref, tol) in want.items():
             data = RasterReader(d / name)._tiff._data
             ref = ref if ref.ndim == 3 else ref[..., None]
