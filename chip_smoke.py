@@ -135,20 +135,26 @@ prints no result):
      (cubic) with the launch counts set to 0 just before and read just
      after, bit-equal to the plain resample; the 80 MP band's read is then
      written as a CLAHE gray JPEG by api.save_image and read back;
- 14. jpeg2000: io/jpeg2000 on the two codestreams of tests/data/jpeg2000
-     (written by Pillow from seeds; no Pillow here), spliced tile-part by
-     tile-part into an 84.9 MP (9216^2, 18 x 18 tiles of 512^2) lossless
-     SAR-like u16 band in a JP2 with .j2w and .prj, and a 4096^2 RGB band
-     (16 x 16 tiles of a 9/7, ICT, two-layer RPCL tile). Each opens through
-     RasterReader (decode ms on the host clock, median of 3, MB and MP/s
-     beside the host CPU); the u16 band is bit-equal to np.tile of its
-     seeded tile with its geotransform and EPSG, every RGB tile equals the
-     port's decode of the tile alone, whose SHA-256 is Pillow's
-     (J2K_RGB_SHA256, pinned in tests/test_torch_jpeg2000.py); the u16
-     band reads decimated to 2048^2 on the card (cubic) with the launch
-     counts set to 0 just before and read just after, bit-equal to the
-     plain resample, and that read is written as a CLAHE gray JPEG by
-     api.save_image and read back;
+ 14. jpeg2000: io/jpeg2000 on the three codestreams of tests/data/jpeg2000
+     (written by Pillow, or by OpenJPEG's own encoder, from seeds; no Pillow
+     here), spliced tile-part by tile-part into an 84.9 MP (9216^2, 18 x 18
+     tiles of 512^2) lossless SAR-like u16 band in a JP2 with .j2w and
+     .prj, the same band coded with every code-block style (BYPASS, RESET,
+     TERMALL, VSC, PTERM, SEGSYM), a main-header POC of two progressions and,
+     in every other tile, a tile-part COD and an RGN shift (J2K_STYLED),
+     and a 4096^2 RGB band (16 x 16 tiles of a 9/7, ICT, two-layer RPCL
+     tile). Each opens through RasterReader (decode ms on the host clock,
+     median of 3, MB and MP/s beside the host CPU; the styled band's beside
+     the default band's); the u16 bands are bit-equal to np.tile of the
+     seeded tile with their geotransform and EPSG (the styled codestream's
+     own decode has the SHA-256 of Pillow's, J2K_STYLED_SHA256), every RGB
+     tile equals the port's decode of the tile alone, whose SHA-256 is
+     Pillow's (J2K_RGB_SHA256; both pinned in tests/test_torch_jpeg2000*.py);
+     each u16 band reads decimated to 2048^2 on the card (cubic) with the
+     launch counts set to 0 just before and read just after (the styled
+     band's two resample launches), bit-equal to the plain resample, and
+     that read is written as a CLAHE gray JPEG by api.save_image and read
+     back;
  15. webp: io/webp on the four files of tests/data/webp (written by
      Pillow from seeds; no Pillow here: a SAR-like band as lossy RGB, a lossy
      RGBA with a filtered, VP8L-coded ALPH plane, a lossless RGBA, a
@@ -357,6 +363,15 @@ J2K_BAND, J2K_BAND_SEED, J2K_BAND_TILES = "sar_u16_512.j2k", 13, 18
 J2K_RGB, J2K_RGB_SEED, J2K_RGB_TILES = "rgb_97_256.j2k", 14, 16
 J2K_RGB_SHA256 = ("4c7da7321af50225bed0e90a4909a7d1"
                   "de1fcc26f06e867d74b9dfc2e5bafb21")
+# the styled band: the u16 tile twice in a row, written by OpenJPEG 2.5.4's
+# own encoder (tests/opj_encode.py): tile 0 with every code-block style,
+# tile 1 with a tile-part COD of all but BYPASS and a tile-part RGN shift,
+# both under a main-header POC of two progressions; spliced 9 x 18 times
+# into the 84.9 MP band; the SHA-256 of Pillow's decode of the 1024 x 512
+# codestream (np.tile of the tile twice)
+J2K_STYLED = "sar_u16_styled_1024x512.j2k"
+J2K_STYLED_SHA256 = ("531a3115ed580c7fa6a4b397329dbe35"
+                     "96785e4a5115b7ce532522dcb508019e")
 # the webp phase: Pillow-written files (tests/data/webp, made by
 # tests/test_torch_webp.py from WEBP_SEED on) and the SHA-256 of Pillow's
 # decode of each (np.asarray of the image), which the port's must match; an
@@ -3480,25 +3495,38 @@ def j2k_rgb_tile(seed: int = J2K_RGB_SEED, side: int = 256):
 
 
 def j2k_splice(code: bytes, nx: int, ny: int) -> bytes:
-    """A codestream of nx x ny tiles from one whose image is one tile at
-    the origin: SIZ's image size made nx x ny tiles, the tile-part repeated
-    with its tile index renumbered, then EOC."""
-    xt, yt = struct.unpack_from(">II", code, 24)
-    if struct.unpack_from(">IIII", code, 8) != (xt, yt, 0, 0) or \
-            struct.unpack_from(">II", code, 32) != (0, 0):
-        raise ValueError("the codestream is not one tile at the origin")
-    sot = code.index(b"\xff\x90\x00\x0a")
-    if not code.endswith(b"\xff\xd9") or struct.unpack_from(
-            ">I", code, sot + 6)[0] != len(code) - 2 - sot:
-        raise ValueError("the codestream is not one tile-part and EOC")
-    head = bytearray(code[:sot])
+    """A codestream of nx x ny tiles from one whose image is one tile, or
+    one row of k tiles, at the origin: SIZ's image size made nx x ny
+    tiles, tile i the tile-parts of tile i % k with their tile index
+    renumbered, then EOC."""
+    x, y, xo, yo, xt, yt, xto, yto = struct.unpack_from(">8I", code, 8)
+    k = x // xt if xt else 0
+    if (xo, yo, xto, yto) != (0, 0, 0, 0) or y != yt or k < 1 or x != k * xt:
+        raise ValueError("the codestream is not one tile, or one row of "
+                         "tiles, at the origin")
+    pos = 2
+    while struct.unpack_from(">H", code, pos)[0] != 0xFF90:
+        pos += 2 + struct.unpack_from(">H", code, pos + 2)[0]
+    head = bytearray(code[:pos])
+    parts = [[] for _ in range(k)]
+    while struct.unpack_from(">H", code, pos)[0] == 0xFF90:
+        isot, psot = struct.unpack_from(">HI", code, pos + 4)
+        if isot >= k or psot < 14:
+            raise ValueError("a tile-part of no tile of the row, or of no "
+                             "length")
+        parts[isot].append(code[pos:pos + psot])
+        pos += psot
+    if code[pos:] != b"\xff\xd9" or not all(parts):
+        raise ValueError("the codestream is not its tiles' tile-parts and "
+                         "EOC")
     struct.pack_into(">II", head, 8, xt * nx, yt * ny)
-    part = bytearray(code[sot:-2])
-    parts = []
+    out = []
     for i in range(nx * ny):
-        struct.pack_into(">H", part, 4, i)
-        parts.append(bytes(part))
-    return bytes(head) + b"".join(parts) + b"\xff\xd9"
+        for part in parts[i % k]:
+            part = bytearray(part)
+            struct.pack_into(">H", part, 4, i)
+            out.append(bytes(part))
+    return bytes(head) + b"".join(out) + b"\xff\xd9"
 
 
 def jp2_wrap(code: bytes, width: int, height: int, bands: int, bits: int,
@@ -3517,12 +3545,12 @@ def jp2_wrap(code: bytes, width: int, height: int, bands: int, bits: int,
 
 
 def phase_jpeg2000(work: Path, smi: str) -> dict:
-    """io/jpeg2000 on the card's machine: the spliced 84.9 MP u16 JP2 and
-    4096^2 RGB codestream opened through RasterReader (decode timed on the
-    host clock, median of 3), held to their tiles, the u16 band read
-    decimated to 2048^2 on the card (bit-equal to the plain resample) and
-    saved as a CLAHE gray JPEG that reads back. Returns the launches of the
-    driven read and save."""
+    """io/jpeg2000 on the card's machine: the spliced 84.9 MP u16 JP2s (the
+    default coding and the styled one) and the 4096^2 RGB codestream opened
+    through RasterReader (decode timed on the host clock, median of 3),
+    held to their tiles, each u16 band read decimated to 2048^2 on the card
+    (bit-equal to the plain resample) and saved as a CLAHE gray JPEG that
+    reads back. Returns the launches of the driven reads and saves."""
     import hashlib
 
     import numpy as np
@@ -3555,6 +3583,21 @@ def phase_jpeg2000(work: Path, smi: str) -> dict:
     band_path.with_suffix(".j2w").write_text(
         "10.0\n0.0\n0.0\n-10.0\n500005.0\n5099995.0\n")
     write_prj_file(band_path, "EPSG:32632")
+    styled_code = (J2K_DIR / J2K_STYLED).read_bytes()
+    styled = jpeg2000.read(styled_code).array
+    digest = hashlib.sha256(styled.tobytes()).hexdigest()
+    if digest != J2K_STYLED_SHA256 or not np.array_equal(
+            styled, np.tile(tile, (1, 2))):
+        raise AssertionError(f"jpeg2000: the styled codestream decodes to "
+                             f"SHA-256 {digest}, Pillow's is "
+                             f"{J2K_STYLED_SHA256} (the seeded tile twice)")
+    styled_path = d / "styled.jp2"
+    styled_path.write_bytes(jp2_wrap(
+        j2k_splice(styled_code, J2K_BAND_TILES, J2K_BAND_TILES), side, side,
+        1, 16, 17))
+    styled_path.with_suffix(".j2w").write_bytes(
+        band_path.with_suffix(".j2w").read_bytes())
+    write_prj_file(styled_path, "EPSG:32632")
     rgb_code = (J2K_DIR / J2K_RGB).read_bytes()
     rgb_tile = jpeg2000.read(rgb_code).array
     digest = hashlib.sha256(rgb_tile.tobytes()).hexdigest()
@@ -3565,7 +3608,9 @@ def phase_jpeg2000(work: Path, smi: str) -> dict:
     rgb_path.write_bytes(j2k_splice(rgb_code, J2K_RGB_TILES, J2K_RGB_TILES))
     cpu = _host_cpu()
     totals = {k: 0 for k in ops.launch_counts()}
+    decode_ms = {}
     for name, path in (("u16 band 84.9 MP", band_path),
+                       ("u16 styled band 84.9 MP", styled_path),
                        ("rgb 9/7 16.8 MP", rgb_path)):
         walls = []
         for _ in range(3):
@@ -3594,6 +3639,7 @@ def phase_jpeg2000(work: Path, smi: str) -> dict:
                 raise AssertionError(f"jpeg2000: {name}: tiles {bad[:8]} "
                                      f"differ from the tile's decode")
         wall = statistics.median(walls)
+        decode_ms[name] = wall * 1e3
         mb = path.stat().st_size / 1e6
         mp = md.size_x * md.size_y / 1e6
         log(f"jpeg2000: {name} ({mb:.1f} MB, {data.dtype} "
@@ -3601,6 +3647,11 @@ def phase_jpeg2000(work: Path, smi: str) -> dict:
             f"median of 3; {', '.join(f'{w * 1e3:.1f}' for w in walls)}), "
             f"{mp / wall:.1f} MP/s, {mb / wall:.1f} MB/s, equal to its "
             f"tiles; {_native._threads()} decoder threads on host CPU {cpu}")
+        if "styled" in name:
+            base = decode_ms["u16 band 84.9 MP"]
+            log(f"jpeg2000: the styled band decodes in {wall * 1e3:.1f} ms "
+                f"against the default band's {base:.1f} ms in this call "
+                f"({wall * 1e3 / base:.3f} x; host clock, medians of 3)")
         if not name.startswith("u16"):
             reader.close()
             del reader, data
@@ -3616,9 +3667,11 @@ def phase_jpeg2000(work: Path, smi: str) -> dict:
         end.synchronize()
         read_ms = (time.perf_counter() - t0) * 1e3
         counts = ops.launch_counts()
-        if counts["resample_axis0"] <= 0:
+        if counts["resample_axis0"] <= 0 or (
+                "styled" in name and counts["resample_axis0"] != 2):
             raise AssertionError(f"jpeg2000: {name}: the decimated read "
-                                 f"launched no resample ({counts})")
+                                 f"launched {counts['resample_axis0']} "
+                                 f"resamples ({counts})")
         for k, v in counts.items():
             totals[k] += v
         with force_plain():

@@ -6,25 +6,29 @@
 // -ffp-contract=off: the 9/7 wavelet and the ICT are float code whose
 // rounding must not hang on the compiler.
 //
-//   * main and tile-part headers: SIZ, COD / COC, QCD / QCC, COM, TLM, PLM,
-//     PLT, CRG, tile-parts in any order and in several parts;
-//   * tier-2: tag trees, pass counts, Lblock, SOP / EPH, the five
-//     progression orders over the precinct geometry of t2.c / pi.c;
-//   * tier-1 (EBCOT): the MQ decoder, the significance, refinement and
-//     cleanup passes, OpenJPEG's reconstruction (a decoded magnitude sits
-//     at the middle of its last bit-plane: t1.c's "oneplushalf");
+//   * main and tile-part headers: SIZ, COD / COC, QCD / QCC, RGN, POC, PPM,
+//     PPT, COM, TLM, PLM, PLT, CRG, tile-parts in any order and in several
+//     parts (a tile's RGN / POC added to the main header's, as j2k.c does);
+//   * tier-2: tag trees, pass counts, Lblock, SOP / EPH, the packet headers
+//     in line or from PPM / PPT, the codeword segments of t2.c (BYPASS,
+//     TERMALL, a second segment past 109 passes), the five progression
+//     orders and POC's progressions over the precinct geometry of pi.c;
+//   * tier-1 (EBCOT): the MQ and raw decoders, the significance, refinement
+//     and cleanup passes under the six code-block styles (BYPASS, RESET,
+//     TERMALL, VSC, PTERM, SEGSYM), OpenJPEG's reconstruction (a decoded
+//     magnitude sits at the middle of its last bit-plane: t1.c's
+//     "oneplushalf"), the RGN maxshift scaling;
 //   * dequantisation and the inverse 5/3 (integer) and 9/7 (float, dwt.c's
-//     lifting constants, the 2/K high-band scale and order of operations);
+//     lifting constants, the 2/K high-band scale and order of operations),
+//     up to the highest resolution a component's packets reach;
 //   * the RCT / ICT, the DC level shift, lrintf and the clamp of tcd.c;
 //   * Pillow's Jpeg2KDecode.c unpackers: the shift to 8 (or 16) bits with
 //     its rounding offset, the signed offset, the stores to u8 / u16.
 //
-// Refused with a message that names the feature: code-block styles other
-// than 0 (bypass, reset, termall, causal, pterm, segsym), HTJ2K, region of
-// interest (RGN), progression order changes (POC), packed packet headers
-// (PPM / PPT), Part-2 capabilities, component sub-sampling, precisions
-// above 16 bits, and any codestream cut short (OpenJPEG in Pillow's strict
-// mode refuses those too).
+// Refused with a message that names the feature: HTJ2K (code-block styles
+// 0x40 / 0x80, Rsiz, CAP), Part-2 capabilities, component sub-sampling,
+// precisions above 16 bits, and any codestream cut short or malformed
+// where OpenJPEG in Pillow's strict mode refuses it too.
 #include <algorithm>
 #include <atomic>
 #include <cmath>
@@ -73,11 +77,17 @@ struct Quant {  // SPqcd / SPqcc
   uint16_t expn[97] = {}, mant[97] = {};
 };
 
+struct Poc {  // one progression of a POC segment (j2k.c, opj_poc_t)
+  int resno0, compno0, layno1, resno1, compno1, prog;
+};
+
 struct Params {
   int prog = 0, layers = 1, mct = 0;
   bool sop = false, eph = false;
   std::vector<Coding> coding;
   std::vector<Quant> quant;
+  std::vector<int> roishift;  // SPrgn of each component (RGN)
+  std::vector<Poc> pocs;      // the progressions of POC segments, in order
 };
 
 struct Siz {
@@ -113,17 +123,8 @@ struct Reader {
   }
 };
 
-const char* style_name(int bit) {
-  switch (bit) {
-    case 0x01: return "selective arithmetic coding bypass";
-    case 0x02: return "context reset on each coding pass (RESET)";
-    case 0x04: return "termination on each coding pass (TERMALL)";
-    case 0x08: return "vertically causal context (VSC)";
-    case 0x10: return "predictable termination (PTERM)";
-    case 0x20: return "segmentation symbols (SEGSYM)";
-    default: return "HTJ2K (Part 15) code-blocks";
-  }
-}
+// code-block styles (Table A.19)
+enum : int { BYPASS = 0x01, RESET = 0x02, TERMALL = 0x04, VSC = 0x08, SEGSYM = 0x20 };
 
 // SPcod / SPcoc: levels, code-block size and style, wavelet, precincts
 void read_spcod(Reader& r, size_t end, bool custom_prec, Coding& c) {
@@ -134,9 +135,7 @@ void read_spcod(Reader& r, size_t end, bool custom_prec, Coding& c) {
   if (c.cbw > 10 || c.cbh > 10 || c.cbw + c.cbh > 12)
     fail("invalid code-block size");
   c.style = r.u8();
-  for (int bit = 1; bit < 0x100; bit <<= 1)
-    if (c.style & bit)
-      fail(std::string("code-block style not decoded by the port: ") + style_name(bit));
+  if (c.style & 0xC0) fail("code-block style not decoded by the port: HTJ2K (Part 15) code-blocks");
   c.transform = r.u8();
   if (c.transform > 1) fail("Part-2 wavelet transform (" + std::to_string(c.transform) + ")");
   if (custom_prec) {
@@ -224,18 +223,49 @@ void read_coding_marker(int m, Reader& r, size_t end, const Siz& siz, Params& p,
   }
 }
 
-[[noreturn]] void refuse_marker(int m) {
-  switch (m) {
-    case 0xFF5E: fail("region of interest (RGN) is not decoded by the port");
-    case 0xFF5F: fail("progression order change (POC) is not decoded by the port");
-    case 0xFF60: fail("packed packet headers (PPM) are not decoded by the port");
-    case 0xFF61: fail("packed packet headers (PPT) are not decoded by the port");
-    default: fail("HTJ2K capabilities (CAP) are not decoded by the port");
+// RGN (j2k.c, opj_j2k_read_rgn): Crgn, Srgn (read, any value taken as
+// the implicit style), SPrgn, the component's ROI shift
+void read_rgn(Reader& r, size_t end, const Siz& siz, Params& p) {
+  const size_t room = siz.nc <= 256 ? 1 : 2;
+  if (end - r.pos != 2 + room) fail("RGN segment of the wrong length");
+  const int comp = room == 1 ? r.u8() : r.u16();
+  r.u8();
+  if (comp >= siz.nc) fail("RGN for a component past Csiz");
+  p.roishift[comp] = r.u8();
+}
+
+// POC (j2k.c, opj_j2k_read_poc): the segment's progressions appended to
+// those the header already holds (a tile's start as a copy of the main
+// header's); the last layer bounded by the layers COD has set so far, the
+// last component by Csiz
+void read_poc(Reader& r, size_t end, const Siz& siz, Params& p, int layers_now) {
+  const size_t room = siz.nc <= 256 ? 1 : 2, chunk = 5 + 2 * room;
+  const size_t n = end - r.pos;
+  if (n == 0 || n % chunk) fail("POC segment of the wrong length");
+  if (p.pocs.size() + n / chunk >= 32) fail("more than 31 progressions in POC segments");
+  for (size_t k = 0; k < n / chunk; ++k) {
+    Poc q;
+    q.resno0 = r.u8();
+    q.compno0 = room == 1 ? r.u8() : r.u16();
+    q.layno1 = std::min(r.u16(), layers_now);
+    q.resno1 = r.u8();
+    q.compno1 = std::min(room == 1 ? r.u8() : r.u16(), siz.nc);
+    q.prog = r.u8();
+    p.pocs.push_back(q);
   }
 }
 
-bool refused_marker(int m) {
-  return m == 0xFF5E || m == 0xFF5F || m == 0xFF60 || m == 0xFF61 || m == 0xFF50;
+// a PPM or PPT segment's data, by its Zppm / Zppt
+struct Ppx {
+  bool seen = false;
+  size_t begin = 0, end = 0;
+};
+
+void read_ppx(Reader& r, size_t end, std::vector<Ppx>& z, const char* name) {
+  if (end - r.pos < 2) fail(std::string(name) + " segment of the wrong length");
+  Ppx& x = z[r.u8()];
+  if (x.seen) fail(std::string("a second ") + name + " segment of the same index");
+  x = {true, r.pos, end};
 }
 
 enum : int { IN_MAIN = 1, IN_TILE = 2, UNKNOWN = -1 };
@@ -284,9 +314,11 @@ struct TilePart {
 struct Tile {
   Params params;
   bool seen = false;
-  int nparts = 0;  // TNsot, where a tile-part gave it
+  int nparts = 0;       // TNsot, where a tile-part gave it
+  int64_t done_at = -1;  // the tile-part (in codestream order) that completed it
   std::vector<char> coc_set, qcc_set;
   std::vector<TilePart> parts;
+  std::vector<Ppx> ppt;  // its PPT segments by Zppt, where it has any
 };
 
 struct Codestream {
@@ -294,7 +326,41 @@ struct Codestream {
   Params main;
   std::vector<Tile> tiles;
   const uint8_t* data = nullptr;
+  bool has_ppm = false;
+  std::vector<uint8_t> ppm;  // every packet header of the codestream (PPM)
 };
+
+// j2k.c's opj_j2k_merge_ppm: the PPM segments in Zppm order, each tile-part's
+// Nppm and its headers, one stream of headers (an Nppm group may run on
+// into the next segment)
+std::vector<uint8_t> merge_ppm(const uint8_t* src, const std::vector<Ppx>& z) {
+  std::vector<uint8_t> out;
+  uint64_t remaining = 0;
+  for (const Ppx& x : z) {
+    if (!x.seen) continue;
+    const uint8_t* d = src + x.begin;
+    size_t n = x.end - x.begin;
+    const size_t take = static_cast<size_t>(std::min<uint64_t>(remaining, n));
+    out.insert(out.end(), d, d + take);
+    d += take;
+    n -= take;
+    remaining -= take;
+    while (n > 0) {
+      if (n < 4) fail("not enough bytes to read Nppm in a PPM segment");
+      const uint64_t nppm = (uint64_t{d[0]} << 24) | (uint64_t{d[1]} << 16) | (uint64_t{d[2]} << 8) | d[3];
+      d += 4;
+      n -= 4;
+      if (out.size() + nppm > UINT32_MAX) fail("too large a value for Nppm");
+      const size_t k = static_cast<size_t>(std::min<uint64_t>(nppm, n));
+      out.insert(out.end(), d, d + k);
+      d += k;
+      n -= k;
+      remaining = nppm - k;
+    }
+  }
+  if (remaining) fail("corrupted PPM segments (an Nppm runs past the last one)");
+  return out;
+}
 
 Codestream parse(const uint8_t* src, size_t n) {
   Codestream cs;
@@ -338,7 +404,9 @@ Codestream parse(const uint8_t* src, size_t n) {
   if (s.ntx * s.nty > 65535) fail("more than 65535 tiles");
   cs.main.coding.resize(s.nc);
   cs.main.quant.resize(s.nc);
+  cs.main.roishift.assign(s.nc, 0);
   std::vector<char> coc(s.nc, 0), qcc(s.nc, 0);
+  std::vector<Ppx> ppm(256);
   bool cod = false, qcd = false;
   // main header, up to the first SOT
   for (;;) {
@@ -349,20 +417,28 @@ Codestream parse(const uint8_t* src, size_t n) {
     if (len < 2) fail("invalid marker segment length");
     size_t end = r.pos - 2 + len;
     if (end > n) fail("codestream cut short");
-    if (refused_marker(m)) refuse_marker(m);
+    if (m == 0xFF50) fail("HTJ2K capabilities (CAP) are not decoded by the port");
     if (part2_marker(m)) refuse_part2(m);
     if (m == 0xFF52 || m == 0xFF53 || m == 0xFF5C || m == 0xFF5D) {
       read_coding_marker(m, r, end, s, cs.main, coc, qcc);
       cod |= m == 0xFF52;
       qcd |= m == 0xFF5C;
+    } else if (m == 0xFF5E) {
+      read_rgn(r, end, s, cs.main);
+    } else if (m == 0xFF5F) {
+      read_poc(r, end, s, cs.main, cod ? cs.main.layers : 0);
+    } else if (m == 0xFF60) {
+      read_ppx(r, end, ppm, "PPM");
+      cs.has_ppm = true;
     }
     r.pos = end;  // TLM, PLM, CRG, COM and CPF segments are skipped
   }
   if (!cod) fail("no COD marker in the main header");
   if (!qcd) fail("no QCD marker in the main header");
+  if (cs.has_ppm) cs.ppm = merge_ppm(src, ppm);
   cs.tiles.resize(static_cast<size_t>(s.ntx * s.nty));
   // tile-parts; r.pos is just past an SOT marker
-  for (;;) {
+  for (int64_t tp_index = 0;; ++tp_index) {
     size_t sot = r.pos - 2;
     if (r.u16() != 10) fail("invalid SOT length");
     int isot = r.u16();
@@ -382,6 +458,7 @@ Codestream parse(const uint8_t* src, size_t n) {
     }
     if (tpsot != static_cast<int>(t.parts.size()))
       fail("tile-part out of order (TPsot " + std::to_string(tpsot) + ")");
+    if (t.nparts && tpsot + 1 == t.nparts) t.done_at = tp_index;
     if (!t.seen) {
       t.seen = true;
       t.params = cs.main;
@@ -395,10 +472,18 @@ Codestream parse(const uint8_t* src, size_t n) {
       if (len < 2) fail("invalid marker segment length");
       size_t mend = r.pos - 2 + len;
       if (mend > end) fail("tile-part header runs past its tile-part");
-      if (refused_marker(m)) refuse_marker(m);
       if (part2_marker(m)) refuse_part2(m);
-      if (m == 0xFF52 || m == 0xFF53 || m == 0xFF5C || m == 0xFF5D)
+      if (m == 0xFF52 || m == 0xFF53 || m == 0xFF5C || m == 0xFF5D) {
         read_coding_marker(m, r, mend, s, t.params, t.coc_set, t.qcc_set);
+      } else if (m == 0xFF5E) {
+        read_rgn(r, mend, s, t.params);
+      } else if (m == 0xFF5F) {
+        read_poc(r, mend, s, t.params, t.params.layers);
+      } else if (m == 0xFF61) {
+        if (cs.has_ppm) fail("a PPT segment in a codestream with PPM segments");
+        if (t.ppt.empty()) t.ppt.resize(256);
+        read_ppx(r, mend, t.ppt, "PPT");
+      }
       r.pos = mend;  // PLT and COM segments are skipped
     }
     if (r.pos > end) fail("tile-part header runs past its tile-part");
@@ -493,12 +578,19 @@ struct TagTree {  // tgt.c
   }
 };
 
+// a codeword segment (t2.c / tcd.h's opj_tcd_seg_t): up to `maxpasses`
+// passes, decoded by one MQ (or raw) decoder from its own bytes
+struct Seg {
+  int maxpasses = 0, numpasses = 0, newpasses = 0;
+  uint32_t len = 0, newlen = 0;
+};
+
 struct Cblk {
   int64_t x0, y0, x1, y1;
-  int numbps = 0, lenbits = 3, passes = 0, newpasses = 0;
-  uint32_t newlen = 0;
-  bool included = false;
-  std::vector<std::pair<size_t, uint32_t>> chunks;  // in the tile's data
+  int numbps = 0, lenbits = 3, newpasses = 0;
+  int numsegs = 0;  // the segments that hold data (the block is included once > 0)
+  std::vector<Seg> segs;
+  std::vector<std::pair<size_t, uint32_t>> chunks;  // in the tile's data, in order
 };
 
 struct Precinct {
@@ -633,7 +725,11 @@ struct Packet {
   int64_t prec;
 };
 
-// pi.c's order of the packets of a tile (no POC)
+// pi.c's order of the packets of a tile: one progression of the tile's own
+// order and bounds, or the POC progressions in turn (opj_pi_update_decode_poc:
+// each from layer 0 up to its last, a packet already emitted skipped as
+// pi->include does it); an unknown order, or a first component past the
+// last, emits nothing
 std::vector<Packet> packet_order(const Params& p, const std::vector<TileComp>& tcs,
                                  const Siz& siz, int64_t tx0, int64_t ty0, int64_t tx1,
                                  int64_t ty1) {
@@ -644,23 +740,19 @@ std::vector<Packet> packet_order(const Params& p, const std::vector<TileComp>& t
     maxres = std::max(maxres, tc.levels + 1);
     for (const auto& r : tc.res) maxprec = std::max(maxprec, r.pw * r.ph);
   }
+  std::vector<Poc> progs = p.pocs;
+  if (progs.empty()) progs.push_back({0, 0, p.layers, maxres, nc, p.prog});
   std::vector<Packet> out;
-  const int L = p.layers;
-  if (p.prog == 0 || p.prog == 1) {  // LRCP, RLCP
-    const int outer = p.prog == 0 ? L : maxres, inner = p.prog == 0 ? maxres : L;
-    for (int a = 0; a < outer; ++a)
-      for (int b = 0; b < inner; ++b) {
-        const int l = p.prog == 0 ? a : b, r = p.prog == 0 ? b : a;
-        for (int c = 0; c < nc; ++c) {
-          if (r > tcs[c].levels) continue;
-          const Resolution& res = tcs[c].res[r];
-          for (int64_t k = 0; k < res.pw * res.ph; ++k) out.push_back({l, r, c, k});
-        }
-      }
-    return out;
-  }
-  std::vector<char> seen(static_cast<size_t>(L) * maxres * nc * std::max<int64_t>(maxprec, 1), 0);
-  auto emit = [&](int c, int r, int64_t x, int64_t y) {
+  std::vector<char> seen(static_cast<size_t>(p.layers) * maxres * nc * std::max<int64_t>(maxprec, 1), 0);
+  auto take = [&](int l, int r, int c, int64_t k) {
+    const size_t idx = ((static_cast<size_t>(l) * maxres + r) * nc + c) * maxprec + k;
+    if (seen[idx]) return;
+    seen[idx] = 1;
+    out.push_back({l, r, c, k});
+  };
+  // the packets of component c, resolution r at the position (x, y) of a
+  // position-driven order, layers [0, l1)
+  auto emit = [&](int c, int r, int64_t x, int64_t y, int l1) {
     const TileComp& tc = tcs[c];
     if (r > tc.levels) return;
     const Resolution& res = tc.res[r];
@@ -680,13 +772,9 @@ std::vector<Packet> packet_order(const Params& p, const std::vector<TileComp>& t
     const int64_t prcj = floordivpow2(ceildiv(y, dy << lev), res.pdy) - floordivpow2(try0, res.pdy);
     const int64_t k = prci + prcj * res.pw;
     if (k < 0 || k >= res.pw * res.ph) return;
-    for (int l = 0; l < L; ++l) {
-      size_t idx = ((static_cast<size_t>(l) * maxres + r) * nc + c) * maxprec + k;
-      if (seen[idx]) continue;
-      seen[idx] = 1;
-      out.push_back({l, r, c, k});
-    }
+    for (int l = 0; l < l1; ++l) take(l, r, c, k);
   };
+  // the position steps of components [c0, c1): pi.c's dx / dy
   auto steps = [&](int c0, int c1, int64_t& sx, int64_t& sy) {
     sx = 0;
     sy = 0;
@@ -703,29 +791,45 @@ std::vector<Packet> packet_order(const Params& p, const std::vector<TileComp>& t
           sy = sy ? std::min(sy, d) : d;
         }
       }
+    return sx && sy;
   };
-  int64_t sx, sy;
-  if (p.prog == 2) {  // RPCL
-    steps(0, nc, sx, sy);
-    if (!sx || !sy) return out;
-    for (int r = 0; r < maxres; ++r)
+  for (const Poc& q : progs) {
+    const int r0 = q.resno0, r1 = q.resno1, c0 = q.compno0, c1 = q.compno1;
+    const int l1 = std::min(q.layno1, p.layers);
+    if (c0 >= nc) continue;
+    int64_t sx, sy;
+    if (q.prog == 0 || q.prog == 1) {  // LRCP, RLCP
+      const bool lrcp = q.prog == 0;
+      const int outer0 = lrcp ? 0 : r0, outer1 = lrcp ? l1 : r1;
+      const int inner0 = lrcp ? r0 : 0, inner1 = lrcp ? r1 : l1;
+      for (int a = outer0; a < outer1; ++a)
+        for (int b = inner0; b < inner1; ++b) {
+          const int l = lrcp ? a : b, r = lrcp ? b : a;
+          for (int c = c0; c < c1; ++c) {
+            if (r > tcs[c].levels) continue;
+            const Resolution& res = tcs[c].res[r];
+            for (int64_t k = 0; k < res.pw * res.ph; ++k) take(l, r, c, k);
+          }
+        }
+    } else if (q.prog == 2) {  // RPCL
+      if (!steps(0, nc, sx, sy)) continue;
+      for (int r = r0; r < r1; ++r)
+        for (int64_t y = ty0; y < ty1; y += sy - (y % sy))
+          for (int64_t x = tx0; x < tx1; x += sx - (x % sx))
+            for (int c = c0; c < c1; ++c) emit(c, r, x, y, l1);
+    } else if (q.prog == 3) {  // PCRL
+      if (!steps(0, nc, sx, sy)) continue;
       for (int64_t y = ty0; y < ty1; y += sy - (y % sy))
         for (int64_t x = tx0; x < tx1; x += sx - (x % sx))
-          for (int c = 0; c < nc; ++c) emit(c, r, x, y);
-  } else if (p.prog == 3) {  // PCRL
-    steps(0, nc, sx, sy);
-    if (!sx || !sy) return out;
-    for (int64_t y = ty0; y < ty1; y += sy - (y % sy))
-      for (int64_t x = tx0; x < tx1; x += sx - (x % sx))
-        for (int c = 0; c < nc; ++c)
-          for (int r = 0; r <= tcs[c].levels; ++r) emit(c, r, x, y);
-  } else {  // CPRL
-    for (int c = 0; c < nc; ++c) {
-      steps(c, c + 1, sx, sy);
-      if (!sx || !sy) return out;
-      for (int64_t y = ty0; y < ty1; y += sy - (y % sy))
-        for (int64_t x = tx0; x < tx1; x += sx - (x % sx))
-          for (int r = 0; r <= tcs[c].levels; ++r) emit(c, r, x, y);
+          for (int c = c0; c < c1; ++c)
+            for (int r = r0; r < std::min(r1, tcs[c].levels + 1); ++r) emit(c, r, x, y, l1);
+    } else if (q.prog == 4) {  // CPRL
+      for (int c = c0; c < c1; ++c) {
+        if (!steps(c, c + 1, sx, sy)) break;
+        for (int64_t y = ty0; y < ty1; y += sy - (y % sy))
+          for (int64_t x = tx0; x < tx1; x += sx - (x % sx))
+            for (int r = r0; r < std::min(r1, tcs[c].levels + 1); ++r) emit(c, r, x, y, l1);
+      }
     }
   }
   return out;
@@ -747,12 +851,33 @@ int floorlog2(uint32_t v) {
   return l;
 }
 
-// t2.c: one packet's header and body from data[pos, end); returns the new pos
+// t2.c's opj_t2_init_seg: segment `index` of a code-block of style `style`
+void init_seg(Cblk& cb, int index, int style, bool first) {
+  if (static_cast<int>(cb.segs.size()) <= index) cb.segs.resize(index + 1);
+  Seg& seg = cb.segs[index];
+  seg = Seg();
+  if (style & TERMALL) seg.maxpasses = 1;
+  else if (style & BYPASS)
+    seg.maxpasses = first ? 10 : (cb.segs[index - 1].maxpasses == 1 || cb.segs[index - 1].maxpasses == 10) ? 2 : 1;
+  else seg.maxpasses = 109;
+}
+
+// a packet's headers: from the tile's data, or from the stream of its PPM /
+// PPT segments, read on from `pos`
+struct HeaderStream {
+  const uint8_t* data;
+  size_t len, pos = 0;
+};
+
+// t2.c: one packet's header (from the tile's data at pos, or from `hs`) and
+// body (from data[pos, end)); returns the new pos
 size_t read_packet(const uint8_t* data, size_t pos, size_t end, const Params& p,
-                   TileComp& tc, const Packet& pk) {
+                   TileComp& tc, const Packet& pk, int style, HeaderStream* hs) {
   Resolution& res = tc.res[pk.res];
   if (p.sop && end - pos >= 6 && data[pos] == 0xFF && data[pos + 1] == 0x91) pos += 6;
-  Bio bio(data + pos, end - pos);
+  const uint8_t* hp = hs ? hs->data + hs->pos : data + pos;
+  const size_t hlen = hs ? hs->len - hs->pos : end - pos;
+  Bio bio(hp, hlen);
   const bool present = bio.bit();
   if (present) {
     for (Band& band : res.bands) {
@@ -760,43 +885,70 @@ size_t read_packet(const uint8_t* data, size_t pos, size_t end, const Params& p,
       Precinct& pr = band.precs[pk.prec];
       for (int k = 0; k < pr.cw * pr.ch; ++k) {
         Cblk& cb = pr.cblks[k];
-        bool inc = cb.included ? bio.bit() : pr.incl.decode(bio, k, pk.layer + 1);
+        bool inc = cb.numsegs ? bio.bit() : pr.incl.decode(bio, k, pk.layer + 1);
         if (!inc) {
           cb.newpasses = 0;
           continue;
         }
-        if (!cb.included) {
+        if (!cb.numsegs) {
           int i = 0;
           while (!pr.imsb.decode(bio, k, i)) {
             if (++i > 74) fail("corrupt zero bit-plane tag tree");
           }
           cb.numbps = band.Mb + 1 - i;
           cb.lenbits = 3;
-          cb.included = true;
         }
         cb.newpasses = static_cast<int>(numpasses(bio));
         while (bio.bit()) ++cb.lenbits;
-        if (cb.passes + cb.newpasses > 109) fail("more coding passes than one segment holds");
-        const int bits = cb.lenbits + floorlog2(static_cast<uint32_t>(cb.newpasses));
-        if (bits > 32) fail("corrupt code-block length");
-        cb.newlen = bio.read(bits);
+        int segno = 0;
+        if (!cb.numsegs) {
+          init_seg(cb, 0, style, true);
+        } else {
+          segno = cb.numsegs - 1;
+          if (cb.segs[segno].numpasses == cb.segs[segno].maxpasses) init_seg(cb, ++segno, style, false);
+        }
+        for (int n = cb.newpasses;;) {
+          Seg& seg = cb.segs[segno];
+          seg.newpasses = std::min(seg.maxpasses - seg.numpasses, n);
+          const int bits = cb.lenbits + floorlog2(static_cast<uint32_t>(seg.newpasses));
+          if (bits > 32) fail("corrupt code-block length");
+          seg.newlen = bio.read(bits);
+          n -= seg.newpasses;
+          if (n <= 0) break;
+          init_seg(cb, ++segno, style, false);
+        }
       }
     }
   }
   bio.inalign();
-  pos += bio.numbytes();
-  if (p.eph && end - pos >= 2 && data[pos] == 0xFF && data[pos + 1] == 0x92) pos += 2;
+  size_t hdr = bio.numbytes();
+  if (p.eph && hlen - hdr >= 2 && hp[hdr] == 0xFF && hp[hdr + 1] == 0x92) hdr += 2;
+  if (hs) hs->pos += hdr;
+  else pos += hdr;
   if (!present) return pos;
   for (Band& band : res.bands) {
     if (band.x0 == band.x1 || band.y0 == band.y1) continue;
     Precinct& pr = band.precs[pk.prec];
     for (Cblk& cb : pr.cblks) {
-      if (!cb.included || cb.newpasses == 0) continue;
-      if (cb.newlen > end - pos) fail("packet data runs past its tile-part (codestream cut short)");
-      if (cb.newlen) cb.chunks.push_back({pos, cb.newlen});
-      pos += cb.newlen;
-      cb.passes += cb.newpasses;
-      cb.newpasses = 0;
+      if (cb.newpasses == 0) continue;
+      int segno = 0;
+      if (!cb.numsegs) {
+        cb.numsegs = 1;
+      } else {
+        segno = cb.numsegs - 1;
+        if (cb.segs[segno].numpasses == cb.segs[segno].maxpasses) cb.numsegs = ++segno + 1;
+      }
+      for (;;) {
+        Seg& seg = cb.segs[segno];
+        if (seg.newlen > end - pos) fail("packet data runs past its tile-part (codestream cut short)");
+        cb.chunks.push_back({pos, seg.newlen});
+        pos += seg.newlen;
+        seg.len += seg.newlen;
+        seg.numpasses += seg.newpasses;
+        cb.newpasses -= seg.newpasses;
+        if (cb.newpasses <= 0) break;
+        cb.numsegs = ++segno + 1;
+      }
     }
   }
   return pos;
@@ -875,11 +1027,12 @@ struct T1 {
   std::vector<uint16_t> flags;
   std::vector<int32_t> data;
   std::vector<uint8_t> buf;
-  // MQ decoder (mqc.c)
+  // MQ decoder (mqc.c); c, ct and bp also hold the raw decoder's state
   const uint8_t* bp = nullptr;
   uint32_t c = 0, a = 0;
   int ct = 0;
   uint8_t st[19], mps[19];
+  bool vsc = false;  // VSC: a stripe's first row leaves the row above as it is
 
   void bytein() {
     if (*bp == 0xFF) {
@@ -897,18 +1050,43 @@ struct T1 {
       ct = 8;
     }
   }
-  void init(const uint8_t* p) {
+  void reset_states() {
+    std::memset(st, 0, sizeof st);
+    std::memset(mps, 0, sizeof mps);
+    st[CTX_UNI] = 46;
+    st[CTX_AGG] = 3;
+    st[0] = 4;
+  }
+  void init_mq(const uint8_t* p) {  // opj_mqc_init_dec
     bp = p;
     c = uint32_t{*bp} << 16;
     bytein();
     c <<= 7;
     ct -= 7;
     a = 0x8000;
-    std::memset(st, 0, sizeof st);
-    std::memset(mps, 0, sizeof mps);
-    st[CTX_UNI] = 46;
-    st[CTX_AGG] = 3;
-    st[0] = 4;
+  }
+  void init_raw(const uint8_t* p) {  // opj_mqc_raw_init_dec
+    bp = p;
+    c = 0;
+    ct = 0;
+  }
+  inline int raw() {  // opj_mqc_raw_decode: a bit, 0 stuffed after each 0xFF
+    if (ct == 0) {
+      if (c == 0xFF) {
+        if (*bp > 0x8F) {
+          c = 0xFF;
+          ct = 8;
+        } else {
+          c = *bp++;
+          ct = 7;
+        }
+      } else {
+        c = *bp++;
+        ct = 8;
+      }
+    }
+    --ct;
+    return (c >> ct) & 1;
   }
   inline int decode(int cx) {
     const int s = st[cx];
@@ -948,27 +1126,33 @@ struct T1 {
 
   int w = 0, h = 0, stride = 0;
 
-  inline void make_significant(size_t i, int neg) {
+  // sample i turns significant; `north`: its row above learns of it (t1.c's
+  // opj_t1_update_flags, which VSC skips for a stripe's first row)
+  inline void make_significant(size_t i, int neg, bool north) {
     uint16_t* f = flags.data();
     const size_t s = static_cast<size_t>(stride);
     f[i] |= F_SIG;
-    f[i - s] |= neg ? (NB_S | NEG_S) : NB_S;
+    if (north) {
+      f[i - s] |= neg ? (NB_S | NEG_S) : NB_S;
+      f[i - s - 1] |= NB_SE;
+      f[i - s + 1] |= NB_SW;
+    }
     f[i + s] |= neg ? (NB_N | NEG_N) : NB_N;
     f[i - 1] |= neg ? (NB_E | NEG_E) : NB_E;
     f[i + 1] |= neg ? (NB_W | NEG_W) : NB_W;
-    f[i - s - 1] |= NB_SE;
-    f[i - s + 1] |= NB_SW;
     f[i + s - 1] |= NB_NE;
     f[i + s + 1] |= NB_NW;
   }
-  inline void decode_sign(size_t i, int32_t oneplushalf) {
+  inline void decode_sign(size_t i, int32_t oneplushalf, bool north) {
     const uint16_t f = flags[i];
     const int idx = (f & 0xF) | ((f >> 4) & 0xF0);
     const int neg = decode(kLuts.sc[idx]) ^ kLuts.spb[idx];
     data[i] = neg ? -oneplushalf : oneplushalf;
-    make_significant(i, neg);
+    make_significant(i, neg, north);
   }
 
+  // significance propagation, MQ-coded or (BYPASS) raw
+  template <bool RAW>
   void sigpass(int bp1, int orient) {
     const int32_t one = int32_t{1} << bp1, oneplushalf = one | (one >> 1);
     const uint8_t* zc = kLuts.zc[orient];
@@ -978,10 +1162,21 @@ struct T1 {
           const size_t i = static_cast<size_t>(y + 1) * stride + x + 1;
           const uint16_t f = flags[i];
           if ((f & F_SIG) || !(f & 0xFF)) continue;
-          if (decode(zc[f & 0xFF])) decode_sign(i, oneplushalf);
+          const bool north = !vsc || y != y0;
+          if (RAW) {
+            if (raw()) {
+              const int neg = raw();
+              data[i] = neg ? -oneplushalf : oneplushalf;
+              make_significant(i, neg, north);
+            }
+          } else if (decode(zc[f & 0xFF])) {
+            decode_sign(i, oneplushalf, north);
+          }
           flags[i] |= F_PI;
         }
   }
+  // magnitude refinement, MQ-coded or (BYPASS) raw
+  template <bool RAW>
   void refpass(int bp1) {
     const int32_t half = (int32_t{1} << bp1) >> 1;
     for (int y0 = 0; y0 < h; y0 += 4)
@@ -990,13 +1185,20 @@ struct T1 {
           const size_t i = static_cast<size_t>(y + 1) * stride + x + 1;
           const uint16_t f = flags[i];
           if ((f & (F_SIG | F_PI)) != F_SIG) continue;
-          const int ctx = (f & F_MU) ? CTX_MAG + 2 : (f & 0xFF) ? CTX_MAG + 1 : CTX_MAG;
-          const int v = decode(ctx);
+          int v;
+          if (RAW) {
+            v = raw();
+          } else {
+            const int ctx = (f & F_MU) ? CTX_MAG + 2 : (f & 0xFF) ? CTX_MAG + 1 : CTX_MAG;
+            v = decode(ctx);
+          }
           data[i] += (v ^ (data[i] < 0)) ? half : -half;
           flags[i] |= F_MU;
         }
   }
-  void clnpass(int bp1, int orient) {
+  // cleanup, then SEGSYM's four symbols in the uniform context (read, not
+  // checked: t1.c's check of them is commented out)
+  void clnpass(int bp1, int orient, bool segsym) {
     const int32_t one = int32_t{1} << bp1, oneplushalf = one | (one >> 1);
     const uint8_t* zc = kLuts.zc[orient];
     const size_t s = static_cast<size_t>(stride);
@@ -1013,7 +1215,7 @@ struct T1 {
             r |= decode(CTX_UNI);
             y = y0 + r;
             i += r * s;
-            decode_sign(i, oneplushalf);
+            decode_sign(i, oneplushalf, !vsc || r != 0);
             ++y;
             i += s;
           }
@@ -1021,23 +1223,31 @@ struct T1 {
         for (; y < y1; ++y, i += s) {
           const uint16_t f = flags[i];
           if (!(f & (F_SIG | F_PI))) {
-            if (decode(zc[f & 0xFF])) decode_sign(i, oneplushalf);
+            if (decode(zc[f & 0xFF])) decode_sign(i, oneplushalf, !vsc || y != y0);
           }
           flags[i] &= static_cast<uint16_t>(~F_PI);
         }
       }
+    if (segsym)
+      for (int k = 0; k < 4; ++k) decode(CTX_UNI);
   }
 
-  // the code-block's samples (t1.c's 2x scale) into data[(y+1)*stride+x+1]
-  void decode_cblk(const uint8_t* src, const Cblk& cb, int orient) {
+  // the code-block's samples (t1.c's 2x scale) into data[(y+1)*stride+x+1]:
+  // opj_t1_decode_cblk, its codeword segments each on a decoder of its own
+  // (raw for BYPASS's significance and refinement passes from the fifth
+  // bit-plane down, counted without the ROI shift), the contexts reset after
+  // each MQ pass under RESET; then opj_t1_clbl_decode_processor's ROI
+  // scaling (a magnitude at or above 1 << roishift shifted down by it)
+  void decode_cblk(const uint8_t* src, const Cblk& cb, int orient, int style, int roishift) {
     w = static_cast<int>(cb.x1 - cb.x0);
     h = static_cast<int>(cb.y1 - cb.y0);
     stride = w + 2;
     const size_t n = static_cast<size_t>(stride) * (h + 2);
     flags.assign(n, 0);
     data.assign(n, 0);
-    if (cb.passes == 0 || cb.numbps <= 0) return;
-    if (cb.numbps >= 31) fail("code-block with more than 30 bit-planes");
+    const int32_t bpno = static_cast<int32_t>(static_cast<uint32_t>(roishift) + static_cast<uint32_t>(cb.numbps));
+    if (bpno >= 31) fail("a code-block of more than 30 bit-planes (its ROI shift included)");
+    if (cb.chunks.empty()) return;
     size_t len = 0;
     for (const auto& ch : cb.chunks) len += ch.second;
     buf.resize(len + 2);
@@ -1046,17 +1256,44 @@ struct T1 {
       std::memcpy(buf.data() + off, src + ch.first, ch.second);
       off += ch.second;
     }
-    buf[len] = 0xFF;  // mqc.c's artificial 0xFF 0xFF marker past the data
-    buf[len + 1] = 0xFF;
-    init(buf.data());
-    int bp1 = cb.numbps, type = 2;
-    for (int pass = 0; pass < cb.passes && bp1 >= 1; ++pass) {
-      if (type == 0) sigpass(bp1, orient);
-      else if (type == 1) refpass(bp1);
-      else clnpass(bp1, orient);
-      if (++type == 3) {
-        type = 0;
-        --bp1;
+    vsc = style & VSC;
+    reset_states();
+    int bp1 = bpno, type = 2;
+    off = 0;
+    for (int sg = 0; sg < cb.numsegs; ++sg) {
+      const Seg& seg = cb.segs[sg];
+      const bool raw = (style & BYPASS) && type < 2 && bp1 <= cb.numbps - 4;
+      // mqc.c's artificial 0xFF 0xFF marker past the segment's data
+      uint8_t* past = buf.data() + off + seg.len;
+      const uint8_t keep0 = past[0], keep1 = past[1];
+      past[0] = past[1] = 0xFF;
+      if (raw) init_raw(buf.data() + off);
+      else init_mq(buf.data() + off);
+      for (int pass = 0; pass < seg.numpasses && bp1 >= 1; ++pass) {
+        if (type == 0) raw ? sigpass<true>(bp1, orient) : sigpass<false>(bp1, orient);
+        else if (type == 1) raw ? refpass<true>(bp1) : refpass<false>(bp1);
+        else clnpass(bp1, orient, style & SEGSYM);
+        if ((style & RESET) && !raw) reset_states();
+        if (++type == 3) {
+          type = 0;
+          --bp1;
+        }
+      }
+      past[0] = keep0;
+      past[1] = keep1;
+      off += seg.len;
+    }
+    if (roishift > 0) {
+      for (int y = 0; y < h; ++y) {
+        int32_t* row = data.data() + static_cast<size_t>(y + 1) * stride + 1;
+        for (int x = 0; x < w; ++x) {
+          if (roishift >= 31) {
+            row[x] = 0;
+            continue;
+          }
+          const int32_t v = row[x], mag = v < 0 ? -v : v;
+          if (mag >= (int32_t{1} << roishift)) row[x] = v < 0 ? -(mag >> roishift) : mag >> roishift;
+        }
       }
     }
   }
@@ -1131,9 +1368,9 @@ void parallel_for(int64_t n, int threads, F&& f) {
 }
 
 template <class T, class Line>
-void idwt_2d(TileComp& tc, T* buf, int threads, Line line) {
+void idwt_2d(TileComp& tc, T* buf, int top, int threads, Line line) {
   const int64_t W = tc.w();
-  for (int r = 1; r <= tc.levels; ++r) {
+  for (int r = 1; r <= top; ++r) {
     const Resolution& res = tc.res[r];
     const Resolution& prev = tc.res[r - 1];
     const int rw = static_cast<int>(res.x1 - res.x0), rh = static_cast<int>(res.y1 - res.y0);
@@ -1175,7 +1412,47 @@ struct Output {
   void* out;
 };
 
-void decode_tile(const Codestream& cs, int tile, int threads, const Output& o) {
+// A tile where a component's packets stop below its last resolution: OpenJPEG
+// (opj_tcd_update_tile_data) hands Pillow each component's samples at that
+// resolution, packed one after the other in bytes of its size (1, 2 or 4),
+// and Pillow, having zeroed its buffer, reads plane c at c's place in a tile
+// of full-size planes. Each component's samples become the words Pillow
+// reads there.
+void reduced_planes(const Siz& s, std::vector<TileComp>& tcs, const std::vector<int>& top,
+                    int64_t W, int64_t H) {
+  std::vector<int> csiz(s.nc);
+  int64_t total = 0;
+  for (int c = 0; c < s.nc; ++c) {
+    csiz[c] = (s.comps[c].prec + 7) >> 3;
+    if (csiz[c] == 3) csiz[c] = 4;
+    total += csiz[c] * W * H;
+  }
+  std::vector<uint8_t> buf(static_cast<size_t>(total), 0);
+  size_t at = 0;
+  for (int c = 0; c < s.nc; ++c) {
+    const Resolution& r = tcs[c].res[top[c]];
+    const int64_t rw = r.x1 - r.x0, rh = r.y1 - r.y0;
+    for (int64_t y = 0; y < rh; ++y)
+      for (int64_t x = 0; x < rw; ++x, at += csiz[c]) {
+        const uint32_t v = static_cast<uint32_t>(tcs[c].idata[y * W + x]);
+        for (int k = 0; k < csiz[c]; ++k) buf[at + k] = static_cast<uint8_t>(v >> (8 * k));
+      }
+  }
+  size_t plane = 0;
+  for (int c = 0; c < s.nc; ++c) {
+    std::vector<int32_t>& out = tcs[c].idata;
+    for (int64_t i = 0; i < W * H; ++i) {
+      uint32_t v = 0;
+      for (int k = 0; k < csiz[c]; ++k) v |= uint32_t{buf[plane + csiz[c] * i + k]} << (8 * k);
+      out[i] = static_cast<int32_t>(v);
+    }
+    plane += static_cast<size_t>(csiz[c] * W * H);
+  }
+}
+
+// `ppm`: the codestream's PPM header stream, read on from where the tile
+// decoded before this one left it (null without PPM)
+void decode_tile(const Codestream& cs, int tile, int threads, const Output& o, HeaderStream* ppm) {
   const Siz& s = cs.siz;
   const Tile& t = cs.tiles[tile];
   const int64_t p = tile % s.ntx, q = tile / s.ntx;
@@ -1202,9 +1479,25 @@ void decode_tile(const Codestream& cs, int tile, int threads, const Output& o) {
     data = joined.data();
     len = joined.size();
   }
+  // the packet headers: PPM's stream, the tile's PPT segments in Zppt
+  // order (j2k.c's opj_j2k_merge_ppt), or in line with the bodies
+  std::vector<uint8_t> ppt;
+  HeaderStream ppt_stream{nullptr, 0};
+  HeaderStream* hs = ppm;
+  if (!hs && !t.ppt.empty()) {
+    for (const Ppx& x : t.ppt)
+      if (x.seen) ppt.insert(ppt.end(), cs.data + x.begin, cs.data + x.end);
+    ppt_stream = {ppt.data(), ppt.size()};
+    hs = &ppt_stream;
+  }
+  // top[c]: tcd.c's resno_decoded, the highest resolution of a packet of
+  // component c; a POC may leave it below the component's last
+  std::vector<int> top(s.nc, 0);
   size_t pos = 0;
-  for (const Packet& pk : packet_order(prm, tcs, s, tx0, ty0, tx1, ty1))
-    pos = read_packet(data, pos, len, prm, tcs[pk.comp], pk);
+  for (const Packet& pk : packet_order(prm, tcs, s, tx0, ty0, tx1, ty1)) {
+    pos = read_packet(data, pos, len, prm, tcs[pk.comp], pk, prm.coding[pk.comp].style, hs);
+    top[pk.comp] = std::max(top[pk.comp], pk.res);
+  }
   // tier-1 and dequantisation, the code-blocks on `threads` threads
   struct Job {
     int comp;
@@ -1220,8 +1513,11 @@ void decode_tile(const Codestream& cs, int tile, int threads, const Output& o) {
     for (const Resolution& res : tc.res)
       for (const Band& band : res.bands)
         for (const Precinct& pr : band.precs)
-          for (const Cblk& cb : pr.cblks)
-            if (cb.passes) jobs.push_back({c, &band, &cb});
+          for (const Cblk& cb : pr.cblks) {
+            // t1.c tries every code-block: one never included has 0 bit-planes
+            if (!cb.chunks.empty()) jobs.push_back({c, &band, &cb});
+            else if (prm.roishift[c] >= 31) fail("a code-block of more than 30 bit-planes (its ROI shift included)");
+          }
   }
   parallel_for(static_cast<int64_t>(jobs.size()), threads, [&](int64_t j) {
     thread_local T1 t1;
@@ -1229,7 +1525,7 @@ void decode_tile(const Codestream& cs, int tile, int threads, const Output& o) {
     TileComp& tc = tcs[job.comp];
     const Band& band = *job.band;
     const Cblk& cb = *job.cb;
-    t1.decode_cblk(data, cb, band.orient);
+    t1.decode_cblk(data, cb, band.orient, prm.coding[job.comp].style, prm.roishift[job.comp]);
     const int64_t W = tc.w();
     const int64_t x = cb.x0 - band.x0 + band.xoff, y = cb.y0 - band.y0 + band.yoff;
     for (int yy = 0; yy < t1.h; ++yy) {
@@ -1244,11 +1540,12 @@ void decode_tile(const Codestream& cs, int tile, int threads, const Output& o) {
       }
     }
   });
-  // inverse wavelets
-  for (TileComp& tc : tcs) {
+  // inverse wavelets, up to each component's decoded resolution
+  for (int c = 0; c < s.nc; ++c) {
+    TileComp& tc = tcs[c];
     if (tc.w() == 0 || tc.h() == 0) continue;
-    if (tc.transform == 1) idwt_2d(tc, tc.idata.data(), threads, idwt53_line);
-    else idwt_2d(tc, tc.fdata.data(), threads, idwt97_line);
+    if (tc.transform == 1) idwt_2d(tc, tc.idata.data(), top[c], threads, idwt53_line);
+    else idwt_2d(tc, tc.fdata.data(), top[c], threads, idwt97_line);
   }
   const int64_t W = tx1 - tx0, H = ty1 - ty0;
   const int64_t npx = W * H;
@@ -1256,6 +1553,8 @@ void decode_tile(const Codestream& cs, int tile, int threads, const Output& o) {
   if (prm.mct && s.nc >= 3) {
     if (tcs[0].transform != tcs[1].transform || tcs[0].transform != tcs[2].transform)
       fail("a component transform over components of different wavelets");
+    if (top[0] != top[1] || top[0] != top[2])
+      fail("a component transform over components decoded to different resolutions");
     if (tcs[0].transform == 1) {
       int32_t *c0 = tcs[0].idata.data(), *c1 = tcs[1].idata.data(), *c2 = tcs[2].idata.data();
       for (int64_t i = 0; i < npx; ++i) {
@@ -1301,6 +1600,9 @@ void decode_tile(const Codestream& cs, int tile, int threads, const Output& o) {
       std::vector<float>().swap(tc.fdata);
     }
   }
+  bool partial = false;
+  for (int c = 0; c < s.nc; ++c) partial |= top[c] < tcs[c].levels;
+  if (partial) reduced_planes(s, tcs, top, W, H);
   // Pillow's unpackers (Jpeg2KDecode.c): each channel from its component,
   // read as the unsigned bytes OpenJPEG stores it in, offset and shifted
   const int64_t ox = tx0 - s.XO, oy = ty0 - s.YO;
@@ -1344,12 +1646,22 @@ void decode(const uint8_t* src, size_t n, const Output& o, int threads) {
   std::vector<int> tiles;
   for (size_t t = 0; t < cs.tiles.size(); ++t)
     if (cs.tiles[t].seen) tiles.push_back(static_cast<int>(t));
-  // many tiles: one thread a tile; few: the threads inside each tile
-  if (static_cast<int>(tiles.size()) >= 2 * threads) {
+  if (cs.has_ppm) {
+    // one header stream for all tiles, read in the order OpenJPEG decodes
+    // them: as their last tile-part arrives, then (TNsot 0, or parts
+    // missing) by index after EOC
+    std::stable_sort(tiles.begin(), tiles.end(), [&](int a, int b) {
+      const int64_t da = cs.tiles[a].done_at, db = cs.tiles[b].done_at;
+      return (da >= 0 ? da : INT64_MAX) < (db >= 0 ? db : INT64_MAX);
+    });
+    HeaderStream ppm{cs.ppm.data(), cs.ppm.size()};
+    for (int t : tiles) decode_tile(cs, t, threads, o, &ppm);
+  } else if (static_cast<int>(tiles.size()) >= 2 * threads) {
+    // many tiles: one thread a tile; few: the threads inside each tile
     parallel_for(static_cast<int64_t>(tiles.size()), threads,
-                 [&](int64_t i) { decode_tile(cs, tiles[i], 1, o); });
+                 [&](int64_t i) { decode_tile(cs, tiles[i], 1, o, nullptr); });
   } else {
-    for (int t : tiles) decode_tile(cs, t, threads, o);
+    for (int t : tiles) decode_tile(cs, t, threads, o, nullptr);
   }
 }
 

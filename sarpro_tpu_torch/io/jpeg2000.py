@@ -18,12 +18,16 @@ where the shift is down, signed samples offset by half their range. Which
 unpacker a file takes follows its colour space (the JP2 `colr` box;
 unspecified for a codestream) and component count, as measured against
 Pillow 12.1 (UNPACKERS); a pairing Pillow has no unpacker for is refused,
-as Pillow refuses it. Refused as RasterError naming the feature: sYCC /
-e-YCC colour spaces, `pclr` boxes other than three columns, and what the
-C++ decoder refuses (code-block styles other than 0, HTJ2K, RGN, POC,
-PPM / PPT, Part-2 capabilities, component sub-sampling, precisions above
-16 bits, a codestream cut short). Pillow's `info` holds no strings for a
-JPEG 2000 file (the comment is bytes), so the text is empty."""
+as Pillow refuses it. The codestream's coding options are decoded as
+OpenJPEG decodes them: the six code-block styles (BYPASS, RESET, TERMALL,
+VSC, PTERM, SEGSYM), region-of-interest shifts (RGN), progression order
+changes (POC), packed packet headers (PPM / PPT), SOP / EPH. Refused as
+RasterError naming the feature: HTJ2K (its code-block styles, Rsiz and
+CAP), Part-2 capabilities and quantization, component sub-sampling, sYCC /
+e-YCC colour spaces, precisions above 16 bits, `pclr` boxes other than
+three columns, and a codestream cut short or malformed where OpenJPEG
+refuses it. Pillow's `info` holds no strings for a JPEG 2000 file (the
+comment is bytes), so the text is empty."""
 from __future__ import annotations
 
 import struct

@@ -11,7 +11,10 @@ for what Pillow does not write: SIZ patched to 12, 15 and other precisions
 (Pillow's shift of the samples to 16 or 8 bits), JP2 boxes made here
 (palettes, colour spaces, component counts against the JP2 header's),
 tile-parts split at packet boundaries, SOP markers, tiles out of order,
-files cut short, and a header patched for each feature the port refuses.
+files cut short, a header patched for each feature the port refuses, and
+the same patches for the code-block styles, RGN, POC, PPM and PPT the port
+decodes (tests/test_torch_jpeg2000_styles.py holds OpenJPEG's own
+codestreams of those).
 The committed codestreams of tests/data/jpeg2000 (chip_smoke.py's jpeg2000
 phase) are re-encoded here from their seeds."""
 import hashlib
@@ -499,24 +502,48 @@ def _rsiz(code: bytes, value: int) -> bytes:
     return code[:6] + struct.pack(">H", value) + code[8:]
 
 
-REFUSALS = {
-    "bypass": (lambda c: _style(c, 0x01), "arithmetic coding bypass"),
-    "reset": (lambda c: _style(c, 0x02), "RESET"),
-    "termall": (lambda c: _style(c, 0x04), "TERMALL"),
-    "causal": (lambda c: _style(c, 0x08), "vertically causal"),
-    "pterm": (lambda c: _style(c, 0x10), "PTERM"),
-    "segsym": (lambda c: _style(c, 0x20), "SEGSYM"),
-    "ht blocks": (lambda c: _style(c, 0x40), "HTJ2K"),
-    "rgn": (lambda c: _insert_main_marker(
-        c, struct.pack(">HHBBB", 0xFF5E, 5, 0, 0, 0)), r"\(RGN\)"),
-    "poc": (lambda c: _insert_main_marker(
+# headers patched for what the port once refused and now decodes: the
+# code-block styles set on a codestream written without them, an RGN of
+# shift 0, a POC over resolutions 0-4 of 6, PPM and PPT segments of one byte
+DECODED_PATCHES = {
+    "bypass": lambda c: _style(c, 0x01),
+    "reset": lambda c: _style(c, 0x02),
+    "termall": lambda c: _style(c, 0x04),
+    "causal": lambda c: _style(c, 0x08),
+    "pterm": lambda c: _style(c, 0x10),
+    "segsym": lambda c: _style(c, 0x20),
+    "rgn": lambda c: _insert_main_marker(
+        c, struct.pack(">HHBBB", 0xFF5E, 5, 0, 0, 0)),
+    "poc": lambda c: _insert_main_marker(
         c, struct.pack(">HHBBHBBB", 0xFF5F, 9, 0, 0, 1, 5, 1, 0)),
-        r"\(POC\)"),
-    "ppm": (lambda c: _insert_main_marker(
-        c, struct.pack(">HHB", 0xFF60, 3, 0)), r"\(PPM\)"),
-    "ppt": (lambda c: _rebuilt(c, [_sot(
+    "ppm": lambda c: _insert_main_marker(
+        c, struct.pack(">HHB", 0xFF60, 3, 0)),
+    "ppt": lambda c: _rebuilt(c, [_sot(
         i, 0, 1, h + struct.pack(">HHB", 0xFF61, 3, 0), d)
-        for i, h, d, _ in _tile_parts(c)]), r"\(PPT\)"),
+        for i, h, d, _ in _tile_parts(c)]),
+}
+
+
+@pytest.mark.parametrize("feature", list(DECODED_PATCHES))
+def test_patched_feature_equals_jax(tmp_path, rng, feature):
+    """The same patched headers the port refused until it decoded these
+    features: it now gives the JAX reader's pixels, or refuses where that
+    refuses (a style read from data coded without it decodes to what
+    OpenJPEG makes of it; PPM / PPT segments of one byte OpenJPEG
+    refuses)."""
+    code = DECODED_PATCHES[feature](
+        _encode(_scene(rng, (24, 32)), "L", no_jp2=True))
+    path = _write(tmp_path, code, "r.j2k")
+    try:
+        jraster.RasterReader(path).close()
+    except jraster.RasterError:
+        _both_refuse(path)
+        return
+    _equal_to_jax(path)
+
+
+REFUSALS = {
+    "ht blocks": (lambda c: _style(c, 0x40), "HTJ2K"),
     "cap": (lambda c: _insert_main_marker(
         c, struct.pack(">HHIH", 0xFF50, 8, 0x00020000, 0)), r"\(CAP\)"),
     "part 2 rsiz": (lambda c: _rsiz(c, 0x8000), "Part-2 capabilities"),
