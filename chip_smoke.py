@@ -135,26 +135,31 @@ prints no result):
      (cubic) with the launch counts set to 0 just before and read just
      after, bit-equal to the plain resample; the 80 MP band's read is then
      written as a CLAHE gray JPEG by api.save_image and read back;
- 14. jpeg2000: io/jpeg2000 on the three codestreams of tests/data/jpeg2000
+ 14. jpeg2000: io/jpeg2000 on the five codestreams of tests/data/jpeg2000
      (written by Pillow, or by OpenJPEG's own encoder, from seeds; no Pillow
      here), spliced tile-part by tile-part into an 84.9 MP (9216^2, 18 x 18
      tiles of 512^2) lossless SAR-like u16 band in a JP2 with .j2w and
      .prj, the same band coded with every code-block style (BYPASS, RESET,
      TERMALL, VSC, PTERM, SEGSYM), a main-header POC of two progressions and,
      in every other tile, a tile-part COD and an RGN shift (J2K_STYLED),
-     and a 4096^2 RGB band (16 x 16 tiles of a 9/7, ICT, two-layer RPCL
-     tile). Each opens through RasterReader (decode ms on the host clock,
-     median of 3, MB and MP/s beside the host CPU; the styled band's beside
-     the default band's); the u16 bands are bit-equal to np.tile of the
-     seeded tile with their geotransform and EPSG (the styled codestream's
-     own decode has the SHA-256 of Pillow's, J2K_STYLED_SHA256), every RGB
-     tile equals the port's decode of the tile alone, whose SHA-256 is
-     Pillow's (J2K_RGB_SHA256; both pinned in tests/test_torch_jpeg2000*.py);
-     each u16 band reads decimated to 2048^2 on the card (cubic) with the
-     launch counts set to 0 just before and read just after (the styled
-     band's two resample launches), bit-equal to the plain resample, and
-     that read is written as a CLAHE gray JPEG by api.save_image and read
-     back;
+     a 4096^2 RGB band (16 x 16 tiles of a 9/7, ICT, two-layer RPCL
+     tile), a 4096^2 sYCC 4:2:0 JP2 (J2K_SYCC: Cb and Cr sub-sampled 2 x
+     2, 9/7; 16 x 16 tiles of 256^2) and a 4096^2 JP2 of 20-bit amplitude
+     (J2K_DEEP, read as I;16; 16 x 16 tiles). Each opens through
+     RasterReader (decode ms on the host clock, median of 3, MB and MP/s
+     beside the host CPU; the styled band's, the sYCC one's and the 20-bit
+     one's beside the default band's); the u16 bands are bit-equal to
+     np.tile of the seeded tile with their geotransform and EPSG (the
+     styled codestream's own decode has the SHA-256 of Pillow's,
+     J2K_STYLED_SHA256), every RGB tile equals the port's decode of the
+     tile alone, whose SHA-256 is Pillow's (J2K_RGB_SHA256), and so do the
+     sYCC and 20-bit bands (J2K_SYCC_SHA256, J2K_DEEP_SHA256; all pinned in
+     tests/test_torch_jpeg2000*.py); each band but the RGB one reads
+     decimated to 2048^2 on the card (cubic) with the launch counts set to
+     0 just before and read just after (two resample launches for the
+     styled, sYCC and 20-bit bands), bit-equal to the plain resample, and
+     that read is written as a CLAHE gray JPEG by api.save_image (one launch
+     of each CLAHE kernel for the sYCC and 20-bit bands) and read back;
  15. webp: io/webp on the four files of tests/data/webp (written by
      Pillow from seeds; no Pillow here: a SAR-like band as lossy RGB, a lossy
      RGBA with a filtered, VP8L-coded ALPH plane, a lossless RGBA, a
@@ -372,6 +377,20 @@ J2K_RGB_SHA256 = ("4c7da7321af50225bed0e90a4909a7d1"
 J2K_STYLED = "sar_u16_styled_1024x512.j2k"
 J2K_STYLED_SHA256 = ("531a3115ed580c7fa6a4b397329dbe35"
                      "96785e4a5115b7ce532522dcb508019e")
+# the sub-sampled and deep tiles: OpenJPEG 2.5.4's codestreams of a 256^2
+# tile each, written by tests/test_torch_jpeg2000_subsampling.py from these
+# seeds: a quick-look camera's sYCC 4:2:0 tile (Y at 1 x 1, Cb and Cr at
+# 2 x 2; 9/7 at 20:1), read in a JP2 of the sYCC colour space, and a
+# 20-bit SAR-like amplitude tile (5/3, lossless), read as I;16; each
+# spliced J2K_SUB_TILES^2 times into 4096^2; the SHA-256 of Pillow's
+# decode of each tile (the sYCC one in its JP2)
+J2K_SYCC, J2K_SYCC_SEED = "sycc_420_97_256.j2k", 16
+J2K_DEEP, J2K_DEEP_SEED = "sar_20bit_256.j2k", 17
+J2K_SUB_TILES = 16
+J2K_SYCC_SHA256 = ("b4e46e95d316fc5d7e28f35666fe511e"
+                   "160ae4ff2dbe92526b0fed3f5375b518")
+J2K_DEEP_SHA256 = ("d56a5ea7e7a674791780a94e7e2a1aa2"
+                   "566362095144c35f9b5e9c87365818c2")
 # the webp phase: Pillow-written files (tests/data/webp, made by
 # tests/test_torch_webp.py from WEBP_SEED on) and the SHA-256 of Pillow's
 # decode of each (np.asarray of the image), which the port's must match; an
@@ -3494,16 +3513,51 @@ def j2k_rgb_tile(seed: int = J2K_RGB_SEED, side: int = 256):
                    255).astype(np.uint8)
 
 
+def j2k_sycc_tile(seed: int = J2K_SYCC_SEED, side: int = 256):
+    """The u8 Y, Cb and Cr planes of the sYCC tile at full resolution (the
+    encoder keeps every second Cb and Cr sample each way): a quick-look
+    scene's luma (gradients and gamma speckle) and smooth chroma, from
+    `seed`."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    y, x = np.mgrid[0:side, 0:side]
+    luma = 40 + 0.6 * ((x + 2 * y) % 256) + rng.gamma(4.0, 6.0, (side, side))
+    cb = 128 + 40 * np.sin(x / 37.0) * np.cos(y / 53.0)
+    cr = 128 + 35 * np.cos((x + y) / 41.0) + rng.normal(0, 2, (side, side))
+    return np.clip(np.stack([luma, cb, cr], -1), 0, 255).astype(np.uint8)
+
+
+def j2k_deep_tile(seed: int = J2K_DEEP_SEED, side: int = 256):
+    """The 20-bit amplitude tile: lognormal speckle over a smooth field,
+    2 % zeros, clipped to 2^20 - 1, from `seed`."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    y, x = np.mgrid[0:side, 0:side]
+    field = 9.5 + 1.5 * np.sin(x / 29.0) * np.cos(y / 31.0)
+    amp = np.exp(field + rng.normal(0.0, 0.9, (side, side)))
+    amp = np.clip(amp, 0, (1 << 20) - 1).astype(np.int32)
+    amp[rng.random((side, side)) < 0.02] = 0
+    return amp
+
+
 def j2k_splice(code: bytes, nx: int, ny: int) -> bytes:
     """A codestream of nx x ny tiles from one whose image is one tile, or
     one row of k tiles, at the origin: SIZ's image size made nx x ny
     tiles, tile i the tile-parts of tile i % k with their tile index
-    renumbered, then EOC."""
+    renumbered, then EOC. The tile's sides must be multiples of every
+    component's sub-sampling, so each tile holds the same samples."""
     x, y, xo, yo, xt, yt, xto, yto = struct.unpack_from(">8I", code, 8)
     k = x // xt if xt else 0
     if (xo, yo, xto, yto) != (0, 0, 0, 0) or y != yt or k < 1 or x != k * xt:
         raise ValueError("the codestream is not one tile, or one row of "
                          "tiles, at the origin")
+    for c in range(struct.unpack_from(">H", code, 40)[0]):
+        dx, dy = code[43 + 3 * c], code[44 + 3 * c]
+        if xt % dx or yt % dy:
+            raise ValueError(f"a tile of {xt} x {yt} is not a multiple of "
+                             f"component {c}'s sub-sampling {dx} x {dy}")
     pos = 2
     while struct.unpack_from(">H", code, pos)[0] != 0xFF90:
         pos += 2 + struct.unpack_from(">H", code, pos + 2)[0]
@@ -3546,11 +3600,13 @@ def jp2_wrap(code: bytes, width: int, height: int, bands: int, bits: int,
 
 def phase_jpeg2000(work: Path, smi: str) -> dict:
     """io/jpeg2000 on the card's machine: the spliced 84.9 MP u16 JP2s (the
-    default coding and the styled one) and the 4096^2 RGB codestream opened
+    default coding and the styled one), the 4096^2 RGB codestream, the
+    4096^2 sYCC 4:2:0 JP2 and the 4096^2 JP2 of 20-bit amplitude opened
     through RasterReader (decode timed on the host clock, median of 3),
-    held to their tiles, each u16 band read decimated to 2048^2 on the card
-    (bit-equal to the plain resample) and saved as a CLAHE gray JPEG that
-    reads back. Returns the launches of the driven reads and saves."""
+    held to their tiles, each band but the RGB one read decimated to
+    2048^2 on the card (bit-equal to the plain resample) and saved as a
+    CLAHE gray JPEG that reads back. Returns the launches of the driven
+    reads and saves."""
     import hashlib
 
     import numpy as np
@@ -3606,12 +3662,34 @@ def phase_jpeg2000(work: Path, smi: str) -> dict:
                              f"{digest}, Pillow's is {J2K_RGB_SHA256}")
     rgb_path = d / "rgb.j2k"
     rgb_path.write_bytes(j2k_splice(rgb_code, J2K_RGB_TILES, J2K_RGB_TILES))
+    # the sYCC 4:2:0 and 20-bit tiles, each in its JP2, spliced to 4096^2;
+    # each tile's own decode has the SHA-256 of Pillow's
+    sub_tiles = {}
+    for name, fname, pinned, bands, bits, enumcs in (
+            ("sycc 4:2:0 9/7 16.8 MP", J2K_SYCC, J2K_SYCC_SHA256, 3, 8, 18),
+            ("u16 of 20-bit band 16.8 MP", J2K_DEEP, J2K_DEEP_SHA256, 1, 20,
+             17)):
+        code = (J2K_DIR / fname).read_bytes()
+        n = struct.unpack_from(">I", code, 8)[0]
+        sub_tile = jpeg2000.read(jp2_wrap(code, n, n, bands, bits,
+                                          enumcs)).array
+        digest = hashlib.sha256(sub_tile.tobytes()).hexdigest()
+        if digest != pinned:
+            raise AssertionError(f"jpeg2000: the {name} tile decodes to "
+                                 f"SHA-256 {digest}, Pillow's is {pinned}")
+        path = d / (fname.split(".")[0] + ".jp2")
+        path.write_bytes(jp2_wrap(
+            j2k_splice(code, J2K_SUB_TILES, J2K_SUB_TILES),
+            n * J2K_SUB_TILES, n * J2K_SUB_TILES, bands, bits, enumcs))
+        sub_tiles[name] = (path, sub_tile if sub_tile.ndim == 3
+                           else sub_tile[..., None])
     cpu = _host_cpu()
     totals = {k: 0 for k in ops.launch_counts()}
-    decode_ms = {}
+    decode_ms, decode_mps = {}, {}
     for name, path in (("u16 band 84.9 MP", band_path),
                        ("u16 styled band 84.9 MP", styled_path),
-                       ("rgb 9/7 16.8 MP", rgb_path)):
+                       ("rgb 9/7 16.8 MP", rgb_path),
+                       *((k, v[0]) for k, v in sub_tiles.items())):
         walls = []
         for _ in range(3):
             t0 = time.perf_counter()
@@ -3619,7 +3697,16 @@ def phase_jpeg2000(work: Path, smi: str) -> dict:
             walls.append(time.perf_counter() - t0)
         data = reader._tiff._data
         md = reader.metadata
-        if name.startswith("u16"):
+        if name in sub_tiles:
+            want = np.tile(sub_tiles[name][1],
+                           (J2K_SUB_TILES, J2K_SUB_TILES, 1))
+            if data.dtype != want.dtype or not np.array_equal(data, want):
+                raise AssertionError(f"jpeg2000: {name}: the decode is not "
+                                     f"np.tile of its tile's")
+            log(f"jpeg2000: {name}: SHA-256 of the decode "
+                f"{hashlib.sha256(data.tobytes()).hexdigest()}, np.tile of "
+                f"the tile's, whose SHA-256 is Pillow's")
+        elif name.startswith("u16"):
             want = np.tile(tile, (J2K_BAND_TILES, J2K_BAND_TILES))[..., None]
             if md.geotransform != gt or md.epsg != 32632:
                 raise AssertionError(f"jpeg2000: {name}: geotransform "
@@ -3642,6 +3729,7 @@ def phase_jpeg2000(work: Path, smi: str) -> dict:
         decode_ms[name] = wall * 1e3
         mb = path.stat().st_size / 1e6
         mp = md.size_x * md.size_y / 1e6
+        decode_mps[name] = mp / wall
         log(f"jpeg2000: {name} ({mb:.1f} MB, {data.dtype} "
             f"{tuple(data.shape)}): decode {wall * 1e3:.1f} ms (host clock, "
             f"median of 3; {', '.join(f'{w * 1e3:.1f}' for w in walls)}), "
@@ -3652,7 +3740,14 @@ def phase_jpeg2000(work: Path, smi: str) -> dict:
             log(f"jpeg2000: the styled band decodes in {wall * 1e3:.1f} ms "
                 f"against the default band's {base:.1f} ms in this call "
                 f"({wall * 1e3 / base:.3f} x; host clock, medians of 3)")
-        if not name.startswith("u16"):
+        new = name in sub_tiles
+        if new:
+            base = "u16 band 84.9 MP"
+            log(f"jpeg2000: the {name} decodes at {mp / wall:.1f} MP/s "
+                f"({wall * 1e3:.1f} ms) against the default band's "
+                f"{decode_mps[base]:.1f} MP/s ({decode_ms[base]:.1f} ms) in "
+                f"this call (host clock, medians of 3)")
+        if name.startswith("rgb"):
             reader.close()
             del reader, data
             continue
@@ -3668,7 +3763,7 @@ def phase_jpeg2000(work: Path, smi: str) -> dict:
         read_ms = (time.perf_counter() - t0) * 1e3
         counts = ops.launch_counts()
         if counts["resample_axis0"] <= 0 or (
-                "styled" in name and counts["resample_axis0"] != 2):
+                ("styled" in name or new) and counts["resample_axis0"] != 2):
             raise AssertionError(f"jpeg2000: {name}: the decimated read "
                                  f"launched {counts['resample_axis0']} "
                                  f"resamples ({counts})")
@@ -3693,7 +3788,7 @@ def phase_jpeg2000(work: Path, smi: str) -> dict:
         wall = time.perf_counter() - t0
         counts = ops.launch_counts()
         for k in ("histogram", "tile_histogram", "clahe_lookup"):
-            if counts[k] <= 0:
+            if counts[k] <= 0 or (new and counts[k] != 1):
                 raise AssertionError(f"jpeg2000: the CLAHE gray save "
                                      f"launched no {k} ({counts})")
         for k, v in counts.items():

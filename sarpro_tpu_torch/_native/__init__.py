@@ -183,7 +183,7 @@ def raster_decoder() -> ctypes.CDLL:
                                                u8p]
                 lib.j2k_decode.restype = i64
                 lib.j2k_decode.argtypes = [u8p, i64, i64, i64, i32,
-                                           ctypes.POINTER(i32), i32,
+                                           ctypes.POINTER(i32), i32, i32,
                                            ctypes.c_void_p, i32,
                                            ctypes.c_char_p, i64]
                 lib.webp_decode.restype = i64
@@ -230,11 +230,12 @@ def jpeg_decode(blob: bytes, width: int, height: int,
 
 
 def j2k_decode(code: bytes, width: int, height: int, chan_comp: tuple,
-               bits: int) -> np.ndarray:
+               bits: int, ycc: bool) -> np.ndarray:
     """The (height, width, len(chan_comp)) image (u8 for `bits` 8, u16 for
     16) Pillow unpacks from a JPEG 2000 codestream: channel k from
-    component chan_comp[k] (-1: 0xFF); ValueError with the decoder's
-    reason."""
+    component chan_comp[k] (-1: 0xFF), channels 0-2 taken from YCbCr to
+    RGB with `ycc` (Pillow's sYCC unpackers); ValueError with the
+    decoder's reason."""
     lib = raster_decoder()
     src = np.frombuffer(code, np.uint8)
     out = np.zeros((height, width, len(chan_comp)),
@@ -242,7 +243,7 @@ def j2k_decode(code: bytes, width: int, height: int, chan_comp: tuple,
     comps = (ctypes.c_int32 * len(chan_comp))(*chan_comp)
     err = ctypes.create_string_buffer(512)
     if lib.j2k_decode(_u8p(src), len(code), width, height, len(chan_comp),
-                      comps, bits, out.ctypes.data, _threads(), err,
+                      comps, bits, int(ycc), out.ctypes.data, _threads(), err,
                       len(err)) != 0:
         raise ValueError(err.value.decode("latin-1"))
     return out

@@ -18,17 +18,27 @@
 //     TERMALL, VSC, PTERM, SEGSYM), OpenJPEG's reconstruction (a decoded
 //     magnitude sits at the middle of its last bit-plane: t1.c's
 //     "oneplushalf"), the RGN maxshift scaling;
-//   * dequantisation and the inverse 5/3 (integer) and 9/7 (float, dwt.c's
-//     lifting constants, the 2/K high-band scale and order of operations),
-//     up to the highest resolution a component's packets reach;
-//   * the RCT / ICT, the DC level shift, lrintf and the clamp of tcd.c;
-//   * Pillow's Jpeg2KDecode.c unpackers: the shift to 8 (or 16) bits with
-//     its rounding offset, the signed offset, the stores to u8 / u16.
+//   * dequantisation and the inverse 5/3 (integer, its int32 sums wrapping
+//     as dwt.c's do) and 9/7 (float, dwt.c's lifting constants, the 2/K
+//     high-band scale and order of operations), up to the highest
+//     resolution a component's packets reach;
+//   * components sub-sampled by any (dx, dy): their tile-components,
+//     resolutions and precincts on the sub-sampled grid (tcd.c, pi.c), the
+//     RCT / ICT only over components of one size (opj_tcd_mct_decode);
+//   * the DC level shift, lrintf and the clamp of tcd.c, precisions up to
+//     OpenJPEG's 31 bits;
+//   * Pillow's Jpeg2KDecode.c unpackers over the tile buffer OpenJPEG fills:
+//     its per-component offsets and strides (W / dx, H / dy, whatever the
+//     sizes OpenJPEG wrote), the shift to 8 (or 16) bits with its rounding
+//     offset, the signed offset, the stores to u8 / u16 that wrap, and the
+//     YCbCr to RGB of its sYCC unpackers (ConvertYCbCr.c's tables).
 //
-// Refused with a message that names the feature: HTJ2K (code-block styles
-// 0x40 / 0x80, Rsiz, CAP), Part-2 capabilities, component sub-sampling,
-// precisions above 16 bits, and any codestream cut short or malformed
-// where OpenJPEG in Pillow's strict mode refuses it too.
+// Refused with a message that names the feature: HTJ2K code-blocks (styles
+// 0x40 / 0x80; Rsiz bits and a CAP segment over Part-1 code-blocks decode
+// as OpenJPEG decodes them), Part-2 wavelets, quantization, coding styles
+// and multiple component transforms, precisions above 31 bits, and any
+// codestream cut short or malformed where OpenJPEG in Pillow's strict mode
+// refuses it too.
 #include <algorithm>
 #include <atomic>
 #include <cmath>
@@ -56,6 +66,14 @@ std::string hex4(int v) {
 inline int64_t ceildivpow2(int64_t a, int e) { return (a + (int64_t{1} << e) - 1) >> e; }
 inline int64_t floordivpow2(int64_t a, int e) { return a >> e; }
 inline int64_t ceildiv(int64_t a, int64_t b) { return (a + b - 1) / b; }
+// int32 sums that wrap, as OpenJPEG's integer code wraps on precisions
+// near 31 bits
+inline int32_t wadd(int32_t a, int32_t b) {
+  return static_cast<int32_t>(static_cast<uint32_t>(a) + static_cast<uint32_t>(b));
+}
+inline int32_t wsub(int32_t a, int32_t b) {
+  return static_cast<int32_t>(static_cast<uint32_t>(a) - static_cast<uint32_t>(b));
+}
 
 // ---------------------------------------------------------------------------
 // header structures
@@ -371,9 +389,7 @@ Codestream parse(const uint8_t* src, size_t n) {
   size_t lsiz = static_cast<size_t>(r.u16());
   size_t siz_end = r.pos - 2 + lsiz;
   Siz& s = cs.siz;
-  int rsiz = r.u16();
-  if (rsiz & 0x8000) fail("Part-2 capabilities (Rsiz " + hex4(rsiz) + ") are not decoded by the port");
-  if (rsiz & 0x4000) fail("HTJ2K capabilities (Rsiz " + hex4(rsiz) + ") are not decoded by the port");
+  r.u16();  // Rsiz: j2k.c decodes Part-1 code-blocks whatever its bits
   s.X = r.u32();
   s.Y = r.u32();
   s.XO = r.u32();
@@ -397,6 +413,7 @@ Codestream parse(const uint8_t* src, size_t n) {
     c.dy = r.u8();
     if (c.dx == 0 || c.dy == 0) fail("invalid component sub-sampling");
     if (c.prec > 38) fail("invalid component precision");
+    if (c.prec > 31) fail("component precision above 31 bits (OpenJPEG's limit)");
   }
   r.pos = siz_end;
   s.ntx = ceildiv(s.X - s.XTO, s.XT);
@@ -417,7 +434,6 @@ Codestream parse(const uint8_t* src, size_t n) {
     if (len < 2) fail("invalid marker segment length");
     size_t end = r.pos - 2 + len;
     if (end > n) fail("codestream cut short");
-    if (m == 0xFF50) fail("HTJ2K capabilities (CAP) are not decoded by the port");
     if (part2_marker(m)) refuse_part2(m);
     if (m == 0xFF52 || m == 0xFF53 || m == 0xFF5C || m == 0xFF5D) {
       read_coding_marker(m, r, end, s, cs.main, coc, qcc);
@@ -431,7 +447,7 @@ Codestream parse(const uint8_t* src, size_t n) {
       read_ppx(r, end, ppm, "PPM");
       cs.has_ppm = true;
     }
-    r.pos = end;  // TLM, PLM, CRG, COM and CPF segments are skipped
+    r.pos = end;  // TLM, PLM, CRG, COM, CAP and CPF segments are skipped
   }
   if (!cod) fail("no COD marker in the main header");
   if (!qcd) fail("no QCD marker in the main header");
@@ -1303,16 +1319,29 @@ struct T1 {
 // inverse wavelets (dwt.c)
 // ---------------------------------------------------------------------------
 // the inverse 5/3 on one interleaved line of sn low and dn high samples,
-// the low ones at parity `cas` (the line's first coordinate's)
+// the low ones at parity `cas` (the line's first coordinate's); a sample
+// at an end, with one neighbour, takes dwt.c's halved form of the mirrored
+// sum, and the sums wrap as dwt.c's do
 void idwt53_line(int32_t* x, int sn, int dn, int cas) {
   const int n = sn + dn;
   if (n == 1) {
     if (cas) x[0] /= 2;
     return;
   }
-  auto at = [&](int i) { return x[i < 0 ? -i : (i >= n ? 2 * (n - 1) - i : i)]; };
-  for (int i = cas; i < n; i += 2) x[i] -= (at(i - 1) + at(i + 1) + 2) >> 2;
-  for (int i = 1 - cas; i < n; i += 2) x[i] += (at(i - 1) + at(i + 1)) >> 1;
+  int i = cas;
+  if (i == 0) {
+    x[0] = wsub(x[0], wadd(x[1], 1) >> 1);
+    i = 2;
+  }
+  for (; i + 1 < n; i += 2) x[i] = wsub(x[i], wadd(wadd(x[i - 1], x[i + 1]), 2) >> 2);
+  if (i < n) x[i] = wsub(x[i], wadd(x[i - 1], 1) >> 1);
+  i = 1 - cas;
+  if (i == 0) {
+    x[0] = wadd(x[0], x[1]);
+    i = 2;
+  }
+  for (; i + 1 < n; i += 2) x[i] = wadd(x[i], wadd(x[i - 1], x[i + 1]) >> 1);
+  if (i < n) x[i] = wadd(x[i], x[i - 1]);
 }
 
 const float kAlpha = -1.586134342f, kBeta = -0.052980118f, kGamma = 0.882911075f,
@@ -1409,45 +1438,86 @@ struct Output {
   int channels;
   const int32_t* chan_comp;  // source component of each channel; -1: 0xFF
   int bits;                  // 8 or 16: the samples Pillow's mode holds
+  bool ycc;                  // channels 0-2 are YCbCr, converted to RGB
   void* out;
 };
 
-// A tile where a component's packets stop below its last resolution: OpenJPEG
-// (opj_tcd_update_tile_data) hands Pillow each component's samples at that
-// resolution, packed one after the other in bytes of its size (1, 2 or 4),
-// and Pillow, having zeroed its buffer, reads plane c at c's place in a tile
-// of full-size planes. Each component's samples become the words Pillow
-// reads there.
-void reduced_planes(const Siz& s, std::vector<TileComp>& tcs, const std::vector<int>& top,
-                    int64_t W, int64_t H) {
-  std::vector<int> csiz(s.nc);
+// Pillow's ImagingConvertYCbCr2RGB (ConvertYCbCr.c): 6-bit fixed-point
+// tables, trunc(64 k (i - 128) + 0.5) for the constants of JFIF
+struct YccTables {
+  int16_t r_cr[256], g_cb[256], g_cr[256], b_cb[256];
+  YccTables() {
+    for (int i = 0; i < 256; ++i) {
+      const double d = i - 128;
+      r_cr[i] = static_cast<int16_t>(1.40200 * 64 * d + 0.5);
+      g_cb[i] = static_cast<int16_t>(-0.34414 * 64 * d + 0.5);
+      g_cr[i] = static_cast<int16_t>(-0.71414 * 64 * d + 0.5);
+      b_cb[i] = static_cast<int16_t>(1.77200 * 64 * d + 0.5);
+    }
+  }
+};
+const YccTables kYcc;
+
+inline uint8_t clamp_u8(int v) { return static_cast<uint8_t>(v <= 0 ? 0 : v >= 255 ? 255 : v); }
+
+// the YCbCr pixels of rows [y0, y0 + h) x cols [x0, x0 + w) of the u8
+// image `o` to RGB in place (Pillow's j2ku_sycc_rgb / j2ku_sycca_rgba run
+// it on each row they unpack; alpha stays)
+void ycc_to_rgb(const Output& o, int64_t x0, int64_t y0, int64_t w, int64_t h) {
+  for (int64_t y = y0; y < y0 + h; ++y) {
+    uint8_t* p = static_cast<uint8_t*>(o.out) + (y * o.width + x0) * o.channels;
+    for (int64_t x = 0; x < w; ++x, p += o.channels) {
+      const int yy = p[0], cb = p[1], cr = p[2];
+      p[0] = clamp_u8(yy + (kYcc.r_cr[cr] >> 6));
+      p[1] = clamp_u8(yy + ((kYcc.g_cb[cb] + kYcc.g_cr[cr]) >> 6));
+      p[2] = clamp_u8(yy + (kYcc.b_cb[cb] >> 6));
+    }
+  }
+}
+
+// the bytes of a sample of `prec` bits in OpenJPEG's tile buffer
+inline int word_bytes(int prec) {
+  const int n = (prec + 7) >> 3;
+  return n == 3 ? 4 : n;
+}
+
+// the little-endian word of `csiz` bytes at b
+inline uint32_t load_word(const uint8_t* b, int csiz) {
+  switch (csiz) {
+    case 1:
+      return b[0];
+    case 2:
+      return b[0] | uint32_t{b[1]} << 8;
+    default:
+      return b[0] | uint32_t{b[1]} << 8 | uint32_t{b[2]} << 16 | uint32_t{b[3]} << 24;
+  }
+}
+
+// the bytes of a tile's components in the buffer OpenJPEG's
+// opj_decode_tile_data fills (opj_tcd_update_tile_data): each component's
+// samples at its decoded resolution, rows packed, in words of 1, 2 or 4
+// bytes (3 stored as 4), one component after the other; zero past them,
+// up to `size` at least (Pillow zeroes its buffer)
+std::vector<uint8_t> tile_buffer(const Siz& s, const std::vector<TileComp>& tcs,
+                                 const std::vector<int>& top, int64_t size) {
   int64_t total = 0;
   for (int c = 0; c < s.nc; ++c) {
-    csiz[c] = (s.comps[c].prec + 7) >> 3;
-    if (csiz[c] == 3) csiz[c] = 4;
-    total += csiz[c] * W * H;
+    const Resolution& r = tcs[c].res[top[c]];
+    total += word_bytes(s.comps[c].prec) * (r.x1 - r.x0) * (r.y1 - r.y0);
   }
-  std::vector<uint8_t> buf(static_cast<size_t>(total), 0);
+  std::vector<uint8_t> buf(static_cast<size_t>(std::max(total, size)), 0);
   size_t at = 0;
   for (int c = 0; c < s.nc; ++c) {
+    const int csiz = word_bytes(s.comps[c].prec);
     const Resolution& r = tcs[c].res[top[c]];
-    const int64_t rw = r.x1 - r.x0, rh = r.y1 - r.y0;
+    const int64_t rw = r.x1 - r.x0, rh = r.y1 - r.y0, W = tcs[c].w();
     for (int64_t y = 0; y < rh; ++y)
-      for (int64_t x = 0; x < rw; ++x, at += csiz[c]) {
+      for (int64_t x = 0; x < rw; ++x, at += csiz) {
         const uint32_t v = static_cast<uint32_t>(tcs[c].idata[y * W + x]);
-        for (int k = 0; k < csiz[c]; ++k) buf[at + k] = static_cast<uint8_t>(v >> (8 * k));
+        for (int k = 0; k < csiz; ++k) buf[at + k] = static_cast<uint8_t>(v >> (8 * k));
       }
   }
-  size_t plane = 0;
-  for (int c = 0; c < s.nc; ++c) {
-    std::vector<int32_t>& out = tcs[c].idata;
-    for (int64_t i = 0; i < W * H; ++i) {
-      uint32_t v = 0;
-      for (int k = 0; k < csiz[c]; ++k) v |= uint32_t{buf[plane + csiz[c] * i + k]} << (8 * k);
-      out[i] = static_cast<int32_t>(v);
-    }
-    plane += static_cast<size_t>(csiz[c] * W * H);
-  }
+  return buf;
 }
 
 // `ppm`: the codestream's PPM header stream, read on from where the tile
@@ -1548,25 +1618,30 @@ void decode_tile(const Codestream& cs, int tile, int threads, const Output& o, H
     else idwt_2d(tc, tc.fdata.data(), top[c], threads, idwt97_line);
   }
   const int64_t W = tx1 - tx0, H = ty1 - ty0;
-  const int64_t npx = W * H;
-  // multiple component transform (mct.c)
+  // multiple component transform (tcd.c's opj_tcd_mct_decode, mct.c): the
+  // three components of one resolution count and one sample count
   if (prm.mct && s.nc >= 3) {
+    if (tcs[1].levels != tcs[0].levels || tcs[2].levels != tcs[0].levels)
+      fail("a component transform over components of different resolution counts");
+    const size_t npx = tcs[0].idata.size() + tcs[0].fdata.size();
+    if (top[0] != top[1] || top[0] != top[2] ||
+        tcs[1].idata.size() + tcs[1].fdata.size() != npx ||
+        tcs[2].idata.size() + tcs[2].fdata.size() != npx)
+      fail("a component transform over components of different sizes or decoded resolutions");
     if (tcs[0].transform != tcs[1].transform || tcs[0].transform != tcs[2].transform)
       fail("a component transform over components of different wavelets");
-    if (top[0] != top[1] || top[0] != top[2])
-      fail("a component transform over components decoded to different resolutions");
     if (tcs[0].transform == 1) {
       int32_t *c0 = tcs[0].idata.data(), *c1 = tcs[1].idata.data(), *c2 = tcs[2].idata.data();
-      for (int64_t i = 0; i < npx; ++i) {
+      for (size_t i = 0; i < npx; ++i) {
         const int32_t y = c0[i], u = c1[i], v = c2[i];
-        const int32_t g = y - ((u + v) >> 2);
-        c0[i] = v + g;
+        const int32_t g = wsub(y, wadd(u, v) >> 2);
+        c0[i] = wadd(v, g);
         c1[i] = g;
-        c2[i] = u + g;
+        c2[i] = wadd(u, g);
       }
     } else {
       float *c0 = tcs[0].fdata.data(), *c1 = tcs[1].fdata.data(), *c2 = tcs[2].fdata.data();
-      for (int64_t i = 0; i < npx; ++i) {
+      for (size_t i = 0; i < npx; ++i) {
         const float y = c0[i], u = c1[i], v = c2[i];
         const float r = y + (v * 1.402f);
         float g = y - (u * 0.34413f);
@@ -1578,15 +1653,16 @@ void decode_tile(const Codestream& cs, int tile, int threads, const Output& o, H
       }
     }
   }
-  // DC level shift and clamp (tcd.c), into int32 samples
+  // DC level shift and clamp (tcd.c), into int32 samples; the 5/3's sum
+  // in int32 as tcd.c makes it
   for (int c = 0; c < s.nc; ++c) {
     TileComp& tc = tcs[c];
     const CompSiz& cz = s.comps[c];
     const int64_t lo = cz.sgnd ? -(int64_t{1} << (cz.prec - 1)) : 0;
     const int64_t hi = cz.sgnd ? (int64_t{1} << (cz.prec - 1)) - 1 : (int64_t{1} << cz.prec) - 1;
-    const int64_t shift = cz.sgnd ? 0 : int64_t{1} << (cz.prec - 1);
+    const int32_t shift = cz.sgnd ? 0 : static_cast<int32_t>(uint32_t{1} << (cz.prec - 1));
     if (tc.transform == 1) {
-      for (int32_t& v : tc.idata) v = static_cast<int32_t>(std::max(lo, std::min(hi, v + shift)));
+      for (int32_t& v : tc.idata) v = static_cast<int32_t>(std::max<int64_t>(lo, std::min<int64_t>(hi, wadd(v, shift))));
     } else {
       tc.idata.resize(tc.fdata.size());
       for (size_t i = 0; i < tc.fdata.size(); ++i) {
@@ -1600,47 +1676,64 @@ void decode_tile(const Codestream& cs, int tile, int threads, const Output& o, H
       std::vector<float>().swap(tc.fdata);
     }
   }
-  bool partial = false;
-  for (int c = 0; c < s.nc; ++c) partial |= top[c] < tcs[c].levels;
-  if (partial) reduced_planes(s, tcs, top, W, H);
-  // Pillow's unpackers (Jpeg2KDecode.c): each channel from its component,
-  // read as the unsigned bytes OpenJPEG stores it in, offset and shifted
+  // Pillow's unpackers (Jpeg2KDecode.c) over the tile buffer: component c
+  // at the sum of the sizes before it, csiz * (W / dx) * (H / dy) each,
+  // pixel (x, y) from its word (y / dy) * (W / dx) + x / dx, read as the
+  // unsigned bytes OpenJPEG stores, offset and shifted. Where OpenJPEG's
+  // sizes are not these (odd sizes or origins, a resolution short of the
+  // last), a pixel takes the bytes Pillow's does, not its sample's.
+  std::vector<int64_t> at(s.nc);
+  int64_t pil = 0, words = 0;
+  for (int c = 0; c < s.nc; ++c) {
+    const CompSiz& cz = s.comps[c];
+    const int csiz = word_bytes(cz.prec);
+    at[c] = pil;
+    pil += csiz * (W / cz.dx) * (H / cz.dy);
+    words += csiz;
+  }
+  // Pillow's buffer holds W * H words of each component
+  const std::vector<uint8_t> buf = tile_buffer(s, tcs, top, words * W * H);
   const int64_t ox = tx0 - s.XO, oy = ty0 - s.YO;
   for (int ch = 0; ch < o.channels; ++ch) {
     const int c = o.chan_comp[ch];
-    uint32_t mask = 0, offset = 0;
-    int shift = 0;
+    uint32_t offset = 0;
+    int shift = 0, csiz = 0;
+    int64_t dx = 1, dy = 1, stride = 0;
     if (c >= 0) {
       const CompSiz& cz = s.comps[c];
-      const int csiz = (cz.prec + 7) >> 3;
-      mask = csiz == 1 ? 0xFFu : csiz == 2 ? 0xFFFFu : 0xFFFFFFFFu;
+      csiz = word_bytes(cz.prec);
       shift = o.bits - cz.prec;
       offset = cz.sgnd ? 1u << (cz.prec - 1) : 0u;
       if (shift < 0) offset += 1u << (-shift - 1);
+      dx = cz.dx;
+      dy = cz.dy;
+      stride = W / dx;
     }
     for (int64_t y = 0; y < H; ++y) {
-      const int32_t* src = c >= 0 ? tcs[c].idata.data() + y * W : nullptr;
+      const uint8_t* src = c >= 0 ? buf.data() + at[c] + csiz * (y / dy) * stride : nullptr;
       const int64_t base = ((oy + y) * o.width + ox) * o.channels + ch;
-      for (int64_t x = 0; x < W; ++x) {
+      // src advances a word every dx pixels
+      for (int64_t x = 0, xr = 0; x < W; ++x) {
         uint32_t v = 0xFF;
         if (c >= 0) {
-          const uint32_t word = offset + (static_cast<uint32_t>(src[x]) & mask);
+          const uint32_t word = offset + load_word(src, csiz);
           v = shift < 0 ? word >> -shift : word << shift;
+          if (++xr == dx) {
+            xr = 0;
+            src += csiz;
+          }
         }
         if (o.bits == 8) static_cast<uint8_t*>(o.out)[base + x * o.channels] = static_cast<uint8_t>(v);
         else static_cast<uint16_t*>(o.out)[base + x * o.channels] = static_cast<uint16_t>(v);
       }
     }
   }
+  if (o.ycc) ycc_to_rgb(o, ox, oy, W, H);
 }
 
 void decode(const uint8_t* src, size_t n, const Output& o, int threads) {
   Codestream cs = parse(src, n);
   const Siz& s = cs.siz;
-  for (const CompSiz& c : s.comps) {
-    if (c.dx != 1 || c.dy != 1) fail("component sub-sampling is not decoded by the port");
-    if (c.prec > 16) fail("component precision above 16 bits is not decoded by the port");
-  }
   for (int ch = 0; ch < o.channels; ++ch)
     if (o.chan_comp[ch] >= s.nc) fail("a channel past the component count");
   std::vector<int> tiles;
@@ -1678,13 +1771,14 @@ extern "C" {
 
 // Decode the codestream src[0, n) into `out`, a zeroed (height, width,
 // channels) array of u8 (bits 8) or u16 (bits 16): Pillow's image of that
-// size, channel k taken from component chan_comp[k] (-1: 0xFF). 0, or -1
-// with the reason in err.
+// size, channel k taken from component chan_comp[k] (-1: 0xFF), channels
+// 0-2 converted from YCbCr to RGB where `ycc` is set. 0, or -1 with the
+// reason in err.
 int64_t j2k_decode(const uint8_t* src, int64_t n, int64_t width, int64_t height, int32_t channels,
-                   const int32_t* chan_comp, int32_t bits, void* out, int32_t threads, char* err,
-                   int64_t errcap) {
+                   const int32_t* chan_comp, int32_t bits, int32_t ycc, void* out, int32_t threads,
+                   char* err, int64_t errcap) {
   try {
-    Output o{width, height, channels, chan_comp, bits, out};
+    Output o{width, height, channels, chan_comp, bits, ycc != 0, out};
     decode(src, static_cast<size_t>(n), o, std::max(1, static_cast<int>(threads)));
     return 0;
   } catch (const J2kError& e) {

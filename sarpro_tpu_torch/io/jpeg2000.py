@@ -10,24 +10,33 @@ file (its signature box). Modes as Pillow gives them:
     "LA", 3 "RGB", 4 "RGBA");
   * JP2: the ihdr box's, "CMYK" for an enumerated CMYK `colr` on 4
     components, "P" / "PA" for a `pclr` box on "L" / "LA" (its palette
-    with Pillow's rules: entries above 8 bits leave the mode as it is).
+    as Pillow's ImagePalette.getcolor builds it, RGB, or RGBA for four
+    columns, from one byte a value; entries above 8 bits leave the mode as
+    it is).
 
 The samples reach the mode as Pillow's unpackers put them: shifted to 8
-bits (16 for "I;16": a 12-bit band reads as its values << 4), rounded
-where the shift is down, signed samples offset by half their range. Which
-unpacker a file takes follows its colour space (the JP2 `colr` box;
-unspecified for a codestream) and component count, as measured against
-Pillow 12.1 (UNPACKERS); a pairing Pillow has no unpacker for is refused,
-as Pillow refuses it. The codestream's coding options are decoded as
+bits (16 for "I;16": a 12-bit band reads as its values << 4, a 20-bit one
+as its values >> 4), rounded where the shift is down, signed samples
+offset by half their range, the stores wrapping. Which unpacker a file
+takes follows its colour space (the JP2 `colr` box; for a codestream, or
+a JP2 without one, Pillow's guess from the component count and the first
+sub-sampled component) and component count, as measured against Pillow
+12.1 (UNPACKERS); a pairing Pillow has no unpacker for is refused, as
+Pillow refuses it (e-YCC has none; sub-sampled components have none under
+one or two). sYCC is unpacked as sRGB and taken to RGB by Pillow's
+fixed-point YCbCr conversion. Sub-sampled components are read where
+Pillow's unpackers read them in OpenJPEG's tile buffer: at strides and
+offsets of W / dx and H / dy, which at odd sizes are not the samples an
+up-sampling would give. The codestream's coding options are decoded as
 OpenJPEG decodes them: the six code-block styles (BYPASS, RESET, TERMALL,
 VSC, PTERM, SEGSYM), region-of-interest shifts (RGN), progression order
-changes (POC), packed packet headers (PPM / PPT), SOP / EPH. Refused as
-RasterError naming the feature: HTJ2K (its code-block styles, Rsiz and
-CAP), Part-2 capabilities and quantization, component sub-sampling, sYCC /
-e-YCC colour spaces, precisions above 16 bits, `pclr` boxes other than
-three columns, and a codestream cut short or malformed where OpenJPEG
-refuses it. Pillow's `info` holds no strings for a JPEG 2000 file (the
-comment is bytes), so the text is empty."""
+changes (POC), packed packet headers (PPM / PPT), SOP / EPH, precisions up
+to 31 bits, Rsiz capability bits and CAP segments over Part-1
+code-blocks. Refused as RasterError naming the feature: HTJ2K code-blocks,
+Part-2 wavelets, quantization, coding styles and multiple component
+transforms (their markers), and a codestream cut short or malformed where
+OpenJPEG refuses it. Pillow's `info` holds no strings for a JPEG 2000 file
+(the comment is bytes), so the text is empty."""
 from __future__ import annotations
 
 import struct
@@ -41,10 +50,10 @@ SIGNATURES = (b"\xff\x4f\xff\x51", b"\x00\x00\x00\x0cjP  \r\n\x87\n")
 # OpenJPEG's colour space of an enumerated `colr` (jp2.c); any other
 # (none, ICC, unknown values) is left for the unpacker to guess
 ENUMCS = {16: "srgb", 17: "gray", 18: "sycc", 24: "eycc", 12: "cmyk"}
-# Pillow's guess for an unspecified colour space, by component count
-GUESS = {1: "gray", 2: "gray", 3: "srgb", 4: "srgb"}
 # (mode, colour space, components) -> the component of each channel of
-# Pillow's image (-1: 0xFF), as Pillow 12.1 unpacks them
+# Pillow's image (-1: 0xFF), as Pillow 12.1 unpacks them; those of one or
+# two components take no sub-sampled component, the sYCC ones convert to
+# RGB
 UNPACKERS = {
     ("L", "gray", 1): (0,),
     ("P", "srgb", 1): (0,),
@@ -61,7 +70,20 @@ UNPACKERS = {
     ("RGBA", "srgb", 3): (0, 1, 2, -1),
     ("RGBA", "srgb", 4): (0, 1, 2, 3),
     ("CMYK", "cmyk", 4): (0, 1, 2, 3),
+    ("RGB", "sycc", 3): (0, 1, 2),
+    ("RGB", "sycc", 4): (0, 1, 2),
+    ("RGBA", "sycc", 3): (0, 1, 2, -1),
+    ("RGBA", "sycc", 4): (0, 1, 2, 3),
 }
+
+
+def _guess(nc: int, subsampled: int) -> str:
+    """Pillow's colour space for an unspecified one: gray for one or two
+    components; for three or four sRGB, or sYCC where the first
+    sub-sampled component is the second or the third."""
+    if nc <= 2:
+        return "gray"
+    return "sycc" if subsampled in (1, 2) else "srgb"
 
 
 def _boxes(blob: bytes, start: int, end: int):
@@ -119,14 +141,10 @@ def _jp2_header(blob: bytes, start: int, end: int):
         elif tbox == b"pclr" and not has_pclr:
             has_pclr = True
             depths = _pclr_depths(body)
-            if mode in ("L", "LA") and max(depths) <= 8:
-                if len(depths) != 3:
-                    raise RasterError(f"JPEG 2000: a pclr palette of "
-                                      f"{len(depths)} columns is not "
-                                      "decoded by the port")
-                ne = struct.unpack_from(">H", body)[0]
-                palette = _palette(body[6:6 + 3 * ne])
-                mode = "P" if mode == "L" else "PA"
+            if mode in ("L", "LA"):
+                palette = _palette(body)
+                if palette is not None:
+                    mode = "P" if mode == "L" else "PA"
         elif tbox == b"cmap":
             if not has_pclr:
                 raise RasterError("JPEG 2000: a cmap box before its pclr "
@@ -156,24 +174,41 @@ def _pclr_depths(body: bytes) -> tuple:
     return depths
 
 
-def _palette(table: bytes) -> bytes:
-    """Pillow's ImagePalette.getcolor over the pclr entries in order: each
-    colour once, at its first place; more than 256 colours refused."""
-    seen: dict = {}
-    for i in range(0, len(table), 3):
-        c = table[i:i + 3]
-        if c not in seen:
-            if len(seen) >= 256:
-                raise RasterError(
-                    "JPEG 2000: cannot allocate more than 256 colors")
-            seen[c] = len(seen)
-    return b"".join(seen)
+def _palette(body: bytes):
+    """The RGB palette Pillow makes of a pclr box: None where a column's
+    Ssiz byte is above 8 (Pillow keeps no palette); else each entry of one
+    byte a column handed to ImagePalette.getcolor in order (an RGBA
+    palette for four columns, else RGB; each colour once, at the index
+    getcolor gives it, which for other than three or four columns is not
+    one a colour), and the entries Image.putpalette makes of its bytes."""
+    ne, npc = struct.unpack_from(">HB", body)
+    if max(body[3:3 + npc]) > 8:
+        return None
+    table = body[3 + npc:3 + npc + ne * npc]
+    if len(table) < ne * npc:
+        raise RasterError("JPEG 2000: Not enough data in header")
+    width = 4 if npc == 4 else 3
+    seen: set = set()
+    pal = b""
+    for i in range(0, len(table), npc):
+        c = table[i:i + npc]
+        if c in seen:
+            continue
+        index = len(pal) // width
+        if index >= 256:
+            raise RasterError(
+                "JPEG 2000: cannot allocate more than 256 colors")
+        seen.add(c)
+        at = index * width
+        pal = pal[:at] + c + pal[at + width:] if at < len(pal) else pal + c
+    return b"".join(pal[k:k + 3] for k in range(0, len(pal) - width + 1,
+                                                 width))
 
 
 def _siz(code: bytes):
-    """(size, component count, first component's Ssiz) from the SIZ
-    segment that must open a codestream (Pillow's _parse_codestream reads
-    the same fields)."""
+    """(size, component count, first component's Ssiz, index of the first
+    sub-sampled component or -1) from the SIZ segment that must open a
+    codestream (Pillow's _parse_codestream reads the first three)."""
     if not code.startswith(SIGNATURES[0]):
         raise RasterError("JPEG 2000: the codestream does not start with "
                           "SOC and SIZ")
@@ -183,7 +218,10 @@ def _siz(code: bytes):
      csiz) = struct.unpack_from(">HHIIIIIIIIH", code, 4)
     if lsiz < 41:
         raise RasterError("JPEG 2000: invalid SIZ length")
-    return (xsiz - xosiz, ysiz - yosiz), csiz, code[42]
+    subsampled = next((i for i in range(csiz)
+                       if code[43 + 3 * i:45 + 3 * i] not in (b"\1\1", b"")),
+                      -1)
+    return (xsiz - xosiz, ysiz - yosiz), csiz, code[42], subsampled
 
 
 def _jp2(blob: bytes):
@@ -215,7 +253,7 @@ def _jp2(blob: bytes):
 def read(blob: bytes) -> pixels.Decoded:
     if blob.startswith(SIGNATURES[0]):
         code = blob
-        size, nc, ssiz = _siz(code)
+        size, nc, ssiz, subsampled = _siz(code)
         if nc == 1:
             mode = "I;16" if (ssiz & 0x7F) + 1 > 8 else "L"
         elif nc in (2, 3, 4):
@@ -225,24 +263,22 @@ def read(blob: bytes) -> pixels.Decoded:
         palette, colour = None, ""
     else:
         code, size, mode, palette, colour = _jp2(blob)
-        siz_size, nc, _ = _siz(code)
+        siz_size, nc, _, subsampled = _siz(code)
         if size != siz_size:
             raise RasterError(f"JPEG 2000: the ihdr box's size {size} is "
                               f"not the codestream's {siz_size}")
     width, height = size
     pixels.check_size(width, height)
-    space = colour or GUESS.get(nc, "")
-    if space in ("sycc", "eycc") and mode in ("RGB", "RGBA"):
-        raise RasterError(f"JPEG 2000: the {space} colour space is not "
-                          "decoded by the port")
+    space = colour or _guess(nc, subsampled)
     chans = UNPACKERS.get((mode, space, nc))
-    if chans is None:
+    if chans is None or (subsampled >= 0 and nc <= 2):
         raise RasterError(f"JPEG 2000: no unpacker for mode {mode} from "
                           f"{nc} components in colour space "
                           f"{space or 'unspecified'} (broken data stream)")
     try:
         out = _native.j2k_decode(code, width, height, chans,
-                                 16 if mode == "I;16" else 8)
+                                 16 if mode == "I;16" else 8,
+                                 space == "sycc")
     except (ValueError, RuntimeError) as e:
         raise RasterError(f"JPEG 2000: {e}") from e
     return pixels.Decoded(mode, out[..., 0] if len(chans) == 1 else out,

@@ -2,10 +2,12 @@
 pillow.libs/) driven through ctypes, for the coding options Pillow's `save`
 does not expose: the code-block styles (`mode`: BYPASS 1, RESET 2, TERMALL
 4, VSC 8, PTERM 16, SEGSYM 32), SOP / EPH (`csty`), progression order
-changes, a region-of-interest shift, tiles, layers, 5/3 or 9/7 and the
-component transform. Then codestream surgery for what OpenJPEG does not
-write: the packet headers moved into PPT or PPM segments, a POC moved from
-the tile-part headers into the main header, an RGN moved into them.
+changes, a region-of-interest shift, tiles, layers, 5/3 or 9/7, the
+component transform (Part 1's, or a Part-2 matrix), component
+sub-sampling, the image's origin and colour space (written into a JP2's
+`colr` box). Then codestream surgery for what OpenJPEG does not write: the
+packet headers moved into PPT or PPM segments, a POC moved from the
+tile-part headers into the main header, an RGN moved into them.
 
 `opj_cparameters_t` is read as an int32 array at the offsets below; each is
 checked against the encoder defaults (numresolution 6, 64 x 64 code-blocks,
@@ -41,6 +43,9 @@ DEFAULTS = {NUMRESOLUTION: 6, CBLOCKW: 64, CBLOCKH: 64, ROI_COMPNO: -1,
 PROGRESSIONS = {"LRCP": 0, "RLCP": 1, "RPCL": 2, "PCRL": 3, "CPRL": 4}
 BYPASS, RESET, TERMALL, VSC, PTERM, SEGSYM = 1, 2, 4, 8, 16, 32
 SOP, EPH = 2, 4
+# OPJ_COLOR_SPACE
+COLOUR_SPACES = {"unspecified": 0, "srgb": 1, "gray": 2, "sycc": 3,
+                 "eycc": 4, "cmyk": 5}
 
 
 class _CompParm(ctypes.Structure):  # opj_image_cmptparm_t
@@ -110,14 +115,22 @@ def _params(lib):
 def encode(planes, *, irreversible: bool = False, mode: int = 0,
            csty: int = 0, progression: str = "LRCP", pocs=(), roi=None,
            tile=None, rates=None, resolutions: int = 6, cblk=(64, 64),
-           mct=None, prec=None, signed: bool = False) -> bytes:
-    """A J2K codestream of `planes` ((h, w) or (h, w, c) integers) as
-    OpenJPEG 2.5.4 writes it. `pocs`: (resno0, compno0, layno1, resno1,
-    compno1, progression[, tile]) each, tile 1-based (1 by default); `roi`:
-    (component, shift); `tile`: (width, height); `rates`: the compression
-    ratio of each layer (0: lossless); `mct`: the component transform (the
-    default: on for 3 components or more); `prec`: the bits of a sample
-    (the dtype's by default)."""
+           mct=None, prec=None, signed: bool = False, subsampling=None,
+           colour_space=None, jp2: bool = False, origin=(0, 0),
+           mct_matrix=None) -> bytes:
+    """A J2K codestream (a JP2 file with `jp2`) of `planes` ((h, w) or
+    (h, w, c) integers) as OpenJPEG 2.5.4 writes it. `pocs`: (resno0,
+    compno0, layno1, resno1, compno1, progression[, tile]) each, tile
+    1-based (1 by default); `roi`: (component, shift); `tile`: (width,
+    height); `rates`: the compression ratio of each layer (0: lossless);
+    `mct`: the component transform (the default: on for 3 components or
+    more); `prec`: the bits of a sample (the dtype's by default);
+    `subsampling`: (dx, dy) of each component
+    (1, 1 by default), plane c cut to [::dy, ::dx]; `colour_space`:
+    opj_image_create's (COLOUR_SPACES, or its number; by default sRGB for 3
+    components or more, gray below); `origin`: the image's (x0, y0) on the
+    reference grid, planes[0, 0] there; `mct_matrix`: a Part-2 custom
+    component transform (opj_set_MCT, no DC shift) in place of `mct`."""
     a = np.asarray(planes)
     if a.ndim == 2:
         a = a[..., None]
@@ -153,24 +166,42 @@ def encode(planes, *, irreversible: bool = False, mode: int = 0,
                          t[0] if t else 1)):
             p[base + POC_FIELDS[f]] = v
     p[NUMPOCS] = len(pocs)
-    ctypes.cast(p, ctypes.POINTER(ctypes.c_char))[TCP_MCT_BYTE] = bytes(
-        [int(nc >= 3 if mct is None else mct)])
+    if mct_matrix is None:
+        ctypes.cast(p, ctypes.POINTER(ctypes.c_char))[TCP_MCT_BYTE] = bytes(
+            [int(nc >= 3 if mct is None else mct)])
+    else:
+        matrix = (ctypes.c_float * (nc * nc))(*np.ravel(mct_matrix))
+        shifts = (ctypes.c_int32 * nc)()
+        lib.opj_set_MCT.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                    ctypes.c_void_p, ctypes.c_uint32]
+        if not lib.opj_set_MCT(p, matrix, shifts, nc):
+            raise RuntimeError("opj_set_MCT refused the matrix")
+    x0, y0 = origin
+    steps = list(subsampling or [(1, 1)] * nc)
     parms = (_CompParm * nc)()
-    for c in range(nc):
-        parms[c].dx = parms[c].dy = 1
-        parms[c].w, parms[c].h = w, h
+    for c, (dx, dy) in enumerate(steps):
+        parms[c].dx, parms[c].dy = dx, dy
+        parms[c].x0, parms[c].y0 = -(-x0 // dx), -(-y0 // dy)
+        parms[c].w = -(-(x0 + w) // dx) - parms[c].x0
+        parms[c].h = -(-(y0 + h) // dy) - parms[c].y0
         parms[c].prec, parms[c].sgnd = prec, int(signed)
-    image = lib.opj_image_create(nc, parms, 1 if nc >= 3 else 2)
+    if colour_space is None:
+        colour_space = "srgb" if nc >= 3 else "gray"
+    image = lib.opj_image_create(nc, parms,
+                                 COLOUR_SPACES.get(colour_space,
+                                                   colour_space))
     if not image:
         raise RuntimeError("opj_image_create failed")
     codec = stream = None
     try:
         img = image.contents
-        img.x0, img.y0, img.x1, img.y1 = 0, 0, w, h
-        for c in range(nc):
-            plane = np.ascontiguousarray(a[..., c], dtype=np.int32)
+        img.x0, img.y0, img.x1, img.y1 = x0, y0, x0 + w, y0 + h
+        for c, (dx, dy) in enumerate(steps):
+            plane = np.ascontiguousarray(
+                a[parms[c].y0 * dy - y0::dy, parms[c].x0 * dx - x0::dx, c],
+                dtype=np.int32)
             ctypes.memmove(img.comps[c].data, plane.ctypes.data, plane.nbytes)
-        codec = lib.opj_create_compress(0)  # OPJ_CODEC_J2K
+        codec = lib.opj_create_compress(2 if jp2 else 0)  # JP2 / J2K
         if not lib.opj_setup_encoder(codec, p, image):
             raise RuntimeError("opj_setup_encoder refused the parameters")
         with tempfile.TemporaryDirectory() as d:

@@ -12,9 +12,11 @@ for what Pillow does not write: SIZ patched to 12, 15 and other precisions
 (palettes, colour spaces, component counts against the JP2 header's),
 tile-parts split at packet boundaries, SOP markers, tiles out of order,
 files cut short, a header patched for each feature the port refuses, and
-the same patches for the code-block styles, RGN, POC, PPM and PPT the port
-decodes (tests/test_torch_jpeg2000_styles.py holds OpenJPEG's own
-codestreams of those).
+the same patches for the code-block styles, RGN, POC, PPM, PPT, CAP, Rsiz
+bits, sub-sampling and 17-bit samples the port decodes
+(tests/test_torch_jpeg2000_styles.py and
+tests/test_torch_jpeg2000_subsampling.py hold OpenJPEG's own codestreams
+of those).
 The committed codestreams of tests/data/jpeg2000 (chip_smoke.py's jpeg2000
 phase) are re-encoded here from their seeds."""
 import hashlib
@@ -73,14 +75,6 @@ def _write(tmp_path, blob: bytes, name: str = "x.jp2") -> Path:
     path = tmp_path / name
     path.write_bytes(blob)
     return path
-
-
-def _port_refuses(path, match):
-    """The port raises RasterError naming the feature, whatever the JAX
-    reader makes of the file."""
-    with pytest.raises(RasterError, match=match) as ei:
-        traster.RasterReader(path)
-    assert str(ei.value).startswith("unsupported raster format")
 
 
 # ---------------------------------------------------------------------------
@@ -255,8 +249,8 @@ def _components(rng, n, shape=(6, 9)):
 def test_unpacker_table_equals_jax(tmp_path, rng, enumcs):
     """Every pairing of the JP2 header's component count (the mode) with
     the codestream's, under each colour space: the port opens what the
-    JAX reader opens, to the same array, and refuses what it refuses;
-    sYCC, which Pillow converts to RGB, the port refuses by name."""
+    JAX reader opens, to the same array (sYCC taken to RGB as Pillow
+    takes it), and refuses what it refuses."""
     codes = {n: _components(rng, n) for n in (1, 2, 3, 4)}
     opened = 0
     for nc in (1, 2, 3, 4):
@@ -267,12 +261,9 @@ def test_unpacker_table_equals_jax(tmp_path, rng, enumcs):
             except jraster.RasterError:
                 _both_refuse(path)
                 continue
-            if enumcs == 18:
-                _port_refuses(path, "sycc colour space")
-                continue
             _equal_to_jax(path)
             opened += 1
-    assert opened == {None: 10, 16: 4, 17: 7, 18: 0, 12: 1, 24: 0, 99: 10}[
+    assert opened == {None: 10, 16: 4, 17: 7, 18: 4, 12: 1, 24: 0, 99: 10}[
         enumcs]
 
 
@@ -504,7 +495,9 @@ def _rsiz(code: bytes, value: int) -> bytes:
 
 # headers patched for what the port once refused and now decodes: the
 # code-block styles set on a codestream written without them, an RGN of
-# shift 0, a POC over resolutions 0-4 of 6, PPM and PPT segments of one byte
+# shift 0, a POC over resolutions 0-4 of 6, PPM and PPT segments of one
+# byte, a CAP segment, the Part-2 and HTJ2K bits of Rsiz over Part-1
+# code-blocks, the first component sub-sampled 2 x 2, 17-bit samples
 DECODED_PATCHES = {
     "bypass": lambda c: _style(c, 0x01),
     "reset": lambda c: _style(c, 0x02),
@@ -521,18 +514,19 @@ DECODED_PATCHES = {
     "ppt": lambda c: _rebuilt(c, [_sot(
         i, 0, 1, h + struct.pack(">HHB", 0xFF61, 3, 0), d)
         for i, h, d, _ in _tile_parts(c)]),
+    "cap": lambda c: _insert_main_marker(
+        c, struct.pack(">HHIH", 0xFF50, 8, 0x00020000, 0)),
+    "part 2 rsiz": lambda c: _rsiz(c, 0x8000),
+    "htj2k rsiz": lambda c: _rsiz(c, 0x4000),
+    "sub-sampling": lambda c: c[:43] + b"\x02\x02" + c[45:],
+    "17 bits": lambda c: _patch_precision(c, 17),
 }
 
 
-@pytest.mark.parametrize("feature", list(DECODED_PATCHES))
-def test_patched_feature_equals_jax(tmp_path, rng, feature):
-    """The same patched headers the port refused until it decoded these
-    features: it now gives the JAX reader's pixels, or refuses where that
-    refuses (a style read from data coded without it decodes to what
-    OpenJPEG makes of it; PPM / PPT segments of one byte OpenJPEG
-    refuses)."""
+def _patched_held_to_jax(tmp_path, rng, feature, mode):
+    shape = (24, 32) + ((3,) if mode == "RGB" else ())
     code = DECODED_PATCHES[feature](
-        _encode(_scene(rng, (24, 32)), "L", no_jp2=True))
+        _encode(_scene(rng, shape), mode, no_jp2=True))
     path = _write(tmp_path, code, "r.j2k")
     try:
         jraster.RasterReader(path).close()
@@ -542,27 +536,39 @@ def test_patched_feature_equals_jax(tmp_path, rng, feature):
     _equal_to_jax(path)
 
 
+@pytest.mark.parametrize("feature", list(DECODED_PATCHES))
+def test_patched_feature_equals_jax(tmp_path, rng, feature):
+    """The same patched headers the port refused until it decoded these
+    features: it now gives the JAX reader's pixels, or refuses where that
+    refuses (a style read from data coded without it decodes to what
+    OpenJPEG makes of it; PPM / PPT segments of one byte OpenJPEG
+    refuses; Pillow has no unpacker for a sub-sampled gray component)."""
+    _patched_held_to_jax(tmp_path, rng, feature, "L")
+
+
+@pytest.mark.parametrize("feature", list(DECODED_PATCHES))
+def test_patched_feature_rgb_equals_jax(tmp_path, rng, feature):
+    """The same patches on an RGB codestream: the first component
+    sub-sampled opens (Pillow's sRGB unpacker takes sub-sampled
+    components), 17-bit samples land in 8 bits."""
+    _patched_held_to_jax(tmp_path, rng, feature, "RGB")
+
+
 REFUSALS = {
     "ht blocks": (lambda c: _style(c, 0x40), "HTJ2K"),
-    "cap": (lambda c: _insert_main_marker(
-        c, struct.pack(">HHIH", 0xFF50, 8, 0x00020000, 0)), r"\(CAP\)"),
-    "part 2 rsiz": (lambda c: _rsiz(c, 0x8000), "Part-2 capabilities"),
-    "htj2k rsiz": (lambda c: _rsiz(c, 0x4000), "HTJ2K capabilities"),
-    "sub-sampling": (lambda c: c[:43] + b"\x02\x02" + c[45:],
-                     "sub-sampling"),
-    "17 bits": (lambda c: _patch_precision(c, 17), "above 16 bits"),
+    "ht mixed blocks": (lambda c: _style(c, 0xC0), "HTJ2K"),
+    "32 bits": (lambda c: _patch_precision(c, 32), "above 31 bits"),
 }
 
 
 @pytest.mark.parametrize("feature", list(REFUSALS))
 def test_refused_feature_is_named(tmp_path, rng, feature):
     """A header patched for each feature the port does not decode: the
-    port raises RasterError naming it, and never returns pixels (Pillow
-    cannot write any of them; what OpenJPEG makes of the patched file does
-    not matter here)."""
+    port raises RasterError naming it, and so does the JAX reader (HT
+    code-blocks decoded from Part-1 data; more bits than OpenJPEG's 31)."""
     patch, match = REFUSALS[feature]
     code = patch(_encode(_scene(rng, (24, 32)), "L", no_jp2=True))
-    _port_refuses(_write(tmp_path, code, "r.j2k"), match)
+    _both_refuse(_write(tmp_path, code, "r.j2k"), match)
 
 
 def _retag_com(code: bytes, marker: int) -> bytes:
