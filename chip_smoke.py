@@ -134,7 +134,17 @@ prints no result):
      test_torch_decoders.py), and reads decimated to 2048^2 on the card
      (cubic) with the launch counts set to 0 just before and read just
      after, bit-equal to the plain resample; the 80 MP band's read is then
-     written as a CLAHE gray JPEG by api.save_image and read back;
+     written as a CLAHE gray JPEG by api.save_image and read back. Then
+     the JPEG codings of tests/data/jpeg (libjpeg-turbo's or Pillow's from
+     seeds): each file decodes to the SHA-256 of Pillow's decode (a SOF9
+     and a SOF3 strip, an RGB 4:2:0 SOF10 file, a SOF2 and a SOF10 file
+     block-smoothed); the SOF3 strip spliced restart interval by restart
+     interval into an 80 MP band equal to np.tile of the strip's decode, and
+     the SOF9 strip as it is (arithmetic-coded data past Pillow's first 64
+     KiB read opens in neither reader), each with .jgw / .prj through
+     RasterReader, decode ms beside the Huffman band's, each read to 2048^2
+     on the card (cubic) with its launches counted from 0, bit-equal to the
+     plain resample, and saved as a CLAHE gray JPEG that reads back;
  14. jpeg2000: io/jpeg2000 on the five codestreams of tests/data/jpeg2000
      (written by Pillow, or by OpenJPEG's own encoder, from seeds; no Pillow
      here), spliced tile-part by tile-part into an 84.9 MP (9216^2, 18 x 18
@@ -407,6 +417,30 @@ WEBP_FIXTURES = {
                            "525298b73550fe0935017aa17e825e92"),
     "anim_two_frames.webp": ("deae7540ce10f6c3dc893aac73217345"
                              "188f155937c2066b7e4fa79ef2d60201"),
+}
+# the rasters phase's JPEG codings: tests/data/jpeg, written from JPEG_SEED
+# on by libjpeg-turbo 3.1.3's own encoder (tests/ljt_encode.py) or Pillow
+# (tests/test_torch_jpeg_coding.py): a SAR-like arithmetic-coded strip
+# (SOF9, a restart every MCU row) and a lossless one (SOF3, a restart every
+# row), each spliced restart interval by restart interval into an 80 MP
+# band; an RGB 4:2:0 SOF10 file; a Pillow SOF2 and a SOF10 file cut after
+# three scans, so that libjpeg block-smooths them. The SHA-256 of Pillow's
+# decode of each, which the port's must match.
+JPEG_DIR = ROOT / "tests" / "data" / "jpeg"
+JPEG_SEED = 18
+JPEG_SOF9_STRIP = "sar_sof9_8000x16.jpg"
+JPEG_SOF3_STRIP = "sar_sof3_8000x20.jpg"
+JPEG_FIXTURES = {
+    "sar_sof9_8000x16.jpg": ("e638f9a881ea08d0f6979ccfb9eab2cc"
+                            "7b8468307a59c5c4ee9301f00c1fc042"),
+    "sar_sof3_8000x20.jpg": ("79944aa3140ed64abed71a5ca76595fb"
+                            "363408b86e6ef03f7d2159d73d61b175"),
+    "rgb_sof10_420.jpg": ("f66bd032d42c719894fcce46cc1c06d4"
+                         "d55a68a9213518b80b1b48d1144e8928"),
+    "sar_sof2_smoothed.jpg": ("4abbd4a1d2d22ab08cb18b76b2ad45b8"
+                             "8bbfae1b5599a9800de4bb0fee324b46"),
+    "sar_sof10_smoothed.jpg": ("65894daa9413ff668056817a41b5a089"
+                              "9a0f24f12e118c2f2cd3f75abaee8253"),
 }
 # the path whose launch count each kernel reports in the kernels line
 REPORTED_PATH = {k: ("warm tamed cubic" if k == "resample_axis0"
@@ -3807,6 +3841,34 @@ def phase_jpeg2000(work: Path, smi: str) -> dict:
     return totals
 
 
+def jpeg_splice(blob: bytes, rows: int) -> bytes:
+    """A JPEG `rows` tall from a single-scan strip whose restart intervals
+    each code the same number of whole rows (an MCU row of a DCT frame, a
+    row of a lossless one): the strip's intervals over and over, the RST
+    markers renumbered, the frame's height set to `rows`. Every interval
+    starts the coder, the predictions and (arithmetic) the statistics
+    afresh, so the decode is the strip's, tiled down to `rows`."""
+    import re
+
+    sof = re.search(rb"\xff[\xc0-\xc3\xc9-\xcb]", blob).start()
+    sos = blob.index(b"\xff\xda")
+    start = sos + 2 + int.from_bytes(blob[sos + 2:sos + 4], "big")
+    end = blob.rindex(b"\xff\xd9")
+    intervals = re.split(rb"\xff[\xd0-\xd7]", blob[start:end])
+    height = int.from_bytes(blob[sof + 5:sof + 7], "big")
+    per = height // len(intervals)
+    if per * len(intervals) != height:
+        raise ValueError(f"{height} rows in {len(intervals)} intervals")
+    count = -(-rows // per)
+    head = blob[:sof + 5] + rows.to_bytes(2, "big") + blob[sof + 7:start]
+    body = bytearray()
+    for k in range(count):
+        if k:
+            body += bytes([0xFF, 0xD0 + ((k - 1) & 7)])
+        body += intervals[k % len(intervals)]
+    return head + bytes(body) + b"\xff\xd9"
+
+
 def webp_band(seed: int, rows: int, cols: int):
     """A SAR-like u8 band: single-look speckle (exponential intensity) over
     a smooth backscatter field, in dB scaled to u8, from `seed`."""
@@ -4067,6 +4129,7 @@ def phase_rasters(work: Path, synrgb: Path, rgb, smi: str) -> dict:
     totals = {k: 0 for k in ops.launch_counts()}
     cpu = _host_cpu()
     out_band = None
+    huffman_ms = None
     for name, (path, want, tol, gt, epsg) in files.items():
         walls = []
         for _ in range(3):
@@ -4130,6 +4193,7 @@ def phase_rasters(work: Path, synrgb: Path, rgb, smi: str) -> dict:
             f"plain resample; on {smi}, host CPU {cpu}")
         if name == "gray jpeg 80 MP":
             out_band = dev
+            huffman_ms = statistics.median(walls) * 1e3
         reader.close()
         del reader, data, dev, plain
     out = work / "rasters" / "clahe_gray.jpg"
@@ -4155,6 +4219,142 @@ def phase_rasters(work: Path, synrgb: Path, rgb, smi: str) -> dict:
         f"{ {k: v for k, v in counts.items() if v} }, read back "
         f"{SIZE} x {SIZE} x 1")
     shutil.rmtree(work / "rasters", ignore_errors=True)
+    for k, v in _jpeg_codings(work, huffman_ms, smi).items():
+        totals[k] += v
+    return totals
+
+
+def _jpeg_codings(work: Path, huffman_ms: float, smi: str) -> dict:
+    """Phase 13's arithmetic-coded, lossless and block-smoothed JPEGs: the
+    committed files of tests/data/jpeg decode to the SHA-256 of Pillow's
+    decode. Two bands with .jgw / .prj open through RasterReader: the SOF3
+    strip spliced restart interval by restart interval into a RASTER_ROWS x
+    8000 band, equal to np.tile of the strip's decode, and the SOF9 strip
+    as it is (arithmetic-coded data past Pillow's first 64 KiB read opens
+    in neither reader, so no larger SOF9 band exists). Each decode is timed
+    on the host clock (median of 3) beside the Huffman band's; each band
+    reads to SIZE^2 on the card (cubic: the device resample, counted from 0
+    and bit-equal to the plain one) and is saved as a CLAHE gray JPEG that
+    reads back. Returns the launches of the reads and saves."""
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    from sarpro_tpu_torch import api, ops
+    from sarpro_tpu_torch.io import jpeg, raster
+    from sarpro_tpu_torch.io.writers.worldfile import write_prj_file
+    from sarpro_tpu_torch.ops import force_plain
+    from sarpro_tpu_torch.types import (
+        AutoscaleStrategy,
+        BitDepth,
+        OutputFormat,
+    )
+
+    for name, want in JPEG_FIXTURES.items():
+        img = jpeg.read((JPEG_DIR / name).read_bytes())
+        digest = hashlib.sha256(img.array.tobytes()).hexdigest()
+        if digest != want:
+            raise AssertionError(f"rasters: {name} decodes to SHA-256 "
+                                 f"{digest}, Pillow's is {want}")
+        log(f"rasters: {name}: {img.mode} {tuple(img.array.shape)}, the "
+            f"SHA-256 of Pillow's decode")
+    d = work / "jpeg_codings"
+    d.mkdir()
+    totals = {k: 0 for k in ops.launch_counts()}
+    cpu = _host_cpu()
+    for label, name in (("SOF9", JPEG_SOF9_STRIP), ("SOF3", JPEG_SOF3_STRIP)):
+        strip_blob = (JPEG_DIR / name).read_bytes()
+        strip = jpeg.read(strip_blob).array
+        rows = RASTER_ROWS if label == "SOF3" else strip.shape[0]
+        cols = strip.shape[1]
+        t0 = time.perf_counter()
+        blob = jpeg_splice(strip_blob, rows)
+        path = d / f"{label.lower()}_band.jpg"
+        path.write_bytes(blob)
+        path.with_suffix(".jgw").write_text(
+            "10.0\n0.0\n0.0\n-10.0\n500005.0\n5099995.0\n")
+        write_prj_file(path, "EPSG:32632")
+        want = np.tile(strip, (-(-rows // strip.shape[0]), 1))[:rows]
+        mb, mp = len(blob) / 1e6, rows * cols / 1e6
+        log(f"rasters: {label} band {cols} x {rows} ({mb:.3f} MB) spliced "
+            f"from {name} in {time.perf_counter() - t0:.1f} s")
+        walls = []
+        for _ in range(3):
+            reader = None  # the last decode goes before the next one
+            t0 = time.perf_counter()
+            reader = raster.RasterReader(path)
+            walls.append(time.perf_counter() - t0)
+        md = reader.metadata
+        if (md.geotransform != [500000.0, 10.0, 0.0, 5100000.0, 0.0,
+                                -10.0] or md.epsg != 32632):
+            raise AssertionError(f"rasters: {label} band geotransform "
+                                 f"{md.geotransform}, EPSG {md.epsg}")
+        data = reader._tiff._data[..., 0]
+        if data.shape != want.shape or not np.array_equal(data, want):
+            raise AssertionError(f"rasters: the {label} band does not decode "
+                                 f"to the strip's decode tiled")
+        wall = statistics.median(walls)
+        log(f"rasters: {label} band {mp:.3f} MP: decode (RasterReader) "
+            f"{wall * 1e3:.1f} ms (host clock, median of 3; "
+            f"{', '.join(f'{w * 1e3:.1f}' for w in walls)}), {mp / wall:.1f} "
+            f"MP/s, {mb / wall:.1f} MB/s; the Huffman band's "
+            f"{huffman_ms:.1f} ms, "
+            f"{RASTER_ROWS * RASTER_COLS / 1e3 / huffman_ms:.1f} MP/s; equal "
+            f"to the tiled strip; host CPU {cpu}")
+
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        t0 = time.perf_counter()
+        start.record()
+        dev = raster.read_band_resampled_to_device(reader, 1, SIZE, SIZE,
+                                                   DEVICE, "cubic")
+        end.record()
+        end.synchronize()
+        read_ms = (time.perf_counter() - t0) * 1e3
+        counts = ops.launch_counts()
+        if counts["resample_axis0"] <= 0:
+            raise AssertionError(f"rasters: the {label} band's read "
+                                 f"launched no resample ({counts})")
+        for k, v in counts.items():
+            totals[k] += v
+        with force_plain():
+            plain = raster.read_band_resampled_to_device(
+                reader, 1, SIZE, SIZE, DEVICE, "cubic")
+        _check_equal(dev, plain, f"rasters: {label} band resample vs plain")
+        log(f"rasters: {label} band: cubic read to {SIZE}^2 "
+            f"{start.elapsed_time(end):.3f} ms between CUDA events "
+            f"({read_ms:.1f} ms host), launches "
+            f"{ {k: v for k, v in counts.items() if v} }, bit-equal to the "
+            f"plain resample; on {smi}")
+        reader.close()
+        reader = None
+        del data, plain
+        out = d / f"{label.lower()}_clahe.jpg"
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        api.save_image(dev + 1.0, out, OutputFormat.JPEG, BitDepth.U8,
+                       autoscale=AutoscaleStrategy.CLAHE, device=DEVICE)
+        wall = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        for k in ("histogram", "tile_histogram", "clahe_lookup"):
+            if counts[k] <= 0:
+                raise AssertionError(f"rasters: the {label} band's CLAHE "
+                                     f"save launched no {k} ({counts})")
+        for k, v in counts.items():
+            totals[k] += v
+        back = raster.RasterReader(out)
+        if (back.metadata.size_x, back.metadata.size_y,
+                back.metadata.bands) != (SIZE, SIZE, 1):
+            raise AssertionError(f"rasters: the {label} band's CLAHE JPEG "
+                                 f"reads back as {back.metadata}")
+        log(f"rasters: api.save_image CLAHE gray JPEG of the {label} band's "
+            f"{SIZE}^2 read: {wall * 1e3:.1f} ms (host clock), launches "
+            f"{ {k: v for k, v in counts.items() if v} }, read back "
+            f"{SIZE} x {SIZE} x 1")
+        del dev
+    shutil.rmtree(d, ignore_errors=True)
     return totals
 
 

@@ -218,7 +218,10 @@ def jpeg_info(blob: bytes) -> tuple:
 def jpeg_decode(blob: bytes, width: int, height: int,
                 components: int) -> np.ndarray:
     """The (height, width, components) u8 decode of a JPEG whose frame
-    header `jpeg_info` read; ValueError with the decoder's reason."""
+    header `jpeg_info` read; ValueError with the decoder's reason. The file
+    is handed over 64 KiB at a time, as Pillow reads it: libjpeg's
+    arithmetic decoder cannot wait for more, so arithmetic-coded data past
+    a block is refused as Pillow refuses it."""
     lib = raster_decoder()
     src = np.frombuffer(blob, np.uint8)
     out = np.empty((height, width, components), np.uint8)

@@ -130,10 +130,11 @@ def test_progressive_jpeg_is_not_smoothed(tmp_path, rng):
     assert np.array_equal(got_b, got_p)
 
 
-def test_incomplete_progressive_jpeg_is_refused(tmp_path, rng):
-    """A progressive file cut after its first scans (an EOI put after the
-    DC scan) leaves AC bits missing, where libjpeg smooths the blocks: the
-    port refuses it rather than differ."""
+def test_dc_only_progressive_jpeg_is_smoothed_as_jax(tmp_path, rng):
+    """A progressive file cut after its first scan (an EOI put after the
+    DC scan) leaves every AC bit missing: libjpeg-turbo interpolates the
+    DC values (its block smoothing), and the port's decode is bit-equal to
+    the JAX reader's."""
     buf = io.BytesIO()
     Image.fromarray(_scene(rng, (32, 40))).save(buf, format="JPEG",
                                                 quality=80, progressive=True)
@@ -142,8 +143,9 @@ def test_incomplete_progressive_jpeg_is_refused(tmp_path, rng):
     path = tmp_path / "dc_only.jpg"
     path.write_bytes(blob[:sos[1]] + b"\xff\xd9")
     assert jraster.RasterReader(path).metadata.bands == 1
-    with pytest.raises(RasterError, match="block smoothing"):
-        traster.RasterReader(path)
+    got = _equal_to_jax(path)
+    # smoothed: not flat 8 x 8 blocks, as the DC values alone would give
+    assert (np.diff(got[:8, :8, 0].astype(int), axis=1) != 0).any()
 
 
 @pytest.mark.parametrize("cut", [0.5, 0.9, -2])
@@ -206,65 +208,372 @@ def _segment(marker: int, body: bytes) -> bytes:
     return struct.pack(">HH", 0xFF00 | marker, len(body) + 2) + body
 
 
+# T.81 Table D.2 (Qe, Next_Index_LPS, Next_Index_MPS, Switch_MPS) and
+# libjpeg's fixed 0.5 estimate at 113, for the arithmetic coder below
+QE_TABLE = [
+    (0x5a1d, 1, 1, 1), (0x2586, 14, 2, 0), (0x1114, 16, 3, 0), (0x080b, 18, 4, 0),
+    (0x03d8, 20, 5, 0), (0x01da, 23, 6, 0), (0x00e5, 25, 7, 0), (0x006f, 28, 8, 0),
+    (0x0036, 30, 9, 0), (0x001a, 33, 10, 0), (0x000d, 35, 11, 0), (0x0006, 9, 12, 0),
+    (0x0003, 10, 13, 0), (0x0001, 12, 13, 0), (0x5a7f, 15, 15, 1), (0x3f25, 36, 16, 0),
+    (0x2cf2, 38, 17, 0), (0x207c, 39, 18, 0), (0x17b9, 40, 19, 0), (0x1182, 42, 20, 0),
+    (0x0cef, 43, 21, 0), (0x09a1, 45, 22, 0), (0x072f, 46, 23, 0), (0x055c, 48, 24, 0),
+    (0x0406, 49, 25, 0), (0x0303, 51, 26, 0), (0x0240, 52, 27, 0), (0x01b1, 54, 28, 0),
+    (0x0144, 56, 29, 0), (0x00f5, 57, 30, 0), (0x00b7, 59, 31, 0), (0x008a, 60, 32, 0),
+    (0x0068, 62, 33, 0), (0x004e, 63, 34, 0), (0x003b, 32, 35, 0), (0x002c, 33, 9, 0),
+    (0x5ae1, 37, 37, 1), (0x484c, 64, 38, 0), (0x3a0d, 65, 39, 0), (0x2ef1, 67, 40, 0),
+    (0x261f, 68, 41, 0), (0x1f33, 69, 42, 0), (0x19a8, 70, 43, 0), (0x1518, 72, 44, 0),
+    (0x1177, 73, 45, 0), (0x0e74, 74, 46, 0), (0x0bfb, 75, 47, 0), (0x09f8, 77, 48, 0),
+    (0x0861, 78, 49, 0), (0x0706, 79, 50, 0), (0x05cd, 48, 51, 0), (0x04de, 50, 52, 0),
+    (0x040f, 50, 53, 0), (0x0363, 51, 54, 0), (0x02d4, 52, 55, 0), (0x025c, 53, 56, 0),
+    (0x01f8, 54, 57, 0), (0x01a4, 55, 58, 0), (0x0160, 56, 59, 0), (0x0125, 57, 60, 0),
+    (0x00f6, 58, 61, 0), (0x00cb, 59, 62, 0), (0x00ab, 61, 63, 0), (0x008f, 61, 32, 0),
+    (0x5b12, 65, 65, 1), (0x4d04, 80, 66, 0), (0x412c, 81, 67, 0), (0x37d8, 82, 68, 0),
+    (0x2fe8, 83, 69, 0), (0x293c, 84, 70, 0), (0x2379, 86, 71, 0), (0x1edf, 87, 72, 0),
+    (0x1aa9, 87, 73, 0), (0x174e, 72, 74, 0), (0x1424, 72, 75, 0), (0x119c, 74, 76, 0),
+    (0x0f6b, 74, 77, 0), (0x0d51, 75, 78, 0), (0x0bb6, 77, 79, 0), (0x0a40, 77, 48, 0),
+    (0x5832, 80, 81, 1), (0x4d1c, 88, 82, 0), (0x438e, 89, 83, 0), (0x3bdd, 90, 84, 0),
+    (0x34ee, 91, 85, 0), (0x2eae, 92, 86, 0), (0x299a, 93, 87, 0), (0x2516, 86, 71, 0),
+    (0x5570, 88, 89, 1), (0x4ca9, 95, 90, 0), (0x44d9, 96, 91, 0), (0x3e22, 97, 92, 0),
+    (0x3824, 99, 93, 0), (0x32b4, 99, 94, 0), (0x2e17, 93, 86, 0), (0x56a8, 95, 96, 1),
+    (0x4f46, 101, 97, 0), (0x47e5, 102, 98, 0), (0x41cf, 103, 99, 0), (0x3c3d, 104, 100, 0),
+    (0x375e, 99, 93, 0), (0x5231, 105, 102, 0), (0x4c0f, 106, 103, 0), (0x4639, 107, 104, 0),
+    (0x415e, 103, 99, 0), (0x5627, 105, 106, 1), (0x50e7, 108, 107, 0), (0x4b85, 109, 103, 0),
+    (0x5597, 110, 109, 0), (0x504f, 111, 107, 0), (0x5a10, 110, 111, 1), (0x5522, 112, 109, 0),
+    (0x59eb, 112, 111, 1), (0x5a1d, 113, 113, 0)]
+
+
+class _QM:
+    """T.81 Annex D's arithmetic encoder with jcarith.c's registers and
+    termination. A statistics bin is a (bytearray, index) pair holding the
+    state index and the MPS in bit 7."""
+
+    def __init__(self):
+        self.out = bytearray()
+        self.reset()
+
+    def reset(self):
+        self.a, self.c, self.ct = 0x10000, 0, 11
+        self.buffer, self.sc, self.zc = -1, 0, 0
+
+    def _emit(self, b):
+        self.out.append(b)
+
+    def _zeros(self):
+        self.out += bytes(self.zc)
+        self.zc = 0
+
+    def _carry(self):  # output the buffer plus a carry
+        if self.buffer >= 0:
+            self._zeros()
+            self._emit(self.buffer + 1)
+            if self.buffer + 1 == 0xFF:
+                self._emit(0)
+        self.zc += self.sc
+        self.sc = 0
+
+    def _settle(self):  # output the buffer and stacked 0xFF bytes
+        if self.buffer == 0:
+            self.zc += 1
+        elif self.buffer >= 0:
+            self._zeros()
+            self._emit(self.buffer)
+        if self.sc:
+            self._zeros()
+            self.out += b"\xff\x00" * self.sc
+            self.sc = 0
+
+    def encode(self, bins, i, val):
+        sv = bins[i]
+        qe, nlps, nmps, switch = QE_TABLE[sv & 0x7F]
+        self.a -= qe
+        if val != sv >> 7:  # the LPS
+            if self.a >= qe:
+                self.c += self.a
+                self.a = qe
+            bins[i] = (sv & 0x80) ^ (nlps | switch << 7)
+        else:
+            if self.a >= 0x8000:
+                return
+            if self.a < qe:
+                self.c += self.a
+                self.a = qe
+            bins[i] = (sv & 0x80) ^ nmps
+        while True:
+            self.a <<= 1
+            self.c <<= 1
+            self.ct -= 1
+            if self.ct == 0:
+                temp = self.c >> 19
+                if temp > 0xFF:
+                    self._carry()
+                    self.buffer = temp & 0xFF
+                elif temp == 0xFF:
+                    self.sc += 1
+                else:
+                    self._settle()
+                    self.buffer = temp & 0xFF
+                self.c &= 0x7FFFF
+                self.ct += 8
+            if self.a >= 0x8000:
+                break
+
+    def flush(self) -> bytes:
+        """Terminates the segment (D.1.8) and returns its bytes."""
+        temp = (self.a - 1 + self.c) & 0xFFFF0000
+        self.c = temp + 0x8000 if temp < self.c else temp
+        self.c <<= self.ct
+        if self.c & 0xF8000000:
+            self._carry()
+        else:
+            self._settle()
+        if self.c & 0x7FFF800:
+            self._zeros()
+            for shift, mask in ((19, 0x7FFF800), (11, 0x7F800)):
+                if self.c & mask:
+                    b = (self.c >> shift) & 0xFF
+                    self._emit(b)
+                    if b == 0xFF:
+                        self._emit(0)
+        out, self.out = bytes(self.out), bytearray()
+        self.reset()
+        return out
+
+
+class _ArithCoder:
+    """jcarith.c's sequential DCT and Annex F DC models over the QM coder,
+    with DAC conditioning `L`, `U`, `K` (per table 0)."""
+
+    def __init__(self, L=0, U=1, K=5):
+        self.qm, self.L, self.U, self.K = _QM(), L, U, K
+        self.restart()
+
+    def restart(self):
+        self.dc = bytearray(64)
+        self.ac = bytearray(256)
+        self.fixed = bytearray([113])
+        self.ctx = {}
+
+    def dc_diff(self, key, v):
+        """One DC difference of component `key` (also a lossless sample's
+        difference, coded the same way here)."""
+        ctx = self.ctx.get(key, 0)
+        qm, st = self.qm, ctx
+        if v == 0:
+            qm.encode(self.dc, st, 0)
+            self.ctx[key] = 0
+            return
+        qm.encode(self.dc, st, 1)
+        qm.encode(self.dc, st + 1, int(v < 0))
+        new = 8 if v < 0 else 4
+        st += 3 if v < 0 else 2
+        v = abs(v) - 1
+        m = 0
+        if v:
+            qm.encode(self.dc, st, 1)
+            m, v2, st = 1, v, 20
+            while v2 >> 1:
+                v2 >>= 1
+                qm.encode(self.dc, st, 1)
+                m <<= 1
+                st += 1
+        qm.encode(self.dc, st, 0)
+        if m < (1 << self.L) >> 1:
+            new = 0
+        elif m > (1 << self.U) >> 1:
+            new += 8
+        self.ctx[key] = new
+        st += 14
+        while m > 1:
+            m >>= 1
+            qm.encode(self.dc, st, 1 if m & v else 0)
+
+    def ac_block(self, zz):
+        qm, ac = self.qm, self.ac
+        ke = max([k for k in range(1, 64) if zz[k]] or [0])
+        k = 1
+        while k <= ke:
+            st = 3 * (k - 1)
+            qm.encode(ac, st, 0)
+            while zz[k] == 0:
+                qm.encode(ac, st + 1, 0)
+                st += 3
+                k += 1
+            qm.encode(ac, st + 1, 1)
+            v = int(zz[k])
+            qm.encode(self.fixed, 0, int(v < 0))
+            v = abs(v) - 1
+            st += 2
+            m = 0
+            if v:
+                qm.encode(ac, st, 1)
+                m, v2 = 1, v
+                if v2 >> 1:
+                    v2 >>= 1
+                    qm.encode(ac, st, 1)
+                    m <<= 1
+                    st = 189 if k <= self.K else 217
+                    while v2 >> 1:
+                        v2 >>= 1
+                        qm.encode(ac, st, 1)
+                        m <<= 1
+                        st += 1
+            qm.encode(ac, st, 0)
+            st += 14
+            while m > 1:
+                m >>= 1
+                qm.encode(ac, st, 1 if m & v else 0)
+            k += 1
+        if k <= 63:
+            qm.encode(ac, 3 * (k - 1), 1)
+
+
+# one code length for the lossless difference categories 0..16: 5 bits
+LOSSLESS_SYMS = list(range(17))
+
+
+def _lossless_diffs(plane, psv, first_rows, pt):
+    """jdlossls.c inverted: the differences of `plane` (undifferenced
+    values, mod 2^16) under predictor `psv`, rows in `first_rows` coded as
+    first rows (the left neighbour; 2^(7 - pt) for the first sample), the
+    first sample of the other rows from above."""
+    p = plane.astype(np.int64)
+    pred = np.zeros_like(p)
+    for y in range(p.shape[0]):
+        if y in first_rows:
+            pred[y, 0] = 1 << (7 - pt)
+            pred[y, 1:] = p[y, :-1]
+            continue
+        ra, rb, rc = p[y, :-1], p[y - 1, 1:], p[y - 1, :-1]
+        pred[y, 0] = p[y - 1, 0]
+        pred[y, 1:] = {1: ra, 2: rb, 3: rc, 4: ra + rb - rc,
+                       5: ra + ((rb - rc) >> 1), 6: rb + ((ra - rc) >> 1),
+                       7: (ra + rb) >> 1}[psv]
+    d = (p - pred) & 0xFFFF
+    return np.where(d > 32768, d - 65536, d)
+
+
 def _coded_jpeg(planes, factors, *, quant=6, restart=0, scans=None,
-                ids=None, app=b"", precision=8, sof=0xC0):
-    """A baseline JPEG of `planes` (one u8 array a component, each at its
-    own sampled size) with sampling `factors` [(h, v), ...]: one quant
-    table of `quant`, Huffman tables of one code length, the scans
-    `scans` (lists of component indices; default all in one), a restart
-    interval, component `ids` and extra marker segments `app`."""
+                ids=None, app=b"", precision=8, sof=0xC0, arith=None,
+                dac=b"", lossless=None):
+    """A JPEG of `planes` (one array a component, each at its own sampled
+    size) with sampling `factors` [(h, v), ...]: the scans `scans` (lists
+    of component indices; default all in one), a restart interval (in
+    MCUs), component `ids` and extra marker segments `app` (after SOI) and
+    `dac` (before the first scan). DCT frames (`sof`, baseline by default)
+    have one quant table of `quant` and Huffman tables of one code length;
+    with `arith` ((L, U, Kx) of table 0, written in a DAC segment) the QM
+    coder codes them instead (SOF9), as jcarith.c does. `lossless` ((psv,
+    pt)) writes a lossless frame (SOF3; SOF11 with `arith`) of the planes'
+    values (u8, or u16 taken mod 2^16 as the undifferenced samples), the
+    first row of a scan and the top row of every iMCU row a restart falls
+    in coded as first rows, as jddiffct.c undifferences them. In SOF11 the
+    differences go through Annex F's DC model: a genuine QM-coded stream,
+    which no decoder at hand reads (libjpeg refuses SOF11 before its
+    data)."""
     n = len(planes)
     ids = ids or list(range(1, n + 1))
     hmax = max(h for h, _ in factors)
     vmax = max(v for _, v in factors)
+    unit = 1 if lossless else 8
     height = max(-(-p.shape[0] * vmax // v)
                  for p, (_, v) in zip(planes, factors))
     width = max(-(-p.shape[1] * hmax // h)
                 for p, (h, _) in zip(planes, factors))
-    mcux, mcuy = -(-width // (8 * hmax)), -(-height // (8 * vmax))
+    mcux, mcuy = -(-width // (unit * hmax)), -(-height // (unit * vmax))
     blocks = []
-    for p, (h, v) in zip(planes, factors):
-        bh, bw = mcuy * v, mcux * h
-        pad = np.pad(p.astype(np.float64), ((0, bh * 8 - p.shape[0]),
-                                            (0, bw * 8 - p.shape[1])),
-                     mode="edge") - 128
-        tiles = pad.reshape(bh, 8, bw, 8).transpose(0, 2, 1, 3)
-        c = _DCT @ tiles @ _DCT.T
-        blocks.append(np.rint(c / quant).astype(int).reshape(bh, bw, 64)
-                      [..., ZIGZAG])
+    if lossless is None:
+        for p, (h, v) in zip(planes, factors):
+            bh, bw = mcuy * v, mcux * h
+            pad = np.pad(p.astype(np.float64), ((0, bh * 8 - p.shape[0]),
+                                                (0, bw * 8 - p.shape[1])),
+                         mode="edge") - 128
+            tiles = pad.reshape(bh, 8, bw, 8).transpose(0, 2, 1, 3)
+            c = _DCT @ tiles @ _DCT.T
+            blocks.append(np.rint(c / quant).astype(int).reshape(bh, bw, 64)
+                          [..., ZIGZAG])
+    if lossless is not None:
+        sof = 0xCB if arith is not None else 0xC3
+    elif arith is not None:
+        sof = 0xC9
     comps = b"".join(struct.pack(">BBB", ids[i], (h << 4) | v, 0)
                      for i, (h, v) in enumerate(factors))
     out = b"\xff\xd8" + app
-    out += _segment(0xDB, b"\x00" + bytes([quant] * 64))
+    if lossless is None:
+        out += _segment(0xDB, b"\x00" + bytes([quant] * 64))
     out += _segment(sof, struct.pack(">BHHB", precision, height, width, n)
                     + comps)
-    dc_bits = bytes(16)[:3] + bytes([12]) + bytes(12)
-    ac_bits = bytes(7) + bytes([162]) + bytes(8)
-    out += _segment(0xC4, b"\x00" + dc_bits + bytes(DC_SYMS) + b"\x10"
-                    + ac_bits + bytes(AC_SYMS))
+    if lossless is not None and arith is None:
+        out += _segment(0xC4, b"\x00" + bytes(4) + bytes([17]) + bytes(11)
+                        + bytes(LOSSLESS_SYMS))
+    elif arith is None:
+        dc_bits = bytes(16)[:3] + bytes([12]) + bytes(12)
+        ac_bits = bytes(7) + bytes([162]) + bytes(8)
+        out += _segment(0xC4, b"\x00" + dc_bits + bytes(DC_SYMS) + b"\x10"
+                        + ac_bits + bytes(AC_SYMS))
+    if arith is not None:
+        L_, U_, K_ = arith
+        out += _segment(0xCC, bytes([0x00, L_ | U_ << 4, 0x10, K_]))
+    out += dac
     if restart:
         out += _segment(0xDD, struct.pack(">H", restart))
     for scan in scans or [list(range(n))]:
+        spectral = (bytes([lossless[0], 0, lossless[1]]) if lossless
+                    else b"\x00\x3f\x00")
         out += _segment(0xDA, bytes([len(scan)]) + b"".join(
-            bytes([ids[i], 0]) for i in scan) + b"\x00\x3f\x00")
+            bytes([ids[i], 0]) for i in scan) + spectral)
         if len(scan) == 1:
             (h, v), ci = factors[scan[0]], scan[0]
             p = planes[ci]
-            units = [[(ci, r, c)] for r in range(-(-p.shape[0] // 8))
-                     for c in range(-(-p.shape[1] // 8))]
+            units = [[(ci, r, c)] for r in range(-(-p.shape[0] // unit))
+                     for c in range(-(-p.shape[1] // unit))]
+            per_row = -(-p.shape[1] // unit)
         else:
             units = [[(ci, my * factors[ci][1] + y, mx * factors[ci][0] + x)
                       for ci in scan for y in range(factors[ci][1])
                       for x in range(factors[ci][0])]
                      for my in range(mcuy) for mx in range(mcux)]
+            per_row = mcux
+        if lossless is not None:
+            diffs = {}
+            for ci in scan:
+                v = factors[ci][1]
+                firsts = {0}
+                for k in range(restart, len(units), restart or len(units)):
+                    row = k // per_row  # the MCU row the restart opens
+                    # its iMCU row's top component row
+                    firsts.add(row * v if len(scan) > 1 else row // v * v)
+                diffs[ci] = _lossless_diffs(planes[ci], lossless[0], firsts,
+                                            lossless[1])
         bits, pred, rst = _Bits(), [0] * n, 0
-        for k, unit in enumerate(units):
+        coder = _ArithCoder(*arith) if arith is not None else None
+        for k, unit_ in enumerate(units):
             if restart and k and k % restart == 0:
-                bits.flush()
+                if coder:
+                    bits.out += coder.qm.flush()
+                    coder.restart()
+                else:
+                    bits.flush()
                 bits.out += bytes([0xFF, 0xD0 + rst])
                 rst, pred = (rst + 1) & 7, [0] * n
-            for ci, r, c in unit:
+            for ci, r, c in unit_:
+                if lossless is not None:
+                    d = diffs[ci]
+                    v = int(d[r, c]) if r < d.shape[0] and c < d.shape[1] \
+                        else 0
+                    if coder:
+                        coder.dc_diff(ci, v)
+                        continue
+                    s = 16 if v == 32768 else abs(v).bit_length()
+                    bits.put(LOSSLESS_SYMS.index(s), 5)
+                    if s < 16:
+                        bits.put(v if v >= 0 else v + (1 << s) - 1, s)
+                    continue
                 zz = blocks[ci][r, c]
+                if coder:
+                    coder.dc_diff(ci, int(zz[0]) - pred[ci])
+                    pred[ci] = int(zz[0])
+                    coder.ac_block(zz)
+                    continue
                 s, v = _category(zz[0] - pred[ci])
                 pred[ci] = zz[0]
                 bits.put(DC_SYMS.index(s), 4)
@@ -284,7 +593,10 @@ def _coded_jpeg(planes, factors, *, quant=6, restart=0, scans=None,
                     run = 0
                 if last < 63:
                     bits.put(AC_SYMS.index(0x00), 8)
-        bits.flush()
+        if coder:
+            bits.out += coder.qm.flush()
+        else:
+            bits.flush()
         out += bytes(bits.out)
     return out + b"\xff\xd9"
 
@@ -370,13 +682,20 @@ def test_coded_jpeg_refused_as_by_jax(tmp_path, rng, what):
 
 @pytest.mark.parametrize("sof,match", [(0xC9, "arithmetic"),
                                        (0xC3, "lossless")])
-def test_arithmetic_and_lossless_jpeg_are_refused(tmp_path, rng, sof, match):
-    """libjpeg-turbo decodes these (so the JAX reader opens them); the port
-    refuses them (ROADMAP queue 3)."""
+def test_arithmetic_and_lossless_jpeg_equal_jax(tmp_path, rng, sof, match):
+    """An arithmetic-coded (SOF9, the QM coder here) and a lossless (SOF3)
+    file, which libjpeg-turbo decodes and the JAX reader opens: the port
+    decodes them bit-equal (tests/test_torch_jpeg_coding.py has the
+    rest)."""
     path = tmp_path / "a.jpg"
-    path.write_bytes(_coded_jpeg([_scene(rng, (8, 8))], [(1, 1)], sof=sof))
-    with pytest.raises(RasterError, match=match):
-        traster.RasterReader(path)
+    plane = _scene(rng, (8, 8))
+    path.write_bytes(_coded_jpeg(
+        [plane], [(1, 1)], arith=(0, 1, 5) if match == "arithmetic" else None,
+        lossless=(1, 0) if match == "lossless" else None))
+    assert path.read_bytes()[2:].find(bytes([0xFF, sof])) >= 0
+    got = _equal_to_jax(path)
+    if match == "lossless":
+        assert np.array_equal(got[..., 0], plane)
 
 
 def test_jpeg_without_sidecars_and_exif_equals_jax(tmp_path, rng):
