@@ -183,7 +183,25 @@ prints no result):
      on the card (cubic) with the launch counts set to 0 just before and
      read just after, bit-equal to the plain resample, and that read is
      written as a CLAHE gray JPEG by api.save_image and read back;
- 16. with --walls N only: every warm path N times more, interleaved, with
+ 16. formats: io/pilraster's plugin loop (Pillow 12.1's order and its "try
+     the next plugin" errors) and the float, scientific and run-length
+     readers (io/netpbm's PFM, io/fits, io/mcidas, io/spider, io/im,
+     io/sgi, io/tga, io/pcx, io/sun, io/psd, io/qoi; the run-length loops
+     in sarpro_tpu_torch/_native/rledec.cpp) on the 22 files of
+     tests/data/formats (FORMATS_FIXTURES: the SHA-256 of Pillow's decode
+     of each, pinned in tests/test_torch_rle_rasters.py), and five bands of
+     make_safe's lognormal DN written here without Pillow: a 9216^2 float32
+     "Pf" PFM, a 9216^2 FITS of BITPIX 16 (read as Pillow reads it: the
+     big-endian samples as little-endian, rows bottom-up), a 10848^2 2-byte
+     McIdas AREA (GOES-R ABI's 1 km full disk, 117.7 MP: the port logs
+     Pillow's decompression-bomb warning), and 9216^2 u8 SGI RLE and TGA
+     RLE bands, each with .wld and .prj. Each opens through RasterReader
+     (decode ms on the host clock, median of 3), equals what Pillow reads of
+     it, reads decimated to 2048^2 on the card (cubic; the float band on the
+     resample's f32 route) with the launch counts set to 0 just before and
+     read just after, bit-equal to the plain resample, and that read is
+     written as a CLAHE gray JPEG by api.save_image and read back;
+ 17. with --walls N only: every warm path N times more, interleaved, with
      medians and quartiles of its wall; the no-warp synRGB read through
      each of the two loaders (full DN + device resample, decimated read) in
      the same rounds; a torch.profiler trace of the single-band TIFF, the
@@ -441,6 +459,65 @@ JPEG_FIXTURES = {
                              "8bbfae1b5599a9800de4bb0fee324b46"),
     "sar_sof10_smoothed.jpg": ("65894daa9413ff668056817a41b5a089"
                               "9a0f24f12e118c2f2cd3f75abaee8253"),
+}
+# the formats phase: bands of make_safe's lognormal DN from FORMATS_SEED,
+# written here without Pillow in the float, scientific and run-length
+# formats Pillow reads (tests/test_torch_science_rasters.py and
+# tests/test_torch_rle_rasters.py hold each writer to Pillow): 9216^2 (84.9
+# MP) for the PFM, FITS, SGI RLE and TGA RLE bands and 10848^2 (117.7 MP:
+# GOES-R ABI's 1 km full disk, inside Pillow's decompression-bomb warning
+# band) for the McIdas AREA. The small files of tests/data/formats (written
+# by those tests from FORMATS_SEED on) and the SHA-256 of Pillow's decode of
+# each, which the port's must match.
+FORMATS_SEED = 19
+FORMATS_SIDE = 9216
+MCIDAS_SIDE = 10848
+FORMATS_DIR = ROOT / "tests" / "data" / "formats"
+FORMATS_FIXTURES = {
+    "sar_f32.pfm": ("db0d75025bec87860c7247b53569e639"
+                    "454f2d43d68eb44cd0d4e6a9c7753afc"),
+    "sar_cmyk.ppm": ("06c238f4237996ff641176f04bd25592"
+                     "34b35b97241f341bd12e910d360b2acc"),
+    "sar_i16.fits": ("ff3e64fb11c4645e20a674c2603a55d3"
+                     "da8e66d0da110e1edf118336dff6c0c3"),
+    "sar_f64.fits": ("c35d4c90dceb1c8d581b32a727e157b1"
+                     "d9f77eb2c9b0417389232f336edfd3a8"),
+    "sar_gzip.fits": ("140a07dd474c09bff02df6101a1b7d5a"
+                      "419dd2a59374730eb09a0dcdbbab48b8"),
+    "sar_u16.area": ("45a3974feca489b1c309eb20c9ae2ca7"
+                     "228c1ac3f9a69a8752dca6e0b00ddcd1"),
+    "sar_f32.spi": ("db0d75025bec87860c7247b53569e639"
+                    "454f2d43d68eb44cd0d4e6a9c7753afc"),
+    "sar_l12.im": ("7e4567ad7f677d2406b8a6bd59597c6b"
+                   "fec37853282c67f655c286d2ca23b2b7"),
+    "sar_f32.im": ("db0d75025bec87860c7247b53569e639"
+                   "454f2d43d68eb44cd0d4e6a9c7753afc"),
+    "sar_rgb.im": ("8ea266f15555ce033b7e5fa562fdd1d6"
+                   "c3f02041a8d9417257426e2f7aa6116e"),
+    "sar_rle_rgb.sgi": ("8ea266f15555ce033b7e5fa562fdd1d6"
+                        "c3f02041a8d9417257426e2f7aa6116e"),
+    "sar_u16.sgi": ("10042d2761052f09ff430a9a0208147f"
+                    "694ebc88832000257feba1852920aa0f"),
+    "sar_rle.tga": ("0d86c75d3224e3e39b6b4714b6b11c6a"
+                    "bc580abf79d676033f19987a818c027e"),
+    "sar_rle_rgba.tga": ("e1120601abe12e0fc6ed9577b71b48e3"
+                         "d1ad1a28a7a83508a783dd50be31cd8d"),
+    "sar_map16.tga": ("aff92d9fbd8acef910cd4944fbe7abfc"
+                      "472cb2b312890641ff27750cebe5de59"),
+    "sar_rgb.pcx": ("8ea266f15555ce033b7e5fa562fdd1d6"
+                    "c3f02041a8d9417257426e2f7aa6116e"),
+    "sar_planes.pcx": ("29ccecd7af183cb1992e5d58735e191e"
+                       "8fe1a64156225d4e19c39acd9f5d687e"),
+    "sar_two.dcx": ("0d86c75d3224e3e39b6b4714b6b11c6a"
+                    "bc580abf79d676033f19987a818c027e"),
+    "sar_rle.ras": ("b7eb69bdc458bb809ff7cc6bf5e9d9e8"
+                    "ba4d8f6f03193180ee5bff8229bc5810"),
+    "sar_rle_rgb.psd": ("8ea266f15555ce033b7e5fa562fdd1d6"
+                        "c3f02041a8d9417257426e2f7aa6116e"),
+    "sar_lab.psd": ("18dc0c4f4d2096c2d6ea01ebbf2e5344"
+                    "f89addd378bc6181ae7484bb2b62162b"),
+    "sar_rgba.qoi": ("e1120601abe12e0fc6ed9577b71b48e3"
+                     "d1ad1a28a7a83508a783dd50be31cd8d"),
 }
 # the path whose launch count each kernel reports in the kernels line
 REPORTED_PATH = {k: ("warm tamed cubic" if k == "resample_axis0"
@@ -4100,6 +4177,345 @@ def phase_webp(work: Path, smi: str) -> dict:
     return totals
 
 
+def formats_dn(seed: int, rows: int, cols: int):
+    """make_safe's DN at (rows, cols): lognormal(5.0, 1.1) from `seed`,
+    clipped to u16, 2 % zeros, and a no-data border (the first and last
+    sixteenth of the columns) of zeros, as a swath's edges have."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    dn = rng.standard_normal((rows, cols), np.float32)
+    dn *= np.float32(1.1)
+    dn += np.float32(5.0)
+    np.exp(dn, out=dn)
+    np.minimum(dn, np.float32(65535.0), out=dn)
+    out = dn.astype(np.uint16)
+    del dn
+    out[rng.random((rows, cols), np.float32) < 0.02] = 0
+    edge = cols // 16
+    out[:, :edge] = 0
+    out[:, cols - edge:] = 0
+    return out
+
+
+def formats_u8(dn):
+    """A u8 product of a DN band: 40 log10(DN) scaled to 0..255, 0 where the
+    DN is 0."""
+    import numpy as np
+
+    db = np.log10(np.maximum(dn, 1).astype(np.float32))
+    db *= np.float32(60.0)
+    return np.clip(db, 0, 255).astype(np.uint8)
+
+
+def pfm_write(band) -> bytes:
+    """A little-endian "Pf" PFM of a float32 band (rows bottom-up, scale
+    -1)."""
+    import numpy as np
+
+    rows, cols = band.shape
+    return (f"Pf\n{cols} {rows}\n-1.0\n".encode()
+            + np.ascontiguousarray(band[::-1], "<f4").tobytes())
+
+
+FITS_DTYPES = {8: ">u1", 16: ">i2", 32: ">i4", -32: ">f4", -64: ">f8"}
+
+
+def fits_write(data, bitpix: int, cards: tuple = ()) -> bytes:
+    """A primary-HDU FITS image: the header cards (`cards` added before
+    END), padded to 2880 bytes, and `data` in FITS's big-endian samples of
+    `bitpix`, padded likewise. FITS's first row is the image's bottom row
+    for Pillow, which also reads the samples as little-endian (mode I;16 for
+    BITPIX 16)."""
+    import numpy as np
+
+    rows, cols = data.shape
+
+    def card(key, value):
+        return f"{key:<8}= {value:>20}".ljust(80).encode()
+
+    head = (card("SIMPLE", "T") + card("BITPIX", bitpix) + card("NAXIS", 2)
+            + card("NAXIS1", cols) + card("NAXIS2", rows)
+            + b"".join(card(k, v) for k, v in cards) + b"END".ljust(80))
+    head += b" " * (-len(head) % 2880)
+    body = np.ascontiguousarray(data, FITS_DTYPES[bitpix]).tobytes()
+    return head + body + bytes(-len(body) % 2880)
+
+
+def mcidas_write(data, prefix: int = 0) -> bytes:
+    """A McIdas AREA file of one band: the 64-word directory (w[2] = 4, w[9]
+    lines, w[10] elements, w[11] bytes a sample, w[14] one band, w[15] a
+    `prefix` of bytes before each line, w[34] the data at 256) and the
+    big-endian samples."""
+    import numpy as np
+
+    rows, cols = data.shape
+    size = data.dtype.itemsize
+    w = [0] * 65
+    w[2], w[9], w[10], w[11], w[14], w[15], w[34] = (4, rows, cols, size, 1,
+                                                      prefix, 256)
+    lines = np.zeros((rows, prefix + cols * size), np.uint8)
+    lines[:, prefix:] = np.ascontiguousarray(
+        data, data.dtype.newbyteorder(">")).view(np.uint8).reshape(rows, -1)
+    return struct.pack(">64i", *w[1:]) + lines.tobytes()
+
+
+def sgi_rle_write(band, seg: int = 16) -> bytes:
+    """An RLE SGI file of a u8 (rows, cols) or (rows, cols, 3 | 4) band
+    without Pillow: each channel's rows bottom-up, each row cut into
+    `seg`-pixel segments (the last one shorter), a run packet for a segment
+    of one value and a literal one otherwise, then a 0; the start and
+    length tables before the data; `seg` is at most 127."""
+    import numpy as np
+
+    assert 1 <= seg <= 127, seg
+    planes = band[..., None] if band.ndim == 2 else band
+    rows, cols, z = planes.shape
+    # table order: channel 0's rows from the bottom, then channel 1's, ...
+    lines = np.ascontiguousarray(planes[::-1].transpose(2, 0, 1)).reshape(
+        z * rows, cols)
+    n, full = lines.shape[0], cols // seg
+    tail = cols - full * seg
+    body = lines[:, :full * seg].reshape(n, full, seg)
+    run = (body == body[:, :, :1]).all(axis=2)
+    lengths = np.where(run, 2, 1 + seg)
+    row_len = lengths.sum(axis=1) + (1 + tail if tail else 0) + 1
+    table = 512 + 8 * n
+    starts = table + np.concatenate([[0], np.cumsum(row_len)[:-1]])
+    out = np.zeros(int(row_len.sum()), np.uint8)
+    base = starts - table
+    pos = base[:, None] + np.cumsum(lengths, axis=1) - lengths
+    flat_run, flat_pos = run.reshape(-1), pos.reshape(-1)
+    segs = body.reshape(-1, seg)
+    out[flat_pos[flat_run]] = seg
+    out[flat_pos[flat_run] + 1] = segs[flat_run, 0]
+    lit = ~flat_run
+    out[flat_pos[lit]] = 0x80 | seg
+    out[flat_pos[lit, None] + 1 + np.arange(seg)] = segs[lit]
+    if tail:
+        tpos = base + lengths.sum(axis=1)
+        out[tpos] = 0x80 | tail
+        out[tpos[:, None] + 1 + np.arange(tail)] = lines[:, full * seg:]
+    head = struct.pack(">hBBHHHHll4s80sl", 474, 1, 1, 3 if z > 1 else 2,
+                       cols, rows, z, 0, 255, b"", b"", 0)
+    head += bytes(512 - len(head))
+    return (head + starts.astype(">u4").tobytes()
+            + row_len.astype(">u4").tobytes() + out.tobytes())
+
+
+def tga_rle_write(band, seg: int = 16, top_down: bool = True) -> bytes:
+    """An RLE TGA file of a u8 gray (rows, cols) band without Pillow (image
+    type 11, 8 bits): the pixels in file order cut into `seg`-pixel packets
+    (the last one shorter) that run on across rows; a run packet for a
+    segment of one value within one row, a literal one otherwise (Pillow
+    splits a literal across rows, not a run); `seg` is at most 128."""
+    import numpy as np
+
+    assert 1 <= seg <= 128, seg
+    rows, cols = band.shape
+    order = band if top_down else band[::-1]
+    flat = np.ascontiguousarray(order).reshape(-1)
+    full = flat.size // seg
+    tail = flat.size - full * seg
+    segs = flat[:full * seg].reshape(full, seg)
+    first = np.arange(full) * seg
+    one_row = first // cols == (first + seg - 1) // cols
+    run = (segs == segs[:, :1]).all(axis=1) & one_row
+    lengths = np.where(run, 2, 1 + seg)
+    pos = np.cumsum(lengths) - lengths
+    total = int(lengths.sum()) + (1 + tail if tail else 0)
+    out = np.zeros(total, np.uint8)
+    out[pos[run]] = 0x80 | (seg - 1)
+    out[pos[run] + 1] = segs[run, 0]
+    lit = ~run
+    out[pos[lit]] = seg - 1
+    out[pos[lit, None] + 1 + np.arange(seg)] = segs[lit]
+    if tail:
+        at = total - 1 - tail
+        out[at] = tail - 1
+        out[at + 1:] = flat[full * seg:]
+    head = struct.pack("<BBBHHBHHHHBB", 0, 0, 11, 0, 0, 0, 0, 0, cols, rows,
+                       8, 0x20 if top_down else 0)
+    return head + out.tobytes()
+
+
+def _formats_bands(side: int, mcidas_side: int):
+    """(label, file name, blob writer, what Pillow reads of it) of the
+    formats phase's at-scale bands."""
+    import numpy as np
+
+    dn = formats_dn(FORMATS_SEED, side, side)
+    u8 = formats_u8(dn)
+    i16 = np.minimum(dn, 32767).astype(np.int16)
+    del dn
+    f32 = formats_dn(FORMATS_SEED + 1, side, side).astype(np.float32)
+    area = formats_dn(FORMATS_SEED + 2, mcidas_side, mcidas_side)
+    return (
+        ("PFM f32", "band.pfm", lambda: pfm_write(f32), f32),
+        # Pillow reads FITS's big-endian int16 as little-endian "I;16",
+        # the last row first
+        ("FITS BITPIX 16", "band.fits", lambda: fits_write(i16, 16),
+         i16.astype(">i2").view("<u2")[::-1]),
+        ("McIdas AREA u16", "band.area", lambda: mcidas_write(area), area),
+        ("SGI RLE u8", "band.sgi", lambda: sgi_rle_write(u8), u8),
+        ("TGA RLE u8", "band.tga", lambda: tga_rle_write(u8), u8),
+    )
+
+
+def phase_formats(work: Path, smi: str) -> dict:
+    """io/pilraster's plugin loop and the float, scientific and run-length
+    readers on the card's machine: the small files of tests/data/formats
+    decode to the SHA-256 of Pillow's decode; each at-scale band
+    (_formats_bands, with a .wld and a .prj) opens through RasterReader
+    (decode timed on the host clock, median of 3), equals what Pillow reads
+    of it, reads decimated to SIZE^2 on the card (bit-equal to the plain
+    resample) and is saved as a CLAHE gray JPEG that reads back. The 117.7 MP
+    McIdas band logs Pillow's decompression-bomb warning. Returns the
+    launches of the driven reads and saves."""
+    import hashlib
+    import logging
+
+    import numpy as np
+    import torch
+
+    from sarpro_tpu_torch import _native, api, ops
+    from sarpro_tpu_torch.io import raster
+    from sarpro_tpu_torch.io.writers.worldfile import write_prj_file
+    from sarpro_tpu_torch.ops import force_plain
+    from sarpro_tpu_torch.types import (
+        AutoscaleStrategy,
+        BitDepth,
+        OutputFormat,
+    )
+
+    _native.raster_decoder()  # built in phase_build; raises if it did not
+    for name, want in FORMATS_FIXTURES.items():
+        reader = raster.RasterReader(FORMATS_DIR / name)
+        data = reader._tiff._data
+        digest = hashlib.sha256(data.tobytes()).hexdigest()
+        if digest != want:
+            raise AssertionError(f"formats: {name} decodes to SHA-256 "
+                                 f"{digest}, Pillow's is {want}")
+        reader.close()
+    log(f"formats: {len(FORMATS_FIXTURES)} files of tests/data/formats "
+        f"decode to the SHA-256 of Pillow's decode")
+    d = work / "formats"
+    d.mkdir()
+    warnings = []
+
+    class _Warnings(logging.Handler):
+        def emit(self, record):
+            warnings.append(record.getMessage())
+
+    handler = _Warnings(logging.WARNING)
+    logging.getLogger("sarpro").addHandler(handler)
+    totals = {k: 0 for k in ops.launch_counts()}
+    gt = [500000.0, 10.0, 0.0, 5100000.0, 0.0, -10.0]
+    try:
+        t0 = time.perf_counter()
+        bands = _formats_bands(FORMATS_SIDE, MCIDAS_SIDE)
+        log(f"formats: made the bands in {time.perf_counter() - t0:.1f} s")
+        for label, name, writer, want in bands:
+            t0 = time.perf_counter()
+            path = d / name
+            path.write_bytes(writer())
+            path.with_suffix(".wld").write_text(
+                "10.0\n0.0\n0.0\n-10.0\n500005.0\n5099995.0\n")
+            write_prj_file(path, "EPSG:32632")
+            mb = path.stat().st_size / 1e6
+            write_s = time.perf_counter() - t0
+            walls = []
+            del warnings[:]
+            for _ in range(3):
+                reader = None  # the last decode goes before the next one
+                t0 = time.perf_counter()
+                reader = raster.RasterReader(path)
+                walls.append(time.perf_counter() - t0)
+            data = reader._tiff._data[..., 0]
+            md = reader.metadata
+            if md.geotransform != gt or md.epsg != 32632:
+                raise AssertionError(f"formats: {label}: geotransform "
+                                     f"{md.geotransform}, EPSG {md.epsg}")
+            same = data.shape == want.shape and np.array_equal(
+                data.view(f"u{data.itemsize}"),
+                np.asarray(want, data.dtype).view(f"u{data.itemsize}"))
+            if not same:
+                raise AssertionError(f"formats: {label} decodes to "
+                                     f"{data.dtype} {data.shape}, not what "
+                                     f"Pillow reads of it")
+            bomb = [w for w in warnings if "decompression bomb" in w]
+            rows, cols = data.shape
+            if (rows * cols > 89478485) != bool(bomb):
+                raise AssertionError(f"formats: {label}: decompression-bomb "
+                                     f"warnings {bomb}")
+            wall = statistics.median(walls)
+            mp = rows * cols / 1e6
+            log(f"formats: {label} {rows} x {cols} ({mp:.1f} MP, {mb:.1f} "
+                f"MB written in {write_s:.1f} s): decode {wall * 1e3:.1f} ms "
+                f"(host clock, median of 3; "
+                f"{', '.join(f'{w * 1e3:.1f}' for w in walls)}), "
+                f"{mp / wall:.1f} MP/s, {mb / wall:.1f} MB/s, {data.dtype}, "
+                f"equal to Pillow's read{'; ' + bomb[0] if bomb else ''}; "
+                f"host CPU {_host_cpu()}")
+            del data
+            ops.reset_launch_counts()
+            torch.cuda.synchronize()
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            t0 = time.perf_counter()
+            start.record()
+            dev = raster.read_band_resampled_to_device(reader, 1, SIZE, SIZE,
+                                                       DEVICE, "cubic")
+            end.record()
+            end.synchronize()
+            read_ms = (time.perf_counter() - t0) * 1e3
+            counts = ops.launch_counts()
+            if counts["resample_axis0"] <= 0:
+                raise AssertionError(f"formats: {label}: the decimated read "
+                                     f"launched no resample ({counts})")
+            for k, v in counts.items():
+                totals[k] += v
+            with force_plain():
+                plain = raster.read_band_resampled_to_device(
+                    reader, 1, SIZE, SIZE, DEVICE, "cubic")
+            _check_equal(dev, plain, f"formats: {label} resample vs plain")
+            log(f"formats: {label}: cubic read to {SIZE}^2 "
+                f"{start.elapsed_time(end):.3f} ms between CUDA events "
+                f"({read_ms:.1f} ms host), launches "
+                f"{ {k: v for k, v in counts.items() if v} }, bit-equal to "
+                f"the plain resample; on {smi}")
+            reader.close()
+            del reader, plain
+            out = d / f"{path.stem}_{path.suffix[1:]}_clahe_gray.jpg"
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            api.save_image(dev + 1.0, out, OutputFormat.JPEG, BitDepth.U8,
+                           autoscale=AutoscaleStrategy.CLAHE, device=DEVICE)
+            wall = time.perf_counter() - t0
+            counts = ops.launch_counts()
+            for k in ("histogram", "tile_histogram", "clahe_lookup"):
+                if counts[k] <= 0:
+                    raise AssertionError(f"formats: {label}: the CLAHE gray "
+                                         f"save launched no {k} ({counts})")
+            for k, v in counts.items():
+                totals[k] += v
+            back = raster.RasterReader(out)
+            if (back.metadata.size_x, back.metadata.size_y,
+                    back.metadata.bands) != (SIZE, SIZE, 1):
+                raise AssertionError(f"formats: {label}: the CLAHE gray JPEG "
+                                     f"reads back as {back.metadata}")
+            log(f"formats: {label}: api.save_image CLAHE gray JPEG of the "
+                f"{SIZE}^2 read: {wall * 1e3:.1f} ms (host clock), launches "
+                f"{ {k: v for k, v in counts.items() if v} }, read back "
+                f"{SIZE} x {SIZE} x 1")
+            del dev
+            path.unlink()
+    finally:
+        logging.getLogger("sarpro").removeHandler(handler)
+        shutil.rmtree(d, ignore_errors=True)
+    return totals
+
+
 def phase_rasters(work: Path, synrgb: Path, rgb, smi: str) -> dict:
     """The non-TIFF raster readers on the card's machine: each input opened
     through RasterReader (its decode timed on the host clock, median of 3),
@@ -4493,6 +4909,7 @@ def main() -> int:
                                 RESIDENT_RGB["clahe auto"], smi)
         j2k_launches = timed(phase_jpeg2000, work, smi)
         webp_launches = timed(phase_webp, work, smi)
+        formats_launches = timed(phase_formats, work, smi)
         if args.walls:
             timed(phase_walls, args.walls, safe, work, smi)
     finally:
@@ -4527,6 +4944,7 @@ def main() -> int:
         entry["raster_launches"] = raster_launches[name]
         entry["jpeg2000_launches"] = j2k_launches[name]
         entry["webp_launches"] = webp_launches[name]
+        entry["formats_launches"] = formats_launches[name]
         if also:
             entry["also_replaces"] = also[0]
         kernels.append(entry)

@@ -14,7 +14,10 @@ pure-Python paths.
 The raster decoders (`rasterdec.cpp` beside this file: JPEG, the GIF LZW
 stream and BMP RLE, for io/jpeg.py, io/gif.py and io/bmp.py; `j2kdec.cpp`:
 the JPEG 2000 codestream, for io/jpeg2000.py; `webpdec.cpp`: a WebP frame's
-VP8 / VP8L and ALPH chunks, for io/webp.py) build the same way into one
+VP8 / VP8L and ALPH chunks, for io/webp.py; `rledec.cpp`: the run-length
+scanlines of SGI, TGA, PCX, Sun and PSD files and QOI's op stream, for
+io/sgi.py, io/tga.py, io/pcx.py, io/sun.py, io/psd.py and io/qoi.py) build
+the same way into one
 library of their own, at their first use, with FMA contraction off so the
 9/7 wavelet rounds as written. They have no fallback: where that library
 cannot be built, `raster_decoder()` raises with the compiler's message.
@@ -147,6 +150,7 @@ def available() -> bool:
 RASTER_SOURCE = pathlib.Path(__file__).resolve().with_name("rasterdec.cpp")
 J2K_SOURCE = RASTER_SOURCE.with_name("j2kdec.cpp")
 WEBP_SOURCE = RASTER_SOURCE.with_name("webpdec.cpp")
+RLE_SOURCE = RASTER_SOURCE.with_name("rledec.cpp")
 # the 9/7 wavelet and the ICT are float code: no FMA contraction
 RASTER_FLAGS = ("-ffp-contract=off",)
 _RASTER: Optional[ctypes.CDLL] = None
@@ -159,10 +163,10 @@ def raster_decoder() -> ctypes.CDLL:
     the compiler's message where it cannot be built (tried once a
     process)."""
     global _RASTER, _RASTER_WHY
+    sources = [RASTER_SOURCE, J2K_SOURCE, WEBP_SOURCE, RLE_SOURCE]
     with _RASTER_LOCK:
         if _RASTER is None and _RASTER_WHY is None:
-            so, why = _compile([RASTER_SOURCE, J2K_SOURCE, WEBP_SOURCE],
-                               "libsarpro_rasterdec", RASTER_FLAGS)
+            so, why = _compile(sources, "libsarpro_rasterdec", RASTER_FLAGS)
             if so is None:
                 _RASTER_WHY = why
             else:
@@ -190,12 +194,23 @@ def raster_decoder() -> ctypes.CDLL:
                 lib.webp_decode.argtypes = [u8p, i64, i32, u8p, i64, i64, i64,
                                             u8p, i64, i32, ctypes.c_char_p,
                                             i64]
+                lib.rle_lines.restype = i64
+                lib.rle_lines.argtypes = [i32, u8p, i64, i64, i64, i32, i64,
+                                          u8p]
+                lib.sgi_rle_decode.restype = i64
+                lib.sgi_rle_decode.argtypes = [u8p, i64, i64, i64, i32, i32,
+                                               u8p]
+                lib.bit_decode.restype = i64
+                lib.bit_decode.argtypes = [u8p, i64, i32, i64, i64,
+                                           ctypes.POINTER(ctypes.c_float)]
+                lib.qoi_decode.restype = i64
+                lib.qoi_decode.argtypes = [u8p, i64, i64, i32, u8p]
                 _RASTER = lib
         if _RASTER is None:
-            raise RuntimeError(f"the raster decoder library "
-                               f"({RASTER_SOURCE.name}, {J2K_SOURCE.name}, "
-                               f"{WEBP_SOURCE.name}) could not be built: "
-                               f"{_RASTER_WHY}")
+            raise RuntimeError(
+                "the raster decoder library ("
+                + ", ".join(p.name for p in sources)
+                + f") could not be built: {_RASTER_WHY}")
         return _RASTER
 
 
@@ -302,6 +317,63 @@ def bmp_rle_decode(blob: bytes, offset: int, xsize: int, dest_length: int,
     if n < 0:
         raise ValueError("not enough values to unpack (expected 2)")
     return out, n
+
+
+RLE_KINDS = {"tga": 0, "pcx": 1, "sun": 2, "packbits": 3}
+
+
+def rle_lines(kind: str, blob, offset: int, linebytes: int, rows: int,
+              depth: int = 1, xsize: int = 0) -> tuple:
+    """(lines, count): the (rows, linebytes) u8 scanlines Pillow's `kind`
+    decoder ("tga", "pcx", "sun" or "packbits") expands from blob[offset:],
+    in the order it decodes them, and how many of them the data completes;
+    ValueError where the decoder overruns its line."""
+    lib = raster_decoder()
+    src = np.frombuffer(blob, np.uint8)[max(0, offset):]
+    out = np.zeros((max(0, rows), max(0, linebytes)), np.uint8)
+    n = lib.rle_lines(RLE_KINDS[kind], _u8p(src), len(src), linebytes, rows,
+                      depth, xsize, _u8p(out))
+    if n < 0:
+        raise ValueError("buffer overrun when reading image file")
+    return out, int(n)
+
+
+def sgi_rle_decode(blob, xsize: int, ysize: int, bands: int,
+                   bpc: int) -> np.ndarray:
+    """The (ysize, xsize * bands * bpc) line buffers of Pillow's SGI RLE
+    decoder over the file `blob`, in the order of its tables (bottom row
+    first); ValueError where it overruns."""
+    lib = raster_decoder()
+    src = np.frombuffer(blob, np.uint8)[512:]
+    out = np.zeros((ysize, xsize * bands * bpc), np.uint8)
+    if lib.sgi_rle_decode(_u8p(src), len(blob) - 512, xsize, ysize, bands,
+                          bpc, _u8p(out)) < 0:
+        raise ValueError("buffer overrun when reading image file")
+    return out
+
+
+def bit_decode(blob, offset: int, bits: int, xsize: int,
+               rows: int) -> tuple:
+    """(lines, count): the (rows, xsize) float32 samples Pillow's bit decoder
+    (fill 3, pad 8) unpacks from blob[offset:], in the order it decodes
+    them, and how many lines the data completes."""
+    lib = raster_decoder()
+    src = np.frombuffer(blob, np.uint8)[max(0, offset):]
+    out = np.zeros((rows, xsize), np.float32)
+    n = lib.bit_decode(_u8p(src), len(src), bits, xsize, rows,
+                       out.ctypes.data_as(ctypes.POINTER(ctypes.c_float)))
+    return out, int(n)
+
+
+def qoi_decode(blob, offset: int, pixels: int, bands: int) -> np.ndarray:
+    """The `pixels` x `bands` u8 samples of Pillow's QOI decoder from
+    blob[offset:]; ValueError where it reads past the data."""
+    lib = raster_decoder()
+    src = np.frombuffer(blob, np.uint8)[offset:]
+    out = np.zeros(pixels * bands, np.uint8)
+    if lib.qoi_decode(_u8p(src), len(src), pixels, bands, _u8p(out)) < 0:
+        raise ValueError("the QOI data ends before the image does")
+    return out
 
 
 def _u8p(arr: np.ndarray):

@@ -1,5 +1,5 @@
-"""Netpbm reader: the image Pillow 12.1 opens from a P1-P6 file
-(PIL/PpmImagePlugin.py's header tokens, modes and decoders):
+"""Netpbm reader: the image Pillow 12.1 opens from a P1-P6 file or one of
+its extensions (PIL/PpmImagePlugin.py's header tokens, modes and decoders):
 
   * P1 / P4 give mode "1" (0 is white: True), P2 / P5 "L", or "I" (int32)
     where maxval is over 255, P3 / P6 "RGB";
@@ -9,18 +9,27 @@
   * plain files are read in Pillow's 1 MiB blocks with its comment rule (a
     comment runs from "#" to the next CR or LF and is cut out, joining what
     stood on its two sides), tokens of at most 10 characters, and values
-    checked against maxval.
-Pillow's extension formats (P0CMYK, Pf, PyP, ...) raise RasterError here,
-as does a file cut short. Pillow's `info` holds no strings for them."""
+    checked against maxval;
+  * Pf gives mode "F": float32 samples, little-endian where the scale
+    token is negative and big-endian where it is positive, rows bottom-up
+    (`info["scale"]` is a float, so it adds no metadata);
+  * P0CMYK and PyCMYK give "CMYK", PyRGBA "RGBA" and PyP "P" (a palette
+    image with no palette: `convert("RGB")` makes it black), raw and
+    rescaled as P5 / P6 are.
+A file cut short raises RasterError. Pillow's `info` holds no strings for
+these files."""
 from __future__ import annotations
 
 import numpy as np
 
 from ..errors import RasterError
-from . import pixels
+from . import pixels, rawmode
 
 MODES = {b"P1": "1", b"P2": "L", b"P3": "RGB", b"P4": "1", b"P5": "L",
-         b"P6": "RGB"}
+         b"P6": "RGB", b"P0CMYK": "CMYK", b"Pf": "F", b"PyP": "P",
+         b"PyRGBA": "RGBA", b"PyCMYK": "CMYK"}
+BANDS = {"1": 1, "L": 1, "I": 1, "P": 1, "F": 1, "RGB": 3, "RGBA": 4,
+         "CMYK": 4}
 WHITESPACE = b"\x20\x09\x0a\x0b\x0c\x0d"
 BLOCK = 1024 * 1024  # PIL.ImageFile.SAFEBLOCK
 MAX_TOKEN = 10
@@ -171,24 +180,30 @@ def read(blob: bytes) -> pixels.Decoded:
     r = _Reader(blob)
     magic = r.magic()
     if magic not in MODES:
-        raise RasterError(
-            "not a PPM file" if not accept(blob[:2]) else
-            f"netpbm format {magic!r} is not decoded (P1-P6 are)")
+        raise SyntaxError("not a PPM file")  # Pillow tries the next plugin
     mode = MODES[magic]
     width, height = _int(r.token(), "width"), _int(r.token(), "height")
     maxval = 1
-    if mode != "1":
+    if mode == "F":
+        token = r.token()
+        try:
+            scale = float(token)
+        except ValueError as e:
+            raise RasterError(str(e)) from e
+        if scale == 0.0 or not np.isfinite(scale):
+            raise RasterError("scale must be finite and non-zero")
+    elif mode != "1":
         maxval = _int(r.token(), "maxval")
         if not 0 < maxval < 65536:
             raise RasterError("maxval must be greater than 0 and less than "
                               "65536")
         if maxval > 255 and mode == "L":
             mode = "I"
+    if width <= 0 or height <= 0:
+        raise SyntaxError("not identified by this plugin")
     pixels.check_size(width, height)
-    if width < 0 or height < 0:
-        raise RasterError(f"netpbm: bad size {width} x {height}")
-    bands = 3 if mode == "RGB" else 1
-    shape = (height, width, bands) if bands == 3 else (height, width)
+    bands = BANDS[mode]
+    shape = (height, width, bands) if bands > 1 else (height, width)
     count = width * height * bands
     top = 65535 if mode == "I" else 255
     if magic in (b"P1", b"P2", b"P3"):
@@ -215,14 +230,23 @@ def read(blob: bytes) -> pixels.Decoded:
                              start).reshape(height, stride)
         arr = np.unpackbits(rows, axis=1)[:, :width] == 0
         return pixels.Decoded(mode, arr)
+    if mode == "F":
+        lines = pixels.raw_lines(blob, start, 4 * width, height, ystep=-1)
+        return pixels.Decoded(mode, rawmode.unpack(
+            lines, "F;32F" if scale < 0 else "F;32BF", width))
     size = 1 if maxval < 256 else 2
-    if start + count * size > len(blob):
-        raise RasterError("image file is truncated" if maxval in (255, 65535)
-                          else "not enough image data")
-    raw = np.frombuffer(blob, np.uint8 if size == 1 else ">u2", count, start)
     if maxval == 255 or (maxval == 65535 and mode == "I"):
+        if start + count * size > len(blob):
+            raise RasterError("image file is truncated")
+        raw = np.frombuffer(blob, np.uint8 if size == 1 else ">u2", count,
+                            start)
         arr = raw.astype(np.int32 if mode == "I" else np.uint8)
-    else:
-        arr = _rescale(raw, maxval, top).astype(
-            np.int32 if mode == "I" else np.uint8)
+        return pixels.Decoded(mode, arr.reshape(shape))
+    # PpmDecoder: whole pixels while the data lasts
+    got = min(count, (len(blob) - start) // (size * bands) * bands)
+    if got < count:
+        raise RasterError("not enough image data")
+    raw = np.frombuffer(blob, np.uint8 if size == 1 else ">u2", count, start)
+    arr = _rescale(raw, maxval, top).astype(
+        np.int32 if mode == "I" else np.uint8)
     return pixels.Decoded(mode, arr.reshape(shape))

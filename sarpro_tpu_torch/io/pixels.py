@@ -1,12 +1,16 @@
 """What the port's raster decoders (io/png, io/jpeg, io/bmp, io/gif,
-io/netpbm, io/jpeg2000) share: the image each one gives, as Pillow's `Image.open` and
-`load()` would give it (its mode and `np.asarray` of it), Pillow's
-decompression-bomb rule, and the normalisation the JAX package's PilRaster
-applies to an opened image (sarpro_tpu/io/pilraster.py:99-128)."""
+io/netpbm, io/jpeg2000, io/webp and the modules of Pillow's other formats)
+share: the image each one gives, as Pillow's `Image.open` and `load()` would
+give it (its mode and `np.asarray` of it), the header a plugin's `_open`
+reads before `load()` (Opened), Pillow's raw decoder over a file's bytes
+(raw_lines), its decompression-bomb rule, and the normalisation the JAX
+package's PilRaster applies to an opened image
+(sarpro_tpu/io/pilraster.py:99-128)."""
 from __future__ import annotations
 
 import dataclasses
 import logging
+from typing import Callable
 
 import numpy as np
 
@@ -31,6 +35,41 @@ class Decoded:
     info: dict = dataclasses.field(default_factory=dict)
 
 
+@dataclasses.dataclass
+class Opened:
+    """What a Pillow plugin's `_open` establishes before `load()`: the
+    mode, the (width, height) size, and the loader that decodes the pixels
+    (RasterError where Pillow's `load()` fails)."""
+
+    mode: str
+    size: tuple
+    load: Callable[[], Decoded]
+
+
+TRUNCATED = "image file is truncated"
+
+
+def raw_lines(blob, offset: int, linebytes: int, rows: int,
+              stride: int = 0, ystep: int = 1) -> np.ndarray:
+    """(rows, linebytes) u8 of Pillow's raw decoder from blob[offset:]: one
+    line every `stride` bytes (every `linebytes` where stride is 0), the
+    first one in the file the image's top row (its bottom row where ystep
+    is -1). The last line needs no padding after it; data cut short raises
+    RasterError."""
+    stride = stride or linebytes
+    if stride < linebytes:
+        raise RasterError("codec configuration error when reading image file")
+    if offset < 0:
+        raise RasterError("Tile offset cannot be negative")
+    if rows > 0 and offset + (rows - 1) * stride + linebytes > len(blob):
+        raise RasterError(TRUNCATED)
+    buf = np.frombuffer(blob, np.uint8)
+    lines = np.lib.stride_tricks.as_strided(
+        buf[offset:], (rows, linebytes), (stride, 1)) if rows else \
+        np.zeros((0, linebytes), np.uint8)
+    return lines[::-1] if ystep < 0 else lines
+
+
 def check_size(width: int, height: int) -> None:
     """Pillow's `_decompression_bomb_check` on an image's size."""
     pixels = max(1, width) * max(1, height)
@@ -52,6 +91,27 @@ def palette_rgb(indices: np.ndarray, palette: bytes) -> np.ndarray:
     n = min(len(palette) // 3, 256)
     table[:n] = np.frombuffer(palette, np.uint8, 3 * n).reshape(n, 3)
     return table[indices]
+
+
+def check_palette_mode(mode: str) -> None:
+    """Pillow realises a plugin's palette at load: only "L", "LA", "P" and
+    "PA" images take one."""
+    if mode not in ("L", "LA", "P", "PA"):
+        raise RasterError("unrecognized image mode")
+
+
+def check_palette_size(nbytes: int, bits: int) -> None:
+    """Pillow's putpalette: a table of more than 256 entries of `bits` bits
+    fails the load."""
+    if nbytes * 8 // bits > 256:
+        raise RasterError("invalid palette size")
+
+
+def planar_palette(table: bytes) -> bytes:
+    """An "RGB;L" palette (every red, then every green, then every blue) as
+    RGB triples: len(table) // 3 entries, as Pillow unpacks it."""
+    n = len(table) // 3
+    return np.frombuffer(table, np.uint8, 3 * n).reshape(3, n).T.tobytes()
 
 
 def normalise(img: Decoded, name) -> np.ndarray:

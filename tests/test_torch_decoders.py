@@ -1168,10 +1168,10 @@ def test_broken_netpbm_is_refused_as_by_jax(tmp_path, rng, name):
     except jraster.RasterError:
         _both_refuse(path)
         return
-    # Pillow opens the float format; the port does not decode it yet
+    # Pillow opens the float format (PFM), and so does the port (io/netpbm)
     assert name == "pfm"
-    with pytest.raises(RasterError, match="is not decoded"):
-        traster.RasterReader(path)
+    got = _equal_to_jax(path)
+    assert got.dtype == np.float32 and got.shape == (2, 2, 1)
 
 
 # ---------------------------------------------------------------------------

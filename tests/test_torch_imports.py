@@ -31,7 +31,9 @@ def test_port_sources_import_no_jax_pillow_or_cv2():
     assert {"mesh.py", "sharded.py", "warp.py", "batch.py"} <= {
         p.name for p in (PORT / "parallel").glob("*.py")}
     assert {"pilraster.py", "pixels.py", "png.py", "jpeg.py", "bmp.py",
-            "gif.py", "netpbm.py", "jpeg2000.py", "webp.py"} <= {
+            "gif.py", "netpbm.py", "jpeg2000.py", "webp.py", "rawmode.py",
+            "fits.py", "mcidas.py", "spider.py", "im.py", "sgi.py", "tga.py",
+            "pcx.py", "sun.py", "psd.py", "qoi.py"} <= {
                 p.name for p in (PORT / "io").glob("*.py")}
     for line in ("import sarpro_tpu", "from sarpro_tpu.io import safe",
                  "  from sarpro_tpu import _native", "import jax.numpy"):
@@ -216,6 +218,28 @@ def test_cpu_slice_runs_with_jax_and_pillow_blocked(tmp_path):
         assert data.shape == (160, 176, 4), data.shape
         assert hashlib.sha256(data.tobytes()).hexdigest() == \
             chip_smoke.WEBP_FIXTURES[name]
+        # the float, scientific and run-length formats: the files of
+        # tests/data/formats decode to the SHA-256 of Pillow's decode, and
+        # chip_smoke's PFM, FITS, McIdas, SGI RLE and TGA RLE writers' bands
+        # read back as Pillow reads them
+        for name, digest in chip_smoke.FORMATS_FIXTURES.items():
+            data = RasterReader(chip_smoke.FORMATS_DIR / name)._tiff._data
+            assert hashlib.sha256(data.tobytes()).hexdigest() == digest, name
+        dn = chip_smoke.formats_dn(chip_smoke.FORMATS_SEED, 30, 41)
+        u8 = chip_smoke.formats_u8(dn)
+        i16 = np.minimum(dn, 32767).astype(np.int16)
+        for name, blob, ref in (
+                ("b.pfm", chip_smoke.pfm_write(dn.astype(np.float32)),
+                 dn.astype(np.float32)),
+                ("b.fits", chip_smoke.fits_write(i16, 16),
+                 i16.astype(">i2").view("<u2")[::-1]),
+                ("b.area", chip_smoke.mcidas_write(dn), dn),
+                ("b.sgi", chip_smoke.sgi_rle_write(u8), u8),
+                ("b.tga", chip_smoke.tga_rle_write(u8), u8)):
+            (d / name).write_bytes(blob)
+            data = RasterReader(d / name)._tiff._data[..., 0]
+            assert data.dtype == ref.dtype and np.array_equal(data, ref), \
+                name
         for name, (ref, tol) in want.items():
             data = RasterReader(d / name)._tiff._data
             ref = ref if ref.ndim == 3 else ref[..., None]
