@@ -201,7 +201,23 @@ prints no result):
      resample's f32 route) with the launch counts set to 0 just before and
      read just after, bit-equal to the plain resample, and that read is
      written as a CLAHE gray JPEG by api.save_image and read back;
- 17. with --walls N only: every warm path N times more, interleaved, with
+ 17. longtail: Pillow's long tail of formats (io/bmp's DIB, io/ico for ICO
+     and CUR, io/icns, io/dds and io/ftex over io/bcn's BC1-BC7, with the
+     blocks decoded by sarpro_tpu_torch/_native/bcndec.cpp, io/blp, io/xbm,
+     io/xpm, io/msp, io/pixar, io/gbr, io/fli, io/pcd, io/xvthumb, io/imt,
+     io/iptc; their loops in _native/rledec.cpp) on the files of
+     tests/data/formats that LONGTAIL_FIXTURES names (the SHA-256 of
+     Pillow's decode of each, pinned in tests/test_torch_legacy_rasters.py),
+     and three 9216^2 bands of make_safe's DN written here without Pillow,
+     each with a .wld and a .prj: a DDS of BC4 blocks, a DDS DX10 of BC7
+     mode-6 blocks (bc7_mode6_write) and an IM Tools "L" file. Each opens
+     through RasterReader (decode ms on the host clock, median of 3),
+     decodes to the SHA-256 of Pillow's decode of the same band
+     (LONGTAIL_BANDS), reads decimated to 2048^2 on the card (cubic) with
+     the launch counts set to 0 just before and read just after, bit-equal
+     to the plain resample, and is saved as a CLAHE gray JPEG that reads
+     back;
+ 18. with --walls N only: every warm path N times more, interleaved, with
      medians and quartiles of its wall; the no-warp synRGB read through
      each of the two loaders (full DN + device resample, decimated read) in
      the same rounds; a torch.profiler trace of the single-band TIFF, the
@@ -518,6 +534,66 @@ FORMATS_FIXTURES = {
                     "f89addd378bc6181ae7484bb2b62162b"),
     "sar_rgba.qoi": ("e1120601abe12e0fc6ed9577b71b48e3"
                      "d1ad1a28a7a83508a783dd50be31cd8d"),
+}
+# the longtail phase: the small files of tests/data/formats in the formats
+# of Pillow's long tail (written by tests/test_torch_legacy_rasters.py's
+# longtail_fixture_files from FORMATS_SEED on) and the SHA-256 of Pillow's
+# decode of each; and the SHA-256 of Pillow's decode of the phase's 9216^2
+# bands (_longtail_bands at LONGTAIL_SIDE), computed on the CPU
+LONGTAIL_SIDE = 9216
+LONGTAIL_FIXTURES = {
+    "sar.dib": ("0d86c75d3224e3e39b6b4714b6b11c6a"
+                "bc580abf79d676033f19987a818c027e"),
+    "sar_bmp.ico": ("4e25820cec0b0b4cf7881507f80bb611"
+                    "80e0fd2fc111548966f2cfc92e68f10c"),
+    "sar_png.ico": ("9350c6854674bfdce54f6a171dcd23c2"
+                    "eaffeabcc765fc6df2f94784099183aa"),
+    "sar.cur": ("8ea266f15555ce033b7e5fa562fdd1d6"
+                "c3f02041a8d9417257426e2f7aa6116e"),
+    "sar_rle.icns": ("a9ef69096f13fd62c319dec9097287b4"
+                     "b4f47b63b21826228638cea7dadea310"),
+    "sar_bc4.dds": ("4684cfe9cb8f8f5aff8bc58cd5a4b68d"
+                    "b6903cac91adac74a1f112a92298c0cf"),
+    "sar_bc7.dds": ("be860a5cb36e37ec828d1f5719f8b166"
+                    "768099146fdcff5c280540cf69b9fe91"),
+    "sar_bc6h.dds": ("7549573117da489b28083ded0ffc68c2"
+                     "1b7ef3473885adf76e6f147e38ff9a6c"),
+    "sar_dxt5.dds": ("106a0a6ffc0fe22f8cadb3f791dd0b28"
+                     "84cd8feb5e23d5b4ab8d1112b5553cd4"),
+    "sar_565.dds": ("5bb0e9907c3e685777aa6b04d8c77d45"
+                    "32043a406dc8ce29de03757b6aab8543"),
+    "sar_dxt1.ftc": ("c02367ceccb009bd23292e4f2bc272ea"
+                     "837112f4518c12ef545aafafb8487e13"),
+    "sar_pal.blp": ("83dbf4ab262a0a699de2753968ae928f"
+                    "3306323ae7ee40aea4224e9533c254e4"),
+    "sar_dxt5.blp": ("9120b77863a7216217b26f8da85de36e"
+                     "0c45121b210361251012ccdff04d272e"),
+    "sar.xbm": ("cb4cffbdfa85abb012270bdeb4196037"
+                "7e61e5da16fec91b6a48768320eb58f0"),
+    "sar.xpm": ("10948bcc11dedd0a1cc3efe969e19595"
+                "27f3d3b0c8d6c79a2e39a105ebc35246"),
+    "sar_rle.msp": ("cb4cffbdfa85abb012270bdeb4196037"
+                    "7e61e5da16fec91b6a48768320eb58f0"),
+    "sar.pxr": ("8ea266f15555ce033b7e5fa562fdd1d6"
+                "c3f02041a8d9417257426e2f7aa6116e"),
+    "sar.gbr": ("e1120601abe12e0fc6ed9577b71b48e3"
+                "d1ad1a28a7a83508a783dd50be31cd8d"),
+    "sar_brun.fli": ("b2bcb3d2a0235f609fdbd29332ab5b2f"
+                     "0c88bd7d3268833b0de7b2b91873cb90"),
+    "sar.xv": ("eba3887a497d67140a2ef3efc3b0b85f"
+               "5501ad3c6ac7a768e709c058132ff323"),
+    "sar.imt": ("0d86c75d3224e3e39b6b4714b6b11c6a"
+                "bc580abf79d676033f19987a818c027e"),
+    "sar_raw.iim": ("0d86c75d3224e3e39b6b4714b6b11c6a"
+                    "bc580abf79d676033f19987a818c027e"),
+}
+LONGTAIL_BANDS = {
+    "DDS BC4": ("58c602d9d06e23468f2805b7ca730e83"
+                "ad35ce9923582575c95ec265bbb7eeef"),
+    "DDS DX10 BC7": ("fa75d1a6dcbc7b074968669a386fe8a8"
+                     "24a89b5334f7e385ff0b8302e578cccd"),
+    "IMT L": ("d2befdd800797f4373bf2db5bd9cb2dc"
+              "788f834f507df8f991cc84145ac55dc5"),
 }
 # the path whose launch count each kernel reports in the kernels line
 REPORTED_PATH = {k: ("warm tamed cubic" if k == "resample_axis0"
@@ -4362,6 +4438,265 @@ def _formats_bands(side: int, mcidas_side: int):
     )
 
 
+def _blocks4(band):
+    """The 4 x 4 blocks of a u8 (rows, cols) band (sides multiples of 4),
+    row by row: (blocks, 16) int32, in chunks of 2^18 blocks."""
+    import numpy as np
+
+    rows, cols = band.shape
+    per = cols // 4
+    step = max(1, (1 << 18) // per)
+    for r in range(0, rows // 4, step):
+        part = band[4 * r:4 * (r + step)]
+        yield part.reshape(-1, 4, per, 4).transpose(0, 2, 1, 3).reshape(
+            -1, 16).astype(np.int32)
+
+
+def bc4_write(band) -> bytes:
+    """The BC4 blocks of a u8 (rows, cols) band (sides multiples of 4): each
+    block's end points its largest and smallest value, each pixel the step
+    of the eight-level ramp between them it rounds to."""
+    import numpy as np
+
+    out = []
+    order = np.array((0, 2, 3, 4, 5, 6, 7, 1), np.uint64)  # ramp step -> code
+    for blocks in _blocks4(band):
+        a0, a1 = blocks.max(1), blocks.min(1)
+        span = np.maximum(a0 - a1, 1)[:, None]
+        step = ((a0[:, None] - blocks) * 14 + span) // (2 * span)
+        idx = order[step]
+        bits = np.zeros(len(blocks), np.uint64)
+        for i in range(16):
+            bits |= idx[:, i] << np.uint64(3 * i)
+        part = np.empty((len(blocks), 8), np.uint8)
+        part[:, 0], part[:, 1] = a0, a1
+        for b in range(6):
+            part[:, 2 + b] = (bits >> np.uint64(8 * b)) & np.uint64(255)
+        out.append(part.tobytes())
+    return b"".join(out)
+
+
+def bc7_mode6_write(band) -> bytes:
+    """BC7 mode-6 blocks of a u8 gray (rows, cols) band (sides multiples of
+    4): red, green and blue the band, end points the block's smallest and
+    largest value (7 bits and a P-bit each, alpha 127 with the P-bit), each
+    pixel the step of the sixteen it rounds to (the anchor pixel's index
+    kept under 8 by swapping the end points)."""
+    import numpy as np
+
+    out = []
+    for blocks in _blocks4(band):
+        n = len(blocks)
+        e0, e1 = blocks.min(1), blocks.max(1)
+        span = np.maximum(e1 - e0, 1)[:, None]
+        idx = ((blocks - e0[:, None]) * 30 + span) // (2 * span)
+        swap = idx[:, 0] >= 8
+        e0, e1 = np.where(swap, e1, e0), np.where(swap, e0, e1)
+        idx = np.where(swap[:, None], 15 - idx, idx)
+        fields = [(np.full(n, 1 << 6), 7)]
+        for _ in range(3):
+            fields += [(e0 >> 1, 7), (e1 >> 1, 7)]
+        fields += [(np.full(n, 127), 7)] * 2
+        fields += [(e0 & 1, 1), (e1 & 1, 1), (idx[:, 0], 3)]
+        fields += [(idx[:, i], 4) for i in range(1, 16)]
+        halves = [np.zeros(n, np.uint64), np.zeros(n, np.uint64)]
+        pos = 0
+        for value, bits in fields:
+            v = value.astype(np.uint64) & np.uint64((1 << bits) - 1)
+            half, at = divmod(pos, 64)
+            halves[half] |= v << np.uint64(at)
+            if at + bits > 64:  # the field runs into the high half
+                halves[1] |= v >> np.uint64(64 - at)
+            pos += bits
+        out.append(np.stack(halves, 1).astype("<u8").tobytes())
+    return b"".join(out)
+
+
+def dds_write(width: int, height: int, data: bytes, fourcc: bytes,
+              dxgi: int = 0) -> bytes:
+    """A DDS file of block-compressed `data`: the 124-byte header with the
+    FOURCC (and, for b"DX10", the extension naming the DXGI format)."""
+    head = (b"DDS " + struct.pack("<7I", 124, 0x81007, height, width,
+                                  len(data), 0, 0) + bytes(44)
+            + struct.pack("<2I4s5I", 32, 4, fourcc, 0, 0, 0, 0, 0)
+            + struct.pack("<5I", 0x1000, 0, 0, 0, 0))
+    if fourcc == b"DX10":
+        head += struct.pack("<5I", dxgi, 3, 0, 1, 0)
+    return head + data
+
+
+def imt_write(band) -> bytes:
+    """An IM Tools file of a u8 (rows, cols) band: its "width", "height"
+    and "pixel n8" lines, a form feed, the rows."""
+    rows, cols = band.shape
+    return (b"width %d\nheight %d\npixel n8\n\x0c" % (cols, rows)
+            + band.tobytes())
+
+
+def _longtail_bands(side: int):
+    """(label, file name, blob writer) of the longtail phase's bands."""
+    u8 = formats_u8(formats_dn(FORMATS_SEED + 3, side, side))
+    return (
+        ("DDS BC4", "band.dds", lambda: dds_write(side, side, bc4_write(u8),
+                                                   b"ATI1")),
+        ("DDS DX10 BC7", "band7.dds", lambda: dds_write(
+            side, side, bc7_mode6_write(u8), b"DX10", 98)),
+        ("IMT L", "band.imt", lambda: imt_write(u8)),
+    )
+
+
+def decode_digest(data) -> str:
+    """SHA-256 of a decoded array's samples (a bool array's as 0 / 1 bytes:
+    Pillow's mode "1" arrays hold 0 / 255)."""
+    import hashlib
+
+    import numpy as np
+
+    if data.dtype == bool:
+        data = data.astype(np.uint8)
+    return hashlib.sha256(np.ascontiguousarray(data).tobytes()).hexdigest()
+
+
+def _read_and_save(tag: str, label: str, reader, path: Path, smi: str,
+                   totals: dict) -> None:
+    """The formats and longtail phases' drive of an opened band: the cubic
+    read to SIZE^2 on the card with the launch counts set to 0 just before
+    and read just after (a resample launch required, bit-equal to the plain
+    resample), then its CLAHE gray JPEG through api.save_image (a launch of
+    each CLAHE kernel required) read back beside `path`; the launches are
+    added to `totals`, and `reader` is closed."""
+    import torch
+
+    from sarpro_tpu_torch import api, ops
+    from sarpro_tpu_torch.io import raster
+    from sarpro_tpu_torch.ops import force_plain
+    from sarpro_tpu_torch.types import (
+        AutoscaleStrategy,
+        BitDepth,
+        OutputFormat,
+    )
+
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    t0 = time.perf_counter()
+    start.record()
+    dev = raster.read_band_resampled_to_device(reader, 1, SIZE, SIZE, DEVICE,
+                                               "cubic")
+    end.record()
+    end.synchronize()
+    read_ms = (time.perf_counter() - t0) * 1e3
+    counts = ops.launch_counts()
+    if counts["resample_axis0"] <= 0:
+        raise AssertionError(f"{tag}: {label}: the decimated read launched "
+                             f"no resample ({counts})")
+    for k, v in counts.items():
+        totals[k] += v
+    with force_plain():
+        plain = raster.read_band_resampled_to_device(reader, 1, SIZE, SIZE,
+                                                     DEVICE, "cubic")
+    _check_equal(dev, plain, f"{tag}: {label} resample vs plain")
+    log(f"{tag}: {label}: cubic read to {SIZE}^2 "
+        f"{start.elapsed_time(end):.3f} ms between CUDA events "
+        f"({read_ms:.1f} ms host), launches "
+        f"{ {k: v for k, v in counts.items() if v} }, bit-equal to the plain "
+        f"resample; on {smi}")
+    reader.close()
+    del plain
+    out = path.parent / f"{path.stem}_{path.suffix[1:]}_clahe_gray.jpg"
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    api.save_image(dev + 1.0, out, OutputFormat.JPEG, BitDepth.U8,
+                   autoscale=AutoscaleStrategy.CLAHE, device=DEVICE)
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    for k in ("histogram", "tile_histogram", "clahe_lookup"):
+        if counts[k] <= 0:
+            raise AssertionError(f"{tag}: {label}: the CLAHE gray save "
+                                 f"launched no {k} ({counts})")
+    for k, v in counts.items():
+        totals[k] += v
+    back = raster.RasterReader(out)
+    if (back.metadata.size_x, back.metadata.size_y,
+            back.metadata.bands) != (SIZE, SIZE, 1):
+        raise AssertionError(f"{tag}: {label}: the CLAHE gray JPEG reads "
+                             f"back as {back.metadata}")
+    log(f"{tag}: {label}: api.save_image CLAHE gray JPEG of the {SIZE}^2 "
+        f"read: {wall * 1e3:.1f} ms (host clock), launches "
+        f"{ {k: v for k, v in counts.items() if v} }, read back {SIZE} x "
+        f"{SIZE} x 1")
+
+
+def phase_longtail(work: Path, smi: str) -> dict:
+    """Pillow's long tail of formats on the card's machine: the small files
+    of tests/data/formats that LONGTAIL_FIXTURES names decode to the SHA-256
+    of Pillow's decode; each 9216^2 band (_longtail_bands, with a .wld and a
+    .prj) opens through RasterReader (decode timed on the host clock, median
+    of 3), decodes to the SHA-256 of Pillow's decode (LONGTAIL_BANDS), reads
+    decimated to SIZE^2 on the card (bit-equal to the plain resample) and
+    is saved as a CLAHE gray JPEG that reads back. Returns the launches of
+    the driven reads and saves."""
+    from sarpro_tpu_torch import _native, ops
+    from sarpro_tpu_torch.io import raster
+    from sarpro_tpu_torch.io.writers.worldfile import write_prj_file
+
+    _native.raster_decoder()  # built in phase_build; raises if it did not
+    for name, want in LONGTAIL_FIXTURES.items():
+        reader = raster.RasterReader(FORMATS_DIR / name)
+        digest = decode_digest(reader._tiff._data)
+        reader.close()
+        if digest != want:
+            raise AssertionError(f"longtail: {name} decodes to SHA-256 "
+                                 f"{digest}, Pillow's is {want}")
+    log(f"longtail: {len(LONGTAIL_FIXTURES)} files of tests/data/formats "
+        f"decode to the SHA-256 of Pillow's decode")
+    d = work / "longtail"
+    d.mkdir()
+    totals = {k: 0 for k in ops.launch_counts()}
+    gt = [500000.0, 10.0, 0.0, 5100000.0, 0.0, -10.0]
+    try:
+        for label, name, writer in _longtail_bands(LONGTAIL_SIDE):
+            t0 = time.perf_counter()
+            path = d / name
+            path.write_bytes(writer())
+            path.with_suffix(".wld").write_text(
+                "10.0\n0.0\n0.0\n-10.0\n500005.0\n5099995.0\n")
+            write_prj_file(path, "EPSG:32632")
+            mb = path.stat().st_size / 1e6
+            write_s = time.perf_counter() - t0
+            walls = []
+            for _ in range(3):
+                reader = None  # the last decode goes before the next one
+                t0 = time.perf_counter()
+                reader = raster.RasterReader(path)
+                walls.append(time.perf_counter() - t0)
+            data = reader._tiff._data
+            md = reader.metadata
+            if md.geotransform != gt or md.epsg != 32632:
+                raise AssertionError(f"longtail: {label}: geotransform "
+                                     f"{md.geotransform}, EPSG {md.epsg}")
+            digest = decode_digest(data)
+            if digest != LONGTAIL_BANDS[label]:
+                raise AssertionError(f"longtail: {label} decodes to SHA-256 "
+                                     f"{digest}, Pillow's is "
+                                     f"{LONGTAIL_BANDS[label]}")
+            rows, cols, bands = data.shape
+            wall = statistics.median(walls)
+            mp = rows * cols / 1e6
+            log(f"longtail: {label} {rows} x {cols} x {bands} ({mp:.1f} MP, "
+                f"{mb:.1f} MB written in {write_s:.1f} s): decode "
+                f"{wall * 1e3:.1f} ms (host clock, median of 3; "
+                f"{', '.join(f'{w * 1e3:.1f}' for w in walls)}), "
+                f"{mp / wall:.1f} MP/s, {mb / wall:.1f} MB/s, equal to "
+                f"Pillow's decode; host CPU {_host_cpu()}")
+            del data
+            _read_and_save("longtail", label, reader, path, smi, totals)
+            path.unlink()
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    return totals
+
+
 def phase_formats(work: Path, smi: str) -> dict:
     """io/pilraster's plugin loop and the float, scientific and run-length
     readers on the card's machine: the small files of tests/data/formats
@@ -4376,17 +4711,9 @@ def phase_formats(work: Path, smi: str) -> dict:
     import logging
 
     import numpy as np
-    import torch
-
-    from sarpro_tpu_torch import _native, api, ops
+    from sarpro_tpu_torch import _native, ops
     from sarpro_tpu_torch.io import raster
     from sarpro_tpu_torch.io.writers.worldfile import write_prj_file
-    from sarpro_tpu_torch.ops import force_plain
-    from sarpro_tpu_torch.types import (
-        AutoscaleStrategy,
-        BitDepth,
-        OutputFormat,
-    )
 
     _native.raster_decoder()  # built in phase_build; raises if it did not
     for name, want in FORMATS_FIXTURES.items():
@@ -4458,57 +4785,7 @@ def phase_formats(work: Path, smi: str) -> dict:
                 f"equal to Pillow's read{'; ' + bomb[0] if bomb else ''}; "
                 f"host CPU {_host_cpu()}")
             del data
-            ops.reset_launch_counts()
-            torch.cuda.synchronize()
-            start, end = (torch.cuda.Event(enable_timing=True)
-                          for _ in range(2))
-            t0 = time.perf_counter()
-            start.record()
-            dev = raster.read_band_resampled_to_device(reader, 1, SIZE, SIZE,
-                                                       DEVICE, "cubic")
-            end.record()
-            end.synchronize()
-            read_ms = (time.perf_counter() - t0) * 1e3
-            counts = ops.launch_counts()
-            if counts["resample_axis0"] <= 0:
-                raise AssertionError(f"formats: {label}: the decimated read "
-                                     f"launched no resample ({counts})")
-            for k, v in counts.items():
-                totals[k] += v
-            with force_plain():
-                plain = raster.read_band_resampled_to_device(
-                    reader, 1, SIZE, SIZE, DEVICE, "cubic")
-            _check_equal(dev, plain, f"formats: {label} resample vs plain")
-            log(f"formats: {label}: cubic read to {SIZE}^2 "
-                f"{start.elapsed_time(end):.3f} ms between CUDA events "
-                f"({read_ms:.1f} ms host), launches "
-                f"{ {k: v for k, v in counts.items() if v} }, bit-equal to "
-                f"the plain resample; on {smi}")
-            reader.close()
-            del reader, plain
-            out = d / f"{path.stem}_{path.suffix[1:]}_clahe_gray.jpg"
-            ops.reset_launch_counts()
-            t0 = time.perf_counter()
-            api.save_image(dev + 1.0, out, OutputFormat.JPEG, BitDepth.U8,
-                           autoscale=AutoscaleStrategy.CLAHE, device=DEVICE)
-            wall = time.perf_counter() - t0
-            counts = ops.launch_counts()
-            for k in ("histogram", "tile_histogram", "clahe_lookup"):
-                if counts[k] <= 0:
-                    raise AssertionError(f"formats: {label}: the CLAHE gray "
-                                         f"save launched no {k} ({counts})")
-            for k, v in counts.items():
-                totals[k] += v
-            back = raster.RasterReader(out)
-            if (back.metadata.size_x, back.metadata.size_y,
-                    back.metadata.bands) != (SIZE, SIZE, 1):
-                raise AssertionError(f"formats: {label}: the CLAHE gray JPEG "
-                                     f"reads back as {back.metadata}")
-            log(f"formats: {label}: api.save_image CLAHE gray JPEG of the "
-                f"{SIZE}^2 read: {wall * 1e3:.1f} ms (host clock), launches "
-                f"{ {k: v for k, v in counts.items() if v} }, read back "
-                f"{SIZE} x {SIZE} x 1")
-            del dev
+            _read_and_save("formats", label, reader, path, smi, totals)
             path.unlink()
     finally:
         logging.getLogger("sarpro").removeHandler(handler)
@@ -4910,6 +5187,7 @@ def main() -> int:
         j2k_launches = timed(phase_jpeg2000, work, smi)
         webp_launches = timed(phase_webp, work, smi)
         formats_launches = timed(phase_formats, work, smi)
+        longtail_launches = timed(phase_longtail, work, smi)
         if args.walls:
             timed(phase_walls, args.walls, safe, work, smi)
     finally:
@@ -4945,6 +5223,7 @@ def main() -> int:
         entry["jpeg2000_launches"] = j2k_launches[name]
         entry["webp_launches"] = webp_launches[name]
         entry["formats_launches"] = formats_launches[name]
+        entry["longtail_launches"] = longtail_launches[name]
         if also:
             entry["also_replaces"] = also[0]
         kernels.append(entry)

@@ -16,7 +16,9 @@ stream and BMP RLE, for io/jpeg.py, io/gif.py and io/bmp.py; `j2kdec.cpp`:
 the JPEG 2000 codestream, for io/jpeg2000.py; `webpdec.cpp`: a WebP frame's
 VP8 / VP8L and ALPH chunks, for io/webp.py; `rledec.cpp`: the run-length
 scanlines of SGI, TGA, PCX, Sun and PSD files and QOI's op stream, for
-io/sgi.py, io/tga.py, io/pcx.py, io/sun.py, io/psd.py and io/qoi.py) build
+io/sgi.py, io/tga.py, io/pcx.py, io/sun.py, io/psd.py and io/qoi.py;
+`bcndec.cpp`: the BC1-BC7 blocks of DDS and FTEX textures, for io/bcn.py)
+build
 the same way into one
 library of their own, at their first use, with FMA contraction off so the
 9/7 wavelet rounds as written. They have no fallback: where that library
@@ -151,6 +153,7 @@ RASTER_SOURCE = pathlib.Path(__file__).resolve().with_name("rasterdec.cpp")
 J2K_SOURCE = RASTER_SOURCE.with_name("j2kdec.cpp")
 WEBP_SOURCE = RASTER_SOURCE.with_name("webpdec.cpp")
 RLE_SOURCE = RASTER_SOURCE.with_name("rledec.cpp")
+BCN_SOURCE = RASTER_SOURCE.with_name("bcndec.cpp")
 # the 9/7 wavelet and the ICT are float code: no FMA contraction
 RASTER_FLAGS = ("-ffp-contract=off",)
 _RASTER: Optional[ctypes.CDLL] = None
@@ -163,7 +166,8 @@ def raster_decoder() -> ctypes.CDLL:
     the compiler's message where it cannot be built (tried once a
     process)."""
     global _RASTER, _RASTER_WHY
-    sources = [RASTER_SOURCE, J2K_SOURCE, WEBP_SOURCE, RLE_SOURCE]
+    sources = [RASTER_SOURCE, J2K_SOURCE, WEBP_SOURCE, RLE_SOURCE,
+               BCN_SOURCE]
     with _RASTER_LOCK:
         if _RASTER is None and _RASTER_WHY is None:
             so, why = _compile(sources, "libsarpro_rasterdec", RASTER_FLAGS)
@@ -177,7 +181,7 @@ def raster_decoder() -> ctypes.CDLL:
                 lib.jpeg_info.argtypes = [u8p, i64, ctypes.POINTER(i64),
                                           ctypes.c_char_p, i64]
                 lib.jpeg_decode.restype = i64
-                lib.jpeg_decode.argtypes = [u8p, i64, u8p, i64, i32,
+                lib.jpeg_decode.argtypes = [u8p, i64, u8p, i64, i32, i32,
                                             ctypes.c_char_p, i64]
                 lib.gif_lzw_decode.restype = i64
                 lib.gif_lzw_decode.argtypes = [u8p, i64, i32, i32, u8p, i64,
@@ -205,6 +209,19 @@ def raster_decoder() -> ctypes.CDLL:
                                            ctypes.POINTER(ctypes.c_float)]
                 lib.qoi_decode.restype = i64
                 lib.qoi_decode.argtypes = [u8p, i64, i64, i32, u8p]
+                lib.icns_rle.restype = i64
+                lib.icns_rle.argtypes = [u8p, i64, i64, u8p]
+                lib.msp_rle.restype = i64
+                u16p = ctypes.POINTER(ctypes.c_uint16)
+                lib.msp_rle.argtypes = [u8p, i64, u16p, i64, i64, u8p, i64]
+                lib.fli_decode.restype = i64
+                lib.fli_decode.argtypes = [u8p, i64, u8p, i64, i64,
+                                           ctypes.POINTER(i32)]
+                lib.xbm_decode.restype = i64
+                lib.xbm_decode.argtypes = [u8p, i64, i64, i64, u8p]
+                lib.bcn_decode.restype = i64
+                lib.bcn_decode.argtypes = [u8p, i64, i64, i64, i32, i32, u8p,
+                                           i32]
                 _RASTER = lib
         if _RASTER is None:
             raise RuntimeError(
@@ -231,18 +248,19 @@ def jpeg_info(blob: bytes) -> tuple:
 
 
 def jpeg_decode(blob: bytes, width: int, height: int,
-                components: int) -> np.ndarray:
+                components: int, cmyk: bool = False) -> np.ndarray:
     """The (height, width, components) u8 decode of a JPEG whose frame
     header `jpeg_info` read; ValueError with the decoder's reason. The file
     is handed over 64 KiB at a time, as Pillow reads it: libjpeg's
     arithmetic decoder cannot wait for more, so arithmetic-coded data past
-    a block is refused as Pillow refuses it."""
+    a block is refused as Pillow refuses it. `cmyk`: four components are
+    CMYK samples whatever an Adobe marker says (Pillow's jpegmode "CMYK")."""
     lib = raster_decoder()
     src = np.frombuffer(blob, np.uint8)
     out = np.empty((height, width, components), np.uint8)
     err = ctypes.create_string_buffer(512)
     if lib.jpeg_decode(_u8p(src), len(blob), _u8p(out), out.size,
-                       _threads(), err, len(err)) != 0:
+                       _threads(), int(cmyk), err, len(err)) != 0:
         raise ValueError(err.value.decode("latin-1"))
     return out
 
@@ -374,6 +392,75 @@ def qoi_decode(blob, offset: int, pixels: int, bands: int) -> np.ndarray:
     if lib.qoi_decode(_u8p(src), len(src), pixels, bands, _u8p(out)) < 0:
         raise ValueError("the QOI data ends before the image does")
     return out
+
+
+def bcn_decode(data, width: int, height: int, n: int, signed: bool,
+               bands: int) -> tuple:
+    """(image, complete): the (height, width[, bands]) u8 image of Pillow's
+    bcn decoder over `data` (format n, 1..7, of `bands` bands; `signed`:
+    BC5S / BC6HS), and whether the data held every block row (rows past it
+    stay 0)."""
+    lib = raster_decoder()
+    src = np.frombuffer(data, np.uint8)
+    out = np.zeros((height, width, bands), np.uint8)
+    rows = lib.bcn_decode(_u8p(src), len(src), width, height, n, int(signed),
+                          _u8p(out), _threads())
+    return (out[..., 0] if bands == 1 else out), rows == (height + 3) // 4
+
+
+def icns_rle(blob, offset: int, count: int) -> tuple:
+    """(channel, end): the `count` bytes of an ICNS run-length channel from
+    blob[offset:] and the offset after it; ValueError where Pillow's
+    read_32 fails on it."""
+    lib = raster_decoder()
+    src = np.frombuffer(blob, np.uint8)[offset:]
+    out = np.zeros(count, np.uint8)
+    n = lib.icns_rle(_u8p(src), len(src), count, _u8p(out))
+    if n < 0:
+        raise ValueError("Error reading channel")
+    return out, offset + int(n)
+
+
+def msp_rle(blob, offset: int, rowlen: np.ndarray, linebytes: int,
+            cap: int) -> tuple:
+    """(stream, length): the first `cap` bytes of MspDecoder's stream from
+    blob[offset:] under the row map `rowlen`, and the stream's length;
+    ValueError with Pillow's reason where a row or a run is cut short."""
+    lib = raster_decoder()
+    src = np.frombuffer(blob, np.uint8)[offset:]
+    rows = np.ascontiguousarray(rowlen, np.uint16)
+    out = np.zeros(cap, np.uint8)
+    n = lib.msp_rle(_u8p(src), len(src), rows.ctypes.data_as(
+        ctypes.POINTER(ctypes.c_uint16)), len(rows), linebytes, _u8p(out),
+        cap)
+    if n == -1:
+        raise ValueError("Truncated MSP file")
+    if n < 0:
+        raise ValueError("Corrupted MSP file")
+    return out, int(n)
+
+
+def fli_decode(buf: bytes, image: np.ndarray) -> tuple:
+    """(status, err) of one call of Pillow's fli decoder on `buf` into the
+    C-contiguous (ysize, xsize) u8 `image`: bytes consumed (>= 0, it waits
+    for more) or -1 with err 0 (done) or Pillow's negative error code."""
+    lib = raster_decoder()
+    assert image.dtype == np.uint8 and image.flags.c_contiguous
+    src = np.frombuffer(buf, np.uint8)
+    err = ctypes.c_int32(0)
+    n = lib.fli_decode(_u8p(src), len(src), _u8p(image), image.shape[1],
+                       image.shape[0], ctypes.byref(err))
+    return int(n), err.value
+
+
+def xbm_decode(blob, offset: int, linebytes: int, rows: int) -> tuple:
+    """(lines, count): XbmDecode's (rows, linebytes) bytes from
+    blob[offset:] and the number of lines the data completes."""
+    lib = raster_decoder()
+    src = np.frombuffer(blob, np.uint8)[offset:]
+    out = np.zeros((rows, linebytes), np.uint8)
+    n = lib.xbm_decode(_u8p(src), len(src), linebytes, rows, _u8p(out))
+    return out, int(n)
 
 
 def _u8p(arr: np.ndarray):

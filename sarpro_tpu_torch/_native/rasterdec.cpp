@@ -1665,7 +1665,9 @@ void idct_smoothed_row(const Jpeg& j, Component& c, int R, const int* latch, con
 
 // The decoded image, (height, width, channels) u8, as Pillow hands it over:
 // L, RGB, or CMYK inverted ("CMYK;I").
-void render(Jpeg& j, uint8_t* out, int threads) {
+// cmyk: four components read as CMYK whatever an Adobe marker says (Pillow's
+// jpegmode "CMYK", which BLP files ask for)
+void render(Jpeg& j, uint8_t* out, int threads, bool cmyk) {
   const bool smooth = smoothing_ok(j);
   for (auto& c : j.comps) {
     if (j.lossless) {  // the samples are decoded already
@@ -1722,7 +1724,7 @@ void render(Jpeg& j, uint8_t* out, int threads) {
     else if (j.comps[0].id == 82 && j.comps[1].id == 71 && j.comps[2].id == 66) space = 2;
     else space = j.lossless ? 2 : 1;
   } else {
-    space = (j.adobe && j.adobe_transform != 0) ? 4 : 3;
+    space = (j.adobe && j.adobe_transform != 0 && !cmyk) ? 4 : 3;
   }
   // jdcolor.c: a lossless frame's samples are not converted
   if (j.lossless && (space == 1 || space == 4)) fail("unsupported color conversion request");
@@ -1792,14 +1794,14 @@ int64_t jpeg_info(const uint8_t* src, int64_t n, int64_t* info, char* err, int64
 // the file handed over as Pillow reads it (kPillowBlock bytes at a time).
 // 0, or -1 with the reason in `err`.
 int64_t jpeg_decode(const uint8_t* src, int64_t n, uint8_t* out, int64_t cap, int32_t threads,
-                    char* err, int64_t errcap) {
+                    int32_t cmyk, char* err, int64_t errcap) {
   try {
     Jpeg j(src, static_cast<size_t>(n));
     j.run(false);
     if (!j.have_sof || j.scans == 0) fail("no image data in JPEG file");
     const int64_t need = static_cast<int64_t>(j.width) * j.height * static_cast<int64_t>(j.comps.size());
     if (need > cap) fail("output buffer too small");
-    render(j, out, threads);
+    render(j, out, threads, cmyk != 0);
     return 0;
   } catch (const DecodeError& e) {
     set_error(err, errcap, e.what);

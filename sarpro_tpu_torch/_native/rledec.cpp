@@ -19,7 +19,15 @@
 //     image (fill 3, pad 8): n-bit samples packed LSB first into floats,
 //     each line starting on a byte, with the bits left in the buffer at the
 //     end of a line OR-ed into the next line's first byte, as Pillow does;
-//   * qoi_decode: QoiImagePlugin.QoiDecoder's op loop.
+//   * qoi_decode: QoiImagePlugin.QoiDecoder's op loop;
+//   * icns_rle: IcnsImagePlugin.read_32's run-length channels;
+//   * msp_rle: MspImagePlugin.MspDecoder's rows (a row map, then runs and
+//     literals per row, all rows into one byte stream);
+//   * fli_decode: FliDecode.c, one call of Pillow's `fli` decoder on the
+//     bytes ImageFile.load hands it (the frame chunk and its BLACK, BRUN,
+//     COPY, LC, SS2, colour and PSTAMP subchunks);
+//   * xbm_decode: XbmDecode.c's hex scanner (each byte the two characters
+//     after an 'x', a character that is no hex digit read as 0).
 //
 // Where Pillow fails the decode (a run past the line for PCX and TGA runs,
 // an SGI row outside the file), the call returns kOverrun.
@@ -207,6 +215,13 @@ int expand_row(uint8_t* dest, const uint8_t* src, int64_t chunks, int z,
   return 0;
 }
 
+inline int le16(const uint8_t* p) { return p[0] | (p[1] << 8); }
+
+inline int le32(const uint8_t* p) {
+  return static_cast<int>(uint32_t(p[0]) | (uint32_t(p[1]) << 8) |
+                          (uint32_t(p[2]) << 16) | (uint32_t(p[3]) << 24));
+}
+
 uint32_t be32(const uint8_t* p) {
   return (uint32_t(p[0]) << 24) | (uint32_t(p[1]) << 16) |
          (uint32_t(p[2]) << 8) | p[3];
@@ -371,6 +386,253 @@ int64_t qoi_decode(const uint8_t* src, int64_t n, int64_t pixels,
     put(v);
   }
   return 0;
+}
+
+}  // extern "C"
+
+extern "C" {
+
+// read_32's loop for one channel of `count` bytes from src[0:n] into out:
+// the bytes it took, or kOverrun where the channel does not come out at
+// exactly `count` bytes (a run past it, or data that ends first).
+int64_t icns_rle(const uint8_t* src, int64_t n, int64_t count, uint8_t* out) {
+  int64_t i = 0, left = count;
+  while (left > 0) {
+    if (i >= n) return kOverrun;
+    const int byte = src[i++];
+    int64_t block;
+    if (byte & 0x80) {
+      block = byte - 125;
+      if (i >= n || block > left) return kOverrun;
+      std::memset(out + count - left, src[i++], block);
+    } else {
+      block = byte + 1;
+      if (n - i < block || block > left) return kOverrun;
+      std::memcpy(out + count - left, src + i, block);
+      i += block;
+    }
+    left -= block;
+  }
+  return i;
+}
+
+// MspDecoder after its row map (rowlen, `rows` of them): the row bytes from
+// src[0:n], each row's runs (0, count, value) and literals (count, bytes)
+// or a blank row of `linebytes` 0xFF bytes for a length of 0, into one
+// stream of which out keeps the first `cap` bytes. The stream's length,
+// -1 for a row cut short, -2 for a run cut short.
+int64_t msp_rle(const uint8_t* src, int64_t n, const uint16_t* rowlen,
+                int64_t rows, int64_t linebytes, uint8_t* out, int64_t cap) {
+  int64_t len = 0, pos = 0;
+  auto put = [&](const uint8_t* p, int64_t k) {
+    for (int64_t j = 0; j < k; j++, len++)
+      if (len < cap) out[len] = p ? p[j] : 0xFF;
+  };
+  for (int64_t y = 0; y < rows; y++) {
+    const int64_t rl = rowlen[y];
+    if (rl == 0) {
+      put(nullptr, linebytes);
+      continue;
+    }
+    if (n - pos < rl) return -1;
+    const uint8_t* row = src + pos;
+    pos += rl;
+    int64_t idx = 0;
+    while (idx < rl) {
+      const int type = row[idx++];
+      if (type == 0) {
+        if (rl - idx < 2) return -2;
+        const int count = row[idx];
+        const uint8_t v = row[idx + 1];
+        for (int j = 0; j < count; j++, len++)
+          if (len < cap) out[len] = v;
+        idx += 2;
+      } else {
+        const int64_t k = idx + type <= rl ? type : rl - idx;
+        put(row + idx, k);
+        idx += type;
+      }
+    }
+  }
+  return len;
+}
+
+// One call of FliDecode.c on buf[0:bytes] with the "P" image im (ysize x
+// xsize, kept across calls): the bytes consumed when it waits for more
+// data, or -1 when the call ends, with *err 0 (the frame is done) or
+// Pillow's error code (-1 overrun, -2 broken, -3 unknown).
+int64_t fli_decode(const uint8_t* buf, int64_t bytes, uint8_t* im,
+                   int64_t xsize, int64_t ysize, int32_t* err) {
+  constexpr int kOver = -1, kBroken = -2, kUnknown = -3;
+  *err = 0;
+  if (bytes < 4) return 0;
+  const uint8_t* ptr = buf;
+  const int framesize = le32(ptr);
+  if (bytes + (bytes % 2) < framesize) return 0;
+  if (bytes < 8) return *err = kOver, -1;
+  if (le16(ptr + 4) != 0xF1FA) return *err = kUnknown, -1;
+  const int chunks = le16(ptr + 6);
+  ptr += 16;
+  bytes -= 16;
+  auto line = [&](int64_t y) { return im + y * xsize; };
+  for (int c = 0; c < chunks; c++) {
+    if (bytes < 10) return *err = kOver, -1;
+    const uint8_t* data = ptr + 6;
+#define OOB(k)                           \
+  if (data + (k) > ptr + bytes) {        \
+    *err = kOver;                        \
+    return -1;                           \
+  }
+    switch (le16(ptr + 4)) {
+      case 4:
+      case 11:
+      case 18:
+        break;
+      case 7: {  // SS2, word delta
+        const int lines = le16(data);
+        data += 2;
+        int64_t l = 0, y = 0;
+        for (; l < lines && y < ysize; l++, y++) {
+          uint8_t* out = line(y);
+          OOB(2)
+          int packets = le16(data);
+          data += 2;
+          while (packets & 0x8000) {
+            if (packets & 0x4000) {
+              y += 65536 - packets;
+              if (y >= ysize) return *err = kOver, -1;
+              out = line(y);
+            } else {
+              out[xsize - 1] = static_cast<uint8_t>(packets);
+            }
+            OOB(2)
+            packets = le16(data);
+            data += 2;
+          }
+          int p = 0;
+          int64_t x = 0;
+          for (; p < packets; p++) {
+            OOB(2)
+            x += data[0];
+            if (data[1] >= 128) {
+              OOB(4)
+              const int i = 256 - data[1];
+              if (x + i + i > xsize) break;
+              for (int j = 0; j < i; j++) {
+                out[x++] = data[2];
+                out[x++] = data[3];
+              }
+              data += 4;
+            } else {
+              const int i = 2 * data[1];
+              if (x + i > xsize) break;
+              OOB(2 + i)
+              std::memcpy(out + x, data + 2, i);
+              data += 2 + i;
+              x += i;
+            }
+          }
+          if (p < packets) break;
+        }
+        if (l < lines) return *err = kOver, -1;
+        break;
+      }
+      case 12: {  // LC, byte delta
+        int64_t y = le16(data);
+        const int64_t ymax = y + le16(data + 2);
+        data += 4;
+        for (; y < ymax && y < ysize; y++) {
+          uint8_t* out = line(y);
+          OOB(1)
+          const int packets = *data++;
+          int p = 0, i = 0;
+          int64_t x = 0;
+          for (; p < packets; p++, x += i) {
+            OOB(2)
+            x += data[0];
+            if (data[1] & 0x80) {
+              i = 256 - data[1];
+              if (x + i > xsize) break;
+              OOB(3)
+              std::memset(out + x, data[2], i);
+              data += 3;
+            } else {
+              i = data[1];
+              if (x + i > xsize) break;
+              OOB(2 + i)
+              std::memcpy(out + x, data + 2, i);
+              data += i + 2;
+            }
+          }
+          if (p < packets) break;
+        }
+        if (y < ymax) return *err = kOver, -1;
+        break;
+      }
+      case 13:  // BLACK
+        std::memset(im, 0, xsize * ysize);
+        break;
+      case 15: {  // BRUN
+        for (int64_t y = 0; y < ysize; y++) {
+          uint8_t* out = line(y);
+          data += 1;
+          int64_t x = 0;
+          int i = 0;
+          for (; x < xsize; x += i) {
+            OOB(2)
+            if (data[0] & 0x80) {
+              i = 256 - data[0];
+              if (x + i > xsize) break;
+              OOB(i + 1)
+              std::memcpy(out + x, data + 1, i);
+              data += i + 1;
+            } else {
+              i = data[0];
+              if (x + i > xsize) break;
+              std::memset(out + x, data[1], i);
+              data += 2;
+            }
+          }
+          if (x != xsize) return *err = kOver, -1;
+        }
+        break;
+      }
+      case 16:  // COPY
+        if (INT32_MAX / xsize < ysize) return *err = kOver, -1;
+        if (data + xsize * ysize > ptr + bytes) return ptr - buf;
+        std::memcpy(im, data, xsize * ysize);
+        break;
+      default:
+        return *err = kUnknown, -1;
+    }
+#undef OOB
+    const int advance = le32(ptr);
+    if (advance == 0) return *err = kBroken, -1;
+    if (advance < 0 || advance > bytes) return *err = kOver, -1;
+    ptr += advance;
+    bytes -= advance;
+  }
+  return -1;
+}
+
+// XbmDecode.c over src[0:n]: `rows` lines of `linebytes` bytes into out;
+// the number of lines the data completes.
+int64_t xbm_decode(const uint8_t* src, int64_t n, int64_t linebytes,
+                   int64_t rows, uint8_t* out) {
+  auto hex = [](int v) {
+    return v >= '0' && v <= '9' ? v - '0'
+           : v >= 'a' && v <= 'f' ? v - 'a' + 10
+           : v >= 'A' && v <= 'F' ? v - 'A' + 10 : 0;
+  };
+  int64_t i = 0, k = 0, total = linebytes * rows;
+  if (total <= 0) return rows;
+  while (true) {
+    while (i < n && src[i] != 'x') i++;
+    if (n - i < 3) return k / linebytes;
+    out[k++] = static_cast<uint8_t>((hex(src[i + 1]) << 4) + hex(src[i + 2]));
+    if (k >= total) return rows;
+    i += 3;
+  }
 }
 
 }  // extern "C"

@@ -12,9 +12,17 @@ RLE decoders), quirks included:
   * the data offset Pillow takes (the palette's size added where the
     header's offset points right after the header).
 Headers, depths, masks and compressions Pillow refuses raise RasterError,
-as does a file cut short. Pillow's `info` holds no strings for a BMP."""
+as does a file cut short. Pillow's `info` holds no strings for a BMP.
+
+`bitmap` is Pillow's `_bitmap` on its own: the header and palette of a
+bitmap without the file header, from any position (DIB files, the frames
+of ICO and CUR files), which `decode` then reads at the size the caller
+gives (an icon's frame is half its bitmap's height). Where Pillow's
+`_bitmap` raises struct.error (a header size or a mask cut short) so does
+`bitmap`, which hands the file to the next plugin."""
 from __future__ import annotations
 
+import dataclasses
 import struct
 
 import numpy as np
@@ -86,15 +94,35 @@ def _unpack(rows: np.ndarray, rawmode: str, width: int) -> np.ndarray:
     return px[..., order]
 
 
-def read(blob: bytes) -> pixels.Decoded:
-    if len(blob) < 18 or not blob.startswith(SIGNATURE):
-        raise RasterError("Not a BMP file")
-    offset = _u32(blob, 10)
-    header_size = _u32(blob, 14)
-    if header_size < 4 or len(blob) < 14 + header_size:
+@dataclasses.dataclass
+class Bitmap:
+    """What Pillow's `_bitmap` reads: the mode, rawmode and palette, the
+    size, the bits a pixel, the compression, the row direction (-1:
+    bottom-up), the row stride, and where the pixels start."""
+
+    mode: str
+    rawmode: str
+    width: int
+    height: int
+    bits: int
+    compression: int
+    direction: int
+    palette: bytes
+    offset: int
+    stride: int
+
+
+def bitmap(blob: bytes, pos: int, offset: int = 0,
+           header: int = 0) -> Bitmap:
+    """Pillow's `_bitmap(header, offset)` with the file at `pos` (`header`,
+    where not 0, is also that position: a 32-bit raw bitmap at 22, a
+    cursor's first, reads as BGRA)."""
+    header_size = struct.unpack("<I", blob[pos:pos + 4])[0]
+    pos += 4
+    if header_size > 4 and len(blob) < pos + header_size - 4:
         raise RasterError("Truncated File Read")
-    hd = blob[18:14 + header_size]
-    pos = 14 + header_size
+    hd = blob[pos:pos + max(0, header_size - 4)]
+    pos += len(hd)
     colors = 0
     masks = None
     if header_size == 12:
@@ -112,11 +140,11 @@ def read(blob: bytes) -> pixels.Decoded:
         if compression == 3:
             if len(hd) >= 48:
                 n = 4 if len(hd) >= 52 else 3
-                masks = [_u32(hd, 36 + 4 * i) for i in range(n)] + [0] * (4 - n)
-            else:
-                if len(blob) < pos + 12:
-                    raise RasterError("Truncated File Read")
-                masks = [_u32(blob, pos + 4 * i) for i in range(3)] + [0]
+                masks = [_u32(hd, 36 + 4 * i) for i in range(n)]
+                masks += [0] * (4 - n)
+            else:  # read(4) each: a mask cut short hands the file on
+                masks = [struct.unpack("<I", blob[p:p + 4])[0]
+                         for p in range(pos, pos + 12, 4)] + [0]
                 pos += 12
     else:
         raise RasterError(f"Unsupported BMP header type ({header_size})")
@@ -126,7 +154,6 @@ def read(blob: bytes) -> pixels.Decoded:
     if bits not in BIT2MODE:
         raise RasterError(f"Unsupported BMP pixel depth ({bits})")
     mode, rawmode = BIT2MODE[bits]
-    rle = False
     if compression == 3:
         key = (bits, tuple(masks) if bits == 32 else tuple(masks[:3]))
         if key not in MASK_MODES:
@@ -134,9 +161,10 @@ def read(blob: bytes) -> pixels.Decoded:
         rawmode = MASK_MODES[key]
         if bits == 32 and "A" in rawmode:
             mode = "RGBA"
-    elif compression in (1, 2):
-        rle = True
-    elif compression != 0:
+    elif compression == 0:
+        if bits == 32 and header == 22:
+            mode, rawmode = "RGBA", "BGRA"
+    elif compression not in (1, 2):
         raise RasterError(f"Unsupported BMP compression ({compression})")
     palette = b""
     if mode == "P":
@@ -154,26 +182,35 @@ def read(blob: bytes) -> pixels.Decoded:
             if len(entries) > 256:
                 raise RasterError("invalid palette size")
             palette = entries[:, 2::-1].tobytes()  # BGR(X) -> RGB
-    pixels.check_size(width, height)
-    start = offset or pos
-    if rle:
+    return Bitmap(mode, rawmode, width, height, bits, compression, direction,
+                  palette, offset or pos, ((width * bits + 31) >> 3) & ~3)
+
+
+def decode(blob: bytes, bm: Bitmap, width: int, height: int,
+           mapped: bool) -> np.ndarray:
+    """The (height, width[, bands]) pixels of the bitmap's tile at that
+    size; `mapped`: Pillow may map the file's rows (a file opened by its
+    path, not an icon's frame)."""
+    mode, rawmode, bits, start = bm.mode, bm.rawmode, bm.bits, bm.offset
+    if bm.compression in (1, 2):
         if mode == "1":
             raise RasterError("unknown raw mode for given image mode")
         try:
             data, n = _native.bmp_rle_decode(blob, start, width,
-                                             width * height, compression == 2)
+                                             width * height,
+                                             bm.compression == 2)
         except (ValueError, RuntimeError) as e:
             raise RasterError(f"BMP: {e}") from e
         if n < width * height:
             raise RasterError("not enough image data")
         arr = data.reshape(height, width)
     else:
-        stride = ((width * bits + 31) >> 3) & ~3
+        stride = bm.stride
         linebytes = (RAW_BITS.get(rawmode, 32) * width + 7) // 8
         # Pillow maps a file's rows in place where the rawmode is the mode
         # and the rows fit in it (ImageFile.load): rows then start `stride`
         # apart whatever their length; its decoder refuses a short stride
-        mapped = (rawmode == mode and mode in MAPMODES
+        mapped = (mapped and rawmode == mode and mode in MAPMODES
                   and start + stride * height <= len(blob))
         if stride < linebytes and not mapped:
             raise RasterError("BMP: the row stride is shorter than a row of "
@@ -189,6 +226,24 @@ def read(blob: bytes) -> pixels.Decoded:
             buf[start:], (height, linebytes), (stride, 1)) if height else \
             np.zeros((0, linebytes), np.uint8)
         arr = _unpack(rows, rawmode, width)
-    if direction == -1:
+    if bm.direction == -1:
         arr = arr[::-1]
-    return pixels.Decoded(mode, np.ascontiguousarray(arr), palette)
+    return np.ascontiguousarray(arr)
+
+
+def read(blob: bytes) -> pixels.Decoded:
+    if not blob.startswith(SIGNATURE):
+        raise SyntaxError("Not a BMP file")
+    bm = bitmap(blob, 14, offset=struct.unpack("<I", blob[10:14])[0])
+    pixels.check_size(bm.width, bm.height)
+    return pixels.Decoded(bm.mode, decode(blob, bm, bm.width, bm.height,
+                                          True), bm.palette)
+
+
+def dib_open(blob: bytes) -> pixels.Opened:
+    """A DIB file: a bitmap without its file header (DibImageFile)."""
+    bm = bitmap(blob, 0)
+    return pixels.Opened(bm.mode, (bm.width, bm.height),
+                         lambda: pixels.Decoded(bm.mode, decode(
+                             blob, bm, bm.width, bm.height, True),
+                             bm.palette))

@@ -31,11 +31,13 @@ SIGNATURE = b"\xff\xd8\xff"
 MODES = {1: "L", 3: "RGB", 4: "CMYK"}
 
 
-def read(blob: bytes) -> pixels.Decoded:
+def read(blob: bytes, cmyk: bool = False) -> pixels.Decoded:
+    """`cmyk`: four components read as CMYK even where an Adobe marker says
+    YCCK (Pillow's jpegmode "CMYK", which BLP files set)."""
     try:
         width, height, components = _native.jpeg_info(blob)
         pixels.check_size(width, height)
-        out = _native.jpeg_decode(blob, width, height, components)
+        out = _native.jpeg_decode(blob, width, height, components, cmyk)
     except (ValueError, RuntimeError) as e:
         raise RasterError(f"JPEG: {e}") from e
     return pixels.Decoded(MODES[components],

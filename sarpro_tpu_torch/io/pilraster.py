@@ -4,15 +4,22 @@ Pillow's `Image.open`, which the machine with the GPU does not have. The
 port decodes them with its own readers, to the image Pillow opens, trying
 Pillow 12.1's plugins in its order (open_image, PLUGINS):
 
-  * PNG (io/png.py), JPEG (io/jpeg.py), BMP (io/bmp.py), GIF (io/gif.py),
-    netpbm P1-P6, PFM and Pillow's extensions (io/netpbm.py), WebP
-    (io/webp.py: lossy, lossless, alpha, the first frame of an animation),
-    JPEG 2000 (io/jpeg2000.py: JP2 files and raw codestreams), FITS
-    (io/fits.py), McIdas AREA (io/mcidas.py), SPIDER (io/spider.py), IM
-    (io/im.py), SGI (io/sgi.py), TGA (io/tga.py), PCX and DCX (io/pcx.py),
-    Sun raster (io/sun.py), PSD (io/psd.py) and QOI (io/qoi.py);
-  * a file that a plugin the port does not read takes raises RasterError
-    naming the format, and so does content no plugin takes.
+  * PNG (io/png.py), JPEG (io/jpeg.py), BMP and DIB (io/bmp.py), GIF
+    (io/gif.py), netpbm P1-P6, PFM and Pillow's extensions (io/netpbm.py),
+    WebP (io/webp.py: lossy, lossless, alpha, the first frame of an
+    animation), JPEG 2000 (io/jpeg2000.py: JP2 files and raw codestreams),
+    FITS (io/fits.py), McIdas AREA (io/mcidas.py), SPIDER (io/spider.py),
+    IM (io/im.py), SGI (io/sgi.py), TGA (io/tga.py), PCX and DCX
+    (io/pcx.py), Sun raster (io/sun.py), PSD (io/psd.py), QOI (io/qoi.py),
+    ICO and CUR (io/ico.py), ICNS (io/icns.py), DDS (io/dds.py) and FTEX
+    (io/ftex.py) with their block-compressed textures (io/bcn.py), BLP
+    (io/blp.py), XBM (io/xbm.py), XPM (io/xpm.py), MSP (io/msp.py), PIXAR
+    (io/pixar.py), GBR (io/gbr.py), FLI / FLC (io/fli.py), PhotoCD
+    (io/pcd.py), XV thumbnails (io/xvthumb.py), IM Tools (io/imt.py) and
+    IPTC/NAA (io/iptc.py);
+  * AVIF files raise RasterError naming the format, the formats Pillow
+    opens but reads no pixels of here (NO_PIXELS) say so, and so does
+    content no plugin takes.
 
 Each reader's image then takes the JAX module's normalisation
 (io/pixels.normalise) and Pillow's decompression-bomb limit
@@ -26,7 +33,6 @@ read_prj_epsg; tests/test_torch_host_copies.py holds them equal):
 """
 from __future__ import annotations
 
-import re
 import struct
 from pathlib import Path
 
@@ -34,15 +40,27 @@ import numpy as np
 
 from ..errors import RasterError
 from . import (
+    blp,
     bmp,
+    dds,
     fits,
+    fli,
+    ftex,
+    gbr,
     gif,
+    icns,
+    ico,
     im,
+    imt,
+    iptc,
     jpeg,
     jpeg2000,
     mcidas,
+    msp,
     netpbm,
+    pcd,
     pcx,
+    pixar,
     pixels,
     png,
     psd,
@@ -52,6 +70,9 @@ from . import (
     sun,
     tga,
     webp,
+    xbm,
+    xpm,
+    xvthumb,
 )
 from .tiffio import GeoInfo
 
@@ -124,190 +145,28 @@ TRY_NEXT = (SyntaxError, IndexError, TypeError, KeyError, EOFError,
 FINAL = (ValueError, OSError, AttributeError, OverflowError, RuntimeError)
 
 
-def _u32be(b: bytes, o: int = 0) -> int:
-    return struct.unpack_from(">I", b, o)[0]
-
-
-def _u16le(b: bytes, o: int = 0) -> int:
-    return struct.unpack_from("<H", b, o)[0]
-
-
 def _u32le(b: bytes, o: int = 0) -> int:
     return struct.unpack_from("<I", b, o)[0]
-
-
-# How far the port follows the `_open` of a plugin it does not read: where
-# it would raise one of TRY_NEXT, the probe raises it too; otherwise the
-# plugin takes the file (each returns the format's name).
-def _cur(blob: bytes) -> str:
-    """CurImagePlugin._open up to the bitmap header's size: the largest of
-    the entries, and the word at its offset (at the end of the entries for
-    an offset of 0)."""
-    m, pos = b"", 6
-    for _ in range(_u16le(blob, 4)):
-        s = blob[pos:pos + 16]
-        pos += len(s)
-        if not m:
-            m = s
-        elif s[0] > m[0] and s[1] > m[1]:
-            m = s
-    if not m:
-        raise TypeError("No cursors were found")
-    at = _u32le(m, 12) or pos
-    _u32le(blob[at:at + 4])
-    return "CUR"
-
-
-def _ico(blob: bytes) -> str:
-    count = _u16le(blob, 4)
-    if not count or len(blob) < 6 + 16 * count:
-        raise IndexError("no icon entries")
-    return "ICO"
-
-
-def _gbr(blob: bytes) -> str:
-    header, version, width, height, depth = struct.unpack(">5I", blob[:20])
-    if header < 20 or version not in (1, 2) or not width or not height \
-            or depth not in (1, 4):
-        raise SyntaxError("not a GIMP brush")
-    if version == 2 and blob[20:24] != b"GIMP":
-        raise SyntaxError("not a GIMP brush, bad magic number")
-    return "GBR"
-
-
-def _fli(blob: bytes) -> str:
-    s = blob[:128]
-    if not (_ACCEPT["FLI"](s) and s[20:22] == bytes(2)
-            and s[42:80] == bytes(38) and s[88:] == bytes(40)):
-        raise SyntaxError("not an FLI/FLC file")
-    return "FLI"
-
-
-def _imt(blob: bytes) -> str:
-    """ImtImagePlugin._open: "width n", "height n" and "pixel n8" lines
-    before a form feed; a mode and a positive size take the file."""
-    buffer, pos = blob[:100], 100
-    if b"\n" not in buffer:
-        raise SyntaxError("not an IM file")
-    width = height = 0
-    mode = ""
-    field = re.compile(rb"([a-z]*) ([^ \r\n]*)")
-    while True:
-        if buffer:
-            c, buffer = buffer[:1], buffer[1:]
-        else:
-            c, pos = blob[pos:pos + 1], pos + 1
-        if not c or c == b"\x0c":
-            break
-        if b"\n" not in buffer:
-            buffer += blob[pos:pos + 100]
-            pos += 100
-        lines = buffer.split(b"\n")
-        c += lines.pop(0)
-        buffer = b"\n".join(lines)
-        if len(c) == 1 or len(c) > 100:
-            break
-        if c[0] == ord(b"*"):
-            continue
-        m = field.match(c)
-        if not m:
-            break
-        k, v = m.group(1, 2)
-        if k == b"width":
-            width = int(v)
-        elif k == b"height":
-            height = int(v)
-        elif k == b"pixel" and v == b"n8":
-            mode = "L"
-    if not mode or width <= 0 or height <= 0:
-        raise SyntaxError("not identified by this plugin")
-    return "IMT"
-
-
-def _iptc(blob: bytes) -> str:
-    """IptcImagePlugin._open up to its size: the fields it reads, and the
-    layer, size and compression tags it needs."""
-    info: dict = {}
-    pos = 0
-    while True:
-        s = blob[pos:pos + 5]
-        pos += len(s)
-        if not s.strip(b"\x00"):
-            break
-        tag = s[1], s[2]
-        if s[0] != 0x1C or tag[0] not in (1, 2, 3, 4, 5, 6, 7, 8, 9, 240):
-            raise SyntaxError("invalid IPTC/NAA file")
-        size = s[3]
-        if size > 132:
-            raise OSError("illegal field length in IPTC/NAA file")
-        if size == 128:
-            size = 0
-        elif size > 128:
-            size = _u32be((bytes(4) + blob[pos:pos + size - 128])[-4:])
-            pos += len(blob[pos:pos + size - 128])
-        else:
-            size = struct.unpack_from(">H", s, 3)[0]
-        if tag == (8, 10):
-            break
-        data = blob[pos:pos + size] if size else None
-        pos += len(data or b"")
-        info[tag] = data
-    layers, component = info[(3, 60)][0], info[(3, 60)][1]
-
-    def value(key):
-        return _u32be((bytes(4) + info[key])[-4:])
-
-    width, height = value((3, 20)), value((3, 30))
-    if value((3, 120)) not in (1, 5):
-        raise OSError("Unknown IPTC image compression")
-    mode = "L" if layers == 1 and not component else \
-        {3: "RGB", 4: "CMYK"}.get(layers, "") if component else ""
-    if not mode or width <= 0 or height <= 0:
-        raise SyntaxError("not identified by this plugin")
-    return "IPTC"
-
-
-def _pcd(blob: bytes) -> str:
-    s = blob[2048:2048 + 1539]
-    if not s.startswith(b"PCD_"):
-        raise SyntaxError("not a PCD file")
-    s[1538]
-    return "PCD"
 
 
 _ACCEPT = {
     "DIB": lambda p: _u32le(p) in (12, 40, 52, 56, 64, 108, 124),
     "AVIF": lambda p: p[4:8] == b"ftyp" and (
         p[8:12] in (b"avif", b"avis") or p[8:12] in (b"mif1", b"msf1")),
-    "BLP": lambda p: p.startswith((b"BLP1", b"BLP2")),
     "BUFR": lambda p: p.startswith((b"BUFR", b"ZCZC")),
     "CUR": lambda p: p.startswith(b"\0\0\2\0"),
-    "DDS": lambda p: p.startswith(b"DDS "),
     "EPS": lambda p: p.startswith(b"%!PS") or (
         len(p) >= 4 and _u32le(p) == 0xC6D3D0C5),
-    "FLI": lambda p: len(p) >= 16 and _u16le(p, 4) in (0xAF11, 0xAF12)
-    and _u16le(p, 14) in (0, 3),
-    "FTEX": lambda p: p.startswith(b"FTEX"),
-    "GBR": lambda p: len(p) >= 8 and _u32be(p) >= 20
-    and _u32be(p, 4) in (1, 2),
     "GRIB": lambda p: len(p) >= 8 and p.startswith(b"GRIB") and p[7] == 1,
     "HDF5": lambda p: p.startswith(b"\x89HDF\r\n\x1a\n"),
-    "ICNS": lambda p: p.startswith(b"icns"),
     "ICO": lambda p: p.startswith(b"\0\0\1\0"),
     "MPEG": lambda p: p.startswith(b"\x00\x00\x01\xb3"),
     "TIFF": lambda p: p.startswith((b"MM\x00\x2a", b"II\x2a\x00",
                                     b"MM\x2a\x00", b"II\x00\x2a",
                                     b"MM\x00\x2b", b"II\x2b\x00")),
-    "MSP": lambda p: p.startswith((b"DanM", b"LinS")),
-    "PIXAR": lambda p: p.startswith(b"\200\350\000\000"),
     "WMF": lambda p: p.startswith((b"\xd7\xcd\xc6\x9a\x00\x00",
                                    b"\x01\x00\x00\x00")),
-    "XBM": lambda p: p.lstrip().startswith(b"#define"),
-    "XPM": lambda p: p.startswith(b"/* XPM */"),
-    "XVTHUMB": lambda p: p.startswith(b"P7 332"),
 }
-_PROBES = {"CUR": _cur, "ICO": _ico, "GBR": _gbr, "FLI": _fli, "IMT": _imt,
-           "IPTC": _iptc, "PCD": _pcd}
 # Pillow opens these but reads no pixels of them here: a stub without a
 # handler, EPS without Ghostscript, MPEG without a decoder
 NO_PIXELS = ("BUFR", "EPS", "GRIB", "HDF5", "MPEG", "WMF")
@@ -317,8 +176,6 @@ def _elsewhere(name: str):
     """The opener of a format the port does not read: it refuses every file
     the plugin would take."""
     def refuse(blob: bytes):
-        if name in _PROBES:
-            _PROBES[name](blob)
         if name in NO_PIXELS:
             raise RasterError(f"{name}: Pillow opens the file but reads no "
                               "pixels of it")
@@ -332,26 +189,37 @@ def _elsewhere(name: str):
 # a pixels.Opened, or the pixels.Decoded of an eager reader.
 PLUGINS = (
     ("BMP", lambda p: p.startswith(bmp.SIGNATURE), bmp.read),
-    _elsewhere("DIB"),
+    ("DIB", _ACCEPT["DIB"], bmp.dib_open),
     ("GIF", lambda p: p[:6] in gif.SIGNATURES, gif.read),
     ("JPEG", lambda p: p.startswith(jpeg.SIGNATURE), jpeg.read),
     ("PPM", netpbm.accept, netpbm.read),
     ("PNG", lambda p: p.startswith(png.SIGNATURE), png.read),
-    _elsewhere("AVIF"), _elsewhere("BLP"), _elsewhere("BUFR"),
-    _elsewhere("CUR"),
+    _elsewhere("AVIF"),
+    ("BLP", blp.accept, blp.open_image),
+    _elsewhere("BUFR"),
+    ("CUR", _ACCEPT["CUR"], ico.cur_open),
     ("PCX", pcx.accept, pcx.open_image),
     ("DCX", pcx.dcx_accept, pcx.dcx_open_image),
-    _elsewhere("DDS"), _elsewhere("EPS"),
+    ("DDS", dds.accept, dds.open_image),
+    _elsewhere("EPS"),
     ("FITS", fits.accept, fits.open_image),
-    _elsewhere("FLI"), _elsewhere("FTEX"), _elsewhere("GBR"),
+    ("FLI", fli.accept, fli.open_image),
+    ("FTEX", ftex.accept, ftex.open_image),
+    ("GBR", gbr.accept, gbr.open_image),
     _elsewhere("GRIB"), _elsewhere("HDF5"),
     ("JPEG2000", lambda p: p.startswith(jpeg2000.SIGNATURES), jpeg2000.read),
-    _elsewhere("ICNS"), _elsewhere("ICO"),
+    ("ICNS", icns.accept, icns.open_image),
+    ("ICO", _ACCEPT["ICO"], ico.ico_read),
     ("IM", None, im.open_image),
-    _elsewhere("IMT"), _elsewhere("IPTC"),
+    ("IMT", None, imt.open_image),
+    ("IPTC", None, iptc.open_image),
     ("MCIDAS", mcidas.accept, mcidas.open_image),
-    _elsewhere("MPEG"), _elsewhere("TIFF"), _elsewhere("MSP"),
-    _elsewhere("PCD"), _elsewhere("PIXAR"),
+    _elsewhere("MPEG"),
+    # unreachable: RasterReader hands every II / MM file to TiffReader
+    _elsewhere("TIFF"),
+    ("MSP", msp.accept, msp.open_image),
+    ("PCD", None, pcd.open_image),
+    ("PIXAR", pixar.accept, pixar.open_image),
     ("PSD", psd.accept, psd.open_image),
     ("QOI", qoi.accept, qoi.open_image),
     ("SGI", sgi.accept, sgi.open_image),
@@ -359,11 +227,15 @@ PLUGINS = (
     ("SUN", sun.accept, sun.open_image),
     ("TGA", None, tga.open_image),
     ("WEBP", webp.accept, webp.read),
-    _elsewhere("WMF"), _elsewhere("XBM"), _elsewhere("XPM"),
-    _elsewhere("XVTHUMB"),
+    _elsewhere("WMF"),
+    ("XBM", xbm.accept, xbm.open_image),
+    ("XPM", xpm.accept, xpm.open_image),
+    ("XVTHUMB", xvthumb.accept, xvthumb.open_image),
 )
-READS = ("PNG, JPEG, BMP, GIF, netpbm and PFM, WebP, JPEG 2000, PCX, DCX, "
-         "FITS, IM, McIdas, PSD, QOI, SGI, SPIDER, Sun and TGA")
+READS = ("PNG, JPEG, BMP, DIB, GIF, netpbm and PFM, WebP, JPEG 2000, PCX, "
+         "DCX, FITS, IM, IMT, McIdas, PSD, QOI, SGI, SPIDER, Sun, TGA, ICO, "
+         "CUR, ICNS, DDS, FTEX, BLP, XBM, XPM, MSP, PIXAR, GBR, FLI, PCD, "
+         "XV thumbnails and IPTC")
 
 
 def open_image(blob: bytes) -> pixels.Decoded:
@@ -391,8 +263,10 @@ def open_image(blob: bytes) -> pixels.Decoded:
         pixels.check_size(width, height)
         try:
             return got.load()
-        except FINAL as e:
-            raise RasterError(str(e)) from e
+        except RasterError:
+            raise
+        except Exception as e:  # Pillow's load fails on any error
+            raise RasterError(str(e) or type(e).__name__) from e
     raise RasterError(f"cannot identify image file (the port reads {READS})")
 
 

@@ -93,6 +93,38 @@ def palette_rgb(indices: np.ndarray, palette: bytes) -> np.ndarray:
     return table[indices]
 
 
+def to_rgba(img: Decoded) -> np.ndarray:
+    """`convert("RGBA")` of an image of mode "1", "L", "LA", "P", "RGB" or
+    "RGBA" (a palette's entries black past its end, alpha 255 where the
+    mode has none)."""
+    a = img.array
+    if img.mode == "RGBA":
+        return a
+    if img.mode == "P":
+        rgb = palette_rgb(a, img.palette)
+    elif img.mode in ("1", "L", "LA"):
+        gray = a.astype(np.uint8) * 255 if img.mode == "1" else (
+            a if img.mode == "L" else a[..., 0])
+        rgb = np.repeat(gray[..., None], 3, axis=2)
+    elif img.mode == "RGB":
+        rgb = a
+    else:
+        raise RasterError(f"no conversion of a {img.mode} image to RGBA")
+    out = np.full(rgb.shape[:2] + (4,), 255, np.uint8)
+    out[..., :3] = rgb
+    if img.mode == "LA":
+        out[..., 3] = a[..., 1]
+    return out
+
+
+def readline(blob: bytes, pos: int) -> tuple:
+    """A file's readline() from `pos`: (the line with its line feed, the
+    position after it)."""
+    end = blob.find(b"\n", pos)
+    end = len(blob) if end < 0 else end + 1
+    return blob[pos:end], end
+
+
 def check_palette_mode(mode: str) -> None:
     """Pillow realises a plugin's palette at load: only "L", "LA", "P" and
     "PA" images take one."""

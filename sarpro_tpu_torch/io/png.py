@@ -20,12 +20,18 @@ Reader: `read`, to the image Pillow opens (`pixels.Decoded`), and
   * tEXt, zTXt and iTXt chunks as the text strings of Pillow's `info`
     (latin-1 keys and tEXt / zTXt values, UTF-8 iTXt values; the tEXt key
     "exif" holds bytes there, not a string).
-Anything that is not a PNG, or whose chunks are cut or fail their CRC,
+The image data is inflated as Pillow's loader feeds it (`_inflate`: the
+decode stops once the image is whole, so the zlib stream's end, its
+checksum and the data's CRCs are never checked), and the chunks after it
+are read as its `load_end` reads them (`_after_image`: leniently, text
+into `info`). Anything that is not a PNG, whose chunks before the image
+data are cut or fail their CRC, or whose image data runs out or is broken,
 raises `RasterError`, as does an image over Pillow's decompression-bomb
 limit.
 """
 from __future__ import annotations
 
+import re
 import struct
 import zlib
 
@@ -65,28 +71,85 @@ def encode_gray8(u8: np.ndarray) -> bytes:
             + _chunk(b"IEND", b""))
 
 
-def _chunks(blob: bytes):
-    """(kind, data) of each chunk up to IEND. CRCs are checked up to the
-    first IDAT, as Pillow checks them (it skips the CRCs of the image data
-    and of the chunks after it)."""
-    pos = len(SIGNATURE)
-    checked = True
+# PngStream.read's chunk types, and ImageFile.load's read size (Pillow's
+# MAXBLOCK), in which Pillow's load_read hands the decoder the image data
+_CID = re.compile(rb"\w\w\w\w")
+MAXBLOCK = 65536
+TEXT = (b"tEXt", b"zTXt", b"iTXt")
+
+
+def _header(blob: bytes, pos: int):
+    """(length, kind) of the chunk header at pos, or None where fewer than 8
+    bytes are left."""
+    if pos + 8 > len(blob):
+        return None
+    return struct.unpack(">I4s", blob[pos:pos + 8])
+
+
+def _inflate(blob: bytes, pos: int, need: int) -> tuple:
+    """(data, end): the first `need` bytes of the image data that starts
+    with the IDAT chunk at `pos`, inflated as Pillow's load feeds its zip
+    decoder (MAXBLOCK bytes of a chunk at a time, the next chunk's CRC
+    skipped unchecked, its header read only while data is needed), and the
+    position of the end of the last block read. The zlib stream's end and
+    checksum are never reached once the image is whole."""
+    inflater = zlib.decompressobj()
+    out = bytearray()
+    length, kind = _header(blob, pos)
+    at, left = pos + 8, length
+    while len(out) < need:
+        if left <= 0:  # the next chunk, past its predecessor's CRC
+            head = _header(blob, at + 4)
+            if head is None:
+                raise RasterError(f"truncated PNG: {pixels.TRUNCATED}")
+            length, kind = head
+            if not _CID.match(kind):
+                raise RasterError(f"broken PNG file (chunk {kind!r})")
+            if kind not in (b"IDAT", b"DDAT", b"fdAT"):
+                raise RasterError(f"truncated PNG: {pixels.TRUNCATED}")
+            at += 12
+            if kind == b"fdAT":
+                at, length = at + 4, length - 4
+            left = length
+        step = min(MAXBLOCK, left)
+        block = blob[at:at + step]
+        if not block:
+            raise RasterError(f"truncated PNG: {pixels.TRUNCATED}")
+        at, left = at + len(block), left - step
+        try:
+            out += inflater.decompress(inflater.unconsumed_tail + block,
+                                       need - len(out))
+        except zlib.error as e:
+            raise RasterError(f"broken PNG: {e}") from e
+    return bytes(out), at
+
+
+def _after_image(blob: bytes, pos: int, info: dict) -> None:
+    """PngImageFile.load_end from the end of the last image data read: each
+    chunk's CRC skipped, text chunks into `info` up to IEND; a header that
+    is cut short or no chunk type ends it quietly, a chunk cut short fails
+    the load, as Pillow's does."""
     while True:
-        if pos + 8 > len(blob):
-            raise RasterError("truncated PNG: no IEND chunk")
-        length, kind = struct.unpack(">I4s", blob[pos:pos + 8])
-        end = pos + 8 + length
-        if end + 4 > len(blob):
-            raise RasterError(f"truncated PNG: chunk {kind!r} is cut short")
-        data = blob[pos + 8:end]
-        checked = checked and kind != b"IDAT"
-        if checked and zlib.crc32(kind + data) & 0xFFFFFFFF != \
-                struct.unpack(">I", blob[end:end + 4])[0]:
-            raise RasterError(f"broken PNG: bad CRC in chunk {kind!r}")
-        yield kind, data
+        head = _header(blob, pos + 4)
+        if head is None or not _CID.match(head[1]):
+            return
+        length, kind = head
+        pos += 12
         if kind == b"IEND":
             return
-        pos = end + 4
+        if kind == b"fdAT":
+            length -= 4
+        data = blob[pos:pos + length] if length > 0 else b""
+        if len(data) < length:
+            raise RasterError(f"truncated PNG: chunk {kind!r} is cut short")
+        pos += max(0, length)
+        if kind in TEXT:
+            try:
+                _text(kind, data, info)
+            except UnicodeDecodeError:
+                return
+        elif kind == b"eXIf":
+            info.pop("exif", None)
 
 
 def _text(kind: bytes, data: bytes, info: dict) -> None:
@@ -234,22 +297,36 @@ def read(blob: bytes) -> pixels.Decoded:
         raise RasterError("not a PNG file")
     header = None
     palette = b""
-    idat = []
     info: dict = {}
-    for kind, data in _chunks(blob):
+    pos = len(SIGNATURE)
+    while True:  # PngImageFile._open: the chunks before the image data
+        head = _header(blob, pos)
+        if head is None:
+            raise RasterError("truncated PNG: no IDAT chunk")
+        length, kind = head
+        if not _CID.match(kind):
+            raise RasterError(f"broken PNG file (chunk {kind!r})")
+        if kind in (b"IDAT", b"IEND"):
+            break
+        end = pos + 8 + length
+        if end + 4 > len(blob):
+            raise RasterError(f"truncated PNG: chunk {kind!r} is cut short")
+        data = blob[pos + 8:end]
+        if zlib.crc32(kind + data) & 0xFFFFFFFF != \
+                struct.unpack(">I", blob[end:end + 4])[0]:
+            raise RasterError(f"broken PNG: bad CRC in chunk {kind!r}")
         if kind == b"IHDR":
             if len(data) < 13:
                 raise RasterError("truncated IHDR chunk")
             header = struct.unpack(">IIBBBBB", data[:13])
         elif kind == b"PLTE":
             palette = data
-        elif kind == b"IDAT":
-            idat.append(data)
-        elif kind in (b"tEXt", b"zTXt", b"iTXt"):
+        elif kind in TEXT:
             _text(kind, data, info)
         elif kind == b"eXIf":
             info.pop("exif", None)  # bytes in Pillow's info
-    if header is None or not idat:
+        pos = end + 4
+    if header is None or kind != b"IDAT":
         raise RasterError("broken PNG: no IHDR or no IDAT chunk")
     cols, rows, depth, ctype, _, filt, interlace = header
     if ctype not in _SAMPLES or depth not in _DEPTHS[ctype]:
@@ -260,10 +337,14 @@ def read(blob: bytes) -> pixels.Decoded:
     if rows == 0 or cols == 0:
         raise RasterError("broken PNG: empty image")
     pixels.check_size(cols, rows)
-    try:
-        raw = zlib.decompress(b"".join(idat))
-    except zlib.error as e:
-        raise RasterError(f"broken PNG: {e}") from e
+    bits = _SAMPLES[ctype] * depth
+    passes = ADAM7 if interlace else ((0, 0, 1, 1),)
+    need = sum(-(-(rows - y0) // dy) * (1 + (-(-(cols - x0) // dx) * bits
+                                             + 7) // 8)
+               for y0, x0, dy, dx in passes
+               if rows > y0 and cols > x0)
+    raw, end = _inflate(blob, pos, need)
+    _after_image(blob, end, info)
     img = _image(raw, rows, cols, depth, _SAMPLES[ctype], bool(interlace))
     if ctype == 3:
         return pixels.Decoded("P", img[..., 0], palette, info)

@@ -10,7 +10,7 @@ image's mode (bool for "1", int32 for "I", float32 for "F", uint16 for the
   * samples: "L", "P", "I;16" / "I;16L" / "I;16B", "I" / "I;32" / "I;32S"
     / "I;32B", "F" / "F;32F" / "F;32BF", and the integer-to-float "F;8" /
     "F;8S" / "F;16" / "F;16S" / "F;32";
-  * pixels: "RGB", "BGR", "RGBX", "BGRX", "BGRA", "LA", "BGRA;15Z" (5-5-5
+  * pixels: "RGB", "BGR", "RGBA", "RGBX", "BGRX", "BGRA", "LA", "BGRA;15Z" (5-5-5
     with an inverted alpha bit), and the line-interleaved ";L" forms (each
     band's row after the other's).
 Only the rawmodes the readers use are here.
@@ -27,7 +27,7 @@ BITS = {
     "L": 8, "P": 8, "I;16": 16, "I;16L": 16, "I;16B": 16, "I": 32,
     "I;32": 32, "I;32S": 32, "I;32B": 32, "F": 32, "F;32F": 32,
     "F;32BF": 32, "F;8": 8, "F;8S": 8, "F;16": 16, "F;16S": 16, "F;32": 32,
-    "RGB": 24, "BGR": 24, "RGBX": 32, "BGRX": 32, "BGRA": 32, "LA": 16,
+    "RGB": 24, "BGR": 24, "RGBA": 32, "RGBX": 32, "BGRX": 32, "BGRA": 32, "LA": 16,
     "BGRA;15Z": 16, "RGB;L": 24, "RGBA;L": 32, "RGBX;L": 32, "CMYK;L": 32,
     "YCbCr;L": 24, "LA;L": 16, "PA;L": 16,
 }
@@ -44,7 +44,8 @@ _SCALAR = {  # rawmode -> (file dtype, image dtype)
 _FLOAT_BITS = {"F": "<u4", "F;32F": "<u4", "F;32BF": ">u4"}
 # interleaved pixels: rawmode -> the byte of each output band
 _PIXELS = {
-    "RGB": (3, (0, 1, 2)), "BGR": (3, (2, 1, 0)), "RGBX": (4, (0, 1, 2)),
+    "RGB": (3, (0, 1, 2)), "BGR": (3, (2, 1, 0)), "RGBA": (4, (0, 1, 2, 3)),
+    "RGBX": (4, (0, 1, 2)),
     "BGRX": (4, (2, 1, 0)), "BGRA": (4, (2, 1, 0, 3)), "LA": (2, (0, 1)),
 }
 # line-interleaved: rawmode -> (planes in the line, planes kept)

@@ -33,7 +33,10 @@ def test_port_sources_import_no_jax_pillow_or_cv2():
     assert {"pilraster.py", "pixels.py", "png.py", "jpeg.py", "bmp.py",
             "gif.py", "netpbm.py", "jpeg2000.py", "webp.py", "rawmode.py",
             "fits.py", "mcidas.py", "spider.py", "im.py", "sgi.py", "tga.py",
-            "pcx.py", "sun.py", "psd.py", "qoi.py"} <= {
+            "pcx.py", "sun.py", "psd.py", "qoi.py", "ico.py", "icns.py",
+            "bcn.py", "dds.py", "ftex.py", "blp.py", "xbm.py", "xpm.py",
+            "msp.py", "pixar.py", "gbr.py", "fli.py", "pcd.py", "xvthumb.py",
+            "imt.py", "iptc.py"} <= {
                 p.name for p in (PORT / "io").glob("*.py")}
     for line in ("import sarpro_tpu", "from sarpro_tpu.io import safe",
                  "  from sarpro_tpu import _native", "import jax.numpy"):
@@ -240,6 +243,19 @@ def test_cpu_slice_runs_with_jax_and_pillow_blocked(tmp_path):
             data = RasterReader(d / name)._tiff._data[..., 0]
             assert data.dtype == ref.dtype and np.array_equal(data, ref), \
                 name
+        # Pillow's long tail: the files chip_smoke.LONGTAIL_FIXTURES names
+        # decode to the SHA-256 of Pillow's decode, and the BC4 / BC7 / IMT
+        # writers' bands read back (BC4 and BC7 within their block ramps)
+        for name, digest in chip_smoke.LONGTAIL_FIXTURES.items():
+            data = RasterReader(chip_smoke.FORMATS_DIR / name)._tiff._data
+            assert chip_smoke.decode_digest(data) == digest, name
+        for label, name, writer in chip_smoke._longtail_bands(64):
+            (d / name).write_bytes(writer())
+            data = RasterReader(d / name)._tiff._data[..., 0]
+            ref = chip_smoke.formats_u8(chip_smoke.formats_dn(
+                chip_smoke.FORMATS_SEED + 3, 64, 64))
+            err = np.abs(data.astype(int) - ref).max()
+            assert err <= (0 if label == "IMT L" else 18), (label, err)
         for name, (ref, tol) in want.items():
             data = RasterReader(d / name)._tiff._data
             ref = ref if ref.ndim == 3 else ref[..., None]

@@ -409,6 +409,24 @@ def test_broken_png_is_refused_as_by_jax(tmp_path, rng, name):
     _refused(path, "PNG")
 
 
+@pytest.mark.parametrize("form", ["gray 8", "rgba 8", "palette 4"])
+@pytest.mark.parametrize("interlace", [False, True])
+def test_png_bit_flips_agree_with_jax(tmp_path, rng, form, interlace):
+    """Pillow checks no CRC past the chunks before the image data, stops
+    inflating once the image is whole (the zlib checksum unread) and reads
+    the chunks after it leniently: each flipped file opens, or is refused,
+    as the JAX reader opens or refuses it."""
+    from test_torch_science_rasters import agree, flips
+
+    arr, depth, ctype, palette = _form(rng, form, (9, 14))
+    blob = _png(arr, depth, ctype, (4, 1), palette, interlace,
+                texts=((b"tEXt", b"k\0v"),), idat_parts=2)
+    for k, b in enumerate(flips(blob, rng, 40, 33)):
+        path = tmp_path / f"f{k}.png"
+        path.write_bytes(b)
+        agree(path)
+
+
 def test_png_codec_round_trip_through_pillow(rng):
     """The writer's file through Pillow and through the reader, and
     Pillow's own file through the reader."""
