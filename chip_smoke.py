@@ -217,7 +217,19 @@ prints no result):
      the launch counts set to 0 just before and read just after, bit-equal
      to the plain resample, and is saved as a CLAHE gray JPEG that reads
      back;
- 18. with --walls N only: every warm path N times more, interleaved, with
+ 18. avif: io/avif over sarpro_tpu_torch/_native/av1dec.cpp (libavif
+     1.3.0's container, AV1 intra key frames of 8-bit 4:2:0 without
+     in-loop filters, libyuv's YUV to RGB) on the files of tests/data/avif
+     (written by Pillow from AVIF_SEED; AVIF_FIXTURES pins the SHA-256 of
+     Pillow's decode of each, held in tests/test_torch_avif.py) and on the
+     committed 9216^2 SAR-like band of tests/data/avif_band (Pillow at
+     speed 6, autotiling, loop filter off; AVIF_BAND_SHA256), with a .wld
+     and a .prj beside a copy of it. Each opens through RasterReader
+     (decode ms on the host clock, median of 3, MP/s), decodes to the
+     pinned SHA-256, reads decimated to 2048^2 on the card (cubic) with the
+     launch counts set to 0 just before and read just after, bit-equal to
+     the plain resample, and is saved as a CLAHE gray JPEG that reads back;
+ 19. with --walls N only: every warm path N times more, interleaved, with
      medians and quartiles of its wall; the no-warp synRGB read through
      each of the two loaders (full DN + device resample, decimated read) in
      the same rounds; a torch.profiler trace of the single-band TIFF, the
@@ -452,6 +464,81 @@ WEBP_FIXTURES = {
     "anim_two_frames.webp": ("deae7540ce10f6c3dc893aac73217345"
                              "188f155937c2066b7e4fa79ef2d60201"),
 }
+# the avif phase's files: tests/data/avif, written by Pillow 12.1 (aom
+# 3.12.1, loop filter off) from AVIF_SEED (tests/test_torch_avif.py's
+# fixture_files), with the SHA-256 of Pillow's decode of each, which the
+# port's must match; and the SAR-like band of tests/data/avif_band
+# (avif_band_u8 at AVIF_BAND_SIDE^2, saved by Pillow at speed 6, quality
+# AVIF_BAND_QUALITY, autotiling, loop filter off by
+# tests/test_torch_avif.band_file: 0.97 MB; the card's machine has no
+# encoder)
+AVIF_DIR = ROOT / "tests" / "data" / "avif"
+AVIF_BAND = ROOT / "tests" / "data" / "avif_band" / "sar_band_9216.avif"
+AVIF_SEED = 21
+AVIF_BAND_SIDE = 9216
+AVIF_BAND_QUALITY = 10
+AVIF_FIXTURES = {
+    "s6_q10.avif": ("966c408207f06c5bfa8f8a653e78ab3c"
+                    "0a675de42b0a9ceba9800899fec375ab"),
+    "s6_q50.avif": ("27fdbe9119e6727871051556615746fb"
+                    "cdc520bf9da01b6aa89065d105cb91bd"),
+    "s6_q90.avif": ("9d1a136ebc59b2dafda51edf407a0783"
+                    "04c0be15ca63d735056454ef19afe7f7"),
+    "s6_q100.avif": ("19749f3b268ac4a930117703fbb14854"
+                     "a6bec0c76ac7640107de193b62a84010"),
+    "s8_q10.avif": ("982f85c54f9b8bb186b8a81afda27858"
+                    "dcef934c23e77aa2577a724167577eae"),
+    "s8_q50.avif": ("b406c24b19a3e01e6a3fb6d4a3ead8d0"
+                    "8eb65dd51f459028e4d8fcd2285e7f3c"),
+    "s8_q90.avif": ("bb9e75af462ae23b91590f90823b8f09"
+                    "b383221f63a3ea6237ab526095cebe5f"),
+    "s8_q100.avif": ("19749f3b268ac4a930117703fbb14854"
+                     "a6bec0c76ac7640107de193b62a84010"),
+    "s10_q10.avif": ("4ce37ed5ddda9c519f12547556c8f6c5"
+                     "2df14f7487030bef6e647be58bcc7fa6"),
+    "s10_q50.avif": ("a0ac1ea6c5dadd0f5b17437ba5c67891"
+                     "c65351d9d3946e60d0163e92eaa2f57a"),
+    "s10_q90.avif": ("6a3520e7b89d05b8885b72862e54fabc"
+                     "820107de9f41f8d4292e25c547ca9bbd"),
+    "s10_q100.avif": ("19749f3b268ac4a930117703fbb14854"
+                      "a6bec0c76ac7640107de193b62a84010"),
+    "size_1x1.avif": ("db15c5c5f52a9d72b0c9bd4e4e90744c"
+                      "2830d4254479204ea7386f35d8fd4fa0"),
+    "size_7x5.avif": ("1d2d8ca347ccdc7d898b38bd64cf8a76"
+                      "411107f97eff96b0deed277e397e7a86"),
+    "size_257x129.avif": ("df87f52156569782d5b118d3e4464fe0"
+                          "5f1735d4e5e2e97d1221adaae96d6863"),
+    "tiles_2x2.avif": ("1826c7cf3c5f57bb292f08d09c6f48d3"
+                       "45fe8951da2a88703afb1b397bf8bedc"),
+    "off_tx64.avif": ("786224f672fb6275e3d2dcda5c4f7c02"
+                      "eba797ceaf208f1efae85ce0c3be65b6"),
+    "off_dct_only.avif": ("462399c56bb79f96aa47054aab9c5212"
+                          "a466030f2643ac4ba3fca8fb8459b9b3"),
+    "off_smooth.avif": ("68e4537908c541d00b7dc925ba441205"
+                        "8767ead786c781497556d5292770f462"),
+    "off_paeth.avif": ("65cc97ed08334f96c1940072a0dc999e"
+                       "3e1eb853d1247c63f3b494314bd27836"),
+    "off_cfl.avif": ("bd29ad6ae823836c8d1a7ac416d1d752"
+                     "535108791669cad7954f31f4793e9f85"),
+    "off_filter_intra.avif": ("3fd4e933359bd81b01b2d0ec188af30e"
+                              "94569cbd0932e03953e7634160780bd3"),
+    "off_edge_filter.avif": ("cd1cededb3aabbed2dd597a4f5618b8e"
+                             "0fd7092f1162c6f4c14555ed7b0c0246"),
+    "off_directional.avif": ("94f7058041145bd1689d2363cc63414e"
+                             "b88a223ed69ee2bbed640d31b3eef3e1"),
+    "off_angle_delta.avif": ("eb5cc3eae5a8c6dc0af80a6c358f4500"
+                             "f0831626e9ca69bc45b4a65989151256"),
+    "off_reduced_tx_set.avif": ("5eac39e47fff85eec81e8ac1c0b5804b"
+                                "4b1f7c5287198592147ca7c47175c29d"),
+    "minimal.avif": ("e41bc9f0f11a3bcf0382d6dcadaa8626"
+                     "e6c27ec600192dfc24608913907e2f20"),
+    "metadata.avif": ("27fdbe9119e6727871051556615746fb"
+                      "cdc520bf9da01b6aa89065d105cb91bd"),
+    "limited_range.avif": ("ff73cb35f1f1e347e95821c24862c3dd"
+                           "9e933c532dfd40ce0cd1ac0c5299150c"),
+}
+AVIF_BAND_SHA256 = ("0fac26190af3efd4cf09c6ceaed08687"
+                    "1078c04bb00ad9c2561349724e90840e")
 # the rasters phase's JPEG codings: tests/data/jpeg, written from JPEG_SEED
 # on by libjpeg-turbo 3.1.3's own encoder (tests/ljt_encode.py) or Pillow
 # (tests/test_torch_jpeg_coding.py): a SAR-like arithmetic-coded strip
@@ -4284,6 +4371,12 @@ def formats_u8(dn):
     return np.clip(db, 0, 255).astype(np.uint8)
 
 
+def avif_band_u8(side: int):
+    """The avif phase's band: formats_u8 of formats_dn(AVIF_SEED, side,
+    side), the u8 product of make_safe's DN."""
+    return formats_u8(formats_dn(AVIF_SEED, side, side))
+
+
 def pfm_write(band) -> bytes:
     """A little-endian "Pf" PFM of a float32 band (rows bottom-up, scale
     -1)."""
@@ -4692,6 +4785,68 @@ def phase_longtail(work: Path, smi: str) -> dict:
             del data
             _read_and_save("longtail", label, reader, path, smi, totals)
             path.unlink()
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    return totals
+
+
+def phase_avif(work: Path, smi: str) -> dict:
+    """io/avif on the card's machine: each file of AVIF_FIXTURES and the
+    committed band (with a .wld and a .prj) opens through RasterReader
+    (decode timed on the host clock, median of 3), decodes to the SHA-256
+    of Pillow's decode, reads decimated to SIZE^2 on the card (bit-equal to
+    the plain resample) and is saved as a CLAHE gray JPEG that reads back
+    (but the 1 x 1 file: its read is a constant band, whose save launches
+    no histogram). Returns the launches of the driven reads and saves."""
+    from sarpro_tpu_torch import _native, ops
+    from sarpro_tpu_torch.io import raster
+    from sarpro_tpu_torch.io.writers.worldfile import write_prj_file
+
+    _native.raster_decoder()  # built in phase_build; raises if it did not
+    d = work / "avif"
+    d.mkdir()
+    totals = {k: 0 for k in ops.launch_counts()}
+    gt = [500000.0, 10.0, 0.0, 5100000.0, 0.0, -10.0]
+    files = [(name, AVIF_DIR / name, want)
+             for name, want in AVIF_FIXTURES.items()]
+    band = d / AVIF_BAND.name
+    shutil.copyfile(AVIF_BAND, band)
+    band.with_suffix(".wld").write_text(
+        "10.0\n0.0\n0.0\n-10.0\n500005.0\n5099995.0\n")
+    write_prj_file(band, "EPSG:32632")
+    files.append(("SAR band", band, AVIF_BAND_SHA256))
+    try:
+        for label, path, want in files:
+            walls = []
+            for _ in range(3):
+                reader = None  # the last decode goes before the next one
+                t0 = time.perf_counter()
+                reader = raster.RasterReader(path)
+                walls.append(time.perf_counter() - t0)
+            data = reader._tiff._data
+            digest = decode_digest(data)
+            if digest != want:
+                raise AssertionError(f"avif: {label} decodes to SHA-256 "
+                                     f"{digest}, Pillow's is {want}")
+            if path == band:
+                md = reader.metadata
+                if md.geotransform != gt or md.epsg != 32632:
+                    raise AssertionError(f"avif: {label}: geotransform "
+                                         f"{md.geotransform}, EPSG {md.epsg}")
+            rows, cols, bands = data.shape
+            wall = statistics.median(walls)
+            mp = rows * cols / 1e6
+            mb = path.stat().st_size / 1e6
+            log(f"avif: {label} {rows} x {cols} x {bands} ({mp:.4f} MP, "
+                f"{mb:.4f} MB): decode {wall * 1e3:.2f} ms (host clock, "
+                f"median of 3; {', '.join(f'{w * 1e3:.2f}' for w in walls)}"
+                f"), {mp / wall:.2f} MP/s, equal to Pillow's decode; host "
+                f"CPU {_host_cpu()}; on {smi}")
+            del data
+            if rows * cols > 1:
+                _read_and_save("avif", label, reader, path, smi, totals)
+            else:
+                reader.close()
     finally:
         shutil.rmtree(d, ignore_errors=True)
     return totals
@@ -5188,6 +5343,7 @@ def main() -> int:
         webp_launches = timed(phase_webp, work, smi)
         formats_launches = timed(phase_formats, work, smi)
         longtail_launches = timed(phase_longtail, work, smi)
+        avif_launches = timed(phase_avif, work, smi)
         if args.walls:
             timed(phase_walls, args.walls, safe, work, smi)
     finally:
@@ -5224,6 +5380,7 @@ def main() -> int:
         entry["webp_launches"] = webp_launches[name]
         entry["formats_launches"] = formats_launches[name]
         entry["longtail_launches"] = longtail_launches[name]
+        entry["avif_launches"] = avif_launches[name]
         if also:
             entry["also_replaces"] = also[0]
         kernels.append(entry)

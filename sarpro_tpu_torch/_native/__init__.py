@@ -17,9 +17,9 @@ the JPEG 2000 codestream, for io/jpeg2000.py; `webpdec.cpp`: a WebP frame's
 VP8 / VP8L and ALPH chunks, for io/webp.py; `rledec.cpp`: the run-length
 scanlines of SGI, TGA, PCX, Sun and PSD files and QOI's op stream, for
 io/sgi.py, io/tga.py, io/pcx.py, io/sun.py, io/psd.py and io/qoi.py;
-`bcndec.cpp`: the BC1-BC7 blocks of DDS and FTEX textures, for io/bcn.py)
-build
-the same way into one
+`bcndec.cpp`: the BC1-BC7 blocks of DDS and FTEX textures, for io/bcn.py;
+`av1dec.cpp` with its generated `av1_tables.h`: an AV1 still key frame and
+its YUV-to-RGB conversion, for io/avif.py) build the same way into one
 library of their own, at their first use, with FMA contraction off so the
 9/7 wavelet rounds as written. They have no fallback: where that library
 cannot be built, `raster_decoder()` raises with the compiler's message.
@@ -51,16 +51,17 @@ _TRIED = False
 _LOAD_LOCK = threading.Lock()
 
 
-def _compile(sources: list, stem: str, extra: tuple = ()) -> tuple:
-    """(path, None) of the library built from `sources` with CXX_FLAGS and
-    `extra`, built first if needed; (None, why) where it cannot be
-    built."""
+def _compile(sources: list, stem: str, extra: tuple = (),
+             headers: tuple = ()) -> tuple:
+    """(path, None) of the library built from `sources` (which include
+    `headers`) with CXX_FLAGS and `extra`, built first if needed; (None,
+    why) where it cannot be built."""
     if not all(p.exists() for p in sources):
         return None, "missing sources: " + ", ".join(
             str(p) for p in sources if not p.exists())
     flags = (*CXX_FLAGS, *extra)
     digest = hashlib.sha256(" ".join(flags).encode())
-    for src in sources:
+    for src in (*sources, *headers):
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     so = BUILD_DIR / f"{stem}_{digest.hexdigest()[:16]}.so"
@@ -154,6 +155,8 @@ J2K_SOURCE = RASTER_SOURCE.with_name("j2kdec.cpp")
 WEBP_SOURCE = RASTER_SOURCE.with_name("webpdec.cpp")
 RLE_SOURCE = RASTER_SOURCE.with_name("rledec.cpp")
 BCN_SOURCE = RASTER_SOURCE.with_name("bcndec.cpp")
+AV1_SOURCE = RASTER_SOURCE.with_name("av1dec.cpp")
+AV1_TABLES = RASTER_SOURCE.with_name("av1_tables.h")
 # the 9/7 wavelet and the ICT are float code: no FMA contraction
 RASTER_FLAGS = ("-ffp-contract=off",)
 _RASTER: Optional[ctypes.CDLL] = None
@@ -167,10 +170,11 @@ def raster_decoder() -> ctypes.CDLL:
     process)."""
     global _RASTER, _RASTER_WHY
     sources = [RASTER_SOURCE, J2K_SOURCE, WEBP_SOURCE, RLE_SOURCE,
-               BCN_SOURCE]
+               BCN_SOURCE, AV1_SOURCE]
     with _RASTER_LOCK:
         if _RASTER is None and _RASTER_WHY is None:
-            so, why = _compile(sources, "libsarpro_rasterdec", RASTER_FLAGS)
+            so, why = _compile(sources, "libsarpro_rasterdec", RASTER_FLAGS,
+                               (AV1_TABLES,))
             if so is None:
                 _RASTER_WHY = why
             else:
@@ -219,6 +223,9 @@ def raster_decoder() -> ctypes.CDLL:
                                            ctypes.POINTER(i32)]
                 lib.xbm_decode.restype = i64
                 lib.xbm_decode.argtypes = [u8p, i64, i64, i64, u8p]
+                lib.av1_decode.restype = i64
+                lib.av1_decode.argtypes = [u8p, i64, i32, i32, i32, i32, u8p,
+                                           i64, ctypes.c_char_p, i64]
                 lib.bcn_decode.restype = i64
                 lib.bcn_decode.argtypes = [u8p, i64, i64, i64, i32, i32, u8p,
                                            i32]
@@ -302,6 +309,22 @@ def webp_decode(image: memoryview, lossless: bool, alpha, window: np.ndarray
                        window.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
                        window.strides[0], channels, err, len(err)) != 0:
         raise ValueError(err.value.decode("latin-1"))
+
+
+def av1_decode(obus: bytes, width: int, height: int, matrix: int,
+               full_range: int) -> np.ndarray:
+    """The (height, width, 3) u8 RGB image of an AV1 still key frame (an
+    AVIF item's OBUs) as libavif converts it for Pillow: `matrix` and
+    `full_range` the `colr` nclx box's matrix coefficients and range flag
+    (-1: the sequence header's). ValueError with the decoder's reason."""
+    lib = raster_decoder()
+    src = np.frombuffer(obus, np.uint8)
+    rgb = np.empty((height, width, 3), np.uint8)
+    err = ctypes.create_string_buffer(512)
+    if lib.av1_decode(_u8p(src), len(src), width, height, matrix, full_range,
+                      _u8p(rgb), width * 3, err, len(err)) != 0:
+        raise ValueError(err.value.decode("latin-1"))
+    return rgb
 
 
 def gif_lzw_decode(blob: bytes, offset: int, bits: int, interlace: bool,

@@ -1,0 +1,2405 @@
+// AV1 still-image decoder of the port's AVIF reader (io/avif.py): the
+// intra key frame of an AV1 OBU stream, 8-bit 4:2:0, as the AV1 bitstream
+// specification (with errata, 2019) defines its syntax and reconstruction
+// and dav1d 1.5.1 decodes it for libavif 1.3.0, then libavif's YUV-to-RGB
+// conversion as libyuv runs it for Pillow 12.1 (bilinear chroma upsampling,
+// the fixed-point matrices of libyuv's row_common.c).
+//
+// Read: temporal delimiter, sequence header (reduced and full), frame
+// header / frame OBUs and tile groups of one key frame; metadata, padding
+// and tile-list OBUs are skipped. The in-loop filters are not decoded: a
+// frame whose deblocking, CDEF (nonzero strengths), loop restoration,
+// superres or film grain is on is refused by name, and so are quantizer
+// matrices, palette and intrabc blocks, other bit depths and subsamplings.
+// Each tile ends with the spec's trailing bits (exit process, §8.2.4);
+// tile data that does not is refused by name, as non-conformant data that
+// dav1d decodes to an output the spec does not define.
+//
+// The tables (default CDFs, quantizer lookups, intra derivatives, smooth
+// weights, filter-intra taps, edge kernels, cos / sin constants) are in
+// av1_tables.h, generated by av1_tables.py from libavif's read-only data.
+//
+// C interface (ctypes, _native/__init__.py):
+//   av1_decode(obus, size, width, height, matrix, full_range, rgb,
+//              rgb_stride, err, errlen) -> 0, or -1 with the reason in err
+//              (matrix and full_range -1: the sequence header's).
+#include <algorithm>
+#include <cstdint>
+#include <cstdio>
+#include <cstdlib>
+#include <cstring>
+#include <stdexcept>
+#include <string>
+#include <vector>
+
+#include "av1_tables.h"
+
+namespace {
+
+// an error of the stream: refused as dav1d refuses it
+struct Invalid : std::runtime_error {
+  explicit Invalid(const std::string& s) : std::runtime_error("AV1: " + s) {}
+};
+// a feature the port does not decode yet ("AV1 <what> is / are not read
+// by the port yet")
+struct NotYet : std::runtime_error {
+  explicit NotYet(const std::string& s, bool plural = false)
+      : std::runtime_error("AV1 " + s + (plural ? " are" : " is") +
+                           " not read by the port yet") {}
+};
+
+inline int imin(int a, int b) { return a < b ? a : b; }
+inline int imax(int a, int b) { return a > b ? a : b; }
+inline int clip3(int lo, int hi, int v) { return v < lo ? lo : v > hi ? hi : v; }
+inline int round2(int x, int n) { return n == 0 ? x : (x + (1 << (n - 1))) >> n; }
+inline int64_t round2l(int64_t x, int n) {
+  return n == 0 ? x : (x + ((int64_t)1 << (n - 1))) >> n;
+}
+inline int round2signed(int x, int n) { return x >= 0 ? round2(x, n) : -round2(-x, n); }
+inline int floorlog2(uint32_t x) { int s = 0; while (x > 1) { x >>= 1; s++; } return s; }
+inline uint8_t clip1(int v) { return (uint8_t)(v < 0 ? 0 : v > 255 ? 255 : v); }
+
+// ---------------------------------------------------------------------------
+// bit reader of the headers (spec §4.10)
+// ---------------------------------------------------------------------------
+struct Bits {
+  const uint8_t* p;
+  size_t size;  // bytes
+  size_t pos = 0;  // bits
+  Bits(const uint8_t* d, size_t n) : p(d), size(n) {}
+  uint32_t bit() {
+    if (pos >= size * 8) throw Invalid("header runs past its OBU");
+    uint32_t b = (p[pos >> 3] >> (7 - (pos & 7))) & 1;
+    pos++;
+    return b;
+  }
+  uint32_t f(int n) {
+    uint32_t x = 0;
+    for (int i = 0; i < n; i++) x = 2 * x + bit();
+    return x;
+  }
+  int su(int n) {
+    int v = (int)f(n);
+    int sign = 1 << (n - 1);
+    if (v & sign) v -= 2 * sign;
+    return v;
+  }
+  uint32_t ns(uint32_t n) {
+    int w = floorlog2(n) + 1;
+    uint32_t m = (1u << w) - n;
+    uint32_t v = f(w - 1);
+    if (v < m) return v;
+    return (v << 1) - m + bit();
+  }
+  uint32_t uvlc() {
+    int lz = 0;
+    while (!bit()) {
+      lz++;
+      if (lz >= 32) return 0xFFFFFFFFu;
+    }
+    return f(lz) + (uint32_t)((1ull << lz) - 1);
+  }
+  void byte_align() {
+    while (pos & 7) bit();
+  }
+};
+
+// ---------------------------------------------------------------------------
+// enumerations and the spec's small lookup functions
+// ---------------------------------------------------------------------------
+enum { DC_PRED, V_PRED, H_PRED, D45_PRED, D135_PRED, D113_PRED, D157_PRED,
+       D203_PRED, D67_PRED, SMOOTH_PRED, SMOOTH_V_PRED, SMOOTH_H_PRED,
+       PAETH_PRED, UV_CFL_PRED };
+enum { DCT_DCT, ADST_DCT, DCT_ADST, ADST_ADST, FLIPADST_DCT, DCT_FLIPADST,
+       FLIPADST_FLIPADST, ADST_FLIPADST, FLIPADST_ADST, IDTX, V_DCT, H_DCT,
+       V_ADST, H_ADST, V_FLIPADST, H_FLIPADST };
+enum { TX_4X4, TX_8X8, TX_16X16, TX_32X32, TX_64X64, TX_4X8, TX_8X4,
+       TX_8X16, TX_16X8, TX_16X32, TX_32X16, TX_32X64, TX_64X32, TX_4X16,
+       TX_16X4, TX_8X32, TX_32X8, TX_16X64, TX_64X16 };
+enum { BLOCK_4X4, BLOCK_4X8, BLOCK_8X4, BLOCK_8X8, BLOCK_8X16, BLOCK_16X8,
+       BLOCK_16X16, BLOCK_16X32, BLOCK_32X16, BLOCK_32X32, BLOCK_32X64,
+       BLOCK_64X32, BLOCK_64X64, BLOCK_64X128, BLOCK_128X64, BLOCK_128X128,
+       BLOCK_4X16, BLOCK_16X4, BLOCK_8X32, BLOCK_32X8, BLOCK_16X64,
+       BLOCK_64X16, BLOCK_INVALID };
+enum { PARTITION_NONE, PARTITION_HORZ, PARTITION_VERT, PARTITION_SPLIT,
+       PARTITION_HORZ_A, PARTITION_HORZ_B, PARTITION_VERT_A,
+       PARTITION_VERT_B, PARTITION_HORZ_4, PARTITION_VERT_4 };
+enum { TX_CLASS_2D, TX_CLASS_HORIZ, TX_CLASS_VERT };
+
+// log2 of the width / height of each block size, in samples
+const int kBlockW2[22] = {2, 2, 3, 3, 3, 4, 4, 4, 5, 5, 5, 6, 6, 6, 7, 7,
+                          2, 4, 3, 5, 4, 6};
+const int kBlockH2[22] = {2, 3, 2, 3, 4, 3, 4, 5, 4, 5, 6, 5, 6, 7, 6, 7,
+                          4, 2, 5, 3, 6, 4};
+const int kTxW2[19] = {2, 3, 4, 5, 6, 2, 3, 3, 4, 4, 5, 5, 6, 2, 4, 3, 5, 4, 6};
+const int kTxH2[19] = {2, 3, 4, 5, 6, 3, 2, 4, 3, 5, 4, 6, 5, 4, 2, 5, 3, 6, 4};
+const int kModeToAngle[13] = {0, 90, 180, 45, 135, 113, 157, 203, 67,
+                              0, 0, 0, 0};
+const int kIntraModeContext[13] = {0, 1, 2, 3, 4, 4, 4, 4, 3, 0, 1, 2, 0};
+const int kModeToTxfm[14] = {DCT_DCT, ADST_DCT, DCT_ADST, DCT_DCT, ADST_ADST,
+                             ADST_DCT, DCT_ADST, DCT_ADST, ADST_DCT,
+                             ADST_ADST, ADST_DCT, DCT_ADST, ADST_ADST,
+                             DCT_DCT};
+const int kTxTypeIntraInvSet1[7] = {IDTX, DCT_DCT, V_DCT, H_DCT, ADST_ADST,
+                                    ADST_DCT, DCT_ADST};
+const int kTxTypeIntraInvSet2[5] = {IDTX, DCT_DCT, ADST_ADST, ADST_DCT,
+                                    DCT_ADST};
+const int kFilterIntraModeToIntraDir[5] = {DC_PRED, V_PRED, H_PRED,
+                                           D157_PRED, DC_PRED};
+const int kTransformRowShift[19] = {0, 1, 2, 2, 2, 0, 0, 1, 1, 1, 1, 1, 1,
+                                    1, 1, 2, 2, 2, 2};
+const int kSegFeatureBits[8] = {8, 6, 6, 6, 6, 3, 0, 0};
+const int kSegFeatureSigned[8] = {1, 1, 1, 1, 1, 0, 0, 0};
+const int kSegFeatureMax[8] = {255, 63, 63, 63, 63, 7, 0, 0};
+const int kSigRefDiffOffset[3][5][2] = {
+    {{0, 1}, {1, 0}, {1, 1}, {0, 2}, {2, 0}},
+    {{0, 1}, {1, 0}, {0, 2}, {0, 3}, {0, 4}},
+    {{0, 1}, {1, 0}, {2, 0}, {3, 0}, {4, 0}}};
+const int kMagRefOffset[3][3][2] = {{{0, 1}, {1, 0}, {1, 1}},
+                                    {{0, 1}, {1, 0}, {0, 2}},
+                                    {{0, 1}, {1, 0}, {2, 0}}};
+// Coeff_Base_Ctx_Offset by shape: square, wider than tall, taller than wide
+const int kCoeffBaseCtxOffset[3][5][5] = {
+    {{0, 1, 6, 6, 21}, {1, 6, 6, 21, 21}, {6, 6, 21, 21, 21},
+     {6, 21, 21, 21, 21}, {21, 21, 21, 21, 21}},
+    {{0, 16, 6, 6, 21}, {16, 16, 6, 21, 21}, {16, 16, 21, 21, 21},
+     {16, 16, 21, 21, 21}, {16, 16, 21, 21, 21}},
+    {{0, 11, 11, 11, 11}, {11, 11, 11, 11, 11}, {6, 6, 21, 21, 21},
+     {6, 21, 21, 21, 21}, {21, 21, 21, 21, 21}}};
+const int kCoeffBasePosCtxOffset[3] = {26, 31, 36};
+
+int block_size(int w2, int h2) {
+  for (int b = 0; b < 22; b++)
+    if (kBlockW2[b] == w2 && kBlockH2[b] == h2) return b;
+  return BLOCK_INVALID;
+}
+int tx_size(int w2, int h2) {
+  for (int t = 0; t < 19; t++)
+    if (kTxW2[t] == w2 && kTxH2[t] == h2) return t;
+  return -1;
+}
+int partition_subsize(int p, int b) {
+  int w2 = kBlockW2[b], h2 = kBlockH2[b];
+  switch (p) {
+    case PARTITION_NONE: return b;
+    case PARTITION_HORZ: case PARTITION_HORZ_A: case PARTITION_HORZ_B:
+      return block_size(w2, h2 - 1);
+    case PARTITION_VERT: case PARTITION_VERT_A: case PARTITION_VERT_B:
+      return block_size(w2 - 1, h2);
+    case PARTITION_SPLIT: return block_size(w2 - 1, h2 - 1);
+    case PARTITION_HORZ_4: return block_size(w2, h2 - 2);
+    default: return block_size(w2 - 2, h2);
+  }
+}
+int max_tx_size_rect(int b) {
+  return tx_size(imin(kBlockW2[b], 6), imin(kBlockH2[b], 6));
+}
+int split_tx_size(int t) {
+  int w2 = kTxW2[t], h2 = kTxH2[t];
+  if (w2 == h2) return t == TX_4X4 ? TX_4X4 : tx_size(w2 - 1, h2 - 1);
+  if (w2 > h2) return w2 - h2 == 2 ? tx_size(w2 - 1, h2) : tx_size(h2, h2);
+  return h2 - w2 == 2 ? tx_size(w2, h2 - 1) : tx_size(w2, w2);
+}
+int tx_sqr(int t) { return tx_size(imin(kTxW2[t], kTxH2[t]), imin(kTxW2[t], kTxH2[t])); }
+int tx_sqr_up(int t) { return tx_size(imax(kTxW2[t], kTxH2[t]), imax(kTxW2[t], kTxH2[t])); }
+int adjusted_tx_size(int t) { return tx_size(imin(kTxW2[t], 5), imin(kTxH2[t], 5)); }
+int tx_class(int type) {
+  if (type == V_DCT || type == V_ADST || type == V_FLIPADST) return TX_CLASS_VERT;
+  if (type == H_DCT || type == H_ADST || type == H_FLIPADST) return TX_CLASS_HORIZ;
+  return TX_CLASS_2D;
+}
+
+// the spec's scans: default (zig-zag on squares, one diagonal direction on
+// rectangles), mrow and mcol, for the coded (at most 32) size
+struct Scans {
+  std::vector<uint16_t> dflt[19], mrow[19], mcol[19];
+  Scans() {
+    for (int t = 0; t < 19; t++) {
+      int w = 1 << imin(kTxW2[t], 5), h = 1 << imin(kTxH2[t], 5);
+      std::vector<uint16_t>& d = dflt[t];
+      for (int s = 0; s < w + h - 1; s++) {
+        // positions (row, col) with row + col == s
+        int rlo = imax(0, s - (w - 1)), rhi = imin(h - 1, s);
+        bool down;  // row increasing along the diagonal
+        if (w == h) down = (s & 1) != 0;
+        else down = w < h;
+        if (down) for (int r = rlo; r <= rhi; r++) d.push_back((uint16_t)(r * w + s - r));
+        else for (int r = rhi; r >= rlo; r--) d.push_back((uint16_t)(r * w + s - r));
+      }
+      for (int i = 0; i < w * h; i++) mrow[t].push_back((uint16_t)i);
+      for (int c = 0; c < w; c++)
+        for (int r = 0; r < h; r++) mcol[t].push_back((uint16_t)(r * w + c));
+    }
+  }
+};
+const Scans& scans() {
+  static const Scans s;
+  return s;
+}
+
+// ---------------------------------------------------------------------------
+// CDFs: the defaults of av1_tables.h, adapted as symbols are read
+// ---------------------------------------------------------------------------
+struct Cdfs {
+  uint16_t kf_y[5][5][14];
+  uint16_t uv[2][13][15];
+  uint16_t angle[8][8];
+  uint16_t partition[20][11];
+  uint16_t skip[3][3];
+  uint16_t seg[3][9];
+  uint16_t delta_q[5];
+  uint16_t delta_lf[5];
+  uint16_t delta_lf_multi[4][5];
+  uint16_t pal_y[7][3][3];
+  uint16_t pal_uv[2][3];
+  uint16_t intrabc[3];
+  uint16_t filter_intra[22][3];
+  uint16_t filter_intra_mode[6];
+  uint16_t cfl_sign[9];
+  uint16_t cfl_alpha[6][17];
+  uint16_t tx_size[4][3][4];
+  uint16_t tx_set1[2][13][8];
+  uint16_t tx_set2[3][13][6];
+  uint16_t txb_skip[5][13][3];
+  uint16_t eob_extra[5][2][9][3];
+  uint16_t dc_sign[2][3][3];
+  uint16_t eob16[2][2][6];
+  uint16_t eob32[2][2][7];
+  uint16_t eob64[2][2][8];
+  uint16_t eob128[2][2][9];
+  uint16_t eob256[2][2][10];
+  uint16_t eob512[2][2][11];
+  uint16_t eob1024[2][2][12];
+  uint16_t base_eob[5][2][4][4];
+  uint16_t base[5][2][42][5];
+  uint16_t br[5][2][21][5];
+
+  void init(int base_q_idx) {
+    memcpy(kf_y, AV1_KF_Y_MODE, sizeof kf_y);
+    memcpy(uv, AV1_UV_MODE, sizeof uv);
+    memcpy(angle, AV1_ANGLE_DELTA, sizeof angle);
+    memcpy(partition, AV1_PARTITION, sizeof partition);
+    memcpy(skip, AV1_SKIP, sizeof skip);
+    memcpy(seg, AV1_SEGMENT_ID, sizeof seg);
+    memcpy(delta_q, AV1_DELTA_LF_MULTI[0], sizeof delta_q);
+    memcpy(delta_lf, AV1_DELTA_LF_MULTI[0], sizeof delta_lf);
+    memcpy(delta_lf_multi, AV1_DELTA_LF_MULTI, sizeof delta_lf_multi);
+    memcpy(pal_y, AV1_PALETTE_Y_MODE, sizeof pal_y);
+    memcpy(pal_uv, AV1_PALETTE_UV_MODE_INTRABC, sizeof pal_uv);
+    memcpy(intrabc, AV1_PALETTE_UV_MODE_INTRABC[2], sizeof intrabc);
+    memcpy(filter_intra, AV1_FILTER_INTRA, sizeof filter_intra);
+    memcpy(filter_intra_mode, AV1_FILTER_INTRA_MODE[0], sizeof filter_intra_mode);
+    memcpy(cfl_sign, AV1_CFL_SIGN[0], sizeof cfl_sign);
+    memcpy(cfl_alpha, AV1_CFL_ALPHA, sizeof cfl_alpha);
+    memcpy(tx_size, AV1_TX_SIZE, sizeof tx_size);
+    memcpy(tx_set1, AV1_INTRA_TX_SET1, sizeof tx_set1);
+    memcpy(tx_set2, AV1_INTRA_TX_SET2, sizeof tx_set2);
+    int q = base_q_idx <= 20 ? 0 : base_q_idx <= 60 ? 1 : base_q_idx <= 120 ? 2 : 3;
+    memcpy(txb_skip, AV1_TXB_SKIP[q], sizeof txb_skip);
+    memcpy(eob_extra, AV1_EOB_EXTRA[q], sizeof eob_extra);
+    memcpy(dc_sign, AV1_DC_SIGN[q], sizeof dc_sign);
+    memcpy(eob16, AV1_EOB_PT_16[q], sizeof eob16);
+    memcpy(eob32, AV1_EOB_PT_32[q], sizeof eob32);
+    memcpy(eob64, AV1_EOB_PT_64[q], sizeof eob64);
+    memcpy(eob128, AV1_EOB_PT_128[q], sizeof eob128);
+    memcpy(eob256, AV1_EOB_PT_256[q], sizeof eob256);
+    memcpy(eob512, AV1_EOB_PT_512[q], sizeof eob512);
+    memcpy(eob1024, AV1_EOB_PT_1024[q], sizeof eob1024);
+    memcpy(base_eob, AV1_COEFF_BASE_EOB[q], sizeof base_eob);
+    memcpy(base, AV1_COEFF_BASE[q], sizeof base);
+    memcpy(br, AV1_COEFF_BR[q], sizeof br);
+  }
+};
+
+// ---------------------------------------------------------------------------
+// the symbol decoder (spec §8.2)
+// ---------------------------------------------------------------------------
+struct SymbolDecoder {
+  const uint8_t* buf = nullptr;
+  size_t size = 0;      // bytes of the tile
+  size_t bitpos = 0;    // bits read
+  uint32_t value = 0, range = 0;
+  int max_bits = 0;
+  bool adapt = true;
+
+  uint32_t read_bits(int n) {
+    uint32_t x = 0;
+    for (int i = 0; i < n; i++) {
+      size_t byte = bitpos >> 3;
+      uint32_t b = byte < size ? (buf[byte] >> (7 - (bitpos & 7))) & 1 : 0;
+      x = 2 * x + b;
+      bitpos++;
+    }
+    return x;
+  }
+  void init(const uint8_t* data, size_t sz, bool disable_update) {
+    buf = data;
+    size = sz;
+    bitpos = 0;
+    int num_bits = (int)std::min<size_t>(sz * 8, 15);
+    uint32_t b = read_bits(num_bits);
+    uint32_t padded = b << (15 - num_bits);
+    value = ((1u << 15) - 1) ^ padded;
+    range = 1u << 15;
+    max_bits = (int)(8 * sz) - 15;
+    adapt = !disable_update;
+  }
+  // icdf: n - 1 inverted values, 0, then the counter at icdf[n]
+  int read(uint16_t* icdf, int n) {
+    uint32_t cur = range, prev;
+    int symbol = -1;
+    do {
+      symbol++;
+      prev = cur;
+      uint32_t f = icdf[symbol];
+      cur = ((range >> 8) * (f >> 6) >> 1) + 4 * (uint32_t)(n - symbol - 1);
+    } while (value < cur);
+    range = prev - cur;
+    value -= cur;
+    int bits = 15 - floorlog2(range);
+    range <<= bits;
+    int num_bits = imin(bits, imax(0, max_bits));
+    uint32_t nd = read_bits(num_bits);
+    uint32_t padded = nd << (bits - num_bits);
+    value = padded ^ (((value + 1) << bits) - 1);
+    max_bits -= bits;
+    if (adapt) {
+      int rate = 3 + (icdf[n] > 15) + (icdf[n] > 31) + imin(floorlog2((uint32_t)n), 2);
+      uint32_t tmp = 32768;
+      for (int i = 0; i < n - 1; i++) {
+        if (i == symbol) tmp = 0;
+        if (tmp < icdf[i]) icdf[i] -= (uint16_t)((icdf[i] - tmp) >> rate);
+        else icdf[i] += (uint16_t)((tmp - icdf[i]) >> rate);
+      }
+      icdf[n] += (icdf[n] < 32);
+    }
+    return symbol;
+  }
+  int read_bool() {
+    uint16_t c[3] = {16384, 0, 0};
+    bool a = adapt;
+    adapt = false;
+    int s = read(c, 2);
+    adapt = a;
+    return s;
+  }
+  int literal(int n) {
+    int x = 0;
+    for (int i = 0; i < n; i++) x = 2 * x + read_bool();
+    return x;
+  }
+  // the exit process: the tile's padding must be its trailing bits
+  void exit() {
+    if (max_bits < -14) throw NotYet("tile data that ends before its symbols", true);
+    int64_t trailing = (int64_t)8 * (int64_t)size - 15 - max_bits;
+    if (trailing < 0 || trailing >= (int64_t)size * 8)
+      throw NotYet("tile data that does not end in the spec's trailing bits", true);
+    for (int64_t p = trailing; p < (int64_t)size * 8; p++) {
+      int b = (buf[p >> 3] >> (7 - (p & 7))) & 1;
+      if (b != (p == trailing ? 1 : 0))
+        throw NotYet("tile data that does not end in the spec's trailing bits", true);
+    }
+  }
+};
+
+// ---------------------------------------------------------------------------
+// the inverse transforms (spec §7.13.2)
+// ---------------------------------------------------------------------------
+int cos128(int angle) {
+  int a = angle & 255;
+  auto lut = [](int i) { return i == 64 ? 0 : AV1_COSPI[i]; };
+  if (a <= 64) return lut(a);
+  if (a <= 128) return -lut(128 - a);
+  if (a <= 192) return -lut(a - 128);
+  return lut(256 - a);
+}
+int sin128(int angle) { return cos128(angle - 64); }
+int brev(int n, int x) {
+  int r = 0;
+  for (int i = 0; i < n; i++) if (x & (1 << i)) r |= 1 << (n - 1 - i);
+  return r;
+}
+
+struct Tx1D {
+  int32_t* T;
+  void B(int a, int b, int angle, int flip) {
+    int64_t x = (int64_t)T[a] * cos128(angle) - (int64_t)T[b] * sin128(angle);
+    int64_t y = (int64_t)T[a] * sin128(angle) + (int64_t)T[b] * cos128(angle);
+    T[a] = (int32_t)round2l(x, 12);
+    T[b] = (int32_t)round2l(y, 12);
+    if (flip) std::swap(T[a], T[b]);
+  }
+  void H(int a, int b, int flip) {
+    if (flip) std::swap(a, b);
+    int32_t x = T[a], y = T[b];
+    T[a] = x + y;
+    T[b] = x - y;
+  }
+  void dct_permute(int n) {
+    int32_t c[64];
+    int n0 = 1 << n;
+    memcpy(c, T, sizeof(int32_t) * n0);
+    for (int i = 0; i < n0; i++) T[i] = c[brev(n, i)];
+  }
+  // libaom's inverse DCT (av1_inv_txfm1d.c), stage for stage: the even
+  // half is the DCT of half the size, the odd half a rotation stage, then
+  // adds and rotations at doubling group sizes, then the merge
+  static int32_t half_btf(int w0, int32_t a, int w1, int32_t b) {
+    return (int32_t)round2l((int64_t)w0 * a + (int64_t)w1 * b, 12);
+  }
+  static int cospi(int i) { return i == 64 ? 0 : AV1_COSPI[i]; }
+  void dct_rec(int32_t* t, int N) {
+    if (N == 2) {
+      int32_t a = t[0], b = t[1];
+      t[0] = half_btf(cospi(32), a, cospi(32), b);
+      t[1] = half_btf(cospi(32), a, -cospi(32), b);
+      return;
+    }
+    dct_rec(t, N / 2);
+    dct_odd(t + N / 2, N / 2, N);
+    for (int i = 0; i < N / 2; i++) {
+      int32_t a = t[i], b = t[N - 1 - i];
+      t[i] = a + b;
+      t[N - 1 - i] = a - b;
+    }
+  }
+  void dct_odd(int32_t* o, int M, int N) {
+    int lm = floorlog2((uint32_t)M);
+    for (int i = 0; i < M / 2; i++) {
+      int th = 64 - 64 / N - (256 / N) * brev(lm - 1, i);
+      int32_t p = o[i], q = o[M - 1 - i];
+      o[i] = half_btf(cospi(th), p, -cospi(64 - th), q);
+      o[M - 1 - i] = half_btf(cospi(64 - th), p, cospi(th), q);
+    }
+    for (int g = 2; g <= M / 2; g *= 2) {
+      for (int b0 = 0; b0 < M; b0 += g) {
+        bool odd = (b0 / g) & 1;
+        for (int k = 0; k < g / 2; k++) {
+          int32_t p = o[b0 + k], q = o[b0 + g - 1 - k];
+          if (!odd) {
+            o[b0 + k] = p + q;
+            o[b0 + g - 1 - k] = p - q;
+          } else {
+            o[b0 + k] = q - p;
+            o[b0 + g - 1 - k] = p + q;
+          }
+        }
+      }
+      auto rot_x = [&](int p, int th) {
+        int32_t a = o[p], b = o[M - 1 - p];
+        o[p] = half_btf(-cospi(64 - th), a, cospi(th), b);
+        o[M - 1 - p] = half_btf(cospi(th), a, cospi(64 - th), b);
+      };
+      auto rot_y = [&](int p, int th) {
+        int32_t a = o[p], b = o[M - 1 - p];
+        o[p] = half_btf(-cospi(th), a, -cospi(64 - th), b);
+        o[M - 1 - p] = half_btf(-cospi(64 - th), a, cospi(th), b);
+      };
+      if (g < M / 2) {
+        int np = N / (2 * g);
+        int lq = floorlog2((uint32_t)(np / 4));
+        for (int j = 0; j < M / (4 * g); j++) {
+          int th = 64 - 64 / np - (256 / np) * brev(lq, j);
+          int b0 = 2 * g * j;
+          for (int p = b0 + g / 2; p < b0 + g; p++) rot_x(p, th);
+          for (int p = b0 + g; p < b0 + 3 * g / 2; p++) rot_y(p, th);
+        }
+      } else {
+        for (int p = g / 2; p < g; p++) rot_x(p, 32);
+      }
+    }
+  }
+  void dct(int n) {
+    dct_permute(n);
+    dct_rec(T, 1 << n);
+  }
+  void adst_in_permute(int n) {
+    int32_t c[16];
+    int n0 = 1 << n;
+    memcpy(c, T, sizeof(int32_t) * n0);
+    for (int i = 0; i < n0; i++) T[i] = c[(i & 1) ? (i - 1) : (n0 - i - 1)];
+  }
+  void adst_out_permute(int n) {
+    int32_t c[16];
+    int n0 = 1 << n;
+    memcpy(c, T, sizeof(int32_t) * n0);
+    for (int i = 0; i < n0; i++) {
+      int a = (i >> 3) & 1;
+      int b = ((i >> 2) & 1) ^ ((i >> 3) & 1);
+      int cc = ((i >> 1) & 1) ^ ((i >> 2) & 1);
+      int d = (i & 1) ^ ((i >> 1) & 1);
+      int idx = ((d << 3) | (cc << 2) | (b << 1) | a) >> (4 - n);
+      T[i] = (i & 1) ? -c[idx] : c[idx];
+    }
+  }
+  void adst4() {
+    const int64_t s19 = AV1_SINPI[1], s29 = AV1_SINPI[2], s39 = AV1_SINPI[3], s49 = AV1_SINPI[4];
+    int64_t x0 = T[0], x1 = T[1], x2 = T[2], x3 = T[3];
+    int64_t s0 = s19 * x0, s1 = s29 * x0, s2 = s39 * x1, s3 = s49 * x2;
+    int64_t s4 = s19 * x2, s5 = s29 * x3, s6 = s49 * x3;
+    int64_t a7 = x0 - x2;
+    int64_t b7 = a7 + x3;
+    s0 = s0 + s3;
+    s1 = s1 - s4;
+    s3 = s2;
+    s2 = s39 * b7;
+    s0 = s0 + s5;
+    s1 = s1 - s6;
+    x0 = s0 + s3;
+    x1 = s1 + s3;
+    x2 = s2;
+    x3 = s0 + s1;
+    x3 = x3 - s3;
+    T[0] = (int32_t)round2l(x0, 12);
+    T[1] = (int32_t)round2l(x1, 12);
+    T[2] = (int32_t)round2l(x2, 12);
+    T[3] = (int32_t)round2l(x3, 12);
+  }
+  void adst8() {
+    adst_in_permute(3);
+    for (int i = 0; i < 4; i++) B(2 * i, 2 * i + 1, 60 - 16 * i, 1);
+    for (int i = 0; i < 4; i++) H(i, 4 + i, 0);
+    for (int i = 0; i < 2; i++) B(4 + 3 * i, 5 + i, 48 - 32 * i, 1);
+    for (int i = 0; i < 2; i++)
+      for (int j = 0; j < 2; j++) H(4 * j + i, 2 + 4 * j + i, 0);
+    for (int i = 0; i < 2; i++) B(2 + 4 * i, 3 + 4 * i, 32, 1);
+    adst_out_permute(3);
+  }
+  void adst16() {
+    adst_in_permute(4);
+    for (int i = 0; i < 8; i++) B(2 * i, 2 * i + 1, 62 - 8 * i, 1);
+    for (int i = 0; i < 8; i++) H(i, 8 + i, 0);
+    for (int i = 0; i < 2; i++) {
+      B(8 + 2 * i, 9 + 2 * i, 56 - 32 * i, 1);
+      B(13 + 2 * i, 12 + 2 * i, 8 + 32 * i, 1);
+    }
+    for (int i = 0; i < 4; i++)
+      for (int j = 0; j < 2; j++) H(8 * j + i, 4 + 8 * j + i, 0);
+    for (int i = 0; i < 2; i++)
+      for (int j = 0; j < 2; j++) B(4 + 8 * j + 3 * i, 5 + 8 * j + i, 48 - 32 * i, 1);
+    for (int i = 0; i < 2; i++)
+      for (int j = 0; j < 4; j++) H(4 * j + i, 2 + 4 * j + i, 0);
+    for (int i = 0; i < 4; i++) B(2 + 4 * i, 3 + 4 * i, 32, 1);
+    adst_out_permute(4);
+  }
+  void identity(int n) {
+    int n0 = 1 << n;
+    for (int i = 0; i < n0; i++) {
+      int64_t t = T[i];
+      if (n == 2) T[i] = (int32_t)round2l(t * 5793, 12);
+      else if (n == 3) T[i] = (int32_t)(t * 2);
+      else if (n == 4) T[i] = (int32_t)round2l(t * 11586, 12);
+      else T[i] = (int32_t)(t * 4);
+    }
+  }
+  void wht(int shift) {
+    int32_t a = T[0] >> shift, c = T[1] >> shift, d = T[2] >> shift, b = T[3] >> shift;
+    a += c;
+    d -= b;
+    int32_t e = (a - d) >> 1;
+    b = e - b;
+    c = e - c;
+    a -= b;
+    d += c;
+    T[0] = a;
+    T[1] = b;
+    T[2] = c;
+    T[3] = d;
+  }
+  // 1-D inverse of kind 0 DCT, 1 ADST, 2 FLIPADST, 3 identity
+  void run(int kind, int n) {
+    if (kind == 0) dct(n);
+    else if (kind == 3) identity(n);
+    else {
+      if (n == 2) adst4();
+      else if (n == 3) adst8();
+      else adst16();
+      if (kind == 2) std::reverse(T, T + (1 << n));
+    }
+  }
+};
+
+// vertical (column) and horizontal (row) 1-D kinds of each tx type
+const int kVertKind[16] = {0, 1, 0, 1, 2, 0, 2, 1, 2, 3, 0, 3, 1, 3, 2, 3};
+const int kHorzKind[16] = {0, 0, 1, 1, 0, 2, 2, 2, 1, 3, 3, 0, 3, 1, 3, 2};
+
+// ---------------------------------------------------------------------------
+// the decoder
+// ---------------------------------------------------------------------------
+struct Plane {
+  int w = 0, h = 0, stride = 0;
+  std::vector<uint8_t> px;
+  uint8_t* at(int y, int x) { return &px[(size_t)y * stride + x]; }
+};
+
+struct Decoder {
+  // sequence header
+  bool have_seq = false;
+  int profile = 0, still = 0, reduced = 0;
+  int frame_width_bits = 0, frame_height_bits = 0, max_w = 0, max_h = 0;
+  int frame_id_numbers_present = 0, delta_frame_id_len = 0, frame_id_len = 0;
+  int use_128 = 0, enable_filter_intra = 0, enable_intra_edge_filter = 0;
+  int enable_order_hint = 0, order_hint_bits = 0;
+  int seq_force_screen_content_tools = 2, seq_force_integer_mv = 2;
+  int enable_superres = 0, enable_cdef = 0, enable_restoration = 0;
+  int bit_depth = 8, mono = 0, color_range = 0, ssx = 1, ssy = 1;
+  int matrix = 2, primaries = 2, transfer = 2, separate_uv_delta_q = 0;
+  int film_grain_present = 0;
+  int timing_info_present = 0, decoder_model_info_present = 0;
+  int equal_picture_interval = 0, buffer_delay_len = 0, buffer_removal_time_len = 0;
+  int frame_presentation_time_len = 0;
+  int op_count = 1;
+  int op_idc[32] = {0};
+  int decoder_model_present_for_op[32] = {0};
+
+  // the item's size (ispe), which the frame must have
+  int want_w = 0, want_h = 0;
+  // frame header
+  bool frame_done = false, have_frame_header = false;
+  int frame_w = 0, frame_h = 0, mi_cols = 0, mi_rows = 0;
+  int show_frame = 1, disable_cdf_update = 0, allow_screen_content_tools = 0;
+  int allow_intrabc = 0;
+  int tile_cols = 1, tile_rows = 1, tile_cols_log2 = 0, tile_rows_log2 = 0;
+  std::vector<int> mi_col_starts, mi_row_starts;
+  int tile_size_bytes = 4;
+  int base_q_idx = 0, dq_y_dc = 0, dq_u_dc = 0, dq_u_ac = 0, dq_v_dc = 0, dq_v_ac = 0;
+  int seg_enabled = 0;
+  int feature_enabled[8][8] = {{0}}, feature_data[8][8] = {{0}};
+  int seg_id_pre_skip = 0, last_active_seg_id = 0;
+  int delta_q_present = 0, delta_q_res = 0, delta_lf_present = 0,
+      delta_lf_res = 0, delta_lf_multi = 0;
+  int coded_lossless = 0, lossless_array[8] = {0};
+  int cdef_bits = 0;
+  int tx_mode_select = 0, only_4x4 = 0, reduced_tx_set = 0;
+  int next_tile = 0;  // tiles decoded so far
+
+  Cdfs frame_cdfs, cdf;
+  SymbolDecoder sd;
+  Plane planes[3];
+
+  // per 4x4 (mi) state over the frame
+  std::vector<uint8_t> y_modes, uv_modes, skips, tx_sizes, mi_sizes, seg_ids;
+  std::vector<uint8_t> tx_types;
+  int mi_stride = 0;
+  std::vector<int8_t> cdef_idx;
+  int cdef_stride = 0;
+  // coefficient contexts, in 4x4 units of each plane
+  std::vector<uint8_t> above_level[3], above_dc[3], left_level[3], left_dc[3];
+
+  // tile
+  int mi_row_start = 0, mi_row_end = 0, mi_col_start = 0, mi_col_end = 0;
+  int current_q_index = 0;
+  int delta_lf[4] = {0};
+  bool read_deltas = false;
+  uint8_t block_decoded[3][34][34];
+
+  // block
+  int mi_row = 0, mi_col = 0, mi_size = 0, has_chroma = 0;
+  int avail_u = 0, avail_l = 0, avail_u_chroma = 0, avail_l_chroma = 0;
+  int segment_id = 0, skip = 0, lossless = 0;
+  int y_mode = 0, uv_mode = 0, angle_delta_y = 0, angle_delta_uv = 0;
+  int cfl_alpha_u = 0, cfl_alpha_v = 0, use_filter_intra = 0, filter_intra_mode = 0;
+  int tx_sz = 0;
+  int max_luma_w = 0, max_luma_h = 0;
+  int plane_tx_type = 0;
+  int32_t quant[1024];
+
+  int idx(int r, int c) const { return r * mi_stride + c; }
+
+  // ---------------------------------------------------------------- OBUs
+  void decode(const uint8_t* data, size_t size) {
+    size_t pos = 0;
+    while (pos < size) {
+      Bits h(data + pos, size - pos);
+      h.bit();  // obu_forbidden_bit: dav1d ignores it
+      int type = (int)h.f(4);
+      int ext = (int)h.bit();
+      int has_size = (int)h.bit();
+      h.bit();
+      int temporal_id = 0, spatial_id = 0;
+      if (ext) {
+        temporal_id = (int)h.f(3);
+        spatial_id = (int)h.f(2);
+        h.f(3);
+      }
+      size_t hdr = 1 + ext;
+      uint64_t obu_size;
+      if (has_size) {
+        obu_size = 0;
+        int i = 0;
+        for (;; i++) {
+          if (i == 8) throw Invalid("OBU size overflows");
+          if (hdr + i >= size - pos) throw Invalid("OBU header runs past the data");
+          uint8_t b = data[pos + hdr + i];
+          obu_size |= (uint64_t)(b & 0x7F) << (7 * i);
+          if (!(b & 0x80)) break;
+        }
+        hdr += i + 1;
+      } else {
+        obu_size = size - pos - hdr;
+      }
+      if (obu_size > size - pos - hdr) throw Invalid("OBU runs past the data");
+      const uint8_t* payload = data + pos + hdr;
+      pos += hdr + obu_size;
+      if (type != 1 && type != 2 && ext && have_seq && op_idc[0]) {
+        int in_t = (op_idc[0] >> temporal_id) & 1;
+        int in_s = (op_idc[0] >> (spatial_id + 8)) & 1;
+        if (!in_t || !in_s) continue;
+      }
+      switch (type) {
+        case 1: sequence_header(payload, obu_size); break;
+        case 2: have_frame_header = false; break;
+        case 3: case 7: {
+          if (!have_seq) throw Invalid("frame header before the sequence header");
+          if (have_frame_header) break;  // a redundant copy
+          if (type == 7) throw Invalid("redundant frame header without a frame header");
+          if (frame_done) throw NotYet("stream with more than one frame");
+          Bits b(payload, obu_size);
+          frame_header(b);
+          break;
+        }
+        case 6: {
+          if (!have_seq) throw Invalid("frame before the sequence header");
+          if (frame_done || have_frame_header) throw NotYet("stream with more than one frame");
+          Bits b(payload, obu_size);
+          frame_header(b);
+          b.byte_align();
+          size_t off = b.pos / 8;
+          tile_group(payload + off, obu_size - off);
+          break;
+        }
+        case 4:
+          if (!have_frame_header) throw Invalid("tile group without a frame header");
+          tile_group(payload, obu_size);
+          break;
+        default: break;  // metadata, tile list, padding, reserved
+      }
+      if (frame_done) break;
+    }
+    if (!frame_done) throw Invalid("no complete frame in the data");
+  }
+
+  // ------------------------------------------------------ sequence header
+  void sequence_header(const uint8_t* p, size_t n) {
+    Bits b(p, n);
+    profile = (int)b.f(3);
+    if (profile > 2) throw Invalid("sequence header profile above 2");
+    still = (int)b.bit();
+    reduced = (int)b.bit();
+    if (reduced) {
+      if (!still) throw Invalid("reduced sequence header of a moving picture");
+      op_count = 1;
+      op_idc[0] = 0;
+      b.f(5);
+      timing_info_present = decoder_model_info_present = 0;
+    } else {
+      timing_info_present = (int)b.bit();
+      if (timing_info_present) {
+        b.f(32);
+        b.f(32);
+        equal_picture_interval = (int)b.bit();
+        if (equal_picture_interval && b.uvlc() == 0xFFFFFFFFu)
+          throw Invalid("sequence header num_ticks_per_picture out of range");
+        decoder_model_info_present = (int)b.bit();
+        if (decoder_model_info_present) {
+          buffer_delay_len = (int)b.f(5) + 1;
+          b.f(32);
+          buffer_removal_time_len = (int)b.f(5) + 1;
+          frame_presentation_time_len = (int)b.f(5) + 1;
+        }
+      } else {
+        decoder_model_info_present = 0;
+      }
+      int initial_display_delay_present = (int)b.bit();
+      op_count = (int)b.f(5) + 1;
+      for (int i = 0; i < op_count; i++) {
+        op_idc[i] = (int)b.f(12);
+        int level = (int)b.f(5);
+        if (level > 7) b.bit();
+        decoder_model_present_for_op[i] = 0;
+        if (decoder_model_info_present) {
+          decoder_model_present_for_op[i] = (int)b.bit();
+          if (decoder_model_present_for_op[i]) {
+            b.f(buffer_delay_len);
+            b.f(buffer_delay_len);
+            b.bit();
+          }
+        }
+        if (initial_display_delay_present) {
+          if (b.bit()) b.f(4);
+        }
+      }
+    }
+    frame_width_bits = (int)b.f(4) + 1;
+    frame_height_bits = (int)b.f(4) + 1;
+    max_w = (int)b.f(frame_width_bits) + 1;
+    max_h = (int)b.f(frame_height_bits) + 1;
+    frame_id_numbers_present = reduced ? 0 : (int)b.bit();
+    if (frame_id_numbers_present) {
+      delta_frame_id_len = (int)b.f(4) + 2;
+      frame_id_len = (int)b.f(3) + delta_frame_id_len + 1;
+    }
+    use_128 = (int)b.bit();
+    enable_filter_intra = (int)b.bit();
+    enable_intra_edge_filter = (int)b.bit();
+    if (reduced) {
+      enable_order_hint = 0;
+      order_hint_bits = 0;
+      seq_force_screen_content_tools = 2;
+      seq_force_integer_mv = 2;
+    } else {
+      b.f(4);  // interintra, masked, warped, dual filter
+      enable_order_hint = (int)b.bit();
+      if (enable_order_hint) b.f(2);  // jnt comp, ref frame mvs
+      int choose_sct = (int)b.bit();
+      seq_force_screen_content_tools = choose_sct ? 2 : (int)b.bit();
+      if (seq_force_screen_content_tools > 0) {
+        int choose_imv = (int)b.bit();
+        seq_force_integer_mv = choose_imv ? 2 : (int)b.bit();
+      } else {
+        seq_force_integer_mv = 2;
+      }
+      order_hint_bits = enable_order_hint ? (int)b.f(3) + 1 : 0;
+    }
+    enable_superres = (int)b.bit();
+    enable_cdef = (int)b.bit();
+    enable_restoration = (int)b.bit();
+    // color_config
+    int high_bitdepth = (int)b.bit();
+    if (profile == 2 && high_bitdepth) bit_depth = b.bit() ? 12 : 10;
+    else bit_depth = high_bitdepth ? 10 : 8;
+    mono = profile == 1 ? 0 : (int)b.bit();
+    if (b.bit()) {
+      primaries = (int)b.f(8);
+      transfer = (int)b.f(8);
+      matrix = (int)b.f(8);
+    } else {
+      primaries = transfer = matrix = 2;
+    }
+    if (mono) {
+      color_range = (int)b.bit();
+      ssx = ssy = 1;
+      separate_uv_delta_q = 0;
+    } else {
+      if (primaries == 1 && transfer == 13 && matrix == 0) {
+        color_range = 1;
+        ssx = ssy = 0;
+      } else {
+        color_range = (int)b.bit();
+        if (profile == 0) ssx = ssy = 1;
+        else if (profile == 1) ssx = ssy = 0;
+        else if (bit_depth == 12) {
+          ssx = (int)b.bit();
+          ssy = ssx ? (int)b.bit() : 0;
+        } else {
+          ssx = 1;
+          ssy = 0;
+        }
+        if (ssx && ssy) b.f(2);
+      }
+      separate_uv_delta_q = (int)b.bit();
+    }
+    film_grain_present = (int)b.bit();
+    have_seq = true;
+  }
+
+  // --------------------------------------------------------- frame header
+  int get_qidx(int ignore_delta_q, int seg) {
+    if (seg_enabled && feature_enabled[seg][0]) {
+      int q = base_q_idx + feature_data[seg][0];
+      if (!ignore_delta_q && delta_q_present) q = current_q_index + feature_data[seg][0];
+      return clip3(0, 255, q);
+    }
+    if (!ignore_delta_q && delta_q_present) return current_q_index;
+    return base_q_idx;
+  }
+
+  static int tile_log2(int blk, int target) {
+    int k = 0;
+    while ((blk << k) < target) k++;
+    return k;
+  }
+
+  int read_delta_q(Bits& b) { return b.bit() ? b.su(7) : 0; }
+
+  void frame_header(Bits& b) {
+    show_frame = 1;
+    if (!reduced) {
+      if (b.bit()) throw NotYet("show_existing_frame");
+      int frame_type = (int)b.f(2);
+      show_frame = (int)b.bit();
+      if (frame_type != 0) throw NotYet("inter or intra-only frame");
+      if (!show_frame) throw NotYet("key frame that is not shown");
+      if (decoder_model_info_present && !equal_picture_interval)
+        b.f(frame_presentation_time_len);
+    }
+    disable_cdf_update = (int)b.bit();
+    allow_screen_content_tools = seq_force_screen_content_tools == 2
+                                     ? (int)b.bit() : seq_force_screen_content_tools;
+    if (allow_screen_content_tools && seq_force_integer_mv == 2) b.bit();
+    if (frame_id_numbers_present) b.f(frame_id_len);
+    int frame_size_override = reduced ? 0 : (int)b.bit();
+    b.f(order_hint_bits);
+    // primary_ref_frame = NONE on a key frame
+    if (decoder_model_info_present) {
+      if (b.bit()) {
+        for (int op = 0; op < op_count; op++) {
+          if (decoder_model_present_for_op[op]) {
+            // the frame's layer ids are 0 (no extension on a still image)
+            int idc = op_idc[op];
+            if (idc == 0 || ((idc & 1) && ((idc >> 8) & 1))) b.f(buffer_removal_time_len);
+          }
+        }
+      }
+    }
+    // refresh_frame_flags: all frames for a shown key frame
+    // frame_size
+    if (frame_size_override) {
+      frame_w = (int)b.f(frame_width_bits) + 1;
+      frame_h = (int)b.f(frame_height_bits) + 1;
+    } else {
+      frame_w = max_w;
+      frame_h = max_h;
+    }
+    // refused before any plane is allocated for it
+    if (frame_w != want_w || frame_h != want_h)
+      throw NotYet("frame of another size than its item");
+    if (enable_superres && b.bit()) throw NotYet("superres");
+    mi_cols = 2 * ((frame_w + 7) >> 3);
+    mi_rows = 2 * ((frame_h + 7) >> 3);
+    if (b.bit()) b.f(32);  // render size
+    allow_intrabc = 0;
+    if (allow_screen_content_tools) allow_intrabc = (int)b.bit();
+    // disable_frame_end_update_cdf
+    if (!reduced && !disable_cdf_update) b.bit();
+    tile_info(b);
+    // quantization_params
+    base_q_idx = (int)b.f(8);
+    dq_y_dc = read_delta_q(b);
+    int diff_uv = 0;
+    if (!mono) {
+      if (separate_uv_delta_q) diff_uv = (int)b.bit();
+      dq_u_dc = read_delta_q(b);
+      dq_u_ac = read_delta_q(b);
+      if (diff_uv) {
+        dq_v_dc = read_delta_q(b);
+        dq_v_ac = read_delta_q(b);
+      } else {
+        dq_v_dc = dq_u_dc;
+        dq_v_ac = dq_u_ac;
+      }
+    }
+    if (b.bit()) throw NotYet("quantizer matrices", true);
+    // segmentation_params
+    seg_enabled = (int)b.bit();
+    memset(feature_enabled, 0, sizeof feature_enabled);
+    memset(feature_data, 0, sizeof feature_data);
+    if (seg_enabled) {
+      for (int i = 0; i < 8; i++)
+        for (int j = 0; j < 8; j++) {
+          int v = 0;
+          feature_enabled[i][j] = (int)b.bit();
+          if (feature_enabled[i][j]) {
+            int bits = kSegFeatureBits[j], lim = kSegFeatureMax[j];
+            if (kSegFeatureSigned[j]) v = clip3(-lim, lim, b.su(1 + bits));
+            else v = clip3(0, lim, (int)b.f(bits));
+          }
+          feature_data[i][j] = v;
+        }
+    }
+    seg_id_pre_skip = 0;
+    last_active_seg_id = 0;
+    for (int i = 0; i < 8; i++)
+      for (int j = 0; j < 8; j++)
+        if (feature_enabled[i][j]) {
+          last_active_seg_id = i;
+          if (j >= 5) seg_id_pre_skip = 1;
+        }
+    // delta_q_params / delta_lf_params
+    delta_q_res = delta_q_present = 0;
+    if (base_q_idx > 0) delta_q_present = (int)b.bit();
+    if (delta_q_present) delta_q_res = (int)b.f(2);
+    delta_lf_present = delta_lf_res = delta_lf_multi = 0;
+    if (delta_q_present) {
+      if (!allow_intrabc) delta_lf_present = (int)b.bit();
+      if (delta_lf_present) {
+        delta_lf_res = (int)b.f(2);
+        delta_lf_multi = (int)b.bit();
+      }
+    }
+    coded_lossless = 1;
+    for (int s = 0; s < 8; s++) {
+      int q = get_qidx(1, s);
+      lossless_array[s] = q == 0 && dq_y_dc == 0 && dq_u_ac == 0 && dq_u_dc == 0 &&
+                          dq_v_ac == 0 && dq_v_dc == 0;
+      if (!lossless_array[s]) coded_lossless = 0;
+    }
+    // loop_filter_params: the in-loop filters that are on are refused
+    // together once the LR params are read
+    std::vector<std::string> filters;
+    if (!coded_lossless && !allow_intrabc) {
+      int l0 = (int)b.f(6), l1 = (int)b.f(6);
+      if (!mono && (l0 || l1)) b.f(12);
+      b.f(3);
+      if (l0 || l1) filters.push_back("deblocking");
+      if (b.bit()) {  // loop_filter_delta_enabled
+        if (b.bit()) {
+          for (int i = 0; i < 8; i++) if (b.bit()) b.su(7);
+          for (int i = 0; i < 2; i++) if (b.bit()) b.su(7);
+        }
+      }
+    }
+    // cdef_params
+    cdef_bits = 0;
+    if (!coded_lossless && !allow_intrabc && enable_cdef) {
+      b.f(2);
+      cdef_bits = (int)b.f(2);
+      bool on = false;
+      for (int i = 0; i < (1 << cdef_bits); i++) {
+        if (b.f(4)) on = true;
+        if (b.f(2)) on = true;
+        if (!mono) {
+          if (b.f(4)) on = true;
+          if (b.f(2)) on = true;
+        }
+      }
+      if (on) filters.push_back("CDEF");
+    }
+    // lr_params
+    if (!coded_lossless && !allow_intrabc && enable_restoration) {
+      bool uses = false;
+      for (int i = 0; i < (mono ? 1 : 3); i++)
+        if (b.f(2)) uses = true;
+      if (uses) filters.push_back("loop restoration");
+    }
+    if (!filters.empty()) {
+      std::string names = filters[0];
+      for (size_t i = 1; i < filters.size(); i++)
+        names += (i + 1 == filters.size() ? " and " : ", ") + filters[i];
+      throw NotYet(names, filters.size() > 1);
+    }
+    // read_tx_mode
+    only_4x4 = coded_lossless;
+    tx_mode_select = coded_lossless ? 0 : (int)b.bit();
+    // reference_select, skip_mode, warped motion: absent on an intra frame
+    reduced_tx_set = (int)b.bit();
+    // film_grain_params
+    if (film_grain_present && show_frame) {
+      if (b.bit()) throw NotYet("film grain");
+    }
+    if (allow_intrabc) throw NotYet("intrabc");
+    start_frame();
+    have_frame_header = true;
+  }
+
+  void tile_info(Bits& b) {
+    int sb_cols = use_128 ? ((mi_cols + 31) >> 5) : ((mi_cols + 15) >> 4);
+    int sb_rows = use_128 ? ((mi_rows + 31) >> 5) : ((mi_rows + 15) >> 4);
+    int sb_shift = use_128 ? 5 : 4;
+    int sb_size = sb_shift + 2;
+    int max_tile_width_sb = 4096 >> sb_size;
+    int max_tile_area_sb = (4096 * 2304) >> (2 * sb_size);
+    int min_log2_tile_cols = tile_log2(max_tile_width_sb, sb_cols);
+    int max_log2_tile_cols = tile_log2(1, imin(sb_cols, 64));
+    int max_log2_tile_rows = tile_log2(1, imin(sb_rows, 64));
+    int min_log2_tiles = imax(min_log2_tile_cols, tile_log2(max_tile_area_sb, sb_rows * sb_cols));
+    mi_col_starts.clear();
+    mi_row_starts.clear();
+    if (b.bit()) {  // uniform
+      tile_cols_log2 = min_log2_tile_cols;
+      while (tile_cols_log2 < max_log2_tile_cols && b.bit()) tile_cols_log2++;
+      int tw = (sb_cols + (1 << tile_cols_log2) - 1) >> tile_cols_log2;
+      for (int s = 0; s < sb_cols; s += tw) mi_col_starts.push_back(s << sb_shift);
+      mi_col_starts.push_back(mi_cols);
+      tile_cols = (int)mi_col_starts.size() - 1;
+      int min_log2_tile_rows = imax(min_log2_tiles - tile_cols_log2, 0);
+      tile_rows_log2 = min_log2_tile_rows;
+      while (tile_rows_log2 < max_log2_tile_rows && b.bit()) tile_rows_log2++;
+      int th = (sb_rows + (1 << tile_rows_log2) - 1) >> tile_rows_log2;
+      for (int s = 0; s < sb_rows; s += th) mi_row_starts.push_back(s << sb_shift);
+      mi_row_starts.push_back(mi_rows);
+      tile_rows = (int)mi_row_starts.size() - 1;
+    } else {
+      int widest = 0, s = 0;
+      while (s < sb_cols) {
+        mi_col_starts.push_back(s << sb_shift);
+        int maxw = imin(sb_cols - s, max_tile_width_sb);
+        int size = (int)b.ns((uint32_t)maxw) + 1;
+        widest = imax(size, widest);
+        s += size;
+      }
+      mi_col_starts.push_back(mi_cols);
+      tile_cols = (int)mi_col_starts.size() - 1;
+      tile_cols_log2 = tile_log2(1, tile_cols);
+      int area = min_log2_tiles > 0 ? (sb_rows * sb_cols) >> (min_log2_tiles + 1)
+                                    : sb_rows * sb_cols;
+      int max_tile_height_sb = imax(area / widest, 1);
+      s = 0;
+      while (s < sb_rows) {
+        mi_row_starts.push_back(s << sb_shift);
+        int maxh = imin(sb_rows - s, max_tile_height_sb);
+        int size = (int)b.ns((uint32_t)maxh) + 1;
+        s += size;
+      }
+      mi_row_starts.push_back(mi_rows);
+      tile_rows = (int)mi_row_starts.size() - 1;
+      tile_rows_log2 = tile_log2(1, tile_rows);
+      if (tile_cols > 64 || tile_rows > 64) throw Invalid("too many tiles");
+    }
+    if (tile_cols_log2 > 0 || tile_rows_log2 > 0) {
+      b.f(tile_rows_log2 + tile_cols_log2);  // context_update_tile_id
+      tile_size_bytes = (int)b.f(2) + 1;
+    } else {
+      tile_size_bytes = 4;
+    }
+  }
+
+  void start_frame() {
+    if (bit_depth != 8) throw NotYet(std::to_string(bit_depth) + "-bit samples", true);
+    if (mono) throw NotYet("monochrome");
+    if (!(ssx && ssy)) throw NotYet(ssx ? "4:2:2" : "4:4:4");
+    frame_cdfs.init(base_q_idx);
+    mi_stride = mi_cols + 32;
+    size_t n = (size_t)mi_stride * (mi_rows + 32);
+    y_modes.assign(n, 0);
+    uv_modes.assign(n, 0);
+    skips.assign(n, 0);
+    tx_sizes.assign(n, 0);
+    mi_sizes.assign(n, 0);
+    seg_ids.assign(n, 0);
+    tx_types.assign(n, 0);
+    cdef_stride = (mi_cols >> 4) + 4;
+    cdef_idx.assign((size_t)cdef_stride * ((mi_rows >> 4) + 4), -1);
+    for (int p = 0; p < 3; p++) {
+      int sx = p ? ssx : 0, sy = p ? ssy : 0;
+      Plane& pl = planes[p];
+      pl.w = (mi_cols * 4) >> sx;
+      pl.h = (mi_rows * 4) >> sy;
+      pl.stride = pl.w + 160;
+      pl.px.assign((size_t)pl.stride * (pl.h + 160), 0);
+      above_level[p].assign((mi_cols >> sx) + 64, 0);
+      above_dc[p].assign((mi_cols >> sx) + 64, 0);
+      left_level[p].assign((mi_rows >> sy) + 64, 0);
+      left_dc[p].assign((mi_rows >> sy) + 64, 0);
+    }
+    next_tile = 0;
+  }
+
+  // ------------------------------------------------------------ tile group
+  void tile_group(const uint8_t* p, size_t sz) {
+    Bits b(p, sz);
+    int num_tiles = tile_cols * tile_rows;
+    int start = 0, end = num_tiles - 1;
+    if (num_tiles > 1 && b.bit()) {
+      int bits = tile_cols_log2 + tile_rows_log2;
+      start = (int)b.f(bits);
+      end = (int)b.f(bits);
+    }
+    b.byte_align();
+    if (start != next_tile || end < start || end >= num_tiles)
+      throw Invalid("tile group out of order");
+    size_t pos = b.pos / 8;
+    for (int t = start; t <= end; t++) {
+      size_t tsize;
+      if (t == end) {
+        tsize = sz - pos;
+      } else {
+        if (pos + tile_size_bytes > sz) throw Invalid("tile size runs past the data");
+        tsize = 0;
+        for (int i = 0; i < tile_size_bytes; i++) tsize |= (size_t)p[pos + i] << (8 * i);
+        tsize += 1;
+        pos += tile_size_bytes;
+        if (tsize > sz - pos) throw Invalid("tile runs past the data");
+      }
+      int row = t / tile_cols, col = t % tile_cols;
+      mi_row_start = mi_row_starts[row];
+      mi_row_end = mi_row_starts[row + 1];
+      mi_col_start = mi_col_starts[col];
+      mi_col_end = mi_col_starts[col + 1];
+      current_q_index = base_q_idx;
+      cdf = frame_cdfs;
+      sd.init(p + pos, tsize, disable_cdf_update != 0);
+      decode_tile();
+      sd.exit();
+      pos += tsize;
+    }
+    next_tile = end + 1;
+    if (end == num_tiles - 1) frame_done = true;
+  }
+
+  void decode_tile() {
+    // clear_above_context
+    for (int p = 0; p < 3; p++) {
+      int sx = p ? ssx : 0;
+      for (int i = mi_col_start >> sx; i < (mi_col_end >> sx) + 32 && i < (int)above_level[p].size(); i++)
+        above_level[p][i] = above_dc[p][i] = 0;
+    }
+    for (int i = 0; i < 4; i++) delta_lf[i] = 0;
+    int sb4 = use_128 ? 32 : 16;
+    int sb_size = use_128 ? BLOCK_128X128 : BLOCK_64X64;
+    for (int r = mi_row_start; r < mi_row_end; r += sb4) {
+      for (int p = 0; p < 3; p++) {  // clear_left_context
+        int sy = p ? ssy : 0;
+        for (int i = mi_row_start >> sy; i < (mi_row_end >> sy) + 32 && i < (int)left_level[p].size(); i++)
+          left_level[p][i] = left_dc[p][i] = 0;
+      }
+      for (int c = mi_col_start; c < mi_col_end; c += sb4) {
+        read_deltas = delta_q_present != 0;
+        clear_cdef(r, c);
+        clear_block_decoded_flags(r, c, sb4);
+        decode_partition(r, c, sb_size);
+      }
+    }
+  }
+
+  int8_t& cdef_at(int r, int c) { return cdef_idx[(size_t)(r >> 4) * cdef_stride + (c >> 4)]; }
+  void clear_cdef(int r, int c) {
+    cdef_at(r, c) = -1;
+    if (use_128) {
+      cdef_at(r, c + 16) = -1;
+      cdef_at(r + 16, c) = -1;
+      cdef_at(r + 16, c + 16) = -1;
+    }
+  }
+  void clear_block_decoded_flags(int r, int c, int sb4) {
+    for (int p = 0; p < 3; p++) {
+      int sx = p ? ssx : 0, sy = p ? ssy : 0;
+      int sbw4 = (mi_col_end - c) >> sx, sbh4 = (mi_row_end - r) >> sy;
+      for (int y = -1; y <= (sb4 >> sy); y++)
+        for (int x = -1; x <= (sb4 >> sx); x++) {
+          uint8_t v;
+          if (y < 0 && x < sbw4) v = 1;
+          else if (x < 0 && y < sbh4) v = 1;
+          else v = 0;
+          block_decoded[p][y + 1][x + 1] = v;
+        }
+      int last = sb4 >> sy;
+      block_decoded[p][last + 1][0] = 0;
+    }
+  }
+
+  bool is_inside(int r, int c) const {
+    return c >= mi_col_start && c < mi_col_end && r >= mi_row_start && r < mi_row_end;
+  }
+
+  // ------------------------------------------------------------ partition
+  void decode_partition(int r, int c, int bsize) {
+    if (r >= mi_rows || c >= mi_cols) return;
+    int au = is_inside(r - 1, c), al = is_inside(r, c - 1);
+    int num4 = 1 << (kBlockW2[bsize] - 2);
+    int half = num4 >> 1, quarter = half >> 1;
+    bool has_rows = (r + half) < mi_rows, has_cols = (c + half) < mi_cols;
+    int partition;
+    if (bsize < BLOCK_8X8) {
+      partition = PARTITION_NONE;
+    } else {
+      int bsl = kBlockW2[bsize] - 2;  // Mi_Width_Log2
+      int above = au && (kBlockW2[mi_sizes[idx(r - 1, c)]] - 2) < bsl;
+      int left = al && (kBlockH2[mi_sizes[idx(r, c - 1)]] - 2) < bsl;
+      int ctx = left * 2 + above;
+      uint16_t* pc = cdf.partition[(bsl - 1) * 4 + ctx];
+      int n = bsl == 1 ? 4 : bsl == 5 ? 8 : 10;
+      if (has_rows && has_cols) {
+        partition = sd.read(pc, n);
+      } else if (has_cols) {
+        auto prob = [&](int e) -> int {
+          if (e >= n) return 0;
+          return (e > 0 ? pc[e - 1] : 32768) - pc[e];
+        };
+        // split_or_horz: "split" gathers the partitions that split the
+        // top half vertically
+        int psum = prob(PARTITION_VERT) + prob(PARTITION_SPLIT) + prob(PARTITION_HORZ_A) +
+                   prob(PARTITION_VERT_A) + prob(PARTITION_VERT_B);
+        if (bsize != BLOCK_128X128) psum += prob(PARTITION_VERT_4);
+        uint16_t tmp[3] = {(uint16_t)psum, 0, 0};
+        bool a = sd.adapt;
+        sd.adapt = false;
+        int s = sd.read(tmp, 2);
+        sd.adapt = a;
+        partition = s ? PARTITION_SPLIT : PARTITION_HORZ;
+      } else if (has_rows) {
+        auto prob = [&](int e) -> int {
+          if (e >= n) return 0;
+          return (e > 0 ? pc[e - 1] : 32768) - pc[e];
+        };
+        // split_or_vert: "split" gathers those that split the left half
+        // horizontally
+        int psum = prob(PARTITION_HORZ) + prob(PARTITION_SPLIT) + prob(PARTITION_HORZ_A) +
+                   prob(PARTITION_HORZ_B) + prob(PARTITION_VERT_A);
+        if (bsize != BLOCK_128X128) psum += prob(PARTITION_HORZ_4);
+        uint16_t tmp[3] = {(uint16_t)psum, 0, 0};
+        bool a = sd.adapt;
+        sd.adapt = false;
+        int s = sd.read(tmp, 2);
+        sd.adapt = a;
+        partition = s ? PARTITION_SPLIT : PARTITION_VERT;
+      } else {
+        partition = PARTITION_SPLIT;
+      }
+    }
+    int sub = partition_subsize(partition, bsize);
+    int split = partition_subsize(PARTITION_SPLIT, bsize);
+    switch (partition) {
+      case PARTITION_NONE: decode_block(r, c, sub); break;
+      case PARTITION_HORZ:
+        decode_block(r, c, sub);
+        if (has_rows) decode_block(r + half, c, sub);
+        break;
+      case PARTITION_VERT:
+        decode_block(r, c, sub);
+        if (has_cols) decode_block(r, c + half, sub);
+        break;
+      case PARTITION_SPLIT:
+        decode_partition(r, c, sub);
+        decode_partition(r, c + half, sub);
+        decode_partition(r + half, c, sub);
+        decode_partition(r + half, c + half, sub);
+        break;
+      case PARTITION_HORZ_A:
+        decode_block(r, c, split);
+        decode_block(r, c + half, split);
+        decode_block(r + half, c, sub);
+        break;
+      case PARTITION_HORZ_B:
+        decode_block(r, c, sub);
+        decode_block(r + half, c, split);
+        decode_block(r + half, c + half, split);
+        break;
+      case PARTITION_VERT_A:
+        decode_block(r, c, split);
+        decode_block(r + half, c, split);
+        decode_block(r, c + half, sub);
+        break;
+      case PARTITION_VERT_B:
+        decode_block(r, c, sub);
+        decode_block(r, c + half, split);
+        decode_block(r + half, c + half, split);
+        break;
+      case PARTITION_HORZ_4:
+        for (int i = 0; i < 4; i++)
+          if (i < 3 || r + quarter * 3 < mi_rows) decode_block(r + quarter * i, c, sub);
+        break;
+      default:
+        for (int i = 0; i < 4; i++)
+          if (i < 3 || c + quarter * 3 < mi_cols) decode_block(r, c + quarter * i, sub);
+        break;
+    }
+  }
+
+  // ---------------------------------------------------------------- block
+  void decode_block(int r, int c, int bsize) {
+    mi_row = r;
+    mi_col = c;
+    mi_size = bsize;
+    int bw4 = 1 << (kBlockW2[bsize] - 2), bh4 = 1 << (kBlockH2[bsize] - 2);
+    if (bh4 == 1 && ssy && (r & 1) == 0) has_chroma = 0;
+    else if (bw4 == 1 && ssx && (c & 1) == 0) has_chroma = 0;
+    else has_chroma = 1;
+    avail_u = is_inside(r - 1, c);
+    avail_l = is_inside(r, c - 1);
+    avail_u_chroma = avail_u;
+    avail_l_chroma = avail_l;
+    if (has_chroma) {
+      if (ssy && bh4 == 1) avail_u_chroma = is_inside(r - 2, c);
+      if (ssx && bw4 == 1) avail_l_chroma = is_inside(r, c - 2);
+    } else {
+      avail_u_chroma = avail_l_chroma = 0;
+    }
+    intra_frame_mode_info();
+    read_block_tx_size();
+    if (skip) reset_block_context(bw4, bh4);
+    int rows = imin(bh4, mi_rows - r), cols = imin(bw4, mi_cols - c);
+    for (int y = 0; y < rows; y++)
+      for (int x = 0; x < cols; x++) {
+        int i = idx(r + y, c + x);
+        y_modes[i] = (uint8_t)y_mode;
+        uv_modes[i] = (uint8_t)uv_mode;
+        skips[i] = (uint8_t)skip;
+        tx_sizes[i] = (uint8_t)tx_sz;
+        mi_sizes[i] = (uint8_t)bsize;
+        seg_ids[i] = (uint8_t)segment_id;
+      }
+    residual();
+  }
+
+  void reset_block_context(int bw4, int bh4) {
+    for (int p = 0; p < 1 + 2 * has_chroma; p++) {
+      int sx = p ? ssx : 0, sy = p ? ssy : 0;
+      for (int i = mi_col >> sx; i < ((mi_col + bw4 - 1) >> sx) + 1; i++)
+        above_level[p][i] = above_dc[p][i] = 0;
+      for (int i = mi_row >> sy; i < ((mi_row + bh4 - 1) >> sy) + 1; i++)
+        left_level[p][i] = left_dc[p][i] = 0;
+    }
+  }
+
+  void intra_frame_mode_info() {
+    skip = 0;
+    if (seg_id_pre_skip) intra_segment_id();
+    read_skip();
+    if (!seg_id_pre_skip) intra_segment_id();
+    read_cdef();
+    read_delta_qindex();
+    read_delta_lf();
+    read_deltas = false;
+    if (allow_intrabc && sd.read(cdf.intrabc, 2)) throw NotYet("intrabc block");
+    int au = avail_u ? y_modes[idx(mi_row - 1, mi_col)] : (int)DC_PRED;
+    int al = avail_l ? y_modes[idx(mi_row, mi_col - 1)] : (int)DC_PRED;
+    y_mode = sd.read(cdf.kf_y[kIntraModeContext[au]][kIntraModeContext[al]], 13);
+    angle_delta_y = 0;
+    if (mi_size >= BLOCK_8X8 && y_mode >= V_PRED && y_mode <= D67_PRED)
+      angle_delta_y = sd.read(cdf.angle[y_mode - V_PRED], 7) - 3;
+    uv_mode = DC_PRED;
+    angle_delta_uv = 0;
+    cfl_alpha_u = cfl_alpha_v = 0;
+    if (has_chroma) {
+      int bw = 1 << kBlockW2[mi_size], bh = 1 << kBlockH2[mi_size];
+      int cfl_allowed;
+      if (lossless && residual_size(mi_size, 1) == BLOCK_4X4) cfl_allowed = 1;
+      else if (!lossless && imax(bw, bh) <= 32) cfl_allowed = 1;
+      else cfl_allowed = 0;
+      uv_mode = sd.read(cdf.uv[cfl_allowed][y_mode], cfl_allowed ? 14 : 13);
+      if (uv_mode == UV_CFL_PRED) read_cfl_alphas();
+      if (mi_size >= BLOCK_8X8 && uv_mode >= V_PRED && uv_mode <= D67_PRED)
+        angle_delta_uv = sd.read(cdf.angle[uv_mode - V_PRED], 7) - 3;
+    }
+    if (mi_size >= BLOCK_8X8 && kBlockW2[mi_size] <= 6 && kBlockH2[mi_size] <= 6 &&
+        allow_screen_content_tools) {
+      int bsize_ctx = kBlockW2[mi_size] + kBlockH2[mi_size] - 6;
+      if (y_mode == DC_PRED && sd.read(cdf.pal_y[bsize_ctx][0], 2)) throw NotYet("palette block");
+      if (has_chroma && uv_mode == DC_PRED && sd.read(cdf.pal_uv[0], 2))
+        throw NotYet("palette block");
+    }
+    use_filter_intra = 0;
+    if (enable_filter_intra && y_mode == DC_PRED &&
+        imax(kBlockW2[mi_size], kBlockH2[mi_size]) <= 5) {
+      use_filter_intra = sd.read(cdf.filter_intra[mi_size], 2);
+      if (use_filter_intra) filter_intra_mode = sd.read(cdf.filter_intra_mode, 5);
+    }
+  }
+
+  int residual_size(int bsize, int plane) {
+    if (plane == 0) return bsize;
+    return block_size(imax(2, kBlockW2[bsize] - ssx), imax(2, kBlockH2[bsize] - ssy));
+  }
+
+  void intra_segment_id() {
+    if (seg_enabled) read_segment_id();
+    else segment_id = 0;
+    lossless = lossless_array[segment_id];
+  }
+
+  static int neg_deinterleave(int diff, int ref, int max) {
+    if (!ref) return diff;
+    if (ref >= max - 1) return max - diff - 1;
+    if (2 * ref < max) {
+      if (diff <= 2 * ref) {
+        if (diff & 1) return ref + ((diff + 1) >> 1);
+        return ref - (diff >> 1);
+      }
+      return diff;
+    }
+    if (diff <= 2 * (max - ref - 1)) {
+      if (diff & 1) return ref + ((diff + 1) >> 1);
+      return ref - (diff >> 1);
+    }
+    return max - (diff + 1);
+  }
+
+  void read_segment_id() {
+    int prev_ul = -1, prev_u = -1, prev_l = -1;
+    if (avail_u && avail_l) prev_ul = seg_ids[idx(mi_row - 1, mi_col - 1)];
+    if (avail_u) prev_u = seg_ids[idx(mi_row - 1, mi_col)];
+    if (avail_l) prev_l = seg_ids[idx(mi_row, mi_col - 1)];
+    int pred;
+    if (prev_u == -1) pred = prev_l == -1 ? 0 : prev_l;
+    else if (prev_l == -1) pred = prev_u;
+    else pred = prev_ul == prev_u ? prev_u : prev_l;
+    if (skip) {
+      segment_id = pred;
+      return;
+    }
+    int ctx;
+    if (prev_ul < 0) ctx = 0;
+    else if (prev_ul == prev_u && prev_ul == prev_l) ctx = 2;
+    else if (prev_ul == prev_u || prev_ul == prev_l || prev_u == prev_l) ctx = 1;
+    else ctx = 0;
+    int s = sd.read(cdf.seg[ctx], 8);
+    segment_id = clip3(0, last_active_seg_id, neg_deinterleave(s, pred, last_active_seg_id + 1));
+  }
+
+  void read_skip() {
+    if (seg_id_pre_skip && seg_enabled && feature_enabled[segment_id][6]) {
+      skip = 1;
+      return;
+    }
+    int ctx = (avail_u ? skips[idx(mi_row - 1, mi_col)] : 0) +
+              (avail_l ? skips[idx(mi_row, mi_col - 1)] : 0);
+    skip = sd.read(cdf.skip[ctx], 2);
+  }
+
+  void read_cdef() {
+    if (skip || coded_lossless || !enable_cdef || allow_intrabc) return;
+    int r = mi_row & ~15, c = mi_col & ~15;
+    if (cdef_at(r, c) == -1) {
+      int v = sd.literal(cdef_bits);
+      int w4 = 1 << (kBlockW2[mi_size] - 2), h4 = 1 << (kBlockH2[mi_size] - 2);
+      for (int y = r; y < r + h4; y += 16)
+        for (int x = c; x < c + w4; x += 16) cdef_at(y, x) = (int8_t)v;
+    }
+  }
+
+  void read_delta_qindex() {
+    int sb_size = use_128 ? BLOCK_128X128 : BLOCK_64X64;
+    if (mi_size == sb_size && skip) return;
+    if (read_deltas) {
+      int a = sd.read(cdf.delta_q, 4);
+      if (a == 3) {
+        int rem = sd.literal(3) + 1;
+        a = sd.literal(rem) + (1 << rem) + 1;
+      }
+      if (a) {
+        int sign = sd.literal(1);
+        int reduced_dq = sign ? -a : a;
+        current_q_index = clip3(1, 255, current_q_index + reduced_dq * (1 << delta_q_res));
+      }
+    }
+  }
+
+  void read_delta_lf() {
+    int sb_size = use_128 ? BLOCK_128X128 : BLOCK_64X64;
+    if (mi_size == sb_size && skip) return;
+    if (read_deltas && delta_lf_present) {
+      int count = delta_lf_multi ? (mono ? 2 : 4) : 1;
+      for (int i = 0; i < count; i++) {
+        uint16_t* c = delta_lf_multi ? cdf.delta_lf_multi[i] : cdf.delta_lf;
+        int a = sd.read(c, 4);
+        if (a == 3) {
+          int n = sd.literal(3) + 1;
+          a = sd.literal(n) + (1 << n) + 1;
+        }
+        if (a) {
+          int sign = sd.literal(1);
+          int red = sign ? -a : a;
+          delta_lf[i] = clip3(-63, 63, delta_lf[i] + red * (1 << delta_lf_res));
+        }
+      }
+    }
+  }
+
+  void read_cfl_alphas() {
+    int signs = sd.read(cdf.cfl_sign, 8);
+    int sign_u = (signs + 1) / 3, sign_v = (signs + 1) % 3;
+    if (sign_u) {
+      int a = sd.read(cdf.cfl_alpha[(sign_u - 1) * 3 + sign_v], 16);
+      cfl_alpha_u = 1 + a;
+      if (sign_u == 1) cfl_alpha_u = -cfl_alpha_u;
+    } else {
+      cfl_alpha_u = 0;
+    }
+    if (sign_v) {
+      int a = sd.read(cdf.cfl_alpha[(sign_v - 1) * 3 + sign_u], 16);
+      cfl_alpha_v = 1 + a;
+      if (sign_v == 1) cfl_alpha_v = -cfl_alpha_v;
+    } else {
+      cfl_alpha_v = 0;
+    }
+  }
+
+  int above_tx_width(int r, int c) {
+    int i = idx(r - 1, c);
+    return 1 << kTxW2[tx_sizes[i]];
+  }
+  int left_tx_height(int r, int c) {
+    int i = idx(r, c - 1);
+    return 1 << kTxH2[tx_sizes[i]];
+  }
+
+  void read_block_tx_size() {
+    if (lossless) {
+      tx_sz = TX_4X4;
+      return;
+    }
+    int max_rect = max_tx_size_rect(mi_size);
+    tx_sz = max_rect;
+    if (mi_size > BLOCK_4X4 && tx_mode_select) {
+      int depth = 0;
+      for (int t = max_rect; t != TX_4X4; t = split_tx_size(t)) depth++;
+      int cat = depth - 1;
+      int max_depth = imin(depth, 2);
+      int max_w = 1 << kTxW2[max_rect], max_h = 1 << kTxH2[max_rect];
+      int above_w = avail_u ? above_tx_width(mi_row, mi_col) : 0;
+      int left_h = avail_l ? left_tx_height(mi_row, mi_col) : 0;
+      int ctx = (above_w >= max_w) + (left_h >= max_h);
+      int d = sd.read(cdf.tx_size[cat][ctx], max_depth + 1);
+      for (int i = 0; i < d; i++) tx_sz = split_tx_size(tx_sz);
+    }
+  }
+
+  // ------------------------------------------------------------- residual
+  int get_tx_size(int plane, int t) {
+    if (plane == 0) return t;
+    int uv = max_tx_size_rect(residual_size(mi_size, plane));
+    if (kTxW2[uv] == 6 || kTxH2[uv] == 6) {
+      if (kTxW2[uv] == 4) return TX_16X32;
+      if (kTxH2[uv] == 4) return TX_32X16;
+      return TX_32X32;
+    }
+    return uv;
+  }
+
+  void residual() {
+    int sb_mask = use_128 ? 31 : 15;
+    int wchunks = imax(1, (1 << kBlockW2[mi_size]) >> 6);
+    int hchunks = imax(1, (1 << kBlockH2[mi_size]) >> 6);
+    for (int cy = 0; cy < hchunks; cy++)
+      for (int cx = 0; cx < wchunks; cx++) {
+        for (int plane = 0; plane < 1 + has_chroma * 2; plane++) {
+          int t = lossless ? TX_4X4 : get_tx_size(plane, tx_sz);
+          int step_x = 1 << (kTxW2[t] - 2), step_y = 1 << (kTxH2[t] - 2);
+          int psz = residual_size(mi_size, plane);
+          int n4w = 1 << (kBlockW2[psz] - 2), n4h = 1 << (kBlockH2[psz] - 2);
+          int sx = plane ? ssx : 0, sy = plane ? ssy : 0;
+          int base_x = (mi_col >> sx) * 4, base_y = (mi_row >> sy) * 4;
+          for (int y = 0; y < imin(n4h, 16 >> sy); y += step_y)
+            for (int x = 0; x < imin(n4w, 16 >> sx); x += step_x)
+              transform_block(plane, base_x, base_y, t, x + ((cx << 4) >> sx),
+                              y + ((cy << 4) >> sy), sb_mask);
+        }
+      }
+  }
+
+  void transform_block(int plane, int base_x, int base_y, int t, int x, int y, int sb_mask) {
+    int start_x = base_x + 4 * x, start_y = base_y + 4 * y;
+    int sx = plane ? ssx : 0, sy = plane ? ssy : 0;
+    int row = (start_y << sy) >> 2, col = (start_x << sx) >> 2;
+    int sub_r = row & sb_mask, sub_c = col & sb_mask;
+    int step_x = 1 << (kTxW2[t] - 2), step_y = 1 << (kTxH2[t] - 2);
+    int max_x = mi_cols * 4 - 1, max_y = mi_rows * 4 - 1;
+    if (start_x >= (max_x >> sx) || start_y >= (max_y >> sy)) return;
+    bool is_cfl = plane > 0 && uv_mode == UV_CFL_PRED;
+    int mode = plane == 0 ? y_mode : (is_cfl ? DC_PRED : uv_mode);
+    int have_left = (plane == 0 ? avail_l : avail_l_chroma) || x > 0;
+    int have_above = (plane == 0 ? avail_u : avail_u_chroma) || y > 0;
+    int above_rt = block_decoded[plane][(sub_r >> sy) - 1 + 1][(sub_c >> sx) + step_x + 1];
+    int below_lft = block_decoded[plane][(sub_r >> sy) + step_y + 1][(sub_c >> sx) - 1 + 1];
+    predict_intra(plane, start_x, start_y, have_left, have_above, above_rt, below_lft, mode,
+                  kTxW2[t], kTxH2[t]);
+    if (is_cfl) predict_cfl(plane, start_x, start_y, t);
+    if (plane == 0) {
+      max_luma_w = start_x + step_x * 4;
+      max_luma_h = start_y + step_y * 4;
+    }
+    if (!skip) {
+      int eob = coeffs(plane, start_x, start_y, t);
+      if (eob > 0) reconstruct(plane, start_x, start_y, t);
+    }
+    for (int i = 0; i < step_y; i++)
+      for (int j = 0; j < step_x; j++) {
+        int yy = (sub_r >> sy) + i + 1, xx = (sub_c >> sx) + j + 1;
+        if (yy < 34 && xx < 34) block_decoded[plane][yy][xx] = 1;
+      }
+  }
+
+  // ------------------------------------------------------------ prediction
+  int16_t above_buf[64 * 2 + 64 + 32], left_buf[64 * 2 + 64 + 32];
+
+  int get_filter_type(int plane) {
+    int above_smooth = 0, left_smooth = 0;
+    auto smooth = [&](int r, int c) {
+      int m = plane == 0 ? y_modes[idx(r, c)] : uv_modes[idx(r, c)];
+      return m == SMOOTH_PRED || m == SMOOTH_V_PRED || m == SMOOTH_H_PRED;
+    };
+    if (plane == 0 ? avail_u : avail_u_chroma) {
+      int r = mi_row - 1, c = mi_col;
+      if (plane > 0) {
+        if (ssx && !(mi_col & 1)) c++;
+        if (ssy && (mi_row & 1)) r--;
+      }
+      above_smooth = smooth(r, c);
+    }
+    if (plane == 0 ? avail_l : avail_l_chroma) {
+      int r = mi_row, c = mi_col - 1;
+      if (plane > 0) {
+        if (ssx && (mi_col & 1)) c--;
+        if (ssy && !(mi_row & 1)) r++;
+      }
+      left_smooth = smooth(r, c);
+    }
+    return above_smooth || left_smooth;
+  }
+
+  static int edge_strength(int w, int h, int filter_type, int delta) {
+    int d = std::abs(delta), wh = w + h, s = 0;
+    if (filter_type == 0) {
+      if (wh <= 8) { if (d >= 56) s = 1; }
+      else if (wh <= 12) { if (d >= 40) s = 1; }
+      else if (wh <= 16) { if (d >= 40) s = 1; }
+      else if (wh <= 24) { if (d >= 8) s = 1; if (d >= 16) s = 2; if (d >= 32) s = 3; }
+      else if (wh <= 32) { if (d >= 1) s = 1; if (d >= 4) s = 2; if (d >= 32) s = 3; }
+      else { if (d >= 1) s = 3; }
+    } else {
+      if (wh <= 8) { if (d >= 40) s = 1; if (d >= 64) s = 2; }
+      else if (wh <= 16) { if (d >= 20) s = 1; if (d >= 48) s = 2; }
+      else if (wh <= 24) { if (d >= 4) s = 3; }
+      else { if (d >= 1) s = 3; }
+    }
+    return s;
+  }
+  static void edge_filter(int16_t* buf, int sz, int strength) {
+    // buf[-1 .. sz - 2] are the edge; filtered in place
+    if (strength == 0) return;
+    int16_t edge[300];
+    for (int i = 0; i < sz; i++) edge[i] = buf[i - 1];
+    for (int i = 1; i < sz; i++) {
+      int s = 0;
+      for (int j = 0; j < 5; j++) {
+        int k = clip3(0, sz - 1, i - 2 + j);
+        s += AV1_INTRA_EDGE_KERNEL[(strength - 1) * 5 + j] * edge[k];
+      }
+      buf[i - 1] = (int16_t)((s + 8) >> 4);
+    }
+  }
+  static int use_upsample(int w, int h, int filter_type, int delta) {
+    int d = std::abs(delta), wh = w + h;
+    if (d <= 0 || d >= 40) return 0;
+    return filter_type == 0 ? wh <= 16 : wh <= 8;
+  }
+  static void edge_upsample(int16_t* buf, int num_px) {
+    int16_t dup[80];
+    dup[0] = buf[-1];
+    for (int i = -1; i < num_px; i++) dup[i + 2] = buf[i];
+    dup[num_px + 2] = buf[num_px - 1];
+    buf[-2] = dup[0];
+    for (int i = 0; i < num_px; i++) {
+      int s = -dup[i] + 9 * dup[i + 1] + 9 * dup[i + 2] - dup[i + 3];
+      s = clip1(round2(s, 4));
+      buf[2 * i - 1] = (int16_t)s;
+      buf[2 * i] = dup[i + 2];
+    }
+  }
+
+  void predict_intra(int plane, int x, int y, int have_left, int have_above, int have_above_rt,
+                     int have_below_lft, int mode, int log2w, int log2h) {
+    Plane& pl = planes[plane];
+    int w = 1 << log2w, h = 1 << log2h;
+    int sx = plane ? ssx : 0, sy = plane ? ssy : 0;
+    int max_x = ((mi_cols * 4) >> sx) - 1, max_y = ((mi_rows * 4) >> sy) - 1;
+    int16_t* above = above_buf + 16;  // index -16 .. allowed
+    int16_t* left = left_buf + 16;
+    int n = w + h;
+    if (!have_above && have_left) {
+      int v = *pl.at(y, x - 1);
+      for (int i = 0; i < n; i++) above[i] = (int16_t)v;
+    } else if (!have_above && !have_left) {
+      for (int i = 0; i < n; i++) above[i] = 127;
+    } else {
+      int lim = imin(max_x, x + (have_above_rt ? 2 * w : w) - 1);
+      uint8_t* row = pl.at(y - 1, 0);
+      for (int i = 0; i < n; i++) above[i] = row[imin(lim, x + i)];
+    }
+    if (!have_left && have_above) {
+      int v = *pl.at(y - 1, x);
+      for (int i = 0; i < n; i++) left[i] = (int16_t)v;
+    } else if (!have_left && !have_above) {
+      for (int i = 0; i < n; i++) left[i] = 129;
+    } else {
+      int lim = imin(max_y, y + (have_below_lft ? 2 * h : h) - 1);
+      for (int i = 0; i < n; i++) left[i] = *pl.at(imin(lim, y + i), x - 1);
+    }
+    int corner;
+    if (have_above && have_left) corner = *pl.at(y - 1, x - 1);
+    else if (have_above) corner = *pl.at(y - 1, x);
+    else if (have_left) corner = *pl.at(y, x - 1);
+    else corner = 128;
+    above[-1] = left[-1] = (int16_t)corner;
+
+    uint8_t pred[64][64];
+    if (plane == 0 && use_filter_intra) {
+      int w4 = w >> 2, h2 = h >> 1;
+      const int8_t* taps = AV1_FILTER_INTRA_TAPS + filter_intra_mode * 64;
+      for (int i2 = 0; i2 < h2; i2++)
+        for (int j4 = 0; j4 < w4; j4++) {
+          int p[7];
+          for (int i = 0; i < 7; i++) {
+            if (i < 5) {
+              if (i2 == 0) p[i] = above[(j4 << 2) + i - 1];
+              else if (j4 == 0 && i == 0) p[i] = left[(i2 << 1) - 1];
+              else p[i] = pred[(i2 << 1) - 1][(j4 << 2) + i - 1];
+            } else {
+              if (j4 == 0) p[i] = left[(i2 << 1) + i - 5];
+              else p[i] = pred[(i2 << 1) + i - 5][(j4 << 2) - 1];
+            }
+          }
+          for (int i = 0; i < 8; i++) {
+            int pr = 0;
+            for (int j = 0; j < 7; j++) pr += taps[i * 8 + j] * p[j];
+            pred[(i2 << 1) + (i >> 2)][(j4 << 2) + (i & 3)] = clip1(round2signed(pr, 4));
+          }
+        }
+    } else if (mode >= V_PRED && mode <= D67_PRED) {
+      int angle_delta = plane == 0 ? angle_delta_y : angle_delta_uv;
+      int p_angle = kModeToAngle[mode] + angle_delta * 3;
+      int up_above = 0, up_left = 0;
+      if (enable_intra_edge_filter) {
+        if (p_angle != 90 && p_angle != 180) {
+          if (p_angle > 90 && p_angle < 180 && (w + h) >= 24) {
+            int v = round2(left[0] * 5 + above[-1] * 6 + above[0] * 5, 4);
+            left[-1] = above[-1] = (int16_t)v;
+          }
+          int ft = get_filter_type(plane);
+          if (have_above) {
+            int st = edge_strength(w, h, ft, p_angle - 90);
+            int num = imin(w, max_x - x + 1) + (p_angle < 90 ? h : 0) + 1;
+            edge_filter(above, num, st);
+          }
+          if (have_left) {
+            int st = edge_strength(w, h, ft, p_angle - 180);
+            int num = imin(h, max_y - y + 1) + (p_angle > 180 ? w : 0) + 1;
+            edge_filter(left, num, st);
+          }
+          up_above = use_upsample(w, h, ft, p_angle - 90);
+          if (up_above) edge_upsample(above, w + (p_angle < 90 ? h : 0));
+          up_left = use_upsample(w, h, ft, p_angle - 180);
+          if (up_left) edge_upsample(left, h + (p_angle > 180 ? w : 0));
+        }
+      }
+      int dx = 0, dy = 0;
+      if (p_angle < 90) dx = AV1_DR_INTRA_DERIVATIVE[p_angle];
+      else if (p_angle > 90 && p_angle < 180) dx = AV1_DR_INTRA_DERIVATIVE[180 - p_angle];
+      if (p_angle > 90 && p_angle < 180) dy = AV1_DR_INTRA_DERIVATIVE[p_angle - 90];
+      else if (p_angle > 180) dy = AV1_DR_INTRA_DERIVATIVE[270 - p_angle];
+      for (int i = 0; i < h; i++)
+        for (int j = 0; j < w; j++) {
+          int v;
+          if (p_angle < 90) {
+            int id = (i + 1) * dx;
+            int base = (id >> (6 - up_above)) + (j << up_above);
+            int shift = ((id << up_above) >> 1) & 0x1F;
+            int max_base = (w + h - 1) << up_above;
+            if (base < max_base)
+              v = round2(above[base] * (32 - shift) + above[base + 1] * shift, 5);
+            else
+              v = above[max_base];
+          } else if (p_angle > 90 && p_angle < 180) {
+            int id = (j << 6) - (i + 1) * dx;
+            int base = id >> (6 - up_above);
+            if (base >= -(1 << up_above)) {
+              int shift = ((id * (1 << up_above)) >> 1) & 0x1F;
+              v = round2(above[base] * (32 - shift) + above[base + 1] * shift, 5);
+            } else {
+              id = (i << 6) - (j + 1) * dy;
+              base = id >> (6 - up_left);
+              int shift = ((id * (1 << up_left)) >> 1) & 0x1F;
+              v = round2(left[base] * (32 - shift) + left[base + 1] * shift, 5);
+            }
+          } else if (p_angle > 180) {
+            int id = (j + 1) * dy;
+            int base = (id >> (6 - up_left)) + (i << up_left);
+            int shift = ((id << up_left) >> 1) & 0x1F;
+            v = round2(left[base] * (32 - shift) + left[base + 1] * shift, 5);
+          } else if (p_angle == 90) {
+            v = above[j];
+          } else {
+            v = left[i];
+          }
+          pred[i][j] = (uint8_t)v;
+        }
+    } else if (mode == SMOOTH_PRED || mode == SMOOTH_V_PRED || mode == SMOOTH_H_PRED) {
+      const uint8_t* wx = AV1_SM_WEIGHTS + (w - 4);
+      const uint8_t* wy = AV1_SM_WEIGHTS + (h - 4);
+      for (int i = 0; i < h; i++)
+        for (int j = 0; j < w; j++) {
+          int v;
+          if (mode == SMOOTH_PRED) {
+            int s = wy[i] * above[j] + (256 - wy[i]) * left[h - 1] + wx[j] * left[i] +
+                    (256 - wx[j]) * above[w - 1];
+            v = round2(s, 9);
+          } else if (mode == SMOOTH_V_PRED) {
+            v = round2(wy[i] * above[j] + (256 - wy[i]) * left[h - 1], 8);
+          } else {
+            v = round2(wx[j] * left[i] + (256 - wx[j]) * above[w - 1], 8);
+          }
+          pred[i][j] = (uint8_t)v;
+        }
+    } else if (mode == DC_PRED) {
+      int avg;
+      if (have_above && have_left) {
+        int sum = 0;
+        for (int k = 0; k < h; k++) sum += left[k];
+        for (int k = 0; k < w; k++) sum += above[k];
+        sum += (w + h) >> 1;
+        avg = sum / (w + h);
+      } else if (have_left) {
+        int sum = 0;
+        for (int k = 0; k < h; k++) sum += left[k];
+        avg = (sum + (h >> 1)) >> log2h;
+      } else if (have_above) {
+        int sum = 0;
+        for (int k = 0; k < w; k++) sum += above[k];
+        avg = (sum + (w >> 1)) >> log2w;
+      } else {
+        avg = 128;
+      }
+      for (int i = 0; i < h; i++) memset(pred[i], avg, w);
+    } else {  // PAETH
+      for (int i = 0; i < h; i++)
+        for (int j = 0; j < w; j++) {
+          int base = above[j] + left[i] - above[-1];
+          int p_left = std::abs(base - left[i]), p_top = std::abs(base - above[j]),
+              p_tl = std::abs(base - above[-1]);
+          int v;
+          if (p_left <= p_top && p_left <= p_tl) v = left[i];
+          else if (p_top <= p_tl) v = above[j];
+          else v = above[-1];
+          pred[i][j] = (uint8_t)v;
+        }
+    }
+    for (int i = 0; i < h; i++) memcpy(pl.at(y + i, x), pred[i], w);
+  }
+
+  void predict_cfl(int plane, int sx0, int sy0, int t) {
+    int w = 1 << kTxW2[t], h = 1 << kTxH2[t];
+    int alpha = plane == 1 ? cfl_alpha_u : cfl_alpha_v;
+    static thread_local int L[64][64];
+    int64_t avg = 0;
+    Plane& luma = planes[0];
+    for (int i = 0; i < h; i++) {
+      int ly = imin(sy0 + i, (max_luma_h >> ssy) - 1) << ssy;
+      for (int j = 0; j < w; j++) {
+        int lx = imin(sx0 + j, (max_luma_w >> ssx) - 1) << ssx;
+        int tt = 0;
+        for (int dy = 0; dy <= ssy; dy++)
+          for (int dx = 0; dx <= ssx; dx++) tt += *luma.at(ly + dy, lx + dx);
+        int v = tt << (3 - ssx - ssy);
+        L[i][j] = v;
+        avg += v;
+      }
+    }
+    int lavg = (int)round2l(avg, kTxW2[t] + kTxH2[t]);
+    Plane& pl = planes[plane];
+    for (int i = 0; i < h; i++)
+      for (int j = 0; j < w; j++) {
+        uint8_t* px = pl.at(sy0 + i, sx0 + j);
+        int scaled = round2signed(alpha * (L[i][j] - lavg), 6);
+        *px = clip1(*px + scaled);
+      }
+  }
+
+  // ---------------------------------------------------------- coefficients
+  int plane_tx_set(int t) {
+    int sq = tx_sqr(t), up = tx_sqr_up(t);
+    if (up > TX_32X32) return 0;
+    if (up == TX_32X32) return 0;
+    if (reduced_tx_set) return 2;
+    if (sq == TX_16X16) return 2;
+    return 1;
+  }
+
+  int compute_tx_type(int plane, int t, int bx4, int by4) {
+    if (lossless || tx_sqr_up(t) > TX_32X32) return DCT_DCT;
+    int set = plane_tx_set(t);
+    if (plane == 0) return tx_types[idx(by4, bx4)];
+    int type = kModeToTxfm[uv_mode];
+    bool in_set;
+    if (set == 0) in_set = type == DCT_DCT;
+    else if (set == 1) in_set = type == DCT_DCT || type == ADST_DCT || type == DCT_ADST ||
+                                type == ADST_ADST || type == IDTX || type == V_DCT || type == H_DCT;
+    else in_set = type == DCT_DCT || type == ADST_DCT || type == DCT_ADST ||
+                  type == ADST_ADST || type == IDTX;
+    return in_set ? type : DCT_DCT;
+  }
+
+  void read_tx_type(int x4, int y4, int t) {
+    int set = plane_tx_set(t);
+    int type = DCT_DCT;
+    int q = seg_enabled ? get_qidx(1, segment_id) : base_q_idx;
+    if (set > 0 && q > 0) {
+      int dir = use_filter_intra ? kFilterIntraModeToIntraDir[filter_intra_mode] : y_mode;
+      int sq = tx_sqr(t);
+      if (set == 1) type = kTxTypeIntraInvSet1[sd.read(cdf.tx_set1[sq][dir], 7)];
+      else type = kTxTypeIntraInvSet2[sd.read(cdf.tx_set2[sq][dir], 5)];
+    }
+    set_tx_types(x4, y4, t, type);
+  }
+  void set_tx_types(int x4, int y4, int t, int type) {
+    int w4 = 1 << (kTxW2[t] - 2), h4 = 1 << (kTxH2[t] - 2);
+    for (int j = 0; j < h4; j++)
+      for (int i = 0; i < w4; i++)
+        if (y4 + j < mi_rows + 16 && x4 + i < mi_cols + 16)
+          tx_types[idx(y4 + j, x4 + i)] = (uint8_t)type;
+  }
+
+  const uint16_t* get_scan(int t) {
+    const Scans& s = scans();
+    if (t == TX_16X64) return s.dflt[TX_16X32].data();
+    if (t == TX_64X16) return s.dflt[TX_32X16].data();
+    if (tx_sqr_up(t) == TX_64X64) return s.dflt[TX_32X32].data();
+    if (plane_tx_type == IDTX) return s.dflt[t].data();
+    bool prefer_row = plane_tx_type == V_DCT || plane_tx_type == V_ADST || plane_tx_type == V_FLIPADST;
+    bool prefer_col = plane_tx_type == H_DCT || plane_tx_type == H_ADST || plane_tx_type == H_FLIPADST;
+    if (prefer_row) return s.mrow[t].data();
+    if (prefer_col) return s.mcol[t].data();
+    return s.dflt[t].data();
+  }
+
+  int coeff_base_ctx(int t, int pos, int bwl, int txh) {
+    int row = pos >> bwl, col = pos - (row << bwl);
+    int mag = 0;
+    int cls = tx_class(plane_tx_type);
+    for (int k = 0; k < 5; k++) {
+      int rr = row + kSigRefDiffOffset[cls][k][0], cc = col + kSigRefDiffOffset[cls][k][1];
+      if (rr >= 0 && cc >= 0 && rr < txh && cc < (1 << bwl))
+        mag += imin(std::abs(quant[(rr << bwl) + cc]), 3);
+    }
+    int ctx = imin((mag + 1) >> 1, 4);
+    if (cls == TX_CLASS_2D) {
+      if (row == 0 && col == 0) return 0;
+      int shape = kTxW2[t] == kTxH2[t] ? 0 : kTxW2[t] > kTxH2[t] ? 1 : 2;
+      return ctx + kCoeffBaseCtxOffset[shape][imin(row, 4)][imin(col, 4)];
+    }
+    int id = cls == TX_CLASS_VERT ? row : col;
+    return ctx + kCoeffBasePosCtxOffset[imin(id, 2)];
+  }
+
+  int coeff_br_ctx(int pos, int bwl, int txh) {
+    int row = pos >> bwl, col = pos - (row << bwl);
+    int txw = 1 << bwl;
+    int mag = 0;
+    int cls = tx_class(plane_tx_type);
+    for (int k = 0; k < 3; k++) {
+      int rr = row + kMagRefOffset[cls][k][0], cc = col + kMagRefOffset[cls][k][1];
+      if (rr >= 0 && cc >= 0 && rr < txh && cc < txw) mag += imin(quant[rr * txw + cc], 15);
+    }
+    mag = imin((mag + 1) >> 1, 6);
+    if (pos == 0) return mag;
+    if (cls == TX_CLASS_2D) return (row < 2 && col < 2) ? mag + 7 : mag + 14;
+    if (cls == TX_CLASS_HORIZ) return col == 0 ? mag + 7 : mag + 14;
+    return row == 0 ? mag + 7 : mag + 14;
+  }
+
+  int coeffs(int plane, int start_x, int start_y, int t) {
+    int x4 = start_x >> 2, y4 = start_y >> 2;
+    int w4 = 1 << (kTxW2[t] - 2), h4 = 1 << (kTxH2[t] - 2);
+    int tx_sz_ctx = (tx_sqr(t) + tx_sqr_up(t) + 1) >> 1;
+    int ptype = plane > 0;
+    int seg_eob = (t == TX_16X64 || t == TX_64X16) ? 512
+                  : imin(1024, (1 << kTxW2[t]) * (1 << kTxH2[t]));
+    memset(quant, 0, sizeof(int32_t) * seg_eob);
+    int sx = plane ? ssx : 0, sy = plane ? ssy : 0;
+    int max_x4 = mi_cols >> sx, max_y4 = mi_rows >> sy;
+    // all_zero context
+    int ctx;
+    int psz = residual_size(mi_size, plane);
+    int bw = 1 << kBlockW2[psz], bh = 1 << kBlockH2[psz];
+    int w = 1 << kTxW2[t], h = 1 << kTxH2[t];
+    if (plane == 0) {
+      int top = 0, left = 0;
+      for (int k = 0; k < w4; k++) if (x4 + k < max_x4) top = imax(top, above_level[plane][x4 + k]);
+      for (int k = 0; k < h4; k++) if (y4 + k < max_y4) left = imax(left, left_level[plane][y4 + k]);
+      top = imin(top, 255);
+      left = imin(left, 255);
+      if (bw == w && bh == h) ctx = 0;
+      else if (top == 0 && left == 0) ctx = 1;
+      else if (top == 0 || left == 0) ctx = 2 + (imax(top, left) > 3);
+      else if (imax(top, left) <= 3) ctx = 4;
+      else if (imin(top, left) <= 3) ctx = 5;
+      else ctx = 6;
+    } else {
+      int above = 0, left = 0;
+      for (int i = 0; i < w4; i++)
+        if (x4 + i < max_x4) above |= above_level[plane][x4 + i] | above_dc[plane][x4 + i];
+      for (int i = 0; i < h4; i++)
+        if (y4 + i < max_y4) left |= left_level[plane][y4 + i] | left_dc[plane][y4 + i];
+      ctx = (above != 0) + (left != 0) + 7;
+      if (bw * bh > w * h) ctx += 3;
+    }
+    int eob = 0, cul_level = 0, dc_category = 0;
+    int all_zero = sd.read(cdf.txb_skip[tx_sz_ctx][ctx], 2);
+    if (all_zero) {
+      if (plane == 0) set_tx_types(x4, y4, t, DCT_DCT);
+    } else {
+      if (plane == 0) read_tx_type(x4, y4, t);
+      plane_tx_type = compute_tx_type(plane, t, x4, y4);
+      const uint16_t* scan = get_scan(t);
+      int eob_multi = imin(kTxW2[t], 5) + imin(kTxH2[t], 5) - 4;
+      int cls_ctx = tx_class(plane_tx_type) == TX_CLASS_2D ? 0 : 1;
+      int eob_pt;
+      switch (eob_multi) {
+        case 0: eob_pt = sd.read(cdf.eob16[ptype][cls_ctx], 5); break;
+        case 1: eob_pt = sd.read(cdf.eob32[ptype][cls_ctx], 6); break;
+        case 2: eob_pt = sd.read(cdf.eob64[ptype][cls_ctx], 7); break;
+        case 3: eob_pt = sd.read(cdf.eob128[ptype][cls_ctx], 8); break;
+        case 4: eob_pt = sd.read(cdf.eob256[ptype][cls_ctx], 9); break;
+        case 5: eob_pt = sd.read(cdf.eob512[ptype][0], 10); break;
+        default: eob_pt = sd.read(cdf.eob1024[ptype][0], 11); break;
+      }
+      eob_pt += 1;
+      eob = eob_pt < 2 ? eob_pt : (1 << (eob_pt - 2)) + 1;
+      int eob_shift = eob_pt - 3;
+      if (eob_shift >= 0) {
+        if (sd.read(cdf.eob_extra[tx_sz_ctx][ptype][eob_pt - 3], 2)) eob += 1 << eob_shift;
+        for (int i = 1; i < imax(0, eob_pt - 2); i++) {
+          eob_shift = imax(0, eob_pt - 2) - 1 - i;
+          if (sd.literal(1)) eob += 1 << eob_shift;
+        }
+      }
+      int adj = adjusted_tx_size(t);
+      int bwl = kTxW2[adj], txh = 1 << kTxH2[adj], txw = 1 << bwl;
+      for (int c = eob - 1; c >= 0; c--) {
+        int pos = scan[c];
+        int level;
+        if (c == eob - 1) {
+          int cctx;
+          if (c == 0) cctx = 0;
+          else if (c <= (txh * txw) / 8) cctx = 1;
+          else if (c <= (txh * txw) / 4) cctx = 2;
+          else cctx = 3;
+          level = sd.read(cdf.base_eob[tx_sz_ctx][ptype][cctx], 3) + 1;
+        } else {
+          level = sd.read(cdf.base[tx_sz_ctx][ptype][coeff_base_ctx(t, pos, bwl, txh)], 4);
+        }
+        if (level > 2) {
+          int bctx = coeff_br_ctx(pos, bwl, txh);
+          for (int k = 0; k < 4; k++) {
+            int br = sd.read(cdf.br[imin(tx_sz_ctx, 3)][ptype][bctx], 4);
+            level += br;
+            if (br < 3) break;
+          }
+        }
+        quant[pos] = level;
+      }
+      for (int c = 0; c < eob; c++) {
+        int pos = scan[c];
+        int sign = 0;
+        if (quant[pos] != 0) {
+          if (c == 0) {
+            int dcs = 0;
+            for (int k = 0; k < w4; k++)
+              if (x4 + k < max_x4) {
+                int s = above_dc[plane][x4 + k];
+                if (s == 1) dcs--;
+                else if (s == 2) dcs++;
+              }
+            for (int k = 0; k < h4; k++)
+              if (y4 + k < max_y4) {
+                int s = left_dc[plane][y4 + k];
+                if (s == 1) dcs--;
+                else if (s == 2) dcs++;
+              }
+            int dctx = dcs < 0 ? 1 : dcs > 0 ? 2 : 0;
+            sign = sd.read(cdf.dc_sign[ptype][dctx], 2);
+          } else {
+            sign = sd.literal(1);
+          }
+        }
+        if (quant[pos] > 14) {
+          int length = 0, bit;
+          do {
+            length++;
+            bit = sd.literal(1);
+            if (length > 32) throw NotYet("coefficient Golomb code longer than 32 bits");
+          } while (!bit);
+          uint32_t x = 1;
+          for (int i = length - 2; i >= 0; i--) x = (x << 1) | (uint32_t)sd.literal(1);
+          quant[pos] = (int32_t)((x + 14) & 0xFFFFFFFFu);
+        }
+        if (pos == 0 && quant[pos] > 0) dc_category = sign ? 1 : 2;
+        quant[pos] &= 0xFFFFF;
+        cul_level += quant[pos];
+        if (sign) quant[pos] = -quant[pos];
+      }
+      cul_level = imin(63, cul_level);
+    }
+    for (int i = 0; i < w4; i++) {
+      above_level[plane][x4 + i] = (uint8_t)cul_level;
+      above_dc[plane][x4 + i] = (uint8_t)dc_category;
+    }
+    for (int i = 0; i < h4; i++) {
+      left_level[plane][y4 + i] = (uint8_t)cul_level;
+      left_dc[plane][y4 + i] = (uint8_t)dc_category;
+    }
+    return eob;
+  }
+
+  // ----------------------------------------------------- reconstruction
+  void reconstruct(int plane, int x, int y, int t) {
+    int dq_shift = ((1 << kTxW2[t]) * (1 << kTxH2[t]) > 256) +
+                   ((1 << kTxW2[t]) * (1 << kTxH2[t]) > 1024);
+    int log2w = kTxW2[t], log2h = kTxH2[t];
+    int w = 1 << log2w, h = 1 << log2h;
+    int tw = imin(32, w), th = imin(32, h);
+    int q = get_qidx(0, segment_id);
+    int dc_delta = plane == 0 ? dq_y_dc : plane == 1 ? dq_u_dc : dq_v_dc;
+    int ac_delta = plane == 0 ? 0 : plane == 1 ? dq_u_ac : dq_v_ac;
+    int dc_q = AV1_DC_QLOOKUP[clip3(0, 255, q + dc_delta)];
+    int ac_q = AV1_AC_QLOOKUP[clip3(0, 255, q + ac_delta)];
+    static thread_local int32_t R[64][64];
+    for (int i = 0; i < h; i++)
+      for (int j = 0; j < w; j++) R[i][j] = 0;
+    for (int i = 0; i < th; i++)
+      for (int j = 0; j < tw; j++) {
+        int32_t cq = quant[i * tw + j];
+        if (!cq) continue;
+        int qv = (i == 0 && j == 0) ? dc_q : ac_q;
+        int64_t dq = ((int64_t)std::abs(cq) * qv) & 0xFFFFFF;
+        dq >>= dq_shift;
+        if (cq < 0) dq = -dq;
+        R[i][j] = (int32_t)std::max<int64_t>(-32768, std::min<int64_t>(32767, dq));
+      }
+    int type = plane_tx_type;
+    int32_t T[64];
+    Tx1D tx{T};
+    if (lossless) {
+      for (int i = 0; i < 4; i++) {
+        for (int j = 0; j < 4; j++) T[j] = R[i][j];
+        tx.wht(2);
+        for (int j = 0; j < 4; j++) R[i][j] = T[j];
+      }
+      for (int j = 0; j < 4; j++) {
+        for (int i = 0; i < 4; i++) T[i] = R[i][j];
+        tx.wht(0);
+        for (int i = 0; i < 4; i++) R[i][j] = T[i];
+      }
+    } else {
+      int row_shift = kTransformRowShift[t];
+      int hk = kHorzKind[type], vk = kVertKind[type];
+      const int32_t lo = -(1 << 15), hi = (1 << 15) - 1;  // BitDepth + 8 bits
+      const int32_t clo = -(1 << 15), chi = (1 << 15) - 1;  // Max(BitDepth + 6, 16)
+      for (int i = 0; i < imin(32, h); i++) {
+        for (int j = 0; j < w; j++) T[j] = (j < 32) ? R[i][j] : 0;
+        if (std::abs(log2w - log2h) == 1)
+          for (int j = 0; j < w; j++) T[j] = (int32_t)round2l((int64_t)T[j] * 2896, 12);
+        for (int j = 0; j < w; j++) T[j] = std::max(lo, std::min(hi, T[j]));
+        tx.run(hk, log2w);
+        for (int j = 0; j < w; j++) R[i][j] = std::max(clo, std::min(chi, round2(T[j], row_shift)));
+      }
+      for (int i = 32; i < h; i++)
+        for (int j = 0; j < w; j++) R[i][j] = 0;
+      for (int j = 0; j < w; j++) {
+        for (int i = 0; i < h; i++) T[i] = R[i][j];
+        tx.run(vk, log2h);
+        for (int i = 0; i < h; i++) R[i][j] = round2(T[i], 4);
+      }
+    }
+    Plane& pl = planes[plane];
+    for (int i = 0; i < h; i++) {
+      uint8_t* row = pl.at(y + i, x);
+      for (int j = 0; j < w; j++) row[j] = clip1(row[j] + R[i][j]);
+    }
+  }
+};
+
+// ---------------------------------------------------------------------------
+// YUV to RGB: libavif 1.3.0 through libyuv for 8-bit 4:2:0 (bilinear
+// chroma upsampling, libyuv's YuvConstants of the matrix and range)
+// ---------------------------------------------------------------------------
+struct YuvConst {
+  int ub, ug, vg, vr, yg, yb;
+};
+
+// libyuv's YuvConstants (row_common.c, MAKEYUVCONSTANTS) of a matrix and
+// range: YG = round(y scale * 64 * 256 * 256 / 257), YB the bias and
+// rounding, the U / V terms at 6 fractional bits
+bool yuv_constants(int matrix, int full, YuvConst* k) {
+  // the limited-range U-to-B terms saturate at 128 in libyuv's x86 build
+  bool bt601 = matrix == 6 || matrix == 5 || matrix == 2;
+  if (bt601 && full) *k = {113, 22, 46, 90, 16320, 32};                  // JPEG
+  else if (bt601) *k = {128, 25, 52, 102, 18997, -1160};                // I601
+  else if (matrix == 1 && full) *k = {119, 12, 30, 101, 16320, 32};     // F709
+  else if (matrix == 1) *k = {128, 14, 34, 115, 18997, -1160};          // H709
+  else if (matrix == 9 && full) *k = {120, 11, 37, 94, 16320, 32};      // V2020
+  else if (matrix == 9) *k = {128, 12, 42, 107, 19003, -1160};          // 2020
+  else return false;
+  return true;
+}
+
+inline uint8_t clamp255(int v) { return (uint8_t)(v < 0 ? 0 : v > 255 ? 255 : v); }
+
+// libyuv's YuvPixel: RGB of one Y, U, V
+void yuv_pixel(const YuvConst& k, int y, int u, int v, uint8_t* rgb) {
+  int32_t y1 = (int32_t)((uint32_t)(y * 0x0101 * k.yg) >> 16) + k.yb;
+  int ui = u - 128, vi = v - 128;
+  rgb[0] = clamp255((y1 + vi * k.vr) >> 6);
+  rgb[1] = clamp255((y1 - (ui * k.ug + vi * k.vg)) >> 6);
+  rgb[2] = clamp255((y1 + ui * k.ub) >> 6);
+}
+
+// one row of chroma upsampled 2x: linear, libyuv's ScaleRowUp2_Linear_Any
+void up2_linear(const uint8_t* s, uint8_t* d, int dw) {
+  d[0] = s[0];
+  int work = (dw - 1) & ~1;
+  for (int x = 0; x < work / 2; x++) {
+    d[2 * x + 1] = (uint8_t)((s[x] * 3 + s[x + 1] + 2) >> 2);
+    d[2 * x + 2] = (uint8_t)((s[x] + s[x + 1] * 3 + 2) >> 2);
+  }
+  d[dw - 1] = s[(dw - 1) / 2];
+}
+// two rows from chroma rows s, t: libyuv's ScaleRowUp2_Bilinear_Any
+void up2_bilinear(const uint8_t* s, const uint8_t* t, uint8_t* d, uint8_t* e, int dw) {
+  d[0] = (uint8_t)((s[0] * 3 + t[0] + 2) >> 2);
+  e[0] = (uint8_t)((s[0] + t[0] * 3 + 2) >> 2);
+  int work = (dw - 1) & ~1;
+  for (int x = 0; x < work / 2; x++) {
+    d[2 * x + 1] = (uint8_t)((s[x] * 9 + s[x + 1] * 3 + t[x] * 3 + t[x + 1] + 8) >> 4);
+    d[2 * x + 2] = (uint8_t)((s[x] * 3 + s[x + 1] * 9 + t[x] + t[x + 1] * 3 + 8) >> 4);
+    e[2 * x + 1] = (uint8_t)((s[x] * 3 + s[x + 1] + t[x] * 9 + t[x + 1] * 3 + 8) >> 4);
+    e[2 * x + 2] = (uint8_t)((s[x] + s[x + 1] * 3 + t[x] * 3 + t[x + 1] * 9 + 8) >> 4);
+  }
+  int l = (dw - 1) / 2;
+  d[dw - 1] = (uint8_t)((s[l] * 3 + t[l] + 2) >> 2);
+  e[dw - 1] = (uint8_t)((s[l] + t[l] * 3 + 2) >> 2);
+}
+
+void to_rgb(Decoder& d, int w, int h, const YuvConst& k, uint8_t* out, int64_t stride) {
+  std::vector<uint8_t> u1(w + 2), v1(w + 2), u2(w + 2), v2(w + 2);
+  Plane &Y = d.planes[0], &U = d.planes[1], &V = d.planes[2];
+  auto emit = [&](int row, const uint8_t* uu, const uint8_t* vv) {
+    uint8_t* o = out + row * stride;
+    const uint8_t* yy = Y.at(row, 0);
+    for (int x = 0; x < w; x++) yuv_pixel(k, yy[x], uu[x], vv[x], o + 3 * x);
+  };
+  up2_linear(U.at(0, 0), u1.data(), w);
+  up2_linear(V.at(0, 0), v1.data(), w);
+  emit(0, u1.data(), v1.data());
+  int row = 1, c = 0;
+  for (int y = 0; y < h - 2; y += 2, c++) {
+    up2_bilinear(U.at(c, 0), U.at(c + 1, 0), u1.data(), u2.data(), w);
+    up2_bilinear(V.at(c, 0), V.at(c + 1, 0), v1.data(), v2.data(), w);
+    emit(row++, u1.data(), v1.data());
+    emit(row++, u2.data(), v2.data());
+  }
+  if (!(h & 1)) {
+    up2_linear(U.at(c, 0), u1.data(), w);
+    up2_linear(V.at(c, 0), v1.data(), w);
+    emit(row, u1.data(), v1.data());
+  }
+}
+
+}  // namespace
+
+extern "C" int64_t av1_decode(const uint8_t* obus, int64_t size, int32_t width, int32_t height,
+                              int32_t matrix, int32_t full_range, uint8_t* rgb, int64_t rgb_stride,
+                              char* err, int64_t errlen) {
+  try {
+    Decoder d;
+    d.want_w = width;
+    d.want_h = height;
+    d.decode(obus, (size_t)size);
+    {
+      YuvConst k;
+      int m = matrix >= 0 ? matrix : d.matrix;
+      // libavif's own conversion refuses these on 4:2:0 (identity,
+      // reserved, BT.2020 and chroma-derived constant luminance, SMPTE
+      // ST 2085, ICtCp, and values past the table)
+      if (m == 0 || m == 3 || m == 10 || m == 11 || m == 13 || (m >= 14 && m != 15))
+        throw std::runtime_error("Conversion from YUV failed: Reformat failed");
+      if (!yuv_constants(m, full_range >= 0 ? full_range : d.color_range, &k))
+        throw NotYet("YUV matrix " + std::to_string(m));
+      to_rgb(d, width, height, k, rgb, rgb_stride);
+    }
+    return 0;
+  } catch (const std::exception& e) {
+    snprintf(err, (size_t)errlen, "%s", e.what());
+    return -1;
+  }
+}

@@ -15,11 +15,11 @@ Pillow 12.1's plugins in its order (open_image, PLUGINS):
     (io/ftex.py) with their block-compressed textures (io/bcn.py), BLP
     (io/blp.py), XBM (io/xbm.py), XPM (io/xpm.py), MSP (io/msp.py), PIXAR
     (io/pixar.py), GBR (io/gbr.py), FLI / FLC (io/fli.py), PhotoCD
-    (io/pcd.py), XV thumbnails (io/xvthumb.py), IM Tools (io/imt.py) and
-    IPTC/NAA (io/iptc.py);
-  * AVIF files raise RasterError naming the format, the formats Pillow
-    opens but reads no pixels of here (NO_PIXELS) say so, and so does
-    content no plugin takes.
+    (io/pcd.py), XV thumbnails (io/xvthumb.py), IM Tools (io/imt.py),
+    IPTC/NAA (io/iptc.py) and still AVIF images (io/avif.py: 8-bit 4:2:0
+    key frames without in-loop filters);
+  * the formats Pillow opens but reads no pixels of here (NO_PIXELS) raise
+    RasterError saying so, and so does content no plugin takes.
 
 Each reader's image then takes the JAX module's normalisation
 (io/pixels.normalise) and Pillow's decompression-bomb limit
@@ -40,6 +40,7 @@ import numpy as np
 
 from ..errors import RasterError
 from . import (
+    avif,
     blp,
     bmp,
     dds,
@@ -194,7 +195,7 @@ PLUGINS = (
     ("JPEG", lambda p: p.startswith(jpeg.SIGNATURE), jpeg.read),
     ("PPM", netpbm.accept, netpbm.read),
     ("PNG", lambda p: p.startswith(png.SIGNATURE), png.read),
-    _elsewhere("AVIF"),
+    ("AVIF", _ACCEPT["AVIF"], avif.read),
     ("BLP", blp.accept, blp.open_image),
     _elsewhere("BUFR"),
     ("CUR", _ACCEPT["CUR"], ico.cur_open),
@@ -235,7 +236,7 @@ PLUGINS = (
 READS = ("PNG, JPEG, BMP, DIB, GIF, netpbm and PFM, WebP, JPEG 2000, PCX, "
          "DCX, FITS, IM, IMT, McIdas, PSD, QOI, SGI, SPIDER, Sun, TGA, ICO, "
          "CUR, ICNS, DDS, FTEX, BLP, XBM, XPM, MSP, PIXAR, GBR, FLI, PCD, "
-         "XV thumbnails and IPTC")
+         "XV thumbnails, IPTC and AVIF")
 
 
 def open_image(blob: bytes) -> pixels.Decoded:

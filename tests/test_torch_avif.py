@@ -1,0 +1,454 @@
+"""The port's AVIF reader (io/avif.py, _native/av1dec.cpp) against the JAX
+package's RasterReader, which opens the same files through Pillow 12.1,
+libavif 1.3.0, dav1d 1.5.1 and libyuv, on the CPU: every band bit-equal
+(dtype included), equal size, bands, geotransform, EPSG and
+gdal_metadata(), and RasterError where the JAX reader raises it. No
+tolerance anywhere: AV1 decoding and libyuv's conversion are integer
+arithmetic.
+
+Inputs are the committed files of tests/data/avif (chip_smoke.py's avif
+phase decodes them on the card), which Pillow writes with aom 3.12.1 from
+seeded numpy arrays (`fixture_files`, re-encoded here and held equal byte
+for byte): speeds 6, 8 and 10 at qualities 10, 50, 90 and 100; sizes of
+1 x 1, 7 x 5, 130 x 67 and 257 x 129 (odd sizes, and sizes that cross a 128
+superblock); 2 x 2 tiles; each intra tool switched off alone and all of
+them at once; ICC, EXIF and XMP; the limited range. All are saved with
+aom's loop filter off (`loopfilter-control 0`), as the port reads no
+in-loop filter yet. Beside them: the `colr` matrix patched to each of
+libyuv's, bit flips of a file with every kind of item, files cut short,
+and the files the port refuses by name (tests/test_torch_legacy_rasters.py
+holds those: deblocking, CDEF, loop restoration, 10-bit, 4:4:4, RGBA and
+palette blocks). The tables of av1dec.cpp are held to the read-only data
+of Pillow's libavif."""
+import hashlib
+import io
+import struct
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from PIL import Image  # noqa: E402
+from sarpro_tpu.io import raster as jraster  # noqa: E402
+from sarpro_tpu_torch._native import av1_tables  # noqa: E402
+from sarpro_tpu_torch.errors import RasterError  # noqa: E402
+from sarpro_tpu_torch.io import avif  # noqa: E402
+from sarpro_tpu_torch.io import raster as traster  # noqa: E402
+from test_torch_decoders import (  # noqa: E402
+    RESAMPLE_TOL,
+    _both_refuse,
+    _equal_to_jax,
+)
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+import chip_smoke  # noqa: E402
+
+AVIF_DIR = chip_smoke.AVIF_DIR
+LF0 = {"loopfilter-control": "0"}
+# each intra tool switched off alone (aom's codec-specific options)
+TOOLS_OFF = {
+    "tx64": {"enable-tx64": "0"},
+    "dct_only": {"use-intra-dct-only": "1"},
+    "smooth": {"enable-smooth-intra": "0"},
+    "paeth": {"enable-paeth-intra": "0"},
+    "cfl": {"enable-cfl-intra": "0"},
+    "filter_intra": {"enable-filter-intra": "0"},
+    "edge_filter": {"enable-intra-edge-filter": "0"},
+    "directional": {"enable-directional-intra": "0"},
+    "angle_delta": {"enable-angle-delta": "0"},
+    "reduced_tx_set": {"reduced-tx-type-set": "1"},
+}
+MINIMAL = {k: v for d in list(TOOLS_OFF.values())[:7] for k, v in d.items()}
+NOT_YET = "not read by the port yet"
+
+
+def scene(seed: int, rows: int, cols: int) -> np.ndarray:
+    """A u8 RGB scene that keeps every intra tool busy: sinusoids and
+    gradients under speckle, a flat block with sharp edges and a diagonal
+    stripe pattern, from `seed`."""
+    rng = np.random.default_rng(seed)
+    y, x = np.mgrid[0:rows, 0:cols].astype(np.float32)
+    a = np.stack([128 + 90 * np.sin(x / 9.0) * np.cos(y / 7.0),
+                  (x * 3 + y) % 256, 64 + (x * y / 40.0) % 128], -1)
+    a += rng.gamma(2.0, 6.0, a.shape)
+    a[rows // 3:rows // 2, cols // 4:cols // 2] = (200, 30, 60)
+    a[((x + 2 * y) // 6 % 2 == 0) & (y > rows * 0.7)] = (20, 220, 240)
+    return np.clip(a, 0, 255).astype(np.uint8)
+
+
+def _save(a: np.ndarray, **kw) -> bytes:
+    buf = io.BytesIO()
+    Image.fromarray(a).save(buf, format="AVIF", **kw)
+    return buf.getvalue()
+
+
+def fixture_files() -> dict:
+    """tests/data/avif's files as Pillow writes them from chip_smoke's
+    AVIF_SEED, in the order of chip_smoke.AVIF_FIXTURES; then the files
+    the port refuses by name."""
+    s = chip_smoke.AVIF_SEED
+    base = scene(s, 67, 130)
+    out = {}
+    for speed in (6, 8, 10):
+        for q in (10, 50, 90, 100):
+            out[f"s{speed}_q{q}.avif"] = _save(base, quality=q, speed=speed,
+                                               advanced=LF0)
+    for rows, cols in ((1, 1), (5, 7), (129, 257)):
+        out[f"size_{cols}x{rows}.avif"] = _save(
+            scene(s + rows, rows, cols), quality=60, speed=6, advanced=LF0)
+    out["tiles_2x2.avif"] = _save(scene(s + 1, 300, 520), quality=40,
+                                  speed=8, tile_rows=1, tile_cols=1,
+                                  advanced=LF0)
+    for name, opt in TOOLS_OFF.items():
+        out[f"off_{name}.avif"] = _save(scene(s + 2, 129, 257), quality=60,
+                                        speed=6, advanced={**LF0, **opt})
+    out["minimal.avif"] = _save(scene(s + 2, 129, 257), quality=60, speed=6,
+                                advanced={**LF0, **MINIMAL})
+    img = Image.fromarray(base)
+    exif = img.getexif()
+    exif[0x0112] = 6
+    exif[0x010F] = "sarpro"
+    out["metadata.avif"] = _save(base, quality=50, speed=6, advanced=LF0,
+                                 icc_profile=b"\0\0\2\0" + bytes(124),
+                                 exif=exif.tobytes(),
+                                 xmp=b"<x:xmpmeta xmlns:x='adobe:ns:meta/'/>")
+    out["limited_range.avif"] = _save(base, quality=50, speed=6,
+                                      range="limited", advanced=LF0)
+    return out
+
+
+# the files the port refuses by name, and the words of each refusal
+REFUSALS = {
+    "refuse_deblocking.avif": "AV1 deblocking is",
+    "refuse_cdef.avif": "AV1 CDEF is",
+    "refuse_restoration.avif": "AV1 loop restoration is",
+    "refuse_10bit.avif": "AVIF 10-bit samples are",
+    "refuse_444.avif": "AVIF 4:4:4 images are",
+    "refuse_rgba.avif": r"AVIF alpha \(an RGBA image\) is",
+    "refuse_palette.avif": "AV1 palette block is",
+}
+
+
+def refusal_files() -> dict:
+    """The files of REFUSALS as Pillow writes them with the feature the
+    port refuses. aom writes CDEF only when asked to (`enable-cdef 1`);
+    Pillow writes no 10-bit AVIF, so that file is the 8-bit one with
+    `av1C` and `pixi` saying 10 bits."""
+    s = chip_smoke.AVIF_SEED
+    a = scene(s + 3, 64, 96)
+    flat = np.zeros((64, 64, 3), np.uint8)
+    flat[:, :21], flat[:, 21:42], flat[:, 42:] = (255, 0, 0), (0, 255, 0), \
+        (0, 0, 255)
+    flat[20:40, 10:50] = (250, 250, 0)
+    ten = bytearray(_save(a, quality=50, speed=6, advanced=LF0))
+    c = ten.find(b"av1C") + 6
+    ten[c] |= 0x40  # high_bitdepth
+    p = ten.find(b"pixi") + 9
+    ten[p:p + 3] = bytes([10, 10, 10])
+    files = {
+        "refuse_deblocking.avif": _save(a, quality=50, speed=6),
+        "refuse_cdef.avif": _save(a, quality=50, speed=4, advanced={
+            **LF0, "enable-cdef": "1", "enable-restoration": "0"}),
+        "refuse_restoration.avif": _save(a, quality=50, speed=0,
+                                         advanced=LF0),
+        "refuse_10bit.avif": bytes(ten),
+        "refuse_444.avif": _save(a, quality=50, speed=6, subsampling="4:4:4",
+                                 advanced=LF0),
+        "refuse_rgba.avif": _save(np.dstack([a, a[..., :1]]), quality=50,
+                                  speed=6, advanced=LF0),
+        "refuse_palette.avif": _save(flat, quality=60, speed=6, advanced={
+            **LF0, "enable-palette": "1"}),
+    }
+    assert list(files) == list(REFUSALS)
+    return files
+
+
+def band_file() -> bytes:
+    """chip_smoke.AVIF_BAND as Pillow writes it: avif_band_u8 at
+    AVIF_BAND_SIDE^2 as RGB, speed 6, AVIF_BAND_QUALITY, autotiling, aom's
+    loop filter off (11 s and 1 GB here; not run by the tests)."""
+    img = Image.fromarray(chip_smoke.avif_band_u8(chip_smoke.AVIF_BAND_SIDE))
+    return _save(np.asarray(img.convert("RGB")),
+                 quality=chip_smoke.AVIF_BAND_QUALITY, speed=6,
+                 autotiling=True, advanced=LF0)
+
+
+def _write(tmp_path, blob: bytes, name: str = "a.avif") -> Path:
+    path = tmp_path / name
+    path.write_bytes(blob)
+    return path
+
+
+def _outcome(path) -> tuple:
+    """("open", None) where both readers open the file bit-equal, ("refused",
+    None) where both refuse it, ("not yet", message) where only the port
+    refuses it, naming what it does not read yet."""
+    try:
+        jraster.RasterReader(path).close()
+    except jraster.RasterError:
+        with pytest.raises(RasterError):
+            traster.RasterReader(path)
+        return "refused", None
+    try:
+        traster.RasterReader(path).close()
+    except RasterError as e:
+        assert NOT_YET in str(e), str(e)
+        return "not yet", str(e)
+    _equal_to_jax(path)
+    return "open", None
+
+
+# ---------------------------------------------------------------------------
+# the committed files
+# ---------------------------------------------------------------------------
+def test_fixtures_are_pillows(tmp_path):
+    """tests/data/avif holds what Pillow writes from the seeds, under 1 MB
+    in all, each opening to the SHA-256 chip_smoke pins (AVIF_FIXTURES)."""
+    files = fixture_files()
+    assert list(files) == list(chip_smoke.AVIF_FIXTURES)
+    refused = refusal_files()
+    on_disk = sorted(p.name for p in AVIF_DIR.glob("*.avif"))
+    assert on_disk == sorted([*files, *refused])
+    assert sum(p.stat().st_size for p in AVIF_DIR.iterdir()) < 1 << 20
+    for name, blob in [*files.items(), *refused.items()]:
+        assert (AVIF_DIR / name).read_bytes() == blob, name
+    for name, blob in files.items():
+        with Image.open(io.BytesIO(blob)) as im:
+            digest = hashlib.sha256(np.asarray(im).tobytes()).hexdigest()
+        assert digest == chip_smoke.AVIF_FIXTURES[name], name
+
+
+def test_band_equals_pillows_decode():
+    """The committed 9216^2 band (chip_smoke's avif phase): 8-bit 4:2:0 in
+    several tiles, under 2 MB, and the port's decode and Pillow's both hash
+    to AVIF_BAND_SHA256."""
+    blob = chip_smoke.AVIF_BAND.read_bytes()
+    assert len(blob) < 2 << 20
+    width, height, obus, matrix, full_range = avif.parse(blob)
+    side = chip_smoke.AVIF_BAND_SIDE
+    assert (width, height, matrix, full_range) == (side, side, 6, 1)
+    with Image.open(io.BytesIO(blob)) as im:
+        want = hashlib.sha256(np.asarray(im).tobytes()).hexdigest()
+    assert want == chip_smoke.AVIF_BAND_SHA256
+    got = avif.read(blob).load().array
+    assert hashlib.sha256(got.tobytes()).hexdigest() == want
+    assert np.array_equal(got[..., 0], got[..., 2])
+
+
+@pytest.mark.parametrize("name", list(chip_smoke.AVIF_FIXTURES))
+def test_fixture_equals_jax(name):
+    got = _equal_to_jax(AVIF_DIR / name)
+    assert got.dtype == np.uint8 and got.shape[2] == 3
+    assert hashlib.sha256(got.tobytes()).hexdigest() == \
+        chip_smoke.AVIF_FIXTURES[name]
+
+
+# ---------------------------------------------------------------------------
+# the matrix and range of the conversion
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("matrix", [1, 2, 5, 6, 9])
+@pytest.mark.parametrize("name", ["s6_q50.avif", "limited_range.avif"])
+def test_colr_matrix_equals_jax(tmp_path, name, matrix):
+    """The `colr` nclx matrix picks libyuv's constants (BT.601 as JPEG /
+    I601, BT.709 as F709 / H709, BT.2020 as V2020 / 2020, by the sequence
+    header's range)."""
+    b = bytearray((AVIF_DIR / name).read_bytes())
+    k = b.find(b"colrnclx") + 8
+    b[k + 4:k + 6] = struct.pack(">H", matrix)
+    _equal_to_jax(_write(tmp_path, bytes(b)))
+
+
+@pytest.mark.parametrize("matrix", [1, 6, 9])
+@pytest.mark.parametrize("name", ["s6_q50.avif", "limited_range.avif"])
+def test_colr_range_flag_equals_jax(tmp_path, name, matrix):
+    """The nclx range flag, not the sequence header's, picks full or
+    limited range (libavif takes the `colr` box's CICP and range)."""
+    b = bytearray((AVIF_DIR / name).read_bytes())
+    k = b.find(b"colrnclx") + 8
+    b[k + 4:k + 6] = struct.pack(">H", matrix)
+    b[k + 6] ^= 0x80
+    _equal_to_jax(_write(tmp_path, bytes(b)))
+
+
+@pytest.mark.parametrize("matrix", [4, 7, 8, 12, 15])
+def test_other_colr_matrix_is_named(tmp_path, matrix):
+    """Matrices libavif converts with its own code (FCC, SMPTE 240M,
+    YCgCo, chroma-derived, a reserved value) are refused by name; the JAX
+    reader opens them."""
+    b = bytearray((AVIF_DIR / "s6_q50.avif").read_bytes())
+    k = b.find(b"colrnclx") + 8
+    b[k + 4:k + 6] = struct.pack(">H", matrix)
+    path = _write(tmp_path, bytes(b))
+    jraster.RasterReader(path).close()
+    with pytest.raises(RasterError, match=f"AV1 YUV matrix {matrix} is "
+                       f"{NOT_YET}"):
+        traster.RasterReader(path)
+
+
+@pytest.mark.parametrize("matrix", [0, 3, 10, 11, 13, 14, 16, 65535])
+def test_colr_matrix_libavif_refuses_is_refused(tmp_path, matrix):
+    """Identity on 4:2:0, the reserved values, constant-luminance BT.2020,
+    SMPTE ST 2085 and ICtCp: libavif's conversion fails, and so does the
+    port's."""
+    b = bytearray((AVIF_DIR / "s6_q50.avif").read_bytes())
+    k = b.find(b"colrnclx") + 8
+    b[k + 4:k + 6] = struct.pack(">H", matrix)
+    _both_refuse(_write(tmp_path, bytes(b)), match="Reformat failed")
+
+
+# ---------------------------------------------------------------------------
+# damaged files
+# ---------------------------------------------------------------------------
+def _obu_span(blob: bytes) -> tuple:
+    obus = avif.parse(blob)[2]
+    start = blob.find(obus)
+    return start, start + len(obus)
+
+
+@pytest.mark.parametrize("chunk", range(6))
+def test_bit_flips_agree_with_jax(tmp_path, chunk):
+    """300 single-bit flips of one file (50 a case), anywhere in it: both
+    readers open the file bit-equal or both refuse it, or the port names
+    what it does not read yet. The port's refusals by name come from the
+    AV1 data (tile data that no longer ends in the spec's trailing bits,
+    a header that now asks for a filter or another format), at most two a
+    case from the container (a flipped av1C depth or subsampling)."""
+    blob = (AVIF_DIR / "metadata.avif").read_bytes()
+    lo, hi = _obu_span(blob)
+    rng = np.random.default_rng(2100 + chunk)
+    seen = {"open": 0, "refused": 0, "not yet": 0}
+    outside = 0
+    for k in range(50):
+        b = bytearray(blob)
+        pos = int(rng.integers(0, len(b)))
+        b[pos] ^= 1 << int(rng.integers(0, 8))
+        kind, _ = _outcome(_write(tmp_path, bytes(b), f"f{k}.avif"))
+        seen[kind] += 1
+        if kind == "not yet" and not lo <= pos < hi:
+            outside += 1
+    assert sum(seen.values()) == 50
+    assert outside <= 2, seen
+    assert seen["not yet"] <= hi - lo, seen
+
+
+@pytest.mark.parametrize("cut", [0.05, 0.2, 0.5, 0.9, 0.999])
+def test_cut_file_agrees_with_jax(tmp_path, cut):
+    blob = (AVIF_DIR / "tiles_2x2.avif").read_bytes()
+    kind, why = _outcome(_write(tmp_path, blob[:int(len(blob) * cut)]))
+    assert kind in ("refused", "not yet"), why
+
+
+def _boxes(blob: bytes, pos: int = 0, end: int = None) -> list:
+    """[(type, payload)] of the plain boxes in blob[pos:end]."""
+    end = len(blob) if end is None else end
+    out = []
+    while pos < end:
+        size, kind = struct.unpack(">I4s", blob[pos:pos + 8])
+        out.append((kind, blob[pos + 8:pos + size]))
+        pos += size
+    return out
+
+
+def _box(kind: bytes, payload: bytes) -> bytes:
+    return struct.pack(">I", 8 + len(payload)) + kind + payload
+
+
+@pytest.mark.parametrize("form", ["idat, two extents", "file, two extents",
+                                  "iloc v2, free box first"])
+def test_container_forms_equal_jax(tmp_path, form):
+    """The item's data from an iloc of version 1 with construction method
+    1 (inside idat) or 0, split over two extents, or from an iloc of
+    version 2 (32-bit item ids and counts) after a box libavif skips: each
+    opens as in the JAX reader."""
+    blob = (AVIF_DIR / "s6_q50.avif").read_bytes()
+    top = dict(_boxes(blob))
+    obus = avif.parse(blob)[2]
+    meta = _boxes(top[b"meta"], 4)
+    half = len(obus) // 2
+    kids = [(k, v) for k, v in meta if k != b"iloc"]
+    if form == "idat, two extents":
+        iloc = struct.pack(">BxxxBBHHHHHII II", 1, 0x44, 0x00, 1, 1, 1, 0,
+                           2, 0, half, half, len(obus) - half)
+        kids.append((b"idat", obus))
+        tail = b""
+    elif form == "file, two extents":
+        iloc = struct.pack(">BxxxBBHHHHHII II", 1, 0x44, 0x00, 1, 1, 0, 0,
+                           2, 0, half, half, len(obus) - half)
+        tail = obus
+    else:
+        iloc = struct.pack(">BxxxBBIIHHHII", 2, 0x44, 0x00, 1, 1, 0, 0, 1,
+                           0, len(obus))
+        tail = obus
+    kids.insert(2, (b"iloc", iloc))
+
+    def build(base: int) -> bytes:
+        m = bytearray(iloc)
+        if base:  # offsets are file offsets: point them at the mdat payload
+            if form == "file, two extents":
+                struct.pack_into(">I", m, 16, base)
+                struct.pack_into(">I", m, 24, base + half)
+            else:
+                struct.pack_into(">I", m, 20, base)
+        body = b"\0\0\0\0" + b"".join(_box(k, bytes(m) if k == b"iloc"
+                                             else v) for k, v in kids)
+        head = _box(b"ftyp", top[b"ftyp"])
+        if form == "iloc v2, free box first":
+            head += _box(b"free", bytes(8))
+        return head + _box(b"meta", body)
+
+    first = build(0)
+    out = build(len(first) + 8 if tail else 0) + (_box(b"mdat", tail)
+                                                  if tail else b"")
+    got = _equal_to_jax(_write(tmp_path, out))
+    assert hashlib.sha256(got.tobytes()).hexdigest() == \
+        chip_smoke.AVIF_FIXTURES["s6_q50.avif"]
+
+
+# ---------------------------------------------------------------------------
+# the tables
+# ---------------------------------------------------------------------------
+def test_av1_tables_equal_libavif():
+    """Each table of av1_tables.h equals its run in the read-only data of
+    Pillow's libavif, found by the generator's own search (the header is
+    the generator's rendering of what it finds there)."""
+    lib = av1_tables.default_library()
+    if lib is None:
+        pytest.skip("Pillow's libavif is not installed here")
+    tables = av1_tables.extract(lib)
+    assert set(tables) == {t.name for t in av1_tables.CDFS} | {
+        c.name for c in av1_tables.CONSTS}
+    header = Path(av1_tables.HEADER).read_text()
+    assert av1_tables.render(tables) == header
+    # spot checks of the spec's values: the first kf y-mode row, the 8-bit
+    # quantizer ends, the cos / sin constants at 12 bits
+    assert [32768 - v for v in tables["KF_Y_MODE"][2][0][:3]] == \
+        [15588, 17027, 19338]
+    assert tables["DC_QLOOKUP"][2][-1] == 1336
+    assert tables["AC_QLOOKUP"][2][-1] == 1828
+    assert tables["COSPI"][2][32] == 2896 and tables["SINPI"][2][4] == 3803
+
+
+# ---------------------------------------------------------------------------
+# the decoded band onto the device (the CPU here)
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("alg", ["average", "cubic", "nearest"])
+def test_decimated_read_of_avif_band_equals_jax(alg):
+    """tests/test_io.py's read_band_resampled(1, 30, 20, ...) on an AVIF
+    band: the port's device route against the JAX package's."""
+    path = AVIF_DIR / "off_cfl.avif"
+    t, j = traster.RasterReader(path), jraster.RasterReader(path)
+    try:
+        got = traster.read_band_resampled_to_device(t, 1, 30, 20, "cpu", alg)
+        want = j.read_band_resampled(1, 30, 20, alg)
+    finally:
+        t.close()
+        j.close()
+    assert got.dtype == torch.float32 and tuple(got.shape) == (20, 30)
+    np.testing.assert_allclose(got.numpy(), want, **RESAMPLE_TOL)
+
+
+def test_header_only_avif_refused_by_both(tmp_path):
+    _both_refuse(_write(tmp_path, b"\0\0\0\x1cftypavif" + bytes(60)))

@@ -36,7 +36,7 @@ def test_port_sources_import_no_jax_pillow_or_cv2():
             "pcx.py", "sun.py", "psd.py", "qoi.py", "ico.py", "icns.py",
             "bcn.py", "dds.py", "ftex.py", "blp.py", "xbm.py", "xpm.py",
             "msp.py", "pixar.py", "gbr.py", "fli.py", "pcd.py", "xvthumb.py",
-            "imt.py", "iptc.py"} <= {
+            "imt.py", "iptc.py", "avif.py"} <= {
                 p.name for p in (PORT / "io").glob("*.py")}
     for line in ("import sarpro_tpu", "from sarpro_tpu.io import safe",
                  "  from sarpro_tpu import _native", "import jax.numpy"):
@@ -256,6 +256,11 @@ def test_cpu_slice_runs_with_jax_and_pillow_blocked(tmp_path):
                 chip_smoke.FORMATS_SEED + 3, 64, 64))
             err = np.abs(data.astype(int) - ref).max()
             assert err <= (0 if label == "IMT L" else 18), (label, err)
+        # AVIF: the files chip_smoke.AVIF_FIXTURES names decode to the
+        # SHA-256 of Pillow's decode
+        for name, digest in chip_smoke.AVIF_FIXTURES.items():
+            data = RasterReader(chip_smoke.AVIF_DIR / name)._tiff._data
+            assert chip_smoke.decode_digest(data) == digest, name
         for name, (ref, tol) in want.items():
             data = RasterReader(d / name)._tiff._data
             ref = ref if ref.ndim == 3 else ref[..., None]

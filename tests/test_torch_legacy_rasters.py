@@ -20,7 +20,9 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import test_torch_avif  # noqa: E402
 from PIL import Image  # noqa: E402
+from sarpro_tpu.io import raster as jraster  # noqa: E402
 from sarpro_tpu_torch.errors import RasterError  # noqa: E402
 from sarpro_tpu_torch.io import pcd, pilraster  # noqa: E402
 from sarpro_tpu_torch.io import raster as traster  # noqa: E402
@@ -673,15 +675,25 @@ def test_iptc_lookalike_hands_on(tmp_path, rng):
 
 
 def test_plugin_table_refuses_only_avif_and_stubs():
+    """The formats the plugin table refuses outright: Pillow's stubs and the
+    unreachable TIFF entry (AVIF is read now: its features the port does
+    not read yet are refused by name, test_avif_is_refused_by_name)."""
     refused = [name for name, _, opener in pilraster.PLUGINS
                if opener.__name__ == "refuse"]
-    assert refused == ["AVIF", "BUFR", "EPS", "GRIB", "HDF5", "MPEG",
-                       "TIFF", "WMF"]
+    assert refused == ["BUFR", "EPS", "GRIB", "HDF5", "MPEG", "TIFF", "WMF"]
 
 
-def test_avif_is_refused_by_name(tmp_path):
-    path = write(tmp_path, b"\0\0\0\x1cftypavif" + bytes(40), "a.avif")
-    with pytest.raises(RasterError, match="AVIF files are not read"):
+@pytest.mark.parametrize("name", list(test_torch_avif.REFUSALS))
+def test_avif_is_refused_by_name(name):
+    """Each AVIF feature the port does not read yet, in a file Pillow
+    writes with it (tests/data/avif/refuse_*.avif; test_torch_avif holds
+    them equal to what Pillow writes): the JAX reader opens it, the port
+    names the feature."""
+    path = test_torch_avif.AVIF_DIR / name
+    words = test_torch_avif.REFUSALS[name]
+    jraster.RasterReader(path).close()
+    with pytest.raises(RasterError, match=f"{words} not read by the port "
+                       "yet"):
         traster.RasterReader(path)
 
 
@@ -752,8 +764,6 @@ def longtail_fixture_files() -> dict:
 
 
 def _digest(path) -> str:
-    from sarpro_tpu.io import raster as jraster
-
     return chip_smoke.decode_digest(jraster.RasterReader(path)._tiff._data)
 
 
