@@ -218,13 +218,15 @@ prints no result):
      to the plain resample, and is saved as a CLAHE gray JPEG that reads
      back;
  18. avif: io/avif over sarpro_tpu_torch/_native/av1dec.cpp (libavif
-     1.3.0's container, AV1 intra key frames of 8-bit 4:2:0 without
-     in-loop filters, libyuv's YUV to RGB) on the files of tests/data/avif
-     (written by Pillow from AVIF_SEED; AVIF_FIXTURES pins the SHA-256 of
-     Pillow's decode of each, held in tests/test_torch_avif.py) and on the
-     committed 9216^2 SAR-like band of tests/data/avif_band (Pillow at
-     speed 6, autotiling, loop filter off; AVIF_BAND_SHA256), with a .wld
-     and a .prj beside a copy of it. Each opens through RasterReader
+     1.3.0's container, AV1 intra key frames of 8-bit 4:2:0 with their
+     in-loop filters: deblocking, CDEF, loop restoration; libyuv's YUV to
+     RGB) on the files of tests/data/avif (written by Pillow from
+     AVIF_SEED; AVIF_FIXTURES pins the SHA-256 of Pillow's decode of each,
+     held in tests/test_torch_avif.py) and on the two committed 9216^2
+     SAR-like bands of tests/data/avif_band (Pillow at speed 6, autotiling,
+     loop filter off, AVIF_BAND_SHA256; and at speed 4 with CDEF on, so
+     that all three filters are on, AVIF_FILTERED_BAND_SHA256), each with a
+     .wld and a .prj beside a copy of it. Each opens through RasterReader
      (decode ms on the host clock, median of 3, MP/s), decodes to the
      pinned SHA-256, reads decimated to 2048^2 on the card (cubic) with the
      launch counts set to 0 just before and read just after, bit-equal to
@@ -465,15 +467,18 @@ WEBP_FIXTURES = {
                              "188f155937c2066b7e4fa79ef2d60201"),
 }
 # the avif phase's files: tests/data/avif, written by Pillow 12.1 (aom
-# 3.12.1, loop filter off) from AVIF_SEED (tests/test_torch_avif.py's
+# 3.12.1; loop filter off, then the in-loop filters on from
+# filter_deblocking.avif) from AVIF_SEED (tests/test_torch_avif.py's
 # fixture_files), with the SHA-256 of Pillow's decode of each, which the
-# port's must match; and the SAR-like band of tests/data/avif_band
-# (avif_band_u8 at AVIF_BAND_SIDE^2, saved by Pillow at speed 6, quality
-# AVIF_BAND_QUALITY, autotiling, loop filter off by
-# tests/test_torch_avif.band_file: 0.97 MB; the card's machine has no
-# encoder)
+# port's must match; and two SAR-like bands of tests/data/avif_band
+# (avif_band_u8 at AVIF_BAND_SIDE^2, saved by Pillow at quality
+# AVIF_BAND_QUALITY with autotiling: at speed 6 with the loop filter off by
+# tests/test_torch_avif.band_file, 0.97 MB; and at speed 4 with
+# `enable-cdef 1` by filtered_band_file, deblocking, CDEF and Wiener
+# restoration on, 1.63 MB; the card's machine has no encoder)
 AVIF_DIR = ROOT / "tests" / "data" / "avif"
 AVIF_BAND = ROOT / "tests" / "data" / "avif_band" / "sar_band_9216.avif"
+AVIF_FILTERED_BAND = AVIF_BAND.with_name("sar_band_9216_filtered.avif")
 AVIF_SEED = 21
 AVIF_BAND_SIDE = 9216
 AVIF_BAND_QUALITY = 10
@@ -536,9 +541,61 @@ AVIF_FIXTURES = {
                       "cdc520bf9da01b6aa89065d105cb91bd"),
     "limited_range.avif": ("ff73cb35f1f1e347e95821c24862c3dd"
                            "9e933c532dfd40ce0cd1ac0c5299150c"),
+    "filter_deblocking.avif": ("5380f7cc25ccda6ee0272fd9ccd196e0"
+                               "7956a5855703b1d397737808f49fcbbc"),
+    "filter_cdef.avif": ("f35c2a660aec661b17a35b05fa981238"
+                         "161b738deeb62cbbf8f3c3faaeca1e0a"),
+    "filter_restoration.avif": ("1851c865bf8ebbcb94e1367656c3a7a5"
+                                "7279d339327a93e65d7041e4449489ff"),
+    "lf_s6_q10.avif": ("d6472b64e5706c05bb409e31fab476a8"
+                       "b7c98259aef00b92e617637a3337e1b7"),
+    "lf_s6_q50.avif": ("c4dd17597268bf5c25db476058d3347f"
+                       "d16f1e815765cc01c47cdbdd3b28a5cc"),
+    "lf_s6_q90.avif": ("9d1a136ebc59b2dafda51edf407a0783"
+                       "04c0be15ca63d735056454ef19afe7f7"),
+    "lf_s8_q10.avif": ("3edfd049ed9c73e57b3cc1c06d77c22f"
+                       "83770375ba5710fff47b5cada4e143ed"),
+    "lf_s8_q50.avif": ("bcc90c1fbe9f3d1e905a84af0fb7b333"
+                       "6027872e6bfd7abfa132bb0b206e044a"),
+    "lf_s8_q90.avif": ("bb9e75af462ae23b91590f90823b8f09"
+                       "b383221f63a3ea6237ab526095cebe5f"),
+    "lf_s10_q10.avif": ("1c0fd75c7c198c2c23d7733baab0590e"
+                        "29b76b3ea8efda2d3012681514f89da1"),
+    "lf_s10_q50.avif": ("c939d7f1a4ef4f27427e5cb8e7ccc5e0"
+                        "ca576e5df6e2c1007e18c4176778d7aa"),
+    "lf_s10_q90.avif": ("6a3520e7b89d05b8885b72862e54fabc"
+                        "820107de9f41f8d4292e25c547ca9bbd"),
+    "lf_s0_switchable.avif": ("976f8690b73be39990dc6e6a9cd36eed"
+                              "372538ade9090052e92fa9a34b07c5a1"),
+    "lf_s2.avif": ("3da845d6090bc8fbfc89a6d41f11a471"
+                   "a1611b3c89e6cddb633a72e4ee433928"),
+    "lf_s4.avif": ("976e7de5ce10e61dfa556b6e938a4d37"
+                   "587ed28c48f197072d2a57fbb602490b"),
+    "lf_cdef_s4.avif": ("9668385254f5dfce932fd5629e44f9f9"
+                        "846a930a3fb10bb5c10dfec1f31bf2c0"),
+    "lf_cdef_s6.avif": ("8ac8cca7b88464cac7ab6742b6ab2025"
+                        "02c5387e9d7a1c5885b77fde909aebe9"),
+    "lf_sharpness3.avif": ("106a85894e35f2213c0757381a2dea9e"
+                           "f5147fd58194d4af8d7078e5f194a01e"),
+    "lf_sharpness7.avif": ("5467f1e2cc97dbc4d90b76b34171ddfd"
+                           "4f0dcfb2a6f1111716a6cf1714f413ed"),
+    "lf_delta_lf.avif": ("2d61fe652244cf119ccafdfd2fc6a44b"
+                         "55138ffc1b469b591b11573d1a81e806"),
+    "lf_sb128.avif": ("43905babdf5dd8f66d719e942e4432bc"
+                      "cb5785107619655b5a399d6a32668d67"),
+    "lf_tiles_2x2.avif": ("7e52a3e6ab2bfa17c06b8ba80740bd5a"
+                          "eb2361267e5c953ba43a6bdbfdbb6d42"),
+    "lf_size_1x1.avif": ("01b9fd8d4a74f90b9b68eda23da16d1d"
+                         "a50416be6af549965948dd3507995cfc"),
+    "lf_size_7x5.avif": ("645c423d49110929e7e512f8341b463b"
+                         "8b59c9d6b3281e5ce4fd1c297d0d9533"),
+    "lf_size_257x129.avif": ("e465b594117fd68dbbf04e75929dfb69"
+                             "984ea41f5a4cb5cf1f8cdd5ea1225c15"),
 }
 AVIF_BAND_SHA256 = ("0fac26190af3efd4cf09c6ceaed08687"
                     "1078c04bb00ad9c2561349724e90840e")
+AVIF_FILTERED_BAND_SHA256 = ("ce00375d6a3750493f0bc388db171aca"
+                             "e6ba6871c1b210f90bf00c93cb58bf73")
 # the rasters phase's JPEG codings: tests/data/jpeg, written from JPEG_SEED
 # on by libjpeg-turbo 3.1.3's own encoder (tests/ljt_encode.py) or Pillow
 # (tests/test_torch_jpeg_coding.py): a SAR-like arithmetic-coded strip
@@ -4792,12 +4849,13 @@ def phase_longtail(work: Path, smi: str) -> dict:
 
 def phase_avif(work: Path, smi: str) -> dict:
     """io/avif on the card's machine: each file of AVIF_FIXTURES and the
-    committed band (with a .wld and a .prj) opens through RasterReader
-    (decode timed on the host clock, median of 3), decodes to the SHA-256
-    of Pillow's decode, reads decimated to SIZE^2 on the card (bit-equal to
-    the plain resample) and is saved as a CLAHE gray JPEG that reads back
-    (but the 1 x 1 file: its read is a constant band, whose save launches
-    no histogram). Returns the launches of the driven reads and saves."""
+    two committed bands (each with a .wld and a .prj) opens through
+    RasterReader (decode timed on the host clock, median of 3), decodes to
+    the SHA-256 of Pillow's decode, reads decimated to SIZE^2 on the card
+    (bit-equal to the plain resample) and is saved as a CLAHE gray JPEG
+    that reads back (but the 1 x 1 files: their read is a constant band,
+    whose save launches no histogram). Returns the launches of the driven
+    reads and saves."""
     from sarpro_tpu_torch import _native, ops
     from sarpro_tpu_torch.io import raster
     from sarpro_tpu_torch.io.writers.worldfile import write_prj_file
@@ -4809,12 +4867,18 @@ def phase_avif(work: Path, smi: str) -> dict:
     gt = [500000.0, 10.0, 0.0, 5100000.0, 0.0, -10.0]
     files = [(name, AVIF_DIR / name, want)
              for name, want in AVIF_FIXTURES.items()]
-    band = d / AVIF_BAND.name
-    shutil.copyfile(AVIF_BAND, band)
-    band.with_suffix(".wld").write_text(
-        "10.0\n0.0\n0.0\n-10.0\n500005.0\n5099995.0\n")
-    write_prj_file(band, "EPSG:32632")
-    files.append(("SAR band", band, AVIF_BAND_SHA256))
+    band_paths = []
+    for label, src, want in (
+            ("SAR band", AVIF_BAND, AVIF_BAND_SHA256),
+            ("SAR band, filtered", AVIF_FILTERED_BAND,
+             AVIF_FILTERED_BAND_SHA256)):
+        band = d / src.name
+        shutil.copyfile(src, band)
+        band.with_suffix(".wld").write_text(
+            "10.0\n0.0\n0.0\n-10.0\n500005.0\n5099995.0\n")
+        write_prj_file(band, "EPSG:32632")
+        files.append((label, band, want))
+        band_paths.append(band)
     try:
         for label, path, want in files:
             walls = []
@@ -4828,7 +4892,7 @@ def phase_avif(work: Path, smi: str) -> dict:
             if digest != want:
                 raise AssertionError(f"avif: {label} decodes to SHA-256 "
                                      f"{digest}, Pillow's is {want}")
-            if path == band:
+            if path in band_paths:
                 md = reader.metadata
                 if md.geotransform != gt or md.epsg != 32632:
                     raise AssertionError(f"avif: {label}: geotransform "

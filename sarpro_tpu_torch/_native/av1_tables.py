@@ -1,8 +1,10 @@
 """Generator of `av1_tables.h`, the constant tables of the port's AV1 decoder
 (`av1dec.cpp`): the default CDFs an intra frame reads, the 8-bit quantizer
 lookups, the directional-prediction derivatives, the smooth weights, the
-filter-intra taps, the intra edge kernels and the transforms' cos / sin
-constants.
+filter-intra taps, the intra edge kernels, the transforms' cos / sin
+constants, and the in-loop filters' tables (the restoration CDFs, CDEF's
+directions, taps and divisors, the self-guided filter's parameters and the
+Wiener filter's reference taps).
 
 Nothing here is typed by hand. Each table is found in the read-only data of
 the libavif shared library that Pillow's wheels ship (`pillow.libs/libavif-
@@ -15,6 +17,14 @@ and its first row, and read from there:
   * dav1d keeps the same values, then the counter, padded to its field's
     width (the tables aom's encoder build does not keep as such: skip,
     segment id, palette UV mode with intrabc, filter-intra mode, CfL sign).
+
+CDEF's directions are aom's padded offsets into its filter buffer (y * 144 +
+x, directions 6, 7, 0 ... 7, 0, 1), the self-guided parameters dav1d's
+pairs of scales (a pass's radius is 0 where its scale is 0, else 2 and 1), and
+the UV directions aom's 4:4:0 and 4:2:2 rows (identity on 4:2:0). The
+ranges of the coded Wiener and self-guided coefficients are not tables
+there (both libraries keep them as immediates): av1dec.cpp holds them as
+the spec's constants.
 
 The header is the source of truth; this script and
 tests/test_torch_avif.py::test_av1_tables_equal_libavif only re-check it:
@@ -65,7 +75,7 @@ class Cdf:
 @dataclasses.dataclass
 class Const:
     """A constant array of `dtype`, `count` entries, anchored by its first
-    values."""
+    values (which may run on past `count` into what follows it)."""
 
     name: str
     ctype: str
@@ -124,6 +134,9 @@ CDFS = (
     Cdf("COEFF_BASE_EOB", Q4 + (5, 2, 4), 3, 4, ((17837, 29055),)),
     Cdf("COEFF_BASE", Q4 + (5, 2, 42), 4, 5, ((4034, 8930, 12727),)),
     Cdf("COEFF_BR", Q4 + (5, 2, 21), 4, 5, ((14298, 20718, 24174),)),
+    Cdf("RESTORATION_TYPE", (1,), 3, 4, ((9413, 22581),), dav1d=True),
+    Cdf("USE_WIENER", (1,), 2, 2, ((11570,),), dav1d=True),
+    Cdf("USE_SGRPROJ", (1,), 2, 2, ((16855,),), dav1d=True),
 )
 CONSTS = (
     Const("DC_QLOOKUP", "int16_t", "<i2", 256, (4, 8, 8, 9, 10, 11, 12, 12,
@@ -143,6 +156,23 @@ CONSTS = (
     # cos(i * pi / 128) and the sinpi(k / 9) terms at 12 bits
     Const("COSPI", "int32_t", "<i4", 64, (4096, 4095, 4091, 4085, 4076)),
     Const("SINPI", "int32_t", "<i4", 5, (0, 1321, 2482, 3344, 3803)),
+    # [direction 6, 7, 0 ... 7, 0, 1][tap]: y * 144 + x
+    Const("CDEF_DIRECTIONS", "int32_t", "<i4", 24,
+          (144, 288, 144, 287, -143, -286, 1, -142)),
+    # aom keeps it, padded to 4, just before the directions
+    Const("CDEF_SEC_TAPS", "int32_t", "<i4", 2, (2, 1, 0, 0, 144, 288, 144)),
+    Const("CDEF_PRI_TAPS", "int32_t", "<i4", 4, (4, 2, 3, 3)),
+    Const("CDEF_DIV_TABLE", "int32_t", "<i4", 9,
+          (0, 840, 420, 280, 210, 168, 140, 120, 105)),
+    # Cdef_Uv_Dir of 4:4:0, then of 4:2:2
+    Const("CDEF_UV_DIR", "int32_t", "<i4", 16,
+          (1, 2, 2, 2, 3, 4, 6, 0, 7, 0, 2, 4, 5, 6, 6, 6)),
+    # Sgr_Params as [set][pass]: the scale s of the r = 2 and r = 1 box
+    # passes (0 where the pass is not run)
+    Const("SGR_PARAMS", "uint16_t", "<u2", 32, (140, 3236, 112, 2158, 93, 1618)),
+    # the first three taps of the filter the Wiener references start from
+    Const("WIENER_TAPS_MID", "int32_t", "<i4", 3,
+          (3, -7, 15, 106, 15, -7, 3)),
 )
 
 

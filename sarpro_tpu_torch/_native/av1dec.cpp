@@ -7,16 +7,18 @@
 //
 // Read: temporal delimiter, sequence header (reduced and full), frame
 // header / frame OBUs and tile groups of one key frame; metadata, padding
-// and tile-list OBUs are skipped. The in-loop filters are not decoded: a
-// frame whose deblocking, CDEF (nonzero strengths), loop restoration,
-// superres or film grain is on is refused by name, and so are quantizer
-// matrices, palette and intrabc blocks, other bit depths and subsamplings.
-// Each tile ends with the spec's trailing bits (exit process, §8.2.4);
-// tile data that does not is refused by name, as non-conformant data that
-// dav1d decodes to an output the spec does not define.
+// and tile-list OBUs are skipped. The in-loop filters run once the last
+// tile is decoded: deblocking (§7.14), CDEF (§7.15) and loop restoration
+// (§7.17, Wiener and self-guided units). A frame whose superres or film
+// grain is on is refused by name, and so are quantizer matrices, palette
+// and intrabc blocks, other bit depths and subsamplings. Each tile ends
+// with the spec's trailing bits (exit process, §8.2.4); tile data that does
+// not is refused by name, as non-conformant data that dav1d decodes to an
+// output the spec does not define.
 //
 // The tables (default CDFs, quantizer lookups, intra derivatives, smooth
-// weights, filter-intra taps, edge kernels, cos / sin constants) are in
+// weights, filter-intra taps, edge kernels, cos / sin constants, and the
+// in-loop filters' CDFs, directions, taps and parameters) are in
 // av1_tables.h, generated by av1_tables.py from libavif's read-only data.
 //
 // C interface (ctypes, _native/__init__.py):
@@ -167,6 +169,19 @@ const int kCoeffBaseCtxOffset[3][5][5] = {
     {{0, 11, 11, 11, 11}, {11, 11, 11, 11, 11}, {6, 6, 21, 21, 21},
      {6, 21, 21, 21, 21}, {21, 21, 21, 21, 21}}};
 const int kCoeffBasePosCtxOffset[3] = {26, 31, 36};
+// the loop filter's reference deltas after setup_past_independence
+const int kDefaultLfRefDeltas[8] = {1, 0, 0, 0, -1, 0, -1, -1};
+enum { RESTORE_NONE, RESTORE_WIENER, RESTORE_SGRPROJ, RESTORE_SWITCHABLE };
+const int kRemapLrType[4] = {RESTORE_NONE, RESTORE_SWITCHABLE, RESTORE_WIENER,
+                             RESTORE_SGRPROJ};
+// the ranges of the coded restoration coefficients (the spec's constants:
+// libavif keeps them as immediates, not as tables)
+const int kWienerTapsMin[3] = {-5, -23, -17};
+const int kWienerTapsMax[3] = {10, 8, 46};
+const int kWienerTapsK[3] = {1, 2, 3};
+const int kSgrprojXqdMin[2] = {-96, -32};
+const int kSgrprojXqdMax[2] = {31, 95};
+const int kSgrprojXqdMid[2] = {-32, 31};
 
 int block_size(int w2, int h2) {
   for (int b = 0; b < 22; b++)
@@ -273,6 +288,9 @@ struct Cdfs {
   uint16_t base_eob[5][2][4][4];
   uint16_t base[5][2][42][5];
   uint16_t br[5][2][21][5];
+  uint16_t restoration_type[4];
+  uint16_t use_wiener[3];
+  uint16_t use_sgrproj[3];
 
   void init(int base_q_idx) {
     memcpy(kf_y, AV1_KF_Y_MODE, sizeof kf_y);
@@ -308,6 +326,9 @@ struct Cdfs {
     memcpy(base_eob, AV1_COEFF_BASE_EOB[q], sizeof base_eob);
     memcpy(base, AV1_COEFF_BASE[q], sizeof base);
     memcpy(br, AV1_COEFF_BR[q], sizeof br);
+    memcpy(restoration_type, AV1_RESTORATION_TYPE[0], sizeof restoration_type);
+    memcpy(use_wiener, AV1_USE_WIENER[0], sizeof use_wiener);
+    memcpy(use_sgrproj, AV1_USE_SGRPROJ[0], sizeof use_sgrproj);
   }
 };
 
@@ -669,7 +690,11 @@ struct Decoder {
   int delta_q_present = 0, delta_q_res = 0, delta_lf_present = 0,
       delta_lf_res = 0, delta_lf_multi = 0;
   int coded_lossless = 0, lossless_array[8] = {0};
-  int cdef_bits = 0;
+  int lf_level[4] = {0}, lf_sharpness = 0, lf_delta_enabled = 0;
+  int lf_ref_deltas[8] = {0};
+  int cdef_bits = 0, cdef_damping = 3;
+  int cdef_strengths[8][2][2] = {{{0}}};  // [idx][luma, chroma][primary, secondary]
+  int lr_type[3] = {0}, lr_size[3] = {0}, uses_lr = 0;
   int tx_mode_select = 0, only_4x4 = 0, reduced_tx_set = 0;
   int next_tile = 0;  // tiles decoded so far
 
@@ -680,7 +705,18 @@ struct Decoder {
   // per 4x4 (mi) state over the frame
   std::vector<uint8_t> y_modes, uv_modes, skips, tx_sizes, mi_sizes, seg_ids;
   std::vector<uint8_t> tx_types;
+  std::vector<int8_t> delta_lfs;  // DeltaLF[0..3] of each mi
+  std::vector<uint8_t> lf_tx_sizes[3];  // in 4x4 units of each plane
   int mi_stride = 0;
+  // the restoration units of each plane and the references of their coding
+  struct LrUnit {
+    int type = RESTORE_NONE, sgr_set = 0;
+    int wiener[2][3] = {{0}};  // [vertical, horizontal][tap]
+    int xqd[2] = {0};
+  };
+  std::vector<LrUnit> lr_units[3];
+  int lr_rows[3] = {0}, lr_cols[3] = {0};
+  int ref_wiener[3][2][3], ref_xqd[3][2];
   std::vector<int8_t> cdef_idx;
   int cdef_stride = 0;
   // coefficient contexts, in 4x4 units of each plane
@@ -1034,49 +1070,59 @@ struct Decoder {
                           dq_v_ac == 0 && dq_v_dc == 0;
       if (!lossless_array[s]) coded_lossless = 0;
     }
-    // loop_filter_params: the in-loop filters that are on are refused
-    // together once the LR params are read
-    std::vector<std::string> filters;
+    // loop_filter_params, over the key frame's defaults
+    memset(lf_level, 0, sizeof lf_level);
+    lf_sharpness = lf_delta_enabled = 0;
+    memcpy(lf_ref_deltas, kDefaultLfRefDeltas, sizeof lf_ref_deltas);
     if (!coded_lossless && !allow_intrabc) {
-      int l0 = (int)b.f(6), l1 = (int)b.f(6);
-      if (!mono && (l0 || l1)) b.f(12);
-      b.f(3);
-      if (l0 || l1) filters.push_back("deblocking");
-      if (b.bit()) {  // loop_filter_delta_enabled
-        if (b.bit()) {
-          for (int i = 0; i < 8; i++) if (b.bit()) b.su(7);
-          for (int i = 0; i < 2; i++) if (b.bit()) b.su(7);
-        }
+      lf_level[0] = (int)b.f(6);
+      lf_level[1] = (int)b.f(6);
+      if (!mono && (lf_level[0] || lf_level[1])) {
+        lf_level[2] = (int)b.f(6);
+        lf_level[3] = (int)b.f(6);
+      }
+      lf_sharpness = (int)b.f(3);
+      lf_delta_enabled = (int)b.bit();
+      if (lf_delta_enabled && b.bit()) {  // loop_filter_delta_update
+        for (int i = 0; i < 8; i++) if (b.bit()) lf_ref_deltas[i] = b.su(7);
+        for (int i = 0; i < 2; i++) if (b.bit()) b.su(7);  // mode deltas: inter only
       }
     }
-    // cdef_params
+    // cdef_params (a secondary strength of 3 means 4)
     cdef_bits = 0;
+    cdef_damping = 3;
+    memset(cdef_strengths, 0, sizeof cdef_strengths);
     if (!coded_lossless && !allow_intrabc && enable_cdef) {
-      b.f(2);
+      cdef_damping = (int)b.f(2) + 3;
       cdef_bits = (int)b.f(2);
-      bool on = false;
-      for (int i = 0; i < (1 << cdef_bits); i++) {
-        if (b.f(4)) on = true;
-        if (b.f(2)) on = true;
-        if (!mono) {
-          if (b.f(4)) on = true;
-          if (b.f(2)) on = true;
+      for (int i = 0; i < (1 << cdef_bits); i++)
+        for (int p = 0; p < (mono ? 1 : 2); p++) {
+          cdef_strengths[i][p][0] = (int)b.f(4);
+          cdef_strengths[i][p][1] = (int)b.f(2);
+          if (cdef_strengths[i][p][1] == 3) cdef_strengths[i][p][1] = 4;
         }
-      }
-      if (on) filters.push_back("CDEF");
     }
     // lr_params
+    memset(lr_type, 0, sizeof lr_type);
+    memset(lr_size, 0, sizeof lr_size);
+    uses_lr = 0;
     if (!coded_lossless && !allow_intrabc && enable_restoration) {
-      bool uses = false;
-      for (int i = 0; i < (mono ? 1 : 3); i++)
-        if (b.f(2)) uses = true;
-      if (uses) filters.push_back("loop restoration");
-    }
-    if (!filters.empty()) {
-      std::string names = filters[0];
-      for (size_t i = 1; i < filters.size(); i++)
-        names += (i + 1 == filters.size() ? " and " : ", ") + filters[i];
-      throw NotYet(names, filters.size() > 1);
+      int chroma_lr = 0;
+      for (int i = 0; i < (mono ? 1 : 3); i++) {
+        lr_type[i] = kRemapLrType[b.f(2)];
+        if (lr_type[i] != RESTORE_NONE) {
+          uses_lr = 1;
+          if (i) chroma_lr = 1;
+        }
+      }
+      if (uses_lr) {
+        int shift = (int)b.bit();
+        if (use_128) shift++;
+        else if (shift) shift += (int)b.bit();
+        lr_size[0] = 256 >> (2 - shift);
+        int uv_shift = ssx && ssy && chroma_lr ? (int)b.bit() : 0;
+        lr_size[1] = lr_size[2] = lr_size[0] >> uv_shift;
+      }
     }
     // read_tx_mode
     only_4x4 = coded_lossless;
@@ -1168,6 +1214,7 @@ struct Decoder {
     mi_sizes.assign(n, 0);
     seg_ids.assign(n, 0);
     tx_types.assign(n, 0);
+    delta_lfs.assign(n * 4, 0);
     cdef_stride = (mi_cols >> 4) + 4;
     cdef_idx.assign((size_t)cdef_stride * ((mi_rows >> 4) + 4), -1);
     for (int p = 0; p < 3; p++) {
@@ -1181,6 +1228,16 @@ struct Decoder {
       above_dc[p].assign((mi_cols >> sx) + 64, 0);
       left_level[p].assign((mi_rows >> sy) + 64, 0);
       left_dc[p].assign((mi_rows >> sy) + 64, 0);
+      lf_tx_sizes[p].assign(n, 0);
+      lr_rows[p] = lr_cols[p] = 0;
+      lr_units[p].clear();
+      if (lr_type[p] != RESTORE_NONE) {
+        // count_units_in_frame over the plane's true size
+        auto units = [&](int size) { return imax((size + (lr_size[p] >> 1)) / lr_size[p], 1); };
+        lr_rows[p] = units((frame_h + sy) >> sy);
+        lr_cols[p] = units((frame_w + sx) >> sx);
+        lr_units[p].assign((size_t)lr_rows[p] * lr_cols[p], LrUnit());
+      }
     }
     next_tile = 0;
   }
@@ -1235,6 +1292,11 @@ struct Decoder {
         above_level[p][i] = above_dc[p][i] = 0;
     }
     for (int i = 0; i < 4; i++) delta_lf[i] = 0;
+    for (int p = 0; p < 3; p++)
+      for (int pass = 0; pass < 2; pass++) {
+        ref_xqd[p][pass] = kSgrprojXqdMid[pass];
+        for (int i = 0; i < 3; i++) ref_wiener[p][pass][i] = AV1_WIENER_TAPS_MID[i];
+      }
     int sb4 = use_128 ? 32 : 16;
     int sb_size = use_128 ? BLOCK_128X128 : BLOCK_64X64;
     for (int r = mi_row_start; r < mi_row_end; r += sb4) {
@@ -1247,6 +1309,7 @@ struct Decoder {
         read_deltas = delta_q_present != 0;
         clear_cdef(r, c);
         clear_block_decoded_flags(r, c, sb4);
+        read_lr(r, c, sb_size);
         decode_partition(r, c, sb_size);
       }
     }
@@ -1418,6 +1481,7 @@ struct Decoder {
         tx_sizes[i] = (uint8_t)tx_sz;
         mi_sizes[i] = (uint8_t)bsize;
         seg_ids[i] = (uint8_t)segment_id;
+        for (int k = 0; k < 4; k++) delta_lfs[4 * i + k] = (int8_t)delta_lf[k];
       }
     residual();
   }
@@ -1545,6 +1609,74 @@ struct Decoder {
       int w4 = 1 << (kBlockW2[mi_size] - 2), h4 = 1 << (kBlockH2[mi_size] - 2);
       for (int y = r; y < r + h4; y += 16)
         for (int x = c; x < c + w4; x += 16) cdef_at(y, x) = (int8_t)v;
+    }
+  }
+
+  // ------------------------------------------------- restoration units
+  // decode_subexp_bool and its recentring, on the symbol decoder's literals
+  int read_ns(int n) {
+    int w = floorlog2((uint32_t)n) + 1, m = (1 << w) - n;
+    int v = sd.literal(w - 1);
+    return v < m ? v : (v << 1) - m + sd.literal(1);
+  }
+  int read_subexp(int num_syms, int k) {
+    int i = 0, mk = 0;
+    for (;;) {
+      int b2 = i ? k + i - 1 : k, a = 1 << b2;
+      if (num_syms <= mk + 3 * a) return read_ns(num_syms - mk) + mk;
+      if (!sd.literal(1)) return sd.literal(b2) + mk;
+      i++;
+      mk += a;
+    }
+  }
+  static int inverse_recenter(int r, int v) {
+    if (v > 2 * r) return v;
+    return (v & 1) ? r - ((v + 1) >> 1) : r + (v >> 1);
+  }
+  int read_signed_subexp(int low, int high, int k, int ref) {
+    int mx = high - low, r = ref - low;
+    int v = read_subexp(mx, k);
+    v = (r << 1) <= mx ? inverse_recenter(r, v) : mx - 1 - inverse_recenter(mx - 1 - r, v);
+    return v + low;
+  }
+
+  void read_lr(int r, int c, int bsize) {
+    int w4 = 1 << (kBlockW2[bsize] - 2), h4 = 1 << (kBlockH2[bsize] - 2);
+    for (int p = 0; p < 3; p++) {
+      if (lr_type[p] == RESTORE_NONE) continue;
+      int sx = p ? ssx : 0, sy = p ? ssy : 0, unit = lr_size[p];
+      int row0 = (r * (4 >> sy) + unit - 1) / unit;
+      int row1 = imin(lr_rows[p], ((r + h4) * (4 >> sy) + unit - 1) / unit);
+      int col0 = (c * (4 >> sx) + unit - 1) / unit;
+      int col1 = imin(lr_cols[p], ((c + w4) * (4 >> sx) + unit - 1) / unit);
+      for (int ur = row0; ur < row1; ur++)
+        for (int uc = col0; uc < col1; uc++) read_lr_unit(p, lr_units[p][(size_t)ur * lr_cols[p] + uc]);
+    }
+  }
+
+  void read_lr_unit(int p, LrUnit& u) {
+    if (lr_type[p] == RESTORE_WIENER) u.type = sd.read(cdf.use_wiener, 2) ? RESTORE_WIENER : RESTORE_NONE;
+    else if (lr_type[p] == RESTORE_SGRPROJ) u.type = sd.read(cdf.use_sgrproj, 2) ? RESTORE_SGRPROJ : RESTORE_NONE;
+    else u.type = sd.read(cdf.restoration_type, 3);
+    if (u.type == RESTORE_WIENER) {
+      for (int pass = 0; pass < 2; pass++) {
+        u.wiener[pass][0] = 0;  // chroma's outer tap
+        for (int j = p ? 1 : 0; j < 3; j++) {
+          int v = read_signed_subexp(kWienerTapsMin[j], kWienerTapsMax[j] + 1, kWienerTapsK[j],
+                                     ref_wiener[p][pass][j]);
+          u.wiener[pass][j] = ref_wiener[p][pass][j] = v;
+        }
+      }
+    } else if (u.type == RESTORE_SGRPROJ) {
+      u.sgr_set = sd.literal(4);
+      for (int i = 0; i < 2; i++) {
+        int v = 0;
+        if (AV1_SGR_PARAMS[2 * u.sgr_set + i])
+          v = read_signed_subexp(kSgrprojXqdMin[i], kSgrprojXqdMax[i] + 1, 4, ref_xqd[p][i]);
+        else if (i == 1)
+          v = clip3(kSgrprojXqdMin[1], kSgrprojXqdMax[1], (1 << 7) - ref_xqd[p][0]);
+        u.xqd[i] = ref_xqd[p][i] = v;
+      }
     }
   }
 
@@ -1695,6 +1827,7 @@ struct Decoder {
     }
     for (int i = 0; i < step_y; i++)
       for (int j = 0; j < step_x; j++) {
+        lf_tx_sizes[plane][idx((row >> sy) + i, (col >> sx) + j)] = (uint8_t)t;
         int yy = (sub_r >> sy) + i + 1, xx = (sub_c >> sx) + j + 1;
         if (yy < 34 && xx < 34) block_decoded[plane][yy][xx] = 1;
       }
@@ -2287,6 +2420,442 @@ struct Decoder {
       for (int j = 0; j < w; j++) row[j] = clip1(row[j] + R[i][j]);
     }
   }
+
+  // ====================================================== in-loop filters
+  // deblocking in place, then CDEF and loop restoration out of place
+  // (spec §7.14, §7.15, §7.17); `pre` keeps the deblocked frame, which
+  // CDEF reads and loop restoration takes its stripes' borders from
+  Plane pre[3];
+
+  void loop_filters() {
+    if (lf_level[0] || lf_level[1]) deblock();
+    bool cdef_on = enable_cdef && !coded_lossless && !allow_intrabc;
+    if (!cdef_on && !uses_lr) return;
+    for (int p = 0; p < 3; p++) pre[p] = planes[p];
+    if (cdef_on) cdef();
+    if (uses_lr)
+      for (int p = 0; p < 3; p++)
+        if (lr_type[p] != RESTORE_NONE) restore_plane(p);
+  }
+
+  // ----------------------------------------------------------- deblocking
+  // the adaptive filter strength of the block at mi (r, c)
+  int lf_level_of(int r, int c, int plane, int pass) {
+    int i = plane == 0 ? pass : plane + 1;
+    int m = idx(r, c);
+    int lvl = clip3(0, 63, delta_lfs[4 * m + (delta_lf_multi ? i : 0)] + lf_level[i]);
+    int seg = seg_ids[m];
+    if (seg_enabled && feature_enabled[seg][1 + i]) lvl = clip3(0, 63, lvl + feature_data[seg][1 + i]);
+    // an intra block adds the INTRA_FRAME reference delta
+    if (lf_delta_enabled) lvl = clip3(0, 63, lvl + lf_ref_deltas[0] * (1 << (lvl >> 5)));
+    return lvl;
+  }
+
+  void deblock() {
+    for (int plane = 0; plane < 3; plane++) {
+      if (plane && !lf_level[plane + 1]) continue;
+      int sx = plane ? ssx : 0, sy = plane ? ssy : 0;
+      for (int pass = 0; pass < 2; pass++)  // vertical edges, then horizontal
+        for (int r = 0; r < mi_rows; r += 1 << sy)
+          for (int c = 0; c < mi_cols; c += 1 << sx) lf_edge(plane, pass, r, c);
+    }
+  }
+
+  void lf_edge(int plane, int pass, int r, int c) {
+    int sx = plane ? ssx : 0, sy = plane ? ssy : 0;
+    int x = c * 4, y = r * 4;
+    if (x >= frame_w || y >= frame_h || (pass ? y : x) == 0) return;
+    int row = r | sy, col = c | sx;
+    int xp = x >> sx, yp = y >> sy;
+    int prev_row = pass ? row - (1 << sy) : row, prev_col = pass ? col : col - (1 << sx);
+    int ts = lf_tx_sizes[plane][idx(row >> sy, col >> sx)];
+    int prev_ts = lf_tx_sizes[plane][idx(prev_row >> sy, prev_col >> sx)];
+    // every transform edge of an intra frame is filtered
+    int log2 = pass ? kTxH2[ts] : kTxW2[ts];
+    if ((pass ? yp : xp) & ((1 << log2) - 1)) return;
+    int size = imin(plane ? 8 : 16, 1 << imin(log2, pass ? kTxH2[prev_ts] : kTxW2[prev_ts]));
+    int lvl = lf_level_of(row, col, plane, pass);
+    if (!lvl) lvl = lf_level_of(prev_row, prev_col, plane, pass);
+    if (!lvl) return;
+    int shift = lf_sharpness > 4 ? 2 : lf_sharpness > 0 ? 1 : 0;
+    int limit = lf_sharpness > 0 ? clip3(1, 9 - lf_sharpness, lvl >> shift) : imax(1, lvl >> shift);
+    int blimit = 2 * (lvl + 2) + limit, thresh = lvl >> 4;
+    Plane& pl = planes[plane];
+    ptrdiff_t across = pass ? pl.stride : 1, along = pass ? 1 : pl.stride;
+    uint8_t* q0 = pl.at(yp, xp);
+    for (int i = 0; i < 4; i++) lf_sample(q0 + i * along, across, plane, size, limit, blimit, thresh);
+  }
+
+  // the masks and filters of one sample position; s points at q0, p_k is
+  // s[-(k + 1) * st], q_k s[k * st]
+  static void lf_sample(uint8_t* s, ptrdiff_t st, int plane, int size, int limit, int blimit,
+                        int thresh) {
+    auto P = [&](int k) -> int { return s[-(k + 1) * st]; };
+    auto Q = [&](int k) -> int { return s[k * st]; };
+    int p0 = P(0), p1 = P(1), q0 = Q(0), q1 = Q(1);
+    int len = size == 4 ? 4 : plane ? 6 : size == 8 ? 8 : 16;
+    if (std::abs(p1 - p0) > limit || std::abs(q1 - q0) > limit ||
+        std::abs(p0 - q0) * 2 + std::abs(p1 - q1) / 2 > blimit)
+      return;
+    int p2 = 0, q2 = 0, p3 = 0, q3 = 0;
+    if (len >= 6) {
+      p2 = P(2);
+      q2 = Q(2);
+      if (std::abs(p2 - p1) > limit || std::abs(q2 - q1) > limit) return;
+    }
+    if (len >= 8) {
+      p3 = P(3);
+      q3 = Q(3);
+      if (std::abs(p3 - p2) > limit || std::abs(q3 - q2) > limit) return;
+    }
+    bool hev = std::abs(p1 - p0) > thresh || std::abs(q1 - q0) > thresh;
+    bool flat = false, flat2 = false;
+    if (size >= 8) {
+      flat = std::abs(p1 - p0) <= 1 && std::abs(q1 - q0) <= 1 && std::abs(p2 - p0) <= 1 &&
+             std::abs(q2 - q0) <= 1;
+      if (len >= 8) flat = flat && std::abs(p3 - p0) <= 1 && std::abs(q3 - q0) <= 1;
+    }
+    if (size >= 16) {
+      flat2 = true;
+      for (int k = 4; k <= 6; k++)
+        flat2 = flat2 && std::abs(P(k) - p0) <= 1 && std::abs(Q(k) - q0) <= 1;
+    }
+    if (size == 4 || !flat) {  // the narrow filter
+      auto c4 = [](int v) { return clip3(-128, 127, v); };
+      int ps1 = p1 - 128, ps0 = p0 - 128, qs0 = q0 - 128, qs1 = q1 - 128;
+      int f = hev ? c4(ps1 - qs1) : 0;
+      f = c4(f + 3 * (qs0 - ps0));
+      int f1 = c4(f + 4) >> 3, f2 = c4(f + 3) >> 3;
+      s[0] = (uint8_t)(c4(qs0 - f1) + 128);
+      s[-st] = (uint8_t)(c4(ps0 + f2) + 128);
+      if (!hev) {
+        f = round2(f1, 1);
+        s[st] = (uint8_t)(c4(qs1 - f) + 128);
+        s[-2 * st] = (uint8_t)(c4(ps1 + f) + 128);
+      }
+      return;
+    }
+    // the wide filters: 8 (luma) or 6 (chroma) taps, or 13 taps
+    int log2 = size == 8 || !flat2 ? 3 : 4;
+    int n = log2 == 4 ? 6 : plane == 0 ? 3 : 2;
+    int n2 = log2 == 3 && plane == 0 ? 0 : 1;
+    int F[16], out[12];
+    for (int k = -(n + 1); k <= n; k++) F[k + 8] = s[k * st];
+    for (int i = -n; i < n; i++) {
+      int t = 0;
+      for (int j = -n; j <= n; j++) t += F[clip3(-(n + 1), n, i + j) + 8] * (std::abs(j) <= n2 ? 2 : 1);
+      out[i + n] = round2(t, log2);
+    }
+    for (int i = -n; i < n; i++) s[i * st] = (uint8_t)out[i + n];
+  }
+
+  // ----------------------------------------------------------------- CDEF
+  // Cdef_Directions from aom's padded offsets y * 144 + x (directions 6, 7,
+  // 0 ... 7, 0, 1): [direction][tap][dy, dx]
+  struct CdefDirs {
+    int d[8][2][2];
+    CdefDirs() {
+      for (int dir = 0; dir < 8; dir++)
+        for (int k = 0; k < 2; k++) {
+          int off = AV1_CDEF_DIRECTIONS[(2 + dir) * 2 + k];
+          int dy = (off + 72 + 144 * 4) / 144 - 4;
+          d[dir][k][0] = dy;
+          d[dir][k][1] = off - dy * 144;
+        }
+    }
+  };
+  static const CdefDirs& cdef_dirs() {
+    static const CdefDirs dirs;
+    return dirs;
+  }
+
+  void cdef() {
+    for (int r = 0; r < mi_rows; r += 2)
+      for (int c = 0; c < mi_cols; c += 2) {
+        int id = cdef_at(r, c);
+        if (id == -1) continue;
+        if (skips[idx(r, c)] && skips[idx(r + 1, c)] && skips[idx(r, c + 1)] && skips[idx(r + 1, c + 1)])
+          continue;
+        int var = 0, ydir = cdef_direction(r, c, &var);
+        int pri = cdef_strengths[id][0][0], sec = cdef_strengths[id][0][1];
+        int dir = pri ? ydir : 0;
+        int var_str = (var >> 6) ? imin(floorlog2((uint32_t)(var >> 6)), 12) : 0;
+        pri = var ? (pri * (4 + var_str) + 8) >> 4 : 0;
+        cdef_filter(0, r, c, pri, sec, cdef_damping, dir);
+        pri = cdef_strengths[id][1][0];
+        sec = cdef_strengths[id][1][1];
+        // Cdef_Uv_Dir: the identity on 4:2:0 and 4:4:4
+        dir = !pri ? 0 : ssx == ssy ? ydir : AV1_CDEF_UV_DIR[(ssx ? 8 : 0) + ydir];
+        for (int p = 1; p < 3; p++) cdef_filter(p, r, c, pri, sec, cdef_damping - 1, dir);
+      }
+  }
+
+  // the direction of the deblocked luma 8x8 at mi (r, c), and its variance
+  int cdef_direction(int r, int c, int* var) {
+    int64_t cost[8] = {0};
+    int partial[8][15] = {{0}};
+    const Plane& pl = pre[0];
+    for (int i = 0; i < 8; i++) {
+      const uint8_t* row = pl.px.data() + (size_t)(r * 4 + i) * pl.stride + c * 4;
+      for (int j = 0; j < 8; j++) {
+        int x = row[j] - 128;
+        partial[0][i + j] += x;
+        partial[1][i + j / 2] += x;
+        partial[2][i] += x;
+        partial[3][3 + i - j / 2] += x;
+        partial[4][7 + i - j] += x;
+        partial[5][3 - i / 2 + j] += x;
+        partial[6][j] += x;
+        partial[7][i / 2 + j] += x;
+      }
+    }
+    const int32_t* div = AV1_CDEF_DIV_TABLE;
+    auto sq = [](int v) { return (int64_t)v * v; };
+    for (int i = 0; i < 8; i++) {
+      cost[2] += sq(partial[2][i]);
+      cost[6] += sq(partial[6][i]);
+    }
+    cost[2] *= div[8];
+    cost[6] *= div[8];
+    for (int i = 0; i < 7; i++) {
+      cost[0] += (sq(partial[0][i]) + sq(partial[0][14 - i])) * div[i + 1];
+      cost[4] += (sq(partial[4][i]) + sq(partial[4][14 - i])) * div[i + 1];
+    }
+    cost[0] += sq(partial[0][7]) * div[8];
+    cost[4] += sq(partial[4][7]) * div[8];
+    for (int i = 1; i < 8; i += 2) {
+      for (int j = 0; j < 5; j++) cost[i] += sq(partial[i][3 + j]);
+      cost[i] *= div[8];
+      for (int j = 0; j < 3; j++)
+        cost[i] += (sq(partial[i][j]) + sq(partial[i][10 - j])) * div[2 * j + 2];
+    }
+    int64_t best = 0;
+    int dir = 0;
+    for (int i = 0; i < 8; i++)
+      if (cost[i] > best) {
+        best = cost[i];
+        dir = i;
+      }
+    *var = (int)((best - cost[(dir + 4) & 7]) >> 10);
+    return dir;
+  }
+
+  // constrain() with the damping shift of its threshold worked out
+  static int constrain(int diff, int threshold, int adj) {
+    int v = imin(std::abs(diff), imax(0, threshold - (std::abs(diff) >> adj)));
+    return diff < 0 ? -v : v;
+  }
+
+  // one 8x8 (luma) block of `plane` from the deblocked frame into planes.
+  // Taps outside the frame's mi grid are not available: the block and a
+  // border of 2 are copied into `px` with kCdefLarge there, which
+  // constrain() maps to 0 and the clip's maximum skips (as libaom's
+  // CDEF_VERY_LARGE). Zero strengths leave the block as it is.
+  static constexpr int kCdefLarge = 30000;
+
+  void cdef_filter(int plane, int r, int c, int pri, int sec, int damping, int dir) {
+    if (!pri && !sec) return;
+    int sx = plane ? ssx : 0, sy = plane ? ssy : 0;
+    int x0 = (c * 4) >> sx, y0 = (r * 4) >> sy, w = 8 >> sx, h = 8 >> sy;
+    int pw = (mi_cols * 4) >> sx, ph = (mi_rows * 4) >> sy;
+    const Plane& src = pre[plane];
+    Plane& dst = planes[plane];
+    const int S = 12;  // the stride of px
+    int px[12 * 12];
+    for (int i = 0; i < h + 4; i++)
+      for (int j = 0; j < S; j++) {  // chroma reads whole rows too
+        int y = y0 + i - 2, x = x0 + j - 2;
+        px[i * S + j] = y < 0 || y >= ph || x < 0 || x >= pw
+                            ? kCdefLarge : src.px[(size_t)y * src.stride + x];
+      }
+    const int32_t* pri_taps = AV1_CDEF_PRI_TAPS + 2 * (pri & 1);
+    int pri_adj = pri ? imax(0, damping - floorlog2((uint32_t)pri)) : 0;
+    int sec_adj = sec ? imax(0, damping - floorlog2((uint32_t)sec)) : 0;
+    const CdefDirs& dirs = cdef_dirs();
+    int off[3][2];  // the primary, then the two secondary directions
+    const int ds[3] = {dir, (dir - 2) & 7, (dir + 2) & 7};
+    for (int d = 0; d < 3; d++)
+      for (int k = 0; k < 2; k++) off[d][k] = dirs.d[ds[d]][k][0] * S + dirs.d[ds[d]][k][1];
+    // tap by tap over the block's pixels, 8 a row (chroma's last 4 unused)
+    int v[64], sum[64], mx[64], mn[64];
+    for (int i = 0; i < h; i++)
+      for (int j = 0; j < 8; j++) {
+        int n = i * 8 + j;
+        v[n] = mx[n] = mn[n] = px[(i + 2) * S + j + 2];
+        sum[n] = 0;
+      }
+    for (int k = 0; k < 2; k++)
+      for (int sign = -1; sign <= 1; sign += 2)
+        for (int d = 0; d < 3; d++) {
+          int o = sign * off[d][k];
+          int strength = d ? sec : pri, adj = d ? sec_adj : pri_adj;
+          int tap = strength ? (d ? AV1_CDEF_SEC_TAPS[k] : pri_taps[k]) : 0;
+          for (int i = 0; i < h; i++)
+            for (int j = 0; j < 8; j++) {
+              int n = i * 8 + j;
+              int p = px[(i + 2) * S + j + 2 + o];
+              sum[n] += tap * constrain(p - v[n], strength, adj);
+              mx[n] = imax(p == kCdefLarge ? mx[n] : p, mx[n]);
+              mn[n] = imin(p, mn[n]);
+            }
+        }
+    for (int i = 0; i < h; i++)
+      for (int j = 0; j < w; j++) {
+        int n = i * 8 + j;
+        *dst.at(y0 + i, x0 + j) = (uint8_t)clip3(mn[n], mx[n], v[n] + ((8 + sum[n] - (sum[n] < 0)) >> 4));
+      }
+  }
+
+  // ----------------------------------------------------- loop restoration
+  // By stripes of 64 luma rows, offset 8 rows up: each stripe's rows of
+  // CDEF's output, and two rows of the deblocked frame above and below it
+  // (the rows the spec's get_source_sample reads, clamped to the plane's
+  // true size), are copied into `buf` with 3 columns of extension, then
+  // each restoration unit of the stripe filters its columns into planes.
+  static constexpr int kLrMargin = 4;  // columns of `buf` left of x = 0
+
+  void restore_plane(int p) {
+    int sx = p ? ssx : 0, sy = p ? ssy : 0;
+    int pw = (frame_w + sx) >> sx, ph = (frame_h + sy) >> sy;
+    int unit = lr_size[p], bw = pw + 2 * kLrMargin;
+    std::vector<uint8_t> buf((size_t)bw * ((64 >> sy) + 6));
+    for (int k = 0; k * 64 - 8 < frame_h; k++) {
+      int start = (k * 64 - 8) >> sy, end = start + (64 >> sy) - 1;  // StripeStartY / EndY
+      int y0 = imax(0, start), y1 = imin(ph, end + 1);
+      for (int yy = y0 - 3; yy < y1 + 3; yy++) {
+        int y = clip3(0, ph - 1, yy);
+        const Plane* src = &planes[p];
+        if (y < start) {
+          y = imax(start - 2, y);
+          src = &pre[p];
+        } else if (y > end) {
+          y = imin(end + 2, y);
+          src = &pre[p];
+        }
+        const uint8_t* s = src->px.data() + (size_t)y * src->stride;
+        uint8_t* row = &buf[(size_t)(yy - y0 + 3) * bw + kLrMargin];
+        memcpy(row, s, pw);
+        for (int x = 1; x <= kLrMargin; x++) {
+          row[-x] = s[0];
+          row[pw - 1 + x] = s[pw - 1];
+        }
+      }
+      int unit_row = imin(lr_rows[p] - 1, ((imax(0, k * 64 - 8) + 8) >> sy) / unit);
+      for (int uc = 0; uc < lr_cols[p]; uc++) {
+        int x0 = uc * unit, x1 = uc == lr_cols[p] - 1 ? pw : (uc + 1) * unit;
+        const LrUnit& u = lr_units[p][(size_t)unit_row * lr_cols[p] + uc];
+        // buf's sample at (row y0 + i, column x0 + j)
+        const uint8_t* at = &buf[(size_t)3 * bw + kLrMargin + x0];
+        if (u.type == RESTORE_WIENER) lr_wiener(u, at, bw, x1 - x0, y1 - y0, planes[p].at(y0, x0), planes[p].stride);
+        else if (u.type == RESTORE_SGRPROJ)
+          lr_sgrproj(u, at, bw, x1 - x0, y1 - y0, y0, planes[p].at(y0, x0), planes[p].stride);
+      }
+    }
+  }
+
+  // the Wiener filter: 7 taps, the centre tap 128 less twice the others
+  static void lr_wiener(const LrUnit& u, const uint8_t* src, int bw, int w, int h, uint8_t* dst,
+                        int stride) {
+    int f[2][7];
+    for (int pass = 0; pass < 2; pass++) {
+      f[pass][3] = 128;
+      for (int i = 0; i < 3; i++) {
+        f[pass][i] = f[pass][6 - i] = u.wiener[pass][i];
+        f[pass][3] -= 2 * u.wiener[pass][i];
+      }
+    }
+    // InterRound0 3, InterRound1 11 at 8 bits
+    const int offset = 1 << 11, limit = (1 << 13) - 1;
+    std::vector<int> inter((size_t)(h + 6) * w);
+    for (int r = 0; r < h + 6; r++) {
+      const uint8_t* s = src + (ptrdiff_t)(r - 3) * bw - 3;
+      for (int c = 0; c < w; c++) {
+        int t = 0;
+        for (int k = 0; k < 7; k++) t += f[1][k] * s[c + k];
+        inter[(size_t)r * w + c] = clip3(-offset, limit - offset, round2(t, 3));
+      }
+    }
+    for (int r = 0; r < h; r++)
+      for (int c = 0; c < w; c++) {
+        int t = 0;
+        for (int k = 0; k < 7; k++) t += f[0][k] * inter[(size_t)(r + k) * w + c];
+        dst[(size_t)r * stride + c] = clip1(round2(t, 11));
+      }
+  }
+
+  // the self-guided filter: the r = 2 and r = 1 box passes of the unit's
+  // set (a pass whose scale is 0 is not run), projected with w0, w1, w2
+  static void lr_sgrproj(const LrUnit& u, const uint8_t* src, int bw, int w, int h, int y0,
+                         uint8_t* dst, int stride) {
+    int s0 = AV1_SGR_PARAMS[2 * u.sgr_set], s1 = AV1_SGR_PARAMS[2 * u.sgr_set + 1];
+    std::vector<int> f0, f1;
+    if (s0) box_filter(src, bw, w, h, y0, 2, s0, 0, f0);
+    if (s1) box_filter(src, bw, w, h, y0, 1, s1, 1, f1);
+    int w0 = u.xqd[0], w1 = u.xqd[1], w2 = (1 << 7) - w0 - w1;
+    for (int i = 0; i < h; i++)
+      for (int j = 0; j < w; j++) {
+        int uu = src[(ptrdiff_t)i * bw + j] << 4;
+        size_t k = (size_t)i * w + j;
+        int v = w1 * uu + w0 * (s0 ? f0[k] : uu) + w2 * (s1 ? f1[k] : uu);
+        dst[(size_t)i * stride + j] = clip1(round2(v, 11));
+      }
+  }
+
+  // one box pass of radius r into F (h x w); the r = 2 pass keeps A and B
+  // of the odd rows only (y0 is even)
+  static void box_filter(const uint8_t* src, int bw, int w, int h, int y0, int r, int s,
+                         int pass, std::vector<int>& F) {
+    int n = (2 * r + 1) * (2 * r + 1), one_over_n = ((1 << 12) + n / 2) / n;
+    int aw = w + 2;
+    std::vector<int> A((size_t)(h + 2) * aw), B((size_t)(h + 2) * aw);
+    std::vector<int> cs(w + 2 + 2 * r), cq(w + 2 + 2 * r);
+    for (int i = -1; i <= h; i++) {
+      if (pass == 0 && !((y0 + i) & 1)) continue;
+      // column sums over the 2r + 1 rows, then the window along the row
+      for (int x = -1 - r; x <= w + r; x++) {
+        int a = 0, b = 0;
+        for (int dy = -r; dy <= r; dy++) {
+          int c = src[(ptrdiff_t)(i + dy) * bw + x];
+          a += c * c;
+          b += c;
+        }
+        cs[x + 1 + r] = b;
+        cq[x + 1 + r] = a;
+      }
+      for (int j = -1; j <= w; j++) {
+        int a = 0, b = 0;
+        for (int dx = -r; dx <= r; dx++) {
+          a += cq[j + dx + 1 + r];
+          b += cs[j + dx + 1 + r];
+        }
+        int p = imax(0, a * n - b * b);
+        int z = (int)round2l((int64_t)p * s, 20);
+        int a2 = z >= 255 ? 256 : z == 0 ? 1 : ((z << 8) + z / 2) / (z + 1);
+        int64_t b2 = (int64_t)((1 << 8) - a2) * b * one_over_n;
+        A[(size_t)(i + 1) * aw + j + 1] = a2;
+        B[(size_t)(i + 1) * aw + j + 1] = (int)round2l(b2, 12);
+      }
+    }
+    F.assign((size_t)h * w, 0);
+    for (int i = 0; i < h; i++) {
+      int shift = pass == 0 && ((y0 + i) & 1) ? 4 : 5;
+      for (int j = 0; j < w; j++) {
+        int a = 0, b = 0;
+        for (int dy = -1; dy <= 1; dy++)
+          for (int dx = -1; dx <= 1; dx++) {
+            int weight;
+            if (pass == 0) weight = ((y0 + i + dy) & 1) ? (dx == 0 ? 6 : 5) : 0;
+            else weight = dx == 0 || dy == 0 ? 4 : 3;
+            if (!weight) continue;
+            size_t k = (size_t)(i + dy + 1) * aw + j + dx + 1;
+            a += weight * A[k];
+            b += weight * B[k];
+          }
+        int v = a * src[(ptrdiff_t)i * bw + j] + b;
+        F[(size_t)i * w + j] = round2(v, 8 + shift - 4);
+      }
+    }
+  }
 };
 
 // ---------------------------------------------------------------------------
@@ -2385,6 +2954,7 @@ extern "C" int64_t av1_decode(const uint8_t* obus, int64_t size, int32_t width, 
     d.want_w = width;
     d.want_h = height;
     d.decode(obus, (size_t)size);
+    d.loop_filters();
     {
       YuvConst k;
       int m = matrix >= 0 ? matrix : d.matrix;

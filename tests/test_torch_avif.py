@@ -12,14 +12,17 @@ seeded numpy arrays (`fixture_files`, re-encoded here and held equal byte
 for byte): speeds 6, 8 and 10 at qualities 10, 50, 90 and 100; sizes of
 1 x 1, 7 x 5, 130 x 67 and 257 x 129 (odd sizes, and sizes that cross a 128
 superblock); 2 x 2 tiles; each intra tool switched off alone and all of
-them at once; ICC, EXIF and XMP; the limited range. All are saved with
-aom's loop filter off (`loopfilter-control 0`), as the port reads no
-in-loop filter yet. Beside them: the `colr` matrix patched to each of
-libyuv's, bit flips of a file with every kind of item, files cut short,
-and the files the port refuses by name (tests/test_torch_legacy_rasters.py
-holds those: deblocking, CDEF, loop restoration, 10-bit, 4:4:4, RGBA and
-palette blocks). The tables of av1dec.cpp are held to the read-only data
-of Pillow's libavif."""
+them at once; ICC, EXIF and XMP; the limited range, all saved with aom's
+loop filter off (`loopfilter-control 0`). Then the in-loop filters
+(deblocking, CDEF, loop restoration) as aom writes them: Pillow's defaults
+at speeds 6, 8 and 10; speeds 0, 2 and 4; `enable-cdef 1` at speeds 4 and
+6; sharpness 3 and 7; delta-LF; 128 x 128 superblocks; 2 x 2 tiles; sizes
+of 1 x 1, 7 x 5 and 257 x 129. Beside them: the `colr` matrix patched to
+each of libyuv's, bit flips of a file with every kind of item and of one
+with all three filters on, files cut short, and the files the port
+refuses by name (tests/test_torch_legacy_rasters.py holds those: 10-bit,
+4:4:4, RGBA and palette blocks). The tables of av1dec.cpp are held to the
+read-only data of Pillow's libavif."""
 import hashlib
 import io
 import struct
@@ -63,6 +66,7 @@ TOOLS_OFF = {
 }
 MINIMAL = {k: v for d in list(TOOLS_OFF.values())[:7] for k, v in d.items()}
 NOT_YET = "not read by the port yet"
+CDEF = {"enable-cdef": "1"}
 
 
 def scene(seed: int, rows: int, cols: int) -> np.ndarray:
@@ -79,6 +83,19 @@ def scene(seed: int, rows: int, cols: int) -> np.ndarray:
     return np.clip(a, 0, 255).astype(np.uint8)
 
 
+def two_textures(seed: int, rows: int, cols: int) -> np.ndarray:
+    """scene() with its right half smoothed to gentle waves and its lower
+    left quarter white noise: units that want different restorations."""
+    a = scene(seed, rows, cols)
+    rng = np.random.default_rng(seed)
+    x = np.arange(cols // 2, cols, dtype=np.float32)[None, :, None]
+    a[:, cols // 2:] = np.clip(a[:, cols // 2:] * 0.2 + 100 + 20 * np.sin(
+        x / 30.0), 0, 255).astype(np.uint8)
+    a[rows // 2:, :cols // 2] = rng.integers(
+        0, 255, (rows - rows // 2, cols // 2, 3), dtype=np.uint8)
+    return a
+
+
 def _save(a: np.ndarray, **kw) -> bytes:
     buf = io.BytesIO()
     Image.fromarray(a).save(buf, format="AVIF", **kw)
@@ -87,8 +104,8 @@ def _save(a: np.ndarray, **kw) -> bytes:
 
 def fixture_files() -> dict:
     """tests/data/avif's files as Pillow writes them from chip_smoke's
-    AVIF_SEED, in the order of chip_smoke.AVIF_FIXTURES; then the files
-    the port refuses by name."""
+    AVIF_SEED, in the order of chip_smoke.AVIF_FIXTURES (the files the port
+    refuses by name are refusal_files())."""
     s = chip_smoke.AVIF_SEED
     base = scene(s, 67, 130)
     out = {}
@@ -117,14 +134,64 @@ def fixture_files() -> dict:
                                  xmp=b"<x:xmpmeta xmlns:x='adobe:ns:meta/'/>")
     out["limited_range.avif"] = _save(base, quality=50, speed=6,
                                       range="limited", advanced=LF0)
+    out.update(filtered_files())
+    return out
+
+
+def filtered_files() -> dict:
+    """The fixtures with aom's in-loop filters on, as fixture_files() ends.
+    The first three were the files the port refused by name before it read
+    the filters: deblocking (speed 6, Pillow's defaults), CDEF alone (speed
+    4, loop filter and restoration off) and restoration alone (speed 0,
+    loop filter off). Between the others: deblocking with both luma levels
+    set and with one of them 0 (lf_s2), sharpness 3 and 7, delta-LF
+    (deltaq-mode 2 with delta-lf-mode: delta_lf_present without
+    delta_lf_multi, which aom never writes), CDEF with 2 and 4 strength
+    sets, Wiener and self-guided units, 128 x 128 superblocks, 2 x 2 tiles,
+    and one switchable frame with 128-sample units (lf_s0_switchable;
+    every other file's units are 256 samples: aom searches smaller ones
+    only at speed 0)."""
+    s = chip_smoke.AVIF_SEED
+    a = scene(s + 3, 64, 96)
+    base = scene(s, 67, 130)
+    big = scene(s + 2, 129, 257)
+    out = {
+        "filter_deblocking.avif": _save(a, quality=50, speed=6),
+        "filter_cdef.avif": _save(a, quality=50, speed=4, advanced={
+            **LF0, **CDEF, "enable-restoration": "0"}),
+        "filter_restoration.avif": _save(a, quality=50, speed=0,
+                                         advanced=LF0),
+    }
+    for speed in (6, 8, 10):
+        for q in (10, 50, 90):
+            out[f"lf_s{speed}_q{q}.avif"] = _save(base, quality=q,
+                                                  speed=speed)
+    out["lf_s0_switchable.avif"] = _save(two_textures(s + 20, 128, 256),
+                                         quality=20, speed=0)
+    out["lf_s2.avif"] = _save(big, quality=50, speed=2)
+    out["lf_s4.avif"] = _save(base, quality=30, speed=4)
+    for speed in (4, 6):
+        out[f"lf_cdef_s{speed}.avif"] = _save(big, quality=40, speed=speed,
+                                              advanced=CDEF)
+    for sharp in (3, 7):
+        out[f"lf_sharpness{sharp}.avif"] = _save(
+            big, quality=30, speed=6, advanced={"sharpness": str(sharp)})
+    out["lf_delta_lf.avif"] = _save(big, quality=30, speed=6, advanced={
+        "deltaq-mode": "2", "delta-lf-mode": "1"})
+    out["lf_sb128.avif"] = _save(big, quality=20, speed=4, advanced={
+        **CDEF, "sb-size": "128"})
+    out["lf_tiles_2x2.avif"] = _save(scene(s + 1, 300, 520), quality=40,
+                                     speed=4, tile_rows=1, tile_cols=1,
+                                     advanced=CDEF)
+    for (rows, cols), q in (((1, 1), 20), ((5, 7), 20), ((129, 257), 30)):
+        out[f"lf_size_{cols}x{rows}.avif"] = _save(
+            scene(s + 30 + rows, rows, cols), quality=q, speed=4,
+            advanced=CDEF)
     return out
 
 
 # the files the port refuses by name, and the words of each refusal
 REFUSALS = {
-    "refuse_deblocking.avif": "AV1 deblocking is",
-    "refuse_cdef.avif": "AV1 CDEF is",
-    "refuse_restoration.avif": "AV1 loop restoration is",
     "refuse_10bit.avif": "AVIF 10-bit samples are",
     "refuse_444.avif": "AVIF 4:4:4 images are",
     "refuse_rgba.avif": r"AVIF alpha \(an RGBA image\) is",
@@ -134,9 +201,8 @@ REFUSALS = {
 
 def refusal_files() -> dict:
     """The files of REFUSALS as Pillow writes them with the feature the
-    port refuses. aom writes CDEF only when asked to (`enable-cdef 1`);
-    Pillow writes no 10-bit AVIF, so that file is the 8-bit one with
-    `av1C` and `pixi` saying 10 bits."""
+    port refuses. Pillow writes no 10-bit AVIF, so that file is the 8-bit
+    one with `av1C` and `pixi` saying 10 bits."""
     s = chip_smoke.AVIF_SEED
     a = scene(s + 3, 64, 96)
     flat = np.zeros((64, 64, 3), np.uint8)
@@ -149,11 +215,6 @@ def refusal_files() -> dict:
     p = ten.find(b"pixi") + 9
     ten[p:p + 3] = bytes([10, 10, 10])
     files = {
-        "refuse_deblocking.avif": _save(a, quality=50, speed=6),
-        "refuse_cdef.avif": _save(a, quality=50, speed=4, advanced={
-            **LF0, "enable-cdef": "1", "enable-restoration": "0"}),
-        "refuse_restoration.avif": _save(a, quality=50, speed=0,
-                                         advanced=LF0),
         "refuse_10bit.avif": bytes(ten),
         "refuse_444.avif": _save(a, quality=50, speed=6, subsampling="4:4:4",
                                  advanced=LF0),
@@ -174,6 +235,16 @@ def band_file() -> bytes:
     return _save(np.asarray(img.convert("RGB")),
                  quality=chip_smoke.AVIF_BAND_QUALITY, speed=6,
                  autotiling=True, advanced=LF0)
+
+
+def filtered_band_file() -> bytes:
+    """chip_smoke.AVIF_FILTERED_BAND as Pillow writes it: the same band at
+    speed 4 with `enable-cdef 1`, so that deblocking, CDEF and loop
+    restoration are all on (not run by the tests)."""
+    img = Image.fromarray(chip_smoke.avif_band_u8(chip_smoke.AVIF_BAND_SIDE))
+    return _save(np.asarray(img.convert("RGB")),
+                 quality=chip_smoke.AVIF_BAND_QUALITY, speed=4,
+                 autotiling=True, advanced=CDEF)
 
 
 def _write(tmp_path, blob: bytes, name: str = "a.avif") -> Path:
@@ -308,22 +379,24 @@ def _obu_span(blob: bytes) -> tuple:
     return start, start + len(obus)
 
 
-@pytest.mark.parametrize("chunk", range(6))
-def test_bit_flips_agree_with_jax(tmp_path, chunk):
-    """300 single-bit flips of one file (50 a case), anywhere in it: both
-    readers open the file bit-equal or both refuse it, or the port names
-    what it does not read yet. The port's refusals by name come from the
-    AV1 data (tile data that no longer ends in the spec's trailing bits,
-    a header that now asks for a filter or another format), at most two a
-    case from the container (a flipped av1C depth or subsampling)."""
-    blob = (AVIF_DIR / "metadata.avif").read_bytes()
+def _bit_flips(tmp_path, name: str, seed: int, head: int = 0) -> dict:
+    """50 single-bit flips of tests/data/avif/`name` from `seed`, anywhere
+    in it (or in the first `head` bytes of its AV1 data): both readers open
+    the file bit-equal or both refuse it, or the port names what it does
+    not read yet. The port's refusals by name come from the AV1 data (tile
+    data that no longer ends in the spec's trailing bits, a header that now
+    asks for superres, film grain or another format), at most two a case
+    from the container (a flipped av1C depth or subsampling). Returns the
+    count of each outcome."""
+    blob = (AVIF_DIR / name).read_bytes()
     lo, hi = _obu_span(blob)
-    rng = np.random.default_rng(2100 + chunk)
+    rng = np.random.default_rng(seed)
     seen = {"open": 0, "refused": 0, "not yet": 0}
     outside = 0
     for k in range(50):
         b = bytearray(blob)
-        pos = int(rng.integers(0, len(b)))
+        pos = lo + int(rng.integers(0, head)) if head else \
+            int(rng.integers(0, len(b)))
         b[pos] ^= 1 << int(rng.integers(0, 8))
         kind, _ = _outcome(_write(tmp_path, bytes(b), f"f{k}.avif"))
         seen[kind] += 1
@@ -332,6 +405,26 @@ def test_bit_flips_agree_with_jax(tmp_path, chunk):
     assert sum(seen.values()) == 50
     assert outside <= 2, seen
     assert seen["not yet"] <= hi - lo, seen
+    return seen
+
+
+@pytest.mark.parametrize("chunk", range(6))
+def test_bit_flips_agree_with_jax(tmp_path, chunk):
+    """300 single-bit flips of a file with every kind of item (50 a
+    case)."""
+    _bit_flips(tmp_path, "metadata.avif", 2100 + chunk)
+
+
+@pytest.mark.parametrize("chunk", range(4))
+def test_bit_flips_of_filtered_file_agree_with_jax(tmp_path, chunk):
+    """200 single-bit flips in the sequence and frame headers (the first 48
+    bytes of the AV1 data) of a file with deblocking, CDEF (four strength
+    sets) and Wiener restoration on (50 a case): a flip of a filter level,
+    the sharpness, a CDEF strength or damping leaves the tile data in step,
+    and the file opens with other filtering, bit-equal to the JAX reader's;
+    others desync the tiles or change the format."""
+    seen = _bit_flips(tmp_path, "lf_cdef_s4.avif", 2200 + chunk, head=48)
+    assert seen["open"] >= 5, seen
 
 
 @pytest.mark.parametrize("cut", [0.05, 0.2, 0.5, 0.9, 0.999])
@@ -429,25 +522,57 @@ def test_av1_tables_equal_libavif():
     assert tables["DC_QLOOKUP"][2][-1] == 1336
     assert tables["AC_QLOOKUP"][2][-1] == 1828
     assert tables["COSPI"][2][32] == 2896 and tables["SINPI"][2][4] == 3803
+    # the in-loop filters': the restoration CDFs, Cdef_Directions of
+    # direction 0 ({-1, 1}, {-2, 2}) and 7 ({1, 0}, {2, -1}), the CDEF taps
+    # and divisors, Sgr_Params of sets 0, 10 and 14, the Wiener midpoints
+    assert [32768 - v for v in tables["RESTORATION_TYPE"][2][0]] == \
+        [9413, 22581]
+    assert [32768 - tables["USE_WIENER"][2][0][0],
+            32768 - tables["USE_SGRPROJ"][2][0][0]] == [11570, 16855]
+    dirs = tables["CDEF_DIRECTIONS"][2]
+    assert dirs[4:6] == [-1 * 144 + 1, -2 * 144 + 2]
+    assert dirs[18:20] == [1 * 144 + 0, 2 * 144 - 1]
+    assert tables["CDEF_PRI_TAPS"][2] == [4, 2, 3, 3]
+    assert tables["CDEF_SEC_TAPS"][2] == [2, 1]
+    assert tables["CDEF_DIV_TABLE"][2][1:3] == [840, 420]
+    sgr = tables["SGR_PARAMS"][2]
+    assert (sgr[0:2], sgr[20:22], sgr[28:30]) == ([140, 3236], [0, 2589],
+                                                   [56, 0])
+    assert tables["WIENER_TAPS_MID"][2] == [3, -7, 15]
 
 
 # ---------------------------------------------------------------------------
 # the decoded band onto the device (the CPU here)
 # ---------------------------------------------------------------------------
-@pytest.mark.parametrize("alg", ["average", "cubic", "nearest"])
-def test_decimated_read_of_avif_band_equals_jax(alg):
-    """tests/test_io.py's read_band_resampled(1, 30, 20, ...) on an AVIF
-    band: the port's device route against the JAX package's."""
-    path = AVIF_DIR / "off_cfl.avif"
+def _decimated_read_equals_jax(name: str, band: int, cols: int, rows: int,
+                               alg: str) -> None:
+    """read_band_resampled of tests/data/avif/`name`: the port's device route
+    against the JAX package's."""
+    path = AVIF_DIR / name
     t, j = traster.RasterReader(path), jraster.RasterReader(path)
     try:
-        got = traster.read_band_resampled_to_device(t, 1, 30, 20, "cpu", alg)
-        want = j.read_band_resampled(1, 30, 20, alg)
+        got = traster.read_band_resampled_to_device(t, band, cols, rows, "cpu",
+                                                    alg)
+        want = j.read_band_resampled(band, cols, rows, alg)
     finally:
         t.close()
         j.close()
-    assert got.dtype == torch.float32 and tuple(got.shape) == (20, 30)
+    assert got.dtype == torch.float32 and tuple(got.shape) == (rows, cols)
     np.testing.assert_allclose(got.numpy(), want, **RESAMPLE_TOL)
+
+
+@pytest.mark.parametrize("alg", ["average", "cubic", "nearest"])
+def test_decimated_read_of_avif_band_equals_jax(alg):
+    """tests/test_io.py's read_band_resampled(1, 30, 20, ...) on an AVIF
+    band."""
+    _decimated_read_equals_jax("off_cfl.avif", 1, 30, 20, alg)
+
+
+@pytest.mark.parametrize("alg", ["average", "cubic", "nearest"])
+def test_decimated_read_of_filtered_avif_equals_jax(alg):
+    """The same decimated read of a 2 x 2-tile file with deblocking, CDEF
+    and Wiener restoration on in every plane."""
+    _decimated_read_equals_jax("lf_tiles_2x2.avif", 2, 170, 90, alg)
 
 
 def test_header_only_avif_refused_by_both(tmp_path):
