@@ -218,19 +218,23 @@ prints no result):
      to the plain resample, and is saved as a CLAHE gray JPEG that reads
      back;
  18. avif: io/avif over sarpro_tpu_torch/_native/av1dec.cpp (libavif
-     1.3.0's container, AV1 intra key frames of 8-bit 4:2:0 with their
-     in-loop filters: deblocking, CDEF, loop restoration; libyuv's YUV to
-     RGB) on the files of tests/data/avif (written by Pillow from
-     AVIF_SEED; AVIF_FIXTURES pins the SHA-256 of Pillow's decode of each,
-     held in tests/test_torch_avif.py) and on the two committed 9216^2
-     SAR-like bands of tests/data/avif_band (Pillow at speed 6, autotiling,
-     loop filter off, AVIF_BAND_SHA256; and at speed 4 with CDEF on, so
-     that all three filters are on, AVIF_FILTERED_BAND_SHA256), each with a
-     .wld and a .prj beside a copy of it. Each opens through RasterReader
+     1.3.0's container with its alpha item, AV1 intra key frames of 8-bit
+     4:2:0, 4:2:2, 4:4:4 and monochrome samples with palette blocks and
+     their in-loop filters: deblocking, CDEF, loop restoration; libavif's
+     YUV to RGB(A) through libyuv and its own code) on the files of
+     tests/data/avif (written by Pillow from AVIF_SEED; AVIF_FIXTURES pins
+     the SHA-256 of Pillow's decode of each, held in
+     tests/test_torch_avif.py) and on the three committed 9216^2 SAR-like
+     bands of tests/data/avif_band (Pillow at speed 6, autotiling, loop
+     filter off, AVIF_BAND_SHA256; at speed 4 with CDEF on, so that all
+     three filters are on, AVIF_FILTERED_BAND_SHA256; and as "LA", 4:0:0,
+     its alpha a no-data footprint, AVIF_LA_BAND_SHA256), each with a .wld
+     and a .prj beside a copy of it. Each opens through RasterReader
      (decode ms on the host clock, median of 3, MP/s), decodes to the
-     pinned SHA-256, reads decimated to 2048^2 on the card (cubic) with the
-     launch counts set to 0 just before and read just after, bit-equal to
-     the plain resample, and is saved as a CLAHE gray JPEG that reads back;
+     pinned SHA-256, reads decimated to 2048^2 on the card (cubic; the LA
+     band's alpha, band 4, too) with the launch counts set to 0 just before
+     and read just after, bit-equal to the plain resample, and is saved as
+     a CLAHE gray JPEG that reads back;
  19. with --walls N only: every warm path N times more, interleaved, with
      medians and quartiles of its wall; the no-warp synRGB read through
      each of the two loaders (full DN + device resample, decimated read) in
@@ -468,17 +472,21 @@ WEBP_FIXTURES = {
 }
 # the avif phase's files: tests/data/avif, written by Pillow 12.1 (aom
 # 3.12.1; loop filter off, then the in-loop filters on from
-# filter_deblocking.avif) from AVIF_SEED (tests/test_torch_avif.py's
-# fixture_files), with the SHA-256 of Pillow's decode of each, which the
-# port's must match; and two SAR-like bands of tests/data/avif_band
-# (avif_band_u8 at AVIF_BAND_SIDE^2, saved by Pillow at quality
-# AVIF_BAND_QUALITY with autotiling: at speed 6 with the loop filter off by
-# tests/test_torch_avif.band_file, 0.97 MB; and at speed 4 with
-# `enable-cdef 1` by filtered_band_file, deblocking, CDEF and Wiener
-# restoration on, 1.63 MB; the card's machine has no encoder)
+# filter_deblocking.avif, then 4:4:4, 4:2:2, 4:0:0 and alpha from
+# ss444_s6.avif) from AVIF_SEED (tests/test_torch_avif.py's fixture_files),
+# with the SHA-256 of Pillow's decode of each, which the port's must match;
+# and three SAR-like bands of tests/data/avif_band (avif_band_u8 at
+# AVIF_BAND_SIDE^2, saved by Pillow at quality AVIF_BAND_QUALITY with
+# autotiling: at speed 6 with the loop filter off by
+# tests/test_torch_avif.band_file, 0.97 MB; at speed 4 with `enable-cdef 1`
+# by filtered_band_file, deblocking, CDEF and Wiener restoration on, 1.63
+# MB; and as "LA" by la_band_file: 4:0:0 at speed 6 with the loop filter at
+# its default, its alpha a rotated no-data footprint with the gray 0 under
+# it, which Pillow opens as RGBA; the card's machine has no encoder)
 AVIF_DIR = ROOT / "tests" / "data" / "avif"
 AVIF_BAND = ROOT / "tests" / "data" / "avif_band" / "sar_band_9216.avif"
 AVIF_FILTERED_BAND = AVIF_BAND.with_name("sar_band_9216_filtered.avif")
+AVIF_LA_BAND = AVIF_BAND.with_name("sar_band_9216_la.avif")
 AVIF_SEED = 21
 AVIF_BAND_SIDE = 9216
 AVIF_BAND_QUALITY = 10
@@ -591,11 +599,71 @@ AVIF_FIXTURES = {
                          "8b59c9d6b3281e5ce4fd1c297d0d9533"),
     "lf_size_257x129.avif": ("e465b594117fd68dbbf04e75929dfb69"
                              "984ea41f5a4cb5cf1f8cdd5ea1225c15"),
+    "ss444_s6.avif": ("d69c7706505aaf62361c4f403d92da4d"
+                     "c43497f2c80454ee8299799b43da6982"),
+    "ss444_lf_s6.avif": ("54d3cda5755574cdc408b4126985174a"
+                        "aedf6e18444c4d6177b90ed9f4d8a3b1"),
+    "ss444_s10.avif": ("39a71b7e4ce2714936a283a65e4fc7ff"
+                      "86e7c06612da9c5b98bd0f6b2b4559bc"),
+    "ss444_lf_s10.avif": ("087d832279dcc7a8e0a03d54155855e3"
+                         "ee6e32cf3abf9bb3e33464edce747dcb"),
+    "ss444_cdef_s4.avif": ("0356c9c54b8d1be8b9e685d1a829c683"
+                          "7acfdd231c44e579dbf43a59b7c318a9"),
+    "ss422_s6.avif": ("de3bf76161a766f0e897e6979280e77f"
+                     "b22e96ba687619a4fcc0056253c1614a"),
+    "ss422_lf_s6.avif": ("875a9044615d567b2f7f9e3fc160c20f"
+                        "c7eae221e8a223c220e8a451511cee51"),
+    "ss422_s10.avif": ("c00961188d1bd1fd90d76c14674eeb0a"
+                      "4455f36064be148bd0f9c6b3e616cf32"),
+    "ss422_lf_s10.avif": ("592cfd6367fa24eb77d547b28287deaa"
+                         "1f9097c1913e1fbf77905b82d23aacfa"),
+    "ss422_cdef_s4.avif": ("e56d63fe7115e3d4f1893abd2983f38d"
+                          "bc82e91b8244b620afea0889bffeda26"),
+    "ss400_s6.avif": ("390dafa7fd9236a75c53ef6c699789c4"
+                     "8e84dedfdc0da94b2101dde599343e90"),
+    "ss400_lf_s6.avif": ("19b3441e7a978aed381e62e02382c5ba"
+                        "ef10fab030d9304ae4c0246f1571d14a"),
+    "ss400_s10.avif": ("72d38bc621967b5ef6dc067d66167523"
+                      "c8c07dfe3d9ca596b88be225ce058a10"),
+    "ss400_lf_s10.avif": ("0bf7d3caa6e5639a0fb32ebb539b1471"
+                         "463e3f3ea20f68ef3ed933e86c1177a2"),
+    "ss400_cdef_s4.avif": ("f0169e4d8dcf171696ab019e93b8be43"
+                          "e4a17030f9df6496d2d49704d25da0ba"),
+    "ss422_s0.avif": ("4d74de38c623bfec8e6887fc7aa54c17"
+                     "f332b7008d1bfca83772c765897396ae"),
+    "ss422_size_7x5.avif": ("f69ce3504492cfc834d0b92d5208dd1c"
+                           "8788d85149211764d2488d94237402de"),
+    "ss422_size_257x129.avif": ("a2c59b1fca9920f60848bc8969808bd1"
+                               "bfa8dd8e2dfad56bb9b07eca31b52588"),
+    "ss444_size_7x5.avif": ("b95c431ac62a84d317eb158a3a99a29b"
+                           "75aef90201385a4f700fbd4c954e02cf"),
+    "ss444_size_257x129.avif": ("1d742a3e51acb3105325adb810a3d60b"
+                               "4dadcb976052401e226ec180dcb35a87"),
+    "rgba_420.avif": ("151e550982a0c1eaabcbef7b737d0024"
+                     "70e4a1f1a9f0f965a1ff3e2247a238ce"),
+    "rgba_444.avif": ("9d0c36b72a6ecaf5410f0ba429f2d708"
+                     "400561cbac82067e1dc2dd9f39e7ce13"),
+    "rgba_400.avif": ("d11dbafc7ee6ffdb6a7af996e993f827"
+                     "8fc6f8a00368bc8f5410a4d16ed80595"),
+    "rgba_speckled.avif": ("4a8eed9f3ed627e9e9f27c54613cc453"
+                          "116932fe36d9ae8af2c0e155e89438c0"),
+    "la.avif": ("33e5bdbc7feb34ab1b417f7c8ddc1b53"
+               "81d8b6375712376059384ab2730b972e"),
+    "rgba_1x1.avif": ("8059c844c99432f42302621b8418a8a4"
+                     "4712bb009a311d4f9b93675b40560973"),
+    "was_refused_444.avif": ("4686784e8698f5f20f97f1502aa2424c"
+                            "07ba3a26328209c16bb20e886580b9d5"),
+    "was_refused_rgba.avif": ("f1e829457be94cd5da05513ea0c8584c"
+                             "178aa913c3cc8fc2f5851a736f9bde23"),
+    "was_refused_palette.avif": ("f553040ff5ef82860f8c28e6d8284e0f"
+                                "ade404fe4495949a71123787ec8a5e1b"),
 }
 AVIF_BAND_SHA256 = ("0fac26190af3efd4cf09c6ceaed08687"
                     "1078c04bb00ad9c2561349724e90840e")
 AVIF_FILTERED_BAND_SHA256 = ("ce00375d6a3750493f0bc388db171aca"
                              "e6ba6871c1b210f90bf00c93cb58bf73")
+AVIF_LA_BAND_SHA256 = ("ea4a3137586fde04f28075cba7c1406a"
+                       "2fc633ea6cec55c96bb1d2e6131e792f")
 # the rasters phase's JPEG codings: tests/data/jpeg, written from JPEG_SEED
 # on by libjpeg-turbo 3.1.3's own encoder (tests/ljt_encode.py) or Pillow
 # (tests/test_torch_jpeg_coding.py): a SAR-like arithmetic-coded strip
@@ -4708,13 +4776,14 @@ def decode_digest(data) -> str:
 
 
 def _read_and_save(tag: str, label: str, reader, path: Path, smi: str,
-                   totals: dict) -> None:
+                   totals: dict, bands: tuple = (1,)) -> None:
     """The formats and longtail phases' drive of an opened band: the cubic
-    read to SIZE^2 on the card with the launch counts set to 0 just before
-    and read just after (a resample launch required, bit-equal to the plain
-    resample), then its CLAHE gray JPEG through api.save_image (a launch of
-    each CLAHE kernel required) read back beside `path`; the launches are
-    added to `totals`, and `reader` is closed."""
+    read to SIZE^2 on the card of each of `bands` with the launch counts set
+    to 0 just before and read just after (a resample launch required,
+    bit-equal to the plain resample), then the CLAHE gray JPEG of the first
+    through api.save_image (a launch of each CLAHE kernel required) read
+    back beside `path`; the launches are added to `totals`, and `reader` is
+    closed."""
     import torch
 
     from sarpro_tpu_torch import api, ops
@@ -4726,33 +4795,39 @@ def _read_and_save(tag: str, label: str, reader, path: Path, smi: str,
         OutputFormat,
     )
 
-    ops.reset_launch_counts()
-    torch.cuda.synchronize()
-    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    t0 = time.perf_counter()
-    start.record()
-    dev = raster.read_band_resampled_to_device(reader, 1, SIZE, SIZE, DEVICE,
-                                               "cubic")
-    end.record()
-    end.synchronize()
-    read_ms = (time.perf_counter() - t0) * 1e3
-    counts = ops.launch_counts()
-    if counts["resample_axis0"] <= 0:
-        raise AssertionError(f"{tag}: {label}: the decimated read launched "
-                             f"no resample ({counts})")
-    for k, v in counts.items():
-        totals[k] += v
-    with force_plain():
-        plain = raster.read_band_resampled_to_device(reader, 1, SIZE, SIZE,
-                                                     DEVICE, "cubic")
-    _check_equal(dev, plain, f"{tag}: {label} resample vs plain")
-    log(f"{tag}: {label}: cubic read to {SIZE}^2 "
-        f"{start.elapsed_time(end):.3f} ms between CUDA events "
-        f"({read_ms:.1f} ms host), launches "
-        f"{ {k: v for k, v in counts.items() if v} }, bit-equal to the plain "
-        f"resample; on {smi}")
+    reads = []
+    for band in bands:
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        t0 = time.perf_counter()
+        start.record()
+        dev = raster.read_band_resampled_to_device(reader, band, SIZE, SIZE,
+                                                   DEVICE, "cubic")
+        end.record()
+        end.synchronize()
+        read_ms = (time.perf_counter() - t0) * 1e3
+        counts = ops.launch_counts()
+        if counts["resample_axis0"] <= 0:
+            raise AssertionError(f"{tag}: {label}: the decimated read of band "
+                                 f"{band} launched no resample ({counts})")
+        for k, v in counts.items():
+            totals[k] += v
+        with force_plain():
+            plain = raster.read_band_resampled_to_device(reader, band, SIZE,
+                                                         SIZE, DEVICE, "cubic")
+        _check_equal(dev, plain, f"{tag}: {label} band {band} resample vs "
+                     "plain")
+        log(f"{tag}: {label}: band {band} cubic read to {SIZE}^2 "
+            f"{start.elapsed_time(end):.3f} ms between CUDA events "
+            f"({read_ms:.1f} ms host), launches "
+            f"{ {k: v for k, v in counts.items() if v} }, bit-equal to the "
+            f"plain resample; on {smi}")
+        reads.append(dev)
+        del plain
     reader.close()
-    del plain
+    dev = reads[0]
+    del reads
     out = path.parent / f"{path.stem}_{path.suffix[1:]}_clahe_gray.jpg"
     ops.reset_launch_counts()
     t0 = time.perf_counter()
@@ -4849,13 +4924,13 @@ def phase_longtail(work: Path, smi: str) -> dict:
 
 def phase_avif(work: Path, smi: str) -> dict:
     """io/avif on the card's machine: each file of AVIF_FIXTURES and the
-    two committed bands (each with a .wld and a .prj) opens through
+    three committed bands (each with a .wld and a .prj) opens through
     RasterReader (decode timed on the host clock, median of 3), decodes to
     the SHA-256 of Pillow's decode, reads decimated to SIZE^2 on the card
-    (bit-equal to the plain resample) and is saved as a CLAHE gray JPEG
-    that reads back (but the 1 x 1 files: their read is a constant band,
-    whose save launches no histogram). Returns the launches of the driven
-    reads and saves."""
+    (bit-equal to the plain resample; the LA band's alpha too) and is saved
+    as a CLAHE gray JPEG that reads back (but the 1 x 1 files: their read
+    is a constant band, whose save launches no histogram). Returns the
+    launches of the driven reads and saves."""
     from sarpro_tpu_torch import _native, ops
     from sarpro_tpu_torch.io import raster
     from sarpro_tpu_torch.io.writers.worldfile import write_prj_file
@@ -4865,13 +4940,16 @@ def phase_avif(work: Path, smi: str) -> dict:
     d.mkdir()
     totals = {k: 0 for k in ops.launch_counts()}
     gt = [500000.0, 10.0, 0.0, 5100000.0, 0.0, -10.0]
-    files = [(name, AVIF_DIR / name, want)
-             for name, want in AVIF_FIXTURES.items()]
+    files = []
+    for name, want in AVIF_FIXTURES.items():  # copied: the saves go beside
+        shutil.copyfile(AVIF_DIR / name, d / name)
+        files.append((name, d / name, want))
     band_paths = []
     for label, src, want in (
             ("SAR band", AVIF_BAND, AVIF_BAND_SHA256),
             ("SAR band, filtered", AVIF_FILTERED_BAND,
-             AVIF_FILTERED_BAND_SHA256)):
+             AVIF_FILTERED_BAND_SHA256),
+            ("SAR band, LA", AVIF_LA_BAND, AVIF_LA_BAND_SHA256)):
         band = d / src.name
         shutil.copyfile(src, band)
         band.with_suffix(".wld").write_text(
@@ -4907,8 +4985,12 @@ def phase_avif(work: Path, smi: str) -> dict:
                 f"), {mp / wall:.2f} MP/s, equal to Pillow's decode; host "
                 f"CPU {_host_cpu()}; on {smi}")
             del data
+            if path == band_paths[-1] and bands != 4:
+                raise AssertionError(f"avif: {label} opens with {bands} "
+                                     "bands, Pillow's RGBA has 4")
             if rows * cols > 1:
-                _read_and_save("avif", label, reader, path, smi, totals)
+                _read_and_save("avif", label, reader, path, smi, totals,
+                               (1, 4) if path == band_paths[-1] else (1,))
             else:
                 reader.close()
     finally:

@@ -18,11 +18,12 @@ VP8 / VP8L and ALPH chunks, for io/webp.py; `rledec.cpp`: the run-length
 scanlines of SGI, TGA, PCX, Sun and PSD files and QOI's op stream, for
 io/sgi.py, io/tga.py, io/pcx.py, io/sun.py, io/psd.py and io/qoi.py;
 `bcndec.cpp`: the BC1-BC7 blocks of DDS and FTEX textures, for io/bcn.py;
-`av1dec.cpp` with its generated `av1_tables.h`: an AV1 still key frame and
-its YUV-to-RGB conversion, for io/avif.py) build the same way into one
-library of their own, at their first use, with FMA contraction off so the
-9/7 wavelet rounds as written. They have no fallback: where that library
-cannot be built, `raster_decoder()` raises with the compiler's message.
+`av1dec.cpp` with its generated `av1_tables.h`: an AV1 still key frame,
+its alpha item's and their YUV-to-RGB(A) conversion, for io/avif.py) build
+the same way into one library of their own, at their first use, with FMA
+contraction off so the 9/7 wavelet rounds as written. They have no
+fallback: where that library cannot be built, `raster_decoder()` raises
+with the compiler's message.
 """
 from __future__ import annotations
 
@@ -224,8 +225,9 @@ def raster_decoder() -> ctypes.CDLL:
                 lib.xbm_decode.restype = i64
                 lib.xbm_decode.argtypes = [u8p, i64, i64, i64, u8p]
                 lib.av1_decode.restype = i64
-                lib.av1_decode.argtypes = [u8p, i64, i32, i32, i32, i32, u8p,
-                                           i64, ctypes.c_char_p, i64]
+                lib.av1_decode.argtypes = [u8p, i64, u8p, i64, i32, i32, i32,
+                                           i32, u8p, i64, ctypes.c_char_p,
+                                           i64]
                 lib.bcn_decode.restype = i64
                 lib.bcn_decode.argtypes = [u8p, i64, i64, i64, i32, i32, u8p,
                                            i32]
@@ -312,19 +314,23 @@ def webp_decode(image: memoryview, lossless: bool, alpha, window: np.ndarray
 
 
 def av1_decode(obus: bytes, width: int, height: int, matrix: int,
-               full_range: int) -> np.ndarray:
+               full_range: int, alpha: Optional[bytes] = None) -> np.ndarray:
     """The (height, width, 3) u8 RGB image of an AV1 still key frame (an
-    AVIF item's OBUs) as libavif converts it for Pillow: `matrix` and
+    AVIF item's OBUs) as libavif converts it for Pillow, or (height, width,
+    4) RGBA with `alpha`, the OBUs of its alpha item: `matrix` and
     `full_range` the `colr` nclx box's matrix coefficients and range flag
     (-1: the sequence header's). ValueError with the decoder's reason."""
     lib = raster_decoder()
     src = np.frombuffer(obus, np.uint8)
-    rgb = np.empty((height, width, 3), np.uint8)
+    alp = np.frombuffer(alpha if alpha is not None else b"\0", np.uint8)
+    out = np.empty((height, width, 3 if alpha is None else 4), np.uint8)
     err = ctypes.create_string_buffer(512)
-    if lib.av1_decode(_u8p(src), len(src), width, height, matrix, full_range,
-                      _u8p(rgb), width * 3, err, len(err)) != 0:
+    if lib.av1_decode(_u8p(src), len(src), _u8p(alp),
+                      -1 if alpha is None else len(alpha), width, height,
+                      matrix, full_range, _u8p(out), out.strides[0], err,
+                      len(err)) != 0:
         raise ValueError(err.value.decode("latin-1"))
-    return rgb
+    return out
 
 
 def gif_lzw_decode(blob: bytes, offset: int, bits: int, interlace: bool,

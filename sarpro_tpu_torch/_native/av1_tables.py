@@ -1,5 +1,6 @@
 """Generator of `av1_tables.h`, the constant tables of the port's AV1 decoder
-(`av1dec.cpp`): the default CDFs an intra frame reads, the 8-bit quantizer
+(`av1dec.cpp`): the default CDFs an intra frame reads (palette blocks'
+included), the 8-bit quantizer
 lookups, the directional-prediction derivatives, the smooth weights, the
 filter-intra taps, the intra edge kernels, the transforms' cos / sin
 constants, and the in-loop filters' tables (the restoration CDFs, CDEF's
@@ -103,6 +104,14 @@ CDFS = (
     Cdf("PALETTE_Y_MODE", (7, 3), 2, 3, ((31676,), (3419,), (1261,))),
     Cdf("PALETTE_UV_MODE_INTRABC", (3,), 2, 2, ((32461,), (21488,),
                                                 (30531,)), dav1d=True),
+    Cdf("PALETTE_Y_SIZE", (7,), 7, 8, ((7952, 13000, 18149, 21478, 25527,
+                                        29241),)),
+    Cdf("PALETTE_UV_SIZE", (7,), 7, 8, ((8713, 19979, 27128, 29609, 31331,
+                                         32272),)),
+    Cdf("PALETTE_Y_COLOR", (7, 5), [n for n in range(2, 9) for _ in range(5)],
+        9, ((28710,), (16384,), (10553,), (27036,), (31603,))),
+    Cdf("PALETTE_UV_COLOR", (7, 5), [n for n in range(2, 9) for _ in range(5)],
+        9, ((29089,), (16384,), (8713,), (29257,), (31610,))),
     Cdf("FILTER_INTRA", (22,), 2, 3, ((4621,), (6743,), (5893,))),
     Cdf("FILTER_INTRA_MODE", (1,), 5, 8, ((8949, 12776, 17211, 29558),),
         dav1d=True),

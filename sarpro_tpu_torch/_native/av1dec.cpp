@@ -1,20 +1,25 @@
 // AV1 still-image decoder of the port's AVIF reader (io/avif.py): the
-// intra key frame of an AV1 OBU stream, 8-bit 4:2:0, as the AV1 bitstream
-// specification (with errata, 2019) defines its syntax and reconstruction
-// and dav1d 1.5.1 decodes it for libavif 1.3.0, then libavif's YUV-to-RGB
-// conversion as libyuv runs it for Pillow 12.1 (bilinear chroma upsampling,
-// the fixed-point matrices of libyuv's row_common.c).
+// intra key frame of an AV1 OBU stream, 8-bit 4:2:0, 4:2:2, 4:4:4 or
+// monochrome, as the AV1 bitstream specification (with errata, 2019)
+// defines its syntax and reconstruction and dav1d 1.5.1 decodes it for
+// libavif 1.3.0, then libavif's YUV-to-RGB conversion as it runs it for
+// Pillow 12.1: libyuv's fixed-point matrices (row_common.c) with bilinear
+// (4:2:0) or linear (4:2:2) chroma upsampling, and libavif's own code for
+// monochrome samples and the identity matrix; an alpha item's stream
+// decodes beside it into a fourth channel.
 //
 // Read: temporal delimiter, sequence header (reduced and full), frame
 // header / frame OBUs and tile groups of one key frame; metadata, padding
-// and tile-list OBUs are skipped. The in-loop filters run once the last
-// tile is decoded: deblocking (§7.14), CDEF (§7.15) and loop restoration
-// (§7.17, Wiener and self-guided units). A frame whose superres or film
-// grain is on is refused by name, and so are quantizer matrices, palette
-// and intrabc blocks, other bit depths and subsamplings. Each tile ends
-// with the spec's trailing bits (exit process, §8.2.4); tile data that does
-// not is refused by name, as non-conformant data that dav1d decodes to an
-// output the spec does not define.
+// and tile-list OBUs are skipped. Palette blocks (luma and chroma) are
+// read. The in-loop filters run once the last tile is decoded: deblocking
+// (§7.14), CDEF (§7.15) and loop restoration (§7.17, Wiener and
+// self-guided units). A frame whose superres or film grain is on is refused
+// by name, and so are quantizer matrices, intrabc, other bit depths, a
+// frame of another size than its item and a 4:2:2 block that the spec
+// gives no chroma size. Each tile ends with the spec's trailing bits (exit
+// process, §8.2.4); tile data that does not is refused by name, as
+// non-conformant data that dav1d decodes to an output the spec does not
+// define.
 //
 // The tables (default CDFs, quantizer lookups, intra derivatives, smooth
 // weights, filter-intra taps, edge kernels, cos / sin constants, and the
@@ -22,16 +27,20 @@
 // av1_tables.h, generated by av1_tables.py from libavif's read-only data.
 //
 // C interface (ctypes, _native/__init__.py):
-//   av1_decode(obus, size, width, height, matrix, full_range, rgb,
-//              rgb_stride, err, errlen) -> 0, or -1 with the reason in err
-//              (matrix and full_range -1: the sequence header's).
+//   av1_decode(obus, size, alpha, alpha_size, width, height, matrix,
+//              full_range, out, stride, err, errlen) -> 0, or -1 with the
+//              reason in err: RGB into out (3 channels), or RGBA (4) with
+//              the alpha item's OBUs (alpha_size -1: none); matrix and
+//              full_range -1: the sequence header's.
 #include <algorithm>
 #include <cstdint>
 #include <cstdio>
 #include <cstdlib>
 #include <cstring>
 #include <stdexcept>
+#include <exception>
 #include <string>
+#include <thread>
 #include <vector>
 
 #include "av1_tables.h"
@@ -267,6 +276,10 @@ struct Cdfs {
   uint16_t delta_lf_multi[4][5];
   uint16_t pal_y[7][3][3];
   uint16_t pal_uv[2][3];
+  uint16_t pal_y_size[7][8];
+  uint16_t pal_uv_size[7][8];
+  uint16_t pal_y_color[7][5][9];
+  uint16_t pal_uv_color[7][5][9];
   uint16_t intrabc[3];
   uint16_t filter_intra[22][3];
   uint16_t filter_intra_mode[6];
@@ -304,6 +317,10 @@ struct Cdfs {
     memcpy(delta_lf_multi, AV1_DELTA_LF_MULTI, sizeof delta_lf_multi);
     memcpy(pal_y, AV1_PALETTE_Y_MODE, sizeof pal_y);
     memcpy(pal_uv, AV1_PALETTE_UV_MODE_INTRABC, sizeof pal_uv);
+    memcpy(pal_y_size, AV1_PALETTE_Y_SIZE, sizeof pal_y_size);
+    memcpy(pal_uv_size, AV1_PALETTE_UV_SIZE, sizeof pal_uv_size);
+    memcpy(pal_y_color, AV1_PALETTE_Y_COLOR, sizeof pal_y_color);
+    memcpy(pal_uv_color, AV1_PALETTE_UV_COLOR, sizeof pal_uv_color);
     memcpy(intrabc, AV1_PALETTE_UV_MODE_INTRABC[2], sizeof intrabc);
     memcpy(filter_intra, AV1_FILTER_INTRA, sizeof filter_intra);
     memcpy(filter_intra_mode, AV1_FILTER_INTRA_MODE[0], sizeof filter_intra_mode);
@@ -719,6 +736,10 @@ struct Decoder {
   int ref_wiener[3][2][3], ref_xqd[3][2];
   std::vector<int8_t> cdef_idx;
   int cdef_stride = 0;
+  // the palettes of the blocks above and left of each mi column / row
+  // (spec's PaletteSizes and PaletteColors of planes Y and U): a size,
+  // then 8 colours
+  std::vector<uint8_t> pal_above[2], pal_left[2];
   // coefficient contexts, in 4x4 units of each plane
   std::vector<uint8_t> above_level[3], above_dc[3], left_level[3], left_dc[3];
 
@@ -735,12 +756,16 @@ struct Decoder {
   int segment_id = 0, skip = 0, lossless = 0;
   int y_mode = 0, uv_mode = 0, angle_delta_y = 0, angle_delta_uv = 0;
   int cfl_alpha_u = 0, cfl_alpha_v = 0, use_filter_intra = 0, filter_intra_mode = 0;
+  int pal_size[2] = {0};      // PaletteSizeY, PaletteSizeUV
+  uint8_t pal[3][8];          // palette_colors_y, _u, _v
+  uint8_t color_map[2][64][64];  // ColorMapY, ColorMapUV
   int tx_sz = 0;
   int max_luma_w = 0, max_luma_h = 0;
   int plane_tx_type = 0;
   int32_t quant[1024];
 
   int idx(int r, int c) const { return r * mi_stride + c; }
+  int num_planes() const { return mono ? 1 : 3; }
 
   // ---------------------------------------------------------------- OBUs
   void decode(const uint8_t* data, size_t size) {
@@ -1202,8 +1227,6 @@ struct Decoder {
 
   void start_frame() {
     if (bit_depth != 8) throw NotYet(std::to_string(bit_depth) + "-bit samples", true);
-    if (mono) throw NotYet("monochrome");
-    if (!(ssx && ssy)) throw NotYet(ssx ? "4:2:2" : "4:4:4");
     frame_cdfs.init(base_q_idx);
     mi_stride = mi_cols + 32;
     size_t n = (size_t)mi_stride * (mi_rows + 32);
@@ -1215,6 +1238,10 @@ struct Decoder {
     seg_ids.assign(n, 0);
     tx_types.assign(n, 0);
     delta_lfs.assign(n * 4, 0);
+    for (int p = 0; p < 2; p++) {
+      pal_above[p].assign((size_t)(mi_cols + 32) * 9, 0);
+      pal_left[p].assign((size_t)(mi_rows + 32) * 9, 0);
+    }
     cdef_stride = (mi_cols >> 4) + 4;
     cdef_idx.assign((size_t)cdef_stride * ((mi_rows >> 4) + 4), -1);
     for (int p = 0; p < 3; p++) {
@@ -1457,7 +1484,10 @@ struct Decoder {
     int bw4 = 1 << (kBlockW2[bsize] - 2), bh4 = 1 << (kBlockH2[bsize] - 2);
     if (bh4 == 1 && ssy && (r & 1) == 0) has_chroma = 0;
     else if (bw4 == 1 && ssx && (c & 1) == 0) has_chroma = 0;
-    else has_chroma = 1;
+    else has_chroma = !mono;
+    // a conformant stream has no block whose chroma has no size
+    if (has_chroma && residual_size(bsize, 1) == BLOCK_INVALID)
+      throw NotYet("4:2:2 block taller than wide");
     avail_u = is_inside(r - 1, c);
     avail_l = is_inside(r, c - 1);
     avail_u_chroma = avail_u;
@@ -1469,6 +1499,19 @@ struct Decoder {
       avail_u_chroma = avail_l_chroma = 0;
     }
     intra_frame_mode_info();
+    palette_tokens();
+    for (int p = 0; p < 2; p++) {
+      for (int x = 0; x < bw4; x++) {
+        uint8_t* a = &pal_above[p][(size_t)(c + x) * 9];
+        a[0] = (uint8_t)pal_size[p];
+        memcpy(a + 1, pal[p], 8);
+      }
+      for (int y = 0; y < bh4; y++) {
+        uint8_t* l = &pal_left[p][(size_t)(r + y) * 9];
+        l[0] = (uint8_t)pal_size[p];
+        memcpy(l + 1, pal[p], 8);
+      }
+    }
     read_block_tx_size();
     if (skip) reset_block_context(bw4, bh4);
     int rows = imin(bh4, mi_rows - r), cols = imin(bw4, mi_cols - c);
@@ -1526,23 +1569,175 @@ struct Decoder {
       if (mi_size >= BLOCK_8X8 && uv_mode >= V_PRED && uv_mode <= D67_PRED)
         angle_delta_uv = sd.read(cdf.angle[uv_mode - V_PRED], 7) - 3;
     }
+    pal_size[0] = pal_size[1] = 0;
     if (mi_size >= BLOCK_8X8 && kBlockW2[mi_size] <= 6 && kBlockH2[mi_size] <= 6 &&
-        allow_screen_content_tools) {
-      int bsize_ctx = kBlockW2[mi_size] + kBlockH2[mi_size] - 6;
-      if (y_mode == DC_PRED && sd.read(cdf.pal_y[bsize_ctx][0], 2)) throw NotYet("palette block");
-      if (has_chroma && uv_mode == DC_PRED && sd.read(cdf.pal_uv[0], 2))
-        throw NotYet("palette block");
-    }
+        allow_screen_content_tools)
+      palette_mode_info();
     use_filter_intra = 0;
-    if (enable_filter_intra && y_mode == DC_PRED &&
+    if (enable_filter_intra && y_mode == DC_PRED && !pal_size[0] &&
         imax(kBlockW2[mi_size], kBlockH2[mi_size]) <= 5) {
       use_filter_intra = sd.read(cdf.filter_intra[mi_size], 2);
       if (use_filter_intra) filter_intra_mode = sd.read(cdf.filter_intra_mode, 5);
     }
   }
 
+  // ------------------------------------------------------------- palette
+  static int ceil_log2(int x) {
+    if (x < 2) return 0;
+    int i = 1, p = 2;
+    while (p < x) {
+      i++;
+      p <<= 1;
+    }
+    return i;
+  }
+
+  // get_palette_cache: the sorted union of the above (not across a 64-row
+  // boundary) and left blocks' colours of plane Y (0) or U (1)
+  int palette_cache(int plane, uint8_t* cache) {
+    const uint8_t* a = avail_u && (mi_row & 15) ? &pal_above[plane][(size_t)mi_col * 9] : nullptr;
+    const uint8_t* l = avail_l ? &pal_left[plane][(size_t)mi_row * 9] : nullptr;
+    int an = a ? a[0] : 0, ln = l ? l[0] : 0, ai = 0, li = 0, n = 0;
+    while (ai < an && li < ln) {
+      int ac = a[1 + ai], lc = l[1 + li];
+      if (lc < ac) {
+        if (n == 0 || lc != cache[n - 1]) cache[n++] = (uint8_t)lc;
+        li++;
+      } else {
+        if (n == 0 || ac != cache[n - 1]) cache[n++] = (uint8_t)ac;
+        ai++;
+        if (lc == ac) li++;
+      }
+    }
+    for (; ai < an; ai++)
+      if (n == 0 || a[1 + ai] != cache[n - 1]) cache[n++] = a[1 + ai];
+    for (; li < ln; li++)
+      if (n == 0 || l[1 + li] != cache[n - 1]) cache[n++] = l[1 + li];
+    return n;
+  }
+
+  // the colours of plane Y or U: reused from the cache, then the first
+  // literally and the rest as ascending deltas (Y's at least 1), sorted
+  void palette_colors(int plane, int n) {
+    uint8_t cache[16];
+    uint8_t* colors = pal[plane];
+    int cache_n = palette_cache(plane, cache), idx = 0;
+    for (int i = 0; i < cache_n && idx < n; i++)
+      if (sd.literal(1)) colors[idx++] = cache[i];
+    if (idx < n) colors[idx++] = (uint8_t)sd.literal(8);
+    int bits = 0;
+    if (idx < n) bits = 8 - 3 + sd.literal(2);
+    while (idx < n) {
+      int delta = sd.literal(bits) + (plane == 0);
+      colors[idx] = clip1(colors[idx - 1] + delta);
+      bits = imin(bits, ceil_log2(256 - colors[idx] - (plane == 0)));
+      idx++;
+    }
+    std::sort(colors, colors + n);
+  }
+
+  void palette_mode_info() {
+    int bsize_ctx = kBlockW2[mi_size] + kBlockH2[mi_size] - 6;
+    if (y_mode == DC_PRED) {
+      int ctx = (avail_u && pal_above[0][(size_t)mi_col * 9] > 0) +
+                (avail_l && pal_left[0][(size_t)mi_row * 9] > 0);
+      if (sd.read(cdf.pal_y[bsize_ctx][ctx], 2)) {
+        pal_size[0] = sd.read(cdf.pal_y_size[bsize_ctx], 7) + 2;
+        palette_colors(0, pal_size[0]);
+      }
+    }
+    if (has_chroma && uv_mode == DC_PRED && sd.read(cdf.pal_uv[pal_size[0] > 0], 2)) {
+      int n = pal_size[1] = sd.read(cdf.pal_uv_size[bsize_ctx], 7) + 2;
+      palette_colors(1, n);
+      uint8_t* v = pal[2];
+      if (sd.literal(1)) {  // delta_encode_palette_colors_v
+        int bits = 8 - 4 + sd.literal(2);
+        v[0] = (uint8_t)sd.literal(8);
+        for (int i = 1; i < n; i++) {
+          int delta = sd.literal(bits);
+          if (delta && sd.literal(1)) delta = -delta;
+          int val = v[i - 1] + delta;
+          if (val < 0) val += 256;
+          if (val >= 256) val -= 256;
+          v[i] = clip1(val);
+        }
+      } else {
+        for (int i = 0; i < n; i++) v[i] = (uint8_t)sd.literal(8);
+      }
+    }
+  }
+
+  // palette_tokens: each colour map in wavefront order, every index coded
+  // by its rank among the up, left and up-left neighbours' indices
+  void palette_tokens() {
+    int bh = 1 << kBlockH2[mi_size], bw = 1 << kBlockW2[mi_size];
+    int on_h = imin(bh, (mi_rows - mi_row) * 4), on_w = imin(bw, (mi_cols - mi_col) * 4);
+    for (int p = 0; p < 2; p++) {
+      int n = pal_size[p];
+      if (!n) continue;
+      int h = bh, w = bw, oh = on_h, ow = on_w;
+      if (p) {
+        h >>= ssy;
+        w >>= ssx;
+        oh >>= ssy;
+        ow >>= ssx;
+        if (w < 4) {
+          w += 2;
+          ow += 2;
+        }
+        if (h < 4) {
+          h += 2;
+          oh += 2;
+        }
+      }
+      uint8_t (*map)[64] = color_map[p];
+      map[0][0] = (uint8_t)read_ns(n);
+      for (int i = 1; i < oh + ow - 1; i++)
+        for (int j = imin(i, ow - 1); j >= imax(0, i - oh + 1); j--) {
+          int order[8], ctx = palette_color_context(map, i - j, j, n, order);
+          uint16_t* c = p ? cdf.pal_uv_color[n - 2][ctx] : cdf.pal_y_color[n - 2][ctx];
+          map[i - j][j] = (uint8_t)order[sd.read(c, n)];
+        }
+      for (int i = 0; i < oh; i++)
+        for (int j = ow; j < w; j++) map[i][j] = map[i][ow - 1];
+      for (int i = oh; i < h; i++) memcpy(map[i], map[oh - 1], w);
+    }
+  }
+
+  // get_palette_color_context: the neighbours' indices ranked by score
+  // (left and up 2, up-left 1) into `order`; the context of their hash
+  static int palette_color_context(uint8_t (*map)[64], int r, int c, int n, int* order) {
+    int scores[8] = {0};
+    for (int i = 0; i < 8; i++) order[i] = i;
+    if (c > 0) scores[map[r][c - 1]] += 2;
+    if (r > 0 && c > 0) scores[map[r - 1][c - 1]] += 1;
+    if (r > 0) scores[map[r - 1][c]] += 2;
+    for (int i = 0; i < 3; i++) {
+      int max_score = scores[i], max_idx = i;
+      for (int j = i + 1; j < n; j++)
+        if (scores[j] > max_score) {
+          max_score = scores[j];
+          max_idx = j;
+        }
+      if (max_idx != i) {
+        int max_order = order[max_idx];
+        for (int k = max_idx; k > i; k--) {
+          scores[k] = scores[k - 1];
+          order[k] = order[k - 1];
+        }
+        scores[i] = max_score;
+        order[i] = max_order;
+      }
+    }
+    static const int kContext[9] = {-1, -1, 0, -1, -1, 4, 3, 2, 1};
+    return kContext[scores[0] + 2 * scores[1] + 2 * scores[2]];
+  }
+
+  // Subsampled_Size: BLOCK_INVALID where 4:2:2 would halve a block
+  // taller than wide (or one 4:2:0 would leave narrower than 4 samples)
   int residual_size(int bsize, int plane) {
     if (plane == 0) return bsize;
+    if (ssx && !ssy && kBlockH2[bsize] > kBlockW2[bsize]) return BLOCK_INVALID;
     return block_size(imax(2, kBlockW2[bsize] - ssx), imax(2, kBlockH2[bsize] - ssy));
   }
 
@@ -1814,9 +2009,19 @@ struct Decoder {
     int have_above = (plane == 0 ? avail_u : avail_u_chroma) || y > 0;
     int above_rt = block_decoded[plane][(sub_r >> sy) - 1 + 1][(sub_c >> sx) + step_x + 1];
     int below_lft = block_decoded[plane][(sub_r >> sy) + step_y + 1][(sub_c >> sx) - 1 + 1];
-    predict_intra(plane, start_x, start_y, have_left, have_above, above_rt, below_lft, mode,
-                  kTxW2[t], kTxH2[t]);
-    if (is_cfl) predict_cfl(plane, start_x, start_y, t);
+    if (pal_size[plane > 0]) {  // predict_palette
+      const uint8_t* colors = pal[plane];
+      int w = 1 << kTxW2[t], h = 1 << kTxH2[t];
+      for (int i = 0; i < h; i++) {
+        const uint8_t* m = &color_map[plane > 0][y * 4 + i][x * 4];
+        uint8_t* px = planes[plane].at(start_y + i, start_x);
+        for (int j = 0; j < w; j++) px[j] = colors[m[j]];
+      }
+    } else {
+      predict_intra(plane, start_x, start_y, have_left, have_above, above_rt, below_lft, mode,
+                    kTxW2[t], kTxH2[t]);
+      if (is_cfl) predict_cfl(plane, start_x, start_y, t);
+    }
     if (plane == 0) {
       max_luma_w = start_x + step_x * 4;
       max_luma_h = start_y + step_y * 4;
@@ -2431,7 +2636,7 @@ struct Decoder {
     if (lf_level[0] || lf_level[1]) deblock();
     bool cdef_on = enable_cdef && !coded_lossless && !allow_intrabc;
     if (!cdef_on && !uses_lr) return;
-    for (int p = 0; p < 3; p++) pre[p] = planes[p];
+    for (int p = 0; p < num_planes(); p++) pre[p] = planes[p];
     if (cdef_on) cdef();
     if (uses_lr)
       for (int p = 0; p < 3; p++)
@@ -2586,7 +2791,7 @@ struct Decoder {
         sec = cdef_strengths[id][1][1];
         // Cdef_Uv_Dir: the identity on 4:2:0 and 4:4:4
         dir = !pri ? 0 : ssx == ssy ? ydir : AV1_CDEF_UV_DIR[(ssx ? 8 : 0) + ydir];
-        for (int p = 1; p < 3; p++) cdef_filter(p, r, c, pri, sec, cdef_damping - 1, dir);
+        for (int p = 1; p < num_planes(); p++) cdef_filter(p, r, c, pri, sec, cdef_damping - 1, dir);
       }
   }
 
@@ -2859,8 +3064,11 @@ struct Decoder {
 };
 
 // ---------------------------------------------------------------------------
-// YUV to RGB: libavif 1.3.0 through libyuv for 8-bit 4:2:0 (bilinear
-// chroma upsampling, libyuv's YuvConstants of the matrix and range)
+// YUV to RGB as libavif 1.3.0 converts 8-bit samples for Pillow: through
+// libyuv for 4:2:0 (bilinear chroma upsampling), 4:2:2 (linear, along the
+// rows) and 4:4:4 with the BT.601 / 709 / 2020 matrices (libyuv's
+// YuvConstants); its own code for monochrome and the identity matrix, whose
+// limited range it widens in float
 // ---------------------------------------------------------------------------
 struct YuvConst {
   int ub, ug, vg, vr, yg, yb;
@@ -2893,6 +3101,24 @@ void yuv_pixel(const YuvConst& k, int y, int u, int v, uint8_t* rgb) {
   rgb[2] = clamp255((y1 + ui * k.ub) >> 6);
 }
 
+// libavif's widening of a limited-range sample (its float path, and the
+// alpha plane's avifImageLimitedToFullAlpha): (v - 16) / 219, clamped to
+// [0, 1], times 255, plus 0.5, truncated
+struct Widen {
+  uint8_t lut[256];
+  Widen() {
+    for (int v = 0; v < 256; v++) {
+      float f = ((float)v - 16.0f) / 219.0f;
+      f = f < 0.0f ? 0.0f : f > 1.0f ? 1.0f : f;
+      lut[v] = (uint8_t)(0.5f + f * 255.0f);
+    }
+  }
+};
+const uint8_t* widen() {
+  static const Widen w;
+  return w.lut;
+}
+
 // one row of chroma upsampled 2x: linear, libyuv's ScaleRowUp2_Linear_Any
 void up2_linear(const uint8_t* s, uint8_t* d, int dw) {
   d[0] = s[0];
@@ -2919,14 +3145,58 @@ void up2_bilinear(const uint8_t* s, const uint8_t* t, uint8_t* d, uint8_t* e, in
   e[dw - 1] = (uint8_t)((s[l] + t[l] * 3 + 2) >> 2);
 }
 
-void to_rgb(Decoder& d, int w, int h, const YuvConst& k, uint8_t* out, int64_t stride) {
-  std::vector<uint8_t> u1(w + 2), v1(w + 2), u2(w + 2), v2(w + 2);
+// the decoded frame into `out`'s first three channels of `channels`
+void to_rgb(Decoder& d, int w, int h, int matrix, int full, uint8_t* out, int64_t stride,
+            int channels) {
   Plane &Y = d.planes[0], &U = d.planes[1], &V = d.planes[2];
+  if (d.mono || matrix == 0) {  // gray, or GBR from the identity matrix
+    uint8_t lut[256];
+    for (int v = 0; v < 256; v++) lut[v] = full ? (uint8_t)v : widen()[v];
+    if (d.mono && channels == 4 && !full) {
+      // RGBA goes through libyuv's I400ToARGBMatrix where libyuv has the
+      // matrix: BT.601 and 709 share their limited-range luma scale
+      if (matrix == 12) throw NotYet("YUV matrix 12");  // its constants follow the primaries
+      if (matrix == 0 || matrix == 1 || matrix == 2 || matrix == 5 || matrix == 6) {
+        YuvConst k;
+        yuv_constants(6, 0, &k);
+        uint8_t rgb[3];
+        for (int v = 0; v < 256; v++) {
+          yuv_pixel(k, v, 128, 128, rgb);
+          lut[v] = rgb[0];
+        }
+      }
+    }
+    for (int r = 0; r < h; r++) {
+      uint8_t* o = out + r * stride;
+      const uint8_t *yy = Y.at(r, 0), *uu = d.mono ? yy : U.at(r, 0), *vv = d.mono ? yy : V.at(r, 0);
+      for (int x = 0; x < w; x++, o += channels) {
+        o[0] = lut[vv[x]];
+        o[1] = lut[yy[x]];
+        o[2] = lut[uu[x]];
+      }
+    }
+    return;
+  }
+  YuvConst k;
+  if (!yuv_constants(matrix, full, &k)) throw NotYet("YUV matrix " + std::to_string(matrix));
+  std::vector<uint8_t> u1(w + 2), v1(w + 2), u2(w + 2), v2(w + 2);
   auto emit = [&](int row, const uint8_t* uu, const uint8_t* vv) {
     uint8_t* o = out + row * stride;
     const uint8_t* yy = Y.at(row, 0);
-    for (int x = 0; x < w; x++) yuv_pixel(k, yy[x], uu[x], vv[x], o + 3 * x);
+    for (int x = 0; x < w; x++) yuv_pixel(k, yy[x], uu[x], vv[x], o + channels * x);
   };
+  if (!d.ssx) {  // 4:4:4
+    for (int r = 0; r < h; r++) emit(r, U.at(r, 0), V.at(r, 0));
+    return;
+  }
+  if (!d.ssy) {  // 4:2:2
+    for (int r = 0; r < h; r++) {
+      up2_linear(U.at(r, 0), u1.data(), w);
+      up2_linear(V.at(r, 0), v1.data(), w);
+      emit(r, u1.data(), v1.data());
+    }
+    return;
+  }
   up2_linear(U.at(0, 0), u1.data(), w);
   up2_linear(V.at(0, 0), v1.data(), w);
   emit(0, u1.data(), v1.data());
@@ -2944,29 +3214,71 @@ void to_rgb(Decoder& d, int w, int h, const YuvConst& k, uint8_t* out, int64_t s
   }
 }
 
+// the decoded frame of an alpha item into `out`'s fourth channel: its luma
+// plane, widened where its sequence header says limited range
+void to_alpha(Decoder& d, int w, int h, uint8_t* out, int64_t stride) {
+  const uint8_t* lut = widen();
+  for (int r = 0; r < h; r++) {
+    const uint8_t* a = d.planes[0].at(r, 0);
+    uint8_t* o = out + r * stride + 3;
+    for (int x = 0; x < w; x++) o[4 * x] = d.color_range ? a[x] : lut[a[x]];
+  }
+}
+
 }  // namespace
 
-extern "C" int64_t av1_decode(const uint8_t* obus, int64_t size, int32_t width, int32_t height,
-                              int32_t matrix, int32_t full_range, uint8_t* rgb, int64_t rgb_stride,
-                              char* err, int64_t errlen) {
+extern "C" int64_t av1_decode(const uint8_t* obus, int64_t size, const uint8_t* alpha,
+                              int64_t alpha_size, int32_t width, int32_t height, int32_t matrix,
+                              int32_t full_range, uint8_t* out, int64_t stride, char* err,
+                              int64_t errlen) {
   try {
-    Decoder d;
-    d.want_w = width;
-    d.want_h = height;
-    d.decode(obus, (size_t)size);
-    d.loop_filters();
-    {
-      YuvConst k;
-      int m = matrix >= 0 ? matrix : d.matrix;
-      // libavif's own conversion refuses these on 4:2:0 (identity,
-      // reserved, BT.2020 and chroma-derived constant luminance, SMPTE
-      // ST 2085, ICtCp, and values past the table)
-      if (m == 0 || m == 3 || m == 10 || m == 11 || m == 13 || (m >= 14 && m != 15))
-        throw std::runtime_error("Conversion from YUV failed: Reformat failed");
-      if (!yuv_constants(m, full_range >= 0 ? full_range : d.color_range, &k))
-        throw NotYet("YUV matrix " + std::to_string(m));
-      to_rgb(d, width, height, k, rgb, rgb_stride);
+    // the alpha item decodes on a thread of its own beside the colour
+    // item; the colour item's failure is reported first, as libavif's
+    Decoder d, a;
+    std::exception_ptr alpha_failed;
+    std::thread alpha_thread;
+    if (alpha_size >= 0)
+      alpha_thread = std::thread([&] {
+        try {
+          a.want_w = width;
+          a.want_h = height;
+          a.decode(alpha, (size_t)alpha_size);
+          a.loop_filters();
+        } catch (...) {
+          alpha_failed = std::current_exception();
+        }
+      });
+    try {
+      d.want_w = width;
+      d.want_h = height;
+      d.decode(obus, (size_t)size);
+      d.loop_filters();
+    } catch (...) {
+      if (alpha_thread.joinable()) alpha_thread.join();
+      throw;
     }
+    int channels = alpha_size >= 0 ? 4 : 3;
+    if (alpha_size >= 0) {
+      alpha_thread.join();
+      if (alpha_failed) {
+        try {
+          std::rethrow_exception(alpha_failed);
+        } catch (const std::exception& e) {
+          throw std::runtime_error(std::string("alpha item: ") + e.what());
+        }
+      }
+      to_alpha(a, width, height, out, stride);
+    }
+    int m = matrix >= 0 ? matrix : d.matrix;
+    int full = full_range >= 0 ? full_range : d.color_range;
+    // libavif's conversion refuses these (reserved values, BT.2020 and
+    // chroma-derived constant luminance, SMPTE ST 2085, ICtCp, values past
+    // the table, limited-range YCgCo, and identity but on 4:4:4 and
+    // monochrome samples)
+    if (m == 3 || m == 10 || m == 11 || m == 13 || (m >= 14 && m != 15) || (m == 8 && !full) ||
+        (m == 0 && d.ssx && !d.mono))
+      throw std::runtime_error("Conversion from YUV failed: Reformat failed");
+    to_rgb(d, width, height, m, full, out, stride, channels);
     return 0;
   } catch (const std::exception& e) {
     snprintf(err, (size_t)errlen, "%s", e.what());

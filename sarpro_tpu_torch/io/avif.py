@@ -19,19 +19,28 @@ libavif's avifDecoderParse reads the file (read.c):
     data inside the file; an `Exif` item that describes it must hold a
     TIFF header where its offset says (Pillow then loads it as EXIF).
 
+  * the alpha item: the first item with data, of type `av01` or `grid`,
+    no unsupported essential property and no `thmb` reference, whose
+    `auxC` names alpha and whose `auxl` reference is to the primary item;
+    it must have `av1C` and an `ispe` within the limits, and a `pixi` of
+    its `av1C` depth.
+
 A file libavif refuses at this point is refused as Pillow refuses it
 (SyntaxError: the next plugin is tried; RuntimeError / ValueError: the open
-fails). The mode is Pillow's "RGB"; the features the port does not read
-yet raise by name: an alpha auxiliary item (mode "RGBA"), grid items,
-`avis` image sequences, samples other than 8-bit and 4:2:0 (from `av1C`).
-The item's OBUs go to `av1dec.cpp` with the matrix and range of the
-`colr` nclx box (the sequence header's where there is none). `irot`, `imir` and
-`clap` change no pixels (Pillow turns the first two into an EXIF
-orientation). Pillow's `info` holds ICC, EXIF and XMP as bytes, so the
-text is empty."""
+fails). The mode is Pillow's "RGBA" where there is an alpha item, else
+"RGB"; the features the port does not read yet raise by name: grid items,
+`avis` image sequences, samples other than 8-bit (from `av1C`), an alpha
+the colour is premultiplied by (`prem`). The items' OBUs go to
+`av1dec.cpp` with the matrix and range of the `colr` nclx box (the
+sequence header's where there is none); the sample layout (4:2:0, 4:2:2,
+4:4:4, monochrome) is the sequence header's. An alpha item of another size
+than the image fails the load, as in libavif. `irot`, `imir` and `clap`
+change no pixels (Pillow turns the first two into an EXIF orientation).
+Pillow's `info` holds ICC, EXIF and XMP as bytes, so the text is empty."""
 from __future__ import annotations
 
 import struct
+from typing import NamedTuple, Optional
 
 from .. import _native
 from ..errors import RasterError
@@ -384,9 +393,19 @@ def _item_data(blob, meta: Meta, item: Item) -> bytes:
     return bytes(out)
 
 
-def parse(blob: bytes) -> tuple:
-    """(width, height, OBUs of the primary item, nclx matrix and range flag
-    or -1 each) as libavif parses the file; SyntaxError / RuntimeError /
+class Parsed(NamedTuple):
+    """What libavif's parse of an AVIF file gives the decode."""
+    width: int
+    height: int
+    obus: bytes  # the primary item's AV1 data
+    matrix: int  # the `colr` nclx matrix coefficients, or -1
+    full_range: int  # the `colr` nclx range flag, or -1
+    alpha: Optional[bytes]  # the alpha item's AV1 data, or None
+    alpha_size: Optional[tuple]  # the alpha item's `ispe`
+
+
+def parse(blob: bytes) -> Parsed:
+    """The file as libavif parses it; SyntaxError / RuntimeError /
     ValueError where it refuses it, ValueError naming a feature the port
     does not read."""
     top = Stream(blob, 0, len(blob))
@@ -450,10 +469,7 @@ def parse(blob: bytes) -> tuple:
     if pixi is not None and any(d != depth for d in pixi):
         _fail()
     width, height = ispe
-    if (width == 0 or height == 0 or width > IMAGE_DIMENSION_LIMIT
-            or height > IMAGE_DIMENSION_LIMIT
-            or width * height > IMAGE_SIZE_LIMIT):
-        _fail()
+    _check_size(width, height)
     obus = _item_data(blob, meta, color)
     if not obus:
         raise RuntimeError(MISSING_ITEM)
@@ -467,26 +483,51 @@ def parse(blob: bytes) -> tuple:
                 and item.content_type == b"application/rdf+xml"
                 and item.refs.get(b"cdsc") == color.id):
             _item_data(blob, meta, item)
-    for item in meta.items.values():
-        if item.refs.get(b"auxl") == color.id and item.type in (b"av01",
-                                                                b"grid"):
-            aux = item.prop(b"auxC")
-            if aux is not None and aux in ALPHA_URNS \
-                    and not item.unsupported_essential:
-                raise ValueError("AVIF alpha (an RGBA image) is not read by "
-                                 "the port yet")
-    mono, ssx, ssy = av1c[2] & 0x10, av1c[2] & 0x08, av1c[2] & 0x04
+    alpha = _alpha_item(meta, color)
+    alpha_obus = alpha_size = None
+    if alpha is not None:
+        if alpha.type == b"grid":
+            raise ValueError("AVIF grid items are not read by the port yet")
+        alpha_av1c, alpha_size = alpha.prop(b"av1C"), alpha.prop(b"ispe")
+        if alpha_av1c is None or alpha_size is None:
+            _fail()
+        alpha_depth = 12 if alpha_av1c[2] & 0x20 else \
+            10 if alpha_av1c[2] & 0x40 else 8
+        if any(d != alpha_depth for d in alpha.prop(b"pixi") or ()):
+            _fail()
+        _check_size(*alpha_size)
+        alpha_obus = _item_data(blob, meta, alpha)
+        if color.refs.get(b"prem") == alpha.id:
+            raise ValueError("AVIF premultiplied alpha (prem) is not read by "
+                             "the port yet")
     if depth != 8:
         raise ValueError(f"AVIF {depth}-bit samples are not read by the port "
                          "yet")
-    if mono:
-        raise ValueError("AVIF monochrome images are not read by the port "
-                         "yet")
-    if not (ssx and ssy):
-        raise ValueError(f"AVIF {'4:2:2' if ssx else '4:4:4'} images are not "
-                         "read by the port yet")
-    return width, height, obus, nclx[3] if nclx else -1, \
-        nclx[4] if nclx else -1
+    return Parsed(width, height, obus, nclx[3] if nclx else -1,
+                  nclx[4] if nclx else -1, alpha_obus, alpha_size)
+
+
+def _check_size(width: int, height: int) -> None:
+    """libavif's limits on an item's `ispe`."""
+    if (width == 0 or height == 0 or width > IMAGE_DIMENSION_LIMIT
+            or height > IMAGE_DIMENSION_LIMIT
+            or width * height > IMAGE_SIZE_LIMIT):
+        _fail()
+
+
+def _alpha_item(meta: Meta, color: Item):
+    """libavif's alpha item of `color`: the first item with data, an AV1
+    or grid type and no unsupported essential property, not a thumbnail,
+    whose `auxC` names alpha and whose `auxl` reference is to `color`."""
+    for item in meta.items.values():
+        if (item is color or not any(n for _, n in item.extents)
+                or item.unsupported_essential
+                or item.type not in (b"av01", b"grid") or b"thmb" in item.refs):
+            continue
+        if item.prop(b"auxC") in ALPHA_URNS and \
+                item.refs.get(b"auxl") == color.id:
+            return item
+    return None
 
 
 def _exif(data: bytes) -> None:
@@ -507,14 +548,21 @@ def _exif(data: bytes) -> None:
 
 
 def read(blob: bytes) -> pixels.Opened:
-    """Pillow's AvifImageFile._open and load of `blob`."""
-    width, height, obus, matrix, full_range = parse(blob)
+    """Pillow's AvifImageFile._open and load of `blob`: "RGBA" where the
+    image has an alpha item, else "RGB"."""
+    p = parse(blob)
+    mode = "RGB" if p.alpha is None else "RGBA"
 
     def load() -> pixels.Decoded:
+        # libavif decodes the alpha item only at its image's size
+        if p.alpha is not None and p.alpha_size != (p.width, p.height):
+            raise RasterError("Failed to decode frame 0: Decoding of alpha "
+                              "plane failed")
         try:
-            rgb = _native.av1_decode(obus, width, height, matrix, full_range)
+            out = _native.av1_decode(p.obus, p.width, p.height, p.matrix,
+                                     p.full_range, p.alpha)
         except ValueError as e:
             raise RasterError(str(e)) from e
-        return pixels.Decoded("RGB", rgb)
+        return pixels.Decoded(mode, out)
 
-    return pixels.Opened("RGB", (width, height), load)
+    return pixels.Opened(mode, (p.width, p.height), load)

@@ -17,12 +17,16 @@ loop filter off (`loopfilter-control 0`). Then the in-loop filters
 (deblocking, CDEF, loop restoration) as aom writes them: Pillow's defaults
 at speeds 6, 8 and 10; speeds 0, 2 and 4; `enable-cdef 1` at speeds 4 and
 6; sharpness 3 and 7; delta-LF; 128 x 128 superblocks; 2 x 2 tiles; sizes
-of 1 x 1, 7 x 5 and 257 x 129. Beside them: the `colr` matrix patched to
-each of libyuv's, bit flips of a file with every kind of item and of one
-with all three filters on, files cut short, and the files the port
-refuses by name (tests/test_torch_legacy_rasters.py holds those: 10-bit,
-4:4:4, RGBA and palette blocks). The tables of av1dec.cpp are held to the
-read-only data of Pillow's libavif."""
+of 1 x 1, 7 x 5 and 257 x 129. Then the other sample layouts and alpha:
+4:4:4, 4:2:2 and 4:0:0 with the filters off and on, RGBA of three
+layouts, "LA", palette blocks. Beside them: the `colr` matrix and range
+patched to each value on every layout, RGB and RGBA, the alpha item's
+properties, references and data edited, bit flips of a file with every
+kind of item, of one with all three filters on and of one with alpha,
+files cut short, and the files the port refuses by name
+(tests/test_torch_legacy_rasters.py holds those: 10-bit, quantizer
+matrices, film grain, premultiplied alpha). The tables of av1dec.cpp are
+held to the read-only data of Pillow's libavif."""
 import hashlib
 import io
 import struct
@@ -67,6 +71,7 @@ TOOLS_OFF = {
 MINIMAL = {k: v for d in list(TOOLS_OFF.values())[:7] for k, v in d.items()}
 NOT_YET = "not read by the port yet"
 CDEF = {"enable-cdef": "1"}
+LAYOUTS = ("4:4:4", "4:2:2", "4:0:0")
 
 
 def scene(seed: int, rows: int, cols: int) -> np.ndarray:
@@ -135,6 +140,7 @@ def fixture_files() -> dict:
     out["limited_range.avif"] = _save(base, quality=50, speed=6,
                                       range="limited", advanced=LF0)
     out.update(filtered_files())
+    out.update(layout_files())
     return out
 
 
@@ -190,12 +196,89 @@ def filtered_files() -> dict:
     return out
 
 
+def alpha_plane(rows: int, cols: int, seed: int = None) -> np.ndarray:
+    """An alpha channel that is 0 on the left quarter, graded (0 to 255
+    along the rows) on the lower half of the rest, and 255 elsewhere; with
+    `seed`, 0 or 255 at random on the upper right (aom codes such a plane
+    with palette blocks)."""
+    a = np.full((rows, cols), 255, np.uint8)
+    y = np.arange(rows)[:, None]
+    a[rows // 2:] = (255 * (y[rows // 2:] - rows // 2) // max(1, rows - 1
+                                                               - rows // 2))
+    a[:, :cols // 4] = 0
+    if seed is not None:
+        noise = np.random.default_rng(seed).random((rows, cols)) < 0.5
+        top = slice(0, rows * 3 // 5)
+        a[top, cols * 3 // 10:] = np.where(noise[top, cols * 3 // 10:], 0, 255)
+    return a
+
+
+def layout_files() -> dict:
+    """The fixtures of the other sample layouts and of alpha, as
+    fixture_files() ends: 4:4:4, 4:2:2 and 4:0:0 at speeds 6 and 10 with
+    the loop filter off and at Pillow's defaults, with `enable-cdef 1` at
+    speed 4, at sizes 7 x 5 and 257 x 129 (4:4:4 and 4:2:2), and 4:2:2 at
+    speed 0 (loop restoration on its chroma); RGBA at 4:2:0, 4:4:4 and
+    4:0:0 (alpha_plane: partly 0, 255 and graded), RGBA whose alpha aom
+    codes with palette blocks (rgba_speckled), an "LA" image (Pillow
+    saves it as RGBA) and a 1 x 1 RGBA image. Last, the three files the
+    port refused by name before it read 4:4:4, alpha and palette blocks
+    (the last two need palette blocks: aom codes alpha planes with
+    them)."""
+    s = chip_smoke.AVIF_SEED
+    base = scene(s, 67, 130)
+    big = scene(s + 2, 129, 257)
+    out = {}
+    for ss in LAYOUTS:
+        tag = ss.replace(":", "")
+        for speed in (6, 10):
+            out[f"ss{tag}_s{speed}.avif"] = _save(
+                base, quality=50, speed=speed, subsampling=ss, advanced=LF0)
+            out[f"ss{tag}_lf_s{speed}.avif"] = _save(
+                base, quality=50, speed=speed, subsampling=ss)
+        out[f"ss{tag}_cdef_s4.avif"] = _save(big, quality=40, speed=4,
+                                             subsampling=ss, advanced=CDEF)
+    out["ss422_s0.avif"] = _save(two_textures(s + 20, 128, 256), quality=20,
+                                 speed=0, subsampling="4:2:2")
+    for ss in ("4:2:2", "4:4:4"):
+        for rows, cols in ((5, 7), (129, 257)):
+            out[f"ss{ss.replace(':', '')}_size_{cols}x{rows}.avif"] = _save(
+                scene(s + 40 + rows, rows, cols), quality=40, speed=6,
+                subsampling=ss)
+    rgba = np.dstack([base, alpha_plane(67, 130)])
+    for ss in ("4:2:0", "4:4:4", "4:0:0"):
+        out[f"rgba_{ss.replace(':', '')}.avif"] = _save(
+            rgba, quality=50, speed=6, subsampling=ss)
+    out["rgba_speckled.avif"] = _save(
+        np.dstack([base, alpha_plane(67, 130, s)]), quality=50, speed=6)
+    la = Image.fromarray(np.dstack([base[..., 1], alpha_plane(67, 130)]),
+                         "LA")
+    buf = io.BytesIO()
+    la.save(buf, format="AVIF", quality=50, speed=6)
+    out["la.avif"] = buf.getvalue()
+    out["rgba_1x1.avif"] = _save(np.array([[[200, 30, 90, 77]]], np.uint8),
+                                 quality=50, speed=6)
+    a = scene(s + 3, 64, 96)
+    flat = np.zeros((64, 64, 3), np.uint8)
+    flat[:, :21], flat[:, 21:42], flat[:, 42:] = (255, 0, 0), (0, 255, 0), \
+        (0, 0, 255)
+    flat[20:40, 10:50] = (250, 250, 0)
+    out["was_refused_444.avif"] = _save(a, quality=50, speed=6,
+                                        subsampling="4:4:4", advanced=LF0)
+    out["was_refused_rgba.avif"] = _save(np.dstack([a, a[..., :1]]),
+                                         quality=50, speed=6, advanced=LF0)
+    out["was_refused_palette.avif"] = _save(flat, quality=60, speed=6,
+                                            advanced={**LF0,
+                                                      "enable-palette": "1"})
+    return out
+
+
 # the files the port refuses by name, and the words of each refusal
 REFUSALS = {
     "refuse_10bit.avif": "AVIF 10-bit samples are",
-    "refuse_444.avif": "AVIF 4:4:4 images are",
-    "refuse_rgba.avif": r"AVIF alpha \(an RGBA image\) is",
-    "refuse_palette.avif": "AV1 palette block is",
+    "refuse_qm.avif": "AV1 quantizer matrices are",
+    "refuse_film_grain.avif": "AV1 film grain is",
+    "refuse_prem.avif": r"AVIF premultiplied alpha \(prem\) is",
 }
 
 
@@ -205,10 +288,6 @@ def refusal_files() -> dict:
     one with `av1C` and `pixi` saying 10 bits."""
     s = chip_smoke.AVIF_SEED
     a = scene(s + 3, 64, 96)
-    flat = np.zeros((64, 64, 3), np.uint8)
-    flat[:, :21], flat[:, 21:42], flat[:, 42:] = (255, 0, 0), (0, 255, 0), \
-        (0, 0, 255)
-    flat[20:40, 10:50] = (250, 250, 0)
     ten = bytearray(_save(a, quality=50, speed=6, advanced=LF0))
     c = ten.find(b"av1C") + 6
     ten[c] |= 0x40  # high_bitdepth
@@ -216,12 +295,13 @@ def refusal_files() -> dict:
     ten[p:p + 3] = bytes([10, 10, 10])
     files = {
         "refuse_10bit.avif": bytes(ten),
-        "refuse_444.avif": _save(a, quality=50, speed=6, subsampling="4:4:4",
-                                 advanced=LF0),
-        "refuse_rgba.avif": _save(np.dstack([a, a[..., :1]]), quality=50,
-                                  speed=6, advanced=LF0),
-        "refuse_palette.avif": _save(flat, quality=60, speed=6, advanced={
-            **LF0, "enable-palette": "1"}),
+        "refuse_qm.avif": _save(a, quality=50, speed=6, advanced={
+            **LF0, "enable-qm": "1"}),
+        "refuse_film_grain.avif": _save(a, quality=50, speed=6, advanced={
+            **LF0, "film-grain-test": "1"}),
+        "refuse_prem.avif": _save(np.dstack([a, alpha_plane(64, 96)]),
+                                  quality=50, speed=6, advanced=LF0,
+                                  alpha_premultiplied=True),
     }
     assert list(files) == list(REFUSALS)
     return files
@@ -245,6 +325,35 @@ def filtered_band_file() -> bytes:
     return _save(np.asarray(img.convert("RGB")),
                  quality=chip_smoke.AVIF_BAND_QUALITY, speed=4,
                  autotiling=True, advanced=CDEF)
+
+
+def footprint(side: int) -> np.ndarray:
+    """A warped scene's no-data footprint on a side^2 grid: 255 inside a
+    rectangle turned by 0.2 rad about the centre (84 % by 76 % of the side),
+    0 outside it."""
+    c = np.float32((side - 1) / 2)
+    y = np.arange(side, dtype=np.float32)[:, None] - c
+    x = np.arange(side, dtype=np.float32)[None, :] - c
+    cos, sin = np.float32(np.cos(0.2)), np.float32(np.sin(0.2))
+    inside = np.abs(x * cos + y * sin) < np.float32(0.42 * side)
+    inside &= np.abs(y * cos - x * sin) < np.float32(0.38 * side)
+    return np.where(inside, np.uint8(255), np.uint8(0))
+
+
+def la_band_file() -> bytes:
+    """chip_smoke.AVIF_LA_BAND as Pillow writes it: avif_band_u8 at
+    AVIF_BAND_SIDE^2 as "LA" with footprint() as its alpha and the gray 0
+    under alpha 0, 4:0:0, speed 6, AVIF_BAND_QUALITY, autotiling, the loop
+    filter at its default (not run by the tests)."""
+    side = chip_smoke.AVIF_BAND_SIDE
+    gray = chip_smoke.avif_band_u8(side)
+    alpha = footprint(side)
+    gray[alpha == 0] = 0
+    buf = io.BytesIO()
+    Image.fromarray(np.dstack([gray, alpha]), "LA").save(
+        buf, format="AVIF", quality=chip_smoke.AVIF_BAND_QUALITY, speed=6,
+        subsampling="4:0:0", autotiling=True)
+    return buf.getvalue()
 
 
 def _write(tmp_path, blob: bytes, name: str = "a.avif") -> Path:
@@ -298,9 +407,10 @@ def test_band_equals_pillows_decode():
     to AVIF_BAND_SHA256."""
     blob = chip_smoke.AVIF_BAND.read_bytes()
     assert len(blob) < 2 << 20
-    width, height, obus, matrix, full_range = avif.parse(blob)
+    p = avif.parse(blob)
     side = chip_smoke.AVIF_BAND_SIDE
-    assert (width, height, matrix, full_range) == (side, side, 6, 1)
+    assert (p.width, p.height, p.matrix, p.full_range, p.alpha) == (
+        side, side, 6, 1, None)
     with Image.open(io.BytesIO(blob)) as im:
         want = hashlib.sha256(np.asarray(im).tobytes()).hexdigest()
     assert want == chip_smoke.AVIF_BAND_SHA256
@@ -309,10 +419,31 @@ def test_band_equals_pillows_decode():
     assert np.array_equal(got[..., 0], got[..., 2])
 
 
+def test_la_band_equals_pillows_decode():
+    """The committed 9216^2 "LA" band (chip_smoke's avif phase): 4:0:0 with
+    an alpha item in 16 tiles each, under 1 MB; Pillow opens it as RGBA, and
+    the port's decode and Pillow's both hash to AVIF_LA_BAND_SHA256."""
+    blob = chip_smoke.AVIF_LA_BAND.read_bytes()
+    assert len(blob) < 1 << 20
+    p = avif.parse(blob)
+    side = chip_smoke.AVIF_BAND_SIDE
+    assert (p.width, p.height, p.alpha_size) == (side, side, (side, side))
+    with Image.open(io.BytesIO(blob)) as im:
+        assert im.mode == "RGBA"
+        want = hashlib.sha256(np.asarray(im).tobytes()).hexdigest()
+    assert want == chip_smoke.AVIF_LA_BAND_SHA256
+    got = avif.read(blob).load().array
+    assert hashlib.sha256(got.tobytes()).hexdigest() == want
+    assert np.array_equal(got[..., 0], got[..., 2])
+    assert (got[..., 3] == 0).any() and (got[..., 3] == 255).any()
+
+
 @pytest.mark.parametrize("name", list(chip_smoke.AVIF_FIXTURES))
 def test_fixture_equals_jax(name):
     got = _equal_to_jax(AVIF_DIR / name)
-    assert got.dtype == np.uint8 and got.shape[2] == 3
+    with Image.open(AVIF_DIR / name) as im:
+        bands = len(im.mode)
+    assert got.dtype == np.uint8 and got.shape[2] == bands
     assert hashlib.sha256(got.tobytes()).hexdigest() == \
         chip_smoke.AVIF_FIXTURES[name]
 
@@ -370,6 +501,68 @@ def test_colr_matrix_libavif_refuses_is_refused(tmp_path, matrix):
     _both_refuse(_write(tmp_path, bytes(b)), match="Reformat failed")
 
 
+def _colr_outcome(name: str, matrix: int, limited: bool) -> str:
+    """What libavif 1.3.0 makes of tests/data/avif/`name` with its `colr`
+    matrix and range set so, as Pillow's decodes show: "refused" (Reformat
+    failed), "not yet" (the port names the matrix) or "open"."""
+    blob = (AVIF_DIR / name).read_bytes()
+    p = avif.parse(blob)
+    layout = blob[blob.find(b"av1C") + 6]  # the primary item's av1C comes first
+    mono, layout_444 = layout & 0x10 != 0, layout & 0x18 == 0
+    if matrix in (3, 10, 11, 13, 14, 16) or (matrix == 8 and limited) or (
+            matrix == 0 and not (mono or layout_444)):
+        return "refused"
+    if not mono and matrix in (4, 7, 8, 12, 15):
+        return "not yet"
+    if mono and p.alpha is not None and limited and matrix == 12:
+        return "not yet"
+    return "open"
+
+
+@pytest.mark.parametrize("limited", [False, True], ids=["full", "limited"])
+@pytest.mark.parametrize("matrix", [0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 12, 15, 16])
+@pytest.mark.parametrize("name", ["ss444_s6.avif", "ss422_s6.avif",
+                                  "ss400_s6.avif", "rgba_444.avif",
+                                  "rgba_400.avif"])
+def test_colr_of_other_layouts_equals_jax(tmp_path, name, matrix, limited):
+    """The `colr` matrix and range on 4:4:4, 4:2:2 and monochrome samples,
+    RGB and RGBA: libyuv's constants (4:2:2 upsampled along the rows), the
+    identity (GBR) on 4:4:4, monochrome as gray whatever the matrix (the
+    limited range widened in float, but through libyuv's BT.601 constants
+    where it writes RGBA), and libavif's refusals."""
+    b = bytearray((AVIF_DIR / name).read_bytes())
+    k = b.find(b"colrnclx") + 8
+    b[k + 4:k + 6] = struct.pack(">H", matrix)
+    if limited:
+        b[k + 6] ^= 0x80
+    kind, why = _outcome(_write(tmp_path, bytes(b)))
+    assert kind == _colr_outcome(name, matrix, limited), why
+    if kind == "not yet":
+        assert f"AV1 YUV matrix {matrix} is {NOT_YET}" in why
+
+
+def _ramp(mode: str) -> bytes:
+    """Every sample value, 4:0:0 at quality 100 in full range, as `mode`."""
+    g = np.tile(np.repeat(np.arange(256, dtype=np.uint8), 2)[None], (8, 1))
+    a = np.dstack([g] * 3 + ([255 - g] if mode == "RGBA" else []))
+    return _save(a, quality=100, speed=6, subsampling="4:0:0")
+
+
+@pytest.mark.parametrize("mode", ["RGB", "RGBA"])
+@pytest.mark.parametrize("matrix", [1, 6, 9])
+def test_monochrome_ramp_widens_as_libavif(tmp_path, mode, matrix):
+    """All 256 gray values read in limited range: libavif's float widening
+    for RGB, libyuv's I400ToARGBMatrix for RGBA (BT.601 and 709 constants
+    differ from the float on 10 values; BT.2020's do not)."""
+    b = bytearray(_ramp(mode))
+    k = b.find(b"colrnclx") + 8
+    b[k + 4:k + 6] = struct.pack(">H", matrix)
+    b[k + 6] ^= 0x80
+    got = _equal_to_jax(_write(tmp_path, bytes(b)))
+    assert len(np.unique(avif.read(bytes(b)).load().array[..., 0])) > 200
+    assert got.shape[2] == len(mode)
+
+
 # ---------------------------------------------------------------------------
 # damaged files
 # ---------------------------------------------------------------------------
@@ -377,6 +570,14 @@ def _obu_span(blob: bytes) -> tuple:
     obus = avif.parse(blob)[2]
     start = blob.find(obus)
     return start, start + len(obus)
+
+
+def _obu_spans(blob: bytes) -> list:
+    """[(start, end)] of the AV1 data of the primary item and of its alpha
+    item, if any."""
+    p = avif.parse(blob)
+    return [(blob.find(o), blob.find(o) + len(o)) for o in (p.obus, p.alpha)
+            if o is not None]
 
 
 def _bit_flips(tmp_path, name: str, seed: int, head: int = 0) -> dict:
@@ -389,7 +590,8 @@ def _bit_flips(tmp_path, name: str, seed: int, head: int = 0) -> dict:
     from the container (a flipped av1C depth or subsampling). Returns the
     count of each outcome."""
     blob = (AVIF_DIR / name).read_bytes()
-    lo, hi = _obu_span(blob)
+    spans = _obu_spans(blob)
+    lo, hi = spans[0]
     rng = np.random.default_rng(seed)
     seen = {"open": 0, "refused": 0, "not yet": 0}
     outside = 0
@@ -400,11 +602,11 @@ def _bit_flips(tmp_path, name: str, seed: int, head: int = 0) -> dict:
         b[pos] ^= 1 << int(rng.integers(0, 8))
         kind, _ = _outcome(_write(tmp_path, bytes(b), f"f{k}.avif"))
         seen[kind] += 1
-        if kind == "not yet" and not lo <= pos < hi:
+        if kind == "not yet" and not any(a <= pos < z for a, z in spans):
             outside += 1
     assert sum(seen.values()) == 50
     assert outside <= 2, seen
-    assert seen["not yet"] <= hi - lo, seen
+    assert seen["not yet"] <= sum(z - a for a, z in spans), seen
     return seen
 
 
@@ -427,11 +629,260 @@ def test_bit_flips_of_filtered_file_agree_with_jax(tmp_path, chunk):
     assert seen["open"] >= 5, seen
 
 
+@pytest.mark.parametrize("chunk", range(4))
+def test_bit_flips_of_rgba_file_agree_with_jax(tmp_path, chunk):
+    """200 single-bit flips of a 4:4:4 file with an alpha item (50 a
+    case), anywhere in it: flips of `av1C`'s subsampling and monochrome
+    bits, of the alpha item's properties and references, and of either
+    item's AV1 data."""
+    _bit_flips(tmp_path, "rgba_444.avif", 2300 + chunk)
+
+
+@pytest.mark.parametrize("bit", [0x10, 0x08, 0x04, 0x02],
+                         ids=["monochrome", "subsampling x", "subsampling y",
+                              "sample position"])
+@pytest.mark.parametrize("item", [0, 1], ids=["colour", "alpha"])
+def test_av1c_layout_bits_agree_with_jax(tmp_path, item, bit):
+    """`av1C`'s monochrome, subsampling and chroma sample position bits of
+    either item of a 4:4:4 file with alpha flipped: neither libavif nor the
+    port takes the layout from them (the sequence header rules), so both
+    readers open the file alike."""
+    b = bytearray((AVIF_DIR / "rgba_444.avif").read_bytes())
+    pos = b.find(b"av1C")
+    if item:
+        pos = b.find(b"av1C", pos + 4)
+    b[pos + 6] ^= bit
+    kind, why = _outcome(_write(tmp_path, bytes(b)))
+    assert kind == "open", why
+
+
 @pytest.mark.parametrize("cut", [0.05, 0.2, 0.5, 0.9, 0.999])
 def test_cut_file_agrees_with_jax(tmp_path, cut):
     blob = (AVIF_DIR / "tiles_2x2.avif").read_bytes()
     kind, why = _outcome(_write(tmp_path, blob[:int(len(blob) * cut)]))
     assert kind in ("refused", "not yet"), why
+
+
+@pytest.mark.parametrize("cut", [0.3, 0.6, 0.9, 0.999])
+def test_cut_rgba_file_agrees_with_jax(tmp_path, cut):
+    """A 4:4:4 file with alpha cut short: its alpha item's data lies before
+    the colour item's, so a cut ends either."""
+    blob = (AVIF_DIR / "rgba_444.avif").read_bytes()
+    kind, why = _outcome(_write(tmp_path, blob[:int(len(blob) * cut)]))
+    assert kind in ("refused", "not yet"), why
+
+
+class Items:
+    """The items of a Pillow AVIF (iloc version 0, 4-byte offsets and
+    lengths; item 1 the colour, item 2 the alpha), to edit and write back:
+    `props` the ipco boxes [type, payload], `assoc` the ipma entries [item,
+    [property bytes]], `refs` the iref payload, `data` each item's bytes."""
+
+    def __init__(self, blob: bytes):
+        top = dict(_boxes(blob))
+        self.ftyp = top[b"ftyp"]
+        self.kids = [list(k) for k in _boxes(top[b"meta"], 4)]
+        kids = dict(self.kids)
+        iloc = kids[b"iloc"]
+        self.data, pos = {}, 8
+        for _ in range(struct.unpack(">H", iloc[6:8])[0]):
+            item, _, n = struct.unpack(">HHH", iloc[pos:pos + 6])
+            ext = [struct.unpack(">II", iloc[pos + 6 + 8 * e:pos + 14 + 8 * e])
+                   for e in range(n)]
+            self.data[item] = b"".join(blob[o:o + n] for o, n in ext)
+            pos += 6 + 8 * n
+        iprp = dict(_boxes(kids[b"iprp"]))
+        self.props = [list(k) for k in _boxes(iprp[b"ipco"])]
+        ipma, self.assoc, pos = iprp[b"ipma"], [], 8
+        for _ in range(struct.unpack(">I", ipma[4:8])[0]):
+            item, n = struct.unpack(">HB", ipma[pos:pos + 3])
+            self.assoc.append([item, list(ipma[pos + 3:pos + 3 + n])])
+            pos += 3 + n
+        self.refs = kids[b"iref"]
+
+    def prop(self, kind: bytes, payload: bytes, item: int,
+             essential: bool = False) -> None:
+        """A new property of `item`, in place of the one of that type it
+        has."""
+        self.props.append([kind, payload])
+        entries = dict(self.assoc)[item]
+        entries[:] = [e for e in entries if self.props[(e & 0x7F) - 1][0]
+                      != kind] + [len(self.props) | (essential << 7)]
+
+    def build(self) -> bytes:
+        ipma = struct.pack(">II", 0, len(self.assoc)) + b"".join(
+            struct.pack(">HB", i, len(e)) + bytes(e) for i, e in self.assoc)
+        iprp = _box(b"ipco", b"".join(_box(k, v) for k, v in self.props)) \
+            + _box(b"ipma", ipma)
+
+        def meta(base: int) -> bytes:
+            iloc = struct.pack(">IBBH", 0, 0x44, 0, len(self.data))
+            for item, data in self.data.items():
+                iloc += struct.pack(">HHHII", item, 0, 1, base, len(data))
+                base += len(data)
+            body = {b"iloc": iloc, b"iprp": iprp, b"iref": self.refs}
+            return _box(b"meta", b"\0\0\0\0" + b"".join(
+                _box(k, body.get(k, v)) for k, v in self.kids))
+
+        head = _box(b"ftyp", self.ftyp)
+        base = len(head) + len(meta(0)) + 8
+        return head + meta(base) + _box(b"mdat", b"".join(self.data.values()))
+
+
+def _color_range_bit(obus: bytes) -> int:
+    """The bit offset of color_range in the first sequence header OBU of
+    `obus` (aom's: OBUs with sizes, no timing info, no frame ids)."""
+    start = 0
+    while True:
+        size, n = 0, 0
+        while True:
+            size |= (obus[start + 1 + n] & 0x7F) << (7 * n)
+            n += 1
+            if not obus[start + n] & 0x80:
+                break
+        if obus[start] >> 3 & 15 == 1:
+            break
+        start += 1 + n + size
+    pos = 8 * (start + 1 + n)
+
+    def f(k: int) -> int:
+        nonlocal pos
+        v = 0
+        for _ in range(k):
+            v = 2 * v + (obus[pos >> 3] >> (7 - (pos & 7)) & 1)
+            pos += 1
+        return v
+
+    profile, _, reduced = f(3), f(1), f(1)
+    if reduced:
+        f(5)
+    else:
+        assert not f(1)  # timing_info_present
+        delay = f(1)
+        for _ in range(f(5) + 1):
+            f(12)
+            if f(5) > 7:
+                f(1)
+            if delay and f(1):
+                f(4)
+    wb, hb = f(4) + 1, f(4) + 1
+    f(wb + hb)
+    if not reduced:
+        assert not f(1)  # frame_id_numbers_present
+    f(3)
+    if not reduced:
+        f(4)
+        order_hint = f(1)
+        if order_hint:
+            f(2)
+        if f(1) or f(1):  # seq_choose_screen_content_tools, or forced on
+            if not f(1):
+                f(1)
+        if order_hint:
+            f(3)
+    f(3)
+    if f(1) and profile == 2:  # high_bitdepth, then twelve_bit
+        f(1)
+    if profile != 1:
+        f(1)  # mono_chrome
+    if f(1):
+        f(24)
+    return pos
+
+
+@pytest.mark.parametrize("name", ["rgba_444.avif", "la.avif"])
+def test_limited_range_alpha_is_widened(tmp_path, name):
+    """An alpha item whose sequence header says limited range: libavif
+    widens it as its float path widens luma (bit-equal to the JAX
+    reader)."""
+    f = Items((AVIF_DIR / name).read_bytes())
+    b = bytearray(f.data[2])
+    bit = _color_range_bit(bytes(b))
+    assert b[bit >> 3] >> (7 - (bit & 7)) & 1  # aom writes full range
+    b[bit >> 3] ^= 0x80 >> (bit & 7)
+    f.data[2] = bytes(b)
+    got = _equal_to_jax(_write(tmp_path, f.build()))
+    plain = avif.read((AVIF_DIR / name).read_bytes()).load().array
+    assert not np.array_equal(got[..., 3], plain[..., 3])
+    assert np.array_equal(got[..., :3], plain[..., :3])
+
+
+def _alpha_cases() -> dict:
+    """Name -> (edit of Items, the outcome both readers must agree on)."""
+    def ispe(w, h):
+        return lambda f: f.prop(b"ispe", struct.pack(">III", 0, w, h), 2)
+
+    def drop(kind):
+        def edit(f):
+            entries = dict(f.assoc)[2]
+            entries[:] = [e for e in entries
+                          if f.props[(e & 0x7F) - 1][0] != kind]
+        return edit
+
+    def ref(kind, a, b):
+        def edit(f):
+            f.refs += _box(kind, struct.pack(">HHH", a, 1, b))
+        return edit
+
+    def alpha_data(fn):
+        def edit(f):
+            f.data[2] = fn(f)
+        return edit
+
+    def flip_tail(f):
+        d = bytearray(f.data[2])
+        d[-3] ^= 0x55
+        return bytes(d)
+
+    other = _save(np.dstack([scene(5, 32, 64), alpha_plane(32, 64)]),
+                  quality=50, speed=6)
+    return {
+        "other size": (ispe(130, 66), "refused"),
+        "zero width": (ispe(0, 67), "refused"),
+        "past the limit": (ispe(40000, 67), "refused"),
+        "no ispe": (drop(b"ispe"), "refused"),
+        "no av1C": (drop(b"av1C"), "refused"),
+        "no pixi": (drop(b"pixi"), "open"),
+        "pixi of 10 bits": (lambda f: f.prop(
+            b"pixi", bytes.fromhex("00000000010a"), 2), "refused"),
+        "unknown essential": (lambda f: f.prop(b"zzzz", b"abc", 2, True),
+                              "open"),
+        "thumbnail": (ref(b"thmb", 2, 1), "open"),
+        "hevc urn": (lambda f: f.prop(
+            b"auxC", b"\0\0\0\0urn:mpeg:hevc:2015:auxid:1\0", 2), "open"),
+        "depth urn": (lambda f: f.prop(
+            b"auxC", b"\0\0\0\0urn:mpeg:hevc:2015:auxid:2\0", 2), "open"),
+        "prem from the alpha": (ref(b"prem", 2, 1), "open"),
+        "no data": (alpha_data(lambda f: b""), "open"),
+        "colour data": (alpha_data(lambda f: f.data[1]), "open"),
+        "corrupt": (alpha_data(flip_tail), "refused"),
+        "cut": (alpha_data(lambda f: f.data[2][:len(f.data[2]) // 2]),
+                "refused"),
+        "frame of another size": (alpha_data(
+            lambda f: Items(other).data[2]), "not yet"),
+    }
+
+
+@pytest.mark.parametrize("case", list(_alpha_cases()))
+def test_alpha_item_equals_jax(tmp_path, case):
+    """libavif 1.3.0's alpha item, as Pillow's opens show: its `ispe` must
+    be the image's size (else the decode fails) and within the limits,
+    `ispe` and `av1C` present and `pixi` of the `av1C` depth (else the
+    parse fails); an item without data, with an unknown essential property,
+    a thumbnail or an `auxC` that is not alpha is no alpha item (RGB); the
+    AV1 data of any layout gives its luma plane; a frame of another size
+    than its `ispe` (which libavif scales) is named."""
+    edit, want = _alpha_cases()[case]
+    f = Items((AVIF_DIR / "rgba_444.avif").read_bytes())
+    edit(f)
+    kind, why = _outcome(_write(tmp_path, f.build()))
+    assert kind == want, why
+    if want == "open":
+        with Image.open(_write(tmp_path, f.build(), "b.avif")) as im:
+            bands = len(im.mode)
+        assert bands == (4 if case in ("no pixi", "hevc urn",
+                                       "prem from the alpha",
+                                       "colour data") else 3)
 
 
 def _boxes(blob: bytes, pos: int = 0, end: int = None) -> list:
@@ -573,6 +1024,13 @@ def test_decimated_read_of_filtered_avif_equals_jax(alg):
     """The same decimated read of a 2 x 2-tile file with deblocking, CDEF
     and Wiener restoration on in every plane."""
     _decimated_read_equals_jax("lf_tiles_2x2.avif", 2, 170, 90, alg)
+
+
+@pytest.mark.parametrize("alg", ["average", "cubic", "nearest"])
+def test_decimated_read_of_alpha_equals_jax(alg):
+    """The same decimated read of an alpha band (band 4 of an RGBA file
+    whose alpha aom codes with palette blocks)."""
+    _decimated_read_equals_jax("rgba_speckled.avif", 4, 40, 25, alg)
 
 
 def test_header_only_avif_refused_by_both(tmp_path):
