@@ -219,22 +219,26 @@ prints no result):
      back;
  18. avif: io/avif over sarpro_tpu_torch/_native/av1dec.cpp (libavif
      1.3.0's container with its alpha item, AV1 intra key frames of 8-bit
-     4:2:0, 4:2:2, 4:4:4 and monochrome samples with palette blocks and
-     their in-loop filters: deblocking, CDEF, loop restoration; libavif's
-     YUV to RGB(A) through libyuv and its own code) on the files of
-     tests/data/avif (written by Pillow from AVIF_SEED; AVIF_FIXTURES pins
-     the SHA-256 of Pillow's decode of each, held in
-     tests/test_torch_avif.py) and on the three committed 9216^2 SAR-like
-     bands of tests/data/avif_band (Pillow at speed 6, autotiling, loop
-     filter off, AVIF_BAND_SHA256; at speed 4 with CDEF on, so that all
-     three filters are on, AVIF_FILTERED_BAND_SHA256; and as "LA", 4:0:0,
-     its alpha a no-data footprint, AVIF_LA_BAND_SHA256), each with a .wld
-     and a .prj beside a copy of it. Each opens through RasterReader
-     (decode ms on the host clock, median of 3, MP/s), decodes to the
-     pinned SHA-256, reads decimated to 2048^2 on the card (cubic; the LA
-     band's alpha, band 4, too) with the launch counts set to 0 just before
-     and read just after, bit-equal to the plain resample, and is saved as
-     a CLAHE gray JPEG that reads back;
+     4:2:0, 4:2:2, 4:4:4 and monochrome samples with palette blocks,
+     quantizer matrices and intra block copy, their in-loop filters
+     (deblocking, CDEF, loop restoration) and film grain; libavif's YUV to
+     RGB(A) through libyuv and its own code, and its unpremultiply of a
+     `prem` alpha) on the files of tests/data/avif (written by Pillow from
+     AVIF_SEED; AVIF_FIXTURES pins the SHA-256 of Pillow's decode of each,
+     held in tests/test_torch_avif.py and tests/test_torch_avif_tools.py)
+     and on the four committed 9216^2 SAR-like bands of tests/data/avif_band
+     (Pillow at speed 6, autotiling, loop filter off, AVIF_BAND_SHA256; at
+     speed 4 with CDEF on, so that all three filters are on,
+     AVIF_FILTERED_BAND_SHA256; as "LA", 4:0:0, its alpha a no-data
+     footprint, AVIF_LA_BAND_SHA256; and as premultiplied RGBA with the
+     footprint, quantizer matrices and a grain model aom estimates from the
+     speckle, AVIF_GRAIN_BAND_SHA256), each with a .wld and a .prj beside a
+     copy of it. Each opens through RasterReader (decode ms on the host
+     clock, median of 3, MP/s), decodes to the pinned SHA-256, reads
+     decimated to 2048^2 on the card (cubic; the alpha, band 4, of the LA
+     and grain bands too) with the launch counts set to 0 just before and
+     read just after, bit-equal to the plain resample, and is saved as a
+     CLAHE gray JPEG that reads back;
  19. with --walls N only: every warm path N times more, interleaved, with
      medians and quartiles of its wall; the no-warp synRGB read through
      each of the two loaders (full DN + device resample, decimated read) in
@@ -480,13 +484,20 @@ WEBP_FIXTURES = {
 # autotiling: at speed 6 with the loop filter off by
 # tests/test_torch_avif.band_file, 0.97 MB; at speed 4 with `enable-cdef 1`
 # by filtered_band_file, deblocking, CDEF and Wiener restoration on, 1.63
-# MB; and as "LA" by la_band_file: 4:0:0 at speed 6 with the loop filter at
+# MB; as "LA" by la_band_file: 4:0:0 at speed 6 with the loop filter at
 # its default, its alpha a rotated no-data footprint with the gray 0 under
-# it, which Pillow opens as RGBA; the card's machine has no encoder)
+# it, which Pillow opens as RGBA; and by tests/test_torch_avif_tools.
+# grain_band_file as premultiplied RGBA with the footprint as alpha, speed
+# 6, `enable-qm 1` and `denoise-noise-level 25`, so that aom stores a grain
+# model of the speckle and codes the denoised band: quantizer matrices,
+# film grain and the unpremultiply at a band's size, 0.16 MB; the card's
+# machine has no encoder). The files whose names start qm_, fg_, prem_ and
+# ibc_ hold the coding tools past Pillow's defaults.
 AVIF_DIR = ROOT / "tests" / "data" / "avif"
 AVIF_BAND = ROOT / "tests" / "data" / "avif_band" / "sar_band_9216.avif"
 AVIF_FILTERED_BAND = AVIF_BAND.with_name("sar_band_9216_filtered.avif")
 AVIF_LA_BAND = AVIF_BAND.with_name("sar_band_9216_la.avif")
+AVIF_GRAIN_BAND = AVIF_BAND.with_name("sar_band_9216_grain.avif")
 AVIF_SEED = 21
 AVIF_BAND_SIDE = 9216
 AVIF_BAND_QUALITY = 10
@@ -657,6 +668,108 @@ AVIF_FIXTURES = {
                              "178aa913c3cc8fc2f5851a736f9bde23"),
     "was_refused_palette.avif": ("f553040ff5ef82860f8c28e6d8284e0f"
                                 "ade404fe4495949a71123787ec8a5e1b"),
+    "was_refused_qm.avif": ("30e220cfd89a295f7467de46f9e97efe"
+                            "1a3d3b265b85bb16dbe38688564fea10"),
+    "was_refused_film_grain.avif": ("1435803adf3ff26ff0230a97eba6d45a"
+                                    "ffc5ecfbae46d0399727cc25160f2434"),
+    "was_refused_prem.avif": ("487e0b21579e35c2d89bfe4264aa3307"
+                              "cfebf518b1fe9073ab4195c9318050b0"),
+    "qm_l0.avif": ("944aaede8b4effdbf4e6e842c22385a3"
+                   "3c6515d3318216a0b2fcdbb2c95c1772"),
+    "qm_l4.avif": ("5e616ff24f1d62154493c66cc786374f"
+                   "9eae47c883161506b175f37e84bd42a4"),
+    "qm_l8.avif": ("85ebbddba2c6a104642fead0064a5c0f"
+                   "c97779306860e9136c05a782d8ecb17a"),
+    "qm_l15.avif": ("c4dd17597268bf5c25db476058d3347f"
+                    "d16f1e815765cc01c47cdbdd3b28a5cc"),
+    "qm_deltaq.avif": ("ae0603047f9456ca6a79872652820f35"
+                       "e596ae1bc379ad6f8344f82e44986deb"),
+    "qm_delta_lf.avif": ("3b987a1a1ed85f5a956c1cd3a1a1996a"
+                         "15e59300994e8509b74edc73ae556c2b"),
+    "qm_444.avif": ("08b087373d73126a49359cb110444b54"
+                    "b37bdf8b5bd395b4b545e8518d1385e5"),
+    "qm_422.avif": ("c5f09cb94b0d5ca0d35ee86ca45baece"
+                    "91aa0a080b4b21bab95df39348770fc5"),
+    "qm_400.avif": ("85f401845804b56bc7e35490204cde25"
+                    "05c57dc23c9200afe94eba58c66496af"),
+    "qm_lossless.avif": ("19749f3b268ac4a930117703fbb14854"
+                         "a6bec0c76ac7640107de193b62a84010"),
+    "fg_test01.avif": ("6d1c62e0746391c73e238334ea82af76"
+                       "335ea856b7eab912610e5584d2f34b77"),
+    "fg_test02.avif": ("6627d1eb59bb45c8f80255a182300622"
+                       "fae79728b42a28d12f820d853da8e31d"),
+    "fg_test03.avif": ("cf1d5d960a2130374764f7082addcfcf"
+                       "cc25ac768daa24c10a9679979ab49f62"),
+    "fg_test04.avif": ("831fade9ec489a216106788ab370ab54"
+                       "221f216823cbe355c19e42eac37ebff3"),
+    "fg_test05.avif": ("e89cf511799b8af51676149aac6ddb28"
+                       "83c86cfff57adcfae76f64697485cca2"),
+    "fg_test06.avif": ("d9002a9345ecbdfe21e9fdfdf9964954"
+                       "fa838025447be64f7d1acd6e6f49e333"),
+    "fg_test07.avif": ("0f7427af9faa22cfac9645cb0e3fe9d7"
+                       "3554d2d32f3e66bbf41f4f3f51c4c126"),
+    "fg_test08.avif": ("90e3edf86aca0bf03b3c5c0642d238a9"
+                       "0b4bd0ab58d7b3a9436c5669e43cd40f"),
+    "fg_test09.avif": ("30cb52f2f08e8b337129fa4bfeeed9ab"
+                       "241db37ab8aef90bb6b52f6267f4437d"),
+    "fg_test10.avif": ("9498327c710c99e9991c4f07b802425d"
+                       "72252f004c00f0ef1bffbe30272e71af"),
+    "fg_test11.avif": ("e2f7acf62f528b6196769bcb4b0bfed1"
+                       "b79eaefbb1e807e915b3772b69edf85e"),
+    "fg_test12.avif": ("37e53682e6627e906ed782233b0ce3eb"
+                       "20463aa55b6133604d79d110c888abfc"),
+    "fg_test13.avif": ("01246cf2b017cec412dd50b83b73fd47"
+                       "6cd97bf8d72e3c43ec3c3e920d640fae"),
+    "fg_test14.avif": ("7e6c03dbce758fdb2c942ea937bd3704"
+                       "100a9a05fb65c9a29b57338d9ef293d8"),
+    "fg_test15.avif": ("42edd71afdca1087b56ec48570af4360"
+                       "a13b630ab37bd603845d1579503c5693"),
+    "fg_test16.avif": ("89f684d9f32d3750059ec75b35048f42"
+                       "9b9f1a641d39f46bf1e419a24f0d912e"),
+    "fg_denoise.avif": ("d91db6f2455e17f0e993a434d9b93b97"
+                        "a391692879b68da6c55d1e8e100aaf5c"),
+    "fg_size_7x5.avif": ("396db30afb02ed9e9ee648881d79019f"
+                         "921e60ba3650ec72973d5cb3367e9797"),
+    "fg_size_257x129.avif": ("9c06ad1ee1a16aac30829841b1c2fd28"
+                             "2d18cba060e8296c4c62a7b534c991b8"),
+    "fg_444.avif": ("232449ced7b80f37abac5539ad976c03"
+                    "a9ca2205e030bb6d6f698fe303393396"),
+    "fg_422.avif": ("ef2c4cbf46f42c0f260943fe818c6571"
+                    "6d8a42bc212430229ff1b010b0963b93"),
+    "fg_400.avif": ("2ddd0b2370834b501b605b95de148cda"
+                    "cd5206c19390f6f9ab72d8fb26d27cbc"),
+    "fg_rgba.avif": ("bd659df4dcee75964bc074c158b8203d"
+                     "68db6edb8f2e50b87ae441f84a7f10a3"),
+    "prem_rgba_420.avif": ("6eff151197c0124501c786bf4ed6988b"
+                           "66c4b13f4fb18910288ca367ae49cd90"),
+    "prem_la_420.avif": ("1d0901d0552d706b8bd34a3c3350f5e1"
+                         "87e7f1547b959fa106386dc77af9d8d3"),
+    "prem_rgba_444.avif": ("b881423ff426b0bb7e54913dc33537e9"
+                           "826a2fe950f044d4ace167affcec2e8f"),
+    "prem_la_444.avif": ("1d0901d0552d706b8bd34a3c3350f5e1"
+                         "87e7f1547b959fa106386dc77af9d8d3"),
+    "prem_rgba_400.avif": ("a3c2dc380b47f47ad831fc956c970b55"
+                           "e8756d36374a53aa18ba37e1f89d145e"),
+    "prem_la_400.avif": ("1d0901d0552d706b8bd34a3c3350f5e1"
+                         "87e7f1547b959fa106386dc77af9d8d3"),
+    "prem_grain_qm.avif": ("0a21388c194613100b5b983b7560b8c6"
+                           "3199ddc9a0a2564e53cb21f2895d41d6"),
+    "ibc_sar.avif": ("07a8cf7f3898e84ffd1ce6ea224abcb8"
+                     "cdc54a323fdf9c6f487d80144b3e13a7"),
+    "ibc_s4.avif": ("e71278cb013cd8fee4c879e2d9845534"
+                    "4eaa30763d2afb6f73aa978046d7a39e"),
+    "ibc_444.avif": ("9a112aafcd6b4a8345493655891c2881"
+                     "6f3882fe55d172dfb9db2c0f122921d3"),
+    "ibc_422.avif": ("8d6b67ca5074ae07daf6a30d4ebfc592"
+                     "b97cea2cd66991dc20d0257d82f1d76e"),
+    "ibc_400.avif": ("ba9bffa85aa4013a461fdd3734c1e955"
+                     "d844247a7f3344c09829100a197a591a"),
+    "ibc_sb128.avif": ("06e8ef0c8d34ec3a2bb0060505b19bd7"
+                       "6aeb2b87d536999c63e5fa40086028a1"),
+    "ibc_tiles_2x2.avif": ("14c0815527d32d96bc9225126c209b70"
+                           "c1004b0d390f808a48d6b575f4f259e1"),
+    "ibc_rgba.avif": ("db1ae0782270f5d0a037ab96b671f07c"
+                      "8c76395c25d7b3542a764f70140e9054"),
 }
 AVIF_BAND_SHA256 = ("0fac26190af3efd4cf09c6ceaed08687"
                     "1078c04bb00ad9c2561349724e90840e")
@@ -664,6 +777,8 @@ AVIF_FILTERED_BAND_SHA256 = ("ce00375d6a3750493f0bc388db171aca"
                              "e6ba6871c1b210f90bf00c93cb58bf73")
 AVIF_LA_BAND_SHA256 = ("ea4a3137586fde04f28075cba7c1406a"
                        "2fc633ea6cec55c96bb1d2e6131e792f")
+AVIF_GRAIN_BAND_SHA256 = ("283ef3c1aa7c99bfc6b33ade0ce59e29"
+                          "8ba2c76bce2f82bd8f1c4b0a139b9ad4")
 # the rasters phase's JPEG codings: tests/data/jpeg, written from JPEG_SEED
 # on by libjpeg-turbo 3.1.3's own encoder (tests/ljt_encode.py) or Pillow
 # (tests/test_torch_jpeg_coding.py): a SAR-like arithmetic-coded strip
@@ -4924,13 +5039,13 @@ def phase_longtail(work: Path, smi: str) -> dict:
 
 def phase_avif(work: Path, smi: str) -> dict:
     """io/avif on the card's machine: each file of AVIF_FIXTURES and the
-    three committed bands (each with a .wld and a .prj) opens through
+    four committed bands (each with a .wld and a .prj) opens through
     RasterReader (decode timed on the host clock, median of 3), decodes to
     the SHA-256 of Pillow's decode, reads decimated to SIZE^2 on the card
-    (bit-equal to the plain resample; the LA band's alpha too) and is saved
-    as a CLAHE gray JPEG that reads back (but the 1 x 1 files: their read
-    is a constant band, whose save launches no histogram). Returns the
-    launches of the driven reads and saves."""
+    (bit-equal to the plain resample; the LA and grain bands' alpha too)
+    and is saved as a CLAHE gray JPEG that reads back (but the 1 x 1 files:
+    their read is a constant band, whose save launches no histogram).
+    Returns the launches of the driven reads and saves."""
     from sarpro_tpu_torch import _native, ops
     from sarpro_tpu_torch.io import raster
     from sarpro_tpu_torch.io.writers.worldfile import write_prj_file
@@ -4949,7 +5064,8 @@ def phase_avif(work: Path, smi: str) -> dict:
             ("SAR band", AVIF_BAND, AVIF_BAND_SHA256),
             ("SAR band, filtered", AVIF_FILTERED_BAND,
              AVIF_FILTERED_BAND_SHA256),
-            ("SAR band, LA", AVIF_LA_BAND, AVIF_LA_BAND_SHA256)):
+            ("SAR band, LA", AVIF_LA_BAND, AVIF_LA_BAND_SHA256),
+            ("SAR band, grain", AVIF_GRAIN_BAND, AVIF_GRAIN_BAND_SHA256)):
         band = d / src.name
         shutil.copyfile(src, band)
         band.with_suffix(".wld").write_text(
@@ -4985,12 +5101,13 @@ def phase_avif(work: Path, smi: str) -> dict:
                 f"), {mp / wall:.2f} MP/s, equal to Pillow's decode; host "
                 f"CPU {_host_cpu()}; on {smi}")
             del data
-            if path == band_paths[-1] and bands != 4:
+            with_alpha = path in band_paths[2:]  # the LA and grain bands
+            if with_alpha and bands != 4:
                 raise AssertionError(f"avif: {label} opens with {bands} "
                                      "bands, Pillow's RGBA has 4")
             if rows * cols > 1:
                 _read_and_save("avif", label, reader, path, smi, totals,
-                               (1, 4) if path == band_paths[-1] else (1,))
+                               (1, 4) if with_alpha else (1,))
             else:
                 reader.close()
     finally:

@@ -226,8 +226,8 @@ def raster_decoder() -> ctypes.CDLL:
                 lib.xbm_decode.argtypes = [u8p, i64, i64, i64, u8p]
                 lib.av1_decode.restype = i64
                 lib.av1_decode.argtypes = [u8p, i64, u8p, i64, i32, i32, i32,
-                                           i32, u8p, i64, ctypes.c_char_p,
-                                           i64]
+                                           i32, i32, u8p, i64,
+                                           ctypes.c_char_p, i64]
                 lib.bcn_decode.restype = i64
                 lib.bcn_decode.argtypes = [u8p, i64, i64, i64, i32, i32, u8p,
                                            i32]
@@ -314,12 +314,14 @@ def webp_decode(image: memoryview, lossless: bool, alpha, window: np.ndarray
 
 
 def av1_decode(obus: bytes, width: int, height: int, matrix: int,
-               full_range: int, alpha: Optional[bytes] = None) -> np.ndarray:
+               full_range: int, alpha: Optional[bytes] = None,
+               premultiplied: bool = False) -> np.ndarray:
     """The (height, width, 3) u8 RGB image of an AV1 still key frame (an
     AVIF item's OBUs) as libavif converts it for Pillow, or (height, width,
-    4) RGBA with `alpha`, the OBUs of its alpha item: `matrix` and
-    `full_range` the `colr` nclx box's matrix coefficients and range flag
-    (-1: the sequence header's). ValueError with the decoder's reason."""
+    4) RGBA with `alpha`, the OBUs of its alpha item (unpremultiplied where
+    `premultiplied`): `matrix` and `full_range` the `colr` nclx box's
+    matrix coefficients and range flag (-1: the sequence header's).
+    ValueError with the decoder's reason."""
     lib = raster_decoder()
     src = np.frombuffer(obus, np.uint8)
     alp = np.frombuffer(alpha if alpha is not None else b"\0", np.uint8)
@@ -327,8 +329,8 @@ def av1_decode(obus: bytes, width: int, height: int, matrix: int,
     err = ctypes.create_string_buffer(512)
     if lib.av1_decode(_u8p(src), len(src), _u8p(alp),
                       -1 if alpha is None else len(alpha), width, height,
-                      matrix, full_range, _u8p(out), out.strides[0], err,
-                      len(err)) != 0:
+                      matrix, full_range, int(premultiplied), _u8p(out),
+                      out.strides[0], err, len(err)) != 0:
         raise ValueError(err.value.decode("latin-1"))
     return out
 

@@ -5,7 +5,8 @@ lookups, the directional-prediction derivatives, the smooth weights, the
 filter-intra taps, the intra edge kernels, the transforms' cos / sin
 constants, and the in-loop filters' tables (the restoration CDFs, CDEF's
 directions, taps and divisors, the self-guided filter's parameters and the
-Wiener filter's reference taps).
+Wiener filter's reference taps), aom's quantizer matrices and dav1d's film
+grain Gaussian sequence.
 
 Nothing here is typed by hand. Each table is found in the read-only data of
 the libavif shared library that Pillow's wheels ship (`pillow.libs/libavif-
@@ -47,8 +48,10 @@ import numpy as np
 
 HEADER = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                       "av1_tables.h")
-# the .rodata span of the 16.3.0 build that holds both libraries' tables
+# the .rodata span of the 16.3.0 build that holds both libraries' tables,
+# and the whole of its .rodata (aom's quantizer matrices lie before the span)
 RODATA = (0x437000, 0x480000)
+RODATA_ALL = (0x3D4000, 0x485720)
 
 
 @dataclasses.dataclass
@@ -76,13 +79,16 @@ class Cdf:
 @dataclasses.dataclass
 class Const:
     """A constant array of `dtype`, `count` entries, anchored by its first
-    values (which may run on past `count` into what follows it)."""
+    values (which may run on past `count` into what follows it), searched
+    for in `span` of the file and rendered `per_line` values a line."""
 
     name: str
     ctype: str
     dtype: str
     count: int
     first: tuple
+    span: tuple = RODATA
+    per_line: int = 12
 
 
 Q4 = (4,)
@@ -143,6 +149,25 @@ CDFS = (
     Cdf("COEFF_BASE_EOB", Q4 + (5, 2, 4), 3, 4, ((17837, 29055),)),
     Cdf("COEFF_BASE", Q4 + (5, 2, 42), 4, 5, ((4034, 8930, 12727),)),
     Cdf("COEFF_BR", Q4 + (5, 2, 21), 4, 5, ((14298, 20718, 24174),)),
+    # intra block copy: the split of an inter (here intrabc) block's
+    # transforms, the inter transform type sets (aom's [set][square size]
+    # rows: set 1 at 4x4 and 8x8, set 2 at 16x16, set 3 at every size),
+    # and the MV joint and first component's CDFs (the spec's defaults of
+    # both components; aom's nmv_component: sign, class0 and bits at 27, 36
+    # and 39 u16 past its classes)
+    Cdf("TXFM_SPLIT", (21,), 2, 3, ((28581,), (23846,), (20847,))),
+    Cdf("INTER_TX_SET1", (2,), 16, 17, ((4458, 5560, 7695, 9709, 13330,
+                                         14789, 17537, 20266, 21504, 22848,
+                                         23934, 25474, 27727, 28915,
+                                         30631),)),
+    Cdf("INTER_TX_SET2", (1,), 12, 17, at=("INTER_TX_SET1", 6 * 17)),
+    Cdf("INTER_TX_SET3", (4,), 2, 17, at=("INTER_TX_SET1", 8 * 17)),
+    Cdf("MV_JOINT", (1,), 4, 5, ((4096, 11264, 19328),)),
+    Cdf("MV_CLASS", (1,), 11, 12, ((28672, 30976, 31858, 32320, 32551,
+                                    32656, 32740, 32757, 32762, 32767),)),
+    Cdf("MV_SIGN", (1,), 2, 3, at=("MV_CLASS", 27)),
+    Cdf("MV_CLASS0", (1,), 2, 3, at=("MV_CLASS", 36)),
+    Cdf("MV_BITS", (10,), 2, 3, at=("MV_CLASS", 39)),
     Cdf("RESTORATION_TYPE", (1,), 3, 4, ((9413, 22581),), dav1d=True),
     Cdf("USE_WIENER", (1,), 2, 2, ((11570,),), dav1d=True),
     Cdf("USE_SGRPROJ", (1,), 2, 2, ((16855,),), dav1d=True),
@@ -182,6 +207,18 @@ CONSTS = (
     # the first three taps of the filter the Wiener references start from
     Const("WIENER_TAPS_MID", "int32_t", "<i4", 3,
           (3, -7, 15, 106, 15, -7, 3)),
+    # Quantizer_Matrix as aom keeps it (iwt_matrix_ref): [level 0-14][luma,
+    # chroma][3344], the matrices of 4x4, 8x8, 16x16, 32x32, 4x8, 8x4, 8x16,
+    # 16x8, 16x32, 32x16, 4x16, 16x4, 8x32 and 32x8 one after the other,
+    # each column by column (aom's transposed coefficient layout); its
+    # forward weights follow it
+    Const("QUANTIZER_MATRIX", "uint8_t", "u1", 15 * 2 * 3344,
+          (32, 43, 73, 97, 43, 67, 94, 110, 73, 94, 137, 150, 97, 110, 150,
+           200), RODATA_ALL, 32),
+    # the film grain's Gaussian_Sequence (dav1d's int16 copy)
+    Const("GAUSSIAN_SEQUENCE", "int16_t", "<i2", 2048,
+          (56, 568, -180, 172, 124, -84, 172, -64, -900, 24, 820, 224,
+           1248)),
 )
 
 
@@ -250,8 +287,8 @@ def extract(path: str) -> dict:
                 raise LookupError(f"{t.name}: row {k} is not a CDF")
             rows.append([int(v) for v in row])
         out[t.name] = ("cdf", t.dims, rows)
-    lo, hi = RODATA
     for c in CONSTS:
+        lo, hi = c.span
         pat = np.array(c.first, c.dtype).tobytes()
         pos = blob.find(pat, lo, hi)
         if pos < 0:
@@ -291,7 +328,7 @@ def render(tables: dict) -> str:
     for c in CONSTS:
         _, count, vals = tables[c.name]
         out.append(f"static const {c.ctype} AV1_{c.name}[{count}] = {{")
-        out.append(_c_list(vals) + "};")
+        out.append(_c_list(vals, c.per_line) + "};")
         out.append("")
     return "\n".join(out)
 

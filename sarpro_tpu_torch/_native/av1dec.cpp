@@ -2,35 +2,43 @@
 // intra key frame of an AV1 OBU stream, 8-bit 4:2:0, 4:2:2, 4:4:4 or
 // monochrome, as the AV1 bitstream specification (with errata, 2019)
 // defines its syntax and reconstruction and dav1d 1.5.1 decodes it for
-// libavif 1.3.0, then libavif's YUV-to-RGB conversion as it runs it for
-// Pillow 12.1: libyuv's fixed-point matrices (row_common.c) with bilinear
-// (4:2:0) or linear (4:2:2) chroma upsampling, and libavif's own code for
-// monochrome samples and the identity matrix; an alpha item's stream
-// decodes beside it into a fourth channel.
+// libavif 1.3.0, film grain included (libavif leaves dav1d's apply_grain
+// on), then libavif's YUV-to-RGB conversion as it runs it for Pillow 12.1:
+// libyuv's fixed-point matrices (row_common.c) with bilinear (4:2:0) or
+// linear (4:2:2) chroma upsampling, and libavif's own code for monochrome
+// samples and the identity matrix; an alpha item's stream decodes beside it
+// into a fourth channel, and a premultiplied (`prem`) colour is
+// unpremultiplied as libyuv's ARGBUnattenuate does it.
 //
 // Read: temporal delimiter, sequence header (reduced and full), frame
 // header / frame OBUs and tile groups of one key frame; metadata, padding
-// and tile-list OBUs are skipped. Palette blocks (luma and chroma) are
-// read. The in-loop filters run once the last tile is decoded: deblocking
-// (§7.14), CDEF (§7.15) and loop restoration (§7.17, Wiener and
-// self-guided units). A frame whose superres or film grain is on is refused
-// by name, and so are quantizer matrices, intrabc, other bit depths, a
-// frame of another size than its item and a 4:2:2 block that the spec
-// gives no chroma size. Each tile ends with the spec's trailing bits (exit
-// process, §8.2.4); tile data that does not is refused by name, as
-// non-conformant data that dav1d decodes to an output the spec does not
-// define.
+// and tile-list OBUs are skipped. Palette blocks (luma and chroma),
+// quantizer matrices (§7.12.3) and intra block copy (the DV stack of
+// find_mv_stack, the MV CDFs, transform trees and inter transform types
+// of an intrabc block, its bilinear prediction from the frame decoded so
+// far) are read. The in-loop filters run once the last tile is decoded:
+// deblocking (§7.14), CDEF (§7.15) and loop restoration (§7.17, Wiener and
+// self-guided units); then film grain synthesis (§7.18.3). A frame whose
+// superres is on is refused by name, and so are other bit depths, a frame
+// of another size than its item and a 4:2:2 block that the spec gives no
+// chroma size. Each tile ends with the spec's trailing bits (exit process,
+// §8.2.4); tile data that does not is refused by name, as non-conformant
+// data that dav1d decodes to an output the spec does not define (aom 3.12.1
+// writes such a frame for 4:0:0 with a grain model it estimates: chroma
+// grain fields a monochrome header does not have).
 //
-// The tables (default CDFs, quantizer lookups, intra derivatives, smooth
-// weights, filter-intra taps, edge kernels, cos / sin constants, and the
-// in-loop filters' CDFs, directions, taps and parameters) are in
-// av1_tables.h, generated by av1_tables.py from libavif's read-only data.
+// The tables (default CDFs, quantizer lookups and matrices, intra
+// derivatives, smooth weights, filter-intra taps, edge kernels, cos / sin
+// constants, the in-loop filters' CDFs, directions, taps and parameters,
+// the film grain's Gaussian sequence, intrabc's MV and transform CDFs) are
+// in av1_tables.h, generated by av1_tables.py from libavif's read-only data.
 //
 // C interface (ctypes, _native/__init__.py):
 //   av1_decode(obus, size, alpha, alpha_size, width, height, matrix,
-//              full_range, out, stride, err, errlen) -> 0, or -1 with the
-//              reason in err: RGB into out (3 channels), or RGBA (4) with
-//              the alpha item's OBUs (alpha_size -1: none); matrix and
+//              full_range, premultiplied, out, stride, err, errlen) -> 0,
+//              or -1 with the reason in err: RGB into out (3 channels), or
+//              RGBA (4) with the alpha item's OBUs (alpha_size -1: none),
+//              unpremultiplied where premultiplied is 1; matrix and
 //              full_range -1: the sequence header's.
 #include <algorithm>
 #include <cstdint>
@@ -155,8 +163,23 @@ const int kTxTypeIntraInvSet1[7] = {IDTX, DCT_DCT, V_DCT, H_DCT, ADST_ADST,
                                     ADST_DCT, DCT_ADST};
 const int kTxTypeIntraInvSet2[5] = {IDTX, DCT_DCT, ADST_ADST, ADST_DCT,
                                     DCT_ADST};
+const int kTxTypeInterInvSet1[16] = {IDTX, V_DCT, H_DCT, V_ADST, H_ADST, V_FLIPADST,
+                                     H_FLIPADST, DCT_DCT, ADST_DCT, DCT_ADST,
+                                     FLIPADST_DCT, DCT_FLIPADST, ADST_ADST,
+                                     FLIPADST_FLIPADST, ADST_FLIPADST, FLIPADST_ADST};
+const int kTxTypeInterInvSet2[12] = {IDTX, V_DCT, H_DCT, DCT_DCT, ADST_DCT, DCT_ADST,
+                                     FLIPADST_DCT, DCT_FLIPADST, ADST_ADST,
+                                     FLIPADST_FLIPADST, ADST_FLIPADST, FLIPADST_ADST};
+const int kTxTypeInterInvSet3[2] = {IDTX, DCT_DCT};
+// the transform sets of get_tx_set: intra 1 and 2 as the port numbers them
+// (0 DCT only), then the inter sets 3, 4 and 5 (the spec's TX_SET_INTER_1 - 3)
+enum { TX_SET_INTER_1 = 3, TX_SET_INTER_2, TX_SET_INTER_3 };
 const int kFilterIntraModeToIntraDir[5] = {DC_PRED, V_PRED, H_PRED,
                                            D157_PRED, DC_PRED};
+// where each coded (at most 32 x 32) transform size's matrix starts in a
+// level's Quantizer_Matrix (the 64-sample sizes use their coded size's)
+const int kQmOffset[19] = {0, 16, 80, 336, 0, 1360, 1392, 1424, 1552, 1680,
+                           2192, 0, 0, 2704, 2768, 2832, 3088, 0, 0};
 const int kTransformRowShift[19] = {0, 1, 2, 2, 2, 0, 0, 1, 1, 1, 1, 1, 1,
                                     1, 1, 2, 2, 2, 2};
 const int kSegFeatureBits[8] = {8, 6, 6, 6, 6, 3, 0, 0};
@@ -304,6 +327,17 @@ struct Cdfs {
   uint16_t restoration_type[4];
   uint16_t use_wiener[3];
   uint16_t use_sgrproj[3];
+  // intra block copy: transform splits, inter transform types, and the
+  // DV's MV CDFs (MvCtx MV_INTRABC_CONTEXT) of the row and column
+  uint16_t txfm_split[21][3];
+  uint16_t inter_set1[2][17];
+  uint16_t inter_set2[13];
+  uint16_t inter_set3[4][3];
+  uint16_t mv_joint[5];
+  uint16_t mv_class[2][12];
+  uint16_t mv_sign[2][3];
+  uint16_t mv_class0[2][3];
+  uint16_t mv_bits[2][10][3];
 
   void init(int base_q_idx) {
     memcpy(kf_y, AV1_KF_Y_MODE, sizeof kf_y);
@@ -346,6 +380,17 @@ struct Cdfs {
     memcpy(restoration_type, AV1_RESTORATION_TYPE[0], sizeof restoration_type);
     memcpy(use_wiener, AV1_USE_WIENER[0], sizeof use_wiener);
     memcpy(use_sgrproj, AV1_USE_SGRPROJ[0], sizeof use_sgrproj);
+    memcpy(txfm_split, AV1_TXFM_SPLIT, sizeof txfm_split);
+    memcpy(inter_set1, AV1_INTER_TX_SET1, sizeof inter_set1);
+    memcpy(inter_set2, AV1_INTER_TX_SET2[0], sizeof inter_set2);
+    memcpy(inter_set3, AV1_INTER_TX_SET3, sizeof inter_set3);
+    memcpy(mv_joint, AV1_MV_JOINT[0], sizeof mv_joint);
+    for (int c = 0; c < 2; c++) {
+      memcpy(mv_class[c], AV1_MV_CLASS[0], sizeof mv_class[c]);
+      memcpy(mv_sign[c], AV1_MV_SIGN[0], sizeof mv_sign[c]);
+      memcpy(mv_class0[c], AV1_MV_CLASS0[0], sizeof mv_class0[c]);
+      memcpy(mv_bits[c], AV1_MV_BITS, sizeof mv_bits[c]);
+    }
   }
 };
 
@@ -701,6 +746,7 @@ struct Decoder {
   std::vector<int> mi_col_starts, mi_row_starts;
   int tile_size_bytes = 4;
   int base_q_idx = 0, dq_y_dc = 0, dq_u_dc = 0, dq_u_ac = 0, dq_v_dc = 0, dq_v_ac = 0;
+  int qm_level[3] = {15, 15, 15};  // 15: no matrix
   int seg_enabled = 0;
   int feature_enabled[8][8] = {{0}}, feature_data[8][8] = {{0}};
   int seg_id_pre_skip = 0, last_active_seg_id = 0;
@@ -713,6 +759,15 @@ struct Decoder {
   int cdef_strengths[8][2][2] = {{{0}}};  // [idx][luma, chroma][primary, secondary]
   int lr_type[3] = {0}, lr_size[3] = {0}, uses_lr = 0;
   int tx_mode_select = 0, only_4x4 = 0, reduced_tx_set = 0;
+  // film grain: the scaling points, AR coefficients and mixing of planes
+  // Y, Cb, Cr (spec's point_*_value / _scaling, ar_coeffs_*_plus_128 less
+  // 128, *_mult and *_luma_mult less 128, *_offset less 256)
+  struct FilmGrain {
+    int apply = 0, seed = 0, cfl = 0, overlap = 0, clip = 0;
+    int num[3] = {0}, points[3][14][2] = {{{0}}};
+    int scaling_shift = 8, ar_lag = 0, ar_shift = 6, grain_scale_shift = 0;
+    int ar[3][25] = {{0}}, mult[3] = {0}, luma_mult[3] = {0}, offset[3] = {0};
+  } fg;
   int next_tile = 0;  // tiles decoded so far
 
   Cdfs frame_cdfs, cdf;
@@ -720,7 +775,12 @@ struct Decoder {
   Plane planes[3];
 
   // per 4x4 (mi) state over the frame
+  // tx_sizes: the spec's InterTxSizes (an intra block's TxSize over it)
   std::vector<uint8_t> y_modes, uv_modes, skips, tx_sizes, mi_sizes, seg_ids;
+  // intra block copy: which mi are intrabc blocks, their DVs (row, column
+  // in 1/8 samples), and which mi this frame has decoded
+  std::vector<uint8_t> is_inters, decoded;
+  std::vector<int16_t> mvs;
   std::vector<uint8_t> tx_types;
   std::vector<int8_t> delta_lfs;  // DeltaLF[0..3] of each mi
   std::vector<uint8_t> lf_tx_sizes[3];  // in 4x4 units of each plane
@@ -756,6 +816,7 @@ struct Decoder {
   int segment_id = 0, skip = 0, lossless = 0;
   int y_mode = 0, uv_mode = 0, angle_delta_y = 0, angle_delta_uv = 0;
   int cfl_alpha_u = 0, cfl_alpha_v = 0, use_filter_intra = 0, filter_intra_mode = 0;
+  int use_intrabc = 0, dv[2] = {0, 0};
   int pal_size[2] = {0};      // PaletteSizeY, PaletteSizeUV
   uint8_t pal[3][8];          // palette_colors_y, _u, _v
   uint8_t color_map[2][64][64];  // ColorMapY, ColorMapUV
@@ -1050,7 +1111,14 @@ struct Decoder {
         dq_v_ac = dq_u_ac;
       }
     }
-    if (b.bit()) throw NotYet("quantizer matrices", true);
+    // using_qmatrix: the levels of the three planes (a lossless segment
+    // takes the flat level 15, which its Walsh-Hadamard blocks skip anyway)
+    qm_level[0] = qm_level[1] = qm_level[2] = 15;
+    if (b.bit()) {
+      qm_level[0] = (int)b.f(4);
+      qm_level[1] = (int)b.f(4);
+      qm_level[2] = separate_uv_delta_q ? (int)b.f(4) : qm_level[1];
+    }
     // segmentation_params
     seg_enabled = (int)b.bit();
     memset(feature_enabled, 0, sizeof feature_enabled);
@@ -1154,13 +1222,54 @@ struct Decoder {
     tx_mode_select = coded_lossless ? 0 : (int)b.bit();
     // reference_select, skip_mode, warped motion: absent on an intra frame
     reduced_tx_set = (int)b.bit();
-    // film_grain_params
-    if (film_grain_present && show_frame) {
-      if (b.bit()) throw NotYet("film grain");
-    }
-    if (allow_intrabc) throw NotYet("intrabc");
+    fg = FilmGrain();
+    if (film_grain_present && show_frame) film_grain_params(b);
     start_frame();
     have_frame_header = true;
+  }
+
+  // film_grain_params (update_grain is implied on a key frame), with
+  // dav1d's checks of the points and of 4:2:0's chroma
+  void film_grain_params(Bits& b) {
+    fg.apply = (int)b.bit();
+    if (!fg.apply) return;
+    fg.seed = (int)b.f(16);
+    auto points = [&](int n, int max, int (*pts)[2]) {
+      if (n > max) throw Invalid("film grain with too many scaling points");
+      for (int i = 0; i < n; i++) {
+        pts[i][0] = (int)b.f(8);
+        if (i && pts[i - 1][0] >= pts[i][0]) throw Invalid("film grain points out of order");
+        pts[i][1] = (int)b.f(8);
+      }
+    };
+    fg.num[0] = (int)b.f(4);
+    points(fg.num[0], 14, fg.points[0]);
+    fg.cfl = mono ? 0 : (int)b.bit();
+    if (!(mono || fg.cfl || (ssx && ssy && !fg.num[0])))
+      for (int p = 1; p < 3; p++) {
+        fg.num[p] = (int)b.f(4);
+        points(fg.num[p], 10, fg.points[p]);
+      }
+    if (ssx && ssy && !fg.num[1] != !fg.num[2])
+      throw Invalid("film grain on one 4:2:0 chroma plane only");
+    fg.scaling_shift = (int)b.f(2) + 8;
+    fg.ar_lag = (int)b.f(2);
+    int num_pos = 2 * fg.ar_lag * (fg.ar_lag + 1);
+    if (fg.num[0])
+      for (int i = 0; i < num_pos; i++) fg.ar[0][i] = (int)b.f(8) - 128;
+    for (int p = 1; p < 3; p++)
+      if (fg.num[p] || fg.cfl)
+        for (int i = 0; i < num_pos + (fg.num[0] > 0); i++) fg.ar[p][i] = (int)b.f(8) - 128;
+    fg.ar_shift = (int)b.f(2) + 6;
+    fg.grain_scale_shift = (int)b.f(2);
+    for (int p = 1; p < 3; p++)
+      if (fg.num[p]) {
+        fg.mult[p] = (int)b.f(8) - 128;
+        fg.luma_mult[p] = (int)b.f(8) - 128;
+        fg.offset[p] = (int)b.f(9) - 256;
+      }
+    fg.overlap = (int)b.bit();
+    fg.clip = (int)b.bit();
   }
 
   void tile_info(Bits& b) {
@@ -1237,6 +1346,9 @@ struct Decoder {
     mi_sizes.assign(n, 0);
     seg_ids.assign(n, 0);
     tx_types.assign(n, 0);
+    is_inters.assign(n, 0);
+    decoded.assign(n, 0);
+    mvs.assign(n * 2, 0);
     delta_lfs.assign(n * 4, 0);
     for (int p = 0; p < 2; p++) {
       pal_above[p].assign((size_t)(mi_cols + 32) * 9, 0);
@@ -1521,11 +1633,15 @@ struct Decoder {
         y_modes[i] = (uint8_t)y_mode;
         uv_modes[i] = (uint8_t)uv_mode;
         skips[i] = (uint8_t)skip;
-        tx_sizes[i] = (uint8_t)tx_sz;
         mi_sizes[i] = (uint8_t)bsize;
         seg_ids[i] = (uint8_t)segment_id;
+        is_inters[i] = (uint8_t)use_intrabc;
+        decoded[i] = 1;
+        mvs[2 * i] = (int16_t)dv[0];
+        mvs[2 * i + 1] = (int16_t)dv[1];
         for (int k = 0; k < 4; k++) delta_lfs[4 * i + k] = (int8_t)delta_lf[k];
       }
+    if (use_intrabc) predict_intrabc();
     residual();
   }
 
@@ -1548,7 +1664,17 @@ struct Decoder {
     read_delta_qindex();
     read_delta_lf();
     read_deltas = false;
-    if (allow_intrabc && sd.read(cdf.intrabc, 2)) throw NotYet("intrabc block");
+    use_intrabc = allow_intrabc ? sd.read(cdf.intrabc, 2) : 0;
+    dv[0] = dv[1] = 0;
+    if (use_intrabc) {
+      y_mode = uv_mode = DC_PRED;
+      angle_delta_y = angle_delta_uv = 0;
+      cfl_alpha_u = cfl_alpha_v = 0;
+      pal_size[0] = pal_size[1] = 0;
+      use_filter_intra = 0;
+      assign_dv();
+      return;
+    }
     int au = avail_u ? y_modes[idx(mi_row - 1, mi_col)] : (int)DC_PRED;
     int al = avail_l ? y_modes[idx(mi_row, mi_col - 1)] : (int)DC_PRED;
     y_mode = sd.read(cdf.kf_y[kIntraModeContext[au]][kIntraModeContext[al]], 13);
@@ -1578,6 +1704,172 @@ struct Decoder {
         imax(kBlockW2[mi_size], kBlockH2[mi_size]) <= 5) {
       use_filter_intra = sd.read(cdf.filter_intra[mi_size], 2);
       if (use_filter_intra) filter_intra_mode = sd.read(cdf.filter_intra_mode, 5);
+    }
+  }
+
+  // ---------------------------------------------------- intra block copy
+  // the DV of an intrabc block: the reference stack of find_mv_stack on an
+  // intra frame (the DVs of the intrabc blocks around it, weighted and
+  // sorted, then clamped), its first nonzero entry or the default DV a
+  // superblock up (or left, with INTRABC_DELAY_PIXELS, in a tile's first
+  // superblock row), plus the coded difference
+  int stack_mv[8][2], stack_weight[8], num_mv = 0;
+
+  // (a DV is whole samples, so lower_mv_precision leaves it as it is)
+  void add_candidate(int r, int c, int weight) {
+    int i = idx(r, c);
+    if (!is_inters[i]) return;
+    int mv[2] = {mvs[2 * i], mvs[2 * i + 1]};
+    for (int k = 0; k < num_mv; k++)
+      if (stack_mv[k][0] == mv[0] && stack_mv[k][1] == mv[1]) {
+        stack_weight[k] += weight;
+        return;
+      }
+    if (num_mv < 8) {
+      stack_mv[num_mv][0] = mv[0];
+      stack_mv[num_mv][1] = mv[1];
+      stack_weight[num_mv++] = weight;
+    }
+  }
+  void scan_row(int dr) {
+    int bw4 = 1 << (kBlockW2[mi_size] - 2);
+    int end4 = imin(imin(bw4, mi_cols - mi_col), 16), dc = 0;
+    if (std::abs(dr) > 1) {
+      dr += mi_row & 1;
+      dc = 1 - (mi_col & 1);
+    }
+    for (int i = 0; i < end4;) {
+      int r = mi_row + dr, c = mi_col + dc + i;
+      if (!is_inside(r, c)) break;
+      int len = imin(bw4, 1 << (kBlockW2[mi_sizes[idx(r, c)]] - 2));
+      if (std::abs(dr) > 1) len = imax(2, len);
+      if (bw4 >= 16) len = imax(4, len);
+      add_candidate(r, c, 2 * len);
+      i += len;
+    }
+  }
+  void scan_col(int dc) {
+    int bh4 = 1 << (kBlockH2[mi_size] - 2);
+    int end4 = imin(imin(bh4, mi_rows - mi_row), 16), dr = 0;
+    if (std::abs(dc) > 1) {
+      dr = 1 - (mi_row & 1);
+      dc += mi_col & 1;
+    }
+    for (int i = 0; i < end4;) {
+      int r = mi_row + dr + i, c = mi_col + dc;
+      if (!is_inside(r, c)) break;
+      int len = imin(bh4, 1 << (kBlockH2[mi_sizes[idx(r, c)]] - 2));
+      if (std::abs(dc) > 1) len = imax(2, len);
+      if (bh4 >= 16) len = imax(4, len);
+      add_candidate(r, c, 2 * len);
+      i += len;
+    }
+  }
+  void scan_point(int dr, int dc) {
+    int r = mi_row + dr, c = mi_col + dc;
+    if (is_inside(r, c) && decoded[idx(r, c)]) add_candidate(r, c, 4);
+  }
+  void sort_stack(int start, int end) {
+    while (end > start) {
+      int new_end = start;
+      for (int k = start + 1; k < end; k++)
+        if (stack_weight[k - 1] < stack_weight[k]) {
+          std::swap(stack_weight[k - 1], stack_weight[k]);
+          std::swap(stack_mv[k - 1][0], stack_mv[k][0]);
+          std::swap(stack_mv[k - 1][1], stack_mv[k][1]);
+          new_end = k;
+        }
+      end = new_end;
+    }
+  }
+  int read_mv_component(int comp) {
+    int sign = sd.read(cdf.mv_sign[comp], 2);
+    int cls = sd.read(cdf.mv_class[comp], 11);
+    int mag;
+    if (cls == 0) {
+      mag = ((sd.read(cdf.mv_class0[comp], 2) << 3) | (3 << 1) | 1) + 1;
+    } else {
+      int d = 0;
+      for (int i = 0; i < cls; i++) d |= sd.read(cdf.mv_bits[comp][i], 2) << i;
+      mag = (2 << (cls + 2)) + ((d << 3) | (3 << 1) | 1) + 1;
+    }
+    return sign ? -mag : mag;
+  }
+  void assign_dv() {
+    int bw4 = 1 << (kBlockW2[mi_size] - 2), bh4 = 1 << (kBlockH2[mi_size] - 2);
+    num_mv = 0;
+    scan_row(-1);
+    scan_col(-1);
+    if (imax(bw4, bh4) <= 16) scan_point(-1, bw4);
+    int nearest = num_mv;
+    for (int k = 0; k < nearest; k++) stack_weight[k] += 640;  // REF_CAT_LEVEL
+    scan_point(-1, -1);
+    scan_row(-3);
+    scan_col(-3);
+    if (bh4 > 1) scan_row(-5);
+    if (bw4 > 1) scan_col(-5);
+    sort_stack(0, nearest);
+    sort_stack(nearest, num_mv);
+    // extra_search adds no intrabc candidate; the stack's empty entries
+    // hold the zero global MV
+    for (int k = num_mv; k < 2; k++) stack_mv[k][0] = stack_mv[k][1] = 0;
+    int top = -(mi_row * 32) - 128 - bh4 * 32, bottom = (mi_rows - bh4 - mi_row) * 32 + 128 + bh4 * 32;
+    int left = -(mi_col * 32) - 128 - bw4 * 32, right = (mi_cols - bw4 - mi_col) * 32 + 128 + bw4 * 32;
+    for (int k = 0; k < num_mv; k++) {
+      stack_mv[k][0] = clip3(top, bottom, stack_mv[k][0]);
+      stack_mv[k][1] = clip3(left, right, stack_mv[k][1]);
+    }
+    int pred[2] = {stack_mv[0][0], stack_mv[0][1]};
+    if (!pred[0] && !pred[1]) {
+      pred[0] = stack_mv[1][0];
+      pred[1] = stack_mv[1][1];
+    }
+    if (!pred[0] && !pred[1]) {
+      int sb4 = use_128 ? 32 : 16;
+      if (mi_row - sb4 < mi_row_start) {
+        pred[0] = 0;
+        pred[1] = -(sb4 * 4 + 256) * 8;
+      } else {
+        pred[0] = -(sb4 * 4 * 8);
+        pred[1] = 0;
+      }
+    }
+    // read_mv with MvCtx MV_INTRABC_CONTEXT (integer: no fractional bits)
+    int joint = sd.read(cdf.mv_joint, 4);
+    int diff[2] = {0, 0};
+    if (joint == 2 || joint == 3) diff[0] = read_mv_component(0);
+    if (joint == 1 || joint == 3) diff[1] = read_mv_component(1);
+    dv[0] = pred[0] + diff[0];
+    dv[1] = pred[1] + diff[1];
+  }
+
+  // the block's prediction from the frame decoded so far (no in-loop
+  // filter runs on an intrabc frame), each plane through the spec's
+  // block_inter_prediction with BILINEAR taps: integer for luma, and a
+  // half sample where a subsampled chroma plane halves an odd DV
+  void predict_intrabc() {
+    for (int plane = 0; plane < 1 + 2 * has_chroma; plane++) {
+      int sx = plane ? ssx : 0, sy = plane ? ssy : 0;
+      int psz = residual_size(mi_size, plane);
+      int w = 1 << kBlockW2[psz], h = 1 << kBlockH2[psz];
+      int x0 = (mi_col >> sx) * 4, y0 = (mi_row >> sy) * 4;
+      int px = x0 * 16 + ((2 * dv[1]) >> sx), py = y0 * 16 + ((2 * dv[0]) >> sy);
+      int ix = px >> 4, fx = px & 15, iy = py >> 4, fy = py & 15;
+      int last_x = ((mi_cols * 4 + sx) >> sx) - 1, last_y = ((mi_rows * 4 + sy) >> sy) - 1;
+      Plane& pl = planes[plane];
+      static thread_local int32_t mid[129][128];
+      static thread_local uint8_t out[128][128];
+      for (int r = 0; r <= h; r++) {
+        const uint8_t* row = pl.at(clip3(0, last_y, iy + r), 0);
+        for (int c = 0; c < w; c++) {
+          int a = row[clip3(0, last_x, ix + c)], b = row[clip3(0, last_x, ix + c + 1)];
+          mid[r][c] = round2((128 - 8 * fx) * a + 8 * fx * b, 3);
+        }
+      }
+      for (int r = 0; r < h; r++)
+        for (int c = 0; c < w; c++)
+          out[r][c] = clip1(round2((128 - 8 * fy) * mid[r][c] + 8 * fy * mid[r + 1][c], 11));
+      for (int r = 0; r < h; r++) memcpy(pl.at(y0 + r, x0), out[r], w);
     }
   }
 
@@ -1941,25 +2233,81 @@ struct Decoder {
     return 1 << kTxH2[tx_sizes[i]];
   }
 
+  // read_block_tx_size: an intrabc block's transform tree (read_var_tx_size)
+  // where it has coefficients, else one size over the block; the sizes go
+  // into tx_sizes (InterTxSizes)
   void read_block_tx_size() {
-    if (lossless) {
-      tx_sz = TX_4X4;
+    int bw4 = 1 << (kBlockW2[mi_size] - 2), bh4 = 1 << (kBlockH2[mi_size] - 2);
+    int max_rect = max_tx_size_rect(mi_size);
+    if (use_intrabc && tx_mode_select && mi_size > BLOCK_4X4 && !skip && !lossless) {
+      int w4 = 1 << (kTxW2[max_rect] - 2), h4 = 1 << (kTxH2[max_rect] - 2);
+      for (int r = mi_row; r < mi_row + bh4; r += h4)
+        for (int c = mi_col; c < mi_col + bw4; c += w4) read_var_tx_size(r, c, max_rect, 0);
       return;
     }
-    int max_rect = max_tx_size_rect(mi_size);
-    tx_sz = max_rect;
-    if (mi_size > BLOCK_4X4 && tx_mode_select) {
+    tx_sz = lossless ? TX_4X4 : max_rect;
+    if (!lossless && mi_size > BLOCK_4X4 && tx_mode_select && !(skip && use_intrabc)) {
       int depth = 0;
       for (int t = max_rect; t != TX_4X4; t = split_tx_size(t)) depth++;
       int cat = depth - 1;
       int max_depth = imin(depth, 2);
       int max_w = 1 << kTxW2[max_rect], max_h = 1 << kTxH2[max_rect];
-      int above_w = avail_u ? above_tx_width(mi_row, mi_col) : 0;
-      int left_h = avail_l ? left_tx_height(mi_row, mi_col) : 0;
+      // an intrabc neighbour counts with its block's size
+      int above_w = !avail_u ? 0 : is_inters[idx(mi_row - 1, mi_col)]
+                                       ? 1 << kBlockW2[mi_sizes[idx(mi_row - 1, mi_col)]]
+                                       : above_tx_width(mi_row, mi_col);
+      int left_h = !avail_l ? 0 : is_inters[idx(mi_row, mi_col - 1)]
+                                      ? 1 << kBlockH2[mi_sizes[idx(mi_row, mi_col - 1)]]
+                                      : left_tx_height(mi_row, mi_col);
       int ctx = (above_w >= max_w) + (left_h >= max_h);
       int d = sd.read(cdf.tx_size[cat][ctx], max_depth + 1);
       for (int i = 0; i < d; i++) tx_sz = split_tx_size(tx_sz);
     }
+    for (int y = 0; y < imin(bh4, mi_rows - mi_row); y++)
+      for (int x = 0; x < imin(bw4, mi_cols - mi_col); x++) tx_sizes[idx(mi_row + y, mi_col + x)] = (uint8_t)tx_sz;
+  }
+
+  void read_var_tx_size(int r, int c, int t, int depth) {
+    if (r >= mi_rows || c >= mi_cols) return;
+    int split = 0;
+    if (t != TX_4X4 && depth < 2) {
+      int above = tx_width_above(r, c) < (1 << kTxW2[t]);
+      int left = tx_height_left(r, c) < (1 << kTxH2[t]);
+      int size = imin(64, 1 << imax(kBlockW2[mi_size], kBlockH2[mi_size]));
+      int max_sq = floorlog2((uint32_t)size) - 2;  // TX_4X4 .. TX_64X64
+      int ctx = (tx_sqr_up(t) != max_sq) * 3 + (4 - max_sq) * 6 + above + left;
+      split = sd.read(cdf.txfm_split[ctx], 2);
+    }
+    int w4 = 1 << (kTxW2[t] - 2), h4 = 1 << (kTxH2[t] - 2);
+    if (split) {
+      int sub = split_tx_size(t);
+      int sw = 1 << (kTxW2[sub] - 2), sh = 1 << (kTxH2[sub] - 2);
+      for (int i = 0; i < h4; i += sh)
+        for (int j = 0; j < w4; j += sw) read_var_tx_size(r + i, c + j, sub, depth + 1);
+      return;
+    }
+    for (int i = 0; i < h4 && r + i < mi_rows; i++)
+      for (int j = 0; j < w4 && c + j < mi_cols; j++) tx_sizes[idx(r + i, c + j)] = (uint8_t)t;
+    tx_sz = t;
+  }
+
+  // get_above_tx_width / get_left_tx_height: a skipped intrabc block above
+  // or left of the block counts with its block's size
+  int tx_width_above(int r, int c) {
+    if (r == mi_row) {
+      if (!avail_u) return 64;
+      int i = idx(r - 1, c);
+      if (skips[i] && is_inters[i]) return 1 << kBlockW2[mi_sizes[i]];
+    }
+    return above_tx_width(r, c);
+  }
+  int tx_height_left(int r, int c) {
+    if (c == mi_col) {
+      if (!avail_l) return 64;
+      int i = idx(r, c - 1);
+      if (skips[i] && is_inters[i]) return 1 << kBlockH2[mi_sizes[i]];
+    }
+    return left_tx_height(r, c);
   }
 
   // ------------------------------------------------------------- residual
@@ -1986,6 +2334,11 @@ struct Decoder {
           int psz = residual_size(mi_size, plane);
           int n4w = 1 << (kBlockW2[psz] - 2), n4h = 1 << (kBlockH2[psz] - 2);
           int sx = plane ? ssx : 0, sy = plane ? ssy : 0;
+          if (use_intrabc && !lossless && !plane) {
+            transform_tree((mi_col + (cx << 4)) * 4, (mi_row + (cy << 4)) * 4, imin(64, n4w * 4),
+                           imin(64, n4h * 4), sb_mask);
+            continue;
+          }
           int base_x = (mi_col >> sx) * 4, base_y = (mi_row >> sy) * 4;
           for (int y = 0; y < imin(n4h, 16 >> sy); y += step_y)
             for (int x = 0; x < imin(n4w, 16 >> sx); x += step_x)
@@ -1993,6 +2346,26 @@ struct Decoder {
                               y + ((cy << 4) >> sy), sb_mask);
         }
       }
+  }
+
+  // an intrabc block's luma transforms: the tree of its InterTxSizes
+  void transform_tree(int x0, int y0, int w, int h, int sb_mask) {
+    if (x0 >= mi_cols * 4 || y0 >= mi_rows * 4) return;
+    int t = tx_sizes[idx(y0 >> 2, x0 >> 2)];
+    if (w <= (1 << kTxW2[t]) && h <= (1 << kTxH2[t])) {
+      transform_block(0, x0, y0, tx_size(floorlog2((uint32_t)w), floorlog2((uint32_t)h)), 0, 0, sb_mask);
+    } else if (w > h) {
+      transform_tree(x0, y0, w / 2, h, sb_mask);
+      transform_tree(x0 + w / 2, y0, w / 2, h, sb_mask);
+    } else if (w < h) {
+      transform_tree(x0, y0, w, h / 2, sb_mask);
+      transform_tree(x0, y0 + h / 2, w, h / 2, sb_mask);
+    } else {
+      transform_tree(x0, y0, w / 2, h / 2, sb_mask);
+      transform_tree(x0 + w / 2, y0, w / 2, h / 2, sb_mask);
+      transform_tree(x0, y0 + h / 2, w / 2, h / 2, sb_mask);
+      transform_tree(x0 + w / 2, y0 + h / 2, w / 2, h / 2, sb_mask);
+    }
   }
 
   void transform_block(int plane, int base_x, int base_y, int t, int x, int y, int sb_mask) {
@@ -2009,7 +2382,9 @@ struct Decoder {
     int have_above = (plane == 0 ? avail_u : avail_u_chroma) || y > 0;
     int above_rt = block_decoded[plane][(sub_r >> sy) - 1 + 1][(sub_c >> sx) + step_x + 1];
     int below_lft = block_decoded[plane][(sub_r >> sy) + step_y + 1][(sub_c >> sx) - 1 + 1];
-    if (pal_size[plane > 0]) {  // predict_palette
+    if (use_intrabc) {
+      // predicted over the whole block before its transforms
+    } else if (pal_size[plane > 0]) {  // predict_palette
       const uint8_t* colors = pal[plane];
       int w = 1 << kTxW2[t], h = 1 << kTxH2[t];
       for (int i = 0; i < h; i++) {
@@ -2327,6 +2702,10 @@ struct Decoder {
   int plane_tx_set(int t) {
     int sq = tx_sqr(t), up = tx_sqr_up(t);
     if (up > TX_32X32) return 0;
+    if (use_intrabc) {
+      if (reduced_tx_set || up == TX_32X32) return TX_SET_INTER_3;
+      return sq == TX_16X16 ? TX_SET_INTER_2 : TX_SET_INTER_1;
+    }
     if (up == TX_32X32) return 0;
     if (reduced_tx_set) return 2;
     if (sq == TX_16X16) return 2;
@@ -2338,8 +2717,14 @@ struct Decoder {
     int set = plane_tx_set(t);
     if (plane == 0) return tx_types[idx(by4, bx4)];
     int type = kModeToTxfm[uv_mode];
+    if (use_intrabc)  // the luma type at the chroma block's position
+      type = tx_types[idx(imax(mi_row, by4 << ssy), imax(mi_col, bx4 << ssx))];
     bool in_set;
-    if (set == 0) in_set = type == DCT_DCT;
+    if (set == TX_SET_INTER_1) in_set = true;
+    else if (set == TX_SET_INTER_2) in_set = type != V_ADST && type != H_ADST &&
+                                             type != V_FLIPADST && type != H_FLIPADST;
+    else if (set == TX_SET_INTER_3) in_set = type == IDTX || type == DCT_DCT;
+    else if (set == 0) in_set = type == DCT_DCT;
     else if (set == 1) in_set = type == DCT_DCT || type == ADST_DCT || type == DCT_ADST ||
                                 type == ADST_ADST || type == IDTX || type == V_DCT || type == H_DCT;
     else in_set = type == DCT_DCT || type == ADST_DCT || type == DCT_ADST ||
@@ -2355,7 +2740,10 @@ struct Decoder {
       int dir = use_filter_intra ? kFilterIntraModeToIntraDir[filter_intra_mode] : y_mode;
       int sq = tx_sqr(t);
       if (set == 1) type = kTxTypeIntraInvSet1[sd.read(cdf.tx_set1[sq][dir], 7)];
-      else type = kTxTypeIntraInvSet2[sd.read(cdf.tx_set2[sq][dir], 5)];
+      else if (set == 2) type = kTxTypeIntraInvSet2[sd.read(cdf.tx_set2[sq][dir], 5)];
+      else if (set == TX_SET_INTER_1) type = kTxTypeInterInvSet1[sd.read(cdf.inter_set1[sq], 16)];
+      else if (set == TX_SET_INTER_2) type = kTxTypeInterInvSet2[sd.read(cdf.inter_set2, 12)];
+      else type = kTxTypeInterInvSet3[sd.read(cdf.inter_set3[sq], 2)];
     }
     set_tx_types(x4, y4, t, type);
   }
@@ -2571,6 +2959,14 @@ struct Decoder {
     int ac_delta = plane == 0 ? 0 : plane == 1 ? dq_u_ac : dq_v_ac;
     int dc_q = AV1_DC_QLOOKUP[clip3(0, 255, q + dc_delta)];
     int ac_q = AV1_AC_QLOOKUP[clip3(0, 255, q + ac_delta)];
+    // the quantizer matrix of a 2-D transform (not IDTX or the 1-D
+    // identities, not a lossless block's WHT) at a level below 15: aom's
+    // table holds the matrix of the coded size column by column
+    const uint8_t* qm = nullptr;
+    int level = qm_level[plane];
+    if (!lossless && level < 15 && plane_tx_type < IDTX)
+      qm = AV1_QUANTIZER_MATRIX + ((size_t)level * 2 + (plane > 0)) * 3344 +
+           kQmOffset[adjusted_tx_size(t)];
     static thread_local int32_t R[64][64];
     for (int i = 0; i < h; i++)
       for (int j = 0; j < w; j++) R[i][j] = 0;
@@ -2579,6 +2975,7 @@ struct Decoder {
         int32_t cq = quant[i * tw + j];
         if (!cq) continue;
         int qv = (i == 0 && j == 0) ? dc_q : ac_q;
+        if (qm) qv = round2(qv * qm[j * th + i], 5);
         int64_t dq = ((int64_t)std::abs(cq) * qv) & 0xFFFFFF;
         dq >>= dq_shift;
         if (cq < 0) dq = -dq;
@@ -2641,6 +3038,163 @@ struct Decoder {
     if (uses_lr)
       for (int p = 0; p < 3; p++)
         if (lr_type[p] != RESTORE_NONE) restore_plane(p);
+  }
+
+  // ----------------------------------------------------------- film grain
+  // the film grain synthesis process (spec §7.18.3), on the output planes
+  // as dav1d applies it for libavif (whose settings keep dav1d's default
+  // apply_grain): the grain templates from the 16-bit LFSR and the
+  // Gaussian sequence with their auto-regressive filter, then stripe by
+  // stripe of 32 luma rows the 32 x 32 blocks of noise at random offsets,
+  // blended over their overlaps, scaled by the planes' lookups and added,
+  // chroma first (it reads the luma without grain)
+  uint16_t fg_rnd = 0;
+  int fg_random(int bits) {
+    uint32_t r = fg_rnd;
+    uint32_t bit = ((r >> 0) ^ (r >> 1) ^ (r >> 3) ^ (r >> 12)) & 1;
+    r = (r >> 1) | (bit << 15);
+    fg_rnd = (uint16_t)r;
+    return (int)((r >> (16 - bits)) & ((1u << bits) - 1));
+  }
+
+  void film_grain() {
+    if (!fg.apply) return;
+    const int W = frame_w, H = frame_h, np = num_planes();
+    const int gmin = -128, gmax = 127;
+    // the templates: luma 73 x 82, chroma (38 or 73) x (44 or 82)
+    static thread_local int16_t grain[3][73][82];
+    int shift = 4 + fg.grain_scale_shift;
+    int lag = fg.ar_lag;
+    fg_rnd = (uint16_t)fg.seed;
+    for (int y = 0; y < 73; y++)
+      for (int x = 0; x < 82; x++)
+        grain[0][y][x] = (int16_t)(fg.num[0] ? round2(AV1_GAUSSIAN_SEQUENCE[fg_random(11)], shift) : 0);
+    for (int y = 3; y < 73; y++)
+      for (int x = 3; x < 82 - 3; x++) {
+        int sum = 0, pos = 0;
+        for (int dr = -lag; dr <= 0; dr++)
+          for (int dc = -lag; dc <= lag; dc++) {
+            if (dr == 0 && dc == 0) break;
+            sum += grain[0][y + dr][x + dc] * fg.ar[0][pos++];
+          }
+        grain[0][y][x] = (int16_t)clip3(gmin, gmax, grain[0][y][x] + round2(sum, fg.ar_shift));
+      }
+    int cw = ssx ? 44 : 82, ch = ssy ? 38 : 73;
+    for (int p = 1; p < np; p++) {
+      bool on = fg.num[p] || fg.cfl;
+      fg_rnd = (uint16_t)(fg.seed ^ (p == 1 ? 0xb524 : 0x49d8));
+      for (int y = 0; y < ch; y++)
+        for (int x = 0; x < cw; x++)
+          grain[p][y][x] = (int16_t)(on ? round2(AV1_GAUSSIAN_SEQUENCE[fg_random(11)], shift) : 0);
+      if (!on) continue;
+      for (int y = 3; y < ch; y++)
+        for (int x = 3; x < cw - 3; x++) {
+          int sum = 0, pos = 0;
+          for (int dr = -lag; dr <= 0; dr++)
+            for (int dc = -lag; dc <= lag; dc++) {
+              int c = fg.ar[p][pos];
+              if (dr == 0 && dc == 0) {
+                if (fg.num[0]) {
+                  int luma = 0, ly = ((y - 3) << ssy) + 3, lx = ((x - 3) << ssx) + 3;
+                  for (int i = 0; i <= ssy; i++)
+                    for (int j = 0; j <= ssx; j++) luma += grain[0][ly + i][lx + j];
+                  sum += round2(luma, ssx + ssy) * c;
+                }
+                break;
+              }
+              sum += c * grain[p][y + dr][x + dc];
+              pos++;
+            }
+          grain[p][y][x] = (int16_t)clip3(gmin, gmax, grain[p][y][x] + round2(sum, fg.ar_shift));
+        }
+    }
+    // the scaling lookups (chroma from luma's points with chroma_scaling_from_luma)
+    uint8_t lut[3][256];
+    for (int p = 0; p < np; p++) {
+      int src = p == 0 || fg.cfl ? 0 : p, n = fg.num[src];
+      const int (*pts)[2] = fg.points[src];
+      if (!n) {
+        memset(lut[p], 0, 256);
+        continue;
+      }
+      for (int x = 0; x < pts[0][0]; x++) lut[p][x] = (uint8_t)pts[0][1];
+      for (int i = 0; i < n - 1; i++) {
+        int dy = pts[i + 1][1] - pts[i][1], dx = pts[i + 1][0] - pts[i][0];
+        int delta = dy * ((65536 + (dx >> 1)) / dx);
+        for (int x = 0; x < dx; x++) lut[p][pts[i][0] + x] = (uint8_t)(pts[i][1] + ((x * delta + 32768) >> 16));
+      }
+      for (int x = pts[n - 1][0]; x < 256; x++) lut[p][x] = (uint8_t)pts[n - 1][1];
+    }
+    int min_v = fg.clip ? 16 : 0, max_luma = fg.clip ? 235 : 255;
+    int max_chroma = fg.clip ? (matrix == 0 ? 235 : 240) : 255;
+    // the noise stripes of this and the previous 32 luma rows: [plane][row][column]
+    int half = (W + 1) / 2, sw = 2 * (half + 16) + 34;
+    std::vector<int16_t> cur(3 * 34 * (size_t)sw), prev(cur.size());
+    auto at = [&](std::vector<int16_t>& v, int p, int i, int x) -> int16_t& {
+      return v[((size_t)p * 34 + i) * sw + x];
+    };
+    std::vector<int16_t> noise(sw);
+    for (int y0 = 0, num = 0; y0 < half; y0 += 16, num++) {
+      fg_rnd = (uint16_t)(fg.seed ^ (((num * 37 + 178) & 255) << 8) ^ ((num * 173 + 105) & 255));
+      for (int x = 0; x < half; x += 16) {
+        int r = fg_random(8), offx = r >> 4, offy = r & 15;
+        for (int p = 0; p < np; p++) {
+          int psx = p ? ssx : 0, psy = p ? ssy : 0;
+          int ox = psx ? 6 + offx : 9 + offx * 2, oy = psy ? 6 + offy : 9 + offy * 2;
+          for (int i = 0; i < (34 >> psy); i++)
+            for (int j = 0; j < (34 >> psx); j++) {
+              int g = grain[p][oy + i][ox + j];
+              int col = psx ? x + j : x * 2 + j;
+              if (fg.overlap && x > 0 && j < (psx ? 1 : 2)) {
+                int old = at(cur, p, i, col);
+                if (psx) g = old * 23 + g * 22;
+                else g = j == 0 ? old * 27 + g * 17 : old * 17 + g * 27;
+                g = clip3(gmin, gmax, round2(g, 5));
+              }
+              at(cur, p, i, col) = (int16_t)g;
+            }
+        }
+      }
+      // this stripe's rows: chroma first, over the luma without grain
+      for (int p = np - 1; p >= 0; p--) {
+        int psx = p ? ssx : 0, psy = p ? ssy : 0;
+        if (p ? !(fg.num[p] || fg.cfl) : !fg.num[0]) continue;
+        int rows = 32 >> psy, pw = (W + psx) >> psx, ph = (H + psy) >> psy;
+        for (int i = 0; i < rows; i++) {
+          int y = num * rows + i;
+          if (y >= ph) break;
+          for (int x = 0; x < pw; x++) {
+            int g = at(cur, p, i, x);
+            if (fg.overlap && num > 0 && i < (psy ? 1 : 2)) {
+              int old = at(prev, p, i + rows, x);
+              if (psy) g = old * 23 + g * 22;
+              else g = i == 0 ? old * 27 + g * 17 : old * 17 + g * 27;
+              g = clip3(gmin, gmax, round2(g, 5));
+            }
+            noise[x] = (int16_t)g;
+          }
+          uint8_t* row = planes[p].at(y, 0);
+          if (p == 0) {
+            for (int x = 0; x < pw; x++) {
+              int orig = row[x];
+              row[x] = (uint8_t)clip3(min_v, max_luma, orig + round2(lut[0][orig] * noise[x], fg.scaling_shift));
+            }
+            continue;
+          }
+          const uint8_t* luma = planes[0].at(y << psy, 0);
+          for (int x = 0; x < pw; x++) {
+            int lx = x << psx;
+            int avg = psx ? round2(luma[lx] + luma[imin(lx + 1, W - 1)], 1) : luma[lx];
+            int orig = row[x], merged = avg;
+            if (!fg.cfl)
+              merged = clip1(((avg * fg.luma_mult[p] + orig * fg.mult[p]) >> 6) + fg.offset[p]);
+            row[x] = (uint8_t)clip3(min_v, max_chroma,
+                                    orig + round2(lut[p][merged] * noise[x], fg.scaling_shift));
+          }
+        }
+      }
+      std::swap(cur, prev);
+    }
   }
 
   // ----------------------------------------------------------- deblocking
@@ -3225,12 +3779,39 @@ void to_alpha(Decoder& d, int w, int h, uint8_t* out, int64_t stride) {
   }
 }
 
+// libavif's unpremultiply of 8-bit RGBA (an alpha the colour item is
+// premultiplied by, `prem`): libyuv's ARGBUnattenuate as its AVX2 rows run
+// it, read off Pillow's decodes of every (colour, alpha) pair: the colour
+// widened to 16 bits (c * 257) times libyuv's 8.8 reciprocal of alpha
+// (0x10000 / a; 0xffff at 1, 0x100 at 255, 0 at 0), the high half taken as
+// a signed 16-bit word and saturated to a byte (so alpha 1 takes colours
+// from 128 up to 0)
+struct Unattenuate {
+  uint8_t lut[256][256];  // [alpha][colour]
+  Unattenuate() {
+    for (int a = 0; a < 256; a++) {
+      uint32_t ia = a == 0 ? 0 : a == 1 ? 0xffff : a == 255 ? 0x100 : 0x10000 / a;
+      for (int c = 0; c < 256; c++)
+        lut[a][c] = clamp255((int16_t)(uint16_t)(((uint32_t)c * 257 * ia) >> 16));
+    }
+  }
+};
+
+void unpremultiply(int w, int h, uint8_t* out, int64_t stride) {
+  static const Unattenuate u;
+  for (int r = 0; r < h; r++) {
+    uint8_t* o = out + r * stride;
+    for (int x = 0; x < w; x++, o += 4)
+      for (int c = 0; c < 3; c++) o[c] = u.lut[o[3]][o[c]];
+  }
+}
+
 }  // namespace
 
 extern "C" int64_t av1_decode(const uint8_t* obus, int64_t size, const uint8_t* alpha,
                               int64_t alpha_size, int32_t width, int32_t height, int32_t matrix,
-                              int32_t full_range, uint8_t* out, int64_t stride, char* err,
-                              int64_t errlen) {
+                              int32_t full_range, int32_t premultiplied, uint8_t* out,
+                              int64_t stride, char* err, int64_t errlen) {
   try {
     // the alpha item decodes on a thread of its own beside the colour
     // item; the colour item's failure is reported first, as libavif's
@@ -3244,6 +3825,7 @@ extern "C" int64_t av1_decode(const uint8_t* obus, int64_t size, const uint8_t* 
           a.want_h = height;
           a.decode(alpha, (size_t)alpha_size);
           a.loop_filters();
+          a.film_grain();
         } catch (...) {
           alpha_failed = std::current_exception();
         }
@@ -3253,6 +3835,7 @@ extern "C" int64_t av1_decode(const uint8_t* obus, int64_t size, const uint8_t* 
       d.want_h = height;
       d.decode(obus, (size_t)size);
       d.loop_filters();
+      d.film_grain();
     } catch (...) {
       if (alpha_thread.joinable()) alpha_thread.join();
       throw;
@@ -3279,6 +3862,7 @@ extern "C" int64_t av1_decode(const uint8_t* obus, int64_t size, const uint8_t* 
         (m == 0 && d.ssx && !d.mono))
       throw std::runtime_error("Conversion from YUV failed: Reformat failed");
     to_rgb(d, width, height, m, full, out, stride, channels);
+    if (channels == 4 && premultiplied) unpremultiply(width, height, out, stride);
     return 0;
   } catch (const std::exception& e) {
     snprintf(err, (size_t)errlen, "%s", e.what());

@@ -27,16 +27,26 @@ libavif's avifDecoderParse reads the file (read.c):
 
 A file libavif refuses at this point is refused as Pillow refuses it
 (SyntaxError: the next plugin is tried; RuntimeError / ValueError: the open
-fails). The mode is Pillow's "RGBA" where there is an alpha item, else
-"RGB"; the features the port does not read yet raise by name: grid items,
-`avis` image sequences, samples other than 8-bit (from `av1C`), an alpha
-the colour is premultiplied by (`prem`). The items' OBUs go to
-`av1dec.cpp` with the matrix and range of the `colr` nclx box (the
-sequence header's where there is none); the sample layout (4:2:0, 4:2:2,
-4:4:4, monochrome) is the sequence header's. An alpha item of another size
-than the image fails the load, as in libavif. `irot`, `imir` and `clap`
-change no pixels (Pillow turns the first two into an EXIF orientation).
-Pillow's `info` holds ICC, EXIF and XMP as bytes, so the text is empty."""
+fails). An item keeps the last reference of each type in `iref`, as
+libavif's do. The mode is Pillow's "RGBA" where there is an alpha item,
+else "RGB"; the features the port does not read yet raise by name: grid
+items, `avis` image sequences, samples other than 8-bit (from `av1C`). The
+items' OBUs go to `av1dec.cpp` with the matrix and range of the `colr`
+nclx box (the sequence header's where there is none) and whether the
+colour item's last `prem` reference is to the alpha item (libavif then
+unpremultiplies the RGB through libyuv's ARGBUnattenuate: its table and
+rounding read off Pillow's decodes of all 65536 (colour, alpha) pairs,
+test_torch_avif_tools.py); the sample layout (4:2:0, 4:2:2, 4:4:4,
+monochrome) is the sequence header's. An alpha item of another size than
+the image fails the load, as in libavif. `irot`, `imir` and `clap` change
+no pixels (Pillow turns the first two into an EXIF orientation). Pillow's
+`info` holds ICC, EXIF and XMP as bytes, so the text is empty.
+
+Film grain is applied, to the alpha item's stream too: libavif 1.3.0 leaves
+dav1d's `apply_grain` at its default (on). Pillow's decode of a 4:0:0 file
+with aom's `film-grain-test 10` equals the luma Debian's dav1d 1.0.0 gives
+with `apply_grain` 1 and differs from its luma with 0 by up to 6 at 7102 of
+8710 samples."""
 from __future__ import annotations
 
 import struct
@@ -313,7 +323,9 @@ def _parse_iinf(meta: Meta, s: Stream) -> None:
 def _parse_iref(meta: Meta, s: Stream) -> None:
     """libavif reads each reference box's fields on from its header, not
     from its size (a short count leaves the rest to be read as the next
-    box); item IDs are 32-bit in version 1 only, and never 0."""
+    box); item IDs are 32-bit in version 1 only, and never 0. An item keeps
+    the last reference of each type (libavif overwrites its thumbnailForID,
+    auxForID, descForID and premByID at each one)."""
     version, _ = s.version_flags()
     n = 4 if version == 1 else 2
     while s.left() > 0:
@@ -325,7 +337,7 @@ def _parse_iref(meta: Meta, s: Stream) -> None:
             to_id = s.uint(n)
             if to_id == 0:
                 _fail()
-            meta.item(from_id).refs.setdefault(kind, to_id)
+            meta.item(from_id).refs[kind] = to_id
 
 
 def _parse_meta(blob, start: int, end: int) -> Meta:
@@ -402,6 +414,7 @@ class Parsed(NamedTuple):
     full_range: int  # the `colr` nclx range flag, or -1
     alpha: Optional[bytes]  # the alpha item's AV1 data, or None
     alpha_size: Optional[tuple]  # the alpha item's `ispe`
+    premultiplied: bool = False  # a `prem` reference to the alpha item
 
 
 def parse(blob: bytes) -> Parsed:
@@ -485,6 +498,7 @@ def parse(blob: bytes) -> Parsed:
             _item_data(blob, meta, item)
     alpha = _alpha_item(meta, color)
     alpha_obus = alpha_size = None
+    premultiplied = False
     if alpha is not None:
         if alpha.type == b"grid":
             raise ValueError("AVIF grid items are not read by the port yet")
@@ -497,14 +511,13 @@ def parse(blob: bytes) -> Parsed:
             _fail()
         _check_size(*alpha_size)
         alpha_obus = _item_data(blob, meta, alpha)
-        if color.refs.get(b"prem") == alpha.id:
-            raise ValueError("AVIF premultiplied alpha (prem) is not read by "
-                             "the port yet")
+        premultiplied = color.refs.get(b"prem") == alpha.id
     if depth != 8:
         raise ValueError(f"AVIF {depth}-bit samples are not read by the port "
                          "yet")
     return Parsed(width, height, obus, nclx[3] if nclx else -1,
-                  nclx[4] if nclx else -1, alpha_obus, alpha_size)
+                  nclx[4] if nclx else -1, alpha_obus, alpha_size,
+                  premultiplied)
 
 
 def _check_size(width: int, height: int) -> None:
@@ -560,7 +573,7 @@ def read(blob: bytes) -> pixels.Opened:
                               "plane failed")
         try:
             out = _native.av1_decode(p.obus, p.width, p.height, p.matrix,
-                                     p.full_range, p.alpha)
+                                     p.full_range, p.alpha, p.premultiplied)
         except ValueError as e:
             raise RasterError(str(e)) from e
         return pixels.Decoded(mode, out)

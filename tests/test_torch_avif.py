@@ -70,6 +70,10 @@ TOOLS_OFF = {
 }
 MINIMAL = {k: v for d in list(TOOLS_OFF.values())[:7] for k, v in d.items()}
 NOT_YET = "not read by the port yet"
+# the fixtures of the coding tools past Pillow's defaults (quantizer
+# matrices, film grain, premultiplied alpha, intra block copy):
+# tests/test_torch_avif_tools.py writes and checks them
+TOOL_PREFIXES = ("qm_", "fg_", "prem_", "ibc_")
 CDEF = {"enable-cdef": "1"}
 LAYOUTS = ("4:4:4", "4:2:2", "4:0:0")
 
@@ -224,7 +228,8 @@ def layout_files() -> dict:
     saves it as RGBA) and a 1 x 1 RGBA image. Last, the three files the
     port refused by name before it read 4:4:4, alpha and palette blocks
     (the last two need palette blocks: aom codes alpha planes with
-    them)."""
+    them), then the three it refused before it read quantizer matrices,
+    film grain and premultiplied alpha."""
     s = chip_smoke.AVIF_SEED
     base = scene(s, 67, 130)
     big = scene(s + 2, 129, 257)
@@ -270,15 +275,21 @@ def layout_files() -> dict:
     out["was_refused_palette.avif"] = _save(flat, quality=60, speed=6,
                                             advanced={**LF0,
                                                       "enable-palette": "1"})
+    out["was_refused_qm.avif"] = _save(a, quality=50, speed=6, advanced={
+        **LF0, "enable-qm": "1"})
+    out["was_refused_film_grain.avif"] = _save(a, quality=50, speed=6,
+                                               advanced={
+                                                   **LF0,
+                                                   "film-grain-test": "1"})
+    out["was_refused_prem.avif"] = _save(
+        np.dstack([a, alpha_plane(64, 96)]), quality=50, speed=6,
+        advanced=LF0, alpha_premultiplied=True)
     return out
 
 
 # the files the port refuses by name, and the words of each refusal
 REFUSALS = {
     "refuse_10bit.avif": "AVIF 10-bit samples are",
-    "refuse_qm.avif": "AV1 quantizer matrices are",
-    "refuse_film_grain.avif": "AV1 film grain is",
-    "refuse_prem.avif": r"AVIF premultiplied alpha \(prem\) is",
 }
 
 
@@ -293,16 +304,7 @@ def refusal_files() -> dict:
     ten[c] |= 0x40  # high_bitdepth
     p = ten.find(b"pixi") + 9
     ten[p:p + 3] = bytes([10, 10, 10])
-    files = {
-        "refuse_10bit.avif": bytes(ten),
-        "refuse_qm.avif": _save(a, quality=50, speed=6, advanced={
-            **LF0, "enable-qm": "1"}),
-        "refuse_film_grain.avif": _save(a, quality=50, speed=6, advanced={
-            **LF0, "film-grain-test": "1"}),
-        "refuse_prem.avif": _save(np.dstack([a, alpha_plane(64, 96)]),
-                                  quality=50, speed=6, advanced=LF0,
-                                  alpha_premultiplied=True),
-    }
+    files = {"refuse_10bit.avif": bytes(ten)}
     assert list(files) == list(REFUSALS)
     return files
 
@@ -386,12 +388,15 @@ def _outcome(path) -> tuple:
 # ---------------------------------------------------------------------------
 def test_fixtures_are_pillows(tmp_path):
     """tests/data/avif holds what Pillow writes from the seeds, under 1 MB
-    in all, each opening to the SHA-256 chip_smoke pins (AVIF_FIXTURES)."""
+    in all, each opening to the SHA-256 chip_smoke pins (AVIF_FIXTURES; the
+    tool fixtures are checked by tests/test_torch_avif_tools.py)."""
     files = fixture_files()
-    assert list(files) == list(chip_smoke.AVIF_FIXTURES)
+    tools = [n for n in chip_smoke.AVIF_FIXTURES if n.startswith(TOOL_PREFIXES)]
+    assert list(files) == [n for n in chip_smoke.AVIF_FIXTURES
+                           if n not in tools]
     refused = refusal_files()
     on_disk = sorted(p.name for p in AVIF_DIR.glob("*.avif"))
-    assert on_disk == sorted([*files, *refused])
+    assert on_disk == sorted([*files, *refused, *tools])
     assert sum(p.stat().st_size for p in AVIF_DIR.iterdir()) < 1 << 20
     for name, blob in [*files.items(), *refused.items()]:
         assert (AVIF_DIR / name).read_bytes() == blob, name
@@ -438,7 +443,8 @@ def test_la_band_equals_pillows_decode():
     assert (got[..., 3] == 0).any() and (got[..., 3] == 255).any()
 
 
-@pytest.mark.parametrize("name", list(chip_smoke.AVIF_FIXTURES))
+@pytest.mark.parametrize("name", [n for n in chip_smoke.AVIF_FIXTURES
+                                  if not n.startswith(TOOL_PREFIXES)])
 def test_fixture_equals_jax(name):
     got = _equal_to_jax(AVIF_DIR / name)
     with Image.open(AVIF_DIR / name) as im:
@@ -990,6 +996,32 @@ def test_av1_tables_equal_libavif():
     assert (sgr[0:2], sgr[20:22], sgr[28:30]) == ([140, 3236], [0, 2589],
                                                    [56, 0])
     assert tables["WIENER_TAPS_MID"][2] == [3, -7, 15]
+    # Quantizer_Matrix: level 0's luma and chroma 4x4 and the first column
+    # of its luma 4x8 (aom keeps the matrices column by column), level 14's
+    # luma 4x4; the Gaussian sequence's ends and range
+    qm = np.array(tables["QUANTIZER_MATRIX"][2]).reshape(15, 2, 3344)
+    assert list(qm[0, 0, :16]) == [32, 43, 73, 97, 43, 67, 94, 110, 73, 94,
+                                   137, 150, 97, 110, 150, 200]
+    assert list(qm[0, 1, :4]) == [35, 46, 57, 66]
+    assert list(qm[0, 0, 1360:1368]) == [32, 33, 37, 49, 65, 80, 91, 104]
+    assert list(qm[14, 0, :4]) == [31, 31, 31, 31]
+    gauss = tables["GAUSSIAN_SEQUENCE"][2]
+    assert gauss[:4] == [56, 568, -180, 172] and gauss[-1] == -484
+    assert (min(gauss), max(gauss)) == (-1752, 1688)
+    # intra block copy's: txfm_split's first contexts, the inter set 3 and
+    # the MV joint, class, sign, class0 and bit CDFs (the spec's defaults)
+    assert [32768 - r[0] for r in tables["TXFM_SPLIT"][2][:3]] == \
+        [28581, 23846, 20847]
+    assert [32768 - r[0] for r in tables["INTER_TX_SET3"][2]] == \
+        [16384, 4167, 1998, 748]
+    assert [32768 - v for v in tables["MV_JOINT"][2][0]] == \
+        [4096, 11264, 19328]
+    assert 32768 - tables["MV_CLASS"][2][0][0] == 28672
+    assert [32768 - tables[k][2][0][0] for k in ("MV_SIGN", "MV_CLASS0")] \
+        == [16384, 27648]
+    assert [32768 - r[0] for r in tables["MV_BITS"][2]] == \
+        [17408, 17920, 18944, 20480, 22528, 24576, 28672, 29952, 29952,
+         30720]
 
 
 # ---------------------------------------------------------------------------
