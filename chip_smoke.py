@@ -218,27 +218,31 @@ prints no result):
      to the plain resample, and is saved as a CLAHE gray JPEG that reads
      back;
  18. avif: io/avif over sarpro_tpu_torch/_native/av1dec.cpp (libavif
-     1.3.0's container with its alpha item, AV1 intra key frames of 8-bit
-     4:2:0, 4:2:2, 4:4:4 and monochrome samples with palette blocks,
-     quantizer matrices and intra block copy, their in-loop filters
+     1.3.0's container with its alpha item, AV1 intra key frames of 8-, 10-
+     and 12-bit 4:2:0, 4:2:2, 4:4:4 and monochrome samples with palette
+     blocks, quantizer matrices and intra block copy, their in-loop filters
      (deblocking, CDEF, loop restoration) and film grain; libavif's YUV to
      RGB(A) through libyuv and its own code, and its unpremultiply of a
      `prem` alpha) on the files of tests/data/avif (written by Pillow from
      AVIF_SEED; AVIF_FIXTURES pins the SHA-256 of Pillow's decode of each,
-     held in tests/test_torch_avif.py and tests/test_torch_avif_tools.py)
-     and on the four committed 9216^2 SAR-like bands of tests/data/avif_band
-     (Pillow at speed 6, autotiling, loop filter off, AVIF_BAND_SHA256; at
-     speed 4 with CDEF on, so that all three filters are on,
-     AVIF_FILTERED_BAND_SHA256; as "LA", 4:0:0, its alpha a no-data
-     footprint, AVIF_LA_BAND_SHA256; and as premultiplied RGBA with the
-     footprint, quantizer matrices and a grain model aom estimates from the
-     speckle, AVIF_GRAIN_BAND_SHA256), each with a .wld and a .prj beside a
+     held in tests/test_torch_avif.py and tests/test_torch_avif_tools.py;
+     the hbd_ files of 10- and 12-bit samples written by libavif 0.11.1,
+     held in tests/test_torch_avif_depth.py) and on the five committed
+     9216^2 SAR-like bands of tests/data/avif_band (Pillow at speed 6,
+     autotiling, loop filter off, AVIF_BAND_SHA256; at speed 4 with CDEF
+     on, so that all three filters are on, AVIF_FILTERED_BAND_SHA256; as
+     "LA", 4:0:0, its alpha a no-data footprint, AVIF_LA_BAND_SHA256; and
+     as premultiplied RGBA with the footprint, quantizer matrices and a
+     grain model aom estimates from the speckle, AVIF_GRAIN_BAND_SHA256;
+     and make_safe's DN clipped to 12 bits as 12-bit 4:0:0 with the
+     footprint as a 12-bit alpha item, written by libavif 0.11.1 and aom
+     3.6.0, AVIF_DEPTH_BAND_SHA256), each with a .wld and a .prj beside a
      copy of it. Each opens through RasterReader (decode ms on the host
      clock, median of 3, MP/s), decodes to the pinned SHA-256, reads
-     decimated to 2048^2 on the card (cubic; the alpha, band 4, of the LA
-     and grain bands too) with the launch counts set to 0 just before and
-     read just after, bit-equal to the plain resample, and is saved as a
-     CLAHE gray JPEG that reads back;
+     decimated to 2048^2 on the card (cubic; the alpha, band 4, of the LA,
+     grain and 12-bit bands too) with the launch counts set to 0 just
+     before and read just after, bit-equal to the plain resample, and is
+     saved as a CLAHE gray JPEG that reads back;
  19. with --walls N only: every warm path N times more, interleaved, with
      medians and quartiles of its wall; the no-warp synRGB read through
      each of the two loaders (full DN + device resample, decimated read) in
@@ -492,15 +496,25 @@ WEBP_FIXTURES = {
 # model of the speckle and codes the denoised band: quantizer matrices,
 # film grain and the unpremultiply at a band's size, 0.16 MB; the card's
 # machine has no encoder). The files whose names start qm_, fg_, prem_ and
-# ibc_ hold the coding tools past Pillow's defaults.
+# ibc_ hold the coding tools past Pillow's defaults; those that start hbd_
+# (AVIF_DEPTH_PREFIX) hold 10- and 12-bit samples, written by Debian's
+# libavif 0.11.1 (aom 3.6.0, rav1e 0.5.1, SVT-AV1 1.4.1) through
+# tests/avif_encode.py from AVIF_SEED (tests/test_torch_avif_depth.py's
+# depth_files), as is AVIF_DEPTH_BAND: make_safe's DN at AVIF_BAND_SIDE^2
+# clipped to 12 bits, 12-bit 4:0:0 at quantizer AVIF_DEPTH_BAND_QUANTIZER
+# with the footprint as a lossless 12-bit alpha item (depth_band_file,
+# 0.91 MB, 20 s of aom here).
 AVIF_DIR = ROOT / "tests" / "data" / "avif"
 AVIF_BAND = ROOT / "tests" / "data" / "avif_band" / "sar_band_9216.avif"
 AVIF_FILTERED_BAND = AVIF_BAND.with_name("sar_band_9216_filtered.avif")
 AVIF_LA_BAND = AVIF_BAND.with_name("sar_band_9216_la.avif")
 AVIF_GRAIN_BAND = AVIF_BAND.with_name("sar_band_9216_grain.avif")
+AVIF_DEPTH_BAND = AVIF_BAND.with_name("sar_band_9216_12bit.avif")
 AVIF_SEED = 21
 AVIF_BAND_SIDE = 9216
 AVIF_BAND_QUALITY = 10
+AVIF_DEPTH_BAND_QUANTIZER = 47
+AVIF_DEPTH_PREFIX = "hbd_"
 AVIF_FIXTURES = {
     "s6_q10.avif": ("966c408207f06c5bfa8f8a653e78ab3c"
                     "0a675de42b0a9ceba9800899fec375ab"),
@@ -674,6 +688,8 @@ AVIF_FIXTURES = {
                                     "ffc5ecfbae46d0399727cc25160f2434"),
     "was_refused_prem.avif": ("487e0b21579e35c2d89bfe4264aa3307"
                               "cfebf518b1fe9073ab4195c9318050b0"),
+    "was_refused_10bit.avif": ("08659849e81fdbfec892ba484cdb3ac3"
+                               "1dfaa8e02dc3d64a5c9f0b8235d77a18"),
     "qm_l0.avif": ("944aaede8b4effdbf4e6e842c22385a3"
                    "3c6515d3318216a0b2fcdbb2c95c1772"),
     "qm_l4.avif": ("5e616ff24f1d62154493c66cc786374f"
@@ -770,6 +786,158 @@ AVIF_FIXTURES = {
                            "c1004b0d390f808a48d6b575f4f259e1"),
     "ibc_rgba.avif": ("db1ae0782270f5d0a037ab96b671f07c"
                       "8c76395c25d7b3542a764f70140e9054"),
+    "hbd_10_420_full.avif": ("689f352d1a8e7216da512b20ca060ef3"
+                             "35a3a8b7ce106dcb18ddf05e9026bad5"),
+    "hbd_10_420_limited.avif": ("90c22cfcf462a9419510ae01d0c503be"
+                                "99443edf815391ee9d2227f8f123baa7"),
+    "hbd_10_422_full.avif": ("13f225438f5af403cab5b1ebf6ca7b24"
+                             "0c88a45c9943647807ead486f78f908a"),
+    "hbd_10_422_limited.avif": ("5ad4326728bee6397ad4c385c9217411"
+                                "ccc2e24b1cb6c327c1fc1f8671ffa8e3"),
+    "hbd_10_444_full.avif": ("ca7acece393d957c55821b99317aff24"
+                             "478141cd0a680fcc621ca36290c93b60"),
+    "hbd_10_444_limited.avif": ("4873e711b276490b32c808cf274b1a3c"
+                                "52107994942a0e4a82c91e31619b465f"),
+    "hbd_10_400_full.avif": ("97a418099a5065d7a4c0507086781dd9"
+                             "c382f576b4a0c03bd2bfbe1d6892f15a"),
+    "hbd_10_400_limited.avif": ("031796de745420b22e4ebf48a78784ff"
+                                "8b7f86866a30437fb37e14a10049e6b4"),
+    "hbd_10_lf0.avif": ("27ff6fe1739b1bf7dd3d1f941d0faaba"
+                        "0919ed204bed669a2f25749100110096"),
+    "hbd_10_cdef_s4.avif": ("72b55df0c40924536ee3c6893a83ae18"
+                            "209154c5dcc67a257a3f36f3f4a003fd"),
+    "hbd_10_lr_s0.avif": ("72492c24bd739cb8f189ee28329fa30a"
+                          "5d2a8e88f84b59def66db66d3bbc7b93"),
+    "hbd_10_lr_s2.avif": ("55bf20b5cf79ac3a78850cb8e4f346f3"
+                          "492fc86ddee86ba18071558b67cefaed"),
+    "hbd_10_screen_420.avif": ("0275542e4a3a5664079ebce1e8c2ff93"
+                               "afcfa8a4409414f19a00ef85ab5c2457"),
+    "hbd_10_screen_444.avif": ("f2dbd0dfc7273ca434e6791288816d83"
+                               "bc72c953c4e13d636f411113e3023f84"),
+    "hbd_10_qm.avif": ("ece42343fb78f06dde13fa7c030351e8"
+                       "9e69138f64f5f11282a7c7c3337740c6"),
+    "hbd_10_grain.avif": ("4a8462df2acc49ed40007fbc250343fc"
+                          "16e2a5f92d0bdc383c87ac33d549e717"),
+    "hbd_10_fg1.avif": ("83b5998d75410fffd488df86100e1a48"
+                        "944a7e6acfaaaff75dfb17b9fd164a1f"),
+    "hbd_10_fg15.avif": ("c0ff8067216e3280410237b0ca7f1bce"
+                         "8e57d6cf924cbaf8e6d8f614479fc926"),
+    "hbd_10_rgba_420.avif": ("a8d30ca0ab043465624f1e3023dfaf44"
+                             "b0603b52dda5251fd4ec52b8a11701ec"),
+    "hbd_10_rgba_422.avif": ("09d537c1425883a91f2945c4f3a7ff72"
+                             "cd2e45919b129ed505b4549cc016b325"),
+    "hbd_10_rgba_444.avif": ("307d5705c76086ca36209c551d45b881"
+                             "c00c8a311889a49a482021a0402cf0de"),
+    "hbd_10_la.avif": ("6ad225a8902452e25b58fbdb9690d210"
+                       "9f11645bfaf629b8d67d646ca87250bb"),
+    "hbd_10_rgba_speckled.avif": ("74dd26870a994072571ffc4a185edbfc"
+                                  "636987d5bb405b8ff1845a6910f945df"),
+    "hbd_10_prem_420.avif": ("4a69430e347a469961a0e0451111c241"
+                             "f06e29034bfbf35877583b826d3c2365"),
+    "hbd_10_prem_la.avif": ("7f81c78657738c89939c51ec751c9820"
+                            "d6d4aefd7e028a31adc255c8a78e55a5"),
+    "hbd_10_size_7x5.avif": ("6c49233d7b518163f5be5ed8403f6702"
+                             "c4609ec11e0443d47bbb28a6f9bf4407"),
+    "hbd_10_size_257x129.avif": ("d7883493b2937874870832804c80a8df"
+                                 "064312d96a97d8ba57910bff07c46799"),
+    "hbd_12_420_full.avif": ("0f39533077463e058c31bc42ab432ae8"
+                             "9fd108835cf54a5214fd30456e7947c9"),
+    "hbd_12_420_limited.avif": ("6e0bc0c689bb4590a951e53f2fc94a8a"
+                                "8a03f619611d9baa4fdfea30e37ae367"),
+    "hbd_12_422_full.avif": ("dab7a6a56c6b9568c5284e255a9d3b91"
+                             "45b30d97e8078ff86e79fc6f036b9e69"),
+    "hbd_12_422_limited.avif": ("21fae0214e770f4e35d32ae0f1f0bc51"
+                                "167f895dcd90b8fe419d759e34d1e7b5"),
+    "hbd_12_444_full.avif": ("b7ee3abd6109ed0ee12be4aa1497e00b"
+                             "33e4b16a1b410f02a261f933c5820b70"),
+    "hbd_12_444_limited.avif": ("74b703cbe5a4f2b1ab15c849470e40d1"
+                                "566611ac54d31cff2ad3ba9348c01ed2"),
+    "hbd_12_400_full.avif": ("1450052adb3526b665462c7196f33ab6"
+                             "1e2e1ad457c3f7ea5a2d2e160c21bb76"),
+    "hbd_12_400_limited.avif": ("ddafe0a8d37461b1541f4e332a90a4da"
+                                "02dc8a15afcbc91adeb903cc804e302e"),
+    "hbd_12_lf0.avif": ("ca9e7615de39ff9ab83e1df61252658e"
+                        "b2f053d743fa0a08afc5963540317e12"),
+    "hbd_12_cdef_s4.avif": ("344c4a27c5cde2e67b0d3c5d1b49d265"
+                            "ccd70170ef375f2478052881495e7b0f"),
+    "hbd_12_lr_s0.avif": ("d82240dd93ba986c955afb01703c6b30"
+                          "ef3d35312410ba0ba100097dbcba1227"),
+    "hbd_12_lr_s2.avif": ("a9bb21d968a88baffaff6fa637d59e58"
+                          "a09a97f3beafc46e359dad1c4bc22643"),
+    "hbd_12_screen_420.avif": ("eafb38cd8699a911d671227cbcd497a6"
+                               "b9b86073b1f3920df6d1cb2c0ec23a6b"),
+    "hbd_12_screen_444.avif": ("3c2f158c06b02bc07e264b502cda5be4"
+                               "cc3bc2a80496692b11f1b5587e1a1f32"),
+    "hbd_12_qm.avif": ("5cfb51a175784b4cf56d3cc74633b6e0"
+                       "4c126b1435f13db3eadbe5dabd900212"),
+    "hbd_12_grain.avif": ("76fd5cfc64a2f0c84247be2476efc3be"
+                          "df7ca42a94bdc0379efdcef01fe6e276"),
+    "hbd_12_fg1.avif": ("00fda72f45bf5417ec6acde0439507a9"
+                        "2b92515d8aef1df28c32b9be1b278a31"),
+    "hbd_12_fg15.avif": ("3b90f12c5ba05294e7d69bdaf2e59e64"
+                         "47eea3c9d9fb9b88b2126a1807a80b89"),
+    "hbd_12_rgba_420.avif": ("f9e255e195d25f23cee75b39697d82be"
+                             "479f43c52b334b6631882224939758a1"),
+    "hbd_12_rgba_422.avif": ("44c353d8c544f20f1f49e4689f286372"
+                             "b7a0651eef303bea1b668438d0145fc1"),
+    "hbd_12_rgba_444.avif": ("c3aca2dba76bab17ac1fc93105e190c5"
+                             "ad6a69870ea9378071fdde7422212b7d"),
+    "hbd_12_la.avif": ("1c436ccc6b6a48e79382eca44c15dd6d"
+                       "dc2a4210a8e7b9f1827bd16aaa5c34ee"),
+    "hbd_12_rgba_speckled.avif": ("773163569b88ef38e21c3954a944c766"
+                                  "658806c80bc0ac9e9582e60f1f80a9aa"),
+    "hbd_12_prem_420.avif": ("afb646cebf5cc1ac0d3f957ed3515c9e"
+                             "e5f4293203d51b30676ed830ff7f5a3d"),
+    "hbd_12_prem_la.avif": ("9f20b893a1a0b56a8916ace6d853af31"
+                            "9b53f475b78138ea5cafb2f7f1d105ee"),
+    "hbd_12_size_7x5.avif": ("e077c42620148b7abef7e27f4f81153f"
+                             "37c42e08723813f132a09cd3db606c28"),
+    "hbd_12_size_257x129.avif": ("c5d5c41c5455336d9c4e47aeb15848ad"
+                                 "6a96ea7ead82021c808906daa6c9eb5f"),
+    "hbd_rav1e_420.avif": ("4f6cf946958894370a9e37ba27f57710"
+                           "e46e4c56de5df253a5480e9f6680dceb"),
+    "hbd_svt_420.avif": ("de514237092ed2522ae2e89ff2c771ae"
+                         "4e6a97c3215d654131f772a3df886ab2"),
+    "hbd_sweep_10_420.avif": ("8f88537bb70c1d0bcf98d9176713d661"
+                              "8b0aaeecf94da11b0513c5bcdb2e132a"),
+    "hbd_sweep_10_420_a.avif": ("e0341a666e411e37f3bedf7aa9345be5"
+                                "3378d7f26ae6e4681d61a41cddc3ece6"),
+    "hbd_sweep_10_422.avif": ("9d936b93a301db08f484f7e0285d1958"
+                              "449f1c76d2aa50a47b0b229e72d8ed34"),
+    "hbd_sweep_10_422_a.avif": ("a8b5c476620264e864bf81e24b1c576b"
+                                "65d50bd7a514d7cab1d333a666197744"),
+    "hbd_sweep_10_444.avif": ("7127d89d7cbbe64d79381e4dadc860f2"
+                              "6d384b58b75c893aab581cf8cde6ece6"),
+    "hbd_sweep_10_444_a.avif": ("25e98644093ab3b54d673b0f591ea0a1"
+                                "9552532663b682041b5a57bc57b3d1ae"),
+    "hbd_sweep_10_400.avif": ("b27746206cddd157856a78c79b6a3f01"
+                              "cd95822c2cd9fc9132cc5d923038cfce"),
+    "hbd_sweep_10_400_a.avif": ("a9c9e9fb1da8bed180070c35faf624e2"
+                                "94c4d3a9849b3896c5a9d335f79b5892"),
+    "hbd_sweep_10_444_prem.avif": ("f577480c1e7b563b7c220af7ffd8d5ff"
+                                   "4363d02e88b605ca86c5f25694429b73"),
+    "hbd_sweep_10_400_prem.avif": ("60346749f3e87f263bb79083b0a1d4e9"
+                                   "892e548256f4a61600d7aa21f73080ce"),
+    "hbd_sweep_12_420.avif": ("8f88537bb70c1d0bcf98d9176713d661"
+                              "8b0aaeecf94da11b0513c5bcdb2e132a"),
+    "hbd_sweep_12_420_a.avif": ("e036fd8eb6bc00d54bca26234968cafb"
+                                "2f4e38421074e98b40a0ce36e056747a"),
+    "hbd_sweep_12_422.avif": ("9d936b93a301db08f484f7e0285d1958"
+                              "449f1c76d2aa50a47b0b229e72d8ed34"),
+    "hbd_sweep_12_422_a.avif": ("8ed6ebf55c78afcdf7a18934ef6d8aa9"
+                                "422dd89c21b93ad6b4e8832f1f018eee"),
+    "hbd_sweep_12_444.avif": ("7127d89d7cbbe64d79381e4dadc860f2"
+                              "6d384b58b75c893aab581cf8cde6ece6"),
+    "hbd_sweep_12_444_a.avif": ("f246442302254cbecc82130757767ac6"
+                                "3000b3753340473f5269d76cc458abf6"),
+    "hbd_sweep_12_400.avif": ("5d3371b6bd79c1b022b86343061db4f4"
+                              "4bef8962807c5531ee11b0df01ec9ab9"),
+    "hbd_sweep_12_400_a.avif": ("ed236a366abbf75415d5b2b878414951"
+                                "b7abac59ca9adc816ef4e8aae0f109c6"),
+    "hbd_sweep_12_444_prem.avif": ("878dac41daca51b83a70cf5e49120011"
+                                   "763fa139b67f0fcd11d3ebf9832c3ccc"),
+    "hbd_sweep_12_400_prem.avif": ("59ff7b0efe6de8f1f68f30d398d8652a"
+                                   "2ede59fb854a078dee2c5ce8e1ed13e1"),
 }
 AVIF_BAND_SHA256 = ("0fac26190af3efd4cf09c6ceaed08687"
                     "1078c04bb00ad9c2561349724e90840e")
@@ -779,6 +947,8 @@ AVIF_LA_BAND_SHA256 = ("ea4a3137586fde04f28075cba7c1406a"
                        "2fc633ea6cec55c96bb1d2e6131e792f")
 AVIF_GRAIN_BAND_SHA256 = ("283ef3c1aa7c99bfc6b33ade0ce59e29"
                           "8ba2c76bce2f82bd8f1c4b0a139b9ad4")
+AVIF_DEPTH_BAND_SHA256 = ("beb3fae87c53b15b698aed4b6836c63a"
+                          "b4b6cdf082526c4fbc429fbfe45c5607")
 # the rasters phase's JPEG codings: tests/data/jpeg, written from JPEG_SEED
 # on by libjpeg-turbo 3.1.3's own encoder (tests/ljt_encode.py) or Pillow
 # (tests/test_torch_jpeg_coding.py): a SAR-like arithmetic-coded strip
@@ -5039,10 +5209,11 @@ def phase_longtail(work: Path, smi: str) -> dict:
 
 def phase_avif(work: Path, smi: str) -> dict:
     """io/avif on the card's machine: each file of AVIF_FIXTURES and the
-    four committed bands (each with a .wld and a .prj) opens through
+    five committed bands (each with a .wld and a .prj) opens through
     RasterReader (decode timed on the host clock, median of 3), decodes to
     the SHA-256 of Pillow's decode, reads decimated to SIZE^2 on the card
-    (bit-equal to the plain resample; the LA and grain bands' alpha too)
+    (bit-equal to the plain resample; the alpha of the LA, grain and
+    12-bit bands too)
     and is saved as a CLAHE gray JPEG that reads back (but the 1 x 1 files:
     their read is a constant band, whose save launches no histogram).
     Returns the launches of the driven reads and saves."""
@@ -5065,7 +5236,8 @@ def phase_avif(work: Path, smi: str) -> dict:
             ("SAR band, filtered", AVIF_FILTERED_BAND,
              AVIF_FILTERED_BAND_SHA256),
             ("SAR band, LA", AVIF_LA_BAND, AVIF_LA_BAND_SHA256),
-            ("SAR band, grain", AVIF_GRAIN_BAND, AVIF_GRAIN_BAND_SHA256)):
+            ("SAR band, grain", AVIF_GRAIN_BAND, AVIF_GRAIN_BAND_SHA256),
+            ("SAR band, 12-bit LA", AVIF_DEPTH_BAND, AVIF_DEPTH_BAND_SHA256)):
         band = d / src.name
         shutil.copyfile(src, band)
         band.with_suffix(".wld").write_text(
@@ -5101,7 +5273,7 @@ def phase_avif(work: Path, smi: str) -> dict:
                 f"), {mp / wall:.2f} MP/s, equal to Pillow's decode; host "
                 f"CPU {_host_cpu()}; on {smi}")
             del data
-            with_alpha = path in band_paths[2:]  # the LA and grain bands
+            with_alpha = path in band_paths[2:]  # LA, grain, 12-bit LA
             if with_alpha and bands != 4:
                 raise AssertionError(f"avif: {label} opens with {bands} "
                                      "bands, Pillow's RGBA has 4")

@@ -177,6 +177,15 @@ CONSTS = (
                                                 13, 14)),
     Const("AC_QLOOKUP", "int16_t", "<i2", 256, (4, 8, 9, 10, 11, 12, 13, 14,
                                                 15, 16)),
+    # Dc_Qlookup and Ac_Qlookup of 10- and 12-bit samples
+    Const("DC_QLOOKUP_10", "int16_t", "<i2", 256, (4, 9, 10, 13, 15, 17, 20,
+                                                   22, 25, 28)),
+    Const("AC_QLOOKUP_10", "int16_t", "<i2", 256, (4, 9, 11, 13, 16, 18, 21,
+                                                   24, 27, 30)),
+    Const("DC_QLOOKUP_12", "int16_t", "<i2", 256, (4, 12, 18, 25, 33, 41, 50,
+                                                   60, 70, 80)),
+    Const("AC_QLOOKUP_12", "int16_t", "<i2", 256, (4, 13, 19, 27, 35, 44, 54,
+                                                   64, 75, 87)),
     Const("DR_INTRA_DERIVATIVE", "uint16_t", "<u2", 90,
           (0, 0, 0, 1023, 0, 0, 547, 0, 0, 372)),
     # the weights of block sizes 4, 8, 16, 32 and 64, one after the other

@@ -76,7 +76,6 @@ inline int64_t round2l(int64_t x, int n) {
 }
 inline int round2signed(int x, int n) { return x >= 0 ? round2(x, n) : -round2(-x, n); }
 inline int floorlog2(uint32_t x) { int s = 0; while (x > 1) { x >>= 1; s++; } return s; }
-inline uint8_t clip1(int v) { return (uint8_t)(v < 0 ? 0 : v > 255 ? 255 : v); }
 
 // ---------------------------------------------------------------------------
 // bit reader of the headers (spec §4.10)
@@ -709,10 +708,12 @@ const int kHorzKind[16] = {0, 0, 1, 1, 0, 2, 2, 2, 1, 3, 3, 0, 3, 1, 3, 2};
 // ---------------------------------------------------------------------------
 // the decoder
 // ---------------------------------------------------------------------------
+// a plane of samples of any depth (8, 10 or 12 bits), 16 bits each
+typedef uint16_t pixel;
 struct Plane {
   int w = 0, h = 0, stride = 0;
-  std::vector<uint8_t> px;
-  uint8_t* at(int y, int x) { return &px[(size_t)y * stride + x]; }
+  std::vector<pixel> px;
+  pixel* at(int y, int x) { return &px[(size_t)y * stride + x]; }
 };
 
 struct Decoder {
@@ -799,7 +800,7 @@ struct Decoder {
   // the palettes of the blocks above and left of each mi column / row
   // (spec's PaletteSizes and PaletteColors of planes Y and U): a size,
   // then 8 colours
-  std::vector<uint8_t> pal_above[2], pal_left[2];
+  std::vector<pixel> pal_above[2], pal_left[2];
   // coefficient contexts, in 4x4 units of each plane
   std::vector<uint8_t> above_level[3], above_dc[3], left_level[3], left_dc[3];
 
@@ -818,7 +819,7 @@ struct Decoder {
   int cfl_alpha_u = 0, cfl_alpha_v = 0, use_filter_intra = 0, filter_intra_mode = 0;
   int use_intrabc = 0, dv[2] = {0, 0};
   int pal_size[2] = {0};      // PaletteSizeY, PaletteSizeUV
-  uint8_t pal[3][8];          // palette_colors_y, _u, _v
+  pixel pal[3][8];            // palette_colors_y, _u, _v
   uint8_t color_map[2][64][64];  // ColorMapY, ColorMapUV
   int tx_sz = 0;
   int max_luma_w = 0, max_luma_h = 0;
@@ -826,6 +827,9 @@ struct Decoder {
   int32_t quant[1024];
 
   int idx(int r, int c) const { return r * mi_stride + c; }
+  // the spec's Clip1 at BitDepth
+  int pixel_max() const { return (1 << bit_depth) - 1; }
+  pixel clip1(int v) const { return (pixel)clip3(0, pixel_max(), v); }
   int num_planes() const { return mono ? 1 : 3; }
 
   // ---------------------------------------------------------------- OBUs
@@ -1335,7 +1339,6 @@ struct Decoder {
   }
 
   void start_frame() {
-    if (bit_depth != 8) throw NotYet(std::to_string(bit_depth) + "-bit samples", true);
     frame_cdfs.init(base_q_idx);
     mi_stride = mi_cols + 32;
     size_t n = (size_t)mi_stride * (mi_rows + 32);
@@ -1614,14 +1617,14 @@ struct Decoder {
     palette_tokens();
     for (int p = 0; p < 2; p++) {
       for (int x = 0; x < bw4; x++) {
-        uint8_t* a = &pal_above[p][(size_t)(c + x) * 9];
-        a[0] = (uint8_t)pal_size[p];
-        memcpy(a + 1, pal[p], 8);
+        pixel* a = &pal_above[p][(size_t)(c + x) * 9];
+        a[0] = (pixel)pal_size[p];
+        memcpy(a + 1, pal[p], sizeof pal[p]);
       }
       for (int y = 0; y < bh4; y++) {
-        uint8_t* l = &pal_left[p][(size_t)(r + y) * 9];
-        l[0] = (uint8_t)pal_size[p];
-        memcpy(l + 1, pal[p], 8);
+        pixel* l = &pal_left[p][(size_t)(r + y) * 9];
+        l[0] = (pixel)pal_size[p];
+        memcpy(l + 1, pal[p], sizeof pal[p]);
       }
     }
     read_block_tx_size();
@@ -1847,6 +1850,7 @@ struct Decoder {
   // filter runs on an intrabc frame), each plane through the spec's
   // block_inter_prediction with BILINEAR taps: integer for luma, and a
   // half sample where a subsampled chroma plane halves an odd DV
+  // (InterRound0 3 and InterRound1 11, 5 and 9 at 12 bits)
   void predict_intrabc() {
     for (int plane = 0; plane < 1 + 2 * has_chroma; plane++) {
       int sx = plane ? ssx : 0, sy = plane ? ssy : 0;
@@ -1858,18 +1862,19 @@ struct Decoder {
       int last_x = ((mi_cols * 4 + sx) >> sx) - 1, last_y = ((mi_rows * 4 + sy) >> sy) - 1;
       Plane& pl = planes[plane];
       static thread_local int32_t mid[129][128];
-      static thread_local uint8_t out[128][128];
+      static thread_local pixel out[128][128];
+      int round0 = bit_depth == 12 ? 5 : 3, round1 = bit_depth == 12 ? 9 : 11;
       for (int r = 0; r <= h; r++) {
-        const uint8_t* row = pl.at(clip3(0, last_y, iy + r), 0);
+        const pixel* row = pl.at(clip3(0, last_y, iy + r), 0);
         for (int c = 0; c < w; c++) {
           int a = row[clip3(0, last_x, ix + c)], b = row[clip3(0, last_x, ix + c + 1)];
-          mid[r][c] = round2((128 - 8 * fx) * a + 8 * fx * b, 3);
+          mid[r][c] = round2((128 - 8 * fx) * a + 8 * fx * b, round0);
         }
       }
       for (int r = 0; r < h; r++)
         for (int c = 0; c < w; c++)
-          out[r][c] = clip1(round2((128 - 8 * fy) * mid[r][c] + 8 * fy * mid[r + 1][c], 11));
-      for (int r = 0; r < h; r++) memcpy(pl.at(y0 + r, x0), out[r], w);
+          out[r][c] = clip1(round2((128 - 8 * fy) * mid[r][c] + 8 * fy * mid[r + 1][c], round1));
+      for (int r = 0; r < h; r++) memcpy(pl.at(y0 + r, x0), out[r], w * sizeof(pixel));
     }
   }
 
@@ -1886,17 +1891,17 @@ struct Decoder {
 
   // get_palette_cache: the sorted union of the above (not across a 64-row
   // boundary) and left blocks' colours of plane Y (0) or U (1)
-  int palette_cache(int plane, uint8_t* cache) {
-    const uint8_t* a = avail_u && (mi_row & 15) ? &pal_above[plane][(size_t)mi_col * 9] : nullptr;
-    const uint8_t* l = avail_l ? &pal_left[plane][(size_t)mi_row * 9] : nullptr;
+  int palette_cache(int plane, pixel* cache) {
+    const pixel* a = avail_u && (mi_row & 15) ? &pal_above[plane][(size_t)mi_col * 9] : nullptr;
+    const pixel* l = avail_l ? &pal_left[plane][(size_t)mi_row * 9] : nullptr;
     int an = a ? a[0] : 0, ln = l ? l[0] : 0, ai = 0, li = 0, n = 0;
     while (ai < an && li < ln) {
       int ac = a[1 + ai], lc = l[1 + li];
       if (lc < ac) {
-        if (n == 0 || lc != cache[n - 1]) cache[n++] = (uint8_t)lc;
+        if (n == 0 || lc != cache[n - 1]) cache[n++] = (pixel)lc;
         li++;
       } else {
-        if (n == 0 || ac != cache[n - 1]) cache[n++] = (uint8_t)ac;
+        if (n == 0 || ac != cache[n - 1]) cache[n++] = (pixel)ac;
         ai++;
         if (lc == ac) li++;
       }
@@ -1909,20 +1914,21 @@ struct Decoder {
   }
 
   // the colours of plane Y or U: reused from the cache, then the first
-  // literally and the rest as ascending deltas (Y's at least 1), sorted
+  // literally and the rest as ascending deltas (Y's at least 1), sorted;
+  // BitDepth bits each
   void palette_colors(int plane, int n) {
-    uint8_t cache[16];
-    uint8_t* colors = pal[plane];
+    pixel cache[16];
+    pixel* colors = pal[plane];
     int cache_n = palette_cache(plane, cache), idx = 0;
     for (int i = 0; i < cache_n && idx < n; i++)
       if (sd.literal(1)) colors[idx++] = cache[i];
-    if (idx < n) colors[idx++] = (uint8_t)sd.literal(8);
+    if (idx < n) colors[idx++] = (pixel)sd.literal(bit_depth);
     int bits = 0;
-    if (idx < n) bits = 8 - 3 + sd.literal(2);
+    if (idx < n) bits = bit_depth - 3 + sd.literal(2);
     while (idx < n) {
       int delta = sd.literal(bits) + (plane == 0);
       colors[idx] = clip1(colors[idx - 1] + delta);
-      bits = imin(bits, ceil_log2(256 - colors[idx] - (plane == 0)));
+      bits = imin(bits, ceil_log2((1 << bit_depth) - colors[idx] - (plane == 0)));
       idx++;
     }
     std::sort(colors, colors + n);
@@ -1941,20 +1947,20 @@ struct Decoder {
     if (has_chroma && uv_mode == DC_PRED && sd.read(cdf.pal_uv[pal_size[0] > 0], 2)) {
       int n = pal_size[1] = sd.read(cdf.pal_uv_size[bsize_ctx], 7) + 2;
       palette_colors(1, n);
-      uint8_t* v = pal[2];
+      pixel* v = pal[2];
       if (sd.literal(1)) {  // delta_encode_palette_colors_v
-        int bits = 8 - 4 + sd.literal(2);
-        v[0] = (uint8_t)sd.literal(8);
+        int bits = bit_depth - 4 + sd.literal(2), max_val = 1 << bit_depth;
+        v[0] = (pixel)sd.literal(bit_depth);
         for (int i = 1; i < n; i++) {
           int delta = sd.literal(bits);
           if (delta && sd.literal(1)) delta = -delta;
           int val = v[i - 1] + delta;
-          if (val < 0) val += 256;
-          if (val >= 256) val -= 256;
+          if (val < 0) val += max_val;
+          if (val >= max_val) val -= max_val;
           v[i] = clip1(val);
         }
       } else {
-        for (int i = 0; i < n; i++) v[i] = (uint8_t)sd.literal(8);
+        for (int i = 0; i < n; i++) v[i] = (pixel)sd.literal(bit_depth);
       }
     }
   }
@@ -2385,11 +2391,11 @@ struct Decoder {
     if (use_intrabc) {
       // predicted over the whole block before its transforms
     } else if (pal_size[plane > 0]) {  // predict_palette
-      const uint8_t* colors = pal[plane];
+      const pixel* colors = pal[plane];
       int w = 1 << kTxW2[t], h = 1 << kTxH2[t];
       for (int i = 0; i < h; i++) {
         const uint8_t* m = &color_map[plane > 0][y * 4 + i][x * 4];
-        uint8_t* px = planes[plane].at(start_y + i, start_x);
+        pixel* px = planes[plane].at(start_y + i, start_x);
         for (int j = 0; j < w; j++) px[j] = colors[m[j]];
       }
     } else {
@@ -2477,7 +2483,7 @@ struct Decoder {
     if (d <= 0 || d >= 40) return 0;
     return filter_type == 0 ? wh <= 16 : wh <= 8;
   }
-  static void edge_upsample(int16_t* buf, int num_px) {
+  void edge_upsample(int16_t* buf, int num_px) const {
     int16_t dup[80];
     dup[0] = buf[-1];
     for (int i = -1; i < num_px; i++) dup[i + 2] = buf[i];
@@ -2499,22 +2505,22 @@ struct Decoder {
     int max_x = ((mi_cols * 4) >> sx) - 1, max_y = ((mi_rows * 4) >> sy) - 1;
     int16_t* above = above_buf + 16;  // index -16 .. allowed
     int16_t* left = left_buf + 16;
-    int n = w + h;
+    int n = w + h, base = 1 << (bit_depth - 1);
     if (!have_above && have_left) {
       int v = *pl.at(y, x - 1);
       for (int i = 0; i < n; i++) above[i] = (int16_t)v;
     } else if (!have_above && !have_left) {
-      for (int i = 0; i < n; i++) above[i] = 127;
+      for (int i = 0; i < n; i++) above[i] = (int16_t)(base - 1);
     } else {
       int lim = imin(max_x, x + (have_above_rt ? 2 * w : w) - 1);
-      uint8_t* row = pl.at(y - 1, 0);
+      pixel* row = pl.at(y - 1, 0);
       for (int i = 0; i < n; i++) above[i] = row[imin(lim, x + i)];
     }
     if (!have_left && have_above) {
       int v = *pl.at(y - 1, x);
       for (int i = 0; i < n; i++) left[i] = (int16_t)v;
     } else if (!have_left && !have_above) {
-      for (int i = 0; i < n; i++) left[i] = 129;
+      for (int i = 0; i < n; i++) left[i] = (int16_t)(base + 1);
     } else {
       int lim = imin(max_y, y + (have_below_lft ? 2 * h : h) - 1);
       for (int i = 0; i < n; i++) left[i] = *pl.at(imin(lim, y + i), x - 1);
@@ -2523,10 +2529,10 @@ struct Decoder {
     if (have_above && have_left) corner = *pl.at(y - 1, x - 1);
     else if (have_above) corner = *pl.at(y - 1, x);
     else if (have_left) corner = *pl.at(y, x - 1);
-    else corner = 128;
+    else corner = base;
     above[-1] = left[-1] = (int16_t)corner;
 
-    uint8_t pred[64][64];
+    pixel pred[64][64];
     if (plane == 0 && use_filter_intra) {
       int w4 = w >> 2, h2 = h >> 1;
       const int8_t* taps = AV1_FILTER_INTRA_TAPS + filter_intra_mode * 64;
@@ -2615,7 +2621,7 @@ struct Decoder {
           } else {
             v = left[i];
           }
-          pred[i][j] = (uint8_t)v;
+          pred[i][j] = (pixel)v;
         }
     } else if (mode == SMOOTH_PRED || mode == SMOOTH_V_PRED || mode == SMOOTH_H_PRED) {
       const uint8_t* wx = AV1_SM_WEIGHTS + (w - 4);
@@ -2632,7 +2638,7 @@ struct Decoder {
           } else {
             v = round2(wx[j] * left[i] + (256 - wx[j]) * above[w - 1], 8);
           }
-          pred[i][j] = (uint8_t)v;
+          pred[i][j] = (pixel)v;
         }
     } else if (mode == DC_PRED) {
       int avg;
@@ -2651,9 +2657,9 @@ struct Decoder {
         for (int k = 0; k < w; k++) sum += above[k];
         avg = (sum + (w >> 1)) >> log2w;
       } else {
-        avg = 128;
+        avg = base;
       }
-      for (int i = 0; i < h; i++) memset(pred[i], avg, w);
+      for (int i = 0; i < h; i++) std::fill(pred[i], pred[i] + w, (pixel)avg);
     } else {  // PAETH
       for (int i = 0; i < h; i++)
         for (int j = 0; j < w; j++) {
@@ -2664,10 +2670,10 @@ struct Decoder {
           if (p_left <= p_top && p_left <= p_tl) v = left[i];
           else if (p_top <= p_tl) v = above[j];
           else v = above[-1];
-          pred[i][j] = (uint8_t)v;
+          pred[i][j] = (pixel)v;
         }
     }
-    for (int i = 0; i < h; i++) memcpy(pl.at(y + i, x), pred[i], w);
+    for (int i = 0; i < h; i++) memcpy(pl.at(y + i, x), pred[i], w * sizeof(pixel));
   }
 
   void predict_cfl(int plane, int sx0, int sy0, int t) {
@@ -2692,7 +2698,7 @@ struct Decoder {
     Plane& pl = planes[plane];
     for (int i = 0; i < h; i++)
       for (int j = 0; j < w; j++) {
-        uint8_t* px = pl.at(sy0 + i, sx0 + j);
+        pixel* px = pl.at(sy0 + i, sx0 + j);
         int scaled = round2signed(alpha * (L[i][j] - lavg), 6);
         *px = clip1(*px + scaled);
       }
@@ -2957,8 +2963,12 @@ struct Decoder {
     int q = get_qidx(0, segment_id);
     int dc_delta = plane == 0 ? dq_y_dc : plane == 1 ? dq_u_dc : dq_v_dc;
     int ac_delta = plane == 0 ? 0 : plane == 1 ? dq_u_ac : dq_v_ac;
-    int dc_q = AV1_DC_QLOOKUP[clip3(0, 255, q + dc_delta)];
-    int ac_q = AV1_AC_QLOOKUP[clip3(0, 255, q + ac_delta)];
+    const int16_t* dc_lookup = bit_depth == 12 ? AV1_DC_QLOOKUP_12
+                               : bit_depth == 10 ? AV1_DC_QLOOKUP_10 : AV1_DC_QLOOKUP;
+    const int16_t* ac_lookup = bit_depth == 12 ? AV1_AC_QLOOKUP_12
+                               : bit_depth == 10 ? AV1_AC_QLOOKUP_10 : AV1_AC_QLOOKUP;
+    int dc_q = dc_lookup[clip3(0, 255, q + dc_delta)];
+    int ac_q = ac_lookup[clip3(0, 255, q + ac_delta)];
     // the quantizer matrix of a 2-D transform (not IDTX or the 1-D
     // identities, not a lossless block's WHT) at a level below 15: aom's
     // table holds the matrix of the coded size column by column
@@ -2968,6 +2978,10 @@ struct Decoder {
       qm = AV1_QUANTIZER_MATRIX + ((size_t)level * 2 + (plane > 0)) * 3344 +
            kQmOffset[adjusted_tx_size(t)];
     static thread_local int32_t R[64][64];
+    // dequantised coefficients and the row transforms' inputs in BitDepth
+    // + 8 bits, the column transforms' in Max(BitDepth + 6, 16)
+    const int32_t lo = -(1 << (bit_depth + 7)), hi = (1 << (bit_depth + 7)) - 1;
+    const int32_t clo = -(1 << imax(bit_depth + 5, 15)), chi = (1 << imax(bit_depth + 5, 15)) - 1;
     for (int i = 0; i < h; i++)
       for (int j = 0; j < w; j++) R[i][j] = 0;
     for (int i = 0; i < th; i++)
@@ -2979,7 +2993,7 @@ struct Decoder {
         int64_t dq = ((int64_t)std::abs(cq) * qv) & 0xFFFFFF;
         dq >>= dq_shift;
         if (cq < 0) dq = -dq;
-        R[i][j] = (int32_t)std::max<int64_t>(-32768, std::min<int64_t>(32767, dq));
+        R[i][j] = (int32_t)std::max<int64_t>(lo, std::min<int64_t>(hi, dq));
       }
     int type = plane_tx_type;
     int32_t T[64];
@@ -2998,8 +3012,6 @@ struct Decoder {
     } else {
       int row_shift = kTransformRowShift[t];
       int hk = kHorzKind[type], vk = kVertKind[type];
-      const int32_t lo = -(1 << 15), hi = (1 << 15) - 1;  // BitDepth + 8 bits
-      const int32_t clo = -(1 << 15), chi = (1 << 15) - 1;  // Max(BitDepth + 6, 16)
       for (int i = 0; i < imin(32, h); i++) {
         for (int j = 0; j < w; j++) T[j] = (j < 32) ? R[i][j] : 0;
         if (std::abs(log2w - log2h) == 1)
@@ -3018,7 +3030,7 @@ struct Decoder {
     }
     Plane& pl = planes[plane];
     for (int i = 0; i < h; i++) {
-      uint8_t* row = pl.at(y + i, x);
+      pixel* row = pl.at(y + i, x);
       for (int j = 0; j < w; j++) row[j] = clip1(row[j] + R[i][j]);
     }
   }
@@ -3047,7 +3059,11 @@ struct Decoder {
   // Gaussian sequence with their auto-regressive filter, then stripe by
   // stripe of 32 luma rows the 32 x 32 blocks of noise at random offsets,
   // blended over their overlaps, scaled by the planes' lookups and added,
-  // chroma first (it reads the luma without grain)
+  // chroma first (it reads the luma without grain). At BitDepth the
+  // Gaussian sequence is rounded by 12 - BitDepth + grain_scale_shift bits,
+  // the grain's range and the clips widen by BitDepth - 8 bits, and the
+  // scaling lookup is interpolated between its 256 points (dav1d's
+  // generate_scaling, the spec's scale_lut)
   uint16_t fg_rnd = 0;
   int fg_random(int bits) {
     uint32_t r = fg_rnd;
@@ -3059,11 +3075,11 @@ struct Decoder {
 
   void film_grain() {
     if (!fg.apply) return;
-    const int W = frame_w, H = frame_h, np = num_planes();
-    const int gmin = -128, gmax = 127;
+    const int W = frame_w, H = frame_h, np = num_planes(), bd8 = bit_depth - 8;
+    const int gmin = -(128 << bd8), gmax = (128 << bd8) - 1;
     // the templates: luma 73 x 82, chroma (38 or 73) x (44 or 82)
     static thread_local int16_t grain[3][73][82];
-    int shift = 4 + fg.grain_scale_shift;
+    int shift = 4 - bd8 + fg.grain_scale_shift;
     int lag = fg.ar_lag;
     fg_rnd = (uint16_t)fg.seed;
     for (int y = 0; y < 73; y++)
@@ -3109,24 +3125,32 @@ struct Decoder {
         }
     }
     // the scaling lookups (chroma from luma's points with chroma_scaling_from_luma)
-    uint8_t lut[3][256];
+    const int lut_size = 1 << bit_depth, pad = 1 << bd8;
+    std::vector<uint8_t> lut_store(3 * (size_t)lut_size);
+    uint8_t* lut[3] = {&lut_store[0], &lut_store[lut_size], &lut_store[2 * (size_t)lut_size]};
     for (int p = 0; p < np; p++) {
       int src = p == 0 || fg.cfl ? 0 : p, n = fg.num[src];
       const int (*pts)[2] = fg.points[src];
-      if (!n) {
-        memset(lut[p], 0, 256);
-        continue;
-      }
-      for (int x = 0; x < pts[0][0]; x++) lut[p][x] = (uint8_t)pts[0][1];
+      if (!n) continue;
+      uint8_t* l = lut[p];
+      for (int x = 0; x < pts[0][0] << bd8; x++) l[x] = (uint8_t)pts[0][1];
       for (int i = 0; i < n - 1; i++) {
         int dy = pts[i + 1][1] - pts[i][1], dx = pts[i + 1][0] - pts[i][0];
         int delta = dy * ((65536 + (dx >> 1)) / dx);
-        for (int x = 0; x < dx; x++) lut[p][pts[i][0] + x] = (uint8_t)(pts[i][1] + ((x * delta + 32768) >> 16));
+        for (int x = 0; x < dx; x++) l[(pts[i][0] + x) << bd8] = (uint8_t)(pts[i][1] + ((x * delta + 32768) >> 16));
       }
-      for (int x = pts[n - 1][0]; x < 256; x++) lut[p][x] = (uint8_t)pts[n - 1][1];
+      for (int x = pts[n - 1][0] << bd8; x < lut_size; x++) l[x] = (uint8_t)pts[n - 1][1];
+      for (int i = 0; bd8 && i < n - 1; i++)
+        for (int x = pts[i][0] << bd8; x < pts[i + 1][0] << bd8; x += pad) {
+          int range = l[x + pad] - l[x];
+          for (int k = 1, r = pad >> 1; k < pad; k++) {
+            r += range;
+            l[x + k] = (uint8_t)(l[x] + (r >> bd8));
+          }
+        }
     }
-    int min_v = fg.clip ? 16 : 0, max_luma = fg.clip ? 235 : 255;
-    int max_chroma = fg.clip ? (matrix == 0 ? 235 : 240) : 255;
+    int min_v = fg.clip ? 16 << bd8 : 0, max_luma = fg.clip ? 235 << bd8 : pixel_max();
+    int max_chroma = fg.clip ? (matrix == 0 ? 235 : 240) << bd8 : pixel_max();
     // the noise stripes of this and the previous 32 luma rows: [plane][row][column]
     int half = (W + 1) / 2, sw = 2 * (half + 16) + 34;
     std::vector<int16_t> cur(3 * 34 * (size_t)sw), prev(cur.size());
@@ -3173,22 +3197,22 @@ struct Decoder {
             }
             noise[x] = (int16_t)g;
           }
-          uint8_t* row = planes[p].at(y, 0);
+          pixel* row = planes[p].at(y, 0);
           if (p == 0) {
             for (int x = 0; x < pw; x++) {
               int orig = row[x];
-              row[x] = (uint8_t)clip3(min_v, max_luma, orig + round2(lut[0][orig] * noise[x], fg.scaling_shift));
+              row[x] = (pixel)clip3(min_v, max_luma, orig + round2(lut[0][orig] * noise[x], fg.scaling_shift));
             }
             continue;
           }
-          const uint8_t* luma = planes[0].at(y << psy, 0);
+          const pixel* luma = planes[0].at(y << psy, 0);
           for (int x = 0; x < pw; x++) {
             int lx = x << psx;
             int avg = psx ? round2(luma[lx] + luma[imin(lx + 1, W - 1)], 1) : luma[lx];
             int orig = row[x], merged = avg;
             if (!fg.cfl)
-              merged = clip1(((avg * fg.luma_mult[p] + orig * fg.mult[p]) >> 6) + fg.offset[p]);
-            row[x] = (uint8_t)clip3(min_v, max_chroma,
+              merged = clip1(((avg * fg.luma_mult[p] + orig * fg.mult[p]) >> 6) + fg.offset[p] * (1 << bd8));
+            row[x] = (pixel)clip3(min_v, max_chroma,
                                     orig + round2(lut[p][merged] * noise[x], fg.scaling_shift));
           }
         }
@@ -3241,14 +3265,17 @@ struct Decoder {
     int blimit = 2 * (lvl + 2) + limit, thresh = lvl >> 4;
     Plane& pl = planes[plane];
     ptrdiff_t across = pass ? pl.stride : 1, along = pass ? 1 : pl.stride;
-    uint8_t* q0 = pl.at(yp, xp);
-    for (int i = 0; i < 4; i++) lf_sample(q0 + i * along, across, plane, size, limit, blimit, thresh);
+    pixel* q0 = pl.at(yp, xp);
+    int bd8 = bit_depth - 8;
+    for (int i = 0; i < 4; i++)
+      lf_sample(q0 + i * along, across, plane, size, limit << bd8, blimit << bd8, thresh << bd8, bd8);
   }
 
   // the masks and filters of one sample position; s points at q0, p_k is
-  // s[-(k + 1) * st], q_k s[k * st]
-  static void lf_sample(uint8_t* s, ptrdiff_t st, int plane, int size, int limit, int blimit,
-                        int thresh) {
+  // s[-(k + 1) * st], q_k s[k * st]; the limits come scaled to BitDepth,
+  // and bd8 = BitDepth - 8 scales the flatness test and the narrow filter
+  static void lf_sample(pixel* s, ptrdiff_t st, int plane, int size, int limit, int blimit,
+                        int thresh, int bd8) {
     auto P = [&](int k) -> int { return s[-(k + 1) * st]; };
     auto Q = [&](int k) -> int { return s[k * st]; };
     int p0 = P(0), p1 = P(1), q0 = Q(0), q1 = Q(1);
@@ -3269,28 +3296,30 @@ struct Decoder {
     }
     bool hev = std::abs(p1 - p0) > thresh || std::abs(q1 - q0) > thresh;
     bool flat = false, flat2 = false;
+    const int one = 1 << bd8;
     if (size >= 8) {
-      flat = std::abs(p1 - p0) <= 1 && std::abs(q1 - q0) <= 1 && std::abs(p2 - p0) <= 1 &&
-             std::abs(q2 - q0) <= 1;
-      if (len >= 8) flat = flat && std::abs(p3 - p0) <= 1 && std::abs(q3 - q0) <= 1;
+      flat = std::abs(p1 - p0) <= one && std::abs(q1 - q0) <= one && std::abs(p2 - p0) <= one &&
+             std::abs(q2 - q0) <= one;
+      if (len >= 8) flat = flat && std::abs(p3 - p0) <= one && std::abs(q3 - q0) <= one;
     }
     if (size >= 16) {
       flat2 = true;
       for (int k = 4; k <= 6; k++)
-        flat2 = flat2 && std::abs(P(k) - p0) <= 1 && std::abs(Q(k) - q0) <= 1;
+        flat2 = flat2 && std::abs(P(k) - p0) <= one && std::abs(Q(k) - q0) <= one;
     }
     if (size == 4 || !flat) {  // the narrow filter
-      auto c4 = [](int v) { return clip3(-128, 127, v); };
-      int ps1 = p1 - 128, ps0 = p0 - 128, qs0 = q0 - 128, qs1 = q1 - 128;
+      const int half = 128 << bd8;
+      auto c4 = [half](int v) { return clip3(-half, half - 1, v); };
+      int ps1 = p1 - half, ps0 = p0 - half, qs0 = q0 - half, qs1 = q1 - half;
       int f = hev ? c4(ps1 - qs1) : 0;
       f = c4(f + 3 * (qs0 - ps0));
       int f1 = c4(f + 4) >> 3, f2 = c4(f + 3) >> 3;
-      s[0] = (uint8_t)(c4(qs0 - f1) + 128);
-      s[-st] = (uint8_t)(c4(ps0 + f2) + 128);
+      s[0] = (pixel)(c4(qs0 - f1) + half);
+      s[-st] = (pixel)(c4(ps0 + f2) + half);
       if (!hev) {
         f = round2(f1, 1);
-        s[st] = (uint8_t)(c4(qs1 - f) + 128);
-        s[-2 * st] = (uint8_t)(c4(ps1 + f) + 128);
+        s[st] = (pixel)(c4(qs1 - f) + half);
+        s[-2 * st] = (pixel)(c4(ps1 + f) + half);
       }
       return;
     }
@@ -3305,7 +3334,7 @@ struct Decoder {
       for (int j = -n; j <= n; j++) t += F[clip3(-(n + 1), n, i + j) + 8] * (std::abs(j) <= n2 ? 2 : 1);
       out[i + n] = round2(t, log2);
     }
-    for (int i = -n; i < n; i++) s[i * st] = (uint8_t)out[i + n];
+    for (int i = -n; i < n; i++) s[i * st] = (pixel)out[i + n];
   }
 
   // ----------------------------------------------------------------- CDEF
@@ -3335,17 +3364,18 @@ struct Decoder {
         if (id == -1) continue;
         if (skips[idx(r, c)] && skips[idx(r + 1, c)] && skips[idx(r, c + 1)] && skips[idx(r + 1, c + 1)])
           continue;
-        int var = 0, ydir = cdef_direction(r, c, &var);
-        int pri = cdef_strengths[id][0][0], sec = cdef_strengths[id][0][1];
+        // the strengths and damping scaled by BitDepth - 8 (coeffShift)
+        int var = 0, ydir = cdef_direction(r, c, &var), bd8 = bit_depth - 8;
+        int pri = cdef_strengths[id][0][0] << bd8, sec = cdef_strengths[id][0][1] << bd8;
         int dir = pri ? ydir : 0;
         int var_str = (var >> 6) ? imin(floorlog2((uint32_t)(var >> 6)), 12) : 0;
         pri = var ? (pri * (4 + var_str) + 8) >> 4 : 0;
-        cdef_filter(0, r, c, pri, sec, cdef_damping, dir);
-        pri = cdef_strengths[id][1][0];
-        sec = cdef_strengths[id][1][1];
+        cdef_filter(0, r, c, pri, sec, cdef_damping + bd8, dir);
+        pri = cdef_strengths[id][1][0] << bd8;
+        sec = cdef_strengths[id][1][1] << bd8;
         // Cdef_Uv_Dir: the identity on 4:2:0 and 4:4:4
         dir = !pri ? 0 : ssx == ssy ? ydir : AV1_CDEF_UV_DIR[(ssx ? 8 : 0) + ydir];
-        for (int p = 1; p < num_planes(); p++) cdef_filter(p, r, c, pri, sec, cdef_damping - 1, dir);
+        for (int p = 1; p < num_planes(); p++) cdef_filter(p, r, c, pri, sec, cdef_damping - 1 + bd8, dir);
       }
   }
 
@@ -3355,9 +3385,9 @@ struct Decoder {
     int partial[8][15] = {{0}};
     const Plane& pl = pre[0];
     for (int i = 0; i < 8; i++) {
-      const uint8_t* row = pl.px.data() + (size_t)(r * 4 + i) * pl.stride + c * 4;
+      const pixel* row = pl.px.data() + (size_t)(r * 4 + i) * pl.stride + c * 4;
       for (int j = 0; j < 8; j++) {
-        int x = row[j] - 128;
+        int x = (row[j] >> (bit_depth - 8)) - 128;
         partial[0][i + j] += x;
         partial[1][i + j / 2] += x;
         partial[2][i] += x;
@@ -3427,7 +3457,7 @@ struct Decoder {
         px[i * S + j] = y < 0 || y >= ph || x < 0 || x >= pw
                             ? kCdefLarge : src.px[(size_t)y * src.stride + x];
       }
-    const int32_t* pri_taps = AV1_CDEF_PRI_TAPS + 2 * (pri & 1);
+    const int32_t* pri_taps = AV1_CDEF_PRI_TAPS + 2 * ((pri >> (bit_depth - 8)) & 1);
     int pri_adj = pri ? imax(0, damping - floorlog2((uint32_t)pri)) : 0;
     int sec_adj = sec ? imax(0, damping - floorlog2((uint32_t)sec)) : 0;
     const CdefDirs& dirs = cdef_dirs();
@@ -3461,7 +3491,7 @@ struct Decoder {
     for (int i = 0; i < h; i++)
       for (int j = 0; j < w; j++) {
         int n = i * 8 + j;
-        *dst.at(y0 + i, x0 + j) = (uint8_t)clip3(mn[n], mx[n], v[n] + ((8 + sum[n] - (sum[n] < 0)) >> 4));
+        *dst.at(y0 + i, x0 + j) = (pixel)clip3(mn[n], mx[n], v[n] + ((8 + sum[n] - (sum[n] < 0)) >> 4));
       }
   }
 
@@ -3477,7 +3507,7 @@ struct Decoder {
     int sx = p ? ssx : 0, sy = p ? ssy : 0;
     int pw = (frame_w + sx) >> sx, ph = (frame_h + sy) >> sy;
     int unit = lr_size[p], bw = pw + 2 * kLrMargin;
-    std::vector<uint8_t> buf((size_t)bw * ((64 >> sy) + 6));
+    std::vector<pixel> buf((size_t)bw * ((64 >> sy) + 6));
     for (int k = 0; k * 64 - 8 < frame_h; k++) {
       int start = (k * 64 - 8) >> sy, end = start + (64 >> sy) - 1;  // StripeStartY / EndY
       int y0 = imax(0, start), y1 = imin(ph, end + 1);
@@ -3491,9 +3521,9 @@ struct Decoder {
           y = imin(end + 2, y);
           src = &pre[p];
         }
-        const uint8_t* s = src->px.data() + (size_t)y * src->stride;
-        uint8_t* row = &buf[(size_t)(yy - y0 + 3) * bw + kLrMargin];
-        memcpy(row, s, pw);
+        const pixel* s = src->px.data() + (size_t)y * src->stride;
+        pixel* row = &buf[(size_t)(yy - y0 + 3) * bw + kLrMargin];
+        memcpy(row, s, pw * sizeof(pixel));
         for (int x = 1; x <= kLrMargin; x++) {
           row[-x] = s[0];
           row[pw - 1 + x] = s[pw - 1];
@@ -3504,8 +3534,9 @@ struct Decoder {
         int x0 = uc * unit, x1 = uc == lr_cols[p] - 1 ? pw : (uc + 1) * unit;
         const LrUnit& u = lr_units[p][(size_t)unit_row * lr_cols[p] + uc];
         // buf's sample at (row y0 + i, column x0 + j)
-        const uint8_t* at = &buf[(size_t)3 * bw + kLrMargin + x0];
-        if (u.type == RESTORE_WIENER) lr_wiener(u, at, bw, x1 - x0, y1 - y0, planes[p].at(y0, x0), planes[p].stride);
+        const pixel* at = &buf[(size_t)3 * bw + kLrMargin + x0];
+        if (u.type == RESTORE_WIENER)
+          lr_wiener(u, at, bw, x1 - x0, y1 - y0, planes[p].at(y0, x0), planes[p].stride);
         else if (u.type == RESTORE_SGRPROJ)
           lr_sgrproj(u, at, bw, x1 - x0, y1 - y0, y0, planes[p].at(y0, x0), planes[p].stride);
       }
@@ -3513,8 +3544,8 @@ struct Decoder {
   }
 
   // the Wiener filter: 7 taps, the centre tap 128 less twice the others
-  static void lr_wiener(const LrUnit& u, const uint8_t* src, int bw, int w, int h, uint8_t* dst,
-                        int stride) {
+  void lr_wiener(const LrUnit& u, const pixel* src, int bw, int w, int h, pixel* dst,
+                 int stride) const {
     int f[2][7];
     for (int pass = 0; pass < 2; pass++) {
       f[pass][3] = 128;
@@ -3523,29 +3554,30 @@ struct Decoder {
         f[pass][3] -= 2 * u.wiener[pass][i];
       }
     }
-    // InterRound0 3, InterRound1 11 at 8 bits
-    const int offset = 1 << 11, limit = (1 << 13) - 1;
+    // InterRound0 3 and InterRound1 11, 5 and 9 at 12 bits
+    const int round0 = bit_depth == 12 ? 5 : 3, round1 = bit_depth == 12 ? 9 : 11;
+    const int offset = 1 << (bit_depth + 6 - round0), limit = (1 << (bit_depth + 8 - round0)) - 1;
     std::vector<int> inter((size_t)(h + 6) * w);
     for (int r = 0; r < h + 6; r++) {
-      const uint8_t* s = src + (ptrdiff_t)(r - 3) * bw - 3;
+      const pixel* s = src + (ptrdiff_t)(r - 3) * bw - 3;
       for (int c = 0; c < w; c++) {
         int t = 0;
         for (int k = 0; k < 7; k++) t += f[1][k] * s[c + k];
-        inter[(size_t)r * w + c] = clip3(-offset, limit - offset, round2(t, 3));
+        inter[(size_t)r * w + c] = clip3(-offset, limit - offset, round2(t, round0));
       }
     }
     for (int r = 0; r < h; r++)
       for (int c = 0; c < w; c++) {
         int t = 0;
         for (int k = 0; k < 7; k++) t += f[0][k] * inter[(size_t)(r + k) * w + c];
-        dst[(size_t)r * stride + c] = clip1(round2(t, 11));
+        dst[(size_t)r * stride + c] = clip1(round2(t, round1));
       }
   }
 
   // the self-guided filter: the r = 2 and r = 1 box passes of the unit's
   // set (a pass whose scale is 0 is not run), projected with w0, w1, w2
-  static void lr_sgrproj(const LrUnit& u, const uint8_t* src, int bw, int w, int h, int y0,
-                         uint8_t* dst, int stride) {
+  void lr_sgrproj(const LrUnit& u, const pixel* src, int bw, int w, int h, int y0, pixel* dst,
+                  int stride) const {
     int s0 = AV1_SGR_PARAMS[2 * u.sgr_set], s1 = AV1_SGR_PARAMS[2 * u.sgr_set + 1];
     std::vector<int> f0, f1;
     if (s0) box_filter(src, bw, w, h, y0, 2, s0, 0, f0);
@@ -3561,9 +3593,10 @@ struct Decoder {
   }
 
   // one box pass of radius r into F (h x w); the r = 2 pass keeps A and B
-  // of the odd rows only (y0 is even)
-  static void box_filter(const uint8_t* src, int bw, int w, int h, int y0, int r, int s,
-                         int pass, std::vector<int>& F) {
+  // of the odd rows only (y0 is even); past 8 bits the variance is taken of
+  // the sums rounded back to 8 bits
+  void box_filter(const pixel* src, int bw, int w, int h, int y0, int r, int s, int pass,
+                  std::vector<int>& F) const {
     int n = (2 * r + 1) * (2 * r + 1), one_over_n = ((1 << 12) + n / 2) / n;
     int aw = w + 2;
     std::vector<int> A((size_t)(h + 2) * aw), B((size_t)(h + 2) * aw);
@@ -3587,7 +3620,9 @@ struct Decoder {
           a += cq[j + dx + 1 + r];
           b += cs[j + dx + 1 + r];
         }
-        int p = imax(0, a * n - b * b);
+        int bd8 = bit_depth - 8;
+        int a8 = round2(a, 2 * bd8), d8 = round2(b, bd8);
+        int p = imax(0, a8 * n - d8 * d8);
         int z = (int)round2l((int64_t)p * s, 20);
         int a2 = z >= 255 ? 256 : z == 0 ? 1 : ((z << 8) + z / 2) / (z + 1);
         int64_t b2 = (int64_t)((1 << 8) - a2) * b * one_over_n;
@@ -3618,11 +3653,16 @@ struct Decoder {
 };
 
 // ---------------------------------------------------------------------------
-// YUV to RGB as libavif 1.3.0 converts 8-bit samples for Pillow: through
-// libyuv for 4:2:0 (bilinear chroma upsampling), 4:2:2 (linear, along the
-// rows) and 4:4:4 with the BT.601 / 709 / 2020 matrices (libyuv's
-// YuvConstants); its own code for monochrome and the identity matrix, whose
-// limited range it widens in float
+// YUV to RGB as libavif 1.3.0 converts samples for Pillow (8-bit RGB or
+// RGBA out), read off Pillow's decodes of sample sweeps. 8-bit samples go
+// through libyuv for 4:2:0 (bilinear chroma upsampling), 4:2:2 (linear,
+// along the rows) and 4:4:4 with the BT.601 / 709 / 2020 matrices (libyuv's
+// YuvConstants), and libavif's own float code for monochrome and the
+// identity matrix. 10- and 12-bit samples (`convert`): the float code at
+// their depth for monochrome RGB and the identity matrix; libyuv's 10-bit
+// rows for 10-bit RGBA and its 12-bit 4:2:0 rows (nearest chroma) for
+// 12-bit 4:2:0 RGBA; the rest shifted down to 8 bits (libyuv's
+// Convert16To8Plane) and converted as 8-bit samples
 // ---------------------------------------------------------------------------
 struct YuvConst {
   int ub, ug, vg, vr, yg, yb;
@@ -3646,98 +3686,147 @@ bool yuv_constants(int matrix, int full, YuvConst* k) {
 
 inline uint8_t clamp255(int v) { return (uint8_t)(v < 0 ? 0 : v > 255 ? 255 : v); }
 
-// libyuv's YuvPixel: RGB of one Y, U, V
-void yuv_pixel(const YuvConst& k, int y, int u, int v, uint8_t* rgb) {
-  int32_t y1 = (int32_t)((uint32_t)(y * 0x0101 * k.yg) >> 16) + k.yb;
+// libyuv's YuvPixel: RGB of a luma widened to 16 bits by repeating its
+// bits (y * 0x0101 at 8 bits, y << 6 | y >> 4 at 10) and 8-bit U, V
+void yuv_pixel(const YuvConst& k, uint32_t y16, int u, int v, uint8_t* rgb) {
+  int32_t y1 = (int32_t)((uint32_t)(y16 * k.yg) >> 16) + k.yb;
   int ui = u - 128, vi = v - 128;
   rgb[0] = clamp255((y1 + vi * k.vr) >> 6);
   rgb[1] = clamp255((y1 - (ui * k.ug + vi * k.vg)) >> 6);
   rgb[2] = clamp255((y1 + ui * k.ub) >> 6);
 }
 
-// libavif's widening of a limited-range sample (its float path, and the
-// alpha plane's avifImageLimitedToFullAlpha): (v - 16) / 219, clamped to
-// [0, 1], times 255, plus 0.5, truncated
-struct Widen {
-  uint8_t lut[256];
-  Widen() {
-    for (int v = 0; v < 256; v++) {
-      float f = ((float)v - 16.0f) / 219.0f;
-      f = f < 0.0f ? 0.0f : f > 1.0f ? 1.0f : f;
-      lut[v] = (uint8_t)(0.5f + f * 255.0f);
-    }
-  }
-};
-const uint8_t* widen() {
-  static const Widen w;
-  return w.lut;
+// libavif's float code: a sample at `depth` as unorm (v - bias) / range,
+// clamped to [0, 1], then times 255 plus 0.5, truncated
+float unorm(int v, int depth, int full) {
+  float bias = full ? 0.0f : (float)(16 << (depth - 8));
+  float range = full ? (float)((1 << depth) - 1) : (float)(219 << (depth - 8));
+  float f = ((float)v - bias) / range;
+  return f < 0.0f ? 0.0f : f > 1.0f ? 1.0f : f;
+}
+inline uint8_t unorm_to_u8(float f) { return (uint8_t)(0.5f + f * 255.0f); }
+std::vector<uint8_t> float_lut(int depth, int full) {
+  std::vector<uint8_t> lut((size_t)1 << depth);
+  for (int v = 0; v < (1 << depth); v++) lut[v] = unorm_to_u8(unorm(v, depth, full));
+  return lut;
+}
+
+// libavif's avifLimitedToFullY, which widens a limited-range alpha plane
+// before the conversion
+int limited_to_full(int depth, int v) {
+  int lo = 16 << (depth - 8), hi = 235 << (depth - 8), max = (1 << depth) - 1;
+  return clip3(0, max, ((v - lo) * max + (hi - lo) / 2) / (hi - lo));
 }
 
 // one row of chroma upsampled 2x: linear, libyuv's ScaleRowUp2_Linear_Any
-void up2_linear(const uint8_t* s, uint8_t* d, int dw) {
+// (and its 16-bit twin)
+void up2_linear(const pixel* s, pixel* d, int dw) {
   d[0] = s[0];
   int work = (dw - 1) & ~1;
   for (int x = 0; x < work / 2; x++) {
-    d[2 * x + 1] = (uint8_t)((s[x] * 3 + s[x + 1] + 2) >> 2);
-    d[2 * x + 2] = (uint8_t)((s[x] + s[x + 1] * 3 + 2) >> 2);
+    d[2 * x + 1] = (pixel)((s[x] * 3 + s[x + 1] + 2) >> 2);
+    d[2 * x + 2] = (pixel)((s[x] + s[x + 1] * 3 + 2) >> 2);
   }
   d[dw - 1] = s[(dw - 1) / 2];
 }
 // two rows from chroma rows s, t: libyuv's ScaleRowUp2_Bilinear_Any
-void up2_bilinear(const uint8_t* s, const uint8_t* t, uint8_t* d, uint8_t* e, int dw) {
-  d[0] = (uint8_t)((s[0] * 3 + t[0] + 2) >> 2);
-  e[0] = (uint8_t)((s[0] + t[0] * 3 + 2) >> 2);
+void up2_bilinear(const pixel* s, const pixel* t, pixel* d, pixel* e, int dw) {
+  d[0] = (pixel)((s[0] * 3 + t[0] + 2) >> 2);
+  e[0] = (pixel)((s[0] + t[0] * 3 + 2) >> 2);
   int work = (dw - 1) & ~1;
   for (int x = 0; x < work / 2; x++) {
-    d[2 * x + 1] = (uint8_t)((s[x] * 9 + s[x + 1] * 3 + t[x] * 3 + t[x + 1] + 8) >> 4);
-    d[2 * x + 2] = (uint8_t)((s[x] * 3 + s[x + 1] * 9 + t[x] + t[x + 1] * 3 + 8) >> 4);
-    e[2 * x + 1] = (uint8_t)((s[x] * 3 + s[x + 1] + t[x] * 9 + t[x + 1] * 3 + 8) >> 4);
-    e[2 * x + 2] = (uint8_t)((s[x] + s[x + 1] * 3 + t[x] * 3 + t[x + 1] * 9 + 8) >> 4);
+    d[2 * x + 1] = (pixel)((s[x] * 9 + s[x + 1] * 3 + t[x] * 3 + t[x + 1] + 8) >> 4);
+    d[2 * x + 2] = (pixel)((s[x] * 3 + s[x + 1] * 9 + t[x] + t[x + 1] * 3 + 8) >> 4);
+    e[2 * x + 1] = (pixel)((s[x] * 3 + s[x + 1] + t[x] * 9 + t[x + 1] * 3 + 8) >> 4);
+    e[2 * x + 2] = (pixel)((s[x] + s[x + 1] * 3 + t[x] * 3 + t[x + 1] * 9 + 8) >> 4);
   }
   int l = (dw - 1) / 2;
-  d[dw - 1] = (uint8_t)((s[l] * 3 + t[l] + 2) >> 2);
-  e[dw - 1] = (uint8_t)((s[l] + t[l] * 3 + 2) >> 2);
+  d[dw - 1] = (pixel)((s[l] * 3 + t[l] + 2) >> 2);
+  e[dw - 1] = (pixel)((s[l] + t[l] * 3 + 2) >> 2);
+}
+// a row of chroma repeated 2x (nearest)
+void up2_nearest(const pixel* s, pixel* d, int dw) {
+  for (int x = 0; x < dw; x++) d[x] = s[x >> 1];
 }
 
-// the decoded frame into `out`'s first three channels of `channels`
-void to_rgb(Decoder& d, int w, int h, int matrix, int full, uint8_t* out, int64_t stride,
-            int channels) {
+// the samples shifted down to 8 bits (libyuv's Convert16To8Plane)
+void downshift(Decoder& d) {
+  int s = d.bit_depth - 8;
+  for (int p = 0; p < d.num_planes() && s; p++)
+    for (pixel& v : d.planes[p].px) v = (pixel)(v >> s);
+  d.bit_depth = 8;
+}
+
+// libavif's float code at the samples' depth: gray, or GBR from the
+// identity matrix; with `alpha` (full range, at the same depth) and
+// `premultiplied`, the colour divided by alpha in float
+void rgb_float(Decoder& d, int w, int h, int full, const pixel* alpha, bool premultiplied,
+               uint8_t* out, int64_t stride, int channels) {
+  int depth = d.bit_depth, amax = (1 << depth) - 1;
+  std::vector<uint8_t> lut = float_lut(depth, full);
   Plane &Y = d.planes[0], &U = d.planes[1], &V = d.planes[2];
-  if (d.mono || matrix == 0) {  // gray, or GBR from the identity matrix
-    uint8_t lut[256];
-    for (int v = 0; v < 256; v++) lut[v] = full ? (uint8_t)v : widen()[v];
-    if (d.mono && channels == 4 && !full) {
-      // RGBA goes through libyuv's I400ToARGBMatrix where libyuv has the
-      // matrix: BT.601 and 709 share their limited-range luma scale
-      if (matrix == 12) throw NotYet("YUV matrix 12");  // its constants follow the primaries
-      if (matrix == 0 || matrix == 1 || matrix == 2 || matrix == 5 || matrix == 6) {
-        YuvConst k;
-        yuv_constants(6, 0, &k);
-        uint8_t rgb[3];
-        for (int v = 0; v < 256; v++) {
-          yuv_pixel(k, v, 128, 128, rgb);
-          lut[v] = rgb[0];
-        }
-      }
-    }
-    for (int r = 0; r < h; r++) {
-      uint8_t* o = out + r * stride;
-      const uint8_t *yy = Y.at(r, 0), *uu = d.mono ? yy : U.at(r, 0), *vv = d.mono ? yy : V.at(r, 0);
-      for (int x = 0; x < w; x++, o += channels) {
+  for (int r = 0; r < h; r++) {
+    uint8_t* o = out + r * stride;
+    const pixel *yy = Y.at(r, 0), *uu = d.mono ? yy : U.at(r, 0), *vv = d.mono ? yy : V.at(r, 0);
+    const pixel* aa = alpha ? alpha + (size_t)r * w : nullptr;
+    for (int x = 0; x < w; x++, o += channels) {
+      int a = premultiplied ? aa[x] : amax;
+      if (a == amax) {
         o[0] = lut[vv[x]];
         o[1] = lut[yy[x]];
         o[2] = lut[uu[x]];
+        continue;
+      }
+      float af = (float)a / (float)amax;
+      const pixel* src[3] = {vv, yy, uu};
+      for (int c = 0; c < 3; c++) {
+        float f = a == 0 ? 0.0f : std::min(unorm(src[c][x], depth, full) / af, 1.0f);
+        o[c] = unorm_to_u8(f);
       }
     }
-    return;
   }
-  YuvConst k;
-  if (!yuv_constants(matrix, full, &k)) throw NotYet("YUV matrix " + std::to_string(matrix));
-  std::vector<uint8_t> u1(w + 2), v1(w + 2), u2(w + 2), v2(w + 2);
-  auto emit = [&](int row, const uint8_t* uu, const uint8_t* vv) {
+}
+
+// 8-bit monochrome RGBA: libyuv's I400ToARGBMatrix in limited range where
+// libyuv has the matrix (BT.601 and 709 share their limited-range luma
+// scale), else libavif's float code
+void rgb_mono_rgba(Decoder& d, int w, int h, int matrix, int full, uint8_t* out,
+                   int64_t stride) {
+  std::vector<uint8_t> lut = float_lut(8, full);
+  if (!full) {
+    if (matrix == 12) throw NotYet("YUV matrix 12");  // its constants follow the primaries
+    if (matrix == 0 || matrix == 1 || matrix == 2 || matrix == 5 || matrix == 6) {
+      YuvConst k;
+      yuv_constants(6, 0, &k);
+      uint8_t rgb[3];
+      for (int v = 0; v < 256; v++) {
+        yuv_pixel(k, (uint32_t)v * 0x0101, 128, 128, rgb);
+        lut[v] = rgb[0];
+      }
+    }
+  }
+  for (int r = 0; r < h; r++) {
+    uint8_t* o = out + r * stride;
+    const pixel* yy = d.planes[0].at(r, 0);
+    for (int x = 0; x < w; x++, o += 4) o[0] = o[1] = o[2] = lut[yy[x]];
+  }
+}
+
+// libyuv's rows at the samples' depth: the luma widened to 16 bits, the
+// chroma upsampled at its depth (bilinear or nearest for 4:2:0, linear for
+// 4:2:2), then shifted down to 8 bits and saturated
+void rgb_yuv(Decoder& d, const YuvConst& k, int w, int h, bool nearest, uint8_t* out,
+             int64_t stride, int channels) {
+  Plane &Y = d.planes[0], &U = d.planes[1], &V = d.planes[2];
+  const int depth = d.bit_depth, cs = depth - 8;
+  std::vector<pixel> u1(w + 2), v1(w + 2), u2(w + 2), v2(w + 2);
+  auto emit = [&](int row, const pixel* uu, const pixel* vv) {
     uint8_t* o = out + row * stride;
-    const uint8_t* yy = Y.at(row, 0);
-    for (int x = 0; x < w; x++) yuv_pixel(k, yy[x], uu[x], vv[x], o + channels * x);
+    const pixel* yy = Y.at(row, 0);
+    for (int x = 0; x < w; x++) {
+      uint32_t y16 = ((uint32_t)yy[x] << (16 - depth)) | ((uint32_t)yy[x] >> (2 * depth - 16));
+      yuv_pixel(k, y16, imin(255, uu[x] >> cs), imin(255, vv[x] >> cs), o + channels * x);
+    }
   };
   if (!d.ssx) {  // 4:4:4
     for (int r = 0; r < h; r++) emit(r, U.at(r, 0), V.at(r, 0));
@@ -3747,6 +3836,14 @@ void to_rgb(Decoder& d, int w, int h, int matrix, int full, uint8_t* out, int64_
     for (int r = 0; r < h; r++) {
       up2_linear(U.at(r, 0), u1.data(), w);
       up2_linear(V.at(r, 0), v1.data(), w);
+      emit(r, u1.data(), v1.data());
+    }
+    return;
+  }
+  if (nearest) {
+    for (int r = 0; r < h; r++) {
+      up2_nearest(U.at(r >> 1, 0), u1.data(), w);
+      up2_nearest(V.at(r >> 1, 0), v1.data(), w);
       emit(r, u1.data(), v1.data());
     }
     return;
@@ -3765,17 +3862,6 @@ void to_rgb(Decoder& d, int w, int h, int matrix, int full, uint8_t* out, int64_
     up2_linear(U.at(c, 0), u1.data(), w);
     up2_linear(V.at(c, 0), v1.data(), w);
     emit(row, u1.data(), v1.data());
-  }
-}
-
-// the decoded frame of an alpha item into `out`'s fourth channel: its luma
-// plane, widened where its sequence header says limited range
-void to_alpha(Decoder& d, int w, int h, uint8_t* out, int64_t stride) {
-  const uint8_t* lut = widen();
-  for (int r = 0; r < h; r++) {
-    const uint8_t* a = d.planes[0].at(r, 0);
-    uint8_t* o = out + r * stride + 3;
-    for (int x = 0; x < w; x++) o[4 * x] = d.color_range ? a[x] : lut[a[x]];
   }
 }
 
@@ -3804,6 +3890,61 @@ void unpremultiply(int w, int h, uint8_t* out, int64_t stride) {
     for (int x = 0; x < w; x++, o += 4)
       for (int c = 0; c < 3; c++) o[c] = u.lut[o[3]][o[c]];
   }
+}
+
+// the decoded frame (and the alpha item's, `a`) into `out` as libavif
+// converts it for Pillow: the alpha plane widened to full range where its
+// sequence header says limited, then narrowed to 8 bits by the code that
+// converts the colour (libyuv's shift, or libavif's float code)
+void convert(Decoder& d, Decoder* a, int w, int h, int matrix, int full, int premultiplied,
+             uint8_t* out, int64_t stride) {
+  const int channels = a ? 4 : 3, depth = d.bit_depth;
+  std::vector<pixel> alpha;
+  if (a) {
+    if (a->bit_depth != depth)
+      throw std::runtime_error("alpha item of " + std::to_string(a->bit_depth) +
+                               "-bit samples beside " + std::to_string(depth) + "-bit colour");
+    alpha.resize((size_t)w * h);
+    for (int r = 0; r < h; r++) {
+      const pixel* s = a->planes[0].at(r, 0);
+      for (int x = 0; x < w; x++)
+        alpha[(size_t)r * w + x] = a->color_range ? s[x] : (pixel)limited_to_full(depth, s[x]);
+    }
+  }
+  int alpha_shift = -1;  // >= 0: alpha >> alpha_shift; -1: libavif's float code
+  bool unattenuate = true;
+  if (matrix == 0 && !d.mono) {  // the identity matrix
+    bool in_float = depth > 8 || !full;  // libavif's premultiplied path too
+    rgb_float(d, w, h, full, a ? alpha.data() : nullptr, premultiplied && in_float, out, stride,
+              channels);
+    unattenuate = !in_float;
+  } else if (d.mono && channels == 3) {
+    rgb_float(d, w, h, full, nullptr, false, out, stride, channels);
+  } else if (d.mono) {
+    downshift(d);
+    rgb_mono_rgba(d, w, h, matrix, full, out, stride);
+  } else {
+    YuvConst k;
+    if (!yuv_constants(matrix, full, &k)) throw NotYet("YUV matrix " + std::to_string(matrix));
+    bool nearest = false;
+    if (depth == 10 && channels == 4) alpha_shift = 2;
+    else if (depth == 12 && channels == 4 && d.ssx && d.ssy) nearest = true;
+    else {
+      alpha_shift = depth - 8;
+      downshift(d);
+    }
+    rgb_yuv(d, k, w, h, nearest, out, stride, channels);
+  }
+  if (!a) return;
+  const float amax = (float)((1 << depth) - 1);
+  for (int r = 0; r < h; r++) {
+    const pixel* s = &alpha[(size_t)r * w];
+    uint8_t* o = out + r * stride + 3;
+    for (int x = 0; x < w; x++)
+      o[4 * x] = alpha_shift >= 0 ? clamp255(s[x] >> alpha_shift)
+                                  : unorm_to_u8((float)s[x] / amax);
+  }
+  if (premultiplied && unattenuate) unpremultiply(w, h, out, stride);
 }
 
 }  // namespace
@@ -3840,7 +3981,6 @@ extern "C" int64_t av1_decode(const uint8_t* obus, int64_t size, const uint8_t* 
       if (alpha_thread.joinable()) alpha_thread.join();
       throw;
     }
-    int channels = alpha_size >= 0 ? 4 : 3;
     if (alpha_size >= 0) {
       alpha_thread.join();
       if (alpha_failed) {
@@ -3850,7 +3990,6 @@ extern "C" int64_t av1_decode(const uint8_t* obus, int64_t size, const uint8_t* 
           throw std::runtime_error(std::string("alpha item: ") + e.what());
         }
       }
-      to_alpha(a, width, height, out, stride);
     }
     int m = matrix >= 0 ? matrix : d.matrix;
     int full = full_range >= 0 ? full_range : d.color_range;
@@ -3861,8 +4000,7 @@ extern "C" int64_t av1_decode(const uint8_t* obus, int64_t size, const uint8_t* 
     if (m == 3 || m == 10 || m == 11 || m == 13 || (m >= 14 && m != 15) || (m == 8 && !full) ||
         (m == 0 && d.ssx && !d.mono))
       throw std::runtime_error("Conversion from YUV failed: Reformat failed");
-    to_rgb(d, width, height, m, full, out, stride, channels);
-    if (channels == 4 && premultiplied) unpremultiply(width, height, out, stride);
+    convert(d, alpha_size >= 0 ? &a : nullptr, width, height, m, full, premultiplied, out, stride);
     return 0;
   } catch (const std::exception& e) {
     snprintf(err, (size_t)errlen, "%s", e.what());

@@ -38,7 +38,7 @@ from ..ops import (
 )
 from ..types import AutoscaleStrategy, BitDepth
 from .clahe import CLAHE_BINS, CLIP_LIMIT, TILES_X, TILES_Y, _clahe_bins
-from .numerics import as_f32, as_u16, round_half_up_nonneg
+from .numerics import as_f32, as_u16, log_f32, pow_f32, round_half_up_nonneg
 from .synthetic_rgb import (
     FLOOR_MAX,
     FLOOR_MIN,
@@ -72,7 +72,7 @@ def _const(name: str, device: torch.device) -> torch.Tensor:
 
 def _db_mask(x: torch.Tensor):
     v = torch.clamp_min(as_f32(x), DB_FLOOR)
-    db = 10.0 * (torch.log(v) * _INV_LN10)
+    db = 10.0 * (log_f32(v) * _INV_LN10)
     return db, db > DB_VALID_THRESHOLD
 
 
@@ -205,35 +205,12 @@ def _window(s, strategy: AutoscaleStrategy):
     return s["p05"], s["p95"], one  # default
 
 
-# PyTorch's CPU pow runs the last (length mod 32) elements of each loop it
-# cuts through the scalar std::pow and the rest through the vector pow, which
-# differ by an ulp on some inputs: a pixel's value would hang on how its
-# tensor is cut (the band's size, a streamed chunk, a row shard, the threads'
-# split). Blocks of _POW_BLOCK elements (run serially, under the grain of
-# PyTorch's parallel loops), the last one padded to 64, keep every element
-# on the vector path.
-_POW_BLOCK = 16384
-
-
-def _pow(x: torch.Tensor, e: torch.Tensor) -> torch.Tensor:
-    """x ** e elementwise, the same for an element wherever it lies in `x`."""
-    if x.device.type != "cpu":
-        return torch.pow(x, e)
-    n = x.numel()
-    padded = torch.zeros(-(-n // 64) * 64, dtype=x.dtype)
-    padded[:n] = x.reshape(-1)
-    out = torch.empty_like(padded)
-    for i in range(0, padded.numel(), _POW_BLOCK):
-        torch.pow(padded[i:i + _POW_BLOCK], e, out=out[i:i + _POW_BLOCK])
-    return out[:n].view(x.shape)
-
-
 def _quantize(db, mask, low, high, gamma, max_val: float):
     """Window, gamma and quantize to [0, max_val]; the u16 values are held
     as f32. Gamma 1 skips the `pow`, so that case stays exact."""
     rng = torch.clamp_min(high - low, 1.0)
     norm = (torch.clamp(db, low, high) - low) / rng
-    powed = torch.where(gamma == 1.0, norm, _pow(norm, gamma))
+    powed = torch.where(gamma == 1.0, norm, pow_f32(norm, gamma))
     q = torch.clamp(torch.trunc(torch.clamp(powed * max_val, 0.0, max_val)),
                     0, 65535)
     return torch.where(mask, q, 0.0)

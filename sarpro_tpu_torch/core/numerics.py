@@ -42,3 +42,22 @@ def trunc_sat_u8(x: torch.Tensor) -> torch.Tensor:
     """Rust `as u8` from float: NaN -> 0, truncate, saturate to [0, 255]."""
     return torch.clamp(torch.trunc(torch.nan_to_num(x, nan=0.0)),
                        0.0, 255.0).to(torch.uint8)
+
+
+# PyTorch's CPU f32 `log` and `pow` take MKL's or ATen's vector code as the
+# host allows (MKL_CBWR, ATEN_CPU_CAPABILITY, the tail of a loop), and these
+# differ by up to tens of ulps on some inputs. On the CPU both run in f64 and
+# round once to f32, which gives the same bytes on every path; a CUDA tensor
+# keeps the f32 op.
+def log_f32(v: torch.Tensor) -> torch.Tensor:
+    """Natural log of an f32 tensor, independent of the CPU's math path."""
+    if v.device.type != "cpu":
+        return torch.log(v)
+    return torch.log(v.double()).float()
+
+
+def pow_f32(x: torch.Tensor, e: torch.Tensor) -> torch.Tensor:
+    """`x ** e` for f32 tensors, independent of the CPU's math path."""
+    if x.device.type != "cpu":
+        return torch.pow(x, e)
+    return torch.pow(x.double(), e.double()).float()

@@ -31,7 +31,7 @@ from ..types import AutoscaleStrategy, BitDepth
 from . import stats as stats_mod
 from .clahe import _window_tensors, clahe_equalize_db
 from .fused import _db_bin_index, _db_mask, _scale_u16_to_u8
-from .numerics import as_f32, trunc_sat_u8, trunc_sat_u16
+from .numerics import as_f32, pow_f32, trunc_sat_u8, trunc_sat_u16
 from .stats import HistogramStats, ScaleWindow
 
 NUM_BINS = stats_mod.NUM_BINS
@@ -105,7 +105,7 @@ def _quantize_window(db, mask, low, high, rng, gamma, max_val: float):
     `rng` and `gamma` are 0-dim f32 tensors."""
     norm = (torch.clamp(db, low, high) - low) / rng
     # exact when gamma == 1 (pow goes through exp/log)
-    powed = torch.where(gamma == 1.0, norm, torch.pow(norm, gamma))
+    powed = torch.where(gamma == 1.0, norm, pow_f32(norm, gamma))
     q = torch.clamp(powed * max_val, 0.0, max_val)
     return trunc_sat_u16(torch.where(mask, q, 0.0))
 

@@ -512,9 +512,6 @@ def parse(blob: bytes) -> Parsed:
         _check_size(*alpha_size)
         alpha_obus = _item_data(blob, meta, alpha)
         premultiplied = color.refs.get(b"prem") == alpha.id
-    if depth != 8:
-        raise ValueError(f"AVIF {depth}-bit samples are not read by the port "
-                         "yet")
     return Parsed(width, height, obus, nclx[3] if nclx else -1,
                   nclx[4] if nclx else -1, alpha_obus, alpha_size,
                   premultiplied)

@@ -1,0 +1,141 @@
+"""AVIF files of 10- and 12-bit samples, written through Debian's libavif
+0.11.1 (`libavif.so.15`: aom 3.6.0, rav1e 0.5.1, SVT-AV1 1.4.1) by ctypes.
+Pillow's AVIF plugin writes 8-bit samples only, so the tests of deeper
+samples (tests/test_torch_avif_depth.py) use the files this module wrote,
+committed under tests/data/avif and tests/data/avif_band; they read the
+committed bytes, and need no encoder.
+
+`encode` takes the Y, U, V (and alpha) planes as integer arrays at the
+sample depth and returns the file. Offsets are those of libavif 0.11.1's
+`avifImage` (planes at byte 24, row bytes at 48, range at 16, alpha plane
+at 64, its row bytes at 72, premultiplied at 80, CICP at 104) and
+`avifEncoder` (codec 0, threads 4, speed 8, quantizers 24 to 36, tile
+rows and columns 40 and 44);
+`_check_layout` holds them to what libavif itself reports.
+"""
+import ctypes
+
+import numpy as np
+
+LIBRARY = "libavif.so.15"
+# avifCodecChoice of libavif 0.11
+CODECS = {"aom": 1, "rav1e": 4, "svt": 5}
+# avifPixelFormat
+LAYOUTS = {"4:4:4": 1, "4:2:2": 2, "4:2:0": 3, "4:0:0": 4}
+_lib = None
+
+
+def available() -> bool:
+    """Whether libavif 0.11's library can be loaded here."""
+    try:
+        _library()
+    except OSError:
+        return False
+    return True
+
+
+def _library():
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(LIBRARY)
+        vp, u32 = ctypes.c_void_p, ctypes.c_uint32
+        lib.avifVersion.restype = ctypes.c_char_p
+        lib.avifImageCreate.restype = vp
+        lib.avifImageCreate.argtypes = [u32, u32, u32, u32]
+        lib.avifImageAllocatePlanes.argtypes = [vp, u32]
+        lib.avifImageDestroy.argtypes = [vp]
+        lib.avifEncoderCreate.restype = vp
+        lib.avifEncoderDestroy.argtypes = [vp]
+        lib.avifEncoderWrite.argtypes = [vp, vp, vp]
+        lib.avifEncoderSetCodecSpecificOption.argtypes = [
+            vp, ctypes.c_char_p, ctypes.c_char_p]
+        lib.avifRWDataFree.argtypes = [vp]
+        lib.avifResultToString.restype = ctypes.c_char_p
+        _check_layout(lib)
+        _lib = lib
+    return _lib
+
+
+def _check_layout(lib) -> None:
+    """The struct offsets this module writes, against the library's own
+    defaults (a 3 x 2 10-bit 4:2:0 image, a new encoder)."""
+    assert lib.avifVersion() == b"0.11.1", lib.avifVersion()
+    im = lib.avifImageCreate(3, 2, 10, LAYOUTS["4:2:0"])
+    try:
+        head = (ctypes.c_uint32 * 4).from_address(im)
+        assert list(head) == [3, 2, 10, LAYOUTS["4:2:0"]]
+        lib.avifImageAllocatePlanes(im, 0xFF)
+        rows = (ctypes.c_uint32 * 3).from_address(im + 48)
+        assert list(rows) == [6, 4, 4]
+        assert ctypes.c_uint32.from_address(im + 72).value == 6
+        assert ctypes.c_void_p.from_address(im + 64).value
+    finally:
+        lib.avifImageDestroy(im)
+    enc = lib.avifEncoderCreate()
+    try:
+        assert list((ctypes.c_int32 * 4).from_address(enc)) == [0, 1, -1, 0]
+    finally:
+        lib.avifEncoderDestroy(enc)
+
+
+def _fill(ptr: int, row_bytes: int, plane: np.ndarray, depth: int) -> None:
+    rows, cols = plane.shape
+    dtype = np.uint16 if depth > 8 else np.uint8
+    buf = (ctypes.c_uint8 * (row_bytes * rows)).from_address(ptr)
+    dst = np.frombuffer(buf, np.uint8).reshape(rows, row_bytes)
+    src = np.ascontiguousarray(plane.astype(dtype)).view(np.uint8)
+    dst[:, :src.shape[1]] = src
+
+
+def encode(y: np.ndarray, u: np.ndarray = None, v: np.ndarray = None,
+           alpha: np.ndarray = None, *, depth: int = 10,
+           layout: str = "4:2:0", full: bool = True, matrix: int = 1,
+           codec: str = "aom", speed: int = 6, quantizer: int = 20,
+           alpha_quantizer: int = None, premultiplied: bool = False,
+           tiles_log2: tuple = (0, 0), threads: int = 1,
+           options: dict = None) -> bytes:
+    """The AVIF file of planes `y`, `u`, `v` (none for 4:0:0) and `alpha`,
+    each an integer array of `depth`-bit samples, with the BT.709
+    primaries, sRGB transfer and `matrix`; `quantizer` the encoder's
+    minimum and maximum quantizer (0: lossless), `tiles_log2` the log2 of
+    the tile rows and columns, `options` aom's codec-specific options."""
+    lib = _library()
+    rows, cols = y.shape
+    for p in (y, u, v, alpha):
+        if p is not None:
+            assert p.min() >= 0 and p.max() < 1 << depth
+    im = lib.avifImageCreate(cols, rows, depth, LAYOUTS[layout])
+    enc = lib.avifEncoderCreate()
+    out = (ctypes.c_uint8 * 16)()
+    try:
+        ctypes.c_uint32.from_address(im + 16).value = 1 if full else 0
+        for off, val in ((104, 1), (106, 13), (108, matrix)):
+            ctypes.c_uint16.from_address(im + off).value = val
+        lib.avifImageAllocatePlanes(im, 0xFF if alpha is not None else 1)
+        planes = [y] if layout == "4:0:0" else [y, u, v]
+        for i, plane in enumerate(planes):
+            _fill(ctypes.c_void_p.from_address(im + 24 + 8 * i).value,
+                  ctypes.c_uint32.from_address(im + 48 + 4 * i).value,
+                  plane, depth)
+        if alpha is not None:
+            _fill(ctypes.c_void_p.from_address(im + 64).value,
+                  ctypes.c_uint32.from_address(im + 72).value, alpha, depth)
+            ctypes.c_uint32.from_address(im + 80).value = int(premultiplied)
+        aq = quantizer if alpha_quantizer is None else alpha_quantizer
+        for off, val in ((0, CODECS[codec]), (4, threads), (8, speed),
+                         (24, quantizer), (28, quantizer), (32, aq),
+                         (36, aq), (40, tiles_log2[0]), (44, tiles_log2[1])):
+            ctypes.c_int32.from_address(enc + off).value = val
+        for key, val in (options or {}).items():
+            lib.avifEncoderSetCodecSpecificOption(enc, key.encode(),
+                                                  str(val).encode())
+        res = lib.avifEncoderWrite(enc, im, out)
+        if res != 0:
+            raise RuntimeError(lib.avifResultToString(res).decode())
+        data = ctypes.c_void_p.from_buffer(out).value
+        size = ctypes.c_size_t.from_buffer(out, 8).value
+        return ctypes.string_at(data, size)
+    finally:
+        lib.avifRWDataFree(out)
+        lib.avifEncoderDestroy(enc)
+        lib.avifImageDestroy(im)

@@ -24,11 +24,12 @@ patched to each value on every layout, RGB and RGBA, the alpha item's
 properties, references and data edited, bit flips of a file with every
 kind of item, of one with all three filters on and of one with alpha,
 files cut short, and the files the port refuses by name
-(tests/test_torch_legacy_rasters.py holds those: 10-bit, quantizer
-matrices, film grain, premultiplied alpha). The tables of av1dec.cpp are
+(tests/test_torch_legacy_rasters.py holds those: an `avis` image
+sequence; 10- and 12-bit samples are tests/test_torch_avif_depth.py's). The tables of av1dec.cpp are
 held to the read-only data of Pillow's libavif."""
 import hashlib
 import io
+import re
 import struct
 import sys
 from pathlib import Path
@@ -74,6 +75,9 @@ NOT_YET = "not read by the port yet"
 # matrices, film grain, premultiplied alpha, intra block copy):
 # tests/test_torch_avif_tools.py writes and checks them
 TOOL_PREFIXES = ("qm_", "fg_", "prem_", "ibc_")
+# the fixtures of 10- and 12-bit samples (tests/test_torch_avif_depth.py)
+DEPTH_PREFIX = chip_smoke.AVIF_DEPTH_PREFIX
+OTHER_PREFIXES = TOOL_PREFIXES + (DEPTH_PREFIX,)
 CDEF = {"enable-cdef": "1"}
 LAYOUTS = ("4:4:4", "4:2:2", "4:0:0")
 
@@ -229,7 +233,10 @@ def layout_files() -> dict:
     port refused by name before it read 4:4:4, alpha and palette blocks
     (the last two need palette blocks: aom codes alpha planes with
     them), then the three it refused before it read quantizer matrices,
-    film grain and premultiplied alpha."""
+    film grain and premultiplied alpha, and the one it refused before it
+    read 10-bit samples (Pillow writes none: an 8-bit file with `av1C`
+    and `pixi` saying 10 bits, which libavif reads by its sequence
+    header's 8 bits)."""
     s = chip_smoke.AVIF_SEED
     base = scene(s, 67, 130)
     big = scene(s + 2, 129, 257)
@@ -284,27 +291,39 @@ def layout_files() -> dict:
     out["was_refused_prem.avif"] = _save(
         np.dstack([a, alpha_plane(64, 96)]), quality=50, speed=6,
         advanced=LF0, alpha_premultiplied=True)
+    ten = bytearray(_save(scene(s + 3, 64, 96), quality=50, speed=6,
+                          advanced=LF0))
+    c = ten.find(b"av1C") + 6
+    ten[c] |= 0x40  # high_bitdepth
+    p = ten.find(b"pixi") + 9
+    ten[p:p + 3] = bytes([10, 10, 10])
+    out["was_refused_10bit.avif"] = bytes(ten)
     return out
 
 
 # the files the port refuses by name, and the words of each refusal
 REFUSALS = {
-    "refuse_10bit.avif": "AVIF 10-bit samples are",
+    "refuse_avis.avif": re.escape("AVIF image sequences (avis) are"),
 }
 
 
 def refusal_files() -> dict:
     """The files of REFUSALS as Pillow writes them with the feature the
-    port refuses. Pillow writes no 10-bit AVIF, so that file is the 8-bit
-    one with `av1C` and `pixi` saying 10 bits."""
+    port refuses: an image sequence of two frames (Pillow opens the
+    first), its creation and modification times set to 0."""
     s = chip_smoke.AVIF_SEED
-    a = scene(s + 3, 64, 96)
-    ten = bytearray(_save(a, quality=50, speed=6, advanced=LF0))
-    c = ten.find(b"av1C") + 6
-    ten[c] |= 0x40  # high_bitdepth
-    p = ten.find(b"pixi") + 9
-    ten[p:p + 3] = bytes([10, 10, 10])
-    files = {"refuse_10bit.avif": bytes(ten)}
+    frames = [Image.fromarray(scene(s + k, 32, 48)) for k in (4, 5)]
+    buf = io.BytesIO()
+    frames[0].save(buf, format="AVIF", save_all=True,
+                   append_images=frames[1:], quality=50, speed=8)
+    avis = bytearray(buf.getvalue())
+    for kind in (b"mvhd", b"tkhd", b"mdhd"):
+        pos = avis.find(kind)
+        while pos >= 0:
+            n = 16 if avis[pos + 4] == 1 else 8  # version 1: 64-bit times
+            avis[pos + 8:pos + 8 + n] = bytes(n)
+            pos = avis.find(kind, pos + 4)
+    files = {"refuse_avis.avif": bytes(avis)}
     assert list(files) == list(REFUSALS)
     return files
 
@@ -389,9 +408,11 @@ def _outcome(path) -> tuple:
 def test_fixtures_are_pillows(tmp_path):
     """tests/data/avif holds what Pillow writes from the seeds, under 1 MB
     in all, each opening to the SHA-256 chip_smoke pins (AVIF_FIXTURES; the
-    tool fixtures are checked by tests/test_torch_avif_tools.py)."""
+    tool fixtures are checked by tests/test_torch_avif_tools.py, the 10-
+    and 12-bit ones by tests/test_torch_avif_depth.py)."""
     files = fixture_files()
-    tools = [n for n in chip_smoke.AVIF_FIXTURES if n.startswith(TOOL_PREFIXES)]
+    tools = [n for n in chip_smoke.AVIF_FIXTURES
+             if n.startswith(OTHER_PREFIXES)]
     assert list(files) == [n for n in chip_smoke.AVIF_FIXTURES
                            if n not in tools]
     refused = refusal_files()
@@ -444,7 +465,7 @@ def test_la_band_equals_pillows_decode():
 
 
 @pytest.mark.parametrize("name", [n for n in chip_smoke.AVIF_FIXTURES
-                                  if not n.startswith(TOOL_PREFIXES)])
+                                  if not n.startswith(OTHER_PREFIXES)])
 def test_fixture_equals_jax(name):
     got = _equal_to_jax(AVIF_DIR / name)
     with Image.open(AVIF_DIR / name) as im:
@@ -978,6 +999,14 @@ def test_av1_tables_equal_libavif():
         [15588, 17027, 19338]
     assert tables["DC_QLOOKUP"][2][-1] == 1336
     assert tables["AC_QLOOKUP"][2][-1] == 1828
+    # the 10- and 12-bit quantizer lookups: the spec's first and last values
+    for name, ends in (("DC_QLOOKUP_10", (4, 9, 5347)),
+                       ("AC_QLOOKUP_10", (4, 9, 7312)),
+                       ("DC_QLOOKUP_12", (4, 12, 21387)),
+                       ("AC_QLOOKUP_12", (4, 13, 29247))):
+        q = tables[name][2]
+        assert (q[0], q[1], q[-1]) == ends, name
+        assert all(b >= a for a, b in zip(q, q[1:])), name
     assert tables["COSPI"][2][32] == 2896 and tables["SINPI"][2][4] == 3803
     # the in-loop filters': the restoration CDFs, Cdef_Directions of
     # direction 0 ({-1, 1}, {-2, 2}) and 7 ({1, 0}, {2, -1}), the CDEF taps
