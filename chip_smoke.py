@@ -227,7 +227,9 @@ prints no result):
      AVIF_SEED; AVIF_FIXTURES pins the SHA-256 of Pillow's decode of each,
      held in tests/test_torch_avif.py and tests/test_torch_avif_tools.py;
      the hbd_ files of 10- and 12-bit samples written by libavif 0.11.1,
-     held in tests/test_torch_avif_depth.py) and on the five committed
+     held in tests/test_torch_avif_depth.py; the grid_ and seq_ files of
+     grid items and `avis` image sequences, held in
+     tests/test_torch_avif_container.py) and on the six committed
      9216^2 SAR-like bands of tests/data/avif_band (Pillow at speed 6,
      autotiling, loop filter off, AVIF_BAND_SHA256; at speed 4 with CDEF
      on, so that all three filters are on, AVIF_FILTERED_BAND_SHA256; as
@@ -236,11 +238,14 @@ prints no result):
      grain model aom estimates from the speckle, AVIF_GRAIN_BAND_SHA256;
      and make_safe's DN clipped to 12 bits as 12-bit 4:0:0 with the
      footprint as a 12-bit alpha item, written by libavif 0.11.1 and aom
-     3.6.0, AVIF_DEPTH_BAND_SHA256), each with a .wld and a .prj beside a
-     copy of it. Each opens through RasterReader (decode ms on the host
-     clock, median of 3, MP/s), decodes to the pinned SHA-256, reads
-     decimated to 2048^2 on the card (cubic; the alpha, band 4, of the LA,
-     grain and 12-bit bands too) with the launch counts set to 0 just
+     3.6.0, AVIF_DEPTH_BAND_SHA256; and as a 3 x 3 grid of 3072^2 8-bit
+     4:2:0 tiles with the footprint as a 3 x 3 alpha grid, written by
+     libavif 0.11.1 and aom 3.6.0, AVIF_GRID_BAND_SHA256), each with a .wld
+     and a .prj beside a copy of it. Each opens through RasterReader (decode
+     ms on the host clock, median of 3, MP/s), decodes to the pinned
+     SHA-256, reads decimated to 2048^2 on the card (cubic; the alpha, band
+     4, of the LA,
+     grain, 12-bit and grid bands too) with the launch counts set to 0 just
      before and read just after, bit-equal to the plain resample, and is
      saved as a CLAHE gray JPEG that reads back;
  19. with --walls N only: every warm path N times more, interleaved, with
@@ -503,18 +508,29 @@ WEBP_FIXTURES = {
 # depth_files), as is AVIF_DEPTH_BAND: make_safe's DN at AVIF_BAND_SIDE^2
 # clipped to 12 bits, 12-bit 4:0:0 at quantizer AVIF_DEPTH_BAND_QUANTIZER
 # with the footprint as a lossless 12-bit alpha item (depth_band_file,
-# 0.91 MB, 20 s of aom here).
+# 0.91 MB, 20 s of aom here). The grid_ and seq_ files
+# (AVIF_CONTAINER_PREFIXES) hold grid items and `avis` image sequences,
+# written by libavif 0.11.1 through tests/avif_encode.py and by Pillow
+# (tests/test_torch_avif_container.py's container_files), as is
+# AVIF_GRID_BAND: avif_band_u8 at AVIF_BAND_SIDE^2 with the footprint as
+# alpha, stored as a 3 x 3 grid of 3072^2 8-bit 4:2:0 tiles at quantizer
+# AVIF_GRID_BAND_QUANTIZER beside a 3 x 3 lossless alpha grid
+# (grid_band_file, 1.58 MB, 25 s of aom here).
 AVIF_DIR = ROOT / "tests" / "data" / "avif"
 AVIF_BAND = ROOT / "tests" / "data" / "avif_band" / "sar_band_9216.avif"
 AVIF_FILTERED_BAND = AVIF_BAND.with_name("sar_band_9216_filtered.avif")
 AVIF_LA_BAND = AVIF_BAND.with_name("sar_band_9216_la.avif")
 AVIF_GRAIN_BAND = AVIF_BAND.with_name("sar_band_9216_grain.avif")
 AVIF_DEPTH_BAND = AVIF_BAND.with_name("sar_band_9216_12bit.avif")
+AVIF_GRID_BAND = AVIF_BAND.with_name("sar_band_9216_grid.avif")
 AVIF_SEED = 21
 AVIF_BAND_SIDE = 9216
 AVIF_BAND_QUALITY = 10
 AVIF_DEPTH_BAND_QUANTIZER = 47
 AVIF_DEPTH_PREFIX = "hbd_"
+AVIF_GRID_BAND_QUANTIZER = 54
+# the grid items and image sequences (tests/test_torch_avif_container.py)
+AVIF_CONTAINER_PREFIXES = ("grid_", "seq_")
 AVIF_FIXTURES = {
     "s6_q10.avif": ("966c408207f06c5bfa8f8a653e78ab3c"
                     "0a675de42b0a9ceba9800899fec375ab"),
@@ -938,6 +954,54 @@ AVIF_FIXTURES = {
                                    "763fa139b67f0fcd11d3ebf9832c3ccc"),
     "hbd_sweep_12_400_prem.avif": ("59ff7b0efe6de8f1f68f30d398d8652a"
                                    "2ede59fb854a078dee2c5ce8e1ed13e1"),
+    "grid_420.avif": ("3696fe92fb1a1a2921de8ebbabccb9ca"
+                      "f215339d27b8284fa36c73add4f0ed8b"),
+    "grid_422.avif": ("7a09f7771da11e88429e753f5872b2d9"
+                      "32db82a8937e49d7ecc48bc55348ecd5"),
+    "grid_444.avif": ("7dcf4f8f65361ea0e741166669a2e932"
+                      "69efed2b744e823549c3440e3252112f"),
+    "grid_400.avif": ("edd582e219b87329f659d97566a4745b"
+                      "7c03cf0db25bee1b532a26dc021f5524"),
+    "grid_10_420.avif": ("0af36f4fa41e036caf07a6684ccbf4d8"
+                         "936432b65b90e8c053e2e240073bf306"),
+    "grid_10_422.avif": ("bb9c594eb5fcd92a19a69e37d8bf5fea"
+                         "4ec237bf370fe17f1447697f860eee36"),
+    "grid_10_444.avif": ("1a6781d252aad8ab5d8e598a1064dfd4"
+                         "4685679792291ee6f50786526bd39fb5"),
+    "grid_10_400.avif": ("fd3942846fb745757d3cb9f59fec3130"
+                         "75b2bd07842d11a2854a195b587bc584"),
+    "grid_12_420.avif": ("dc3fec212156b44951e66a829934f0e7"
+                         "eb5a2b4f2e0bdc7eab4ce7db09aeedd4"),
+    "grid_12_422.avif": ("079eb3d06e7edb0b28245cbf1542c045"
+                         "4c81bd98a4dc33d99e604a4415875a91"),
+    "grid_12_444.avif": ("c1307f905fa11e1f03da2f6cde59cc39"
+                         "43b02fc424b5fbd6dce3a7bf9e820532"),
+    "grid_12_400.avif": ("6b7f5fb1c3260b6848bf4c132a8e85fb"
+                         "5a7c90d7a1d31dbd288e378aba883ce3"),
+    "grid_rgba.avif": ("a6c9fda347e715906aeb747f985ed462"
+                       "9ad3ca6a467f497df76034b6adeda909"),
+    "grid_10_rgba_444.avif": ("f26f24e0641affdc6d77b167f5718e9f"
+                              "3309272283a1035d5e78e8be692d0169"),
+    "grid_12_la.avif": ("d4bc6cc6a6c7075da7b5b6397cfe34ac"
+                        "5857d229bfc38288456a7e6d1a6f6317"),
+    "grid_prem.avif": ("db122eec36636049bdc7b8e63cd604c1"
+                       "56106f455386b359a346859026d28d12"),
+    "grid_grain.avif": ("2fe890eb0a973626f034ee2eaca639b8"
+                        "e3826bca43a42da50f38aaa57fc3aac3"),
+    "grid_limited.avif": ("d2af93be22ac3dfd2423e98b4b9d8148"
+                          "968753debe63cc454f7e543a5e9e3ad2"),
+    "seq_pillow.avif": ("6af43bbe7afdaae6194057c16f5e2e4b"
+                        "a761b85ea3d22bff2a51aca1e062462c"),
+    "seq_pillow_rgba.avif": ("4ebbcb8ec8d4749992db559ce18b8e42"
+                             "877848a5bdd88cfdf6247f524f5f4b72"),
+    "seq_aom.avif": ("3456d75dd83db93c4dcbef4b5e549326"
+                     "7fb159c3d9ec83c0e4c123390d68e3d0"),
+    "seq_rav1e.avif": ("e940a20a0b17bdc038d0be4e089f0982"
+                       "748271a727170bfd85a7a703946059b2"),
+    "seq_svt.avif": ("e326becb7b47ad29eedaa7acceef8072"
+                     "186a5b4f0073ee3e02912de66f0fc9aa"),
+    "seq_rgba.avif": ("65479dd153df485a0d25a7ca5c9b88ff"
+                      "fc643a5d60422ebd44f22978f153d99f"),
 }
 AVIF_BAND_SHA256 = ("0fac26190af3efd4cf09c6ceaed08687"
                     "1078c04bb00ad9c2561349724e90840e")
@@ -949,6 +1013,8 @@ AVIF_GRAIN_BAND_SHA256 = ("283ef3c1aa7c99bfc6b33ade0ce59e29"
                           "8ba2c76bce2f82bd8f1c4b0a139b9ad4")
 AVIF_DEPTH_BAND_SHA256 = ("beb3fae87c53b15b698aed4b6836c63a"
                           "b4b6cdf082526c4fbc429fbfe45c5607")
+AVIF_GRID_BAND_SHA256 = ("d24b93b4b0f95755cd9eaff39fa21d23"
+                         "e5e8c8382d24baa7e5c6c61928850d79")
 # the rasters phase's JPEG codings: tests/data/jpeg, written from JPEG_SEED
 # on by libjpeg-turbo 3.1.3's own encoder (tests/ljt_encode.py) or Pillow
 # (tests/test_torch_jpeg_coding.py): a SAR-like arithmetic-coded strip
@@ -5209,11 +5275,11 @@ def phase_longtail(work: Path, smi: str) -> dict:
 
 def phase_avif(work: Path, smi: str) -> dict:
     """io/avif on the card's machine: each file of AVIF_FIXTURES and the
-    five committed bands (each with a .wld and a .prj) opens through
+    six committed bands (each with a .wld and a .prj) opens through
     RasterReader (decode timed on the host clock, median of 3), decodes to
     the SHA-256 of Pillow's decode, reads decimated to SIZE^2 on the card
-    (bit-equal to the plain resample; the alpha of the LA, grain and
-    12-bit bands too)
+    (bit-equal to the plain resample; the alpha of the LA, grain, 12-bit
+    and grid bands too)
     and is saved as a CLAHE gray JPEG that reads back (but the 1 x 1 files:
     their read is a constant band, whose save launches no histogram).
     Returns the launches of the driven reads and saves."""
@@ -5237,7 +5303,9 @@ def phase_avif(work: Path, smi: str) -> dict:
              AVIF_FILTERED_BAND_SHA256),
             ("SAR band, LA", AVIF_LA_BAND, AVIF_LA_BAND_SHA256),
             ("SAR band, grain", AVIF_GRAIN_BAND, AVIF_GRAIN_BAND_SHA256),
-            ("SAR band, 12-bit LA", AVIF_DEPTH_BAND, AVIF_DEPTH_BAND_SHA256)):
+            ("SAR band, 12-bit LA", AVIF_DEPTH_BAND, AVIF_DEPTH_BAND_SHA256),
+            ("SAR band, 3 x 3 grid RGBA", AVIF_GRID_BAND,
+             AVIF_GRID_BAND_SHA256)):
         band = d / src.name
         shutil.copyfile(src, band)
         band.with_suffix(".wld").write_text(
@@ -5273,7 +5341,7 @@ def phase_avif(work: Path, smi: str) -> dict:
                 f"), {mp / wall:.2f} MP/s, equal to Pillow's decode; host "
                 f"CPU {_host_cpu()}; on {smi}")
             del data
-            with_alpha = path in band_paths[2:]  # LA, grain, 12-bit LA
+            with_alpha = path in band_paths[2:]  # LA, grain, 12-bit, grid
             if with_alpha and bands != 4:
                 raise AssertionError(f"avif: {label} opens with {bands} "
                                      "bands, Pillow's RGBA has 4")

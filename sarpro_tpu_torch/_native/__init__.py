@@ -18,8 +18,9 @@ VP8 / VP8L and ALPH chunks, for io/webp.py; `rledec.cpp`: the run-length
 scanlines of SGI, TGA, PCX, Sun and PSD files and QOI's op stream, for
 io/sgi.py, io/tga.py, io/pcx.py, io/sun.py, io/psd.py and io/qoi.py;
 `bcndec.cpp`: the BC1-BC7 blocks of DDS and FTEX textures, for io/bcn.py;
-`av1dec.cpp` with its generated `av1_tables.h`: an AV1 still key frame,
-its alpha item's and their YUV-to-RGB(A) conversion, for io/avif.py) build
+`av1dec.cpp` with its generated `av1_tables.h`: AV1 still key frames, one
+or a grid of tiles, with their alpha image's and their YUV-to-RGB(A)
+conversion, for io/avif.py) build
 the same way into one library of their own, at their first use, with FMA
 contraction off so the 9/7 wavelet rounds as written. They have no
 fallback: where that library cannot be built, `raster_decoder()` raises
@@ -224,10 +225,12 @@ def raster_decoder() -> ctypes.CDLL:
                                            ctypes.POINTER(i32)]
                 lib.xbm_decode.restype = i64
                 lib.xbm_decode.argtypes = [u8p, i64, i64, i64, u8p]
-                lib.av1_decode.restype = i64
-                lib.av1_decode.argtypes = [u8p, i64, u8p, i64, i32, i32, i32,
-                                           i32, i32, u8p, i64,
-                                           ctypes.c_char_p, i64]
+                i32p = ctypes.POINTER(i32)
+                lib.av1_decode_grid.restype = i64
+                lib.av1_decode_grid.argtypes = [
+                    ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(i64),
+                    i32p, i32p, i32, i32, i32, i32, u8p, i64,
+                    ctypes.c_char_p, i64]
                 lib.bcn_decode.restype = i64
                 lib.bcn_decode.argtypes = [u8p, i64, i64, i64, i32, i32, u8p,
                                            i32]
@@ -322,15 +325,37 @@ def av1_decode(obus: bytes, width: int, height: int, matrix: int,
     `premultiplied`): `matrix` and `full_range` the `colr` nclx box's
     matrix coefficients and range flag (-1: the sequence header's).
     ValueError with the decoder's reason."""
+    single = ((obus,), 0, 1, 1, width, height, width, height)
+    return av1_decode_grid(single, None if alpha is None else (
+        (alpha,), *single[1:]), matrix, full_range, premultiplied)
+
+
+def av1_decode_grid(color: tuple, alpha: Optional[tuple], matrix: int,
+                    full_range: int, premultiplied: bool = False
+                    ) -> np.ndarray:
+    """av1_decode of images that may be grids: `color` and `alpha` (None:
+    no alpha) each (tiles, grid, columns, rows, tile width, tile height,
+    width, height): the AV1 data of each tile in raster order, whether it
+    is a grid item (0: an item of one tile), its tiles' layout and `ispe`,
+    and the image's size. The tiles decode on up to 16 threads into the
+    image's planes, cropped at its right and bottom edges, and the image is
+    converted as av1_decode converts a frame. The (height, width, 3 or 4)
+    u8 RGB(A) image of the colour image's size; ValueError with the
+    decoder's reason."""
     lib = raster_decoder()
-    src = np.frombuffer(obus, np.uint8)
-    alp = np.frombuffer(alpha if alpha is not None else b"\0", np.uint8)
+    images = [color] + ([alpha] if alpha is not None else [])
+    tiles = [np.frombuffer(t, np.uint8) for im in images for t in im[0]]
+    ptrs = (ctypes.c_void_p * len(tiles))(*[t.ctypes.data for t in tiles])
+    sizes = (ctypes.c_int64 * len(tiles))(*[t.size for t in tiles])
+    geometry = [(ctypes.c_int32 * 7)(*im[1:]) for im in images]
+    none = (ctypes.c_int32 * 7)(0, 0, 1, 0, 0, 0, 0)
+    width, height = color[6], color[7]
     out = np.empty((height, width, 3 if alpha is None else 4), np.uint8)
     err = ctypes.create_string_buffer(512)
-    if lib.av1_decode(_u8p(src), len(src), _u8p(alp),
-                      -1 if alpha is None else len(alpha), width, height,
-                      matrix, full_range, int(premultiplied), _u8p(out),
-                      out.strides[0], err, len(err)) != 0:
+    if lib.av1_decode_grid(ptrs, sizes, geometry[0],
+                           geometry[1] if alpha is not None else none, matrix,
+                           full_range, int(premultiplied), _threads(),
+                           _u8p(out), out.strides[0], err, len(err)) != 0:
         raise ValueError(err.value.decode("latin-1"))
     return out
 

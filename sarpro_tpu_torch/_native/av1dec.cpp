@@ -1,6 +1,6 @@
 // AV1 still-image decoder of the port's AVIF reader (io/avif.py): the
-// intra key frame of an AV1 OBU stream, 8-bit 4:2:0, 4:2:2, 4:4:4 or
-// monochrome, as the AV1 bitstream specification (with errata, 2019)
+// intra key frame of an AV1 OBU stream, 8-, 10- or 12-bit 4:2:0, 4:2:2,
+// 4:4:4 or monochrome, as the AV1 bitstream specification (with errata, 2019)
 // defines its syntax and reconstruction and dav1d 1.5.1 decodes it for
 // libavif 1.3.0, film grain included (libavif leaves dav1d's apply_grain
 // on), then libavif's YUV-to-RGB conversion as it runs it for Pillow 12.1:
@@ -19,8 +19,8 @@
 // far) are read. The in-loop filters run once the last tile is decoded:
 // deblocking (§7.14), CDEF (§7.15) and loop restoration (§7.17, Wiener and
 // self-guided units); then film grain synthesis (§7.18.3). A frame whose
-// superres is on is refused by name, and so are other bit depths, a frame
-// of another size than its item and a 4:2:2 block that the spec gives no
+// superres is on is refused by name, and so are a frame of another size
+// than its item and a 4:2:2 block that the spec gives no
 // chroma size. Each tile ends with the spec's trailing bits (exit process,
 // §8.2.4); tile data that does not is refused by name, as non-conformant
 // data that dav1d decodes to an output the spec does not define (aom 3.12.1
@@ -33,20 +33,37 @@
 // the film grain's Gaussian sequence, intrabc's MV and transform CDFs) are
 // in av1_tables.h, generated by av1_tables.py from libavif's read-only data.
 //
+// An image is one tile (an item, or a track's first sample) or a grid
+// item's tiles: each decodes on a thread of a pool, is checked against the
+// image's first tile as libavif checks a grid (size, depth, layout, range,
+// CICP; coverage of the output) and is copied into the image's planes,
+// cropped at its right and bottom edges; then libavif's conversion runs
+// once over the whole image. As libavif decodes the tiles one after another
+// with one dav1d, a tile starts from the sequence header of the tiles
+// before it; dav1d also parses what follows a frame in a tile's data.
+//
 // C interface (ctypes, _native/__init__.py):
-//   av1_decode(obus, size, alpha, alpha_size, width, height, matrix,
-//              full_range, premultiplied, out, stride, err, errlen) -> 0,
-//              or -1 with the reason in err: RGB into out (3 channels), or
-//              RGBA (4) with the alpha item's OBUs (alpha_size -1: none),
-//              unpremultiplied where premultiplied is 1; matrix and
-//              full_range -1: the sequence header's.
+//   av1_decode_grid(tiles, sizes, color, alpha, matrix, full_range,
+//                   premultiplied, threads, out, stride, err, errlen) -> 0,
+//              or -1 with the reason in err: the AV1 data of each tile
+//              (pointers and sizes, the colour image's then the alpha
+//              image's, in raster order) and each image's (grid, columns,
+//              rows, tile width, tile height, width, height); RGB into out
+//              (3 channels), or RGBA (4) where the alpha image has tiles
+//              (0 columns: none), unpremultiplied where premultiplied is 1,
+//              on up to `threads` threads; matrix and full_range -1: the
+//              sequence header's.
 #include <algorithm>
+#include <atomic>
+#include <condition_variable>
 #include <cstdint>
 #include <cstdio>
 #include <cstdlib>
 #include <cstring>
 #include <stdexcept>
 #include <exception>
+#include <memory>
+#include <mutex>
 #include <string>
 #include <thread>
 #include <vector>
@@ -873,7 +890,11 @@ struct Decoder {
         if (!in_t || !in_s) continue;
       }
       switch (type) {
-        case 1: sequence_header(payload, obu_size); break;
+        case 1:
+          sequence_header(payload, obu_size);
+          seq_obu = payload;
+          seq_obu_size = obu_size;
+          break;
         case 2: have_frame_header = false; break;
         case 3: case 7: {
           if (!have_seq) throw Invalid("frame header before the sequence header");
@@ -900,9 +921,36 @@ struct Decoder {
           break;
         default: break;  // metadata, tile list, padding, reserved
       }
-      if (frame_done) break;
+      if (frame_done) {
+        if (pos < size) after_frame(data + pos, size - pos);
+        return;
+      }
     }
-    if (!frame_done) throw Invalid("no complete frame in the data");
+    if (!frame_done && !after) throw Invalid("no complete frame in the data");
+  }
+
+  // dav1d parses the OBUs after the frame in the same data too, and their
+  // errors fail the decode, though the picture it gives is the first
+  // frame's (a frame cut short after it fails; a whole one, or sequence
+  // headers, temporal delimiters and padding, do not): they are decoded
+  // as a stream of their own after the last sequence header, which may
+  // hold no frame, and dropped
+  const uint8_t* seq_obu = nullptr;
+  size_t seq_obu_size = 0;
+  bool after = false;  // decoding the OBUs after another decoder's frame
+  void after_frame(const uint8_t* data, size_t size) {
+    auto rest = std::make_unique<Decoder>();
+    rest->want_w = want_w;
+    rest->want_h = want_h;
+    rest->after = true;
+    rest->start_from(seq_obu, seq_obu_size);
+    rest->decode(data, size);
+  }
+  // the state a sequence header OBU's payload leaves, as if decoded before
+  void start_from(const uint8_t* sh, size_t n) {
+    sequence_header(sh, n);
+    seq_obu = sh;
+    seq_obu_size = n;
   }
 
   // ------------------------------------------------------ sequence header
@@ -940,6 +988,9 @@ struct Decoder {
       op_count = (int)b.f(5) + 1;
       for (int i = 0; i < op_count; i++) {
         op_idc[i] = (int)b.f(12);
+        // dav1d refuses an operating point with no temporal or no spatial layer
+        if (op_idc[i] && (!(op_idc[i] & 0xFF) || !(op_idc[i] & 0xF00)))
+          throw Invalid("sequence header operating point without layers");
         int level = (int)b.f(5);
         if (level > 7) b.bit();
         decoder_model_present_for_op[i] = 0;
@@ -3947,60 +3998,237 @@ void convert(Decoder& d, Decoder* a, int w, int h, int matrix, int full, int pre
   if (premultiplied && unattenuate) unpremultiply(w, h, out, stride);
 }
 
-}  // namespace
+// one coded image of libavif's: an item's single tile (`grid` 0), or a
+// grid item's tiles (`cols` x `rows` of `tile_w` x `tile_h`, each its
+// `ispe`, in raster order) cropped to `width` x `height` at the right and
+// bottom edges
+struct Coded {
+  const uint8_t* const* data;
+  const int64_t* sizes;
+  int grid, cols, rows, tile_w, tile_h, width, height;
+  int count() const { return cols * rows; }
+};
 
-extern "C" int64_t av1_decode(const uint8_t* obus, int64_t size, const uint8_t* alpha,
-                              int64_t alpha_size, int32_t width, int32_t height, int32_t matrix,
-                              int32_t full_range, int32_t premultiplied, uint8_t* out,
-                              int64_t stride, char* err, int64_t errlen) {
-  try {
-    // the alpha item decodes on a thread of its own beside the colour
-    // item; the colour item's failure is reported first, as libavif's
-    Decoder d, a;
-    std::exception_ptr alpha_failed;
-    std::thread alpha_thread;
-    if (alpha_size >= 0)
-      alpha_thread = std::thread([&] {
-        try {
-          a.want_w = width;
-          a.want_h = height;
-          a.decode(alpha, (size_t)alpha_size);
-          a.loop_filters();
-          a.film_grain();
-        } catch (...) {
-          alpha_failed = std::current_exception();
-        }
-      });
-    try {
-      d.want_w = width;
-      d.want_h = height;
-      d.decode(obus, (size_t)size);
-      d.loop_filters();
-      d.film_grain();
-    } catch (...) {
-      if (alpha_thread.joinable()) alpha_thread.join();
-      throw;
+// what libavif holds equal between a grid's tiles (avifDecoderDataCopyTile
+// ToImage's "mismatched tiles"): the frame's size, depth, layout, range and
+// the sequence header's CICP (an alpha tile's size and depth only)
+struct Form {
+  int w, h, depth, mono, ssx, ssy, range, primaries, transfer, matrix;
+  explicit Form(const Decoder& d, bool alpha)
+      : w(d.frame_w), h(d.frame_h), depth(d.bit_depth), mono(alpha ? 0 : d.mono),
+        ssx(alpha ? 0 : d.ssx), ssy(alpha ? 0 : d.ssy), range(alpha ? 0 : d.color_range),
+        primaries(alpha ? 0 : d.primaries), transfer(alpha ? 0 : d.transfer),
+        matrix(alpha ? 0 : d.matrix) {}
+  bool operator==(const Form& o) const {
+    return w == o.w && h == o.h && depth == o.depth && mono == o.mono && ssx == o.ssx &&
+           ssy == o.ssy && range == o.range && primaries == o.primaries &&
+           transfer == o.transfer && matrix == o.matrix;
+  }
+};
+
+// a decoded tile's planes into the image's at (x0, y0), cropped to its
+// w x h (libavif's avifImageCopySamples over two views); an alpha tile's
+// one plane widened to full range where its sequence header says limited
+void stitch(Decoder& t, Decoder& g, int x0, int y0, int w, int h, bool alpha) {
+  for (int p = 0; p < (alpha ? 1 : t.num_planes()); p++) {
+    int sx = p ? t.ssx : 0, sy = p ? t.ssy : 0;
+    int pw = (w + sx) >> sx, ph = (h + sy) >> sy;
+    for (int r = 0; r < ph; r++) {
+      const pixel* s = t.planes[p].at(r, 0);
+      pixel* d = g.planes[p].at((y0 >> sy) + r, x0 >> sx);
+      if (alpha && !t.color_range)
+        for (int x = 0; x < pw; x++) d[x] = (pixel)limited_to_full(t.bit_depth, s[x]);
+      else
+        std::memcpy(d, s, sizeof(pixel) * (size_t)pw);
     }
-    if (alpha_size >= 0) {
-      alpha_thread.join();
-      if (alpha_failed) {
-        try {
-          std::rethrow_exception(alpha_failed);
-        } catch (const std::exception& e) {
-          throw std::runtime_error(std::string("alpha item: ") + e.what());
+  }
+}
+
+// the image's form from its first tile, and its planes at its size
+void allocate(const Decoder& t, Decoder& g, int width, int height, bool alpha) {
+  g.bit_depth = t.bit_depth;
+  g.mono = alpha ? 1 : t.mono;
+  g.ssx = t.ssx;
+  g.ssy = t.ssy;
+  g.color_range = alpha ? 1 : t.color_range;  // alpha: widened by stitch
+  g.matrix = t.matrix;
+  for (int p = 0; p < g.num_planes(); p++) {
+    Plane& pl = g.planes[p];
+    pl.w = p ? (width + g.ssx) >> g.ssx : width;
+    pl.h = p ? (height + g.ssy) >> g.ssy : height;
+    pl.stride = pl.w;
+    pl.px.assign((size_t)pl.stride * pl.h, 0);
+  }
+}
+
+// libavif's grid checks on a grid's first tile (avifAreGridDimensionsValid
+// and the coverage rules of avifDecoderDataAllocateGridImagePlanes): the
+// tiles cover the output, its last row and column reach into it, tiles are
+// at least 64 samples a side, and a colour grid's tile and output sizes are
+// even where its chroma is subsampled
+void check_grid(const Coded& c, const Decoder& t, bool alpha) {
+  const int64_t tw = t.frame_w, th = t.frame_h;
+  bool bad = tw * c.cols < c.width || th * c.rows < c.height || tw * (c.cols - 1) >= c.width ||
+             th * (c.rows - 1) >= c.height || tw < 64 || th < 64;
+  if (!alpha && !t.mono && t.ssx && ((tw | c.width) & 1)) bad = true;
+  if (!alpha && !t.mono && t.ssy && ((th | c.height) & 1)) bad = true;
+  if (bad) throw std::runtime_error("Failed to decode frame 0: Invalid image grid");
+}
+
+// the last sequence header OBU's payload in `data`, walking its OBU
+// headers as far as they parse (nullptr: none)
+const uint8_t* last_sequence_header(const uint8_t* data, size_t size, size_t* n) {
+  const uint8_t* found = nullptr;
+  for (size_t pos = 0; pos < size;) {
+    int type = (data[pos] >> 3) & 15, ext = (data[pos] >> 2) & 1, has_size = (data[pos] >> 1) & 1;
+    size_t hdr = 1 + ext;
+    uint64_t len = 0;
+    if (has_size) {
+      for (int i = 0;; i++) {
+        if (i == 8 || hdr >= size - pos) return found;
+        uint8_t b = data[pos + hdr++];
+        len |= (uint64_t)(b & 0x7F) << (7 * i);
+        if (!(b & 0x80)) break;
+      }
+    } else {
+      len = size - pos - hdr;
+    }
+    if (hdr > size - pos || len > size - pos - hdr) return found;
+    if (type == 1) {
+      found = data + pos + hdr;
+      *n = (size_t)len;
+    }
+    pos += hdr + (size_t)len;
+  }
+  return found;
+}
+
+// decodes the colour image and the alpha image (`a`, a count of 0: none),
+// their tiles on up to `threads` threads, each stitched into its image as
+// it is done, and converts them as libavif does for Pillow into `out`; the
+// first tile's failure in libavif's order (the colour tiles, then the
+// alpha's) is the one reported
+void decode_images(const Coded& c, const Coded& a, int matrix, int full_range, int premultiplied,
+                   uint8_t* out, int64_t stride, int threads) {
+  const int nc = c.count(), n = nc + a.count();
+  // libavif decodes the tiles one after another with one dav1d instance
+  // (the colour image's, then the alpha's; but a single colour tile and a
+  // single alpha tile have one each), so a tile's data may lean on the
+  // sequence header of the tiles before it: each starts from the last one
+  std::vector<const uint8_t*> seed(n, nullptr);
+  std::vector<size_t> seed_size(n, 0);
+  const bool shared = !(nc == 1 && a.count() == 1);
+  for (int i = 1; i < n; i++) {
+    if (i == nc && !shared) continue;
+    const Coded& k = i - 1 >= nc ? a : c;
+    const int j = i - 1 >= nc ? i - 1 - nc : i - 1;
+    size_t m = 0;
+    const uint8_t* sh = last_sequence_header(k.data[j], (size_t)k.sizes[j], &m);
+    seed[i] = sh ? sh : seed[i - 1];
+    seed_size[i] = sh ? m : seed_size[i - 1];
+  }
+  Decoder g, ga;
+  std::vector<std::exception_ptr> failed(n);
+  std::vector<Form> first;  // each image's first tile, once decoded
+  first.reserve(2);
+  int first_of[2] = {-1, -1};  // its index in `first`; -2: it failed
+  std::mutex mu;
+  std::condition_variable cv;
+  std::atomic<int> next(0);
+  auto work = [&] {
+    for (int i; (i = next++) < n;) {
+      const bool alpha = i >= nc;
+      const Coded& k = alpha ? a : c;
+      const int j = alpha ? i - nc : i;
+      Decoder& image = alpha ? ga : g;
+      try {
+        Decoder t;
+        t.want_w = k.tile_w;
+        t.want_h = k.tile_h;
+        if (seed[i]) t.start_from(seed[i], seed_size[i]);
+        t.decode(k.data[j], (size_t)k.sizes[j]);
+        t.loop_filters();
+        t.film_grain();
+        if (j == 0) {
+          if (k.grid) check_grid(k, t, alpha);
+          if (!alpha && k.width == t.frame_w && k.height == t.frame_h) {
+            // the only tile is the image: its planes are moved, not copied
+            allocate(t, image, 0, 0, alpha);
+            for (int p = 0; p < 3; p++) image.planes[p] = std::move(t.planes[p]);
+          } else {
+            allocate(t, image, k.width, k.height, alpha);
+            stitch(t, image, 0, 0, std::min(t.frame_w, k.width), std::min(t.frame_h, k.height),
+                   alpha);
+          }
+          std::lock_guard<std::mutex> lock(mu);
+          first.emplace_back(t, alpha);
+          first_of[alpha] = (int)first.size() - 1;
+          cv.notify_all();
+          continue;
+        }
+        int f;
+        {
+          std::unique_lock<std::mutex> lock(mu);
+          cv.wait(lock, [&] { return first_of[alpha] != -1; });
+          f = first_of[alpha];
+        }
+        if (f < 0) continue;  // the first tile's failure is reported
+        if (!(Form(t, alpha) == first[f]))
+          throw std::runtime_error("Failed to decode frame 0: Invalid image grid");
+        const int x0 = t.frame_w * (j % k.cols), y0 = t.frame_h * (j / k.cols);
+        stitch(t, image, x0, y0, std::min(t.frame_w, k.width - x0),
+               std::min(t.frame_h, k.height - y0), alpha);
+      } catch (...) {
+        std::lock_guard<std::mutex> lock(mu);
+        failed[i] = std::current_exception();
+        if (j == 0) {
+          first_of[alpha] = -2;
+          cv.notify_all();
         }
       }
     }
-    int m = matrix >= 0 ? matrix : d.matrix;
-    int full = full_range >= 0 ? full_range : d.color_range;
-    // libavif's conversion refuses these (reserved values, BT.2020 and
-    // chroma-derived constant luminance, SMPTE ST 2085, ICtCp, values past
-    // the table, limited-range YCgCo, and identity but on 4:4:4 and
-    // monochrome samples)
-    if (m == 3 || m == 10 || m == 11 || m == 13 || (m >= 14 && m != 15) || (m == 8 && !full) ||
-        (m == 0 && d.ssx && !d.mono))
-      throw std::runtime_error("Conversion from YUV failed: Reformat failed");
-    convert(d, alpha_size >= 0 ? &a : nullptr, width, height, m, full, premultiplied, out, stride);
+  };
+  std::vector<std::thread> pool;
+  for (int t = 1; t < std::min(threads, n); t++) pool.emplace_back(work);
+  work();
+  for (std::thread& t : pool) t.join();
+  for (int i = 0; i < n; i++) {
+    if (!failed[i]) continue;
+    if (i < nc) std::rethrow_exception(failed[i]);
+    try {
+      std::rethrow_exception(failed[i]);
+    } catch (const std::exception& e) {
+      throw std::runtime_error(std::string("alpha item: ") + e.what());
+    }
+  }
+  if (a.count()) {
+    // libavif decodes the alpha only at the colour image's size and depth
+    if (a.width != c.width || a.height != c.height)
+      throw std::runtime_error("Failed to decode frame 0: Decoding of alpha plane failed");
+  }
+  int m = matrix >= 0 ? matrix : g.matrix;
+  int full = full_range >= 0 ? full_range : g.color_range;
+  // libavif's conversion refuses these (reserved values, BT.2020 and
+  // chroma-derived constant luminance, SMPTE ST 2085, ICtCp, values past
+  // the table, limited-range YCgCo, and identity but on 4:4:4 and
+  // monochrome samples)
+  if (m == 3 || m == 10 || m == 11 || m == 13 || (m >= 14 && m != 15) || (m == 8 && !full) ||
+      (m == 0 && g.ssx && !g.mono))
+    throw std::runtime_error("Conversion from YUV failed: Reformat failed");
+  convert(g, a.count() ? &ga : nullptr, c.width, c.height, m, full, premultiplied, out, stride);
+}
+
+}  // namespace
+
+extern "C" int64_t av1_decode_grid(const uint8_t* const* tiles, const int64_t* sizes,
+                                   const int32_t* color, const int32_t* alpha, int32_t matrix,
+                                   int32_t full_range, int32_t premultiplied, int32_t threads,
+                                   uint8_t* out, int64_t stride, char* err, int64_t errlen) {
+  try {
+    Coded c{tiles, sizes, color[0], color[1], color[2], color[3], color[4], color[5], color[6]};
+    Coded a{tiles + c.count(), sizes + c.count(), alpha[0], alpha[1], alpha[2], alpha[3],
+            alpha[4], alpha[5], alpha[6]};
+    decode_images(c, a, matrix, full_range, premultiplied, out, stride, threads);
     return 0;
   } catch (const std::exception& e) {
     snprintf(err, (size_t)errlen, "%s", e.what());

@@ -16,8 +16,10 @@ Pillow 12.1's plugins in its order (open_image, PLUGINS):
     (io/blp.py), XBM (io/xbm.py), XPM (io/xpm.py), MSP (io/msp.py), PIXAR
     (io/pixar.py), GBR (io/gbr.py), FLI / FLC (io/fli.py), PhotoCD
     (io/pcd.py), XV thumbnails (io/xvthumb.py), IM Tools (io/imt.py),
-    IPTC/NAA (io/iptc.py) and still AVIF images (io/avif.py: 8-bit key
-    frames of any sample layout with their in-loop filters, and alpha);
+    IPTC/NAA (io/iptc.py) and AVIF images (io/avif.py: 8-, 10- and
+    12-bit key frames of any sample layout with their in-loop filters and
+    alpha, as a still item, a grid of items or the first frame of an
+    `avis` image sequence);
   * the formats Pillow opens but reads no pixels of here (NO_PIXELS) raise
     RasterError saying so, and so does content no plugin takes.
 

@@ -22,6 +22,8 @@ LIBRARY = "libavif.so.15"
 CODECS = {"aom": 1, "rav1e": 4, "svt": 5}
 # avifPixelFormat
 LAYOUTS = {"4:4:4": 1, "4:2:2": 2, "4:2:0": 3, "4:0:0": 4}
+# avifAddImageFlag: the one image of a still (a grid's cells included)
+ADD_IMAGE_FLAG_SINGLE = 2
 _lib = None
 
 
@@ -47,6 +49,9 @@ def _library():
         lib.avifEncoderCreate.restype = vp
         lib.avifEncoderDestroy.argtypes = [vp]
         lib.avifEncoderWrite.argtypes = [vp, vp, vp]
+        lib.avifEncoderAddImageGrid.argtypes = [vp, u32, u32, vp, u32]
+        lib.avifEncoderAddImage.argtypes = [vp, vp, ctypes.c_uint64, u32]
+        lib.avifEncoderFinish.argtypes = [vp, vp]
         lib.avifEncoderSetCodecSpecificOption.argtypes = [
             vp, ctypes.c_char_p, ctypes.c_char_p]
         lib.avifRWDataFree.argtypes = [vp]
@@ -74,6 +79,9 @@ def _check_layout(lib) -> None:
     enc = lib.avifEncoderCreate()
     try:
         assert list((ctypes.c_int32 * 4).from_address(enc)) == [0, 1, -1, 0]
+        assert ctypes.c_uint64.from_address(enc + 16).value == 1  # timescale
+        # quantizers, then tile rows and columns: all 0
+        assert list((ctypes.c_int32 * 6).from_address(enc + 24)) == [0] * 6
     finally:
         lib.avifEncoderDestroy(enc)
 
@@ -85,6 +93,57 @@ def _fill(ptr: int, row_bytes: int, plane: np.ndarray, depth: int) -> None:
     dst = np.frombuffer(buf, np.uint8).reshape(rows, row_bytes)
     src = np.ascontiguousarray(plane.astype(dtype)).view(np.uint8)
     dst[:, :src.shape[1]] = src
+
+
+def _image(lib, y, u, v, alpha, depth, layout, full, matrix,
+           premultiplied):
+    """A new avifImage of planes `y`, `u`, `v` and `alpha` (see encode)."""
+    rows, cols = y.shape
+    for p in (y, u, v, alpha):
+        if p is not None:
+            assert p.min() >= 0 and p.max() < 1 << depth
+    im = lib.avifImageCreate(cols, rows, depth, LAYOUTS[layout])
+    ctypes.c_uint32.from_address(im + 16).value = 1 if full else 0
+    for off, val in ((104, 1), (106, 13), (108, matrix)):
+        ctypes.c_uint16.from_address(im + off).value = val
+    lib.avifImageAllocatePlanes(im, 0xFF if alpha is not None else 1)
+    planes = [y] if layout == "4:0:0" else [y, u, v]
+    for i, plane in enumerate(planes):
+        _fill(ctypes.c_void_p.from_address(im + 24 + 8 * i).value,
+              ctypes.c_uint32.from_address(im + 48 + 4 * i).value,
+              plane, depth)
+    if alpha is not None:
+        _fill(ctypes.c_void_p.from_address(im + 64).value,
+              ctypes.c_uint32.from_address(im + 72).value, alpha, depth)
+        ctypes.c_uint32.from_address(im + 80).value = int(premultiplied)
+    return im
+
+
+def _encoder(lib, codec, speed, quantizer, alpha_quantizer, tiles_log2,
+             threads, options, timescale=1):
+    """A new avifEncoder so set (see encode)."""
+    enc = lib.avifEncoderCreate()
+    aq = quantizer if alpha_quantizer is None else alpha_quantizer
+    for off, val in ((0, CODECS[codec]), (4, threads), (8, speed),
+                     (24, quantizer), (28, quantizer), (32, aq),
+                     (36, aq), (40, tiles_log2[0]), (44, tiles_log2[1])):
+        ctypes.c_int32.from_address(enc + off).value = val
+    ctypes.c_uint64.from_address(enc + 16).value = timescale
+    for key, val in (options or {}).items():
+        lib.avifEncoderSetCodecSpecificOption(enc, key.encode(),
+                                              str(val).encode())
+    return enc
+
+
+def _check(lib, res: int) -> None:
+    if res != 0:
+        raise RuntimeError(lib.avifResultToString(res).decode())
+
+
+def _output(out) -> bytes:
+    data = ctypes.c_void_p.from_buffer(out).value
+    size = ctypes.c_size_t.from_buffer(out, 8).value
+    return ctypes.string_at(data, size)
 
 
 def encode(y: np.ndarray, u: np.ndarray = None, v: np.ndarray = None,
@@ -100,42 +159,75 @@ def encode(y: np.ndarray, u: np.ndarray = None, v: np.ndarray = None,
     minimum and maximum quantizer (0: lossless), `tiles_log2` the log2 of
     the tile rows and columns, `options` aom's codec-specific options."""
     lib = _library()
-    rows, cols = y.shape
-    for p in (y, u, v, alpha):
-        if p is not None:
-            assert p.min() >= 0 and p.max() < 1 << depth
-    im = lib.avifImageCreate(cols, rows, depth, LAYOUTS[layout])
-    enc = lib.avifEncoderCreate()
+    im = _image(lib, y, u, v, alpha, depth, layout, full, matrix,
+                premultiplied)
+    enc = _encoder(lib, codec, speed, quantizer, alpha_quantizer, tiles_log2,
+                   threads, options)
     out = (ctypes.c_uint8 * 16)()
     try:
-        ctypes.c_uint32.from_address(im + 16).value = 1 if full else 0
-        for off, val in ((104, 1), (106, 13), (108, matrix)):
-            ctypes.c_uint16.from_address(im + off).value = val
-        lib.avifImageAllocatePlanes(im, 0xFF if alpha is not None else 1)
-        planes = [y] if layout == "4:0:0" else [y, u, v]
-        for i, plane in enumerate(planes):
-            _fill(ctypes.c_void_p.from_address(im + 24 + 8 * i).value,
-                  ctypes.c_uint32.from_address(im + 48 + 4 * i).value,
-                  plane, depth)
-        if alpha is not None:
-            _fill(ctypes.c_void_p.from_address(im + 64).value,
-                  ctypes.c_uint32.from_address(im + 72).value, alpha, depth)
-            ctypes.c_uint32.from_address(im + 80).value = int(premultiplied)
-        aq = quantizer if alpha_quantizer is None else alpha_quantizer
-        for off, val in ((0, CODECS[codec]), (4, threads), (8, speed),
-                         (24, quantizer), (28, quantizer), (32, aq),
-                         (36, aq), (40, tiles_log2[0]), (44, tiles_log2[1])):
-            ctypes.c_int32.from_address(enc + off).value = val
-        for key, val in (options or {}).items():
-            lib.avifEncoderSetCodecSpecificOption(enc, key.encode(),
-                                                  str(val).encode())
-        res = lib.avifEncoderWrite(enc, im, out)
-        if res != 0:
-            raise RuntimeError(lib.avifResultToString(res).decode())
-        data = ctypes.c_void_p.from_buffer(out).value
-        size = ctypes.c_size_t.from_buffer(out, 8).value
-        return ctypes.string_at(data, size)
+        _check(lib, lib.avifEncoderWrite(enc, im, out))
+        return _output(out)
     finally:
         lib.avifRWDataFree(out)
         lib.avifEncoderDestroy(enc)
         lib.avifImageDestroy(im)
+
+
+def encode_grid(cells: list, cols: int, rows: int, *, depth: int = 8,
+                layout: str = "4:2:0", full: bool = True, matrix: int = 1,
+                codec: str = "aom", speed: int = 6, quantizer: int = 20,
+                alpha_quantizer: int = None, premultiplied: bool = False,
+                threads: int = 1, options: dict = None) -> bytes:
+    """The AVIF file of a `cols` x `rows` grid item: `cells` holds, in
+    raster order, each cell's (y, u, v, alpha) planes as encode takes them
+    (alpha None, or an alpha plane in every cell: an alpha grid beside the
+    colour grid). libavif writes each cell as an `av01` item of its own,
+    the grid as a `grid` item whose `dimg` references list them, and its
+    output size as the cells' total."""
+    lib = _library()
+    assert len(cells) == cols * rows
+    ims = [_image(lib, *cell, depth, layout, full, matrix, premultiplied)
+           for cell in cells]
+    enc = _encoder(lib, codec, speed, quantizer, alpha_quantizer, (0, 0),
+                   threads, options)
+    out = (ctypes.c_uint8 * 16)()
+    try:
+        arr = (ctypes.c_void_p * len(ims))(*ims)
+        _check(lib, lib.avifEncoderAddImageGrid(enc, cols, rows, arr,
+                                                ADD_IMAGE_FLAG_SINGLE))
+        _check(lib, lib.avifEncoderFinish(enc, out))
+        return _output(out)
+    finally:
+        lib.avifRWDataFree(out)
+        lib.avifEncoderDestroy(enc)
+        for im in ims:
+            lib.avifImageDestroy(im)
+
+
+def encode_sequence(frames: list, *, duration: int = 1, timescale: int = 30,
+                    depth: int = 8, layout: str = "4:2:0", full: bool = True,
+                    matrix: int = 1, codec: str = "aom", speed: int = 6,
+                    quantizer: int = 20, alpha_quantizer: int = None,
+                    premultiplied: bool = False, threads: int = 1,
+                    options: dict = None) -> bytes:
+    """The `avis` image sequence of `frames`, each a (y, u, v, alpha) of
+    planes as encode takes them, each `duration` ticks of `timescale` long.
+    libavif writes a `moov` with one track (two with alpha: the alpha
+    track's `tref` `auxl` points at the colour track) and, for the first
+    frame, the items of a still image beside it."""
+    lib = _library()
+    ims = [_image(lib, *f, depth, layout, full, matrix, premultiplied)
+           for f in frames]
+    enc = _encoder(lib, codec, speed, quantizer, alpha_quantizer, (0, 0),
+                   threads, options, timescale)
+    out = (ctypes.c_uint8 * 16)()
+    try:
+        for im in ims:
+            _check(lib, lib.avifEncoderAddImage(enc, im, duration, 0))
+        _check(lib, lib.avifEncoderFinish(enc, out))
+        return _output(out)
+    finally:
+        lib.avifRWDataFree(out)
+        lib.avifEncoderDestroy(enc)
+        for im in ims:
+            lib.avifImageDestroy(im)

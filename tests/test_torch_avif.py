@@ -24,9 +24,10 @@ patched to each value on every layout, RGB and RGBA, the alpha item's
 properties, references and data edited, bit flips of a file with every
 kind of item, of one with all three filters on and of one with alpha,
 files cut short, and the files the port refuses by name
-(tests/test_torch_legacy_rasters.py holds those: an `avis` image
-sequence; 10- and 12-bit samples are tests/test_torch_avif_depth.py's). The tables of av1dec.cpp are
-held to the read-only data of Pillow's libavif."""
+(tests/test_torch_legacy_rasters.py holds those: a frame of another size
+than its `ispe`; 10- and 12-bit samples are tests/test_torch_avif_depth.py's,
+grid items and image sequences tests/test_torch_avif_container.py's). The
+tables of av1dec.cpp are held to the read-only data of Pillow's libavif."""
 import hashlib
 import io
 import re
@@ -77,7 +78,9 @@ NOT_YET = "not read by the port yet"
 TOOL_PREFIXES = ("qm_", "fg_", "prem_", "ibc_")
 # the fixtures of 10- and 12-bit samples (tests/test_torch_avif_depth.py)
 DEPTH_PREFIX = chip_smoke.AVIF_DEPTH_PREFIX
-OTHER_PREFIXES = TOOL_PREFIXES + (DEPTH_PREFIX,)
+# and the grid items and image sequences (tests/test_torch_avif_container.py)
+OTHER_PREFIXES = TOOL_PREFIXES + (DEPTH_PREFIX,) + \
+    chip_smoke.AVIF_CONTAINER_PREFIXES
 CDEF = {"enable-cdef": "1"}
 LAYOUTS = ("4:4:4", "4:2:2", "4:0:0")
 
@@ -303,27 +306,22 @@ def layout_files() -> dict:
 
 # the files the port refuses by name, and the words of each refusal
 REFUSALS = {
-    "refuse_avis.avif": re.escape("AVIF image sequences (avis) are"),
+    "refuse_ispe.avif": re.escape("AV1 frame of another size than its item "
+                                  "is"),
 }
 
 
 def refusal_files() -> dict:
-    """The files of REFUSALS as Pillow writes them with the feature the
-    port refuses: an image sequence of two frames (Pillow opens the
-    first), its creation and modification times set to 0."""
-    s = chip_smoke.AVIF_SEED
-    frames = [Image.fromarray(scene(s + k, 32, 48)) for k in (4, 5)]
-    buf = io.BytesIO()
-    frames[0].save(buf, format="AVIF", save_all=True,
-                   append_images=frames[1:], quality=50, speed=8)
-    avis = bytearray(buf.getvalue())
-    for kind in (b"mvhd", b"tkhd", b"mdhd"):
-        pos = avis.find(kind)
-        while pos >= 0:
-            n = 16 if avis[pos + 4] == 1 else 8  # version 1: 64-bit times
-            avis[pos + 8:pos + 8 + n] = bytes(n)
-            pos = avis.find(kind, pos + 4)
-    files = {"refuse_avis.avif": bytes(avis)}
+    """The files of REFUSALS: s6_q50.avif with its `ispe` patched to 48 x
+    32 (libavif scales the 130 x 67 frame to it, and Pillow opens it at 48
+    x 32). The `avis` sequence that stood here before the port read image
+    sequences is tests/data/avif/seq_pillow.avif now
+    (test_torch_avif_container.py)."""
+    b = bytearray(_save(scene(chip_smoke.AVIF_SEED, 67, 130), quality=50,
+                        speed=6, advanced=LF0))  # s6_q50.avif
+    k = b.find(b"ispe") + 8
+    b[k:k + 8] = struct.pack(">II", 48, 32)
+    files = {"refuse_ispe.avif": bytes(b)}
     assert list(files) == list(REFUSALS)
     return files
 
@@ -594,7 +592,7 @@ def test_monochrome_ramp_widens_as_libavif(tmp_path, mode, matrix):
 # damaged files
 # ---------------------------------------------------------------------------
 def _obu_span(blob: bytes) -> tuple:
-    obus = avif.parse(blob)[2]
+    obus = avif.parse(blob).obus
     start = blob.find(obus)
     return start, start + len(obus)
 
@@ -936,7 +934,7 @@ def test_container_forms_equal_jax(tmp_path, form):
     opens as in the JAX reader."""
     blob = (AVIF_DIR / "s6_q50.avif").read_bytes()
     top = dict(_boxes(blob))
-    obus = avif.parse(blob)[2]
+    obus = avif.parse(blob).obus
     meta = _boxes(top[b"meta"], 4)
     half = len(obus) // 2
     kids = [(k, v) for k, v in meta if k != b"iloc"]
