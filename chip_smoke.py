@@ -229,7 +229,9 @@ prints no result):
      the hbd_ files of 10- and 12-bit samples written by libavif 0.11.1,
      held in tests/test_torch_avif_depth.py; the grid_ and seq_ files of
      grid items and `avis` image sequences, held in
-     tests/test_torch_avif_container.py) and on the six committed
+     tests/test_torch_avif_container.py; the scale_ and sweep_8_ files of
+     frames scaled to their `ispe` and of libavif's own conversion, held in
+     tests/test_torch_avif_scale.py) and on the seven committed
      9216^2 SAR-like bands of tests/data/avif_band (Pillow at speed 6,
      autotiling, loop filter off, AVIF_BAND_SHA256; at speed 4 with CDEF
      on, so that all three filters are on, AVIF_FILTERED_BAND_SHA256; as
@@ -240,12 +242,17 @@ prints no result):
      footprint as a 12-bit alpha item, written by libavif 0.11.1 and aom
      3.6.0, AVIF_DEPTH_BAND_SHA256; and as a 3 x 3 grid of 3072^2 8-bit
      4:2:0 tiles with the footprint as a 3 x 3 alpha grid, written by
-     libavif 0.11.1 and aom 3.6.0, AVIF_GRID_BAND_SHA256), each with a .wld
+     libavif 0.11.1 and aom 3.6.0, AVIF_GRID_BAND_SHA256; and as Pillow's
+     6144^2 8-bit 4:2:0 RGBA with the footprint, both items' `ispe` set to
+     9216^2 and the `colr` matrix to SMPTE 240M in limited range, so that
+     the decode scales both frames up and converts them with libavif's own
+     float code, AVIF_SCALE_BAND_SHA256), each with a .wld
      and a .prj beside a copy of it. Each opens through RasterReader (decode
      ms on the host clock, median of 3, MP/s), decodes to the pinned
      SHA-256, reads decimated to 2048^2 on the card (cubic; the alpha, band
      4, of the LA,
-     grain, 12-bit and grid bands too) with the launch counts set to 0 just
+     grain, 12-bit, grid and scaled bands too) with the launch counts set to
+     0 just
      before and read just after, bit-equal to the plain resample, and is
      saved as a CLAHE gray JPEG that reads back;
  19. with --walls N only: every warm path N times more, interleaved, with
@@ -515,7 +522,15 @@ WEBP_FIXTURES = {
 # AVIF_GRID_BAND: avif_band_u8 at AVIF_BAND_SIDE^2 with the footprint as
 # alpha, stored as a 3 x 3 grid of 3072^2 8-bit 4:2:0 tiles at quantizer
 # AVIF_GRID_BAND_QUANTIZER beside a 3 x 3 lossless alpha grid
-# (grid_band_file, 1.58 MB, 25 s of aom here).
+# (grid_band_file, 1.58 MB, 25 s of aom here). The scale_ and sweep_8_ files
+# (AVIF_SCALE_PREFIXES) hold frames libavif scales to their `ispe` and 8-bit
+# sweeps of its own conversion, written by libavif 0.11.1 through
+# tests/avif_encode.py and edited (tests/test_torch_avif_scale.py's
+# scale_files), as is AVIF_SCALE_BAND: avif_band_u8 at
+# AVIF_SCALE_BAND_SIDE^2 as RGBA with the footprint as alpha, saved by
+# Pillow at quality AVIF_BAND_QUALITY, both items' `ispe` then set to
+# AVIF_BAND_SIDE^2 and the `colr` matrix to SMPTE 240M (7) in limited
+# range (scale_band_file, 0.09 MB, 6 s of aom here).
 AVIF_DIR = ROOT / "tests" / "data" / "avif"
 AVIF_BAND = ROOT / "tests" / "data" / "avif_band" / "sar_band_9216.avif"
 AVIF_FILTERED_BAND = AVIF_BAND.with_name("sar_band_9216_filtered.avif")
@@ -523,6 +538,7 @@ AVIF_LA_BAND = AVIF_BAND.with_name("sar_band_9216_la.avif")
 AVIF_GRAIN_BAND = AVIF_BAND.with_name("sar_band_9216_grain.avif")
 AVIF_DEPTH_BAND = AVIF_BAND.with_name("sar_band_9216_12bit.avif")
 AVIF_GRID_BAND = AVIF_BAND.with_name("sar_band_9216_grid.avif")
+AVIF_SCALE_BAND = AVIF_BAND.with_name("sar_band_9216_scaled.avif")
 AVIF_SEED = 21
 AVIF_BAND_SIDE = 9216
 AVIF_BAND_QUALITY = 10
@@ -531,6 +547,10 @@ AVIF_DEPTH_PREFIX = "hbd_"
 AVIF_GRID_BAND_QUANTIZER = 54
 # the grid items and image sequences (tests/test_torch_avif_container.py)
 AVIF_CONTAINER_PREFIXES = ("grid_", "seq_")
+# frames libavif scales to their `ispe`, and 8-bit sweeps through its own
+# conversion (tests/test_torch_avif_scale.py)
+AVIF_SCALE_PREFIXES = ("scale_", "sweep_8_")
+AVIF_SCALE_BAND_SIDE = 6144
 AVIF_FIXTURES = {
     "s6_q10.avif": ("966c408207f06c5bfa8f8a653e78ab3c"
                     "0a675de42b0a9ceba9800899fec375ab"),
@@ -706,6 +726,8 @@ AVIF_FIXTURES = {
                               "cfebf518b1fe9073ab4195c9318050b0"),
     "was_refused_10bit.avif": ("08659849e81fdbfec892ba484cdb3ac3"
                                "1dfaa8e02dc3d64a5c9f0b8235d77a18"),
+    "was_refused_ispe.avif": ("caff6796724f381e7753efee9a1c5c53"
+                              "27f3318be9866d6cc248a7ef55753f24"),
     "qm_l0.avif": ("944aaede8b4effdbf4e6e842c22385a3"
                    "3c6515d3318216a0b2fcdbb2c95c1772"),
     "qm_l4.avif": ("5e616ff24f1d62154493c66cc786374f"
@@ -1002,6 +1024,42 @@ AVIF_FIXTURES = {
                      "186a5b4f0073ee3e02912de66f0fc9aa"),
     "seq_rgba.avif": ("65479dd153df485a0d25a7ca5c9b88ff"
                       "fc643a5d60422ebd44f22978f153d99f"),
+    "scale_8_420.avif": ("d1768c4677a13b079ce3ba49d15fd609"
+                        "b71ef25ef1b2b940947377f29ad2eee8"),
+    "scale_8_422.avif": ("dda443f8ebd09986db875f21924d3d4c"
+                        "0e2954e91ab6a06d1f3eff3cd862416e"),
+    "scale_8_444.avif": ("35ddd8461a9c98635ada6271223d3544"
+                        "3d1001ab0fad8bee2b3c188c0dfc62fe"),
+    "scale_8_400.avif": ("e52e4120e6fca0ca6eac6385f07f802b"
+                        "0a1cba5dd33c0be95031b0a35e2e2e88"),
+    "scale_8_rgba.avif": ("20ed042905834250ff8c6b910dcad859"
+                         "3f1c5e42cdd5443d0b2531d9e9330531"),
+    "scale_8_prem.avif": ("1c40979b535544f509099b715105c291"
+                         "1ccc6748805b6e24afb1b3043d97cb9e"),
+    "scale_10_420.avif": ("70f40e2c5b675ffe4fe2ef22d02eff24"
+                         "c1b97dffc0a04350d356de6a7e977cdb"),
+    "scale_10_422.avif": ("0c1fdf9e1b81bee570dd5895b176928d"
+                         "17962c5bde8514a5b088ac69ae059e74"),
+    "scale_10_rgba.avif": ("7d23cdbf9c8dcf4da36f06b5a9285d22"
+                          "4653143bcd97f21ed07d089835db7276"),
+    "scale_12_444.avif": ("c6233e6f3d5e4fc1b2faaf48c0e4bae1"
+                         "1217dbba5382e018157d8a07e52b2c47"),
+    "scale_12_400.avif": ("818cd386a76fa16c5772b93288096dae"
+                         "de5ad899f03efdfbbe3c61ca48e652bb"),
+    "scale_12_la.avif": ("59ca7d252c9066a5d7381b69cd991d21"
+                        "254cb86fea1ae1063d56de6cae14be70"),
+    "sweep_8_420.avif": ("8f88537bb70c1d0bcf98d9176713d661"
+                        "8b0aaeecf94da11b0513c5bcdb2e132a"),
+    "sweep_8_422.avif": ("9d936b93a301db08f484f7e0285d1958"
+                        "449f1c76d2aa50a47b0b229e72d8ed34"),
+    "sweep_8_444.avif": ("7127d89d7cbbe64d79381e4dadc860f2"
+                        "6d384b58b75c893aab581cf8cde6ece6"),
+    "sweep_8_400.avif": ("736a383a463494d7c25e95c17e967fc8"
+                        "d4d788f88ac2dd91d36e29ca660bdac0"),
+    "sweep_8_420_a.avif": ("c3cf0803630315e87723cb78aa9040a3"
+                          "358b4225b9b129cd9018bd1eeff7e62c"),
+    "sweep_8_444_prem.avif": ("be2a92f1b343db64f12ba32d985a1896"
+                             "335f516f9eadf77994f2a22d05694863"),
 }
 AVIF_BAND_SHA256 = ("0fac26190af3efd4cf09c6ceaed08687"
                     "1078c04bb00ad9c2561349724e90840e")
@@ -1015,6 +1073,8 @@ AVIF_DEPTH_BAND_SHA256 = ("beb3fae87c53b15b698aed4b6836c63a"
                           "b4b6cdf082526c4fbc429fbfe45c5607")
 AVIF_GRID_BAND_SHA256 = ("d24b93b4b0f95755cd9eaff39fa21d23"
                          "e5e8c8382d24baa7e5c6c61928850d79")
+AVIF_SCALE_BAND_SHA256 = ("d4e8f953ca7b5df8d2d3ebe01b113f30"
+                          "9eeba175a974e355dc4203ac6f84a436")
 # the rasters phase's JPEG codings: tests/data/jpeg, written from JPEG_SEED
 # on by libjpeg-turbo 3.1.3's own encoder (tests/ljt_encode.py) or Pillow
 # (tests/test_torch_jpeg_coding.py): a SAR-like arithmetic-coded strip
@@ -5275,11 +5335,11 @@ def phase_longtail(work: Path, smi: str) -> dict:
 
 def phase_avif(work: Path, smi: str) -> dict:
     """io/avif on the card's machine: each file of AVIF_FIXTURES and the
-    six committed bands (each with a .wld and a .prj) opens through
+    seven committed bands (each with a .wld and a .prj) opens through
     RasterReader (decode timed on the host clock, median of 3), decodes to
     the SHA-256 of Pillow's decode, reads decimated to SIZE^2 on the card
-    (bit-equal to the plain resample; the alpha of the LA, grain, 12-bit
-    and grid bands too)
+    (bit-equal to the plain resample; the alpha of the LA, grain, 12-bit,
+    grid and scaled bands too)
     and is saved as a CLAHE gray JPEG that reads back (but the 1 x 1 files:
     their read is a constant band, whose save launches no histogram).
     Returns the launches of the driven reads and saves."""
@@ -5305,7 +5365,9 @@ def phase_avif(work: Path, smi: str) -> dict:
             ("SAR band, grain", AVIF_GRAIN_BAND, AVIF_GRAIN_BAND_SHA256),
             ("SAR band, 12-bit LA", AVIF_DEPTH_BAND, AVIF_DEPTH_BAND_SHA256),
             ("SAR band, 3 x 3 grid RGBA", AVIF_GRID_BAND,
-             AVIF_GRID_BAND_SHA256)):
+             AVIF_GRID_BAND_SHA256),
+            ("SAR band, RGBA scaled from 6144^2, SMPTE 240M",
+             AVIF_SCALE_BAND, AVIF_SCALE_BAND_SHA256)):
         band = d / src.name
         shutil.copyfile(src, band)
         band.with_suffix(".wld").write_text(
@@ -5341,7 +5403,8 @@ def phase_avif(work: Path, smi: str) -> dict:
                 f"), {mp / wall:.2f} MP/s, equal to Pillow's decode; host "
                 f"CPU {_host_cpu()}; on {smi}")
             del data
-            with_alpha = path in band_paths[2:]  # LA, grain, 12-bit, grid
+            # LA, grain, 12-bit, grid, scaled
+            with_alpha = path in band_paths[2:]
             if with_alpha and bands != 4:
                 raise AssertionError(f"avif: {label} opens with {bands} "
                                      "bands, Pillow's RGBA has 4")

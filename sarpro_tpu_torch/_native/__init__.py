@@ -229,8 +229,15 @@ def raster_decoder() -> ctypes.CDLL:
                 lib.av1_decode_grid.restype = i64
                 lib.av1_decode_grid.argtypes = [
                     ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(i64),
-                    i32p, i32p, i32, i32, i32, i32, u8p, i64,
+                    i32p, i32p, i32, i32, i32, i32, i32, u8p, i64,
                     ctypes.c_char_p, i64]
+                lib.av1_scale_plane.restype = None
+                lib.av1_scale_plane.argtypes = [u16p, i32, i32, u16p, i32,
+                                                i32, i32]
+                lib.av1_convert_planes.restype = i64
+                lib.av1_convert_planes.argtypes = [
+                    ctypes.POINTER(ctypes.c_void_p)] + [i32] * 10 + [
+                    u8p, i64, ctypes.c_char_p, i64]
                 lib.bcn_decode.restype = i64
                 lib.bcn_decode.argtypes = [u8p, i64, i64, i64, i32, i32, u8p,
                                            i32]
@@ -318,30 +325,32 @@ def webp_decode(image: memoryview, lossless: bool, alpha, window: np.ndarray
 
 def av1_decode(obus: bytes, width: int, height: int, matrix: int,
                full_range: int, alpha: Optional[bytes] = None,
-               premultiplied: bool = False) -> np.ndarray:
+               premultiplied: bool = False, primaries: int = -1
+               ) -> np.ndarray:
     """The (height, width, 3) u8 RGB image of an AV1 still key frame (an
     AVIF item's OBUs) as libavif converts it for Pillow, or (height, width,
     4) RGBA with `alpha`, the OBUs of its alpha item (unpremultiplied where
-    `premultiplied`): `matrix` and `full_range` the `colr` nclx box's
-    matrix coefficients and range flag (-1: the sequence header's).
-    ValueError with the decoder's reason."""
+    `premultiplied`): the frame scaled to width x height where it has
+    another size, `matrix`, `full_range` and `primaries` the `colr` nclx
+    box's matrix coefficients, range flag and colour primaries (-1: the
+    sequence header's). ValueError with the decoder's reason."""
     single = ((obus,), 0, 1, 1, width, height, width, height)
     return av1_decode_grid(single, None if alpha is None else (
-        (alpha,), *single[1:]), matrix, full_range, premultiplied)
+        (alpha,), *single[1:]), matrix, full_range, premultiplied, primaries)
 
 
 def av1_decode_grid(color: tuple, alpha: Optional[tuple], matrix: int,
-                    full_range: int, premultiplied: bool = False
-                    ) -> np.ndarray:
+                    full_range: int, premultiplied: bool = False,
+                    primaries: int = -1) -> np.ndarray:
     """av1_decode of images that may be grids: `color` and `alpha` (None:
     no alpha) each (tiles, grid, columns, rows, tile width, tile height,
     width, height): the AV1 data of each tile in raster order, whether it
-    is a grid item (0: an item of one tile), its tiles' layout and `ispe`,
-    and the image's size. The tiles decode on up to 16 threads into the
-    image's planes, cropped at its right and bottom edges, and the image is
-    converted as av1_decode converts a frame. The (height, width, 3 or 4)
-    u8 RGB(A) image of the colour image's size; ValueError with the
-    decoder's reason."""
+    is a grid item (0: an item of one tile), its tiles' layout and the size
+    each tile's frame is scaled to (its `ispe`), and the image's size. The
+    tiles decode on up to 16 threads into the image's planes, cropped at
+    its right and bottom edges, and the image is converted as av1_decode
+    converts a frame. The (height, width, 3 or 4) u8 RGB(A) image of the
+    colour image's size; ValueError with the decoder's reason."""
     lib = raster_decoder()
     images = [color] + ([alpha] if alpha is not None else [])
     tiles = [np.frombuffer(t, np.uint8) for im in images for t in im[0]]
@@ -354,8 +363,48 @@ def av1_decode_grid(color: tuple, alpha: Optional[tuple], matrix: int,
     err = ctypes.create_string_buffer(512)
     if lib.av1_decode_grid(ptrs, sizes, geometry[0],
                            geometry[1] if alpha is not None else none, matrix,
-                           full_range, int(premultiplied), _threads(),
+                           primaries, full_range, int(premultiplied),
+                           _threads(),
                            _u8p(out), out.strides[0], err, len(err)) != 0:
+        raise ValueError(err.value.decode("latin-1"))
+    return out
+
+
+def av1_scale_plane(plane: np.ndarray, width: int, height: int,
+                    depth: int) -> np.ndarray:
+    """av1dec.cpp's scaler alone (libavif's avifImageScale of one plane):
+    the 2-D array of `depth`-bit samples `plane` scaled to (height, width),
+    as u16."""
+    lib = raster_decoder()
+    src = np.ascontiguousarray(plane, np.uint16)
+    out = np.empty((height, width), np.uint16)
+    lib.av1_scale_plane(_u16p(src), src.shape[1], src.shape[0], _u16p(out),
+                        width, height, depth)
+    return out
+
+
+def av1_convert_planes(y: np.ndarray, u: Optional[np.ndarray],
+                       v: Optional[np.ndarray], alpha: Optional[np.ndarray],
+                       depth: int, subsampling: tuple, matrix: int,
+                       primaries: int, full_range: bool,
+                       premultiplied: bool = False) -> np.ndarray:
+    """av1dec.cpp's conversion alone: the planes of `depth`-bit samples of
+    an image (u and v None: monochrome; else chroma subsampled by
+    `subsampling`, (x, y) shifts; alpha None or full range) into (height,
+    width, 3 or 4) u8 RGB(A) as libavif converts them for Pillow;
+    ValueError with libavif's refusal."""
+    lib = raster_decoder()
+    planes = [None if p is None else np.ascontiguousarray(p, np.uint16)
+              for p in (y, u, v, alpha)]
+    ptrs = (ctypes.c_void_p * 4)(*[None if p is None else p.ctypes.data
+                                   for p in planes])
+    h, w = y.shape
+    out = np.empty((h, w, 3 if alpha is None else 4), np.uint8)
+    err = ctypes.create_string_buffer(512)
+    if lib.av1_convert_planes(ptrs, w, h, depth, int(u is None),
+                              *subsampling, matrix, primaries,
+                              int(full_range), int(premultiplied), _u8p(out),
+                              out.strides[0], err, len(err)) != 0:
         raise ValueError(err.value.decode("latin-1"))
     return out
 
@@ -521,6 +570,10 @@ def xbm_decode(blob, offset: int, linebytes: int, rows: int) -> tuple:
 
 def _u8p(arr: np.ndarray):
     return arr.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8))
+
+
+def _u16p(arr: np.ndarray):
+    return arr.ctypes.data_as(ctypes.POINTER(ctypes.c_uint16))
 
 
 def _i64p(arr: np.ndarray):

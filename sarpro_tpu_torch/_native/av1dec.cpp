@@ -3,12 +3,15 @@
 // 4:4:4 or monochrome, as the AV1 bitstream specification (with errata, 2019)
 // defines its syntax and reconstruction and dav1d 1.5.1 decodes it for
 // libavif 1.3.0, film grain included (libavif leaves dav1d's apply_grain
-// on), then libavif's YUV-to-RGB conversion as it runs it for Pillow 12.1:
-// libyuv's fixed-point matrices (row_common.c) with bilinear (4:2:0) or
-// linear (4:2:2) chroma upsampling, and libavif's own code for monochrome
-// samples and the identity matrix; an alpha item's stream decodes beside it
-// into a fourth channel, and a premultiplied (`prem`) colour is
-// unpremultiplied as libyuv's ARGBUnattenuate does it.
+// on), then libavif's scale of a frame to its item's size (avifImageScale
+// through libyuv's ScalePlane) where it has another, and libavif's
+// YUV-to-RGB conversion as it runs it for Pillow 12.1: libyuv's fixed-point
+// matrices (row_common.c) with bilinear (4:2:0) or linear (4:2:2) chroma
+// upsampling, and libavif's own float code for monochrome samples, the
+// identity matrix and the matrices libyuv lacks; an alpha item's stream
+// decodes beside it into a fourth channel, and a premultiplied (`prem`)
+// colour is unpremultiplied as libyuv's ARGBUnattenuate (or libavif's float
+// code) does it.
 //
 // Read: temporal delimiter, sequence header (reduced and full), frame
 // header / frame OBUs and tile groups of one key frame; metadata, padding
@@ -19,13 +22,12 @@
 // far) are read. The in-loop filters run once the last tile is decoded:
 // deblocking (§7.14), CDEF (§7.15) and loop restoration (§7.17, Wiener and
 // self-guided units); then film grain synthesis (§7.18.3). A frame whose
-// superres is on is refused by name, and so are a frame of another size
-// than its item and a 4:2:2 block that the spec gives no
-// chroma size. Each tile ends with the spec's trailing bits (exit process,
-// §8.2.4); tile data that does not is refused by name, as non-conformant
-// data that dav1d decodes to an output the spec does not define (aom 3.12.1
-// writes such a frame for 4:0:0 with a grain model it estimates: chroma
-// grain fields a monochrome header does not have).
+// superres is on is refused by name, and so is a 4:2:2 block that the spec
+// gives no chroma size. Each tile ends with the spec's trailing bits (exit
+// process, §8.2.4); tile data that does not is refused by name, as
+// non-conformant data that dav1d decodes to an output the spec does not
+// define (aom 3.12.1 writes such a frame for 4:0:0 with a grain model it
+// estimates: chroma grain fields a monochrome header does not have).
 //
 // The tables (default CDFs, quantizer lookups and matrices, intra
 // derivatives, smooth weights, filter-intra taps, edge kernels, cos / sin
@@ -43,19 +45,25 @@
 // before it; dav1d also parses what follows a frame in a tile's data.
 //
 // C interface (ctypes, _native/__init__.py):
-//   av1_decode_grid(tiles, sizes, color, alpha, matrix, full_range,
-//                   premultiplied, threads, out, stride, err, errlen) -> 0,
+//   av1_decode_grid(tiles, sizes, color, alpha, matrix, primaries,
+//                   full_range, premultiplied, threads, out, stride, err,
+//                   errlen) -> 0,
 //              or -1 with the reason in err: the AV1 data of each tile
 //              (pointers and sizes, the colour image's then the alpha
 //              image's, in raster order) and each image's (grid, columns,
-//              rows, tile width, tile height, width, height); RGB into out
-//              (3 channels), or RGBA (4) where the alpha image has tiles
+//              rows, tile width, tile height, width, height), each tile's
+//              frame scaled to the tile size where it has another; RGB into
+//              out (3 channels), or RGBA (4) where the alpha image has tiles
 //              (0 columns: none), unpremultiplied where premultiplied is 1,
-//              on up to `threads` threads; matrix and full_range -1: the
-//              sequence header's.
+//              on up to `threads` threads; matrix, primaries and full_range
+//              -1: the sequence header's.
+//   av1_scale_plane, av1_convert_planes: the scaler and the conversion
+//              alone, on planes the caller gives (the tests hold them to
+//              Pillow's libavif).
 #include <algorithm>
 #include <atomic>
 #include <condition_variable>
+#include <cmath>
 #include <cstdint>
 #include <cstdio>
 #include <cstdlib>
@@ -83,6 +91,11 @@ struct NotYet : std::runtime_error {
       : std::runtime_error("AV1 " + s + (plural ? " are" : " is") +
                            " not read by the port yet") {}
 };
+
+// libavif's decoder limits (AVIF_DEFAULT_IMAGE_SIZE_LIMIT), which dav1d
+// applies to a frame, and the largest side avifImageScale takes
+constexpr int64_t kImageSizeLimit = 16384 * 16384;
+constexpr int kScaleSideLimit = 16384;
 
 inline int imin(int a, int b) { return a < b ? a : b; }
 inline int imax(int a, int b) { return a > b ? a : b; }
@@ -753,8 +766,6 @@ struct Decoder {
   int op_idc[32] = {0};
   int decoder_model_present_for_op[32] = {0};
 
-  // the item's size (ispe), which the frame must have
-  int want_w = 0, want_h = 0;
   // frame header
   bool frame_done = false, have_frame_header = false;
   int frame_w = 0, frame_h = 0, mi_cols = 0, mi_rows = 0;
@@ -940,8 +951,6 @@ struct Decoder {
   bool after = false;  // decoding the OBUs after another decoder's frame
   void after_frame(const uint8_t* data, size_t size) {
     auto rest = std::make_unique<Decoder>();
-    rest->want_w = want_w;
-    rest->want_h = want_h;
     rest->after = true;
     rest->start_from(seq_obu, seq_obu_size);
     rest->decode(data, size);
@@ -1138,9 +1147,9 @@ struct Decoder {
       frame_w = max_w;
       frame_h = max_h;
     }
-    // refused before any plane is allocated for it
-    if (frame_w != want_w || frame_h != want_h)
-      throw NotYet("frame of another size than its item");
+    // dav1d's frame_size_limit, which libavif sets to its image size
+    // limit, refuses a larger frame before any plane is allocated for it
+    if ((int64_t)frame_w * frame_h > kImageSizeLimit) throw Invalid("frame past the size limit");
     if (enable_superres && b.bit()) throw NotYet("superres");
     mi_cols = 2 * ((frame_w + 7) >> 3);
     mi_rows = 2 * ((frame_h + 7) >> 3);
@@ -3705,15 +3714,19 @@ struct Decoder {
 
 // ---------------------------------------------------------------------------
 // YUV to RGB as libavif 1.3.0 converts samples for Pillow (8-bit RGB or
-// RGBA out), read off Pillow's decodes of sample sweeps. 8-bit samples go
-// through libyuv for 4:2:0 (bilinear chroma upsampling), 4:2:2 (linear,
-// along the rows) and 4:4:4 with the BT.601 / 709 / 2020 matrices (libyuv's
-// YuvConstants), and libavif's own float code for monochrome and the
-// identity matrix. 10- and 12-bit samples (`convert`): the float code at
-// their depth for monochrome RGB and the identity matrix; libyuv's 10-bit
-// rows for 10-bit RGBA and its 12-bit 4:2:0 rows (nearest chroma) for
-// 12-bit 4:2:0 RGBA; the rest shifted down to 8 bits (libyuv's
-// Convert16To8Plane) and converted as 8-bit samples
+// RGBA out), read off Pillow's decodes of sample sweeps and off its
+// avifImageYUVToRGB called on planes set by hand. 8-bit samples with the
+// BT.601 / 709 / 2020 matrices (chroma-derived NCL over those primaries
+// too) go through libyuv for 4:2:0 (bilinear chroma upsampling), 4:2:2
+// (linear, along the rows) and 4:4:4 (libyuv's YuvConstants); libavif's own
+// float code takes monochrome, the identity matrix and the matrices libyuv
+// lacks (FCC, SMPTE 240M, YCgCo, YCgCo-Re, chroma-derived NCL over other
+// primaries, a reserved 15: rgb_libavif). 10- and 12-bit samples
+// (`convert`): the float code at their depth for monochrome RGB, the
+// identity matrix and the matrices libyuv lacks; libyuv's 10-bit rows for
+// 10-bit RGBA and its 12-bit 4:2:0 rows (nearest chroma) for 12-bit 4:2:0
+// RGBA; the rest shifted down to 8 bits (libyuv's Convert16To8Plane) and
+// converted as 8-bit samples
 // ---------------------------------------------------------------------------
 struct YuvConst {
   int ub, ug, vg, vr, yg, yb;
@@ -3800,6 +3813,393 @@ void up2_nearest(const pixel* s, pixel* d, int dw) {
   for (int x = 0; x < dw; x++) d[x] = s[x >> 1];
 }
 
+// ---------------------------------------------------------------------------
+// The scale of a frame to its item's `ispe` (or its track's `tkhd`): libavif
+// 1.3.0's avifImageScale, which scales each plane with libyuv's ScalePlane
+// (8-bit samples) or ScalePlane_12 (deeper ones) and kFilterBox. libyuv
+// first reduces the filter (ScaleFilterReduce), then takes one of its
+// branches by the sizes: copy, vertical only, 3/4, 1/2, 3/8 and 1/4 down,
+// box, 2x up (linear or bilinear), bilinear up and down, and point
+// sampling, each with its own 16.16 fixed-point stepping. Read off
+// avifImageScale called by ctypes on random planes: 8-bit columns blend
+// with the 7-bit fraction of libyuv's SSSE3 row, and the 3/4 and 3/8 rows
+// average rows first (pavgb) where its SSSE3 rows run (24 and 6 pixels at a
+// time, the rest of a row in C); deeper samples take libyuv's C rows
+// ---------------------------------------------------------------------------
+namespace scale {
+
+enum Filter { kNone, kLinear, kBilinear, kBox };
+
+// ScaleFilterReduce
+Filter reduce(int sw, int sh, int dw, int dh, Filter f) {
+  if (f == kBox && (dw * 2 >= sw || dh * 2 >= sh)) f = kBilinear;
+  if (f == kBilinear) {
+    if (sh == 1 || dh == sh || dh * 3 == sh) f = kLinear;
+    if (sw == 1) f = kNone;
+  }
+  if (f == kLinear && (sw == 1 || dw == sw || dw * 3 == sw)) f = kNone;
+  return f;
+}
+inline int fixed_div(int num, int div) { return (int)(((int64_t)num << 16) / div); }
+inline int fixed_div1(int num, int div) {
+  return (int)((((int64_t)num << 16) - 0x00010001) / (div - 1));
+}
+
+// ScaleSlope: the first source position and the step, 16.16
+void slope(int sw, int sh, int dw, int dh, Filter f, int* x, int* y, int* dx, int* dy) {
+  *x = *y = *dx = *dy = 0;
+  if (f == kBox) {
+    *dx = fixed_div(sw, dw);
+    *dy = fixed_div(sh, dh);
+    return;
+  }
+  if (f == kNone) {
+    *dx = fixed_div(sw, dw);
+    *dy = fixed_div(sh, dh);
+    *x = *dx >> 1;
+    *y = *dy >> 1;
+    return;
+  }
+  if (dw <= sw) {
+    *dx = fixed_div(sw, dw);
+    *x = (*dx >> 1) - 32768;
+  } else if (sw > 1 && dw > 1) {
+    *dx = fixed_div1(sw, dw);
+  }
+  if (f == kLinear) {
+    *dy = fixed_div(sh, dh);
+    *y = *dy >> 1;
+  } else if (dh <= sh) {
+    *dy = fixed_div(sh, dh);
+    *y = (*dy >> 1) - 32768;
+  } else if (sh > 1 && dh > 1) {
+    *dy = fixed_div1(sh, dh);
+  }
+}
+
+struct View {
+  pixel* p;
+  int w, h, stride;
+  pixel* row(int r) const { return p + (size_t)r * stride; }
+};
+
+// InterpolateRow: f / 256 of row t blended into row s
+void interpolate(pixel* d, const pixel* s, const pixel* t, int w, int f) {
+  if (f == 0) {
+    std::memmove(d, s, sizeof(pixel) * w);
+    return;
+  }
+  for (int x = 0; x < w; x++) d[x] = (pixel)((s[x] * (256 - f) + t[x] * f + 128) >> 8);
+}
+// ScaleFilterCols: the SSSE3 row's 7-bit fraction for 8-bit samples, the C
+// row's 16-bit one for deeper samples (a position on the last sample
+// takes it whole)
+void filter_cols(pixel* d, const pixel* s, int sw, int dw, int x, int dx, bool deep) {
+  for (int j = 0; j < dw; j++, x += dx) {
+    const int xi = x >> 16, a = s[xi], b = xi + 1 < sw ? s[xi + 1] : a;
+    if (deep) {
+      d[j] = (pixel)(a + (int)(((int64_t)(x & 0xffff) * (b - a) + 0x8000) >> 16));
+    } else {
+      const int f = (x & 0xffff) >> 9;
+      d[j] = (pixel)(((128 - f) * a + f * b + 64) >> 7);
+    }
+  }
+}
+
+// ScalePlaneVertical: rows blended, the width kept
+void vertical(const View& s, const View& d, int y, int dy, Filter f) {
+  const int max_y = s.h > 1 ? ((s.h - 1) << 16) - 1 : 0;
+  for (int j = 0; j < d.h; j++, y += dy) {
+    if (y > max_y) y = max_y;
+    const int yi = y >> 16, yf = f ? (y >> 8) & 255 : 0;
+    interpolate(d.row(j), s.row(yi), yf ? s.row(yi + 1) : nullptr, d.w, yf);
+  }
+}
+
+// ScalePlaneUp2_Linear and ScalePlaneUp2_Bilinear, from the rows the
+// chroma upsampling uses
+void up2_linear_plane(const View& s, const View& d) {
+  if (d.h == 1) {
+    up2_linear(s.row((s.h - 1) / 2), d.row(0), d.w);
+    return;
+  }
+  const int dy = fixed_div(s.h - 1, d.h - 1);
+  for (int i = 0, y = (1 << 15) - 1; i < d.h; i++, y += dy)
+    up2_linear(s.row(y >> 16), d.row(i), d.w);
+}
+void up2_bilinear_plane(const View& s, const View& d) {
+  std::vector<pixel> spare(d.w);
+  up2_linear(s.row(0), d.row(0), d.w);
+  int r = 1;
+  for (int y = 0; y < s.h - 1; y++, r += 2)
+    up2_bilinear(s.row(y), s.row(y + 1), d.row(r), r + 1 < d.h ? d.row(r + 1) : spare.data(), d.w);
+  if (!(d.h & 1)) up2_linear(s.row(s.h - 1), d.row(d.h - 1), d.w);
+}
+
+// ScalePlaneDown2 and ScalePlaneDown4 (box)
+void down2(const View& s, const View& d) {
+  for (int j = 0; j < d.h; j++) {
+    const pixel *a = s.row(2 * j), *b = s.row(2 * j + 1);
+    pixel* o = d.row(j);
+    for (int x = 0; x < d.w; x++)
+      o[x] = (pixel)((a[2 * x] + a[2 * x + 1] + b[2 * x] + b[2 * x + 1] + 2) >> 2);
+  }
+}
+void down4(const View& s, const View& d) {
+  for (int j = 0; j < d.h; j++) {
+    pixel* o = d.row(j);
+    for (int x = 0; x < d.w; x++) {
+      int sum = 8;
+      for (int k = 0; k < 4; k++)
+        for (int i = 0; i < 4; i++) sum += s.row(4 * j + k)[4 * x + i];
+      o[x] = (pixel)(sum >> 4);
+    }
+  }
+}
+
+// ScaleRowDown34_0_Box (`first`: 3:1 of rows s and t) and _1_Box (1:1),
+// output pixels [from, to): the C row filters along the rows first, the
+// SSSE3 row averages the rows first (pavgb, twice for 3:1)
+void down34_row(const pixel* s, const pixel* t, pixel* d, int from, int to, bool first,
+                bool ssse3) {
+  for (int x = from; x < to; x += 3) {
+    const pixel *p = s + x / 3 * 4, *q = t + x / 3 * 4;
+    pixel* o = d + x;
+    if (ssse3) {
+      int r[4];
+      for (int i = 0; i < 4; i++) {
+        const int m = (p[i] + q[i] + 1) >> 1;
+        r[i] = first ? (p[i] + m + 1) >> 1 : m;
+      }
+      o[0] = (pixel)((r[0] * 3 + r[1] + 2) >> 2);
+      o[1] = (pixel)((r[1] + r[2] + 1) >> 1);
+      o[2] = (pixel)((r[2] + r[3] * 3 + 2) >> 2);
+      continue;
+    }
+    const int a[3] = {(p[0] * 3 + p[1] + 2) >> 2, (p[1] + p[2] + 1) >> 1,
+                      (p[2] + p[3] * 3 + 2) >> 2};
+    const int b[3] = {(q[0] * 3 + q[1] + 2) >> 2, (q[1] + q[2] + 1) >> 1,
+                      (q[2] + q[3] * 3 + 2) >> 2};
+    for (int i = 0; i < 3; i++)
+      o[i] = (pixel)(first ? (a[i] * 3 + b[i] + 2) >> 2 : (a[i] + b[i] + 1) >> 1);
+  }
+}
+// ScalePlaneDown34: three rows of every four, the last one or two rows
+// from one source row
+void down34(const View& s, const View& d, bool deep) {
+  const int n = deep ? 0 : d.w - d.w % 24;
+  auto row = [&](int sr, int tr, int dr, bool first) {
+    down34_row(s.row(sr), s.row(tr), d.row(dr), 0, n, first, true);
+    down34_row(s.row(sr), s.row(tr), d.row(dr), n, d.w, first, false);
+  };
+  int sy = 0, y = 0;
+  for (; y < d.h - 2; y += 3, sy += 4) {
+    row(sy, sy + 1, y, true);
+    row(sy + 1, sy + 2, y + 1, false);
+    row(sy + 3, sy + 2, y + 2, true);
+  }
+  if (d.h % 3 == 2) {
+    row(sy, sy + 1, y, true);
+    row(sy + 1, sy + 1, y + 1, false);
+  } else if (d.h % 3 == 1) {
+    row(sy, sy, y, true);
+  }
+}
+
+// ScaleRowDown38_3_Box / _2_Box over `rows` source rows, output pixels
+// [from, to): the sums times libyuv's reciprocals; the SSSE3 two-row box
+// averages the rows first (pavgb)
+void down38_row(const pixel* const* r, int rows, pixel* d, int from, int to, bool ssse3) {
+  for (int x = from; x < to; x += 3) {
+    const int o = x / 3 * 8;
+    if (rows == 2 && ssse3) {
+      int m[8];
+      for (int i = 0; i < 8; i++) m[i] = (r[0][o + i] + r[1][o + i] + 1) >> 1;
+      d[x] = (pixel)(((m[0] + m[1] + m[2]) * (65536 / 3)) >> 16);
+      d[x + 1] = (pixel)(((m[3] + m[4] + m[5]) * (65536 / 3)) >> 16);
+      d[x + 2] = (pixel)(((m[6] + m[7]) * (65536 / 2)) >> 16);
+      continue;
+    }
+    uint32_t s0 = 0, s1 = 0, s2 = 0;
+    for (int k = 0; k < rows; k++) {
+      const pixel* p = r[k] + o;
+      s0 += p[0] + p[1] + p[2];
+      s1 += p[3] + p[4] + p[5];
+      s2 += p[6] + p[7];
+    }
+    const uint32_t three = rows == 3 ? 65536 / 9 : 65536 / 6;
+    const uint32_t two = rows == 3 ? 65536 / 6 : 65536 / 4;
+    d[x] = (pixel)((s0 * three) >> 16);
+    d[x + 1] = (pixel)((s1 * three) >> 16);
+    d[x + 2] = (pixel)((s2 * two) >> 16);
+  }
+}
+// ScalePlaneDown38: rows of 3, 3 and 2 source rows, the last one or two
+// rows from 3 copies of one source row (stride 0)
+void down38(const View& s, const View& d, bool deep) {
+  const int n = deep ? 0 : d.w - d.w % 6;
+  auto row = [&](int sr, int rows, int step, int dr) {
+    const pixel* r[3];
+    for (int k = 0; k < rows; k++) r[k] = s.row(sr + k * step);
+    down38_row(r, rows, d.row(dr), 0, n, true);
+    down38_row(r, rows, d.row(dr), n, d.w, false);
+  };
+  int sy = 0, y = 0;
+  for (; y < d.h - 2; y += 3, sy += 8) {
+    row(sy, 3, 1, y);
+    row(sy + 3, 3, 1, y + 1);
+    row(sy + 6, 2, 1, y + 2);
+  }
+  if (d.h % 3 == 2) {
+    row(sy, 3, 1, y);
+    row(sy + 3, 3, 0, y + 1);
+  } else if (d.h % 3 == 1) {
+    row(sy, 3, 0, y);
+  }
+}
+
+// ScalePlaneBox: the mean of each box, truncated; 8-bit rows sum into 16
+// bits (and wrap), deeper ones into 32
+template <typename Sum>
+void box(const View& s, const View& d) {
+  int x, y, dx, dy;
+  slope(s.w, s.h, d.w, d.h, kBox, &x, &y, &dx, &dy);
+  const int max_y = s.h << 16, minw = dx >> 16;
+  std::vector<Sum> row(s.w);
+  for (int j = 0; j < d.h; j++) {
+    const int iy = y >> 16;
+    y = std::min(y + dy, max_y);
+    const int bh = std::max(1, (y >> 16) - iy);
+    std::fill(row.begin(), row.end(), (Sum)0);
+    for (int k = 0; k < bh; k++) {
+      const pixel* p = s.row(iy + k);
+      for (int i = 0; i < s.w; i++) row[i] = (Sum)(row[i] + p[i]);
+    }
+    // ScaleAddCols2 (boxes of two widths) or ScaleAddCols1 (one)
+    const uint32_t scale[2] = {(uint32_t)(65536 / (std::max(1, minw) * bh)),
+                               (uint32_t)(65536 / (std::max(1, minw + 1) * bh))};
+    pixel* o = d.row(j);
+    for (int i = 0, xx = x; i < d.w; i++) {
+      const int ix = xx >> 16;
+      int bw;
+      if (dx & 0xffff) {
+        xx += dx;
+        bw = std::max(1, (xx >> 16) - ix);
+      } else {
+        bw = std::max(1, minw);
+        xx += bw << 16;
+      }
+      uint32_t sum = 0;
+      for (int k = 0; k < bw; k++) sum += row[ix + k];
+      o[i] = (pixel)((sum * scale[bw - minw]) >> 16);
+    }
+  }
+}
+
+// ScalePlaneBilinearDown: each output row from the two source rows about
+// its position (one with the linear filter), then along the row
+void bilinear_down(const View& s, const View& d, Filter f, bool deep) {
+  int x, y, dx, dy;
+  slope(s.w, s.h, d.w, d.h, f, &x, &y, &dx, &dy);
+  const int max_y = (s.h - 1) << 16;
+  std::vector<pixel> row(s.w);
+  y = std::min(y, max_y);
+  for (int j = 0; j < d.h; j++) {
+    const int yi = y >> 16, yf = (y >> 8) & 255;
+    if (f == kLinear) {
+      filter_cols(d.row(j), s.row(yi), s.w, d.w, x, dx, deep);
+    } else {
+      interpolate(row.data(), s.row(yi), yf ? s.row(yi + 1) : nullptr, s.w, yf);
+      filter_cols(d.row(j), row.data(), s.w, d.w, x, dx, deep);
+    }
+    y = std::min(y + dy, max_y);
+  }
+}
+
+// ScalePlaneBilinearUp: source rows filtered along the row into two
+// buffers as the position reaches them, then blended
+void bilinear_up(const View& s, const View& d, Filter f, bool deep) {
+  int x, y, dx, dy;
+  slope(s.w, s.h, d.w, d.h, f, &x, &y, &dx, &dy);
+  const int max_y = (s.h - 1) << 16;
+  y = std::min(y, max_y);
+  int yi = y >> 16, src = yi, lasty = yi;
+  std::vector<pixel> rows(2 * (size_t)d.w);
+  pixel* cur = rows.data();
+  ptrdiff_t step = d.w;
+  filter_cols(cur, s.row(src), s.w, d.w, x, dx, deep);
+  if (s.h > 1) src++;
+  filter_cols(cur + step, s.row(src), s.w, d.w, x, dx, deep);
+  if (s.h > 2) src++;
+  for (int j = 0; j < d.h; j++, y += dy) {
+    yi = y >> 16;
+    if (yi != lasty) {
+      if (y > max_y) {
+        y = max_y;
+        yi = y >> 16;
+        src = yi;
+      }
+      if (yi != lasty) {
+        filter_cols(cur, s.row(src), s.w, d.w, x, dx, deep);
+        cur += step;
+        step = -step;
+        lasty = yi;
+        if (y + 65536 < max_y) src++;
+      }
+    }
+    const int yf = f == kLinear ? 0 : (y >> 8) & 255;
+    interpolate(d.row(j), cur, yf ? cur + step : nullptr, d.w, yf);
+  }
+}
+
+// ScalePlaneSimple: point sampling
+void simple(const View& s, const View& d) {
+  int x, y, dx, dy;
+  slope(s.w, s.h, d.w, d.h, kNone, &x, &y, &dx, &dy);
+  for (int i = 0; i < d.h; i++, y += dy) {
+    const pixel* r = s.row(y >> 16);
+    pixel* o = d.row(i);
+    for (int j = 0, xx = x; j < d.w; j++, xx += dx) o[j] = r[xx >> 16];
+  }
+}
+
+// ScalePlane (8-bit samples) or ScalePlane_12 (`deep`) with kFilterBox
+void plane(const View& s, const View& d, bool deep) {
+  const Filter f = reduce(s.w, s.h, d.w, d.h, kBox);
+  const bool up2w = (d.w + 1) / 2 == s.w, up2h = (d.h + 1) / 2 == s.h;
+  // ScalePlane_12 takes the 2x ups before ScalePlane_16's branches
+  if (deep && up2w && f == kLinear) return up2_linear_plane(s, d);
+  if (deep && up2w && up2h && f >= kBilinear) return up2_bilinear_plane(s, d);
+  if (d.w == s.w && d.h == s.h) {
+    for (int r = 0; r < d.h; r++) std::memcpy(d.row(r), s.row(r), sizeof(pixel) * d.w);
+    return;
+  }
+  if (d.w == s.w && f != kBox) {
+    int y = 0, dy = 0;
+    if (d.h <= s.h) {
+      dy = fixed_div(s.h, d.h);
+      y = (dy >> 1) - 32768;
+    } else if (s.h > 1 && d.h > 1) {
+      dy = fixed_div1(s.h, d.h);
+    }
+    return vertical(s, d, y, dy, f);
+  }
+  if (d.w <= s.w && d.h <= s.h) {
+    if (4 * d.w == 3 * s.w && 4 * d.h == 3 * s.h) return down34(s, d, deep);
+    if (2 * d.w == s.w && 2 * d.h == s.h) return down2(s, d);
+    if (8 * d.w == 3 * s.w && 8 * d.h == 3 * s.h) return down38(s, d, deep);
+    if (4 * d.w == s.w && 4 * d.h == s.h && (f == kBox || f == kNone)) return down4(s, d);
+  }
+  if (f == kBox && d.h * 2 < s.h) return deep ? box<uint32_t>(s, d) : box<uint16_t>(s, d);
+  if (up2w && f == kLinear) return up2_linear_plane(s, d);
+  if (up2h && up2w && f >= kBilinear) return up2_bilinear_plane(s, d);
+  if (f && d.h > s.h) return bilinear_up(s, d, f, deep);
+  if (f) return bilinear_down(s, d, f, deep);
+  simple(s, d);
+}
+
+}  // namespace scale
+
 // the samples shifted down to 8 bits (libyuv's Convert16To8Plane)
 void downshift(Decoder& d) {
   int s = d.bit_depth - 8;
@@ -3838,22 +4238,20 @@ void rgb_float(Decoder& d, int w, int h, int full, const pixel* alpha, bool prem
   }
 }
 
-// 8-bit monochrome RGBA: libyuv's I400ToARGBMatrix in limited range where
-// libyuv has the matrix (BT.601 and 709 share their limited-range luma
-// scale), else libavif's float code
+// 8-bit monochrome RGBA where libyuv has the matrix (`matrix` its own, or
+// BT.601 for the identity): libyuv's I400ToARGBMatrix, whose limited-range
+// luma scale BT.601 and 709 share and BT.2020's equals the float code's;
+// libavif's float code in full range
 void rgb_mono_rgba(Decoder& d, int w, int h, int matrix, int full, uint8_t* out,
                    int64_t stride) {
   std::vector<uint8_t> lut = float_lut(8, full);
-  if (!full) {
-    if (matrix == 12) throw NotYet("YUV matrix 12");  // its constants follow the primaries
-    if (matrix == 0 || matrix == 1 || matrix == 2 || matrix == 5 || matrix == 6) {
-      YuvConst k;
-      yuv_constants(6, 0, &k);
-      uint8_t rgb[3];
-      for (int v = 0; v < 256; v++) {
-        yuv_pixel(k, (uint32_t)v * 0x0101, 128, 128, rgb);
-        lut[v] = rgb[0];
-      }
+  if (!full && matrix != 9) {
+    YuvConst k;
+    yuv_constants(6, 0, &k);
+    uint8_t rgb[3];
+    for (int v = 0; v < 256; v++) {
+      yuv_pixel(k, (uint32_t)v * 0x0101, 128, 128, rgb);
+      lut[v] = rgb[0];
     }
   }
   for (int r = 0; r < h; r++) {
@@ -3861,6 +4259,169 @@ void rgb_mono_rgba(Decoder& d, int w, int h, int matrix, int full, uint8_t* out,
     const pixel* yy = d.planes[0].at(r, 0);
     for (int x = 0; x < w; x++, o += 4) o[0] = o[1] = o[2] = lut[yy[x]];
   }
+}
+
+// libyuv's matrix for a `colr` matrix (avifImageYUVToRGBLibYUV's table):
+// BT.709, BT.601 (and BT.470 BG, unspecified), BT.2020, and chroma-derived
+// NCL over the primaries of one of them; -1 where libyuv has none
+int libyuv_matrix(int matrix, int primaries) {
+  if (matrix == 12) {
+    if (primaries == 1 || primaries == 2) return 1;
+    if (primaries == 5 || primaries == 6) return 6;
+    return primaries == 9 ? 9 : -1;
+  }
+  return matrix == 1 || matrix == 2 || matrix == 5 || matrix == 6 || matrix == 9 ? matrix : -1;
+}
+
+// libavif's (kr, kg, kb) of a matrix libyuv lacks (avifCalcYUVCoefficients):
+// FCC's and SMPTE 240M's from its table, chroma-derived NCL's from the
+// `colr` primaries (avifColorPrimariesComputeYCoeffs, in float; unknown
+// primaries are BT.709's), else BT.601's
+void own_coefficients(int matrix, int primaries, float k[3]) {
+  float kr = 0.299f, kb = 0.114f;
+  if (matrix == 4) {
+    kr = 0.30f;
+    kb = 0.11f;
+  } else if (matrix == 7) {
+    kr = 0.212f;
+    kb = 0.087f;
+  } else if (matrix == 12) {
+    static const struct {
+      int id;
+      float xy[8];  // red, green, blue and white x, y
+    } table[] = {
+        {1, {0.64f, 0.33f, 0.3f, 0.6f, 0.15f, 0.06f, 0.3127f, 0.3290f}},
+        {4, {0.67f, 0.33f, 0.21f, 0.71f, 0.14f, 0.08f, 0.310f, 0.316f}},
+        {5, {0.64f, 0.33f, 0.29f, 0.60f, 0.15f, 0.06f, 0.3127f, 0.3290f}},
+        {6, {0.630f, 0.340f, 0.310f, 0.595f, 0.155f, 0.070f, 0.3127f, 0.3290f}},
+        {7, {0.630f, 0.340f, 0.310f, 0.595f, 0.155f, 0.070f, 0.3127f, 0.3290f}},
+        {8, {0.681f, 0.319f, 0.243f, 0.692f, 0.145f, 0.049f, 0.310f, 0.316f}},
+        {9, {0.708f, 0.292f, 0.170f, 0.797f, 0.131f, 0.046f, 0.3127f, 0.3290f}},
+        {10, {1.0f, 0.0f, 0.0f, 1.0f, 0.0f, 0.0f, 0.3333f, 0.3333f}},
+        {11, {0.680f, 0.320f, 0.265f, 0.690f, 0.150f, 0.060f, 0.314f, 0.351f}},
+        {12, {0.680f, 0.320f, 0.265f, 0.690f, 0.150f, 0.060f, 0.3127f, 0.3290f}},
+        {22, {0.630f, 0.340f, 0.295f, 0.605f, 0.155f, 0.077f, 0.3127f, 0.3290f}},
+    };
+    const float* p = table[0].xy;
+    for (const auto& t : table)
+      if (t.id == primaries) p = t.xy;
+    const float rX = p[0], rY = p[1], gX = p[2], gY = p[3], bX = p[4], bY = p[5], wX = p[6],
+                wY = p[7];
+    const float rZ = 1.0f - (rX + rY), gZ = 1.0f - (gX + gY), bZ = 1.0f - (bX + bY),
+                wZ = 1.0f - (wX + wY);
+    kr = (rY * (wX * (gY * bZ - bY * gZ) + wY * (bX * gZ - gX * bZ) + wZ * (gX * bY - bX * gY))) /
+         (wY * (rX * (gY * bZ - bY * gZ) + gX * (bY * rZ - rY * bZ) + bX * (rY * gZ - gY * rZ)));
+    kb = (bY * (wX * (rY * gZ - gY * rZ) + wY * (gX * rZ - rX * gZ) + wZ * (rX * gY - gX * rY))) /
+         (wY * (rX * (gY * bZ - bY * gZ) + gX * (bY * rZ - rY * bZ) + bX * (rY * gZ - gY * rZ)));
+  }
+  k[0] = kr;
+  k[1] = 1.0f - kr - kb;
+  k[2] = kb;
+}
+
+inline float clamp01(float v) { return v < 0.0f ? 0.0f : 1.0f < v ? 1.0f : v; }
+
+// f(r0, r1) over the rows [0, n), in bands of at least 64 rows on up to
+// `threads` threads
+template <typename F>
+void in_bands(int n, int threads, F f) {
+  const int k = std::max(1, std::min(threads, n / 64));
+  std::vector<std::thread> pool;
+  for (int i = 1; i < k; i++)
+    pool.emplace_back(f, (int)((int64_t)n * i / k), (int)((int64_t)n * (i + 1) / k));
+  f(0, n / k);
+  for (std::thread& t : pool) t.join();
+}
+
+// libavif's own conversion (reformat.c), for the matrices libyuv lacks:
+// YCgCo (8), YCgCo-Re (16), else the (kr, kb) of own_coefficients. The
+// samples at their depth as unorm floats (luma less its bias over its
+// range, chroma less half), then per pixel in float: 4:4:4 and monochrome
+// samples with coefficients through its fast routines (avifImageYUV8To
+// RGB8Color / Mono and their 16-bit twins), the rest through
+// avifImageYUVAnyToRGBAnySlow, which upsamples 4:2:0 and 4:2:2 chroma
+// bilinearly from the nearest sample and its neighbours (9, 3, 3 and 1
+// sixteenths, in that order) and unpremultiplies in float; YCgCo-Re from
+// integers (the luma sample and the rounded chroma differences). True
+// where the colour is still to be unpremultiplied (the fast routines leave
+// it to libyuv's ARGBUnattenuate)
+bool rgb_libavif(Decoder& d, const pixel* alpha, int w, int h, int matrix, int primaries,
+                 int full, bool premultiplied, uint8_t* out, int64_t stride, int channels,
+                 int threads) {
+  const int depth = d.bit_depth, maxc = (1 << depth) - 1;
+  const bool ycgco = matrix == 8, ycgco_re = matrix == 16;
+  float k[3] = {0.0f, 0.0f, 0.0f};
+  if (!ycgco && !ycgco_re) own_coefficients(matrix, primaries, k);
+  const float kr = k[0], kg = k[1], kb = k[2];
+  const float bias_y = full ? 0.0f : (float)(16 << (depth - 8));
+  const float bias_uv = (float)(1 << (depth - 1));
+  const float range_y = (float)(full ? maxc : 219 << (depth - 8));
+  const float range_uv = (float)(full ? maxc : 224 << (depth - 8));
+  std::vector<float> ty(maxc + 1), tuv(maxc + 1);
+  for (int v = 0; v <= maxc; v++) {
+    ty[v] = ((float)v - bias_y) / range_y;
+    tuv[v] = ((float)v - bias_uv) / range_uv;
+  }
+  const bool fast = !ycgco && !ycgco_re && (d.mono || !d.ssx);
+  Plane &Y = d.planes[0], &U = d.planes[1], &V = d.planes[2];
+  in_bands(h, threads, [&](int j0, int j1) {
+    for (int j = j0; j < j1; j++) {
+      uint8_t* o = out + j * stride;
+      const pixel* yy = Y.at(j, 0);
+      const int uvj = j >> d.ssy;
+      // 4:2:0: the chroma row beside the nearest (none at the edges)
+      const int adj_row = !d.ssy || j == 0 || (j == h - 1 && (j & 1)) ? 0 : (j & 1) ? 1 : -1;
+      const pixel *u0 = d.mono ? yy : U.at(uvj, 0), *v0 = d.mono ? yy : V.at(uvj, 0);
+      const pixel *u1 = d.mono ? yy : U.at(uvj + adj_row, 0);
+      const pixel *v1 = d.mono ? yy : V.at(uvj + adj_row, 0);
+      for (int i = 0; i < w; i++, o += channels) {
+        const float yf = ty[yy[i]];
+        float rgb[3];
+        if (d.mono) {
+          rgb[0] = rgb[1] = rgb[2] = yf;
+        } else {
+          float cb, cr;
+          const int uvi = i >> d.ssx;
+          if (!d.ssx) {
+            cb = tuv[u0[uvi]];
+            cr = tuv[v0[uvi]];
+          } else {
+            const int c = uvi + (i == 0 || (i == w - 1 && (i & 1)) ? 0 : (i & 1) ? 1 : -1);
+            cb = (tuv[u0[uvi]] * (9.0f / 16.0f)) + (tuv[u0[c]] * (3.0f / 16.0f)) +
+                 (tuv[u1[uvi]] * (3.0f / 16.0f)) + (tuv[u1[c]] * (1.0f / 16.0f));
+            cr = (tuv[v0[uvi]] * (9.0f / 16.0f)) + (tuv[v0[c]] * (3.0f / 16.0f)) +
+                 (tuv[v1[uvi]] * (3.0f / 16.0f)) + (tuv[v1[c]] * (1.0f / 16.0f));
+          }
+          if (ycgco) {
+            const float t = yf - cb;
+            rgb[1] = yf + cb;
+            rgb[2] = t - cr;
+            rgb[0] = t + cr;
+          } else if (ycgco_re) {
+            const int cg = (int)std::floor(cb * (float)maxc + 0.5f);
+            const int co = (int)std::floor(cr * (float)maxc + 0.5f);
+            const int t = yy[i] - (cg >> 1);
+            const float g = (float)clip3(0, 255, t + cg), b = (float)clip3(0, 255, t - (co >> 1));
+            const float r = std::min(std::max(b + (float)co, 0.0f), 255.0f);
+            rgb[0] = r / 255.0f;
+            rgb[1] = g / 255.0f;
+            rgb[2] = b / 255.0f;
+          } else {
+            rgb[0] = yf + (2 * (1 - kr)) * cr;
+            rgb[2] = yf + (2 * (1 - kb)) * cb;
+            rgb[1] = yf - ((2 * ((kr * (1 - kr) * cr) + (kb * (1 - kb) * cb))) / kg);
+          }
+        }
+        for (float& c : rgb) c = clamp01(c);
+        if (!fast && premultiplied && alpha) {
+          const float a = clamp01((float)alpha[(size_t)j * w + i] / (float)maxc);
+          for (float& c : rgb) c = a == 0.0f ? 0.0f : a < 1.0f ? std::min(c / a, 1.0f) : c;
+        }
+        for (int c = 0; c < 3; c++) o[c] = (uint8_t)(0.5f + rgb[c] * 255.0f);
+      }
+    }
+  });
+  return fast;
 }
 
 // libyuv's rows at the samples' depth: the luma widened to 16 bits, the
@@ -3943,12 +4504,22 @@ void unpremultiply(int w, int h, uint8_t* out, int64_t stride) {
   }
 }
 
-// the decoded frame (and the alpha item's, `a`) into `out` as libavif
-// converts it for Pillow: the alpha plane widened to full range where its
-// sequence header says limited, then narrowed to 8 bits by the code that
-// converts the colour (libyuv's shift, or libavif's float code)
-void convert(Decoder& d, Decoder* a, int w, int h, int matrix, int full, int premultiplied,
-             uint8_t* out, int64_t stride) {
+// libavif's refusals of a matrix (avifPrepareReformatState): the reserved
+// values (3, and past 17), BT.2020 and chroma-derived constant luminance,
+// SMPTE ST 2085, ICtCp and YCgCo-Ro; YCgCo and YCgCo-Re in limited range;
+// YCgCo-Re but from samples two bits deeper than the 8-bit RGB; the
+// identity but on 4:4:4 and monochrome samples
+bool reformat_refuses(int m, int full, int depth, bool mono, bool subsampled) {
+  return m == 3 || m == 10 || m == 11 || m == 13 || m == 14 || m >= 17 ||
+         ((m == 8 || m == 16) && !full) || (m == 16 && depth != 10) ||
+         (m == 0 && subsampled && !mono);
+}
+
+// the decoded frame (and the alpha item's, `a`, in full range) into `out`
+// as libavif converts it for Pillow: the alpha narrowed to 8 bits by the
+// code that converts the colour (libyuv's shift, or libavif's float code)
+void convert(Decoder& d, Decoder* a, int w, int h, int matrix, int primaries, int full,
+             int premultiplied, uint8_t* out, int64_t stride, int threads) {
   const int channels = a ? 4 : 3, depth = d.bit_depth;
   std::vector<pixel> alpha;
   if (a) {
@@ -3956,14 +4527,12 @@ void convert(Decoder& d, Decoder* a, int w, int h, int matrix, int full, int pre
       throw std::runtime_error("alpha item of " + std::to_string(a->bit_depth) +
                                "-bit samples beside " + std::to_string(depth) + "-bit colour");
     alpha.resize((size_t)w * h);
-    for (int r = 0; r < h; r++) {
-      const pixel* s = a->planes[0].at(r, 0);
-      for (int x = 0; x < w; x++)
-        alpha[(size_t)r * w + x] = a->color_range ? s[x] : (pixel)limited_to_full(depth, s[x]);
-    }
+    for (int r = 0; r < h; r++)
+      std::memcpy(&alpha[(size_t)r * w], a->planes[0].at(r, 0), sizeof(pixel) * w);
   }
   int alpha_shift = -1;  // >= 0: alpha >> alpha_shift; -1: libavif's float code
   bool unattenuate = true;
+  const int lm = libyuv_matrix(matrix, primaries);
   if (matrix == 0 && !d.mono) {  // the identity matrix
     bool in_float = depth > 8 || !full;  // libavif's premultiplied path too
     rgb_float(d, w, h, full, a ? alpha.data() : nullptr, premultiplied && in_float, out, stride,
@@ -3971,12 +4540,15 @@ void convert(Decoder& d, Decoder* a, int w, int h, int matrix, int full, int pre
     unattenuate = !in_float;
   } else if (d.mono && channels == 3) {
     rgb_float(d, w, h, full, nullptr, false, out, stride, channels);
-  } else if (d.mono) {
+  } else if (d.mono && (lm >= 0 || matrix == 0)) {
     downshift(d);
-    rgb_mono_rgba(d, w, h, matrix, full, out, stride);
+    rgb_mono_rgba(d, w, h, lm >= 0 ? lm : 6, full, out, stride);
+  } else if (lm < 0) {
+    unattenuate = rgb_libavif(d, a ? alpha.data() : nullptr, w, h, matrix, primaries, full,
+                              premultiplied, out, stride, channels, threads);
   } else {
     YuvConst k;
-    if (!yuv_constants(matrix, full, &k)) throw NotYet("YUV matrix " + std::to_string(matrix));
+    yuv_constants(lm, full, &k);
     bool nearest = false;
     if (depth == 10 && channels == 4) alpha_shift = 2;
     else if (depth == 12 && channels == 4 && d.ssx && d.ssy) nearest = true;
@@ -4027,21 +4599,26 @@ struct Form {
 };
 
 // a decoded tile's planes into the image's at (x0, y0), cropped to its
-// w x h (libavif's avifImageCopySamples over two views); an alpha tile's
-// one plane widened to full range where its sequence header says limited
+// w x h (libavif's avifImageCopySamples over two views; an alpha tile's
+// one plane)
 void stitch(Decoder& t, Decoder& g, int x0, int y0, int w, int h, bool alpha) {
   for (int p = 0; p < (alpha ? 1 : t.num_planes()); p++) {
     int sx = p ? t.ssx : 0, sy = p ? t.ssy : 0;
     int pw = (w + sx) >> sx, ph = (h + sy) >> sy;
-    for (int r = 0; r < ph; r++) {
-      const pixel* s = t.planes[p].at(r, 0);
-      pixel* d = g.planes[p].at((y0 >> sy) + r, x0 >> sx);
-      if (alpha && !t.color_range)
-        for (int x = 0; x < pw; x++) d[x] = (pixel)limited_to_full(t.bit_depth, s[x]);
-      else
-        std::memcpy(d, s, sizeof(pixel) * (size_t)pw);
-    }
+    for (int r = 0; r < ph; r++)
+      std::memcpy(g.planes[p].at((y0 >> sy) + r, x0 >> sx), t.planes[p].at(r, 0),
+                  sizeof(pixel) * (size_t)pw);
   }
+}
+
+// an alpha tile's plane widened to full range where its sequence header
+// says limited, as libavif widens it before it scales or copies the tile
+void widen_alpha(Decoder& t) {
+  for (int r = 0; r < t.frame_h; r++) {
+    pixel* s = t.planes[0].at(r, 0);
+    for (int x = 0; x < t.frame_w; x++) s[x] = (pixel)limited_to_full(t.bit_depth, s[x]);
+  }
+  t.color_range = 1;
 }
 
 // the image's form from its first tile, and its planes at its size
@@ -4050,8 +4627,9 @@ void allocate(const Decoder& t, Decoder& g, int width, int height, bool alpha) {
   g.mono = alpha ? 1 : t.mono;
   g.ssx = t.ssx;
   g.ssy = t.ssy;
-  g.color_range = alpha ? 1 : t.color_range;  // alpha: widened by stitch
+  g.color_range = t.color_range;
   g.matrix = t.matrix;
+  g.primaries = t.primaries;
   for (int p = 0; p < g.num_planes(); p++) {
     Plane& pl = g.planes[p];
     pl.w = p ? (width + g.ssx) >> g.ssx : width;
@@ -4073,6 +4651,30 @@ void check_grid(const Coded& c, const Decoder& t, bool alpha) {
   if (!alpha && !t.mono && t.ssx && ((tw | c.width) & 1)) bad = true;
   if (!alpha && !t.mono && t.ssy && ((th | c.height) & 1)) bad = true;
   if (bad) throw std::runtime_error("Failed to decode frame 0: Invalid image grid");
+}
+
+// libavif's scale of a decoded frame to its tile's size, the item's
+// `ispe` or the track's `tkhd` (avifImageScaleWithLimit, after the filters
+// and film grain): its limits, then each plane at its subsampled size (an
+// alpha stream's luma only); the frame takes the new size
+void scale_frame(Decoder& t, int tw, int th, bool alpha) {
+  if (tw <= 0 || th <= 0 || tw > kImageSizeLimit / th || t.frame_w > kScaleSideLimit ||
+      t.frame_h > kScaleSideLimit)
+    throw std::runtime_error(std::string("Failed to decode frame 0: Decoding of ") +
+                             (alpha ? "alpha plane" : "color planes") + " failed");
+  for (int p = 0; p < (alpha ? 1 : t.num_planes()); p++) {
+    const int sx = p ? t.ssx : 0, sy = p ? t.ssy : 0;
+    Plane& src = t.planes[p];
+    Plane dst;
+    dst.w = dst.stride = (tw + sx) >> sx;
+    dst.h = (th + sy) >> sy;
+    dst.px.assign((size_t)dst.stride * dst.h, 0);
+    scale::plane({src.px.data(), (t.frame_w + sx) >> sx, (t.frame_h + sy) >> sy, src.stride},
+                 {dst.px.data(), dst.w, dst.h, dst.stride}, t.bit_depth > 8);
+    src = std::move(dst);
+  }
+  t.frame_w = tw;
+  t.frame_h = th;
 }
 
 // the last sequence header OBU's payload in `data`, walking its OBU
@@ -4108,8 +4710,8 @@ const uint8_t* last_sequence_header(const uint8_t* data, size_t size, size_t* n)
 // it is done, and converts them as libavif does for Pillow into `out`; the
 // first tile's failure in libavif's order (the colour tiles, then the
 // alpha's) is the one reported
-void decode_images(const Coded& c, const Coded& a, int matrix, int full_range, int premultiplied,
-                   uint8_t* out, int64_t stride, int threads) {
+void decode_images(const Coded& c, const Coded& a, int matrix, int primaries, int full_range,
+                   int premultiplied, uint8_t* out, int64_t stride, int threads) {
   const int nc = c.count(), n = nc + a.count();
   // libavif decodes the tiles one after another with one dav1d instance
   // (the colour image's, then the alpha's; but a single colour tile and a
@@ -4143,12 +4745,13 @@ void decode_images(const Coded& c, const Coded& a, int matrix, int full_range, i
       Decoder& image = alpha ? ga : g;
       try {
         Decoder t;
-        t.want_w = k.tile_w;
-        t.want_h = k.tile_h;
         if (seed[i]) t.start_from(seed[i], seed_size[i]);
         t.decode(k.data[j], (size_t)k.sizes[j]);
         t.loop_filters();
         t.film_grain();
+        if (alpha && !t.color_range) widen_alpha(t);
+        if (t.frame_w != k.tile_w || t.frame_h != k.tile_h)
+          scale_frame(t, k.tile_w, k.tile_h, alpha);
         if (j == 0) {
           if (k.grid) check_grid(k, t, alpha);
           if (!alpha && k.width == t.frame_w && k.height == t.frame_h) {
@@ -4206,29 +4809,68 @@ void decode_images(const Coded& c, const Coded& a, int matrix, int full_range, i
     if (a.width != c.width || a.height != c.height)
       throw std::runtime_error("Failed to decode frame 0: Decoding of alpha plane failed");
   }
-  int m = matrix >= 0 ? matrix : g.matrix;
-  int full = full_range >= 0 ? full_range : g.color_range;
-  // libavif's conversion refuses these (reserved values, BT.2020 and
-  // chroma-derived constant luminance, SMPTE ST 2085, ICtCp, values past
-  // the table, limited-range YCgCo, and identity but on 4:4:4 and
-  // monochrome samples)
-  if (m == 3 || m == 10 || m == 11 || m == 13 || (m >= 14 && m != 15) || (m == 8 && !full) ||
-      (m == 0 && g.ssx && !g.mono))
+  const int m = matrix >= 0 ? matrix : g.matrix;
+  const int full = full_range >= 0 ? full_range : g.color_range;
+  if (reformat_refuses(m, full, g.bit_depth, g.mono, g.ssx))
     throw std::runtime_error("Conversion from YUV failed: Reformat failed");
-  convert(g, a.count() ? &ga : nullptr, c.width, c.height, m, full, premultiplied, out, stride);
+  convert(g, a.count() ? &ga : nullptr, c.width, c.height, m,
+          primaries >= 0 ? primaries : g.primaries, full, premultiplied, out, stride, threads);
 }
 
 }  // namespace
 
 extern "C" int64_t av1_decode_grid(const uint8_t* const* tiles, const int64_t* sizes,
                                    const int32_t* color, const int32_t* alpha, int32_t matrix,
-                                   int32_t full_range, int32_t premultiplied, int32_t threads,
-                                   uint8_t* out, int64_t stride, char* err, int64_t errlen) {
+                                   int32_t primaries, int32_t full_range, int32_t premultiplied,
+                                   int32_t threads, uint8_t* out, int64_t stride, char* err,
+                                   int64_t errlen) {
   try {
     Coded c{tiles, sizes, color[0], color[1], color[2], color[3], color[4], color[5], color[6]};
     Coded a{tiles + c.count(), sizes + c.count(), alpha[0], alpha[1], alpha[2], alpha[3],
             alpha[4], alpha[5], alpha[6]};
-    decode_images(c, a, matrix, full_range, premultiplied, out, stride, threads);
+    decode_images(c, a, matrix, primaries, full_range, premultiplied, out, stride, threads);
+    return 0;
+  } catch (const std::exception& e) {
+    snprintf(err, (size_t)errlen, "%s", e.what());
+    return -1;
+  }
+}
+
+// the scaler alone: a w x h plane of samples at `depth` to dw x dh
+extern "C" void av1_scale_plane(const uint16_t* src, int32_t w, int32_t h, uint16_t* dst,
+                                int32_t dw, int32_t dh, int32_t depth) {
+  scale::plane({const_cast<pixel*>(src), w, h, w}, {dst, dw, dh, dw}, depth > 8);
+}
+
+// the conversion alone: planes (Y, U, V; alpha or null, full range) of a
+// w x h image at `depth`, monochrome or subsampled by (ssx, ssy), into 8-bit
+// RGB (RGBA with alpha) as decode_images converts a decoded image
+extern "C" int64_t av1_convert_planes(const uint16_t* const* planes, int32_t w, int32_t h,
+                                      int32_t depth, int32_t mono, int32_t ssx, int32_t ssy,
+                                      int32_t matrix, int32_t primaries, int32_t full,
+                                      int32_t premultiplied, uint8_t* out, int64_t stride,
+                                      char* err, int64_t errlen) {
+  try {
+    Decoder d, a;
+    d.bit_depth = a.bit_depth = depth;
+    d.mono = mono;
+    d.ssx = ssx;
+    d.ssy = ssy;
+    for (int p = 0; p < (mono ? 1 : 3); p++) {
+      Plane& pl = d.planes[p];
+      pl.w = pl.stride = p ? (w + ssx) >> ssx : w;
+      pl.h = p ? (h + ssy) >> ssy : h;
+      pl.px.assign(planes[p], planes[p] + (size_t)pl.w * pl.h);
+    }
+    if (planes[3]) {
+      a.planes[0].w = a.planes[0].stride = w;
+      a.planes[0].h = h;
+      a.planes[0].px.assign(planes[3], planes[3] + (size_t)w * h);
+    }
+    if (reformat_refuses(matrix, full, depth, mono, ssx))
+      throw std::runtime_error("Conversion from YUV failed: Reformat failed");
+    convert(d, planes[3] ? &a : nullptr, w, h, matrix, primaries, full, premultiplied, out, stride,
+            1);
     return 0;
   } catch (const std::exception& e) {
     snprintf(err, (size_t)errlen, "%s", e.what());

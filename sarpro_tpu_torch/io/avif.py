@@ -54,9 +54,14 @@ A file libavif refuses at this point is refused as Pillow refuses it
 (SyntaxError: the next plugin is tried; RuntimeError / ValueError: the open
 fails). An item keeps the last reference of each type in `iref`, as
 libavif's do. The mode is Pillow's "RGBA" where there is an alpha item or
-track, else "RGB". The AV1 data go to `av1dec.cpp` with the matrix and
-range of the `colr` nclx box (the sequence header's where there is none)
-and whether the colour image's `prem` reference is to the alpha image
+track, else "RGB". The AV1 data go to `av1dec.cpp` with the matrix,
+range and primaries of the `colr` nclx box (the sequence header's where
+there is none; chroma-derived NCL takes its coefficients from the
+primaries), the size each frame is scaled to where it has another (the
+item's `ispe`, a grid tile's, the track's `tkhd`: libavif's avifImageScale
+through libyuv's box filter, after the in-loop filters and film grain, a
+limited-range alpha widened first) and whether the colour image's `prem`
+reference is to the alpha image
 (libavif then unpremultiplies the RGB through libyuv's ARGBUnattenuate: its
 table and rounding read off Pillow's decodes of all 65536 (colour, alpha)
 pairs, test_torch_avif_tools.py); the sample layout (4:2:0, 4:2:2, 4:4:4,
@@ -69,10 +74,9 @@ its first bytes, a smaller one is a truncated file. An alpha image of
 another size than the colour image fails the load, as in libavif. `irot`,
 `imir` and `clap` change no pixels (Pillow turns the first two into an EXIF
 orientation). Pillow's `info` holds ICC, EXIF and XMP as bytes, so the text
-is empty. Still refused by name: a frame of another size than its `ispe`
-or `tkhd` (libavif scales it), the `colr` matrices libavif converts with
-its own code (4, 7, 8, 12, 15), superres, and a hidden key frame or
-`show_existing_frame` in the first sample.
+is empty. Still refused by name: superres, a hidden key frame or
+`show_existing_frame` in the first sample, a 4:2:2 block the spec gives no
+chroma size, and tile data that does not end in the spec's trailing bits.
 
 Film grain is applied, to the alpha item's stream too: libavif 1.3.0 leaves
 dav1d's `apply_grain` at its default (on). Pillow's decode of a 4:0:0 file
@@ -711,7 +715,7 @@ def _from_tracks(blob, tracks: list) -> Parsed:
     return Parsed(*size, Coded.single(obus, *size), nclx[3] if nclx else -1,
                   nclx[4] if nclx else -1, alpha_image,
                   alpha is not None and color.prem_by == alpha.id,
-                  color.timescale)
+                  color.timescale, nclx[1] if nclx else -1)
 
 
 def _brands(payload: bytes) -> list:
@@ -743,8 +747,8 @@ class Coded(NamedTuple):
     grid: bool
     columns: int
     rows: int
-    tile_width: int  # each tile's `ispe`: the frame size it must have
-    tile_height: int
+    tile_width: int  # each tile's `ispe` (a track's `tkhd`): the size its
+    tile_height: int  # frame is scaled to where it has another
     width: int  # the image's size: its tile's, or the grid's output
     height: int
 
@@ -763,6 +767,7 @@ class Parsed(NamedTuple):
     alpha_image: Optional[Coded]  # the alpha item or track, or None
     premultiplied: bool = False  # a `prem` reference to the alpha image
     timescale: int = 1  # the colour track's `mdhd` timescale (items: 1)
+    primaries: int = -1  # the `colr` nclx colour primaries, or -1
 
     @property
     def obus(self) -> bytes:
@@ -965,7 +970,8 @@ def parse(blob: bytes) -> Parsed:
     elif grid is not None:
         alpha_image = _tile_alphas(blob, meta, color, grid)
     return Parsed(width, height, image, nclx[3] if nclx else -1,
-                  nclx[4] if nclx else -1, alpha_image, premultiplied)
+                  nclx[4] if nclx else -1, alpha_image, premultiplied,
+                  primaries=nclx[1] if nclx else -1)
 
 
 def _check_size(width: int, height: int) -> None:
@@ -1054,7 +1060,7 @@ def read(blob: bytes) -> pixels.Opened:
                               "plane failed")
         try:
             out = _native.av1_decode_grid(c, a, p.matrix, p.full_range,
-                                          p.premultiplied)
+                                          p.premultiplied, p.primaries)
         except ValueError as e:
             raise RasterError(str(e)) from e
         if out.shape[:2] != (p.height, p.width):

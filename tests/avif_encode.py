@@ -12,8 +12,19 @@ at 64, its row bytes at 72, premultiplied at 80, CICP at 104) and
 `avifEncoder` (codec 0, threads 4, speed 8, quantizers 24 to 36, tile
 rows and columns 40 and 44);
 `_check_layout` holds them to what libavif itself reports.
+
+`set_ispe`, `set_tkhd` and `set_colr` edit a file's item sizes, track
+sizes and `colr` box in place of re-encoding it. `oracle` loads the libavif
+1.3.0 that Pillow bundles (`pillow.libs/libavif-*.so*`), whose avifImageScale
+and avifImageYUVToRGB are what Pillow's decode runs after dav1d, so the
+tests can hold the port's scaler and conversion to them on planes set by
+hand (`oracle_scale`, `oracle_rgb`); its `avifImage` and `avifRGBImage`
+offsets are held to what that library reports in `_check_oracle_layout`.
 """
 import ctypes
+import glob
+import os
+import struct
 
 import numpy as np
 
@@ -231,3 +242,203 @@ def encode_sequence(frames: list, *, duration: int = 1, timescale: int = 30,
         lib.avifEncoderDestroy(enc)
         for im in ims:
             lib.avifImageDestroy(im)
+
+
+# ---------------------------------------------------------------------------
+# byte edits
+# ---------------------------------------------------------------------------
+def _boxes_of(blob: bytes, kind: bytes) -> list:
+    """The payload offsets of every `kind` box in `blob`, found by its
+    type and checked by its size field."""
+    out, pos = [], 0
+    while True:
+        k = blob.find(kind, pos)
+        if k < 4:
+            return out
+        size = struct.unpack(">I", blob[k - 4:k])[0]
+        if 8 <= size <= len(blob) - k + 4:
+            out.append(k + 4)
+        pos = k + 1
+
+
+def set_ispe(blob: bytes, width: int, height: int) -> bytes:
+    """`blob` with every `ispe` property (the colour item's, its alpha
+    item's and a grid's tiles') set to width x height."""
+    b = bytearray(blob)
+    for k in _boxes_of(blob, b"ispe"):
+        struct.pack_into(">II", b, k + 4, width, height)
+    return bytes(b)
+
+
+def set_tkhd(blob: bytes, width: int, height: int) -> bytes:
+    """`blob` with every track's `tkhd` size set to width x height (16.16
+    fixed point, after the version 0 or 1 times)."""
+    b = bytearray(blob)
+    for k in _boxes_of(blob, b"tkhd"):
+        at = k + (88 if b[k] == 1 else 76)
+        struct.pack_into(">II", b, at, width << 16, height << 16)
+    return bytes(b)
+
+
+def set_colr(blob: bytes, matrix: int = None, full: bool = None,
+             primaries: int = None) -> bytes:
+    """`blob` with its first `colr` nclx box's matrix coefficients, range
+    flag and colour primaries set where given."""
+    b = bytearray(blob)
+    k = blob.find(b"colrnclx") + 8
+    assert k >= 8
+    if primaries is not None:
+        struct.pack_into(">H", b, k, primaries)
+    if matrix is not None:
+        struct.pack_into(">H", b, k + 4, matrix)
+    if full is not None:
+        b[k + 6] = (b[k + 6] & 0x7F) | (0x80 if full else 0)
+    return bytes(b)
+
+
+# ---------------------------------------------------------------------------
+# Pillow's libavif 1.3.0 as an oracle
+# ---------------------------------------------------------------------------
+ORACLE_VERSION = b"1.3.0"
+# avifRGBFormat
+RGB, RGBA = 0, 1
+_oracle = None
+
+
+def oracle():
+    """Pillow's own libavif (1.3.0, with libyuv built in), its layout
+    checked; None where Pillow bundles none."""
+    global _oracle
+    if _oracle is None:
+        import PIL
+        libs = os.path.join(os.path.dirname(os.path.dirname(PIL.__file__)),
+                            "pillow.libs")
+        found = sorted(glob.glob(os.path.join(libs, "libavif-*.so*")))
+        if not found:
+            return None
+        lib = ctypes.CDLL(found[0])
+        vp, u32 = ctypes.c_void_p, ctypes.c_uint32
+        lib.avifVersion.restype = ctypes.c_char_p
+        lib.avifImageCreate.restype = vp
+        lib.avifImageCreate.argtypes = [u32, u32, u32, u32]
+        lib.avifImageAllocatePlanes.argtypes = [vp, u32]
+        lib.avifImageDestroy.argtypes = [vp]
+        lib.avifImageScale.argtypes = [vp, u32, u32, vp]
+        lib.avifRGBImageSetDefaults.argtypes = [vp, vp]
+        lib.avifImageYUVToRGB.argtypes = [vp, vp]
+        _check_oracle_layout(lib)
+        _oracle = lib
+    return _oracle
+
+
+def _check_oracle_layout(lib) -> None:
+    """The avifImage and avifRGBImage offsets the oracle writes, against
+    libavif 1.3.0's own defaults (a 3 x 2 10-bit 4:2:0 image)."""
+    assert lib.avifVersion() == ORACLE_VERSION, lib.avifVersion()
+    im = lib.avifImageCreate(3, 2, 10, LAYOUTS["4:2:0"])
+    try:
+        head = (ctypes.c_uint32 * 5).from_address(im)
+        assert list(head) == [3, 2, 10, LAYOUTS["4:2:0"], 1]  # full range
+        assert list((ctypes.c_uint16 * 3).from_address(im + 104)) == [2] * 3
+        lib.avifImageAllocatePlanes(im, 0xFF)
+        rows = (ctypes.c_uint32 * 3).from_address(im + 48)
+        assert list(rows) == [6, 4, 4]
+        assert ctypes.c_uint32.from_address(im + 72).value == 6
+        assert ctypes.c_void_p.from_address(im + 64).value
+        rgb = (ctypes.c_uint8 * 64)()
+        lib.avifRGBImageSetDefaults(ctypes.addressof(rgb), im)
+        # width, height, depth, RGBA; automatic chroma upsampling
+        assert list((ctypes.c_uint32 * 5).from_buffer(rgb)) == [
+            3, 2, 10, RGBA, 0]
+        assert ctypes.c_void_p.from_buffer(rgb, 48).value is None
+    finally:
+        lib.avifImageDestroy(im)
+
+
+def _oracle_image(lib, planes, depth, layout, full=True, matrix=1,
+                  primaries=1, premultiplied=False):
+    """A new avifImage of `planes` (Y, U, V, alpha; U and V None for 4:0:0,
+    alpha None for none), each a 2-D array of `depth`-bit samples."""
+    y, u, v, alpha = planes
+    rows, cols = y.shape
+    im = lib.avifImageCreate(cols, rows, depth, LAYOUTS[layout])
+    ctypes.c_uint32.from_address(im + 16).value = int(full)
+    for off, val in ((104, primaries), (106, 13), (108, matrix)):
+        ctypes.c_uint16.from_address(im + off).value = val
+    lib.avifImageAllocatePlanes(im, 1 | (2 if alpha is not None else 0))
+    for i, plane in enumerate((y, u, v)):
+        if plane is not None:
+            _fill(ctypes.c_void_p.from_address(im + 24 + 8 * i).value,
+                  ctypes.c_uint32.from_address(im + 48 + 4 * i).value,
+                  plane, depth)
+    if alpha is not None:
+        _fill(ctypes.c_void_p.from_address(im + 64).value,
+              ctypes.c_uint32.from_address(im + 72).value, alpha, depth)
+        ctypes.c_uint32.from_address(im + 80).value = int(premultiplied)
+    return im
+
+
+def _read_plane(ptr: int, row_bytes: int, rows: int, cols: int,
+                depth: int) -> np.ndarray:
+    buf = (ctypes.c_uint8 * (row_bytes * rows)).from_address(ptr)
+    a = np.frombuffer(buf, np.uint8).reshape(rows, row_bytes)
+    a = a[:, :cols * (2 if depth > 8 else 1)]
+    return (a.view(np.uint16) if depth > 8 else a).astype(np.uint16)
+
+
+def oracle_scale(planes: tuple, width: int, height: int, depth: int,
+                 layout: str) -> tuple:
+    """avifImageScale of `planes` (as _oracle_image takes them) to width x
+    height: (avifResult, the scaled planes, each u16 or None)."""
+    lib = oracle()
+    im = _oracle_image(lib, planes, depth, layout)
+    try:
+        diag = (ctypes.c_uint8 * 512)()
+        res = lib.avifImageScale(im, width, height, ctypes.addressof(diag))
+        if res:
+            return res, None
+        sx = 0 if layout == "4:4:4" else 1
+        sy = 1 if layout in ("4:2:0", "4:0:0") else 0
+        out = []
+        for i in range(3):
+            if planes[i] is None:
+                out.append(None)
+                continue
+            cols = width if i == 0 else (width + sx) >> sx
+            rows = height if i == 0 else (height + sy) >> sy
+            out.append(_read_plane(
+                ctypes.c_void_p.from_address(im + 24 + 8 * i).value,
+                ctypes.c_uint32.from_address(im + 48 + 4 * i).value,
+                rows, cols, depth))
+        out.append(None if planes[3] is None else _read_plane(
+            ctypes.c_void_p.from_address(im + 64).value,
+            ctypes.c_uint32.from_address(im + 72).value, height, width,
+            depth))
+        return 0, tuple(out)
+    finally:
+        lib.avifImageDestroy(im)
+
+
+def oracle_rgb(planes: tuple, depth: int, layout: str, full: bool,
+               matrix: int, primaries: int = 1,
+               premultiplied: bool = False) -> tuple:
+    """avifImageYUVToRGB of `planes` (as _oracle_image takes them) into
+    8-bit RGB, or RGBA where there is alpha, as Pillow asks for it:
+    (avifResult, the (rows, cols, 3 or 4) u8 array)."""
+    lib = oracle()
+    im = _oracle_image(lib, planes, depth, layout, full, matrix, primaries,
+                       premultiplied)
+    try:
+        rows, cols = planes[0].shape
+        channels = 3 if planes[3] is None else 4
+        out = np.zeros((rows, cols, channels), np.uint8)
+        rgb = (ctypes.c_uint8 * 64)()
+        lib.avifRGBImageSetDefaults(ctypes.addressof(rgb), im)
+        ctypes.c_uint32.from_buffer(rgb, 8).value = 8
+        ctypes.c_uint32.from_buffer(rgb, 12).value = \
+            RGBA if channels == 4 else RGB
+        ctypes.c_void_p.from_buffer(rgb, 48).value = out.ctypes.data
+        ctypes.c_uint32.from_buffer(rgb, 56).value = out.strides[0]
+        return lib.avifImageYUVToRGB(im, ctypes.addressof(rgb)), out
+    finally:
+        lib.avifImageDestroy(im)

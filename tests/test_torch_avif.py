@@ -24,9 +24,11 @@ patched to each value on every layout, RGB and RGBA, the alpha item's
 properties, references and data edited, bit flips of a file with every
 kind of item, of one with all three filters on and of one with alpha,
 files cut short, and the files the port refuses by name
-(tests/test_torch_legacy_rasters.py holds those: a frame of another size
-than its `ispe`; 10- and 12-bit samples are tests/test_torch_avif_depth.py's,
-grid items and image sequences tests/test_torch_avif_container.py's). The
+(tests/test_torch_legacy_rasters.py holds those: aom's 4:0:0 frame with a
+grain model it estimates; 10- and 12-bit samples are
+tests/test_torch_avif_depth.py's, grid items and image sequences
+tests/test_torch_avif_container.py's, frames scaled to their `ispe` and the
+matrices libavif converts itself tests/test_torch_avif_scale.py's). The
 tables of av1dec.cpp are held to the read-only data of Pillow's libavif."""
 import hashlib
 import io
@@ -79,8 +81,9 @@ TOOL_PREFIXES = ("qm_", "fg_", "prem_", "ibc_")
 # the fixtures of 10- and 12-bit samples (tests/test_torch_avif_depth.py)
 DEPTH_PREFIX = chip_smoke.AVIF_DEPTH_PREFIX
 # and the grid items and image sequences (tests/test_torch_avif_container.py)
+# and the scaled frames and 8-bit sweeps (tests/test_torch_avif_scale.py)
 OTHER_PREFIXES = TOOL_PREFIXES + (DEPTH_PREFIX,) + \
-    chip_smoke.AVIF_CONTAINER_PREFIXES
+    chip_smoke.AVIF_CONTAINER_PREFIXES + chip_smoke.AVIF_SCALE_PREFIXES
 CDEF = {"enable-cdef": "1"}
 LAYOUTS = ("4:4:4", "4:2:2", "4:0:0")
 
@@ -239,7 +242,9 @@ def layout_files() -> dict:
     film grain and premultiplied alpha, and the one it refused before it
     read 10-bit samples (Pillow writes none: an 8-bit file with `av1C`
     and `pixi` saying 10 bits, which libavif reads by its sequence
-    header's 8 bits)."""
+    header's 8 bits) and the one it refused before it scaled frames
+    (s6_q50.avif with its `ispe` set to 48 x 32: libavif scales the 130 x
+    67 frame to it, and Pillow opens it at 48 x 32)."""
     s = chip_smoke.AVIF_SEED
     base = scene(s, 67, 130)
     big = scene(s + 2, 129, 257)
@@ -301,27 +306,31 @@ def layout_files() -> dict:
     p = ten.find(b"pixi") + 9
     ten[p:p + 3] = bytes([10, 10, 10])
     out["was_refused_10bit.avif"] = bytes(ten)
+    ispe = bytearray(_save(base, quality=50, speed=6, advanced=LF0))
+    k = ispe.find(b"ispe") + 8
+    ispe[k:k + 8] = struct.pack(">II", 48, 32)
+    out["was_refused_ispe.avif"] = bytes(ispe)
     return out
 
 
 # the files the port refuses by name, and the words of each refusal
 REFUSALS = {
-    "refuse_ispe.avif": re.escape("AV1 frame of another size than its item "
-                                  "is"),
+    "refuse_denoise_400.avif": re.escape(
+        "AV1 tile data that does not end in the spec's trailing bits are"),
 }
 
 
 def refusal_files() -> dict:
-    """The files of REFUSALS: s6_q50.avif with its `ispe` patched to 48 x
-    32 (libavif scales the 130 x 67 frame to it, and Pillow opens it at 48
-    x 32). The `avis` sequence that stood here before the port read image
-    sequences is tests/data/avif/seq_pillow.avif now
-    (test_torch_avif_container.py)."""
-    b = bytearray(_save(scene(chip_smoke.AVIF_SEED, 67, 130), quality=50,
-                        speed=6, advanced=LF0))  # s6_q50.avif
-    k = b.find(b"ispe") + 8
-    b[k:k + 8] = struct.pack(">II", 48, 32)
-    files = {"refuse_ispe.avif": bytes(b)}
+    """The files of REFUSALS: aom's 4:0:0 frame with a grain model it
+    estimates (`denoise-noise-level`), whose header carries chroma grain
+    fields a monochrome frame does not have, so its tile data does not end
+    in the spec's trailing bits (dav1d decodes it to garbage, which the JAX
+    reader opens). The `ispe` patched to 48 x 32 that stood here before the
+    port scaled frames is was_refused_ispe.avif now (layout_files)."""
+    sar = chip_smoke.avif_band_u8(64)
+    files = {"refuse_denoise_400.avif": _save(
+        np.dstack([sar] * 3), quality=30, speed=6, subsampling="4:0:0",
+        advanced={"denoise-noise-level": "25"})}
     assert list(files) == list(REFUSALS)
     return files
 
@@ -503,24 +512,28 @@ def test_colr_range_flag_equals_jax(tmp_path, name, matrix):
 @pytest.mark.parametrize("matrix", [4, 7, 8, 12, 15])
 def test_other_colr_matrix_is_named(tmp_path, matrix):
     """Matrices libavif converts with its own code (FCC, SMPTE 240M,
-    YCgCo, chroma-derived, a reserved value) are refused by name; the JAX
-    reader opens them."""
+    YCgCo, chroma-derived NCL over the BT.709 primaries, a reserved value
+    read as BT.601) open bit-equal to the JAX reader, and differ from the
+    file's own BT.601 but for chroma-derived NCL over BT.709 (libyuv's
+    BT.709 constants)."""
     b = bytearray((AVIF_DIR / "s6_q50.avif").read_bytes())
     k = b.find(b"colrnclx") + 8
     b[k + 4:k + 6] = struct.pack(">H", matrix)
-    path = _write(tmp_path, bytes(b))
-    jraster.RasterReader(path).close()
-    with pytest.raises(RasterError, match=f"AV1 YUV matrix {matrix} is "
-                       f"{NOT_YET}"):
-        traster.RasterReader(path)
+    got = _equal_to_jax(_write(tmp_path, bytes(b)))
+    plain = avif.read((AVIF_DIR / "s6_q50.avif").read_bytes()).load().array
+    assert not np.array_equal(got, plain)
 
 
-@pytest.mark.parametrize("matrix", [0, 3, 10, 11, 13, 14, 16, 65535])
-def test_colr_matrix_libavif_refuses_is_refused(tmp_path, matrix):
+@pytest.mark.parametrize("matrix,name", [
+    *[(m, "s6_q50.avif") for m in (0, 3, 10, 11, 13, 14, 16, 65535)],
+    (16, "hbd_12_420_full.avif")],
+    ids=[*map(str, (0, 3, 10, 11, 13, 14, 16, 65535)), "16-12bit"])
+def test_colr_matrix_libavif_refuses_is_refused(tmp_path, matrix, name):
     """Identity on 4:2:0, the reserved values, constant-luminance BT.2020,
-    SMPTE ST 2085 and ICtCp: libavif's conversion fails, and so does the
-    port's."""
-    b = bytearray((AVIF_DIR / "s6_q50.avif").read_bytes())
+    SMPTE ST 2085, ICtCp, and YCgCo-Re from 8- and 12-bit samples (libavif
+    converts it only where the samples have two bits more than the 8-bit
+    RGB): libavif's conversion fails, and so does the port's."""
+    b = bytearray((AVIF_DIR / name).read_bytes())
     k = b.find(b"colrnclx") + 8
     b[k + 4:k + 6] = struct.pack(">H", matrix)
     _both_refuse(_write(tmp_path, bytes(b)), match="Reformat failed")
@@ -529,18 +542,18 @@ def test_colr_matrix_libavif_refuses_is_refused(tmp_path, matrix):
 def _colr_outcome(name: str, matrix: int, limited: bool) -> str:
     """What libavif 1.3.0 makes of tests/data/avif/`name` with its `colr`
     matrix and range set so, as Pillow's decodes show: "refused" (Reformat
-    failed), "not yet" (the port names the matrix) or "open"."""
+    failed: the reserved 3 and values past 17, constant-luminance BT.2020,
+    SMPTE ST 2085, ICtCp, YCgCo-Ro, limited-range YCgCo and YCgCo-Re,
+    YCgCo-Re but from 10-bit samples, identity on subsampled colour) or
+    "open"."""
     blob = (AVIF_DIR / name).read_bytes()
-    p = avif.parse(blob)
-    layout = blob[blob.find(b"av1C") + 6]  # the primary item's av1C comes first
-    mono, layout_444 = layout & 0x10 != 0, layout & 0x18 == 0
-    if matrix in (3, 10, 11, 13, 14, 16) or (matrix == 8 and limited) or (
+    av1c = blob[blob.find(b"av1C") + 4:]  # the primary item's comes first
+    mono, layout_444 = av1c[2] & 0x10 != 0, av1c[2] & 0x0C == 0
+    if matrix in (3, 10, 11, 13, 14, 17) or matrix > 17 or (
+            matrix in (8, 16) and limited) or (
+            matrix == 16 and avif._depth(av1c) != 10) or (
             matrix == 0 and not (mono or layout_444)):
         return "refused"
-    if not mono and matrix in (4, 7, 8, 12, 15):
-        return "not yet"
-    if mono and p.alpha is not None and limited and matrix == 12:
-        return "not yet"
     return "open"
 
 
@@ -562,8 +575,6 @@ def test_colr_of_other_layouts_equals_jax(tmp_path, name, matrix, limited):
         b[k + 6] ^= 0x80
     kind, why = _outcome(_write(tmp_path, bytes(b)))
     assert kind == _colr_outcome(name, matrix, limited), why
-    if kind == "not yet":
-        assert f"AV1 YUV matrix {matrix} is {NOT_YET}" in why
 
 
 def _ramp(mode: str) -> bytes:
@@ -884,7 +895,7 @@ def _alpha_cases() -> dict:
         "cut": (alpha_data(lambda f: f.data[2][:len(f.data[2]) // 2]),
                 "refused"),
         "frame of another size": (alpha_data(
-            lambda f: Items(other).data[2]), "not yet"),
+            lambda f: Items(other).data[2]), "open"),
     }
 
 
@@ -895,8 +906,8 @@ def test_alpha_item_equals_jax(tmp_path, case):
     `ispe` and `av1C` present and `pixi` of the `av1C` depth (else the
     parse fails); an item without data, with an unknown essential property,
     a thumbnail or an `auxC` that is not alpha is no alpha item (RGB); the
-    AV1 data of any layout gives its luma plane; a frame of another size
-    than its `ispe` (which libavif scales) is named."""
+    AV1 data of any layout gives its luma plane, a frame of another size
+    than its `ispe` scaled to it."""
     edit, want = _alpha_cases()[case]
     f = Items((AVIF_DIR / "rgba_444.avif").read_bytes())
     edit(f)
@@ -907,7 +918,8 @@ def test_alpha_item_equals_jax(tmp_path, case):
             bands = len(im.mode)
         assert bands == (4 if case in ("no pixi", "hevc urn",
                                        "prem from the alpha",
-                                       "colour data") else 3)
+                                       "colour data",
+                                       "frame of another size") else 3)
 
 
 def _boxes(blob: bytes, pos: int = 0, end: int = None) -> list:
