@@ -231,7 +231,9 @@ prints no result):
      grid items and `avis` image sequences, held in
      tests/test_torch_avif_container.py; the scale_ and sweep_8_ files of
      frames scaled to their `ispe` and of libavif's own conversion, held in
-     tests/test_torch_avif_scale.py) and on the seven committed
+     tests/test_torch_avif_scale.py; the sr_ files of frames coded with AV1
+     superres by libaom 3.6.0, held in tests/test_torch_avif_superres.py)
+     and on the eight committed
      9216^2 SAR-like bands of tests/data/avif_band (Pillow at speed 6,
      autotiling, loop filter off, AVIF_BAND_SHA256; at speed 4 with CDEF
      on, so that all three filters are on, AVIF_FILTERED_BAND_SHA256; as
@@ -246,12 +248,16 @@ prints no result):
      6144^2 8-bit 4:2:0 RGBA with the footprint, both items' `ispe` set to
      9216^2 and the `colr` matrix to SMPTE 240M in limited range, so that
      the decode scales both frames up and converts them with libavif's own
-     float code, AVIF_SCALE_BAND_SHA256), each with a .wld
+     float code, AVIF_SCALE_BAND_SHA256; and as 8-bit 4:2:0 with the
+     footprint as alpha, both coded by libaom 3.6.0 with superres at 8/16
+     (4608 columns, upscaled after CDEF, then loop-restored at 9216),
+     AVIF_SUPERRES_BAND_SHA256), each with a .wld
      and a .prj beside a copy of it. Each opens through RasterReader (decode
      ms on the host clock, median of 3, MP/s), decodes to the pinned
      SHA-256, reads decimated to 2048^2 on the card (cubic; the alpha, band
      4, of the LA,
-     grain, 12-bit, grid and scaled bands too) with the launch counts set to
+     grain, 12-bit, grid, scaled and superres bands too) with the launch
+     counts set to
      0 just
      before and read just after, bit-equal to the plain resample, and is
      saved as a CLAHE gray JPEG that reads back;
@@ -530,7 +536,16 @@ WEBP_FIXTURES = {
 # AVIF_SCALE_BAND_SIDE^2 as RGBA with the footprint as alpha, saved by
 # Pillow at quality AVIF_BAND_QUALITY, both items' `ispe` then set to
 # AVIF_BAND_SIDE^2 and the `colr` matrix to SMPTE 240M (7) in limited
-# range (scale_band_file, 0.09 MB, 6 s of aom here).
+# range (scale_band_file, 0.09 MB, 6 s of aom here). The sr_ files
+# (AVIF_SUPERRES_PREFIX) hold frames coded with AV1 superres, written by
+# libaom 3.6.0 through tests/avif_encode.encode_av1 and spliced into libavif
+# 0.11.1's container (tests/test_torch_avif_superres.py's superres_files),
+# as is AVIF_SUPERRES_BAND: avif_band_u8 at AVIF_BAND_SIDE^2 as 8-bit 4:2:0
+# with the footprint as alpha, both coded at superres denominator
+# AVIF_SUPERRES_BAND_DENOMINATOR (4608 columns, upscaled to 9216) with CDEF
+# and loop restoration on, speed 4, at quantizer
+# AVIF_SUPERRES_BAND_QUANTIZER (superres_band_file, 0.65 MB, 35 s of aom
+# here).
 AVIF_DIR = ROOT / "tests" / "data" / "avif"
 AVIF_BAND = ROOT / "tests" / "data" / "avif_band" / "sar_band_9216.avif"
 AVIF_FILTERED_BAND = AVIF_BAND.with_name("sar_band_9216_filtered.avif")
@@ -539,6 +554,7 @@ AVIF_GRAIN_BAND = AVIF_BAND.with_name("sar_band_9216_grain.avif")
 AVIF_DEPTH_BAND = AVIF_BAND.with_name("sar_band_9216_12bit.avif")
 AVIF_GRID_BAND = AVIF_BAND.with_name("sar_band_9216_grid.avif")
 AVIF_SCALE_BAND = AVIF_BAND.with_name("sar_band_9216_scaled.avif")
+AVIF_SUPERRES_BAND = AVIF_BAND.with_name("sar_band_9216_superres.avif")
 AVIF_SEED = 21
 AVIF_BAND_SIDE = 9216
 AVIF_BAND_QUALITY = 10
@@ -550,6 +566,10 @@ AVIF_CONTAINER_PREFIXES = ("grid_", "seq_")
 # frames libavif scales to their `ispe`, and 8-bit sweeps through its own
 # conversion (tests/test_torch_avif_scale.py)
 AVIF_SCALE_PREFIXES = ("scale_", "sweep_8_")
+# frames coded with AV1 superres (tests/test_torch_avif_superres.py)
+AVIF_SUPERRES_PREFIX = "sr_"
+AVIF_SUPERRES_BAND_QUANTIZER = 44
+AVIF_SUPERRES_BAND_DENOMINATOR = 16
 AVIF_SCALE_BAND_SIDE = 6144
 AVIF_FIXTURES = {
     "s6_q10.avif": ("966c408207f06c5bfa8f8a653e78ab3c"
@@ -1060,6 +1080,82 @@ AVIF_FIXTURES = {
                           "358b4225b9b129cd9018bd1eeff7e62c"),
     "sweep_8_444_prem.avif": ("be2a92f1b343db64f12ba32d985a1896"
                              "335f516f9eadf77994f2a22d05694863"),
+    "sr_d9.avif": ("b143daf04bbce83c7d4da47a58f3f307"
+                  "b949b51a14fdf49c19440f4cda0a9bfa"),
+    "sr_d10.avif": ("fc171e368e31227f4baee7ad732b3f96"
+                   "b77ac37461e458f80e15393619169b7d"),
+    "sr_d11.avif": ("b50815f107bac26fa00d8fce341cdbe3"
+                   "b8288f75eb9759f39f7b09347e097d77"),
+    "sr_d12.avif": ("d1d4c7f86407b64a6e541c2a62938205"
+                   "81487f26645bc8a1cf0144e0d649285e"),
+    "sr_d13.avif": ("f6ef4fa1e8e74776c61824c5affb5904"
+                   "2fe1accb383cf14fdd818cf0064db720"),
+    "sr_d14.avif": ("293b9f2d0500e04959a574a7796260b6"
+                   "b3545cb9c16858eebaccdce672b5ce41"),
+    "sr_d15.avif": ("b7b11863022afd93ee08c5f205f7e0c8"
+                   "48955865a4985699a9c5c21b2af6cd21"),
+    "sr_d16.avif": ("5289db46562e037c0823d5ab8d03ac1c"
+                   "1f7bd8541f80465b6dbdee3b6e260cfc"),
+    "sr_444.avif": ("05b9150bd4742abc4127e72272c58655"
+                   "5184e1e62868f410dc548e71f0a5cae1"),
+    "sr_422.avif": ("abdd8836c167328685ad56cb30ca1261"
+                   "7fe339eaae6270c844baa47fdd02509e"),
+    "sr_400.avif": ("6cd2d2be0e22a699b3b1ad753e1f354d"
+                   "909275b1c13697c120815de8b699352d"),
+    "sr_10_420.avif": ("3403d068cda5f437253791b082c5fa92"
+                      "74cdff6e81e8725f1b26c24f07e9059d"),
+    "sr_12_420.avif": ("3114428efc73358bc9b6e39aad6e1876"
+                      "a3e7a1d125a11318193c5711441742e5"),
+    "sr_12_444.avif": ("7aeb2ee9ce943a17b4252dc138976238"
+                      "0138ba9cf8af0d7a75a6a0b758a2a21e"),
+    "sr_lf_off.avif": ("6fd419970beac270c7f8590bac0e01b9"
+                      "2f8cd06b27e2025e2924d497605d0eb0"),
+    "sr_deblocking.avif": ("5aef211189c49012a0ce149bed672bc3"
+                          "61b7fe6c20f5028b187709580301d238"),
+    "sr_cdef.avif": ("7839cd7169e079bfa0b85fe93e33e91d"
+                    "3348210c929552ac561587c0e4aaa0d0"),
+    "sr_restoration.avif": ("7358e6281d3b39ef679b38b1a687902a"
+                           "d3a3299fa69fc01b6135e6a6fff3f5ee"),
+    "sr_cdef_wiener.avif": ("ba51c0913391315e39320cac9811f853"
+                           "a62549a6e6b550de749015fcb31dd091"),
+    "sr_sgr.avif": ("abb336e9677f00ad93e57e0b45ffe160"
+                   "ff5e201fbff1970c7116afc6881974ee"),
+    "sr_switchable.avif": ("723b159af478e40e4cf2f194a9ab9adb"
+                          "d73b943d3a9d1e8198777e968e45f0d4"),
+    "sr_unit256.avif": ("a019223fede6d60442c1d44b413be5de"
+                       "40377336971c13a6a4be65059fa19aa9"),
+    "sr_sb128.avif": ("e3783789c5016240f90ef24fe29b31c5"
+                     "0e1bc66850eeac9f5c6a8ac3378b595b"),
+    "sr_tiles.avif": ("b949f2b5830d2aea7b1df170c41c2ef8"
+                     "8efc086695898d6858fbf51109aeed87"),
+    "sr_w17_d9.avif": ("7e41d564bd00bb709592bffe17fa2fe8"
+                      "9d1dd65306082d9501aa08520ac1a191"),
+    "sr_w24_d16.avif": ("cc1d962cf98aa45c68e7c42f28d9c9b3"
+                       "d5f144786016f2787eb379b8199e7ce7"),
+    "sr_w31_d12.avif": ("328c6147763ab33eab45a55e03fcd6db"
+                       "cee029e49d4b2cc42f9a4dd028217891"),
+    "sr_w40_d16.avif": ("9774e525f0ef80bde4914be828f02fe4"
+                       "851a21c51265f940c3b12dc8b5dcda82"),
+    "sr_w17_422.avif": ("baf09780cb8d4303817a15994b83dbef"
+                       "9d0839fd18024238fde7be39eca77a4e"),
+    "sr_grain.avif": ("aefb7755315d092f03451c4bd1fbd231"
+                     "07fb7ee32b0209160c3b81a6c89aaf48"),
+    "sr_grain_clip.avif": ("f338400c05dd9e24fefcbf683edd5873"
+                          "51df39056870730a9de4327c40c20d0e"),
+    "sr_grain_limited.avif": ("09becad46f61787ab66323aab1226bbc"
+                             "e8c633d8395a63336b0b303ea2115f89"),
+    "sr_allintra.avif": ("14cfaa6f8888f505962d3cee99f10f66"
+                        "f14965b07b52d2261def4f6ad490dd56"),
+    "sr_rgba.avif": ("fd495e856af5abf1a5b7b4b674ecaa46"
+                    "fcafc5e0559774c16d7f8b7a1741f445"),
+    "sr_grid.avif": ("a70d7c7e6e0eeb799e5f89ca5d58e247"
+                    "0f1b3ea42c8a5b8b3528a9016e2d2533"),
+    "sr_seq.avif": ("5edbc5d365f3903f720f405734b0aab5"
+                   "b6bada45d4aa1a4d4bc5cd417bf8e72c"),
+    "sr_ispe_160x90.avif": ("fd9f79be929636a87abc0d96a22cf1ce"
+                           "060a71c9ee864a1dd3e80ed488f1bb99"),
+    "sr_ispe_100x50.avif": ("b6ac4b547d55e1e8701af68210771e0d"
+                           "5b64bb9343a8d8c7480030e318481776"),
 }
 AVIF_BAND_SHA256 = ("0fac26190af3efd4cf09c6ceaed08687"
                     "1078c04bb00ad9c2561349724e90840e")
@@ -1075,6 +1171,8 @@ AVIF_GRID_BAND_SHA256 = ("d24b93b4b0f95755cd9eaff39fa21d23"
                          "e5e8c8382d24baa7e5c6c61928850d79")
 AVIF_SCALE_BAND_SHA256 = ("d4e8f953ca7b5df8d2d3ebe01b113f30"
                           "9eeba175a974e355dc4203ac6f84a436")
+AVIF_SUPERRES_BAND_SHA256 = ("40bdf08e257568ae5e1a479c6b168b1b"
+                             "cb5bd61260be1243a051f545fc9aae0e")
 # the rasters phase's JPEG codings: tests/data/jpeg, written from JPEG_SEED
 # on by libjpeg-turbo 3.1.3's own encoder (tests/ljt_encode.py) or Pillow
 # (tests/test_torch_jpeg_coding.py): a SAR-like arithmetic-coded strip
@@ -5335,11 +5433,11 @@ def phase_longtail(work: Path, smi: str) -> dict:
 
 def phase_avif(work: Path, smi: str) -> dict:
     """io/avif on the card's machine: each file of AVIF_FIXTURES and the
-    seven committed bands (each with a .wld and a .prj) opens through
+    eight committed bands (each with a .wld and a .prj) opens through
     RasterReader (decode timed on the host clock, median of 3), decodes to
     the SHA-256 of Pillow's decode, reads decimated to SIZE^2 on the card
     (bit-equal to the plain resample; the alpha of the LA, grain, 12-bit,
-    grid and scaled bands too)
+    grid, scaled and superres bands too)
     and is saved as a CLAHE gray JPEG that reads back (but the 1 x 1 files:
     their read is a constant band, whose save launches no histogram).
     Returns the launches of the driven reads and saves."""
@@ -5367,7 +5465,9 @@ def phase_avif(work: Path, smi: str) -> dict:
             ("SAR band, 3 x 3 grid RGBA", AVIF_GRID_BAND,
              AVIF_GRID_BAND_SHA256),
             ("SAR band, RGBA scaled from 6144^2, SMPTE 240M",
-             AVIF_SCALE_BAND, AVIF_SCALE_BAND_SHA256)):
+             AVIF_SCALE_BAND, AVIF_SCALE_BAND_SHA256),
+            ("SAR band, RGBA coded 4608 wide with superres",
+             AVIF_SUPERRES_BAND, AVIF_SUPERRES_BAND_SHA256)):
         band = d / src.name
         shutil.copyfile(src, band)
         band.with_suffix(".wld").write_text(
@@ -5403,7 +5503,7 @@ def phase_avif(work: Path, smi: str) -> dict:
                 f"), {mp / wall:.2f} MP/s, equal to Pillow's decode; host "
                 f"CPU {_host_cpu()}; on {smi}")
             del data
-            # LA, grain, 12-bit, grid, scaled
+            # LA, grain, 12-bit, grid, scaled, superres
             with_alpha = path in band_paths[2:]
             if with_alpha and bands != 4:
                 raise AssertionError(f"avif: {label} opens with {bands} "

@@ -14,8 +14,8 @@ decodes the same files, made with this checkout's chip_smoke helpers as
 its JPEG 2000 phase makes them (`--format jpeg2000`, the default):
   * the spliced 84.9 MP u16 JP2s, the default coding and the styled one;
   * the 4096^2 sYCC 4:2:0 JP2 and the 4096^2 JP2 of 20-bit amplitude;
-or this checkout's five 9216^2 AVIF bands of its avif phase (`--format
-avif`: unfiltered, filtered, "LA", grain, 12-bit "LA").
+or six of this checkout's 9216^2 AVIF bands of its avif phase (`--format
+avif`: unfiltered, filtered, "LA", grain, 12-bit "LA", superres).
 Each decode is io.jpeg2000.read (io.avif.read(...).load()) of the file's
 bytes, timed on the host clock, the median of R (default 3) after one
 untimed decode; a file that checkout refuses is reported as refused. The
@@ -56,7 +56,8 @@ def files(fmt: str) -> dict:
             ("filtered band", cs.AVIF_FILTERED_BAND),
             ("LA band", cs.AVIF_LA_BAND),
             ("grain band", cs.AVIF_GRAIN_BAND),
-            ("12-bit LA band", cs.AVIF_DEPTH_BAND))}
+            ("12-bit LA band", cs.AVIF_DEPTH_BAND),
+            ("superres band", cs.AVIF_SUPERRES_BAND))}
     out = {}
     for name, fname, tiles, bands, bits, enumcs in (
             ("u16 band 84.9 MP", cs.J2K_BAND, cs.J2K_BAND_TILES, 1, 16, 17),

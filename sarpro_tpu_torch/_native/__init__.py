@@ -231,6 +231,9 @@ def raster_decoder() -> ctypes.CDLL:
                     ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(i64),
                     i32p, i32p, i32, i32, i32, i32, i32, u8p, i64,
                     ctypes.c_char_p, i64]
+                lib.av1_frame_info.restype = i64
+                lib.av1_frame_info.argtypes = [u8p, i64, i32p,
+                                               ctypes.c_char_p, i64]
                 lib.av1_scale_plane.restype = None
                 lib.av1_scale_plane.argtypes = [u16p, i32, i32, u16p, i32,
                                                 i32, i32]
@@ -368,6 +371,32 @@ def av1_decode_grid(color: tuple, alpha: Optional[tuple], matrix: int,
                            _u8p(out), out.strides[0], err, len(err)) != 0:
         raise ValueError(err.value.decode("latin-1"))
     return out
+
+
+AV1_FRAME_INFO = ("width", "coded_width", "height", "superres_denominator",
+                  "tile_cols", "tile_rows", "lr_type", "lr_size",
+                  "lr_units", "cdef", "deblocking", "grain", "clip_bit",
+                  "mono", "sb128")
+
+
+def av1_frame_info(obus: bytes) -> dict:
+    """What av1dec.cpp's own parse makes of the frame in `obus` (its
+    tiles decoded, no filter run): AV1_FRAME_INFO's keys, `lr_type` and
+    `lr_size` each plane's restoration type (0 none, 1 Wiener, 2
+    self-guided, 3 switchable) and unit size, `lr_units` the units of all
+    planes that take none, Wiener and self-guided, `superres_denominator`
+    8 where superres is off, `clip_bit` the bit offset of the film grain's
+    clip_to_restricted_range in `obus` (-1: none); ValueError with the
+    decoder's reason."""
+    lib = raster_decoder()
+    src = np.frombuffer(obus, np.uint8)
+    out = (ctypes.c_int32 * 21)()
+    err = ctypes.create_string_buffer(512)
+    if lib.av1_frame_info(_u8p(src), len(obus), out, err, len(err)) != 0:
+        raise ValueError(err.value.decode("latin-1"))
+    v = list(out)
+    return dict(zip(AV1_FRAME_INFO, v[:6] + [tuple(v[6:9]), tuple(v[9:12]),
+                                             tuple(v[12:15])] + v[15:]))
 
 
 def av1_scale_plane(plane: np.ndarray, width: int, height: int,

@@ -5,8 +5,8 @@ lookups, the directional-prediction derivatives, the smooth weights, the
 filter-intra taps, the intra edge kernels, the transforms' cos / sin
 constants, and the in-loop filters' tables (the restoration CDFs, CDEF's
 directions, taps and divisors, the self-guided filter's parameters and the
-Wiener filter's reference taps), aom's quantizer matrices and dav1d's film
-grain Gaussian sequence.
+Wiener filter's reference taps), aom's quantizer matrices, dav1d's film
+grain Gaussian sequence and its superres upscaling filter.
 
 Nothing here is typed by hand. Each table is found in the read-only data of
 the libavif shared library that Pillow's wheels ship (`pillow.libs/libavif-
@@ -228,6 +228,11 @@ CONSTS = (
     Const("GAUSSIAN_SEQUENCE", "int16_t", "<i2", 2048,
           (56, 568, -180, 172, 124, -84, 172, -64, -900, 24, 820, 224,
            1248)),
+    # superres's Upscale_Filter [phase][tap] as dav1d keeps it (its
+    # resize filter: the spec's taps negated)
+    Const("RESIZE_FILTER", "int8_t", "i1", 64 * 8,
+          (0, 0, 0, -128, 0, 0, 0, 0, 0, 0, 1, -128, -2, 1, 0, 0),
+          per_line=8),
 )
 
 

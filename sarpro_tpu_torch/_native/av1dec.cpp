@@ -19,20 +19,26 @@
 // quantizer matrices (§7.12.3) and intra block copy (the DV stack of
 // find_mv_stack, the MV CDFs, transform trees and inter transform types
 // of an intrabc block, its bilinear prediction from the frame decoded so
-// far) are read. The in-loop filters run once the last tile is decoded:
-// deblocking (§7.14), CDEF (§7.15) and loop restoration (§7.17, Wiener and
-// self-guided units); then film grain synthesis (§7.18.3). A frame whose
-// superres is on is refused by name, and so is a 4:2:2 block that the spec
-// gives no chroma size. Each tile ends with the spec's trailing bits (exit
-// process, §8.2.4); tile data that does not is refused by name, as
-// non-conformant data that dav1d decodes to an output the spec does not
+// far) are read, and so are frames coded with superres (§5.9.8: the frame
+// decodes at 8 / SuperresDenom of its width, never under 16 samples, as
+// dav1d computes it). The in-loop filters run once the last tile is
+// decoded: deblocking (§7.14), CDEF (§7.15), under superres the upscaling
+// of whole rows to the frame's width (§7.16, dav1d's resize_c), and loop
+// restoration (§7.17, Wiener and self-guided units) at that width; then
+// film grain synthesis (§7.18.3). A 4:2:2 block that the spec gives no
+// chroma size is refused by name. Each tile ends with the spec's trailing
+// bits (exit process, §8.2.4); tile data that does not is refused by name,
+// as non-conformant data that dav1d decodes to an output the spec does not
 // define (aom 3.12.1 writes such a frame for 4:0:0 with a grain model it
-// estimates: chroma grain fields a monochrome header does not have).
+// estimates: chroma grain fields a monochrome header does not have; and
+// libaom writes allow_intrabc where superres leaves a frame as wide, which
+// dav1d does not read).
 //
 // The tables (default CDFs, quantizer lookups and matrices, intra
 // derivatives, smooth weights, filter-intra taps, edge kernels, cos / sin
 // constants, the in-loop filters' CDFs, directions, taps and parameters,
-// the film grain's Gaussian sequence, intrabc's MV and transform CDFs) are
+// the film grain's Gaussian sequence, intrabc's MV and transform CDFs,
+// superres's upscaling filter) are
 // in av1_tables.h, generated by av1_tables.py from libavif's read-only data.
 //
 // An image is one tile (an item, or a track's first sample) or a grid
@@ -60,6 +66,9 @@
 //   av1_scale_plane, av1_convert_planes: the scaler and the conversion
 //              alone, on planes the caller gives (the tests hold them to
 //              Pillow's libavif).
+//   av1_frame_info: what the parse makes of a frame (its size, superres,
+//              tiles, restoration, grain), its tiles decoded and no
+//              filter run.
 #include <algorithm>
 #include <atomic>
 #include <condition_variable>
@@ -735,6 +744,18 @@ struct Tx1D {
 const int kVertKind[16] = {0, 1, 0, 1, 2, 0, 2, 1, 2, 3, 0, 3, 1, 3, 2, 3};
 const int kHorzKind[16] = {0, 0, 1, 1, 0, 2, 2, 2, 1, 3, 3, 0, 3, 1, 3, 2};
 
+// f(r0, r1) over the rows [0, n), in bands of at least 64 rows on up to
+// `threads` threads
+template <typename F>
+void in_bands(int n, int threads, F f) {
+  const int k = std::max(1, std::min(threads, n / 64));
+  std::vector<std::thread> pool;
+  for (int i = 1; i < k; i++)
+    pool.emplace_back(f, (int)((int64_t)n * i / k), (int)((int64_t)n * (i + 1) / k));
+  f(0, n / k);
+  for (std::thread& t : pool) t.join();
+}
+
 // ---------------------------------------------------------------------------
 // the decoder
 // ---------------------------------------------------------------------------
@@ -768,7 +789,11 @@ struct Decoder {
 
   // frame header
   bool frame_done = false, have_frame_header = false;
+  // frame_w: the coded width while the frame decodes, the upscaled width
+  // once loop_filters() has upscaled it (superres: coded_w and
+  // UpscaledWidth, and SuperresDenom over 8; 8 where superres is off)
   int frame_w = 0, frame_h = 0, mi_cols = 0, mi_rows = 0;
+  int coded_w = 0, upscaled_w = 0, superres_denom = 8;
   int show_frame = 1, disable_cdf_update = 0, allow_screen_content_tools = 0;
   int allow_intrabc = 0;
   int tile_cols = 1, tile_rows = 1, tile_cols_log2 = 0, tile_rows_log2 = 0;
@@ -798,6 +823,7 @@ struct Decoder {
     int ar[3][25] = {{0}}, mult[3] = {0}, luma_mult[3] = {0}, offset[3] = {0};
   } fg;
   int next_tile = 0;  // tiles decoded so far
+  int threads = 1;  // for the upscaling, which runs row by row
 
   Cdfs frame_cdfs, cdf;
   SymbolDecoder sd;
@@ -861,7 +887,10 @@ struct Decoder {
   int num_planes() const { return mono ? 1 : 3; }
 
   // ---------------------------------------------------------------- OBUs
+  const uint8_t* data_start = nullptr;  // the data decode() was given
+  int64_t clip_bit = -1;  // clip_to_restricted_range's bit in it (-1: none)
   void decode(const uint8_t* data, size_t size) {
+    data_start = data;
     size_t pos = 0;
     while (pos < size) {
       Bits h(data + pos, size - pos);
@@ -1150,12 +1179,26 @@ struct Decoder {
     // dav1d's frame_size_limit, which libavif sets to its image size
     // limit, refuses a larger frame before any plane is allocated for it
     if ((int64_t)frame_w * frame_h > kImageSizeLimit) throw Invalid("frame past the size limit");
-    if (enable_superres && b.bit()) throw NotYet("superres");
+    // superres_params: the frame is coded at 8 / SuperresDenom of its
+    // width, but (as dav1d computes it) never narrower than 16 or than
+    // the frame
+    upscaled_w = frame_w;
+    superres_denom = 8;
+    const int use_superres = enable_superres ? (int)b.bit() : 0;
+    if (use_superres) {
+      superres_denom = (int)b.f(3) + 9;
+      frame_w = imax((upscaled_w * 8 + superres_denom / 2) / superres_denom, imin(16, upscaled_w));
+    }
+    coded_w = frame_w;
     mi_cols = 2 * ((frame_w + 7) >> 3);
     mi_rows = 2 * ((frame_h + 7) >> 3);
     if (b.bit()) b.f(32);  // render size
+    // allow_intrabc where superres is off, as dav1d reads it (the spec,
+    // and libaom, where superres leaves the width as it is: dav1d then
+    // reads the rest from the wrong bit, and so does the port, whose tile
+    // data no longer ends in its trailing bits)
     allow_intrabc = 0;
-    if (allow_screen_content_tools) allow_intrabc = (int)b.bit();
+    if (allow_screen_content_tools && !use_superres) allow_intrabc = (int)b.bit();
     // disable_frame_end_update_cdf
     if (!reduced && !disable_cdf_update) b.bit();
     tile_info(b);
@@ -1259,11 +1302,12 @@ struct Decoder {
           if (cdef_strengths[i][p][1] == 3) cdef_strengths[i][p][1] = 4;
         }
     }
-    // lr_params
+    // lr_params (a lossless frame is restored where superres is on: the
+    // spec's AllLossless, keyed as dav1d keys allow_intrabc)
     memset(lr_type, 0, sizeof lr_type);
     memset(lr_size, 0, sizeof lr_size);
     uses_lr = 0;
-    if (!coded_lossless && !allow_intrabc && enable_restoration) {
+    if ((!coded_lossless || use_superres) && !allow_intrabc && enable_restoration) {
       int chroma_lr = 0;
       for (int i = 0; i < (mono ? 1 : 3); i++) {
         lr_type[i] = kRemapLrType[b.f(2)];
@@ -1333,6 +1377,7 @@ struct Decoder {
         fg.offset[p] = (int)b.f(9) - 256;
       }
     fg.overlap = (int)b.bit();
+    clip_bit = (int64_t)(b.p - data_start) * 8 + (int64_t)b.pos;
     fg.clip = (int)b.bit();
   }
 
@@ -1434,10 +1479,10 @@ struct Decoder {
       lr_rows[p] = lr_cols[p] = 0;
       lr_units[p].clear();
       if (lr_type[p] != RESTORE_NONE) {
-        // count_units_in_frame over the plane's true size
+        // count_units_in_frame over the plane's true (upscaled) size
         auto units = [&](int size) { return imax((size + (lr_size[p] >> 1)) / lr_size[p], 1); };
         lr_rows[p] = units((frame_h + sy) >> sy);
-        lr_cols[p] = units((frame_w + sx) >> sx);
+        lr_cols[p] = units((upscaled_w + sx) >> sx);
         lr_units[p].assign((size_t)lr_rows[p] * lr_cols[p], LrUnit());
       }
     }
@@ -2200,8 +2245,10 @@ struct Decoder {
       int sx = p ? ssx : 0, sy = p ? ssy : 0, unit = lr_size[p];
       int row0 = (r * (4 >> sy) + unit - 1) / unit;
       int row1 = imin(lr_rows[p], ((r + h4) * (4 >> sy) + unit - 1) / unit);
-      int col0 = (c * (4 >> sx) + unit - 1) / unit;
-      int col1 = imin(lr_cols[p], ((c + w4) * (4 >> sx) + unit - 1) / unit);
+      // the units' columns are the upscaled frame's
+      int num = (4 >> sx) * superres_denom, den = unit * 8;
+      int col0 = (c * num + den - 1) / den;
+      int col1 = imin(lr_cols[p], ((c + w4) * num + den - 1) / den);
       for (int ur = row0; ur < row1; ur++)
         for (int uc = col0; uc < col1; uc++) read_lr_unit(p, lr_units[p][(size_t)ur * lr_cols[p] + uc]);
     }
@@ -3104,12 +3151,79 @@ struct Decoder {
   void loop_filters() {
     if (lf_level[0] || lf_level[1]) deblock();
     bool cdef_on = enable_cdef && !coded_lossless && !allow_intrabc;
-    if (!cdef_on && !uses_lr) return;
-    for (int p = 0; p < num_planes(); p++) pre[p] = planes[p];
+    if (cdef_on || uses_lr)
+      for (int p = 0; p < num_planes(); p++) pre[p] = planes[p];
     if (cdef_on) cdef();
+    if (upscaled_w != coded_w) upscale();
     if (uses_lr)
       for (int p = 0; p < 3; p++)
         if (lr_type[p] != RESTORE_NONE) restore_plane(p);
+  }
+
+  // ------------------------------------------------------------ superres
+  // the upscaling process (spec §7.16, dav1d's resize_c) of whole rows:
+  // each output column's 8 taps of Upscale_Filter (dav1d's resize filter,
+  // negated) at its 1/64 position, over the decoded columns clamped to
+  // [0, MiCols * 4 >> subX), rounded by 7 bits and clipped. The step and
+  // the first position are in 1/16384 samples (SUPERRES_SCALE_BITS 14;
+  // the filter's phase drops SUPERRES_EXTRA_BITS 8 of them)
+  struct Upscale {
+    std::vector<int> first;  // each output column's leftmost source column
+    std::vector<const int8_t*> taps;
+    int src_w = 0;
+  };
+  Upscale upscale_of(int p) const {
+    const int sx = p ? ssx : 0;
+    const int down = (coded_w + sx) >> sx, up = (upscaled_w + sx) >> sx;
+    const int step = ((down << 14) + (up >> 1)) / up;
+    const int err = up * step - (down << 14);
+    int x0 = (-((up - down) << 13) + (up >> 1)) / up + 128 - err / 2;
+    x0 &= 0x3FFF;
+    Upscale u;
+    u.src_w = (mi_cols * 4) >> sx;
+    u.first.resize(up);
+    u.taps.resize(up);
+    for (int x = 0; x < up; x++) {
+      int pos = -(1 << 14) + x0 + x * step;
+      u.first[x] = (pos >> 14) - 3;
+      u.taps[x] = AV1_RESIZE_FILTER + 8 * ((pos & 0x3FFF) >> 8);
+    }
+    return u;
+  }
+  void upscale_row(const Upscale& u, const pixel* src, pixel* dst) const {
+    const int up = (int)u.first.size(), last = u.src_w - 1, mx = pixel_max();
+    for (int x = 0; x < up; x++) {
+      const int8_t* f = u.taps[x];
+      const int s0 = u.first[x];
+      int sum = 0;
+      if (s0 >= 0 && s0 + 7 <= last) {
+        const pixel* s = src + s0;
+        for (int k = 0; k < 8; k++) sum -= f[k] * s[k];
+      } else {
+        for (int k = 0; k < 8; k++) sum -= f[k] * src[clip3(0, last, s0 + k)];
+      }
+      dst[x] = (pixel)clip3(0, mx, (sum + 64) >> 7);
+    }
+  }
+  // the planes, the output of CDEF (or of deblocking), at the upscaled
+  // width; loop restoration upscales the rows of `pre` it reads. (Its own
+  // member: with this loop inside loop_filters(), g++ compiled deblocking
+  // and CDEF 1.3 x slower for frames without superres, decode_ab.py)
+  void upscale() {
+    for (int p = 0; p < num_planes(); p++) upscale_plane(p);
+    frame_w = upscaled_w;
+  }
+  void upscale_plane(int p) {
+    const Upscale u = upscale_of(p);
+    Plane& src = planes[p];
+    Plane dst;
+    dst.w = dst.stride = (int)u.first.size();
+    dst.h = src.h;
+    dst.px.assign((size_t)dst.stride * dst.h, 0);
+    in_bands(src.h, threads, [&](int y0, int y1) {
+      for (int y = y0; y < y1; y++) upscale_row(u, src.at(y, 0), dst.at(y, 0));
+    });
+    src = std::move(dst);
   }
 
   // ----------------------------------------------------------- film grain
@@ -3568,6 +3682,9 @@ struct Decoder {
     int pw = (frame_w + sx) >> sx, ph = (frame_h + sy) >> sy;
     int unit = lr_size[p], bw = pw + 2 * kLrMargin;
     std::vector<pixel> buf((size_t)bw * ((64 >> sy) + 6));
+    // under superres, the deblocked rows are upscaled as they are read
+    const bool narrow = upscaled_w != coded_w;
+    const Upscale u = narrow ? upscale_of(p) : Upscale();
     for (int k = 0; k * 64 - 8 < frame_h; k++) {
       int start = (k * 64 - 8) >> sy, end = start + (64 >> sy) - 1;  // StripeStartY / EndY
       int y0 = imax(0, start), y1 = imin(ph, end + 1);
@@ -3583,10 +3700,11 @@ struct Decoder {
         }
         const pixel* s = src->px.data() + (size_t)y * src->stride;
         pixel* row = &buf[(size_t)(yy - y0 + 3) * bw + kLrMargin];
-        memcpy(row, s, pw * sizeof(pixel));
+        if (narrow && src == &pre[p]) upscale_row(u, s, row);
+        else memcpy(row, s, pw * sizeof(pixel));
         for (int x = 1; x <= kLrMargin; x++) {
-          row[-x] = s[0];
-          row[pw - 1 + x] = s[pw - 1];
+          row[-x] = row[0];
+          row[pw - 1 + x] = row[pw - 1];
         }
       }
       int unit_row = imin(lr_rows[p] - 1, ((imax(0, k * 64 - 8) + 8) >> sy) / unit);
@@ -4321,18 +4439,6 @@ void own_coefficients(int matrix, int primaries, float k[3]) {
 
 inline float clamp01(float v) { return v < 0.0f ? 0.0f : 1.0f < v ? 1.0f : v; }
 
-// f(r0, r1) over the rows [0, n), in bands of at least 64 rows on up to
-// `threads` threads
-template <typename F>
-void in_bands(int n, int threads, F f) {
-  const int k = std::max(1, std::min(threads, n / 64));
-  std::vector<std::thread> pool;
-  for (int i = 1; i < k; i++)
-    pool.emplace_back(f, (int)((int64_t)n * i / k), (int)((int64_t)n * (i + 1) / k));
-  f(0, n / k);
-  for (std::thread& t : pool) t.join();
-}
-
 // libavif's own conversion (reformat.c), for the matrices libyuv lacks:
 // YCgCo (8), YCgCo-Re (16), else the (kr, kb) of own_coefficients. The
 // samples at their depth as unorm floats (luma less its bias over its
@@ -4745,6 +4851,7 @@ void decode_images(const Coded& c, const Coded& a, int matrix, int primaries, in
       Decoder& image = alpha ? ga : g;
       try {
         Decoder t;
+        t.threads = std::max(1, threads / std::min(threads, n));
         if (seed[i]) t.start_from(seed[i], seed_size[i]);
         t.decode(k.data[j], (size_t)k.sizes[j]);
         t.loop_filters();
@@ -4829,6 +4936,42 @@ extern "C" int64_t av1_decode_grid(const uint8_t* const* tiles, const int64_t* s
     Coded a{tiles + c.count(), sizes + c.count(), alpha[0], alpha[1], alpha[2], alpha[3],
             alpha[4], alpha[5], alpha[6]};
     decode_images(c, a, matrix, primaries, full_range, premultiplied, out, stride, threads);
+    return 0;
+  } catch (const std::exception& e) {
+    snprintf(err, (size_t)errlen, "%s", e.what());
+    return -1;
+  }
+}
+
+// what the decoder's own parse makes of a frame (its tiles decoded, no
+// filter run), into out[21]: the upscaled and coded widths, the height,
+// SuperresDenom (8: superres off), the tile columns and rows, each plane's
+// FrameRestorationType (0 none, 1 Wiener, 2 self-guided, 3 switchable)
+// and LoopRestorationSize, the restoration units of the three planes that
+// take none, Wiener and self-guided, whether CDEF and deblocking run,
+// apply_grain, the bit offset of clip_to_restricted_range in the data (-1:
+// none), mono_chrome and use_128x128_superblock
+extern "C" int64_t av1_frame_info(const uint8_t* data, int64_t size, int32_t* out, char* err,
+                                  int64_t errlen) {
+  try {
+    Decoder d;
+    d.decode(data, (size_t)size);
+    const int v[6] = {d.upscaled_w, d.coded_w, d.frame_h, d.superres_denom,
+                       d.tile_cols, d.tile_rows};
+    for (int i = 0; i < 6; i++) out[i] = v[i];
+    for (int p = 0; p < 3; p++) {
+      out[6 + p] = d.lr_type[p];
+      out[9 + p] = d.lr_size[p];
+    }
+    for (int k = 0; k < 3; k++) out[12 + k] = 0;
+    for (int p = 0; p < 3; p++)
+      for (const Decoder::LrUnit& u : d.lr_units[p]) out[12 + u.type]++;
+    out[15] = d.enable_cdef && !d.coded_lossless && !d.allow_intrabc;
+    out[16] = d.lf_level[0] || d.lf_level[1];
+    out[17] = d.fg.apply;
+    out[18] = (int32_t)d.clip_bit;
+    out[19] = d.mono;
+    out[20] = d.use_128;
     return 0;
   } catch (const std::exception& e) {
     snprintf(err, (size_t)errlen, "%s", e.what());

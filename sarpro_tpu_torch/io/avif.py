@@ -74,7 +74,8 @@ its first bytes, a smaller one is a truncated file. An alpha image of
 another size than the colour image fails the load, as in libavif. `irot`,
 `imir` and `clap` change no pixels (Pillow turns the first two into an EXIF
 orientation). Pillow's `info` holds ICC, EXIF and XMP as bytes, so the text
-is empty. Still refused by name: superres, a hidden key frame or
+is empty. Frames coded with superres are upscaled to their width after
+CDEF, and restored there. Still refused by name: a hidden key frame or
 `show_existing_frame` in the first sample, a 4:2:2 block the spec gives no
 chroma size, and tile data that does not end in the spec's trailing bits.
 

@@ -20,6 +20,13 @@ and avifImageYUVToRGB are what Pillow's decode runs after dav1d, so the
 tests can hold the port's scaler and conversion to them on planes set by
 hand (`oracle_scale`, `oracle_rgb`); its `avifImage` and `avifRGBImage`
 offsets are held to what that library reports in `_check_oracle_layout`.
+
+`encode_av1` codes frames with AV1 superres, which no encoder here writes
+through libavif: it drives Debian's libaom 3.6.0 (`libaom.so.3`) through its
+own API by ctypes, the words of `aom_codec_enc_cfg_t` it sets (CFG) and the
+offsets of `aom_image_t` held to libaom's defaults in `_check_aom_layout`.
+`splice_av1` puts such frames into a file libavif wrote for the same
+planes, moving its `iloc`, `stco` and `stsz` entries to match.
 """
 import ctypes
 import glob
@@ -442,3 +449,334 @@ def oracle_rgb(planes: tuple, depth: int, layout: str, full: bool,
         return lib.avifImageYUVToRGB(im, ctypes.addressof(rgb)), out
     finally:
         lib.avifImageDestroy(im)
+
+
+# ---------------------------------------------------------------------------
+# AV1 superres through libaom 3.6.0's own API
+# ---------------------------------------------------------------------------
+AOM_LIBRARY = "libaom.so.3"
+# AOM_ENCODER_ABI_VERSION of libaom 3.6.0, and aom_codec_enc_init_ver's flag
+# for samples of more than 8 bits
+AOM_ABI_VERSION = 25
+AOM_CODEC_USE_HIGHBITDEPTH = 0x40000
+# aom_img_fmt_t: planar I420, I422, I444; the flag of 16-bit samples
+AOM_FORMATS = {"4:2:0": 0x102, "4:2:2": 0x105, "4:4:4": 0x106,
+               "4:0:0": 0x102}
+AOM_IMG_FMT_HIGHBITDEPTH = 0x800
+# the uint32 words of aom_codec_enc_cfg_t (aom_encoder.h) this module sets
+CFG = {"g_usage": 0, "g_threads": 1, "g_profile": 2, "g_w": 3, "g_h": 4,
+       "g_limit": 5, "g_bit_depth": 8, "g_input_bit_depth": 9,
+       "g_timebase": 10, "g_lag_in_frames": 14, "rc_superres_mode": 19,
+       "rc_superres_denominator": 20, "rc_superres_kf_denominator": 21,
+       "rc_end_usage": 24, "rc_min_quantizer": 35, "rc_max_quantizer": 36,
+       "kf_max_dist": 48, "monochrome": 52}
+# aom_superres_mode AOM_SUPERRES_FIXED, aom_rc_mode AOM_Q, usages
+AOM_SUPERRES_FIXED = 1
+AOM_Q = 3
+USAGES = {"good": 0, "allintra": 2}
+_aom = None
+
+
+def aom_available() -> bool:
+    """Whether libaom 3.6.0's library can be loaded here."""
+    try:
+        _aom_library()
+    except OSError:
+        return False
+    return True
+
+
+def _aom_library():
+    global _aom
+    if _aom is None:
+        lib = ctypes.CDLL(AOM_LIBRARY)
+        vp, u32, err = ctypes.c_void_p, ctypes.c_uint32, ctypes.c_int
+        lib.aom_codec_version_str.restype = ctypes.c_char_p
+        lib.aom_codec_version_str.argtypes = []
+        lib.aom_codec_av1_cx.restype = vp
+        lib.aom_codec_av1_cx.argtypes = []
+        lib.aom_codec_enc_config_default.restype = err
+        lib.aom_codec_enc_config_default.argtypes = [vp, vp, u32]
+        lib.aom_codec_enc_init_ver.restype = err
+        lib.aom_codec_enc_init_ver.argtypes = [vp, vp, vp, ctypes.c_long,
+                                               ctypes.c_int]
+        lib.aom_codec_set_option.restype = err
+        lib.aom_codec_set_option.argtypes = [vp, ctypes.c_char_p,
+                                             ctypes.c_char_p]
+        lib.aom_codec_error_detail.restype = ctypes.c_char_p
+        lib.aom_codec_error_detail.argtypes = [vp]
+        lib.aom_img_alloc.restype = vp
+        lib.aom_img_alloc.argtypes = [vp, ctypes.c_int, u32, u32, u32]
+        lib.aom_img_free.restype = None
+        lib.aom_img_free.argtypes = [vp]
+        lib.aom_codec_encode.restype = err
+        lib.aom_codec_encode.argtypes = [vp, vp, ctypes.c_int64,
+                                         ctypes.c_ulong, ctypes.c_long]
+        lib.aom_codec_get_cx_data.restype = vp
+        lib.aom_codec_get_cx_data.argtypes = [vp, vp]
+        lib.aom_codec_destroy.restype = err
+        lib.aom_codec_destroy.argtypes = [vp]
+        _check_aom_layout(lib)
+        _aom = lib
+    return _aom
+
+
+def _check_aom_layout(lib) -> None:
+    """The words of aom_codec_enc_cfg_t and the offsets of aom_image_t this
+    module writes, against libaom's own defaults (the good and all-intra
+    configurations, a 3 x 2 image of each format)."""
+    assert lib.aom_codec_version_str() == b"v3.6.0"
+    iface = lib.aom_codec_av1_cx()
+    for usage, lag, end_usage in ((0, 35, 0), (2, 0, AOM_Q)):
+        cfg = (ctypes.c_uint32 * 1024)()
+        assert lib.aom_codec_enc_config_default(iface, cfg, usage) == 0
+        want = {"g_usage": usage, "g_w": 320, "g_h": 240, "g_bit_depth": 8,
+                "g_input_bit_depth": 8, "g_lag_in_frames": lag,
+                "rc_superres_mode": 0, "rc_superres_denominator": 8,
+                "rc_superres_kf_denominator": 8, "rc_end_usage": end_usage,
+                "rc_min_quantizer": 0, "rc_max_quantizer": 63,
+                "monochrome": 0}
+        assert {k: cfg[CFG[k]] for k in want} == want, list(cfg[:60])
+        assert list(cfg[CFG["g_timebase"]:CFG["g_timebase"] + 2]) == [1, 30]
+        # the resize mode and denominators, the superres thresholds
+        assert list(cfg[16:24]) == [0, 8, 8, 0, 8, 8, 63, 32]
+    for layout, fmt in AOM_FORMATS.items():
+        for high in (0, AOM_IMG_FMT_HIGHBITDEPTH):
+            im = lib.aom_img_alloc(None, fmt | high, 3, 2, 32)
+            try:
+                words = (ctypes.c_uint32 * 16).from_address(im)
+                assert words[0] == fmt | high
+                shift = (1, 1) if fmt == 0x102 else (1, 0) \
+                    if fmt == 0x105 else (0, 0)
+                # w, h (aligned), bit depth, d_w, d_h, chroma shifts
+                assert (words[9], words[10], words[11]) == (
+                    16 if high else 8, 3, 2)
+                assert (words[14], words[15]) == shift
+                strides = (ctypes.c_int32 * 3).from_address(im + 88)
+                assert strides[0] >= 3 * (2 if high else 1)
+                assert all(ctypes.c_void_p.from_address(im + 64 + 8 * i).value
+                           for i in range(3))
+            finally:
+                lib.aom_img_free(im)
+
+
+def _aom_fail(lib, ctx, what: str):
+    detail = lib.aom_codec_error_detail(ctx)
+    raise RuntimeError(f"libaom: {what} failed"
+                       + (f": {detail.decode()}" if detail else ""))
+
+
+def encode_av1(frames: list, *, depth: int = 8, layout: str = "4:2:0",
+               superres: int = 16, usage: str = "good", speed: int = 6,
+               quantizer: int = 30, options: dict = None,
+               threads: int = 1) -> list:
+    """The AV1 data (temporal delimiter, sequence header, frame) of each of
+    `frames` as libaom 3.6.0 codes them: each frame a (y, u, v) of integer
+    planes at `depth` bits (u and v None for 4:0:0), coded with superres
+    fixed at `superres` / 8 (key and other frames; 8: off) at `quantizer`
+    (aom's Q mode, 0-63), `usage` "good" or "allintra", `options` aom's
+    named options (aom_codec_set_option). One frame is a still picture
+    (aom's reduced still picture header), more a sequence."""
+    lib = _aom_library()
+    iface = lib.aom_codec_av1_cx()
+    rows, cols = frames[0][0].shape
+    cfg = (ctypes.c_uint32 * 1024)()
+    if lib.aom_codec_enc_config_default(iface, cfg, USAGES[usage]):
+        raise RuntimeError("libaom: no default configuration")
+    mono = layout == "4:0:0"
+    profile = 2 if layout == "4:2:2" or depth == 12 else \
+        1 if layout == "4:4:4" else 0
+    for key, val in (("g_threads", threads), ("g_profile", profile),
+                     ("g_w", cols), ("g_h", rows), ("g_limit", len(frames)),
+                     ("g_bit_depth", depth), ("g_input_bit_depth", depth),
+                     ("g_lag_in_frames", 0), ("rc_end_usage", AOM_Q),
+                     ("rc_min_quantizer", quantizer),
+                     ("rc_max_quantizer", quantizer), ("monochrome", mono),
+                     ("rc_superres_mode",
+                      AOM_SUPERRES_FIXED if superres != 8 else 0),
+                     ("rc_superres_denominator", superres),
+                     ("rc_superres_kf_denominator", superres)):
+        cfg[CFG[key]] = val
+    ctx = (ctypes.c_uint8 * 256)()
+    if lib.aom_codec_enc_init_ver(
+            ctx, iface, cfg, AOM_CODEC_USE_HIGHBITDEPTH if depth > 8 else 0,
+            AOM_ABI_VERSION):
+        _aom_fail(lib, ctx, "aom_codec_enc_init_ver")
+    out = []
+    try:
+        for key, val in {"cpu-used": speed, "cq-level": quantizer,
+                         **(options or {})}.items():
+            if lib.aom_codec_set_option(ctx, key.encode(), str(val).encode()):
+                _aom_fail(lib, ctx, f"option {key} {val}")
+        fmt = AOM_FORMATS[layout] | (AOM_IMG_FMT_HIGHBITDEPTH
+                                     if depth > 8 else 0)
+        for pts, planes in enumerate(frames + [None]):
+            im = None
+            if planes is not None:
+                im = lib.aom_img_alloc(None, fmt, cols, rows, 32)
+                ctypes.c_int32.from_address(im + 16).value = int(mono)
+                y, u, v = planes
+                if mono:  # the chroma planes at the middle value
+                    half = np.full(((rows + 1) // 2, (cols + 1) // 2),
+                                   1 << (depth - 1))
+                    u = v = half
+                for i, plane in enumerate((y, u, v)):
+                    assert plane.min() >= 0 and plane.max() < 1 << depth
+                    _fill(ctypes.c_void_p.from_address(im + 64 + 8 * i).value,
+                          ctypes.c_int32.from_address(im + 88 + 4 * i).value,
+                          plane, 16 if depth > 8 else 8)
+            try:
+                if lib.aom_codec_encode(ctx, im, pts, 1, 0):
+                    _aom_fail(lib, ctx, "aom_codec_encode")
+            finally:
+                if im is not None:
+                    lib.aom_img_free(im)
+            it = ctypes.c_void_p(0)
+            while True:
+                pkt = lib.aom_codec_get_cx_data(ctx, ctypes.byref(it))
+                if not pkt:
+                    break
+                if ctypes.c_int32.from_address(pkt).value == 0:  # a frame
+                    buf = ctypes.c_void_p.from_address(pkt + 8).value
+                    size = ctypes.c_size_t.from_address(pkt + 16).value
+                    out.append(ctypes.string_at(buf, size))
+    finally:
+        lib.aom_codec_destroy(ctx)
+    assert len(out) == len(frames), len(out)
+    return out
+
+
+def _children(blob: bytes, start: int, end: int):
+    """(type, payload start, end) of each box in blob[start:end]."""
+    pos = start
+    while pos + 8 <= end:
+        size, kind = struct.unpack(">I4s", blob[pos:pos + 8])
+        head = 8
+        if size == 1:
+            size, head = struct.unpack(">Q", blob[pos + 8:pos + 16])[0], 16
+        elif size == 0:
+            size = end - pos
+        yield kind, pos + head, pos + size
+        pos += size
+
+
+def _uint(blob: bytes, pos: int, size: int) -> int:
+    return int.from_bytes(blob[pos:pos + size], "big") if size else 0
+
+
+def _av1_fields(blob: bytes) -> list:
+    """[(offset, length, offset fields [(position, size, base)], length
+    fields [(position, size)])] of the AV1 data the file points at: each
+    extent of an `av01` item (iloc, construction method 0) and each sample
+    of a track (stco, stsc, stsz), an extent that an item and a sample
+    share listed once, in the order of the file."""
+    spans = {}
+
+    def add(offset, length, field, size_field=None):
+        spans.setdefault((offset, length), ([], []))
+        spans[(offset, length)][0].append(field)
+        if size_field is not None:
+            spans[(offset, length)][1].append(size_field)
+
+    top = {k: (a, z) for k, a, z in _children(blob, 0, len(blob))}
+    if b"meta" in top:
+        a, z = top[b"meta"]
+        meta = {k: (p, q) for k, p, q in _children(blob, a + 4, z)}
+        av01 = set()
+        p, q = meta[b"iinf"]
+        version = blob[p]
+        p += 4 + (2 if version == 0 else 4)
+        for k, ea, ez in _children(blob, p, q):
+            v = blob[ea]
+            idw = 2 if v < 3 else 4
+            item = _uint(blob, ea + 4, idw)
+            if blob[ea + 4 + idw + 2:ea + 4 + idw + 6] == b"av01":
+                av01.add(item)
+        p, _ = meta[b"iloc"]
+        version = blob[p]
+        osz, lsz = blob[p + 4] >> 4, blob[p + 4] & 15
+        bsz, isz = blob[p + 5] >> 4, blob[p + 5] & 15 if version else 0
+        idw = 4 if version == 2 else 2
+        count = _uint(blob, p + 6, idw)
+        p += 6 + idw
+        for _ in range(count):
+            item = _uint(blob, p, idw)
+            p += idw
+            method = _uint(blob, p, 2) & 15 if version else 0
+            p += (2 if version else 0) + 2
+            base = _uint(blob, p, bsz)
+            p += bsz
+            extents = _uint(blob, p, 2)
+            p += 2
+            for _ in range(extents):
+                p += isz
+                off, length = _uint(blob, p, osz), _uint(blob, p + osz, lsz)
+                if item in av01 and method == 0:
+                    add(base + off, length, (p, osz, base), (p + osz, lsz))
+                p += osz + lsz
+    if b"moov" in top:
+        a, z = top[b"moov"]
+        for kind, ta, tz in _children(blob, a, z):
+            if kind != b"trak":
+                continue
+            stbl = (ta, tz)
+            for path in (b"mdia", b"minf", b"stbl"):
+                stbl = next((p, q) for k, p, q in _children(blob, *stbl)
+                            if k == path)
+            tables = {k: (p, q) for k, p, q in _children(blob, *stbl)}
+            p = tables[b"stco"][0]
+            chunks = [(p + 8 + 4 * i, _uint(blob, p + 8 + 4 * i, 4))
+                      for i in range(_uint(blob, p + 4, 4))]
+            p = tables[b"stsz"][0]
+            assert _uint(blob, p + 4, 4) == 0  # one size a sample
+            sizes = [(p + 12 + 4 * i, _uint(blob, p + 12 + 4 * i, 4))
+                     for i in range(_uint(blob, p + 8, 4))]
+            p = tables[b"stsc"][0]
+            runs = [struct.unpack(">III", blob[p + 8 + 12 * i:p + 20 + 12 * i])
+                    for i in range(_uint(blob, p + 4, 4))]
+            sample = 0
+            for c, (field, offset) in enumerate(chunks):
+                per = [n for first, n, _ in runs if first <= c + 1][-1]
+                for k in range(per):
+                    pos, size = sizes[sample]
+                    sample += 1
+                    # a chunk's first sample moves its chunk offset
+                    add(offset, size, (field, 4, 0) if k == 0 else None,
+                        (pos, 4))
+                    offset += size
+    return [(o, n, [f for f in fields if f], lengths)
+            for (o, n), (fields, lengths) in sorted(spans.items())]
+
+
+def splice_av1(blob: bytes, payloads: list) -> bytes:
+    """`blob`, a file libavif wrote, with the AV1 data of its `av01` items
+    and track samples replaced by `payloads`, in the order of the file
+    (libavif 0.11.1 writes an alpha image's tiles before the colour
+    image's, each image's tiles in raster order, and a sequence's first
+    sample where its still item's data is): the `mdat` rebuilt, each
+    extent's offset and length in `iloc`, each chunk offset in `stco` and
+    each sample size in `stsz` moved to match."""
+    spans = _av1_fields(blob)
+    assert len(spans) == len(payloads), (len(spans), len(payloads))
+    kind, start, end = list(_children(blob, 0, len(blob)))[-1]
+    # the last box, with a 32-bit size
+    assert kind == b"mdat" and blob[start - 8:start - 4] == \
+        (end - start + 8).to_bytes(4, "big")
+    assert all(start <= o and o + n <= end for o, n, _, _ in spans)
+    out = bytearray(blob[:start])
+    pos = start
+    moved = []
+    for (o, n, fields, lengths), new in zip(spans, payloads):
+        assert o >= pos, "overlapping AV1 data"
+        out += blob[pos:o]
+        moved.append((len(out), len(new), fields, lengths))
+        out += new
+        pos = o + n
+    out += blob[pos:end]
+    for at, n, fields, lengths in moved:
+        for field, size, base in fields:
+            out[field:field + size] = (at - base).to_bytes(size, "big")
+        for field, size in lengths:
+            out[field:field + size] = n.to_bytes(size, "big")
+    out[start - 8:start - 4] = (len(out) - start + 8).to_bytes(4, "big")
+    return bytes(out)

@@ -80,10 +80,12 @@ NOT_YET = "not read by the port yet"
 TOOL_PREFIXES = ("qm_", "fg_", "prem_", "ibc_")
 # the fixtures of 10- and 12-bit samples (tests/test_torch_avif_depth.py)
 DEPTH_PREFIX = chip_smoke.AVIF_DEPTH_PREFIX
-# and the grid items and image sequences (tests/test_torch_avif_container.py)
-# and the scaled frames and 8-bit sweeps (tests/test_torch_avif_scale.py)
+# and the grid items and image sequences (tests/test_torch_avif_container.py),
+# the scaled frames and 8-bit sweeps (tests/test_torch_avif_scale.py) and the
+# frames coded with superres (tests/test_torch_avif_superres.py)
 OTHER_PREFIXES = TOOL_PREFIXES + (DEPTH_PREFIX,) + \
-    chip_smoke.AVIF_CONTAINER_PREFIXES + chip_smoke.AVIF_SCALE_PREFIXES
+    chip_smoke.AVIF_CONTAINER_PREFIXES + chip_smoke.AVIF_SCALE_PREFIXES + \
+    (chip_smoke.AVIF_SUPERRES_PREFIX,)
 CDEF = {"enable-cdef": "1"}
 LAYOUTS = ("4:4:4", "4:2:2", "4:0:0")
 
@@ -622,9 +624,10 @@ def _bit_flips(tmp_path, name: str, seed: int, head: int = 0) -> dict:
     the file bit-equal or both refuse it, or the port names what it does
     not read yet. The port's refusals by name come from the AV1 data (tile
     data that no longer ends in the spec's trailing bits, a header that now
-    asks for superres, film grain or another format), at most two a case
-    from the container (a flipped av1C depth or subsampling). Returns the
-    count of each outcome."""
+    asks for another kind of frame), at most two a case from the container
+    (a flipped av1C depth or subsampling); a header that now asks for
+    superres opens as the JAX reader opens it, or is refused by both.
+    Returns the count of each outcome."""
     blob = (AVIF_DIR / name).read_bytes()
     spans = _obu_spans(blob)
     lo, hi = spans[0]
