@@ -147,9 +147,14 @@ prints no result):
      plain resample, and saved as a CLAHE gray JPEG that reads back;
  14. jpeg2000: io/jpeg2000 on the five codestreams of tests/data/jpeg2000
      (written by Pillow, or by OpenJPEG's own encoder, from seeds; no Pillow
-     here), spliced tile-part by tile-part into an 84.9 MP (9216^2, 18 x 18
+     here) and the HTJ2K one of tests/data/jpeg2000_ht (tests/htj2k_encode.py),
+     spliced tile-part by tile-part into an 84.9 MP (9216^2, 18 x 18
      tiles of 512^2) lossless SAR-like u16 band in a JP2 with .j2w and
-     .prj, the same band coded with every code-block style (BYPASS, RESET,
+     .prj, the same band with HT code-blocks (J2K_HT: its tile's decode
+     has the SHA-256 of Pillow's, J2K_HT_SHA256, the seeded DN; two resample
+     launches in its decimated read, one of each CLAHE kernel in its save,
+     its decode ms beside the default band's), the same band coded with
+     every code-block style (BYPASS, RESET,
      TERMALL, VSC, PTERM, SEGSYM), a main-header POC of two progressions and,
      in every other tile, a tile-part COD and an RGN shift (J2K_STYLED),
      a 4096^2 RGB band (16 x 16 tiles of a 9/7, ICT, two-layer RPCL
@@ -479,6 +484,14 @@ J2K_SYCC_SHA256 = ("b4e46e95d316fc5d7e28f35666fe511e"
                    "160ae4ff2dbe92526b0fed3f5375b518")
 J2K_DEEP_SHA256 = ("d56a5ea7e7a674791780a94e7e2a1aa2"
                    "566362095144c35f9b5e9c87365818c2")
+# the HTJ2K band: the u16 tile coded losslessly with HT code-blocks (5/3,
+# 64^2 blocks, cleanup passes only) by tests/htj2k_encode.py, which
+# tests/test_torch_jpeg2000_ht.py re-runs; spliced like the default band
+# into 84.9 MP; the SHA-256 of Pillow's decode of the tile (the seeded DN)
+J2K_HT_DIR = ROOT / "tests" / "data" / "jpeg2000_ht"
+J2K_HT = "sar_u16_ht_512.j2k"
+J2K_HT_SHA256 = ("bda372a60e39af946dd7815d19df93eb"
+                 "4b979e709eaf984d8d8c7653abd38598")
 # the webp phase: Pillow-written files (tests/data/webp, made by
 # tests/test_torch_webp.py from WEBP_SEED on) and the SHA-256 of Pillow's
 # decode of each (np.asarray of the image), which the port's must match; an
@@ -4508,7 +4521,8 @@ def jp2_wrap(code: bytes, width: int, height: int, bands: int, bits: int,
 
 def phase_jpeg2000(work: Path, smi: str) -> dict:
     """io/jpeg2000 on the card's machine: the spliced 84.9 MP u16 JP2s (the
-    default coding and the styled one), the 4096^2 RGB codestream, the
+    default coding, the HTJ2K one and the styled one), the 4096^2 RGB
+    codestream, the
     4096^2 sYCC 4:2:0 JP2 and the 4096^2 JP2 of 20-bit amplitude opened
     through RasterReader (decode timed on the host clock, median of 3),
     held to their tiles, each band but the RGB one read decimated to
@@ -4547,6 +4561,18 @@ def phase_jpeg2000(work: Path, smi: str) -> dict:
     band_path.with_suffix(".j2w").write_text(
         "10.0\n0.0\n0.0\n-10.0\n500005.0\n5099995.0\n")
     write_prj_file(band_path, "EPSG:32632")
+    # the same band with HT code-blocks: the tile's own decode is lossless
+    ht_code = (J2K_HT_DIR / J2K_HT).read_bytes()
+    ht_tile = jpeg2000.read(ht_code).array
+    digest = hashlib.sha256(ht_tile.tobytes()).hexdigest()
+    if digest != J2K_HT_SHA256 or not np.array_equal(ht_tile, tile):
+        raise AssertionError(f"jpeg2000: the HT tile decodes to SHA-256 "
+                             f"{digest}, Pillow's is {J2K_HT_SHA256} (the "
+                             f"seeded DN)")
+    ht_path = d / "ht.jp2"
+    ht_path.write_bytes(jp2_wrap(
+        j2k_splice(ht_code, J2K_BAND_TILES, J2K_BAND_TILES), side, side, 1,
+        16, 17))
     styled_code = (J2K_DIR / J2K_STYLED).read_bytes()
     styled = jpeg2000.read(styled_code).array
     digest = hashlib.sha256(styled.tobytes()).hexdigest()
@@ -4559,9 +4585,10 @@ def phase_jpeg2000(work: Path, smi: str) -> dict:
     styled_path.write_bytes(jp2_wrap(
         j2k_splice(styled_code, J2K_BAND_TILES, J2K_BAND_TILES), side, side,
         1, 16, 17))
-    styled_path.with_suffix(".j2w").write_bytes(
-        band_path.with_suffix(".j2w").read_bytes())
-    write_prj_file(styled_path, "EPSG:32632")
+    for path in (styled_path, ht_path):
+        path.with_suffix(".j2w").write_bytes(
+            band_path.with_suffix(".j2w").read_bytes())
+        write_prj_file(path, "EPSG:32632")
     rgb_code = (J2K_DIR / J2K_RGB).read_bytes()
     rgb_tile = jpeg2000.read(rgb_code).array
     digest = hashlib.sha256(rgb_tile.tobytes()).hexdigest()
@@ -4596,6 +4623,7 @@ def phase_jpeg2000(work: Path, smi: str) -> dict:
     decode_ms, decode_mps = {}, {}
     for name, path in (("u16 band 84.9 MP", band_path),
                        ("u16 styled band 84.9 MP", styled_path),
+                       ("u16 HTJ2K band 84.9 MP", ht_path),
                        ("rgb 9/7 16.8 MP", rgb_path),
                        *((k, v[0]) for k, v in sub_tiles.items())):
         walls = []
@@ -4643,12 +4671,18 @@ def phase_jpeg2000(work: Path, smi: str) -> dict:
             f"median of 3; {', '.join(f'{w * 1e3:.1f}' for w in walls)}), "
             f"{mp / wall:.1f} MP/s, {mb / wall:.1f} MB/s, equal to its "
             f"tiles; {_native._threads()} decoder threads on host CPU {cpu}")
-        if "styled" in name:
+        if "styled" in name or "HTJ2K" in name:
             base = decode_ms["u16 band 84.9 MP"]
-            log(f"jpeg2000: the styled band decodes in {wall * 1e3:.1f} ms "
-                f"against the default band's {base:.1f} ms in this call "
-                f"({wall * 1e3 / base:.3f} x; host clock, medians of 3)")
+            which = "styled" if "styled" in name else "HTJ2K"
+            log(f"jpeg2000: the {which} band decodes in {wall * 1e3:.1f} ms "
+                f"against the default (Part-1) band's {base:.1f} ms in this "
+                f"call ({wall * 1e3 / base:.3f} x; {mp / wall:.1f} against "
+                f"{decode_mps['u16 band 84.9 MP']:.1f} MP/s; host clock, "
+                f"medians of 3)")
         new = name in sub_tiles
+        # the bands held to exact launch counts: two resamples, one of
+        # each CLAHE kernel
+        exact = new or "HTJ2K" in name
         if new:
             base = "u16 band 84.9 MP"
             log(f"jpeg2000: the {name} decodes at {mp / wall:.1f} MP/s "
@@ -4671,7 +4705,7 @@ def phase_jpeg2000(work: Path, smi: str) -> dict:
         read_ms = (time.perf_counter() - t0) * 1e3
         counts = ops.launch_counts()
         if counts["resample_axis0"] <= 0 or (
-                ("styled" in name or new) and counts["resample_axis0"] != 2):
+                ("styled" in name or exact) and counts["resample_axis0"] != 2):
             raise AssertionError(f"jpeg2000: {name}: the decimated read "
                                  f"launched {counts['resample_axis0']} "
                                  f"resamples ({counts})")
@@ -4696,7 +4730,7 @@ def phase_jpeg2000(work: Path, smi: str) -> dict:
         wall = time.perf_counter() - t0
         counts = ops.launch_counts()
         for k in ("histogram", "tile_histogram", "clahe_lookup"):
-            if counts[k] <= 0 or (new and counts[k] != 1):
+            if counts[k] <= 0 or (exact and counts[k] != 1):
                 raise AssertionError(f"jpeg2000: the CLAHE gray save "
                                      f"launched no {k} ({counts})")
         for k, v in counts.items():

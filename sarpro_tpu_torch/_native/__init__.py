@@ -12,8 +12,9 @@ without its library: `available()` is False and the TIFF codec takes its
 pure-Python paths.
 
 The raster decoders (`rasterdec.cpp` beside this file: JPEG, the GIF LZW
-stream and BMP RLE, for io/jpeg.py, io/gif.py and io/bmp.py; `j2kdec.cpp`:
-the JPEG 2000 codestream, for io/jpeg2000.py; `webpdec.cpp`: a WebP frame's
+stream and BMP RLE, for io/jpeg.py, io/gif.py and io/bmp.py; `j2kdec.cpp`
+with its generated `ht_tables.h`: the JPEG 2000 codestream, Part-1 and
+HTJ2K code-blocks, for io/jpeg2000.py; `webpdec.cpp`: a WebP frame's
 VP8 / VP8L and ALPH chunks, for io/webp.py; `rledec.cpp`: the run-length
 scanlines of SGI, TGA, PCX, Sun and PSD files and QOI's op stream, for
 io/sgi.py, io/tga.py, io/pcx.py, io/sun.py, io/psd.py and io/qoi.py;
@@ -159,6 +160,7 @@ RLE_SOURCE = RASTER_SOURCE.with_name("rledec.cpp")
 BCN_SOURCE = RASTER_SOURCE.with_name("bcndec.cpp")
 AV1_SOURCE = RASTER_SOURCE.with_name("av1dec.cpp")
 AV1_TABLES = RASTER_SOURCE.with_name("av1_tables.h")
+HT_TABLES = RASTER_SOURCE.with_name("ht_tables.h")
 # the 9/7 wavelet and the ICT are float code: no FMA contraction
 RASTER_FLAGS = ("-ffp-contract=off",)
 _RASTER: Optional[ctypes.CDLL] = None
@@ -176,7 +178,7 @@ def raster_decoder() -> ctypes.CDLL:
     with _RASTER_LOCK:
         if _RASTER is None and _RASTER_WHY is None:
             so, why = _compile(sources, "libsarpro_rasterdec", RASTER_FLAGS,
-                               (AV1_TABLES,))
+                               (AV1_TABLES, HT_TABLES))
             if so is None:
                 _RASTER_WHY = why
             else:
@@ -376,7 +378,7 @@ def av1_decode_grid(color: tuple, alpha: Optional[tuple], matrix: int,
 AV1_FRAME_INFO = ("width", "coded_width", "height", "superres_denominator",
                   "tile_cols", "tile_rows", "lr_type", "lr_size",
                   "lr_units", "cdef", "deblocking", "grain", "clip_bit",
-                  "mono", "sb128")
+                  "mono", "sb128", "q_bit")
 
 
 def av1_frame_info(obus: bytes) -> dict:
@@ -386,11 +388,11 @@ def av1_frame_info(obus: bytes) -> dict:
     self-guided, 3 switchable) and unit size, `lr_units` the units of all
     planes that take none, Wiener and self-guided, `superres_denominator`
     8 where superres is off, `clip_bit` the bit offset of the film grain's
-    clip_to_restricted_range in `obus` (-1: none); ValueError with the
-    decoder's reason."""
+    clip_to_restricted_range in `obus` (-1: none), `q_bit` that of
+    base_q_idx; ValueError with the decoder's reason."""
     lib = raster_decoder()
     src = np.frombuffer(obus, np.uint8)
-    out = (ctypes.c_int32 * 21)()
+    out = (ctypes.c_int32 * 22)()
     err = ctypes.create_string_buffer(512)
     if lib.av1_frame_info(_u8p(src), len(obus), out, err, len(err)) != 0:
         raise ValueError(err.value.decode("latin-1"))

@@ -543,18 +543,38 @@ int brev(int n, int x) {
 
 struct Tx1D {
   int32_t* T;
+  // the range AV1 §7.13.3 requires of every value a pass stores in T (8 +
+  // BitDepth signed bits in the row transforms, Max(BitDepth + 6, 16) in
+  // the column ones) and of the ADST4's s and x arrays (8 + BitDepth + 12,
+  // §7.13.2.6); `oob` gathers, without a branch, whether a store left it
+  int64_t lo = INT32_MIN, hi = INT32_MAX, s_lo = INT64_MIN / 2, s_hi = INT64_MAX / 2;
+  uint32_t oob = 0;
+  void set_range(int bits, int bit_depth) {
+    lo = -(int64_t{1} << (bits - 1));
+    hi = (int64_t{1} << (bits - 1)) - 1;
+    s_lo = -(int64_t{1} << (bit_depth + 19));
+    s_hi = (int64_t{1} << (bit_depth + 19)) - 1;
+  }
+  int32_t put(int64_t v) {
+    oob |= (uint64_t)(v - lo) > (uint64_t)(hi - lo);
+    return (int32_t)v;
+  }
+  int64_t put_s(int64_t v) {
+    oob |= (uint64_t)(v - s_lo) > (uint64_t)(s_hi - s_lo);
+    return v;
+  }
   void B(int a, int b, int angle, int flip) {
     int64_t x = (int64_t)T[a] * cos128(angle) - (int64_t)T[b] * sin128(angle);
     int64_t y = (int64_t)T[a] * sin128(angle) + (int64_t)T[b] * cos128(angle);
-    T[a] = (int32_t)round2l(x, 12);
-    T[b] = (int32_t)round2l(y, 12);
+    T[a] = put(round2l(x, 12));
+    T[b] = put(round2l(y, 12));
     if (flip) std::swap(T[a], T[b]);
   }
   void H(int a, int b, int flip) {
     if (flip) std::swap(a, b);
-    int32_t x = T[a], y = T[b];
-    T[a] = x + y;
-    T[b] = x - y;
+    int64_t x = T[a], y = T[b];
+    T[a] = put(x + y);
+    T[b] = put(x - y);
   }
   void dct_permute(int n) {
     int32_t c[64];
@@ -565,8 +585,8 @@ struct Tx1D {
   // libaom's inverse DCT (av1_inv_txfm1d.c), stage for stage: the even
   // half is the DCT of half the size, the odd half a rotation stage, then
   // adds and rotations at doubling group sizes, then the merge
-  static int32_t half_btf(int w0, int32_t a, int w1, int32_t b) {
-    return (int32_t)round2l((int64_t)w0 * a + (int64_t)w1 * b, 12);
+  int32_t half_btf(int w0, int32_t a, int w1, int32_t b) {
+    return put(round2l((int64_t)w0 * a + (int64_t)w1 * b, 12));
   }
   static int cospi(int i) { return i == 64 ? 0 : AV1_COSPI[i]; }
   void dct_rec(int32_t* t, int N) {
@@ -579,9 +599,9 @@ struct Tx1D {
     dct_rec(t, N / 2);
     dct_odd(t + N / 2, N / 2, N);
     for (int i = 0; i < N / 2; i++) {
-      int32_t a = t[i], b = t[N - 1 - i];
-      t[i] = a + b;
-      t[N - 1 - i] = a - b;
+      int64_t a = t[i], b = t[N - 1 - i];
+      t[i] = put(a + b);
+      t[N - 1 - i] = put(a - b);
     }
   }
   void dct_odd(int32_t* o, int M, int N) {
@@ -596,13 +616,13 @@ struct Tx1D {
       for (int b0 = 0; b0 < M; b0 += g) {
         bool odd = (b0 / g) & 1;
         for (int k = 0; k < g / 2; k++) {
-          int32_t p = o[b0 + k], q = o[b0 + g - 1 - k];
+          int64_t p = o[b0 + k], q = o[b0 + g - 1 - k];
           if (!odd) {
-            o[b0 + k] = p + q;
-            o[b0 + g - 1 - k] = p - q;
+            o[b0 + k] = put(p + q);
+            o[b0 + g - 1 - k] = put(p - q);
           } else {
-            o[b0 + k] = q - p;
-            o[b0 + g - 1 - k] = p + q;
+            o[b0 + k] = put(q - p);
+            o[b0 + g - 1 - k] = put(p + q);
           }
         }
       }
@@ -656,25 +676,25 @@ struct Tx1D {
   void adst4() {
     const int64_t s19 = AV1_SINPI[1], s29 = AV1_SINPI[2], s39 = AV1_SINPI[3], s49 = AV1_SINPI[4];
     int64_t x0 = T[0], x1 = T[1], x2 = T[2], x3 = T[3];
-    int64_t s0 = s19 * x0, s1 = s29 * x0, s2 = s39 * x1, s3 = s49 * x2;
-    int64_t s4 = s19 * x2, s5 = s29 * x3, s6 = s49 * x3;
+    int64_t s0 = put_s(s19 * x0), s1 = put_s(s29 * x0), s2 = put_s(s39 * x1), s3 = put_s(s49 * x2);
+    int64_t s4 = put_s(s19 * x2), s5 = put_s(s29 * x3), s6 = put_s(s49 * x3);
     int64_t a7 = x0 - x2;
     int64_t b7 = a7 + x3;
-    s0 = s0 + s3;
-    s1 = s1 - s4;
+    s0 = put_s(s0 + s3);
+    s1 = put_s(s1 - s4);
     s3 = s2;
-    s2 = s39 * b7;
-    s0 = s0 + s5;
-    s1 = s1 - s6;
-    x0 = s0 + s3;
-    x1 = s1 + s3;
+    s2 = put_s(s39 * b7);
+    s0 = put_s(s0 + s5);
+    s1 = put_s(s1 - s6);
+    x0 = put_s(s0 + s3);
+    x1 = put_s(s1 + s3);
     x2 = s2;
-    x3 = s0 + s1;
-    x3 = x3 - s3;
-    T[0] = (int32_t)round2l(x0, 12);
-    T[1] = (int32_t)round2l(x1, 12);
-    T[2] = (int32_t)round2l(x2, 12);
-    T[3] = (int32_t)round2l(x3, 12);
+    x3 = put_s(s0 + s1);
+    x3 = put_s(x3 - s3);
+    T[0] = put(round2l(x0, 12));
+    T[1] = put(round2l(x1, 12));
+    T[2] = put(round2l(x2, 12));
+    T[3] = put(round2l(x3, 12));
   }
   void adst8() {
     adst_in_permute(3);
@@ -707,25 +727,25 @@ struct Tx1D {
     int n0 = 1 << n;
     for (int i = 0; i < n0; i++) {
       int64_t t = T[i];
-      if (n == 2) T[i] = (int32_t)round2l(t * 5793, 12);
-      else if (n == 3) T[i] = (int32_t)(t * 2);
-      else if (n == 4) T[i] = (int32_t)round2l(t * 11586, 12);
-      else T[i] = (int32_t)(t * 4);
+      if (n == 2) T[i] = put(round2l(t * 5793, 12));
+      else if (n == 3) T[i] = put(t * 2);
+      else if (n == 4) T[i] = put(round2l(t * 11586, 12));
+      else T[i] = put(t * 4);
     }
   }
   void wht(int shift) {
-    int32_t a = T[0] >> shift, c = T[1] >> shift, d = T[2] >> shift, b = T[3] >> shift;
+    int64_t a = T[0] >> shift, c = T[1] >> shift, d = T[2] >> shift, b = T[3] >> shift;
     a += c;
     d -= b;
-    int32_t e = (a - d) >> 1;
+    int64_t e = (a - d) >> 1;
     b = e - b;
     c = e - c;
     a -= b;
     d += c;
-    T[0] = a;
-    T[1] = b;
-    T[2] = c;
-    T[3] = d;
+    T[0] = put(a);
+    T[1] = put(b);
+    T[2] = put(c);
+    T[3] = put(d);
   }
   // 1-D inverse of kind 0 DCT, 1 ADST, 2 FLIPADST, 3 identity
   void run(int kind, int n) {
@@ -889,6 +909,7 @@ struct Decoder {
   // ---------------------------------------------------------------- OBUs
   const uint8_t* data_start = nullptr;  // the data decode() was given
   int64_t clip_bit = -1;  // clip_to_restricted_range's bit in it (-1: none)
+  int64_t q_bit = -1;     // base_q_idx's first bit in it
   void decode(const uint8_t* data, size_t size) {
     data_start = data;
     size_t pos = 0;
@@ -1203,6 +1224,7 @@ struct Decoder {
     if (!reduced && !disable_cdf_update) b.bit();
     tile_info(b);
     // quantization_params
+    q_bit = (int64_t)(b.p - data_start) * 8 + (int64_t)b.pos;
     base_q_idx = (int)b.f(8);
     dq_y_dc = read_delta_q(b);
     int diff_uv = 0;
@@ -3105,18 +3127,22 @@ struct Decoder {
     int type = plane_tx_type;
     int32_t T[64];
     Tx1D tx{T};
+    const int row_bits = bit_depth + 8, col_bits = imax(bit_depth + 6, 16);
     if (lossless) {
+      tx.set_range(row_bits, bit_depth);
       for (int i = 0; i < 4; i++) {
         for (int j = 0; j < 4; j++) T[j] = R[i][j];
         tx.wht(2);
         for (int j = 0; j < 4; j++) R[i][j] = T[j];
       }
+      tx.set_range(col_bits, bit_depth);
       for (int j = 0; j < 4; j++) {
         for (int i = 0; i < 4; i++) T[i] = R[i][j];
         tx.wht(0);
         for (int i = 0; i < 4; i++) R[i][j] = T[i];
       }
     } else {
+      tx.set_range(row_bits, bit_depth);
       int row_shift = kTransformRowShift[t];
       int hk = kHorzKind[type], vk = kVertKind[type];
       for (int i = 0; i < imin(32, h); i++) {
@@ -3129,12 +3155,16 @@ struct Decoder {
       }
       for (int i = 32; i < h; i++)
         for (int j = 0; j < w; j++) R[i][j] = 0;
+      tx.set_range(col_bits, bit_depth);
       for (int j = 0; j < w; j++) {
         for (int i = 0; i < h; i++) T[i] = R[i][j];
         tx.run(vk, log2h);
         for (int i = 0; i < h; i++) R[i][j] = round2(T[i], 4);
       }
     }
+    // data a conformant encoder never makes: dav1d's C and SIMD transforms
+    // give it different pixels, so there is no one answer to match
+    if (tx.oob) throw NotYet("coefficients past the spec's ranges (non-conformant data)", true);
     Plane& pl = planes[plane];
     for (int i = 0; i < h; i++) {
       pixel* row = pl.at(y + i, x);
@@ -4944,13 +4974,14 @@ extern "C" int64_t av1_decode_grid(const uint8_t* const* tiles, const int64_t* s
 }
 
 // what the decoder's own parse makes of a frame (its tiles decoded, no
-// filter run), into out[21]: the upscaled and coded widths, the height,
+// filter run), into out[22]: the upscaled and coded widths, the height,
 // SuperresDenom (8: superres off), the tile columns and rows, each plane's
 // FrameRestorationType (0 none, 1 Wiener, 2 self-guided, 3 switchable)
 // and LoopRestorationSize, the restoration units of the three planes that
 // take none, Wiener and self-guided, whether CDEF and deblocking run,
 // apply_grain, the bit offset of clip_to_restricted_range in the data (-1:
-// none), mono_chrome and use_128x128_superblock
+// none), mono_chrome, use_128x128_superblock and the bit offset of
+// base_q_idx
 extern "C" int64_t av1_frame_info(const uint8_t* data, int64_t size, int32_t* out, char* err,
                                   int64_t errlen) {
   try {
@@ -4972,6 +5003,7 @@ extern "C" int64_t av1_frame_info(const uint8_t* data, int64_t size, int32_t* ou
     out[18] = (int32_t)d.clip_bit;
     out[19] = d.mono;
     out[20] = d.use_128;
+    out[21] = (int32_t)d.q_bit;
     return 0;
   } catch (const std::exception& e) {
     snprintf(err, (size_t)errlen, "%s", e.what());

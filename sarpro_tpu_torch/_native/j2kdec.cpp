@@ -18,6 +18,14 @@
 //     TERMALL, VSC, PTERM, SEGSYM), OpenJPEG's reconstruction (a decoded
 //     magnitude sits at the middle of its last bit-plane: t1.c's
 //     "oneplushalf"), the RGN maxshift scaling;
+//   * HTJ2K code-blocks (ISO/IEC 15444-15, code-block style 0x40): ht_dec.c's
+//     cleanup pass (MagSgn, MEL and VLC streams, U-VLC, the EMB bits and
+//     exponents; its tables in ht_tables.h, generated from Pillow's
+//     libopenjp2 by ht_tables.py) and its SigProp and MagRef passes (VSC's
+//     stripe-causal context), t2.c's HT segments (the cleanup pass one,
+//     the refinement passes the next), and OpenJPEG's checks: a damaged
+//     block refused or decoded to OpenJPEG's values, its warnings decoding
+//     on with fewer passes;
 //   * dequantisation and the inverse 5/3 (integer, its int32 sums wrapping
 //     as dwt.c's do) and 9/7 (float, dwt.c's lifting constants, the 2/K
 //     high-band scale and order of operations), up to the highest
@@ -33,12 +41,12 @@
 //     offset, the signed offset, the stores to u8 / u16 that wrap, and the
 //     YCbCr to RGB of its sYCC unpackers (ConvertYCbCr.c's tables).
 //
-// Refused with a message that names the feature: HTJ2K code-blocks (styles
-// 0x40 / 0x80; Rsiz bits and a CAP segment over Part-1 code-blocks decode
-// as OpenJPEG decodes them), Part-2 wavelets, quantization, coding styles
-// and multiple component transforms, precisions above 31 bits, and any
-// codestream cut short or malformed where OpenJPEG in Pillow's strict mode
-// refuses it too.
+// Refused with a message that names the feature: mixed HT / Part-1
+// code-blocks (style 0x80, as OpenJPEG refuses them), an ROI shift or more
+// than 3 passes over HT code-blocks (ht_dec.c refuses both), Part-2
+// wavelets, quantization, coding styles and multiple component transforms,
+// precisions above 31 bits, and any codestream cut short or malformed
+// where OpenJPEG in Pillow's strict mode refuses it too.
 #include <algorithm>
 #include <atomic>
 #include <cmath>
@@ -48,6 +56,8 @@
 #include <string>
 #include <thread>
 #include <vector>
+
+#include "ht_tables.h"
 
 namespace {
 
@@ -141,8 +151,10 @@ struct Reader {
   }
 };
 
-// code-block styles (Table A.19)
-enum : int { BYPASS = 0x01, RESET = 0x02, TERMALL = 0x04, VSC = 0x08, SEGSYM = 0x20 };
+// code-block styles (Table A.19; HT and HT_MIXED of ISO/IEC 15444-15)
+enum : int {
+  BYPASS = 0x01, RESET = 0x02, TERMALL = 0x04, VSC = 0x08, SEGSYM = 0x20, HT = 0x40, HT_MIXED = 0x80
+};
 
 // SPcod / SPcoc: levels, code-block size and style, wavelet, precincts
 void read_spcod(Reader& r, size_t end, bool custom_prec, Coding& c) {
@@ -153,7 +165,10 @@ void read_spcod(Reader& r, size_t end, bool custom_prec, Coding& c) {
   if (c.cbw > 10 || c.cbh > 10 || c.cbw + c.cbh > 12)
     fail("invalid code-block size");
   c.style = r.u8();
-  if (c.style & 0xC0) fail("code-block style not decoded by the port: HTJ2K (Part 15) code-blocks");
+  // j2k.c refuses a mixed style as it reads it ("Unsupported Mixed HT
+  // code-block style")
+  if (c.style & HT_MIXED)
+    fail("code-block style not decoded by the port (nor by OpenJPEG): HTJ2K mixed (HT and Part-1) code-blocks");
   c.transform = r.u8();
   if (c.transform > 1) fail("Part-2 wavelet transform (" + std::to_string(c.transform) + ")");
   if (custom_prec) {
@@ -925,7 +940,10 @@ size_t read_packet(const uint8_t* data, size_t pos, size_t end, const Params& p,
         }
         for (int n = cb.newpasses;;) {
           Seg& seg = cb.segs[segno];
-          seg.newpasses = std::min(seg.maxpasses - seg.numpasses, n);
+          // t2.c: an HT block's first segment takes one pass (the cleanup),
+          // any later one all that are left
+          if (style & HT) seg.newpasses = segno == 0 ? 1 : n;
+          else seg.newpasses = std::min(seg.maxpasses - seg.numpasses, n);
           const int bits = cb.lenbits + floorlog2(static_cast<uint32_t>(seg.newpasses));
           if (bits > 32) fail("corrupt code-block length");
           seg.newlen = bio.read(bits);
@@ -1038,6 +1056,295 @@ struct Luts {
   }
 };
 const Luts kLuts;
+
+// ---------------------------------------------------------------------------
+// HTJ2K code-blocks (ITU-T T.814): the three streams of ht_dec.c's cleanup
+// pass and the two of its refinement passes, read as OpenJPEG reads them
+// (its overlapping stores of a stuffed bit included, so damaged data
+// decodes to OpenJPEG's values too)
+// ---------------------------------------------------------------------------
+inline uint32_t le32(const uint8_t* p) {
+  return p[0] | uint32_t{p[1]} << 8 | uint32_t{p[2]} << 16 | uint32_t{p[3]} << 24;
+}
+
+// MEL: read forward from Lcup - Scup, a stuffed bit after each 0xFF, its
+// last byte's low nibble set, then 0xFF; runs of events decoded ahead
+struct HtMel {
+  const uint8_t* data;
+  uint64_t tmp = 0, runs = 0;
+  int bits = 0, size = 0, k = 0, num_runs = 0;
+  bool unstuff = false;
+  // mel_init: the first 1-4 bytes up to the next 4-byte boundary of the
+  // address (`addr` is its low bits), where it refuses a byte above 0x8F
+  // after a 0xFF
+  bool init(const uint8_t* buf, int lcup, int scup, uint32_t addr) {
+    data = buf + lcup - scup;
+    size = scup - 1;
+    const int num = 4 - static_cast<int>(addr & 3);
+    for (int i = 0; i < num; ++i) {
+      if (unstuff && data[0] > 0x8F) return false;
+      uint64_t d = size > 0 ? *data : 0xFF;
+      if (size == 1) d |= 0xF;
+      data += size-- > 0;
+      const int d_bits = 8 - unstuff;
+      tmp = (tmp << d_bits) | d;
+      bits += d_bits;
+      unstuff = (d & 0xFF) == 0xFF;
+    }
+    tmp <<= 64 - bits;
+    return true;
+  }
+  void read() {
+    if (bits > 32) return;
+    uint32_t val = 0xFFFFFFFFu;
+    if (size > 4) {
+      val = le32(data);
+      data += 4;
+      size -= 4;
+    } else if (size > 0) {
+      int i = 0;
+      while (size > 1) {
+        const uint32_t v = *data++, m = ~(0xFFu << i);
+        val = (val & m) | (v << i);
+        --size;
+        i += 8;
+      }
+      const uint32_t v = *data++ | 0xFu, m = ~(0xFFu << i);
+      val = (val & m) | (v << i);
+      --size;
+    }
+    int nbits = 32 - unstuff;
+    uint32_t t = val & 0xFF;
+    bool us = (val & 0xFF) == 0xFF;
+    nbits -= us;
+    t <<= 8 - us;
+    t |= (val >> 8) & 0xFF;
+    us = ((val >> 8) & 0xFF) == 0xFF;
+    nbits -= us;
+    t <<= 8 - us;
+    t |= (val >> 16) & 0xFF;
+    us = ((val >> 16) & 0xFF) == 0xFF;
+    nbits -= us;
+    t <<= 8 - us;
+    t |= (val >> 24) & 0xFF;
+    unstuff = ((val >> 24) & 0xFF) == 0xFF;
+    tmp |= uint64_t{t} << (64 - nbits - bits);
+    bits += nbits;
+  }
+  void decode() {
+    if (bits < 6) read();
+    while (bits >= 6 && num_runs < 8) {
+      int eval = HT_MEL_EXP[k], run;
+      if (tmp & (uint64_t{1} << 63)) {  // a 1: 2^eval events 0
+        run = ((1 << eval) - 1) << 1;
+        k = std::min(k + 1, 12);
+        tmp <<= 1;
+        bits -= 1;
+      } else {  // a 0 and eval bits: that many events 0, then a 1
+        run = (static_cast<int>(tmp >> (63 - eval)) & ((1 << eval) - 1)) * 2 + 1;
+        k = std::max(k - 1, 0);
+        tmp <<= eval + 1;
+        bits -= eval + 1;
+      }
+      eval = num_runs * 7;
+      runs &= ~(uint64_t{0x3F} << eval);
+      runs |= uint64_t(run) << eval;
+      ++num_runs;
+    }
+  }
+  int get_run() {
+    if (num_runs == 0) decode();
+    const int t = static_cast<int>(runs & 0x7F);
+    runs >>= 7;
+    --num_runs;
+    return t;
+  }
+};
+
+// VLC (read backward from Lcup - 2, its first half byte the upper nibble
+// there) and MagRef (backward from the end of the refinement segment): a
+// byte after one above 0x8F loses its top bit where its low 7 are all 1
+struct HtRev {
+  const uint8_t* data;
+  uint64_t tmp = 0;
+  uint32_t bits = 0;
+  int size = 0;
+  bool unstuff = false;
+  void read() {
+    if (bits > 32) return;
+    uint32_t val = 0;
+    if (size > 3) {
+      val = le32(data - 3);
+      data -= 4;
+      size -= 4;
+    } else if (size > 0) {
+      int i = 24;
+      while (size > 0) {
+        const uint32_t v = *data--;
+        val |= v << i;
+        --size;
+        i -= 8;
+      }
+    }
+    uint32_t t = val >> 24;
+    uint32_t nb = 8u - ((unstuff && (((val >> 24) & 0x7F) == 0x7F)) ? 1u : 0u);
+    bool us = (val >> 24) > 0x8F;
+    t |= ((val >> 16) & 0xFF) << nb;
+    nb += 8u - ((us && (((val >> 16) & 0x7F) == 0x7F)) ? 1u : 0u);
+    us = ((val >> 16) & 0xFF) > 0x8F;
+    t |= ((val >> 8) & 0xFF) << nb;
+    nb += 8u - ((us && (((val >> 8) & 0x7F) == 0x7F)) ? 1u : 0u);
+    us = ((val >> 8) & 0xFF) > 0x8F;
+    t |= (val & 0xFF) << nb;
+    nb += 8u - ((us && ((val & 0x7F) == 0x7F)) ? 1u : 0u);
+    us = (val & 0xFF) > 0x8F;
+    tmp |= uint64_t{t} << bits;
+    bits += nb;
+    unstuff = us;
+  }
+  // ht_dec.c's inits read single bytes up to a 4-byte boundary of the
+  // address, then words: the same bits, so words here
+  void init_vlc(const uint8_t* buf, int lcup, int scup) {
+    data = buf + lcup - 2;
+    size = scup - 2;
+    const uint32_t d = *data--;
+    tmp = d >> 4;
+    bits = 4 - ((tmp & 7) == 7);
+    unstuff = (d | 0xF) > 0x8F;
+    read();
+  }
+  void init_mrp(const uint8_t* buf, int lcup, int len2) {
+    data = buf + lcup + len2 - 1;
+    size = len2;
+    unstuff = true;
+    read();
+  }
+  uint32_t fetch() {
+    if (bits < 32) {
+      read();
+      if (bits < 32) read();
+    }
+    return static_cast<uint32_t>(tmp);
+  }
+  uint32_t advance(uint32_t n) {
+    tmp >>= n;
+    bits -= n;
+    return static_cast<uint32_t>(tmp);
+  }
+};
+
+// MagSgn (forward from the block's start, 0xFF past its end) and SigProp
+// (forward from the refinement segment's start, 0 past it): a stuffed bit
+// after each 0xFF
+struct HtFwd {
+  const uint8_t* data;
+  uint64_t tmp = 0;
+  uint32_t bits = 0, X = 0;
+  int size = 0;
+  bool unstuff = false;
+  void read() {
+    uint32_t val;
+    if (size > 3) {
+      val = le32(data);
+      data += 4;
+      size -= 4;
+    } else if (size > 0) {
+      int i = 0;
+      val = X ? 0xFFFFFFFFu : 0;
+      while (size > 0) {
+        const uint32_t v = *data++, m = ~(0xFFu << i);
+        val = (val & m) | (v << i);
+        --size;
+        i += 8;
+      }
+    } else {
+      val = X ? 0xFFFFFFFFu : 0;
+    }
+    uint32_t nb = 8u - (unstuff ? 1u : 0u);
+    uint32_t t = val & 0xFF;
+    bool us = (val & 0xFF) == 0xFF;
+    t |= ((val >> 8) & 0xFF) << nb;
+    nb += 8u - (us ? 1u : 0u);
+    us = ((val >> 8) & 0xFF) == 0xFF;
+    t |= ((val >> 16) & 0xFF) << nb;
+    nb += 8u - (us ? 1u : 0u);
+    us = ((val >> 16) & 0xFF) == 0xFF;
+    t |= ((val >> 24) & 0xFF) << nb;
+    nb += 8u - (us ? 1u : 0u);
+    unstuff = ((val >> 24) & 0xFF) == 0xFF;
+    tmp |= uint64_t{t} << bits;
+    bits += nb;
+  }
+  void init(const uint8_t* p, int n, uint32_t x) {  // frwd_init, in words too
+    data = p;
+    size = n;
+    X = x;
+    read();
+  }
+  uint32_t fetch() {
+    if (bits < 32) {
+      read();
+      if (bits < 32) read();
+    }
+    return static_cast<uint32_t>(tmp);
+  }
+  void advance(uint32_t n) {
+    tmp >>= n;
+    bits -= n;
+  }
+};
+
+// ht_dec.c refuses every HT code-block of a component with an ROI shift
+void t1_refuse_ht_roi(int roishift) {
+  if (roishift != 0) fail("ROI (RGN) shift over HTJ2K code-blocks (OpenJPEG does not decode it either)");
+}
+
+// decode_init_uvlc / decode_noninit_uvlc's prefix table: index the next 3
+// VLC bits; prefix length (bits 0-1), suffix length (2-4), u_pfx (5-7)
+const uint8_t kUvlcDec[8] = {
+    3 | (5 << 2) | (5 << 5), 1 | (0 << 2) | (1 << 5), 2 | (0 << 2) | (2 << 5), 1 | (0 << 2) | (1 << 5),
+    3 | (1 << 2) | (3 << 5), 1 | (0 << 2) | (1 << 5), 2 | (0 << 2) | (2 << 5), 1 | (0 << 2) | (1 << 5)};
+
+// u of the two quads of a pair (kappa 1 added) from the VLC bits `vlc`:
+// `mode` holds their u_off (bit 0 the first quad's), 4 for both with a
+// MEL event 1 in the first quad row; returns the bits used. The first
+// row's mode 3 reads the second quad's u as one bit where the first
+// quad's prefix is 3 bits long (T.814's u_q rule for the initial row).
+uint32_t decode_uvlc(uint32_t vlc, uint32_t mode, uint32_t* u, bool initial) {
+  uint32_t consumed = 0;
+  auto suffix = [&](uint32_t d) {
+    const uint32_t len = (d >> 2) & 7;
+    consumed += len;
+    const uint32_t v = (d >> 5) + (vlc & ((1u << len) - 1));
+    vlc >>= len;
+    return v;
+  };
+  auto prefix = [&]() {
+    const uint32_t d = kUvlcDec[vlc & 7];
+    vlc >>= d & 3;
+    consumed += d & 3;
+    return d;
+  };
+  if (mode == 0) {
+    u[0] = u[1] = 1;
+  } else if (mode <= 2) {
+    const uint32_t d = suffix(prefix());
+    u[0] = mode == 1 ? d + 1 : 1;
+    u[1] = mode == 1 ? 1 : d + 1;
+  } else if (mode == 3 && initial && (kUvlcDec[vlc & 7] & 3) > 2) {
+    const uint32_t d1 = prefix();
+    u[1] = (vlc & 1) + 2;
+    ++consumed;
+    vlc >>= 1;
+    u[0] = suffix(d1) + 1;
+  } else if (mode == 3 || mode == 4) {
+    const uint32_t d1 = prefix(), d2 = prefix();
+    const uint32_t add = mode == 4 ? 3 : 1;
+    u[0] = suffix(d1) + add;
+    u[1] = suffix(d2) + add;
+  }
+  return consumed;
+}
 
 struct T1 {
   std::vector<uint16_t> flags;
@@ -1313,6 +1620,387 @@ struct T1 {
       }
     }
   }
+  // an HT code-block (ht_dec.c's opj_t1_ht_decode_cblk) into data[(y+1)*
+  // stride+x+1], on t1.c's 2x scale: the cleanup pass, then where the block
+  // has them the SigProp and MagRef passes of the next bit-plane. The
+  // checks and warnings are OpenJPEG's: a warning decodes on with fewer
+  // passes.
+  std::vector<uint32_t> hdat, sig1, sig2, mbr1, mbr2;
+  std::vector<uint8_t> line_state;
+  void decode_ht(const uint8_t* src, const Cblk& cb, int Mb, int style, int roishift) {
+    t1_refuse_ht_roi(roishift);
+    w = static_cast<int>(cb.x1 - cb.x0);
+    h = static_cast<int>(cb.y1 - cb.y0);
+    stride = w + 2;
+    data.assign(static_cast<size_t>(stride) * (h + 2), 0);
+    if (cb.chunks.empty()) return;
+    const uint32_t mb = static_cast<uint32_t>(Mb);
+    const uint32_t numbps = static_cast<uint32_t>(cb.numbps);
+    const uint32_t zero_bplanes = (mb + 1) - numbps;
+    size_t cblk_len = 0;
+    for (const auto& ch : cb.chunks) cblk_len += ch.second;
+    buf.resize(cblk_len + 2);
+    size_t off = 0;
+    for (const auto& ch : cb.chunks) {
+      std::memcpy(buf.data() + off, src + ch.first, ch.second);
+      off += ch.second;
+    }
+    // the low bits of the address OpenJPEG reads the block from, which its
+    // MEL reader's checks hang on: one chunk where it lies in the tile's
+    // data (malloc'd, 16-byte aligned), several joined in a buffer of their
+    // own (aligned too)
+    const uint32_t addr = cb.chunks.size() == 1 ? static_cast<uint32_t>(cb.chunks[0].first & 3) : 0;
+    const uint8_t* coded = buf.data();
+    uint32_t num_passes = cb.numsegs > 0 ? cb.segs[0].numpasses : 0;
+    num_passes += cb.numsegs > 1 ? cb.segs[1].numpasses : 0;
+    const uint32_t lengths1 = num_passes > 0 ? cb.segs[0].len : 0;
+    const uint32_t lengths2 = num_passes > 1 ? cb.segs[1].len : 0;
+    // a 2nd (and 3rd) pass of no bytes: OpenJPEG warns and decodes the
+    // cleanup pass alone
+    if (num_passes > 1 && lengths2 == 0) num_passes = 1;
+    if (num_passes > 3)
+      fail("HTJ2K code-block of more than 3 coding passes (" + std::to_string(num_passes) +
+           "; OpenJPEG does not decode it either)");
+    if (mb > 30) fail("HTJ2K code-block of more than 30 bit-planes (" + std::to_string(mb) + ")");
+    if (zero_bplanes > mb)
+      fail("malformed HTJ2K code-block: " + std::to_string(zero_bplanes) + " zero bit-planes in " +
+           std::to_string(mb) + " bit-planes");
+    if (zero_bplanes == mb && num_passes > 1) num_passes = 1;  // OpenJPEG warns once
+    const uint32_t p = numbps, zero_bplanes_p1 = zero_bplanes + 1;
+    if (lengths1 < 2 || lengths1 > cblk_len || size_t{lengths1} + lengths2 > cblk_len)
+      fail("malformed HTJ2K code-block: invalid code-block length values");
+    const int lcup = static_cast<int>(lengths1);
+    const int scup = (static_cast<int>(coded[lcup - 1]) << 4) + (coded[lcup - 2] & 0xF);
+    if (scup < 2 || scup > lcup || scup > 4079)
+      fail("malformed HTJ2K code-block: Scup outside 2 <= Scup <= min(Lcup, 4079)");
+    HtMel mel;
+    if (!mel.init(coded, lcup, scup, addr + static_cast<uint32_t>(lcup - scup)))
+      fail("malformed HTJ2K code-block: incorrect MEL segment sequence");
+    HtRev vlc, magref;
+    vlc.init_vlc(coded, lcup, scup);
+    HtFwd magsgn, sigprop;
+    magsgn.init(coded, lcup - scup, 0xFF);
+    if (num_passes > 1) sigprop.init(coded + lengths1, static_cast<int>(lengths2), 0);
+    if (num_passes > 2) magref.init_mrp(coded, lcup, static_cast<int>(lengths2));
+
+    const int width = w, height = h;
+    // a word of sigma / mbr: 4 rows x 8 columns, a column's rows in a
+    // nibble; one word past the last group is read and written
+    const size_t words = static_cast<size_t>((width + 7) / 8) + 2;
+    hdat.assign(static_cast<size_t>(width) * height, 0);
+    sig1.assign(words, 0);
+    sig2.assign(words, 0);
+    mbr1.assign(words, 0);
+    mbr2.assign(words, 0);
+    line_state.assign(static_cast<size_t>(width) + 8, 0);
+    uint32_t* const dec = hdat.data();
+    uint32_t* const sigma1 = sig1.data();
+    uint32_t* const sigma2 = sig2.data();
+    uint32_t* const mbrs1 = mbr1.data();
+    uint32_t* const mbrs2 = mbr2.data();
+    const bool stripe_causal = style & VSC;
+
+    // one significant sample n (0-3) of quad info qi: its MagSgn bits and
+    // value; returns v_n for the exponent (E = its bit length)
+    auto sample = [&](uint32_t qi, uint32_t uq, int n, uint32_t* dst) {
+      const uint32_t ms_val = magsgn.fetch();
+      const uint32_t m_n = uq - ((qi >> (12 + n)) & 1);
+      magsgn.advance(m_n);
+      const uint32_t val = ms_val << 31;
+      uint32_t v_n = ms_val & ((1u << m_n) - 1);
+      v_n |= ((qi >> (8 + n)) & 1) << m_n;
+      v_n |= 1;
+      *dst = val | ((v_n + 2) << (p - 1));
+      return v_n;
+    };
+    auto bitlen = [](uint32_t v) { return static_cast<uint32_t>(32 - __builtin_clz(v)); };
+    // the four samples of a quad at sp (columns sp, sp + 1; rows 0, 1),
+    // lsp its line-state byte: the significant ones decoded, the others
+    // inside the block zeroed
+    auto quad = [&](uint32_t qi, uint32_t uq, uint32_t locs, int q, uint32_t*& sp, uint8_t*& lsp) {
+      const int b = 4 * q;
+      if (qi & 0x10) sample(qi, uq, 0, sp);
+      else if (locs & (1u << b)) sp[0] = 0;
+      if (qi & 0x20) {
+        const uint32_t t = lsp[0] & 0x7F, e = bitlen(sample(qi, uq, 1, sp + width));
+        lsp[0] = static_cast<uint8_t>(0x80 | (t > e ? t : e));
+      } else if (locs & (2u << b)) {
+        sp[width] = 0;
+      }
+      ++lsp;
+      ++sp;
+      if (qi & 0x40) sample(qi, uq, 2, sp);
+      else if (locs & (4u << b)) sp[0] = 0;
+      lsp[0] = 0;
+      if (qi & 0x80) lsp[0] = static_cast<uint8_t>(0x80 | bitlen(sample(qi, uq, 3, sp + width)));
+      else if (locs & (8u << b)) sp[width] = 0;
+      ++sp;
+    };
+    auto mel_event = [&](int& run) {  // one MEL event: true for a 1
+      run -= 2;
+      const bool one = run == -1;
+      if (run < 0) run = mel.get_run();
+      return one;
+    };
+
+    // the first quad row
+    uint8_t* lsp = line_state.data();
+    lsp[0] = 0;
+    int run = mel.get_run();
+    uint32_t qinf[2] = {0, 0}, c_q = 0;
+    uint32_t* sp = dec;
+    uint32_t* sip = sigma1;
+    uint32_t sip_shift = 0;
+    for (int x = 0; x < width; x += 4) {
+      uint32_t U_q[2];
+      uint32_t vlc_val = vlc.fetch();
+      qinf[0] = HT_VLC_TBL0[(c_q << 7) | (vlc_val & 0x7F)];
+      if (c_q == 0 && !mel_event(run)) qinf[0] = 0;
+      c_q = ((qinf[0] & 0x10) >> 4) | ((qinf[0] & 0xE0) >> 5);
+      vlc_val = vlc.advance(qinf[0] & 0x7);
+      *sip |= (((qinf[0] & 0x30) >> 4) | ((qinf[0] & 0xC0) >> 2)) << sip_shift;
+      qinf[1] = 0;
+      if (x + 2 < width) {
+        qinf[1] = HT_VLC_TBL0[(c_q << 7) | (vlc_val & 0x7F)];
+        if (c_q == 0 && !mel_event(run)) qinf[1] = 0;
+        c_q = ((qinf[1] & 0x10) >> 4) | ((qinf[1] & 0xE0) >> 5);
+        vlc_val = vlc.advance(qinf[1] & 0x7);
+      }
+      *sip |= (((qinf[1] & 0x30) | ((qinf[1] & 0xC0) << 2))) << (4 + sip_shift);
+      sip += x & 0x7 ? 1 : 0;
+      sip_shift ^= 0x10;
+      uint32_t uvlc_mode = ((qinf[0] & 0x8) >> 3) | ((qinf[1] & 0x8) >> 2);
+      if (uvlc_mode == 3 && mel_event(run)) ++uvlc_mode;
+      const uint32_t consumed = decode_uvlc(vlc_val, uvlc_mode, U_q, true);
+      if (U_q[0] > zero_bplanes_p1 || U_q[1] > zero_bplanes_p1)
+        fail("malformed HTJ2K code-block: U_q is larger than zero bit-planes + 1");
+      vlc.advance(consumed);
+      uint32_t locs = 0xFF;
+      if (x + 4 > width) locs >>= (x + 4 - width) << 1;
+      locs = height > 1 ? locs : (locs & 0x55);
+      if ((((qinf[0] & 0xF0) >> 4) | (qinf[1] & 0xF0)) & ~locs)
+        fail("malformed HTJ2K code-block: VLC code produces significant samples outside the code-block area");
+      quad(qinf[0], U_q[0], locs, 0, sp, lsp);
+      quad(qinf[1], U_q[1], locs, 1, sp, lsp);
+    }
+
+    // the next quad rows, and the refinement passes stripe by stripe
+    // (MagRef as a stripe completes, SigProp one stripe later)
+    auto stripe_mbr = [&](uint32_t* sig, uint32_t* mbr) {  // within the stripe
+      uint32_t prev = 0;
+      for (int i = 0; i < width; i += 8, ++mbr, ++sig) {
+        mbr[0] = sig[0] | prev >> 28 | sig[0] << 4 | sig[0] >> 4 | sig[1] << 28;
+        prev = sig[0];
+        const uint32_t t = mbr[0];
+        uint32_t z = t;
+        z |= (t & 0x77777777u) << 1;
+        z |= (t & 0xEEEEEEEEu) >> 1;
+        mbr[0] = z & ~sig[0];
+      }
+    };
+    auto magref_stripe = [&](uint32_t* cur_sig, uint32_t* dpp) {
+      const uint32_t half = 1u << (p - 2);
+      for (int i = 0; i < width; i += 8) {
+        uint32_t cwd = magref.fetch();
+        const uint32_t sig = *cur_sig++;
+        uint32_t col_mask = 0xFu;
+        uint32_t* dp = dpp + i;
+        if (sig) {
+          for (int j = 0; j < 8; ++j, ++dp, col_mask <<= 4) {
+            if (!(sig & col_mask)) continue;
+            uint32_t sample_mask = 0x11111111u & col_mask;
+            for (int r = 0; r < 4; ++r, sample_mask += sample_mask) {
+              if (sig & sample_mask) {
+                const uint32_t sym = cwd & 1;
+                dp[r * width] ^= (1 - sym) << (p - 1);
+                dp[r * width] |= half;
+                cwd >>= 1;
+              }
+            }
+          }
+        }
+        magref.advance(static_cast<uint32_t>(__builtin_popcount(sig)));
+      }
+    };
+    // membership from the next stripe's significance (none under VSC)
+    auto add_next = [&](uint32_t* cur_sig, uint32_t* cur_mbr, uint32_t* nxt_sig) {
+      uint32_t prev = 0;
+      for (int i = 0; i < width; i += 8, ++cur_mbr, ++cur_sig, ++nxt_sig) {
+        uint32_t t = nxt_sig[0];
+        t |= prev >> 28;
+        t |= nxt_sig[0] << 4;
+        t |= nxt_sig[0] >> 4;
+        t |= nxt_sig[1] << 28;
+        prev = nxt_sig[0];
+        if (!stripe_causal) cur_mbr[0] |= (t & 0x11111111u) << 3;
+        cur_mbr[0] &= ~cur_sig[0];
+      }
+    };
+    // SigProp over the stripe at row y0 (`pattern` its rows inside the
+    // block), its new significance carried into the next stripe's mbr
+    auto sigprop_stripe = [&](int y0, uint32_t* cur_sig, uint32_t* cur_mbr, uint32_t* nxt_sig,
+                              uint32_t* nxt_mbr, uint32_t pattern) {
+      const uint32_t val = 3u << (p - 2);
+      for (int i = 0; i < width; i += 8, ++cur_sig, ++cur_mbr, ++nxt_sig, ++nxt_mbr) {
+        uint32_t mbr = *cur_mbr & pattern;
+        uint32_t new_sig = 0;
+        if (mbr) {
+          for (int n = 0; n < 8; n += 4) {
+            uint32_t cwd = sigprop.fetch();
+            uint32_t cnt = 0;
+            uint32_t* dp = dec + static_cast<size_t>(y0) * width + i + n;
+            uint32_t col_mask = 0xFu << (4 * n);
+            const uint32_t inv_sig = ~cur_sig[0] & pattern;
+            const int end = n + 4 + i < width ? n + 4 : width - i;
+            static const uint32_t kSpread[4] = {0x32u, 0x74u, 0xE8u, 0xC0u};
+            for (int j = n; j < end; ++j, ++dp, col_mask <<= 4) {
+              if ((col_mask & mbr) == 0) continue;
+              uint32_t sample_mask = 0x11111111u & col_mask;
+              for (int r = 0; r < 4; ++r, sample_mask += sample_mask) {
+                if (mbr & sample_mask) {
+                  if (cwd & 1) {
+                    new_sig |= sample_mask;
+                    mbr |= (kSpread[r] << (j * 4)) & inv_sig;
+                  }
+                  cwd >>= 1;
+                  ++cnt;
+                }
+              }
+            }
+            if (new_sig & (0xFFFFu << (4 * n))) {
+              dp = dec + static_cast<size_t>(y0) * width + i + n;
+              col_mask = 0xFu << (4 * n);
+              for (int j = n; j < end; ++j, ++dp, col_mask <<= 4) {
+                if ((col_mask & new_sig) == 0) continue;
+                uint32_t sample_mask = 0x11111111u & col_mask;
+                for (int r = 0; r < 4; ++r, sample_mask += sample_mask) {
+                  if (new_sig & sample_mask) {
+                    dp[r * width] |= ((cwd & 1) << 31) | val;
+                    cwd >>= 1;
+                    ++cnt;
+                  }
+                }
+              }
+            }
+            sigprop.advance(cnt);
+            if (n == 4) {
+              uint32_t t = new_sig >> 28;
+              t |= ((t & 0xE) >> 1) | ((t & 7) << 1);
+              cur_mbr[1] |= t & ~cur_sig[1];
+            }
+          }
+        }
+        new_sig |= cur_sig[0];
+        const uint32_t ux = (new_sig & 0x88888888u) >> 3;
+        const uint32_t tx = ux | (ux << 4) | (ux >> 4);
+        if (i > 0) nxt_mbr[-1] |= (ux << 28) & ~nxt_sig[-1];
+        nxt_mbr[0] |= tx & ~nxt_sig[0];
+        nxt_mbr[1] |= (ux >> 28) & ~nxt_sig[1];
+      }
+    };
+
+    for (int y = 2; y < height;) {
+      sip_shift ^= 0x2;
+      sip_shift &= 0xFFFFFFEFu;
+      sip = y & 0x4 ? sigma2 : sigma1;
+      lsp = line_state.data();
+      uint8_t ls0 = lsp[0];
+      lsp[0] = 0;
+      sp = dec + static_cast<size_t>(y) * width;
+      c_q = 0;
+      for (int x = 0; x < width; x += 4) {
+        uint32_t U_q[2];
+        c_q |= ls0 >> 7;
+        c_q |= (lsp[1] >> 5) & 0x4;
+        uint32_t vlc_val = vlc.fetch();
+        qinf[0] = HT_VLC_TBL1[(c_q << 7) | (vlc_val & 0x7F)];
+        if (c_q == 0 && !mel_event(run)) qinf[0] = 0;
+        c_q = ((qinf[0] & 0x40) >> 5) | ((qinf[0] & 0x80) >> 6);
+        vlc_val = vlc.advance(qinf[0] & 0x7);
+        *sip |= (((qinf[0] & 0x30) >> 4) | ((qinf[0] & 0xC0) >> 2)) << sip_shift;
+        qinf[1] = 0;
+        if (x + 2 < width) {
+          c_q |= lsp[1] >> 7;
+          c_q |= (lsp[2] >> 5) & 0x4;
+          qinf[1] = HT_VLC_TBL1[(c_q << 7) | (vlc_val & 0x7F)];
+          if (c_q == 0 && !mel_event(run)) qinf[1] = 0;
+          c_q = ((qinf[1] & 0x40) >> 5) | ((qinf[1] & 0x80) >> 6);
+          vlc_val = vlc.advance(qinf[1] & 0x7);
+        }
+        *sip |= (((qinf[1] & 0x30) | ((qinf[1] & 0xC0) << 2))) << (4 + sip_shift);
+        sip += x & 0x7 ? 1 : 0;
+        sip_shift ^= 0x10;
+        const uint32_t uvlc_mode = ((qinf[0] & 0x8) >> 3) | ((qinf[1] & 0x8) >> 2);
+        vlc.advance(decode_uvlc(vlc_val, uvlc_mode, U_q, false));
+        // kappa: E^max of the quads above where the quad has more than one
+        // significant sample (T.814 eqs. 5, 6)
+        if ((qinf[0] & 0xF0) & ((qinf[0] & 0xF0) - 1)) {
+          const uint32_t E = std::max<uint32_t>(ls0 & 0x7Fu, lsp[1] & 0x7Fu);
+          U_q[0] += E > 2 ? E - 2 : 0;
+        }
+        if ((qinf[1] & 0xF0) & ((qinf[1] & 0xF0) - 1)) {
+          const uint32_t E = std::max<uint32_t>(lsp[1] & 0x7Fu, lsp[2] & 0x7Fu);
+          U_q[1] += E > 2 ? E - 2 : 0;
+        }
+        if (U_q[0] > zero_bplanes_p1 || U_q[1] > zero_bplanes_p1)
+          fail("malformed HTJ2K code-block: U_q is larger than bit-planes + 1");
+        ls0 = lsp[2];
+        lsp[1] = lsp[2] = 0;
+        uint32_t locs = 0xFF;
+        if (x + 4 > width) locs >>= (x + 4 - width) << 1;
+        locs = y + 2 <= height ? locs : (locs & 0x55);
+        if ((((qinf[0] & 0xF0) >> 4) | (qinf[1] & 0xF0)) & ~locs)
+          fail("malformed HTJ2K code-block: VLC code produces significant samples outside the code-block area");
+        quad(qinf[0], U_q[0], locs, 0, sp, lsp);
+        quad(qinf[1], U_q[1], locs, 1, sp, lsp);
+      }
+      y += 2;
+      if (num_passes > 1 && (y & 3) == 0) {
+        if (num_passes > 2)
+          magref_stripe(y & 0x4 ? sigma1 : sigma2, dec + static_cast<size_t>(y - 4) * width);
+        if (y >= 4) stripe_mbr(y & 0x4 ? sigma1 : sigma2, y & 0x4 ? mbrs1 : mbrs2);
+        if (y >= 8) {
+          uint32_t* cur_sig = y & 0x4 ? sigma2 : sigma1;
+          uint32_t* cur_mbr = y & 0x4 ? mbrs2 : mbrs1;
+          uint32_t* nxt_sig = y & 0x4 ? sigma1 : sigma2;
+          uint32_t* nxt_mbr = y & 0x4 ? mbrs1 : mbrs2;
+          add_next(cur_sig, cur_mbr, nxt_sig);
+          sigprop_stripe(y - 8, cur_sig, cur_mbr, nxt_sig, nxt_mbr, 0xFFFFFFFFu);
+          std::memset(cur_sig, 0, ((((static_cast<uint32_t>(width) + 7u) >> 3) + 1u) << 2));
+        }
+      }
+    }
+
+    // the stripes the loop left: MagRef and mbr of a last stripe of 1 or 2
+    // rows, then SigProp of the last one or two stripes
+    if (num_passes > 1) {
+      if (num_passes > 2 && ((height & 3) == 1 || (height & 3) == 2))
+        magref_stripe(height & 0x4 ? sigma2 : sigma1, dec + static_cast<size_t>(height & 0xFFFFFC) * width);
+      if ((height & 3) == 1 || (height & 3) == 2)
+        stripe_mbr(height & 0x4 ? sigma2 : sigma1, height & 0x4 ? mbrs2 : mbrs1);
+      const int st = height - (height > 6 ? ((height + 1) & 3) + 3 : height);
+      for (int y = st; y < height; y += 4) {
+        const uint32_t pattern = height - y == 3 ? 0x77777777u : height - y == 2 ? 0x33333333u
+                                 : height - y == 1 ? 0x11111111u : 0xFFFFFFFFu;
+        uint32_t* cur_sig = y & 0x4 ? sigma2 : sigma1;
+        uint32_t* cur_mbr = y & 0x4 ? mbrs2 : mbrs1;
+        uint32_t* nxt_sig = y & 0x4 ? sigma1 : sigma2;
+        uint32_t* nxt_mbr = y & 0x4 ? mbrs1 : mbrs2;
+        if (height - y > 4) add_next(cur_sig, cur_mbr, nxt_sig);
+        sigprop_stripe(y, cur_sig, cur_mbr, nxt_sig, nxt_mbr, pattern);
+      }
+    }
+
+    // sign and magnitude to two's complement, into the Part-1 layout
+    for (int y = 0; y < height; ++y) {
+      const uint32_t* srow = dec + static_cast<size_t>(y) * width;
+      int32_t* row = data.data() + static_cast<size_t>(y + 1) * stride + 1;
+      for (int x = 0; x < width; ++x) {
+        const int32_t v = static_cast<int32_t>(srow[x] & 0x7FFFFFFF);
+        row[x] = (srow[x] & 0x80000000u) ? -v : v;
+      }
+    }
+  }
 };
 
 // ---------------------------------------------------------------------------
@@ -1585,7 +2273,9 @@ void decode_tile(const Codestream& cs, int tile, int threads, const Output& o, H
         for (const Precinct& pr : band.precs)
           for (const Cblk& cb : pr.cblks) {
             // t1.c tries every code-block: one never included has 0 bit-planes
+            // (an HT one decodes to zeros, where no ROI shift refuses it)
             if (!cb.chunks.empty()) jobs.push_back({c, &band, &cb});
+            else if (prm.coding[c].style & HT) t1_refuse_ht_roi(prm.roishift[c]);
             else if (prm.roishift[c] >= 31) fail("a code-block of more than 30 bit-planes (its ROI shift included)");
           }
   }
@@ -1595,7 +2285,9 @@ void decode_tile(const Codestream& cs, int tile, int threads, const Output& o, H
     TileComp& tc = tcs[job.comp];
     const Band& band = *job.band;
     const Cblk& cb = *job.cb;
-    t1.decode_cblk(data, cb, band.orient, prm.coding[job.comp].style, prm.roishift[job.comp]);
+    const int style = prm.coding[job.comp].style;
+    if (style & HT) t1.decode_ht(data, cb, band.Mb, style, prm.roishift[job.comp]);
+    else t1.decode_cblk(data, cb, band.orient, style, prm.roishift[job.comp]);
     const int64_t W = tc.w();
     const int64_t x = cb.x0 - band.x0 + band.xoff, y = cb.y0 - band.y0 + band.yoff;
     for (int yy = 0; yy < t1.h; ++yy) {

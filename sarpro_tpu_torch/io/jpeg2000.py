@@ -31,11 +31,13 @@ up-sampling would give. The codestream's coding options are decoded as
 OpenJPEG decodes them: the six code-block styles (BYPASS, RESET, TERMALL,
 VSC, PTERM, SEGSYM), region-of-interest shifts (RGN), progression order
 changes (POC), packed packet headers (PPM / PPT), SOP / EPH, precisions up
-to 31 bits, Rsiz capability bits and CAP segments over Part-1
-code-blocks. Refused as RasterError naming the feature: HTJ2K code-blocks,
-Part-2 wavelets, quantization, coding styles and multiple component
-transforms (their markers), and a codestream cut short or malformed where
-OpenJPEG refuses it. Pillow's `info` holds no strings for a JPEG 2000 file
+to 31 bits, Rsiz capability bits and CAP segments, and HTJ2K code-blocks
+(ISO/IEC 15444-15: the cleanup, SigProp and MagRef passes, as OpenJPEG's
+ht_dec.c decodes them). Refused as RasterError naming the feature: mixed
+HT / Part-1 code-blocks, an ROI shift or more than 3 passes over HT
+code-blocks (OpenJPEG refuses all three), Part-2 wavelets, quantization,
+coding styles and multiple component transforms (their markers), and a
+codestream cut short or malformed where OpenJPEG refuses it. Pillow's `info` holds no strings for a JPEG 2000 file
 (the comment is bytes), so the text is empty."""
 from __future__ import annotations
 

@@ -555,7 +555,6 @@ def test_patched_feature_rgb_equals_jax(tmp_path, rng, feature):
 
 
 REFUSALS = {
-    "ht blocks": (lambda c: _style(c, 0x40), "HTJ2K"),
     "ht mixed blocks": (lambda c: _style(c, 0xC0), "HTJ2K"),
     "32 bits": (lambda c: _patch_precision(c, 32), "above 31 bits"),
 }
@@ -565,10 +564,30 @@ REFUSALS = {
 def test_refused_feature_is_named(tmp_path, rng, feature):
     """A header patched for each feature the port does not decode: the
     port raises RasterError naming it, and so does the JAX reader (HT
-    code-blocks decoded from Part-1 data; more bits than OpenJPEG's 31)."""
+    code-blocks mixed with Part-1 ones; more bits than OpenJPEG's 31)."""
     patch, match = REFUSALS[feature]
     code = patch(_encode(_scene(rng, (24, 32)), "L", no_jp2=True))
     _both_refuse(_write(tmp_path, code, "r.j2k"), match)
+
+
+# the HT style bit patched over Part-1 data, which the port once refused
+# by name and now decodes as OpenJPEG does (tests/test_torch_jpeg2000_ht.py
+# holds real HT code-blocks)
+HT_OVER_PART1 = {
+    "ht blocks": lambda c: _style(c, 0x40),
+    "ht vsc blocks": lambda c: _style(c, 0x48),
+}
+
+
+@pytest.mark.parametrize("feature", list(HT_OVER_PART1))
+def test_ht_style_over_part1_data_is_read_as_by_jax(tmp_path, rng, feature):
+    """Part-1 code-blocks read as HT ones: each block's Part-1 passes (up
+    to 3 a bit-plane) count as HT passes, more than 3 of which OpenJPEG's
+    HT decoder refuses; both readers refuse the file, the port naming the
+    HTJ2K pass count."""
+    code = HT_OVER_PART1[feature](
+        _encode(_scene(rng, (24, 32)), "L", no_jp2=True))
+    _both_refuse(_write(tmp_path, code, "r.j2k"), "HTJ2K")
 
 
 def _retag_com(code: bytes, marker: int) -> bytes:
